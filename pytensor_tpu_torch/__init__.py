@@ -1,0 +1,23 @@
+"""pytensor_tpu_torch: the PyTorch and CUDA port of pytensor_tpu.
+
+The same graph IR, rewrite engine and gradient machinery as the JAX
+package, linked to eager torch on an explicit device; the fused
+elementwise chains and the radon leapfrog chain run as hand-written
+Hopper kernels (``tensor/fused_kernel.py``, ``csrc/radon_leapfrog.cu``).
+This package imports torch and never jax or pytensor_tpu.
+"""
+
+from pytensor_tpu_torch.config import config  # noqa: F401
+
+__version__ = "0.1.0"
+
+from pytensor_tpu_torch.graph.basic import Apply, Constant, Variable  # noqa: F401
+from pytensor_tpu_torch.graph.fg import FunctionGraph  # noqa: F401
+from pytensor_tpu_torch.graph.op import Op  # noqa: F401
+from pytensor_tpu_torch.compile.mode import FAST_RUN, Mode, get_mode  # noqa: F401
+from pytensor_tpu_torch.gradient import grad, pullback  # noqa: F401
+
+import pytensor_tpu_torch.tensor as tensor  # noqa: F401
+
+# rewrite packs register into optdb at import time
+import pytensor_tpu_torch.tensor.rewriting  # noqa: F401

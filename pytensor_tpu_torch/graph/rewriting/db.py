@@ -1,0 +1,124 @@
+"""Tag-based rewrite registry and query.
+
+Parallels PyTensor's graph/rewriting/db.py
+(RewriteDatabase:18, RewriteDatabaseQuery:186, EquilibriumDB:297,
+SequenceDB:378).  Modes query the global ``optdb`` with a set of tags to
+assemble their pass pipeline.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+from pytensor_tpu_torch.graph.rewriting.basic import (
+    EquilibriumGraphRewriter,
+    SequentialGraphRewriter,
+    SequentialNodeRewriter,
+    WalkingGraphRewriter,
+)
+
+
+class RewriteDatabase:
+    def __init__(self):
+        self._names: dict[str, object] = {}
+        self._tags: dict[str, set[str]] = {}
+
+    def register(self, name: str, rewriter, *tags):
+        if name in self._names:
+            raise ValueError(f"Rewrite name collision: {name}")
+        self._names[name] = rewriter
+        tagset = {name, *tags}
+        if getattr(self, "name", None):
+            tagset.add(self.name)
+        self._tags[name] = tagset
+        return rewriter
+
+    def __contains__(self, name):
+        return name in self._names
+
+    def __getitem__(self, name):
+        return self._names[name]
+
+    def _selected(self, name, query: "RewriteDatabaseQuery") -> bool:
+        if isinstance(self._names[name], RewriteDatabase):
+            # a sub-db always descends: its members filter themselves
+            return True
+        return bool(self._tags[name] & query.include)
+
+    def query(self, query: "RewriteDatabaseQuery"):
+        raise NotImplementedError
+
+
+class RewriteDatabaseQuery:
+    """The tags that select rewrites from a database: a rewrite is selected
+    when it carries any of them."""
+
+    def __init__(self, include: Iterable[str]):
+        self.include = frozenset(include)
+
+    def including(self, *tags) -> "RewriteDatabaseQuery":
+        return RewriteDatabaseQuery(self.include | set(tags))
+
+    def __str__(self):
+        return f"RewriteDatabaseQuery(inc={sorted(self.include)})"
+
+
+class SequenceDB(RewriteDatabase):
+    """Position-ordered database; query returns a SequentialGraphRewriter."""
+
+    seq_rewriter = SequentialGraphRewriter
+
+    def __init__(self, name=None):
+        super().__init__()
+        self.positions: dict[str, float] = {}
+        self.name = name
+
+    def register(self, name, rewriter, *tags, position: float = 50.0):
+        super().register(name, rewriter, *tags)
+        self.positions[name] = float(position)
+        return rewriter
+
+    def query(self, query: RewriteDatabaseQuery):
+        selected = []
+        for name, rewriter in self._names.items():
+            if not self._selected(name, query):
+                continue
+            if isinstance(rewriter, RewriteDatabase):
+                rewriter = rewriter.query(query)
+            selected.append((self.positions[name], rewriter))
+        selected.sort(key=lambda t: t[0])
+        return self.seq_rewriter([r for _, r in selected], name=self.name)
+
+
+class EquilibriumDB(RewriteDatabase):
+    """Database whose query returns an EquilibriumGraphRewriter over the
+    selected node rewriters."""
+
+    def __init__(self, name=None):
+        super().__init__()
+        self.name = name
+
+    def query(self, query: RewriteDatabaseQuery):
+        selected = []
+        for name, rewriter in self._names.items():
+            if not self._selected(name, query):
+                continue
+            if isinstance(rewriter, RewriteDatabase):
+                rewriter = rewriter.query(query)
+            selected.append(rewriter)
+        return EquilibriumGraphRewriter(selected, name=self.name)
+
+
+class TopoDB(RewriteDatabase):
+    """Database of node rewriters applied in a single topological pass."""
+
+    def __init__(self, name=None):
+        super().__init__()
+        self.name = name
+
+    def query(self, query):
+        selected = [
+            r for name, r in self._names.items() if self._selected(name, query)
+        ]
+        return WalkingGraphRewriter(SequentialNodeRewriter(*selected, name=self.name),
+                                    name=self.name)

@@ -1,0 +1,410 @@
+"""torch lowerings of the ops: the ``torch_funcify`` registry.
+
+Counterpart of ``pytensor_tpu/link/xla/dispatch.py`` (``xla_funcify:27``
+and the lowerings at ``:155-693``).  ``torch_funcify(op, node=node,
+device=device)`` returns a function of torch tensors.  Shape values
+(``Shape``, ``Shape_i`` and the arithmetic on them) stay on the host, so
+a reshape never waits on the device.
+
+Integer indices are checked explicitly: an out-of-range index on CUDA is
+a device-side assert, and that poisons the whole CUDA context.  Constant
+indices are checked when the graph is linked, where the axis length is
+static, and against the runtime length otherwise; dynamic indices are
+checked on each call (one device-to-host read).  The JAX path clamps and
+the numpy oracle raises; the port raises.
+"""
+
+from __future__ import annotations
+
+from functools import singledispatch
+
+import numpy as np
+import torch
+
+from pytensor_tpu_torch.graph.basic import Constant
+from pytensor_tpu_torch.link.torch.convert import torch_dtype
+from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector
+from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
+from pytensor_tpu_torch.tensor.fused import FusedElemwise
+from pytensor_tpu_torch.tensor.math import Dot
+from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape
+from pytensor_tpu_torch.tensor.subtensor import (
+    DYN,
+    AdvancedIncSubtensor,
+    AdvancedIncSubtensor1,
+    AdvancedSubtensor,
+    AdvancedSubtensor1,
+    IncSubtensor,
+    Subtensor,
+)
+
+
+@singledispatch
+def torch_funcify(op, node=None, device=None, **kwargs):
+    """Return a python callable computing ``op`` on torch tensors."""
+    raise NotImplementedError(f"No torch lowering for {op} ({type(op).__name__})")
+
+
+# --- elementwise --------------------------------------------------------------
+
+def elemwise_fn(node):
+    """torch implementation of one Elemwise node.
+
+    Operands are cast to the node's output dtype before the op, which is
+    numpy's rule of computing in the promoted dtype; torch's own promotion
+    would let a 0-d float64 operand be computed at float32.
+    """
+    so = node.op.scalar_op
+    fn = so.torch_fn
+    if so.name == "second" or so.name.startswith("cast{"):
+        return fn
+    out = torch_dtype(node.outputs[0].type.dtype)
+
+    def elemwise(*args):
+        return fn(*[a if a.dtype == out else a.to(out) for a in args])
+
+    return elemwise
+
+
+@torch_funcify.register(Elemwise)
+def _elemwise(op, node=None, **kw):
+    fn = elemwise_fn(node)
+
+    def elemwise(*args):
+        if len(args) > 1:
+            Elemwise._check_runtime_broadcast(node, [tuple(a.shape) for a in args])
+        return fn(*args)
+
+    return elemwise
+
+
+@torch_funcify.register(FusedElemwise)
+def _fused(op, node=None, device=None, **kw):
+    from pytensor_tpu_torch.tensor.fused_kernel import FusedElemwiseKernel
+
+    return FusedElemwiseKernel(op.fgraph, device)
+
+
+@torch_funcify.register(DimShuffle)
+def _dimshuffle(op, node=None, **kw):
+    transposition = op.transposition
+    nshuffle = len(op.shuffle)
+    augment = op.augment
+    drop = op.drop
+
+    def dimshuffle(x):
+        for d in drop:
+            if x.shape[d] != 1:
+                raise ValueError(f"Cannot drop dim {d} of length {x.shape[d]} (!= 1)")
+        res = x.permute(*transposition) if x.ndim else x
+        shape = list(res.shape[:nshuffle])
+        for a in augment:
+            shape.insert(a, 1)
+        return res.reshape(shape)
+
+    return dimshuffle
+
+
+@torch_funcify.register(CAReduce)
+def _careduce(op, node=None, **kw):
+    name = op.scalar_op.name
+    if name not in ("add", "mul"):
+        raise NotImplementedError(f"torch lowering of {op}")
+    axis = op.axis
+    out = torch_dtype(node.outputs[0].type.dtype)
+    acc = torch_dtype(op.acc_dtype) if op.acc_dtype is not None else out
+
+    def careduce(x):
+        dims = tuple(range(x.ndim)) if axis is None else tuple(axis)
+        if not dims:
+            return x.to(out).clone()
+        if name == "add":
+            r = torch.sum(x, dim=dims, dtype=acc)
+        else:
+            r = x.to(acc)
+            for d in sorted(dims, reverse=True):
+                r = torch.prod(r, dim=d)
+        return r if r.dtype == out else r.to(out)
+
+    return careduce
+
+
+@torch_funcify.register(Dot)
+def _dot(op, node=None, **kw):
+    # full float32: a function linked for CUDA runs with TF32 off
+    return torch.matmul
+
+
+# --- shapes (host values) -----------------------------------------------------
+
+@torch_funcify.register(Shape)
+def _shape(op, node=None, **kw):
+    def shape(x):
+        return torch.tensor(tuple(x.shape), dtype=torch.int64)
+
+    return shape
+
+
+@torch_funcify.register(Shape_i)
+def _shape_i(op, node=None, **kw):
+    i = op.i
+
+    def shape_i(x):
+        return torch.tensor(x.shape[i], dtype=torch.int64)
+
+    return shape_i
+
+
+@torch_funcify.register(SpecifyShape)
+def _specify_shape(op, node=None, **kw):
+    def specify_shape(x, *shape):
+        for d, s in enumerate(shape):
+            if s is not None and x.shape[d] != int(s):
+                raise AssertionError(
+                    f"SpecifyShape: dim {d} is {x.shape[d]}, expected {int(s)}")
+        return x
+
+    return specify_shape
+
+
+@torch_funcify.register(Reshape)
+def _reshape(op, node=None, **kw):
+    def reshape(x, shp):
+        return x.reshape(tuple(int(s) for s in shp.tolist()))
+
+    return reshape
+
+
+@torch_funcify.register(MakeVector)
+def _make_vector(op, node=None, **kw):
+    dtype = torch_dtype(op.dtype)
+
+    def make_vector(*scalars):
+        dev = next((s.device for s in scalars if s.device.type != "cpu"), torch.device("cpu"))
+        return torch.stack([s.to(device=dev, dtype=dtype) for s in scalars])
+
+    return make_vector
+
+
+@torch_funcify.register(Alloc)
+def _alloc(op, node=None, **kw):
+    def alloc(value, *shape):
+        return torch.broadcast_to(value, tuple(int(s) for s in shape))
+
+    return alloc
+
+
+# --- indexing -----------------------------------------------------------------
+
+def _basic_index(idx_list, dyn):
+    it = iter(dyn)
+    idx = []
+    for e in idx_list:
+        if e == DYN:
+            idx.append(int(next(it)))
+        elif isinstance(e, (int, np.integer)):
+            idx.append(int(e))
+        else:
+            _, a, b, c = e
+            idx.append(slice(*(int(next(it)) if p == DYN else p for p in (a, b, c))))
+    return tuple(idx)
+
+
+def _negative_steps(idx):
+    return any(isinstance(e, slice) and e.step is not None and e.step < 0 for e in idx)
+
+
+def _select(x, idx):
+    """x[idx] for ints and slices; torch slicing rejects negative steps,
+    which become an index_select of the explicit positions."""
+    if not _negative_steps(idx):
+        return x[idx]
+    dim = 0
+    for e in idx:
+        if isinstance(e, int):
+            x = x.select(dim, e)
+            continue
+        ids = range(*e.indices(x.shape[dim]))
+        x = x.index_select(dim, torch.arange(ids.start, ids.stop, ids.step,
+                                             device=x.device))
+        dim += 1
+    return x
+
+
+@torch_funcify.register(Subtensor)
+def _subtensor(op, node=None, **kw):
+    idx_list = op.idx_list
+
+    def subtensor(x, *dyn):
+        return _select(x, _basic_index(idx_list, dyn))
+
+    return subtensor
+
+
+@torch_funcify.register(IncSubtensor)
+def _inc_subtensor(op, node=None, **kw):
+    idx_list = op.idx_list
+    set_mode = op.set_instead_of_inc
+
+    def inc_subtensor(x, y, *dyn):
+        idx = _basic_index(idx_list, dyn)
+        if _negative_steps(idx):
+            raise NotImplementedError("IncSubtensor with a negative slice step")
+        out = x.clone()
+        if set_mode:
+            out[idx] = y
+        else:
+            out[idx] += y
+        return out
+
+    return inc_subtensor
+
+
+class _IndexCheck:
+    """Bounds check and negative-index normalisation of one index input."""
+
+    def __init__(self, var, static_dim=None):
+        self.const = isinstance(var, Constant)
+        if self.const:
+            data = np.asarray(var.data)
+            self.lo = int(data.min()) if data.size else 0
+            self.hi = int(data.max()) if data.size else -1
+            if static_dim is not None:
+                self._check(self.lo, self.hi, static_dim)
+
+    @staticmethod
+    def _check(lo, hi, n):
+        if lo < -n or hi >= n:
+            bad = lo if lo < -n else hi
+            raise IndexError(f"index {bad} is out of bounds for axis with size {n}")
+
+    def __call__(self, idx, n):
+        if idx.dtype == torch.bool:
+            raise NotImplementedError("boolean mask indices have a dynamic shape")
+        if self.const:
+            lo, hi = self.lo, self.hi
+        elif idx.numel():
+            lo, hi = int(idx.min()), int(idx.max())
+        else:
+            return idx.long()
+        self._check(lo, hi, n)
+        idx = idx.long()
+        return torch.where(idx < 0, idx + n, idx) if lo < 0 else idx
+
+
+@torch_funcify.register(AdvancedSubtensor1)
+def _adv_sub1(op, node=None, **kw):
+    check = _IndexCheck(node.inputs[1], node.inputs[0].type.shape[0])
+
+    def adv_sub1(x, ilist):
+        return x.index_select(0, check(ilist, x.shape[0]))
+
+    return adv_sub1
+
+
+@torch_funcify.register(AdvancedIncSubtensor1)
+def _adv_incsub1(op, node=None, **kw):
+    check = _IndexCheck(node.inputs[2], node.inputs[0].type.shape[0])
+    set_mode = op.set_instead_of_inc
+    ignore_dups = op.ignore_duplicates
+
+    def adv_incsub1(x, y, ilist):
+        idx = check(ilist, x.shape[0])
+        expected = (idx.shape[0], *x.shape[1:])
+        AdvancedIncSubtensor1._check_runtime_broadcast(node, tuple(y.shape), expected)
+        y = y.expand(expected)
+        out = x.clone()
+        if set_mode:
+            out.index_copy_(0, idx, y)
+        elif ignore_dups:
+            out[idx] += y
+        else:
+            out.index_add_(0, idx, y)
+        return out
+
+    return adv_incsub1
+
+
+def _adv_entries(idx_list, inputs):
+    """(axis, input position) of each array index in an advanced index."""
+    entries = []
+    axis = 0
+    pos = 0
+    for e in idx_list:
+        if e == "none":
+            continue
+        if e == DYN:
+            entries.append((axis, pos))
+            pos += 1
+        elif isinstance(e, tuple):
+            pos += sum(1 for p in e[1:] if p == DYN)
+        axis += 1
+    return entries
+
+
+def _adv_index(idx_list, ind, checks, x):
+    it = iter(ind)
+    idx = []
+    axis = 0
+    k = 0
+    for e in idx_list:
+        if e == "none":
+            idx.append(None)
+            continue
+        if e == DYN:
+            idx.append(checks[k](next(it), x.shape[axis]))
+            k += 1
+        elif isinstance(e, (int, np.integer)):
+            idx.append(int(e))
+        else:
+            _, a, b, c = e
+            idx.append(slice(*(int(next(it)) if p == DYN else p for p in (a, b, c))))
+        axis += 1
+    return tuple(idx)
+
+
+@torch_funcify.register(AdvancedSubtensor)
+def _adv_sub(op, node=None, **kw):
+    idx_list = op.idx_list
+    x_shape = node.inputs[0].type.shape
+    checks = [_IndexCheck(node.inputs[1 + pos], x_shape[axis])
+              for axis, pos in _adv_entries(idx_list, node.inputs[1:])]
+
+    def adv_sub(x, *ind):
+        idx = _adv_index(idx_list, ind, checks, x)
+        if _negative_steps(idx):
+            raise NotImplementedError("AdvancedSubtensor with a negative slice step")
+        return x[idx]
+
+    return adv_sub
+
+
+@torch_funcify.register(AdvancedIncSubtensor)
+def _adv_incsub(op, node=None, **kw):
+    """One 1-d integer index along an axis, full slices elsewhere: the form
+    a gradient of ``x[:, idx]`` takes.  Other forms raise."""
+    idx_list = op.idx_list
+    full = ("slice", None, None, None)
+    dyn_axes = [d for d, e in enumerate(idx_list) if e == DYN]
+    if (len(dyn_axes) != 1 or any(e not in (DYN, full) for e in idx_list)
+            or node.inputs[2].type.ndim != 1):
+        raise NotImplementedError(f"torch lowering of {op} with index {idx_list}")
+    axis = dyn_axes[0]
+    check = _IndexCheck(node.inputs[2], node.inputs[0].type.shape[axis])
+    set_mode = op.set_instead_of_inc
+
+    def adv_incsub(x, y, ilist):
+        idx = check(ilist, x.shape[axis])
+        expected = list(x.shape)
+        expected[axis] = idx.shape[0]
+        y = y.expand(expected)
+        out = x.clone()
+        if set_mode:
+            out.index_copy_(axis, idx, y)
+        elif op.ignore_duplicates:
+            out[(slice(None),) * axis + (idx,)] += y
+        else:
+            out.index_add_(axis, idx, y)
+        return out
+
+    return adv_incsub

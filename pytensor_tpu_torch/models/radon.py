@@ -1,0 +1,163 @@
+"""Hierarchical radon model logp + dlogp: the NUTS inner-loop workload.
+
+Counterpart of ``pytensor_tpu/models/radon.py``.  A PyMC-style
+varying-intercept model with non-centered parameterization,
+
+    a_raw ~ N(0, 1)            [n_counties]
+    mu_a ~ N(0, 10); log_sigma_a, log_sigma_y ~ N(0, 2); b ~ N(0, 10)
+    a = mu_a + sigma_a * a_raw
+    y ~ N(a[county] + b * floor, sigma_y)
+
+The graphs map the flat free-parameter vector to (logp, dlogp), which is
+what a NUTS leapfrog step evaluates; ``leapfrog`` drives a linked
+function the way a sampler does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+import pytensor_tpu_torch as ptt
+import pytensor_tpu_torch.tensor as pt
+
+LOG_2PI = float(np.log(2.0 * np.pi))
+
+
+def radon_synthetic_data(n_obs=919, n_counties=85, seed=0, dtype="float64"):
+    """Synthetic data with the dimensions of the classic radon dataset."""
+    rng = np.random.default_rng(seed)
+    county = rng.integers(0, n_counties, size=n_obs).astype("int64")
+    floor = (rng.random(n_obs) < 0.35).astype(dtype)
+    true_a = rng.normal(1.5, 0.35, size=n_counties)
+    log_radon = (true_a[county] - 0.65 * floor
+                 + rng.normal(0.0, 0.75, size=n_obs)).astype(dtype)
+    return county, floor, log_radon
+
+
+def _normal_logp(x, mu, sigma):
+    return -0.5 * ((x - mu) / sigma) ** 2 - pt.log(sigma) - 0.5 * LOG_2PI
+
+
+def make_radon_graphs(n_obs=919, n_counties=85, dtype="float64", seed=0):
+    """Return (inputs, [logp, dlogp], n_params) uncompiled, for linking."""
+    county_v, floor_v, y_v = radon_synthetic_data(n_obs, n_counties, seed, dtype)
+    n_params = n_counties + 4
+    theta = pt.tensor("theta", dtype=dtype, shape=(n_params,))
+    county = pt.as_tensor_variable(county_v)
+    floor = pt.as_tensor_variable(floor_v)
+    y = pt.as_tensor_variable(y_v)
+    a_raw = theta[:n_counties]
+    mu_a = theta[n_counties]
+    log_sigma_a = theta[n_counties + 1]
+    b = theta[n_counties + 2]
+    log_sigma_y = theta[n_counties + 3]
+    sigma_a = pt.exp(log_sigma_a)
+    sigma_y = pt.exp(log_sigma_y)
+    a = mu_a + sigma_a * a_raw
+    mu_y = a[county] + b * floor
+    logp = (
+        pt.sum(_normal_logp(y, mu_y, sigma_y))
+        + pt.sum(_normal_logp(a_raw, 0.0, 1.0))
+        + pt.sum(_normal_logp(mu_a, 0.0, 10.0))
+        + pt.sum(_normal_logp(b, 0.0, 10.0))
+        + pt.sum(_normal_logp(log_sigma_a, 0.0, 2.0))
+        + pt.sum(_normal_logp(log_sigma_y, 0.0, 2.0))
+        + log_sigma_a + log_sigma_y
+    )
+    dlogp = ptt.grad(logp, theta)
+    return [theta], [logp, dlogp], n_params
+
+
+def make_radon_logp_batched(n_obs=919, n_counties=85, dtype="float64", seed=0):
+    """Multi-chain variant: theta has shape (chains, n_params), logp is
+    per-chain (chains,).  NUTS-style samplers run many chains in parallel."""
+    county_v, floor_v, y_v = radon_synthetic_data(n_obs, n_counties, seed, dtype)
+    n_params = n_counties + 4
+    theta = pt.tensor("theta", dtype=dtype, shape=(None, n_params))
+    county = pt.as_tensor_variable(county_v)
+    floor = pt.as_tensor_variable(floor_v)
+    y = pt.as_tensor_variable(y_v)
+
+    a_raw = theta[:, :n_counties]                       # (chains, n_c)
+    mu_a = theta[:, n_counties]                         # (chains,)
+    log_sigma_a = theta[:, n_counties + 1]
+    b = theta[:, n_counties + 2]
+    log_sigma_y = theta[:, n_counties + 3]
+    sigma_a = pt.exp(log_sigma_a)
+    sigma_y = pt.exp(log_sigma_y)
+    a = mu_a[:, None] + sigma_a[:, None] * a_raw        # (chains, n_c)
+    mu_y = a[:, county] + b[:, None] * floor[None, :]   # (chains, n_obs)
+
+    logp = (
+        pt.sum(_normal_logp(y[None, :], mu_y, sigma_y[:, None]), axis=1)
+        + pt.sum(_normal_logp(a_raw, 0.0, 1.0), axis=1)
+        + _normal_logp(mu_a, 0.0, 10.0)
+        + _normal_logp(b, 0.0, 10.0)
+        + _normal_logp(log_sigma_a, 0.0, 2.0)
+        + _normal_logp(log_sigma_y, 0.0, 2.0)
+        + log_sigma_a + log_sigma_y
+    )
+    dlogp = ptt.grad(logp.sum(), theta)  # chains decouple: per-chain grads
+    return theta, logp, dlogp, n_params
+
+
+def theta_start(n_params, dtype="float64"):
+    """The starting point both packages use: zeros, log-scales at -0.3."""
+    theta0 = np.zeros(n_params, dtype=dtype)
+    theta0[n_params - 3] = -0.3
+    theta0[n_params - 1] = -0.3
+    return theta0
+
+
+def leapfrog(fn, theta, m, n_steps, eps):
+    """``n_steps`` leapfrog steps over a linked ``fn(theta) -> (logp,
+    dlogp)``, as a sampler's host loop drives it; returns
+    ``(theta, m, logp)`` at the end of the trajectory.
+
+    Each step is a half kick, a drift and a half kick.  The gradient at
+    the end of one step is the one the next step starts with, so the loop
+    evaluates ``fn`` ``n_steps + 1`` times.  Works for one chain
+    (``theta`` of shape (n_params,)) and for the batched graph.
+    """
+    half = eps / 2
+    logp, g = fn(theta)
+    for _ in range(n_steps):
+        m = m + half * g
+        theta = theta + eps * m
+        logp, g = fn(theta)
+        m = m + half * g
+    return theta, m, logp
+
+
+def radon_logp_dlogp_reference(theta, n_obs=919, n_counties=85, seed=0):
+    """Closed-form logp and analytic dlogp in float64 NumPy, independent of
+    the graph: the check the linked functions are held to.  ``theta`` is
+    (n_params,) or (chains, n_params)."""
+    county, floor, y = radon_synthetic_data(n_obs, n_counties, seed, "float64")
+    th = np.atleast_2d(np.asarray(theta, dtype="float64"))
+    a_raw = th[:, :n_counties]
+    mu, lsa, b, lsy = (th[:, n_counties + k] for k in range(4))
+    sig_a, sig_y = np.exp(lsa), np.exp(lsy)
+    a = mu[:, None] + sig_a[:, None] * a_raw
+    r = (y[None, :] - a[:, county] - b[:, None] * floor[None, :]) / sig_y[:, None]
+    c = 0.5 * LOG_2PI
+    logp = (-0.5 * (r ** 2).sum(1) - n_obs * (lsy + c)
+            - 0.5 * (a_raw ** 2).sum(1) - n_counties * c
+            - 0.5 * (mu / 10) ** 2 - np.log(10.0) - c
+            - 0.5 * (b / 10) ** 2 - np.log(10.0) - c
+            - 0.5 * (lsa / 2) ** 2 - np.log(2.0) - c
+            - 0.5 * (lsy / 2) ** 2 - np.log(2.0) - c
+            + lsa + lsy)
+    rs = r / sig_y[:, None]
+    seg = np.zeros_like(a_raw)
+    for k in range(th.shape[0]):
+        np.add.at(seg[k], county, rs[k])
+    grad = np.empty_like(th)
+    grad[:, :n_counties] = sig_a[:, None] * seg - a_raw
+    grad[:, n_counties] = seg.sum(1) - mu / 100
+    grad[:, n_counties + 1] = sig_a * (a_raw * seg).sum(1) - lsa / 4 + 1
+    grad[:, n_counties + 2] = (rs * floor[None, :]).sum(1) - b / 100
+    grad[:, n_counties + 3] = (r ** 2).sum(1) - n_obs - lsy / 4 + 1
+    if np.ndim(theta) == 1:
+        return logp[0], grad[0]
+    return logp, grad

@@ -1,0 +1,222 @@
+"""K3: the hand-written radon leapfrog chain, and its plain version.
+
+Counterpart of ``pytensor_tpu/models/radon_pallas.py``.  The CUDA kernel
+(``csrc/radon_leapfrog.cu``) runs ``n_steps`` leapfrog steps with the
+analytic ``dlogp`` of ``models/radon.py`` and the ``logp`` of the final
+``theta``, one block per chain; its source says what bounds it and how.
+
+The kernel is built with ``nvcc -gencode arch=compute_90a,code=sm_90a
+-shared`` into ``build/kernels/`` (listed in ``.gitignore``) at first
+use, keyed by a hash of the source, and called through ``ctypes``.  Its
+C entry returns ``cudaGetLastError()`` and the wrapper raises on a
+non-zero code.  The plain version is the same analytic leapfrog in torch
+ops, with ``a[county]`` and ``index_add_``; the wrapper takes it for CPU
+tensors only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pytensor_tpu_torch.models.radon import LOG_2PI, radon_synthetic_data
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "radon_leapfrog.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+# launches of the kernel since the count was last set to 0
+LAUNCHES = 0
+
+_LIB = None
+BUILD_LOG = ""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: K3 is built on a machine with the CUDA toolkit")
+
+
+def build(verbose: bool = False) -> ctypes.CDLL:
+    """Compile (once per source hash) and load the K3 shared library.
+
+    With ``verbose`` the compiler's register and shared-memory report
+    (``-Xptxas -v``) is kept in ``BUILD_LOG``.
+    """
+    global _LIB, BUILD_LOG
+    if _LIB is not None:
+        return _LIB
+    src = SOURCE.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libradon_leapfrog_{key}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(SOURCE)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_LOG = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.radon_leapfrog.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    lib.radon_leapfrog.restype = i
+    lib.radon_leapfrog_smem_bytes.argtypes = [i, i]
+    lib.radon_leapfrog_smem_bytes.restype = ctypes.c_size_t
+    _LIB = lib
+    return lib
+
+
+def csr_layout(county, floor, y, n_counties):
+    """Observations sorted by county, and each county's [start, end)."""
+    order = np.argsort(county, kind="stable")
+    ptr = np.zeros(n_counties + 1, dtype=np.int32)
+    ptr[1:] = np.cumsum(np.bincount(county, minlength=n_counties))
+    return (np.ascontiguousarray(floor[order], dtype=np.float32),
+            np.ascontiguousarray(y[order], dtype=np.float32), ptr)
+
+
+@dataclass
+class RadonData:
+    """The radon observations on one device, in both layouts."""
+
+    county: torch.Tensor    # int64, observation order (plain version)
+    floor: torch.Tensor
+    y: torch.Tensor
+    floor_sorted: torch.Tensor  # float32, sorted by county (kernel)
+    y_sorted: torch.Tensor
+    county_ptr: torch.Tensor    # int32 CSR offsets, n_counties + 1
+
+    @property
+    def n_counties(self):
+        return self.county_ptr.shape[0] - 1
+
+    @classmethod
+    def from_layout(cls, county, floor, y, n_counties, device):
+        from pytensor_tpu_torch.link.torch.convert import as_torch
+
+        floor_s, y_s, ptr = csr_layout(county, floor, y, n_counties)
+        return cls(*(as_torch(v, device) for v in (county, floor, y, floor_s, y_s, ptr)))
+
+
+def leapfrog_launch(theta, m, data, n_steps, eps):
+    """Run K3 on CUDA tensors ``theta``, ``m`` of shape (n_params,) or
+    (chains, n_params); returns ``(theta', m', logp')``."""
+    global LAUNCHES
+    n_counties = data.n_counties
+    n_params = n_counties + 4
+    for name, t in (("theta", theta), ("m", m)):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"K3 takes contiguous float32 CUDA tensors; {name} is "
+                             f"{t.dtype} on {t.device}")
+        if t.shape[-1] != n_params or t.ndim not in (1, 2):
+            raise ValueError(f"K3: {name} has shape {tuple(t.shape)}, expected (..., {n_params})")
+    if theta.shape != m.shape or data.y_sorted.device != theta.device:
+        raise ValueError("K3: theta, m and the data must match in shape and device")
+    n_chains = 1 if theta.ndim == 1 else theta.shape[0]
+    lib = build()
+    theta_out = torch.empty_like(theta)
+    m_out = torch.empty_like(m)
+    logp_out = torch.empty(theta.shape[:-1], dtype=torch.float32, device=theta.device)
+    stream = torch.cuda.current_stream(theta.device).cuda_stream
+    err = lib.radon_leapfrog(theta.data_ptr(), m.data_ptr(), theta_out.data_ptr(),
+                             m_out.data_ptr(), logp_out.data_ptr(), data.y_sorted.data_ptr(),
+                             data.floor_sorted.data_ptr(), data.county_ptr.data_ptr(),
+                             data.y_sorted.shape[0], n_counties,
+                             n_chains, int(n_steps), float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return theta_out, m_out, logp_out
+
+
+def leapfrog_plain(theta, m, data, n_steps, eps):
+    """The same chain in torch ops, on any device."""
+    county, floor, y = data.county, data.floor, data.y
+    nc = data.n_counties
+    th = theta.reshape(-1, nc + 4).clone()
+    mm = m.reshape(-1, nc + 4).clone()
+    n_obs = y.shape[0]
+
+    def parts(t):
+        a_raw = t[:, :nc]
+        mu, lsa, b, lsy = t[:, nc], t[:, nc + 1], t[:, nc + 2], t[:, nc + 3]
+        sig_a, inv_sy = torch.exp(lsa), torch.exp(-lsy)
+        a = mu[:, None] + sig_a[:, None] * a_raw
+        r = (y - a[:, county] - b[:, None] * floor) * inv_sy[:, None]
+        return a_raw, mu, lsa, b, lsy, sig_a, inv_sy, r
+
+    def dlogp(t):
+        a_raw, mu, lsa, b, lsy, sig_a, inv_sy, r = parts(t)
+        rs = r * inv_sy[:, None]
+        seg = torch.zeros_like(a_raw).index_add_(1, county, rs)
+        g = torch.empty_like(t)
+        g[:, :nc] = sig_a[:, None] * seg - a_raw
+        g[:, nc] = seg.sum(1) - mu / 100
+        g[:, nc + 1] = sig_a * (a_raw * seg).sum(1) - lsa / 4 + 1
+        g[:, nc + 2] = (rs * floor).sum(1) - b / 100
+        g[:, nc + 3] = (r * r).sum(1) - n_obs - lsy / 4 + 1
+        return g
+
+    half = eps / 2
+    g = dlogp(th)
+    for _ in range(n_steps):
+        mm = mm + half * g
+        th = th + eps * mm
+        g = dlogp(th)
+        mm = mm + half * g
+    a_raw, mu, lsa, b, lsy, sig_a, inv_sy, r = parts(th)
+    c = 0.5 * LOG_2PI
+    lp = (-0.5 * (r * r).sum(1) - n_obs * (lsy + c) - 0.5 * (a_raw * a_raw).sum(1) - nc * c
+          - 0.5 * (mu / 10) ** 2 - float(np.log(10.0)) - c
+          - 0.5 * (b / 10) ** 2 - float(np.log(10.0)) - c
+          - 0.5 * (lsa / 2) ** 2 - float(np.log(2.0)) - c
+          - 0.5 * (lsy / 2) ** 2 - float(np.log(2.0)) - c
+          + lsa + lsy)
+    shape = theta.shape
+    return th.reshape(shape), mm.reshape(shape), lp.reshape(shape[:-1])
+
+
+def make_radon_leapfrog_kernel(n_steps=1024, n_obs=919, n_counties=85,
+                               eps=1e-3, seed=0, device="cuda"):
+    """Return ``(fn, theta0, m0, n_params)``: ``fn(theta, m) -> (theta', m',
+    logp')`` runs ``n_steps`` leapfrog steps, on CUDA tensors with K3 and
+    on CPU tensors with the plain version.  ``theta0`` and ``m0`` are the
+    start the JAX package's Pallas kernel uses, as numpy arrays."""
+    from pytensor_tpu_torch.link.torch.convert import as_torch, resolve_device
+
+    device = resolve_device(device)
+    county, floor, y = radon_synthetic_data(n_obs, n_counties, seed, "float32")
+    data = RadonData.from_layout(county, floor, y, n_counties, device)
+
+    def fn(theta, m):
+        theta = as_torch(theta, device) if not isinstance(theta, torch.Tensor) else theta
+        m = as_torch(m, device) if not isinstance(m, torch.Tensor) else m
+        if theta.device.type == "cpu" and m.device.type == "cpu":
+            return leapfrog_plain(theta, m, data, n_steps, eps)
+        return leapfrog_launch(theta, m, data, n_steps, eps)
+
+    fn.data = data
+    n_params = n_counties + 4
+    rng = np.random.default_rng(0)
+    theta0 = np.zeros(n_params, np.float32)
+    theta0[n_counties + 1] = -0.3
+    theta0[n_counties + 3] = -0.3
+    m0 = rng.standard_normal(n_params).astype(np.float32)
+    return fn, theta0, m0, n_params

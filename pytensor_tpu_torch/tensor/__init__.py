@@ -1,0 +1,39 @@
+"""Tensor namespace: types, constructors and math used by the models.
+
+Counterpart of ``pytensor_tpu/tensor/__init__.py``, cut to what
+``models/radon.py`` and the rewrites use.
+"""
+
+from pytensor_tpu_torch.tensor.type import TensorType, tensor  # noqa: F401
+from pytensor_tpu_torch.tensor.variable import TensorConstant, TensorVariable  # noqa: F401
+from pytensor_tpu_torch.tensor.basic import (  # noqa: F401
+    as_tensor_variable,
+    cast,
+    constant,
+    fill,
+    moveaxis,
+    ones_like,
+    transpose,
+    zeros_like,
+)
+from pytensor_tpu_torch.tensor.math import (  # noqa: F401
+    add,
+    dot,
+    exp,
+    log,
+    mul,
+    neg,
+    pow,
+    second,
+    sqr,
+    sqrt,
+    sub,
+    sum,
+    tensordot,
+    true_div,
+)
+from pytensor_tpu_torch.tensor.shape import reshape, shape, specify_shape  # noqa: F401
+from pytensor_tpu_torch.tensor.subtensor import inc_subtensor, set_subtensor  # noqa: F401
+
+# registers the fusion pass into optdb
+import pytensor_tpu_torch.tensor.fused  # noqa: F401,E402

@@ -1,0 +1,151 @@
+"""Basic tensor rewrites: constant folding, DimShuffle and fill rewrites.
+
+Counterpart of ``pytensor_tpu/tensor/rewriting/basic.py`` (PyTensor's
+tensor/rewriting/basic.py constant_folding:1236), cut to the rewrites that
+fire on the radon logp+dlogp graphs.  Each keeps its name, tags and
+database, and the modules register in the JAX package's order.
+"""
+
+from __future__ import annotations
+
+from pytensor_tpu_torch.compile.mode import (
+    register_canonicalize,
+    register_specialize,
+    register_useless,
+)
+from pytensor_tpu_torch.graph.basic import Constant
+from pytensor_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
+from pytensor_tpu_torch.tensor.elemwise import DimShuffle, Elemwise
+
+
+@node_rewriter(None)
+def constant_folding(fgraph, node):
+    """Evaluate nodes whose inputs are all constants through their numpy
+    ``perform``."""
+    if not node.inputs:
+        return False
+    if not all(isinstance(i, Constant) for i in node.inputs):
+        return False
+    if not node.op.do_constant_folding(fgraph, node):
+        return False
+    storage = [[None] for _ in node.outputs]
+    try:
+        node.op.perform(node, [i.data for i in node.inputs], storage)
+    except (NotImplementedError, Exception) as e:
+        if isinstance(e, NotImplementedError):
+            return False
+        return False
+    outs = []
+    for o, s in zip(node.outputs, storage):
+        if s[0] is None:
+            return False
+        try:
+            c = o.type.make_constant(s[0])
+        except Exception:
+            return False
+        copy_stack_trace(o, c)
+        outs.append(c)
+    return outs
+
+
+register_canonicalize(constant_folding, name="constant_folding")
+register_specialize(constant_folding, name="constant_folding_spec")
+
+
+@node_rewriter([DimShuffle])
+def local_dimshuffle_lift(fgraph, node):
+    """Merge DimShuffle(DimShuffle(x)) into one DimShuffle."""
+    op = node.op
+    inner = node.inputs[0].owner
+    if inner is None or not isinstance(inner.op, DimShuffle):
+        return False
+    inner_op = inner.op
+    new_order = tuple(
+        "x" if o == "x" else inner_op.new_order[o] for o in op.new_order
+    )
+    x = inner.inputs[0]
+    if new_order == tuple(range(x.type.ndim)):
+        return [x]
+    out = DimShuffle(x.type.ndim, new_order)(x)
+    copy_stack_trace(node.outputs[0], out)
+    return [out]
+
+
+register_canonicalize(local_dimshuffle_lift, name="local_dimshuffle_merge")
+
+
+@node_rewriter([Elemwise])
+def local_fill_thin_carrier(fgraph, node):
+    """second(carrier, v): only the carrier's *shape* matters, so replace
+    an Elemwise carrier by any of its same-typed inputs — the dead
+    computation then gets garbage-collected (reference local_fill_sink)."""
+    if node.op.scalar_op.name != "second":
+        return False
+    carrier, v = node.inputs
+    if carrier.owner is None or not isinstance(carrier.owner.op, Elemwise):
+        return False
+    for i in carrier.owner.inputs:
+        if i.type == carrier.type:
+            from pytensor_tpu_torch.tensor import math as tm
+
+            res = tm.second(i, v)
+            copy_stack_trace(node.outputs[0], res)
+            return [res]
+    return False
+
+
+register_canonicalize(local_fill_thin_carrier, name="local_fill_thin_carrier")
+
+
+@node_rewriter([Elemwise])
+def local_useless_fill(fgraph, node):
+    """second(model, v) -> v when v already has the output's exact type."""
+    if node.op.scalar_op.name != "second":
+        return False
+    _, v = node.inputs
+    if v.type == node.outputs[0].type:
+        return [v]
+    return False
+
+
+register_useless(local_useless_fill, name="local_useless_fill")
+
+
+@node_rewriter([DimShuffle])
+def local_dimshuffle_of_elemwise(fgraph, node):
+    """dimshuffle(elemwise(a, b)) -> elemwise(dimshuffle(a), ...): move the
+    layout change to the (smaller) leaves; enables further lifts and keeps
+    the Elemwise chain whole for the fusion pass."""
+    v = node.inputs[0]
+    if v.owner is None or not isinstance(v.owner.op, Elemwise):
+        return False
+    if len(fgraph.clients.get(v, ())) != 1:
+        return False
+    if v.owner.op.scalar_op.name == "second":
+        return False
+    op = node.op
+    out_ndim = v.type.ndim
+    new_inputs = []
+    for i in v.owner.inputs:
+        if i.type.ndim == 0:
+            new_inputs.append(i)
+            continue
+        offset = out_ndim - i.type.ndim
+        order_i = tuple(
+            "x" if (o == "x" or o < offset) else o - offset
+            for o in op.new_order
+        )
+        if order_i == tuple(range(i.type.ndim)):
+            new_inputs.append(i)
+        else:
+            new_inputs.append(DimShuffle(i.type.ndim, order_i)(i))
+    res = Elemwise(v.owner.op.scalar_op)(*new_inputs)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_canonicalize(local_dimshuffle_of_elemwise,
+                      name="local_dimshuffle_of_elemwise")

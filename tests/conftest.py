@@ -40,3 +40,5 @@ def pytest_collection_modifyitems(config, items):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: slow test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with nvcc and triton; skips without one")

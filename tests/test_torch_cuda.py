@@ -1,0 +1,118 @@
+"""The port's kernels on an NVIDIA GPU: K1 and K3 against their plain
+versions, and the linked radon function against the float64 closed form.
+
+Every test here is marked ``cuda`` and skips without a card.  The file
+imports only the port (no JAX), so on the machine with the card it runs
+without the JAX test configuration:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+
+Tolerances are chip_smoke.py's: K1 ``1e-5`` (float32) and ``1e-12``
+(float64) of ``max(1, max|plain|)``; K3 after 64 float32 steps ``1e-4``
+of ``max(1, max|plain|)``; the linked float32 graph ``rtol 1e-4`` with
+``atol 1e-4 * max|dlogp|`` against float64.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pytensor_tpu_torch.compile.mode import FAST_RUN
+from pytensor_tpu_torch.graph.fg import FunctionGraph
+from pytensor_tpu_torch.link.torch.convert import as_torch
+from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
+from pytensor_tpu_torch.models import radon_kernel
+from pytensor_tpu_torch.models.radon import (
+    make_radon_graphs,
+    make_radon_logp_batched,
+    radon_logp_dlogp_reference,
+    theta_start,
+)
+from pytensor_tpu_torch.tensor import fused_kernel
+from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+pytestmark = pytest.mark.cuda
+K1_RTOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA and Triton")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _scaled(a, b):
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+def test_k1_matches_plain(card, dtype, batched):
+    if batched:
+        theta, logp, dlogp, n = make_radon_logp_batched(dtype=dtype)
+        inputs, outputs = [theta], [logp, dlogp]
+        start = np.tile(theta_start(n, dtype), (64, 1))
+    else:
+        inputs, outputs, n = make_radon_graphs(dtype=dtype)
+        start = theta_start(n, dtype)
+    fg = FunctionGraph(inputs, outputs, clone=True)
+    FAST_RUN.optimizer.rewrite(fg)
+    nodes = [nd for nd in fg.toposort() if isinstance(nd.op, FusedElemwise)]
+    needed = [i for nd in nodes for i in nd.inputs]
+    values = iter(fgraph_to_torch(FunctionGraph(fg.inputs, needed, clone=False), card)(
+        as_torch(start, card)))
+    for nd in nodes:
+        args = [next(values) for _ in nd.inputs]
+        kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, card)
+        for got, want in zip(kern.launch(*args), kern.plain(*args)):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert _scaled(got, want) <= K1_RTOL[dtype], str(nd.op)
+
+
+def test_k3_matches_plain(card):
+    fn, th0, m0, n = radon_kernel.make_radon_leapfrog_kernel(n_steps=64, device=card)
+    th, m = as_torch(th0, card), as_torch(m0, card)
+    before = radon_kernel.LAUNCHES
+    got = fn(th, m)
+    assert radon_kernel.LAUNCHES == before + 1
+    want = radon_kernel.leapfrog_plain(th, m, fn.data, 64, 1e-3)
+    for g, w in zip(got, want):
+        assert _scaled(g, w) <= 1e-4
+
+
+def test_k3_chains_match_single_chain_launches(card):
+    """One block per chain, and a fixed summation order: a batch of chains
+    gives each chain's single launch bit for bit."""
+    fn, th0, m0, n = radon_kernel.make_radon_leapfrog_kernel(n_steps=16, device=card)
+    rng = np.random.default_rng(3)
+    th = as_torch((th0 + 0.1 * rng.standard_normal((4, n))).astype("float32"), card)
+    m = as_torch(rng.standard_normal((4, n)).astype("float32"), card)
+    batch = fn(th, m)
+    for k in range(4):
+        for b, s in zip(batch, fn(th[k].contiguous(), m[k].contiguous())):
+            assert torch.equal(b[k], s)
+
+
+def test_linked_entry_matches_closed_form(card):
+    from pytensor_tpu_torch.entry import entry
+
+    fn, (theta0,) = entry("cuda")
+    rng = np.random.default_rng(1)
+    theta = (theta_start(theta0.shape[0], "float32")
+             + 0.1 * rng.standard_normal(theta0.shape[0])).astype("float32")
+    before = fused_kernel.LAUNCHES
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        lp, g = fn(as_torch(theta, card))
+        # the call ran its matmuls in full float32 and left the caller's setting
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    assert fused_kernel.LAUNCHES > before
+    rlp, rg = radon_logp_dlogp_reference(theta.astype("float64"))
+    np.testing.assert_allclose(lp.cpu().numpy(), rlp, rtol=1e-4)
+    np.testing.assert_allclose(g.cpu().numpy(), rg, rtol=1e-4, atol=1e-4 * np.max(np.abs(rg)))
+    with pytest.raises(ValueError, match="cpu"):
+        fn(torch.from_numpy(theta))  # a CUDA-linked function takes CUDA tensors
