@@ -1,11 +1,14 @@
-"""Drive the torch port's radon logp+dlogp path on one NVIDIA GPU.
+"""Drive the torch port's radon paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one line or more each, and any failure raises:
 
 1. device: require CUDA; print the card's name and power limit.
-2. build: build the radon leapfrog kernel (K3) with nvcc.
+2. build: build the radon leapfrog kernel (K3) and the whole-loop scan
+   kernel (K2) of the leapfrog chain at full width with nvcc, the two
+   compilers started together; print each build's seconds and the
+   ``-Xptxas -v`` register, shared-memory and spill lines.
 3. K1: every FusedElemwise of the single-chain graph and of the batched
    graph at 1,024 chains, in float32 and float64, launched on the inputs
    the graph gives it and held against its plain torch version.
@@ -16,14 +19,27 @@ Phases, one line or more each, and any failure raises:
    leapfrog steps through ``leapfrog()``; then one trajectory through K3's
    entry point, ``make_radon_leapfrog_kernel``.  Kernel launch counts are
    set to 0 before this phase and must be positive after it.
-6. profile: wall time per call of each linked function, its time on the
+6. K2: the chain of ``make_leapfrog_chain`` at full width, one float32
+   chain, 64 steps: K2 (one launch) against its plain step loop on the
+   card, and the chain against the float64 loop; relative errors of
+   theta, m and logp.
+7. chain: ``make_leapfrog_chain(n_steps=8192, device="cuda")`` through
+   ``scan`` and ``function()``; launch counts are set to 0 before the
+   call, and K2 must have launched exactly once after it.  Its final
+   theta, m and logp are held against K3's 8,192 steps from the same
+   start.  The batched chain at 1,024 chains takes the step loop for 16
+   steps and is held against K3 at 1,024 chains.
+8. profile: wall time per call of each linked function, its time on the
    card from ``torch.profiler``, the card's busy share, and the kernels
-   that take the card's time.
+   that take the card's time; for the 8,192-step chain the device and
+   wall ms, µs a step and dlogp evals/s, and the kernels of one call (K2
+   once, nothing per step); the plain loop's time a step at 64 steps.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
-host's launch path, not the card.  ``device_ms`` sums the durations of
-the CUDA kernels that ``torch.profiler`` traces.  The kernel line's
+host's launch path, not the card.  ``device_ms`` takes the durations of
+the CUDA kernels that ``torch.profiler`` traces, per launch, so that a
+launch the trace missed does not shorten a kernel.  The kernel line's
 ``ms`` and ``plain_ms`` are device times; ``wall_ms`` and
 ``plain_wall_ms`` beside them are wall times.
 
@@ -37,6 +53,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -56,6 +73,27 @@ K3_RTOL = {"theta": 3e-4, "m": 3e-3, "logp": 5e-4}
 # the linked float32 graph vs the float64 closed form: sums of 919 float32
 # terms; atol scaled to max|dlogp| because some entries are near zero
 SLICE_RTOL, SLICE_ATOL = 1e-4, 1e-4
+K2_STEPS, CHAIN_STEPS, BATCH_STEPS = 64, 8192, 16
+# K2 after 64 float32 steps, over max(1, max|ref|), against its plain step
+# loop and against the float64 loop: both sum in other orders than K2 (on
+# an H100 80GB HBM3 at 700 W K2 ended 0 / 1.1e-7 / 0 from the loop and
+# 3.6e-7 / 5.4e-7 / 3.6e-7 from the float64 loop in theta / m / logp);
+# held at ~4x those readings
+K2_RTOL = {"theta": 1.5e-6, "m": 2.5e-6, "logp": 1.5e-6}
+# the chain through function() against K3 from the same start: the same
+# leapfrog with the graph's dlogp in K2 and the analytic one in K3.  At
+# 1,024 steps the states are held to ~4x the H100 readings (3.7e-6 /
+# 2.8e-5 / 7.5e-6).  Past ~2,000 steps the trajectory amplifies rounding
+# (two float64 versions of the 8,192-step chain end 0.40 apart in theta),
+# so at 8,192 steps the chain is held to the energy leapfrog conserves,
+# H = -logp + |m|^2 / 2: each chain's drift from H(start), and the gap
+# between K2's and K3's H, over |H(start)| (on the H100: -2.5e-4, -3.6e-4
+# and 1.1e-4; float64 chains on the CPU drift by up to 4.1e-4)
+CHAIN_RTOL = {"theta": 1.5e-5, "m": 1.2e-4, "logp": 3e-5}
+ENERGY_TOL = 1.5e-3
+# the batched chain (step loop, 16 steps) against K3 at 1,024 chains, at
+# ~5x the H100 readings (1.6e-7 / 2.7e-7 / 6.9e-8)
+BATCH_RTOL = {"theta": 8e-7, "m": 1.4e-6, "logp": 3.5e-7}
 
 
 def say(*parts):
@@ -85,9 +123,13 @@ def wall_ms(fn, n_iter, warmup=2):
 def device_ms(fn, n_iter, warmup=2):
     """Time on the card of one call, and the same split by kernel name.
 
-    The summed durations of the CUDA kernels, copies and fills that
-    ``torch.profiler`` traces over ``n_iter`` calls, divided by ``n_iter``.
-    Returns ``(ms, {name: (ms, launches)})``, both per call.
+    From the CUDA kernels, copies and fills that ``torch.profiler``
+    traces over ``n_iter`` calls.  The trace can miss launches (on the
+    H100 it missed up to 2 of 5 launches of a kernel of milliseconds), so
+    a name's time a launch is the mean over its traced launches, and its
+    launches a call, the same in every call, are its traced count over
+    ``n_iter`` rounded up.  Returns ``(ms, {name: (ms, launches)})``, both
+    per call.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -106,7 +148,7 @@ def device_ms(fn, n_iter, warmup=2):
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     if not by_name:
         raise AssertionError("torch.profiler traced no CUDA kernel")
-    by_name = {k: (ms / n_iter, c / n_iter) for k, (ms, c) in by_name.items()}
+    by_name = {k: (ms / c * -(-c // n_iter), -(-c // n_iter)) for k, (ms, c) in by_name.items()}
     return sum(ms for ms, _ in by_name.values()), by_name
 
 
@@ -122,6 +164,10 @@ def rel_err(a, b):
     return errors(a, b)[1]
 
 
+def _fmt(errs):
+    return {k: float(f"{v:.2e}") for k, v in errs.items()}
+
+
 def main():
     import torch
 
@@ -132,16 +178,19 @@ def main():
     from pytensor_tpu_torch.compile.mode import FAST_RUN
     from pytensor_tpu_torch.entry import entry
     from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.cuda import scan_kernel
     from pytensor_tpu_torch.link.torch.convert import as_torch
     from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
     from pytensor_tpu_torch.models import radon_kernel
     from pytensor_tpu_torch.models.radon import (
         leapfrog,
+        make_leapfrog_chain,
         make_radon_graphs,
         make_radon_logp_batched,
         radon_logp_dlogp_reference,
         theta_start,
     )
+    from pytensor_tpu_torch.scan.op import Scan
     from pytensor_tpu_torch.tensor import fused_kernel
     from pytensor_tpu_torch.tensor.fused import FusedElemwise
 
@@ -157,13 +206,33 @@ def main():
     say(smi)
 
     # 2. build --------------------------------------------------------------
+    # K2 for the leapfrog chain at full width: the Scan node of the linked
+    # 64-step chain (the 8,192-step chain has the same body, so the same
+    # source and library)
     t0 = time.perf_counter()
-    radon_kernel.build(verbose=True)
-    build_s = time.perf_counter() - t0
-    say(f"build: K3 nvcc sm_90a in {build_s:.2f} s")
-    for line in radon_kernel.BUILD_LOG.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            say("  ptxas:", line.strip())
+    chain64 = make_leapfrog_chain("float32", None, K2_STEPS, N_OBS, N_COUNTIES, device=dev)
+    scan_node = next(nd for nd in chain64.fgraph.apply_nodes if isinstance(nd.op, Scan))
+    k2 = scan_kernel.ScanKernel(scan_node.op, scan_node, dev)
+    src = k2.src
+    say(f"K2 source: {len(scan_node.op.fgraph.apply_nodes)} inner nodes -> {src.n_ops} "
+        f"emitted ops and {src.n_barriers} barriers a step; arena {src.arena} bytes, "
+        f"constants {len(src.const_bytes)} bytes; graph, rewrite and emit in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def timed(fn):
+        t = time.perf_counter()
+        fn()
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(2) as pool:
+        jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
+                "K2": pool.submit(timed, lambda: k2.build(verbose=True))}
+        build_s = {tag: job.result() for tag, job in jobs.items()}
+    for tag, log in (("K3", radon_kernel.BUILD_LOG), ("K2", k2.build_log)):
+        say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                say(f"  {tag} ptxas:", line.strip())
 
     # the graphs of the slice, linked for the card
     def linked(dtype, batched):
@@ -277,6 +346,7 @@ def main():
     m_start = rng.standard_normal(n).astype("float32")
     fused_kernel.LAUNCHES = 0
     radon_kernel.LAUNCHES = 0
+    scan_kernel.LAUNCHES = 0
     # the linked graph, as a sampler calls it: entry(), batched, leapfrog()
     lp, g = fn(as_torch(theta, dev))
     lp_b, g_b = fn_b(as_torch(theta_b, dev))
@@ -329,7 +399,103 @@ def main():
     say(f"leapfrog() {LEAPFROG_STEPS} steps via the linked graph: logp {float(lf_lp):.6f}, "
         f"rel err vs analytic chain {lf_err}")
 
-    # 6. profile -------------------------------------------------------------
+    # 6. K2 against plain ---------------------------------------------------
+    # the Scan node's outer inputs, computed on the card from K3's start
+    feed = fgraph_to_torch(FunctionGraph(chain64.fgraph.inputs, scan_node.inputs,
+                                         clone=False), dev)
+    n_steps, *outer = feed(th0_d, m0_d)
+    n_steps = n_steps.cpu()
+    got2 = k2.launch(n_steps, *outer)
+    want2 = k2.plain(n_steps, *outer)
+    res64 = chain64(th0_d, m0_d)
+    ref64 = make_leapfrog_chain("float64", None, K2_STEPS, N_OBS, N_COUNTIES, device=dev)(
+        th0_d.double(), m0_d.double())
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(res64[:2], got2)):
+        raise AssertionError("K2 through function() differs from the same launch by hand")
+    plain_lp = fn(want2[0])[0]  # the plain chain's logp, from the linked logp graph
+    pairs2 = {k: errors(a.cpu(), b.cpu()) for k, a, b in
+              zip(keys, (got2[0], got2[1], res64[2]), (want2[0], want2[1], plain_lp))}
+    err2 = {k: p[1] for k, p in pairs2.items()}
+    k2_abs = max(pairs2["theta"][0], pairs2["m"][0])
+    err2_64 = {k: rel_err(a.cpu(), b.cpu()) for k, a, b in zip(keys, res64, ref64)}
+    for k in keys:
+        if not (err2[k] <= K2_RTOL[k] and err2_64[k] <= K2_RTOL[k]):
+            raise AssertionError(f"K2 {k}: rel err {err2[k]} vs its plain loop, "
+                                 f"{err2_64[k]} vs the float64 loop; tol {K2_RTOL[k]}")
+    k2_ms, _ = device_ms(lambda: k2.launch(n_steps, *outer), 5)
+    k2_plain_ms, _ = device_ms(lambda: k2.plain(n_steps, *outer), 1, warmup=1)
+    k2_wall = wall_ms(lambda: k2.launch(n_steps, *outer), 10)
+    k2_plain_wall = wall_ms(lambda: k2.plain(n_steps, *outer), 2, warmup=1)
+    say(f"K2 {K2_STEPS} steps, 919/85, float32: logp {float(res64[2]):.6f}; rel err vs its "
+        f"plain loop {_fmt(err2)}, vs the float64 loop {_fmt(err2_64)} (tol {K2_RTOL}); "
+        f"device: kernel {k2_ms:.4f} ms ({k2_ms / K2_STEPS * 1e3:.2f} us/step), plain "
+        f"{k2_plain_ms:.2f} ms ({k2_plain_ms / K2_STEPS * 1e3:.1f} us/step); wall: kernel "
+        f"{k2_wall:.4f} ms, plain {k2_plain_wall:.2f} ms "
+        f"({k2_plain_wall / K2_STEPS * 1e3:.1f} us/step)")
+
+    # 7. chain through scan + function() --------------------------------------
+    chain = make_leapfrog_chain("float32", None, CHAIN_STEPS, N_OBS, N_COUNTIES, device=dev)
+    fused_kernel.LAUNCHES = 0
+    radon_kernel.LAUNCHES = 0
+    scan_kernel.LAUNCHES = 0
+    c_theta, c_m, c_lp = chain(th0_d, m0_d)
+    torch.cuda.synchronize()
+    chain_launches = {"fused_elemwise": fused_kernel.LAUNCHES,
+                      "radon_leapfrog": radon_kernel.LAUNCHES,
+                      "scan_whole_loop": scan_kernel.LAUNCHES}
+    say(f"chain launches, make_leapfrog_chain({CHAIN_STEPS} steps) one call: {chain_launches}")
+    if chain_launches["scan_whole_loop"] != 1 or chain_launches["fused_elemwise"] < 1:
+        raise AssertionError(f"the chain must launch K2 once and K1: {chain_launches}")
+    fn3_chain = radon_kernel.make_radon_leapfrog_kernel(
+        CHAIN_STEPS, N_OBS, N_COUNTIES, EPS, device=dev)[0]
+    k3_chain = fn3_chain(th0_d, m0_d)
+    # the same chain at K3_STEPS against K3's trajectory of phase 4
+    chain_short = make_leapfrog_chain("float32", None, K3_STEPS, N_OBS, N_COUNTIES, device=dev)
+    short = chain_short(th0_d, m0_d)
+    torch.cuda.synchronize()
+    s_err = {k: rel_err(a.cpu(), b.cpu()) for k, a, b in zip(keys, short, got)}
+    for k, e in s_err.items():
+        if not e <= CHAIN_RTOL[k]:
+            raise AssertionError(f"chain {K3_STEPS} steps {k}: rel err {e} vs K3 > "
+                                 f"{CHAIN_RTOL[k]}")
+
+    def energy(th, m, lp):
+        return -float(lp) + 0.5 * float((m.double() ** 2).sum())
+
+    h0 = energy(None, torch.from_numpy(m0), radon_logp_dlogp_reference(
+        th0.astype("float64"), N_OBS, N_COUNTIES)[0])
+    h_k2, h_k3 = energy(c_theta, c_m, c_lp), energy(*k3_chain)
+    drift = {"K2": (h_k2 - h0) / abs(h0), "K3": (h_k3 - h0) / abs(h0),
+             "K2-K3": (h_k2 - h_k3) / abs(h0)}
+    finite = all(bool(torch.isfinite(v).all()) for v in (c_theta, c_m, c_lp, *k3_chain))
+    if not (finite and all(abs(v) <= ENERGY_TOL for v in drift.values())):
+        raise AssertionError(f"chain {CHAIN_STEPS} steps: energy drift {drift} > "
+                             f"{ENERGY_TOL} (finite: {finite})")
+    c_err = {k: rel_err(a.cpu(), b.cpu()) for k, a, b in zip(keys, (c_theta, c_m, c_lp),
+                                                                k3_chain)}
+    say(f"chain {K3_STEPS} steps: rel err vs K3 {_fmt(s_err)} (tol {CHAIN_RTOL}); chain "
+        f"{CHAIN_STEPS} steps: logp {float(c_lp):.6f} vs K3 {float(k3_chain[2]):.6f}, energy "
+        f"drift over |H(start)| {_fmt(drift)} (tol {ENERGY_TOL}); state rel err vs K3 "
+        f"{_fmt(c_err)} (not held: the trajectory amplifies rounding)")
+    rng_b = np.random.default_rng(3)
+    th_b = as_torch((np.tile(th0, (N_CHAINS, 1))
+                     + 0.1 * rng_b.standard_normal((N_CHAINS, th0.size))).astype("float32"), dev)
+    m_b = as_torch(rng_b.standard_normal((N_CHAINS, th0.size)).astype("float32"), dev)
+    chain_b = make_leapfrog_chain("float32", N_CHAINS, BATCH_STEPS, N_OBS, N_COUNTIES, device=dev)
+    b_out = chain_b(th_b, m_b)
+    k3_b = radon_kernel.make_radon_leapfrog_kernel(
+        BATCH_STEPS, N_OBS, N_COUNTIES, EPS, device=dev)[0](th_b, m_b)
+    torch.cuda.synchronize()
+    b_err = {k: rel_err(a.cpu(), b.cpu()) for k, a, b in
+             zip(keys, b_out, (k3_b[0], k3_b[1], k3_b[2].sum()))}
+    for k, e in b_err.items():
+        if not e <= BATCH_RTOL[k]:
+            raise AssertionError(f"batched chain {k}: rel err {e} vs K3 > {BATCH_RTOL[k]}")
+    say(f"batched chain x{N_CHAINS}, {BATCH_STEPS} steps (step loop): sum logp "
+        f"{float(b_out[2]):.3f}; rel err vs K3 {_fmt(b_err)} (tol {BATCH_RTOL})")
+
+    # 8. profile -------------------------------------------------------------
     theta_b_d = as_torch(theta_b, dev)
     theta_d, m_d = as_torch(theta, dev), as_torch(m_start, dev)
     t_single = wall_ms(lambda: fn(theta0), 200)
@@ -351,6 +517,48 @@ def main():
         f"{k1['plain_ms']:.4f} ms, wall {k1['wall_ms']:.4f} ms vs plain "
         f"{k1['plain_wall_ms']:.4f} ms; K3 {K3_STEPS} steps: device {k3_ms:.4f} ms vs plain "
         f"{k3_plain_ms:.2f} ms, wall {k3_wall:.4f} ms vs plain {k3_plain_wall:.2f} ms")
+    # the 8,192-step chain: one call is one K2 launch plus the outer graph
+    def clocks():
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+    clocks_before = clocks()
+    t_chain = wall_ms(lambda: chain(th0_d, m0_d), 3, warmup=1)
+    chain_dev, chain_by = device_ms(lambda: chain(th0_d, m0_d), 3, warmup=1)
+    clocks_after = clocks()
+    k2_names = [kn for kn in chain_by if "k2_kernel" in kn]
+    per_call = sum(c for _, c in chain_by.values())
+    # the launch counter showed one K2 launch a call (phase 7); the trace
+    # must show it and no kernel a step
+    if len(k2_names) != 1 or chain_by[k2_names[0]][1] != 1 or per_call > 64:
+        raise AssertionError(
+            f"the chain call must hold one K2 launch and no per-step kernels: {per_call:.2f} "
+            f"kernels a call, {[(kn[:40], c) for kn, (_, c) in chain_by.items()]}")
+    k2_chain_ms = chain_by[k2_names[0]][0]
+    say(f"chain {CHAIN_STEPS} steps (make_leapfrog_chain, function()): wall {t_chain:.2f} "
+        f"ms/call, {t_chain / CHAIN_STEPS * 1e3:.2f} us/step, "
+        f"{2 * CHAIN_STEPS * 1e3 / t_chain:,.0f} dlogp evals/s; device {chain_dev:.2f} "
+        f"ms/call ({k2_chain_ms / CHAIN_STEPS * 1e3:.2f} us/step in K2), "
+        f"{per_call:.0f} kernels/call, busy {chain_dev / t_chain:.3f}")
+    for kname, (ms, count) in sorted(chain_by.items(), key=lambda kv: -kv[1][0]):
+        say(f"  {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+    # K2's time a step against the chain's length and its state
+    k2_step = {}
+    for tag, call, steps in ((f"{K3_STEPS} from the start", lambda: chain_short(th0_d, m0_d),
+                              K3_STEPS),
+                             (f"{K2_STEPS} from the {CHAIN_STEPS}-step end",
+                              lambda: chain64(c_theta, c_m), K2_STEPS)):
+        _, by = device_ms(call, 3, warmup=1)
+        k2_step[tag] = next(ms for kn, (ms, _) in by.items() if "k2_kernel" in kn) / steps * 1e3
+    say(f"K2 device us/step: {K2_STEPS} from the start {k2_ms / K2_STEPS * 1e3:.2f}, "
+        + ", ".join(f"{k} {v:.2f}" for k, v in k2_step.items())
+        + f", {CHAIN_STEPS} from the start {k2_chain_ms / CHAIN_STEPS * 1e3:.2f}; "
+        f"SM clock, max, power, temperature before {clocks_before} / after {clocks_after}")
+    say(f"plain step loop ({K2_STEPS} steps, 919/85): {k2_plain_ms / K2_STEPS * 1e3:.1f} "
+        f"us/step device, {k2_plain_wall / K2_STEPS * 1e3:.1f} us/step wall; K2 "
+        f"{k2_ms / K2_STEPS * 1e3:.2f} us/step device, {k2_wall / K2_STEPS * 1e3:.2f} "
+        f"us/step wall")
 
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "triton",
@@ -365,6 +573,12 @@ def main():
          "launches": launches["radon_leapfrog"], "max_abs_err": k3_abs,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "wall_ms": k3_wall, "plain_wall_ms": k3_plain_wall},
+        {"name": "scan_whole_loop (K2)", "route": "cuda",
+         "source": "pytensor_tpu_torch/link/cuda/scan_kernel.py",
+         "replaces": "pytensor_tpu/link/pallas/scan_pallas.py:101",
+         "launches": chain_launches["scan_whole_loop"], "max_abs_err": k2_abs,
+         "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "wall_ms": k2_wall, "plain_wall_ms": k2_plain_wall},
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,10 +1,12 @@
 """pytensor_tpu_torch: the PyTorch and CUDA port of pytensor_tpu.
 
 The same graph IR, rewrite engine and gradient machinery as the JAX
-package, linked to eager torch on an explicit device; the fused
-elementwise chains and the radon leapfrog chain run as hand-written
-Hopper kernels (``tensor/fused_kernel.py``, ``csrc/radon_leapfrog.cu``).
-This package imports torch and never jax or pytensor_tpu.
+package, with ``scan`` and ``function``, linked to eager torch on an
+explicit device; fused elementwise chains, whole for-scans and the radon
+leapfrog chain run as hand-written Hopper kernels
+(``tensor/fused_kernel.py``, ``link/cuda/scan_kernel.py``,
+``csrc/radon_leapfrog.cu``).  This package imports torch and never jax
+or pytensor_tpu.
 """
 
 from pytensor_tpu_torch.config import config  # noqa: F401
@@ -21,3 +23,13 @@ import pytensor_tpu_torch.tensor as tensor  # noqa: F401
 
 # rewrite packs register into optdb at import time
 import pytensor_tpu_torch.tensor.rewriting  # noqa: F401
+import pytensor_tpu_torch.compile.rewriting  # noqa: F401
+
+from pytensor_tpu_torch.compile.maker import function  # noqa: F401
+from pytensor_tpu_torch.compile.sharedvalue import shared  # noqa: F401
+from pytensor_tpu_torch.updates import OrderedUpdates  # noqa: F401
+
+# bind the scan *function* after the subpackage import, so that the name
+# refers to the callable, as in the JAX package
+import pytensor_tpu_torch.scan  # noqa: F401,E402
+from pytensor_tpu_torch.scan.basic import scan  # noqa: F401,E402

@@ -4,7 +4,9 @@ Counterpart of ``pytensor_tpu/compile/mode.py`` (PyTensor's
 compile/mode.py Mode:332, optdb:190).  The pass schedule keeps the JAX
 package's optdb positions: merge1(0) -> useless(0.6) -> merge1.1(0.65)
 -> canonicalize(1) -> merge1.2(1.2) -> stabilize(1.5) -> specialize(2)
--> uncanonicalize(3) -> merge2(49) -> fusion(49.05) -> merge3(100).
+-> uncanonicalize(3) -> merge2(49) -> fusion(49.05) -> merge3(100), with
+the scan rewrites at 1.601-1.62 (``scan/rewriting.py``) and the
+inner-graph bridge at 49.6 (``compile/rewriting.py``).
 ``FAST_RUN`` links with ``"torch"``, whose ``required_rewrites`` tag is
 ``"torch"``: passes tagged for the XLA linker have no place here.
 """
@@ -103,6 +105,12 @@ class Mode:
         """The pass pipeline: the query plus the linker's required tags."""
         req = _linker_class(self.linker).required_rewrites
         return optdb.query(self._optimizer.including(*req))
+
+    def including(self, *tags):
+        return Mode(self.linker, self._optimizer.including(*tags))
+
+    def excluding(self, *tags):
+        return Mode(self.linker, self._optimizer.excluding(*tags))
 
     def __str__(self):
         return f"Mode(linker={self.linker}, optimizer={self._optimizer})"

@@ -1,0 +1,59 @@
+"""Graph rebuilding for function compilation.
+
+Counterpart of ``pytensor_tpu/compile/rebuild.py:17
+rebuild_collect_shared``: clone a user graph applying ``replace``
+(givens) to its outputs and update values, and collect the shared
+variables it reads and their updates.  Left out: default updates, which
+only RNG shared variables have in the JAX package.
+"""
+
+from __future__ import annotations
+
+from pytensor_tpu_torch.compile.sharedvalue import SharedVariable
+from pytensor_tpu_torch.graph.basic import Variable, clone_get_equiv
+from pytensor_tpu_torch.graph.traversal import graph_inputs
+
+
+def rebuild_collect_shared(outputs, inputs=None, replace=None, updates=None):
+    """Returns ``(inputs, outputs, [clone_map, shared_inputs, updates])``:
+    the cloned explicit inputs followed by the cloned shared inputs, the
+    cloned outputs, and ``{shared variable: cloned update value}``."""
+    from pytensor_tpu_torch.graph.replace import graph_replace
+
+    one = isinstance(outputs, Variable)
+    outputs_list = [outputs] if one else list(outputs or [])
+    inputs = list(inputs or [])
+    replace_items = list(replace.items()) if isinstance(replace, dict) else list(replace or [])
+    update_items = list(updates.items()) if isinstance(updates, dict) else list(updates or [])
+
+    if replace_items:
+        exprs = outputs_list + [u for _, u in update_items]
+        if exprs:
+            exprs = graph_replace(exprs, replace_items, strict=False)
+        outputs_list = exprs[: len(outputs_list)]
+        update_items = [(k, e) for (k, _), e in zip(update_items, exprs[len(outputs_list):])]
+
+    shared_inputs: list[SharedVariable] = []
+    seen = set()
+
+    def discover(vs):
+        for v in graph_inputs(vs):
+            if isinstance(v, SharedVariable) and v not in seen:
+                seen.add(v)
+                shared_inputs.append(v)
+
+    exprs = outputs_list + [u for _, u in update_items]
+    if exprs:
+        discover(exprs)
+    for k, _ in update_items:
+        if k not in seen:
+            seen.add(k)
+            shared_inputs.append(k)
+    shared_updates = dict(update_items)
+    all_inputs = inputs + shared_inputs
+    memo = clone_get_equiv(all_inputs, exprs, copy_inputs=True, copy_orphans=False)
+    cloned_inputs = [memo.get(i, i) for i in all_inputs]
+    cloned_outputs = [memo.get(o, o) for o in outputs_list]
+    cloned_updates = {k: memo.get(v, v) for k, v in shared_updates.items()}
+    cloned_out = cloned_outputs[0] if one and cloned_outputs else cloned_outputs
+    return cloned_inputs, cloned_out, [memo, shared_inputs, cloned_updates]

@@ -1,0 +1,65 @@
+"""Shared variables: graph variables with a persistent torch tensor.
+
+Counterpart of ``pytensor_tpu/compile/sharedvalue.py`` (SharedVariable:20,
+shared:75).  A shared variable holds a torch tensor on one explicit
+device, in a one-element ``storage`` list that its clones share.  A
+function that updates it writes the new value into that tensor in place
+(``copy_``), so the tensor object a caller holds sees every update.
+``set_value`` puts a new tensor in the storage, on the variable's device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pytensor_tpu_torch.graph.basic import Variable
+
+
+class SharedVariable(Variable):
+    """A Variable whose value lives in ``storage[0]``, a torch tensor."""
+
+    __slots__ = ("storage",)
+
+    def __init__(self, type, value: torch.Tensor, name=None, storage=None):
+        super().__init__(type, None, None, name)
+        self.storage = storage if storage is not None else [value]
+
+    @property
+    def device(self) -> torch.device:
+        return self.storage[0].device
+
+    def get_value(self, borrow=False) -> torch.Tensor:
+        """The value: a copy, or with ``borrow`` the tensor itself."""
+        v = self.storage[0]
+        return v if borrow else v.clone()
+
+    def set_value(self, new_value):
+        """Replace the value with ``new_value``, on this variable's device."""
+        from pytensor_tpu_torch.link.torch.convert import as_torch, torch_dtype
+
+        v = as_torch(new_value, self.device)
+        if v.dtype != torch_dtype(self.type.dtype) or v.ndim != self.type.ndim or any(
+                s is not None and s != d for s, d in zip(self.type.shape, v.shape)):
+            raise TypeError(f"value of dtype {v.dtype} and shape {tuple(v.shape)} "
+                            f"does not fit {self.type}")
+        self.storage[0] = v
+
+    def clone(self, **kwargs):
+        cp = self.__class__(self.type, None, name=self.name, storage=self.storage)
+        cp.tag.__update__(self.tag)
+        return cp
+
+    def __str__(self):
+        return self.name or f"shared_{self.auto_name}"
+
+
+def shared(value, name=None, *, device):
+    """A tensor shared variable holding ``value`` on ``device``.
+
+    ``value`` is a numpy array, a Python or numpy scalar, or a torch
+    tensor (moved, never cast).  Its static shape is fully unknown, as in
+    the JAX package; left out: the ``shape=`` and ``borrow=`` arguments.
+    """
+    from pytensor_tpu_torch.tensor.sharedvar import tensor_shared_constructor
+
+    return tensor_shared_constructor(value, name=name, device=device)

@@ -1,15 +1,18 @@
 """Typed configuration flags.
 
 The port's copy of the config system (PyTensor's configparser.py:65
-``PyTensorConfigParser`` and configdefaults.py), cut to the two flags the
-port reads: ``floatX`` and ``mode``.  A flag's value comes from
-``PYTENSOR_TPU_TORCH_FLAGS`` (``name=value,...``) if set there, else its
-default, and may be assigned later.  The device is not a flag: it is an
-argument of the linker (``link.torch.linker.fgraph_to_torch``).
+``PyTensorConfigParser`` and configdefaults.py), cut to the three flags the
+port reads: ``floatX``, ``mode`` and ``scan__pallas``.  A flag's value
+comes from ``PYTENSOR_TPU_TORCH_FLAGS`` (``name=value,...``) if set there,
+else its default, and may be assigned later or set for a block with
+``config.change_flags``.  The device is not a flag: it is an argument of
+the linker (``link.torch.linker.fgraph_to_torch``) and of ``function``.
+``scan__unroll`` is not ported: eager torch has no loop to unroll.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any
 
@@ -23,11 +26,35 @@ class EnumStr:
         self.doc = doc
         self.name = "<unset>"
 
+    def parse(self, value):
+        return value
+
     def validate(self, value):
         if value not in self.options:
             raise ValueError(
                 f"Invalid value {value!r} for flag {self.name}; choices: {self.options}"
             )
+
+
+class BoolParam:
+    """A boolean flag; the environment spells it True/False or 1/0."""
+
+    def __init__(self, default: bool, doc=""):
+        self.default = default
+        self.doc = doc
+        self.name = "<unset>"
+
+    def parse(self, value):
+        if isinstance(value, str):
+            if value.lower() in ("true", "1"):
+                return True
+            if value.lower() in ("false", "0"):
+                return False
+        return value
+
+    def validate(self, value):
+        if not isinstance(value, bool):
+            raise ValueError(f"Invalid value {value!r} for flag {self.name}; a bool")
 
 
 def _read_env_flags() -> dict[str, str]:
@@ -49,12 +76,24 @@ class Config:
         object.__setattr__(self, "_params", {})
         object.__setattr__(self, "_values", {})
 
-    def add(self, name: str, param: EnumStr):
+    def add(self, name: str, param):
         param.name = name
         self._params[name] = param
-        value = _read_env_flags().get(name, param.default)
+        value = param.parse(_read_env_flags().get(name, param.default))
         param.validate(value)
         self._values[name] = value
+
+    @contextlib.contextmanager
+    def change_flags(self, **kwargs):
+        """Set flags for the duration of a ``with`` block."""
+        old = {name: getattr(self, name) for name in kwargs}
+        try:
+            for name, value in kwargs.items():
+                setattr(self, name, value)
+            yield
+        finally:
+            for name, value in old.items():
+                setattr(self, name, value)
 
     def __getattr__(self, name: str) -> Any:
         try:
@@ -79,4 +118,10 @@ config.add(
 config.add(
     "mode",
     EnumStr("FAST_RUN", (), doc="Default compilation mode (compile.mode.get_mode)."),
+)
+config.add(
+    "scan__pallas",
+    BoolParam(False, doc="Run every eligible Scan as one whole-loop kernel (K2, "
+                         "link/cuda/scan_kernel.py) on a CUDA device; read when a "
+                         "function is linked.  The name is the JAX package's."),
 )

@@ -40,8 +40,10 @@ class RewriteDatabase:
         return self._names[name]
 
     def _selected(self, name, query: "RewriteDatabaseQuery") -> bool:
+        if self._tags[name] & query.exclude:
+            return False
         if isinstance(self._names[name], RewriteDatabase):
-            # a sub-db always descends: its members filter themselves
+            # a sub-db descends unless excluded: its members filter themselves
             return True
         return bool(self._tags[name] & query.include)
 
@@ -51,16 +53,21 @@ class RewriteDatabase:
 
 class RewriteDatabaseQuery:
     """The tags that select rewrites from a database: a rewrite is selected
-    when it carries any of them."""
+    when it carries any of ``include`` and none of ``exclude``."""
 
-    def __init__(self, include: Iterable[str]):
+    def __init__(self, include: Iterable[str], exclude: Iterable[str] = ()):
         self.include = frozenset(include)
+        self.exclude = frozenset(exclude)
 
     def including(self, *tags) -> "RewriteDatabaseQuery":
-        return RewriteDatabaseQuery(self.include | set(tags))
+        return RewriteDatabaseQuery(self.include | set(tags), self.exclude - set(tags))
+
+    def excluding(self, *tags) -> "RewriteDatabaseQuery":
+        return RewriteDatabaseQuery(self.include - set(tags), self.exclude | set(tags))
 
     def __str__(self):
-        return f"RewriteDatabaseQuery(inc={sorted(self.include)})"
+        return (f"RewriteDatabaseQuery(inc={sorted(self.include)}, "
+                f"ex={sorted(self.exclude)})")
 
 
 class SequenceDB(RewriteDatabase):
@@ -85,6 +92,10 @@ class SequenceDB(RewriteDatabase):
                 continue
             if isinstance(rewriter, RewriteDatabase):
                 rewriter = rewriter.query(query)
+            elif getattr(rewriter, "wants_query", False):
+                # the inner-graph bridge re-runs the active mode's pipeline
+                # inside Scan bodies: hand it the query it was selected under
+                rewriter = rewriter.bind_query(query)
             selected.append((self.positions[name], rewriter))
         selected.sort(key=lambda t: t[0])
         return self.seq_rewriter([r for _, r in selected], name=self.name)

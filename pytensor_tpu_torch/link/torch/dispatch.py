@@ -1,7 +1,8 @@
 """torch lowerings of the ops: the ``torch_funcify`` registry.
 
 Counterpart of ``pytensor_tpu/link/xla/dispatch.py`` (``xla_funcify:27``
-and the lowerings at ``:155-693``).  ``torch_funcify(op, node=node,
+and the lowerings at ``:155-693``) and of the Scan lowering at
+``pytensor_tpu/scan/op.py:790``.  ``torch_funcify(op, node=node,
 device=device)`` returns a function of torch tensors.  Shape values
 (``Shape``, ``Shape_i`` and the arithmetic on them) stay on the host, so
 a reshape never waits on the device.
@@ -23,6 +24,7 @@ import torch
 
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.link.torch.convert import torch_dtype
+from pytensor_tpu_torch.scan.op import Scan
 from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from pytensor_tpu_torch.tensor.fused import FusedElemwise
@@ -58,7 +60,13 @@ def elemwise_fn(node):
     fn = so.torch_fn
     if so.name == "second" or so.name.startswith("cast{"):
         return fn
-    out = torch_dtype(node.outputs[0].type.dtype)
+    out_dtype = node.outputs[0].type.dtype
+    if out_dtype == "bool":
+        # comparisons compute in the operands' common dtype
+        from pytensor_tpu_torch.scalar.basic import upcast
+
+        out_dtype = upcast(*(i.type.dtype for i in node.inputs))
+    out = torch_dtype(out_dtype)
 
     def elemwise(*args):
         return fn(*[a if a.dtype == out else a.to(out) for a in args])
@@ -408,3 +416,75 @@ def _adv_incsub(op, node=None, **kw):
         return out
 
     return adv_incsub
+
+
+# --- scan -----------------------------------------------------------------------
+
+@torch_funcify.register(Scan)
+def _scan(op, node=None, device=None, **kw):
+    """The loop below, or with ``config.scan__pallas`` and an eligible
+    scan the whole-loop kernel K2 (the rule of
+    ``pytensor_tpu/scan/op.py:801-806``); K2's wrapper runs this loop on
+    CPU tensors and the kernel on CUDA tensors, never the loop in its place."""
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda.scan_kernel import ScanKernel, scan_kernel_eligible
+
+    if config.scan__pallas and scan_kernel_eligible(op, node):
+        return ScanKernel(op, node, device)
+    return scan_loop(op, device)
+
+
+def scan_loop(op, device):
+    """A for-scan as a torch step loop over the inner graph linked for
+    ``device`` (counterpart of ``pytensor_tpu/scan/op.py:817-875``); the
+    plain version of K2.  Returns ``loop(n_steps, *outer)``, which gives
+    the traces of the states, the final untraced states and the nit-sot
+    traces, in that order."""
+    from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
+
+    info = op.info
+    inner = fgraph_to_torch(op.fgraph, device, trust_input=True)
+    n_seqs, n_states, n_unt = info.n_seqs, info.n_states, info.n_untraced
+    depth = [-min(taps) for taps in info.taps]
+    single = [m == 1 and len(taps) == 1 for m, taps in zip(depth, info.taps)]
+    nit_types = [o.type for o in op.inner_nit_sot_outs()]
+
+    def loop(n_steps, *outer):
+        T = int(n_steps)
+        seqs = outer[:n_seqs]
+        for s in seqs:
+            if s.shape[0] < T:
+                raise ValueError(f"scan of {T} steps over a sequence of {s.shape[0]} rows")
+        inits = outer[n_seqs: n_seqs + n_states]
+        untraced = list(outer[n_seqs + n_states: n_seqs + n_states + n_unt])
+        non_seqs = list(outer[n_seqs + n_states + n_unt:])
+        # state histories, oldest first
+        hist = [[init] if one else [init[i] for i in range(m)]
+                for init, one, m in zip(inits, single, depth)]
+        traces = [[] for _ in range(n_states)]
+        nits = [[] for _ in range(info.n_nit_sot)]
+        for t in range(T):
+            args = [s[t] for s in seqs]
+            for k, taps in enumerate(info.taps):
+                args.extend(hist[k][depth[k] + tap] for tap in taps)
+            res = inner(*args, *untraced, *non_seqs)
+            for k in range(n_states):
+                traces[k].append(res[k])
+                hist[k] = hist[k][1:] + [res[k]]
+            untraced = list(res[n_states: n_states + n_unt])
+            for j in range(info.n_nit_sot):
+                nits[j].append(res[n_states + n_unt + j])
+
+        def stacked(rows, core_shape, dtype):
+            if rows:
+                return torch.stack(rows)
+            return torch.empty((0, *core_shape), dtype=dtype, device=device)
+
+        out = [stacked(traces[k], tuple(hist[k][-1].shape), inits[k].dtype)
+               for k in range(n_states)]
+        out += untraced
+        out += [stacked(nits[j], tuple(s or 0 for s in nit_types[j].shape),
+                        torch_dtype(nit_types[j].dtype)) for j in range(info.n_nit_sot)]
+        return out
+
+    return loop

@@ -3,8 +3,9 @@
 Counterpart of ``pytensor_tpu/link/xla/linker.py:44 fgraph_to_jax``.
 Where the JAX package traces the graph once into one jitted executable,
 the port runs each node's torch lowering in topological order, eagerly,
-on an explicit device.  Fused elementwise chains and the radon leapfrog
-chain are the hand-written kernels; everything else is a torch op.
+on an explicit device.  Fused elementwise chains and, with
+``config.scan__pallas``, eligible scans are hand-written kernels;
+everything else is a torch op.
 
 Graph constants move to the device once, at link time, with their dtype
 kept.  Shape values stay on the host: the outputs of ``Shape`` and
@@ -24,6 +25,7 @@ from pytensor_tpu_torch.graph.fg import FunctionGraph
 from pytensor_tpu_torch.link.basic import raise_with_op
 from pytensor_tpu_torch.link.torch.convert import as_torch, resolve_device, torch_dtype
 from pytensor_tpu_torch.link.torch.dispatch import torch_funcify
+from pytensor_tpu_torch.scan.op import Scan
 from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape
@@ -32,9 +34,9 @@ from pytensor_tpu_torch.tensor.type import TensorType
 
 # ops that compute on the host when every non-constant input is host
 _HOST_CAPABLE = (Elemwise, DimShuffle, MakeVector, CAReduce, Subtensor)
-# input positions that are shapes
+# input positions that are shapes, or a scan's step count
 _SHAPE_PORTS = {Reshape: lambda i: i == 1, SpecifyShape: lambda i: i >= 1,
-                Alloc: lambda i: i >= 1}
+                Alloc: lambda i: i >= 1, Scan: lambda i: i == 0}
 
 
 def _host_variables(order) -> set:
@@ -54,9 +56,13 @@ def _on_host(node, i, host) -> bool:
     return (port is not None and port(i)) or any(o in host for o in node.outputs)
 
 
-def fgraph_to_torch(fgraph: FunctionGraph, device):
+def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False):
     """A python callable applying each node's torch lowering in
-    topological order on ``device``; it returns a tuple of tensors."""
+    topological order on ``device``; it returns a tuple of tensors.
+
+    Inputs are checked for device, dtype and shape, and numpy values
+    converted, unless ``trust_input``: then they are taken as they are.
+    """
     device = resolve_device(device)
     order = fgraph.toposort()
     host = _host_variables(order)
@@ -99,7 +105,10 @@ def fgraph_to_torch(fgraph: FunctionGraph, device):
     def run(*args):
         if len(args) != len(inputs):
             raise TypeError(f"expected {len(inputs)} inputs, got {len(args)}")
-        storage = {var: convert(var, val) for var, val in zip(inputs, args)}
+        if trust_input:
+            storage = dict(zip(inputs, args))
+        else:
+            storage = {var: convert(var, val) for var, val in zip(inputs, args)}
         for fn, node, spec in plan:
             vals = [v if kind == "const" else storage[v] for kind, v in spec]
             try:

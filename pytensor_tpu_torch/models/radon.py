@@ -129,6 +129,57 @@ def leapfrog(fn, theta, m, n_steps, eps):
     return theta, m, logp
 
 
+def make_leapfrog_chain(dtype="float32", n_chains=None, n_steps=8192, n_obs=919,
+                        n_counties=85, device="cpu", eps=1e-3):
+    """The leapfrog chain of ``bench.py:40 build_ours``, through ``scan``
+    and ``function``: ``f(theta0, m0) -> [theta, m, logp]`` after
+    ``n_steps`` steps, each a half kick, a drift and a half kick with two
+    ``dlogp`` evaluations.  ``n_chains=None`` is one chain of shape
+    ``(n_params,)``; else ``theta0`` is ``(n_chains, n_params)`` and
+    ``logp`` the sum over chains.
+
+    One float32 chain is compiled with ``config.scan__pallas`` and
+    ``mode.including("onehot_gather")``, so that on a CUDA device the
+    whole chain is one launch of K2; the other chains take the step loop.
+    Inputs are trusted: pass tensors of the right dtype and shape on
+    ``device``.
+    """
+    from pytensor_tpu_torch.compile.mode import get_mode
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.graph.replace import graph_replace
+
+    mode = None
+    if n_chains is None:
+        inputs, (logp, dlogp), n_params = make_radon_graphs(n_obs, n_counties, dtype)
+        theta_in = inputs[0]
+        shape = (n_params,)
+        final_red = lambda lp: lp  # noqa: E731
+        if dtype == "float32":
+            mode = get_mode(None).including("onehot_gather")
+    else:
+        theta_in, logp, dlogp, n_params = make_radon_logp_batched(n_obs, n_counties, dtype)
+        shape = (n_chains, n_params)
+        final_red = lambda lp: lp.sum()  # noqa: E731
+
+    theta0 = pt.tensor("theta0", dtype=dtype, shape=shape)
+    m0 = pt.tensor("m0", dtype=dtype, shape=shape)
+
+    def step(theta, m):
+        g = graph_replace(dlogp, {theta_in: theta})
+        m_half = m + (eps / 2) * g
+        theta_new = theta + eps * m_half
+        g_new = graph_replace(dlogp, {theta_in: theta_new})
+        return theta_new, m_half + (eps / 2) * g_new
+
+    with config.change_flags(scan__pallas=n_chains is None and dtype == "float32"):
+        (thetas, ms), _ = ptt.scan(step, outputs_info=[theta0, m0], n_steps=n_steps,
+                                   name="leapfrog")
+        final_logp = final_red(graph_replace(logp, {theta_in: thetas[-1]}))
+        return ptt.function([theta0, m0], [thetas[-1], ms[-1], final_logp],
+                            name="leapfrog_chain", mode=mode, trust_input=True,
+                            device=device)
+
+
 def radon_logp_dlogp_reference(theta, n_obs=919, n_counties=85, seed=0):
     """Closed-form logp and analytic dlogp in float64 NumPy, independent of
     the graph: the check the linked functions are held to.  ``theta`` is

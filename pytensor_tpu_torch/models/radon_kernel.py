@@ -5,22 +5,18 @@ Counterpart of ``pytensor_tpu/models/radon_pallas.py``.  The CUDA kernel
 analytic ``dlogp`` of ``models/radon.py`` and the ``logp`` of the final
 ``theta``, one block per chain; its source says what bounds it and how.
 
-The kernel is built with ``nvcc -gencode arch=compute_90a,code=sm_90a
--shared`` into ``build/kernels/`` (listed in ``.gitignore``) at first
-use, keyed by a hash of the source, and called through ``ctypes``.  Its
-C entry returns ``cudaGetLastError()`` and the wrapper raises on a
-non-zero code.  The plain version is the same analytic leapfrog in torch
-ops, with ``a[county]`` and ``index_add_``; the wrapper takes it for CPU
-tensors only.
+The kernel is built by ``link/cuda/build.py`` (nvcc for sm_90a into the
+gitignored ``build/kernels/``, keyed by a hash of the source) at first
+use and called through ``ctypes``.  Its C entry returns
+``cudaGetLastError()`` and the wrapper raises on a non-zero code.  The
+plain version is the same analytic leapfrog in torch ops, with
+``a[county]`` and ``index_add_``; the wrapper takes it for CPU tensors
+only.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -30,9 +26,6 @@ import torch
 from pytensor_tpu_torch.models.radon import LOG_2PI, radon_synthetic_data
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "radon_leapfrog.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 
 # launches of the kernel since the count was last set to 0
 LAUNCHES = 0
@@ -41,39 +34,18 @@ _LIB = None
 BUILD_LOG = ""
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and Path(root, "bin", "nvcc").exists():
-            return str(Path(root, "bin", "nvcc"))
-    raise RuntimeError("nvcc not found: K3 is built on a machine with the CUDA toolkit")
-
-
 def build(verbose: bool = False) -> ctypes.CDLL:
     """Compile (once per source hash) and load the K3 shared library.
 
     With ``verbose`` the compiler's register and shared-memory report
     (``-Xptxas -v``) is kept in ``BUILD_LOG``.
     """
+    from pytensor_tpu_torch.link.cuda.build import build_library
+
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libradon_leapfrog_{key}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib, BUILD_LOG = build_library(SOURCE.read_text(), "radon_leapfrog", SOURCE, verbose)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.radon_leapfrog.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
     lib.radon_leapfrog.restype = i

@@ -2,11 +2,13 @@
 
 Counterpart of ``pytensor_tpu/scalar/basic.py`` (PyTensor's
 scalar/basic.py ScalarOp:1151), cut to the ops the radon logp+dlogp path
-builds.  Each descriptor carries a numpy implementation (what constant
-folding evaluates), a torch implementation (what the linker and the
-plain version of the fused kernel call) and its gradient rule, written
-against tensor-level graph constructors.  The fused elementwise kernel
-emits Triton source from the op's ``name`` (``tensor/fused_kernel.py``).
+and the ported scan tests build.  Each descriptor carries a numpy
+implementation (what constant folding evaluates), a torch implementation
+(what the linker and the plain versions of the kernels call) and its
+gradient rule, written against tensor-level graph constructors.  The
+kernels emit code from the op's ``name``: Triton in the fused
+elementwise kernel (``tensor/fused_kernel.py``), CUDA C++ in the
+whole-loop scan kernel (``link/cuda/scan_kernel.py``).
 """
 
 from __future__ import annotations
@@ -189,6 +191,34 @@ exp = _op("exp", 1, np.exp, torch.exp,
           lambda i, o, gz: [gz[0] * o[0]], dtype_rule="float")
 log = _op("log", 1, np.log, torch.log,
           lambda i, o, gz: [gz[0] / i[0]], dtype_rule="float")
+sin = _op("sin", 1, np.sin, torch.sin,
+          lambda i, o, gz: [gz[0] * _tm().cos(i[0])], dtype_rule="float")
+cos = _op("cos", 1, np.cos, torch.cos,
+          lambda i, o, gz: [-gz[0] * _tm().sin(i[0])], dtype_rule="float")
+tanh = _op("tanh", 1, np.tanh, torch.tanh,
+           lambda i, o, gz: [gz[0] * (1 - o[0] * o[0])], dtype_rule="float")
+
+
+def _zero_like(x):
+    return x.zeros_like(dtype=config.floatX) if _is_discrete(x) else x.zeros_like()
+
+
+# comparisons -> bool
+lt = _op("lt", 2, np.less, torch.lt,
+         lambda i, o, gz: [_zero_like(i[0]), _zero_like(i[1])], dtype_rule=lambda a, b: "bool")
+ge = _op("ge", 2, np.greater_equal, torch.ge,
+         lambda i, o, gz: [_zero_like(i[0]), _zero_like(i[1])], dtype_rule=lambda a, b: "bool")
+
+
+def _maximum_grad(i, o, gz):
+    tm = _tm()
+    x, y = i
+    gx = gz[0] * tm.cast(tm.ge(x, y), gz[0].dtype)
+    gy = gz[0] * tm.cast(tm.lt(x, y), gz[0].dtype)
+    return [gx, gy]
+
+
+maximum = _op("maximum", 2, np.maximum, torch.maximum, _maximum_grad, commutative=True)
 
 
 def _second_grad(i, o, gz):

@@ -1,0 +1,4 @@
+from pytensor_tpu_torch.scan.basic import scan  # noqa: F401
+from pytensor_tpu_torch.scan.utils import until  # noqa: F401
+
+import pytensor_tpu_torch.scan.rewriting  # noqa: F401,E402  (registers the scan passes)

@@ -1,0 +1,269 @@
+"""The scan() user API.
+
+Counterpart of ``pytensor_tpu/scan/basic.py:26 scan``: classify the step
+function's recurrences into sequences, states, nit-sots and
+non-sequences, build the inner graph by calling the step function once on
+symbolic slices, and wrap it in a Scan op.  Shared variables the step
+function reads become implicit non-sequences; tensor shared variables it
+updates become traced states whose last value is the update.
+
+Left out, until ROADMAP.md Queue 1 item 5: while-loops (``until``
+raises), RNG states (the port has no ``tensor/random`` yet), taps on
+sequences, several sequences of unknown length without ``n_steps``, and
+the options ``go_backwards``, ``strict``, ``return_list``,
+``return_updates``, ``truncate_gradient``, ``mode``, ``profile``,
+``allow_gc`` and ``unroll``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from pytensor_tpu_torch.graph.basic import Constant, Variable
+from pytensor_tpu_torch.graph.fg import FunctionGraph, MissingInputError
+from pytensor_tpu_torch.graph.traversal import graph_inputs
+from pytensor_tpu_torch.scan.op import NOT_PORTED, Scan, ScanInfo
+from pytensor_tpu_torch.scan.utils import until
+from pytensor_tpu_torch.tensor.basic import as_tensor_variable
+from pytensor_tpu_torch.tensor.type import TensorType
+from pytensor_tpu_torch.updates import OrderedUpdates
+
+
+def _listify(x):
+    if x is None:
+        return []
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x]
+
+
+def _is_updates(x):
+    if isinstance(x, (dict, OrderedUpdates)):
+        return True
+    return (isinstance(x, (list, tuple)) and len(x) > 0
+            and all(isinstance(p, (tuple, list)) and len(p) == 2
+                    and isinstance(p[0], Variable) for p in x))
+
+
+def _n_steps(n_steps, seq_vars):
+    """(n_steps variable, its static value or None, whether it was given)."""
+    from pytensor_tpu_torch.tensor.basic import (
+        NotScalarConstantError,
+        get_scalar_constant_value,
+    )
+    from pytensor_tpu_torch.tensor.shape import shape
+
+    lengths = [s.type.shape[0] for s in seq_vars]
+    if n_steps is not None:
+        n_steps_var = as_tensor_variable(n_steps)
+    elif not seq_vars:
+        raise ValueError("scan needs sequences or n_steps")
+    elif len(seq_vars) == 1:
+        n_steps_var = shape(seq_vars[0])[0]
+    elif None not in lengths:
+        n_steps_var = as_tensor_variable(min(lengths))
+    else:
+        raise NotImplementedError(
+            "scan over several sequences of unknown length needs n_steps in the port "
+            f"({NOT_PORTED})")
+    try:
+        static_n = int(get_scalar_constant_value(n_steps_var))
+    except NotScalarConstantError:
+        static_n = None
+    return n_steps_var, static_n, n_steps is not None
+
+
+def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
+         n_steps=None, name: str | None = None):
+    """Loop ``fn`` over sequences and recurrences; returns (outputs, updates).
+
+    ``outputs_info`` holds, per output, an initial value (a state with tap
+    -1), a dict ``{"initial": value, "taps": [...]}`` with negative taps,
+    or None for an output without recurrence (a nit-sot).
+    """
+    from pytensor_tpu_torch.compile.sharedvalue import SharedVariable
+    from pytensor_tpu_torch.graph.basic import clone_get_equiv
+    from pytensor_tpu_torch.graph.replace import graph_replace
+    from pytensor_tpu_torch.scalar.basic import upcast
+
+    sequences = _listify(sequences)
+    outputs_info = _listify(outputs_info)
+    non_sequences = _listify(non_sequences)
+
+    seq_vars = [as_tensor_variable(s) for s in sequences]
+    n_steps_var, static_n, explicit = _n_steps(n_steps, seq_vars)
+    # clip each sequence to exactly n_steps rows
+    if seq_vars and (explicit or len(seq_vars) > 1):
+        seq_vars = [sv if static_n is not None and sv.type.shape[0] == static_n
+                    else sv[: (static_n if static_n is not None else n_steps_var)]
+                    for sv in seq_vars]
+
+    states = []  # (initial, taps) or None for a nit-sot
+    for oi in outputs_info:
+        if oi is None or (isinstance(oi, dict) and oi.get("initial") is None):
+            states.append(None)
+        elif isinstance(oi, dict):
+            # taps keep the user's order: fn gets its tap arguments as listed
+            taps = tuple(oi.get("taps", [-1]))
+            if any(t >= 0 for t in taps):
+                raise ValueError("output taps must be negative")
+            if len(set(taps)) != len(taps):
+                raise ValueError(f"repeated output taps {taps}")
+            states.append((as_tensor_variable(oi["initial"]), taps))
+        else:
+            states.append((as_tensor_variable(oi), (-1,)))
+    non_seq_vars = [v if isinstance(v, Variable) else as_tensor_variable(v)
+                    for v in non_sequences]
+
+    # inner input variables; fn is called exactly once, and a state whose
+    # output widens its dtype is reconciled by cloning the traced graph
+    # with widened tap variables
+    state_dtype: dict[int, str] = {}
+
+    def build_taps():
+        groups = []
+        for k, (idx, st) in enumerate((i, s) for i, s in enumerate(states) if s is not None):
+            init, taps = st
+            dt = state_dtype.get(k, init.type.dtype)
+            single = -min(taps) == 1 and len(taps) == 1
+            core = TensorType(dt, init.type.shape if single else init.type.shape[1:])
+            groups.append([core(f"state{idx}[t{tap}]") for tap in taps])
+        return groups
+
+    inner_seqs = [TensorType(s.type.dtype, s.type.shape[1:])(f"{s.name or 'seq'}[t]")
+                  for s in seq_vars]
+    inner_taps = build_taps()
+    args = list(inner_seqs) + [v for g in inner_taps for v in g] + non_seq_vars
+    raw = fn(*args)
+
+    explicit_updates = OrderedUpdates()
+
+    def collect_updates(u):
+        for k, v in (u.items() if isinstance(u, dict) else u):
+            if not isinstance(getattr(k, "type", None), TensorType):
+                raise NotImplementedError(
+                    f"scan updates of non-tensor shared variables (RNG states) are not "
+                    f"ported yet ({NOT_PORTED})")
+            explicit_updates[k] = as_tensor_variable(v)
+
+    if isinstance(raw, until) or (isinstance(raw, tuple) and any(isinstance(r, until)
+                                                                 for r in raw)):
+        raise NotImplementedError(f"while-scans (until) are not ported yet ({NOT_PORTED})")
+    if isinstance(raw, dict) or (_is_updates(raw) and not isinstance(raw, tuple)):
+        outputs_raw = []
+        collect_updates(raw)
+    elif (isinstance(raw, tuple) and len(raw) == 2 and _is_updates(raw[1])
+          and not all(isinstance(r, Variable) for r in raw)):
+        outputs_raw = raw[0]
+        collect_updates(raw[1])
+    else:
+        outputs_raw = raw
+    user_outs = [as_tensor_variable(o) for o in _listify(outputs_raw)]
+
+    if outputs_info and len(states) != len(user_outs):
+        raise ValueError(f"scan fn returned {len(user_outs)} outputs but outputs_info "
+                         f"has {len(states)}")
+    if not outputs_info:
+        states = [None] * len(user_outs)
+
+    for _ in range(4):
+        state_outs = [o for o, st in zip(user_outs, states) if st is not None]
+        retry = False
+        for k, (out, group) in enumerate(zip(state_outs, inner_taps)):
+            core = group[0]
+            if out.type.ndim != core.type.ndim:
+                raise TypeError(f"scan state {k}: output type {out.type} incompatible with "
+                                f"initial/tap type {core.type}")
+            if out.type.dtype != core.type.dtype:
+                if upcast(core.type.dtype, out.type.dtype) != out.type.dtype:
+                    raise TypeError(
+                        f"scan state {k}: inner function downcasts the state from "
+                        f"{out.type.dtype} given initial dtype {core.type.dtype}; cast the "
+                        "initial state explicitly")
+                state_dtype[k] = out.type.dtype
+                retry = True
+        if not retry:
+            break
+        new_taps = build_taps()
+        mapping = [(old, new) for og, ng in zip(inner_taps, new_taps)
+                   for old, new in zip(og, ng) if old.type != new.type]
+        keys = list(explicit_updates)
+        exprs = graph_replace(user_outs + [explicit_updates[k] for k in keys], mapping,
+                              strict=False)
+        user_outs = list(exprs[: len(user_outs)])
+        for k, v in zip(keys, exprs[len(user_outs):]):
+            explicit_updates[k] = v
+        inner_taps = new_taps
+    else:
+        raise TypeError("scan could not reconcile state dtypes with fn outputs")
+
+    state_outs = [o for o, st in zip(user_outs, states) if st is not None]
+    nit_outs = [o for o, st in zip(user_outs, states) if st is None]
+    taps_list = tuple(st[1] for st in states if st is not None)
+    inits = [st[0] for st in states if st is not None]
+    if state_dtype:
+        from pytensor_tpu_torch.tensor.basic import cast
+
+        inits = [cast(init, state_dtype[k]) if k in state_dtype else init
+                 for k, init in enumerate(inits)]
+    flat_taps = [v for g in inner_taps for v in g]
+    inner_inputs = inner_seqs + flat_taps
+    inner_outputs = state_outs + nit_outs
+
+    # implicit non-sequences: outer variables the inner graph reads
+    upd_targets = list(explicit_updates)
+    for t in upd_targets:
+        if not isinstance(t, SharedVariable):
+            raise TypeError(f"scan updates must target SharedVariables, got {t}")
+    upd_exprs = [explicit_updates[k] for k in upd_targets]
+    explicit_ns = set(non_seq_vars)
+    output_roots = set(graph_inputs(inner_outputs, blockers=non_seq_vars))
+    inner_set = set(inner_inputs)
+    implicit = []
+    for v in graph_inputs(inner_outputs + upd_exprs, blockers=non_seq_vars):
+        if isinstance(v, Constant) or v in explicit_ns or v in inner_set or v in implicit:
+            continue
+        if v.owner is None and not isinstance(v, SharedVariable) and v not in output_roots:
+            raise MissingInputError(
+                f"Undeclared input {v} used by the scan inner function.\n"
+                "Please pass this variable to the scan's inner function. Do not forget "
+                "to also pass it to the `non_sequences` attribute of scan.")
+        implicit.append(v)
+    implicit = [v for v in implicit if v not in upd_targets]
+
+    upd_in = []
+    if implicit or upd_targets or non_seq_vars:
+        ns_placeholders = [v.type(v.name or "w") for v in non_seq_vars]
+        placeholders = [v.type() for v in implicit]
+        upd_in = [v.type() for v in upd_targets]
+        memo = dict(zip(non_seq_vars + implicit + upd_targets,
+                        ns_placeholders + placeholders + upd_in))
+        memo = clone_get_equiv(inner_inputs + non_seq_vars + implicit + upd_targets,
+                               inner_outputs + upd_exprs, copy_inputs=False,
+                               copy_orphans=False, memo=memo)
+        inner_outputs = [memo[o] for o in inner_outputs]
+        upd_exprs = [memo.get(e, e) for e in upd_exprs]
+        non_seq_vars = non_seq_vars + implicit
+        nonseq_inputs = ns_placeholders + placeholders
+    else:
+        nonseq_inputs = []
+
+    n_user_states = len(state_outs)
+    info = ScanInfo(n_seqs=len(seq_vars), taps=taps_list + ((-1,),) * len(upd_targets),
+                    n_nit_sot=len(nit_outs), n_non_seqs=len(non_seq_vars))
+    # canonical order: seqs + taps (user states, then update states) + non-seqs;
+    # outputs: user states, update states, nit-sots
+    fgraph = FunctionGraph(
+        inner_seqs + flat_taps + upd_in + nonseq_inputs,
+        inner_outputs[:n_user_states] + upd_exprs + inner_outputs[n_user_states:],
+        clone=True)
+    node_outs = Scan(fgraph, info, name=name)(
+        n_steps_var, *seq_vars, *inits, *upd_targets, *non_seq_vars, return_list=True)
+
+    updates = OrderedUpdates()
+    for j, sv in enumerate(upd_targets):
+        updates[sv] = node_outs[n_user_states + j][-1]
+    traces = iter(node_outs[:n_user_states])
+    nits = iter(node_outs[info.n_states:])
+    results = [next(traces) if st is not None else next(nits) for st in states]
+    return (results[0] if len(results) == 1 else results), updates

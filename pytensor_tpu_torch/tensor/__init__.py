@@ -18,17 +18,24 @@ from pytensor_tpu_torch.tensor.basic import (  # noqa: F401
 )
 from pytensor_tpu_torch.tensor.math import (  # noqa: F401
     add,
+    cos,
     dot,
     exp,
+    ge,
     log,
+    lt,
+    maximum,
     mul,
     neg,
     pow,
     second,
+    sigmoid,
+    sin,
     sqr,
     sqrt,
     sub,
     sum,
+    tanh,
     tensordot,
     true_div,
 )

@@ -73,9 +73,17 @@ _EMIT = {
     "log": lambda a: f"libdevice.log({a[0]})",
     "sqrt": lambda a: f"libdevice.sqrt_rn({a[0]})",
     "pow": lambda a: f"libdevice.pow({a[0]}, {a[1]})",
+    "sin": lambda a: f"libdevice.sin({a[0]})",
+    "cos": lambda a: f"libdevice.cos({a[0]})",
+    "tanh": lambda a: f"libdevice.tanh({a[0]})",
+    "sigmoid": lambda a: (f"libdevice.div_rn(tl.full([BLOCK], 1, {a[0]}.dtype), "
+                          f"1 + libdevice.exp(-{a[0]}))"),
+    # NaN in either operand gives NaN, as numpy's and torch's maximum do
+    "maximum": lambda a: f"tl.where(({a[0]} > {a[1]}) | ({a[0]} != {a[0]}), {a[0]}, {a[1]})",
 }
 # ops whose libdevice form exists only for floats
-_FLOAT_ONLY = frozenset({"true_div", "reciprocal", "exp", "log", "sqrt", "pow"})
+_FLOAT_ONLY = frozenset({"true_div", "reciprocal", "exp", "log", "sqrt", "pow",
+                         "sin", "cos", "tanh", "sigmoid"})
 
 
 def emittable(node) -> bool:

@@ -2,8 +2,8 @@
 
 Counterpart of ``pytensor_tpu/tensor/math.py`` (PyTensor's tensor/math.py
 Dot:3041, Sum:3438 and the elemwise wrappers), cut to the ops of the
-radon logp+dlogp path.  The torch linker runs Dot as ``torch.matmul`` in
-full float32 (``link/torch/dispatch.py``).
+radon logp+dlogp path and the ported scan tests.  The torch linker runs
+Dot as ``torch.matmul`` in full float32 (``link/torch/dispatch.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 from pytensor_tpu_torch.graph.basic import Apply
 from pytensor_tpu_torch.graph.op import Op
 from pytensor_tpu_torch.scalar import basic as ps
+from pytensor_tpu_torch.scalar import math as psm
 from pytensor_tpu_torch.tensor import basic as tb
 from pytensor_tpu_torch.tensor.basic import as_tensor_variable, cast, constant
 from pytensor_tpu_torch.tensor.elemwise import DimShuffle, Elemwise, Sum
@@ -32,6 +33,13 @@ sqrt = Elemwise(ps.sqrt)
 reciprocal = Elemwise(ps.reciprocal)
 exp = Elemwise(ps.exp)
 log = Elemwise(ps.log)
+sin = Elemwise(ps.sin)
+cos = Elemwise(ps.cos)
+tanh = Elemwise(ps.tanh)
+sigmoid = Elemwise(psm.sigmoid)
+maximum = Elemwise(ps.maximum)
+lt = Elemwise(ps.lt)
+ge = Elemwise(ps.ge)
 second = Elemwise(ps.second)
 
 

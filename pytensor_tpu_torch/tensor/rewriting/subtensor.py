@@ -8,12 +8,17 @@ from __future__ import annotations
 
 import numpy as np
 
-from pytensor_tpu_torch.compile.mode import register_canonicalize, register_specialize
+from pytensor_tpu_torch.compile.mode import (
+    register_canonicalize,
+    register_specialize,
+    specialize,
+)
 from pytensor_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
 from pytensor_tpu_torch.tensor.subtensor import (
     DYN,
     AdvancedIncSubtensor,
     AdvancedIncSubtensor1,
+    AdvancedSubtensor1,
     Subtensor,
 )
 
@@ -114,6 +119,97 @@ def local_scatter_add_to_onehot_dot(fgraph, node):
 
 register_specialize(local_scatter_add_to_onehot_dot,
                     name="local_scatter_add_to_onehot_dot")
+
+
+# Constant-index gather/scatter -> one-hot matrix products
+# (``pytensor_tpu/tensor/rewriting/subtensor.py:800-903``).  When the index
+# vector is a graph constant (the hierarchical-model pattern a[county]),
+# x[idx] == onehot @ x and inc_subtensor(x[idx], y) == x + onehot.T @ y
+# exactly.  Tagged ``onehot_gather`` only, not ``fast_run``, as in the JAX
+# package: a mode opts in with ``mode.including("onehot_gather")``.  They
+# are what make the radon leapfrog body eligible for the whole-loop scan
+# kernel (K2), which emits Dot but not AdvancedSubtensor1.
+
+_ONEHOT_MAX_ELEMS = 1 << 20  # onehot matrix size cap (4 MB f32)
+
+
+def _onehot_constant(idx_data, n, dtype):
+    from pytensor_tpu_torch.tensor.basic import constant
+
+    idx = np.asarray(idx_data).astype(np.int64)
+    if idx.ndim != 1 or idx.size == 0:
+        return None
+    if (idx < -n).any() or (idx >= n).any():
+        return None
+    idx = np.where(idx < 0, idx + n, idx)
+    onehot = np.zeros((idx.size, n), dtype=dtype)
+    onehot[np.arange(idx.size), idx] = 1
+    return constant(onehot)
+
+
+def _onehot_operands(x, ilist):
+    """(n, m) of a constant-index gather/scatter the rewrite takes, or None."""
+    from pytensor_tpu_torch.graph.basic import Constant
+
+    if not isinstance(ilist, Constant):
+        return None
+    if x.type.ndim not in (1, 2) or not x.type.dtype.startswith(("float", "bfloat")):
+        return None
+    n = x.type.shape[0]
+    if n is None:
+        return None
+    m = int(np.asarray(ilist.data).size)
+    if m * n > _ONEHOT_MAX_ELEMS:
+        return None
+    return n, m
+
+
+@node_rewriter([AdvancedSubtensor1])
+def local_constant_gather_to_onehot_dot(fgraph, node):
+    """x[const_ivec] -> dot(onehot, x)."""
+    from pytensor_tpu_torch.tensor.math import dot
+
+    x, ilist = node.inputs
+    if _onehot_operands(x, ilist) is None:
+        return False
+    onehot = _onehot_constant(ilist.data, x.type.shape[0], x.type.dtype)
+    if onehot is None:
+        return False
+    out = dot(onehot, x)
+    if not node.outputs[0].type.is_super(out.type):
+        return False
+    copy_stack_trace(node.outputs[0], out)
+    return [out]
+
+
+specialize.register("local_constant_gather_to_onehot_dot",
+                    local_constant_gather_to_onehot_dot, "onehot_gather")
+
+
+@node_rewriter([AdvancedIncSubtensor1])
+def local_constant_scatter_to_onehot_dot(fgraph, node):
+    """inc_subtensor(x[const_ivec], y) -> x + dot(onehot.T, y) (exact with
+    duplicate indices)."""
+    from pytensor_tpu_torch.tensor.basic import transpose
+    from pytensor_tpu_torch.tensor.math import dot
+
+    if node.op.set_instead_of_inc:
+        return False  # set semantics = last-write-wins, not a sum
+    x, y, ilist = node.inputs
+    if _onehot_operands(x, ilist) is None or y.type.ndim != x.type.ndim:
+        return False
+    onehot = _onehot_constant(ilist.data, x.type.shape[0], x.type.dtype)
+    if onehot is None:
+        return False
+    out = x + dot(transpose(onehot), y)
+    if not node.outputs[0].type.is_super(out.type):
+        return False
+    copy_stack_trace(node.outputs[0], out)
+    return [out]
+
+
+specialize.register("local_constant_scatter_to_onehot_dot",
+                    local_constant_scatter_to_onehot_dot, "onehot_gather")
 
 
 @node_rewriter([Subtensor])

@@ -1,0 +1,39 @@
+"""Tensor shared variables (counterpart of ``pytensor_tpu/tensor/sharedvar.py``)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pytensor_tpu_torch.compile.sharedvalue import SharedVariable
+from pytensor_tpu_torch.config import config
+from pytensor_tpu_torch.tensor.type import TensorType
+from pytensor_tpu_torch.tensor.variable import _tensor_py_operators
+
+
+class TensorSharedVariable(_tensor_py_operators, SharedVariable):
+    __slots__ = ()
+
+
+def tensor_shared_constructor(value, name=None, *, device):
+    """A TensorSharedVariable holding a copy of ``value`` on ``device``.
+
+    Python ints become int64 and Python floats ``floatX``, as in the JAX
+    package; arrays and tensors keep their dtype.
+    """
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+
+    if isinstance(value, torch.Tensor):
+        tensor = as_torch(value.detach(), device).clone()
+    else:
+        if isinstance(value, bool):
+            arr = np.asarray(value)
+        elif isinstance(value, int):
+            arr = np.asarray(value, dtype="int64")
+        elif isinstance(value, float):
+            arr = np.asarray(value, dtype=config.floatX)
+        else:
+            arr = np.asarray(value)
+        tensor = as_torch(arr, device)
+    dtype = str(tensor.dtype).removeprefix("torch.")
+    return TensorSharedVariable(TensorType(dtype, (None,) * tensor.ndim), tensor, name=name)

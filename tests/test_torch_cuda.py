@@ -1,4 +1,4 @@
-"""The port's kernels on an NVIDIA GPU: K1 and K3 against their plain
+"""The port's kernels on an NVIDIA GPU: K1, K2 and K3 against their plain
 versions, and the linked radon function against the float64 closed form.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
@@ -10,7 +10,9 @@ without the JAX test configuration:
 Tolerances are chip_smoke.py's: K1 ``1e-5`` (float32) and ``1e-12``
 (float64) of ``max(1, max|plain|)``; K3 after 64 float32 steps ``1e-4``
 of ``max(1, max|plain|)``; the linked float32 graph ``rtol 1e-4`` with
-``atol 1e-4 * max|dlogp|`` against float64.
+``atol 1e-4 * max|dlogp|`` against float64; K2 on the ported scan cases
+``1e-6`` of ``max(1, max|loop|)`` against the step loop, and the radon
+chain after 32 steps at K3's tolerances against K3.
 """
 
 import numpy as np
@@ -116,3 +118,73 @@ def test_linked_entry_matches_closed_form(card):
     np.testing.assert_allclose(g.cpu().numpy(), rg, rtol=1e-4, atol=1e-4 * np.max(np.abs(rg)))
     with pytest.raises(ValueError, match="cpu"):
         fn(torch.from_numpy(theta))  # a CUDA-linked function takes CUDA tensors
+
+
+def _scan_cases():
+    """(inputs, a function that builds the outputs, input values) of the
+    ported scan cases."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+
+    rng = np.random.default_rng(0)
+    z = pt.tensor("z", dtype="float32", shape=())
+    v4 = pt.tensor("v4", dtype="float32", shape=(4,))
+    v5 = pt.tensor("v5", dtype="float32", shape=(5,))
+    W = pt.as_tensor_variable((np.eye(5) * 0.9 + 0.01).astype("float32"))
+    x = pt.tensor("x", dtype="float32", shape=(4,))
+    return {
+        "scalar_carry": ([z], lambda: ptt.scan(
+            lambda acc: acc * np.float32(1.1) + np.float32(0.5), outputs_info=[z],
+            n_steps=6)[0], [np.float32(1.0)]),
+        "vector_state_and_nitsot": ([v4], lambda: list(ptt.scan(
+            lambda acc: (acc + np.float32(1.0), (acc ** 2).sum()),
+            outputs_info=[v4, None], n_steps=3)[0]), [np.zeros(4, "float32")]),
+        "tanh_dot": ([v5], lambda: ptt.scan(
+            lambda acc: pt.tanh(pt.dot(W, acc)) + np.float32(0.01), outputs_info=[v5],
+            n_steps=10)[0], [rng.standard_normal(5).astype("float32")]),
+        "sequences": ([x], lambda: ptt.scan(
+            lambda xt, acc: acc + xt, sequences=[x],
+            outputs_info=[pt.constant(np.float32(0.0))])[0], [np.ones(4, "float32")]),
+    }
+
+
+@pytest.mark.parametrize("case", ["scalar_carry", "vector_state_and_nitsot", "tanh_dot",
+                                  "sequences"])
+def test_k2_matches_plain_loop(card, case):
+    """Each ported scan case through function() on the card: one K2 launch,
+    held against the same scan linked without ``scan__pallas`` (the step
+    loop), to 1e-6 of max(1, max|loop|): both run float32 in other orders."""
+    import pytensor_tpu_torch as ptt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+
+    ins, build, vals = _scan_cases()[case]
+    outs = {}
+    for pallas in (False, True):
+        with config.change_flags(scan__pallas=pallas):
+            f = ptt.function(ins, build(), device=card)
+        before = scan_kernel.LAUNCHES
+        res = f(*[as_torch(v, card) for v in vals])
+        torch.cuda.synchronize()
+        assert scan_kernel.LAUNCHES == before + pallas
+        outs[pallas] = res if isinstance(res, list) else [res]
+    for got, want in zip(outs[True], outs[False]):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert _scaled(got, want) <= 1e-6, case
+
+
+def test_k2_leapfrog_chain_matches_k3(card):
+    """The radon chain through scan + function() at full width, 32 steps: one
+    K2 launch, held against K3 from the same start at chip_smoke's K2
+    tolerance of max(1, max|K3|)."""
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+    from pytensor_tpu_torch.models.radon import make_leapfrog_chain
+
+    chain = make_leapfrog_chain(n_steps=32, device=card)
+    fn3, th0, m0, _ = radon_kernel.make_radon_leapfrog_kernel(n_steps=32, device=card)
+    th, m = as_torch(th0, card), as_torch(m0, card)
+    before = scan_kernel.LAUNCHES
+    got = chain(th, m)
+    assert scan_kernel.LAUNCHES == before + 1
+    for g, w, tol in zip(got, fn3(th, m), (3e-4, 3e-3, 5e-4)):
+        assert _scaled(g, w) <= tol

@@ -158,8 +158,13 @@ def test_grad_matches_jax(name):
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, pytensor_tpu_torch, pytensor_tpu_torch.entry, "
-            "pytensor_tpu_torch.models.radon_kernel, pytensor_tpu_torch.link.torch; "
+    code = ("import sys, pytensor_tpu_torch, pytensor_tpu_torch.entry, pytensor_tpu_torch.scan, "
+            "pytensor_tpu_torch.models.radon_kernel, pytensor_tpu_torch.link.torch, "
+            "pytensor_tpu_torch.link.cuda.scan_kernel; "
+            "from pytensor_tpu_torch.models.radon import make_leapfrog_chain; "
+            "import torch; "
+            "f = make_leapfrog_chain('float32', None, 2, 10, 3, device='cpu'); "
+            "f(torch.zeros(7), torch.ones(7)); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pytensor_tpu')]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)

@@ -169,3 +169,85 @@ def test_cuda_device_raises_without_a_card():
         pytest.skip("this machine has a card: the no-card error path does not apply")
     with pytest.raises(RuntimeError, match="cuda"):
         entry("cuda")
+
+
+# --- the leapfrog chain through scan + function() --------------------------------
+
+CHAIN_OBS, CHAIN_COUNTIES, CHAIN_STEPS = 40, 5, 8
+
+
+@pytest.fixture(scope="module")
+def chains():
+    """The chain of ``bench.py:40 build_ours`` at 40 observations, 5
+    counties and 8 steps, float32: the JAX package's with ``scan__pallas``
+    and ``onehot_gather`` (its Pallas kernel in interpret mode), and the
+    port's ``make_leapfrog_chain`` on the CPU."""
+    import bench
+
+    saved = (bench.N_OBS, bench.N_COUNTIES, bench.LEAPFROG_STEPS)
+    bench.N_OBS, bench.N_COUNTIES, bench.LEAPFROG_STEPS = CHAIN_OBS, CHAIN_COUNTIES, CHAIN_STEPS
+    try:
+        jf, n, _ = bench.build_ours("float32", None)
+    finally:
+        bench.N_OBS, bench.N_COUNTIES, bench.LEAPFROG_STEPS = saved
+    tf = tradon.make_leapfrog_chain("float32", None, CHAIN_STEPS, CHAIN_OBS, CHAIN_COUNTIES,
+                                    device="cpu")
+    th = tradon.theta_start(n, "float32")
+    m = np.random.default_rng(0).standard_normal(n).astype("float32")
+    return jf, tf, th, m
+
+
+def _scan_node(fg):
+    (node,) = [nd for nd in fg.apply_nodes if type(nd.op).__name__ == "Scan"]
+    return node
+
+
+def test_leapfrog_chain_matches_jax_kernel(chains):
+    """Final theta, m and logp within ``rtol 1e-5`` (``atol 1e-6`` for the
+    near-zero entries of theta): two float32 chains of 8 steps that sum
+    in other orders."""
+    jf, tf, th, m = chains
+    j_out = [np.asarray(v) for v in jf(th, m)]
+    t_out = [v.numpy() for v in tf(torch.from_numpy(th), torch.from_numpy(m))]
+    for a, b in zip(t_out, j_out):
+        assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_leapfrog_chain_graphs_match_jax(chains):
+    """The rewritten outer graph and the Scan's inner graph hold the same
+    ops by type and count in both packages, and both packages find the
+    scan eligible for the whole-loop kernel."""
+    from pytensor_tpu.link.pallas.scan_pallas import pallas_scan_eligible
+
+    from pytensor_tpu_torch.link.cuda.scan_kernel import scan_kernel_eligible
+
+    jf, tf, _, _ = chains
+    assert _op_counts(tf.fgraph) == _op_counts(jf.fgraph)
+    jn, tn = _scan_node(jf.fgraph), _scan_node(tf.fgraph)
+    assert _op_counts(tn.op.fgraph) == _op_counts(jn.op.fgraph)
+    assert (tn.op.info.n_untraced, tn.op.info.n_non_seqs) == (jn.op.info.n_untraced,
+                                                             jn.op.info.n_non_seqs)
+    assert pallas_scan_eligible(jn.op, jn) and scan_kernel_eligible(tn.op, tn)
+
+
+def test_batched_chain_matches_jax_loop():
+    """The batched chain (8 chains, 4 steps) takes the step loop in the
+    port and lax.scan in the JAX package; logp is the sum over chains."""
+    import bench
+
+    saved = (bench.N_OBS, bench.N_COUNTIES, bench.LEAPFROG_STEPS)
+    bench.N_OBS, bench.N_COUNTIES, bench.LEAPFROG_STEPS = CHAIN_OBS, CHAIN_COUNTIES, 8
+    try:
+        jf, n, steps = bench.build_ours("float32", 8)
+    finally:
+        bench.N_OBS, bench.N_COUNTIES, bench.LEAPFROG_STEPS = saved
+    tf = tradon.make_leapfrog_chain("float32", 8, steps, CHAIN_OBS, CHAIN_COUNTIES, device="cpu")
+    rng = np.random.default_rng(1)
+    th = (np.tile(tradon.theta_start(n, "float32"), (8, 1))
+          + 0.1 * rng.standard_normal((8, n))).astype("float32")
+    m = rng.standard_normal((8, n)).astype("float32")
+    j_out = [np.asarray(v) for v in jf(th, m)]
+    t_out = [v.numpy() for v in tf(torch.from_numpy(th), torch.from_numpy(m))]
+    for a, b in zip(t_out, j_out):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
