@@ -1,14 +1,15 @@
-"""Drive the torch port's radon paths on one NVIDIA GPU.
+"""Drive the torch port's radon and sparse paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one line or more each, and any failure raises:
 
 1. device: require CUDA; print the card's name and power limit.
-2. build: build the radon leapfrog kernel (K3) and the whole-loop scan
-   kernel (K2) of the leapfrog chain at full width with nvcc, the two
-   compilers started together; print each build's seconds and the
-   ``-Xptxas -v`` register, shared-memory and spill lines.
+2. build: build the radon leapfrog kernel (K3), the whole-loop scan
+   kernel (K2) of the leapfrog chain at full width and the CSR matvec
+   kernel (K4) with nvcc, the three compilers started together; print
+   each build's seconds and the ``-Xptxas -v`` register, shared-memory
+   and spill lines.
 3. K1: every FusedElemwise of the single-chain graph and of the batched
    graph at 1,024 chains, in float32 and float64, launched on the inputs
    the graph gives it and held against its plain torch version.
@@ -34,6 +35,17 @@ Phases, one line or more each, and any failure raises:
    that take the card's time; for the 8,192-step chain the device and
    wall ms, µs a step and dlogp evals/s, and the kernels of one call (K2
    once, nothing per step); the plain loop's time a step at 64 steps.
+9. K4: the 65,536 x 65,536 CSR matrix of ``benchsuite.py:160
+   ours_sparse`` (ten nonzeros a row, float32, seed 0): K4 against its
+   plain version for A and its transpose, per row within
+   ``4 * D2 * 2**-24 * sum_j |a_ij x_j|``; two launches bit-identical;
+   device, wall and cuSPARSE times against the bound.
+10. sparse: at that size, ``function()`` of ``sum(y*y)`` and its
+   gradient (two RoutedSpMV nodes, two K4 launches) against float64
+   scipy, then the power iteration ``train_loop(..., n_steps=64)`` (64
+   K4 launches in one call) against a float64 scipy loop; launch counts
+   are set to 0 before each call.  Profile of one 64-step call: wall ms,
+   matvecs/s, device ms, busy share, kernels by name.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -44,7 +56,13 @@ launch the trace missed does not shorten a kernel.  The kernel line's
 ``plain_wall_ms`` beside them are wall times.
 
 The second-to-last line is a JSON object with one entry per kernel, the
-last ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+last ``{"ok": true, "device": {...}}``.  Each entry has ``bound_ms``, the
+least time the card could take for the kernel's work (the larger of its
+bytes, each input read once and each output written once, over 3.35 TB/s
+and its float32 operations over 67 TFLOP/s, the H100 SXM data sheet's
+rates; ``bound_by`` names the larger), and ``library_ms``, the device
+time of one PyTorch call computing the same function (cuSPARSE's CSR
+matvec for K4; none exists for K1-K3).  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -94,6 +112,17 @@ ENERGY_TOL = 1.5e-3
 # the batched chain (step loop, 16 steps) against K3 at 1,024 chains, at
 # ~5x the H100 readings (1.6e-7 / 2.7e-7 / 6.9e-8)
 BATCH_RTOL = {"theta": 8e-7, "m": 1.4e-6, "logp": 3.5e-7}
+# the sparse power iteration of benchsuite.py:160 ours_sparse
+SPARSE_N, SPARSE_NNZ_ROW, SPARSE_STEPS = 65536, 10, 64
+# the sparse slice against float64 scipy: the cost sum(y*y) (relative),
+# the gradient (max error over max|g|), and after 64 power-iteration steps
+# the final x (max abs error, |x| <= 1) and the output sum(y) (relative).
+# On an H100 80GB HBM3 at 700 W: 3.97e-8, 8.61e-8, 1.35e-7 and 5.42e-9;
+# held at ~4x those readings, and at no less than 4 float32 ulps of the
+# value (2.4e-7 relative) where a reading fell below one ulp
+SPARSE_TOL = {"cost": 2.4e-7, "grad": 3.5e-7, "x": 5.4e-7, "out": 2.4e-7}
+# the H100 SXM data sheet's rates, for the bound of each kernel
+HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
 
 
 def say(*parts):
@@ -129,7 +158,8 @@ def device_ms(fn, n_iter, warmup=2):
     a name's time a launch is the mean over its traced launches, and its
     launches a call, the same in every call, are its traced count over
     ``n_iter`` rounded up.  Returns ``(ms, {name: (ms, launches)})``, both
-    per call.
+    per call.  A trace that holds no CUDA kernel at all (on the H100 one of
+    some twenty traces in a run did) is taken again, up to three times.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -137,17 +167,21 @@ def device_ms(fn, n_iter, warmup=2):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_iter):
-            fn()
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    if not by_name:
-        raise AssertionError("torch.profiler traced no CUDA kernel")
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_iter):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms, count = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+        if by_name:
+            break
+        say(f"  (torch.profiler traced no CUDA kernel, trace {attempt + 1} of 3)")
+    else:
+        raise AssertionError("torch.profiler traced no CUDA kernel in three traces")
     by_name = {k: (ms / c * -(-c // n_iter), -(-c // n_iter)) for k, (ms, c) in by_name.items()}
     return sum(ms for ms, _ in by_name.values()), by_name
 
@@ -168,18 +202,50 @@ def _fmt(errs):
     return {k: float(f"{v:.2e}") for k, v in errs.items()}
 
 
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time for this work."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def inner_ops(fgraph):
+    """Float operations of one run of an inner graph: an elementwise op
+    one per output element, a reduction one per input element, a Dot two
+    per multiply-add; views, copies and shapes none."""
+    from pytensor_tpu_torch.tensor.elemwise import CAReduce, Elemwise
+    from pytensor_tpu_torch.tensor.math import Dot
+
+    total = 0
+    for nd in fgraph.apply_nodes:
+        if isinstance(nd.op, Dot):
+            x, y = (i.type.shape for i in nd.inputs)
+            total += 2 * int(np.prod(x)) * (y[-1] if len(y) == 2 else 1)
+        elif isinstance(nd.op, CAReduce):
+            total += int(np.prod(nd.inputs[0].type.shape))
+        elif isinstance(nd.op, Elemwise):
+            total += int(np.prod(nd.outputs[0].type.shape))
+    return total
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    import pytensor_tpu_torch  # noqa: F401  (fails outside a checkout)
+    import scipy.sparse as sp
+
+    import pytensor_tpu_torch as ptt  # (fails outside a checkout)
+    import pytensor_tpu_torch.tensor as pt
     from pytensor_tpu_torch.compile.mode import FAST_RUN
     from pytensor_tpu_torch.entry import entry
     from pytensor_tpu_torch.graph.fg import FunctionGraph
-    from pytensor_tpu_torch.link.cuda import scan_kernel
-    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.cuda import scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import as_torch, sparse_as_torch
     from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
     from pytensor_tpu_torch.models import radon_kernel
     from pytensor_tpu_torch.models.radon import (
@@ -191,6 +257,7 @@ def main():
         theta_start,
     )
     from pytensor_tpu_torch.scan.op import Scan
+    from pytensor_tpu_torch.sparse import RoutedSpMV, as_sparse_variable, structured_dot
     from pytensor_tpu_torch.tensor import fused_kernel
     from pytensor_tpu_torch.tensor.fused import FusedElemwise
 
@@ -224,11 +291,13 @@ def main():
         fn()
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
-                "K2": pool.submit(timed, lambda: k2.build(verbose=True))}
+                "K2": pool.submit(timed, lambda: k2.build(verbose=True)),
+                "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True))}
         build_s = {tag: job.result() for tag, job in jobs.items()}
-    for tag, log in (("K3", radon_kernel.BUILD_LOG), ("K2", k2.build_log)):
+    for tag, log in (("K3", radon_kernel.BUILD_LOG), ("K2", k2.build_log),
+                     ("K4", spmv_kernel.BUILD_LOG)):
         say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -266,11 +335,16 @@ def main():
             values = iter(feed(theta))
             tag = f"{dtype} {'batched x%d' % N_CHAINS if batched else 'single'}"
             worst, worst_abs, ms, plain_ms = 0.0, 0.0, 0.0, 0.0
+            work_bytes, work_ops = 0, 0
             jobs = []
             for nd in nodes:
                 args = [next(values) for _ in nd.inputs]
                 kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
                 got = kern.launch(*args)
+                # each input and constant read once, each output written
+                # once; one operation per inner op and element
+                work_bytes += nbytes(*args, *kern.const_tensors, *got)
+                work_ops += len(kern.order) * int(np.prod(kern._layout(kern._args(args))[0]))
                 want = kern.plain(*args)
                 torch.cuda.synchronize()
                 pairs = [errors(g.cpu(), w.cpu()) for g, w in zip(got, want)]
@@ -293,6 +367,7 @@ def main():
                 f"plain {dev_plain:.4f} ms; wall: kernels {ms:.4f} ms, plain {plain_ms:.4f} ms")
             if dtype == "float32" and not batched:
                 k1.update(ms=dev_ms, plain_ms=dev_plain, wall_ms=ms, plain_wall_ms=plain_ms)
+                k1["bound_ms"], k1["bound_by"] = bound(work_bytes, work_ops)
             k1["max_abs_err"] = max(k1["max_abs_err"], worst_abs)
     say(f"K1 phase done in {time.perf_counter() - t0:.1f} s (Triton builds included)")
 
@@ -328,6 +403,13 @@ def main():
     m0_c = as_torch(np.tile(m0, (N_CHAINS, 1)), dev)
     k3_chains_ms, _ = device_ms(lambda: radon_kernel.leapfrog_launch(
         th0_c, m0_c, fn3.data, K3_STEPS, EPS), 5)
+    # K3's work: per gradient ~10 operations an observation (residual,
+    # scale, segment sum, two products summed), ~8 a county and, per step,
+    # ~6 a parameter for the two kicks and the drift; 1,025 gradients
+    n_par = N_COUNTIES + 4
+    k3_bound = bound(nbytes(th0_d, m0_d, fn3.data.y_sorted, fn3.data.floor_sorted,
+                            fn3.data.county_ptr, *got),
+                     (10 * N_OBS + 8 * N_COUNTIES + 6 * n_par) * (K3_STEPS + 1))
     say(f"K3 {K3_STEPS} steps, 919/85: logp {float(got[2]):.6f} vs plain {float(want[2]):.6f}; "
         f"rel err theta {errs['theta']:.2e} m {errs['m']:.2e} logp {errs['logp']:.2e} "
         f"(tol {K3_RTOL}); vs the float64 plain chain: kernel "
@@ -427,6 +509,10 @@ def main():
     k2_plain_ms, _ = device_ms(lambda: k2.plain(n_steps, *outer), 1, warmup=1)
     k2_wall = wall_ms(lambda: k2.launch(n_steps, *outer), 10)
     k2_plain_wall = wall_ms(lambda: k2.plain(n_steps, *outer), 2, warmup=1)
+    # K2's work: the outer inputs, the graph constants and the traces once;
+    # the inner graph's operations every step
+    k2_bound = bound(nbytes(*outer, k2.consts, *got2),
+                     inner_ops(scan_node.op.fgraph) * K2_STEPS)
     say(f"K2 {K2_STEPS} steps, 919/85, float32: logp {float(res64[2]):.6f}; rel err vs its "
         f"plain loop {_fmt(err2)}, vs the float64 loop {_fmt(err2_64)} (tol {K2_RTOL}); "
         f"device: kernel {k2_ms:.4f} ms ({k2_ms / K2_STEPS * 1e3:.2f} us/step), plain "
@@ -560,25 +646,157 @@ def main():
         f"{k2_ms / K2_STEPS * 1e3:.2f} us/step device, {k2_wall / K2_STEPS * 1e3:.2f} "
         f"us/step wall")
 
+    # 9. K4 at full size ---------------------------------------------------------
+    t0 = time.perf_counter()
+    n = SPARSE_N
+    rng_s = np.random.default_rng(0)  # benchsuite.py's SUITE_SEED
+    A = sp.random(n, n, density=SPARSE_NNZ_ROW / n, format="csr", random_state=rng_s,
+                  dtype="float32")
+    x0 = rng_s.standard_normal((n, 1)).astype("float32")
+    x0_d = as_torch(x0[:, 0], dev)
+    say(f"sparse: A {n} x {n}, {A.nnz} nonzeros, rows of {np.diff(A.indptr).min()}-"
+        f"{np.diff(A.indptr).max()}, made in {time.perf_counter() - t0:.2f} s")
+    k4 = {}
+    for tag, M in (("A", A), ("A^T", A.T.tocsr())):
+        c = sparse_as_torch(M, dev)
+        args = (c.indptr, c.indices, c.data, x0_d)
+        got4 = spmv_kernel.launch(*args)
+        again = spmv_kernel.launch(*args)
+        want4 = spmv_kernel.plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got4, again):
+            raise AssertionError(f"K4 {tag}: two launches differ")
+        d2 = int(np.diff(M.indptr).max())
+        row_tol = 4 * d2 * 2.0 ** -24 * (abs(M) @ np.abs(x0[:, 0].astype("float64")))
+        diff = np.abs(got4.cpu().numpy().astype("float64") - want4.cpu().numpy())
+        if not (np.all(np.isfinite(got4.cpu().numpy())) and np.all(diff <= row_tol)):
+            worst = int(np.argmax(diff - row_tol))
+            raise AssertionError(f"K4 {tag}: row {worst} off by {diff[worst]}, tol "
+                                 f"{row_tol[worst]}")
+        lib_mat = torch.sparse_csr_tensor(c.indptr, c.indices, c.data, size=M.shape)
+        lib_err = float((lib_mat @ x0_d - want4).abs().max())
+        G = spmv_kernel.group_size(n, M.nnz)
+        ms4, by4 = device_ms(lambda: spmv_kernel.launch(*args), 50)
+        plain4, _ = device_ms(lambda: spmv_kernel.plain(*args), 20)
+        lib4, _ = device_ms(lambda: lib_mat @ x0_d, 50)
+        wall4 = wall_ms(lambda: spmv_kernel.launch(*args), 200)
+        plain_wall4 = wall_ms(lambda: spmv_kernel.plain(*args), 50)
+        b4 = bound(nbytes(c.indptr, c.indices, c.data, x0_d, got4), 2 * M.nnz)
+        say(f"K4 {tag}: G {G}, D2 {d2}, max|err| vs plain {diff.max():.3e} (per-row tol "
+            f"4*D2*2^-24*sum|a x|, worst share "
+            f"{float(np.max(diff[row_tol > 0] / row_tol[row_tol > 0])):.3f}), "
+            f"cuSPARSE vs plain {lib_err:.3e}, bit-identical relaunch; device: kernel "
+            f"{ms4 * 1e3:.2f} us, plain {plain4 * 1e3:.2f} us, cuSPARSE {lib4 * 1e3:.2f} us, "
+            f"bound {b4[0] * 1e3:.3f} us ({b4[1]}, {b4[0] / ms4:.3f} of it reached); wall: "
+            f"kernel {wall4 * 1e3:.2f} us, plain {plain_wall4 * 1e3:.2f} us")
+        say("  kernels of the cuSPARSE call: " + ", ".join(
+            kn[:60] for kn in device_ms(lambda: lib_mat @ x0_d, 5)[1]))
+        if tag == "A":
+            k4 = {"max_abs_err": float(diff.max()), "ms": ms4, "plain_ms": plain4,
+                  "wall_ms": wall4, "plain_wall_ms": plain_wall4, "library_ms": lib4,
+                  "bound_ms": b4[0], "bound_by": b4[1]}
+        else:
+            k4["max_abs_err"] = max(k4["max_abs_err"], float(diff.max()))
+
+    # 10. the sparse slice: gradient function and the power iteration ----------
+    A_var = as_sparse_variable(A)
+    x_var = pt.tensor("x", dtype="float32", shape=(n,))
+    y_var = structured_dot(A_var, x_var)
+    cost = pt.sum(y_var * y_var)
+    t0 = time.perf_counter()
+    f_grad = ptt.function([x_var], [cost, ptt.grad(cost, x_var)], device=dev)
+    n_routed = sum(isinstance(nd.op, RoutedSpMV) for nd in f_grad.fgraph.apply_nodes)
+    say(f"sparse gradient function built in {time.perf_counter() - t0:.2f} s: "
+        f"{[type(nd.op).__name__ for nd in f_grad.fgraph.toposort()]}")
+    if n_routed != 2:
+        raise AssertionError(f"the gradient graph holds {n_routed} RoutedSpMV nodes, not 2")
+    fused_kernel.LAUNCHES = radon_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+    spmv_kernel.LAUNCHES = 0
+    c_val, g_val = f_grad(x0_d)
+    torch.cuda.synchronize()
+    grad_launches = spmv_kernel.LAUNCHES
+    if grad_launches != 2:
+        raise AssertionError(f"the gradient function launched K4 {grad_launches} times, not 2")
+    A64 = A.astype("float64")
+    y64 = A64 @ x0[:, 0].astype("float64")
+    g64 = 2 * (A64.T @ y64)
+    e_cost = abs(float(c_val) - float(y64 @ y64)) / float(y64 @ y64)
+    g_np = g_val.cpu().numpy()
+    e_grad = float(np.max(np.abs(g_np - g64)) / np.max(np.abs(g64)))
+    if not (np.all(np.isfinite(g_np)) and g_np.shape == (n,) and e_cost <= SPARSE_TOL["cost"]
+            and e_grad <= SPARSE_TOL["grad"]):
+        raise AssertionError(f"sparse gradient: cost rel err {e_cost}, grad {e_grad}; "
+                             f"tol {SPARSE_TOL}")
+    say(f"sparse gradient function: {grad_launches} K4 launches; cost rel err {e_cost:.2e}, "
+        f"max|grad err|/max|grad| {e_grad:.2e} vs float64 scipy (tol {SPARSE_TOL})")
+
+    xsh = ptt.shared(x0, name="x", device=dev)
+    y_sh = structured_dot(A_var, xsh)
+    t0 = time.perf_counter()
+    power = ptt.train_loop([], pt.sum(y_sh), {xsh: y_sh / (pt.max(pt.abs(y_sh)) + 1e-9)},
+                           n_steps=SPARSE_STEPS, device=dev)
+    loop_node = next(nd for nd in power.fgraph.apply_nodes if isinstance(nd.op, Scan))
+    say(f"power iteration built in {time.perf_counter() - t0:.2f} s: outer "
+        f"{[type(nd.op).__name__ for nd in power.fgraph.toposort()]}, inner "
+        f"{[type(nd.op).__name__ for nd in loop_node.op.fgraph.toposort()]}")
+    fused_kernel.LAUNCHES = radon_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+    spmv_kernel.LAUNCHES = 0
+    out = power()
+    torch.cuda.synchronize()
+    power_launches = {"spmv_csr": spmv_kernel.LAUNCHES, "fused_elemwise": fused_kernel.LAUNCHES,
+                      "scan_whole_loop": scan_kernel.LAUNCHES}
+    say(f"power iteration launches, train_loop({SPARSE_STEPS} steps) one call: {power_launches}")
+    if power_launches["spmv_csr"] != SPARSE_STEPS:
+        raise AssertionError(f"the power iteration launched K4 {power_launches['spmv_csr']} "
+                             f"times, not {SPARSE_STEPS}")
+    v = x0.astype("float64")
+    for _ in range(SPARSE_STEPS):
+        yv = A64 @ v
+        v = yv / (np.max(np.abs(yv)) + 1e-9)
+    x_end = xsh.get_value().cpu().numpy()
+    e_x = float(np.max(np.abs(x_end - v)))
+    e_out = abs(float(out) - float(yv.sum())) / abs(float(yv.sum()))
+    if not (np.all(np.isfinite(x_end)) and x_end.shape == (n, 1) and e_x <= SPARSE_TOL["x"]
+            and e_out <= SPARSE_TOL["out"]):
+        raise AssertionError(f"power iteration: x max err {e_x}, out rel err {e_out}; "
+                             f"tol {SPARSE_TOL}")
+    say(f"power iteration {SPARSE_STEPS} steps: out {float(out):.6f} vs float64 "
+        f"{float(yv.sum()):.6f} (rel err {e_out:.2e}), max|x err| {e_x:.2e} (tol {SPARSE_TOL})")
+    t_power = wall_ms(power, 5, warmup=1)
+    power_dev, power_by = device_ms(power, 3, warmup=1)
+    say(f"power iteration {SPARSE_STEPS} steps (train_loop, function()): wall {t_power:.3f} "
+        f"ms/call, {SPARSE_STEPS * 1e3 / t_power:,.0f} matvecs/s; device {power_dev:.4f} "
+        f"ms/call, {sum(c for _, c in power_by.values()):.0f} kernels/call, busy "
+        f"{power_dev / t_power:.3f}")
+    for kname, (ms, count) in sorted(power_by.items(), key=lambda kv: -kv[1][0])[:10]:
+        say(f"  {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "triton",
          "source": "pytensor_tpu_torch/tensor/fused_kernel.py",
          "replaces": "pytensor_tpu/tensor/fused.py:33",
          "launches": launches["fused_elemwise"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "wall_ms": k1["wall_ms"], "plain_wall_ms": k1["plain_wall_ms"]},
+         "wall_ms": k1["wall_ms"], "plain_wall_ms": k1["plain_wall_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None},
         {"name": "radon_leapfrog (K3)", "route": "cuda",
          "source": "pytensor_tpu_torch/csrc/radon_leapfrog.cu",
          "replaces": "pytensor_tpu/models/radon_pallas.py:28",
          "launches": launches["radon_leapfrog"], "max_abs_err": k3_abs,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
-         "wall_ms": k3_wall, "plain_wall_ms": k3_plain_wall},
+         "wall_ms": k3_wall, "plain_wall_ms": k3_plain_wall,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
         {"name": "scan_whole_loop (K2)", "route": "cuda",
          "source": "pytensor_tpu_torch/link/cuda/scan_kernel.py",
          "replaces": "pytensor_tpu/link/pallas/scan_pallas.py:101",
          "launches": chain_launches["scan_whole_loop"], "max_abs_err": k2_abs,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "wall_ms": k2_wall, "plain_wall_ms": k2_plain_wall},
+         "wall_ms": k2_wall, "plain_wall_ms": k2_plain_wall,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "spmv_csr (K4)", "route": "cuda",
+         "source": "pytensor_tpu_torch/csrc/spmv_csr.cu",
+         "replaces": "pytensor_tpu/link/pallas/route.py:194",
+         "launches": power_launches["spmv_csr"], **k4},
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,11 +1,13 @@
 """pytensor_tpu_torch: the PyTorch and CUDA port of pytensor_tpu.
 
 The same graph IR, rewrite engine and gradient machinery as the JAX
-package, with ``scan`` and ``function``, linked to eager torch on an
-explicit device; fused elementwise chains, whole for-scans and the radon
-leapfrog chain run as hand-written Hopper kernels
-(``tensor/fused_kernel.py``, ``link/cuda/scan_kernel.py``,
-``csrc/radon_leapfrog.cu``).  This package imports torch and never jax
+package, with ``scan``, ``function`` and ``train_loop``, linked to eager
+torch on an explicit device; fused elementwise chains, whole for-scans,
+the radon leapfrog chain and the constant-pattern CSR matvec run as
+hand-written Hopper kernels (``tensor/fused_kernel.py``,
+``link/cuda/scan_kernel.py``, ``csrc/radon_leapfrog.cu``,
+``csrc/spmv_csr.cu``).  ``pytensor_tpu_torch.sparse`` holds the sparse
+ops.  This package imports torch and never jax
 or pytensor_tpu.
 """
 
@@ -26,6 +28,7 @@ import pytensor_tpu_torch.tensor.rewriting  # noqa: F401
 import pytensor_tpu_torch.compile.rewriting  # noqa: F401
 
 from pytensor_tpu_torch.compile.maker import function  # noqa: F401
+from pytensor_tpu_torch.compile.train import train_loop  # noqa: F401
 from pytensor_tpu_torch.compile.sharedvalue import shared  # noqa: F401
 from pytensor_tpu_torch.updates import OrderedUpdates  # noqa: F401
 

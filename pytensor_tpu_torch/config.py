@@ -1,8 +1,9 @@
 """Typed configuration flags.
 
 The port's copy of the config system (PyTensor's configparser.py:65
-``PyTensorConfigParser`` and configdefaults.py), cut to the three flags the
-port reads: ``floatX``, ``mode`` and ``scan__pallas``.  A flag's value
+``PyTensorConfigParser`` and configdefaults.py), cut to the four flags the
+port reads: ``floatX``, ``mode``, ``sparse__routed_spmv`` and
+``scan__pallas``.  A flag's value
 comes from ``PYTENSOR_TPU_TORCH_FLAGS`` (``name=value,...``) if set there,
 else its default, and may be assigned later or set for a block with
 ``config.change_flags``.  The device is not a flag: it is an argument of
@@ -118,6 +119,12 @@ config.add(
 config.add(
     "mode",
     EnumStr("FAST_RUN", (), doc="Default compilation mode (compile.mode.get_mode)."),
+)
+config.add(
+    "sparse__routed_spmv",
+    BoolParam(True, doc="Rewrite a constant-pattern float32 CSR matvec into "
+                        "RoutedSpMV, which runs as the CSR kernel K4 "
+                        "(sparse/spmv.py); the name is the JAX package's."),
 )
 config.add(
     "scan__pallas",

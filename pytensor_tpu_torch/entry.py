@@ -10,8 +10,9 @@ from __future__ import annotations
 import numpy as np
 
 
-def entry(device):
-    """Return ``(fn, (theta0,))``: ``fn(theta) -> (logp, dlogp)``."""
+def entry(device="cuda"):
+    """Return ``(fn, (theta0,))``: ``fn(theta) -> (logp, dlogp)``, on the
+    card unless ``device`` names another; CUDA without a card raises."""
     from pytensor_tpu_torch.compile.mode import get_mode
     from pytensor_tpu_torch.graph.fg import FunctionGraph
     from pytensor_tpu_torch.link.torch.convert import as_torch

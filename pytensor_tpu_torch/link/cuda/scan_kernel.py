@@ -35,15 +35,16 @@ hierarchy, not bytes or flops.  The design:
   needs no barrier between its links.
 - **Ops.** ``Elemwise`` is one C++ expression per scalar op (the table
   beside K1's ``_EMIT``), broadcast by strides, ``expf``/``exp`` by dtype
-  and IEEE division.  ``CAReduce`` and ``Dot`` take one thread per output
-  element, or one warp per output element with a fixed shuffle tree when
-  the reduced length is long against the number of outputs; a full
-  reduction is a block reduction, warp shuffles then one warp over the
-  32 partials.  Every order is fixed, so K2 is deterministic.  Static
-  ``Subtensor``/``IncSubtensor``, ``DimShuffle``, ``Alloc`` and
-  ``MakeVector`` are index-mapped copies; ``Shape``/``Shape_i`` are
-  literals written before the loop.  Values that only feed static shape
-  inputs (of ``Reshape``, ``SpecifyShape``, ``Alloc``) are not computed.
+  and IEEE division.  ``CAReduce`` (sum, product, max) and ``Dot`` take
+  one thread per output element, or one warp per output element with a
+  fixed shuffle tree when the reduced length is long against the number
+  of outputs; a full reduction is a block reduction, warp shuffles then
+  one warp over the 32 partials.  Every order is fixed, so K2 is
+  deterministic.  Static ``Subtensor``/``IncSubtensor``, ``DimShuffle``,
+  ``Alloc`` and ``MakeVector`` are index-mapped copies;
+  ``Shape``/``Shape_i`` are literals written before the loop.  Values
+  that only feed static shape inputs (of ``Reshape``, ``SpecifyShape``,
+  ``Alloc``) are not computed.
 
 Eligibility keeps the structure of ``scan_pallas.py:54
 pallas_scan_eligible``: every tap ``(-1,)`` (the port has no while-scans),
@@ -103,6 +104,9 @@ _CEXPR = {
     "mul": lambda a, t: "(" + " * ".join(a) + ")",
     "sub": lambda a, t: f"({a[0]} - {a[1]})",
     "neg": lambda a, t: f"(-{a[0]})",
+    # fabs clears the sign of -0.0, as numpy's abs does
+    "abs": lambda a, t: (f"{'fabsf' if t == 'float32' else 'fabs'}({a[0]})"
+                         if t in ("float32", "float64") else f"({a[0]} < 0 ? -{a[0]} : {a[0]})"),
     "sqr": lambda a, t: f"({a[0]} * {a[0]})",
     "true_div": lambda a, t: f"({a[0]} / {a[1]})",
     "reciprocal": lambda a, t: f"(({_CTYPES[t]})1 / {a[0]})",
@@ -124,6 +128,21 @@ _CEXPR = {
 _FLOAT_ONLY = frozenset({"true_div", "reciprocal", "exp", "log", "sqrt", "sin", "cos",
                          "tanh", "sigmoid"})
 
+
+def _lowest(dtype):
+    if dtype == "bool":
+        return False
+    return -np.inf if dtype.startswith("float") else np.iinfo(dtype).min
+
+
+# CAReduce scalar op name -> (identity of the accumulator dtype, C++
+# combine of two accumulators, warp reduction)
+_REDUCE = {
+    "add": (lambda dt: 0, lambda a, b: f"{a} + {b}", "k2_warp_add"),
+    "mul": (lambda dt: 1, lambda a, b: f"{a} * {b}", "k2_warp_mul"),
+    "maximum": (_lowest, lambda a, b: f"k2_max({a}, {b})", "k2_warp_max"),
+}
+
 _PRELUDE = r"""#include <cuda_runtime.h>
 #include <math.h>
 
@@ -140,6 +159,10 @@ template <typename T> __device__ __forceinline__ T k2_warp_mul(T v) {
 // numpy's maximum: NaN in either operand gives NaN
 template <typename T> __device__ __forceinline__ T k2_max(T a, T b) {
   return (a > b || a != a) ? a : b;
+}
+template <typename T> __device__ __forceinline__ T k2_warp_max(T v) {
+  for (int o = 16; o > 0; o >>= 1) v = k2_max(v, __shfl_down_sync(0xffffffffu, v, o));
+  return v;
 }
 template <typename T> __device__ __forceinline__ T k2_ipow(T a, T b) {
   T r = 1;
@@ -238,7 +261,7 @@ def emittable(node) -> bool:
             return False
         return name not in _FLOAT_ONLY or node.outputs[0].type.dtype.startswith("float")
     if isinstance(op, CAReduce):
-        return op.scalar_op.name in ("add", "mul")
+        return op.scalar_op.name in _REDUCE
     if isinstance(op, Dot):
         return node.outputs[0].type.dtype != "bool"
     if isinstance(op, (Subtensor, IncSubtensor)):
@@ -636,9 +659,8 @@ class ScanKernelSource:
         O = out.size
         acc_dt = op.acc_dtype or out_v.type.dtype
         acc = _acc_ctype(acc_dt)
-        sym = "+" if op.scalar_op.name == "add" else "*"
-        ident = "0" if sym == "+" else "1"
-        warp_fn = "k2_warp_add" if sym == "+" else "k2_warp_mul"
+        ident_of, combine, warp_fn = _REDUCE[op.scalar_op.name]
+        ident = _literal(ident_of(acc_dt), acc_dt)
         st = _row_major(shape)
         out_ct = _ctype(out_v.type.dtype)
         if O == 1 and R > 1:
@@ -649,7 +671,8 @@ class ScanKernelSource:
             self.body += [
                 "{",
                 f"  {acc} p = {ident};",
-                f"  for (int j = tid; j < {R}; j += K2_THREADS) p = p {sym} ({acc}){xl.at('j')};",
+                f"  for (int j = tid; j < {R}; j += K2_THREADS) "
+                f"p = {combine('p', f'({acc})' + xl.at('j'))};",
                 f"  p = {warp_fn}(p);",
                 f"  {acc}* red = ({acc}*)k2_red[{buf}];",
                 "  if ((tid & 31) == 0) red[tid >> 5] = p;",
@@ -674,7 +697,7 @@ class ScanKernelSource:
             lines.append(f"{acc} acc = {ident};")
             loops = "".join(f"for (int j{k} = 0; j{k} < {n}; ++j{k}) "
                             for k, n in enumerate(red_shape))
-            lines.append(f"{loops}acc = acc {sym} ({acc}){xl.at('base + ' + roff)};")
+            lines.append(f"{loops}acc = {combine('acc', f'({acc})' + xl.at('base + ' + roff))};")
             lines.append(f"{out.at('i')} = ({out_ct})acc;")
             self._std_loop(out, lines, [(x, False)])
             self.wrote(out_v, _Writer.STD if O > 1 else _Writer.T0)
@@ -686,7 +709,7 @@ class ScanKernelSource:
         body += [f"    const int base = {base};", f"    {acc} acc = {ident};",
                  f"    for (int jj = lane; jj < {R}; jj += 32) {{"]
         body += ["      " + s for s in _unravel(red_shape, "jj", "j")]
-        body += [f"      acc = acc {sym} ({acc}){xl.at('base + ' + roff)};", "    }",
+        body += [f"      acc = {combine('acc', f'({acc})' + xl.at('base + ' + roff))};", "    }",
                  f"    acc = {warp_fn}(acc);",
                  f"    if (lane == 0) {out.at('i')} = ({out_ct})acc;", "  }", "}"]
         self.body += body

@@ -1,11 +1,12 @@
 """torch lowerings of the ops: the ``torch_funcify`` registry.
 
 Counterpart of ``pytensor_tpu/link/xla/dispatch.py`` (``xla_funcify:27``
-and the lowerings at ``:155-693``) and of the Scan lowering at
-``pytensor_tpu/scan/op.py:790``.  ``torch_funcify(op, node=node,
-device=device)`` returns a function of torch tensors.  Shape values
-(``Shape``, ``Shape_i`` and the arithmetic on them) stay on the host, so
-a reshape never waits on the device.
+and the lowerings at ``:155-693``), of the Scan lowering at
+``pytensor_tpu/scan/op.py:790`` and of the sparse lowerings at
+``pytensor_tpu/sparse/basic.py:642-757`` and ``sparse/spmv.py:412``.
+``torch_funcify(op, node=node, device=device)`` returns a function of
+torch tensors.  Shape values (``Shape``, ``Shape_i`` and the arithmetic
+on them) stay on the host, so a reshape never waits on the device.
 
 Integer indices are checked explicitly: an out-of-range index on CUDA is
 a device-side assert, and that poisons the whole CUDA context.  Constant
@@ -23,8 +24,10 @@ import numpy as np
 import torch
 
 from pytensor_tpu_torch.graph.basic import Constant
-from pytensor_tpu_torch.link.torch.convert import torch_dtype
+from pytensor_tpu_torch.link.torch.convert import CSR, torch_dtype
 from pytensor_tpu_torch.scan.op import Scan
+from pytensor_tpu_torch.sparse.basic import StructuredDot, StructuredDotGrad, Transpose
+from pytensor_tpu_torch.sparse.spmv import RoutedSpMV
 from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from pytensor_tpu_torch.tensor.fused import FusedElemwise
@@ -116,7 +119,7 @@ def _dimshuffle(op, node=None, **kw):
 @torch_funcify.register(CAReduce)
 def _careduce(op, node=None, **kw):
     name = op.scalar_op.name
-    if name not in ("add", "mul"):
+    if name not in ("add", "mul", "maximum"):
         raise NotImplementedError(f"torch lowering of {op}")
     axis = op.axis
     out = torch_dtype(node.outputs[0].type.dtype)
@@ -128,6 +131,9 @@ def _careduce(op, node=None, **kw):
             return x.to(out).clone()
         if name == "add":
             r = torch.sum(x, dim=dims, dtype=acc)
+        elif name == "maximum":
+            # NaN propagates, as in numpy's maximum.reduce
+            r = torch.amax(x, dim=dims)
         else:
             r = x.to(acc)
             for d in sorted(dims, reverse=True):
@@ -488,3 +494,80 @@ def scan_loop(op, device):
         return out
 
     return loop
+
+
+# --- sparse ---------------------------------------------------------------------
+# A sparse value is the canonical CSR triple (link/torch/convert.py CSR) of
+# the logical matrix, whatever its graph format.
+
+def _csr_rows(a):
+    """The row of each nonzero of CSR ``a``."""
+    counts = (a.indptr[1:] - a.indptr[:-1]).long()
+    return torch.repeat_interleave(torch.arange(a.shape[0], device=a.data.device), counts)
+
+
+@torch_funcify.register(StructuredDot)
+def _structured_dot(op, node=None, **kw):
+    """The matvec of a matrix the routed rewrite refused (under 4,096
+    nonzeros, float64, a sparse input, a 2-d operand).  As the JAX
+    package's ``_sdot``: a float32 CSR constant sums each row as a
+    difference of one prefix sum over the products; any other operand
+    adds the products into their rows (``index_add_``)."""
+    out = torch_dtype(node.outputs[0].type.dtype)
+    a_var = node.inputs[0]
+    prefix = (out == torch.float32 and isinstance(a_var, Constant)
+              and a_var.type.format == "csr")
+
+    def structured_dot(a, b):
+        b = b.to(out)
+        prod = a.data.to(out)[(slice(None),) + (None,) * (b.ndim - 1)] * b[a.indices.long()]
+        if prefix:
+            cs = torch.cumsum(prod, dim=0)
+            padded = torch.cat([torch.zeros_like(cs[:1]), cs])
+            starts = a.indptr.long()
+            return padded[starts[1:]] - padded[starts[:-1]]
+        y = torch.zeros((a.shape[0], *b.shape[1:]), dtype=out, device=b.device)
+        return y.index_add_(0, _csr_rows(a), prod)
+
+    return structured_dot
+
+
+@torch_funcify.register(Transpose)
+def _transpose(op, node=None, **kw):
+    def transpose(a):
+        rows = _csr_rows(a)
+        cols = a.indices.long()
+        # a stable sort by column keeps each new row's columns sorted
+        order = torch.sort(cols, stable=True).indices
+        counts = torch.bincount(cols, minlength=a.shape[1])
+        indptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
+        return CSR(indptr, rows[order].to(torch.int32), a.data[order],
+                   (a.shape[1], a.shape[0]))
+
+    return transpose
+
+
+@torch_funcify.register(StructuredDotGrad)
+def _structured_dot_grad(op, node=None, **kw):
+    dtype = torch_dtype(node.outputs[0].type.dtype)
+
+    def structured_dot_grad(a, b, gz):
+        b2 = b if b.ndim == 2 else b[:, None]
+        gz2 = gz if gz.ndim == 2 else gz[:, None]
+        vals = (gz2[_csr_rows(a)] * b2[a.indices.long()]).sum(1)
+        return CSR(a.indptr, a.indices, vals.to(dtype), a.shape)
+
+    return structured_dot_grad
+
+
+@torch_funcify.register(RoutedSpMV)
+def _routed_spmv(op, node=None, **kw):
+    """K4 on a CUDA device, its plain version on the CPU; a (N, 1)
+    operand is viewed flat."""
+    from pytensor_tpu_torch.link.cuda.spmv_kernel import spmv
+
+    def routed_spmv(b, indptr, indices, data):
+        x = b.reshape(-1) if b.ndim == 2 else b
+        return spmv(indptr, indices, data, x.contiguous())
+
+    return routed_spmv

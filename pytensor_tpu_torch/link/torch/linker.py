@@ -8,10 +8,11 @@ on an explicit device.  Fused elementwise chains and, with
 everything else is a torch op.
 
 Graph constants move to the device once, at link time, with their dtype
-kept.  Shape values stay on the host: the outputs of ``Shape`` and
-``Shape_i``, the arithmetic on them, and the constants that feed a
-reshape or a shape check, so that the run never waits on the device to
-learn a shape.  Matrix products run in full float32: a function linked
+kept; a sparse constant (a scipy matrix) becomes its canonical CSR triple
+(``convert.py sparse_as_torch``).  Shape values stay on the host: the
+outputs of ``Shape`` and ``Shape_i``, the arithmetic on them, and the
+constants that feed a reshape or a shape check, so that the run never
+waits on the device to learn a shape.  Matrix products run in full float32: a function linked
 for a CUDA device turns TF32 off for matmuls while it runs and puts the
 setting back when it returns.
 """
@@ -23,9 +24,15 @@ import torch
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.graph.fg import FunctionGraph
 from pytensor_tpu_torch.link.basic import raise_with_op
-from pytensor_tpu_torch.link.torch.convert import as_torch, resolve_device, torch_dtype
+from pytensor_tpu_torch.link.torch.convert import (
+    as_torch,
+    resolve_device,
+    sparse_as_torch,
+    torch_dtype,
+)
 from pytensor_tpu_torch.link.torch.dispatch import torch_funcify
 from pytensor_tpu_torch.scan.op import Scan
+from pytensor_tpu_torch.sparse.type import SparseTensorType
 from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape
@@ -61,7 +68,8 @@ def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False):
     topological order on ``device``; it returns a tuple of tensors.
 
     Inputs are checked for device, dtype and shape, and numpy values
-    converted, unless ``trust_input``: then they are taken as they are.
+    (and scipy matrices, for sparse inputs) converted, unless
+    ``trust_input``: then they are taken as they are.
     """
     device = resolve_device(device)
     order = fgraph.toposort()
@@ -70,11 +78,12 @@ def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False):
     consts: dict = {}
 
     def const_value(c, where):
-        if not isinstance(c.type, TensorType):
+        if not isinstance(c.type, (TensorType, SparseTensorType)):
             return c.data  # NoneConst of an unspecified SpecifyShape dim
         key = (c, where)
         if key not in consts:
-            consts[key] = as_torch(c.data, where)
+            consts[key] = (sparse_as_torch(c.data, where) if isinstance(c.type, SparseTensorType)
+                           else as_torch(c.data, where))
         return consts[key]
 
     plan = []
@@ -90,6 +99,8 @@ def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False):
                for o in fgraph.outputs]
 
     def convert(var, value):
+        if isinstance(var.type, SparseTensorType):
+            return sparse_as_torch(var.type.filter(value), device)
         if isinstance(value, torch.Tensor):
             if value.device != device:
                 raise ValueError(f"input {var} is on {value.device}, the function on {device}")

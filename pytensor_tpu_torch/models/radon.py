@@ -130,7 +130,7 @@ def leapfrog(fn, theta, m, n_steps, eps):
 
 
 def make_leapfrog_chain(dtype="float32", n_chains=None, n_steps=8192, n_obs=919,
-                        n_counties=85, device="cpu", eps=1e-3):
+                        n_counties=85, device="cuda", eps=1e-3):
     """The leapfrog chain of ``bench.py:40 build_ours``, through ``scan``
     and ``function``: ``f(theta0, m0) -> [theta, m, logp]`` after
     ``n_steps`` steps, each a half kick, a drift and a half kick with two

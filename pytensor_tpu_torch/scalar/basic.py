@@ -1,8 +1,8 @@
 """Scalar op descriptors: the element-wise kernel table.
 
 Counterpart of ``pytensor_tpu/scalar/basic.py`` (PyTensor's
-scalar/basic.py ScalarOp:1151), cut to the ops the radon logp+dlogp path
-and the ported scan tests build.  Each descriptor carries a numpy
+scalar/basic.py ScalarOp:1151), cut to the ops the radon logp+dlogp path,
+the ported scan tests and the sparse power iteration build.  Each descriptor carries a numpy
 implementation (what constant folding evaluates), a torch implementation
 (what the linker and the plain versions of the kernels call) and its
 gradient rule, written against tensor-level graph constructors.  The
@@ -182,6 +182,8 @@ def _pow_grad(i, o, gz):
 
 pow = _op("pow", 2, np.power, torch.pow, _pow_grad)
 neg = _op("neg", 1, np.negative, torch.neg, lambda i, o, gz: [-gz[0]])
+abs = _op("abs", 1, np.abs, torch.abs, lambda i, o, gz: [gz[0] * _tm().sign(i[0])])
+sign = _op("sign", 1, np.sign, torch.sign, lambda i, o, gz: [_zero_like(i[0])])
 sqr = _op("sqr", 1, np.square, torch.square, lambda i, o, gz: [gz[0] * 2 * i[0]])
 sqrt = _op("sqrt", 1, np.sqrt, torch.sqrt,
            lambda i, o, gz: [gz[0] / (2 * o[0])], dtype_rule="float")
@@ -208,6 +210,9 @@ lt = _op("lt", 2, np.less, torch.lt,
          lambda i, o, gz: [_zero_like(i[0]), _zero_like(i[1])], dtype_rule=lambda a, b: "bool")
 ge = _op("ge", 2, np.greater_equal, torch.ge,
          lambda i, o, gz: [_zero_like(i[0]), _zero_like(i[1])], dtype_rule=lambda a, b: "bool")
+eq = _op("eq", 2, np.equal, torch.eq,
+         lambda i, o, gz: [_zero_like(i[0]), _zero_like(i[1])], dtype_rule=lambda a, b: "bool",
+         commutative=True)
 
 
 def _maximum_grad(i, o, gz):

@@ -1,7 +1,7 @@
 """Tensor namespace: types, constructors and math used by the models.
 
 Counterpart of ``pytensor_tpu/tensor/__init__.py``, cut to what
-``models/radon.py`` and the rewrites use.
+``models/radon.py``, the sparse power iteration and the rewrites use.
 """
 
 from pytensor_tpu_torch.tensor.type import TensorType, tensor  # noqa: F401
@@ -17,6 +17,7 @@ from pytensor_tpu_torch.tensor.basic import (  # noqa: F401
     zeros_like,
 )
 from pytensor_tpu_torch.tensor.math import (  # noqa: F401
+    abs,
     add,
     cos,
     dot,
@@ -24,6 +25,7 @@ from pytensor_tpu_torch.tensor.math import (  # noqa: F401
     ge,
     log,
     lt,
+    max,
     maximum,
     mul,
     neg,

@@ -256,6 +256,7 @@ def _sum_grad_over_bcasted_dims(inp: Variable, grad: Variable) -> Variable:
 _np_reducers = {
     "add": np.add.reduce,
     "mul": np.multiply.reduce,
+    "maximum": np.maximum.reduce,
 }
 
 
@@ -380,6 +381,11 @@ class CAReduce(Op):
             g = tm.second(x, gz_b)
             g = cast(g, x.type.dtype) if x.type.dtype != g.type.dtype else g
             return [g]
+        if name == "maximum":
+            # each tied extremum receives the full output gradient
+            (out,) = outputs
+            out_b = DimShuffle(out.type.ndim, order)(out) if x.type.ndim else out
+            return [gz_b * cast(tm.eq(x, out_b), gz.type.dtype)]
         from pytensor_tpu_torch.gradient import grad_not_implemented
 
         return [grad_not_implemented(self, 0, x)]
@@ -397,3 +403,9 @@ def Sum(axis=None, dtype=None, acc_dtype=None):
     from pytensor_tpu_torch.scalar import basic as ps
 
     return CAReduce(ps.add, axis, dtype, acc_dtype, upcast_discrete_output=True)
+
+
+def Max(axis=None):
+    from pytensor_tpu_torch.scalar import basic as ps
+
+    return CAReduce(ps.maximum, axis)

@@ -66,6 +66,7 @@ _EMIT = {
     "mul": lambda a: "(" + " * ".join(a) + ")",
     "sub": lambda a: f"({a[0]} - {a[1]})",
     "neg": lambda a: f"(-{a[0]})",
+    "abs": lambda a: f"tl.abs({a[0]})",
     "sqr": lambda a: f"({a[0]} * {a[0]})",
     "true_div": lambda a: f"libdevice.div_rn({a[0]}, {a[1]})",
     "reciprocal": lambda a: f"libdevice.div_rn(tl.full([BLOCK], 1, {a[0]}.dtype), {a[0]})",

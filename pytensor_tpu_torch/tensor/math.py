@@ -2,7 +2,8 @@
 
 Counterpart of ``pytensor_tpu/tensor/math.py`` (PyTensor's tensor/math.py
 Dot:3041, Sum:3438 and the elemwise wrappers), cut to the ops of the
-radon logp+dlogp path and the ported scan tests.  The torch linker runs
+radon logp+dlogp path, the ported scan tests and the sparse power
+iteration (``abs``, ``max``).  The torch linker runs
 Dot as ``torch.matmul`` in full float32 (``link/torch/dispatch.py``).
 """
 
@@ -18,7 +19,7 @@ from pytensor_tpu_torch.scalar import basic as ps
 from pytensor_tpu_torch.scalar import math as psm
 from pytensor_tpu_torch.tensor import basic as tb
 from pytensor_tpu_torch.tensor.basic import as_tensor_variable, cast, constant
-from pytensor_tpu_torch.tensor.elemwise import DimShuffle, Elemwise, Sum
+from pytensor_tpu_torch.tensor.elemwise import DimShuffle, Elemwise, Max, Sum
 from pytensor_tpu_torch.tensor.type import TensorType
 
 # --- elemwise wrappers -----------------------------------------------------
@@ -28,6 +29,8 @@ mul = Elemwise(ps.mul)
 true_div = Elemwise(ps.true_div)
 pow = Elemwise(ps.pow)
 neg = Elemwise(ps.neg)
+abs = Elemwise(ps.abs)
+sign = Elemwise(ps.sign)
 sqr = Elemwise(ps.sqr)
 sqrt = Elemwise(ps.sqrt)
 reciprocal = Elemwise(ps.reciprocal)
@@ -40,6 +43,7 @@ sigmoid = Elemwise(psm.sigmoid)
 maximum = Elemwise(ps.maximum)
 lt = Elemwise(ps.lt)
 ge = Elemwise(ps.ge)
+eq = Elemwise(ps.eq)
 second = Elemwise(ps.second)
 
 
@@ -81,6 +85,10 @@ def _reduce(make_op, x, axis, keepdims, **kwargs):
 
 def sum(x, axis=None, dtype=None, keepdims=False, acc_dtype=None):
     return _reduce(lambda a, **k: Sum(a, dtype=dtype, acc_dtype=acc_dtype), x, axis, keepdims)
+
+
+def max(x, axis=None, keepdims=False):
+    return _reduce(lambda a, **k: Max(a), x, axis, keepdims)
 
 
 # --- dot products ------------------------------------------------------------

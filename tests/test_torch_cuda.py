@@ -1,5 +1,6 @@
-"""The port's kernels on an NVIDIA GPU: K1, K2 and K3 against their plain
-versions, and the linked radon function against the float64 closed form.
+"""The port's kernels on an NVIDIA GPU: K1, K2, K3 and K4 against their
+plain versions, the linked radon function against the float64 closed
+form, and the sparse graphs against float64 scipy.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports only the port (no JAX), so on the machine with the card it runs
@@ -12,7 +13,9 @@ Tolerances are chip_smoke.py's: K1 ``1e-5`` (float32) and ``1e-12``
 of ``max(1, max|plain|)``; the linked float32 graph ``rtol 1e-4`` with
 ``atol 1e-4 * max|dlogp|`` against float64; K2 on the ported scan cases
 ``1e-6`` of ``max(1, max|loop|)`` against the step loop, and the radon
-chain after 32 steps at K3's tolerances against K3.
+chain after 32 steps at K3's tolerances against K3; K4 per row within
+``4 * D2 * 2**-24 * sum_j |a_ij x_j|``, and the sparse graphs as
+``tests/test_torch_sparse.py`` holds them.
 """
 
 import numpy as np
@@ -132,7 +135,14 @@ def _scan_cases():
     v5 = pt.tensor("v5", dtype="float32", shape=(5,))
     W = pt.as_tensor_variable((np.eye(5) * 0.9 + 0.01).astype("float32"))
     x = pt.tensor("x", dtype="float32", shape=(4,))
+    m = pt.tensor("m", dtype="float32", shape=(6, 40))
     return {
+        "abs_max": ([m], lambda: ptt.scan(
+            lambda a: a / (pt.max(pt.abs(a)) + np.float32(1e-9)) * np.float32(1.5)
+            + pt.max(pt.abs(a), axis=1).dimshuffle(0, "x") * np.float32(0.01)
+            - pt.max(a, axis=0).dimshuffle("x", 0) * np.float32(0.01),
+            outputs_info=[m], n_steps=4)[0],
+            [np.random.default_rng(2).standard_normal((6, 40)).astype("float32")]),
         "scalar_carry": ([z], lambda: ptt.scan(
             lambda acc: acc * np.float32(1.1) + np.float32(0.5), outputs_info=[z],
             n_steps=6)[0], [np.float32(1.0)]),
@@ -148,8 +158,8 @@ def _scan_cases():
     }
 
 
-@pytest.mark.parametrize("case", ["scalar_carry", "vector_state_and_nitsot", "tanh_dot",
-                                  "sequences"])
+@pytest.mark.parametrize("case", ["abs_max", "scalar_carry", "vector_state_and_nitsot",
+                                  "tanh_dot", "sequences"])
 def test_k2_matches_plain_loop(card, case):
     """Each ported scan case through function() on the card: one K2 launch,
     held against the same scan linked without ``scan__pallas`` (the step
@@ -188,3 +198,95 @@ def test_k2_leapfrog_chain_matches_k3(card):
     assert scan_kernel.LAUNCHES == before + 1
     for g, w, tol in zip(got, fn3(th, m), (3e-4, 3e-3, 5e-4)):
         assert _scaled(g, w) <= tol
+
+
+def _sparse(n, density, seed):
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    return sp.random(n, n, density=density, format="csr", random_state=rng, dtype="float32"), rng
+
+
+def test_k4_matches_plain_and_is_deterministic(card):
+    """K4 at every lane count against its plain version, per row within
+    4 * D2 * 2**-24 * sum_j |a_ij x_j| (float32 sums of at most D2 terms
+    in two orders), and bit for bit against itself."""
+    from pytensor_tpu_torch.link.cuda import spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import sparse_as_torch
+
+    A, rng = _sparse(5000, 0.002, 7)
+    A = A.tolil()
+    A[3, :] = 0          # an empty row
+    A[4, :300] = 1.0     # a row longer than every lane group
+    A = A.tocsr()
+    c = sparse_as_torch(A, card)
+    xv = rng.standard_normal(5000).astype("float32")
+    x = as_torch(xv, card)
+    bound = 4 * np.diff(A.indptr).max() * 2.0 ** -24 * (abs(A) @ np.abs(xv.astype("float64")))
+    want = spmv_kernel.plain(c.indptr, c.indices, c.data, x).cpu().numpy()
+    for G in (1, 2, 4, 8, 16, 32):
+        before = spmv_kernel.LAUNCHES
+        got = spmv_kernel.launch(c.indptr, c.indices, c.data, x, G)
+        again = spmv_kernel.launch(c.indptr, c.indices, c.data, x, G)
+        torch.cuda.synchronize()
+        assert spmv_kernel.LAUNCHES == before + 2
+        assert torch.equal(got, again)
+        assert np.all(np.abs(got.cpu().numpy() - want) <= bound), G
+        assert float(got[3]) == 0.0
+
+
+def test_k4_refuses_what_it_does_not_take(card):
+    from pytensor_tpu_torch.link.cuda import spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import sparse_as_torch
+
+    A, _ = _sparse(300, 0.05, 8)
+    c = sparse_as_torch(A, card)
+    x = torch.ones(300, device=card)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        spmv_kernel.launch(c.indptr, c.indices, c.data, x, G=3)
+    with pytest.raises(ValueError):
+        spmv_kernel.launch(c.indptr, c.indices.long(), c.data, x)
+    with pytest.raises(ValueError):
+        spmv_kernel.launch(c.indptr, c.indices, c.data, x.double())
+    with pytest.raises(ValueError):
+        spmv_kernel.launch(c.indptr.cpu(), c.indices, c.data, x)
+
+
+def test_routed_graph_and_train_loop_launch_k4(card):
+    """The gradient graph launches K4 twice (A and its transpose), a
+    3-step train_loop three times; both against float64 scipy."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.link.cuda import spmv_kernel
+    from pytensor_tpu_torch.sparse import as_sparse_variable, structured_dot
+
+    A, rng = _sparse(1500, 0.005, 9)
+    x = pt.tensor("x", dtype="float32", shape=(1500,))
+    y = structured_dot(as_sparse_variable(A), x)
+    cost = pt.sum(y * y)
+    f = ptt.function([x], [cost, ptt.grad(cost, x)], device=card)
+    xv = rng.standard_normal(1500).astype("float32")
+    before = spmv_kernel.LAUNCHES
+    c, g = f(as_torch(xv, card))
+    torch.cuda.synchronize()
+    assert spmv_kernel.LAUNCHES == before + 2
+    y64 = A.astype("float64") @ xv.astype("float64")
+    np.testing.assert_allclose(float(c), (y64 ** 2).sum(), rtol=1e-4)
+    g64 = 2 * (A.T.astype("float64") @ y64)
+    np.testing.assert_allclose(g.cpu().numpy(), g64, rtol=1e-4, atol=1e-4 * np.abs(g64).max())
+
+    x0 = rng.standard_normal((1500, 1)).astype("float32")
+    xsh = ptt.shared(x0, name="x", device=card)
+    y = structured_dot(as_sparse_variable(A), xsh)
+    loop = ptt.train_loop([], pt.sum(y), {xsh: y / (pt.max(pt.abs(y)) + 1e-9)}, n_steps=3,
+                          device=card)
+    before = spmv_kernel.LAUNCHES
+    out = loop()
+    torch.cuda.synchronize()
+    assert spmv_kernel.LAUNCHES == before + 3
+    v = x0.astype("float64")
+    for _ in range(3):
+        yv = A @ v
+        v = yv / (np.abs(yv).max() + 1e-9)
+    np.testing.assert_allclose(float(out), yv.sum(), rtol=2e-4)
+    np.testing.assert_allclose(xsh.get_value().cpu().numpy(), v, atol=2e-5)

@@ -160,11 +160,18 @@ def test_grad_matches_jax(name):
 def test_port_never_imports_jax():
     code = ("import sys, pytensor_tpu_torch, pytensor_tpu_torch.entry, pytensor_tpu_torch.scan, "
             "pytensor_tpu_torch.models.radon_kernel, pytensor_tpu_torch.link.torch, "
-            "pytensor_tpu_torch.link.cuda.scan_kernel; "
+            "pytensor_tpu_torch.link.cuda.scan_kernel, pytensor_tpu_torch.sparse, "
+            "pytensor_tpu_torch.compile.train, pytensor_tpu_torch.link.cuda.spmv_kernel; "
             "from pytensor_tpu_torch.models.radon import make_leapfrog_chain; "
             "import torch; "
             "f = make_leapfrog_chain('float32', None, 2, 10, 3, device='cpu'); "
             "f(torch.zeros(7), torch.ones(7)); "
+            "import numpy as np, scipy.sparse as sp; "
+            "A = sp.random(40, 40, density=0.1, format='csr', random_state=0, dtype='float32'); "
+            "xs = pytensor_tpu_torch.shared(np.ones(40, 'float32'), device='cpu'); "
+            "S = pytensor_tpu_torch.sparse; "
+            "y = S.structured_dot(S.as_sparse_variable(A), xs); "
+            "pytensor_tpu_torch.train_loop([], y.sum(), {xs: y}, n_steps=2, device='cpu')(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pytensor_tpu')]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)

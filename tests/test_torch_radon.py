@@ -169,6 +169,11 @@ def test_cuda_device_raises_without_a_card():
         pytest.skip("this machine has a card: the no-card error path does not apply")
     with pytest.raises(RuntimeError, match="cuda"):
         entry("cuda")
+    # the entry points run on the card unless the caller asks for the CPU
+    with pytest.raises(RuntimeError, match="cuda"):
+        entry()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tradon.make_leapfrog_chain("float32", None, 2, 10, 3)
 
 
 # --- the leapfrog chain through scan + function() --------------------------------

@@ -180,7 +180,29 @@ def _every_op():
     return [M0], [tr, s, col]
 
 
+def _abs_max():
+    """abs (float32 and int32) and Max in each reduction shape K2 emits:
+    one warp per row (axis 1), one thread per column (axis 0) and the
+    block (all): the normalisation of the power iteration."""
+    M0 = pt.tensor("M0", dtype="float32", shape=(6, 40))
+
+    def step(M):
+        a = pt.abs(M)
+        top = pt.max(a)
+        ia = pt.cast(pt.abs(pt.cast(M * np.float32(10.0), "int32")), "float32")
+        new = (M / (top + np.float32(1e-9)) * np.float32(1.5)
+               + pt.max(a, axis=1).dimshuffle(0, "x") * np.float32(0.01)
+               - pt.max(M, axis=0).dimshuffle("x", 0) * np.float32(0.01)
+               + ia * np.float32(0.001))
+        return new, top
+
+    (tr, top), _ = ptt.scan(step, outputs_info=[M0, None], n_steps=4)
+    return [M0], [tr, top]
+
+
 CASES = {
+    "abs_max": (_abs_max, [np.random.default_rng(2).standard_normal((6, 40))
+                           .astype("float32")]),
     "scalar_carry": (_scalar_carry, [np.float32(1.0)]),
     "vector_state_and_nitsot": (_vector_state_and_nitsot, [np.arange(4, dtype="float32")]),
     "tanh_dot": (_tanh_dot, [np.random.default_rng(0).standard_normal(5).astype("float32")]),
