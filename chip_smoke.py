@@ -6,10 +6,10 @@ Phases, one line or more each, and any failure raises:
 
 1. device: require CUDA; print the card's name and power limit.
 2. build: build the radon leapfrog kernel (K3), the whole-loop scan
-   kernel (K2) of the leapfrog chain at full width and the CSR matvec
-   kernel (K4) with nvcc, the three compilers started together; print
-   each build's seconds and the ``-Xptxas -v`` register, shared-memory
-   and spill lines.
+   kernel (K2) of the leapfrog chain at full width, K2's stamped variant
+   and the CSR matvec kernel (K4) with nvcc, the four compilers started
+   together; print K2's loops, barriers, arena bytes and placement, each
+   build's seconds and the ``-Xptxas -v`` register and spill lines.
 3. K1: every FusedElemwise of the single-chain graph and of the batched
    graph at 1,024 chains, in float32 and float64, launched on the inputs
    the graph gives it and held against its plain torch version.
@@ -23,7 +23,10 @@ Phases, one line or more each, and any failure raises:
 6. K2: the chain of ``make_leapfrog_chain`` at full width, one float32
    chain, 64 steps: K2 (one launch) against its plain step loop on the
    card, and the chain against the float64 loop; relative errors of
-   theta, m and logp.
+   theta, m and logp.  Then K2's step split by op: the stamped variant
+   (thread 0's ``clock64()`` after each loop and barrier of steps 16-31),
+   which must give K2's bits, as cycles a step by op class and the ten
+   costliest loops with their lines in the generated source.
 7. chain: ``make_leapfrog_chain(n_steps=8192, device="cuda")`` through
    ``scan`` and ``function()``; launch counts are set to 0 before the
    call, and K2 must have launched exactly once after it.  Its final
@@ -231,6 +234,47 @@ def inner_ops(fgraph):
     return total
 
 
+def k2_stamp_breakdown(kern, k2_ms, plain_outs, n_steps, outer):
+    """Phase 6's split of K2's step by op, from the stamped variant: thread
+    0's clock64() after each op and barrier of steps STAMP_FROM.., as
+    cycles a step by op class and the ten costliest ops with their lines in
+    the generated source.  The stamps change no arithmetic, so the stamped
+    launch must give K2's bits."""
+    import torch
+    from pytensor_tpu_torch.link.cuda.scan_kernel import STAMP_FROM, STAMP_STEPS
+
+    got = kern.launch(n_steps, *outer)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, plain_outs)):
+        raise AssertionError("the stamped K2 differs from K2")
+    stamped_ms = wall_ms(lambda: kern.launch(n_steps, *outer), 3)
+    cyc = kern.stamp_buf.cpu().numpy().astype("float64")
+    labels = kern.src.stamp_labels
+    if not (np.all(cyc > 0) and np.all(np.diff(cyc, axis=1) >= 0)):
+        raise AssertionError("K2's stamps are missing or out of order")
+    per_op = np.diff(cyc, axis=1).mean(axis=0)  # stamp k - stamp k-1, k >= 1
+    step = float(cyc[:, -1].mean() - cyc[:, 0].mean())
+    steps = int(n_steps)
+    us_step = stamped_ms / steps * 1e3
+    lines = kern.src.source.splitlines()
+    at = {int(ln.split("K2_STAMP(")[1].split(")")[0]): no + 1
+          for no, ln in enumerate(lines) if "K2_STAMP(" in ln and "#define" not in ln}
+    by_class: dict = {}
+    for k, (cls, _) in enumerate(labels[1:], start=1):
+        c, n = by_class.get(cls, (0.0, 0))
+        by_class[cls] = (c + per_op[k - 1], n + 1)
+    say(f"K2 stamps (thread 0's clock64(), steps {STAMP_FROM}-{STAMP_FROM + STAMP_STEPS - 1} "
+        f"of {steps}): {step:.0f} cycles a step; the stamped launch {us_step:.2f} us/step "
+        f"wall, K2 {k2_ms / steps * 1e3:.2f} us/step device; {len(labels) - 1} stamps a step")
+    for cls, (c, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
+        say(f"  {cls:14s} {n:4d} stamps {c:10.0f} cycles/step {c / step:6.3f} of the step "
+            f"(~{c / step * us_step:.2f} us)")
+    say("  top 10 ops (cycles/step, class, source lines, op):")
+    for k in sorted(range(1, len(labels)), key=lambda k: -per_op[k - 1])[:10]:
+        first = at[k - 1] + 1
+        say(f"    {per_op[k - 1]:8.0f}  {labels[k][0]:14s} lines {first}-{at[k]}  {labels[k][1]}")
+
+
 def main():
     import torch
 
@@ -280,27 +324,31 @@ def main():
     chain64 = make_leapfrog_chain("float32", None, K2_STEPS, N_OBS, N_COUNTIES, device=dev)
     scan_node = next(nd for nd in chain64.fgraph.apply_nodes if isinstance(nd.op, Scan))
     k2 = scan_kernel.ScanKernel(scan_node.op, scan_node, dev)
+    # the same kernel with clock64() stamps, for phase 6's breakdown only
+    k2_stamped = scan_kernel.ScanKernel(scan_node.op, scan_node, dev, stamps=True)
     src = k2.src
-    say(f"K2 source: {len(scan_node.op.fgraph.apply_nodes)} inner nodes -> {src.n_ops} "
-        f"emitted ops and {src.n_barriers} barriers a step; arena {src.arena} bytes, "
-        f"constants {len(src.const_bytes)} bytes; graph, rewrite and emit in "
-        f"{time.perf_counter() - t0:.2f} s")
+    say(f"K2 source: {len(scan_node.op.fgraph.apply_nodes)} inner nodes -> {src.n_units} "
+        f"emitted ops in {src.n_ops} loops and {src.n_barriers} barriers a step; arena "
+        f"{src.arena} bytes, placement {src.placement}; constants {len(src.const_bytes)} bytes, "
+        f"{src.smem_const_bytes} of them in shared memory; {src.smem_bytes} bytes of dynamic "
+        f"shared memory; graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
 
     def timed(fn):
         t = time.perf_counter()
         fn()
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
                 "K2": pool.submit(timed, lambda: k2.build(verbose=True)),
+                "K2 stamped": pool.submit(timed, lambda: k2_stamped.build(verbose=True)),
                 "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True))}
         build_s = {tag: job.result() for tag, job in jobs.items()}
     for tag, log in (("K3", radon_kernel.BUILD_LOG), ("K2", k2.build_log),
-                     ("K4", spmv_kernel.BUILD_LOG)):
+                     ("K2 stamped", k2_stamped.build_log), ("K4", spmv_kernel.BUILD_LOG)):
         say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
         for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if "ptxas info" in line and "registers" in line or "bytes stack frame" in line:
                 say(f"  {tag} ptxas:", line.strip())
 
     # the graphs of the slice, linked for the card
@@ -519,6 +567,7 @@ def main():
         f"{k2_plain_ms:.2f} ms ({k2_plain_ms / K2_STEPS * 1e3:.1f} us/step); wall: kernel "
         f"{k2_wall:.4f} ms, plain {k2_plain_wall:.2f} ms "
         f"({k2_plain_wall / K2_STEPS * 1e3:.1f} us/step)")
+    k2_stamp_breakdown(k2_stamped, k2_ms, got2, n_steps, outer)
 
     # 7. chain through scan + function() --------------------------------------
     chain = make_leapfrog_chain("float32", None, CHAIN_STEPS, N_OBS, N_COUNTIES, device=dev)

@@ -33,16 +33,18 @@ def nvcc() -> str:
 
 
 def build_library(source: str, stem: str, source_path: Path | None = None,
-                  verbose: bool = False) -> tuple[ctypes.CDLL, str]:
+                  verbose: bool = False, flags=()) -> tuple[ctypes.CDLL, str]:
     """Compile ``source`` (once per hash of source and flags) and load it.
 
     ``source_path`` is the file to compile when the source lives in the
     repo; a generated source is written under ``build/kernels/`` first.
+    ``flags`` are added to ``NVCC_FLAGS``.
     Returns ``(library, log)``: the log holds the compiler's output of
     this build (with ``verbose``, its ``-Xptxas -v`` register and
     shared-memory report), and is empty when the library was built before.
     """
-    key = hashlib.sha256(source.encode() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    cmd_flags = [*NVCC_FLAGS, *flags]
+    key = hashlib.sha256(source.encode() + " ".join(cmd_flags).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{stem}_{key}.so"
     log = ""
     if not lib_path.exists():
@@ -53,7 +55,7 @@ def build_library(source: str, stem: str, source_path: Path | None = None,
             tmp_src.write_text(source)
             os.replace(tmp_src, source_path)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [nvcc(), *cmd_flags, *(["-Xptxas", "-v"] if verbose else []),
                "-o", str(tmp), str(source_path)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = proc.stdout + proc.stderr

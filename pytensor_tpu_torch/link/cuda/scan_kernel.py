@@ -8,40 +8,67 @@ layout of that kernel (the vmap to a size-1 leading dim, the rank-2
 padding, ``mosaic_safe``, the VMEM budget) is not carried over.
 
 On Hopper the loop runs in one thread block of 1,024 threads:
-``for (t = 0; t < T; ++t) { every inner node in topological order }``.
-A step of the radon leapfrog body is ~160 small ops, so what bounds it is
-latency: barriers and the round trips of each op through the memory
-hierarchy, not bytes or flops.  The design:
+``for (t = 0; t < T; ++t) { the inner graph }``.  A step of the radon
+leapfrog body is ~160 small ops on vectors of at most 919 elements, so
+bytes and flops bound nothing; latency does: each round trip of a value
+through memory, each barrier of 32 warps, each chain of scalar ops that
+thread 0 runs while the others wait, and each product that streams a
+matrix through L2.  Stamps of ``clock64()`` (the ``stamps`` source, read
+by ``chip_smoke.py``) split a step by op on the card.  The design does
+what it can about each:
 
-- **Source.** Emitted at link time from the inner graph, one loop per op
-  over its output elements (strided by the thread index), with static
+- **Source.** Emitted at link time from the inner graph, with static
   shapes folded into the index arithmetic.  Built with nvcc for sm_90a
-  (``link/cuda/build.py``), cached by a hash of the source, called
-  through ``ctypes`` on torch's current stream.
-- **Memory.** Every inner variable has its own slot in a scratch arena
-  that torch allocates per launch; no op updates a slot in place.  Views
-  that keep the row-major order (``Reshape``, ``SpecifyShape``, a
-  ``DimShuffle`` that only adds or drops length-1 dims, a contiguous
-  ``Subtensor``) alias their input's slot instead of copying.  Graph
-  constants sit in one device buffer uploaded when the scan is linked;
-  scalar constants are exact literals of their dtype (hex floats).
-  States are double-buffered: step ``t`` reads parity ``t & 1`` and the
-  end of the step writes parity ``(t + 1) & 1``, and row ``t`` of each
-  trace and nit-sot.  Untraced states are written once, at the end.
-- **Barriers.** A ``__syncthreads()`` goes before an op only when it
-  reads a value written since the last barrier by another thread.  An op
-  writes element ``i`` from thread ``i % 1024``, or all of a scalar from
-  thread 0; so a chain of scalar ops, or of same-shape elementwise ops,
-  needs no barrier between its links.
+  (``link/cuda/build.py``) with ``-fmad=false``, cached by a hash of the
+  source, called through ``ctypes`` on torch's current stream.
+- **Order.** The nodes are scheduled so that element-wise ops of one size
+  follow each other, ready reductions come together and a one-hot
+  product opens a run (``_schedule``); the order only moves ops whose
+  inputs are ready, so every value is what the graph's order computes.
+- **Runs in registers.** Consecutive element-wise ops of one size
+  (``Elemwise``, the copies of ``Subtensor``/``DimShuffle``/``Alloc``,
+  ``IncSubtensor``, a one-hot product) are one loop: element ``i`` on
+  thread ``i % 1024`` (thread 0 for a scalar), each op's value in a
+  register.  A value gets a slot only when something outside its run reads
+  it: another index, another run, a reduction or the end of the step.
+  Without FMA contraction each op still rounds on its own, as the step
+  loop's ops do; the plain ``Dot`` keeps its multiply-adds as explicit
+  FMAs.
+- **Memory.** Slots are given by liveness: a slot is taken where it is
+  first written and given back after its last reader, to be reused only
+  past the next barrier.  The arena (the slots, the carried double
+  buffers) sits in dynamic shared memory when it fits beside the
+  reduction buffers (``SMEM_LIMIT``), else in a torch scratch tensor; the
+  graph constants and index tables go to shared memory, copied there
+  before the loop, while they fit.  ``placement`` says which, decided at
+  emit time.  Views that keep the row-major order (``Reshape``,
+  ``SpecifyShape``, a ``DimShuffle`` that only adds or drops length-1
+  dims, a contiguous ``Subtensor``) alias their input.  Scalar constants
+  are exact literals of their dtype (hex floats).  States are
+  double-buffered: step ``t`` reads parity ``t & 1`` and the end of the
+  step writes parity ``(t + 1) & 1`` and row ``t`` of each trace and
+  nit-sot.  Untraced states are written once, at the end.
+- **One-hot products as index loads.** A ``Dot`` against a 2-D constant
+  whose rows (or columns) each hold one 1 and zeros, as the
+  ``onehot_gather`` rewrites make of a gather and a segment sum for the
+  TPU's matrix unit, reads its operand through indices computed here:
+  ``out[i] = 0 + v[col[i]]``, or a segment sum over a CSR of the rows of
+  each column in ascending order, summed in the order the plain ``Dot``
+  would sum the whole product, so the value is the product's bit for bit.
+  A ``__syncthreads_or`` over the operand's non-finite elements is the
+  barrier the product needs anyway and keeps its NaN where a 0 meets an
+  inf.  The matrix leaves the constants.
+- **Barriers.** A ``__syncthreads()`` goes before a loop only when it
+  reads a value written since the last barrier by another thread; ready
+  block reductions share one.
 - **Ops.** ``Elemwise`` is one C++ expression per scalar op (the table
   beside K1's ``_EMIT``), broadcast by strides, ``expf``/``exp`` by dtype
-  and IEEE division.  ``CAReduce`` (sum, product, max) and ``Dot`` take
-  one thread per output element, or one warp per output element with a
-  fixed shuffle tree when the reduced length is long against the number
-  of outputs; a full reduction is a block reduction, warp shuffles then
-  one warp over the 32 partials.  Every order is fixed, so K2 is
-  deterministic.  Static ``Subtensor``/``IncSubtensor``, ``DimShuffle``,
-  ``Alloc`` and ``MakeVector`` are index-mapped copies;
+  and IEEE division.  ``CAReduce`` (sum, product, max) and the plain
+  ``Dot`` take one thread per output element, or one warp per output
+  element with a fixed shuffle tree when the reduced length is long
+  against the number of outputs; a full reduction is a block reduction,
+  warp shuffles then one warp over the 32 partials.  Every order is fixed,
+  so K2 is deterministic.  ``MakeVector`` runs on thread 0;
   ``Shape``/``Shape_i`` are literals written before the loop.  Values
   that only feed static shape inputs (of ``Reshape``, ``SpecifyShape``,
   ``Alloc``) are not computed.
@@ -61,6 +88,7 @@ tensors launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -77,6 +105,11 @@ from pytensor_tpu_torch.tensor.subtensor import DYN, IncSubtensor, Subtensor
 
 THREADS = 1024
 WARPS = THREADS // 32
+# no contraction of a multiply and an add into an FMA: an op that a run
+# keeps in a register rounds as it does alone, and as the step loop does
+K2_NVCC_FLAGS = ("-fmad=false",)
+# the steps whose clock64() stamps a stamped source records
+STAMP_FROM, STAMP_STEPS = 16, 16
 
 # launches of the kernel since the count was last set to 0
 LAUNCHES = 0
@@ -147,6 +180,10 @@ _PRELUDE = r"""#include <cuda_runtime.h>
 #include <math.h>
 
 #define K2_THREADS 1024
+// the dynamic shared memory: reduction buffers, arena, constants
+#ifndef K2_SHARED_ARENA
+#define K2_SHARED_ARENA extern __shared__ __align__(16) unsigned char k2_smem[]
+#endif
 
 template <typename T> __device__ __forceinline__ T k2_warp_add(T v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -305,6 +342,19 @@ def scan_kernel_eligible(op, node=None) -> bool:
 
 # --- the emitter ------------------------------------------------------------------
 
+# dynamic shared memory one block may use on sm_90
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin of the H100)
+SMEM_LIMIT = 232448
+# the block reductions' partials open the shared memory: two sets of
+# _RED_BATCH buffers of 32, a batch of reductions to a set, in turn
+_RED_BATCH = 4
+_RED_BYTES = 2 * _RED_BATCH * 32 * 8
+
+
+def _align(n):
+    return (n + 15) // 16 * 16
+
+
 class _Loc:
     """Where a variable's elements live: ``root[off + i]``."""
 
@@ -312,13 +362,15 @@ class _Loc:
 
     def __init__(self, root, off, dtype, shape, const=None):
         self.root, self.off, self.dtype, self.shape = root, off, dtype, tuple(shape)
-        self.const = const  # the value, for a 0-d constant
+        self.const = const  # the value of every element, for a constant of one value
 
     @property
     def size(self):
         return _size(self.shape)
 
     def at(self, idx):
+        if self.const is not None:
+            return _literal(self.const, self.dtype)
         return f"{self.root}[{self.off} + {idx}]" if self.off else f"{self.root}[{idx}]"
 
 
@@ -360,21 +412,81 @@ class _Writer:
     STD, T0, OTHER = "std", "t0", "other"
 
 
-class ScanKernelSource:
-    """The CUDA source of K2 for one Scan node, and its argument layout."""
+class _Unit:
+    """An op computed element by element: element ``i`` of ``out`` on the
+    thread that runs ``i`` (thread 0 for a single element).  ``reads`` are
+    ``(var, mode)`` pairs: ``"reg"`` when the op reads element ``i`` of an
+    input of its own size (a register, if the run made it), ``"ident"``
+    when it reads element ``i`` of a smaller input, ``"gen"`` for any other
+    element.  ``code(r, u, flag)`` gives the C++ lines
+    that leave element ``i`` in the register ``r`` (``u`` keeps names
+    apart; ``flag`` is the run's non-finite flag).  ``guard`` is the
+    operand of a one-hot product whose non-finite elements the run's
+    leading ``__syncthreads_or`` flags."""
 
-    def __init__(self, op, node):
+    __slots__ = ("pos", "out", "n", "reads", "code", "cls", "guard")
+
+    def __init__(self, pos, out, reads, code, cls, guard=None):
+        self.pos, self.out, self.reads, self.code = pos, out, reads, code
+        self.n = _size(out.type.shape)
+        self.cls, self.guard = cls, guard
+
+
+class _Run:
+    """Consecutive units of one size, emitted as one loop."""
+
+    __slots__ = ("n", "units", "outs")
+
+    def __init__(self, n):
+        self.n, self.units, self.outs = n, [], set()
+
+
+# how a one-hot product is emitted (ScanKernelSource._onehot)
+_OneHot = collections.namedtuple("_OneHot", "kind side m v idx P C B by_warp")
+
+
+def _small_index(values):
+    """``values`` as the smallest unsigned type that holds them."""
+    values = np.asarray(values, dtype=np.int64)
+    return values.astype("uint16" if values.max(initial=0) < 2 ** 16 else "int32")
+
+
+class ScanKernelSource:
+    """The CUDA source of K2 for one Scan node, and its argument layout.
+
+    Besides ``source``: ``const_bytes``, the graph constants and one-hot
+    index tables, uploaded once; ``arena``, the bytes of the slots after
+    reuse; ``placement``, ``"shared"`` when the arena fits in shared
+    memory beside the reduction buffers, else ``"device"`` (a torch
+    scratch tensor), decided here; ``smem_bytes``, the dynamic shared
+    memory of a launch (the reduction buffers, the arena when shared, and
+    the constants that fit, ``smem_const_bytes`` of them); ``n_ops``, the
+    loops of a step (a merged run is one), ``n_units``, the ops emitted,
+    and ``n_barriers``, the barriers of a step.
+    """
+
+    def __init__(self, op, node, stamps=False):
         self.op, self.node = op, node
+        # with stamps, thread 0 records clock64() after each loop and barrier
+        # of steps STAMP_FROM.. into one more argument; stamp_labels gives
+        # each stamp's (op class, description), stamp 0 being the step's start
+        self.stamps = stamps
+        self.stamp_labels = [("start", "step start")]
         info = op.info
         self.info = info
         self.loc: dict = {}
-        self.arena = 0
-        self.const_chunks: list[bytes] = []
-        self.const_bytes_len = 0
-        self.n_barriers = 0
-        self.n_ops = 0
+        self.slots: dict = {}       # arena slot name -> (C type, bytes)
+        self.pinned: list = []      # slots live for the whole launch
+        self.events: list = []      # per emitted loop (slots read, slots written); None: a barrier
+        self.consts: list = []      # (name, C type, bytes) of the constants and index tables
+        self.root_of: dict = {}     # view -> (the variable that owns its elements, offset)
+        self.consumers: dict = {}   # owner -> [(position of the reader or "end", var read)]
+        self.regs: dict = {}        # slot name -> (register, size), inside a run
+        self.run = None
+        self.n_barriers = self.n_ops = self.n_units = 0
         self.dirty: dict = {}
-        self.red_buf = 0
+        self.red_set = 0
+        self.reds: list = []        # block reductions waiting for one barrier
         inner_in = op.fgraph.inputs
         ns, nst, nu = info.n_seqs, info.n_states, info.n_untraced
         self.seq_vars = inner_in[:ns]
@@ -387,24 +499,35 @@ class ScanKernelSource:
         self.nit_outs = outs[nst + nu:]
         self.source = self._emit()
 
-    # --- slots -------------------------------------------------------------
-    def _arena_slot(self, name, dtype, n):
-        off = self.arena
-        self.arena += ((max(n, 1) * np.dtype(dtype).itemsize + 15) // 16) * 16
-        self.decl.append(f"{_ctype(dtype)}* {name} = ({_ctype(dtype)}*)(a.scratch + {off});")
+    # --- slots and constants --------------------------------------------------
+    def _slot(self, name, dtype, n, pinned=False):
+        self.slots[name] = (_ctype(dtype), _align(max(n, 1) * np.dtype(dtype).itemsize))
+        if pinned:
+            self.pinned.append(name)
+        return name
+
+    def _table(self, data):
+        """A constant array in the constants buffer (once for equal
+        contents); returns its name."""
+        data = np.ascontiguousarray(data)
+        ct = _ctype(str(data.dtype))
+        raw = data.tobytes()
+        raw += b"\0" * ((-len(raw)) % 16)
+        for name, ct2, raw2 in self.consts:
+            if ct2 == ct and raw2 == raw:
+                return name
+        name = f"c{len(self.consts)}"
+        self.consts.append((name, ct, raw))
         return name
 
     def _const_slot(self, c):
+        """A graph constant: a literal when all its elements have one value
+        (bit for bit), else a table."""
         data = np.array(c.data, dtype=c.type.dtype, order="C")
-        name = f"c{len(self.const_chunks)}"
-        off = self.const_bytes_len
-        raw = data.tobytes()
-        self.const_chunks.append(raw + b"\0" * ((-len(raw)) % 16))
-        self.const_bytes_len += len(self.const_chunks[-1])
-        ct = _ctype(c.type.dtype)
-        self.decl.append(f"const {ct}* {name} = (const {ct}*)(a.consts + {off});")
-        return _Loc(name, 0, c.type.dtype, c.type.shape,
-                    const=data.reshape(()) if data.ndim == 0 else None)
+        raw, item = data.tobytes(), data.dtype.itemsize
+        if data.size and raw == raw[:item] * data.size:
+            return _Loc("", 0, c.type.dtype, c.type.shape, const=data.reshape(-1)[0])
+        return _Loc(self._table(data), 0, c.type.dtype, c.type.shape)
 
     def get(self, v):
         v = self.alias.get(v, v)
@@ -414,13 +537,26 @@ class ScanKernelSource:
             self.loc[v] = self._const_slot(v)
         return self.loc[v]
 
-    def operand(self, v, idx, dtype):
-        """C++ value of element ``idx`` of ``v`` cast to ``dtype``."""
+    def _root(self, v):
+        v = self.alias.get(v, v)
+        return self.root_of.get(v, (v, 0))
+
+    def operand(self, v, idx, dtype, ident=False):
+        """C++ value of element ``idx`` of ``v`` cast to ``dtype``; inside a
+        run, a register where ``ident`` and ``v`` is the run's own."""
         loc = self.get(v)
         if loc.const is not None:
             return f"(({_ctype(dtype)}){_literal(loc.const, loc.dtype)})"
-        expr = loc.at(idx)
+        reg = self.regs.get(loc.root) if ident and loc.off == 0 else None
+        expr = reg[0] if reg is not None and reg[1] == loc.size else loc.at(idx)
         return expr if loc.dtype == dtype else f"(({_ctype(dtype)}){expr})"
+
+    def _commit(self, reads=(), writes=()):
+        """Record the arena slots one emitted loop reads and writes."""
+        def slots(vs):
+            return {self.get(v).root for v in vs} & self.slots.keys()
+
+        self.events.append((slots(reads), slots(writes)))
 
     # --- barriers --------------------------------------------------------------
     def _safe(self, v, pattern):
@@ -436,22 +572,31 @@ class ScanKernelSource:
             return pattern == "ident" or (pattern == "t0" and loc.size <= 1)
         return False
 
+    def _barrier(self, line="__syncthreads();", label="barrier"):
+        self.body.append(line)
+        self.n_barriers += 1
+        self.dirty.clear()
+        self.events.append(None)
+        self._stamp("barrier", label)
+
     def reads(self, pairs):
         """Emit a barrier unless every (var, pattern) read is safe."""
         if not all(self._safe(v, p) for v, p in pairs):
-            self.body.append("__syncthreads();")
-            self.n_barriers += 1
-            self.dirty.clear()
+            self._barrier()
 
     def wrote(self, v, writer):
         self.dirty[self.get(v).root] = writer
+
+    def _stamp(self, cls, desc):
+        if self.stamps:
+            self.body.append(f"K2_STAMP({len(self.stamp_labels)});")
+            self.stamp_labels.append((cls, desc))
 
     # --- emission ----------------------------------------------------------------
     def _emit(self):
         op, info = self.op, self.info
         self.decl: list[str] = []
         self.body: list[str] = []
-        self.alias: dict = {}
         enodes, self.alias = _flatten(op.fgraph.toposort())
         needed = set(self.alias.get(o, o) for o in op.fgraph.outputs)
         live = []
@@ -464,6 +609,7 @@ class ScanKernelSource:
                 if port is None or not port(k):
                     needed.add(self.alias.get(i, i))
         live.reverse()
+        live = self._schedule(live)
 
         self.args = []  # (field, ctype, const) in launch order
 
@@ -474,21 +620,37 @@ class ScanKernelSource:
         seq_args = [arg(f"seq{k}", v.type.dtype, True) for k, v in enumerate(self.seq_vars)]
         init_args = [arg(f"init{k}", v.type.dtype, True)
                      for k, v in enumerate(self.state_vars + self.unt_vars)]
-        ns_args = [arg(f"ns{j}", v.type.dtype, True) for j, v in enumerate(self.nonseq_vars)]
+        for j, v in enumerate(self.nonseq_vars):
+            arg(f"ns{j}", v.type.dtype, True)
         trace_args = [arg(f"trace{k}", v.type.dtype, False) for k, v in enumerate(self.state_outs)]
         final_args = [arg(f"final{u}", v.type.dtype, False) for u, v in enumerate(self.unt_outs)]
         nit_args = [arg(f"nit{j}", v.type.dtype, False) for j, v in enumerate(self.nit_outs)]
 
         carried = self.state_vars + self.unt_vars
-        bufs = [self._arena_slot(f"st{k}_buf", v.type.dtype, 2 * _size(v.type.shape))
+        carried_outs = self.state_outs + self.unt_outs
+        bufs = [self._slot(f"st{k}_buf", v.type.dtype, 2 * _size(v.type.shape), pinned=True)
                 for k, v in enumerate(carried)]
         for j, v in enumerate(self.nonseq_vars):
             self.loc[v] = _Loc(f"ns{j}", 0, v.type.dtype, v.type.shape)
-            self.decl.append(f"const {_ctype(v.type.dtype)}* ns{j} = {ns_args[j]};")
         for k, v in enumerate(self.seq_vars):
             self.loc[v] = _Loc(f"q{k}", 0, v.type.dtype, v.type.shape)
         for k, v in enumerate(carried):
             self.loc[v] = _Loc(f"st{k}", 0, v.type.dtype, v.type.shape)
+
+        # who reads each value, through any view of it
+        for pos, en in enumerate(live):
+            off = self._view_offset(en)
+            if off is not None:
+                root, o = self._root(en.inputs[0])
+                self.root_of[en.outputs[0]] = (root, o + off)
+                continue
+            port = _SHAPE_ONLY.get(type(en.op))
+            for k, i in enumerate(en.inputs):
+                if port is None or not port(k):
+                    self.consumers.setdefault(self._root(i)[0], []).append(
+                        (pos, self.alias.get(i, i)))
+        for out in carried_outs + self.nit_outs:
+            self.consumers.setdefault(self._root(out)[0], []).append(("end", out))
 
         pre = []
         for k, v in enumerate(carried):
@@ -496,13 +658,12 @@ class ScanKernelSource:
             pre.append(f"for (int i = tid; i < {n}; i += K2_THREADS) "
                        f"{bufs[k]}[i] = {init_args[k]}[i];")
         self.pre = pre
-        for en in live:
-            self._emit_node(en)
-        step_body = self.body
+        for pos, en in enumerate(live):
+            self._emit_node(pos, en)
+        self._close_run()
+        self._flush_reductions()
 
         # end of step: the new carried values and the trace rows
-        self.body = []
-        carried_outs = self.state_outs + self.unt_outs
         self.reads([(out, "ident" if _size(out.type.shape) > 1 else "t0")
                     for out in carried_outs + self.nit_outs])
         for k, out in enumerate(carried_outs):
@@ -518,19 +679,52 @@ class ScanKernelSource:
             val = self.operand(out, "i", out.type.dtype)
             self.body.append(f"for (int i = tid; i < {n}; i += K2_THREADS) "
                              f"{nit_args[j]}[t * {n} + i] = {val};")
-        self.body.append("__syncthreads();")
-        self.n_barriers += 1
-        end_body = self.body
+        self._commit(reads=carried_outs + self.nit_outs)
+        self._stamp("end_of_step", "end-of-step writes")
+        self._barrier(label="end-of-step barrier")
+        step_body = self.body
+
+        offs = self._allocate()
+        self._place()
+        for name, (ct, _) in self.slots.items():
+            if name in offs:
+                self.decl.append(f"{ct}* {name} = ({ct}*)(k2_arena + {offs[name]});")
+        for j, v in enumerate(self.nonseq_vars):
+            ct = _ctype(v.type.dtype)
+            at = (f"(const {ct}*)(k2_smem + {self.smem_ns[j]})" if j in self.smem_ns
+                  else f"a.ns{j}")
+            self.decl.append(f"const {ct}* ns{j} = {at};")
+        for name, ct, _, where, off in self.const_layout:
+            base = "k2_cs" if where == "shared" else "a.consts"
+            self.decl.append(f"const {ct}* {name} = (const {ct}*)({base} + {off});")
 
         lines = [_PRELUDE, "namespace {", "", "struct K2Args {"]
         for field, ct, const in self.args:
             lines.append(f"  {'const ' if const else ''}{ct}* {field};")
         lines += ["  unsigned char* scratch;", "  const unsigned char* consts;",
-                  "  long long T;", "};", "",
+                  *(["  long long* stamps;"] if self.stamps else []),
+                  "  long long T;", "};", ""]
+        if self.stamps:
+            lines += [f"#define K2_STAMP(k) if (tid == 0 && t >= {STAMP_FROM} && "
+                      f"t < {STAMP_FROM + STAMP_STEPS}) a.stamps[(t - {STAMP_FROM}) * "
+                      f"{len(self.stamp_labels)} + (k)] = clock64()", ""]
+        arena_at = f"k2_smem + {_RED_BYTES}" if self.placement == "shared" else "a.scratch"
+        lines += [f"#define K2_SMEM {self.smem_bytes}", "",
                   "__global__ void __launch_bounds__(K2_THREADS) k2_kernel(K2Args a) {",
-                  "  __shared__ unsigned long long k2_red[2][32];",
+                  "  K2_SHARED_ARENA;",
+                  "  unsigned long long (*k2_red)[32] = (unsigned long long (*)[32])k2_smem;",
+                  f"  unsigned char* k2_arena = {arena_at};",
+                  f"  unsigned char* k2_cs = k2_smem + {self.smem_const_at};",
                   "  const int tid = threadIdx.x;"]
         lines += ["  " + d for d in self.decl]
+        for j, off in self.smem_ns.items():
+            v = self.nonseq_vars[j]
+            ct = _ctype(v.type.dtype)
+            lines.append(f"  for (int i = tid; i < {_size(v.type.shape)}; i += K2_THREADS) "
+                         f"(({ct}*)(k2_smem + {off}))[i] = a.ns{j}[i];")
+        if self.smem_const_bytes:
+            lines.append(f"  for (int i = tid; i < {self.smem_const_bytes // 4}; i += K2_THREADS) "
+                         "((unsigned int*)k2_cs)[i] = ((const unsigned int*)a.consts)[i];")
         lines += ["  " + p for p in self.pre]
         lines += ["  __syncthreads();", "  for (long long t = 0; t < a.T; ++t) {"]
         for k, v in enumerate(carried):
@@ -541,7 +735,9 @@ class ScanKernelSource:
         for k, v in enumerate(self.seq_vars):
             n = _size(v.type.shape)
             lines.append(f"    const {_ctype(v.type.dtype)}* q{k} = {seq_args[k]} + t * {n};")
-        lines += ["    " + b for b in step_body + end_body]
+        if self.stamps:
+            lines.append("    K2_STAMP(0);")
+        lines += ["    " + b for b in step_body]
         lines.append("  }")
         for u, v in enumerate(self.unt_vars):
             k = info.n_states + u
@@ -549,7 +745,7 @@ class ScanKernelSource:
             lines.append(f"  for (int i = tid; i < {n}; i += K2_THREADS) "
                          f"{final_args[u]}[i] = {bufs[k]}[(a.T & 1) * {n} + i];")
         lines += ["}", "", "}  // namespace", "",
-                  "// Launches one block on `stream`; returns cudaGetLastError().",
+                  "// Launches one block on `stream`; returns the first CUDA error.",
                   'extern "C" int k2_launch(const unsigned long long* p, long long T, '
                   "void* stream) {",
                   "  K2Args a;"]
@@ -558,63 +754,380 @@ class ScanKernelSource:
         n = len(self.args)
         lines += [f"  a.scratch = (unsigned char*)p[{n}];",
                   f"  a.consts = (const unsigned char*)p[{n + 1}];",
+                  *([f"  a.stamps = (long long*)p[{n + 2}];"] if self.stamps else []),
                   "  a.T = T;",
-                  "  k2_kernel<<<1, K2_THREADS, 0, (cudaStream_t)stream>>>(a);",
+                  "  const cudaError_t e = cudaFuncSetAttribute(",
+                  "      k2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K2_SMEM);",
+                  "  if (e != cudaSuccess) { cudaGetLastError(); return (int)e; }",
+                  "  k2_kernel<<<1, K2_THREADS, K2_SMEM, (cudaStream_t)stream>>>(a);",
                   "  return (int)cudaGetLastError();", "}", ""]
-        self.const_bytes = b"".join(self.const_chunks) or b"\0" * 16
         return "\n".join(lines)
 
+    def _allocate(self):
+        """Offsets of the arena slots.  A slot is taken where it is first
+        written and given back after its last reader, for use only past
+        the next barrier (so no thread still reads it); pinned slots (the
+        carried double buffers, shapes) keep theirs."""
+        first, last = {}, {}
+        for k, ev in enumerate(self.events):
+            if ev is None:
+                continue
+            rd, wr = ev
+            for s in wr:
+                first.setdefault(s, k)
+                last[s] = k
+            for s in rd - set(self.pinned):
+                if s not in first:
+                    raise AssertionError(f"K2: slot {s} is read before it is written")
+                last[s] = k
+        offs, top = {}, 0
+        for s in self.pinned:
+            offs[s] = top
+            top += self.slots[s][1]
+        order = {s: j for j, s in enumerate(self.slots)}
+        free, pending = [], []  # free: sorted (offset, bytes)
+        for k, ev in enumerate(self.events):
+            if ev is None:
+                for s in pending:
+                    free.append((offs[s], self.slots[s][1]))
+                free.sort()
+                merged = []
+                for o, b in free:
+                    if merged and merged[-1][0] + merged[-1][1] == o:
+                        merged[-1] = (merged[-1][0], merged[-1][1] + b)
+                    else:
+                        merged.append((o, b))
+                free, pending = merged, []
+                continue
+            rd, wr = ev
+            for s in sorted(wr, key=order.get):
+                if first[s] != k:
+                    continue
+                b = self.slots[s][1]
+                hole = next((j for j, (_, fb) in enumerate(free) if fb >= b), None)
+                if hole is None:
+                    offs[s] = top
+                    top += b
+                else:
+                    o, fb = free[hole]
+                    offs[s] = o
+                    free[hole:hole + 1] = [(o + b, fb - b)] if fb > b else []
+            pending += [s for s in sorted(rd | wr, key=order.get)
+                        if s not in self.pinned and last[s] == k]
+        self.arena = top
+        return offs
+
+    def _place(self):
+        """Shared or device memory for the arena, then the constants, in
+        the order they were made, and the non-sequences into shared memory
+        while they fit."""
+        used = _RED_BYTES
+        if used + self.arena <= SMEM_LIMIT:
+            self.placement = "shared"
+            used += self.arena
+        else:
+            self.placement = "device"
+        self.smem_const_at = used
+        shared, device = [], []
+        for name, ct, raw in self.consts:
+            if used + len(raw) <= SMEM_LIMIT:
+                shared.append((name, ct, raw))
+                used += len(raw)
+            else:
+                device.append((name, ct, raw))
+        # then the non-sequences, which no step changes
+        self.smem_ns = {}
+        for j, v in enumerate(self.nonseq_vars):
+            b = _align(max(_size(v.type.shape), 1) * np.dtype(v.type.dtype).itemsize)
+            if used + b <= SMEM_LIMIT:
+                self.smem_ns[j] = used
+                used += b
+        self.smem_bytes = used
+        self.smem_const_bytes = sum(len(r) for _, _, r in shared)
+        self.const_layout, off = [], 0
+        for name, ct, raw in shared + device:
+            where = "shared" if off < self.smem_const_bytes else "device"
+            self.const_layout.append((name, ct, raw, where, off))
+            off += len(raw)
+        self.const_bytes = b"".join(r for _, _, r in shared + device) or b"\0" * 16
+
     # --- one node -------------------------------------------------------------------
-    def _new_slot(self, v):
-        name = self._arena_slot(f"v{len(self.loc)}", v.type.dtype, _size(v.type.shape))
+    def _new_slot(self, v, pinned=False):
+        name = self._slot(f"v{len(self.loc)}", v.type.dtype, _size(v.type.shape), pinned)
         self.loc[v] = _Loc(name, 0, v.type.dtype, v.type.shape)
         return self.loc[v]
 
     def _alias(self, out, src, off=0):
         """``out`` is a view of ``src``'s elements from ``off`` on."""
         s = self.get(src)
-        self.loc[out] = _Loc(s.root, s.off + off, s.dtype, out.type.shape)
+        self.loc[out] = _Loc(s.root, s.off + off, s.dtype, out.type.shape, s.const)
 
-    def _std_loop(self, out_loc, body_lines, reads):
-        """A loop with element i on thread i % K2_THREADS (all on thread 0
-        for a single element); ``reads`` are (var, ident?) pairs."""
-        n = out_loc.size
-        if n == 1:
-            self.reads([(v, "t0") for v, _ in reads])
-            self.body.append("if (tid == 0) { const int i = 0;")
-        else:
-            self.reads([(v, "ident" if ident else "gen") for v, ident in reads])
-            self.body.append(f"for (int i = tid; i < {n}; i += K2_THREADS) {{")
-        self.body += ["  " + b for b in body_lines]
-        self.body.append("}")
-
-    def _emit_node(self, en):
-        """Emit one node: views alias their input, Shape values are written
-        before the loop, every other op is a loop of the step."""
+    def _view_offset(self, en):
+        """The offset of a node that only views its input, else None:
+        ``Reshape``, ``SpecifyShape``, a ``DimShuffle`` that keeps the
+        order, a ``Subtensor`` that keeps the row-major order."""
         op = en.op
-        out = en.outputs[0]
         if isinstance(op, (Reshape, SpecifyShape)) or (
                 isinstance(op, DimShuffle) and list(op.shuffle) == sorted(op.shuffle)):
-            return self._alias(out, en.inputs[0])
-        if isinstance(op, Subtensor) and self._subtensor_view(en):
-            return None
+            return 0
+        if isinstance(op, Subtensor):
+            base, dims = self._index_map(op.idx_list, en.inputs[0].type.shape)
+            shape = [n for n, _ in dims]
+            if ([s for n, s in dims if n > 1]
+                    == [s for n, s in zip(shape, _row_major(shape)) if n > 1]):
+                return base
+        return None
+
+    _MAP_OPS = (Elemwise, IncSubtensor, Alloc, Subtensor, DimShuffle)
+
+    def _schedule(self, live):
+        """The live nodes in an order that keeps element-wise ops of one
+        size together, so that runs are long and barriers few: next comes
+        a ready node that emits nothing (a view, a shape), else one that
+        can extend the current run, else a loop of its own (ready
+        reductions then share a barrier), else a one-hot product (its run
+        opens with a barrier in any case), else the first ready node, each
+        in the graph's order and, but for views, shapes and the last
+        resort, not one that reads a reduction still waiting for its
+        barrier."""
+        order = {en: k for k, en in enumerate(live)}
+        made = {o: en for en in live for o in en.outputs}
+
+        def value_inputs(en):
+            port = _SHAPE_ONLY.get(type(en.op))
+            return [(k, self.alias.get(i, i)) for k, i in enumerate(en.inputs)
+                    if port is None or not port(k)]
+
+        deps = {en: {made[i] for _, i in value_inputs(en) if i in made} for en in live}
+        users: dict = {en: [] for en in live}
+        for en in live:
+            for d in deps[en]:
+                users[d].append(en)
+        waiting = {en: len(deps[en]) for en in live}
+        ready = [en for en in live if not waiting[en]]
+        out, run_n, run_vars = [], None, set()
+
+        def free(en):
+            return isinstance(en.op, (Shape, Shape_i)) or self._view_offset(en) is not None
+
+        def maps(en):
+            if isinstance(en.op, Dot):
+                plan = self._onehot(en)
+                return plan is not None and not plan.by_warp
+            return isinstance(en.op, self._MAP_OPS)
+
+        def extends(en):
+            o = en.outputs[0]
+            if (run_n is None or isinstance(en.op, Dot) or not maps(en)
+                    or _size(o.type.shape) != run_n):
+                return False
+            for k, i in value_inputs(en):
+                if i in run_vars and not (
+                        (isinstance(en.op, Elemwise) and (i.type.shape == o.type.shape
+                                                          or run_n == 1))
+                        or (isinstance(en.op, (IncSubtensor, Alloc)) and k == 0
+                            and i.type.shape == o.type.shape)):
+                    return False
+            return True
+
+        queued = set()  # reductions that will share a barrier, as _queue_reduction does
+
+        def waits(en):
+            return not any(i in queued for _, i in value_inputs(en))
+
+        def reduces(en):
+            return (isinstance(en.op, CAReduce) and _size(en.outputs[0].type.shape) == 1
+                    and _size(en.inputs[0].type.shape) > 1)
+
+        while ready:
+            pick = (next((en for en in ready if free(en)), None)
+                    or next((en for en in ready if extends(en) and waits(en)), None)
+                    or next((en for en in ready if not maps(en) and waits(en)), None)
+                    or next((en for en in ready if isinstance(en.op, Dot) and waits(en)), None)
+                    or next((en for en in ready if waits(en)), None) or ready[0])
+            ready.remove(pick)
+            out.append(pick)
+            o = pick.outputs[0]
+            if reduces(pick):
+                queued = set() if len(queued) == _RED_BATCH - 1 else queued | {o}
+            elif not waits(pick) or isinstance(pick.op, Dot):
+                queued = set()
+            if free(pick):
+                i = self.alias.get(pick.inputs[0], pick.inputs[0])
+                if self._view_offset(pick) == 0 and i in run_vars:
+                    run_vars.add(o)
+            elif extends(pick):
+                run_vars.add(o)
+            elif maps(pick):
+                run_n, run_vars = _size(o.type.shape), {o}
+            else:
+                run_n, run_vars = None, set()
+            for u in users[pick]:
+                waiting[u] -= 1
+                if not waiting[u]:
+                    ready.append(u)
+            ready.sort(key=order.get)
+        return out
+
+    def _emit_node(self, pos, en):
+        """Views alias their input and Shape values are written before the
+        loop; element-wise ops join the open run; a reduction, a Dot that
+        is not one-hot or a MakeVector is a loop of its own."""
+        op = en.op
+        out = en.outputs[0]
+        off = self._view_offset(en)
+        if off is not None:
+            return self._alias(out, en.inputs[0], off)
         if isinstance(op, (Shape, Shape_i)):
             shp = en.inputs[0].type.shape
-            loc = self._new_slot(out)
+            loc = self._new_slot(out, pinned=True)
             for j, s in enumerate(shp if isinstance(op, Shape) else [shp[op.i]]):
                 self.pre.append(f"if (tid == 0) {loc.at(j)} = {int(s)}LL;")
             return None
-        emit = {Elemwise: self._elemwise, CAReduce: self._careduce, Dot: self._dot,
-                Subtensor: self._strided_copy, DimShuffle: self._strided_copy,
-                IncSubtensor: self._inc_subtensor, Alloc: self._alloc,
-                MakeVector: self._make_vector}[type(op)]
+        plan = self._onehot(en) if isinstance(op, Dot) else None
+        if plan is not None and not plan.by_warp:
+            return self._add(self._onehot_unit(pos, en, plan))
+        unit = {Elemwise: self._elemwise, Subtensor: self._strided_copy,
+                DimShuffle: self._strided_copy, IncSubtensor: self._inc_subtensor,
+                Alloc: self._alloc}.get(type(op))
+        if unit is not None:
+            return self._add(unit(pos, en))
+        self._close_run()
+        if isinstance(op, CAReduce) and self._queue_reduction(en):
+            return None
+        self._flush_for(en.inputs)
+        if plan is not None:
+            self._segsum_by_warp(en, plan)
+        else:
+            {CAReduce: self._careduce, Dot: self._dot, MakeVector: self._make_vector}[type(op)](en)
         self.n_ops += 1
-        return emit(en)
+        self.n_units += 1
+        self._stamp("onehot_dot" if plan is not None else "careduce" if isinstance(op, CAReduce)
+                    else "dot" if isinstance(op, Dot) else "copy",
+                    f"{op} -> {tuple(out.type.shape)}")
+        return None
 
-    def _elemwise(self, en):
+    # --- runs ----------------------------------------------------------------------
+    def _add(self, unit):
+        """Append ``unit`` to the open run, or close it and open another:
+        a unit joins when it has the run's size and reads the run's own
+        values only at its own element.  A one-hot product opens a run,
+        whose leading ``__syncthreads_or`` is also the barrier it needs."""
+        self._flush_for(v for v, _ in unit.reads)
+        self.n_units += 1
+        run = self.run
+        joins = run is not None and run.n == unit.n and unit.guard is None
+        for v, mode in unit.reads if joins else ():
+            root, off = self._root(v)
+            if root in run.outs and not (mode == "reg" and off == 0
+                                         and _size(v.type.shape) == unit.n):
+                joins = False
+        if not joins:
+            self._close_run()
+            self.run = run = _Run(unit.n)
+        run.units.append(unit)
+        run.outs.add(unit.out)
+
+    def _needs_slot(self, var, members, n):
+        """Does a value of the run reach a reader outside it?"""
+        for pos, read in self.consumers.get(var, ()):
+            if pos == "end" or pos not in members:
+                return True
+            _, off = self._root(read)
+            if off or _size(read.type.shape) != n:
+                return True
+        return False
+
+    def _close_run(self):
+        """Emit the open run: its barrier (or the ``__syncthreads_or`` of a
+        one-hot operand), then one loop over its size in which each unit
+        leaves its element in a register, stored only where read outside."""
+        run, self.run = self.run, None
+        if run is None:
+            return
+        n = run.n
+        members = {u.pos for u in run.units}
+        stores = {u.out for u in run.units if self._needs_slot(u.out, members, n)}
+        guard = run.units[0].guard
+        flag = self._flush_reductions(guard=guard) if guard is not None else None
+        thread = self._scalar_threads(run) if n == 1 else {}
+        # the runs' reads of other values: a scalar chain off thread 0
+        # reads as any other thread does
+        ext = [(v, "gen" if thread.get(u) or (n > 1 and mode == "gen")
+                else "t0" if n == 1 else "ident")
+               for u in run.units for v, mode in u.reads if self._root(v)[0] not in run.outs]
+        self.reads(ext)
+        groups: dict = {}
+        for k, u in enumerate(run.units):
+            r = f"r{k}"
+            ct = _ctype(u.out.type.dtype)
+            lines = groups.setdefault(thread.get(u, 0), [])
+            lines += [f"{ct} {r};", "{"] + ["  " + s for s in u.code(r, k, flag)] + ["}"]
+            loc = self.get(u.out)
+            if u.out in stores:
+                lines.append(f"{loc.at('i')} = {r};")
+            self.regs[loc.root] = (r, n)
+        self.regs = {}
+        for t, lines in groups.items():
+            head = (f"for (int i = tid; i < {n}; i += K2_THREADS) {{" if n > 1
+                    else f"if (tid == {t}) {{ const int i = 0;")
+            self.body += [head] + ["  " + s for s in lines] + ["}"]
+        self._commit(reads=[v for v, _ in ext], writes=stores)
+        for u in run.units:
+            if u.out in stores:
+                self.wrote(u.out, _Writer.STD if n > 1 else
+                           _Writer.T0 if not thread.get(u, 0) else _Writer.OTHER)
+        self.n_ops += 1
+        names = "+".join(str(u.out.owner.op if u.out.owner else "?").split("{")[0]
+                         for u in run.units[:6])
+        more = f"+{len(run.units) - 6} more" if len(run.units) > 6 else ""
+        self._stamp(run.units[0].cls, f"run of {len(run.units)} ({names}{more}) -> {n}")
+
+    def _scalar_threads(self, run):
+        """The thread of each unit of a scalar run.  Units that read each
+        other's values form a chain; a chain that reads a value only
+        thread 0 may read yet (written since the last barrier, when the run
+        needs no barrier anyway) stays on thread 0, the others go to lane 0
+        of warps 1, 2, ... in turn, so that independent chains of ``powf``
+        and ``expf`` run side by side.  Their stores are then read after a
+        barrier."""
+        comp = {u.out: u.out for u in run.units}
+
+        def find(v):
+            while comp[v] is not v:
+                v = comp[v]
+            return v
+
+        for u in run.units:
+            for v, _ in u.reads:
+                root = self._root(v)[0]
+                if root in comp:
+                    comp[find(u.out)] = find(root)
+        chains: dict = {}
+        for u in run.units:
+            chains.setdefault(find(u.out), []).append(u)
+        ext = [v for u in run.units for v, _ in u.reads if self._root(v)[0] not in run.outs]
+        # a barrier that thread 0 needs anyway frees every chain
+        anyway = not all(self._safe(v, "t0") for v in ext)
+        thread, spare = {}, 0
+        for units in chains.values():
+            pinned = not anyway and any(
+                not self._safe(v, "gen") for u in units for v, _ in u.reads
+                if self._root(v)[0] not in run.outs)
+            t = 0
+            if not pinned:
+                t = 32 * (1 + spare % (WARPS - 1))
+                spare += 1
+            for u in units:
+                thread[u] = t
+        return thread
+
+    # --- element-wise units -------------------------------------------------------
+    def _elemwise(self, pos, en):
         out_v = en.outputs[0]
-        out = self._new_slot(out_v)
-        shape = out.shape
+        self._new_slot(out_v)
+        shape = tuple(out_v.type.shape)
+        n = _size(shape)
         name = en.op.scalar_op.name
         out_dt = out_v.type.dtype
         if name.startswith("cast{") or name == "second":
@@ -625,26 +1138,358 @@ class ScanKernelSource:
             comp = [upcast(*(i.type.dtype for i in en.inputs))] * len(en.inputs)
         else:
             comp = [out_dt] * len(en.inputs)
-        lines = _unravel(shape, "i", "o") if out.size > 1 else []
-        args, reads = [], []
-        for i, dt in zip(en.inputs, comp):
-            loc = self.get(i)
-            ident = loc.shape == shape
-            if loc.const is not None:
-                args.append(self.operand(i, "0", dt))
-                continue
-            idx = "i" if ident or out.size == 1 else _offset(_bcast_strides(loc.shape, shape), "o")
-            if loc.size == 1:
-                idx = "0"
-            args.append(self.operand(i, idx, dt))
-            reads.append((i, ident))
-        if name.startswith("cast{"):
-            expr = f"({args[0]} != 0)" if out_dt == "bool" else args[0]
+        ins = [(i, dt, self.get(i)) for i, dt in zip(en.inputs, comp)]
+
+        def ident(loc):
+            return loc.shape == shape or (n == 1 and loc.size == 1)
+
+        def code(r, u, flag):
+            lines = _unravel(shape, "i", f"o{u}_") if n > 1 else []
+            args = []
+            for i, dt, loc in ins:
+                if loc.const is not None or loc.size == 1:
+                    idx = "0"
+                elif ident(loc):
+                    idx = "i"
+                else:
+                    idx = _offset(_bcast_strides(loc.shape, shape), f"o{u}_")
+                args.append(self.operand(i, idx, dt, ident=ident(loc)))
+            if name.startswith("cast{"):
+                expr = f"({args[0]} != 0)" if out_dt == "bool" else args[0]
+            else:
+                expr = _CEXPR[name](args, comp[0])
+            return lines + [f"{r} = ({_ctype(out_dt)})({expr});"]
+
+        reads = [(i, "reg" if ident(loc) else "gen") for i, _, loc in ins if loc.const is None]
+        return _Unit(pos, out_v, reads, code, "elemwise_0d" if n == 1 else "elemwise_vec")
+
+    def _index_map(self, idx_list, in_shape):
+        """(base offset, [(out dim length, input stride)]) of a static
+        basic index into a row-major ``in_shape``."""
+        st = _row_major(in_shape)
+        base, dims, d = 0, [], 0
+        for e in idx_list:
+            if isinstance(e, (int, np.integer)):
+                base += (int(e) % in_shape[d]) * st[d]
+            else:
+                _, a, b, c = e
+                start, stop, step = slice(a, b, c).indices(in_shape[d])
+                dims.append((len(range(start, stop, step)), step * st[d]))
+                base += start * st[d]
+            d += 1
+        dims += [(in_shape[k], st[k]) for k in range(d, len(in_shape))]
+        return base, dims
+
+    def _strided_copy(self, pos, en):
+        x, out_v = en.inputs[0], en.outputs[0]
+        xl = self.get(x)
+        if isinstance(en.op, Subtensor):
+            base, dims = self._index_map(en.op.idx_list, xl.shape)
+            strides = [s for _, s in dims]
         else:
-            expr = _CEXPR[name](args, comp[0])
-        lines.append(f"{out.at('i')} = ({_ctype(out_dt)})({expr});")
-        self._std_loop(out, lines, reads)
-        self.wrote(out_v, _Writer.STD if out.size > 1 else _Writer.T0)
+            st = _row_major(xl.shape)
+            base = 0
+            strides = [0 if o == "x" else st[o] for o in en.op.new_order]
+        out = self._new_slot(out_v)
+
+        def code(r, u, flag):
+            lines = _unravel(out.shape, "i", f"o{u}_")
+            idx = f"{base} + {_offset(strides, f'o{u}_')}"
+            return lines + [f"{r} = {self.operand(x, idx, xl.dtype)};"]
+
+        return _Unit(pos, out_v, [(x, "gen")], code, "copy")
+
+    def _inc_subtensor(self, pos, en):
+        x, y = en.inputs[:2]
+        out_v = en.outputs[0]
+        out = self._new_slot(out_v)
+        shape = out.shape
+        yl = self.get(y)
+        out_dt = out_v.type.dtype
+
+        def code(r, u, flag):
+            o = f"o{u}_"
+            conds, region = [], []  # region: (length, C++ index) per non-int entry
+            d = 0
+            for e in en.op.idx_list:
+                if isinstance(e, (int, np.integer)):
+                    conds.append(f"{o}{d} == {int(e) % shape[d]}")
+                else:
+                    _, a, b, c = e
+                    start, stop, step = slice(a, b, c).indices(shape[d])
+                    n = len(range(start, stop, step))
+                    if step > 0:
+                        conds.append(f"{o}{d} >= {start} && {o}{d} < {stop}")
+                    else:
+                        conds.append(f"{o}{d} <= {start} && {o}{d} > {stop}")
+                    if step not in (1, -1):
+                        conds.append(f"({o}{d} - {start}) % {step} == 0")
+                    region.append((n, f"({o}{d} - {start}) / {step}" if step != 1
+                                   else f"({o}{d} - {start})"))
+                d += 1
+            region += [(shape[k], f"{o}{k}") for k in range(d, len(shape))]
+            ystr = _bcast_strides(yl.shape, [n for n, _ in region])
+            yidx = " + ".join(f"({ri}) * {s}" for (_, ri), s in zip(region, ystr) if s) or "0"
+            lines = _unravel(shape, "i", o)
+            lines.append(f"{r} = {self.operand(x, 'i', out_dt, ident=True)};")
+            yv = self.operand(y, yidx, out_dt)
+            upd = f"{r} = {yv};" if en.op.set_instead_of_inc else f"{r} = {r} + {yv};"
+            lines.append(f"if ({' && '.join(conds) or 'true'}) {upd}")
+            return lines
+
+        # y's element i is read at element i of a leading slice from 0
+        lead = (len(en.op.idx_list) == 1 and not isinstance(en.op.idx_list[0], (int, np.integer))
+                and slice(*en.op.idx_list[0][1:]).indices(shape[0])[::2] == (0, 1)
+                and yl.shape == (yl.shape[0], *shape[1:]))
+        return _Unit(pos, out_v, [(x, "reg"), (y, "ident" if lead else "gen")], code, "copy")
+
+    def _alloc(self, pos, en):
+        value, out_v = en.inputs[0], en.outputs[0]
+        out = self._new_slot(out_v)
+        vl = self.get(value)
+        ident = vl.shape == out.shape
+
+        def code(r, u, flag):
+            lines = _unravel(out.shape, "i", f"o{u}_")
+            idx = (_offset(_bcast_strides(vl.shape, out.shape), f"o{u}_")
+                   if vl.size > 1 else "0")
+            return lines + [f"{r} = {self.operand(value, idx, out_v.type.dtype, ident=ident)};"]
+
+        return _Unit(pos, out_v, [(value, "reg" if ident else "gen")], code, "copy")
+
+    # --- one-hot products ------------------------------------------------------------
+    def _onehot(self, en):
+        """The plan of a Dot one of whose operands is a 2-D constant whose
+        rows (or columns) each hold one 1 and zeros, else None.  ``kind``
+        is "gather" when each output element reads one element of the
+        other operand ``v``, "segsum" when it sums a segment of them;
+        ``idx`` maps each output element (gather) or each operand element
+        (segsum) to its partner; ``P`` is the constant's free length, ``C``
+        the contracted one, ``B`` the other free length of ``v``.
+        ``by_warp``: ``_dot`` would give each output element a warp."""
+        x, y = (self.alias.get(v, v) for v in en.inputs)
+        for side, m, v in (("left", x, y), ("right", y, x)):
+            if not isinstance(m, Constant) or m.type.ndim != 2 or isinstance(v, Constant):
+                continue
+            d = np.asarray(m.data)
+            ones = d == 1
+            if not np.all(ones | (d == 0)):
+                continue
+            rows = bool(np.all(ones.sum(axis=1) == 1))
+            cols = bool(np.all(ones.sum(axis=0) == 1))
+            if (rows if side == "left" else cols):
+                kind, idx = "gather", ones.argmax(axis=1 if side == "left" else 0)
+            elif (cols if side == "left" else rows):
+                kind, idx = "segsum", ones.argmax(axis=0 if side == "left" else 1)
+            else:
+                continue
+            P, C = d.shape if side == "left" else d.shape[::-1]
+            O = _size(en.outputs[0].type.shape)
+            by_warp = kind == "segsum" and not (
+                O == 1 or math.ceil(O / THREADS) * C
+                <= math.ceil(O / WARPS) * math.ceil(C / 32) + 5)
+            return _OneHot(kind, side, m, v, idx, P, C, _size(v.type.shape) // C, by_warp)
+        return None
+
+    def _onehot_tables(self, plan):
+        """The index tables of a one-hot constant (each made once, as equal
+        tables are): ``idx``, and for a segment sum the CSR of the segments
+        (``ptr``, and ``rows`` in ascending order within each, or for a
+        warp's sum by lane first, with ``lanes``)."""
+        tables = {"idx": self._table(_small_index(plan.idx))}
+        if plan.kind == "segsum":
+            counts = np.bincount(plan.idx, minlength=plan.P)
+            c = np.arange(len(plan.idx))
+            if plan.by_warp:
+                # within a segment, by lane (c % 32), then ascending;
+                # lanes[32 p + l]: where lane l's elements start in it
+                order = np.lexsort((c, c % 32, plan.idx))
+                lane_of = (c % 32)[order]
+                starts = np.concatenate([[0], np.cumsum(counts)])
+                lanes = np.stack([np.searchsorted(lane_of[starts[p]:starts[p + 1]],
+                                                  np.arange(32)) for p in range(plan.P)])
+                tables["lanes"] = self._table(lanes.astype("uint8") if counts.max(initial=0) < 256
+                                              else _small_index(lanes))
+            else:
+                order = np.argsort(plan.idx, kind="stable")
+            tables["rows"] = self._table(_small_index(order))
+            tables["ptr"] = self._table(_small_index(np.concatenate([[0], np.cumsum(counts)])))
+        return tables
+
+    @staticmethod
+    def _onehot_elem(plan, c, b):
+        """C++ index of the operand's element (c, b)."""
+        if plan.B == 1:
+            return c
+        return f"({c}) * {plan.B} + {b}" if plan.side == "left" else f"{b} * {plan.C} + ({c})"
+
+    def _onehot_nan(self, plan, tab, flag, r, p, b, ct):
+        """The line that makes ``r`` NaN where the operand holds an inf or
+        a NaN outside element p's segment, as ``0 * inf`` does in the
+        product (only when the run's flag says there is one)."""
+        outside = (f"c != (int){tab['idx']}[{p}]" if plan.kind == "gather"
+                   else f"(int){tab['idx']}[c] != {p}")
+        return (f"if ({flag}) for (int c = 0; c < {plan.C}; ++c) if ({outside} && "
+                f"!isfinite({self.get(plan.v).at(self._onehot_elem(plan, 'c', b))})) "
+                f"{r} = ({ct})NAN;")
+
+    def _onehot_unit(self, pos, en, plan):
+        """A one-hot product as index loads, one thread an element.
+        ``gather``: element p reads ``v[idx[p]]``; ``segsum``: element p
+        sums, in ascending c, the operand elements c with ``idx[c] == p``,
+        as ``_dot``'s one thread an element sums the whole product.  The
+        terms that the one-hot matrix zeroes add +0 to a sum that is never
+        -0, so this is the product's value bit for bit.  Both start from 0,
+        as the product's sum does, so a -0.0 gives 0.0; where the operand
+        holds an inf or a NaN outside an element's segment, the product's
+        ``0 * inf`` makes it NaN, and so does the guard here."""
+        out_v, v = en.outputs[0], plan.v
+        self._new_slot(out_v)
+        ct = _ctype(out_v.type.dtype)
+        tab = self._onehot_tables(plan)
+        B, P = plan.B, plan.P
+        p_of, b_of = ((f"i / {B}", f"i % {B}") if plan.side == "left"
+                      else (f"i % {P}", f"i / {P}"))
+
+        def code(r, u, flag):
+            p, b = f"p{u}", f"b{u}"
+            lines = [f"const int {p} = {p_of if B > 1 else 'i'};",
+                     f"const int {b} = {b_of if B > 1 else '0'};"]
+            if plan.kind == "gather":
+                at = self._onehot_elem(plan, f"(int){tab['idx']}[{p}]", b)
+                lines.append(f"{r} = ({ct})0 + {self.operand(v, at, out_v.type.dtype)};")
+            else:
+                at = self._onehot_elem(plan, f"(int){tab['rows']}[q]", b)
+                lines += [f"{r} = ({ct})0;",
+                          f"for (int q = {tab['ptr']}[{p}]; q < {tab['ptr']}[{p} + 1]; ++q) "
+                          f"{r} = {r} + {self.operand(v, at, out_v.type.dtype)};"]
+            if flag is not None:
+                lines.append(self._onehot_nan(plan, tab, flag, r, p, b, ct))
+            return lines
+
+        guard = v if v.type.dtype.startswith("float") else None
+        return _Unit(pos, out_v, [(v, "gen")], code, "onehot_dot", guard)
+
+    def _segsum_by_warp(self, en, plan):
+        """A one-hot segment sum where ``_dot`` would give each output
+        element a warp: lane l sums, in ascending c, the segment's elements
+        with c % 32 == l (from the ``lanes`` table), then the warp's shuffle
+        tree; ``_dot``'s order, so the product's value bit for bit, with the
+        guard of ``_onehot_unit``.  Lane 0 writes the element."""
+        out_v, v = en.outputs[0], plan.v
+        out = self._new_slot(out_v)
+        ct = _ctype(out_v.type.dtype)
+        tab = self._onehot_tables(plan)
+        flag = None
+        if v.type.dtype.startswith("float"):
+            flag = self._flush_reductions(guard=v)
+        else:
+            self.reads([(v, "gen")])
+        B, P = plan.B, plan.P
+        p, b = (("o / %d" % B, "o %% %d" % B) if plan.side == "left"
+                else ("o %% %d" % P, "o / %d" % P)) if B > 1 else ("o", "0")
+        at = self._onehot_elem(plan, "k", "b")
+        # lane l reads only its own elements of the segment, from lanes[];
+        # a warp's several elements are summed side by side
+        rounds = math.ceil(out.size / WARPS)
+        body = ["{", "  const int lane = tid & 31;", f"  {ct} acc[{rounds}];",
+                "  #pragma unroll",
+                f"  for (int r = 0; r < {rounds}; ++r) {{",
+                f"    const int o = (tid >> 5) + r * {WARPS};",
+                "    acc[r] = 0;",
+                f"    if (o < {out.size}) {{",
+                f"      const int p = {p}; const int b = {b};",
+                f"      const int q0 = {tab['ptr']}[p], q1 = {tab['ptr']}[p + 1];",
+                f"      const int qa = q0 + {tab['lanes']}[32 * p + lane];",
+                f"      const int qb = lane < 31 ? q0 + {tab['lanes']}[32 * p + lane + 1] : q1;",
+                f"      for (int q = qa; q < qb; ++q) {{ const int k = {tab['rows']}[q]; "
+                f"acc[r] = acc[r] + {self.operand(v, at, out_v.type.dtype)}; }}",
+                "    }", "  }",
+                "  #pragma unroll",
+                f"  for (int r = 0; r < {rounds}; ++r) {{",
+                f"    const int o = (tid >> 5) + r * {WARPS};",
+                f"    {ct} sum = k2_warp_add(acc[r]);",
+                f"    if (lane == 0 && o < {out.size}) {{",
+                f"      const int p = {p}; const int b = {b};"]
+        if flag is not None:
+            body.append("      " + self._onehot_nan(plan, tab, flag, "sum", "p", "b", ct))
+        body += [f"      {out.at('o')} = sum;", "    }", "  }", "}"]
+        self.body += body
+        self._commit(reads=[v], writes=[out_v])
+        self.wrote(out_v, _Writer.OTHER)
+
+    # --- loops of their own ----------------------------------------------------------
+    def _queue_reduction(self, en):
+        """Queue a reduction of many elements to one, to share the barrier
+        of the ready ones (at most _RED_BATCH); False for any other."""
+        x, out_v = en.inputs[0], en.outputs[0]
+        if _size(out_v.type.shape) != 1 or _size(x.type.shape) <= 1:
+            return False
+        self._new_slot(out_v)
+        self.reds.append(en)
+        self.n_units += 1
+        if len(self.reds) == _RED_BATCH:
+            self._flush_reductions()
+        return True
+
+    def _flush_for(self, reads):
+        """Emit the queued reductions if one of ``reads`` is their output."""
+        pending = {en.outputs[0] for en in self.reds}
+        if any(self._root(v)[0] in pending for v in reads):
+            self._flush_reductions()
+
+    def _flush_reductions(self, guard=None):
+        """The queued block reductions, each in its own fixed order (element
+        j on thread j % K2_THREADS, warp shuffles, one warp over the 32
+        partials), with one barrier for all of them.  With
+        ``guard``, that barrier is a ``__syncthreads_or`` that also flags a
+        non-finite element of ``guard`` (each thread reading its own);
+        returns the flag's name."""
+        reds, self.reds = self.reds, []
+        if not reds and guard is None:
+            return None
+        ins = [en.inputs[0] for en in reds] + ([guard] if guard is not None else [])
+        self.reads([(v, "ident") for v in ins])
+        flag = None
+        if guard is not None:
+            flag = f"k2_bad{self.n_barriers}"
+            self.body.append(f"int {flag} = 0;")
+        base = _RED_BATCH * self.red_set
+        self.red_set ^= 1
+        head, tail = ["{"], ["  if (tid < 32) {"]
+        for k, en in enumerate(reds):
+            x, out_v = en.inputs[0], en.outputs[0]
+            xl, out = self.get(x), self.get(out_v)
+            acc_dt = en.op.acc_dtype or out_v.type.dtype
+            acc = _acc_ctype(acc_dt)
+            ident_of, combine, warp_fn = _REDUCE[en.op.scalar_op.name]
+            red = f"(({acc}*)k2_red[{base + k}])"
+            head += [f"  {acc} p{k} = {_literal(ident_of(acc_dt), acc_dt)};",
+                     f"  for (int j = tid; j < {xl.size}; j += K2_THREADS) "
+                     f"p{k} = {combine(f'p{k}', f'({acc})' + xl.at('j'))};",
+                     f"  p{k} = {warp_fn}(p{k});",
+                     f"  if ((tid & 31) == 0) {red}[tid >> 5] = p{k};"]
+            tail.append(f"    {{ {acc} q = {red}[tid]; q = {warp_fn}(q); "
+                        f"if (tid == 0) {out.at(0)} = ({_ctype(out_v.type.dtype)})q; }}")
+        if guard is not None:
+            gl = self.get(guard)
+            head.append(f"  for (int j = tid; j < {gl.size}; j += K2_THREADS) "
+                        f"{flag} |= !isfinite({gl.at('j')});")
+        self.body += head
+        self._commit(reads=ins)
+        self._barrier(f"  {flag} = __syncthreads_or({flag});" if guard is not None
+                      else "  __syncthreads();",
+                      "block reduction barrier" if reds else "__syncthreads_or of a one-hot operand")
+        if reds:
+            self.body += tail + ["  }"]
+        self.body.append("}")
+        if reds:
+            self._commit(writes=[en.outputs[0] for en in reds])
+            for en in reds:
+                self.wrote(en.outputs[0], _Writer.T0)
+            self.n_ops += 1
+            self._stamp("careduce", f"{len(reds)} block reductions -> ()")
+        return flag
 
     def _careduce(self, en):
         op = en.op
@@ -663,28 +1508,6 @@ class ScanKernelSource:
         ident = _literal(ident_of(acc_dt), acc_dt)
         st = _row_major(shape)
         out_ct = _ctype(out_v.type.dtype)
-        if O == 1 and R > 1:
-            # block reduction: element j on thread j % K2_THREADS
-            self.reads([(x, "ident")])
-            buf = self.red_buf
-            self.red_buf ^= 1
-            self.body += [
-                "{",
-                f"  {acc} p = {ident};",
-                f"  for (int j = tid; j < {R}; j += K2_THREADS) "
-                f"p = {combine('p', f'({acc})' + xl.at('j'))};",
-                f"  p = {warp_fn}(p);",
-                f"  {acc}* red = ({acc}*)k2_red[{buf}];",
-                "  if ((tid & 31) == 0) red[tid >> 5] = p;",
-                "  __syncthreads();",
-                f"  if (tid < 32) {{ {acc} q = red[tid]; q = {warp_fn}(q); "
-                f"if (tid == 0) {out.at(0)} = ({out_ct})q; }}",
-                "}",
-            ]
-            self.n_barriers += 1
-            self.dirty.clear()
-            self.wrote(out_v, _Writer.T0)
-            return
         kept_shape = [shape[d] for d in kept]
         red_shape = [shape[d] for d in red]
         base = _offset([st[d] for d in kept], "k")
@@ -692,6 +1515,7 @@ class ScanKernelSource:
         by_thread = math.ceil(O / THREADS) * R
         by_warp = math.ceil(O / WARPS) * math.ceil(R / 32) + 5
         if O == 1 or by_thread <= by_warp:
+            self.reads([(x, "t0" if O == 1 else "gen")])
             lines = _unravel(kept_shape, "i", "k")
             lines.append(f"const int base = {base};")
             lines.append(f"{acc} acc = {ident};")
@@ -699,7 +1523,10 @@ class ScanKernelSource:
                             for k, n in enumerate(red_shape))
             lines.append(f"{loops}acc = {combine('acc', f'({acc})' + xl.at('base + ' + roff))};")
             lines.append(f"{out.at('i')} = ({out_ct})acc;")
-            self._std_loop(out, lines, [(x, False)])
+            head = (f"for (int i = tid; i < {O}; i += K2_THREADS) {{" if O > 1
+                    else "if (tid == 0) { const int i = 0;")
+            self.body += [head] + ["  " + s for s in lines] + ["}"]
+            self._commit(reads=[x], writes=[out_v])
             self.wrote(out_v, _Writer.STD if O > 1 else _Writer.T0)
             return
         self.reads([(x, "gen")])
@@ -713,6 +1540,7 @@ class ScanKernelSource:
                  f"    acc = {warp_fn}(acc);",
                  f"    if (lane == 0) {out.at('i')} = ({out_ct})acc;", "  }", "}"]
         self.body += body
+        self._commit(reads=[x], writes=[out_v])
         self.wrote(out_v, _Writer.OTHER)
 
     def _dot(self, en):
@@ -732,8 +1560,14 @@ class ScanKernelSource:
             xb, yb, ys = f"(o / {N}) * {K}", f"(o % {N})", N
         else:
             xb, yb, ys = "0", "0", 1
-        term = (f"({ct}){xl.at(f'xb + k')} * ({ct}){yl.at(f'yb + k * {ys}' if ys != 1 else 'yb + k')}")
+        xk = f"({ct}){xl.at('xb + k')}"
+        yk = f"({ct}){yl.at(f'yb + k * {ys}' if ys != 1 else 'yb + k')}"
+        # one rounding per multiply-add: an explicit FMA, since K2 is built
+        # with -fmad=false
+        step = (f"acc = {'fmaf' if ct == 'float' else 'fma'}({xk}, {yk}, acc)"
+                if ct in ("float", "double") else f"acc += {xk} * {yk}")
         self.reads([(x, "gen"), (y, "gen")])
+        self._commit(reads=[x, y], writes=[out_v])
         by_thread = math.ceil(O / THREADS) * K
         by_warp = math.ceil(O / WARPS) * math.ceil(K / 32) + 5
         if O == 1 or by_thread <= by_warp:
@@ -741,7 +1575,7 @@ class ScanKernelSource:
                 f"for (int o = tid; o < {O}; o += K2_THREADS) {{",
                 f"  const int xb = {xb}; const int yb = {yb};",
                 f"  {ct} acc = 0;",
-                f"  for (int k = 0; k < {K}; ++k) acc += {term};",
+                f"  for (int k = 0; k < {K}; ++k) {step};",
                 f"  {out.at('o')} = acc;",
                 "}",
             ]
@@ -753,101 +1587,13 @@ class ScanKernelSource:
             f"  for (int o = tid >> 5; o < {O}; o += {WARPS}) {{",
             f"    const int xb = {xb}; const int yb = {yb};",
             f"    {ct} acc = 0;",
-            f"    for (int k = lane; k < {K}; k += 32) acc += {term};",
+            f"    for (int k = lane; k < {K}; k += 32) {step};",
             "    acc = k2_warp_add(acc);",
             f"    if (lane == 0) {out.at('o')} = acc;",
             "  }",
             "}",
         ]
         self.wrote(out_v, _Writer.OTHER)
-
-    def _index_map(self, idx_list, in_shape):
-        """(base offset, [(out dim length, input stride)]) of a static
-        basic index into a row-major ``in_shape``."""
-        st = _row_major(in_shape)
-        base, dims, d = 0, [], 0
-        for e in idx_list:
-            if isinstance(e, (int, np.integer)):
-                base += (int(e) % in_shape[d]) * st[d]
-            else:
-                _, a, b, c = e
-                start, stop, step = slice(a, b, c).indices(in_shape[d])
-                dims.append((len(range(start, stop, step)), step * st[d]))
-                base += start * st[d]
-            d += 1
-        dims += [(in_shape[k], st[k]) for k in range(d, len(in_shape))]
-        return base, dims
-
-    def _subtensor_view(self, en):
-        x, out_v = en.inputs[0], en.outputs[0]
-        base, dims = self._index_map(en.op.idx_list, self.get(x).shape)
-        shape = [n for n, _ in dims]
-        if [s for n, s in dims if n > 1] != [s for n, s in zip(shape, _row_major(shape)) if n > 1]:
-            return False
-        self._alias(out_v, x, base)
-        return True
-
-    def _strided_copy(self, en):
-        x, out_v = en.inputs[0], en.outputs[0]
-        xl = self.get(x)
-        if isinstance(en.op, Subtensor):
-            base, dims = self._index_map(en.op.idx_list, xl.shape)
-            strides = [s for _, s in dims]
-        else:
-            st = _row_major(xl.shape)
-            base = 0
-            strides = [0 if o == "x" else st[o] for o in en.op.new_order]
-        out = self._new_slot(out_v)
-        lines = _unravel(out.shape, "i", "o")
-        lines.append(f"{out.at('i')} = {xl.at(str(base) + ' + ' + _offset(strides, 'o'))};")
-        self._std_loop(out, lines, [(x, False)])
-        self.wrote(out_v, _Writer.STD if out.size > 1 else _Writer.T0)
-
-    def _inc_subtensor(self, en):
-        x, y = en.inputs[:2]
-        out_v = en.outputs[0]
-        out = self._new_slot(out_v)
-        shape = out.shape
-        yl = self.get(y)
-        conds, region = [], []  # region: (length, C++ index) per non-int entry
-        d = 0
-        for e in en.op.idx_list:
-            if isinstance(e, (int, np.integer)):
-                conds.append(f"o{d} == {int(e) % shape[d]}")
-            else:
-                _, a, b, c = e
-                start, stop, step = slice(a, b, c).indices(shape[d])
-                n = len(range(start, stop, step))
-                if step > 0:
-                    conds.append(f"o{d} >= {start} && o{d} < {stop}")
-                else:
-                    conds.append(f"o{d} <= {start} && o{d} > {stop}")
-                if step not in (1, -1):
-                    conds.append(f"(o{d} - {start}) % {step} == 0")
-                region.append((n, f"(o{d} - {start}) / {step}" if step != 1 else f"(o{d} - {start})"))
-            d += 1
-        region += [(shape[k], f"o{k}") for k in range(d, len(shape))]
-        ystr = _bcast_strides(yl.shape, [n for n, _ in region])
-        yidx = " + ".join(f"({r}) * {s}" for (_, r), s in zip(region, ystr) if s) or "0"
-        ct = _ctype(out_v.type.dtype)
-        lines = _unravel(shape, "i", "o")
-        lines.append(f"{ct} v = {self.operand(x, 'i', out_v.type.dtype)};")
-        yv = self.operand(y, yidx, out_v.type.dtype)
-        upd = f"v = {yv};" if en.op.set_instead_of_inc else f"v = v + {yv};"
-        lines.append(f"if ({' && '.join(conds) or 'true'}) {upd}")
-        lines.append(f"{out.at('i')} = v;")
-        self._std_loop(out, lines, [(x, True), (y, False)])
-        self.wrote(out_v, _Writer.STD if out.size > 1 else _Writer.T0)
-
-    def _alloc(self, en):
-        value, out_v = en.inputs[0], en.outputs[0]
-        out = self._new_slot(out_v)
-        vl = self.get(value)
-        lines = _unravel(out.shape, "i", "o")
-        idx = _offset(_bcast_strides(vl.shape, out.shape), "o") if vl.size > 1 else "0"
-        lines.append(f"{out.at('i')} = {self.operand(value, idx, out_v.type.dtype)};")
-        self._std_loop(out, lines, [(value, vl.shape == out.shape)])
-        self.wrote(out_v, _Writer.STD if out.size > 1 else _Writer.T0)
 
     def _make_vector(self, en):
         out_v = en.outputs[0]
@@ -856,6 +1602,7 @@ class ScanKernelSource:
         vals = [f"{out.at(j)} = {self.operand(i, '0', out_v.type.dtype)};"
                 for j, i in enumerate(en.inputs)]
         self.body.append("if (tid == 0) { " + " ".join(vals) + " }")
+        self._commit(reads=en.inputs, writes=[out_v])
         self.wrote(out_v, _Writer.T0)
 
 
@@ -866,16 +1613,20 @@ class ScanKernel:
 
     ``__call__(n_steps, *outer)`` takes the Scan node's outer inputs after
     ``n_steps`` and returns its outputs.  On CPU tensors it runs the plain
-    step loop; on CUDA tensors it launches the kernel, or raises.
+    step loop; on CUDA tensors it launches the kernel, or raises.  With
+    ``stamps`` (a measurement variant, never linked into a function) each
+    launch leaves its clock64() stamps in ``stamp_buf``, shaped
+    ``(STAMP_STEPS, len(src.stamp_labels))``.
     """
 
-    def __init__(self, op, node, device):
+    def __init__(self, op, node, device, stamps=False):
         from pytensor_tpu_torch.link.torch.convert import resolve_device
         from pytensor_tpu_torch.link.torch.dispatch import scan_loop
 
         self.op, self.node = op, node
         self.device = resolve_device(device)
-        self.src = ScanKernelSource(op, node)
+        self.src = ScanKernelSource(op, node, stamps=stamps)
+        self.stamp_buf = None
         self.source = self.src.source
         self.loop = scan_loop(op, self.device)
         self._lib = None
@@ -889,7 +1640,8 @@ class ScanKernel:
         from pytensor_tpu_torch.link.cuda.build import build_library
 
         if self._lib is None:
-            lib, self.build_log = build_library(self.source, "scan_k2", verbose=verbose)
+            lib, self.build_log = build_library(self.source, "scan_k2", verbose=verbose,
+                                                flags=K2_NVCC_FLAGS)
             lib.k2_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
             lib.k2_launch.restype = ctypes.c_int
             self._lib = lib
@@ -939,8 +1691,14 @@ class ScanKernel:
 
         outs = ([empty(v, (T,)) for v in src.state_outs] + [empty(v) for v in src.unt_outs]
                 + [empty(v, (T,)) for v in src.nit_outs])
-        scratch = torch.empty(max(src.arena, 16), dtype=torch.uint8, device=self.device)
+        # the arena lives in shared memory unless it did not fit there
+        scratch = torch.empty(src.arena if src.placement == "device" else 16,
+                              dtype=torch.uint8, device=self.device)
         ptrs = [t.data_ptr() for t in ins + outs] + [scratch.data_ptr(), self.consts.data_ptr()]
+        if src.stamps:
+            self.stamp_buf = torch.zeros((STAMP_STEPS, len(src.stamp_labels)), dtype=torch.int64,
+                                         device=self.device)
+            ptrs.append(self.stamp_buf.data_ptr())
         lib = self.build()
         stream = torch.cuda.current_stream(self.device).cuda_stream
         err = lib.k2_launch((ctypes.c_ulonglong * len(ptrs))(*ptrs), T, stream)

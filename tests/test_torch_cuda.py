@@ -12,8 +12,9 @@ Tolerances are chip_smoke.py's: K1 ``1e-5`` (float32) and ``1e-12``
 (float64) of ``max(1, max|plain|)``; K3 after 64 float32 steps ``1e-4``
 of ``max(1, max|plain|)``; the linked float32 graph ``rtol 1e-4`` with
 ``atol 1e-4 * max|dlogp|`` against float64; K2 on the ported scan cases
-``1e-6`` of ``max(1, max|loop|)`` against the step loop, and the radon
-chain after 32 steps at K3's tolerances against K3; K4 per row within
+``1e-6`` of ``max(1, max|loop|)`` against the step loop, its one-hot
+products bit for bit against the step loop, and the radon chain after 32
+steps at K3's tolerances against K3; K4 per row within
 ``4 * D2 * 2**-24 * sum_j |a_ij x_j|``, and the sparse graphs as
 ``tests/test_torch_sparse.py`` holds them.
 """
@@ -198,6 +199,78 @@ def test_k2_leapfrog_chain_matches_k3(card):
     assert scan_kernel.LAUNCHES == before + 1
     for g, w, tol in zip(got, fn3(th, m), (3e-4, 3e-3, 5e-4)):
         assert _scaled(g, w) <= tol
+
+
+@pytest.mark.parametrize("kind", ["finite", "negzero", "inf"])
+@pytest.mark.parametrize("direction", ["gather", "segsum"])
+def test_k2_onehot_dot_matches_loop(card, direction, kind):
+    """A Dot against a one-hot (919, 85) constant, as the radon body holds
+    them, through function() on the card: one K2 launch with its arena and
+    constants in shared memory, the one-hot matrix out of the constants,
+    and the step loop's bits (small integers sum exactly in any order;
+    a -0.0 gives +0.0; an inf gives NaN where it meets a 0)."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+
+    rng = np.random.default_rng(5)
+    C = np.zeros((919, 85), dtype="float32")
+    C[np.arange(919), rng.integers(0, 85, size=919)] = 1.0
+    n = 85 if direction == "gather" else 919
+    v = rng.integers(-8, 9, size=n).astype("float32")
+    if kind == "negzero":
+        v[3] = -0.0
+    elif kind == "inf":
+        v[2] = np.inf
+    v0 = pt.tensor("v0", dtype="float32", shape=(n,))
+    Cv = pt.as_tensor_variable(C)
+
+    def dot(x):
+        return pt.dot(Cv, x) if direction == "gather" else pt.dot(x[None, :], Cv)
+
+    outs = {}
+    for pallas in (False, True):
+        with config.change_flags(scan__pallas=pallas):
+            (tr, y), _ = ptt.scan(lambda x: (x * np.float32(0.5), dot(x)),
+                                  outputs_info=[v0, None], n_steps=3)
+            f = ptt.function([v0], [tr, y], device=card)
+        before = scan_kernel.LAUNCHES
+        outs[pallas] = f(as_torch(v, card))
+        torch.cuda.synchronize()
+        assert scan_kernel.LAUNCHES == before + pallas
+    (node,) = [nd for nd in f.fgraph.apply_nodes if type(nd.op).__name__ == "Scan"]
+    src = scan_kernel.ScanKernelSource(node.op, node)
+    assert src.placement == "shared" and len(src.const_bytes) < C.nbytes
+    for g, w in zip(outs[True], outs[False]):
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(torch.nan_to_num(g, nan=7.0), torch.nan_to_num(w, nan=7.0))
+        assert torch.equal(torch.signbit(g[~g.isnan()]), torch.signbit(w[~w.isnan()]))
+
+
+def test_k2_is_deterministic_and_refuses_more_shared_memory_than_the_card_has(card):
+    """Two launches of the radon body give the same bits; a source whose
+    launch asks for more dynamic shared memory than a block may use comes
+    back as a CUDA error, raised by the wrapper."""
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+    from pytensor_tpu_torch.models.radon import make_leapfrog_chain
+
+    chain = make_leapfrog_chain(n_steps=16, device=card)
+    (node,) = [nd for nd in chain.fgraph.apply_nodes if type(nd.op).__name__ == "Scan"]
+    feed = fgraph_to_torch(FunctionGraph(chain.fgraph.inputs, node.inputs, clone=False), card)
+    fn3, th0, m0, _ = radon_kernel.make_radon_leapfrog_kernel(n_steps=16, device=card)
+    n_steps, *outer = feed(as_torch(th0, card), as_torch(m0, card))
+    k2 = scan_kernel.ScanKernel(node.op, node, card)
+    assert k2.src.placement == "shared"
+    first, again = k2.launch(n_steps.cpu(), *outer), k2.launch(n_steps.cpu(), *outer)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    k2._lib = None
+    k2.source = k2.source.replace(f"#define K2_SMEM {k2.src.smem_bytes}",
+                                  f"#define K2_SMEM {scan_kernel.SMEM_LIMIT + 16}")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k2.launch(n_steps.cpu(), *outer)
 
 
 def _sparse(n, density, seed):
