@@ -5,16 +5,26 @@
 Phases, one line or more each, and any failure raises:
 
 1. device: require CUDA; print the card's name and power limit.
-2. build: build the radon leapfrog kernel (K3), the whole-loop scan
-   kernel (K2) of the leapfrog chain at full width, K2's stamped variant
-   and the CSR matvec kernel (K4) with nvcc, the four compilers started
-   together; print K2's loops, barriers, arena bytes and placement, each
-   build's seconds and the ``-Xptxas -v`` register and spill lines.
+2. build: the fused elementwise kernels (K1) of the four radon graphs in
+   one library, the radon leapfrog kernel (K3), its stamped variant and
+   both again with every county's rows in shared memory, the whole-loop
+   scan kernel (K2) of the leapfrog chain at full width, K2's stamped
+   variant and the CSR matvec kernel (K4), with nvcc, the compilers
+   started together; print K2's loops, barriers, arena bytes, placement
+   and source sha256, each build's seconds and the ``-Xptxas -v``
+   register and spill lines (for K1, a summary of each library's).
 3. K1: every FusedElemwise of the single-chain graph and of the batched
    graph at 1,024 chains, in float32 and float64, launched on the inputs
-   the graph gives it and held against its plain torch version.
+   the graph gives it and held against its plain torch version; each
+   node's input layout classes and wall µs a launch, kernel against
+   plain; per graph call the device and wall times against the bound.
 4. K3: the leapfrog chain at full width (919 observations, 85 counties),
-   1,024 steps, held against its plain torch version.
+   1,024 steps, held against its plain torch version; sha256 digests of
+   its outputs (one chain and 1,024 chains), the same kernel walking every
+   county from shared memory (bit-identical, and its time), and K3's step
+   split by part from the stamped variants (block 0's thread 0's
+   ``clock64()`` after each part of steps 16-31; the stamped launch must
+   give K3's bits).
 5. slice: ``entry("cuda")`` logp and dlogp against a float64 NumPy
    evaluation of the closed form; the batched graph at 1,024 chains; 64
    leapfrog steps through ``leapfrog()``; then one trajectory through K3's
@@ -70,7 +80,9 @@ matvec for K4; none exists for K1-K3).  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -81,8 +93,9 @@ import numpy as np
 N_OBS, N_COUNTIES, N_CHAINS = 919, 85, 1024
 K3_STEPS, LEAPFROG_STEPS, EPS = 1024, 64, 1e-3
 # K1 vs its plain version, relative to the output's magnitude: the kernel
-# and torch round the same IEEE operations, but Triton may contract a*b+c
-# into one FMA and libdevice's exp/log differ from torch's by an ulp or two
+# and torch round the same IEEE operations (K1 is built with -fmad=false),
+# but an n-ary add may associate differently and a math function may
+# differ from torch's by an ulp
 K1_RTOL = {"float32": 1e-5, "float64": 1e-12}
 # K3 vs its plain version after 1,024 float32 steps, over max(1, max|ref|):
 # the two sum in different orders and the trajectory carries the rounding
@@ -91,6 +104,8 @@ K1_RTOL = {"float32": 1e-5, "float64": 1e-12}
 # 6.0e-4 / 1.6e-4 from the float64 one); the kernel is held to both at
 # 3-5x those readings
 K3_RTOL = {"theta": 3e-4, "m": 3e-3, "logp": 5e-4}
+# K3 built to walk every county's rows from shared memory, not registers
+K3_SHARED_WALK = ("-DK3_ROW_CAP=0",)
 # the linked float32 graph vs the float64 closed form: sums of 919 float32
 # terms; atol scaled to max|dlogp| because some entries are near zero
 SLICE_RTOL, SLICE_ATOL = 1e-4, 1e-4
@@ -275,6 +290,50 @@ def k2_stamp_breakdown(kern, k2_ms, plain_outs, n_steps, outer):
         say(f"    {per_op[k - 1]:8.0f}  {labels[k][0]:14s} lines {first}-{at[k]}  {labels[k][1]}")
 
 
+def digest(*tensors):
+    """sha256 of the tensors' bytes, in order: the same bits give the same
+    digest."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k3_stamp_breakdown(data, th0, m0, want, k3_ms, tag="K3", flags=()):
+    """K3's step split by part, from the stamped variant (of the build that
+    ``flags`` pick): block 0's thread 0 records clock64() after each part of
+    steps STAMP_FROM.. of the 1,024-step chain.  The stamps change no
+    arithmetic, so the stamped launch must give K3's bits."""
+    import torch
+    from pytensor_tpu_torch.models import radon_kernel
+
+    labels = radon_kernel.stamp_labels()
+    buf = torch.zeros((radon_kernel.STAMP_STEPS, len(labels)), dtype=torch.int64,
+                      device=th0.device)
+
+    def run():
+        return radon_kernel.leapfrog_launch(th0, m0, data, K3_STEPS, EPS, stamps=buf,
+                                            flags=flags)
+
+    got = run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"the stamped {tag} differs from K3")
+    stamped_ms = wall_ms(run, 5)
+    cyc = buf.cpu().numpy().astype("float64")
+    if not (np.all(cyc > 0) and np.all(np.diff(cyc, axis=1) >= 0)):
+        raise AssertionError("K3's stamps are missing or out of order")
+    step = float(np.diff(cyc[:, 0]).mean())
+    parts = np.diff(cyc, axis=1).mean(axis=0)
+    rest = step - float(parts.sum())
+    say(f"{tag} stamps (block 0's thread 0, clock64(), steps {radon_kernel.STAMP_FROM}-"
+        f"{radon_kernel.STAMP_FROM + radon_kernel.STAMP_STEPS - 1} of {K3_STEPS}): "
+        f"{step:.0f} cycles a step; the stamped launch {stamped_ms / K3_STEPS * 1e3:.3f} us/step "
+        f"wall, K3 {k3_ms / K3_STEPS * 1e3:.3f} us/step device; bit-identical to K3")
+    for label, c in zip(labels[1:] + ["to the next step"], list(parts) + [rest]):
+        say(f"  {label:28s} {c:8.0f} cycles/step {c / step:6.3f} of the step")
+
+
 def main():
     import torch
 
@@ -332,27 +391,12 @@ def main():
         f"{src.arena} bytes, placement {src.placement}; constants {len(src.const_bytes)} bytes, "
         f"{src.smem_const_bytes} of them in shared memory; {src.smem_bytes} bytes of dynamic "
         f"shared memory; graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
+    say(f"K2 source sha256 {hashlib.sha256(src.source.encode()).hexdigest()} "
+        f"({len(src.source)} bytes)")
 
-    def timed(fn):
-        t = time.perf_counter()
-        fn()
-        return time.perf_counter() - t
-
-    with ThreadPoolExecutor(4) as pool:
-        jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
-                "K2": pool.submit(timed, lambda: k2.build(verbose=True)),
-                "K2 stamped": pool.submit(timed, lambda: k2_stamped.build(verbose=True)),
-                "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True))}
-        build_s = {tag: job.result() for tag, job in jobs.items()}
-    for tag, log in (("K3", radon_kernel.BUILD_LOG), ("K2", k2.build_log),
-                     ("K2 stamped", k2_stamped.build_log), ("K4", spmv_kernel.BUILD_LOG)):
-        say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
-        for line in log.splitlines():
-            if "ptxas info" in line and "registers" in line or "bytes stack frame" in line:
-                say(f"  {tag} ptxas:", line.strip())
-
-    # the graphs of the slice, linked for the card
-    def linked(dtype, batched):
+    # the graphs of the slice, rewritten once; their K1 kernels are built
+    # below, with the other kernels, and linked for the card where used
+    def rewritten(dtype, batched):
         if batched:
             theta, logp, dlogp, n = make_radon_logp_batched(N_OBS, N_COUNTIES, dtype)
             inputs, outputs = [theta], [logp, dlogp]
@@ -360,7 +404,62 @@ def main():
             inputs, outputs, n = make_radon_graphs(N_OBS, N_COUNTIES, dtype)
         fg = FunctionGraph(inputs, outputs, clone=True)
         FAST_RUN.optimizer.rewrite(fg)
+        return fg, n
+
+    graphs = {(dtype, batched): rewritten(dtype, batched)
+              for dtype in ("float32", "float64") for batched in (False, True)}
+    # the K1 kernels of each graph, one library a graph as linking builds it
+    k1_kernels = {key: [fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+                        for nd in fg.toposort() if isinstance(nd.op, FusedElemwise)]
+                  for key, (fg, _) in graphs.items()}
+
+    def linked(dtype, batched):
+        fg, n = graphs[dtype, batched]
         return fg, fgraph_to_torch(fg, dev), n
+
+    def timed(fn):
+        t = time.perf_counter()
+        fn()
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(11) as pool:
+        k1_jobs = [pool.submit(fused_kernel.build, kerns, verbose=True)
+                   for kerns in k1_kernels.values()]
+        jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
+                "K3 stamped": pool.submit(timed, lambda: radon_kernel.build(
+                    verbose=True, flags=radon_kernel.STAMPED)),
+                "K3, rows in shared memory": pool.submit(timed, lambda: radon_kernel.build(
+                    verbose=True, flags=K3_SHARED_WALK)),
+                "K3 stamped, rows in shared memory": pool.submit(timed, lambda: radon_kernel.build(
+                    verbose=True, flags=radon_kernel.STAMPED + K3_SHARED_WALK)),
+                "K2": pool.submit(timed, lambda: k2.build(verbose=True)),
+                "K2 stamped": pool.submit(timed, lambda: k2_stamped.build(verbose=True)),
+                "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True))}
+        build_s = {tag: job.result() for tag, job in jobs.items()}
+        for job in k1_jobs:
+            job.result()
+    logs = {"K3": radon_kernel.BUILD_LOGS[()],
+            "K3 stamped": radon_kernel.BUILD_LOGS[radon_kernel.STAMPED],
+            "K3, rows in shared memory": radon_kernel.BUILD_LOGS[K3_SHARED_WALK],
+            "K3 stamped, rows in shared memory":
+                radon_kernel.BUILD_LOGS[radon_kernel.STAMPED + K3_SHARED_WALK],
+            "K2": k2.build_log, "K2 stamped": k2_stamped.build_log, "K4": spmv_kernel.BUILD_LOG}
+    for tag, log in logs.items():
+        say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
+        for line in log.splitlines():
+            if "ptxas info" in line and "registers" in line or "bytes stack frame" in line:
+                say(f"  {tag} ptxas:", line.strip())
+    # K1: one library for the kernels of a linked function that no library
+    # holds yet; the chain's were built when phase 2 linked it, each slice
+    # graph's in the pool above
+    for count, secs, log in fused_kernel.BUILDS:
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log))
+        frames = [int(b) for b in re.findall(r"(\d+) bytes stack frame", log)]
+        report = (f"; ptxas: {len(regs)} functions, {min(regs)}-{max(regs)} registers, stack "
+                  f"frames up to {max(frames, default=0)} bytes, {spills} bytes of spill stores, "
+                  f"no shared memory" if regs else "")
+        say(f"build: K1 nvcc sm_90a, {count} kernels in one library in {secs:.2f} s{report}")
 
     def start_point(n, dtype, chains=None, seed=1):
         rng = np.random.default_rng(seed)
@@ -384,7 +483,7 @@ def main():
             tag = f"{dtype} {'batched x%d' % N_CHAINS if batched else 'single'}"
             worst, worst_abs, ms, plain_ms = 0.0, 0.0, 0.0, 0.0
             work_bytes, work_ops = 0, 0
-            jobs = []
+            jobs, classes = [], set()
             for nd in nodes:
                 args = [next(values) for _ in nd.inputs]
                 kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
@@ -392,7 +491,9 @@ def main():
                 # each input and constant read once, each output written
                 # once; one operation per inner op and element
                 work_bytes += nbytes(*args, *kern.const_tensors, *got)
-                work_ops += len(kern.order) * int(np.prod(kern._layout(kern._args(args))[0]))
+                lay = kern._layout(kern._args(args))
+                work_ops += len(kern.order) * lay.n
+                classes.update(lay.classes[0])
                 want = kern.plain(*args)
                 torch.cuda.synchronize()
                 pairs = [errors(g.cpu(), w.cpu()) for g, w in zip(got, want)]
@@ -403,21 +504,28 @@ def main():
                 node_ms = wall_ms(lambda: kern.launch(*args), 50)
                 node_plain = wall_ms(lambda: kern.plain(*args), 50)
                 say(f"  K1 {tag} {str(nd.op)[:70]:70s} out {tuple(got[0].shape)} "
-                    f"err {err:.2e} wall: kernel {node_ms:.4f} ms plain {node_plain:.4f} ms")
+                    f"classes {lay.classes[0]} err {err:.2e} wall: kernel {node_ms * 1e3:.1f} us "
+                    f"plain {node_plain * 1e3:.1f} us")
                 worst = max(worst, err)
                 ms += node_ms
                 plain_ms += node_plain
                 jobs.append((kern, args))
             dev_ms, _ = device_ms(lambda: [k.launch(*a) for k, a in jobs], 20)
             dev_plain, _ = device_ms(lambda: [k.plain(*a) for k, a in jobs], 20)
+            b_ms, b_by = bound(work_bytes, work_ops)
+            names = {fused_kernel.CONTIG: "contiguous", fused_kernel.SCALAR: "0-d",
+                     fused_kernel.STRIDED: "strided"}
             say(f"K1 {tag}: {len(nodes)} fused nodes, max rel err {worst:.3e} "
-                f"(tol {K1_RTOL[dtype]:g}); per graph call, device: kernels {dev_ms:.4f} ms, "
-                f"plain {dev_plain:.4f} ms; wall: kernels {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                f"(tol {K1_RTOL[dtype]:g}); input classes {sorted(names[c] for c in classes)}; "
+                f"per graph call, device: kernels {dev_ms:.4f} ms, plain {dev_plain:.4f} ms, "
+                f"bound {b_ms * 1e3:.4f} us ({b_by}); wall: kernels {ms:.4f} ms "
+                f"({ms / len(nodes) * 1e3:.1f} us a launch), plain {plain_ms:.4f} ms "
+                f"({plain_ms / len(nodes) * 1e3:.1f} us a launch)")
             if dtype == "float32" and not batched:
                 k1.update(ms=dev_ms, plain_ms=dev_plain, wall_ms=ms, plain_wall_ms=plain_ms)
-                k1["bound_ms"], k1["bound_by"] = bound(work_bytes, work_ops)
+                k1["bound_ms"], k1["bound_by"] = b_ms, b_by
             k1["max_abs_err"] = max(k1["max_abs_err"], worst_abs)
-    say(f"K1 phase done in {time.perf_counter() - t0:.1f} s (Triton builds included)")
+    say(f"K1 phase done in {time.perf_counter() - t0:.1f} s")
 
     # 4. K3 -----------------------------------------------------------------
     fn3, th0, m0, _ = radon_kernel.make_radon_leapfrog_kernel(
@@ -451,6 +559,16 @@ def main():
     m0_c = as_torch(np.tile(m0, (N_CHAINS, 1)), dev)
     k3_chains_ms, _ = device_ms(lambda: radon_kernel.leapfrog_launch(
         th0_c, m0_c, fn3.data, K3_STEPS, EPS), 5)
+    # K3's bits: digests of its outputs, one chain and 1,024 chains from
+    # seeded starts, to compare with other builds of K3 on any card
+    rng_d = np.random.default_rng(4)
+    th_d = as_torch((np.tile(th0, (N_CHAINS, 1))
+                     + 0.1 * rng_d.standard_normal((N_CHAINS, th0.size))).astype("float32"), dev)
+    m_d = as_torch(rng_d.standard_normal((N_CHAINS, th0.size)).astype("float32"), dev)
+    many = radon_kernel.leapfrog_launch(th_d, m_d, fn3.data, K3_STEPS, EPS)
+    torch.cuda.synchronize()
+    say(f"K3 digests, sha256 of theta, m, logp after {K3_STEPS} steps: one chain "
+        f"{digest(*got)}, {N_CHAINS} chains {digest(*many)}")
     # K3's work: per gradient ~10 operations an observation (residual,
     # scale, segment sum, two products summed), ~8 a county and, per step,
     # ~6 a parameter for the two kicks and the drift; 1,025 gradients
@@ -466,6 +584,21 @@ def main():
         f"device: kernel {k3_ms:.4f} ms ({k3_ms / K3_STEPS * 1e3:.3f} us/step), "
         f"plain {k3_plain_ms:.2f} ms, {N_CHAINS} chains in one launch {k3_chains_ms:.4f} ms; "
         f"wall: kernel {k3_wall:.4f} ms, plain {k3_plain_wall:.2f} ms")
+    # the rows in registers against the same kernel walking shared memory
+    shared = radon_kernel.leapfrog_launch(th0_d, m0_d, fn3.data, K3_STEPS, EPS,
+                                          flags=K3_SHARED_WALK)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(shared, got)):
+        raise AssertionError("K3 walking shared memory differs from K3")
+    k3_shared_ms, _ = device_ms(lambda: radon_kernel.leapfrog_launch(
+        th0_d, m0_d, fn3.data, K3_STEPS, EPS, flags=K3_SHARED_WALK), 5)
+    say(f"K3 threads a block {radon_kernel.build().radon_leapfrog_threads(N_COUNTIES)}, largest "
+        f"county {fn3.data.max_rows} rows; the same kernel walking every county from shared "
+        f"memory: device {k3_shared_ms:.4f} ms ({k3_shared_ms / K3_STEPS * 1e3:.3f} us/step), "
+        f"bit-identical")
+    k3_stamp_breakdown(fn3.data, th0_d, m0_d, got, k3_ms)
+    k3_stamp_breakdown(fn3.data, th0_d, m0_d, got, k3_shared_ms,
+                       "K3 with rows in shared memory", K3_SHARED_WALK)
 
     # 5. slice --------------------------------------------------------------
     fn, (theta0,) = entry("cuda")
@@ -821,7 +954,7 @@ def main():
         say(f"  {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
 
     kernels = [
-        {"name": "fused_elemwise (K1)", "route": "triton",
+        {"name": "fused_elemwise (K1)", "route": "cuda",
          "source": "pytensor_tpu_torch/tensor/fused_kernel.py",
          "replaces": "pytensor_tpu/tensor/fused.py:33",
          "launches": launches["fused_elemwise"], "max_abs_err": k1["max_abs_err"],

@@ -1,6 +1,6 @@
 """Build a CUDA source into a shared library with nvcc, and load it.
 
-The route of the port's CUDA kernels (K2, K3): ``nvcc -gencode
+The route of the port's CUDA kernels (K1-K4): ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into
 ``build/kernels/`` (listed in ``.gitignore``), keyed by a hash of the
 source and the flags, then loaded with ``ctypes``.  No fast-math flags.

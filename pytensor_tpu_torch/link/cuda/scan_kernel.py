@@ -62,8 +62,8 @@ what it can about each:
   reads a value written since the last barrier by another thread; ready
   block reductions share one.
 - **Ops.** ``Elemwise`` is one C++ expression per scalar op (the table
-  beside K1's ``_EMIT``), broadcast by strides, ``expf``/``exp`` by dtype
-  and IEEE division.  ``CAReduce`` (sum, product, max) and the plain
+  of ``link/cuda/cexpr.py``, shared with K1), broadcast by strides,
+  ``expf``/``exp`` by dtype and IEEE division.  ``CAReduce`` (sum, product, max) and the plain
   ``Dot`` take one thread per output element, or one warp per output
   element with a fixed shuffle tree when the reduced length is long
   against the number of outputs; a full reduction is a block reduction,
@@ -96,6 +96,7 @@ import numpy as np
 import torch
 
 from pytensor_tpu_torch.graph.basic import Constant
+from pytensor_tpu_torch.link.cuda.cexpr import CEXPR, MAX_SOURCE, ctype, literal
 from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from pytensor_tpu_torch.tensor.fused import FusedElemwise
@@ -119,45 +120,6 @@ LAUNCHES = 0
 _OK_DTYPES = ("float32", "bool", "int8", "int16", "int32", "int64",
               "uint8", "uint16", "uint32")
 
-_CTYPES = {
-    "float32": "float", "float64": "double", "bool": "bool",
-    "int8": "signed char", "int16": "short", "int32": "int", "int64": "long long",
-    "uint8": "unsigned char", "uint16": "unsigned short", "uint32": "unsigned int",
-}
-
-
-def _fn(f32, f64):
-    return lambda a, t: f"{f32 if t == 'float32' else f64}({a[0]})"
-
-
-# scalar op name -> C++ expression over operands already cast to the
-# compute dtype ``t`` (beside K1's ``_EMIT`` in tensor/fused_kernel.py)
-_CEXPR = {
-    "add": lambda a, t: "(" + " + ".join(a) + ")",
-    "mul": lambda a, t: "(" + " * ".join(a) + ")",
-    "sub": lambda a, t: f"({a[0]} - {a[1]})",
-    "neg": lambda a, t: f"(-{a[0]})",
-    # fabs clears the sign of -0.0, as numpy's abs does
-    "abs": lambda a, t: (f"{'fabsf' if t == 'float32' else 'fabs'}({a[0]})"
-                         if t in ("float32", "float64") else f"({a[0]} < 0 ? -{a[0]} : {a[0]})"),
-    "sqr": lambda a, t: f"({a[0]} * {a[0]})",
-    "true_div": lambda a, t: f"({a[0]} / {a[1]})",
-    "reciprocal": lambda a, t: f"(({_CTYPES[t]})1 / {a[0]})",
-    "pow": lambda a, t: (f"k2_ipow({a[0]}, {a[1]})" if t not in ("float32", "float64")
-                         else f"{'powf' if t == 'float32' else 'pow'}({a[0]}, {a[1]})"),
-    "exp": _fn("expf", "exp"),
-    "log": _fn("logf", "log"),
-    "sqrt": _fn("sqrtf", "sqrt"),
-    "sin": _fn("sinf", "sin"),
-    "cos": _fn("cosf", "cos"),
-    "tanh": _fn("tanhf", "tanh"),
-    "sigmoid": lambda a, t: (f"(({_CTYPES[t]})1 / (({_CTYPES[t]})1 + "
-                             f"{'expf' if t == 'float32' else 'exp'}(-{a[0]})))"),
-    "maximum": lambda a, t: f"k2_max({a[0]}, {a[1]})",
-    "lt": lambda a, t: f"({a[0]} < {a[1]})",
-    "ge": lambda a, t: f"({a[0]} >= {a[1]})",
-    "second": lambda a, t: a[1],
-}
 _FLOAT_ONLY = frozenset({"true_div", "reciprocal", "exp", "log", "sqrt", "sin", "cos",
                          "tanh", "sigmoid"})
 
@@ -193,11 +155,7 @@ template <typename T> __device__ __forceinline__ T k2_warp_mul(T v) {
   for (int o = 16; o > 0; o >>= 1) v *= __shfl_down_sync(0xffffffffu, v, o);
   return v;
 }
-// numpy's maximum: NaN in either operand gives NaN
-template <typename T> __device__ __forceinline__ T k2_max(T a, T b) {
-  return (a > b || a != a) ? a : b;
-}
-template <typename T> __device__ __forceinline__ T k2_warp_max(T v) {
+""" + MAX_SOURCE + r"""template <typename T> __device__ __forceinline__ T k2_warp_max(T v) {
   for (int o = 16; o > 0; o >>= 1) v = k2_max(v, __shfl_down_sync(0xffffffffu, v, o));
   return v;
 }
@@ -209,34 +167,13 @@ template <typename T> __device__ __forceinline__ T k2_ipow(T a, T b) {
 """
 
 
-def _ctype(dtype):
-    return _CTYPES[str(dtype)]
-
-
 def _acc_ctype(dtype):
     """The accumulator's C type: warp shuffles take 32 and 64-bit values."""
     if dtype in ("bool", "int8", "int16"):
         return "int"
     if dtype in ("uint8", "uint16"):
         return "unsigned int"
-    return _ctype(dtype)
-
-
-def _literal(value, dtype) -> str:
-    """An exact C++ literal of ``value`` in ``dtype``."""
-    v = np.asarray(value).astype(dtype).item()
-    if dtype == "bool":
-        return "true" if v else "false"
-    if dtype in ("float32", "float64"):
-        ct = _ctype(dtype)
-        if math.isnan(v):
-            return f"(({ct})NAN)"
-        if math.isinf(v):
-            return f"(({ct})INFINITY)" if v > 0 else f"(-({ct})INFINITY)"
-        return float.hex(float(v)) + ("f" if dtype == "float32" else "")
-    if v == -(2 ** 63):
-        return "(-9223372036854775807LL - 1)"
-    return f"(({_ctype(dtype)}){int(v)}LL)"
+    return ctype(dtype)
 
 
 def _size(shape):
@@ -294,7 +231,7 @@ def emittable(node) -> bool:
         name = op.scalar_op.name
         if name.startswith("cast{"):
             return True
-        if name not in _CEXPR:
+        if name not in CEXPR:
             return False
         return name not in _FLOAT_ONLY or node.outputs[0].type.dtype.startswith("float")
     if isinstance(op, CAReduce):
@@ -370,7 +307,7 @@ class _Loc:
 
     def at(self, idx):
         if self.const is not None:
-            return _literal(self.const, self.dtype)
+            return literal(self.const, self.dtype)
         return f"{self.root}[{self.off} + {idx}]" if self.off else f"{self.root}[{idx}]"
 
 
@@ -501,7 +438,7 @@ class ScanKernelSource:
 
     # --- slots and constants --------------------------------------------------
     def _slot(self, name, dtype, n, pinned=False):
-        self.slots[name] = (_ctype(dtype), _align(max(n, 1) * np.dtype(dtype).itemsize))
+        self.slots[name] = (ctype(dtype), _align(max(n, 1) * np.dtype(dtype).itemsize))
         if pinned:
             self.pinned.append(name)
         return name
@@ -510,7 +447,7 @@ class ScanKernelSource:
         """A constant array in the constants buffer (once for equal
         contents); returns its name."""
         data = np.ascontiguousarray(data)
-        ct = _ctype(str(data.dtype))
+        ct = ctype(str(data.dtype))
         raw = data.tobytes()
         raw += b"\0" * ((-len(raw)) % 16)
         for name, ct2, raw2 in self.consts:
@@ -546,10 +483,10 @@ class ScanKernelSource:
         run, a register where ``ident`` and ``v`` is the run's own."""
         loc = self.get(v)
         if loc.const is not None:
-            return f"(({_ctype(dtype)}){_literal(loc.const, loc.dtype)})"
+            return f"(({ctype(dtype)}){literal(loc.const, loc.dtype)})"
         reg = self.regs.get(loc.root) if ident and loc.off == 0 else None
         expr = reg[0] if reg is not None and reg[1] == loc.size else loc.at(idx)
-        return expr if loc.dtype == dtype else f"(({_ctype(dtype)}){expr})"
+        return expr if loc.dtype == dtype else f"(({ctype(dtype)}){expr})"
 
     def _commit(self, reads=(), writes=()):
         """Record the arena slots one emitted loop reads and writes."""
@@ -614,7 +551,7 @@ class ScanKernelSource:
         self.args = []  # (field, ctype, const) in launch order
 
         def arg(field, dtype, const):
-            self.args.append((field, _ctype(dtype), const))
+            self.args.append((field, ctype(dtype), const))
             return f"a.{field}"
 
         seq_args = [arg(f"seq{k}", v.type.dtype, True) for k, v in enumerate(self.seq_vars)]
@@ -670,7 +607,7 @@ class ScanKernelSource:
             n = _size(out.type.shape)
             dt = carried[k].type.dtype
             val = self.operand(out, "i", dt)
-            line = f"for (int i = tid; i < {n}; i += K2_THREADS) {{ const {_ctype(dt)} x = {val}; st{k}_nx[i] = x;"
+            line = f"for (int i = tid; i < {n}; i += K2_THREADS) {{ const {ctype(dt)} x = {val}; st{k}_nx[i] = x;"
             if k < info.n_states:
                 line += f" {trace_args[k]}[t * {n} + i] = x;"
             self.body.append(line + " }")
@@ -690,7 +627,7 @@ class ScanKernelSource:
             if name in offs:
                 self.decl.append(f"{ct}* {name} = ({ct}*)(k2_arena + {offs[name]});")
         for j, v in enumerate(self.nonseq_vars):
-            ct = _ctype(v.type.dtype)
+            ct = ctype(v.type.dtype)
             at = (f"(const {ct}*)(k2_smem + {self.smem_ns[j]})" if j in self.smem_ns
                   else f"a.ns{j}")
             self.decl.append(f"const {ct}* ns{j} = {at};")
@@ -719,7 +656,7 @@ class ScanKernelSource:
         lines += ["  " + d for d in self.decl]
         for j, off in self.smem_ns.items():
             v = self.nonseq_vars[j]
-            ct = _ctype(v.type.dtype)
+            ct = ctype(v.type.dtype)
             lines.append(f"  for (int i = tid; i < {_size(v.type.shape)}; i += K2_THREADS) "
                          f"(({ct}*)(k2_smem + {off}))[i] = a.ns{j}[i];")
         if self.smem_const_bytes:
@@ -729,12 +666,12 @@ class ScanKernelSource:
         lines += ["  __syncthreads();", "  for (long long t = 0; t < a.T; ++t) {"]
         for k, v in enumerate(carried):
             n = _size(v.type.shape)
-            ct = _ctype(v.type.dtype)
+            ct = ctype(v.type.dtype)
             lines.append(f"    {ct}* st{k} = {bufs[k]} + (t & 1) * {n};")
             lines.append(f"    {ct}* st{k}_nx = {bufs[k]} + ((t + 1) & 1) * {n};")
         for k, v in enumerate(self.seq_vars):
             n = _size(v.type.shape)
-            lines.append(f"    const {_ctype(v.type.dtype)}* q{k} = {seq_args[k]} + t * {n};")
+            lines.append(f"    const {ctype(v.type.dtype)}* q{k} = {seq_args[k]} + t * {n};")
         if self.stamps:
             lines.append("    K2_STAMP(0);")
         lines += ["    " + b for b in step_body]
@@ -1060,7 +997,7 @@ class ScanKernelSource:
         groups: dict = {}
         for k, u in enumerate(run.units):
             r = f"r{k}"
-            ct = _ctype(u.out.type.dtype)
+            ct = ctype(u.out.type.dtype)
             lines = groups.setdefault(thread.get(u, 0), [])
             lines += [f"{ct} {r};", "{"] + ["  " + s for s in u.code(r, k, flag)] + ["}"]
             loc = self.get(u.out)
@@ -1157,8 +1094,8 @@ class ScanKernelSource:
             if name.startswith("cast{"):
                 expr = f"({args[0]} != 0)" if out_dt == "bool" else args[0]
             else:
-                expr = _CEXPR[name](args, comp[0])
-            return lines + [f"{r} = ({_ctype(out_dt)})({expr});"]
+                expr = CEXPR[name](args, comp[0])
+            return lines + [f"{r} = ({ctype(out_dt)})({expr});"]
 
         reads = [(i, "reg" if ident(loc) else "gen") for i, _, loc in ins if loc.const is None]
         return _Unit(pos, out_v, reads, code, "elemwise_0d" if n == 1 else "elemwise_vec")
@@ -1345,7 +1282,7 @@ class ScanKernelSource:
         ``0 * inf`` makes it NaN, and so does the guard here."""
         out_v, v = en.outputs[0], plan.v
         self._new_slot(out_v)
-        ct = _ctype(out_v.type.dtype)
+        ct = ctype(out_v.type.dtype)
         tab = self._onehot_tables(plan)
         B, P = plan.B, plan.P
         p_of, b_of = ((f"i / {B}", f"i % {B}") if plan.side == "left"
@@ -1378,7 +1315,7 @@ class ScanKernelSource:
         guard of ``_onehot_unit``.  Lane 0 writes the element."""
         out_v, v = en.outputs[0], plan.v
         out = self._new_slot(out_v)
-        ct = _ctype(out_v.type.dtype)
+        ct = ctype(out_v.type.dtype)
         tab = self._onehot_tables(plan)
         flag = None
         if v.type.dtype.startswith("float"):
@@ -1464,13 +1401,13 @@ class ScanKernelSource:
             acc = _acc_ctype(acc_dt)
             ident_of, combine, warp_fn = _REDUCE[en.op.scalar_op.name]
             red = f"(({acc}*)k2_red[{base + k}])"
-            head += [f"  {acc} p{k} = {_literal(ident_of(acc_dt), acc_dt)};",
+            head += [f"  {acc} p{k} = {literal(ident_of(acc_dt), acc_dt)};",
                      f"  for (int j = tid; j < {xl.size}; j += K2_THREADS) "
                      f"p{k} = {combine(f'p{k}', f'({acc})' + xl.at('j'))};",
                      f"  p{k} = {warp_fn}(p{k});",
                      f"  if ((tid & 31) == 0) {red}[tid >> 5] = p{k};"]
             tail.append(f"    {{ {acc} q = {red}[tid]; q = {warp_fn}(q); "
-                        f"if (tid == 0) {out.at(0)} = ({_ctype(out_v.type.dtype)})q; }}")
+                        f"if (tid == 0) {out.at(0)} = ({ctype(out_v.type.dtype)})q; }}")
         if guard is not None:
             gl = self.get(guard)
             head.append(f"  for (int j = tid; j < {gl.size}; j += K2_THREADS) "
@@ -1505,9 +1442,9 @@ class ScanKernelSource:
         acc_dt = op.acc_dtype or out_v.type.dtype
         acc = _acc_ctype(acc_dt)
         ident_of, combine, warp_fn = _REDUCE[op.scalar_op.name]
-        ident = _literal(ident_of(acc_dt), acc_dt)
+        ident = literal(ident_of(acc_dt), acc_dt)
         st = _row_major(shape)
-        out_ct = _ctype(out_v.type.dtype)
+        out_ct = ctype(out_v.type.dtype)
         kept_shape = [shape[d] for d in kept]
         red_shape = [shape[d] for d in red]
         base = _offset([st[d] for d in kept], "k")
@@ -1550,7 +1487,7 @@ class ScanKernelSource:
         xl, yl = self.get(x), self.get(y)
         K = xl.shape[-1]
         O = out.size
-        ct = _ctype(out_v.type.dtype)
+        ct = ctype(out_v.type.dtype)
         if len(xl.shape) == 2 and len(yl.shape) == 1:
             xb, yb, ys = f"o * {K}", "0", 1
         elif len(xl.shape) == 1 and len(yl.shape) == 2:

@@ -5,7 +5,9 @@ Where the JAX package traces the graph once into one jitted executable,
 the port runs each node's torch lowering in topological order, eagerly,
 on an explicit device.  Fused elementwise chains and, with
 ``config.scan__pallas``, eligible scans are hand-written kernels;
-everything else is a torch op.
+everything else is a torch op.  For a CUDA device the fused elementwise
+kernels (K1) of the whole graph are built when it is linked, in one nvcc
+call (``tensor/fused_kernel.py build``).
 
 Graph constants move to the device once, at link time, with their dtype
 kept; a sparse constant (a scipy matrix) becomes its canonical CSR triple
@@ -33,6 +35,7 @@ from pytensor_tpu_torch.link.torch.convert import (
 from pytensor_tpu_torch.link.torch.dispatch import torch_funcify
 from pytensor_tpu_torch.scan.op import Scan
 from pytensor_tpu_torch.sparse.type import SparseTensorType
+from pytensor_tpu_torch.tensor import fused_kernel
 from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape
@@ -93,6 +96,10 @@ def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False):
                 if isinstance(i, Constant) else ("var", i)
                 for k, i in enumerate(node.inputs)]
         plan.append((fn, node, args))
+    if device.type == "cuda":
+        kernels = [fn for fn, _, _ in plan if isinstance(fn, fused_kernel.FusedElemwiseKernel)]
+        if kernels:
+            fused_kernel.build(kernels)
 
     inputs = list(fgraph.inputs)
     outputs = [("const", const_value(o, device)) if isinstance(o, Constant) else ("var", o)

@@ -30,29 +30,51 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "radon_leapfrog.cu"
 # launches of the kernel since the count was last set to 0
 LAUNCHES = 0
 
-_LIB = None
-BUILD_LOG = ""
+# the steps whose clock64() stamps the stamped variant records
+# (K3_STAMP_FROM, K3_STAMP_STEPS in the source)
+STAMP_FROM, STAMP_STEPS = 16, 16
+
+# the nvcc flags of the stamped variant
+STAMPED = ("-DK3_STAMPS",)
+
+_LIBS: dict = {}
+# the compiler's output of each build, by its extra nvcc flags
+BUILD_LOGS: dict = {}
 
 
-def build(verbose: bool = False) -> ctypes.CDLL:
-    """Compile (once per source hash) and load the K3 shared library.
+def build(verbose: bool = False, flags=()) -> ctypes.CDLL:
+    """Compile (once per source hash and flags) and load the K3 library.
 
+    ``flags`` are added to nvcc's: ``STAMPED`` builds the measurement
+    variant, whose thread 0 records ``clock64()`` after each part of a
+    step; ``-DK3_ROW_CAP=0`` keeps every county's rows in shared memory.
     With ``verbose`` the compiler's register and shared-memory report
-    (``-Xptxas -v``) is kept in ``BUILD_LOG``.
+    (``-Xptxas -v``) is kept in ``BUILD_LOGS[flags]``.
     """
     from pytensor_tpu_torch.link.cuda.build import build_library
 
-    global _LIB, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
-    lib, BUILD_LOG = build_library(SOURCE.read_text(), "radon_leapfrog", SOURCE, verbose)
+    flags = tuple(flags)
+    lib = _LIBS.get(flags)
+    if lib is not None:
+        return lib
+    lib, BUILD_LOGS[flags] = build_library(SOURCE.read_text(), "radon_leapfrog", SOURCE,
+                                           verbose, flags=flags)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.radon_leapfrog.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    lib.radon_leapfrog.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i,
+                                   p, p]
     lib.radon_leapfrog.restype = i
     lib.radon_leapfrog_smem_bytes.argtypes = [i, i]
     lib.radon_leapfrog_smem_bytes.restype = ctypes.c_size_t
-    _LIB = lib
+    lib.radon_leapfrog_threads.argtypes = [i]
+    lib.radon_leapfrog_threads.restype = i
+    lib.radon_leapfrog_stamp_labels.restype = ctypes.c_char_p
+    _LIBS[flags] = lib
     return lib
+
+
+def stamp_labels() -> list[str]:
+    """The stamped variant's stamps of a step, in order; stamp 0 opens it."""
+    return build(flags=STAMPED).radon_leapfrog_stamp_labels().decode().split("|")
 
 
 def csr_layout(county, floor, y, n_counties):
@@ -74,6 +96,7 @@ class RadonData:
     floor_sorted: torch.Tensor  # float32, sorted by county (kernel)
     y_sorted: torch.Tensor
     county_ptr: torch.Tensor    # int32 CSR offsets, n_counties + 1
+    max_rows: int               # the largest county's count of observations
 
     @property
     def n_counties(self):
@@ -84,12 +107,16 @@ class RadonData:
         from pytensor_tpu_torch.link.torch.convert import as_torch
 
         floor_s, y_s, ptr = csr_layout(county, floor, y, n_counties)
-        return cls(*(as_torch(v, device) for v in (county, floor, y, floor_s, y_s, ptr)))
+        return cls(*(as_torch(v, device) for v in (county, floor, y, floor_s, y_s, ptr)),
+                   int(np.diff(ptr).max(initial=0)))
 
 
-def leapfrog_launch(theta, m, data, n_steps, eps):
+def leapfrog_launch(theta, m, data, n_steps, eps, stamps=None, flags=()):
     """Run K3 on CUDA tensors ``theta``, ``m`` of shape (n_params,) or
-    (chains, n_params); returns ``(theta', m', logp')``."""
+    (chains, n_params); returns ``(theta', m', logp')``.  ``stamps``, an
+    int64 CUDA tensor of ``(STAMP_STEPS, len(stamp_labels()))``, runs the
+    stamped variant and receives its readings (block 0's thread 0);
+    ``flags`` picks a build (``build``)."""
     global LAUNCHES
     n_counties = data.n_counties
     n_params = n_counties + 4
@@ -102,7 +129,13 @@ def leapfrog_launch(theta, m, data, n_steps, eps):
     if theta.shape != m.shape or data.y_sorted.device != theta.device:
         raise ValueError("K3: theta, m and the data must match in shape and device")
     n_chains = 1 if theta.ndim == 1 else theta.shape[0]
-    lib = build()
+    if stamps is not None:
+        if (stamps.dtype != torch.int64 or stamps.device != theta.device
+                or stamps.numel() != STAMP_STEPS * len(stamp_labels())):
+            raise ValueError("K3: stamps must be an int64 tensor of STAMP_STEPS x the stamps a "
+                             "step on the chain's device")
+        flags = STAMPED + tuple(flags)
+    lib = build(flags=flags)
     theta_out = torch.empty_like(theta)
     m_out = torch.empty_like(m)
     logp_out = torch.empty(theta.shape[:-1], dtype=torch.float32, device=theta.device)
@@ -110,8 +143,9 @@ def leapfrog_launch(theta, m, data, n_steps, eps):
     err = lib.radon_leapfrog(theta.data_ptr(), m.data_ptr(), theta_out.data_ptr(),
                              m_out.data_ptr(), logp_out.data_ptr(), data.y_sorted.data_ptr(),
                              data.floor_sorted.data_ptr(), data.county_ptr.data_ptr(),
-                             data.y_sorted.shape[0], n_counties,
-                             n_chains, int(n_steps), float(eps), stream)
+                             data.y_sorted.shape[0], n_counties, data.max_rows,
+                             n_chains, int(n_steps), float(eps), 0,
+                             None if stamps is None else stamps.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -6,8 +6,8 @@ the ported scan tests and the sparse power iteration build.  Each descriptor car
 implementation (what constant folding evaluates), a torch implementation
 (what the linker and the plain versions of the kernels call) and its
 gradient rule, written against tensor-level graph constructors.  The
-kernels emit code from the op's ``name``: Triton in the fused
-elementwise kernel (``tensor/fused_kernel.py``), CUDA C++ in the
+kernels emit CUDA C++ from the op's ``name`` (``link/cuda/cexpr.py``):
+the fused elementwise kernel (``tensor/fused_kernel.py``) and the
 whole-loop scan kernel (``link/cuda/scan_kernel.py``).
 """
 

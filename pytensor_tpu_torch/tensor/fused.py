@@ -5,7 +5,7 @@ tensor/rewriting/fused_elemwise.py FusedElemwise:107).  The JAX package
 either inlines the subgraph for XLA's fuser or, behind a flag and above
 1,024 elements, emits a Pallas kernel.  Eager PyTorch has no fuser, so
 here the kernel is the fusion: on a CUDA tensor every FusedElemwise runs
-as one generated Triton kernel (``tensor/fused_kernel.py``, K1), at every
+as one generated CUDA kernel (``tensor/fused_kernel.py``, K1), at every
 size.  The fusion pass admits only the scalar ops that kernel can emit;
 that is a rewrite-time choice, never a runtime fallback.
 """

@@ -1,109 +1,222 @@
-"""K1: a Triton kernel generated from the inner graph of a FusedElemwise.
+"""K1: a CUDA kernel generated from the inner graph of a FusedElemwise.
 
 Replaces ``pytensor_tpu/tensor/fused.py:33 pallas_elemwise_call``, which
 broadcast and flattened every input, padded it to (rows, 128) lane tiles
 and ran the inner jnp expression on VMEM blocks of 256 rows.
 
 On Hopper the pass is bound by bytes, not operations: a fused node reads
-each input once and writes each output once.  So the kernel broadcasts by
-strides instead of materialising ``broadcast_to`` copies (a broadcast dim
-has stride 0, a 0-d input has all strides 0), writes contiguous outputs,
-masks the ragged edge, and keeps every intermediate in registers.  One
-program handles ``BLOCK`` elements of the flattened iteration space and
-unravels its offsets into per-dim indices.
+each input once and writes each output once, with no reuse for shared
+memory or tensor cores to serve.  At the radon graphs' sizes (919
+elements, or 1,024 x 919) the card takes about a microsecond a launch, so
+what a call costs is the host's launch path, and the design is mostly
+about that:
 
-The body is emitted at link time, one ``tl`` expression per scalar op in
-topological order.  Scalar constants of the inner graph become
-``tl.full`` literals of their exact dtype: a Python float literal in a
-Triton kernel is float32, and a float64 graph must not round its
-constants through float32.  Array constants of the inner graph (the radon
-observations) become extra inputs, moved to the device once.  ``exp``,
-``log``, ``sqrt``, ``pow`` and float division go through libdevice's
-correctly rounded or few-ulp functions rather than Triton's fast
-approximations, so the kernel agrees with torch's own to a few ulp.
+- **Source.** One ``__global__`` function per FusedElemwise structure,
+  emitted from the inner graph: one C++ expression per scalar op in
+  topological order (the table of ``link/cuda/cexpr.py``, shared with
+  K2), every intermediate in a register.  Scalar constants are exact
+  literals of their dtype (hex floats), so a float64 graph keeps its
+  constants; array constants of the inner graph (the radon observations)
+  are extra inputs, moved to the device once.  Built with ``-fmad=false``
+  so that each op rounds on its own, as torch's eager ops do.
+- **Build.** Each structure is a namespace with a plain C entry
+  ``k1_<key>(pointers, layout, stream)``; the kernels of a linked function
+  are built together, in one nvcc call (``build``, which
+  ``link/torch/linker.py`` calls for a CUDA device), into the gitignored
+  ``build/kernels/``, cached by a hash of the source.  A kernel made alone
+  builds its own library at its first launch.
+- **Launch.** Everything that depends only on the inputs' shapes and
+  strides (the iteration size, each operand's layout class and strides,
+  the output shapes, the packed layout integers) is computed once per
+  layout and kept.  A launch then checks devices and dtypes, allocates the
+  outputs and makes one foreign call with an array of pointers and the
+  layout array; the C entry sizes the grid, picks the 16-byte vector path
+  where every operand allows it and launches on torch's current stream.
+- **Device.** 32-bit index arithmetic below 2**31 elements (and offsets).
+  Each input is read by its layout class: contiguous with the iteration
+  (``x[i]``), 0-d or broadcast everywhere (one load a thread, before the
+  loop), or strided (the iteration index unravelled by its strides: a
+  broadcast dim has stride 0).  Where every input is contiguous or 0-d and
+  every output contiguous, and the pointers are 16-byte aligned, a thread
+  loads and stores one ``float4``/``double2``, and the elements of the
+  tail go to the threads after the last vector.  A thread takes one
+  vector or one element, so every load of a launch is in flight at once:
+  a 919-element float32 node (229 vectors and a tail of 3) is one block
+  of 256 threads, a 1,024 x 919 node 3,676 blocks.
 
-``@triton.jit`` reads its function's source with ``inspect``, so the
-generated source is written to a module under ``build/triton/`` (listed
-in ``.gitignore``) and imported from there, keyed by a hash of the
-source: the source is a function of the inner graph's ops and constants,
-the dtypes and the ndim, which is the structural key.  Triton's own cache
-of compiled binaries goes to ``build/triton_cache/`` unless
-``TRITON_CACHE_DIR`` names another.  Triton is imported only when a kernel
-is built: the CPU tests import this module without it.
+``emittable`` (and so ``tensor/fused.py fusable``) admits the op names of
+``_OPS`` at the dtypes of ``_DTYPES``, the ops of ``_FLOAT_ONLY`` at float
+dtypes only, so the rewritten graphs hold the same FusedElemwise nodes as
+the JAX package's.  The plain version evaluates the inner graph with torch
+ops; the wrapper takes it for CPU tensors only, and on CUDA tensors
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
-import importlib.util
-import os
-from pathlib import Path
+import time
 
 import numpy as np
 import torch
 
 from pytensor_tpu_torch.graph.basic import Constant
+from pytensor_tpu_torch.link.cuda.cexpr import CEXPR, MAX_SOURCE, ctype, literal
 
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-BLOCK = 1024
-NUM_WARPS = 4
+THREADS = 256
+# a grid of more blocks than this strides over the elements
+MAX_BLOCKS = 4224
+# each op rounds on its own, as torch's eager ops and the plain version do
+K1_NVCC_FLAGS = ("-fmad=false",)
+# an operand's layout class: contiguous with the iteration space, the same
+# element everywhere (0-d or broadcast in every dim), or strided
+CONTIG, SCALAR, STRIDED = 0, 1, 2
 
 # launches of the kernel since the count was last set to 0
 LAUNCHES = 0
+# (kernels, seconds, compiler log) of every nvcc build of K1 in this process
+BUILDS: list = []
 
-_TL_DTYPES = {
-    "float32": "tl.float32",
-    "float64": "tl.float64",
-    "int8": "tl.int8",
-    "int16": "tl.int16",
-    "int32": "tl.int32",
-    "int64": "tl.int64",
-}
-
-# scalar op name -> Triton expression over the (already cast) operands
-_EMIT = {
-    "add": lambda a: "(" + " + ".join(a) + ")",
-    "mul": lambda a: "(" + " * ".join(a) + ")",
-    "sub": lambda a: f"({a[0]} - {a[1]})",
-    "neg": lambda a: f"(-{a[0]})",
-    "abs": lambda a: f"tl.abs({a[0]})",
-    "sqr": lambda a: f"({a[0]} * {a[0]})",
-    "true_div": lambda a: f"libdevice.div_rn({a[0]}, {a[1]})",
-    "reciprocal": lambda a: f"libdevice.div_rn(tl.full([BLOCK], 1, {a[0]}.dtype), {a[0]})",
-    "exp": lambda a: f"libdevice.exp({a[0]})",
-    "log": lambda a: f"libdevice.log({a[0]})",
-    "sqrt": lambda a: f"libdevice.sqrt_rn({a[0]})",
-    "pow": lambda a: f"libdevice.pow({a[0]}, {a[1]})",
-    "sin": lambda a: f"libdevice.sin({a[0]})",
-    "cos": lambda a: f"libdevice.cos({a[0]})",
-    "tanh": lambda a: f"libdevice.tanh({a[0]})",
-    "sigmoid": lambda a: (f"libdevice.div_rn(tl.full([BLOCK], 1, {a[0]}.dtype), "
-                          f"1 + libdevice.exp(-{a[0]}))"),
-    # NaN in either operand gives NaN, as numpy's and torch's maximum do
-    "maximum": lambda a: f"tl.where(({a[0]} > {a[1]}) | ({a[0]} != {a[0]}), {a[0]}, {a[1]})",
-}
-# ops whose libdevice form exists only for floats
+_DTYPES = ("float32", "float64", "int8", "int16", "int32", "int64")
+_OPS = frozenset({"add", "mul", "sub", "neg", "abs", "sqr", "true_div", "reciprocal", "exp",
+                  "log", "sqrt", "pow", "sin", "cos", "tanh", "sigmoid", "maximum"})
+# ops K1 emits for floats only
 _FLOAT_ONLY = frozenset({"true_div", "reciprocal", "exp", "log", "sqrt", "pow",
                          "sin", "cos", "tanh", "sigmoid"})
+# elements of one 16-byte vector, by C type
+_VECTOR = {"float": 4, "double": 2}
 
 
 def emittable(node) -> bool:
     """True when K1 can emit this Elemwise node's scalar op at its dtypes."""
     name = node.op.scalar_op.name
-    if name not in _EMIT:
+    if name not in _OPS:
         return False
     dtypes = [v.type.dtype for v in node.inputs + node.outputs]
-    if any(d not in _TL_DTYPES for d in dtypes):
+    if any(d not in _DTYPES for d in dtypes):
         return False
     return name not in _FLOAT_ONLY or node.outputs[0].type.dtype.startswith("float")
 
 
-def _literal(value, dtype: str) -> str | None:
-    """``tl.full`` of an exact scalar, or None when it has no literal form."""
-    v = np.asarray(value).astype(dtype).item()
-    if isinstance(v, float) and not np.isfinite(v):
-        return None
-    return f"tl.full([BLOCK], {v!r}, {_TL_DTYPES[dtype]})"
+PRELUDE = f"""#include <cuda_runtime.h>
+#include <math.h>
+
+#define K1_THREADS {THREADS}
+#define K1_MAX_BLOCKS {MAX_BLOCKS}
+#define K1_CONTIG {CONTIG}
+#define K1_SCALAR {SCALAR}
+#define K1_STRIDED {STRIDED}
+""" + r"""#ifndef K1_LAUNCH
+#define K1_LAUNCH(kernel, blocks, stream, ...) \
+  kernel<<<blocks, K1_THREADS, 0, stream>>>(__VA_ARGS__)
+#endif
+
+""" + MAX_SOURCE + r"""
+template <int N> struct K1Ptrs { const void* q[N]; };
+
+// The iteration size and each operand's class and strides, in elements
+// (0 on a broadcast dim); vec: the 16-byte vector path; strided: some
+// operand is strided, so the index is unravelled.
+template <int ND, int NIN, int NOUT> struct K1Layout {
+  long long n;
+  long long d[ND];
+  long long xs[NIN > 0 ? NIN : 1][ND];
+  long long ys[NOUT][ND];
+  int xc[NIN > 0 ? NIN : 1];
+  int yc[NOUT];
+  int vec;
+  int strided;
+};
+
+template <typename I, int ND>
+__device__ __forceinline__ void k1_unravel(I i, const long long* d, I* idx) {
+#pragma unroll
+  for (int k = ND - 1; k > 0; --k) {
+    const I q = i / (I)d[k];
+    idx[k] = i - q * (I)d[k];
+    i = q;
+  }
+  idx[0] = i;
+}
+
+template <typename I, int ND>
+__device__ __forceinline__ I k1_offset(const I* idx, const long long* s) {
+  I off = 0;
+#pragma unroll
+  for (int k = 0; k < ND; ++k) off += idx[k] * (I)s[k];
+  return off;
+}
+
+template <typename I> __device__ __forceinline__ void k1_load(const float* p, I j, float* v) {
+  const float4 q = reinterpret_cast<const float4*>(p)[j];
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+template <typename I> __device__ __forceinline__ void k1_load(const double* p, I j, double* v) {
+  const double2 q = reinterpret_cast<const double2*>(p)[j];
+  v[0] = q.x; v[1] = q.y;
+}
+template <typename I> __device__ __forceinline__ void k1_store(float* p, I j, const float* v) {
+  float4 q; q.x = v[0]; q.y = v[1]; q.z = v[2]; q.w = v[3];
+  reinterpret_cast<float4*>(p)[j] = q;
+}
+template <typename I> __device__ __forceinline__ void k1_store(double* p, I j, const double* v) {
+  double2 q; q.x = v[0]; q.y = v[1];
+  reinterpret_cast<double2*>(p)[j] = q;
+}
+
+// Fills the kernel's arguments from the wrapper's arrays (the pointers of
+// the inputs then the outputs; n, the sizes, the input then output
+// strides and classes, vec, strided, wide), keeps the vector path (of V
+// elements a vector, 0 for none) only where every operand it reads or
+// writes as vectors is 16-byte aligned, and launches on `stream`, with
+// 32-bit indices unless `wide`, one thread for each vector and each
+// element of the tail, or each element.
+template <int ND, int NIN, int NOUT, int V, typename K32, typename K64>
+int k1_launch(K32 k32, K64 k64, const unsigned long long* ptr, const long long* lay,
+              void* stream) {
+  K1Ptrs<NIN + NOUT> p;
+  for (int k = 0; k < NIN + NOUT; ++k) p.q[k] = (const void*)ptr[k];
+  K1Layout<ND, NIN, NOUT> L;
+  const long long* c = lay;
+  L.n = *c++;
+  for (int d = 0; d < ND; ++d) L.d[d] = *c++;
+  for (int k = 0; k < NIN; ++k)
+    for (int d = 0; d < ND; ++d) L.xs[k][d] = *c++;
+  for (int j = 0; j < NOUT; ++j)
+    for (int d = 0; d < ND; ++d) L.ys[j][d] = *c++;
+  for (int k = 0; k < NIN; ++k) L.xc[k] = (int)*c++;
+  for (int j = 0; j < NOUT; ++j) L.yc[j] = (int)*c++;
+  L.vec = (int)*c++;
+  L.strided = (int)*c++;
+  const int wide = (int)*c++;
+  for (int k = 0; k < NIN; ++k)
+    if (L.xc[k] == K1_CONTIG && (ptr[k] & 15)) L.vec = 0;
+  for (int j = 0; j < NOUT; ++j)
+    if (ptr[NIN + j] & 15) L.vec = 0;
+  if (V == 0) L.vec = 0;
+  const long long units = L.n - (L.vec ? L.n / V : 0) * (V - 1);
+  long long blocks = (units + K1_THREADS - 1) / K1_THREADS;
+  if (blocks > K1_MAX_BLOCKS) blocks = K1_MAX_BLOCKS;
+  if (wide)
+    K1_LAUNCH(k64, (unsigned)blocks, (cudaStream_t)stream, p, L);
+  else
+    K1_LAUNCH(k32, (unsigned)blocks, (cudaStream_t)stream, p, L);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+class _Layout:
+    """What a launch needs for one layout of the inputs: the element count,
+    the (shape, dtype) of each output, the layout integers of the C entry
+    and the classes of the inputs and of the outputs."""
+
+    __slots__ = ("n", "outs", "ints", "classes")
+
+    def __init__(self, n, outs, ints, classes):
+        self.n, self.outs, self.classes = n, outs, classes
+        self.ints = (ctypes.c_longlong * len(ints))(*ints)
 
 
 class FusedElemwiseKernel:
@@ -111,6 +224,9 @@ class FusedElemwiseKernel:
 
     ``__call__`` takes the node's input tensors.  On CPU tensors it runs
     the plain version; on CUDA tensors it launches the kernel, or raises.
+    ``unit`` is the kernel's own source (a namespace and its C entry),
+    ``key`` a hash of it, ``source`` the library source of this kernel
+    alone.
     """
 
     def __init__(self, fgraph, device):
@@ -118,94 +234,134 @@ class FusedElemwiseKernel:
         self.order = fgraph.toposort()
         self.inputs = list(fgraph.inputs)
         self.outputs = list(fgraph.outputs)
-        from pytensor_tpu_torch.link.torch.convert import as_torch, resolve_device
+        from pytensor_tpu_torch.link.torch.convert import as_torch, resolve_device, torch_dtype
 
         self.device = resolve_device(device)
         for node in self.order:
             if not emittable(node):
                 raise TypeError(f"K1 cannot emit {node}")
         # scalar constants are literals; every other constant is an input
-        literals = {}
-        array_consts = []
+        self.array_consts = []
         for node in self.order:
             for i in node.inputs:
-                if not isinstance(i, Constant) or i in literals or i in array_consts:
-                    continue
-                lit = (_literal(i.data, node.outputs[0].type.dtype)
-                       if np.ndim(i.data) == 0 else None)
-                if lit is None:
-                    array_consts.append(i)
-                else:
-                    literals[i] = lit
-        self.array_consts = array_consts
-        self.tensor_vars = self.inputs + array_consts
-        self.const_tensors = [as_torch(c.data, self.device) for c in array_consts]
+                if isinstance(i, Constant) and np.ndim(i.data) and i not in self.array_consts:
+                    self.array_consts.append(i)
+        self.tensor_vars = self.inputs + self.array_consts
+        self.const_tensors = [as_torch(c.data, self.device) for c in self.array_consts]
+        self._const_ptrs = [t.data_ptr() for t in self.const_tensors]
+        self.in_dtypes = [torch_dtype(v.type.dtype) for v in self.inputs]
+        self.out_dtypes = [torch_dtype(o.type.dtype) for o in self.outputs]
         self._plain_consts: dict = {}
         self.ndim = max([1] + [v.type.ndim for v in self.tensor_vars + self.outputs])
-        self.source = self._emit(literals)
-        self.key = hashlib.sha256(self.source.encode()).hexdigest()[:16]
+        # elements of a 16-byte vector where every operand has one C type
+        # that has them, else 0: no vector path
+        ctypes_ = {ctype(v.type.dtype) for v in self.tensor_vars + self.outputs}
+        self.vector = _VECTOR.get(ctypes_.pop(), 0) if len(ctypes_) == 1 else 0
+        body = self._emit()
+        self.key = hashlib.sha256(body.encode()).hexdigest()[:16]
+        self.unit = self._unit(body)
+        self.source = PRELUDE + self.unit
         self._layouts: dict = {}
+        self._ptrs_t = ctypes.c_ulonglong * (len(self.tensor_vars) + len(self.outputs))
+        self._fn = None
 
     # --- code generation -------------------------------------------------
-    def _emit(self, literals) -> str:
+    def _emit(self) -> str:
+        """The kernel's namespace body: the scalar body ``op`` and the
+        ``__global__`` function over the iteration space."""
         nd, nin, nout = self.ndim, len(self.tensor_vars), len(self.outputs)
-        params = ([f"x{k}" for k in range(nin)] + [f"y{j}" for j in range(nout)]
-                  + ["N"] + [f"d{d}" for d in range(nd)]
-                  + [f"xs{k}_{d}" for k in range(nin) for d in range(nd)]
-                  + [f"ys{j}_{d}" for j in range(nout) for d in range(nd)]
-                  + ["BLOCK: tl.constexpr"])
-        body = [
-            "    pid = tl.program_id(0)",
-            "    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)",
-            "    mask = offs < N",
-            "    rem = offs",
-        ]
-        for d in range(nd - 1, 0, -1):
-            body.append(f"    i{d} = rem % d{d}")
-            body.append(f"    rem = rem // d{d}")
-        body.append("    i0 = rem")
-        names = {}
-        for k, v in enumerate(self.tensor_vars):
-            off = " + ".join(f"i{d} * xs{k}_{d}" for d in range(nd))
-            body.append(f"    a{k} = tl.load(x{k} + ({off}), mask=mask)")
-            names[v] = (f"a{k}", v.type.dtype)
+        cts = [ctype(v.type.dtype) for v in self.tensor_vars]
+        octs = [ctype(o.type.dtype) for o in self.outputs]
+        names = {v: (f"a{k}", v.type.dtype) for k, v in enumerate(self.tensor_vars)}
+        op = []
         for n, node in enumerate(self.order):
             out_dt = node.outputs[0].type.dtype
             args = []
             for i in node.inputs:
-                if i in literals:
-                    args.append(_literal(i.data, out_dt))
+                if isinstance(i, Constant) and not np.ndim(i.data):
+                    args.append(literal(i.data, out_dt))
                     continue
                 expr, dt = names[i]
-                args.append(expr if dt == out_dt else f"{expr}.to({_TL_DTYPES[out_dt]})")
-            body.append(f"    v{n} = {_EMIT[node.op.scalar_op.name](args)}")
+                args.append(expr if dt == out_dt else f"(({ctype(out_dt)}){expr})")
+            op.append(f"  const {ctype(out_dt)} v{n} = ({ctype(out_dt)})"
+                      f"{CEXPR[node.op.scalar_op.name](args, out_dt)};")
             names[node.outputs[0]] = (f"v{n}", out_dt)
         for j, o in enumerate(self.outputs):
-            off = " + ".join(f"i{d} * ys{j}_{d}" for d in range(nd))
-            expr, dt = names[o]
-            body.append(f"    tl.store(y{j} + ({off}), {expr}.to({_TL_DTYPES[o.type.dtype]}), mask=mask)")
-        header = [
-            "import triton",
-            "import triton.language as tl",
+            op.append(f"  r{j} = {names[o][0]};")
+        params = ([f"const {ct} a{k}" for k, ct in enumerate(cts)]
+                  + [f"{ct}& r{j}" for j, ct in enumerate(octs)])
+        V = self.vector
+
+        def call(a, r):
+            return f"op({', '.join([*a, *r])});"
+
+        lines = [
+            f"constexpr int ND = {nd}, NIN = {nin}, NOUT = {nout};",
             "",
-            "try:",
-            "    from triton.language.extra import libdevice",
-            "except ImportError:",
-            "    from triton.language.extra.cuda import libdevice",
+            f"__device__ __forceinline__ void op({', '.join(params)}) {{",
+            *op,
+            "}",
             "",
-            "",
-            "@triton.jit",
-            f"def fused_elemwise({', '.join(params)}):",
+            "template <typename I>",
+            "__global__ void __launch_bounds__(K1_THREADS) kernel(K1Ptrs<NIN + NOUT> p, "
+            "K1Layout<ND, NIN, NOUT> L) {",
+            *[f"  const {ct}* __restrict__ x{k} = (const {ct}*)p.q[{k}];"
+              for k, ct in enumerate(cts)],
+            *[f"  {ct}* __restrict__ y{j} = ({ct}*)p.q[NIN + {j}];" for j, ct in enumerate(octs)],
+            "  const I n = (I)L.n;",
+            "  const I first = (I)blockIdx.x * K1_THREADS + (I)threadIdx.x;",
+            "  const I step = (I)gridDim.x * K1_THREADS;",
+            "  // an input that is one element everywhere: one load a thread",
+            *[f"  const {ct} s{k} = L.xc[{k}] == K1_SCALAR ? x{k}[0] : ({ct})0;"
+              for k, ct in enumerate(cts)],
+            # unit j is vector j below nv, else element j + nv * (V - 1): each
+            # thread a vector or an element of the tail, side by side
+            f"  const I nv = L.vec ? n / {max(V, 1)} : 0;",
+            f"  for (I j = first; j < n - nv * {max(V, 1) - 1}; j += step) {{",
         ]
-        return "\n".join(header + body) + "\n"
+        if V:
+            lines += [
+                "    if (j < nv) {",
+                *[f"      {ct} a{k}[{V}];" for k, ct in enumerate(cts)],
+                *[f"      if (L.xc[{k}] == K1_SCALAR) {{ for (int v = 0; v < {V}; ++v) "
+                  f"a{k}[v] = s{k}; }} else k1_load(x{k}, j, a{k});" for k in range(nin)],
+                *[f"      {ct} r{j}[{V}];" for j, ct in enumerate(octs)],
+                "#pragma unroll",
+                f"      for (int v = 0; v < {V}; ++v) "
+                + call([f"a{k}[v]" for k in range(nin)], [f"r{j}[v]" for j in range(nout)]),
+                *[f"      k1_store(y{j}, j, r{j});" for j in range(nout)],
+                "      continue;",
+                "    }",
+            ]
+        lines += [
+            f"    const I i = j + nv * {max(V, 1) - 1};",
+            "    I idx[ND];",
+            "    if (L.strided) k1_unravel<I, ND>(i, L.d, idx);",
+            *[f"    const {ct} a{k} = L.xc[{k}] == K1_CONTIG ? x{k}[i] : L.xc[{k}] == K1_SCALAR ? "
+              f"s{k} : x{k}[k1_offset<I, ND>(idx, L.xs[{k}])];" for k, ct in enumerate(cts)],
+            *[f"    {ct} r{j};" for j, ct in enumerate(octs)],
+            "    " + call([f"a{k}" for k in range(nin)], [f"r{j}" for j in range(nout)]),
+            *[f"    if (L.yc[{j}] == K1_CONTIG) y{j}[i] = r{j}; "
+              f"else y{j}[k1_offset<I, ND>(idx, L.ys[{j}])] = r{j};" for j in range(nout)],
+            "  }",
+            "}",
+        ]
+        return "\n".join(lines) + "\n"
+
+    def _unit(self, body) -> str:
+        ns = f"k1_{self.key}_kernel"
+        return (f"\nnamespace {ns} {{\n\n{body}\n}}  // namespace {ns}\n\n"
+                f"// Launches {ns}::kernel on `stream`; returns the first CUDA error.\n"
+                f'extern "C" int k1_{self.key}(const unsigned long long* ptr, const long long* layout, '
+                "void* stream) {\n"
+                f"  return k1_launch<{ns}::ND, {ns}::NIN, {ns}::NOUT, {self.vector}>(\n"
+                f"      {ns}::kernel<int>, {ns}::kernel<long long>, ptr, layout, stream);\n"
+                "}\n")
 
     # --- runtime layout ----------------------------------------------------
     def _layout(self, args):
-        """Iteration shape, output shapes and strides for these inputs."""
-        key = tuple((tuple(a.shape), tuple(a.stride())) for a in args)
-        hit = self._layouts.get(key)
-        if hit is not None:
-            return hit
+        """The iteration size, output shapes, layout classes and the packed
+        layout integers for inputs of these shapes and strides."""
         nd = self.ndim
         shapes = {v: tuple(a.shape) for v, a in zip(self.tensor_vars, args)}
         for node in self.order:
@@ -213,18 +369,32 @@ class FusedElemwiseKernel:
                 *[shapes.get(i, ()) for i in node.inputs]))
         it = tuple(torch.broadcast_shapes(*shapes.values()))
         it = (1,) * (nd - len(it)) + it
+        n = int(np.prod(it))
+        row = [int(np.prod(it[d + 1:])) for d in range(nd)]
 
         def strides(shape, stride):
             pad = nd - len(shape)
             st = [0] * pad + [0 if s == 1 else t for s, t in zip(shape, stride)]
             return [0 if it[d] == 1 else st[d] for d in range(nd)]
 
-        xstrides = [strides(tuple(a.shape), a.stride()) for a in args]
+        def cls(st):
+            if all(st[d] == row[d] for d in range(nd) if it[d] > 1):
+                return CONTIG
+            return SCALAR if not any(st) else STRIDED
+
         out_shapes = [shapes[o] for o in self.outputs]
-        ystrides = [strides(s, torch.empty(s, device="meta").stride()) for s in out_shapes]
-        hit = (it, out_shapes, xstrides, ystrides)
-        self._layouts[key] = hit
-        return hit
+        if not n and any(np.prod(s) for s in out_shapes):
+            raise ValueError(f"K1: an output of shape {out_shapes} over an empty iteration "
+                             f"space {it}")
+        xst = [strides(tuple(a.shape), a.stride()) for a in args]
+        yst = [strides(s, torch.empty(s, device="meta").stride()) for s in out_shapes]
+        xc, yc = [cls(s) for s in xst], [cls(s) for s in yst]
+        strided = STRIDED in xc + yc
+        reach = max([n] + [sum((it[d] - 1) * s[d] for d in range(nd)) + 1 for s in xst + yst])
+        ints = [n, *it, *[s for st in xst + yst for s in st], *xc, *yc,
+                int(not strided and all(c == CONTIG for c in yc)), int(strided),
+                int(reach >= 2 ** 31)]
+        return _Layout(n, list(zip(out_shapes, self.out_dtypes)), ints, (xc, yc))
 
     def _args(self, inputs):
         if len(inputs) != len(self.inputs):
@@ -238,30 +408,36 @@ class FusedElemwiseKernel:
         return self.launch(*inputs)
 
     def launch(self, *inputs):
-        """Run the Triton kernel on CUDA tensors."""
+        """Run the kernel on CUDA tensors: one foreign call."""
         global LAUNCHES
-        from pytensor_tpu_torch.link.torch.convert import torch_dtype
-
-        args = self._args(inputs)
-        for v, a in zip(self.tensor_vars, args):
-            if a.device != self.device or self.device.type != "cuda":
-                raise RuntimeError(
-                    f"K1 runs on {self.device} CUDA tensors; got a tensor on {a.device}")
-            if a.dtype != torch_dtype(v.type.dtype):
-                raise TypeError(f"K1 input dtype {a.dtype} != {v.type.dtype}")
-        it, out_shapes, xstrides, ystrides = self._layout(args)
-        outs = [torch.empty(s, dtype=torch_dtype(o.type.dtype), device=self.device)
-                for s, o in zip(out_shapes, self.outputs)]
-        n = int(np.prod(it))
-        if n:
-            kernel = _load_kernel(self.key, self.source)
-            grid = ((n + BLOCK - 1) // BLOCK,)
-            kernel[grid](*args, *outs, n, *it,
-                         *[s for st in xstrides for s in st],
-                         *[s for st in ystrides for s in st],
-                         BLOCK=BLOCK, num_warps=NUM_WARPS)
+        if len(inputs) != len(self.in_dtypes):
+            raise TypeError(f"FusedElemwise expected {len(self.inputs)} inputs, got {len(inputs)}")
+        dev = self.device
+        key = []
+        for a, dt in zip(inputs, self.in_dtypes):
+            if a.device != dev or dev.type != "cuda":
+                raise RuntimeError(f"K1 runs on {dev} CUDA tensors; got a tensor on {a.device}")
+            if a.dtype != dt:
+                raise TypeError(f"K1 input dtype {a.dtype} != {dt}")
+            # a contiguous tensor's layout is its shape
+            key.append(a.shape if a.is_contiguous() else (a.shape, a.stride()))
+        lay = self._layouts.get(tuple(key))
+        if lay is None:
+            lay = self._layouts[tuple(key)] = self._layout(self._args(inputs))
+        outs = [torch.empty(s, dtype=dt, device=dev) for s, dt in lay.outs]
+        if lay.n:
+            fn = self._fn or self._load()
+            ptrs = self._ptrs_t(*[a.data_ptr() for a in inputs], *self._const_ptrs,
+                                *[o.data_ptr() for o in outs])
+            err = fn(ptrs, lay.ints, _raw_stream(dev.index))
+            if err != 0:
+                raise RuntimeError(f"K1 launch failed: CUDA error {err}")
             LAUNCHES += 1
         return outs
+
+    def _load(self):
+        build([self])
+        return self._fn
 
     def plain(self, *inputs):
         """The same inner graph evaluated with torch ops, on any device."""
@@ -282,34 +458,37 @@ class FusedElemwiseKernel:
         return [storage[o].contiguous() for o in self.outputs]
 
 
-_KERNELS: dict = {}
+def _raw_stream(index):
+    """torch's current stream on the card ``index``, as an integer (the
+    call Triton's and Inductor's launchers make; ``torch.cuda.current_stream``
+    wraps it in a Python object first)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
-def _use_build_cache():
-    """Point Triton's cache of compiled binaries, which defaults to
-    ``$HOME/.triton``, at the checkout's build directory, through Triton's
-    own ``knobs``; a cache directory the user chose is left alone."""
-    from triton import knobs
-
-    if not os.environ.get("TRITON_CACHE_DIR"):
-        knobs.cache.dir = str(BUILD_DIR / "triton_cache")
+# key -> the C entry of every K1 kernel loaded in this process
+_ENTRIES: dict = {}
 
 
-def _load_kernel(key: str, source: str):
-    """Import (building on first use) the generated module for ``source``."""
-    kernel = _KERNELS.get(key)
-    if kernel is not None:
-        return kernel
-    _use_build_cache()
-    out_dir = BUILD_DIR / "triton"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    path = out_dir / f"fused_{key}.py"
-    if not path.exists() or path.read_text() != source:
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        tmp.write_text(source)
-        os.replace(tmp, path)
-    spec = importlib.util.spec_from_file_location(f"pytensor_tpu_torch_fused_{key}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    kernel = _KERNELS[key] = module.fused_elemwise
-    return kernel
+def build(kernels, verbose=False) -> str:
+    """Build the kernels not loaded yet in one library (one nvcc call),
+    their units in the order of their keys, and bind every kernel to its
+    entry.  Returns the compiler's log (``-Xptxas -v`` with ``verbose``),
+    empty when nothing was compiled."""
+    from pytensor_tpu_torch.link.cuda.build import build_library
+
+    units = {k.key: k.unit for k in kernels if k.key not in _ENTRIES}
+    log = ""
+    if units:
+        t0 = time.perf_counter()
+        lib, log = build_library(PRELUDE + "".join(units[k] for k in sorted(units)), "k1",
+                                 verbose=verbose, flags=K1_NVCC_FLAGS)
+        for key in units:
+            fn = getattr(lib, f"k1_{key}")
+            fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(ctypes.c_longlong),
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _ENTRIES[key] = fn
+        BUILDS.append((len(units), time.perf_counter() - t0, log))
+    for k in kernels:
+        k._fn = _ENTRIES[k.key]
+    return log

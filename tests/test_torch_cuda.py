@@ -44,7 +44,7 @@ K1_RTOL = {"float32": 1e-5, "float64": 1e-12}
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA and Triton")
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA")
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -76,6 +76,50 @@ def test_k1_matches_plain(card, dtype, batched):
             assert _scaled(got, want) <= K1_RTOL[dtype], str(nd.op)
 
 
+def _k1_layout_case(case, dtype, card):
+    """x, y for one of K1's layout classes (as tests/test_torch_fused.py
+    runs them on the host); x holds a NaN and a -0.0."""
+    rng = np.random.default_rng(11)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(dtype)).to(card)
+
+    x = t(*{"tail": (1001,), "misaligned": (1001,)}.get(case, (5, 7)))
+    x.view(-1)[:2] = torch.tensor([float("nan"), -0.0])
+    if case == "transposed":
+        x = x.T.contiguous().T
+    elif case == "misaligned":
+        x = torch.cat([t(1), x])[1:]
+    y = {"row": t(7), "column": t(5, 1), "0d": t(), "transposed": t(5, 7), "tail": t(1001),
+         "misaligned": t(1001)}[case]
+    return x, y
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["row", "column", "0d", "transposed", "tail", "misaligned"])
+def test_k1_layout_classes_match_plain(card, case, dtype):
+    """K1 launched on each layout class (strided broadcasts, a 0-d input, a
+    column-major input, 16-byte vectors with a tail, a misaligned pointer)
+    against its plain version: NaN where plain has NaN, +0.0 for abs(-0.0)."""
+    import pytensor_tpu_torch.tensor as pt
+
+    x, y = _k1_layout_case(case, dtype, card)
+    tx = pt.tensor("x", dtype=dtype, shape=(None,) * x.ndim)
+    ty = pt.tensor("y", dtype=dtype, shape=(None,) * y.ndim)
+    outs = [tx * ty - pt.exp(-ty) + 0.1, pt.maximum(tx, ty), pt.abs(tx), ty * 2.0]
+    kern = fused_kernel.FusedElemwiseKernel(FusedElemwise([tx, ty], outs).fgraph, card)
+    before = fused_kernel.LAUNCHES
+    got = kern(x, y)
+    torch.cuda.synchronize()
+    assert fused_kernel.LAUNCHES == before + 1
+    for g, w in zip(got, kern.plain(x, y)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.isnan(), w.isnan())
+        g, w = g[~w.isnan()], w[~w.isnan()]
+        assert _scaled(g.double(), w.double()) <= K1_RTOL[dtype]
+        assert torch.equal(torch.signbit(g[w == 0]), torch.signbit(w[w == 0]))
+
+
 def test_k3_matches_plain(card):
     fn, th0, m0, n = radon_kernel.make_radon_leapfrog_kernel(n_steps=64, device=card)
     th, m = as_torch(th0, card), as_torch(m0, card)
@@ -98,6 +142,26 @@ def test_k3_chains_match_single_chain_launches(card):
     for k in range(4):
         for b, s in zip(batch, fn(th[k].contiguous(), m[k].contiguous())):
             assert torch.equal(b[k], s)
+
+
+def test_k3_with_two_counties_a_thread_matches_plain(card):
+    """300 counties: a block of 256 threads, threads 0-43 own two counties
+    and walk them from shared memory."""
+    fn, th0, m0, n = radon_kernel.make_radon_leapfrog_kernel(
+        n_steps=64, n_obs=2400, n_counties=300, device=card)
+    th, m = as_torch(th0, card), as_torch(m0, card)
+    got = fn(th, m)
+    want = radon_kernel.leapfrog_plain(th, m, fn.data, 64, 1e-3)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all()) and _scaled(g, w) <= 1e-4
+
+
+def test_k3_relaunch_is_bit_identical(card):
+    fn, th0, m0, n = radon_kernel.make_radon_leapfrog_kernel(n_steps=256, device=card)
+    th, m = as_torch(th0, card), as_torch(m0, card)
+    first, again = fn(th, m), fn(th, m)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_linked_entry_matches_closed_form(card):

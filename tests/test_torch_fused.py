@@ -1,5 +1,5 @@
 """K1, the fused elementwise kernel: its plain version against the JAX
-package's FusedElemwise, and the Triton source it emits.
+package's FusedElemwise, and the CUDA source it emits, run on the CPU.
 
 The JAX side runs the FusedElemwise inline path (``pytensor_tpu/tensor/
 fused.py:111-116``, the path taken with ``pallas__fusion`` off; no JAX test
@@ -7,9 +7,27 @@ runs the Pallas body on the CPU).  The port side runs
 ``FusedElemwiseKernel`` on CPU tensors, which is its plain version.  Both
 get the same seeded numpy inputs.  Tolerance: float64 ``rtol 1e-12``,
 float32 ``rtol 1e-5`` with ``atol 1e-6 * max|out|`` (torch and XLA may
-order an n-ary add differently).  The kernel itself needs a card:
-``tests/test_torch_cuda.py`` runs it.
+order an n-ary add differently).
+
+There is no nvcc here, but K1's generated source is C++ apart from a few
+CUDA features: with ``tests/k1_host.h`` in place of ``<cuda_runtime.h>``
+(a grid of blocks run in turn, the threads as a loop, ``float4`` and
+``double2``), g++ compiles it into the gitignored ``build/k1_host/`` and
+it runs on CPU tensors, through the layout integers and the C entry the
+wrapper uses, against the plain version at ``chip_smoke.py``'s
+``K1_RTOL`` (``1e-5`` for float32, ``1e-12`` for float64, over
+``max(1, max|plain|)``; the host's libm and torch's may differ by an ulp).
+What this cannot show is that nvcc accepts the source, or the card's
+rounding: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` show those.
 """
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,14 +50,17 @@ from pytensor_tpu_torch.tensor.fused import fusable
 
 N_CHAINS = 8
 TOL = {"float64": (1e-12, 0.0), "float32": (1e-5, 1e-6)}
+K1_RTOL = {"float32": 1e-5, "float64": 1e-12}
+BUILD = Path(__file__).resolve().parents[1] / "build" / "k1_host"
+HEADER = Path(__file__).resolve().parent / "k1_host.h"
 
 
-def _fused_nodes(pkg_radon, fgraph_cls, fast_run, fused_cls, dtype, batched):
+def _fused_nodes(pkg_radon, fgraph_cls, fast_run, fused_cls, dtype, batched, *sizes):
     if batched:
-        theta, logp, dlogp, _ = pkg_radon.make_radon_logp_batched(dtype=dtype)
+        theta, logp, dlogp, _ = pkg_radon.make_radon_logp_batched(*sizes, dtype=dtype)
         inputs, outputs = [theta], [logp, dlogp]
     else:
-        inputs, outputs, _ = pkg_radon.make_radon_graphs(dtype=dtype)
+        inputs, outputs, _ = pkg_radon.make_radon_graphs(*sizes, dtype=dtype)
     fg = fgraph_cls(inputs, outputs, clone=True)
     fast_run.optimizer.rewrite(fg)
     return [nd for nd in fg.toposort() if isinstance(nd.op, fused_cls)]
@@ -134,19 +155,20 @@ def _single_fused(dtype, build):
 
 def test_float64_literals_are_exact_in_the_source():
     k64 = _single_fused("float64", lambda x: x * 0.1 + 1e-300)
-    assert "tl.full([BLOCK], 0.1, tl.float64)" in k64.source
-    assert "tl.full([BLOCK], 1e-300, tl.float64)" in k64.source
+    assert "0x1.999999999999ap-4" in k64.source          # float64's 0.1, exactly
+    assert float.hex(1e-300) in k64.source
     k32 = _single_fused("float32", lambda x: x * 0.1)
-    assert f"tl.full([BLOCK], {float(np.float32(0.1))!r}, tl.float32)" in k32.source
+    assert float.hex(float(np.float32(0.1))) + "f" in k32.source  # 0x1.99999ap-4f
+    assert "0x1.999999999999ap-4" not in k32.source
 
 
-def test_source_is_python_and_keyed_by_structure():
+def test_source_is_cuda_and_keyed_by_structure():
     a = _single_fused("float32", lambda x: tpt.exp(-x) * 2.0)
     b = _single_fused("float32", lambda x: tpt.exp(-x) * 2.0)
     c = _single_fused("float64", lambda x: tpt.exp(-x) * 2.0)
-    compile(a.source, "<k1>", "exec")
-    assert "@triton.jit" in a.source and "libdevice.exp" in a.source
-    assert a.key == b.key and a.key != c.key
+    assert "__global__" in a.source and "expf(" in a.source and "exp(" in c.source
+    assert f'extern "C" int k1_{a.key}(' in a.source and a.source.endswith(a.unit)
+    assert a.key == b.key and a.unit == b.unit and a.key != c.key
 
 
 def test_fusable_admits_only_what_k1_emits():
@@ -163,3 +185,154 @@ def test_launch_refuses_cpu_tensors():
     k = _single_fused("float32", lambda x: x * 2.0 + 1.0)
     with pytest.raises(RuntimeError, match="CUDA"):
         k.launch(torch.ones(4))
+
+
+# --- the generated CUDA source, compiled for the host -----------------------------
+
+@pytest.fixture(scope="module")
+def k1_host():
+    """A function that compiles K1's library source for some kernels with
+    g++ against ``tests/k1_host.h`` (once per source) and loads it."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile K1's source for the host")
+
+    def lib_for(kernels):
+        units = {k.key: k.unit for k in kernels}
+        src = (fused_kernel.PRELUDE.replace("#include <cuda_runtime.h>", f'#include "{HEADER}"')
+               + "".join(units[k] for k in sorted(units)))
+        key = hashlib.sha256(src.encode() + HEADER.read_bytes()).hexdigest()[:16]
+        lib = BUILD / f"libk1_host_{key}.so"
+        if not lib.exists():
+            BUILD.mkdir(parents=True, exist_ok=True)
+            cpp = BUILD / f"k1_host_{key}.{os.getpid()}.cpp"
+            cpp.write_text(src)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([gxx, "-std=c++17", "-O1", "-w", "-fno-strict-aliasing",
+                                   "-shared", "-fPIC", "-o", str(tmp), str(cpp)],
+                                  capture_output=True, text=True)
+            assert proc.returncode == 0, proc.stderr[:4000]
+            os.replace(tmp, lib)
+        handle = ctypes.CDLL(str(lib))
+        for k in units:
+            fn = getattr(handle, f"k1_{k}")
+            fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(ctypes.c_longlong),
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        return handle
+
+    return lib_for
+
+
+def _host_launch(lib, kern, inputs):
+    """What ``FusedElemwiseKernel.launch`` does on the card, on CPU tensors
+    through the host build: the layout of these inputs, outputs from
+    ``torch.empty`` and one call of the C entry with the pointers."""
+    lay = kern._layout(kern._args(inputs))
+    outs = [torch.empty(s, dtype=dt) for s, dt in lay.outs]
+    if lay.n:
+        ptrs = kern._ptrs_t(*[a.data_ptr() for a in inputs], *kern._const_ptrs,
+                            *[o.data_ptr() for o in outs])
+        assert getattr(lib, f"k1_{kern.key}")(ptrs, lay.ints, None) == 0
+        # a thread a vector or an element of the tail, else a thread an
+        # element; vectors only where the pointers read or written as
+        # vectors are 16-byte aligned
+        contig = [p for p, c in zip(ptrs, lay.classes[0]) if c == fused_kernel.CONTIG]
+        vec = (kern.vector and lay.ints[len(lay.ints) - 3]
+               and all(p % 16 == 0 for p in contig + [o.data_ptr() for o in outs]))
+        units = lay.n - (lay.n // kern.vector if vec else 0) * (kern.vector - 1)
+        assert lib.k1_host_blocks() == min(math.ceil(units / fused_kernel.THREADS),
+                                           fused_kernel.MAX_BLOCKS)
+    return outs, lay
+
+
+def _held(got, want, dtype):
+    """got within K1_RTOL of want over max(1, max|want|), with NaN where
+    want has NaN and the sign of every zero kept."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.isnan(), w.isnan())
+        g, w = g[~w.isnan()], w[~w.isnan()]
+        if w.numel():
+            err = float((g.double() - w.double()).abs().max())
+            assert err / max(1.0, float(w.abs().max())) <= K1_RTOL[dtype]
+            assert torch.equal(torch.signbit(g[w == 0]), torch.signbit(w[w == 0]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+def test_k1_source_matches_plain_on_radon_nodes(k1_host, dtype, batched):
+    """Every fused node of the radon graphs at 40/5, the kernels of one
+    graph built as the linker builds them, in one library."""
+    nodes = _fused_nodes(tradon, TFunctionGraph, T_FAST_RUN, TFused, dtype, batched, 40, 5)
+    kerns = [fused_kernel.FusedElemwiseKernel(nd.op.fgraph, "cpu") for nd in nodes]
+    lib = k1_host(kerns)
+    classes = set()
+    for k, (nd, kern) in enumerate(zip(nodes, kerns)):
+        args = [torch.from_numpy(a) for a in _inputs([i.type for i in nd.inputs], seed=k)]
+        got, lay = _host_launch(lib, kern, args)
+        _held(got, kern.plain(*args), dtype)
+        classes.update(lay.classes[0])
+    # the single-chain graph's inputs are contiguous or 0-d; the batched
+    # graph broadcasts (chains, 1) and (n_obs,) inputs over (chains, n_obs)
+    # by strides
+    assert classes == ({fused_kernel.CONTIG, fused_kernel.STRIDED}
+                       if batched else {fused_kernel.CONTIG, fused_kernel.SCALAR})
+
+
+def _layout_case(case, dtype):
+    """The inputs x, y of one layout case; x holds a NaN and a -0.0."""
+    rng = np.random.default_rng(11)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(dtype))
+
+    x = t(*{"tail": (1001,), "misaligned": (1001,), "empty": (0, 7)}.get(case, (5, 7)))
+    if x.numel():
+        x.view(-1)[:2] = torch.tensor([float("nan"), -0.0])
+    if case == "transposed":
+        x = x.T.contiguous().T               # the same values, column-major
+    elif case == "misaligned":
+        x = torch.cat([t(1), x])[1:]         # one element past a 16-byte boundary
+    y = {"row": t(7), "column": t(5, 1), "0d": t(), "transposed": t(5, 7), "tail": t(1001),
+         "misaligned": t(1001), "empty": t(0, 7)}[case]
+    return x, y
+
+
+_C, _S, _X = fused_kernel.CONTIG, fused_kernel.SCALAR, fused_kernel.STRIDED
+# the classes of (x, y) and of the four outputs, and the vector flag
+_LAYOUTS = {"row": ([_C, _X], [_C, _C, _C, _X], 0), "column": ([_C, _X], [_C, _C, _C, _X], 0),
+            "0d": ([_C, _S], [_C, _C, _C, _S], 0), "transposed": ([_X, _C], [_C] * 4, 0),
+            "tail": ([_C, _C], [_C] * 4, 1), "misaligned": ([_C, _C], [_C] * 4, 1)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["row", "column", "0d", "transposed", "tail", "misaligned",
+                                  "empty"])
+def test_k1_source_layout_classes_match_plain(k1_host, case, dtype):
+    """x * y - exp(-y) + 0.1, maximum(x, y), abs(x) and y * 2 (an output
+    narrower than the iteration space where y broadcasts) for each layout
+    class: a row and a column broadcast and a 0-d y (strided, strided,
+    one load a thread), a column-major x, 1,001 contiguous elements (16-byte
+    vectors and a tail), the same one element off a 16-byte boundary (the C
+    entry refuses the vectors), and no elements at all (no launch).
+    maximum keeps x's NaN, abs(-0.0) is +0.0."""
+    x, y = _layout_case(case, dtype)
+    tx = tpt.tensor("x", dtype=dtype, shape=(None,) * x.ndim)
+    ty = tpt.tensor("y", dtype=dtype, shape=(None,) * y.ndim)
+    outs = [tx * ty - tpt.exp(-ty) + 0.1, tpt.maximum(tx, ty), tpt.abs(tx), ty * 2.0]
+    kern = fused_kernel.FusedElemwiseKernel(TFused([tx, ty], outs).fgraph, "cpu")
+    got, lay = _host_launch(k1_host([kern]), kern, [x, y])
+    _held(got, kern.plain(x, y), dtype)
+    if case == "empty":
+        assert lay.n == 0 and all(g.numel() == 0 for g in got)
+        # y * 2 of a (7,) y would not be empty, but nothing is computed
+        # over an empty iteration space: the layout refuses it
+        with pytest.raises(ValueError, match="empty"):
+            kern._layout([x, torch.ones(7, dtype=y.dtype)])
+    else:
+        xc, yc, vec = _LAYOUTS[case]
+        assert list(lay.classes[0]) == xc and list(lay.classes[1]) == yc
+        assert lay.ints[len(lay.ints) - 3] == vec
+        assert bool(torch.isnan(got[1]).any()) and not torch.signbit(got[2]).any()
