@@ -1,6 +1,6 @@
 """Drive the torch port's radon and sparse paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, one line or more each, and any failure raises:
 
@@ -52,13 +52,20 @@ Phases, one line or more each, and any failure raises:
    ours_sparse`` (ten nonzeros a row, float32, seed 0): K4 against its
    plain version for A and its transpose, per row within
    ``4 * D2 * 2**-24 * sum_j |a_ij x_j|``; two launches bit-identical;
-   device, wall and cuSPARSE times against the bound.
+   the launch (rows a tile, tiles and blocks, waves) and the sha256 of K4's
+   output for each; device times with L2 warm (back-to-back launches)
+   and cold (128 MB written before each launch; K4's kernel alone), wall
+   and cuSPARSE times against the bound.  With ``--parent DIR`` (a
+   checkout of an earlier commit) it also builds K4 from DIR's
+   ``pytensor_tpu_torch/csrc/spmv_csr.cu``, requires its output to have
+   this tree's bits for A and its transpose, and times the two kernels
+   in turn, twice, warm and cold.
 10. sparse: at that size, ``function()`` of ``sum(y*y)`` and its
    gradient (two RoutedSpMV nodes, two K4 launches) against float64
    scipy, then the power iteration ``train_loop(..., n_steps=64)`` (64
    K4 launches in one call) against a float64 scipy loop; launch counts
    are set to 0 before each call.  Profile of one 64-step call: wall ms,
-   matvecs/s, device ms, busy share, kernels by name.
+   matvecs/s, device ms, busy share, kernels by name, K4's µs a launch.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -73,13 +80,17 @@ last ``{"ok": true, "device": {...}}``.  Each entry has ``bound_ms``, the
 least time the card could take for the kernel's work (the larger of its
 bytes, each input read once and each output written once, over 3.35 TB/s
 and its float32 operations over 67 TFLOP/s, the H100 SXM data sheet's
-rates; ``bound_by`` names the larger), and ``library_ms``, the device
+rates; ``bound_by`` names the larger; K2 and K3, which run a chain on one
+block, also carry ``bound_one_sm_ms``, the same work at one SM's share of
+those rates), and ``library_ms``, the device
 time of one PyTorch call computing the same function (cuSPARSE's CSR
 matvec for K4; none exists for K1-K3).  It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import hashlib
 import json
 import re
@@ -87,6 +98,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -141,6 +153,8 @@ SPARSE_N, SPARSE_NNZ_ROW, SPARSE_STEPS = 65536, 10, 64
 SPARSE_TOL = {"cost": 2.4e-7, "grad": 3.5e-7, "x": 5.4e-7, "out": 2.4e-7}
 # the H100 SXM data sheet's rates, for the bound of each kernel
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
+# written between K4 launches to time it with L2 cold (the H100's is 50 MB)
+L2_FLUSH_BYTES = 128 * 2 ** 20
 
 
 def say(*parts):
@@ -290,6 +304,47 @@ def k2_stamp_breakdown(kern, k2_ms, plain_outs, n_steps, outer):
         say(f"    {per_op[k - 1]:8.0f}  {labels[k][0]:14s} lines {first}-{at[k]}  {labels[k][1]}")
 
 
+def k4_ms(launch, n_iter, flush=None):
+    """Device time a launch of K4's kernel alone, from the profile, with
+    ``flush`` written before each launch when given, so that the launch
+    finds L2 cold."""
+    def call():
+        if flush is not None:
+            flush.zero_()
+        return launch()
+
+    _, by_name = device_ms(call, n_iter)
+    return next(ms / count for kn, (ms, count) in by_name.items() if "spmv_csr_kernel" in kn)
+
+
+def parent_k4(root):
+    """K4's launch as built from the tree at ``root``: its
+    ``csrc/spmv_csr.cu`` through the same C entry, with this tree's build
+    flags and lane count.  Its launches are not counted."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda.build import build_library
+    from pytensor_tpu_torch.link.cuda.spmv_kernel import group_size
+
+    src = Path(root, "pytensor_tpu_torch", "csrc", "spmv_csr.cu")
+    lib, _ = build_library(src.read_text(), "spmv_csr_parent", src)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.spmv_csr.argtypes = [p, p, p, p, p, i, i, p]
+    lib.spmv_csr.restype = i
+
+    def launch(indptr, indices, data, x):
+        M = indptr.shape[0] - 1
+        y = torch.empty(M, dtype=torch.float32, device=x.device)
+        err = lib.spmv_csr(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), x.data_ptr(),
+                           y.data_ptr(), M, group_size(M, indices.shape[0]),
+                           torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the parent's K4 launch failed: CUDA error {err}")
+        return y
+
+    return launch
+
+
 def digest(*tensors):
     """sha256 of the tensors' bytes, in order: the same bits give the same
     digest."""
@@ -334,7 +389,7 @@ def k3_stamp_breakdown(data, th0, m0, want, k3_ms, tag="K3", flags=()):
         say(f"  {label:28s} {c:8.0f} cycles/step {c / step:6.3f} of the step")
 
 
-def main():
+def main(opts):
     import torch
 
     if not torch.cuda.is_available():
@@ -371,6 +426,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
+    # the one-SM bound of K2 and K3, which run a chain on one block: the
+    # card's rates shared among its SMs
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     say(f"device: {name}, {torch.cuda.device_count()} visible, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, capability {torch.cuda.get_device_capability(0)}")
     say(smi)
@@ -584,6 +642,9 @@ def main():
         f"device: kernel {k3_ms:.4f} ms ({k3_ms / K3_STEPS * 1e3:.3f} us/step), "
         f"plain {k3_plain_ms:.2f} ms, {N_CHAINS} chains in one launch {k3_chains_ms:.4f} ms; "
         f"wall: kernel {k3_wall:.4f} ms, plain {k3_plain_wall:.2f} ms")
+    say(f"K3 bound for all {K3_STEPS} steps ({k3_bound[1]}): the card {k3_bound[0] * 1e3:.4f} us, "
+        f"one SM {k3_bound[0] * n_sms * 1e3:.2f} us ({k3_bound[0] * n_sms / K3_STEPS * 1e6:.1f} "
+        f"ns a step); K3 runs a chain on one block")
     # the rows in registers against the same kernel walking shared memory
     shared = radon_kernel.leapfrog_launch(th0_d, m0_d, fn3.data, K3_STEPS, EPS,
                                           flags=K3_SHARED_WALK)
@@ -700,6 +761,9 @@ def main():
         f"{k2_plain_ms:.2f} ms ({k2_plain_ms / K2_STEPS * 1e3:.1f} us/step); wall: kernel "
         f"{k2_wall:.4f} ms, plain {k2_plain_wall:.2f} ms "
         f"({k2_plain_wall / K2_STEPS * 1e3:.1f} us/step)")
+    say(f"K2 bound for {K2_STEPS} steps ({k2_bound[1]}): the card {k2_bound[0] * 1e3:.4f} us, one "
+        f"SM {k2_bound[0] * n_sms * 1e3:.2f} us ({k2_bound[0] * n_sms / K2_STEPS * 1e3:.3f} us a "
+        f"step); K2 runs a chain on one block")
     k2_stamp_breakdown(k2_stamped, k2_ms, got2, n_steps, outer)
 
     # 7. chain through scan + function() --------------------------------------
@@ -839,6 +903,9 @@ def main():
     say(f"sparse: A {n} x {n}, {A.nnz} nonzeros, rows of {np.diff(A.indptr).min()}-"
         f"{np.diff(A.indptr).max()}, made in {time.perf_counter() - t0:.2f} s")
     k4 = {}
+    parent = parent_k4(opts.parent) if opts.parent else None
+    # written between launches for the cold-L2 time: 128 MB, over twice L2
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     for tag, M in (("A", A), ("A^T", A.T.tocsr())):
         c = sparse_as_torch(M, dev)
         args = (c.indptr, c.indices, c.data, x0_d)
@@ -858,7 +925,9 @@ def main():
         lib_mat = torch.sparse_csr_tensor(c.indptr, c.indices, c.data, size=M.shape)
         lib_err = float((lib_mat @ x0_d - want4).abs().max())
         G = spmv_kernel.group_size(n, M.nnz)
-        ms4, by4 = device_ms(lambda: spmv_kernel.launch(*args), 50)
+        plan4 = spmv_kernel.plan(n, G)
+        ms4 = k4_ms(lambda: spmv_kernel.launch(*args), 50)
+        cold4 = k4_ms(lambda: spmv_kernel.launch(*args), 50, flush)
         plain4, _ = device_ms(lambda: spmv_kernel.plain(*args), 20)
         lib4, _ = device_ms(lambda: lib_mat @ x0_d, 50)
         wall4 = wall_ms(lambda: spmv_kernel.launch(*args), 200)
@@ -868,17 +937,37 @@ def main():
             f"4*D2*2^-24*sum|a x|, worst share "
             f"{float(np.max(diff[row_tol > 0] / row_tol[row_tol > 0])):.3f}), "
             f"cuSPARSE vs plain {lib_err:.3e}, bit-identical relaunch; device: kernel "
-            f"{ms4 * 1e3:.2f} us, plain {plain4 * 1e3:.2f} us, cuSPARSE {lib4 * 1e3:.2f} us, "
-            f"bound {b4[0] * 1e3:.3f} us ({b4[1]}, {b4[0] / ms4:.3f} of it reached); wall: "
+            f"{ms4 * 1e3:.2f} us (L2 warm), {cold4 * 1e3:.2f} us (L2 cold), plain "
+            f"{plain4 * 1e3:.2f} us, cuSPARSE {lib4 * 1e3:.2f} us, bound {b4[0] * 1e3:.3f} us "
+            f"({b4[1]}, {b4[0] / ms4:.3f} of it reached warm, {b4[0] / cold4:.3f} cold); wall: "
             f"kernel {wall4 * 1e3:.2f} us, plain {plain_wall4 * 1e3:.2f} us")
+        say(f"K4 {tag}: tiles of {plan4['rows']} rows, a tile a block: {plan4['blocks']} tiles "
+            f"and blocks of {plan4['rows'] * G} threads, {plan4['waves']} wave(s) of the "
+            f"{plan4['resident']} blocks the card holds at once; output sha256 {digest(got4)}")
+        if parent is not None:
+            got_p = parent(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got_p.view(torch.int32), got4.view(torch.int32)):
+                raise AssertionError(f"K4 {tag}: the parent's K4 gives other bits")
+            turns = {"this": [], "parent": []}
+            for _ in range(2):
+                for who, fn in (("this", spmv_kernel.launch), ("parent", parent)):
+                    turns[who].append((k4_ms(lambda: fn(*args), 50),
+                                       k4_ms(lambda: fn(*args), 50, flush)))
+            say(f"K4 {tag} beside the parent's ({opts.parent}), in turn, 50 launches a timing, "
+                "warm / cold us: " + "; ".join(
+                    f"{who} " + ", ".join(f"{w * 1e3:.2f} / {c * 1e3:.2f}" for w, c in t)
+                    for who, t in turns.items())
+                + f"; the parent's output sha256 {digest(got_p)}, this tree's bits")
         say("  kernels of the cuSPARSE call: " + ", ".join(
             kn[:60] for kn in device_ms(lambda: lib_mat @ x0_d, 5)[1]))
         if tag == "A":
             k4 = {"max_abs_err": float(diff.max()), "ms": ms4, "plain_ms": plain4,
-                  "wall_ms": wall4, "plain_wall_ms": plain_wall4, "library_ms": lib4,
-                  "bound_ms": b4[0], "bound_by": b4[1]}
+                  "wall_ms": wall4, "plain_wall_ms": plain_wall4, "cold_ms": cold4,
+                  "library_ms": lib4, "bound_ms": b4[0], "bound_by": b4[1]}
         else:
             k4["max_abs_err"] = max(k4["max_abs_err"], float(diff.max()))
+    del flush
 
     # 10. the sparse slice: gradient function and the power iteration ----------
     A_var = as_sparse_variable(A)
@@ -952,6 +1041,9 @@ def main():
         f"{power_dev / t_power:.3f}")
     for kname, (ms, count) in sorted(power_by.items(), key=lambda kv: -kv[1][0])[:10]:
         say(f"  {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+    k4_power = [(ms, count) for kn, (ms, count) in power_by.items() if "spmv_csr_kernel" in kn]
+    say(f"K4 inside the power iteration: {k4_power[0][0] / k4_power[0][1] * 1e3:.2f} us a launch "
+        f"(device), {k4_power[0][1]:.0f} launches a call")
 
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "cuda",
@@ -967,14 +1059,16 @@ def main():
          "launches": launches["radon_leapfrog"], "max_abs_err": k3_abs,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "wall_ms": k3_wall, "plain_wall_ms": k3_plain_wall,
-         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "bound_one_sm_ms": k3_bound[0] * n_sms, "library_ms": None},
         {"name": "scan_whole_loop (K2)", "route": "cuda",
          "source": "pytensor_tpu_torch/link/cuda/scan_kernel.py",
          "replaces": "pytensor_tpu/link/pallas/scan_pallas.py:101",
          "launches": chain_launches["scan_whole_loop"], "max_abs_err": k2_abs,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "wall_ms": k2_wall, "plain_wall_ms": k2_plain_wall,
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "bound_one_sm_ms": k2_bound[0] * n_sms, "library_ms": None},
         {"name": "spmv_csr (K4)", "route": "cuda",
          "source": "pytensor_tpu_torch/csrc/spmv_csr.cu",
          "replaces": "pytensor_tpu/link/pallas/route.py:194",
@@ -987,4 +1081,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    cli = argparse.ArgumentParser(description="Drive the torch port on one NVIDIA GPU.")
+    cli.add_argument("--parent", metavar="DIR",
+                     help="a checkout of an earlier commit whose K4 phase 9 holds and times "
+                          "beside this tree's")
+    sys.exit(main(cli.parse_args()))

@@ -5,10 +5,14 @@ linked graph on the explicit inputs and the shared tensors, write the
 update values into the shared tensors in place, return the outputs.
 
 The torch lowerings return views where numpy would (``Subtensor``,
-``Reshape``, ``DimShuffle``), so an output or an update value may share
-memory with a shared tensor that this call updates.  Such a value is
-copied before any update is written: an output never changes under the
-caller, and a swap of two shared variables reads both old values.
+``Reshape``, ``DimShuffle``), and the identity returns the tensor itself,
+so an output may share memory with a shared tensor.  Such an output is
+copied, as the JAX package's ``DeepCopyOp`` copies it: an output never
+changes under the caller, whichever function updates the shared
+variable later.  An update value that shares memory with a shared tensor
+this call updates is copied before any update is written, so a swap of
+two shared variables reads both old values.  Other values are returned
+as they are.
 """
 
 from __future__ import annotations
@@ -32,18 +36,20 @@ class Function:
             raise TypeError(f"expected {self.n_explicit} inputs, got {len(args)}")
         shared = [sv.storage[0] for sv in self.shared_vars]
         results = list(self.linked(*args, *shared))
+        held = {t.untyped_storage().data_ptr() for t in shared}
+        outputs = [r.clone() if r.untyped_storage().data_ptr() in held else r
+                   for r in results[: self.n_outputs]]
         if self.update_targets:
             updated = {sv.storage[0].untyped_storage().data_ptr()
                        for sv in self.update_targets}
-            results = [r.clone() if r.untyped_storage().data_ptr() in updated else r
-                       for r in results]
-            for sv, value in zip(self.update_targets, results[self.n_outputs:]):
+            values = [r.clone() if r.untyped_storage().data_ptr() in updated else r
+                      for r in results[self.n_outputs:]]
+            for sv, value in zip(self.update_targets, values):
                 if value.shape != sv.storage[0].shape:
                     # copy_ would broadcast; an update keeps the shape
                     raise ValueError(f"update of {sv} has shape {tuple(value.shape)}, "
                                      f"the shared tensor {tuple(sv.storage[0].shape)}")
                 sv.storage[0].copy_(value)
-        outputs = results[: self.n_outputs]
         if self.unpack_single:
             return outputs[0]
         return outputs

@@ -43,10 +43,13 @@ CEXPR = {
     "mul": lambda a, t: "(" + " * ".join(a) + ")",
     "sub": lambda a, t: f"({a[0]} - {a[1]})",
     "neg": lambda a, t: f"(-{a[0]})",
-    # fabs clears the sign of -0.0, as numpy's abs does
+    # fabs clears the sign of -0.0, as numpy's abs does; abs and sqr of a
+    # bool are the bool, as the graph's type says (in C, a bool times a
+    # bool is an int)
     "abs": lambda a, t: (f"{'fabsf' if t == 'float32' else 'fabs'}({a[0]})"
-                         if t in ("float32", "float64") else f"({a[0]} < 0 ? -{a[0]} : {a[0]})"),
-    "sqr": lambda a, t: f"({a[0]} * {a[0]})",
+                         if t in ("float32", "float64") else a[0] if t == "bool"
+                         else f"({a[0]} < 0 ? -{a[0]} : {a[0]})"),
+    "sqr": lambda a, t: a[0] if t == "bool" else f"({a[0]} * {a[0]})",
     "true_div": lambda a, t: f"({a[0]} / {a[1]})",
     "reciprocal": lambda a, t: f"(({CTYPES[t]})1 / {a[0]})",
     "pow": lambda a, t: (f"k2_ipow({a[0]}, {a[1]})" if t not in ("float32", "float64")

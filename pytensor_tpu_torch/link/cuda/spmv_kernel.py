@@ -5,7 +5,8 @@ and the routed permutation built from it), which the JAX package's routed
 SpMV composes into ``y = A x`` (``sparse/spmv.py:143 build_spmv_fn``).
 The CUDA kernel (``csrc/spmv_csr.cu``) is that whole function: the gather
 ``x[indices[k]]``, the multiply by ``data[k]`` and the row sum, a group
-of ``G`` lanes a row; its source says what bounds it and how.
+of ``G`` lanes a row; its source says what bounds it and how.  ``plan``
+says how a launch fills the card.
 
 The kernel is built by ``link/cuda/build.py`` (nvcc for sm_90a into the
 gitignored ``build/kernels/``) at first use and called through
@@ -46,6 +47,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.spmv_csr.argtypes = [p, p, p, p, p, i, i, p]
     lib.spmv_csr.restype = i
+    lib.spmv_csr_plan.argtypes = [i, i, p]
+    lib.spmv_csr_plan.restype = i
     _LIB = lib
     return lib
 
@@ -57,6 +60,19 @@ def group_size(n_rows: int, nnz: int) -> int:
     if mean <= 1:
         return 1
     return min(32, 2 ** round(math.log2(mean)))
+
+
+def plan(n_rows: int, G: int) -> dict:
+    """How a launch for ``n_rows`` rows with ``G`` lanes a row fills the
+    current card: rows a block, blocks, the blocks the card holds at once
+    (its SMs times the blocks an SM holds) and the waves they take."""
+    out = (ctypes.c_int * 4)()
+    err = build().spmv_csr_plan(int(n_rows), int(G), out)
+    if err != 0:
+        raise RuntimeError(f"K4 occupancy query failed: CUDA error {err}")
+    rows, blocks, resident = out[0], out[1], out[2] * out[3]
+    return {"rows": rows, "blocks": blocks, "resident": resident,
+            "waves": -(-blocks // max(resident, 1))}
 
 
 def _check(indptr, indices, data, x):

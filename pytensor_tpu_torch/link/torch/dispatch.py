@@ -60,6 +60,7 @@ def elemwise_fn(node):
     would let a 0-d float64 operand be computed at float32.
     """
     so = node.op.scalar_op
+    so.check_inputs(*(i.type.dtype for i in node.inputs))
     fn = so.torch_fn
     if so.name == "second" or so.name.startswith("cast{"):
         return fn

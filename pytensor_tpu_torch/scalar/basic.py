@@ -62,14 +62,17 @@ class ScalarOp(MetaObject):
     torch_fn     torch implementation (linker, plain fused path)
     grad_fn      (inputs, outputs, output_grads) -> list of input grads
     dtype_rule   'upcast' | 'float' | callable(*dtypes)
+    float_inputs the op takes float inputs only: a graph may hold it on
+                 other inputs, and linking such a node raises TypeError
     """
 
     __props__ = ("name",)
 
     def __init__(self, name: str, nin: int, np_fn: Callable, torch_fn: Callable,
                  grad_fn: Callable | None = None, dtype_rule="upcast",
-                 identity=None, commutative: bool = False):
+                 identity=None, commutative: bool = False, float_inputs: bool = False):
         self.name = name
+        self.float_inputs = float_inputs
         self.nin = nin
         self.nout = 1
         self.np_fn = np_fn
@@ -88,6 +91,13 @@ class ScalarOp(MetaObject):
         if rule == "float":
             return upcast_float(*input_dtypes)
         raise ValueError(f"unknown dtype rule {rule}")
+
+    def check_inputs(self, *input_dtypes: str):
+        """Raise TypeError where the op refuses an input dtype (the JAX
+        package's lowering raises it when the function is first run)."""
+        for d in input_dtypes:
+            if self.float_inputs and not str(d).startswith("float"):
+                raise TypeError(f"{self.name} does not accept dtype {d}; it takes floats")
 
     def impl(self, *args):
         return self.np_fn(*args)
@@ -182,9 +192,30 @@ def _pow_grad(i, o, gz):
 
 pow = _op("pow", 2, np.power, torch.pow, _pow_grad)
 neg = _op("neg", 1, np.negative, torch.neg, lambda i, o, gz: [-gz[0]])
-abs = _op("abs", 1, np.abs, torch.abs, lambda i, o, gz: [gz[0] * _tm().sign(i[0])])
-sign = _op("sign", 1, np.sign, torch.sign, lambda i, o, gz: [_zero_like(i[0])])
-sqr = _op("sqr", 1, np.square, torch.square, lambda i, o, gz: [gz[0] * 2 * i[0]])
+
+
+def _bool_identity(fn):
+    """``fn``, or for a bool tensor a copy of it: abs and sqr of a bool are
+    the bool, as the graph's type says and the JAX package gives (torch's
+    abs refuses bool, and its square gives int64)."""
+    return lambda a: a.clone() if a.dtype == torch.bool else fn(a)
+
+
+abs = _op("abs", 1, np.abs, _bool_identity(torch.abs),
+          lambda i, o, gz: [gz[0] * _tm().sign(i[0])])
+
+
+def _sign(a):
+    """jnp.sign's values: a float zero keeps its sign and NaN stays NaN
+    (torch.sign gives +0.0 for both)."""
+    if not a.is_floating_point():
+        return torch.sign(a)
+    return torch.where((a == 0) | a.isnan(), a, torch.sign(a))
+
+
+sign = _op("sign", 1, np.sign, _sign, lambda i, o, gz: [_zero_like(i[0])])
+sqr = _op("sqr", 1, np.square, _bool_identity(torch.square),
+          lambda i, o, gz: [gz[0] * 2 * i[0]])
 sqrt = _op("sqrt", 1, np.sqrt, torch.sqrt,
            lambda i, o, gz: [gz[0] / (2 * o[0])], dtype_rule="float")
 reciprocal = _op("reciprocal", 1, np.reciprocal, torch.reciprocal,

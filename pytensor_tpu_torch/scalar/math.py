@@ -17,5 +17,8 @@ def _np_sigmoid(x):
         return 1 / (1 + np.exp(-np.asarray(x)))
 
 
+# jax.nn.sigmoid, which the JAX package lowers it to, refuses integer and
+# bool inputs
 sigmoid = _op("sigmoid", 1, _np_sigmoid, torch.sigmoid,
-              lambda i, o, gz: [gz[0] * o[0] * (1 - o[0])], dtype_rule="float")
+              lambda i, o, gz: [gz[0] * o[0] * (1 - o[0])], dtype_rule="float",
+              float_inputs=True)

@@ -78,12 +78,14 @@ LAUNCHES = 0
 # (kernels, seconds, compiler log) of every nvcc build of K1 in this process
 BUILDS: list = []
 
-_DTYPES = ("float32", "float64", "int8", "int16", "int32", "int64")
+_DTYPES = ("float32", "float64", "bool", "int8", "int16", "int32", "int64")
 _OPS = frozenset({"add", "mul", "sub", "neg", "abs", "sqr", "true_div", "reciprocal", "exp",
                   "log", "sqrt", "pow", "sin", "cos", "tanh", "sigmoid", "maximum"})
 # ops K1 emits for floats only
 _FLOAT_ONLY = frozenset({"true_div", "reciprocal", "exp", "log", "sqrt", "pow",
                          "sin", "cos", "tanh", "sigmoid"})
+# ops K1 emits with a bool result (numpy's sub and negative refuse bools)
+_BOOL_OPS = frozenset({"add", "mul", "abs", "sqr", "maximum"})
 # elements of one 16-byte vector, by C type
 _VECTOR = {"float": 4, "double": 2}
 
@@ -96,7 +98,10 @@ def emittable(node) -> bool:
     dtypes = [v.type.dtype for v in node.inputs + node.outputs]
     if any(d not in _DTYPES for d in dtypes):
         return False
-    return name not in _FLOAT_ONLY or node.outputs[0].type.dtype.startswith("float")
+    out = node.outputs[0].type.dtype
+    if out == "bool":
+        return name in _BOOL_OPS
+    return name not in _FLOAT_ONLY or out.startswith("float")
 
 
 PRELUDE = f"""#include <cuda_runtime.h>
@@ -238,6 +243,7 @@ class FusedElemwiseKernel:
 
         self.device = resolve_device(device)
         for node in self.order:
+            node.op.scalar_op.check_inputs(*(i.type.dtype for i in node.inputs))
             if not emittable(node):
                 raise TypeError(f"K1 cannot emit {node}")
         # scalar constants are literals; every other constant is an input

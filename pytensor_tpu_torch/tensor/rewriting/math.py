@@ -214,6 +214,21 @@ def local_sum_of_neg(fgraph, node):
 register_specialize(local_sum_of_neg, name="local_sum_of_neg")
 
 
+@node_rewriter([Elemwise])
+def local_sqrt_sqr(fgraph, node):
+    """sqrt(sqr(x)) -> abs(x)."""
+    if not _is_ew(node, "sqrt"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is not None and _is_ew(inner, "sqr"):
+        res = _same_type_out(node, tm.abs(inner.inputs[0]))
+        return [res] if res is not None else False
+    return False
+
+
+register_canonicalize(local_sqrt_sqr, name="local_sqrt_sqr")
+
+
 # ---------------------------------------------------------------------------
 # Algebraic canonicalization (reference tensor/rewriting/math.py
 # AlgebraicCanonizer:1119, redesigned: instead of a generic two-op
@@ -444,6 +459,35 @@ register_canonicalize(local_add_sub_canonizer, name="local_add_sub_canonizer")
 
 
 @node_rewriter([Elemwise])
+def local_abs_simplify(fgraph, node):
+    """abs(abs(x)) -> abs(x); abs(-x) -> abs(x); abs(sqr(x)) -> sqr(x);
+    abs(exp(x)) -> exp(x) (all real-dtype)."""
+    if not _is_ew(node, "abs"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not isinstance(inner.op, Elemwise):
+        return False
+    if node.inputs[0].type.dtype.startswith("complex"):
+        return False
+    name = inner.op.scalar_op.name
+    if name == "abs":
+        res = _same_type_out(node, node.inputs[0])
+    elif name == "neg":
+        res = _same_type_out(node, tm.abs(inner.inputs[0]))
+    elif name in ("sqr", "exp", "sqrt", "softplus", "exp2", "expm1"):
+        # nonnegative-range ops (expm1 >= -1 is NOT nonneg; exclude)
+        if name == "expm1":
+            return False
+        res = _same_type_out(node, node.inputs[0])
+    else:
+        return False
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_abs_simplify, name="local_abs_simplify")
+
+
+@node_rewriter([Elemwise])
 def local_mul_to_sqr(fgraph, node):
     """x * x -> sqr(x) (one read instead of two)."""
     if not _is_ew(node, "mul") or len(node.inputs) != 2:
@@ -485,6 +529,63 @@ def local_sum_div_by_scalar(fgraph, node):
 
 
 register_specialize(local_sum_div_by_scalar, name="local_sum_div_by_scalar")
+
+
+def _split_const_factors(v):
+    """Flatten v = const * core: returns (const, [non-const factors])."""
+    if v.owner is not None and _is_ew(v.owner, "mul"):
+        const = 1.0
+        rest = []
+        for i in v.owner.inputs:
+            c = _unique_value(i)
+            if c is not None:
+                const *= float(c)
+            else:
+                rest.append(i)
+        return const, rest
+    if v.owner is not None and _is_ew(v.owner, "neg"):
+        c, rest = _split_const_factors(v.owner.inputs[0])
+        return -c, rest
+    if v.owner is not None and _is_ew(v.owner, "true_div"):
+        num, den = v.owner.inputs
+        cd = _unique_value(den)
+        if cd is not None and float(cd) != 0:
+            c, rest = _split_const_factors(num)
+            return c / float(cd), rest
+    c = _unique_value(v)
+    if c is not None:
+        return float(c), []
+    return 1.0, [v]
+
+
+@node_rewriter([Elemwise])
+def local_div_abs_to_sign(fgraph, node):
+    """(c1*x) / (c2*abs(c3*x)) -> (c1/(c2*|c3|)) * sign(x) — finite at
+    x = 0 where the unrewritten division is 0/0 (reference
+    AlgebraicCanonizer behavior, test_abs_mul_div)."""
+    if not _is_ew(node, "true_div"):
+        return False
+    num, den = node.inputs
+    cn, num_f = _split_const_factors(num)
+    cd, den_f = _split_const_factors(den)
+    if len(num_f) != 1 or len(den_f) != 1 or cd == 0.0:
+        return False
+    a = den_f[0]
+    if a.owner is None or not _is_ew(a.owner, "abs"):
+        return False
+    ca, abs_f = _split_const_factors(a.owner.inputs[0])
+    if len(abs_f) != 1 or abs_f[0] is not num_f[0] or ca == 0.0:
+        return False
+    x = num_f[0]
+    k = cn / (cd * abs(ca))
+    res = tm.sign(x) if k == 1.0 else (
+        np.asarray(k, dtype=node.outputs[0].type.dtype) * tm.sign(x))
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_div_abs_to_sign, name="local_div_abs_to_sign")
+register_specialize(local_div_abs_to_sign, name="local_div_abs_to_sign")
 
 
 @node_rewriter([Elemwise])

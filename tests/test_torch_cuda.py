@@ -372,6 +372,59 @@ def test_k4_matches_plain_and_is_deterministic(card):
         assert float(got[3]) == 0.0
 
 
+def _lane_order(c, xv, G):
+    """y = A x in K4's lane order (``csrc/spmv_csr.cu``'s note), on the CPU:
+    G lane sums by libm's fmaf (one rounding, as the card's), then the
+    tree in float32."""
+    import ctypes
+    import ctypes.util
+
+    fmaf = ctypes.CDLL(ctypes.util.find_library("m")).fmaf
+    fmaf.argtypes = [ctypes.c_float] * 3
+    fmaf.restype = ctypes.c_float
+    indptr, indices = c.indptr.cpu().numpy(), c.indices.cpu().numpy()
+    data = c.data.cpu().numpy()
+    y = np.empty(len(indptr) - 1, dtype="float32")
+    for r in range(len(y)):
+        acc = [0.0] * G
+        for lane in range(G):
+            for k in range(indptr[r] + lane, indptr[r + 1], G):
+                acc[lane] = fmaf(data[k], xv[indices[k]], acc[lane])
+        acc = [np.float32(a) for a in acc]
+        o = G // 2
+        while o:
+            for lane in range(o):
+                acc[lane] = acc[lane] + acc[lane + o]
+            o //= 2
+        y[r] = acc[0]
+    return y
+
+
+@pytest.mark.parametrize("case", ["random", "rows_of_128"])
+def test_k4_gives_the_lane_order_bit_for_bit(card, case):
+    """K4 against its lane order computed on the CPU, bit for bit: a small
+    random CSR (8 lanes a row), and 16 rows of 128 nonzeros (32 lanes a
+    row, two pairs and no single a lane)."""
+    import scipy.sparse as sp
+
+    from pytensor_tpu_torch.link.cuda import spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import sparse_as_torch
+
+    if case == "random":
+        A, rng = _sparse(3000, 0.003, 11)
+    else:
+        rng = np.random.default_rng(12)
+        cols = np.concatenate([rng.choice(400, 128, replace=False) for _ in range(16)])
+        A = sp.csr_matrix((rng.standard_normal(16 * 128).astype("float32"), cols,
+                           np.arange(0, 16 * 128 + 1, 128)), shape=(16, 400))
+    c = sparse_as_torch(A, card)
+    xv = rng.standard_normal(A.shape[1]).astype("float32")
+    got = spmv_kernel.launch(c.indptr, c.indices, c.data, as_torch(xv, card))
+    torch.cuda.synchronize()
+    want = _lane_order(c, xv, spmv_kernel.group_size(A.shape[0], A.nnz))
+    assert np.array_equal(got.cpu().numpy().view("int32"), want.view("int32"))
+
+
 def test_k4_refuses_what_it_does_not_take(card):
     from pytensor_tpu_torch.link.cuda import spmv_kernel
     from pytensor_tpu_torch.link.torch.convert import sparse_as_torch

@@ -336,3 +336,23 @@ def test_k1_source_layout_classes_match_plain(k1_host, case, dtype):
         assert list(lay.classes[0]) == xc and list(lay.classes[1]) == yc
         assert lay.ints[len(lay.ints) - 3] == vec
         assert bool(torch.isnan(got[1]).any()) and not torch.signbit(got[2]).any()
+
+
+def test_k1_source_bool_results_match_plain(k1_host):
+    """A fused node with bool results: ``sqr`` and ``abs`` of a bool are
+    the bool itself in the source (in C a bool times a bool is an int),
+    ``mul`` and ``add`` of bools are and / or."""
+    b = tpt.tensor("b", dtype="bool", shape=(None,))
+    c = tpt.tensor("c", dtype="bool", shape=(None,))
+    outs = [tpt.sqr(b) * c, tpt.abs(b) + tpt.sqr(c)]
+    assert all(fusable(o.owner) for o in outs) and fusable(tpt.sqr(b).owner)
+    kern = fused_kernel.FusedElemwiseKernel(TFused([b, c], outs).fgraph, "cpu")
+    assert kern.vector == 0 and "* a0" not in kern.source and "a0 < 0" not in kern.source
+    rng = np.random.default_rng(12)
+    bv, cv = (torch.from_numpy(rng.integers(0, 2, size=1001).astype(bool)) for _ in range(2))
+    got, _ = _host_launch(k1_host([kern]), kern, [bv, cv])
+    want = kern.plain(bv, cv)
+    b_np, c_np = bv.numpy(), cv.numpy()
+    for g, w, ref in zip(got, want, (b_np & c_np, b_np | c_np)):
+        assert g.dtype == w.dtype == torch.bool and torch.equal(g, w)
+        np.testing.assert_array_equal(g.numpy(), ref)

@@ -91,6 +91,12 @@ REWRITES = {
         lambda x, y: ([x, y], [(x + 2.0) - (y + 1.0)]))(_vec(pt), _vec(pt, "y"))),
     "local_mul_to_sqr": ("math", lambda pt, tm: (
         lambda x: ([x], [x * x]))(_vec(pt))),
+    "local_sqrt_sqr": ("math", lambda pt, tm: (
+        lambda x: ([x], [pt.sqrt(pt.sqr(x)) * 2.0]))(_vec(pt))),
+    "local_abs_simplify": ("math", lambda pt, tm: (
+        lambda x: ([x], [pt.abs(-x) + pt.abs(pt.exp(x))]))(_vec(pt))),
+    "local_div_abs_to_sign": ("math", lambda pt, tm: (
+        lambda x: ([x], [(3.0 * x) / (2.0 * pt.abs(x))]))(_vec(pt))),
     "local_sum_div_by_scalar": ("math", lambda pt, tm: (
         lambda x, s: ([x, s], [pt.sum(x / s)]))(_vec(pt), pt.tensor("s", dtype="float64", shape=()))),
     "local_div_exp_to_mul_exp": ("math", lambda pt, tm: (
