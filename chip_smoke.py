@@ -29,7 +29,11 @@ Phases, one line or more each, and any failure raises:
    evaluation of the closed form; the batched graph at 1,024 chains; 64
    leapfrog steps through ``leapfrog()``; then one trajectory through K3's
    entry point, ``make_radon_leapfrog_kernel``.  Kernel launch counts are
-   set to 0 before this phase and must be positive after it.
+   set to 0 before this phase and must be positive after it.  Each linked
+   function is a CUDA graph (``TorchLinker``, ``config.xla__jit``) and is
+   called once before the counts are set to 0, so that the counted calls
+   are replays (a wrapper's count goes up at each replay by what the
+   capture recorded), and in phases 7 and 10 the same.
 6. K2: the chain of ``make_leapfrog_chain`` at full width, one float32
    chain, 64 steps: K2 (one launch) against its plain step loop on the
    card, and the chain against the float64 loop; relative errors of
@@ -43,11 +47,19 @@ Phases, one line or more each, and any failure raises:
    theta, m and logp are held against K3's 8,192 steps from the same
    start.  The batched chain at 1,024 chains takes the step loop for 16
    steps and is held against K3 at 1,024 chains.
-8. profile: wall time per call of each linked function, its time on the
-   card from ``torch.profiler``, the card's busy share, and the kernels
-   that take the card's time; for the 8,192-step chain the device and
-   wall ms, µs a step and dlogp evals/s, and the kernels of one call (K2
-   once, nothing per step); the plain loop's time a step at 64 steps.
+8. profile: each linked function of the radon path (single chain, 1,024
+   chains, the 64-step ``leapfrog()`` loop, the 8,192-step chain) captured
+   and eager (linked with ``xla__jit`` off), in turn in this process: wall
+   and device ms a call, the busy share, the nodes a call runs and the
+   kernels it launches, the seconds of the warm-up and the capture, the
+   peak memory of a call; the float32 ``entry`` function's outputs,
+   replayed and eager, must have the same sha256.  The peak memory of the
+   eager batched graph with its free lists emptied (the linker before free
+   lists) beside it; a 1,024-step float64 chain through the step loop
+   (~120,000 nodes) as the longest capture.  Then the kernels that take
+   the card's time; for the 8,192-step chain the device and wall ms, µs a
+   step and dlogp evals/s, and the kernels of one call (K2 once, nothing
+   per step); the plain loop's time a step at 64 steps.
 9. K4: the 65,536 x 65,536 CSR matrix of ``benchsuite.py:160
    ours_sparse`` (ten nonzeros a row, float32, seed 0): K4 against its
    plain version for A and its transpose, per row within
@@ -64,8 +76,11 @@ Phases, one line or more each, and any failure raises:
    gradient (two RoutedSpMV nodes, two K4 launches) against float64
    scipy, then the power iteration ``train_loop(..., n_steps=64)`` (64
    K4 launches in one call) against a float64 scipy loop; launch counts
-   are set to 0 before each call.  Profile of one 64-step call: wall ms,
-   matvecs/s, device ms, busy share, kernels by name, K4's µs a launch.
+   are set to 0 before each call.  Both captured and eager as in phase 8
+   (the power iteration's also with its free lists emptied); the power
+   iteration's replayed output and final x must have the eager call's
+   sha256.  Profile of one 64-step call: wall ms, matvecs/s, device ms,
+   busy share, kernels by name, K4's µs a launch.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -73,7 +88,8 @@ host's launch path, not the card.  ``device_ms`` takes the durations of
 the CUDA kernels that ``torch.profiler`` traces, per launch, so that a
 launch the trace missed does not shorten a kernel.  The kernel line's
 ``ms`` and ``plain_ms`` are device times; ``wall_ms`` and
-``plain_wall_ms`` beside them are wall times.
+``plain_wall_ms`` beside them are wall times.  A replayed CUDA graph's
+kernels are traced one by one, as the eager ones are.
 
 The second-to-last line is a JSON object with one entry per kernel, the
 last ``{"ok": true, "device": {...}}``.  Each entry has ``bound_ms``, the
@@ -354,6 +370,64 @@ def digest(*tensors):
     return h.hexdigest()
 
 
+def peak_mb(call):
+    """MiB allocated at the peak of one call above what was allocated
+    before it (``torch.cuda.max_memory_allocated``)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = call()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def without_free_lists(plan):
+    """An eager plan with its free lists emptied, and those of its scan
+    step loops' inner plans: the linker as it ran before free lists, kept
+    here to measure what they save."""
+    plan.steps = [(fn, node, spec, ()) for fn, node, spec, _ in plan.steps]
+    for fn, *_ in plan.steps:
+        if getattr(fn, "inner", None) is not None:
+            without_free_lists(fn.inner)
+    return plan
+
+
+def captured_vs_eager(tag, captured, eager, functions, n_iter, n_dev=None, extra=""):
+    """One linked function captured (``functions``: the CapturedFunctions a
+    call replays) and eager, in turn: wall and device ms a call, the busy
+    share, kernels a call, nodes a call, warm-up and capture seconds, peak
+    MiB of a call; ``n_iter`` calls a wall time, ``n_dev`` (a quarter of
+    them by default) a device time.  Returns ``{"captured": ..., "eager": ...}``, each with
+    ``wall``, ``dev`` and ``by`` (device ms and launches by kernel)."""
+    from pytensor_tpu_torch.link.torch import linker as torch_linker
+
+    torch_linker.NODES_RUN = 0
+    eager()
+    nodes = torch_linker.NODES_RUN
+    graphs = [g for f in functions for g in f.graphs.values()]
+    row = {}
+    for kind, call in (("captured", captured), ("eager", eager)):
+        wall = wall_ms(call, n_iter)
+        dev, by = device_ms(call, n_dev or max(1, n_iter // 4))
+        row[kind] = {"wall": wall, "dev": dev, "by": by, "peak": peak_mb(call)}
+    c, e = row["captured"], row["eager"]
+
+    def kernels(r):
+        return f"{sum(n for _, n in r['by'].values()):.0f}"
+
+    say(f"linked {tag}: captured wall {c['wall']:.4f} ms/call, device {c['dev']:.4f} ms, "
+        f"busy {c['dev'] / c['wall']:.3f}, {kernels(c)} kernels/call, peak "
+        f"{c['peak']:.3f} MiB a call; eager wall {e['wall']:.4f} ms/call, device "
+        f"{e['dev']:.4f} ms, busy {e['dev'] / e['wall']:.3f}, {kernels(e)} kernels/call, peak "
+        f"{e['peak']:.3f} MiB; {nodes} nodes a call; {len(graphs)} graph(s): warm-up "
+        + ", ".join(f"{g.warmup_s:.3f}" for g in graphs) + " s, capture "
+        + ", ".join(f"{g.capture_s:.3f}" for g in graphs) + f" s{extra}")
+    return row
+
+
 def k3_stamp_breakdown(data, th0, m0, want, k3_ms, tag="K3", flags=()):
     """K3's step split by part, from the stamped variant (of the build that
     ``flags`` pick): block 0's thread 0 records clock64() after each part of
@@ -400,11 +474,12 @@ def main(opts):
     import pytensor_tpu_torch as ptt  # (fails outside a checkout)
     import pytensor_tpu_torch.tensor as pt
     from pytensor_tpu_torch.compile.mode import FAST_RUN
+    from pytensor_tpu_torch.config import config
     from pytensor_tpu_torch.entry import entry
     from pytensor_tpu_torch.graph.fg import FunctionGraph
     from pytensor_tpu_torch.link.cuda import scan_kernel, spmv_kernel
     from pytensor_tpu_torch.link.torch.convert import as_torch, sparse_as_torch
-    from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction, TorchLinker, fgraph_to_torch
     from pytensor_tpu_torch.models import radon_kernel
     from pytensor_tpu_torch.models.radon import (
         leapfrog,
@@ -473,7 +548,7 @@ def main(opts):
 
     def linked(dtype, batched):
         fg, n = graphs[dtype, batched]
-        return fg, fgraph_to_torch(fg, dev), n
+        return fg, TorchLinker.make_torch_fn(fg, dev), n
 
     def timed(fn):
         t = time.perf_counter()
@@ -668,6 +743,12 @@ def main(opts):
     theta_b = start_point(n, "float32", N_CHAINS)
     rng = np.random.default_rng(2)
     m_start = rng.standard_normal(n).astype("float32")
+    if not (isinstance(fn, CapturedFunction) and isinstance(fn_b, CapturedFunction)):
+        raise AssertionError("the radon functions must be captured on the card")
+    # the capturing calls (a warm-up and a capture each), so that the
+    # counted calls below are replays
+    fn(theta0)
+    fn_b(as_torch(theta_b, dev))
     fused_kernel.LAUNCHES = 0
     radon_kernel.LAUNCHES = 0
     scan_kernel.LAUNCHES = 0
@@ -768,6 +849,7 @@ def main(opts):
 
     # 7. chain through scan + function() --------------------------------------
     chain = make_leapfrog_chain("float32", None, CHAIN_STEPS, N_OBS, N_COUNTIES, device=dev)
+    chain(th0_d, m0_d)  # the capturing call; the counted call is a replay
     fused_kernel.LAUNCHES = 0
     radon_kernel.LAUNCHES = 0
     scan_kernel.LAUNCHES = 0
@@ -776,7 +858,8 @@ def main(opts):
     chain_launches = {"fused_elemwise": fused_kernel.LAUNCHES,
                       "radon_leapfrog": radon_kernel.LAUNCHES,
                       "scan_whole_loop": scan_kernel.LAUNCHES}
-    say(f"chain launches, make_leapfrog_chain({CHAIN_STEPS} steps) one call: {chain_launches}")
+    say(f"chain launches, make_leapfrog_chain({CHAIN_STEPS} steps) one replayed call: "
+        f"{chain_launches}")
     if chain_launches["scan_whole_loop"] != 1 or chain_launches["fused_elemwise"] < 1:
         raise AssertionError(f"the chain must launch K2 once and K1: {chain_launches}")
     fn3_chain = radon_kernel.make_radon_leapfrog_kernel(
@@ -830,21 +913,40 @@ def main(opts):
     # 8. profile -------------------------------------------------------------
     theta_b_d = as_torch(theta_b, dev)
     theta_d, m_d = as_torch(theta, dev), as_torch(m_start, dev)
-    t_single = wall_ms(lambda: fn(theta0), 200)
-    t_batched = wall_ms(lambda: fn_b(theta_b_d), 100)
-    t_leap = wall_ms(lambda: leapfrog(fn, theta_d, m_d, LEAPFROG_STEPS, EPS), 3, warmup=1)
-    say(f"linked entry fn: wall {t_single:.4f} ms/call ({1e3 / t_single:,.0f} logp+dlogp "
-        f"evals/s); batched x{N_CHAINS}: wall {t_batched:.4f} ms/call "
-        f"({N_CHAINS * 1e3 / t_batched:,.0f} chain-evals/s); "
-        f"leapfrog() {LEAPFROG_STEPS} steps: wall {t_leap:.2f} ms")
-    for tag, call, wall in (("entry fn", lambda: fn(theta0), t_single),
-                            (f"batched x{N_CHAINS}", lambda: fn_b(theta_b_d), t_batched)):
-        dev_ms, by_name = device_ms(call, 50)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-        say(f"profile {tag}: device {dev_ms:.4f} ms/call, {sum(c for _, c in by_name.values()):.0f} "
-            f"kernels/call, busy {dev_ms / wall:.3f} of wall {wall:.4f} ms")
-        for kname, (ms, count) in top:
-            say(f"  {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+    # the same functions linked eagerly (xla__jit off), compared in turn
+    with config.change_flags(xla__jit=False):
+        fn_e = entry("cuda")[0]
+        fn_b_e = TorchLinker.make_torch_fn(graphs["float32", True][0], dev)
+        chain_e = make_leapfrog_chain("float32", None, CHAIN_STEPS, N_OBS, N_COUNTIES,
+                                      device=dev)
+    nofree_b = without_free_lists(fgraph_to_torch(graphs["float32", True][0], dev))
+    # replayed against eager, bit for bit: the float32 graph has no atomics
+    d_cap, d_eager = digest(*fn(theta0)), digest(*fn_e(theta0))
+    say(f"entry fn sha256 of logp, dlogp: replayed {d_cap}, eager {d_eager}")
+    if d_cap != d_eager:
+        raise AssertionError("the replayed entry function differs from the eager plan")
+    prof = {
+        "single": captured_vs_eager("entry fn (single chain)", lambda: fn(theta0),
+                                    lambda: fn_e(theta0), [fn], 200),
+        "batched": captured_vs_eager(
+            f"batched x{N_CHAINS}", lambda: fn_b(theta_b_d), lambda: fn_b_e(theta_b_d), [fn_b],
+            100, extra=f"; eager with its free lists emptied: peak "
+                       f"{peak_mb(lambda: nofree_b(theta_b_d)):.2f} MiB a call"),
+        "leapfrog": captured_vs_eager(
+            f"leapfrog() {LEAPFROG_STEPS} steps", lambda: leapfrog(fn, theta_d, m_d,
+                                                                   LEAPFROG_STEPS, EPS),
+            lambda: leapfrog(fn_e, theta_d, m_d, LEAPFROG_STEPS, EPS), [fn], 3),
+    }
+    t_single, t_batched = prof["single"]["captured"]["wall"], prof["batched"]["captured"]["wall"]
+    say(f"linked entry fn, captured: wall {t_single:.4f} ms/call ({1e3 / t_single:,.0f} "
+        f"logp+dlogp evals/s); batched x{N_CHAINS}: wall {t_batched:.4f} ms/call "
+        f"({N_CHAINS * 1e3 / t_batched:,.0f} chain-evals/s); leapfrog() {LEAPFROG_STEPS} steps: "
+        f"wall {prof['leapfrog']['captured']['wall']:.2f} ms")
+    for tag, key in (("entry fn", "single"), (f"batched x{N_CHAINS}", "batched")):
+        for kind in ("captured", "eager"):
+            by_name = prof[key][kind]["by"]
+            for kname, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+                say(f"  {tag} {kind}: {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:80]}")
     say(f"K1 per single-chain f32 graph call: device {k1['ms']:.4f} ms vs plain "
         f"{k1['plain_ms']:.4f} ms, wall {k1['wall_ms']:.4f} ms vs plain "
         f"{k1['plain_wall_ms']:.4f} ms; K3 {K3_STEPS} steps: device {k3_ms:.4f} ms vs plain "
@@ -856,9 +958,32 @@ def main(opts):
              "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
 
     clocks_before = clocks()
-    t_chain = wall_ms(lambda: chain(th0_d, m0_d), 3, warmup=1)
-    chain_dev, chain_by = device_ms(lambda: chain(th0_d, m0_d), 3, warmup=1)
+    prof["chain"] = captured_vs_eager(f"chain {CHAIN_STEPS} steps", lambda: chain(th0_d, m0_d),
+                                      lambda: chain_e(th0_d, m0_d), [chain.linked], 3,
+                                      n_dev=3)
     clocks_after = clocks()
+    t_chain, chain_dev = prof["chain"]["captured"]["wall"], prof["chain"]["captured"]["dev"]
+    chain_by = prof["chain"]["captured"]["by"]
+    say(f"chain {CHAIN_STEPS} steps: captured wall {t_chain / prof['chain']['eager']['wall']:.4f} "
+        f"of eager's in this process")
+    # the longest capture of the path: a float64 chain through the step
+    # loop, ~120 nodes a step
+    long_chain = make_leapfrog_chain("float64", None, K3_STEPS, N_OBS, N_COUNTIES, device=dev)
+    th64, m64 = th0_d.double(), m0_d.double()
+    long_first = long_chain(th64, m64)
+    long_wall = wall_ms(lambda: long_chain(th64, m64), 2, warmup=1)
+    long_again = long_chain(th64, m64)
+    torch.cuda.synchronize()
+    g_long = next(iter(long_chain.linked.graphs.values()))
+    long_err = {k: rel_err(a.cpu(), b.cpu()) for k, a, b in zip(keys, long_again, long_first)}
+    if not all(bool(torch.isfinite(v).all()) for v in long_again):
+        raise AssertionError("the replayed float64 chain is not finite")
+    say(f"longest capture: float64 chain of {K3_STEPS} steps through the step loop: "
+        f"{g_long.nodes} nodes, warm-up {g_long.warmup_s:.2f} s, capture {g_long.capture_s:.2f} s "
+        f"({g_long.capture_s / g_long.nodes * 1e6:.1f} us a node); replay wall {long_wall:.2f} "
+        f"ms/call; replay vs the warm-up's outputs, rel err {_fmt(long_err)} (index_add_ adds "
+        f"float64 by atomics)")
+    del long_chain, long_first, long_again
     k2_names = [kn for kn in chain_by if "k2_kernel" in kn]
     per_call = sum(c for _, c in chain_by.values())
     # the launch counter showed one K2 launch a call (phase 7); the trace
@@ -981,6 +1106,7 @@ def main(opts):
         f"{[type(nd.op).__name__ for nd in f_grad.fgraph.toposort()]}")
     if n_routed != 2:
         raise AssertionError(f"the gradient graph holds {n_routed} RoutedSpMV nodes, not 2")
+    f_grad(x0_d)  # the capturing call; the counted call is a replay
     fused_kernel.LAUNCHES = radon_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
     spmv_kernel.LAUNCHES = 0
     c_val, g_val = f_grad(x0_d)
@@ -1000,6 +1126,11 @@ def main(opts):
                              f"tol {SPARSE_TOL}")
     say(f"sparse gradient function: {grad_launches} K4 launches; cost rel err {e_cost:.2e}, "
         f"max|grad err|/max|grad| {e_grad:.2e} vs float64 scipy (tol {SPARSE_TOL})")
+    with config.change_flags(xla__jit=False):
+        f_grad_e = ptt.function([x_var], [cost, ptt.grad(cost, x_var)], device=dev)
+    prof["sparse gradient"] = captured_vs_eager(
+        "sparse gradient function", lambda: f_grad(x0_d), lambda: f_grad_e(x0_d),
+        [f_grad.linked], 50)
 
     xsh = ptt.shared(x0, name="x", device=dev)
     y_sh = structured_dot(A_var, xsh)
@@ -1010,13 +1141,16 @@ def main(opts):
     say(f"power iteration built in {time.perf_counter() - t0:.2f} s: outer "
         f"{[type(nd.op).__name__ for nd in power.fgraph.toposort()]}, inner "
         f"{[type(nd.op).__name__ for nd in loop_node.op.fgraph.toposort()]}")
+    power()  # the capturing call; the counted call is a replay from x0
+    xsh.set_value(x0)
     fused_kernel.LAUNCHES = radon_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
     spmv_kernel.LAUNCHES = 0
     out = power()
     torch.cuda.synchronize()
     power_launches = {"spmv_csr": spmv_kernel.LAUNCHES, "fused_elemwise": fused_kernel.LAUNCHES,
                       "scan_whole_loop": scan_kernel.LAUNCHES}
-    say(f"power iteration launches, train_loop({SPARSE_STEPS} steps) one call: {power_launches}")
+    say(f"power iteration launches, train_loop({SPARSE_STEPS} steps) one replayed call: "
+        f"{power_launches}")
     if power_launches["spmv_csr"] != SPARSE_STEPS:
         raise AssertionError(f"the power iteration launched K4 {power_launches['spmv_csr']} "
                              f"times, not {SPARSE_STEPS}")
@@ -1033,8 +1167,28 @@ def main(opts):
                              f"tol {SPARSE_TOL}")
     say(f"power iteration {SPARSE_STEPS} steps: out {float(out):.6f} vs float64 "
         f"{float(yv.sum()):.6f} (rel err {e_out:.2e}), max|x err| {e_x:.2e} (tol {SPARSE_TOL})")
-    t_power = wall_ms(power, 5, warmup=1)
-    power_dev, power_by = device_ms(power, 3, warmup=1)
+    # the same loop eager, and eager with its free lists emptied
+    with config.change_flags(xla__jit=False):
+        power_e, power_nf = (ptt.train_loop(
+            [], pt.sum(y_sh), {xsh: y_sh / (pt.max(pt.abs(y_sh)) + 1e-9)},
+            n_steps=SPARSE_STEPS, device=dev) for _ in range(2))
+    without_free_lists(power_nf.linked)
+    # replayed against eager from the same x, bit for bit: K4 and the
+    # reductions add in a fixed order
+    runs = {}
+    for tag, loop in (("replayed", power), ("eager", power_e)):
+        xsh.set_value(x0)
+        runs[tag] = digest(loop(), xsh.get_value())
+    say(f"power iteration sha256 of the output and the final x: replayed {runs['replayed']}, "
+        f"eager {runs['eager']}")
+    if runs["replayed"] != runs["eager"]:
+        raise AssertionError("the replayed power iteration differs from the eager plan")
+    prof["power"] = captured_vs_eager(
+        f"power iteration {SPARSE_STEPS} steps", power, power_e, [power.linked], 8,
+        extra=f"; eager with its free lists emptied: peak {peak_mb(power_nf):.2f} MiB a call")
+    t_power = prof["power"]["captured"]["wall"]
+    power_dev = prof["power"]["captured"]["dev"]
+    power_by = prof["power"]["captured"]["by"]
     say(f"power iteration {SPARSE_STEPS} steps (train_loop, function()): wall {t_power:.3f} "
         f"ms/call, {SPARSE_STEPS * 1e3 / t_power:,.0f} matvecs/s; device {power_dev:.4f} "
         f"ms/call, {sum(c for _, c in power_by.values()):.0f} kernels/call, busy "

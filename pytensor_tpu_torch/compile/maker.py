@@ -4,7 +4,9 @@ Counterpart of ``pytensor_tpu/compile/maker.py:33 function``: apply givens,
 collect shared variables and updates (``compile/rebuild.py``), clone into
 a FunctionGraph whose outputs are the user's outputs followed by the
 update values, rewrite it with the mode's query, link it for torch on an
-explicit ``device`` and wrap it in a ``Function`` (``compile/executor.py``).
+explicit ``device`` (``TorchLinker``: one CUDA graph per input signature
+on a card, with ``config.xla__jit``) and wrap it in a ``Function``
+(``compile/executor.py``).
 
 The device is an argument, never guessed: every shared variable the
 graph reads must hold its tensor there, or ``function`` raises.  Left
@@ -44,7 +46,7 @@ def function(inputs: Sequence, outputs=None, mode=None, updates=None, givens=Non
     """
     from pytensor_tpu_torch.compile.executor import Function
     from pytensor_tpu_torch.link.torch.convert import resolve_device
-    from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
+    from pytensor_tpu_torch.link.torch.linker import TorchLinker
 
     device = resolve_device(device)
     if isinstance(inputs, (Variable, SymbolicInput)):
@@ -93,7 +95,7 @@ def function(inputs: Sequence, outputs=None, mode=None, updates=None, givens=Non
 
     fgraph = FunctionGraph(all_inputs, fg_outputs, clone=False)
     get_mode(mode).optimizer.rewrite(fgraph)
-    return Function(fgraph_to_torch(fgraph, device, trust_input=trust_input), fgraph,
+    return Function(TorchLinker.make_torch_fn(fgraph, device, trust_input=trust_input), fgraph,
                     n_explicit=len(explicit), shared_vars=shared_vars, update_targets=targets,
                     n_outputs=len(outputs_list), unpack_single=unpack_single, name=name,
                     device=device)

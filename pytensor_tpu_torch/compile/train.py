@@ -7,7 +7,8 @@ a Scan over the update body: the shared state threads through the loop's
 carry, the K steps are one call, and the shared variables receive the
 final state exactly as K separate calls would have left them.  On a CUDA
 device the Scan runs as K2 when it is eligible (``config.scan__pallas``),
-else as the step loop of ``link/torch/dispatch.py scan_loop``.
+else as the step loop of ``link/torch/dispatch.py scan_loop``, and the
+whole call, K steps included, is one CUDA graph (``TorchLinker``).
 
 Semantics: ``g = train_loop(inputs, outputs, updates, n_steps=K,
 device=d)``; ``g(*args)`` equals ``[f(*args) for _ in range(K)][-1]``

@@ -1,9 +1,9 @@
 """Typed configuration flags.
 
 The port's copy of the config system (PyTensor's configparser.py:65
-``PyTensorConfigParser`` and configdefaults.py), cut to the four flags the
-port reads: ``floatX``, ``mode``, ``sparse__routed_spmv`` and
-``scan__pallas``.  A flag's value
+``PyTensorConfigParser`` and configdefaults.py), cut to the five flags the
+port reads: ``floatX``, ``mode``, ``sparse__routed_spmv``,
+``scan__pallas`` and ``xla__jit``.  A flag's value
 comes from ``PYTENSOR_TPU_TORCH_FLAGS`` (``name=value,...``) if set there,
 else its default, and may be assigned later or set for a block with
 ``config.change_flags``.  The device is not a flag: it is an argument of
@@ -131,4 +131,11 @@ config.add(
     BoolParam(False, doc="Run every eligible Scan as one whole-loop kernel (K2, "
                          "link/cuda/scan_kernel.py) on a CUDA device; read when a "
                          "function is linked.  The name is the JAX package's."),
+)
+config.add(
+    "xla__jit",
+    BoolParam(True, doc="Capture each linked function on a CUDA device into one CUDA "
+                        "graph per input signature (link/torch/linker.py TorchLinker); "
+                        "off = eager, for debugging.  Read when a function is linked.  "
+                        "The name and default are the JAX package's."),
 )

@@ -2,7 +2,9 @@
 
 Counterpart of ``__graft_entry__.entry()``: build the hierarchical radon
 graph in float32 with its gradient, wrap it in a FunctionGraph, rewrite
-it with FAST_RUN and link it, here for torch on ``device``.
+it with FAST_RUN and link it, here for torch on ``device``: on a card a
+``CapturedFunction`` (one CUDA graph per input signature) unless
+``config.xla__jit`` is off.
 """
 
 from __future__ import annotations
@@ -16,12 +18,12 @@ def entry(device="cuda"):
     from pytensor_tpu_torch.compile.mode import get_mode
     from pytensor_tpu_torch.graph.fg import FunctionGraph
     from pytensor_tpu_torch.link.torch.convert import as_torch
-    from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
+    from pytensor_tpu_torch.link.torch.linker import TorchLinker
     from pytensor_tpu_torch.models.radon import make_radon_graphs
 
     inputs, outputs, n_params = make_radon_graphs(dtype="float32")
     fgraph = FunctionGraph(inputs, outputs, clone=True)
     get_mode("FAST_RUN").optimizer.rewrite(fgraph)
-    fn = fgraph_to_torch(fgraph, device)
+    fn = TorchLinker.make_torch_fn(fgraph, device)
     theta0 = as_torch(np.zeros(n_params, dtype="float32"), device)
     return fn, (theta0,)

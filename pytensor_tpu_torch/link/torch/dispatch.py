@@ -446,7 +446,7 @@ def scan_loop(op, device):
     ``device`` (counterpart of ``pytensor_tpu/scan/op.py:817-875``); the
     plain version of K2.  Returns ``loop(n_steps, *outer)``, which gives
     the traces of the states, the final untraced states and the nit-sot
-    traces, in that order."""
+    traces, in that order; ``loop.inner`` is the inner plan."""
     from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
 
     info = op.info
@@ -494,6 +494,7 @@ def scan_loop(op, device):
                         torch_dtype(nit_types[j].dtype)) for j in range(info.n_nit_sot)]
         return out
 
+    loop.inner = inner
     return loop
 
 
@@ -502,9 +503,11 @@ def scan_loop(op, device):
 # the logical matrix, whatever its graph format.
 
 def _csr_rows(a):
-    """The row of each nonzero of CSR ``a``."""
+    """The row of each nonzero of CSR ``a``; the output size is given, so
+    that nothing is read back from the device."""
     counts = (a.indptr[1:] - a.indptr[:-1]).long()
-    return torch.repeat_interleave(torch.arange(a.shape[0], device=a.data.device), counts)
+    return torch.repeat_interleave(torch.arange(a.shape[0], device=a.data.device), counts,
+                                   output_size=a.indices.shape[0])
 
 
 @torch_funcify.register(StructuredDot)
@@ -540,7 +543,8 @@ def _transpose(op, node=None, **kw):
         cols = a.indices.long()
         # a stable sort by column keeps each new row's columns sorted
         order = torch.sort(cols, stable=True).indices
-        counts = torch.bincount(cols, minlength=a.shape[1])
+        # bincount would read the largest column back from the device
+        counts = cols.new_zeros(a.shape[1]).scatter_add_(0, cols, torch.ones_like(cols))
         indptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
         return CSR(indptr, rows[order].to(torch.int32), a.data[order],
                    (a.shape[1], a.shape[0]))

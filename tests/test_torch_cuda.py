@@ -16,7 +16,10 @@ of ``max(1, max|plain|)``; the linked float32 graph ``rtol 1e-4`` with
 products bit for bit against the step loop, and the radon chain after 32
 steps at K3's tolerances against K3; K4 per row within
 ``4 * D2 * 2**-24 * sum_j |a_ij x_j|``, and the sparse graphs as
-``tests/test_torch_sparse.py`` holds them.
+``tests/test_torch_sparse.py`` holds them.  Captured functions (one CUDA
+graph per input signature) are held bit for bit against the same graph
+linked eagerly where no kernel adds by atomics, else to ``1e-5`` of
+``max(1, max|eager|)``.
 """
 
 import numpy as np
@@ -480,3 +483,195 @@ def test_routed_graph_and_train_loop_launch_k4(card):
         v = yv / (np.abs(yv).max() + 1e-9)
     np.testing.assert_allclose(float(out), yv.sum(), rtol=2e-4)
     np.testing.assert_allclose(xsh.get_value().cpu().numpy(), v, atol=2e-5)
+
+
+# --- whole-function capture (link/torch/linker.py CapturedFunction) ---------------
+
+def _entry_pair():
+    """The float32 ``entry`` function captured, and the same linked eagerly
+    (``xla__jit`` off)."""
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.entry import entry
+
+    fn, (theta0,) = entry("cuda")
+    with config.change_flags(xla__jit=False):
+        eager, _ = entry("cuda")
+    return fn, eager, theta0.shape[0]
+
+
+def _theta(n, seed, chains=None):
+    rng = np.random.default_rng(seed)
+    th = theta_start(n, "float32")
+    if chains is not None:
+        th = np.tile(th, (chains, 1))
+    return (th + 0.1 * rng.standard_normal(th.shape)).astype("float32")
+
+
+def test_entry_replay_gives_the_eager_plans_bits(card):
+    """The float32 entry function has no atomics: the warm-up call and two
+    replays give the eager plan's bits."""
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction, Plan
+
+    fn, eager, n = _entry_pair()
+    assert isinstance(fn, CapturedFunction) and isinstance(eager, Plan)
+    theta = as_torch(_theta(n, 1), card)
+    want = eager(theta)
+    for _ in range(3):
+        got = fn(theta)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert len(fn.graphs) == 1
+
+
+def test_an_output_is_unchanged_by_later_calls(card):
+    fn, _, n = _entry_pair()
+    first = fn(as_torch(_theta(n, 1), card))
+    replayed = fn(as_torch(_theta(n, 2), card))
+    kept = [t.clone() for t in first + replayed]
+    fn(as_torch(_theta(n, 3), card))
+    fn(as_torch(_theta(n, 4), card))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first + replayed, kept))
+    assert not torch.equal(first[1], replayed[1])
+
+
+def test_a_new_input_shape_is_a_new_capture(card):
+    """The batched graph at 8 chains, then 16, then 8 again: two captures,
+    each call the eager values (the float32 gradient adds by atomics, so to
+    1e-5 of max(1, max|eager|), not bit for bit)."""
+    from pytensor_tpu_torch.compile.mode import FAST_RUN
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.torch.linker import TorchLinker
+
+    theta, logp, dlogp, n = make_radon_logp_batched(dtype="float32")
+    fg = FunctionGraph([theta], [logp, dlogp], clone=True)
+    FAST_RUN.optimizer.rewrite(fg)
+    fn = TorchLinker.make_torch_fn(fg, card)
+    with config.change_flags(xla__jit=False):
+        eager = TorchLinker.make_torch_fn(fg, card)
+    for k, chains in enumerate((8, 16, 8, 16)):
+        th = as_torch(_theta(n, 5 + k, chains), card)
+        for got, want in zip(fn(th), eager(th)):
+            assert got.shape == want.shape == (chains,) + want.shape[1:]
+            assert _scaled(got, want) <= 1e-5
+    assert sorted(key[0][0][0] for key in fn.graphs) == [8, 16]
+
+
+def _shared_function(card, jit):
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+
+    rng = np.random.default_rng(6)
+    w = ptt.shared(rng.standard_normal(7).astype("float32"), name="w", device=card)
+    a = ptt.shared(np.arange(3, dtype="float32"), name="a", device=card)
+    b = ptt.shared(np.ones(3, dtype="float32"), name="b", device=card)
+    x = pt.tensor("x", dtype="float32", shape=(7,))
+    with config.change_flags(xla__jit=jit):
+        f = ptt.function([x], [(w * x).sum(), a], updates={w: w * 0.5 + x, a: b, b: a},
+                         device=card)
+    return f, (w, a, b)
+
+
+def test_shared_updates_under_replay_equal_eager_calls(card):
+    """Three calls with in-place updates and a swap of two shared variables,
+    then ``set_value`` and a fourth: the captured function and the eager
+    one give the same outputs and leave the same shared values."""
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+
+    runs = {}
+    for jit in (True, False):
+        f, shared = _shared_function(card, jit)
+        assert isinstance(f.linked, CapturedFunction) == jit
+        outs = []
+        for k in range(3):
+            outs.append([o.clone() for o in f(as_torch(np.full(7, k, "float32"), card))])
+        shared[0].set_value(np.full(7, 2.0, "float32"))
+        outs.append(f(as_torch(np.ones(7, "float32"), card)))
+        runs[jit] = outs, [s.get_value().cpu() for s in shared]
+    (outs_c, vals_c), (outs_e, vals_e) = runs[True], runs[False]
+    for oc, oe in zip(outs_c, outs_e):
+        assert all(torch.equal(c, e) for c, e in zip(oc, oe))
+    assert all(torch.equal(c, e) for c, e in zip(vals_c, vals_e))
+    assert float(outs_c[3][0]) == 14.0  # w = 2 after set_value, x = 1
+
+
+def test_an_uncapturable_function_runs_eagerly_and_raises_on_a_bad_index(card):
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.link.torch.linker import Plan
+
+    v = pt.tensor("v", dtype="float32", shape=(None,))
+    i = pt.tensor("i", dtype="int64", shape=(None,))
+    f = ptt.function([v, i], v[i] * 2.0, device=card)
+    assert isinstance(f.linked, Plan) and not f.linked.capturable
+    vals = as_torch(np.arange(4, dtype="float32"), card)
+    assert f(vals, as_torch(np.array([3, -4]), card)).cpu().tolist() == [6.0, 0.0]
+    with pytest.raises(IndexError, match="out of bounds"):
+        f(vals, as_torch(np.array([0, 4]), card))
+
+
+def test_the_launch_counters_count_replays(card):
+    """K1, K2 and K4 count the same launches a call whether the call is the
+    capturing one (its warm-up) or a replay; the capture itself counts none."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.link.cuda import scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.models.radon import make_leapfrog_chain
+    from pytensor_tpu_torch.sparse import as_sparse_variable, structured_dot
+
+    fn, _, n = _entry_pair()
+    theta = as_torch(_theta(n, 1), card)
+    per_call = []
+    for _ in range(3):
+        before = fused_kernel.LAUNCHES
+        fn(theta)
+        per_call.append(fused_kernel.LAUNCHES - before)
+    assert per_call[0] > 0 and len(set(per_call)) == 1
+
+    chain = make_leapfrog_chain(n_steps=8, device=card)
+    th, m = as_torch(theta_start(n, "float32"), card), torch.zeros(n, device=card)
+    for _ in range(3):
+        before = scan_kernel.LAUNCHES
+        chain(th, m)
+        assert scan_kernel.LAUNCHES == before + 1
+
+    A, rng = _sparse(1500, 0.005, 9)
+    xsh = ptt.shared(rng.standard_normal((1500, 1)).astype("float32"), name="x", device=card)
+    y = structured_dot(as_sparse_variable(A), xsh)
+    loop = ptt.train_loop([], pt.sum(y), {xsh: y / (pt.max(pt.abs(y)) + 1e-9)}, n_steps=5,
+                          device=card)
+    for _ in range(3):
+        before = spmv_kernel.LAUNCHES
+        loop()
+        assert spmv_kernel.LAUNCHES == before + 5
+
+
+def test_power_iteration_replay_gives_the_eager_plans_bits(card):
+    """The 64-step power iteration through train_loop, captured and eager
+    from the same start: the same output and final x, bit for bit (K4 and
+    the reductions add in a fixed order)."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.sparse import as_sparse_variable, structured_dot
+
+    A, rng = _sparse(1500, 0.005, 10)
+    x0 = rng.standard_normal((1500, 1)).astype("float32")
+    xsh = ptt.shared(x0, name="x", device=card)
+    y = structured_dot(as_sparse_variable(A), xsh)
+    upd = {xsh: y / (pt.max(pt.abs(y)) + 1e-9)}
+    loops = {}
+    for jit in (True, False):
+        with config.change_flags(xla__jit=jit):
+            loops[jit] = ptt.train_loop([], pt.sum(y), upd, n_steps=64, device=card)
+    got = {}
+    for jit, calls in ((True, 3), (False, 1)):
+        for _ in range(calls):  # the capturing call, then replays
+            xsh.set_value(x0)
+            out = loops[jit]()
+            got.setdefault(jit, []).append((out, xsh.get_value().clone()))
+    torch.cuda.synchronize()
+    want_out, want_x = got[False][0]
+    for out, x in got[True]:
+        assert torch.equal(out, want_out) and torch.equal(x, want_x)
