@@ -1,4 +1,5 @@
-"""Drive the torch port's radon and sparse paths on one NVIDIA GPU.
+"""Drive the torch port's radon, sparse, logistic-regression and MLP paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -12,12 +13,20 @@ Phases, one line or more each, and any failure raises:
    variant and the CSR matvec kernel (K4), with nvcc, the compilers
    started together; print K2's loops, barriers, arena bytes, placement
    and source sha256, each build's seconds and the ``-Xptxas -v``
-   register and spill lines (for K1, a summary of each library's).
+   register and spill lines (for K1, a summary of each library's).  With
+   them: K1 for one fused node a dtype holding every scalar op of the
+   expression table, K2 for three scans of the slice's new ops, and the K1
+   kernels of the logreg and MFU steps (their graphs rewritten on the CPU
+   give the same sources, so linking them in phase 11 finds them built).
 3. K1: every FusedElemwise of the single-chain graph and of the batched
    graph at 1,024 chains, in float32 and float64, launched on the inputs
    the graph gives it and held against its plain torch version; each
    node's input layout classes and wall µs a launch, kernel against
    plain; per graph call the device and wall times against the bound.
+   Then every scalar op of the expression table in each of K1's dtypes on
+   numpy's edges (NaN, +-inf, +-0.0, halves, negative integers, divisors
+   of 0, shift counts at and past the width): the exact ops with the plain
+   version's bits, the others within ``K1_RTOL``.
 4. K3: the leapfrog chain at full width (919 observations, 85 counties),
    1,024 steps, held against its plain torch version; sha256 digests of
    its outputs (one chain and 1,024 chains), the same kernel walking every
@@ -40,7 +49,10 @@ Phases, one line or more each, and any failure raises:
    theta, m and logp.  Then K2's step split by op: the stamped variant
    (thread 0's ``clock64()`` after each loop and barrier of steps 16-31),
    which must give K2's bits, as cycles a step by op class and the ten
-   costliest loops with their lines in the generated source.
+   costliest loops with their lines in the generated source.  Then K2 on
+   ``tanh(dot(W, acc))`` with a 5 x 5 W, on a body of Dot22, Gemm and
+   Dot22Scalar and on a body of Join, Split, ARange, DeepCopyOp and
+   ViewOp, each against its step loop (``K2_CASE_TOL``).
 7. chain: ``make_leapfrog_chain(n_steps=8192, device="cuda")`` through
    ``scan`` and ``function()``; launch counts are set to 0 before the
    call, and K2 must have launched exactly once after it.  Its final
@@ -81,6 +93,26 @@ Phases, one line or more each, and any failure raises:
    iteration's replayed output and final x must have the eager call's
    sha256.  Profile of one 64-step call: wall ms, matvecs/s, device ms,
    busy share, kernels by name, K4's µs a launch.
+11. models: the logistic-regression SGD step of ``benchsuite.py:64
+   ours_logreg`` (n = 8,192, d = 256, float32) through ``function()`` and
+   as a 32-step ``train_loop``, and ``make_mlp_mfu_step`` (float32, batch
+   4,096, d 4,096, depth 4) through ``function()`` and as a 4-step
+   ``train_loop``, all captured (``phase_models``).  Counts are set to 0
+   before one replayed call of each and read after (K1 launches in the
+   ``function()`` steps; a ``train_loop`` fuses nothing inside its scan);
+   the replay and the eager plan give the same sha256 from the same
+   state; the losses and parameters hold against a float64 NumPy
+   evaluation of the same steps (``MODEL_TOL``); the MFU step's gradients
+   (its graph linked with them as outputs) against the float64 step on
+   the card's sides of relu's kink, and its update where it shows beyond
+   the weights' float32 rounding (the step against that float64 step, the
+   loop against as many calls of the step); K1 on each fused node of the
+   steps, on the inputs the first step gives it, against its plain
+   version (these launches come after the counted calls); wall and device ms a
+   call, busy share, steps/s, K1's launches and device time a call, the
+   kernels that take the card's time, and the MFU step's float32 TFLOP/s
+   beside the card's float32 peak.  K1's ``launches`` in the kernel line
+   add these paths' counts to the radon slice's (``launches_by_path``).
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -463,6 +495,306 @@ def k3_stamp_breakdown(data, th0, m0, want, k3_ms, tag="K3", flags=()):
         say(f"  {label:28s} {c:8.0f} cycles/step {c / step:6.3f} of the step")
 
 
+# --- the logistic-regression and MLP slice ----------------------------------------
+
+# the logistic-regression step of benchsuite.py:64 ours_logreg and the MLP
+# "MFU" step of models/mlp.py at benchsuite's widths, float32
+LOGREG_N, LOGREG_D, LOGREG_STEPS, LOGREG_LR = 8192, 256, 32, 0.1
+MFU_BATCH, MFU_D, MFU_DEPTH, MFU_STEPS, MFU_LR = 4096, 4096, 4, 4, 1e-3
+# the steps against a float64 NumPy evaluation of the same SGD steps:
+# float32 sums of 8,192 (logreg) and 4,096 (MFU) products, carried over 32
+# and 4 steps.  The loss relative; the logreg parameters (from 0) over
+# max(1, max|ref|); the MFU weights over max|ref|.  An MFU step (lr 1e-3,
+# the mean of 16.7M squares) moves most weights by less than half a float32
+# ulp, so the weights hold to float32 resolution and the losses hold the
+# steps; the line prints the reference's update beside that rounding.
+# So the MFU step is held twice more.  Its gradients at the start (the
+# same graph linked with them as outputs) over max|ref| a layer, against a
+# float64 step that takes the card's side of relu's kink where a product
+# lies within rounding of 0 (else one product moves a row of each earlier
+# layer's gradient: on the CPU at widths 256-2048 such runs read 2e-3 to
+# 2e-1, and the matched ones 2e-6 to 2.3e-4, the largest where the last
+# layer's sums cancel).  And its update, where it shows: each weight's
+# error beyond its float32 rounding over the largest update of its layer,
+# which a dropped update raises to O(1); the step against that float64
+# step, the loop against as many calls of the step
+MODEL_TOL = {"logreg_loss": 2e-5, "logreg_params": 2e-5, "mfu_loss": 2e-5, "mfu_params": 1e-6,
+             "mfu_grads": 1e-3, "mfu_update": 1e-3}
+# the K2 cases of the new ops against their step loops, over max(1, max|loop|)
+K2_CASE_TOL = 1e-6
+
+
+def logreg_reference(X, y, lr, steps):
+    """The logistic-regression SGD steps in float64 NumPy from w = 0, b = 0:
+    the loss of the last step (before its update) and the final w, b."""
+    X, y = X.astype("float64"), y.astype("float64")
+    w, b = np.zeros(X.shape[1]), 0.0
+    eps = float(np.float32(1e-7))
+    for _ in range(steps):
+        p = 1.0 / (1.0 + np.exp(-(X @ w + b)))
+        loss = -np.mean(y * np.log(p + eps) + (1 - y) * np.log(1 - p + eps))
+        dp = -(y / (p + eps) - (1 - y) / (1 - p + eps)) / X.shape[0]
+        gz = dp * p * (1 - p)
+        w, b = w - lr * (X.T @ gz), b - lr * gz.sum()
+    return loss, w, b
+
+
+def phase_models(dev, smi_line):
+    """Phase 11: the logistic-regression step (n = 8,192, d = 256) through
+    ``function()`` and as a 32-step ``train_loop``, and the MFU step
+    (float32, 4,096 x 4,096, depth 4) through ``function()`` and as a 4-step
+    ``train_loop``, each captured: K1's launches in one replayed call, the
+    replay's sha256 against the eager plan's from the same state, the loss
+    and parameters against a float64 NumPy evaluation of the same steps,
+    the MFU step's gradients and update (``MODEL_TOL``), each of the steps'
+    K1 kernels on the inputs the first step gives it against its plain
+    version, then wall and device ms, busy share, steps/s, the kernels that
+    take the card's time and, for the MFU step, its float32 TFLOP/s.
+    Returns the launches of each path and K1's largest absolute error.  On
+    the CPU (a rehearsal at small sizes) it checks the values only."""
+    import torch
+
+    import pytensor_tpu_torch as ptt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.cuda import scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction, fgraph_to_torch
+    from pytensor_tpu_torch.models import radon_kernel
+    from pytensor_tpu_torch.models.logreg import make_logreg_training_step
+    from pytensor_tpu_torch.models.mlp import make_mlp_mfu_step, mlp_mfu_graph, mlp_mfu_reference
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    on_card = dev.type == "cuda"
+    t11 = time.perf_counter()
+
+    def reset(params, values):
+        # copies: a call updates the shared tensors in place
+        for v, x in zip(params, values):
+            v.set_value(x.clone())
+
+    def state(params):
+        return [v.get_value(borrow=True) for v in params]
+
+    models = {}
+    # logistic regression, n = 8,192, d = 256: the step through function()
+    # and the 32-step train_loop of benchsuite.py:64 ours_logreg
+    for tag, steps in (("logreg step", 1), (f"logreg train_loop x{LOGREG_STEPS}", LOGREG_STEPS)):
+        f, (Xv, yv), params = make_logreg_training_step(
+            LOGREG_N, LOGREG_D, "float32", LOGREG_LR, n_steps_per_call=steps, device=dev)
+        with config.change_flags(xla__jit=False):
+            f_e, _, params_e = make_logreg_training_step(
+                LOGREG_N, LOGREG_D, "float32", LOGREG_LR, n_steps_per_call=steps, device=dev)
+        models[tag] = (f, f_e, params, params_e, [as_torch(Xv, dev), as_torch(yv, dev)], steps,
+                       8 * LOGREG_N * LOGREG_D * steps, (Xv, yv))
+    # the MFU step, float32 at benchsuite's widths: function() and a
+    # 4-step train_loop
+    for tag, steps in (("mfu step", 1), (f"mfu train_loop x{MFU_STEPS}", MFU_STEPS)):
+        f, flops, (Xd, Td) = make_mlp_mfu_step(MFU_BATCH, MFU_D, MFU_DEPTH, "float32", MFU_LR,
+                                                n_steps_per_call=steps, device=dev)
+        with config.change_flags(xla__jit=False):
+            f_e = make_mlp_mfu_step(MFU_BATCH, MFU_D, MFU_DEPTH, "float32", MFU_LR,
+                                    n_steps_per_call=steps, device=dev)[0]
+        params = sorted((v for v in f.shared_vars if v.name.startswith("W")),
+                        key=lambda v: v.name)
+        params_e = sorted((v for v in f_e.shared_vars if v.name.startswith("W")),
+                          key=lambda v: v.name)
+        models[tag] = (f, f_e, params, params_e, [Xd, Td], steps, flops * steps, None)
+    say(f"models linked for the card in {time.perf_counter() - t11:.2f} s: "
+        + ", ".join(f"{tag} {type(m[0].linked).__name__}" for tag, m in models.items()))
+    model_launches, model_rows = {}, {}
+    for tag, (f, f_e, params, params_e, args, steps, work, _) in models.items():
+        if on_card and not isinstance(f.linked, CapturedFunction):
+            raise AssertionError(f"{tag}: not captured: {f.linked.host_reads}")
+        init = [v.get_value() for v in params]
+        f(*args)  # the capturing call
+        reset(params, init)
+        fused_kernel.LAUNCHES = radon_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+        spmv_kernel.LAUNCHES = 0
+        loss = f(*args)
+        if on_card:
+            torch.cuda.synchronize()
+        model_launches[tag] = {"fused_elemwise": fused_kernel.LAUNCHES,
+                               "scan_whole_loop": scan_kernel.LAUNCHES}
+        # a train_loop fuses nothing inside its scan (as in the JAX package)
+        if on_card and steps == 1 and fused_kernel.LAUNCHES < 1:
+            raise AssertionError(f"{tag}: K1 was not launched: {model_launches[tag]}")
+        after = [v.get_value() for v in params]
+        # the replayed call against the eager plan, from the same state
+        reset(params_e, init)
+        loss_e = f_e(*args)
+        d_cap, d_eager = digest(loss, *after), digest(loss_e, *state(params_e))
+        if d_cap != d_eager:
+            raise AssertionError(f"{tag}: the replay differs from the eager plan")
+        say(f"{tag}: one replayed call launched {model_launches[tag]}; sha256 of the loss and "
+            f"the parameters after it: replayed {d_cap}, eager {d_eager}")
+        models[tag] = models[tag] + (float(loss), after, init)
+    # the MFU step's gradients at the start: the same graph, linked with
+    # them and the products before each relu as outputs, from the same ramps
+    t_ref = time.perf_counter()
+    X, T, Ws, acts, g_loss, grads, _, (Xg, Tg) = mlp_mfu_graph(MFU_BATCH, MFU_D, MFU_DEPTH,
+                                                               "float32", MFU_LR, dev)
+    mfu_init = models["mfu step"][10]
+    if not all(torch.equal(W.get_value(borrow=True), x) for W, x in zip(Ws, mfu_init)):
+        raise AssertionError("the gradient graph's ramps are not the step's weights")
+    f_g = ptt.function([X, T], [g_loss, *grads, *acts], device=dev, trust_input=True)
+    got = f_g(Xg, Tg)
+    g_loss, g_grads = float(got[0]), [g.cpu().numpy() for g in got[1:1 + MFU_DEPTH]]
+    masks = [(a >= 0).cpu().numpy() for a in got[1 + MFU_DEPTH:]]
+    kind = type(f_g.linked).__name__
+    del f_g, got, Ws
+    # the float64 steps, the first on the sides of relu's kink the card took
+    mfu_ref = mlp_mfu_reference(Xg.cpu().numpy(), Tg.cpu().numpy(),
+                                [x.cpu().numpy() for x in mfu_init], MFU_LR, MFU_STEPS, masks)
+    r_grads = mfu_ref[2]
+    e_grads = [float(np.max(np.abs(g.astype("float64") - r)) / np.max(np.abs(r)))
+               for g, r in zip(g_grads, r_grads)]
+    e_gl = abs(g_loss - mfu_ref[0][0]) / abs(mfu_ref[0][0])
+    if not (max(e_grads) <= MODEL_TOL["mfu_grads"] and e_gl <= MODEL_TOL["mfu_loss"]
+            and all(np.isfinite(g).all() for g in g_grads)):
+        raise AssertionError(f"mfu gradients: max err over max|ref| {e_grads}, loss {e_gl}; "
+                             f"tol {MODEL_TOL}")
+    say(f"mfu gradients ({kind}): max err over max|ref| a layer "
+        f"{', '.join(f'{e:.2e}' for e in e_grads)} (tol {MODEL_TOL['mfu_grads']:g}); loss rel "
+        f"err {e_gl:.2e}; the float64 step on the card's sides of relu's kink "
+        f"({sum(int(m.size - m.sum()) for m in masks):,} of {sum(m.size for m in masks):,} "
+        f"products below 0)")
+    del g_grads, masks
+
+    def update_error(after, ref, init, rounding):
+        """The weights' error beyond ``rounding`` float32 ulps of each
+        weight, over the largest update of its layer, the largest over the
+        layers; and the smallest over the layers that the start reads."""
+        worst, dropped = 0.0, []
+        for a, r, x in zip(after, ref, init):
+            a, r, x = (np.asarray(v, dtype="float64") for v in (a, r, x))
+            top = float(np.max(np.abs(r - x)))
+            for w, sink in ((a, None), (x, dropped)):
+                ulp = np.spacing(np.maximum(np.abs(w), np.abs(r)).astype("float32"))
+                beyond = float(np.max(np.abs(w - r) - rounding * ulp.astype("float64")))
+                if sink is None:
+                    worst = max(worst, max(0.0, beyond) / top)
+                else:
+                    sink.append(max(0.0, beyond) / top)
+        return worst, min(dropped)
+
+    # against float64 NumPy: the logreg steps from w = 0, the MFU steps from
+    # the ramps
+    for tag, m in models.items():
+        f, f_e, params, params_e, args, steps, work, data, loss, after, init = m
+        if tag.startswith("logreg"):
+            r_loss, r_w, r_b = logreg_reference(*data, LOGREG_LR, steps)
+            ref_params, tol_l, tol_p = [r_w, np.asarray(r_b)], "logreg_loss", "logreg_params"
+        else:
+            losses, weights, _ = mfu_ref
+            r_loss, ref_params = losses[steps - 1], weights[steps - 1]
+            tol_l, tol_p = "mfu_loss", "mfu_params"
+        e_loss = abs(loss - r_loss) / abs(r_loss)
+        after_np = [a.cpu().numpy() for a in after]
+        init_np = [x.cpu().numpy() for x in init]
+        if tag.startswith("logreg"):
+            e_par = max(errors(a, b)[1] for a, b in zip(after_np, ref_params))
+            ok_par = e_par <= MODEL_TOL["logreg_params"]
+        else:
+            e_par, ref2, floor2 = 0.0, 0.0, 0.0
+            for a, r, x in zip(after_np, ref_params, init_np):
+                a, x = a.astype("float64"), x.astype("float64")
+                e_par = max(e_par, float(np.max(np.abs(a - r)) / np.max(np.abs(r))))
+                ref2 += float(np.sum((r - x) ** 2))
+                floor2 += float(np.sum((0.5 * np.spacing(np.abs(r).astype("float32"))) ** 2))
+            if steps == 1:
+                # the update against the float64 step: half an ulp of rounding
+                e_upd, e_drop = update_error(after_np, ref_params, init_np, 0.5)
+                against = "the float64 step"
+            else:
+                # the loop against as many calls of the step from the same
+                # start: two float32 trajectories, an ulp a step between them
+                f1, p1 = models["mfu step"][0], models["mfu step"][2]
+                reset(p1, init)
+                for _ in range(steps):
+                    f1(*args)
+                by_calls = [v.get_value().cpu().numpy() for v in p1]
+                e_upd, e_drop = update_error(after_np, by_calls, init_np, float(steps))
+                against = f"{steps} calls of the step"
+            ok_par = e_par <= MODEL_TOL["mfu_params"] and e_upd <= MODEL_TOL["mfu_update"]
+            if not e_drop > MODEL_TOL["mfu_update"]:
+                raise AssertionError(f"{tag}: the update hold cannot see the update: a dropped "
+                                     f"update would read {e_drop}")
+        finite = np.isfinite(loss) and all(np.isfinite(a).all() for a in after_np)
+        if not (finite and ok_par and e_loss <= MODEL_TOL[tol_l]):
+            raise AssertionError(f"{tag}: loss rel err {e_loss}, parameters {e_par}"
+                                 + ("" if tag.startswith("logreg") else f", update {e_upd}")
+                                 + f" vs float64 NumPy; tol {MODEL_TOL}")
+        what = (f"parameters: max err over max(1, max|ref|) {e_par:.2e} (tol "
+                f"{MODEL_TOL[tol_p]:g})" if tag.startswith("logreg") else
+                f"weights: max err over max|ref| {e_par:.2e} (tol {MODEL_TOL[tol_p]:g}); the "
+                f"reference's update is {(ref2 / floor2) ** 0.5:.3g} times half a float32 ulp "
+                f"of the weights, norm-wise; the update against {against}, beyond the weights' "
+                f"rounding, over the largest: {e_upd:.2e} (tol {MODEL_TOL['mfu_update']:g}; a "
+                f"dropped update reads {e_drop:.3g})")
+        say(f"{tag}: loss {loss:.7f} vs float64 NumPy {r_loss:.7f} (rel err {e_loss:.2e}, tol "
+            f"{MODEL_TOL[tol_l]:g}); after {steps} step(s), {what}")
+    del mfu_ref
+    say(f"float64 NumPy references in {time.perf_counter() - t_ref:.1f} s")
+    # K1 on the steps' own fused nodes, each on the inputs the first step
+    # gives it (computed on the card from the initial state), against its
+    # plain version; these launches come after the counted calls
+    k1_abs, k1_rows = 0.0, []
+    for tag, m in models.items():
+        f, params, args, init = m[0], m[2], m[4], m[10]
+        nodes = [nd for nd in f.fgraph.toposort() if isinstance(nd.op, FusedElemwise)]
+        if not nodes:
+            continue
+        reset(params, init)
+        needed = [i for nd in nodes for i in nd.inputs]
+        feed = fgraph_to_torch(FunctionGraph(f.fgraph.inputs, needed, clone=True), dev)
+        values = iter(feed(*args, *state(f.shared_vars)))
+        for nd in nodes:
+            xs = [next(values) for _ in nd.inputs]
+            kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+            # (on the CPU the wrapper runs the plain version)
+            got, want = (kern.launch if on_card else kern)(*xs), kern.plain(*xs)
+            dt = nd.outputs[0].type.dtype
+            pairs = [errors(g.cpu(), w.cpu()) for g, w in zip(got, want)]
+            err = max(p[1] for p in pairs)
+            k1_abs = max([k1_abs] + [p[0] for p in pairs])
+            tol = K1_RTOL.get(dt, 0.0)
+            if not (err <= tol and all(g.shape == w.shape for g, w in zip(got, want))):
+                raise AssertionError(f"K1 {tag} {nd.op}: rel err {err} > {tol}")
+            node_ms = wall_ms(lambda: kern.launch(*xs), 20) if on_card else 0.0
+            node_plain = wall_ms(lambda: kern.plain(*xs), 20) if on_card else 0.0
+            k1_rows.append(err)
+            say(f"  K1 {tag} {str(nd.op)[:70]:70s} out {tuple(got[0].shape)} err {err:.2e} "
+                f"wall: kernel {node_ms * 1e3:.1f} us plain {node_plain * 1e3:.1f} us")
+    if not k1_rows:
+        raise AssertionError("no fused node in the logreg and MFU steps")
+    say(f"K1 on the steps' fused nodes: {len(k1_rows)} kernels held against their plain "
+        f"version at the steps' shapes, max rel err {max(k1_rows):.2e} (tol {K1_RTOL})")
+    for tag, m in models.items() if on_card else ():
+        f, f_e, params, params_e, args, steps, work = m[:7]
+        n_iter = 20 if tag.startswith("logreg") else 3
+        row = captured_vs_eager(tag, lambda f=f, a=args: f(*a), lambda f=f_e, a=args: f(*a),
+                                [f.linked], n_iter, n_dev=max(2, n_iter // 4))
+        c = row["captured"]
+        k1_by = [(ms, n) for kn, (ms, n) in c["by"].items() if "k1_" in kn]
+        extra = ""
+        if tag.startswith("mfu"):
+            extra = (f"; {work / c['dev'] / 1e9:,.1f} TFLOP/s float32 on the card's time, "
+                     f"{work / c['wall'] / 1e9:,.1f} on the wall ({work / 1e12:.3f} TFLOP a call), "
+                     f"against the card's float32 peak of {F32_OPS_S / 1e12:.0f} TFLOP/s outside "
+                     f"the tensor cores (TF32 off)")
+        say(f"{tag} ({smi_line}): wall {c['wall']:.4f} ms/call, device {c['dev']:.4f} ms, busy "
+            f"{c['dev'] / c['wall']:.3f}, {steps * 1e3 / c['wall']:,.1f} steps/s; K1 "
+            f"{model_launches[tag]['fused_elemwise']} launches a call, "
+            f"{sum(ms for ms, _ in k1_by):.4f} ms of device time{extra}")
+        for kname, (ms, count) in sorted(c["by"].items(), key=lambda kv: -kv[1][0])[:5]:
+            say(f"  {tag}: {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+        model_rows[tag] = row
+    say(f"models phase done in {time.perf_counter() - t11:.1f} s")
+    return model_launches, k1_abs
+
+
 def main(opts):
     import torch
 
@@ -477,10 +809,12 @@ def main(opts):
     from pytensor_tpu_torch.config import config
     from pytensor_tpu_torch.entry import entry
     from pytensor_tpu_torch.graph.fg import FunctionGraph
-    from pytensor_tpu_torch.link.cuda import scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.cuda import cases, scan_kernel, spmv_kernel
     from pytensor_tpu_torch.link.torch.convert import as_torch, sparse_as_torch
     from pytensor_tpu_torch.link.torch.linker import CapturedFunction, TorchLinker, fgraph_to_torch
     from pytensor_tpu_torch.models import radon_kernel
+    from pytensor_tpu_torch.models.logreg import make_logreg_training_step
+    from pytensor_tpu_torch.models.mlp import make_mlp_mfu_step, mlp_mfu_graph
     from pytensor_tpu_torch.models.radon import (
         leapfrog,
         make_leapfrog_chain,
@@ -500,11 +834,11 @@ def main(opts):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     # the one-SM bound of K2 and K3, which run a chain on one block: the
     # card's rates shared among its SMs
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    say(f"device: {name}, {torch.cuda.device_count()} visible, torch {torch.__version__}, "
+    say(f"device: {device_name}, {torch.cuda.device_count()} visible, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, capability {torch.cuda.get_device_capability(0)}")
     say(smi)
 
@@ -550,14 +884,52 @@ def main(opts):
         fg, n = graphs[dtype, batched]
         return fg, TorchLinker.make_torch_fn(fg, dev), n
 
+    # the op library of the logistic-regression and MLP slice: K1 on one
+    # fused node a dtype holding every scalar op of the expression table,
+    # K2 on scans of its new ops, and the K1 kernels of the logreg and MFU
+    # steps, made from their graphs rewritten on the CPU (the same graphs,
+    # so the same sources) and built in the pool below; linking them for
+    # the card in phase 11 then finds them built
+    t0 = time.perf_counter()
+    op_groups = {dt: cases.scalar_op_group(dt) for dt in cases.OP_GROUP_DTYPES}
+    op_kerns = {dt: fused_kernel.FusedElemwiseKernel(FusedElemwise(ins, outs).fgraph, dev)
+                for dt, (ins, outs, _) in op_groups.items()}
+    k2_cases = []
+    for tag, ins, outs, vals, raw in cases.k2_new_op_scans():
+        fg_c = FunctionGraph(ins, outs, clone=True)
+        if not raw:
+            FAST_RUN.optimizer.rewrite(fg_c)
+        node_c = next(nd for nd in fg_c.apply_nodes if isinstance(nd.op, Scan))
+        if not scan_kernel.scan_kernel_eligible(node_c.op, node_c):
+            raise AssertionError(f"K2 case {tag}: the scan is not eligible")
+        k2_cases.append((tag, fg_c, node_c, scan_kernel.ScanKernel(node_c.op, node_c, dev), vals))
+    cpu_models = [
+        make_logreg_training_step(LOGREG_N, LOGREG_D, "float32", LOGREG_LR, device="cpu")[0],
+        make_logreg_training_step(LOGREG_N, LOGREG_D, "float32", LOGREG_LR,
+                                  n_steps_per_call=LOGREG_STEPS, device="cpu")[0],
+        make_mlp_mfu_step(MFU_BATCH, MFU_D, MFU_DEPTH, "float32", MFU_LR, device="cpu")[0],
+        make_mlp_mfu_step(MFU_BATCH, MFU_D, MFU_DEPTH, "float32", MFU_LR,
+                          n_steps_per_call=MFU_STEPS, device="cpu")[0]]
+    # the MFU step's graph with its gradients as outputs (phase 11's hold)
+    X_g, T_g, _, acts_g, loss_g, grads_g, _, _ = mlp_mfu_graph(
+        MFU_BATCH, MFU_D, MFU_DEPTH, "float32", MFU_LR, "cpu")
+    cpu_models.append(ptt.function([X_g, T_g], [loss_g, *grads_g, *acts_g], device="cpu"))
+    model_kerns = [fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+                   for f in cpu_models for nd in f.fgraph.toposort()
+                   if isinstance(nd.op, FusedElemwise)]
+    del cpu_models
+    say(f"the slice's graphs: {len(op_kerns)} K1 op groups, {len(k2_cases)} K2 cases, "
+        f"{len(model_kerns)} K1 kernels of the logreg and MFU steps; graph, rewrite and emit in "
+        f"{time.perf_counter() - t0:.2f} s")
+
     def timed(fn):
         t = time.perf_counter()
         fn()
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(11) as pool:
+    with ThreadPoolExecutor(18) as pool:
         k1_jobs = [pool.submit(fused_kernel.build, kerns, verbose=True)
-                   for kerns in k1_kernels.values()]
+                   for kerns in [*k1_kernels.values(), list(op_kerns.values()), model_kerns]]
         jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
                 "K3 stamped": pool.submit(timed, lambda: radon_kernel.build(
                     verbose=True, flags=radon_kernel.STAMPED)),
@@ -567,7 +939,9 @@ def main(opts):
                     verbose=True, flags=radon_kernel.STAMPED + K3_SHARED_WALK)),
                 "K2": pool.submit(timed, lambda: k2.build(verbose=True)),
                 "K2 stamped": pool.submit(timed, lambda: k2_stamped.build(verbose=True)),
-                "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True))}
+                "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True)),
+                **{f"K2 case: {tag}": pool.submit(timed, lambda k=k: k.build(verbose=True))
+                   for tag, _, _, k, _ in k2_cases}}
         build_s = {tag: job.result() for tag, job in jobs.items()}
         for job in k1_jobs:
             job.result()
@@ -576,7 +950,8 @@ def main(opts):
             "K3, rows in shared memory": radon_kernel.BUILD_LOGS[K3_SHARED_WALK],
             "K3 stamped, rows in shared memory":
                 radon_kernel.BUILD_LOGS[radon_kernel.STAMPED + K3_SHARED_WALK],
-            "K2": k2.build_log, "K2 stamped": k2_stamped.build_log, "K4": spmv_kernel.BUILD_LOG}
+            "K2": k2.build_log, "K2 stamped": k2_stamped.build_log, "K4": spmv_kernel.BUILD_LOG,
+            **{f"K2 case: {tag}": k.build_log for tag, _, _, k, _ in k2_cases}}
     for tag, log in logs.items():
         say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
         for line in log.splitlines():
@@ -658,6 +1033,46 @@ def main(opts):
                 k1.update(ms=dev_ms, plain_ms=dev_plain, wall_ms=ms, plain_wall_ms=plain_ms)
                 k1["bound_ms"], k1["bound_by"] = b_ms, b_by
             k1["max_abs_err"] = max(k1["max_abs_err"], worst_abs)
+    # every scalar op of the expression table, a fused node a dtype
+    n_ops, worst_op = 0, 0.0
+    for dt, (ins, outs, names) in op_groups.items():
+        kern = op_kerns[dt]
+        args = [as_torch(v, dev) for v in cases.op_group_inputs(dt, ins, 4099)]
+        got = kern.launch(*args)
+        want = kern.plain(*args)
+        torch.cuda.synchronize()
+        inexact = 0.0
+        for op_name, g, w in zip(names, got, want):
+            g, w = g.cpu(), w.cpu()
+            if not g.dtype.is_floating_point:
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K1 op {op_name} {dt}: differs from its plain version")
+                continue
+            nan = w.isnan()
+            if not torch.equal(g.isnan(), nan):
+                raise AssertionError(f"K1 op {op_name} {dt}: NaN where the plain version has none")
+            g, w = g[~nan], w[~nan]
+            if op_name in cases.EXACT_OPS:
+                if not (torch.equal(g, w) and torch.equal(torch.signbit(g), torch.signbit(w))):
+                    raise AssertionError(f"K1 op {op_name} {dt}: not the plain version's bits")
+                continue
+            inf = w.isinf()
+            if not (torch.equal(g.isinf(), inf) and torch.equal(g[inf], w[inf])):
+                raise AssertionError(f"K1 op {op_name} {dt}: inf where the plain version has none")
+            rel = ((g[~inf].double() - w[~inf].double()).abs()
+                   / w[~inf].double().abs().clamp(min=1.0))
+            err = float(rel.max()) if rel.numel() else 0.0
+            if not err <= K1_RTOL[dt]:
+                raise AssertionError(f"K1 op {op_name} {dt}: rel err {err} > {K1_RTOL[dt]}")
+            inexact = max(inexact, err)
+        n_ops += len(names)
+        worst_op = max(worst_op, inexact)
+        op_wall = wall_ms(lambda: kern.launch(*args), 20)
+        say(f"  K1 ops {dt:8s}: {len(names)} ops of {[str(i.type.dtype) for i in ins]} on 4,099 "
+            f"elements with numpy's edges; exact ops bit for bit, the others max rel err "
+            f"{inexact:.2e} (tol {K1_RTOL.get(dt, 0):g}); wall {op_wall * 1e3:.1f} us a launch")
+    say(f"K1 ops: {n_ops} op-dtype pairs held against the plain version, max rel err of the "
+        f"inexact ones {worst_op:.2e}")
     say(f"K1 phase done in {time.perf_counter() - t0:.1f} s")
 
     # 4. K3 -----------------------------------------------------------------
@@ -846,6 +1261,22 @@ def main(opts):
         f"SM {k2_bound[0] * n_sms * 1e3:.2f} us ({k2_bound[0] * n_sms / K2_STEPS * 1e3:.3f} us a "
         f"step); K2 runs a chain on one block")
     k2_stamp_breakdown(k2_stamped, k2_ms, got2, n_steps, outer)
+    # the K2 cases of the slice's new ops, each against its step loop
+    for tag, fg_c, node_c, kern_c, vals in k2_cases:
+        feed_c = fgraph_to_torch(FunctionGraph(fg_c.inputs, node_c.inputs, clone=False), dev)
+        steps_c, *outer_c = feed_c(*[as_torch(v, dev) for v in vals])
+        steps_c = steps_c.cpu()
+        got_c = kern_c.launch(steps_c, *outer_c)
+        want_c = kern_c.plain(steps_c, *outer_c)
+        torch.cuda.synchronize()
+        err_c = max(errors(a.cpu(), b.cpu())[1] for a, b in zip(got_c, want_c))
+        if not (err_c <= K2_CASE_TOL and all(bool(torch.isfinite(a).all()) for a in got_c)):
+            raise AssertionError(f"K2 case {tag}: rel err {err_c} vs its step loop > "
+                                 f"{K2_CASE_TOL}")
+        ops_c = sorted({type(nd.op).__name__ for nd in node_c.op.fgraph.apply_nodes})
+        say(f"K2 case {tag}: {int(steps_c)} steps, inner ops {ops_c}; rel err vs its step loop "
+            f"{err_c:.2e} (tol {K2_CASE_TOL:g}); {kern_c.src.n_ops} loops, "
+            f"{kern_c.src.n_barriers} barriers a step")
 
     # 7. chain through scan + function() --------------------------------------
     chain = make_leapfrog_chain("float32", None, CHAIN_STEPS, N_OBS, N_COUNTIES, device=dev)
@@ -1199,11 +1630,19 @@ def main(opts):
     say(f"K4 inside the power iteration: {k4_power[0][0] / k4_power[0][1] * 1e3:.2f} us a launch "
         f"(device), {k4_power[0][1]:.0f} launches a call")
 
+    # 11. models ----------------------------------------------------------
+    model_launches, k1_model_abs = phase_models(dev, smi)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_model_abs)
+
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "cuda",
          "source": "pytensor_tpu_torch/tensor/fused_kernel.py",
          "replaces": "pytensor_tpu/tensor/fused.py:33",
-         "launches": launches["fused_elemwise"], "max_abs_err": k1["max_abs_err"],
+         "launches": launches["fused_elemwise"] + sum(
+             v["fused_elemwise"] for v in model_launches.values()),
+         "launches_by_path": {"radon slice": launches["fused_elemwise"],
+                              **{tag: v["fused_elemwise"] for tag, v in model_launches.items()}},
+         "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "wall_ms": k1["wall_ms"], "plain_wall_ms": k1["plain_wall_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None},
@@ -1218,7 +1657,11 @@ def main(opts):
         {"name": "scan_whole_loop (K2)", "route": "cuda",
          "source": "pytensor_tpu_torch/link/cuda/scan_kernel.py",
          "replaces": "pytensor_tpu/link/pallas/scan_pallas.py:101",
-         "launches": chain_launches["scan_whole_loop"], "max_abs_err": k2_abs,
+         "launches": chain_launches["scan_whole_loop"] + sum(
+             v["scan_whole_loop"] for v in model_launches.values()),
+         "launches_by_path": {"chain": chain_launches["scan_whole_loop"],
+                              **{tag: v["scan_whole_loop"] for tag, v in model_launches.items()}},
+         "max_abs_err": k2_abs,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "wall_ms": k2_wall, "plain_wall_ms": k2_plain_wall,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
@@ -1229,7 +1672,7 @@ def main(opts):
          "launches": power_launches["spmv_csr"], **k4},
     ]
     say(json.dumps({"kernels": kernels}))
-    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                            "count": torch.cuda.device_count()}}))
     return 0
 

@@ -76,6 +76,11 @@ def register_specialize(rewrite, *tags, name=None, **kwargs):
     return rewrite
 
 
+def register_stabilize(rewrite, *tags, name=None, **kwargs):
+    stabilize.register(_name(rewrite, name), rewrite, "fast_run", *tags, **kwargs)
+    return rewrite
+
+
 def register_useless(rewrite, *tags, name=None, **kwargs):
     useless.register(_name(rewrite, name), rewrite, "fast_run", "fast_compile",
                      *tags, **kwargs)

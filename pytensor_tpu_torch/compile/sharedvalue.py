@@ -53,13 +53,15 @@ class SharedVariable(Variable):
         return self.name or f"shared_{self.auto_name}"
 
 
-def shared(value, name=None, *, device):
+def shared(value, name=None, *, device, borrow=False, shape=None):
     """A tensor shared variable holding ``value`` on ``device``.
 
     ``value`` is a numpy array, a Python or numpy scalar, or a torch
     tensor (moved, never cast).  Its static shape is fully unknown, as in
-    the JAX package; left out: the ``shape=`` and ``borrow=`` arguments.
+    the JAX package, unless ``shape`` gives it; with ``borrow`` a torch
+    tensor already on ``device`` is held without a copy.
     """
     from pytensor_tpu_torch.tensor.sharedvar import tensor_shared_constructor
 
-    return tensor_shared_constructor(value, name=name, device=device)
+    return tensor_shared_constructor(value, name=name, borrow=borrow, shape=shape,
+                                     device=device)

@@ -1,7 +1,10 @@
 """Graph-to-graph reverse-mode differentiation.
 
 Counterpart of ``pytensor_tpu/gradient.py`` (PyTensor's gradient.py
-grad:568, pullback:452), cut to ``grad`` and ``pullback``.  Everything
+grad:568, pullback:452), cut to ``grad``, ``pullback`` and the
+gradient-manipulating ops (``gradient.py:447-517``: ZeroGrad,
+DisconnectedGrad, UndefinedGrad, GradClip, GradScale, identities in the
+forward pass).  Everything
 stays in graph land: grad() returns symbolic graphs built from per-Op
 L_op rules, so ``dlogp`` is a graph the rewrites and the linker see like
 any other.
@@ -13,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 
 from pytensor_tpu_torch.config import config
-from pytensor_tpu_torch.graph.basic import Variable
+from pytensor_tpu_torch.graph.basic import Apply, Variable
+from pytensor_tpu_torch.graph.op import Op
 from pytensor_tpu_torch.graph.null_type import DisconnectedType, NullType
 from pytensor_tpu_torch.graph.traversal import io_toposort
 
@@ -24,6 +28,13 @@ class DisconnectedInputError(ValueError):
 
 class NullTypeGradError(TypeError):
     pass
+
+
+def grad_undefined(op, x_pos, x, comment=""):
+    """Gradient formally undefined wrt this input."""
+    return NullType(
+        f"Gradient of {op} wrt input {x_pos} ({x}) is undefined: {comment}"
+    )()
 
 
 def grad_not_implemented(op, x_pos, x, comment=""):
@@ -303,3 +314,96 @@ def pullback(outputs, inputs, output_grads=None, **kwargs):
                disconnected_inputs=kwargs.get("disconnected_inputs", "raise"),
                return_disconnected=kwargs.get("return_disconnected", "zero"))
     return res[0] if one else res
+
+
+# --- gradient-manipulation ops ---------------------------------------------
+
+class GradManipulatorOp(Op):
+    view_map = {0: [0]}
+
+    def make_node(self, x):
+        from pytensor_tpu_torch.tensor.basic import as_tensor_variable
+
+        x = as_tensor_variable(x)
+        return Apply(self, [x], [x.type()])
+
+    def perform(self, node, inputs, output_storage):
+        output_storage[0][0] = inputs[0]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0]]
+
+
+class ZeroGrad(GradManipulatorOp):
+    __props__ = ()
+
+    def L_op(self, inputs, outputs, output_grads):
+        return [_zeros_like_var(inputs[0])]
+
+
+class DisconnectedGrad(GradManipulatorOp):
+    __props__ = ()
+
+    def L_op(self, inputs, outputs, output_grads):
+        return [DisconnectedType()()]
+
+    def connection_pattern(self, node):
+        return [[False]]
+
+
+class UndefinedGrad(GradManipulatorOp):
+    __props__ = ()
+
+    def L_op(self, inputs, outputs, output_grads):
+        return [grad_undefined(self, 0, inputs[0])]
+
+
+class GradClip(GradManipulatorOp):
+    __props__ = ("clip_lower_bound", "clip_upper_bound")
+
+    def __init__(self, clip_lower_bound, clip_upper_bound):
+        self.clip_lower_bound = float(clip_lower_bound)
+        self.clip_upper_bound = float(clip_upper_bound)
+
+    def L_op(self, inputs, outputs, output_grads):
+        from pytensor_tpu_torch.tensor import math as tm
+
+        return [tm.clip(output_grads[0], self.clip_lower_bound, self.clip_upper_bound)]
+
+
+class GradScale(GradManipulatorOp):
+    __props__ = ("multiplier",)
+
+    def __init__(self, multiplier):
+        self.multiplier = float(multiplier)
+
+    def L_op(self, inputs, outputs, output_grads):
+        return [self.multiplier * output_grads[0]]
+
+
+zero_grad_ = ZeroGrad()
+disconnected_grad_ = DisconnectedGrad()
+undefined_grad_ = UndefinedGrad()
+
+
+def zero_grad(x):
+    return zero_grad_(x)
+
+
+def disconnected_grad(x):
+    return disconnected_grad_(x)
+
+
+def undefined_grad(x):
+    return undefined_grad_(x)
+
+
+def grad_clip(x, lower_bound, upper_bound):
+    return GradClip(lower_bound, upper_bound)(x)
+
+
+def grad_scale(x, multiplier):
+    return GradScale(multiplier)(x)
+
+
+consider_constant = zero_grad  # legacy alias

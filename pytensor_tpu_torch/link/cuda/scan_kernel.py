@@ -67,7 +67,14 @@ what it can about each:
   ``Dot`` take one thread per output element, or one warp per output
   element with a fixed shuffle tree when the reduced length is long
   against the number of outputs; a full reduction is a block reduction,
-  warp shuffles then one warp over the 32 partials.  Every order is fixed,
+  warp shuffles then one warp over the 32 partials.  ``Dot22`` is that
+  ``Dot``; ``Gemm`` and ``Dot22Scalar`` are too, with their scaling and
+  add after the sum, each multiply and add rounded on its own.  ``Join``
+  is a unit of a run whose element reads the input that holds it,
+  ``ARange`` a unit computing numpy's ``first + i * delta``; each part of
+  a ``Split`` is a basic slice (a view where it keeps the row-major
+  order), and ``DeepCopyOp`` and ``ViewOp`` alias their input (slots are
+  never written in place).  Every order is fixed,
   so K2 is deterministic.  ``MakeVector`` runs on thread 0;
   ``Shape``/``Shape_i`` are literals written before the loop.  Values
   that only feed static shape inputs (of ``Reshape``, ``SpecifyShape``,
@@ -76,8 +83,11 @@ what it can about each:
 Eligibility keeps the structure of ``scan_pallas.py:54
 pallas_scan_eligible``: every tap ``(-1,)`` (the port has no while-scans),
 static shapes for every inner variable and sequence, dtypes in
-``_OK_DTYPES``, and only ops this emitter covers.  The 4 MB VMEM budget
-is replaced by the kernel's own limit: 32-bit element offsets.  A
+``_OK_DTYPES``, only ops this emitter covers, and the JAX package's 4 MiB
+budget, computed as it computes it (``_budget_bytes``), so that the same
+scans take the kernel in both packages: a scan over a full-width weight
+takes the step loop rather than one block.  The kernel's own limit,
+32-bit element offsets, holds too.  A
 ``Subtensor`` or ``IncSubtensor``
 with a dynamic index is not emitted (its bounds check needs the host),
 so such a scan takes the loop here where the JAX package would take its
@@ -95,12 +105,14 @@ import math
 import numpy as np
 import torch
 
+from pytensor_tpu_torch.compile.ops import DeepCopyOp, ViewOp
 from pytensor_tpu_torch.graph.basic import Constant
-from pytensor_tpu_torch.link.cuda.cexpr import CEXPR, MAX_SOURCE, ctype, literal
-from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector
+from pytensor_tpu_torch.link.cuda.cexpr import CEXPR, MAX_SOURCE, ctype, helpers, literal
+from pytensor_tpu_torch.tensor.basic import ARange, Alloc, Join, MakeVector, Split
+from pytensor_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from pytensor_tpu_torch.tensor.fused import FusedElemwise
-from pytensor_tpu_torch.tensor.math import Dot
+from pytensor_tpu_torch.tensor.math import Dot, _dot
 from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape
 from pytensor_tpu_torch.tensor.subtensor import DYN, IncSubtensor, Subtensor
 
@@ -236,12 +248,47 @@ def emittable(node) -> bool:
         return name not in _FLOAT_ONLY or node.outputs[0].type.dtype.startswith("float")
     if isinstance(op, CAReduce):
         return op.scalar_op.name in _REDUCE
-    if isinstance(op, Dot):
+    if isinstance(op, (Dot, Dot22, Gemm, Dot22Scalar)):
         return node.outputs[0].type.dtype != "bool"
     if isinstance(op, (Subtensor, IncSubtensor)):
         return not _dynamic_index(op)
+    if isinstance(op, (Join, Split, ARange)):
+        # static axes, sizes and bounds (the static output shapes the
+        # eligibility asks for imply them)
+        return all(isinstance(i, Constant) for i in _static_inputs(node))
     return isinstance(op, (DimShuffle, Reshape, SpecifyShape, Alloc, MakeVector,
-                           Shape, Shape_i))
+                           Shape, Shape_i, DeepCopyOp, ViewOp))
+
+
+def _static_inputs(node):
+    """The inputs of a Join, Split or ARange that fix its shape."""
+    op = node.op
+    if isinstance(op, Join):
+        return node.inputs[:1]
+    if isinstance(op, Split):
+        return node.inputs[1:]
+    return node.inputs
+
+
+# the JAX package's VMEM budget (scan_pallas.py:86-98), computed as it
+# computes it: 4 bytes an element of the inner inputs, the outer
+# sequences and the inner graph's constants of one dim or more
+BUDGET_BYTES = 4 << 20
+
+
+def _budget_bytes(op, node) -> int:
+    from pytensor_tpu_torch.graph.traversal import ancestors
+
+    total = 0
+    for v in op.fgraph.inputs:
+        total += int(np.prod(v.type.shape or (1,), initial=1)) * 4
+    if node is not None:
+        for s in node.inputs[1: 1 + op.info.n_seqs]:
+            total += int(np.prod(s.type.shape, initial=1)) * 4
+    for v in ancestors(op.fgraph.outputs):
+        if isinstance(v, Constant) and getattr(v.type, "ndim", 0) >= 1:
+            total += int(np.asarray(v.data).size) * 4
+    return total
 
 
 def scan_kernel_eligible(op, node=None) -> bool:
@@ -274,7 +321,10 @@ def scan_kernel_eligible(op, node=None) -> bool:
     # the kernel's own limit: element offsets are 32-bit ints
     if node is not None:
         total += sum(_size(s.type.shape) for s in node.inputs[1:])
-    return total < 2 ** 31
+    # and the JAX package's budget, so that the same scans take the kernel
+    # in both packages: a scan whose step holds a large product (a full-width
+    # GEMM chain) takes the step loop, not one block
+    return total < 2 ** 31 and _budget_bytes(op, node) <= BUDGET_BYTES
 
 
 # --- the emitter ------------------------------------------------------------------
@@ -325,6 +375,20 @@ def _flatten(order):
     plus {outer var: inner var} for fused outputs that are not computed."""
     enodes, alias = [], {}
     for node in order:
+        if isinstance(node.op, Dot22):
+            enodes.append(_ENode(_dot, node.inputs, node.outputs))
+            continue
+        if isinstance(node.op, Split):
+            # each part is a basic slice along the axis: a view where it
+            # keeps the row-major order, else a strided copy
+            x, axis, sizes = node.inputs
+            a = int(np.asarray(axis.data)) % x.type.ndim
+            start = 0
+            for size, out in zip(np.asarray(sizes.data).tolist(), node.outputs):
+                idx = [("slice", None, None, None)] * a + [("slice", start, start + size, None)]
+                enodes.append(_ENode(Subtensor(idx), [x], [out]))
+                start += size
+            continue
         if not isinstance(node.op, FusedElemwise):
             enodes.append(_ENode(node.op, node.inputs, node.outputs))
             continue
@@ -340,7 +404,8 @@ def _flatten(order):
 
 # static shape ports, whose values the kernel does not need
 _SHAPE_ONLY = {Reshape: lambda i: i >= 1, SpecifyShape: lambda i: i >= 1,
-               Alloc: lambda i: i >= 1, Shape: lambda i: True, Shape_i: lambda i: True}
+               Alloc: lambda i: i >= 1, Shape: lambda i: True, Shape_i: lambda i: True,
+               Join: lambda i: i == 0, ARange: lambda i: True}
 
 
 class _Writer:
@@ -635,7 +700,10 @@ class ScanKernelSource:
             base = "k2_cs" if where == "shared" else "a.consts"
             self.decl.append(f"const {ct}* {name} = (const {ct}*)({base} + {off});")
 
-        lines = [_PRELUDE, "namespace {", "", "struct K2Args {"]
+        # the prelude, and the expression table's helpers the body calls
+        # that it lacks
+        prelude = _PRELUDE + helpers("\n".join(step_body), have=("k2_max", "k2_ipow"))
+        lines = [prelude, "namespace {", "", "struct K2Args {"]
         for field, ct, const in self.args:
             lines.append(f"  {'const ' if const else ''}{ct}* {field};")
         lines += ["  unsigned char* scratch;", "  const unsigned char* consts;",
@@ -804,7 +872,7 @@ class ScanKernelSource:
         ``Reshape``, ``SpecifyShape``, a ``DimShuffle`` that keeps the
         order, a ``Subtensor`` that keeps the row-major order."""
         op = en.op
-        if isinstance(op, (Reshape, SpecifyShape)) or (
+        if isinstance(op, (Reshape, SpecifyShape, DeepCopyOp, ViewOp)) or (
                 isinstance(op, DimShuffle) and list(op.shuffle) == sorted(op.shuffle)):
             return 0
         if isinstance(op, Subtensor):
@@ -815,7 +883,7 @@ class ScanKernelSource:
                 return base
         return None
 
-    _MAP_OPS = (Elemwise, IncSubtensor, Alloc, Subtensor, DimShuffle)
+    _MAP_OPS = (Elemwise, IncSubtensor, Alloc, Subtensor, DimShuffle, Join, ARange)
 
     def _schedule(self, live):
         """The live nodes in an order that keeps element-wise ops of one
@@ -926,7 +994,7 @@ class ScanKernelSource:
             return self._add(self._onehot_unit(pos, en, plan))
         unit = {Elemwise: self._elemwise, Subtensor: self._strided_copy,
                 DimShuffle: self._strided_copy, IncSubtensor: self._inc_subtensor,
-                Alloc: self._alloc}.get(type(op))
+                Alloc: self._alloc, Join: self._join, ARange: self._arange}.get(type(op))
         if unit is not None:
             return self._add(unit(pos, en))
         self._close_run()
@@ -936,11 +1004,12 @@ class ScanKernelSource:
         if plan is not None:
             self._segsum_by_warp(en, plan)
         else:
-            {CAReduce: self._careduce, Dot: self._dot, MakeVector: self._make_vector}[type(op)](en)
+            {CAReduce: self._careduce, Dot: self._dot, Gemm: self._gemm,
+             Dot22Scalar: self._dot22scalar, MakeVector: self._make_vector}[type(op)](en)
         self.n_ops += 1
         self.n_units += 1
         self._stamp("onehot_dot" if plan is not None else "careduce" if isinstance(op, CAReduce)
-                    else "dot" if isinstance(op, Dot) else "copy",
+                    else "dot" if isinstance(op, (Dot, Gemm, Dot22Scalar)) else "copy",
                     f"{op} -> {tuple(out.type.shape)}")
         return None
 
@@ -1067,14 +1136,7 @@ class ScanKernelSource:
         n = _size(shape)
         name = en.op.scalar_op.name
         out_dt = out_v.type.dtype
-        if name.startswith("cast{") or name == "second":
-            comp = [i.type.dtype for i in en.inputs]
-        elif out_dt == "bool":
-            from pytensor_tpu_torch.scalar.basic import upcast
-
-            comp = [upcast(*(i.type.dtype for i in en.inputs))] * len(en.inputs)
-        else:
-            comp = [out_dt] * len(en.inputs)
+        comp = en.op.scalar_op.compute_dtypes([i.type.dtype for i in en.inputs], out_dt)
         ins = [(i, dt, self.get(i)) for i, dt in zip(en.inputs, comp)]
 
         def ident(loc):
@@ -1135,6 +1197,50 @@ class ScanKernelSource:
             return lines + [f"{r} = {self.operand(x, idx, xl.dtype)};"]
 
         return _Unit(pos, out_v, [(x, "gen")], code, "copy")
+
+    def _join(self, pos, en):
+        """Concatenation as index arithmetic: element ``i`` of the output
+        reads the input whose segment of the axis holds it."""
+        axis, *xs = en.inputs
+        out_v = en.outputs[0]
+        out = self._new_slot(out_v)
+        shape = out.shape
+        a = int(np.asarray(axis.data)) % len(shape)
+        dt = out_v.type.dtype
+
+        def code(r, u, flag):
+            o = f"o{u}_"
+            lines = _unravel(shape, "i", o)
+            start, branches = 0, []
+            for k, x in enumerate(xs):
+                n = x.type.shape[a]
+                st = _row_major(x.type.shape)
+                idx = " + ".join([f"({o}{a} - {start}) * {st[a]}" if st[a] else "0"]
+                                 + [f"{o}{d} * {st[d]}" for d in range(len(shape))
+                                    if d != a and st[d]])
+                cond = "" if k == len(xs) - 1 else f"if ({o}{a} < {start + n}) "
+                branches.append(f"{'else ' if k else ''}{cond}{r} = "
+                                f"{self.operand(x, idx, dt)};")
+                start += n
+            return lines + branches
+
+        return _Unit(pos, out_v, [(x, "gen") for x in xs], code, "copy")
+
+    def _arange(self, pos, en):
+        """numpy's arange as index arithmetic: ``first + i * delta`` in the
+        output dtype, delta the difference of the first two values, as
+        numpy's fill computes it."""
+        out_v = en.outputs[0]
+        self._new_slot(out_v)
+        dt = out_v.type.dtype
+        vals = np.arange(*(np.asarray(i.data) for i in en.inputs), dtype=dt)
+        first = literal(vals[0] if vals.size else 0, dt)
+        delta = literal(vals[1] - vals[0] if vals.size > 1 else 0, dt)
+
+        def code(r, u, flag):
+            return [f"{r} = ({ctype(dt)})({first} + ({ctype(dt)})i * {delta});"]
+
+        return _Unit(pos, out_v, [], code, "copy")
 
     def _inc_subtensor(self, pos, en):
         x, y = en.inputs[:2]
@@ -1480,8 +1586,30 @@ class ScanKernelSource:
         self._commit(reads=[x], writes=[out_v])
         self.wrote(out_v, _Writer.OTHER)
 
-    def _dot(self, en):
-        x, y = en.inputs
+    def _gemm(self, en):
+        """beta * z + alpha * dot(x, y): the product's FMA loop, then each
+        multiply and the add rounded on its own, as the JAX package's
+        expression is."""
+        z, alpha, x, y, beta = en.inputs
+        ct = ctype(en.outputs[0].type.dtype)
+        dt = en.outputs[0].type.dtype
+        self._dot(en, x, y, [z, alpha, beta], lambda acc, o: (
+            f"({self.operand(beta, '0', dt)} * {self.operand(z, o, dt)} + "
+            f"{self.operand(alpha, '0', dt)} * ({ct}){acc})"))
+
+    def _dot22scalar(self, en):
+        """alpha * dot(x, y)."""
+        x, y, alpha = en.inputs
+        dt = en.outputs[0].type.dtype
+        self._dot(en, x, y, [alpha], lambda acc, o: f"({self.operand(alpha, '0', dt)} * {acc})")
+
+    def _dot(self, en, x=None, y=None, extra=(), epilogue=None):
+        """A product on the block's threads: one thread, or one warp, an
+        output element, its multiply-adds as explicit FMAs in a fixed
+        order; ``epilogue(acc, o)`` makes the value stored from the sum
+        (Gemm and Dot22Scalar), reading ``extra`` too."""
+        if x is None:
+            x, y = en.inputs
         out_v = en.outputs[0]
         out = self._new_slot(out_v)
         xl, yl = self.get(x), self.get(y)
@@ -1503,8 +1631,12 @@ class ScanKernelSource:
         # with -fmad=false
         step = (f"acc = {'fmaf' if ct == 'float' else 'fma'}({xk}, {yk}, acc)"
                 if ct in ("float", "double") else f"acc += {xk} * {yk}")
-        self.reads([(x, "gen"), (y, "gen")])
-        self._commit(reads=[x, y], writes=[out_v])
+        self.reads([(v, "gen") for v in (x, y, *extra)])
+        self._commit(reads=[x, y, *extra], writes=[out_v])
+
+        def value(o):
+            return "acc" if epilogue is None else epilogue("acc", o)
+
         by_thread = math.ceil(O / THREADS) * K
         by_warp = math.ceil(O / WARPS) * math.ceil(K / 32) + 5
         if O == 1 or by_thread <= by_warp:
@@ -1513,7 +1645,7 @@ class ScanKernelSource:
                 f"  const int xb = {xb}; const int yb = {yb};",
                 f"  {ct} acc = 0;",
                 f"  for (int k = 0; k < {K}; ++k) {step};",
-                f"  {out.at('o')} = acc;",
+                f"  {out.at('o')} = {value('o')};",
                 "}",
             ]
             self.wrote(out_v, _Writer.STD if O > 1 else _Writer.T0)
@@ -1526,7 +1658,7 @@ class ScanKernelSource:
             f"    {ct} acc = 0;",
             f"    for (int k = lane; k < {K}; k += 32) {step};",
             "    acc = k2_warp_add(acc);",
-            f"    if (lane == 0) {out.at('o')} = acc;",
+            f"    if (lane == 0) {out.at('o')} = {value('o')};",
             "  }",
             "}",
         ]

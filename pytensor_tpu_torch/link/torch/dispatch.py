@@ -1,7 +1,10 @@
 """torch lowerings of the ops: the ``torch_funcify`` registry.
 
 Counterpart of ``pytensor_tpu/link/xla/dispatch.py`` (``xla_funcify:27``
-and the lowerings at ``:155-693``), of the Scan lowering at
+and the lowerings at ``:155-760``, with the blas lowerings of
+``pytensor_tpu/tensor/blas.py:246-289``; the lowerings of ``extra_ops``,
+``sort``, ``Blockwise``, ``FromFunctionOp`` and ``Print`` wait for their
+modules), of the Scan lowering at
 ``pytensor_tpu/scan/op.py:790`` and of the sparse lowerings at
 ``pytensor_tpu/sparse/basic.py:642-757`` and ``sparse/spmv.py:412``.
 ``torch_funcify(op, node=node, device=device)`` returns a function of
@@ -23,16 +26,30 @@ from functools import singledispatch
 import numpy as np
 import torch
 
+from pytensor_tpu_torch.compile.ops import DeepCopyOp, TypeCastingOp
+from pytensor_tpu_torch.gradient import GradManipulatorOp
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.link.torch.convert import CSR, torch_dtype
 from pytensor_tpu_torch.scan.op import Scan
 from pytensor_tpu_torch.sparse.basic import StructuredDot, StructuredDotGrad, Transpose
 from pytensor_tpu_torch.sparse.spmv import RoutedSpMV
-from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector
+from pytensor_tpu_torch.tensor.basic import (
+    ARange,
+    Alloc,
+    AllocEmpty,
+    Eye,
+    ExtractDiag,
+    Join,
+    MakeVector,
+    Nonzero,
+    Split,
+)
+from pytensor_tpu_torch.tensor.blas import BatchedDot, Dot22, Dot22Scalar, Gemm, Gemv, Ger
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from pytensor_tpu_torch.tensor.fused import FusedElemwise
-from pytensor_tpu_torch.tensor.math import Dot
-from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape
+from pytensor_tpu_torch.tensor.math import Argmax, Dot
+from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape, Unbroadcast
+from pytensor_tpu_torch.tensor.type_other import MakeSlice
 from pytensor_tpu_torch.tensor.subtensor import (
     DYN,
     AdvancedIncSubtensor,
@@ -50,35 +67,86 @@ def torch_funcify(op, node=None, device=None, **kwargs):
     raise NotImplementedError(f"No torch lowering for {op} ({type(op).__name__})")
 
 
+# --- what a lowering reads on the host ----------------------------------------
+
+ALL = "all"
+
+
+def ports(host=(), checked=(), scalar=(), reads_back=False):
+    """Declare, on a lowering, what its function does with the host.  Each
+    of ``host``, ``checked`` and ``scalar`` is a tuple of input positions,
+    ``ALL`` or a function of the node giving them:
+
+    - ``host``: inputs read with ``int()``, ``.item()`` or ``.tolist()``
+      (a shape, a step count, a basic index's bounds, an axis);
+    - ``checked``: integer indices bounds-checked by ``_IndexCheck`` (a
+      constant at link time, any other by reading its min and max);
+    - ``scalar``: inputs at which a one-element host value is taken as a
+      scalar argument, not a tensor copied to the device;
+    - ``reads_back``: the output's size is read back from the device.
+
+    The linker places the constants of ``host`` ports on the host, and its
+    capture rule (``linker.py _host_reads``) reads these declarations."""
+    def declare(lowering):
+        lowering.ports = {"host": host, "checked": checked, "scalar": scalar,
+                          "reads_back": reads_back}
+        return lowering
+
+    return declare
+
+
+def ports_of(node, kind):
+    """What the lowering of ``node`` declares (``ports``): a set of input
+    positions, or ``reads_back``'s flag."""
+    spec = getattr(torch_funcify.dispatch(type(node.op)), "ports", {}).get(kind, ())
+    if kind == "reads_back":
+        return bool(spec)
+    if callable(spec):
+        spec = spec(node)
+    elif spec == ALL:
+        spec = range(len(node.inputs))
+    return set(spec)
+
+
+def _from(k):
+    """Ports ``k`` onwards."""
+    return lambda node: range(k, len(node.inputs))
+
+
 # --- elementwise --------------------------------------------------------------
 
 def elemwise_fn(node):
     """torch implementation of one Elemwise node.
 
-    Operands are cast to the node's output dtype before the op, which is
-    numpy's rule of computing in the promoted dtype; torch's own promotion
-    would let a 0-d float64 operand be computed at float32.
+    Operands are cast to their compute dtypes before the op
+    (``ScalarOp.compute_dtypes``: mostly the output's), which is numpy's
+    rule of computing in the promoted dtype; torch's own promotion would
+    let a 0-d float64 operand be computed at float32.
     """
     so = node.op.scalar_op
     so.check_inputs(*(i.type.dtype for i in node.inputs))
     fn = so.torch_fn
     if so.name == "second" or so.name.startswith("cast{"):
         return fn
-    out_dtype = node.outputs[0].type.dtype
-    if out_dtype == "bool":
-        # comparisons compute in the operands' common dtype
-        from pytensor_tpu_torch.scalar.basic import upcast
-
-        out_dtype = upcast(*(i.type.dtype for i in node.inputs))
-    out = torch_dtype(out_dtype)
+    comp = [torch_dtype(d) for d in so.compute_dtypes([i.type.dtype for i in node.inputs],
+                                                      node.outputs[0].type.dtype)]
 
     def elemwise(*args):
-        return fn(*[a if a.dtype == out else a.to(out) for a in args])
+        shape = None
+        dev = next((a.device for a in args if a.device.type != "cpu"), None)
+        if dev is not None and any(a.device != dev for a in args):
+            # one-element values from the host beside tensors on the card
+            # (shapes, cast): torch takes them as scalars when 0-d
+            shape = torch.broadcast_shapes(*(a.shape for a in args))
+            args = [a if a.device == dev else a.reshape(()) for a in args]
+        out = fn(*[a if a.dtype == c else a.to(c) for a, c in zip(args, comp)])
+        return out if shape is None or out.shape == shape else out.reshape(shape)
 
     return elemwise
 
 
 @torch_funcify.register(Elemwise)
+@ports(scalar=ALL)
 def _elemwise(op, node=None, **kw):
     fn = elemwise_fn(node)
 
@@ -91,6 +159,7 @@ def _elemwise(op, node=None, **kw):
 
 
 @torch_funcify.register(FusedElemwise)
+@ports(scalar=ALL)
 def _fused(op, node=None, device=None, **kw):
     from pytensor_tpu_torch.tensor.fused_kernel import FusedElemwiseKernel
 
@@ -120,7 +189,7 @@ def _dimshuffle(op, node=None, **kw):
 @torch_funcify.register(CAReduce)
 def _careduce(op, node=None, **kw):
     name = op.scalar_op.name
-    if name not in ("add", "mul", "maximum"):
+    if name not in ("add", "mul", "maximum", "minimum", "and_", "or_"):
         raise NotImplementedError(f"torch lowering of {op}")
     axis = op.axis
     out = torch_dtype(node.outputs[0].type.dtype)
@@ -135,6 +204,12 @@ def _careduce(op, node=None, **kw):
         elif name == "maximum":
             # NaN propagates, as in numpy's maximum.reduce
             r = torch.amax(x, dim=dims)
+        elif name == "minimum":
+            r = torch.amin(x, dim=dims)
+        elif name == "and_":
+            r = torch.all(x, dim=dims)
+        elif name == "or_":
+            r = torch.any(x, dim=dims)
         else:
             r = x.to(acc)
             for d in sorted(dims, reverse=True):
@@ -145,9 +220,98 @@ def _careduce(op, node=None, **kw):
 
 
 @torch_funcify.register(Dot)
+@torch_funcify.register(Dot22)
 def _dot(op, node=None, **kw):
     # full float32: a function linked for CUDA runs with TF32 off
     return torch.matmul
+
+
+@torch_funcify.register(BatchedDot)
+def _batched_dot(op, node=None, **kw):
+    return torch.bmm
+
+
+def _const_scalar(var):
+    """The Python number of a 0-d constant, else None."""
+    if isinstance(var, Constant) and np.ndim(var.data) == 0:
+        return np.asarray(var.data).item()
+    return None
+
+
+@torch_funcify.register(Gemm)
+@ports(scalar=(1, 4))
+def _gemm(op, node=None, **kw):
+    """beta * z + alpha * (x @ y): ``torch.addmm`` where alpha and beta are
+    constants, else the JAX package's expression; a 0-d host alpha or
+    beta is a scalar argument."""
+    alpha, beta = _const_scalar(node.inputs[1]), _const_scalar(node.inputs[4])
+    if alpha is not None and beta is not None:
+        return lambda z, a, x, y, b: torch.addmm(z, x, y, beta=beta, alpha=alpha)
+    return lambda z, a, x, y, b: b * z + a * torch.matmul(x, y)
+
+
+@torch_funcify.register(Dot22Scalar)
+@ports(scalar=(2,))
+def _dot22scalar(op, node=None, **kw):
+    return lambda x, y, alpha: alpha * torch.matmul(x, y)
+
+
+@torch_funcify.register(Gemv)
+@ports(scalar=(1, 4))
+def _gemv(op, node=None, **kw):
+    alpha, beta = _const_scalar(node.inputs[1]), _const_scalar(node.inputs[4])
+    if alpha is not None and beta is not None:
+        return lambda y, a, A, x, b: torch.addmv(y, A, x, beta=beta, alpha=alpha)
+    return lambda y, a, A, x, b: b * y + a * torch.mv(A, x)
+
+
+@torch_funcify.register(Ger)
+@ports(scalar=(1,))
+def _ger(op, node=None, **kw):
+    return lambda A, alpha, x, y: A + alpha * torch.outer(x, y)
+
+
+@torch_funcify.register(Argmax)
+def _argmax(op, node=None, **kw):
+    """numpy's argmax (the first maximum); several axes are moved last
+    and merged, in numpy's C order."""
+    axis = op.axis
+
+    def argmax(x):
+        if axis is None:
+            return torch.argmax(x.reshape(-1))
+        if len(axis) == 1:
+            return torch.argmax(x, dim=axis[0])
+        keep = [d for d in range(x.ndim) if d not in axis]
+        xt = x.permute(*keep, *axis)
+        return torch.argmax(xt.reshape(*xt.shape[: len(keep)], -1), dim=-1)
+
+    return argmax
+
+
+# --- identities, copies, slices ------------------------------------------------
+
+@torch_funcify.register(TypeCastingOp)
+@torch_funcify.register(GradManipulatorOp)
+@torch_funcify.register(Unbroadcast)
+def _identity(op, node=None, **kw):
+    return lambda x: x
+
+
+@torch_funcify.register(DeepCopyOp)
+def _deep_copy(op, node=None, **kw):
+    # torch tensors are mutable, so the copy is real (the JAX package's
+    # arrays are not, and its DeepCopyOp is the identity)
+    return torch.clone
+
+
+@torch_funcify.register(MakeSlice)
+@ports(host=ALL)
+def _make_slice(op, node=None, **kw):
+    def make_slice(*args):
+        return slice(*(None if a is None else int(a) for a in args))
+
+    return make_slice
 
 
 # --- shapes (host values) -----------------------------------------------------
@@ -171,6 +335,7 @@ def _shape_i(op, node=None, **kw):
 
 
 @torch_funcify.register(SpecifyShape)
+@ports(host=_from(1))
 def _specify_shape(op, node=None, **kw):
     def specify_shape(x, *shape):
         for d, s in enumerate(shape):
@@ -183,6 +348,7 @@ def _specify_shape(op, node=None, **kw):
 
 
 @torch_funcify.register(Reshape)
+@ports(host=(1,))
 def _reshape(op, node=None, **kw):
     def reshape(x, shp):
         return x.reshape(tuple(int(s) for s in shp.tolist()))
@@ -202,11 +368,97 @@ def _make_vector(op, node=None, **kw):
 
 
 @torch_funcify.register(Alloc)
+@ports(host=_from(1))
 def _alloc(op, node=None, **kw):
     def alloc(value, *shape):
         return torch.broadcast_to(value, tuple(int(s) for s in shape))
 
     return alloc
+
+
+@torch_funcify.register(AllocEmpty)
+@ports(host=ALL)
+def _alloc_empty(op, node=None, device=None, **kw):
+    dtype = torch_dtype(op.dtype)
+
+    def alloc_empty(*shape):
+        return torch.empty(tuple(int(s) for s in shape), dtype=dtype, device=device)
+
+    return alloc_empty
+
+
+@torch_funcify.register(Join)
+@ports(host=(0,))
+def _join(op, node=None, **kw):
+    def join(axis, *tensors):
+        return torch.cat(tensors, dim=int(axis))
+
+    return join
+
+
+@torch_funcify.register(Split)
+@ports(host=(1, 2))
+def _split(op, node=None, **kw):
+    n = op.len_splits
+
+    def split(x, axis, splits):
+        a = int(axis)
+        sp = [int(s) for s in splits.tolist()]
+        if len(sp) != n:
+            raise ValueError(f"Length of splits is not equal to n_splits: {len(sp)} vs {n}")
+        if any(s < 0 for s in sp):
+            raise ValueError("Split sizes cannot be negative")
+        dim = x.shape[a % x.ndim]
+        if sum(sp) != dim:
+            raise ValueError("Split sizes do not sum up to input length along "
+                             f"axis: {dim} (got {sum(sp)})")
+        return list(torch.split(x, sp, dim=a))
+
+    return split
+
+
+@torch_funcify.register(ARange)
+@ports(host=ALL)
+def _arange(op, node=None, device=None, **kw):
+    dtype = torch_dtype(op.dtype)
+
+    def arange(start, stop, step):
+        return torch.arange(start.item(), stop.item(), step.item(), dtype=dtype, device=device)
+
+    return arange
+
+
+@torch_funcify.register(Eye)
+@ports(host=ALL)
+def _eye(op, node=None, device=None, **kw):
+    dtype = torch_dtype(op.dtype)
+
+    def eye(n, m, k):
+        n, m, k = int(n), int(m), int(k)
+        out = torch.zeros((n, m), dtype=dtype, device=device)
+        out.diagonal(k).fill_(1)
+        return out
+
+    return eye
+
+
+@torch_funcify.register(ExtractDiag)
+def _extract_diag(op, node=None, **kw):
+    def extract_diag(x):
+        return torch.diagonal(x, op.offset, op.axis1, op.axis2)
+
+    return extract_diag
+
+
+@torch_funcify.register(Nonzero)
+@ports(reads_back=True)
+def _nonzero(op, node=None, **kw):
+    """The output length depends on the data: torch reads it back from the
+    device, so a plan that holds this node is never captured."""
+    def nonzero(x):
+        return list(torch.nonzero(x, as_tuple=True))
+
+    return nonzero
 
 
 # --- indexing -----------------------------------------------------------------
@@ -247,6 +499,7 @@ def _select(x, idx):
 
 
 @torch_funcify.register(Subtensor)
+@ports(host=_from(1))
 def _subtensor(op, node=None, **kw):
     idx_list = op.idx_list
 
@@ -257,6 +510,7 @@ def _subtensor(op, node=None, **kw):
 
 
 @torch_funcify.register(IncSubtensor)
+@ports(host=_from(2))
 def _inc_subtensor(op, node=None, **kw):
     idx_list = op.idx_list
     set_mode = op.set_instead_of_inc
@@ -308,6 +562,7 @@ class _IndexCheck:
 
 
 @torch_funcify.register(AdvancedSubtensor1)
+@ports(checked=(1,))
 def _adv_sub1(op, node=None, **kw):
     check = _IndexCheck(node.inputs[1], node.inputs[0].type.shape[0])
 
@@ -318,6 +573,7 @@ def _adv_sub1(op, node=None, **kw):
 
 
 @torch_funcify.register(AdvancedIncSubtensor1)
+@ports(checked=(2,))
 def _adv_incsub1(op, node=None, **kw):
     check = _IndexCheck(node.inputs[2], node.inputs[0].type.shape[0])
     set_mode = op.set_instead_of_inc
@@ -329,10 +585,8 @@ def _adv_incsub1(op, node=None, **kw):
         AdvancedIncSubtensor1._check_runtime_broadcast(node, tuple(y.shape), expected)
         y = y.expand(expected)
         out = x.clone()
-        if set_mode:
-            out.index_copy_(0, idx, y)
-        elif ignore_dups:
-            out[idx] += y
+        if set_mode or ignore_dups:
+            _copy_last(out, 0, idx, y, add=not set_mode)
         else:
             out.index_add_(0, idx, y)
         return out
@@ -357,6 +611,36 @@ def _adv_entries(idx_list, inputs):
     return entries
 
 
+def _adv_ports(node, first, host=False):
+    """An advanced index's array indices (inputs ``first`` on), which are
+    bounds-checked, or with ``host`` its other index inputs: the slice
+    bounds, read on the host."""
+    checked = {first + pos for _, pos in _adv_entries(node.op.idx_list, node.inputs[first:])}
+    return set(range(first, len(node.inputs))) - checked if host else checked
+
+
+def _last_writes(pos, n):
+    """For each entry of ``pos`` (positions in ``0..n-1``), the entry that
+    writes last to its position.  A write of duplicate positions without
+    accumulate (``index_put_``, ``index_copy_``) leaves the winner undefined
+    on CUDA; numpy's last write wins, and gathering each position's last
+    value first makes every write of it the same."""
+    order = torch.arange(pos.numel(), device=pos.device)
+    last = torch.full((n,), -1, dtype=order.dtype, device=pos.device)
+    last.scatter_reduce_(0, pos, order, reduce="amax")
+    return last[pos]
+
+
+def _copy_last(out, axis, idx, y, add):
+    """``out[..., idx, ...] = y`` along ``axis``, or ``+= y`` with ``add``
+    (numpy's, not ``np.add.at``), in place: of duplicate indices the last
+    write wins, as in numpy."""
+    y = y.index_select(axis, _last_writes(idx, out.shape[axis]))
+    if add:
+        y = out.index_select(axis, idx) + y
+    out.index_copy_(axis, idx, y.to(out.dtype))
+
+
 def _adv_index(idx_list, ind, checks, x):
     it = iter(ind)
     idx = []
@@ -379,6 +663,8 @@ def _adv_index(idx_list, ind, checks, x):
 
 
 @torch_funcify.register(AdvancedSubtensor)
+@ports(host=lambda node: _adv_ports(node, 1, host=True),
+       checked=lambda node: _adv_ports(node, 1))
 def _adv_sub(op, node=None, **kw):
     idx_list = op.idx_list
     x_shape = node.inputs[0].type.shape
@@ -395,31 +681,57 @@ def _adv_sub(op, node=None, **kw):
 
 
 @torch_funcify.register(AdvancedIncSubtensor)
+@ports(host=lambda node: _adv_ports(node, 2, host=True),
+       checked=lambda node: _adv_ports(node, 2))
 def _adv_incsub(op, node=None, **kw):
-    """One 1-d integer index along an axis, full slices elsewhere: the form
-    a gradient of ``x[:, idx]`` takes.  Other forms raise."""
+    """One 1-d integer index along an axis, full slices elsewhere (the form
+    a gradient of ``x[:, idx]`` takes) runs as ``index_add_``/``index_copy_``.
+    Any other index is numpy's: the flat positions it selects are
+    ``arange(x.size).reshape(x.shape)[idx]``, and the update is one
+    ``index_put_`` into the flat copy, summing duplicates for an increment
+    (``np.add.at``) unless ``ignore_duplicates``.  A set, or an increment
+    that ignores duplicates (numpy's ``x[idx] += y``), writes each
+    position's last value, as numpy does (``_last_writes``)."""
     idx_list = op.idx_list
+    x_shape = node.inputs[0].type.shape
+    entries = _adv_entries(idx_list, node.inputs[2:])
+    checks = [_IndexCheck(node.inputs[2 + pos], x_shape[axis]) for axis, pos in entries]
+    set_mode = op.set_instead_of_inc
     full = ("slice", None, None, None)
     dyn_axes = [d for d, e in enumerate(idx_list) if e == DYN]
-    if (len(dyn_axes) != 1 or any(e not in (DYN, full) for e in idx_list)
-            or node.inputs[2].type.ndim != 1):
-        raise NotImplementedError(f"torch lowering of {op} with index {idx_list}")
-    axis = dyn_axes[0]
-    check = _IndexCheck(node.inputs[2], node.inputs[0].type.shape[axis])
-    set_mode = op.set_instead_of_inc
+    if (len(dyn_axes) == 1 and all(e in (DYN, full) for e in idx_list)
+            and node.inputs[2].type.ndim == 1):
+        axis = dyn_axes[0]
+        check = checks[0]
 
-    def adv_incsub(x, y, ilist):
-        idx = check(ilist, x.shape[axis])
-        expected = list(x.shape)
-        expected[axis] = idx.shape[0]
-        y = y.expand(expected)
+        def adv_incsub_axis(x, y, ilist):
+            idx = check(ilist, x.shape[axis])
+            expected = list(x.shape)
+            expected[axis] = idx.shape[0]
+            y = y.expand(expected)
+            out = x.clone()
+            if set_mode or op.ignore_duplicates:
+                _copy_last(out, axis, idx, y, add=not set_mode)
+            else:
+                out.index_add_(axis, idx, y)
+            return out
+
+        return adv_incsub_axis
+
+    def adv_incsub(x, y, *ind):
+        idx = _adv_index(idx_list, ind, checks, x)
+        if _negative_steps(idx):
+            raise NotImplementedError("AdvancedIncSubtensor with a negative slice step")
+        sel = torch.arange(x.numel(), device=x.device).reshape(x.shape)[idx]
+        pos = sel.reshape(-1)
+        vals = y.to(x.dtype).expand(sel.shape).reshape(-1)
         out = x.clone()
-        if set_mode:
-            out.index_copy_(axis, idx, y)
-        elif op.ignore_duplicates:
-            out[(slice(None),) * axis + (idx,)] += y
+        flat = out.view(-1)
+        if set_mode or op.ignore_duplicates:
+            vals = vals[_last_writes(pos, x.numel())]
+            flat.index_put_((pos,), vals if set_mode else flat[pos] + vals)
         else:
-            out.index_add_(axis, idx, y)
+            flat.index_put_((pos,), vals, accumulate=True)
         return out
 
     return adv_incsub
@@ -428,6 +740,7 @@ def _adv_incsub(op, node=None, **kw):
 # --- scan -----------------------------------------------------------------------
 
 @torch_funcify.register(Scan)
+@ports(host=(0,))
 def _scan(op, node=None, device=None, **kw):
     """The loop below, or with ``config.scan__pallas`` and an eligible
     scan the whole-loop kernel K2 (the rule of

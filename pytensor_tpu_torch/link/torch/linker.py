@@ -50,21 +50,13 @@ from pytensor_tpu_torch.link.torch.convert import (
     sparse_as_torch,
     torch_dtype,
 )
-from pytensor_tpu_torch.link.torch.dispatch import _adv_entries, torch_funcify
-from pytensor_tpu_torch.scan.op import Scan
+from pytensor_tpu_torch.link.torch.dispatch import ports_of, torch_funcify
 from pytensor_tpu_torch.sparse.type import SparseTensorType
 from pytensor_tpu_torch.tensor import fused_kernel
-from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector
+from pytensor_tpu_torch.tensor.basic import MakeVector
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
-from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape
-from pytensor_tpu_torch.tensor.subtensor import (
-    AdvancedIncSubtensor,
-    AdvancedIncSubtensor1,
-    AdvancedSubtensor,
-    AdvancedSubtensor1,
-    IncSubtensor,
-    Subtensor,
-)
+from pytensor_tpu_torch.tensor.shape import Shape, Shape_i
+from pytensor_tpu_torch.tensor.subtensor import Subtensor
 from pytensor_tpu_torch.tensor.type import TensorType
 
 # ops that compute on the host when every non-constant input is host
@@ -78,38 +70,11 @@ _KERNELS = (fused_kernel, scan_kernel, spmv_kernel)
 NODES_RUN = 0
 
 
-def _host_ports(node) -> set:
-    """Input positions whose value the lowering reads on the host with
-    ``int()`` or ``.tolist()`` (``link/torch/dispatch.py``): a shape
-    (``Reshape``, ``SpecifyShape``, ``Alloc``), a scan's step count, the
-    bounds of a basic index (``Subtensor``, ``IncSubtensor``, the slices
-    of an ``AdvancedSubtensor``)."""
-    op, n = node.op, len(node.inputs)
-    if isinstance(op, Reshape):
-        return {1}
-    if isinstance(op, Scan):
-        return {0}
-    if isinstance(op, (SpecifyShape, Alloc, Subtensor)):
-        return set(range(1, n))
-    if isinstance(op, IncSubtensor):
-        return set(range(2, n))
-    if isinstance(op, AdvancedSubtensor):
-        return set(range(1, n)) - _checked_ports(node)
-    return set()
-
-
-def _checked_ports(node) -> set:
-    """Input positions of the integer indices a lowering bounds-checks
-    (``dispatch.py _IndexCheck``): a constant index is checked at link
-    time, any other by reading ``idx.min()`` and ``idx.max()`` on the host."""
-    op = node.op
-    if isinstance(op, AdvancedSubtensor1):
-        return {1}
-    if isinstance(op, (AdvancedIncSubtensor1, AdvancedIncSubtensor)):
-        return {2}
-    if isinstance(op, AdvancedSubtensor):
-        return {1 + pos for _, pos in _adv_entries(op.idx_list, node.inputs[1:])}
-    return set()
+def _takes_host_scalar(node, k, var) -> bool:
+    """Does the lowering take the host value ``var`` at input ``k`` as a
+    scalar argument: a value of one element (by its static shape) at a port
+    that the lowering declares ``scalar`` (``dispatch.py ports``)."""
+    return all(s == 1 for s in var.type.shape) and k in ports_of(node, "scalar")
 
 
 def _host_variables(order) -> set:
@@ -146,18 +111,23 @@ def _host_reads(steps, host) -> list:
     refuses a synchronising copy); empty when it may be captured.  Decided
     from the plan, at link time.
 
-    - a port read on the host (``_host_ports``: ``Reshape``'s
-      ``shp.tolist()``, ``int()`` of ``SpecifyShape``'s, ``Alloc``'s and a
-      basic index's entries, a scan's ``int(n_steps)``) fed by a device
+    - a port read on the host (a lowering's ``host`` ports,
+      ``dispatch.py ports``: ``Reshape``'s ``shp.tolist()``, ``int()`` of
+      ``SpecifyShape``'s, ``Alloc``'s and a basic index's entries, a scan's
+      ``int(n_steps)``) fed by a device
       value: an explicit input or a value computed on the device, where
       the JAX package would make the input a static argument
       (``pytensor_tpu/link/xla/linker.py:194-231``);
-    - a bounds check (``_IndexCheck``) of an index that is not a
-      constant: ``idx.min()``/``idx.max()``.  The port raises on an index
-      out of bounds where the XLA path clamps, and keeps that;
+    - a bounds check (``_IndexCheck``, the ``checked`` ports) of an index
+      that is not a constant: ``idx.min()``/``idx.max()``.  The port raises
+      on an index out of bounds where the XLA path clamps, and keeps that;
     - a host value at any other port of a node that runs on the device,
       which torch copies to the device (``MakeVector``'s ``.to(device)``);
-      an ``Elemwise`` takes a 0-d host value as a scalar argument instead;
+      a lowering's ``scalar`` ports (an ``Elemwise``'s, K1's, the blas
+      ops' alpha and beta) take a one-element host value as a scalar
+      argument instead (``_takes_host_scalar``);
+    - a lowering that reads its output's size back from the device
+      (``reads_back``: ``Nonzero``);
     - the same in the inner plan of a scan that runs as the step loop.
 
     These are the run-time host reads of ``dispatch.py`` and the kernel
@@ -174,7 +144,9 @@ def _host_reads(steps, host) -> list:
     for fn, node, _, _ in steps:
         if any(o in host for o in node.outputs):
             continue  # computed on the host from host values and constants
-        ports, checked = _host_ports(node), _checked_ports(node)
+        ports, checked = ports_of(node, "host"), ports_of(node, "checked")
+        if ports_of(node, "reads_back"):
+            reads.append(f"{node}: its output length is read back from the device")
         for k, i in enumerate(node.inputs):
             if isinstance(i, Constant):
                 continue
@@ -183,7 +155,7 @@ def _host_reads(steps, host) -> list:
             elif k in checked:
                 reads.append(f"{node}: the bounds check of index input {k} reads its min and "
                              "max on the host")
-            elif k not in ports and i in host and not isinstance(node.op, Elemwise):
+            elif k not in ports and i in host and not _takes_host_scalar(node, k, i):
                 reads.append(f"{node}: input {k} is a host value copied to the device")
         inner = getattr(fn, "inner", None)  # dispatch.py scan_loop's inner plan
         if inner is not None:
@@ -305,7 +277,7 @@ def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False) ->
     steps = []
     for node, free in zip(order, _free_lists(order, fgraph)):
         fn = torch_funcify(node.op, node=node, device=device)
-        ports = _host_ports(node)
+        ports = ports_of(node, "host")
         on_host = any(o in host for o in node.outputs)
         args = [("const", const_value(i, cpu if on_host or k in ports else device))
                 if isinstance(i, Constant) else ("var", i)

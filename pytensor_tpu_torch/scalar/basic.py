@@ -1,11 +1,14 @@
 """Scalar op descriptors: the element-wise kernel table.
 
 Counterpart of ``pytensor_tpu/scalar/basic.py`` (PyTensor's
-scalar/basic.py ScalarOp:1151), cut to the ops the radon logp+dlogp path,
-the ported scan tests and the sparse power iteration build.  Each descriptor carries a numpy
-implementation (what constant folding evaluates), a torch implementation
-(what the linker and the plain versions of the kernels call) and its
-gradient rule, written against tensor-level graph constructors.  The
+scalar/basic.py ScalarOp:1151), every op but the complex ones (``real``,
+``imag``, ``conj``, ``angle``, ``complex``: the port has no complex
+dtypes yet).  Each descriptor carries a numpy implementation (what
+constant folding evaluates, and the JAX package's oracle), a torch
+implementation (what the linker and the plain versions of the kernels
+call; where torch and numpy differ, as at an integer divisor of 0 or the
+sign of a zero remainder, it gives numpy's value) and its gradient rule,
+written against tensor-level graph constructors.  The
 kernels emit CUDA C++ from the op's ``name`` (``link/cuda/cexpr.py``):
 the fused elementwise kernel (``tensor/fused_kernel.py``) and the
 whole-loop scan kernel (``link/cuda/scan_kernel.py``).
@@ -90,7 +93,27 @@ class ScalarOp(MetaObject):
             return upcast(*input_dtypes)
         if rule == "float":
             return upcast_float(*input_dtypes)
+        if rule == "bool":
+            return "bool"
+        if rule == "first":
+            return str(input_dtypes[0])
         raise ValueError(f"unknown dtype rule {rule}")
+
+    def compute_dtypes(self, input_dtypes, out_dtype) -> list:
+        """The dtype each operand is cast to before the op, numpy's rule
+        of computing in the promoted dtype: the output's, except for a
+        cast and ``second`` (the operands as they are), an op with a bool
+        result (the operands' common dtype: a comparison compares the
+        values) and ``switch``'s condition (kept).  The plain lowering,
+        K1 and K2 all take this rule."""
+        input_dtypes = [str(d) for d in input_dtypes]
+        if self.name == "second" or self.name.startswith("cast{"):
+            return input_dtypes
+        if out_dtype == "bool":
+            return [upcast(*input_dtypes)] * len(input_dtypes)
+        if self.name == "switch":
+            return [input_dtypes[0], out_dtype, out_dtype]
+        return [out_dtype] * len(input_dtypes)
 
     def check_inputs(self, *input_dtypes: str):
         """Raise TypeError where the op refuses an input dtype (the JAX
@@ -264,7 +287,12 @@ def _second_grad(i, o, gz):
 
 
 def _second_torch(a, b):
-    return torch.broadcast_to(b, torch.broadcast_shapes(a.shape, b.shape))
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if b.device != a.device and b.device.type == "cpu" and b.numel() == 1:
+        # a value from the host (a shape, cast) filled on the model's device:
+        # no copy to the device, and a capture records the fill
+        return torch.full(shape, b.item(), dtype=b.dtype, device=a.device)
+    return torch.broadcast_to(b, shape)
 
 
 # second(a, b) = broadcast b to the shape of the pair: the "fill" primitive
@@ -274,6 +302,244 @@ second = _op(
     _second_torch, _second_grad,
     dtype_rule=lambda a, b: str(b),
 )
+
+identity = _op("identity", 1, lambda a: a, lambda a: a.clone(), lambda i, o, gz: [gz[0]],
+               dtype_rule="first")
+
+
+# ---------------------------------------------------------------------------
+# integer and rounding arithmetic
+# ---------------------------------------------------------------------------
+
+def _zero_guard(fn):
+    """``fn`` with numpy's result for an integer divisor of 0, which is 0
+    (torch raises on the CPU, and C's ``/`` and ``%`` are undefined there);
+    a float divisor of 0 gives torch's value, which is numpy's."""
+    def guarded(a, b):
+        if a.is_floating_point():
+            return fn(a, b)
+        zero = b == 0
+        return torch.where(zero, torch.zeros_like(a), fn(a, torch.where(zero, torch.ones_like(b), b)))
+
+    return guarded
+
+
+int_div = _op("int_div", 2, np.floor_divide, _zero_guard(torch.floor_divide),
+              lambda i, o, gz: [_zero_like(i[0]), _zero_like(i[1])])
+
+
+def _mod_grad(i, o, gz):
+    # d(x mod y)/dx = 1 ; d/dy = -floor(x/y)
+    return [gz[0], -gz[0] * _tm().floor(i[0] / i[1])]
+
+
+def _remainder(a, b):
+    """numpy's mod: a zero remainder takes the divisor's sign (torch's
+    keeps the dividend's)."""
+    r = torch.remainder(a, b)
+    if not r.is_floating_point():
+        return r
+    return torch.where(r == 0, torch.copysign(torch.zeros_like(r), b), r)
+
+
+mod = _op("mod", 2, np.mod, _zero_guard(_remainder), _mod_grad)
+
+
+def _float_only_fn(fn):
+    """``fn`` on a float tensor; an integer or bool tensor (whose rounding
+    is itself) is copied."""
+    return lambda a: fn(a) if a.is_floating_point() else a.clone()
+
+
+def _zero_grad(i, o, gz):
+    return [_zero_like(i[0])]
+
+
+ceil = _op("ceil", 1, np.ceil, torch.ceil, _zero_grad, dtype_rule="float")
+floor = _op("floor", 1, np.floor, torch.floor, _zero_grad, dtype_rule="float")
+trunc = _op("trunc", 1, np.trunc, torch.trunc, _zero_grad, dtype_rule="float")
+round_half_to_even = _op("round_half_to_even", 1, np.round, _float_only_fn(torch.round),
+                         _zero_grad)
+
+
+def _np_round_away(a):
+    return np.copysign(np.floor(np.abs(a) + 0.5), a)
+
+
+# the JAX package's numpy oracle: copysign(floor(|a| + 0.5), a), so
+# 0.49999997f rounds to 1 (C's roundf gives 0)
+round_half_away_from_zero = _op(
+    "round_half_away_from_zero", 1, _np_round_away,
+    _float_only_fn(lambda a: torch.copysign(torch.floor(torch.abs(a) + 0.5), a)),
+    _zero_grad)
+
+# ---------------------------------------------------------------------------
+# exponentials, logarithms, angles
+# ---------------------------------------------------------------------------
+
+_LOG2, _LOG10 = float(np.log(2)), float(np.log(10))
+# numpy's constants: float32 deg2rad multiplies by float32(pi / 180), and
+# rad2deg by float32(180) / float32(pi), not by float32(180 / pi)
+_DEG2RAD = {"float32": np.float32(np.pi / 180), "float64": np.pi / 180}
+_RAD2DEG = {"float32": np.float32(180) / np.float32(np.pi), "float64": 180 / np.pi}
+
+
+def _angle_fn(table):
+    def fn(a):
+        return a * float(table[str(a.dtype).removeprefix("torch.")])
+
+    return fn
+
+
+exp2 = _op("exp2", 1, np.exp2, torch.exp2,
+           lambda i, o, gz: [gz[0] * o[0] * _LOG2], dtype_rule="float")
+expm1 = _op("expm1", 1, np.expm1, torch.expm1,
+            lambda i, o, gz: [gz[0] * _tm().exp(i[0])], dtype_rule="float")
+log2 = _op("log2", 1, np.log2, torch.log2,
+           lambda i, o, gz: [gz[0] / (i[0] * _LOG2)], dtype_rule="float")
+log10 = _op("log10", 1, np.log10, torch.log10,
+            lambda i, o, gz: [gz[0] / (i[0] * _LOG10)], dtype_rule="float")
+log1p = _op("log1p", 1, np.log1p, torch.log1p,
+            lambda i, o, gz: [gz[0] / (1 + i[0])], dtype_rule="float")
+deg2rad = _op("deg2rad", 1, np.deg2rad, _angle_fn(_DEG2RAD),
+              lambda i, o, gz: [gz[0] * float(np.pi / 180)], dtype_rule="float")
+rad2deg = _op("rad2deg", 1, np.rad2deg, _angle_fn(_RAD2DEG),
+              lambda i, o, gz: [gz[0] * float(180 / np.pi)], dtype_rule="float")
+
+# ---------------------------------------------------------------------------
+# trigonometric and hyperbolic
+# ---------------------------------------------------------------------------
+
+tan = _op("tan", 1, np.tan, torch.tan,
+          lambda i, o, gz: [gz[0] * (1 + o[0] * o[0])], dtype_rule="float")
+arcsin = _op("arcsin", 1, np.arcsin, torch.arcsin,
+             lambda i, o, gz: [gz[0] / _tm().sqrt(1 - i[0] * i[0])], dtype_rule="float")
+arccos = _op("arccos", 1, np.arccos, torch.arccos,
+             lambda i, o, gz: [-gz[0] / _tm().sqrt(1 - i[0] * i[0])], dtype_rule="float")
+arctan = _op("arctan", 1, np.arctan, torch.arctan,
+             lambda i, o, gz: [gz[0] / (1 + i[0] * i[0])], dtype_rule="float")
+
+
+def _arctan2_grad(i, o, gz):
+    y, x = i
+    denom = x * x + y * y
+    return [gz[0] * x / denom, -gz[0] * y / denom]
+
+
+arctan2 = _op("arctan2", 2, np.arctan2, torch.arctan2, _arctan2_grad, dtype_rule="float")
+sinh = _op("sinh", 1, np.sinh, torch.sinh,
+           lambda i, o, gz: [gz[0] * _tm().cosh(i[0])], dtype_rule="float")
+cosh = _op("cosh", 1, np.cosh, torch.cosh,
+           lambda i, o, gz: [gz[0] * _tm().sinh(i[0])], dtype_rule="float")
+arcsinh = _op("arcsinh", 1, np.arcsinh, torch.arcsinh,
+              lambda i, o, gz: [gz[0] / _tm().sqrt(i[0] * i[0] + 1)], dtype_rule="float")
+arccosh = _op("arccosh", 1, np.arccosh, torch.arccosh,
+              lambda i, o, gz: [gz[0] / _tm().sqrt(i[0] * i[0] - 1)], dtype_rule="float")
+arctanh = _op("arctanh", 1, np.arctanh, torch.arctanh,
+              lambda i, o, gz: [gz[0] / (1 - i[0] * i[0])], dtype_rule="float")
+
+# ---------------------------------------------------------------------------
+# comparisons, selection, logic
+# ---------------------------------------------------------------------------
+
+
+def _cmp_grad(i, o, gz):
+    return [_zero_like(x) for x in i]
+
+
+gt = _op("gt", 2, np.greater, torch.gt, _cmp_grad, dtype_rule="bool")
+le = _op("le", 2, np.less_equal, torch.le, _cmp_grad, dtype_rule="bool")
+neq = _op("neq", 2, np.not_equal, torch.ne, _cmp_grad, dtype_rule="bool", commutative=True)
+isnan = _op("isnan", 1, np.isnan, torch.isnan, _cmp_grad, dtype_rule="bool")
+isinf = _op("isinf", 1, np.isinf, torch.isinf, _cmp_grad, dtype_rule="bool")
+
+
+def _minimum_grad(i, o, gz):
+    tm = _tm()
+    x, y = i
+    gx = gz[0] * tm.cast(tm.le(x, y), gz[0].dtype)
+    gy = gz[0] * tm.cast(tm.gt(x, y), gz[0].dtype)
+    return [gx, gy]
+
+
+def _torch_minimum(a, b):
+    """numpy's minimum, ``a < b or a is NaN ? a : b``, which also fixes the
+    sign of a zero minimum (torch's on the card gives -0.0 for 0.0 and
+    -0.0 in either order)."""
+    if not a.is_floating_point():
+        return torch.minimum(a, b)
+    return torch.where((a < b) | a.isnan(), a, b)
+
+
+minimum = _op("minimum", 2, np.minimum, _torch_minimum, _minimum_grad, commutative=True)
+
+
+def _int_only(opname):
+    """numpy's bitwise ops refuse floats: the graph does too."""
+    def rule(*dts):
+        for dt in dts:
+            if str(dt).startswith(("float", "complex")):
+                raise TypeError(f"{opname} does not accept {dt} operands "
+                                "(numpy bitwise semantics)")
+        return upcast(*dts)
+
+    return rule
+
+
+and_ = _op("and_", 2, np.bitwise_and, torch.bitwise_and, _cmp_grad,
+           identity="except_bool_one", commutative=True, dtype_rule=_int_only("bitwise_and"))
+or_ = _op("or_", 2, np.bitwise_or, torch.bitwise_or, _cmp_grad,
+          identity=0, commutative=True, dtype_rule=_int_only("bitwise_or"))
+xor = _op("xor", 2, np.bitwise_xor, torch.bitwise_xor, _cmp_grad,
+          identity=0, commutative=True, dtype_rule=_int_only("bitwise_xor"))
+# torch's bitwise_not of a bool is logical not, as numpy's invert
+invert = _op("invert", 1, np.invert, torch.bitwise_not, _cmp_grad,
+             dtype_rule=_int_only("invert"))
+# a count below 0, or of the width or more, gives 0 (and -1 for a negative
+# value shifted right), in numpy and in torch alike
+left_shift = _op("left_shift", 2, np.left_shift, torch.bitwise_left_shift)
+right_shift = _op("right_shift", 2, np.right_shift, torch.bitwise_right_shift)
+
+
+def _switch_grad(i, o, gz):
+    # switch, not a product with a cast: the gradient of one branch is never
+    # evaluated into the other's region
+    tm = _tm()
+    c = i[0]
+    zval = _zero_like(gz[0])
+    return [_zero_like(c), tm.switch(c, gz[0], zval), tm.switch(c, zval, gz[0])]
+
+
+def _torch_switch(c, t, f):
+    return torch.where(c if c.dtype == torch.bool else c != 0, t, f)
+
+
+switch = _op("switch", 3, lambda c, t, f: np.where(c, t, f), _torch_switch, _switch_grad,
+             dtype_rule=lambda c, t, f: upcast(t, f))
+
+
+def _clip_grad(i, o, gz):
+    tm = _tm()
+    x, lo, hi = i
+    inside = tm.and_(tm.ge(x, lo), tm.le(x, hi))
+    gx = gz[0] * tm.cast(inside, gz[0].dtype)
+    glo = gz[0] * tm.cast(tm.lt(x, lo), gz[0].dtype)
+    ghi = gz[0] * tm.cast(tm.gt(x, hi), gz[0].dtype)
+    return [gx, glo, ghi]
+
+
+def _np_clip(x, lo, hi):
+    # not np.clip: where lo > hi the reference gives lo (it checks the lower
+    # bound first), np.clip gives hi
+    return np.where(x < lo, lo, np.where(x > hi, hi, x))
+
+
+def _torch_clip(x, lo, hi):
+    return torch.where(x < lo, lo, torch.where(x > hi, hi, x))
+
+
+clip = _op("clip", 3, _np_clip, _torch_clip, _clip_grad,
+           dtype_rule=lambda x, lo, hi: upcast(x, lo, hi))
 
 # casts: one op per target dtype
 _cast_ops: dict[str, ScalarOp] = {}

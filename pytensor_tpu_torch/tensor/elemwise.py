@@ -103,6 +103,17 @@ class DimShuffle(Op):
             shape.insert(a, 1)
         output_storage[0][0] = np.reshape(res, shape)
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        (ishp,) = input_shapes
+        from pytensor_tpu_torch.tensor.basic import constant
+
+        return [
+            tuple(
+                constant(np.int64(1)) if o == "x" else ishp[o]
+                for o in self.new_order
+            )
+        ]
+
     def L_op(self, inputs, outputs, output_grads):
         (gz,) = output_grads
         if isinstance(gz.type, (DisconnectedType, NullType)):
@@ -123,6 +134,9 @@ class DimShuffle(Op):
             gz = specify_shape(gz, pinned)
         return [DimShuffle(gz.type.ndim, grad_order)(gz)]
 
+    def c_like_str(self):
+        return f"DimShuffle{{{','.join(map(str, self.new_order))}}}"
+
     def __str__(self):
         if self.is_transpose:
             return f"Transpose{{axes={self.shuffle}}}"
@@ -137,6 +151,10 @@ class Elemwise(Op):
     def __init__(self, scalar_op: ScalarOp, inplace_pattern=None, name=None):
         self.scalar_op = scalar_op
         self.name = name
+
+    @property
+    def nfunc_spec(self):
+        return None
 
     def make_node(self, *inputs):
         from pytensor_tpu_torch.tensor.basic import as_tensor_variable
@@ -202,6 +220,17 @@ class Elemwise(Op):
                         "`specify_broadcastable` on the relevant input."
                     )
 
+    def outer(self, x, y):
+        """``op.outer(x, y)[i..., j...] = op(x[i...], y[j...])``, the
+        ufunc's ``.outer``."""
+        from pytensor_tpu_torch.tensor.basic import as_tensor_variable
+
+        x = as_tensor_variable(x)
+        y = as_tensor_variable(y)
+        xd = DimShuffle(x.type.ndim,
+                        tuple(range(x.type.ndim)) + ("x",) * y.type.ndim)(x)
+        return self(xd, y)
+
     def perform(self, node, inputs, output_storage):
         self._check_runtime_broadcast(node, [np.shape(i) for i in inputs])
         out = self.scalar_op.impl(*inputs)
@@ -214,6 +243,38 @@ class Elemwise(Op):
         if out.shape != shp:
             out = np.broadcast_to(out, shp).copy()
         output_storage[0][0] = out
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        from pytensor_tpu_torch.tensor.basic import constant
+
+        out_ndim = node.outputs[0].type.ndim
+        result = []
+        for d in range(out_ndim):
+            static = node.outputs[0].type.shape[d]
+            if static is not None:
+                result.append(constant(np.int64(static)))
+                continue
+            # Reference semantics (tensor/elemwise.py infer_shape +
+            # the "Could not broadcast dimensions" runtime assert):
+            # broadcasting requires a STATIC length-1 dim, so every
+            # unknown candidate dim is equal at runtime and any one of
+            # them is the output dim — no runtime max needed.
+            candidates = []
+            for inp, ishp in zip(node.inputs, input_shapes):
+                offset = out_ndim - inp.type.ndim
+                if d >= offset:
+                    idim = d - offset
+                    if inp.type.shape[idim] is None:
+                        candidates.append(ishp[idim])
+                    elif inp.type.shape[idim] != 1:
+                        # statically known non-1: this IS the output dim
+                        candidates = [ishp[idim]]
+                        break
+            if not candidates:
+                result.append(constant(np.int64(1)))
+            else:
+                result.append(candidates[0])
+        return [tuple(result)]
 
     def L_op(self, inputs, outputs, output_grads):
         scalar_grads = self.scalar_op.grad(inputs, outputs, output_grads)
@@ -257,6 +318,10 @@ _np_reducers = {
     "add": np.add.reduce,
     "mul": np.multiply.reduce,
     "maximum": np.maximum.reduce,
+    "minimum": np.minimum.reduce,
+    "and_": np.logical_and.reduce,
+    "or_": np.logical_or.reduce,
+    "xor": np.bitwise_xor.reduce,
 }
 
 
@@ -297,6 +362,8 @@ class CAReduce(Op):
                 return "int64"
             if idtype in ("uint8", "uint16", "uint32", "uint64"):
                 return "uint64"
+        if self.scalar_op.name in ("and_", "or_"):
+            return "bool"
         return idtype
 
     def make_node(self, x):
@@ -359,6 +426,12 @@ class CAReduce(Op):
             acc = acc.astype(dt)
         output_storage[0][0] = acc
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        (ishp,) = input_shapes
+        if self.axis is None:
+            return [()]
+        return [tuple(s for d, s in enumerate(ishp) if d not in self.axis)]
+
     def L_op(self, inputs, outputs, output_grads):
         from pytensor_tpu_torch.tensor import math as tm
         from pytensor_tpu_torch.tensor.basic import cast
@@ -381,11 +454,38 @@ class CAReduce(Op):
             g = tm.second(x, gz_b)
             g = cast(g, x.type.dtype) if x.type.dtype != g.type.dtype else g
             return [g]
-        if name == "maximum":
+        (out,) = outputs
+        out_b = DimShuffle(out.type.ndim, order)(out) if x.type.ndim else out
+        if name == "mul":
+            # zero-safe Prod gradient (PyTensor's Prod.grad): a nonzero entry
+            # sees out/x (0 when the product holds a zero); a zero entry sees
+            # the product of the nonzero rest if it is the only zero
+            from pytensor_tpu_torch.tensor.basic import ones_like, zeros_like
+
+            iszero = tm.eq(x, 0)
+            nzeros = tm.sum(cast(iszero, "int64"), axis=list(axis))
+            pnz = tm.prod(tm.switch(iszero, ones_like(x), x), axis=list(axis))
+            if x.type.ndim:
+                nz_b = DimShuffle(nzeros.type.ndim, order)(nzeros)
+                pnz_b = DimShuffle(pnz.type.ndim, order)(pnz)
+            else:
+                nz_b, pnz_b = nzeros, pnz
+            g = gz_b * tm.switch(
+                iszero,
+                tm.switch(tm.eq(nz_b, 1), pnz_b, zeros_like(pnz_b)),
+                out_b / tm.switch(iszero, ones_like(x), x),
+            )
+            return [cast(g, x.type.dtype) if g.type.dtype != x.type.dtype else g]
+        if name in ("maximum", "minimum"):
             # each tied extremum receives the full output gradient
-            (out,) = outputs
-            out_b = DimShuffle(out.type.ndim, order)(out) if x.type.ndim else out
             return [gz_b * cast(tm.eq(x, out_b), gz.type.dtype)]
+        if name in ("and_", "or_", "xor"):
+            # the gradient of a boolean reduction is zeros, not null
+            # (PyTensor's All/Any.pullback)
+            from pytensor_tpu_torch.config import config as _cfg
+            from pytensor_tpu_torch.tensor.basic import zeros_like
+
+            return [zeros_like(x, dtype=_cfg.floatX)]
         from pytensor_tpu_torch.gradient import grad_not_implemented
 
         return [grad_not_implemented(self, 0, x)]
@@ -409,3 +509,41 @@ def Max(axis=None):
     from pytensor_tpu_torch.scalar import basic as ps
 
     return CAReduce(ps.maximum, axis)
+
+
+def Prod(axis=None, dtype=None, acc_dtype=None):
+    from pytensor_tpu_torch.scalar import basic as ps
+
+    return CAReduce(ps.mul, axis, dtype, acc_dtype, upcast_discrete_output=True)
+
+
+def Min(axis=None):
+    from pytensor_tpu_torch.scalar import basic as ps
+
+    return CAReduce(ps.minimum, axis)
+
+
+def All(axis=None):
+    from pytensor_tpu_torch.scalar import basic as ps
+
+    return CAReduce(ps.and_, axis, dtype="bool")
+
+
+def Any(axis=None):
+    from pytensor_tpu_torch.scalar import basic as ps
+
+    return CAReduce(ps.or_, axis, dtype="bool")
+
+
+def scalar_elemwise(scalar_op, name=None):
+    """The tensor-level callable of a scalar op."""
+    return Elemwise(scalar_op, name=name)
+
+
+def get_normalized_batch_axes(core_axes, core_ndim, batch_ndim):
+    """Map core reduction axes to batched axes (for vectorize)."""
+    if core_axes is None:
+        core_axes = tuple(range(core_ndim))
+    else:
+        core_axes = tuple(a % core_ndim for a in core_axes)
+    return tuple(batch_ndim + a for a in core_axes)

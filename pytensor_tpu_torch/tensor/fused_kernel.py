@@ -32,6 +32,11 @@ about that:
   outputs and makes one foreign call with an array of pointers and the
   layout array; the C entry sizes the grid, picks the 16-byte vector path
   where every operand allows it and launches on torch's current stream.
+- **Host values.** A one-element input computed on the host from shapes
+  (the length of a batch, cast, that a ``mean`` divides by) is passed in
+  its pointer's place: its bytes in the pointer array, a host flag in the
+  layout (``k1_bits``), so the call copies nothing to the device and a
+  capture records the value its signature fixes.
 - **Device.** 32-bit index arithmetic below 2**31 elements (and offsets).
   Each input is read by its layout class: contiguous with the iteration
   (``x[i]``), 0-d or broadcast everywhere (one load a thread, before the
@@ -44,10 +49,14 @@ about that:
   a 919-element float32 node (229 vectors and a tail of 3) is one block
   of 256 threads, a 1,024 x 919 node 3,676 blocks.
 
-``emittable`` (and so ``tensor/fused.py fusable``) admits the op names of
-``_OPS`` at the dtypes of ``_DTYPES``, the ops of ``_FLOAT_ONLY`` at float
-dtypes only, so the rewritten graphs hold the same FusedElemwise nodes as
-the JAX package's.  The plain version evaluates the inner graph with torch
+``emittable`` (and so ``tensor/fused.py fusable``) admits every op of the
+expression table but ``second`` (``_OPS``, as the JAX package's fusion
+groups every Elemwise but casts and ``second``) at the dtypes of
+``_DTYPES``, the ops of ``_FLOAT_ONLY`` at float dtypes only and the ops
+of ``_BOOL_OPS`` with a bool result, so the rewritten graphs hold the same
+FusedElemwise nodes as the JAX package's.  Each operand is cast to its
+compute dtype first (``ScalarOp.compute_dtypes``, the plain version's
+rule).  The plain version evaluates the inner graph with torch
 ops; the wrapper takes it for CPU tensors only, and on CUDA tensors
 launches the kernel or raises.
 """
@@ -62,7 +71,7 @@ import numpy as np
 import torch
 
 from pytensor_tpu_torch.graph.basic import Constant
-from pytensor_tpu_torch.link.cuda.cexpr import CEXPR, MAX_SOURCE, ctype, literal
+from pytensor_tpu_torch.link.cuda.cexpr import CEXPR, HELPERS, ctype, literal
 
 THREADS = 256
 # a grid of more blocks than this strides over the elements
@@ -79,13 +88,18 @@ LAUNCHES = 0
 BUILDS: list = []
 
 _DTYPES = ("float32", "float64", "bool", "int8", "int16", "int32", "int64")
-_OPS = frozenset({"add", "mul", "sub", "neg", "abs", "sqr", "true_div", "reciprocal", "exp",
-                  "log", "sqrt", "pow", "sin", "cos", "tanh", "sigmoid", "maximum"})
-# ops K1 emits for floats only
+# every op of the expression table but ``second``: the JAX package's fusion
+# groups every Elemwise but casts and ``second`` (its tensor/fused.py:147)
+_OPS = frozenset(CEXPR) - {"second"}
+# ops K1 emits for floats only (an integer pow has no libdevice form)
 _FLOAT_ONLY = frozenset({"true_div", "reciprocal", "exp", "log", "sqrt", "pow",
                          "sin", "cos", "tanh", "sigmoid"})
-# ops K1 emits with a bool result (numpy's sub and negative refuse bools)
-_BOOL_OPS = frozenset({"add", "mul", "abs", "sqr", "maximum"})
+# ops K1 emits with a bool result: the comparisons and the ops whose value
+# on bools is a bool (numpy's sub and negative refuse bools; its
+# floor_divide, mod and shifts of bools give int8)
+_BOOL_OPS = frozenset({"add", "mul", "abs", "sqr", "maximum", "minimum", "lt", "gt", "le",
+                       "ge", "eq", "neq", "isnan", "isinf", "and_", "or_", "xor", "invert",
+                       "switch", "clip", "identity"})
 # elements of one 16-byte vector, by C type
 _VECTOR = {"float": 4, "double": 2}
 
@@ -112,23 +126,31 @@ PRELUDE = f"""#include <cuda_runtime.h>
 #define K1_CONTIG {CONTIG}
 #define K1_SCALAR {SCALAR}
 #define K1_STRIDED {STRIDED}
-""" + r"""#ifndef K1_LAUNCH
+""" + "".join(HELPERS.values()) + r"""#ifndef K1_LAUNCH
 #define K1_LAUNCH(kernel, blocks, stream, ...) \
   kernel<<<blocks, K1_THREADS, 0, stream>>>(__VA_ARGS__)
 #endif
 
-""" + MAX_SOURCE + r"""
+// a value from the host, passed in its pointer's place (its bytes, low first)
+template <typename T> __device__ __forceinline__ T k1_bits(const void* q) {
+  union { const void* p; T v; } u;
+  u.p = q;
+  return u.v;
+}
+
 template <int N> struct K1Ptrs { const void* q[N]; };
 
 // The iteration size and each operand's class and strides, in elements
-// (0 on a broadcast dim); vec: the 16-byte vector path; strided: some
-// operand is strided, so the index is unravelled.
+// (0 on a broadcast dim); xh: the input is a one-element value from the
+// host, passed in its pointer's place; vec: the 16-byte vector path; strided:
+// some operand is strided, so the index is unravelled.
 template <int ND, int NIN, int NOUT> struct K1Layout {
   long long n;
   long long d[ND];
   long long xs[NIN > 0 ? NIN : 1][ND];
   long long ys[NOUT][ND];
   int xc[NIN > 0 ? NIN : 1];
+  int xh[NIN > 0 ? NIN : 1];
   int yc[NOUT];
   int vec;
   int strided;
@@ -172,7 +194,7 @@ template <typename I> __device__ __forceinline__ void k1_store(double* p, I j, c
 
 // Fills the kernel's arguments from the wrapper's arrays (the pointers of
 // the inputs then the outputs; n, the sizes, the input then output
-// strides and classes, vec, strided, wide), keeps the vector path (of V
+// strides and classes, the host flags, vec, strided, wide), keeps the vector path (of V
 // elements a vector, 0 for none) only where every operand it reads or
 // writes as vectors is 16-byte aligned, and launches on `stream`, with
 // 32-bit indices unless `wide`, one thread for each vector and each
@@ -191,6 +213,7 @@ int k1_launch(K32 k32, K64 k64, const unsigned long long* ptr, const long long* 
   for (int j = 0; j < NOUT; ++j)
     for (int d = 0; d < ND; ++d) L.ys[j][d] = *c++;
   for (int k = 0; k < NIN; ++k) L.xc[k] = (int)*c++;
+  for (int k = 0; k < NIN; ++k) L.xh[k] = (int)*c++;
   for (int j = 0; j < NOUT; ++j) L.yc[j] = (int)*c++;
   L.vec = (int)*c++;
   L.strided = (int)*c++;
@@ -281,16 +304,18 @@ class FusedElemwiseKernel:
         names = {v: (f"a{k}", v.type.dtype) for k, v in enumerate(self.tensor_vars)}
         op = []
         for n, node in enumerate(self.order):
+            so = node.op.scalar_op
             out_dt = node.outputs[0].type.dtype
+            comp = so.compute_dtypes([i.type.dtype for i in node.inputs], out_dt)
             args = []
-            for i in node.inputs:
+            for i, cdt in zip(node.inputs, comp):
                 if isinstance(i, Constant) and not np.ndim(i.data):
-                    args.append(literal(i.data, out_dt))
+                    args.append(literal(i.data, cdt))
                     continue
                 expr, dt = names[i]
-                args.append(expr if dt == out_dt else f"(({ctype(out_dt)}){expr})")
+                args.append(expr if dt == cdt else f"(({ctype(cdt)}){expr})")
             op.append(f"  const {ctype(out_dt)} v{n} = ({ctype(out_dt)})"
-                      f"{CEXPR[node.op.scalar_op.name](args, out_dt)};")
+                      f"{CEXPR[so.name](args, comp[0])};")
             names[node.outputs[0]] = (f"v{n}", out_dt)
         for j, o in enumerate(self.outputs):
             op.append(f"  r{j} = {names[o][0]};")
@@ -318,8 +343,8 @@ class FusedElemwiseKernel:
             "  const I first = (I)blockIdx.x * K1_THREADS + (I)threadIdx.x;",
             "  const I step = (I)gridDim.x * K1_THREADS;",
             "  // an input that is one element everywhere: one load a thread",
-            *[f"  const {ct} s{k} = L.xc[{k}] == K1_SCALAR ? x{k}[0] : ({ct})0;"
-              for k, ct in enumerate(cts)],
+            *[f"  const {ct} s{k} = L.xc[{k}] != K1_SCALAR ? ({ct})0 : L.xh[{k}] ? "
+              f"k1_bits<{ct}>(p.q[{k}]) : x{k}[0];" for k, ct in enumerate(cts)],
             # unit j is vector j below nv, else element j + nv * (V - 1): each
             # thread a vector or an element of the tail, side by side
             f"  const I nv = L.vec ? n / {max(V, 1)} : 0;",
@@ -393,11 +418,15 @@ class FusedElemwiseKernel:
             raise ValueError(f"K1: an output of shape {out_shapes} over an empty iteration "
                              f"space {it}")
         xst = [strides(tuple(a.shape), a.stride()) for a in args]
+        xh = [int(a.device.type == "cpu" and self.device.type != "cpu") for a in args]
         yst = [strides(s, torch.empty(s, device="meta").stride()) for s in out_shapes]
-        xc, yc = [cls(s) for s in xst], [cls(s) for s in yst]
+        # a host value is read from its pointer's place only as a 0-d input
+        # (a 0-d iteration space would call every input contiguous)
+        xc = [SCALAR if h else cls(s) for s, h in zip(xst, xh)]
+        yc = [cls(s) for s in yst]
         strided = STRIDED in xc + yc
         reach = max([n] + [sum((it[d] - 1) * s[d] for d in range(nd)) + 1 for s in xst + yst])
-        ints = [n, *it, *[s for st in xst + yst for s in st], *xc, *yc,
+        ints = [n, *it, *[s for st in xst + yst for s in st], *xc, *xh, *yc,
                 int(not strided and all(c == CONTIG for c in yc)), int(strided),
                 int(reach >= 2 ** 31)]
         return _Layout(n, list(zip(out_shapes, self.out_dtypes)), ints, (xc, yc))
@@ -420,20 +449,26 @@ class FusedElemwiseKernel:
             raise TypeError(f"FusedElemwise expected {len(self.inputs)} inputs, got {len(inputs)}")
         dev = self.device
         key = []
+        host = False
         for a, dt in zip(inputs, self.in_dtypes):
-            if a.device != dev or dev.type != "cuda":
-                raise RuntimeError(f"K1 runs on {dev} CUDA tensors; got a tensor on {a.device}")
+            if dev.type != "cuda" or (a.device != dev
+                                      and (a.device.type != "cpu" or a.numel() != 1)):
+                raise RuntimeError(f"K1 runs on {dev} CUDA tensors and one-element host values; "
+                                   f"got a tensor of shape {tuple(a.shape)} on {a.device}")
             if a.dtype != dt:
                 raise TypeError(f"K1 input dtype {a.dtype} != {dt}")
-            # a contiguous tensor's layout is its shape
-            key.append(a.shape if a.is_contiguous() else (a.shape, a.stride()))
+            host = host or a.device.type == "cpu"
+            # a contiguous tensor's layout is its shape (and, from the host, its device)
+            key.append((a.shape, a.device.type) if a.device.type == "cpu" else
+                       a.shape if a.is_contiguous() else (a.shape, a.stride()))
         lay = self._layouts.get(tuple(key))
         if lay is None:
             lay = self._layouts[tuple(key)] = self._layout(self._args(inputs))
         outs = [torch.empty(s, dtype=dt, device=dev) for s, dt in lay.outs]
         if lay.n:
             fn = self._fn or self._load()
-            ptrs = self._ptrs_t(*[a.data_ptr() for a in inputs], *self._const_ptrs,
+            ptrs = self._ptrs_t(*[_host_bits(a) if host and a.device.type == "cpu"
+                                  else a.data_ptr() for a in inputs], *self._const_ptrs,
                                 *[o.data_ptr() for o in outs])
             err = fn(ptrs, lay.ints, _raw_stream(dev.index))
             if err != 0:
@@ -462,6 +497,12 @@ class FusedElemwiseKernel:
         for node in self.order:
             storage[node.outputs[0]] = elemwise_fn(node)(*[storage[i] for i in node.inputs])
         return [storage[o].contiguous() for o in self.outputs]
+
+
+def _host_bits(a):
+    """A one-element host value's bytes as the integer that takes its pointer's
+    place (``k1_bits``)."""
+    return int.from_bytes(a.numpy().tobytes().ljust(8, b"\0"), "little")
 
 
 def _raw_stream(index):

@@ -2,7 +2,8 @@
 
 Counterpart of ``pytensor_tpu/tensor/rewriting/math.py`` (PyTensor's
 tensor/rewriting/math.py AlgebraicCanonizer:1119 and the exp/log/pow
-rules), cut to the rewrites that fire on the radon logp+dlogp graphs.
+rules), cut to the rewrites that fire on the radon logp+dlogp graphs and
+on the logistic-regression and MLP steps.
 Each keeps its name, tags, database and registration order.
 """
 
@@ -10,7 +11,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from pytensor_tpu_torch.compile.mode import register_canonicalize, register_specialize
+from pytensor_tpu_torch.compile.mode import (
+    register_canonicalize,
+    register_specialize,
+    register_stabilize,
+)
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
 from pytensor_tpu_torch.tensor import math as tm
@@ -192,6 +197,24 @@ def local_pow_specialize(fgraph, node):
 
 
 register_specialize(local_pow_specialize, name="local_pow_specialize")
+
+
+@node_rewriter([Elemwise])
+def local_one_minus_sigmoid(fgraph, node):
+    """1 - sigmoid(x) -> sigmoid(-x)."""
+    if not _is_ew(node, "sub"):
+        return False
+    one, s = node.inputs
+    if _unique_value(one) != 1:
+        return False
+    inner = s.owner
+    if inner is not None and _is_ew(inner, "sigmoid"):
+        res = _same_type_out(node, tm.sigmoid(-inner.inputs[0]))
+        return [res] if res is not None else False
+    return False
+
+
+register_stabilize(local_one_minus_sigmoid, name="local_one_minus_sigmoid")
 
 
 @node_rewriter([CAReduce])
@@ -529,6 +552,26 @@ def local_sum_div_by_scalar(fgraph, node):
 
 
 register_specialize(local_sum_div_by_scalar, name="local_sum_div_by_scalar")
+
+
+@node_rewriter([Elemwise])
+def local_add_neg_to_sub(fgraph, node):
+    """x + (-y) -> x - y; (-x) + y -> y - x."""
+    if not _is_ew(node, "add") or len(node.inputs) != 2:
+        return False
+    x, y = node.inputs
+    if y.owner is not None and _is_ew(y.owner, "neg") \
+            and _unique_value(y.owner.inputs[0]) is None:
+        res = _same_type_out(node, x - y.owner.inputs[0])
+        return [res] if res is not None else False
+    if x.owner is not None and _is_ew(x.owner, "neg") \
+            and _unique_value(x.owner.inputs[0]) is None:
+        res = _same_type_out(node, y - x.owner.inputs[0])
+        return [res] if res is not None else False
+    return False
+
+
+register_specialize(local_add_neg_to_sub, name="local_add_neg_to_sub")
 
 
 def _split_const_factors(v):

@@ -1,7 +1,8 @@
 """Subtensor rewrites.
 
 Counterpart of ``pytensor_tpu/tensor/rewriting/subtensor.py``, cut to the
-rewrites that fire on the radon logp+dlogp graphs.
+rewrites that fire on the radon logp+dlogp graphs and on the
+logistic-regression and MLP steps.
 """
 
 from __future__ import annotations
@@ -210,6 +211,46 @@ def local_constant_scatter_to_onehot_dot(fgraph, node):
 
 specialize.register("local_constant_scatter_to_onehot_dot",
                     local_constant_scatter_to_onehot_dot, "onehot_gather")
+
+
+@node_rewriter([Subtensor])
+def local_convert_negative_indices(fgraph, node):
+    """Static negative integer indices and slice bounds on a static dim
+    become their non-negative form (PyTensor's :1376): pattern matchers
+    downstream reason about canonical indices only."""
+    x = node.inputs[0]
+    changed = False
+    new_idx = []
+    d = 0
+    for e in node.op.idx_list:
+        dim = x.type.shape[d] if d < x.type.ndim else None
+        if isinstance(e, (int, np.integer)) and e < 0 and dim is not None:
+            new_idx.append(int(e) + dim)
+            changed = True
+        elif isinstance(e, tuple) and e and e[0] == "slice" \
+                and dim is not None:
+            _, a, b, c = e
+            step_pos = c is None or (isinstance(c, int) and c > 0)
+            if step_pos and isinstance(a, int) and a < 0 and a + dim >= 0:
+                a, changed = a + dim, True
+            if step_pos and isinstance(b, int) and b < 0 and b + dim >= 0:
+                b, changed = b + dim, True
+            new_idx.append(("slice", a, b, c))
+        else:
+            new_idx.append(e)
+        d += 1
+    if not changed:
+        return False
+    res = Subtensor(new_idx)(*node.inputs)
+    out = node.outputs[0]
+    if not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_canonicalize(local_convert_negative_indices,
+                      name="local_convert_negative_indices")
 
 
 @node_rewriter([Subtensor])

@@ -1,7 +1,8 @@
 """Shape ops: Shape, Shape_i, SpecifyShape, Reshape.
 
 Counterpart of ``pytensor_tpu/tensor/shape.py`` (PyTensor's
-tensor/shape.py Shape:53, Shape_i:201, SpecifyShape:369, Reshape:613).
+tensor/shape.py Shape:53, Shape_i:201, SpecifyShape:369, Unbroadcast,
+Reshape:613).
 The torch linker keeps shape values on the host, so shape arithmetic
 never waits on the device.
 """
@@ -14,6 +15,10 @@ from pytensor_tpu_torch.graph.basic import Apply, Constant, Variable
 from pytensor_tpu_torch.graph.null_type import DisconnectedType
 from pytensor_tpu_torch.graph.op import Op
 from pytensor_tpu_torch.tensor.type import TensorType
+
+
+class ShapeError(Exception):
+    pass
 
 
 class Shape(Op):
@@ -31,6 +36,11 @@ class Shape(Op):
 
     def perform(self, node, inputs, output_storage):
         output_storage[0][0] = np.asarray(np.shape(inputs[0]), dtype="int64")
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        from pytensor_tpu_torch.tensor.basic import constant
+
+        return [(constant(np.int64(node.inputs[0].type.ndim)),)]
 
     def connection_pattern(self, node):
         return [[False]]
@@ -68,6 +78,9 @@ class Shape_i(Op):
 
     def perform(self, node, inputs, output_storage):
         output_storage[0][0] = np.asarray(np.shape(inputs[0])[self.i], dtype="int64")
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [()]
 
     def connection_pattern(self, node):
         return [[False]]
@@ -143,6 +156,19 @@ class SpecifyShape(Op):
                 )
         output_storage[0][0] = x
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        from pytensor_tpu_torch.tensor.type_other import NoneTypeT
+
+        xshp = input_shapes[0]
+        out = []
+        for d in range(node.inputs[0].type.ndim):
+            s = node.inputs[1 + d]
+            if isinstance(s.type, NoneTypeT):
+                out.append(xshp[d])
+            else:
+                out.append(s)
+        return [tuple(out)]
+
     def connection_pattern(self, node):
         return [[True]] + [[False]] * (len(node.inputs) - 1)
 
@@ -158,8 +184,18 @@ def specify_shape(x, shape):
     return _specify_shape(x, *(shape if isinstance(shape, (tuple, list)) else [shape]))
 
 
+def specify_broadcastable(x, *axes):
+    from pytensor_tpu_torch.tensor.basic import as_tensor_variable
+
+    x = as_tensor_variable(x)
+    shape = [1 if d in tuple(a % x.type.ndim for a in axes) else None
+             for d in range(x.type.ndim)]
+    keep = [s if s == 1 else x.type.shape[d] for d, s in enumerate(shape)]
+    return specify_shape(x, keep)
+
+
 class Reshape(Op):
-    """Reshape to an ndim-length symbolic shape (reference Reshape:613)."""
+    """Reshape to an ndim-length symbolic shape (PyTensor's Reshape:613)."""
 
     __props__ = ("ndim",)
     view_map = {0: [0]}
@@ -203,6 +239,43 @@ class Reshape(Op):
         x, shp = inputs
         output_storage[0][0] = np.reshape(x, tuple(int(s) for s in shp))
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        from pytensor_tpu_torch.tensor import math as tm
+        from pytensor_tpu_torch.tensor.basic import cast, constant
+
+        shp = node.inputs[1]
+        entries = _try_shape_entries(shp, self.ndim)
+        if entries is None:
+            entries = [shp[i] for i in range(self.ndim)]
+        # handle -1: size / prod(others).  Entries that are provably
+        # non-negative (shape graphs, non-negative constants) skip the
+        # switch so the symbolic entry stays structurally comparable
+        # (ShapeFeature.same_shape on dynamic graphs).
+        from pytensor_tpu_torch.tensor.basic import as_tensor_variable, stack
+
+        xshp = input_shapes[0]
+
+        def _prod(items):
+            if not items:
+                return constant(np.int64(1))
+            acc = cast(as_tensor_variable(items[0]), "int64")
+            for it in items[1:]:
+                acc = acc * cast(as_tensor_variable(it), "int64")
+            return acc
+
+        out = []
+        for i, e in enumerate(entries):
+            e = as_tensor_variable(e)
+            if _provably_nonneg(e):
+                out.append(e)
+                continue
+            total = _prod(list(xshp) if xshp else [])
+            prod_others = _prod(
+                [entries[j] for j in range(self.ndim) if j != i])
+            resolved = tm.switch(tm.lt(e, 0), total // prod_others, e)
+            out.append(resolved)
+        return [tuple(out)]
+
     def connection_pattern(self, node):
         return [[True], [False]]
 
@@ -228,6 +301,32 @@ def _try_shape_entries(shp, ndim):
     if shp.type.shape[0] is not None and shp.type.shape[0] == ndim:
         return [shp[i] for i in range(ndim)]
     return None
+
+
+def _provably_nonneg(v, depth=0):
+    """Conservative: True only when the scalar graph is certainly >= 0
+    (shape queries, non-negative constants, and closed arithmetic over
+    them).  Used to skip -1 handling in Reshape.infer_shape."""
+    if depth > 8:
+        return False
+    if isinstance(v, Constant):
+        try:
+            return bool(np.all(np.asarray(v.data) >= 0))
+        except Exception:
+            return False
+    if v.owner is None:
+        return False
+    op = v.owner.op
+    if isinstance(op, (Shape, Shape_i)):
+        return True
+    name = getattr(getattr(op, "scalar_op", None), "name", None)
+    if name in ("add", "mul", "maximum", "minimum", "int_div", "true_div"):
+        return all(_provably_nonneg(i, depth + 1) for i in v.owner.inputs)
+    from pytensor_tpu_torch.tensor.elemwise import DimShuffle
+
+    if isinstance(op, DimShuffle):
+        return _provably_nonneg(v.owner.inputs[0], depth + 1)
+    return False
 
 
 def reshape(x, newshape, ndim=None):
@@ -264,9 +363,14 @@ def flatten(x, ndim=1):
             f"ndim {ndim} out of bound [1, {max(1, x.type.ndim)}]")
     if x.type.ndim == ndim:
         return x
+    from pytensor_tpu_torch.tensor import math as tm
+
+    dims = [shape_i(x, i) for i in range(ndim - 1)]
+    rest = None
     if x.type.ndim == 0:
         return reshape(x, [1] * ndim)
     lead = [shape_i(x, i) for i in range(ndim - 1)]
+    prod_rest = None
     from pytensor_tpu_torch.tensor.basic import constant
 
     rest_dims = [shape_i(x, i) for i in range(ndim - 1, x.type.ndim)]
@@ -277,3 +381,49 @@ def flatten(x, ndim=1):
     else:
         prod_rest = constant(np.int64(1))
     return reshape(x, [*lead, prod_rest], ndim=ndim)
+
+
+def shape_tuple(x):
+    """Tuple of per-dim scalar shapes, folding static dims to constants."""
+    from pytensor_tpu_torch.tensor.basic import constant
+
+    x_type = x.type
+    res = []
+    for i, s in enumerate(x_type.shape):
+        if s is not None:
+            res.append(constant(np.int64(s)))
+        else:
+            res.append(shape_i(x, i))
+    return tuple(res)
+
+
+class Unbroadcast(Op):
+    """Erase static-1 info on given axes (compat shim; rarely needed)."""
+
+    __props__ = ("axes",)
+    view_map = {0: [0]}
+
+    def __init__(self, *axes):
+        self.axes = tuple(sorted(int(a) for a in axes))
+
+    def make_node(self, x):
+        from pytensor_tpu_torch.tensor.basic import as_tensor_variable
+
+        x = as_tensor_variable(x)
+        shp = tuple(
+            None if d in self.axes else s for d, s in enumerate(x.type.shape)
+        )
+        return Apply(self, [x], [TensorType(x.type.dtype, shp)()])
+
+    def perform(self, node, inputs, output_storage):
+        output_storage[0][0] = inputs[0]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0]]
+
+    def L_op(self, inputs, outputs, output_grads):
+        return [specify_shape(output_grads[0], inputs[0].type.shape)]
+
+
+def unbroadcast(x, *axes):
+    return Unbroadcast(*axes)(x)

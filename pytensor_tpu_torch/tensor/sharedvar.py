@@ -15,16 +15,22 @@ class TensorSharedVariable(_tensor_py_operators, SharedVariable):
     __slots__ = ()
 
 
-def tensor_shared_constructor(value, name=None, *, device):
+def tensor_shared_constructor(value, name=None, borrow=False, shape=None, *, device):
     """A TensorSharedVariable holding a copy of ``value`` on ``device``.
 
     Python ints become int64 and Python floats ``floatX``, as in the JAX
-    package; arrays and tensors keep their dtype.
+    package; arrays and tensors keep their dtype.  The static shape is
+    fully unknown (the value may be resized by ``set_value``) unless
+    ``shape`` gives it.  With ``borrow``, a torch tensor already on
+    ``device`` is held as it is, not copied.
     """
     from pytensor_tpu_torch.link.torch.convert import as_torch
 
     if isinstance(value, torch.Tensor):
-        tensor = as_torch(value.detach(), device).clone()
+        tensor = as_torch(value.detach(), device)
+        # a tensor moved to ``device`` is a copy already
+        if not borrow and tensor.data_ptr() == value.data_ptr():
+            tensor = tensor.clone()
     else:
         if isinstance(value, bool):
             arr = np.asarray(value)
@@ -36,4 +42,8 @@ def tensor_shared_constructor(value, name=None, *, device):
             arr = np.asarray(value)
         tensor = as_torch(arr, device)
     dtype = str(tensor.dtype).removeprefix("torch.")
-    return TensorSharedVariable(TensorType(dtype, (None,) * tensor.ndim), tensor, name=name)
+    static = (None,) * tensor.ndim if shape is None else tuple(shape)
+    if len(static) != tensor.ndim or any(s is not None and s != d
+                                          for s, d in zip(static, tensor.shape)):
+        raise ValueError(f"shape {static} does not fit a value of shape {tuple(tensor.shape)}")
+    return TensorSharedVariable(TensorType(dtype, static), tensor, name=name)

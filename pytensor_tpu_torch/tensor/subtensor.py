@@ -2,7 +2,8 @@
 
 Counterpart of ``pytensor_tpu/tensor/subtensor.py`` (PyTensor's
 tensor/subtensor.py Subtensor:868, IncSubtensor:1441,
-AdvancedSubtensor:1932, AdvancedIncSubtensor:2275).  ``idx_list`` holds
+AdvancedSubtensor:1932, AdvancedIncSubtensor:2275, take, take_along_axis,
+flip).  ``idx_list`` holds
 the static structure of the index expression (ints/slices with None or
 the dynamic marker); dynamic scalar/array values are extra node inputs in
 order of appearance.  The torch lowerings are in ``link/torch/dispatch.py``.
@@ -10,6 +11,7 @@ order of appearance.  The torch lowerings are in ``link/torch/dispatch.py``.
 
 from __future__ import annotations
 
+from typing import Any, Sequence
 
 import numpy as np
 
@@ -21,6 +23,10 @@ from pytensor_tpu_torch.tensor.type import TensorType
 
 # dynamic-entry marker inside idx_list
 DYN = "dyn"
+
+
+class AdvancedIndexingError(TypeError):
+    pass
 
 
 def _norm_int(v):
@@ -74,6 +80,36 @@ class Subtensor(Op):
         x, *dyn = inputs
         idx = _build_index(self.idx_list, dyn)
         output_storage[0][0] = np.asarray(x[idx])
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        from pytensor_tpu_torch.tensor import math as tm
+        from pytensor_tpu_torch.tensor.basic import constant
+
+        xshp = input_shapes[0]
+        dyn = list(node.inputs[1:])
+        out = []
+        it = iter(dyn)
+        d = 0
+        for entry in self.idx_list:
+            if entry == DYN:
+                next(it)
+                d += 1
+                continue
+            if isinstance(entry, (int, np.integer)):
+                d += 1
+                continue
+            # slice entry
+            _, start, stop, step = entry
+            sv = next(it) if start == DYN else start
+            ov = next(it) if stop == DYN else stop
+            ev = next(it) if step == DYN else step
+            length = _sym_slice_len(sv, ov, ev, xshp[d])
+            out.append(length)
+            d += 1
+        # remaining dims pass through
+        for dd in range(d, len(xshp)):
+            out.append(xshp[dd])
+        return [tuple(out)]
 
     def connection_pattern(self, node):
         return [[True]] + [[False] for _ in node.inputs[1:]]
@@ -135,9 +171,9 @@ def _build_index(idx_list, dyn):
 def _broadcast_index_shapes(shapes):
     """None-aware broadcast of advanced-index static shapes.
 
-    None broadcasts optimistically against known dims (the reference
+    None broadcasts optimistically against known dims (PyTensor's rule
     assumes the runtime value will match); two distinct known non-1 dims
-    are a definite error (reference raises IndexError at build time).
+    are a definite error (PyTensor's raises IndexError at build time).
     """
     shapes = [tuple(s) for s in shapes]
     nd = max((len(s) for s in shapes), default=0)
@@ -172,6 +208,43 @@ def _static_slice_len(start, stop, step, dim):
     return len(range(*slice(start, stop, step).indices(dim)))
 
 
+def _sym_slice_len(start, stop, step, dim_var):
+    """Symbolic length of a slice (ints or scalar Variables)."""
+    from pytensor_tpu_torch.tensor import math as tm
+    from pytensor_tpu_torch.tensor.basic import constant, as_tensor_variable
+
+    def val(v, default):
+        if v is None:
+            return None
+        return v
+
+    step_v = 1 if step is None else step
+    if isinstance(step_v, Variable) or isinstance(start, Variable) or isinstance(stop, Variable) \
+            or isinstance(dim_var, Variable) or True:
+        n = as_tensor_variable(dim_var) if not isinstance(dim_var, Variable) else dim_var
+        st = as_tensor_variable(step_v if not isinstance(step_v, Variable) else step_v)
+        # normalize start/stop with numpy slice semantics
+        def norm(v, default_pos, default_neg):
+            if v is None:
+                return tm.switch(tm.ge(st, 0), default_pos, default_neg)
+            v = as_tensor_variable(v)
+            vneg = v + n
+            v = tm.switch(tm.lt(v, 0), vneg, v)
+            return tm.clip(v, tm.switch(tm.ge(st, 0), 0, -1),
+                           tm.switch(tm.ge(st, 0), n, n - 1))
+
+        zero = as_tensor_variable(np.int64(0))
+        a = norm(start, zero, n - 1)
+        b = norm(stop, n, zero - 1)
+        diff = b - a
+        q = tm.switch(
+            tm.ge(st, 0),
+            (diff + st - 1) // st,
+            (diff + st + 1) // st,
+        )
+        return tm.maximum(tm.cast(q, "int64"), zero)
+
+
 class IncSubtensor(Op):
     """x with x[idx] set to / incremented by y (functional update).
 
@@ -202,6 +275,9 @@ class IncSubtensor(Op):
         else:
             out[idx] += y
         output_storage[0][0] = out
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0]]
 
     def connection_pattern(self, node):
         return [[True], [True]] + [[False] for _ in node.inputs[2:]]
@@ -275,6 +351,10 @@ class AdvancedSubtensor1(Op):
         x, i = inputs
         output_storage[0][0] = x.take(i, axis=0)
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        xshp, ishp = input_shapes
+        return [(ishp[0], *xshp[1:])]
+
     def connection_pattern(self, node):
         return [[True], [False]]
 
@@ -293,7 +373,7 @@ class AdvancedIncSubtensor1(Op):
 
     ``ignore_duplicates=True`` uses numpy's buffered ``x[i] += y`` (one
     write wins per duplicate index) instead of ``np.add.at`` accumulation
-    (reference AdvancedIncSubtensor ignore_duplicates).
+    (PyTensor's AdvancedIncSubtensor ignore_duplicates).
     """
 
     __props__ = ("set_instead_of_inc", "ignore_duplicates")
@@ -342,6 +422,9 @@ class AdvancedIncSubtensor1(Op):
         else:
             np.add.at(out, i, y)
         output_storage[0][0] = out
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0]]
 
     def connection_pattern(self, node):
         return [[True], [True], [False]]
@@ -404,7 +487,7 @@ class AdvancedSubtensor(Op):
         """Numpy advanced-indexing shape rules on static (None-aware)
         shapes: advanced indices (arrays, bools, plain ints) broadcast
         together; the broadcast block lands in place when the advanced
-        entries are adjacent, else at the front (reference
+        entries are adjacent, else at the front (PyTensor's
         indexed_result_shape, tensor/subtensor.py)."""
         bool_shape = self._bool_mask_shape(x, indices)
         if bool_shape is not None:
@@ -589,6 +672,9 @@ class AdvancedIncSubtensor(Op):
             np.add.at(out, idx, y)
         output_storage[0][0] = out
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0]]
+
     def connection_pattern(self, node):
         return [[True], [True]] + [[False] for _ in node.inputs[2:]]
 
@@ -638,7 +724,99 @@ def _parse_args(x, args):
     return args, has_advanced
 
 
+def _resolve_static_bool_masks(x, args):
+    """Boolean masks known at graph-construction time (numpy arrays, bool
+    lists, or boolean Constants) convert to integer index arrays;
+    data-dependent masks stay symbolic: their output shape depends on the
+    data.
+
+    Mask shapes are validated against the indexed axes (numpy semantics:
+    a wrong-length mask is an IndexError, not a silent subset)."""
+    from pytensor_tpu_torch.graph.basic import Constant
+
+    if not isinstance(args, tuple):
+        args = (args,)
+
+    def as_mask(a):
+        """Return the graph-time-constant bool mask for this index, or None."""
+        if isinstance(a, (bool, np.bool_)):
+            raise NotImplementedError(
+                "scalar boolean indexing (x[True]/x[False]) adds a new axis "
+                "whose length is data-independent but numpy-special; use "
+                "x[None] or x[0:0] explicitly."
+            )
+        if isinstance(a, list):
+            try:
+                arr = np.asarray(a)
+            except (ValueError, TypeError):
+                return None
+            if arr.dtype == np.bool_:
+                return arr
+            return None
+        if isinstance(a, np.ndarray) and a.dtype == np.bool_:
+            if a.ndim == 0:
+                raise NotImplementedError(
+                    "scalar boolean indexing is not supported; use x[None]."
+                )
+            return a
+        if isinstance(a, Constant) and getattr(a.type, "dtype", "") == "bool":
+            return np.asarray(a.data)
+        if isinstance(a, Variable) and getattr(a.type, "dtype", "") == "bool" \
+                and getattr(a.type, "ndim", 0) >= 1:
+            # symbolic mask: kept as a graph-level index (its output
+            # shape depends on the data); the torch lowering rejects it
+            return None
+        return None
+
+    masks = [as_mask(a) for a in args]
+    if not any(m is not None for m in masks):
+        return args
+
+    # axes consumed per arg: newaxis 0, a k-d mask k, everything else 1
+    def n_axes(i, a):
+        if a is None or a is Ellipsis:
+            return 0
+        if masks[i] is not None:
+            return masks[i].ndim
+        return 1
+
+    consumed = sum(n_axes(i, a) for i, a in enumerate(args))
+    x_shape = getattr(x.type, "shape", (None,) * getattr(x.type, "ndim", 0))
+
+    out = []
+    axis = 0
+    for i, a in enumerate(args):
+        if a is Ellipsis:
+            axis += x.type.ndim - consumed
+            out.append(a)
+            continue
+        if a is None:
+            out.append(a)
+            continue
+        m = masks[i]
+        if m is None:
+            out.append(a)
+            axis += 1
+            continue
+        for d in range(m.ndim):
+            dim = x_shape[axis + d] if axis + d < len(x_shape) else None
+            if dim is not None and m.shape[d] != dim:
+                raise IndexError(
+                    f"boolean index did not match indexed tensor along "
+                    f"axis {axis + d}; dimension is {dim} but mask "
+                    f"dimension is {m.shape[d]}"
+                )
+        axis += m.ndim
+        if m.ndim == 1:
+            out.append(np.nonzero(m)[0])
+        else:
+            # multi-dim masks expand to their nonzero coordinate arrays
+            out.extend(np.nonzero(m))
+    return tuple(out)
+
+
 def _getitem(x, args):
+    args = _resolve_static_bool_masks(x, args)
     args, has_advanced = _parse_args(x, args)
     if len([a for a in args if a is not None]) > x.type.ndim:
         raise IndexError(f"too many indices for {x.type}")
@@ -749,6 +927,17 @@ def set_subtensor(dest, src, inplace=False):
     return _inc_or_set(dest, src, set_instead_of_inc=True)
 
 
+def advanced_inc_subtensor1(x, y, ilist, ignore_duplicates=False):
+    """x with x[ilist] += y (PyTensor's advanced_inc_subtensor1)."""
+    return AdvancedIncSubtensor1(ignore_duplicates=ignore_duplicates)(
+        x, y, ilist)
+
+
+def advanced_set_subtensor1(x, y, ilist):
+    """x with x[ilist] = y (PyTensor's advanced_set_subtensor1)."""
+    return AdvancedIncSubtensor1(set_instead_of_inc=True)(x, y, ilist)
+
+
 def inc_subtensor(dest, src, inplace=False, set_instead_of_inc=False,
                   ignore_duplicates=False):
     return _inc_or_set(dest, src, set_instead_of_inc=set_instead_of_inc,
@@ -757,7 +946,7 @@ def inc_subtensor(dest, src, inplace=False, set_instead_of_inc=False,
 
 def _full_buffer_write(dest, src, set_instead_of_inc):
     """x[:] / x[:, :] short-circuit to x at graph-build time, so a write
-    to the full buffer arrives with no indexing node.  The reference
+    to the full buffer arrives with no indexing node.  PyTensor
     builds the useless Subtensor and rewrites it away
     (rewriting/subtensor.py local_useless_inc_subtensor); here the
     collapsed form is built directly: set -> broadcast(src, shape),
@@ -781,7 +970,7 @@ def _inc_or_set(dest, src, set_instead_of_inc, ignore_duplicates=False):
     src_v = as_tensor_variable(src)
     if src_v.type.ndim > dest.type.ndim:
         # the increment can broadcast up but never carry MORE dims than
-        # the indexed view (reference IncSubtensor TypeError)
+        # the indexed view (PyTensor's IncSubtensor TypeError)
         raise TypeError(
             f"increment has {src_v.type.ndim} dims, more than the indexed "
             f"view's {dest.type.ndim}")
@@ -811,3 +1000,78 @@ def _inc_or_set(dest, src, set_instead_of_inc, ignore_duplicates=False):
     # any other producer: the dest IS the full buffer (x[:, :] built it
     # with no indexing node)
     return _full_buffer_write(dest, src, set_instead_of_inc)
+
+
+def take(x, indices, axis=None, mode="raise"):
+    x = as_tensor_variable(x)
+    indices = as_tensor_variable(indices)
+    from pytensor_tpu_torch.tensor.shape import flatten, reshape, shape
+
+    if mode not in ("raise", "clip", "wrap"):
+        raise ValueError(f"invalid take mode: {mode!r}")
+    if mode != "raise":
+        from pytensor_tpu_torch.tensor import math as tm
+
+        n = (x.size if axis is None
+             else shape(x)[axis % x.type.ndim])
+        indices = (tm.clip(indices, 0, n - 1) if mode == "clip"
+                   else tm.mod(indices, n))
+    if axis is None:
+        xf = flatten(x)
+        if indices.type.ndim == 1:
+            return advanced_subtensor1(xf, indices)
+        idx_flat = flatten(indices)
+        res = advanced_subtensor1(xf, idx_flat)
+        return reshape(res, [shape(indices)[i] for i in range(indices.type.ndim)],
+                       ndim=indices.type.ndim)
+    axis = axis % x.type.ndim
+    if axis == 0 and indices.type.ndim == 1:
+        return advanced_subtensor1(x, indices)
+    full = [slice(None)] * axis + [indices]
+    return x.__getitem__(tuple(full))
+
+
+def take_along_axis(arr, indices, axis=-1):
+    arr = as_tensor_variable(arr)
+    indices = as_tensor_variable(indices)
+    if not indices.type.dtype.startswith(("int", "uint")):
+        raise IndexError(
+            f"take_along_axis indices must be integers, got "
+            f"{indices.type.dtype}")
+    if arr.type.ndim != indices.type.ndim:
+        raise ValueError("ndim mismatch in take_along_axis")
+    axis = axis % arr.type.ndim
+    # build open-mesh advanced index
+    from pytensor_tpu_torch.tensor.basic import arange, shape_padright, shape_padleft
+    from pytensor_tpu_torch.tensor.shape import shape
+
+    idxs = []
+    for d in range(arr.type.ndim):
+        if d == axis:
+            idxs.append(indices)
+        else:
+            # prefer the static dim: a symbolic Shape_i would erase the
+            # arange's static length and poison downstream shape inference
+            static = arr.type.shape[d]
+            r = arange(static if static is not None else shape(arr)[d])
+            pat = ["x"] * arr.type.ndim
+            pat[d] = 0
+            from pytensor_tpu_torch.tensor.elemwise import DimShuffle
+
+            idxs.append(DimShuffle(1, pat)(r))
+    return AdvancedSubtensor([DYN] * arr.type.ndim)(arr, *idxs)
+
+
+def flip(x, axis=None):
+    x = as_tensor_variable(x)
+    if axis is None:
+        axis = list(range(x.type.ndim))
+    elif isinstance(axis, (int, np.integer)):
+        axis = [axis]
+    idx = []
+    for d in range(x.type.ndim):
+        if d in [a % x.type.ndim for a in axis]:
+            idx.append(("slice", None, None, -1))
+        else:
+            idx.append(("slice", None, None, None))
+    return Subtensor(idx)(x)

@@ -19,7 +19,10 @@ steps at K3's tolerances against K3; K4 per row within
 ``tests/test_torch_sparse.py`` holds them.  Captured functions (one CUDA
 graph per input signature) are held bit for bit against the same graph
 linked eagerly where no kernel adds by atomics, else to ``1e-5`` of
-``max(1, max|eager|)``.
+``max(1, max|eager|)``.  K1 on every scalar op of the expression table in
+each dtype: the exact ops with the plain version's bits, the others at
+K1's tolerances; K2 on scans of its new ops at ``1e-6``; the logreg and
+MFU steps at small widths captured, with the eager plan's bits.
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ import torch
 
 from pytensor_tpu_torch.compile.mode import FAST_RUN
 from pytensor_tpu_torch.graph.fg import FunctionGraph
+from pytensor_tpu_torch.link.cuda import cases
 from pytensor_tpu_torch.link.torch.convert import as_torch
 from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
 from pytensor_tpu_torch.models import radon_kernel
@@ -675,3 +679,132 @@ def test_power_iteration_replay_gives_the_eager_plans_bits(card):
     want_out, want_x = got[False][0]
     for out, x in got[True]:
         assert torch.equal(out, want_out) and torch.equal(x, want_x)
+
+
+# --- the op library of the logistic-regression and MLP slice --------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bool", "int8", "int16", "int32",
+                                   "int64"])
+def test_k1_every_scalar_op_matches_plain(card, dtype):
+    """Every scalar op of the expression table in one fused node a dtype,
+    on numpy's edges: the exact ops with the plain version's bits (NaN at
+    the same places, the sign of every zero), the others within K1_RTOL of
+    max(1, |plain|), infinities at the same places."""
+    ins, outs, names = cases.scalar_op_group(dtype)
+    kern = fused_kernel.FusedElemwiseKernel(FusedElemwise(ins, outs).fgraph, card)
+    args = [as_torch(v, card) for v in cases.op_group_inputs(dtype, ins, 1031)]
+    got, want = kern.launch(*args), kern.plain(*args)
+    for name, g, w in zip(names, got, want):
+        g, w = g.cpu(), w.cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if not g.dtype.is_floating_point:
+            assert torch.equal(g, w), name
+            continue
+        assert torch.equal(g.isnan(), w.isnan()), name
+        g, w = g[~w.isnan()], w[~w.isnan()]
+        if name in cases.EXACT_OPS:
+            assert torch.equal(g, w) and torch.equal(torch.signbit(g), torch.signbit(w)), name
+        else:
+            assert torch.equal(g.isinf(), w.isinf()), name
+            fin = ~w.isinf()
+            rel = (g[fin].double() - w[fin].double()).abs() / w[fin].double().abs().clamp(min=1)
+            assert float(rel.max()) <= K1_RTOL[dtype], name
+
+
+def test_k2_new_ops_match_plain_loop(card):
+    """K2 on scans of Dot22, Gemm, Dot22Scalar, Join, Split, ARange,
+    DeepCopyOp and ViewOp, and on tanh(dot(W, acc)) with a 5 x 5 W, against
+    the step loop on the card, to 1e-6 of max(1, max|loop|)."""
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+    from pytensor_tpu_torch.scan.op import Scan
+
+    for tag, ins, outs, vals, raw in cases.k2_new_op_scans():
+        fg = FunctionGraph(ins, outs, clone=True)
+        if not raw:
+            FAST_RUN.optimizer.rewrite(fg)
+        node = next(nd for nd in fg.apply_nodes if isinstance(nd.op, Scan))
+        assert scan_kernel.scan_kernel_eligible(node.op, node), tag
+        kern = scan_kernel.ScanKernel(node.op, node, card)
+        feed = fgraph_to_torch(FunctionGraph(fg.inputs, node.inputs, clone=False), card)
+        n_steps, *outer = feed(*[as_torch(v, card) for v in vals])
+        before = scan_kernel.LAUNCHES
+        got = kern.launch(n_steps.cpu(), *outer)
+        want = kern.plain(n_steps.cpu(), *outer)
+        assert scan_kernel.LAUNCHES == before + 1
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert _scaled(g, w) <= 1e-6, tag
+
+
+def test_logreg_and_mfu_steps_are_captured_and_launch_k1(card):
+    """The logistic-regression step and the MFU step (float32) at small
+    widths: captured, K1 launched at every replay, the replay with the
+    eager plan's bits from the same state."""
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models.logreg import make_logreg_training_step
+    from pytensor_tpu_torch.models.mlp import make_mlp_mfu_step
+
+    def logreg(jit):
+        with config.change_flags(xla__jit=jit):
+            f, (X, y), params = make_logreg_training_step(256, 16, device=card)
+        return f, [as_torch(X, card), as_torch(y, card)], list(params)
+
+    def mfu(jit):
+        with config.change_flags(xla__jit=jit):
+            f, _, args = make_mlp_mfu_step(64, 32, 2, "float32", device=card)
+        return f, list(args), sorted((v for v in f.shared_vars), key=lambda v: v.name)
+
+    for make in (logreg, mfu):
+        (f, args, params), (f_e, _, params_e) = make(True), make(False)
+        assert isinstance(f.linked, CapturedFunction)
+        init = [v.get_value() for v in params]
+        f(*args)
+        for v, x in zip(params, init):
+            v.set_value(x.clone())
+        before = fused_kernel.LAUNCHES
+        out = f(*args)
+        torch.cuda.synchronize()
+        assert fused_kernel.LAUNCHES > before
+        out_e = f_e(*args)
+        assert torch.equal(out, out_e)
+        for a, b in zip(params, params_e):
+            assert torch.equal(a.get_value(), b.get_value()), a.name
+
+
+@pytest.mark.parametrize("mode", ["set", "inc_ignore_duplicates"])
+@pytest.mark.parametrize("form", ["axis0", "axis1", "flat"])
+def test_duplicate_index_write_takes_the_last_on_the_card(card, form, mode):
+    """A set, or an increment that ignores duplicates, of an index with many
+    duplicates (each of 8 positions written ~25,000 times) in each form the
+    port lowers apart: numpy's result (the JAX package's oracle computes it
+    with numpy, ``tests/test_torch_ops.py`` holds the port to that oracle),
+    bit for bit, at every one of three calls, captured and eager."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+
+    rng = np.random.default_rng(5)
+    x0 = rng.standard_normal((8, 256))
+    rows, cols = rng.integers(0, 8, 200_000), rng.integers(0, 8, 200_000)
+    index, y_shape, np_index = {
+        "axis0": (lambda x: x[rows], (200_000, 256), rows),
+        "axis1": (lambda x: x[:, cols], (8, 200_000), (slice(None), cols)),
+        "flat": (lambda x: x[rows, cols], (200_000,), (rows, cols)),
+    }[form]
+    y0 = np.arange(np.prod(y_shape), dtype="float64").reshape(y_shape)
+    want = x0.copy()
+    if mode == "set":
+        want[np_index] = y0
+    else:
+        want[np_index] += y0
+    x = pt.tensor("x", dtype="float64", shape=x0.shape)
+    y = pt.tensor("y", dtype="float64", shape=y_shape)
+    out = (pt.set_subtensor(index(x), y) if mode == "set"
+           else pt.inc_subtensor(index(x), y, ignore_duplicates=True))
+    for jit in (True, False):
+        with config.change_flags(xla__jit=jit):
+            f = ptt.function([x, y], out, device=card)
+        for _ in range(3):
+            got = f(as_torch(x0, card), as_torch(y0, card))
+            np.testing.assert_array_equal(got.cpu().numpy(), want)

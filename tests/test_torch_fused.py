@@ -356,3 +356,162 @@ def test_k1_source_bool_results_match_plain(k1_host):
     for g, w, ref in zip(got, want, (b_np & c_np, b_np | c_np)):
         assert g.dtype == w.dtype == torch.bool and torch.equal(g, w)
         np.testing.assert_array_equal(g.numpy(), ref)
+
+
+# --- the scalar ops of the expression table, in every dtype ---------------------------
+
+# ops whose value is exact in every dtype: the host build gives the plain
+# version's bits; the others are held at K1_RTOL over max(1, |plain|)
+_EXACT = {"gt", "le", "eq", "neq", "lt", "ge", "isnan", "isinf", "minimum", "and_", "or_",
+          "xor", "invert", "left_shift", "right_shift", "int_div", "mod", "switch", "clip",
+          "identity", "floor", "ceil", "trunc", "round_half_to_even",
+          "round_half_away_from_zero", "deg2rad", "rad2deg", "maximum", "abs", "neg"}
+
+
+def _edge_values(dtype, n, seed):
+    """n values of dtype with the edges in front: NaN, +-inf, +-0.0,
+    halves and near-halves for the floats; negative values, 0, the
+    extremes for the integers."""
+    rng = np.random.default_rng(seed)
+    if dtype == "bool":
+        return rng.integers(0, 2, size=n).astype(bool)
+    if dtype.startswith("float"):
+        edge = [np.nan, np.inf, -np.inf, 0.0, -0.0, 0.5, -0.5, 1.5, -2.5, 2.5, 0.49999997,
+                -0.49999997, 1.0, -1.0, 7.0, -7.0]
+        vals = np.concatenate([edge, rng.standard_normal(n - len(edge)) * 4])
+        return vals.astype(dtype)
+    info = np.iinfo(dtype)
+    edge = [0, 1, -1, 7, -7, 3, -3, info.min, info.max, info.min + 1]
+    vals = np.concatenate([edge, rng.integers(-50, 50, size=n - len(edge))])
+    return vals.astype(dtype)
+
+
+def _shift_counts(dtype, n, seed):
+    """Counts at, below and past the width, and negative ones."""
+    w = np.iinfo(dtype).bits
+    rng = np.random.default_rng(seed)
+    edge = [0, 1, w - 1, w, w + 1, -1, -w, 2 * w]
+    return np.concatenate([edge, rng.integers(0, w, size=n - len(edge))]).astype(dtype)
+
+
+def _identity(x):
+    from pytensor_tpu_torch.scalar import basic as ps
+    from pytensor_tpu_torch.tensor.elemwise import Elemwise
+
+    return Elemwise(ps.identity)(x)
+
+
+def _scalar_op_group(dtype):
+    """One fused node per dtype computing every op of the table that
+    takes that dtype, as outputs of its inputs."""
+    if dtype == "bool":
+        p, q, c = (tpt.tensor(k, dtype="bool", shape=(None,)) for k in "pqc")
+        ins = [p, q, c]
+        outs = [tpt.and_(p, q), tpt.or_(p, q), tpt.xor(p, q), tpt.invert(p),
+                tpt.minimum(p, q), tpt.gt(p, q), tpt.le(p, q), tpt.eq(p, q), tpt.neq(p, q),
+                _identity(p), tpt.switch(c, p, q)]
+        names = ["and_", "or_", "xor", "invert", "minimum", "gt", "le", "eq", "neq",
+                 "identity", "switch"]
+    elif dtype.startswith("float"):
+        x, y, z = (tpt.tensor(k, dtype=dtype, shape=(None,)) for k in "xyz")
+        c = tpt.tensor("c", dtype="bool", shape=(None,))
+        ins = [x, y, z, c]
+        unary = ["exp2", "expm1", "log1p", "log2", "log10", "deg2rad", "rad2deg", "tan",
+                 "cosh", "sinh", "arcsin", "arccos", "arctan", "arcsinh", "arccosh", "arctanh",
+                 "floor", "ceil", "trunc", "round_half_to_even", "round_half_away_from_zero",
+                 "isnan", "isinf", "identity"]
+        outs = [getattr(tpt, k)(x) for k in unary[:-1]] + [_identity(x)]
+        names = list(unary)
+        for k in ("arctan2", "int_div", "mod", "minimum", "gt", "le", "eq", "neq"):
+            outs.append(getattr(tpt, k)(x, y))
+            names.append(k)
+        outs += [tpt.clip(x, y, z), tpt.switch(c, x, y)]
+        names += ["clip", "switch"]
+    else:
+        a, b, s = (tpt.tensor(k, dtype=dtype, shape=(None,)) for k in "abs")
+        c = tpt.tensor("c", dtype="int32", shape=(None,))
+        ins = [a, b, s, c]
+        names = ["int_div", "mod", "and_", "or_", "xor", "minimum", "gt", "le", "eq", "neq"]
+        outs = [getattr(tpt, k)(a, b) for k in names]
+        outs += [tpt.left_shift(a, s), tpt.right_shift(a, s), tpt.invert(a),
+                 tpt.clip(a, b, s), tpt.switch(c, a, b), tpt.round_half_to_even(a),
+                 tpt.round_half_away_from_zero(a), tpt.isnan(a), tpt.isinf(a), tpt.floor(a),
+                 _identity(a)]
+        names += ["left_shift", "right_shift", "invert", "clip", "switch", "round_half_to_even",
+                  "round_half_away_from_zero", "isnan", "isinf", "floor", "identity"]
+    assert all(fusable(o.owner) for o in outs), [str(o.owner) for o in outs if not fusable(o.owner)]
+    return ins, outs, names
+
+
+_GROUP_DTYPES = ["float32", "float64", "bool", "int8", "int16", "int32", "int64"]
+
+
+def test_k1_source_matches_plain_on_every_scalar_op(k1_host):
+    """Every op of the expression table in every dtype K1 takes, as one
+    fused node a dtype, the seven built into one library: the exact ops
+    bit for bit (NaN where the plain version has NaN, the sign of every
+    zero), the others within K1_RTOL; numpy's edges included (int_div and
+    mod of negatives and by 0, shifts at and past the width, halves for the
+    rounding ops, NaN, inf and -0.0)."""
+    groups = {dt: _scalar_op_group(dt) for dt in _GROUP_DTYPES}
+    kerns = {dt: fused_kernel.FusedElemwiseKernel(TFused(ins, outs).fgraph, "cpu")
+             for dt, (ins, outs, _) in groups.items()}
+    lib = k1_host(list(kerns.values()))
+    n = 64
+    for k, (dt, (ins, outs, names)) in enumerate(groups.items()):
+        args = []
+        for j, v in enumerate(ins):
+            vals = (_shift_counts(dt, n, k + j) if v.name == "s" and dt.startswith("int")
+                    else _edge_values(v.type.dtype, n, 100 * k + j))
+            if j % 2:  # each edge of one operand meets the other's in turn
+                vals = np.roll(vals, j)
+            args.append(torch.from_numpy(vals))
+        got, _ = _host_launch(lib, kerns[dt], args)
+        want = kerns[dt].plain(*args)
+        for name, g, w in zip(names, got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, (dt, name)
+            if not g.dtype.is_floating_point:
+                assert torch.equal(g, w), (dt, name, g, w)
+                continue
+            assert torch.equal(g.isnan(), w.isnan()), (dt, name)
+            ok = ~w.isnan()
+            g, w = g[ok], w[ok]
+            if name in _EXACT:
+                assert torch.equal(g, w) and torch.equal(torch.signbit(g), torch.signbit(w)), \
+                    (dt, name, g, w)
+            else:
+                assert torch.equal(g.isinf(), w.isinf()) and torch.equal(g[w.isinf()], w[w.isinf()])
+                fin = ~w.isinf()
+                err = (g[fin].double() - w[fin].double()).abs()
+                lim = K1_RTOL[dt] * torch.clamp(w[fin].double().abs(), min=1.0)
+                assert bool((err <= lim).all()), (dt, name, float(err.max()))
+
+
+@pytest.mark.parametrize("n", [333, 0], ids=["vector", "0d"])
+def test_k1_source_takes_a_host_scalar_in_its_pointer(k1_host, n):
+    """A one-element value computed on the host (the length of a batch,
+    cast) is passed in its pointer's place: its bytes in the pointer array,
+    its host flag in the layout, its class 0-d even where the iteration
+    space is 0-d (where every other input is contiguous), one load a
+    thread of neither memory.  The layout is the card's: the kernel is
+    made for the ``meta`` device, so that the CPU value counts as the
+    host's."""
+    for dt in ("float32", "float64"):
+        shape = (None,) if n else ()
+        x = tpt.tensor("x", dtype=dt, shape=shape)
+        nrm = tpt.tensor("n", dtype=dt, shape=())
+        kern = fused_kernel.FusedElemwiseKernel(TFused([x, nrm], [-x / nrm]).fgraph, "cpu")
+        xv = torch.from_numpy(_edge_values(dt, max(n, 16), 3)[:n] if n
+                              else np.asarray(-3.5, dtype=dt))
+        nv = torch.tensor(8192.0, dtype=getattr(torch, dt))
+        kern.device = torch.device("meta")
+        lay = kern._layout([xv.to("meta"), nv])
+        kern.device = torch.device("cpu")
+        assert lay.classes[0] == [fused_kernel.CONTIG, fused_kernel.SCALAR]
+        out = torch.empty(xv.shape, dtype=xv.dtype)
+        ptrs = kern._ptrs_t(xv.data_ptr(), fused_kernel._host_bits(nv), out.data_ptr())
+        lib = k1_host([kern])
+        assert getattr(lib, f"k1_{kern.key}")(ptrs, lay.ints, None) == 0
+        want = kern.plain(xv, nv)[0]
+        assert torch.equal(out.isnan(), want.isnan())
+        assert torch.equal(out[~want.isnan()], want[~want.isnan()])

@@ -178,6 +178,10 @@ def test_port_never_imports_jax():
             "S = pytensor_tpu_torch.sparse; "
             "y = S.structured_dot(S.as_sparse_variable(A), xs); "
             "pytensor_tpu_torch.train_loop([], y.sum(), {xs: y}, n_steps=2, device='cpu')(); "
+            "import pytensor_tpu_torch.models.mlp, pytensor_tpu_torch.tensor.blas, "
+            "pytensor_tpu_torch.link.cuda.cases; "
+            "from pytensor_tpu_torch.models.logreg import make_logreg_training_step; "
+            "f, (X, yv), _ = make_logreg_training_step(n=16, d=4, device='cpu'); f(X, yv); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pytensor_tpu')]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)

@@ -125,10 +125,19 @@ def _emulated_vs_loop(gxx, f, values, fuse_inner=False, stamps=None):
     return outs, scan_loop(op, "cpu")(n_steps, *outer)
 
 
-def _check(gxx, build, values, fuse_inner=False):
+class _Raw:
+    """The graph of a scan as built, unrewritten, in the place of a
+    function's (``_emulated_vs_loop`` reads ``fgraph``)."""
+
+    def __init__(self, inputs, outputs):
+        self.fgraph = FunctionGraph(inputs, outputs, clone=True)
+
+
+def _check(gxx, build, values, fuse_inner=False, raw=False):
     with config.change_flags(scan__pallas=True):
         inputs, outputs = build()
-        f = ptt.function(inputs, outputs, device="cpu")
+        f = (_Raw(inputs, outputs) if raw
+             else ptt.function(inputs, outputs, device="cpu"))
     got, want = _emulated_vs_loop(gxx, f, values, fuse_inner)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
@@ -214,7 +223,121 @@ def _abs_max():
     return [M0], [tr, top]
 
 
+def _blas_products():
+    """Dot22 on the thread and the warp path, Gemm and Dot22Scalar, each
+    product an FMA loop, the epilogues rounded op by op."""
+    from pytensor_tpu_torch.tensor import blas
+
+    M0 = pt.tensor("M0", dtype="float32", shape=(4, 6))
+    v0 = pt.tensor("v0", dtype="float32", shape=(300,))
+    rng = np.random.default_rng(3)
+    W = pt.as_tensor_variable((rng.standard_normal((6, 6)) * 0.3).astype("float32"))
+    A = pt.as_tensor_variable((rng.standard_normal((2, 300)) * 0.1).astype("float32"))
+    B = pt.as_tensor_variable((rng.standard_normal((300, 3)) * 0.1).astype("float32"))
+
+    def step(M, v):
+        d = blas._dot22(M, W)
+        g = blas.gemm(M, np.float32(0.5), M, W, np.float32(0.25))
+        s = blas._dot22scalar(M, W, np.float32(0.1))
+        wide = blas._dot22(A * v.dimshuffle("x", 0), B)  # 6 outputs of 300 terms: a warp each
+        return pt.tanh(d * np.float32(0.1) + g * np.float32(0.1) + s), v * np.float32(0.9), \
+            wide.sum()
+
+    (trM, trv, sw), _ = ptt.scan(step, outputs_info=[M0, v0, None], n_steps=4)
+    return [M0, v0], [trM, trv, sw]
+
+
+def _static_split(x, sizes, axis):
+    """A Split whose outputs have static types.  ``Split.make_node`` leaves
+    the split axis's length unknown, in both packages, so a scan whose
+    body holds a Split takes the step loop there; these types stand for a
+    body whose lengths are known."""
+    from pytensor_tpu_torch.graph.basic import Apply
+    from pytensor_tpu_torch.tensor.basic import Split, constant
+    from pytensor_tpu_torch.tensor.type import TensorType
+
+    outs = []
+    for n in sizes:
+        shape = list(x.type.shape)
+        shape[axis] = n
+        outs.append(TensorType(x.type.dtype, tuple(shape))())
+    node = Apply(Split(len(sizes)), [x, constant(np.int64(axis)),
+                                     constant(np.asarray(sizes, "int64"))], outs)
+    return node.outputs
+
+
+def _join_split_arange():
+    """Join and Split along both axes (a view and a strided copy), ARange
+    of floats and ints as index arithmetic, DeepCopyOp and ViewOp as
+    aliases.  Run on the Scan node as built (``RAW``): the rewrites would
+    fold the constant ARanges."""
+    from pytensor_tpu_torch.compile.ops import deep_copy_op, view_op
+    from pytensor_tpu_torch.tensor.basic import ARange
+
+    v0 = pt.tensor("v0", dtype="float32", shape=(6,))
+    M0 = pt.tensor("M0", dtype="float32", shape=(3, 4))
+    ax0, ax1 = np.int64(0), np.int64(1)
+
+    def step(v, M):
+        a, b = _static_split(v, [2, 4], 0)
+        j = pt.join(ax0, b, a)
+        p, q = _static_split(M, [1, 3], 1)
+        jm = pt.join(ax1, q * np.float32(0.5), p)
+        r = ARange("float32")(np.float32(0.5), np.float32(3.5), np.float32(0.5))
+        ri = pt.cast(ARange("int64")(np.int64(-5), np.int64(13), np.int64(3)), "float32")
+        top, bottom = _static_split(M, [2, 1], 0)
+        jr = pt.join(ax0, bottom, top)
+        return (deep_copy_op(j) * np.float32(0.5) + r * np.float32(0.1) + ri * np.float32(0.01),
+                view_op(jm + jr * np.float32(0.25)))
+
+    (trv, trM), _ = ptt.scan(step, outputs_info=[v0, M0], n_steps=3)
+    return [v0, M0], [trv, trM]
+
+
+RAW = {"join_split_arange"}
+
+
+def _new_scalar_ops():
+    """The scalar ops of this slice in a scan body: selection, rounding,
+    exponentials, trigonometry, integer division and shifts, bitwise ops
+    and comparisons, in float32, int32 and bool."""
+    x0 = pt.tensor("x0", dtype="float32", shape=(16,))
+    k0 = pt.tensor("k0", dtype="int32", shape=(16,))
+
+    def step(x, k):
+        c = pt.gt(x, np.float32(0.0))
+        y = pt.switch(c, pt.expm1(x * np.float32(0.1)), pt.log1p(pt.abs(x)))
+        y = y + pt.floor(x) * np.float32(0.01) + pt.ceil(x) * np.float32(0.01) \
+            + pt.trunc(x) * np.float32(0.01) + pt.round_half_to_even(x * np.float32(2.0)) \
+            * np.float32(0.01) + pt.round_half_away_from_zero(x * np.float32(2.0)) * np.float32(0.01)
+        y = y + pt.clip(x, np.float32(-0.5), np.float32(0.5)) + pt.minimum(x, np.float32(0.2))
+        y = y + pt.arctan2(x, np.float32(1.5)) * np.float32(0.1) + pt.tan(x * np.float32(0.1)) \
+            + pt.cosh(x * np.float32(0.1)) * np.float32(0.01) + pt.sinh(x * np.float32(0.1))
+        y = y + pt.exp2(x * np.float32(0.1)) * np.float32(0.01) + pt.log2(pt.abs(x) + 1) \
+            * np.float32(0.01) + pt.log10(pt.abs(x) + 1) * np.float32(0.01)
+        y = y + pt.deg2rad(x) + pt.rad2deg(x) * np.float32(0.001) \
+            + pt.arcsinh(x) * np.float32(0.01) + pt.arctan(x) * np.float32(0.01)
+        y = y + pt.cast(pt.and_(pt.le(x, np.float32(1.0)), pt.neq(x, np.float32(0.0))),
+                        "float32") * np.float32(0.01)
+        kn = (pt.int_div(k * 7 - 40, 3) + pt.mod(k * 5 - 17, 6) + pt.left_shift(k, 2)
+              - pt.right_shift(k * 16, k % 35) + pt.xor(k, 5) + pt.or_(k, 1) - pt.invert(k))
+        kn = pt.switch(pt.isnan(y), 0, pt.mod(kn, 97))
+        return y * np.float32(0.5), pt.cast(kn, "int32")
+
+    (tx, tk), _ = ptt.scan(step, outputs_info=[x0, k0], n_steps=4)
+    return [x0, k0], [tx, tk]
+
+
 CASES = {
+    "blas_products": (_blas_products, [
+        np.random.default_rng(4).standard_normal((4, 6)).astype("float32"),
+        np.random.default_rng(5).standard_normal(300).astype("float32")]),
+    "join_split_arange": (_join_split_arange, [
+        np.arange(6, dtype="float32"), np.arange(12, dtype="float32").reshape(3, 4)]),
+    "new_scalar_ops": (_new_scalar_ops, [
+        np.concatenate([[0.5, -0.5, 1.5, -2.5, 0.0, -0.0, 2.5, 0.49999997],
+                        np.random.default_rng(6).standard_normal(8) * 3]).astype("float32"),
+        np.arange(-8, 8, dtype="int32")]),
     "abs_max": (_abs_max, [np.random.default_rng(2).standard_normal((6, 40))
                            .astype("float32")]),
     "scalar_carry": (_scalar_carry, [np.float32(1.0)]),
@@ -229,7 +352,83 @@ CASES = {
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_emulated_k2_matches_loop(gxx, case):
     build, values = CASES[case]
-    _check(gxx, build, values)
+    _check(gxx, build, values, raw=case in RAW)
+
+
+def test_k2_emits_the_jax_whitelist_ops():
+    """Each op of the JAX package's kernel whitelist (scan_pallas.py:40)
+    that the port has is emitted: the scans above are eligible, and their
+    sources hold the product loops and no library call."""
+    for case in ("blas_products", "join_split_arange", "new_scalar_ops"):
+        with config.change_flags(scan__pallas=True):
+            inputs, outputs = CASES[case][0]()
+            f = (_Raw(inputs, outputs) if case in RAW
+                 else ptt.function(inputs, outputs, device="cpu"))
+        (node,) = [nd for nd in f.fgraph.apply_nodes if type(nd.op).__name__ == "Scan"]
+        names = {type(n.op).__name__ for n in node.op.fgraph.apply_nodes}
+        assert scan_kernel_eligible(node.op, node), (case, names)
+        src = ScanKernelSource(node.op, node).source
+        if case == "blas_products":
+            assert {"Dot22", "Gemm", "Dot22Scalar"} <= names
+            assert src.count("fmaf(") >= 3 and "k2_warp_add(acc)" in src
+        if case == "join_split_arange":
+            assert {"Join", "Split", "ARange", "DeepCopyOp", "ViewOp"} <= names
+
+
+def test_k2_budget_refuses_a_full_width_product_and_keeps_the_chains():
+    """The JAX package's 4 MiB budget (scan_pallas.py:86-98): a scan over a
+    full-width (8,192 x 8,192) float32 weight takes the step loop, as it
+    does in the JAX package, though its offsets fit 32 bits; the radon
+    leapfrog chain at full width and benchsuite's cumsum and EWMA scans at
+    n = 4,096 take the kernel."""
+    from pytensor_tpu_torch.link.cuda.scan_kernel import BUDGET_BYTES, _budget_bytes
+    from pytensor_tpu_torch.models.radon import make_leapfrog_chain
+    from pytensor_tpu_torch.scan.op import Scan
+
+    def scan_node(out):
+        out = out[0] if isinstance(out, (list, tuple)) else out
+        while not isinstance(out.owner.op, Scan):
+            out = out.owner.inputs[0]
+        return out.owner
+
+    x0 = pt.tensor("x0", dtype="float32", shape=(8192, 8192))
+    W = pt.tensor("W", dtype="float32", shape=(8192, 8192))
+    tr, _ = ptt.scan(lambda x, w: pt.dot(x, w), outputs_info=[x0], non_sequences=[W],
+                     n_steps=4)
+    node = scan_node(tr)
+    assert _budget_bytes(node.op, node) > BUDGET_BYTES
+    assert not scan_kernel_eligible(node.op, node)
+    # the models' own loops at full width, built on the meta device (no
+    # memory): the GEMM chain and the MFU step's train_loop take the step loop
+    from pytensor_tpu_torch.models.mlp import make_gemm_chain, make_mlp_mfu_step
+
+    with config.change_flags(scan__pallas=True):
+        loops = [make_gemm_chain(dtype="float32", n_steps_per_call=4, device="meta")[0],
+                 make_mlp_mfu_step(dtype="float32", n_steps_per_call=4, device="meta")[0]]
+    for f in loops:
+        (node,) = [nd for nd in f.fgraph.apply_nodes if isinstance(nd.op, Scan)]
+        assert not scan_kernel_eligible(node.op, node)
+    f = make_leapfrog_chain("float32", None, 8, 919, 85, device="cpu")
+    (node,) = [nd for nd in f.fgraph.apply_nodes if isinstance(nd.op, Scan)]
+    assert scan_kernel_eligible(node.op, node)
+    x = pt.tensor("x", dtype="float32", shape=(4096,))
+    zero = pt.constant(0.0, dtype="float32")
+    for body in (lambda xt, acc: acc + xt,
+                 lambda xt, acc: np.float32(0.98) * acc + np.float32(0.02) * xt):
+        tr, _ = ptt.scan(body, sequences=[x], outputs_info=[zero])
+        node = scan_node(tr)
+        assert scan_kernel_eligible(node.op, node)
+
+
+def test_k2_radon_chain_source_keeps_its_sha256():
+    """chip_smoke.py's chain holds are calibrated on K2's bits: the source
+    of the full-width radon body keeps the sha256 they were calibrated on."""
+    from pytensor_tpu_torch.models.radon import make_leapfrog_chain
+
+    f = make_leapfrog_chain("float32", None, 64, 919, 85, device="cpu")
+    (node,) = [nd for nd in f.fgraph.apply_nodes if type(nd.op).__name__ == "Scan"]
+    digest = hashlib.sha256(ScanKernelSource(node.op, node).source.encode()).hexdigest()
+    assert digest == "fac11e834075ed385020492fb9e0ea46b1bbffe3cd879d1e1f3fa8e3f5938c2e"
 
 
 def test_emulated_k2_flattens_fused_elemwise(gxx):
