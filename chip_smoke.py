@@ -1,5 +1,5 @@
-"""Drive the torch port's radon, sparse, logistic-regression and MLP paths
-on one NVIDIA GPU.
+"""Drive the torch port's radon, sparse, logistic-regression, MLP and
+Elman RNN paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -17,7 +17,9 @@ Phases, one line or more each, and any failure raises:
    them: K1 for one fused node a dtype holding every scalar op of the
    expression table, K2 for three scans of the slice's new ops, and the K1
    kernels of the logreg and MFU steps (their graphs rewritten on the CPU
-   give the same sources, so linking them in phase 11 finds them built).
+   give the same sources, so linking them in phase 11 finds them built),
+   and the K1 kernels of the Elman step with K2 of the static BPTT's
+   forward scan (phase 12 finds them built).
 3. K1: every FusedElemwise of the single-chain graph and of the batched
    graph at 1,024 chains, in float32 and float64, launched on the inputs
    the graph gives it and held against its plain torch version; each
@@ -113,6 +115,24 @@ Phases, one line or more each, and any failure raises:
    kernels that take the card's time, and the MFU step's float32 TFLOP/s
    beside the card's float32 peak.  K1's ``launches`` in the kernel line
    add these paths' counts to the radon slice's (``launches_by_path``).
+12. Elman: the BPTT step of ``benchsuite.py:121 ours_elman``
+   (``models/rnn.py``: seq 64, n_in 32, hidden 128, float32, batch 4)
+   through ``function()`` and as a 16-step ``train_loop`` (the RNN's four
+   forward and two reverse scans inside the loop's scan), both captured
+   (``phase_elman``).  Counts are set to 0 before one replayed call of
+   each (K1 on the step's fused nodes, K2 on no Elman scan); the replay
+   against the eager plan by sha256; the loss, the gradients (the step's
+   graph linked with them as outputs) and the weights after 1 and 16
+   steps against ``rnn_reference``, float64 NumPy BPTT, and the loop
+   against 16 calls of the step (``ELMAN_TOL``); each of the step's four
+   K1 nodes against its plain version at the step's shapes.  Then a
+   static BPTT under ``scan__pallas`` (``tanh(dot(W, h))``, W 128 x 128,
+   64 steps): K2 takes the forward scan and not the reverse one, launches
+   once in a replayed call, and K2 and the gradient hold against the step
+   loop.  Then wall and device ms a call, captured and eager, busy share,
+   steps/s, kernels a call with the top ones by name, the index kernels of
+   the reversed sequences' copies a call, and the step at batch 1,024.
+   K1's and K2's ``launches_by_path`` gain these three paths.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -795,6 +815,304 @@ def phase_models(dev, smi_line):
     return model_launches, k1_abs
 
 
+# --- the Elman RNN BPTT slice ------------------------------------------------------
+
+# the Elman step of benchsuite.py:121 ours_elman (models/rnn.py), float32,
+# batch 4 as the JAX package makes its data, through function() and as a
+# 16-step train_loop; one more reading of the step at batch 1,024
+ELMAN_SEQ, ELMAN_IN, ELMAN_HIDDEN, ELMAN_LR = 64, 32, 128, 0.01
+ELMAN_LOOP, ELMAN_WIDE = 16, 1024
+# the static BPTT under scan__pallas: tanh(dot(W, h)), W 128 x 128, 64 steps
+BPTT_N, BPTT_STEPS = 128, 64
+# the Elman step against rnn_reference (float64 NumPy BPTT): the first
+# loss relative; each gradient over its max|ref|; the weights after one
+# step and after 16 (the loop, and 16 calls of the step) over the largest
+# update of each weight (a dropped update reads 1), the loop against 16
+# calls of the step the same way; the loop's last loss is near 0 (the
+# four samples are fitted), so it is held absolutely, over the first loss.
+# On an H100 80GB HBM3 at 700 W: 4.9e-8, 5.8e-7, 4.5e-6, 3.3e-5, 9.8e-6
+# and 7.9e-14; held at ~10x those readings (the loss at the CPU's 2.2e-7
+# times 2).  The static BPTT's loss and gradients, and K2's forward scan,
+# against the step loop over max(1, max|loop|): 6.6e-7 and 8.2e-7 there
+ELMAN_TOL = {"loss": 5e-7, "grads": 6e-6, "update": 5e-5, "update16": 3e-4,
+             "loop_vs_calls": 1e-4, "loop_loss": 1e-9, "bptt": 1e-5}
+
+
+def static_bptt(ptt, pt):
+    """The static-shaped BPTT of phase 12: ``(inputs, outputs)``."""
+    v0 = pt.tensor("v0", dtype="float32", shape=(BPTT_N,))
+    W = pt.tensor("W", dtype="float32", shape=(BPTT_N, BPTT_N))
+    tr, _ = ptt.scan(lambda acc, w: pt.tanh(pt.dot(w, acc)), outputs_info=[v0],
+                     non_sequences=[W], n_steps=BPTT_STEPS, name="bptt")
+    loss = (tr ** 2).sum()
+    return [v0, W], [loss, *ptt.grad(loss, [v0, W])]
+
+
+def elman_kernels(dev):
+    """The K1 kernels of the Elman step (its graph rewritten on the CPU, so
+    the same sources as linking it for the card) and K2 of the static
+    BPTT's forward scan, for the build pool of phase 2."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+    from pytensor_tpu_torch.models.rnn import elman_graph, make_elman_rnn_bptt
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    step = make_elman_rnn_bptt(ELMAN_SEQ, ELMAN_IN, ELMAN_HIDDEN, "float32", lr=ELMAN_LR,
+                               device="cpu")[0]
+    X, y, _, loss, grads, updates, _, _ = elman_graph(ELMAN_SEQ, ELMAN_IN, ELMAN_HIDDEN,
+                                                      "float32", ELMAN_LR, device="cpu")
+    with_grads = ptt.function([X, y], [loss, *grads], updates=updates, device="cpu")
+    k1 = [fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+          for f in (step, with_grads) for nd in f.fgraph.toposort()
+          if isinstance(nd.op, FusedElemwise)]
+    with config.change_flags(scan__pallas=True):
+        bptt = ptt.function(*static_bptt(ptt, pt), device="cpu")
+    k2 = [scan_kernel.ScanKernel(nd.op, nd, dev) for nd in bptt.fgraph.toposort()
+          if type(nd.op).__name__ == "Scan" and scan_kernel.scan_kernel_eligible(nd.op, nd)]
+    return k1, k2
+
+
+def phase_elman(dev, smi_line):
+    """Phase 12: the Elman BPTT step of ``benchsuite.py:121 ours_elman``
+    (seq 64, n_in 32, hidden 128, float32, batch 4) through ``function()``
+    and as a 16-step ``train_loop``, each captured, with its eager twin:
+    K1's and K2's launches in one replayed call (counts set to 0 just
+    before it), the replay's sha256 against the eager plan's from the same
+    state, the loss and weights against ``rnn_reference`` (float64 NumPy
+    BPTT), the loop against 16 calls of the step, the step's gradients
+    (its graph linked with them as outputs) against the reference, each
+    of the step's K1 nodes against its plain version at the step's shapes;
+    then the static BPTT under ``scan__pallas`` (K2 once for the forward
+    scan, not for the reverse one; K2 against its step loop, the gradient
+    against the step loop's); then wall and device ms a call, busy share,
+    steps/s, kernels a call with the top ones by name, the flips' copies a
+    call, and the step at batch 1,024.  Returns the launches of each path
+    and K1's and K2's largest absolute errors.  On the CPU (a rehearsal at
+    small sizes) it checks the values only."""
+    import torch
+
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.cuda import scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction, fgraph_to_torch
+    from pytensor_tpu_torch.models import radon_kernel
+    from pytensor_tpu_torch.models.rnn import elman_graph, make_elman_rnn_bptt, rnn_reference
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    on_card = dev.type == "cuda"
+    t12 = time.perf_counter()
+    shape = (ELMAN_SEQ, ELMAN_IN, ELMAN_HIDDEN, "float32")
+
+    def zero():
+        fused_kernel.LAUNCHES = radon_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+        spmv_kernel.LAUNCHES = 0
+
+    def counts():
+        if on_card:
+            torch.cuda.synchronize()
+        return {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": scan_kernel.LAUNCHES}
+
+    def weights(ws):
+        return [w.get_value() for w in ws]
+
+    def reset(ws, values):
+        for w, v in zip(ws, values):
+            w.set_value(v.clone())
+
+    paths, launches = {}, {}
+    for tag, steps in (("elman step", 1), ("elman loop", ELMAN_LOOP)):
+        f, (Xv, yv), ws = make_elman_rnn_bptt(*shape, n_steps_per_call=steps, lr=ELMAN_LR,
+                                              device=dev)
+        with config.change_flags(xla__jit=False):
+            f_e, _, ws_e = make_elman_rnn_bptt(*shape, n_steps_per_call=steps, lr=ELMAN_LR,
+                                               device=dev)
+        plan = f.linked.plan if isinstance(f.linked, CapturedFunction) else f.linked
+        if plan.host_reads or (on_card and not isinstance(f.linked, CapturedFunction)):
+            raise AssertionError(f"{tag}: not captured: {plan.host_reads}")
+        args = [as_torch(Xv, dev), as_torch(yv, dev)]
+        init = weights(ws)
+        f(*args)  # the capturing call
+        reset(ws, init)
+        zero()
+        loss = float(f(*args))
+        launches[tag] = counts()
+        if launches[tag]["scan_whole_loop"] or (on_card and steps == 1
+                                                and launches[tag]["fused_elemwise"] < 1):
+            raise AssertionError(f"{tag}: launched {launches[tag]}: K1 on the step's fused "
+                                 "nodes, K2 on no Elman scan")
+        after = weights(ws)
+        reset(ws_e, init)
+        loss_e = f_e(*args)
+        d_cap, d_eager = digest(torch.tensor(loss), *after), digest(loss_e.cpu(), *weights(ws_e))
+        if d_cap != d_eager:
+            raise AssertionError(f"{tag}: the replay differs from the eager plan")
+        say(f"{tag}: one replayed call launched {launches[tag]}; sha256 of the loss and the "
+            f"weights after it: replayed {d_cap}, eager {d_eager}")
+        paths[tag] = (f, f_e, ws, args, steps, loss, after, init, (Xv, yv))
+
+    # against the float64 NumPy BPTT, from the weights the seed gives
+    f, _, ws, args, _, loss, after, init, (Xv, yv) = paths["elman step"]
+    w0 = [x.cpu().numpy() for x in init]
+    losses, r_grads, r_after = rnn_reference(Xv, yv, *w0, ELMAN_LR, ELMAN_LOOP)
+
+    def update_err(got, ref, start):
+        """max over the weights of max|got - ref| over the largest update."""
+        return max(float(np.max(np.abs(np.asarray(g, "float64") - r))
+                         / np.max(np.abs(r - x))) for g, r, x in zip(got, ref, start))
+
+    e_loss = abs(loss - losses[0]) / losses[0]
+    e_upd = update_err([a.cpu().numpy() for a in after], r_after[0], w0)
+    e_drop = update_err(w0, r_after[0], w0)
+    # the step's gradients: its graph linked with them as outputs
+    X, y, ws_g, g_loss, grads, updates, _, _ = elman_graph(*shape, ELMAN_LR, device=dev)
+    f_g = ptt.function([X, y], [g_loss, *grads], updates=updates, device=dev)
+    got = f_g(*args)
+    e_gloss = abs(float(got[0]) - losses[0]) / losses[0]
+    e_grads = [float(np.max(np.abs(g.cpu().numpy().astype("float64") - r)) / np.max(np.abs(r)))
+               for g, r in zip(got[1:], r_grads)]
+    e_gupd = update_err([w.get_value().cpu().numpy() for w in ws_g], r_after[0], w0)
+    # the loop against the reference and against 16 calls of the step
+    f_l, _, ws_l, _, _, loss_l, after_l, _, _ = paths["elman loop"]
+    reset(ws, init)
+    for _ in range(ELMAN_LOOP):
+        f(*args)
+    by_calls = [w.get_value().cpu().numpy() for w in ws]
+    after_l = [a.cpu().numpy() for a in after_l]
+    e_loop16 = update_err(after_l, r_after[-1], w0)
+    e_calls16 = update_err(by_calls, r_after[-1], w0)
+    e_loop_calls = max(float(np.max(np.abs(a.astype("float64") - c)) / np.max(np.abs(r - x)))
+                       for a, c, r, x in zip(after_l, by_calls, r_after[-1], w0))
+    e_loop_loss = abs(loss_l - losses[-1]) / losses[0]
+    finite = all(np.isfinite(v).all() for v in [*after_l, *by_calls, loss, loss_l])
+    checks = {"loss": max(e_loss, e_gloss), "grads": max(e_grads), "update": max(e_upd, e_gupd),
+              "update16": max(e_loop16, e_calls16), "loop_vs_calls": e_loop_calls,
+              "loop_loss": e_loop_loss}
+    if not (finite and all(v <= ELMAN_TOL[k] for k, v in checks.items()) and e_drop > 0.5):
+        raise AssertionError(f"elman against float64 NumPy: {checks} (a dropped update reads "
+                             f"{e_drop}); tol {ELMAN_TOL}")
+    say(f"elman step: loss {loss:.7f} vs float64 NumPy {losses[0]:.7f} (rel err {e_loss:.2e}); "
+        f"the gradients linked as outputs: max err over max|ref| "
+        f"{', '.join(f'{e:.2e}' for e in e_grads)} (Wx, Wh, Wo), loss {e_gloss:.2e}; the weights "
+        f"after the step, over the largest update: {e_upd:.2e} ({e_gupd:.2e} with the "
+        f"gradients as outputs; a dropped update reads {e_drop:.3g})")
+    say(f"elman loop x{ELMAN_LOOP}: weights over the largest update of 16 float64 steps: "
+        f"{e_loop16:.2e}, 16 calls of the step {e_calls16:.2e}, the loop against those calls "
+        f"{e_loop_calls:.2e}; last loss {loss_l:.3e} vs {losses[-1]:.3e} (err over the first "
+        f"loss {e_loop_loss:.2e}); tol {ELMAN_TOL}")
+    del f_g, got
+
+    # K1 on the step's fused nodes, on the inputs the first step gives them
+    k1_abs, k1_rows = 0.0, []
+    reset(ws, init)
+    nodes = [nd for nd in f.fgraph.toposort() if isinstance(nd.op, FusedElemwise)]
+    needed = [i for nd in nodes for i in nd.inputs]
+    feed = fgraph_to_torch(FunctionGraph(f.fgraph.inputs, needed, clone=True), dev)
+    values = iter(feed(*args, *[v.get_value(borrow=True) for v in f.shared_vars]))
+    for nd in nodes:
+        xs = [next(values) for _ in nd.inputs]
+        kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+        got, want = (kern.launch if on_card else kern)(*xs), kern.plain(*xs)
+        pairs = [errors(g.cpu(), w.cpu()) for g, w in zip(got, want)]
+        err = max(p[1] for p in pairs)
+        k1_abs = max([k1_abs] + [p[0] for p in pairs])
+        tol = K1_RTOL.get(nd.outputs[0].type.dtype, 0.0)
+        if not (err <= tol and all(g.shape == w.shape for g, w in zip(got, want))):
+            raise AssertionError(f"K1 elman step {nd.op}: rel err {err} > {tol}")
+        node_ms = wall_ms(lambda: kern.launch(*xs), 20) if on_card else 0.0
+        node_plain = wall_ms(lambda: kern.plain(*xs), 20) if on_card else 0.0
+        k1_rows.append(err)
+        say(f"  K1 elman step {str(nd.op)[:70]:70s} out {tuple(got[0].shape)} "
+            f"{nd.outputs[0].type.dtype} err {err:.2e} wall: kernel {node_ms * 1e3:.1f} us "
+            f"plain {node_plain * 1e3:.1f} us")
+    if len(k1_rows) != 4:
+        raise AssertionError(f"the Elman step has {len(k1_rows)} fused nodes, the JAX package 4")
+    say(f"K1 on the Elman step's fused nodes: {len(k1_rows)} kernels held against their plain "
+        f"version, max rel err {max(k1_rows):.2e} (tol {K1_RTOL})")
+
+    # the static BPTT under scan__pallas: K2 takes the forward scan only
+    rng = np.random.default_rng(5)
+    b_vals = [as_torch(rng.standard_normal(BPTT_N).astype("float32"), dev),
+              as_torch((rng.standard_normal((BPTT_N, BPTT_N)) * 0.1).astype("float32"), dev)]
+    fns = {}
+    for pallas in (True, False):
+        with config.change_flags(scan__pallas=pallas):
+            fns[pallas] = ptt.function(*static_bptt(ptt, pt), device=dev)
+    plan_b = fns[True].linked.plan if isinstance(fns[True].linked, CapturedFunction) \
+        else fns[True].linked
+    decisions = {nd.op.name: isinstance(fn, scan_kernel.ScanKernel)
+                 for fn, nd, _, _ in plan_b.steps if type(nd.op).__name__ == "Scan"}
+    if decisions != {"bptt": True, "grad_of_bptt": False}:
+        raise AssertionError(f"static BPTT under scan__pallas: K2 takes {decisions}")
+    fns[True](*b_vals)  # the capturing call
+    zero()
+    got = fns[True](*b_vals)
+    launches["bptt (scan__pallas)"] = counts()
+    if on_card and launches["bptt (scan__pallas)"]["scan_whole_loop"] != 1:
+        raise AssertionError(f"static BPTT: {launches['bptt (scan__pallas)']}, K2 once expected")
+    want = fns[False](*b_vals)
+    e_b = [errors(g.cpu(), w.cpu())[1] for g, w in zip(got, want)]
+    # K2 itself against its plain version, on the inputs the graph gives it
+    kern, node_b = next((fn, nd) for fn, nd, _, _ in plan_b.steps
+                        if isinstance(fn, scan_kernel.ScanKernel))
+    feed = fgraph_to_torch(FunctionGraph(plan_b.fgraph.inputs, node_b.inputs, clone=False), dev)
+    outer = feed(*b_vals)
+    k2_got = (kern.launch if on_card else kern)(*outer)
+    k2_want = kern.plain(*outer)
+    k2_pairs = [errors(g.cpu(), w.cpu()) for g, w in zip(k2_got, k2_want)]
+    k2_abs = max(p[0] for p in k2_pairs)
+    if not (max(e_b) <= ELMAN_TOL["bptt"] and max(p[1] for p in k2_pairs) <= ELMAN_TOL["bptt"]):
+        raise AssertionError(f"static BPTT: loss and gradients {e_b}, K2 {k2_pairs}; tol "
+                             f"{ELMAN_TOL['bptt']}")
+    say(f"static BPTT under scan__pallas (v {BPTT_N}, W {BPTT_N}x{BPTT_N}, {BPTT_STEPS} steps): "
+        f"K2 takes {decisions}; one replayed call launched {launches['bptt (scan__pallas)']}; "
+        f"loss and gradients against the step loop, over max(1, max|loop|): "
+        f"{', '.join(f'{e:.2e}' for e in e_b)}; K2 against its plain version "
+        f"{max(p[1] for p in k2_pairs):.2e} (tol {ELMAN_TOL['bptt']:g})")
+    if not on_card:
+        return launches, k1_abs, k2_abs
+
+    # the times: captured and eager in turn, per call
+    for tag, (f, f_e, ws, args, steps, *_rest) in paths.items():
+        # an eager loop call takes ~1.9 s on the host
+        n_iter = 20 if steps == 1 else 4
+        row = captured_vs_eager(tag, lambda f=f, a=args: f(*a), lambda f=f_e, a=args: f(*a),
+                                [f.linked], n_iter, n_dev=max(2, n_iter // 4))
+        c = row["captured"]
+        k1_by = [(ms, n) for kn, (ms, n) in c["by"].items() if "k1_" in kn]
+        flips = sum(n for kn, (ms, n) in c["by"].items() if "index" in kn.lower())
+        n_kern = sum(n for _, n in c["by"].values())
+        say(f"{tag} ({smi_line}): wall {c['wall']:.4f} ms/call, device {c['dev']:.4f} ms, busy "
+            f"{c['dev'] / c['wall']:.3f}, {steps * 1e3 / c['wall']:,.1f} steps/s; "
+            f"{n_kern:.0f} kernels a call ({n_kern / steps:.0f} a step), "
+            f"{c['dev'] / n_kern * 1e3:.2f} us of device time a kernel; K1 "
+            f"{launches[tag]['fused_elemwise']} launches a call, "
+            f"{sum(ms for ms, _ in k1_by):.4f} ms of device time; K2 "
+            f"{launches[tag]['scan_whole_loop']}; index kernels (the flips' copies) "
+            f"{flips:.0f} a call")
+        for kname, (ms, count) in sorted(c["by"].items(), key=lambda kv: -kv[1][0])[:6]:
+            say(f"  {tag}: {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+    # the step at batch 1,024: a new signature, so a new capture
+    f, f_e, ws, *_ = paths["elman step"]
+    wide = [as_torch(rng.standard_normal((ELMAN_SEQ, ELMAN_WIDE, ELMAN_IN)).astype("float32"), dev),
+            as_torch(rng.standard_normal(ELMAN_WIDE).astype("float32"), dev)]
+    row = captured_vs_eager(f"elman step batch {ELMAN_WIDE}", lambda: f(*wide),
+                            lambda: f_e(*wide), [f.linked], 20, n_dev=5)
+    c = row["captured"]
+    say(f"elman step batch {ELMAN_WIDE} ({smi_line}): wall {c['wall']:.4f} ms/call, device "
+        f"{c['dev']:.4f} ms, busy {c['dev'] / c['wall']:.3f}, {1e3 / c['wall']:,.1f} steps/s")
+    for kname, (ms, count) in sorted(c["by"].items(), key=lambda kv: -kv[1][0])[:6]:
+        say(f"  batch {ELMAN_WIDE}: {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+    say(f"elman phase done in {time.perf_counter() - t12:.1f} s")
+    return launches, k1_abs, k2_abs
+
+
 def main(opts):
     import torch
 
@@ -921,6 +1239,12 @@ def main(opts):
     say(f"the slice's graphs: {len(op_kerns)} K1 op groups, {len(k2_cases)} K2 cases, "
         f"{len(model_kerns)} K1 kernels of the logreg and MFU steps; graph, rewrite and emit in "
         f"{time.perf_counter() - t0:.2f} s")
+    # the Elman slice's: the step's K1 kernels and K2 of the static BPTT's
+    # forward scan (phase 12 finds them built)
+    t0 = time.perf_counter()
+    elman_k1, elman_k2 = elman_kernels(dev)
+    say(f"the Elman slice's graphs: {len(elman_k1)} K1 kernels of the step, {len(elman_k2)} K2 "
+        f"kernel of the static BPTT; graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
 
     def timed(fn):
         t = time.perf_counter()
@@ -929,7 +1253,8 @@ def main(opts):
 
     with ThreadPoolExecutor(18) as pool:
         k1_jobs = [pool.submit(fused_kernel.build, kerns, verbose=True)
-                   for kerns in [*k1_kernels.values(), list(op_kerns.values()), model_kerns]]
+                   for kerns in [*k1_kernels.values(), list(op_kerns.values()), model_kerns,
+                                 elman_k1]]
         jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
                 "K3 stamped": pool.submit(timed, lambda: radon_kernel.build(
                     verbose=True, flags=radon_kernel.STAMPED)),
@@ -941,7 +1266,9 @@ def main(opts):
                 "K2 stamped": pool.submit(timed, lambda: k2_stamped.build(verbose=True)),
                 "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True)),
                 **{f"K2 case: {tag}": pool.submit(timed, lambda k=k: k.build(verbose=True))
-                   for tag, _, _, k, _ in k2_cases}}
+                   for tag, _, _, k, _ in k2_cases},
+                **{"K2 static BPTT": pool.submit(timed, lambda k=k: k.build(verbose=True))
+                   for k in elman_k2}}
         build_s = {tag: job.result() for tag, job in jobs.items()}
         for job in k1_jobs:
             job.result()
@@ -951,7 +1278,8 @@ def main(opts):
             "K3 stamped, rows in shared memory":
                 radon_kernel.BUILD_LOGS[radon_kernel.STAMPED + K3_SHARED_WALK],
             "K2": k2.build_log, "K2 stamped": k2_stamped.build_log, "K4": spmv_kernel.BUILD_LOG,
-            **{f"K2 case: {tag}": k.build_log for tag, _, _, k, _ in k2_cases}}
+            **{f"K2 case: {tag}": k.build_log for tag, _, _, k, _ in k2_cases},
+            **{"K2 static BPTT": k.build_log for k in elman_k2}}
     for tag, log in logs.items():
         say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
         for line in log.splitlines():
@@ -1633,6 +1961,12 @@ def main(opts):
     # 11. models ----------------------------------------------------------
     model_launches, k1_model_abs = phase_models(dev, smi)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_model_abs)
+
+    # 12. the Elman RNN BPTT step ------------------------------------------
+    elman_launches, k1_elman_abs, k2_elman_abs = phase_elman(dev, smi)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_elman_abs)
+    k2_abs = max(k2_abs, k2_elman_abs)
+    model_launches.update(elman_launches)
 
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "cuda",

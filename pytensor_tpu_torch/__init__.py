@@ -19,7 +19,14 @@ from pytensor_tpu_torch.graph.basic import Apply, Constant, Variable  # noqa: F4
 from pytensor_tpu_torch.graph.fg import FunctionGraph  # noqa: F401
 from pytensor_tpu_torch.graph.op import Op  # noqa: F401
 from pytensor_tpu_torch.compile.mode import FAST_RUN, Mode, get_mode  # noqa: F401
-from pytensor_tpu_torch.gradient import grad, pullback  # noqa: F401
+from pytensor_tpu_torch.graph.replace import clone_replace, graph_replace, vectorize_graph  # noqa: F401,E501
+from pytensor_tpu_torch.gradient import (  # noqa: F401
+    grad,
+    hessian,
+    jacobian,
+    pullback,
+    verify_grad,
+)
 
 import pytensor_tpu_torch.tensor as tensor  # noqa: F401
 
@@ -36,3 +43,10 @@ from pytensor_tpu_torch.updates import OrderedUpdates  # noqa: F401
 # refers to the callable, as in the JAX package
 import pytensor_tpu_torch.scan  # noqa: F401,E402
 from pytensor_tpu_torch.scan.basic import scan  # noqa: F401,E402
+from pytensor_tpu_torch.scan.checkpoints import scan_checkpoints  # noqa: F401,E402
+from pytensor_tpu_torch.scan.views import foldl, foldr  # noqa: F401,E402
+from pytensor_tpu_torch.scan.views import map as scan_map  # noqa: F401,E402
+from pytensor_tpu_torch.scan.views import reduce as scan_reduce  # noqa: F401,E402
+
+map = scan_map
+reduce = scan_reduce

@@ -51,7 +51,7 @@ class RewriteInnerGraphs(GraphRewriter):
         for node in fgraph.toposort():
             if not isinstance(node.op, Scan):
                 continue
-            new_op = Scan(node.op.fgraph.clone(), node.op.info, name=node.op.name)
+            new_op = node.op.rebuilt(node.op.fgraph.clone(), node.op.info)
             rewriter.rewrite(new_op.fgraph)
             fgraph.replace_all_validate(
                 list(zip(node.outputs, new_op(*node.inputs, return_list=True))),

@@ -1,10 +1,13 @@
 """Graph-to-graph reverse-mode differentiation.
 
 Counterpart of ``pytensor_tpu/gradient.py`` (PyTensor's gradient.py
-grad:568, pullback:452), cut to ``grad``, ``pullback`` and the
-gradient-manipulating ops (``gradient.py:447-517``: ZeroGrad,
+grad:568, pullback:452), cut to ``grad``, ``pullback``, ``jacobian``
+(rows batched by ``vectorize_graph``), ``hessian``,
+``hessian_vector_product``, ``verify_grad`` with ``numeric_grad``, and
+the gradient-manipulating ops (``gradient.py:447-517``: ZeroGrad,
 DisconnectedGrad, UndefinedGrad, GradClip, GradScale, identities in the
-forward pass).  Everything
+forward pass).  ``Rop``/``pushforward`` wait for ROADMAP.md Queue 1
+item 5.  Everything
 stays in graph land: grad() returns symbolic graphs built from per-Op
 L_op rules, so ``dlogp`` is a graph the rewrites and the linker see like
 any other.
@@ -20,6 +23,10 @@ from pytensor_tpu_torch.graph.basic import Apply, Variable
 from pytensor_tpu_torch.graph.op import Op
 from pytensor_tpu_torch.graph.null_type import DisconnectedType, NullType
 from pytensor_tpu_torch.graph.traversal import io_toposort
+
+
+class GradientError(Exception):
+    pass
 
 
 class DisconnectedInputError(ValueError):
@@ -316,6 +323,57 @@ def pullback(outputs, inputs, output_grads=None, **kwargs):
     return res[0] if one else res
 
 
+def jacobian(expression, wrt, consider_constant=None, disconnected_inputs="raise",
+             vectorize=False):
+    """Jacobian of a 0-d or 1-d ``expression``: row i is the gradient of
+    ``expression[i]``, the rows batched over i by ``vectorize_graph``."""
+    from pytensor_tpu_torch.graph.replace import vectorize_graph
+    from pytensor_tpu_torch.tensor.basic import arange, as_tensor_variable
+    from pytensor_tpu_torch.tensor.shape import shape
+    from pytensor_tpu_torch.tensor.type import TensorType
+
+    expression = as_tensor_variable(expression)
+    one = isinstance(wrt, Variable)
+    wrt_l = _as_list(wrt)
+    if expression.type.ndim > 1:
+        raise ValueError("jacobian expects a 0-d or 1-d expression")
+    if expression.type.ndim == 0:
+        res = grad(expression, wrt_l, consider_constant=consider_constant,
+                   disconnected_inputs=disconnected_inputs)
+        return res[0] if one else res
+    idx = TensorType("int64", ())()
+    row_grads = grad(expression[idx], wrt_l, consider_constant=consider_constant,
+                     disconnected_inputs=disconnected_inputs)
+    rows = vectorize_graph(row_grads, replace={idx: arange(shape(expression)[0])})
+    return rows[0] if one else rows
+
+
+def hessian(cost, wrt, consider_constant=None, disconnected_inputs="raise"):
+    one = isinstance(wrt, Variable)
+    wrt_l = _as_list(wrt)
+    g = grad(cost, wrt_l, consider_constant=consider_constant,
+             disconnected_inputs=disconnected_inputs)
+    res = [jacobian(gi, wi, consider_constant=consider_constant,
+                    disconnected_inputs=disconnected_inputs)
+           for gi, wi in zip(g, wrt_l)]
+    return res[0] if one else res
+
+
+def hessian_vector_product(cost, wrt, p, **kwargs):
+    """Hvp without materializing the Hessian: grad of <grad, p>."""
+    from pytensor_tpu_torch.tensor import math as tm
+
+    one = isinstance(wrt, Variable)
+    wrt_l = _as_list(wrt)
+    g = grad(cost, wrt_l, **kwargs)
+    inner = None
+    for gi, pi in zip(g, _as_list(p)):
+        term = tm.sum(gi * disconnected_grad(pi))
+        inner = term if inner is None else inner + term
+    res = grad(inner, wrt_l, disconnected_inputs="ignore")
+    return res[0] if one else res
+
+
 # --- gradient-manipulation ops ---------------------------------------------
 
 class GradManipulatorOp(Op):
@@ -407,3 +465,81 @@ def grad_scale(x, multiplier):
 
 
 consider_constant = zero_grad  # legacy alias
+
+
+# --- numerical verification -------------------------------------------------
+
+class numeric_grad:
+    """Central finite-difference gradient of ``f`` at ``pt`` (float64)."""
+
+    def __init__(self, f, pt, eps=None):
+        self.f = f
+        self.pt = [np.asarray(p, dtype="float64") for p in pt]
+        self.eps = eps = (1e-7 ** 0.5 * 10) if eps is None else eps
+        self.gf = []
+        for p in self.pt:
+            g = np.zeros_like(p)
+            flat, gflat = p.reshape(-1), g.reshape(-1)
+            for j in range(flat.size):
+                old = flat[j]
+                flat[j] = old + eps
+                f_plus = np.asarray(f(*self.pt), dtype="float64")
+                flat[j] = old - eps
+                f_minus = np.asarray(f(*self.pt), dtype="float64")
+                flat[j] = old
+                gflat[j] = np.sum(f_plus - f_minus) / (2 * eps)
+            self.gf.append(g)
+
+
+def verify_grad(fun, pt, n_tests=2, rng=None, eps=None, out_grad_dtype=None, abs_tol=None,
+                rel_tol=None, mode=None, cast_to_output_dtype=False, no_debug_ref=True, *,
+                device="cuda"):
+    """Check the gradient of ``fun`` at ``pt`` against central finite
+    differences of a random projection of its output to a scalar, as the
+    JAX package's ``verify_grad`` does; raises ``GradientError`` on a
+    mismatch.  The functions are compiled for ``device``."""
+    import torch
+
+    from pytensor_tpu_torch.compile.maker import function
+    from pytensor_tpu_torch.tensor import math as tm
+    from pytensor_tpu_torch.tensor.basic import as_tensor_variable
+    from pytensor_tpu_torch.tensor.type import TensorType
+
+    rng = np.random.default_rng(382354) if rng is None else rng
+    abs_tol = 1e-4 if abs_tol is None else abs_tol
+    rel_tol = 1e-4 if rel_tol is None else rel_tol
+    pt = [np.asarray(p) for p in pt]
+    sym_inputs = [TensorType("float64" if p.dtype.kind == "f" else str(p.dtype), p.shape)(f"v{i}")
+                  for i, p in enumerate(pt)]
+    pt = [p.astype("float64") if p.dtype.kind == "f" else p for p in pt]
+    outputs = fun(*sym_inputs)
+    if isinstance(outputs, (list, tuple)):
+        raise TypeError("verify_grad expects a single-output function")
+
+    def numpy_of(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    out_f = function(sym_inputs, outputs, mode=mode, device=device)
+    rng.random()  # the JAX package draws the scalar of an unused projection here
+    proj_val = rng.random(numpy_of(out_f(*pt)).shape)
+    cost = tm.sum(outputs * as_tensor_variable(proj_val))
+    grads = grad(cost, sym_inputs, disconnected_inputs="ignore")
+    grad_fn = function(sym_inputs, grads, mode=mode, device=device)
+
+    def cost_fn(*vals):
+        return np.sum(numpy_of(out_f(*vals)) * proj_val)
+
+    analytic = [numpy_of(g) for g in grad_fn(*pt)]
+    num = numeric_grad(cost_fn, pt, eps)
+    for i, (a, n) in enumerate(zip(analytic, num.gf)):
+        a = np.asarray(a, dtype="float64")
+        if a.shape != n.shape:
+            raise GradientError(f"grad {i}: shape mismatch {a.shape} vs {n.shape}")
+        rel = np.abs(a - n) / np.maximum(np.maximum(np.abs(a), np.abs(n)), 1e-12)
+        bad = (np.abs(a - n) > abs_tol) & (rel > rel_tol)
+        if np.any(bad):
+            idx = np.unravel_index(np.argmax(np.abs(a - n)), a.shape)
+            raise GradientError(
+                f"verify_grad failed for input {i} at {idx}: analytic={a[idx]}, "
+                f"numeric={n[idx]}, abs_err={np.abs(a - n)[idx]}, rel_err={rel[idx]}")
+    return True

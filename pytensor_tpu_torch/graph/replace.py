@@ -1,15 +1,20 @@
-"""Graph substitution utilities.
+"""Graph substitution and vectorization utilities.
 
-Parallels PyTensor's graph/replace.py (clone_replace:41,
-graph_replace:93).
+Counterpart of ``pytensor_tpu/graph/replace.py`` (clone_replace,
+graph_replace, and ``_vectorize_node``/``vectorize_node``/
+``vectorize_graph`` at ``:88-118``).  ``vectorize_graph`` with the
+``_vectorize_node`` singledispatch is the basis of Blockwise batching;
+the batching rules of the structural ops register in
+``tensor/blockwise.py``.
 """
 
 from __future__ import annotations
 
+from functools import singledispatch
 from typing import Sequence
 
-from pytensor_tpu_torch.graph.basic import Variable, clone_get_equiv
-from pytensor_tpu_torch.graph.traversal import graph_inputs, truncated_graph_inputs
+from pytensor_tpu_torch.graph.basic import Apply, Variable, clone_get_equiv
+from pytensor_tpu_torch.graph.traversal import graph_inputs, io_toposort, truncated_graph_inputs
 
 
 def clone_replace(
@@ -77,4 +82,38 @@ def graph_replace(
         needed_inputs, outs, copy_inputs=False, copy_orphans=False, memo=dict(memo)
     )
     res = [equiv[o] for o in outs]
+    return res[0] if one else res
+
+
+@singledispatch
+def _vectorize_node(op, node: Apply, *batched_inputs) -> Apply:
+    """Fallback batching rule: wrap the core op in Blockwise."""
+    from pytensor_tpu_torch.tensor.blockwise import vectorize_node_fallback
+
+    return vectorize_node_fallback(op, node, *batched_inputs)
+
+
+def vectorize_node(node: Apply, *batched_inputs) -> Apply:
+    return _vectorize_node(node.op, node, *batched_inputs)
+
+
+def vectorize_graph(outputs, replace: dict):
+    """Vectorize ``outputs`` given batched replacements for some inputs.
+
+    Each key in ``replace`` maps a variable to a batched version with
+    extra leading dims; the ops along the way are batched by
+    ``_vectorize_node`` (the Blockwise fallback)."""
+    one = isinstance(outputs, Variable)
+    outs = [outputs] if one else list(outputs)
+    inputs = truncated_graph_inputs(outs, list(replace))
+    vect: dict = {i: replace.get(i, i) for i in inputs}
+    for node in io_toposort(inputs, outs):
+        vect_inputs = [vect.get(i, i) for i in node.inputs]
+        if all(vi is i for vi, i in zip(vect_inputs, node.inputs)):
+            vect_node = node
+        else:
+            vect_node = vectorize_node(node, *vect_inputs)
+        for out, vout in zip(node.outputs, vect_node.outputs):
+            vect.setdefault(out, vout)
+    res = [vect.get(o, o) for o in outs]
     return res[0] if one else res

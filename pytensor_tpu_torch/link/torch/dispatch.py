@@ -2,9 +2,9 @@
 
 Counterpart of ``pytensor_tpu/link/xla/dispatch.py`` (``xla_funcify:27``
 and the lowerings at ``:155-760``, with the blas lowerings of
-``pytensor_tpu/tensor/blas.py:246-289``; the lowerings of ``extra_ops``,
-``sort``, ``Blockwise``, ``FromFunctionOp`` and ``Print`` wait for their
-modules), of the Scan lowering at
+``pytensor_tpu/tensor/blas.py:246-289``, and the ``Blockwise`` lowering
+of ``:870``; the lowerings of ``extra_ops``, ``sort``, ``FromFunctionOp``
+and ``Print`` wait for their modules), of the Scan lowering at
 ``pytensor_tpu/scan/op.py:790`` and of the sparse lowerings at
 ``pytensor_tpu/sparse/basic.py:642-757`` and ``sparse/spmv.py:412``.
 ``torch_funcify(op, node=node, device=device)`` returns a function of
@@ -29,6 +29,7 @@ import torch
 from pytensor_tpu_torch.compile.ops import DeepCopyOp, TypeCastingOp
 from pytensor_tpu_torch.gradient import GradManipulatorOp
 from pytensor_tpu_torch.graph.basic import Constant
+from pytensor_tpu_torch.graph.fg import FunctionGraph
 from pytensor_tpu_torch.link.torch.convert import CSR, torch_dtype
 from pytensor_tpu_torch.scan.op import Scan
 from pytensor_tpu_torch.sparse.basic import StructuredDot, StructuredDotGrad, Transpose
@@ -44,11 +45,13 @@ from pytensor_tpu_torch.tensor.basic import (
     Nonzero,
     Split,
 )
+from pytensor_tpu_torch.tensor.blockwise import Blockwise
 from pytensor_tpu_torch.tensor.blas import BatchedDot, Dot22, Dot22Scalar, Gemm, Gemv, Ger
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from pytensor_tpu_torch.tensor.fused import FusedElemwise
 from pytensor_tpu_torch.tensor.math import Argmax, Dot
 from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape, Unbroadcast
+from pytensor_tpu_torch.tensor.type import TensorType
 from pytensor_tpu_torch.tensor.type_other import MakeSlice
 from pytensor_tpu_torch.tensor.subtensor import (
     DYN,
@@ -72,10 +75,10 @@ def torch_funcify(op, node=None, device=None, **kwargs):
 ALL = "all"
 
 
-def ports(host=(), checked=(), scalar=(), reads_back=False):
+def ports(host=(), checked=(), scalar=(), reads_back=False, keeps_host=()):
     """Declare, on a lowering, what its function does with the host.  Each
-    of ``host``, ``checked`` and ``scalar`` is a tuple of input positions,
-    ``ALL`` or a function of the node giving them:
+    of ``host``, ``checked``, ``scalar`` and ``keeps_host`` is a tuple of
+    input positions, ``ALL`` or a function of the node giving them:
 
     - ``host``: inputs read with ``int()``, ``.item()`` or ``.tolist()``
       (a shape, a step count, a basic index's bounds, an axis);
@@ -83,13 +86,16 @@ def ports(host=(), checked=(), scalar=(), reads_back=False):
       constant at link time, any other by reading its min and max);
     - ``scalar``: inputs at which a one-element host value is taken as a
       scalar argument, not a tensor copied to the device;
-    - ``reads_back``: the output's size is read back from the device.
+    - ``reads_back``: the output's size is read back from the device;
+    - ``keeps_host``: inputs at which a host value is handed on as it is,
+      to a plan that keeps it on the host (a scan's non-sequences, which
+      its step loop's inner plan reads as host values).
 
     The linker places the constants of ``host`` ports on the host, and its
     capture rule (``linker.py _host_reads``) reads these declarations."""
     def declare(lowering):
         lowering.ports = {"host": host, "checked": checked, "scalar": scalar,
-                          "reads_back": reads_back}
+                          "reads_back": reads_back, "keeps_host": keeps_host}
         return lowering
 
     return declare
@@ -99,11 +105,11 @@ def ports_of(node, kind):
     """What the lowering of ``node`` declares (``ports``): a set of input
     positions, or ``reads_back``'s flag."""
     spec = getattr(torch_funcify.dispatch(type(node.op)), "ports", {}).get(kind, ())
-    if kind == "reads_back":
-        return bool(spec)
     if callable(spec):
         spec = spec(node)
-    elif spec == ALL:
+    if kind == "reads_back":
+        return bool(spec)
+    if spec == ALL:
         spec = range(len(node.inputs))
     return set(spec)
 
@@ -498,6 +504,27 @@ def _select(x, idx):
     return x
 
 
+def _positive_steps(x, idx, y):
+    """``x[idx]`` written by ``y`` with each negative-step slice made the
+    positive-step slice of the same positions, and ``y`` flipped along the
+    dimensions it fills there (torch slicing rejects negative steps)."""
+    new, flips, d_out = [], [], 0
+    for dim, e in enumerate(idx):
+        if isinstance(e, slice):
+            if e.step is not None and e.step < 0:
+                r = range(*e.indices(x.shape[dim]))
+                new.append(slice(r[-1], r[0] + 1, -e.step) if len(r) else slice(0, 0))
+                flips.append(d_out)
+            else:
+                new.append(e)
+            d_out += 1
+        else:
+            new.append(e)
+    lead = d_out + x.ndim - len(idx) - y.ndim  # y broadcasts from the right
+    dims = [d - lead for d in flips if d >= lead and y.shape[d - lead] != 1]
+    return tuple(new), (torch.flip(y, dims) if dims else y)
+
+
 @torch_funcify.register(Subtensor)
 @ports(host=_from(1))
 def _subtensor(op, node=None, **kw):
@@ -518,7 +545,7 @@ def _inc_subtensor(op, node=None, **kw):
     def inc_subtensor(x, y, *dyn):
         idx = _basic_index(idx_list, dyn)
         if _negative_steps(idx):
-            raise NotImplementedError("IncSubtensor with a negative slice step")
+            idx, y = _positive_steps(x, idx, y)
         out = x.clone()
         if set_mode:
             out[idx] = y
@@ -737,33 +764,129 @@ def _adv_incsub(op, node=None, **kw):
     return adv_incsub
 
 
+# --- blockwise ------------------------------------------------------------------
+
+def _core_node(node):
+    """The core op's node on inputs of the core types."""
+    op = node.op
+    return op.core_op.make_node(*[
+        TensorType(i.type.dtype, i.type.shape[i.type.ndim - c:] if c else ())()
+        for i, c in zip(node.inputs, op._core_ndims()[0])])
+
+
+def _core_ports(kind):
+    """A Blockwise reads on the host what its core lowering reads."""
+    return lambda node: ports_of(_core_node(node), kind)
+
+
+@torch_funcify.register(Blockwise)
+@ports(host=_core_ports("host"), checked=_core_ports("checked"),
+       scalar=_core_ports("scalar"), reads_back=_core_ports("reads_back"))
+def _blockwise(op, node=None, device=None, **kw):
+    """The core lowering over the broadcast batch dimensions
+    (``pytensor_tpu/link/xla/dispatch.py:870``, ``jax.vmap`` of the core
+    lowering).  An input whose batch dimensions are all 1 stays unbatched:
+    it is cut to its core and given whole to every batch element.  A
+    ``Dot`` of 2-d cores is one ``torch.matmul``, which broadcasts the
+    batch itself, as XLA computes ``jnp.dot`` under ``vmap``; any other
+    core lowering runs once for each element of the flattened batch."""
+    in_core, _ = op._core_ndims()
+    core_fn = torch_funcify(op.core_op, node=_core_node(node), device=device)
+    matmul = isinstance(op.core_op, Dot) and in_core == [2, 2]
+    out_types = node.outputs
+
+    def blockwise(*args):
+        batch_shapes = [tuple(a.shape[: a.ndim - c]) for a, c in zip(args, in_core)]
+        batch = tuple(torch.broadcast_shapes(*batch_shapes))
+        invariant = [all(d == 1 for d in bs) for bs in batch_shapes]
+        args = [a.reshape(a.shape[len(bs):]) if inv and bs else a
+                for a, bs, inv in zip(args, batch_shapes, invariant)]
+        if all(invariant):
+            res = core_fn(*args)
+            res = res if isinstance(res, (list, tuple)) else (res,)
+            res = [r.reshape(batch + tuple(r.shape)) for r in res]
+        elif matmul:
+            res = [torch.matmul(*args)]
+        else:
+            n = int(np.prod(batch))
+            flat = [a if inv else a.expand(batch + tuple(a.shape[a.ndim - c:])).reshape(
+                (n,) + tuple(a.shape[a.ndim - c:]))
+                for a, c, inv in zip(args, in_core, invariant)]
+            rows = []
+            for b in range(n):
+                r = core_fn(*[a if inv else a[b] for a, inv in zip(flat, invariant)])
+                rows.append(r if isinstance(r, (list, tuple)) else (r,))
+            if rows:
+                res = [torch.stack(col).reshape(batch + tuple(col[0].shape))
+                       for col in zip(*rows)]
+            else:
+                res = [torch.empty(batch + tuple(s or 0 for s in o.type.shape[len(batch):]),
+                                   dtype=torch_dtype(o.type.dtype), device=args[0].device)
+                       for o in out_types]
+        return res[0] if len(res) == 1 else res
+
+    return blockwise
+
+
 # --- scan -----------------------------------------------------------------------
 
+def _takes_kernel(op, node):
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda.scan_kernel import scan_kernel_eligible
+
+    return config.scan__pallas and scan_kernel_eligible(op, node)
+
+
+def _non_seq_ports(node):
+    """The step loop hands its non-sequences to its inner plan as they are."""
+    op = node.op
+    if _takes_kernel(op, node):
+        return ()
+    return range(len(node.inputs) - op.info.n_non_seqs, len(node.inputs))
+
+
 @torch_funcify.register(Scan)
-@ports(host=(0,))
-def _scan(op, node=None, device=None, **kw):
+@ports(host=(0,), keeps_host=_non_seq_ports)
+def _scan(op, node=None, device=None, host=frozenset(), **kw):
     """The loop below, or with ``config.scan__pallas`` and an eligible
     scan the whole-loop kernel K2 (the rule of
     ``pytensor_tpu/scan/op.py:801-806``); K2's wrapper runs this loop on
-    CPU tensors and the kernel on CUDA tensors, never the loop in its place."""
-    from pytensor_tpu_torch.config import config
-    from pytensor_tpu_torch.link.cuda.scan_kernel import ScanKernel, scan_kernel_eligible
+    CPU tensors and the kernel on CUDA tensors, never the loop in its place.
+    ``host`` holds the variables of the outer plan that are host values."""
+    from pytensor_tpu_torch.link.cuda.scan_kernel import ScanKernel
 
-    if config.scan__pallas and scan_kernel_eligible(op, node):
+    if _takes_kernel(op, node):
         return ScanKernel(op, node, device)
-    return scan_loop(op, device)
+    return scan_loop(op, device, node, host)
 
 
-def scan_loop(op, device):
+def scan_loop(op, device, node=None, host=frozenset()):
     """A for-scan as a torch step loop over the inner graph linked for
     ``device`` (counterpart of ``pytensor_tpu/scan/op.py:817-875``); the
     plain version of K2.  Returns ``loop(n_steps, *outer)``, which gives
     the traces of the states, the final untraced states and the nit-sot
-    traces, in that order; ``loop.inner`` is the inner plan."""
+    traces, in that order; ``loop.inner`` is the inner plan.
+
+    Given the ``node`` and the outer plan's ``host`` values, a non-sequence
+    that is a host value stays one in the inner plan, and a constant
+    non-sequence is linked into the inner plan as that constant, as the
+    JAX package's loop body closes over static values: a shape, a step
+    count or an index that the rewrites hoisted out of the loop is then
+    read on the host, with no read of the device."""
+    from pytensor_tpu_torch.graph.replace import clone_replace
     from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
 
     info = op.info
-    inner = fgraph_to_torch(op.fgraph, device, trust_input=True)
+    fgraph, host_inputs = op.fgraph, ()
+    if node is not None:
+        first = len(fgraph.inputs) - info.n_non_seqs
+        pairs = list(zip(op.inner_non_seq_vars(), op.outer_non_seqs(node.inputs)))
+        consts = {i: o for i, o in pairs if isinstance(o, Constant)}
+        host_inputs = [first + k for k, (_, o) in enumerate(pairs) if o in host]
+        if consts:
+            fgraph = FunctionGraph(fgraph.inputs, clone_replace(fgraph.outputs, consts),
+                                   clone=True)
+    inner = fgraph_to_torch(fgraph, device, trust_input=True, host_inputs=host_inputs)
     n_seqs, n_states, n_unt = info.n_seqs, info.n_states, info.n_untraced
     depth = [-min(taps) for taps in info.taps]
     single = [m == 1 and len(taps) == 1 for m, taps in zip(depth, info.taps)]

@@ -77,8 +77,8 @@ def _takes_host_scalar(node, k, var) -> bool:
     return all(s == 1 for s in var.type.shape) and k in ports_of(node, "scalar")
 
 
-def _host_variables(order) -> set:
-    host: set = set()
+def _host_variables(order, host_inputs=()) -> set:
+    host: set = set(host_inputs)
     for node in order:
         if isinstance(node.op, (Shape, Shape_i)):
             host.update(node.outputs)
@@ -128,7 +128,9 @@ def _host_reads(steps, host) -> list:
       argument instead (``_takes_host_scalar``);
     - a lowering that reads its output's size back from the device
       (``reads_back``: ``Nonzero``);
-    - the same in the inner plan of a scan that runs as the step loop.
+    - the same in the inner plan of a scan that runs as the step loop,
+      which takes the host values and constants among the scan's
+      non-sequences as host values and constants (``keeps_host``).
 
     These are the run-time host reads of ``dispatch.py`` and the kernel
     wrappers (``.item()``, ``int()``, ``.tolist()``, ``.cpu()`` of a run-time
@@ -145,6 +147,7 @@ def _host_reads(steps, host) -> list:
         if any(o in host for o in node.outputs):
             continue  # computed on the host from host values and constants
         ports, checked = ports_of(node, "host"), ports_of(node, "checked")
+        keeps = ports_of(node, "keeps_host")
         if ports_of(node, "reads_back"):
             reads.append(f"{node}: its output length is read back from the device")
         for k, i in enumerate(node.inputs):
@@ -155,7 +158,8 @@ def _host_reads(steps, host) -> list:
             elif k in checked:
                 reads.append(f"{node}: the bounds check of index input {k} reads its min and "
                              "max on the host")
-            elif k not in ports and i in host and not _takes_host_scalar(node, k, i):
+            elif (k not in ports and k not in keeps and i in host
+                  and not _takes_host_scalar(node, k, i)):
                 reads.append(f"{node}: input {k} is a host value copied to the device")
         inner = getattr(fn, "inner", None)  # dispatch.py scan_loop's inner plan
         if inner is not None:
@@ -251,17 +255,20 @@ class Plan:
         return tuple(v if kind == "const" else storage[v] for kind, v in self.outputs)
 
 
-def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False) -> Plan:
+def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False,
+                    host_inputs=()) -> Plan:
     """The eager plan of ``fgraph`` on ``device``: each node's torch
     lowering in topological order.
 
     Inputs are checked for device, dtype and shape, and numpy values
     (and scipy matrices, for sparse inputs) converted, unless
-    ``trust_input``: then they are taken as they are.
+    ``trust_input``: then they are taken as they are.  The inputs at the
+    positions ``host_inputs`` are host values (a scan's step loop gives
+    its inner plan the host values of the outer one).
     """
     device = resolve_device(device)
     order = fgraph.toposort()
-    host = _host_variables(order)
+    host = _host_variables(order, [fgraph.inputs[k] for k in host_inputs])
     cpu = torch.device("cpu")
     consts: dict = {}
 
@@ -276,7 +283,7 @@ def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False) ->
 
     steps = []
     for node, free in zip(order, _free_lists(order, fgraph)):
-        fn = torch_funcify(node.op, node=node, device=device)
+        fn = torch_funcify(node.op, node=node, device=device, host=host)
         ports = ports_of(node, "host")
         on_host = any(o in host for o in node.outputs)
         args = [("const", const_value(i, cpu if on_host or k in ports else device))

@@ -7,12 +7,15 @@ symbolic slices, and wrap it in a Scan op.  Shared variables the step
 function reads become implicit non-sequences; tensor shared variables it
 updates become traced states whose last value is the update.
 
-Left out, until ROADMAP.md Queue 1 item 5: while-loops (``until``
-raises), RNG states (the port has no ``tensor/random`` yet), taps on
-sequences, several sequences of unknown length without ``n_steps``, and
-the options ``go_backwards``, ``strict``, ``return_list``,
-``return_updates``, ``truncate_gradient``, ``mode``, ``profile``,
-``allow_gc`` and ``unroll``.
+The JAX package's options are all accepted: ``truncate_gradient``
+(``Scan.L_op``), ``go_backwards`` (the sequences flipped), taps on
+sequences (each tap a shifted view of its sequence), several sequences
+of unknown length without ``n_steps`` (the shortest wins), ``strict``,
+``return_list``, ``return_updates``, ``unroll`` (kept on the op, ignored
+by the step loop), and ``mode``, ``profile`` and ``allow_gc``, which the
+JAX package accepts and ignores too.  Left out: while-loops (``until``
+raises; ROADMAP.md Queue 1 item 4) and RNG states, which come with
+Random (item 7).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Callable
 from pytensor_tpu_torch.graph.basic import Constant, Variable
 from pytensor_tpu_torch.graph.fg import FunctionGraph, MissingInputError
 from pytensor_tpu_torch.graph.traversal import graph_inputs
-from pytensor_tpu_torch.scan.op import NOT_PORTED, Scan, ScanInfo
+from pytensor_tpu_torch.scan.op import RANDOM, WHILE_SCANS, Scan, ScanInfo
 from pytensor_tpu_torch.scan.utils import until
 from pytensor_tpu_torch.tensor.basic import as_tensor_variable
 from pytensor_tpu_torch.tensor.type import TensorType
@@ -45,27 +48,52 @@ def _is_updates(x):
                     and isinstance(p[0], Variable) for p in x))
 
 
-def _n_steps(n_steps, seq_vars):
+def _sequences(sequences, go_backwards):
+    """The inner sequences (each tap of a sequence is a shifted view of
+    it; a sequence's tap k at step t reads s[t - lo + k]) and the usable
+    length of each sequence the user gave."""
+    from pytensor_tpu_torch.tensor.shape import shape
+    from pytensor_tpu_torch.tensor.subtensor import flip
+
+    seq_vars, lengths = [], []
+    for s in sequences:
+        taps = [0]
+        if isinstance(s, dict):
+            taps = list(s.get("taps") or [0])
+            s = s["input"]
+        sv = as_tensor_variable(s)
+        if go_backwards:
+            sv = flip(sv, 0)
+        if taps == [0]:
+            seq_vars.append(sv)
+            lengths.append(shape(sv)[0])
+            continue
+        lo, hi = min(min(taps), 0), max(max(taps), 0)
+        usable = shape(sv)[0] - int(hi - lo)
+        lengths.append(usable)
+        for tap in taps:
+            start = tap - lo
+            seq_vars.append(sv[start:] if hi == lo else sv[start: start + usable])
+    return seq_vars, lengths
+
+
+def _n_steps(n_steps, seq_vars, lengths):
     """(n_steps variable, its static value or None, whether it was given)."""
     from pytensor_tpu_torch.tensor.basic import (
         NotScalarConstantError,
         get_scalar_constant_value,
     )
-    from pytensor_tpu_torch.tensor.shape import shape
+    from pytensor_tpu_torch.tensor.math import minimum
 
-    lengths = [s.type.shape[0] for s in seq_vars]
     if n_steps is not None:
         n_steps_var = as_tensor_variable(n_steps)
     elif not seq_vars:
         raise ValueError("scan needs sequences or n_steps")
-    elif len(seq_vars) == 1:
-        n_steps_var = shape(seq_vars[0])[0]
-    elif None not in lengths:
-        n_steps_var = as_tensor_variable(min(lengths))
     else:
-        raise NotImplementedError(
-            "scan over several sequences of unknown length needs n_steps in the port "
-            f"({NOT_PORTED})")
+        # the shortest sequence's usable length
+        n_steps_var = lengths[0]
+        for ln in lengths[1:]:
+            n_steps_var = minimum(n_steps_var, ln)
     try:
         static_n = int(get_scalar_constant_value(n_steps_var))
     except NotScalarConstantError:
@@ -74,12 +102,16 @@ def _n_steps(n_steps, seq_vars):
 
 
 def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
-         n_steps=None, name: str | None = None):
-    """Loop ``fn`` over sequences and recurrences; returns (outputs, updates).
+         n_steps=None, truncate_gradient: int = -1, go_backwards: bool = False, mode=None,
+         name: str | None = None, profile=False, allow_gc=None, strict: bool = False,
+         return_list: bool = False, unroll: int | None = None, return_updates: bool = True):
+    """Loop ``fn`` over sequences and recurrences; returns (outputs, updates),
+    or the outputs alone with ``return_updates=False``.
 
     ``outputs_info`` holds, per output, an initial value (a state with tap
     -1), a dict ``{"initial": value, "taps": [...]}`` with negative taps,
-    or None for an output without recurrence (a nit-sot).
+    or None for an output without recurrence (a nit-sot).  A sequence may
+    be a dict ``{"input": x, "taps": [...]}``.
     """
     from pytensor_tpu_torch.compile.sharedvalue import SharedVariable
     from pytensor_tpu_torch.graph.basic import clone_get_equiv
@@ -90,10 +122,10 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
     outputs_info = _listify(outputs_info)
     non_sequences = _listify(non_sequences)
 
-    seq_vars = [as_tensor_variable(s) for s in sequences]
-    n_steps_var, static_n, explicit = _n_steps(n_steps, seq_vars)
+    seq_vars, lengths = _sequences(sequences, go_backwards)
+    n_steps_var, static_n, explicit = _n_steps(n_steps, seq_vars, lengths)
     # clip each sequence to exactly n_steps rows
-    if seq_vars and (explicit or len(seq_vars) > 1):
+    if seq_vars and (explicit or len(lengths) > 1):
         seq_vars = [sv if static_n is not None and sv.type.shape[0] == static_n
                     else sv[: (static_n if static_n is not None else n_steps_var)]
                     for sv in seq_vars]
@@ -142,13 +174,13 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
         for k, v in (u.items() if isinstance(u, dict) else u):
             if not isinstance(getattr(k, "type", None), TensorType):
                 raise NotImplementedError(
-                    f"scan updates of non-tensor shared variables (RNG states) are not "
-                    f"ported yet ({NOT_PORTED})")
+                    f"scan updates of non-tensor shared variables (RNG states) come with "
+                    f"Random ({RANDOM})")
             explicit_updates[k] = as_tensor_variable(v)
 
     if isinstance(raw, until) or (isinstance(raw, tuple) and any(isinstance(r, until)
                                                                  for r in raw)):
-        raise NotImplementedError(f"while-scans (until) are not ported yet ({NOT_PORTED})")
+        raise NotImplementedError(f"while-scans (until) are not ported yet ({WHILE_SCANS})")
     if isinstance(raw, dict) or (_is_updates(raw) and not isinstance(raw, tuple)):
         outputs_raw = []
         collect_updates(raw)
@@ -228,6 +260,8 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
                 f"Undeclared input {v} used by the scan inner function.\n"
                 "Please pass this variable to the scan's inner function. Do not forget "
                 "to also pass it to the `non_sequences` attribute of scan.")
+        if strict and v not in upd_targets:
+            raise MissingInputError(f"scan(strict=True): implicit input {v}")
         implicit.append(v)
     implicit = [v for v in implicit if v not in upd_targets]
 
@@ -257,7 +291,8 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
         inner_seqs + flat_taps + upd_in + nonseq_inputs,
         inner_outputs[:n_user_states] + upd_exprs + inner_outputs[n_user_states:],
         clone=True)
-    node_outs = Scan(fgraph, info, name=name)(
+    node_outs = Scan(fgraph, info, name=name, truncate_gradient=truncate_gradient,
+                     unroll=unroll)(
         n_steps_var, *seq_vars, *inits, *upd_targets, *non_seq_vars, return_list=True)
 
     updates = OrderedUpdates()
@@ -266,4 +301,13 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
     traces = iter(node_outs[:n_user_states])
     nits = iter(node_outs[info.n_states:])
     results = [next(traces) if st is not None else next(nits) for st in states]
-    return (results[0] if len(results) == 1 else results), updates
+    if len(results) == 1 and not return_list:
+        results = results[0]
+    if not return_updates:
+        if len(updates):
+            raise ValueError(
+                "scan(..., return_updates=False) but the inner function produced non-empty "
+                "updates. Either use return_updates=True and pass the updates to `function`, "
+                "or handle the recurrent state explicitly via outputs_info.")
+        return results
+    return results, updates

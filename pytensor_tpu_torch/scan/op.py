@@ -3,17 +3,25 @@
 Counterpart of ``pytensor_tpu/scan/op.py`` (ScanInfo:93, Scan:116), for
 for-scans.  The state taxonomy is the JAX package's: sequences, states
 with negative taps (a sit-sot is taps ``(-1,)``), untraced states (the
-final value only, no trace), nit-sots and non-sequences.
+final value only, no trace), nit-sots and non-sequences.  Two Scans are
+equal when their static structure, ``truncate_gradient``, ``unroll`` and
+inner graphs agree structurally (``_signature``), as ``ScanMerge`` and
+the merge pass need.
+
+The gradient (``L_op``, ``pytensor_tpu/scan/op.py:399-780``) is backprop
+through time as a graph: a reverse scan over the pullback of the inner
+graph, with the state cotangents carried as windows of the states' taps
+and the non-sequences' gradients accumulated in carries, truncated to the
+last ``truncate_gradient`` steps when that is set.
 
 The torch lowering (``link/torch/dispatch.py``) runs the loop step by
 step, or, with ``config.scan__pallas`` on a CUDA device, an eligible scan
-as one kernel (K2, ``link/cuda/scan_kernel.py``).  ``perform`` is the
-numpy loop that constant folding evaluates.  Left out here, until
-ROADMAP.md Queue 1 item 5: backprop through time (``L_op`` gives a
-not-implemented gradient), while-scans (no ``as_while``; ``scan``
-raises on ``until``), the structural equality the JAX package uses to
-merge identical scans (a Scan here equals only itself),
-``truncate_gradient`` and ``unroll``.
+as one kernel (K2, ``link/cuda/scan_kernel.py``).  ``unroll`` is kept for
+equality and ignored by the lowering: the step loop has no compiled body
+to replicate.  ``perform`` is the numpy loop that constant folding
+evaluates.  Left out: while-scans, with their ``L_op`` branch
+(``scan/basic.py`` raises on ``until``; ROADMAP.md Queue 1 item 4), and
+the replay of RNG keys in the gradient, which comes with Random (item 7).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import numpy as np
 
 from pytensor_tpu_torch.graph.basic import Apply, Constant, Variable
 from pytensor_tpu_torch.graph.fg import FunctionGraph
+from pytensor_tpu_torch.graph.null_type import DisconnectedType, NullType
 from pytensor_tpu_torch.graph.op import HasInnerGraph, Op
 from pytensor_tpu_torch.tensor.basic import (
     NotScalarConstantError,
@@ -32,7 +41,55 @@ from pytensor_tpu_torch.tensor.basic import (
 )
 from pytensor_tpu_torch.tensor.type import TensorType
 
-NOT_PORTED = "ROADMAP.md Queue 1, item 5"
+WHILE_SCANS = "ROADMAP.md Queue 1, item 4"
+RANDOM = "ROADMAP.md Queue 1, item 7"
+
+
+class _NullInnerGradError(Exception):
+    """Raised while building the reverse scan when an inner gradient is
+    NullType (undefined); caught in L_op."""
+
+
+def _op_token(op):
+    """A discriminating string for an op: its type and ``__props__``
+    values (``str(op)`` alone can collide across parameterizations)."""
+    props = getattr(op, "__props__", None)
+    if props:
+        vals = ",".join(repr(getattr(op, p, None)) for p in props)
+        return f"{type(op).__name__}({vals})"
+    return f"{type(op).__name__}:{op}"
+
+
+def _structural_signature(fgraph):
+    """Structural signature of an inner graph: free of variable identity
+    except for true orphans, recursing into inner graphs."""
+    in_pos = {v: i for i, v in enumerate(fgraph.inputs)}
+    memo = {}
+
+    def sig(v):
+        if v in memo:
+            return memo[v]
+        if v in in_pos:
+            s = f"in{in_pos[v]}[{v.type}]"
+        elif isinstance(v, Constant):
+            try:
+                body = np.asarray(v.data).tobytes().hex()[:64]
+            except Exception:
+                body = repr(v.data)
+            s = f"const[{v.type}]{body}"
+        elif v.owner is None:
+            s = f"free[{v.type}]@{id(v)}"  # only identity tells orphans apart
+        else:
+            node = v.owner
+            op = node.op
+            op_s = (f"{type(op).__name__}<{_structural_signature(op.fgraph)}>"
+                    if isinstance(op, HasInnerGraph) else _op_token(op))
+            args = ",".join(sig(i) for i in node.inputs)
+            s = f"{op_s}({args})#{node.outputs.index(v)}"
+        memo[v] = s
+        return s
+
+    return ";".join(sig(o) for o in fgraph.outputs)
 
 
 @dataclass(frozen=True)
@@ -58,10 +115,13 @@ class ScanInfo:
 
 
 class Scan(Op, HasInnerGraph):
-    def __init__(self, fgraph: FunctionGraph, info: ScanInfo, name=None):
+    def __init__(self, fgraph: FunctionGraph, info: ScanInfo, name=None,
+                 truncate_gradient: int = -1, mode=None, unroll=None):
         self.fgraph = fgraph
         self.info = info
         self.name = name
+        self.truncate_gradient = truncate_gradient
+        self.unroll = max(1, int(1 if unroll is None else unroll))
         expected_in = (info.n_seqs + sum(len(t) for t in info.taps)
                        + info.n_untraced + info.n_non_seqs)
         expected_out = info.n_states + info.n_untraced + info.n_nit_sot
@@ -72,15 +132,45 @@ class Scan(Op, HasInnerGraph):
             raise ValueError(
                 f"Scan inner graph has {len(fgraph.outputs)} outputs, expected {expected_out}")
 
+    @property
+    def _signature(self):
+        # cached: rewrites build new Scans and never change an inner graph
+        # in place
+        sig = getattr(self, "_sig_cache", None)
+        if sig is None:
+            sig = self._sig_cache = (self.info, self.truncate_gradient, self.unroll,
+                                     _structural_signature(self.fgraph))
+        return sig
+
     def __eq__(self, other):
-        return self is other
+        if self is other:
+            return True
+        if type(other) is not type(self):
+            return NotImplemented
+        return self._signature == other._signature
 
     def __hash__(self):
-        return id(self)
+        return hash(self._signature)
 
     def clone(self):
         # the inner graph is never changed in place: rewrites build new ops
         return self
+
+    def clone_fresh(self):
+        """A copy with a freshly cloned inner graph (distinct inner
+        variables), for rewrites that splice inner graphs (ScanMerge)."""
+        import copy
+
+        res = copy.copy(self)
+        res.fgraph = self.fgraph.clone()
+        res.__dict__.pop("_sig_cache", None)
+        return res
+
+    def rebuilt(self, fgraph, info):
+        """A Scan over ``fgraph`` with ``info`` and this one's name,
+        ``truncate_gradient`` and ``unroll``."""
+        return Scan(fgraph, info, name=self.name, truncate_gradient=self.truncate_gradient,
+                    unroll=self.unroll)
 
     # --- structure helpers ---
     def outer_seqs(self, inputs):
@@ -228,10 +318,220 @@ class Scan(Op, HasInnerGraph):
                                                 for _ in node.inputs[1:]]
 
     def L_op(self, inputs, outputs, output_grads):
-        from pytensor_tpu_torch.gradient import grad_not_implemented
+        """Backprop through time: a reverse scan over the pullback of the
+        inner graph (``pytensor_tpu/scan/op.py:399-780``, its for-scan
+        branches).
 
-        why = f"backprop through time is not ported yet ({NOT_PORTED})"
-        return [grad_not_implemented(self, i, inp, why) for i, inp in enumerate(inputs)]
+        Its sequences are the reversed output cotangents, the reversed
+        values each tap read and the reversed sequence slices.  Its
+        carries are, for each state, the window of pending cotangents of
+        the state's last ``-min(taps)`` values (slot i for h^{t-1-i}), and
+        for each non-sequence its accumulated gradient; its nit-sots are
+        the sequences' gradients.  With ``truncate_gradient = n`` only the
+        last n steps run, and earlier sequence rows get zeros.
+        """
+        from pytensor_tpu_torch.graph.basic import clone_get_equiv
+        from pytensor_tpu_torch.gradient import grad_not_implemented, grad_undefined, pullback
+        from pytensor_tpu_torch.scan.basic import scan
+        from pytensor_tpu_torch.tensor import math as tm
+        from pytensor_tpu_torch.tensor.basic import (
+            alloc,
+            concatenate,
+            shape_padleft,
+            stack,
+            zeros_like,
+        )
+        from pytensor_tpu_torch.tensor.shape import shape
+        from pytensor_tpu_torch.tensor.subtensor import flip
+
+        info = self.info
+        if info.n_untraced:
+            if any(not isinstance(v.type, TensorType) for v in self.inner_untraced_vars()):
+                raise NotImplementedError(
+                    f"the gradient of a scan with RNG states comes with Random ({RANDOM})")
+            # tensor-typed untraced states only arise from rewrites (scan()
+            # threads explicit updates as traced states); BPTT through them
+            # would need their per-step values
+            return [grad_not_implemented(self, i, inp, "tensor-typed untraced scan state")
+                    for i, inp in enumerate(inputs)]
+
+        n_steps = inputs[0]
+        truncate = self.truncate_gradient
+        seqs = list(self.outer_seqs(inputs))
+        inits = list(self.outer_inits(inputs))
+        non_seqs = list(self.outer_non_seqs(inputs))
+
+        # an initial value broadcastable where the inner output is not makes
+        # the pullback ill-typed
+        for k, (init, taps) in enumerate(zip(inits, info.taps)):
+            single = -min(taps) == 1 and len(taps) == 1
+            core_shape = init.type.shape if single else init.type.shape[1:]
+            out_shape = self.inner_state_outs()[k].type.shape
+            for a, b in zip(core_shape, out_shape):
+                if a == 1 and b != 1:
+                    raise TypeError(
+                        f"scan state {k}: the initial value has a broadcastable dimension "
+                        f"(shape {core_shape}) where the inner function's output does not "
+                        f"(shape {out_shape}); the gradient graph cannot be built. Give the "
+                        "initial state the output's type.")
+        state_traces = outputs[: info.n_states]
+
+        # missing output cotangents are zeros
+        filled = []
+        for out, g in zip(outputs, output_grads):
+            if isinstance(getattr(g, "type", None), (DisconnectedType, NullType)):
+                filled.append(zeros_like(out))
+                continue
+            if (g.type.ndim == out.type.ndim and g.type.ndim > 0
+                    and g.type.shape[0] == 1 and out.type.shape[0] != 1):
+                # a broadcastable (1, ...) cotangent is expanded to the
+                # trace's length: scan never broadcasts a sequence
+                g = tm.second(out, g)
+            filled.append(g)
+
+        # each state's full history: the initial rows, then the trace
+        hists = []
+        for k, (init, taps) in enumerate(zip(inits, info.taps)):
+            m = -min(taps)
+            init_buf = shape_padleft(init) if (m == 1 and len(taps) == 1) else init[:m]
+            hists.append(concatenate([init_buf, state_traces[k]], axis=0))
+
+        n_steps_i = tm.cast(n_steps, "int64")
+        rev_seqs = [flip(g, 0) for g in filled]
+        for k, taps in enumerate(info.taps):
+            m = -min(taps)
+            for tap in taps:
+                # the value tap read at step t is hist[t + m + tap]
+                rev_seqs.append(flip(hists[k][m + tap: m + tap + n_steps_i], 0))
+        # a sequence may be longer than n_steps: only the consumed prefix
+        # is reversed
+        rev_seqs += [flip(s[:n_steps_i], 0) for s in seqs]
+
+        n_taps_total = sum(len(t) for t in info.taps)
+        op = self
+
+        def reverse_step(*args):
+            # args: state cotangents, nit-sot cotangents, tap values, sequence
+            # slices, then the carries (windows, accumulators), then the
+            # non-sequences
+            pos = 0
+
+            def take(n):
+                nonlocal pos
+                pos += n
+                return list(args[pos - n: pos])
+
+            g_states = take(info.n_states)
+            g_nits = take(info.n_nit_sot)
+            tap_vals = take(n_taps_total)
+            seq_vals = take(info.n_seqs)
+            P = take(info.n_states)
+            wbars = take(info.n_non_seqs)
+            ns_vals = list(args[pos:])
+
+            memo = dict(zip(op.inner_seq_vars(), seq_vals))
+            memo.update(zip([v for g in op.inner_tap_vars() for v in g], tap_vals))
+            memo.update(zip(op.inner_non_seq_vars(), ns_vals))
+            memo = clone_get_equiv(op.fgraph.inputs, op.fgraph.outputs, copy_inputs=False,
+                                   copy_orphans=False, memo=memo)
+            step_outs = [memo[o] for o in op.fgraph.outputs]
+
+            # a state's output takes its trace's cotangent and the head of
+            # its pending window
+            cots = [g_states[k] + P[k][0] for k in range(info.n_states)] + g_nits
+            # outputs that are one variable share its node: their
+            # cotangents add
+            uniq: dict = {}
+            uniq_outs = []
+            for o, c in zip(step_outs, cots):
+                if id(o) in uniq:
+                    uniq[id(o)] = uniq[id(o)] + c
+                else:
+                    uniq[id(o)] = c
+                    uniq_outs.append(o)
+            igs = pullback(uniq_outs, seq_vals + tap_vals + ns_vals,
+                           [uniq[id(o)] for o in uniq_outs],
+                           disconnected_inputs="ignore", return_disconnected="zero")
+            for g in igs:
+                if isinstance(getattr(g, "type", None), NullType):
+                    raise _NullInnerGradError(g.type.why_null)
+            seq_grads = igs[: info.n_seqs]
+            tap_grads = igs[info.n_seqs: info.n_seqs + n_taps_total]
+            ns_grads = igs[info.n_seqs + n_taps_total:]
+
+            # shift each window by one step and add this step's tap
+            # cotangents
+            new_P = []
+            ti = 0
+            for k, taps in enumerate(info.taps):
+                m = -min(taps)
+                contrib = {tap: tap_grads[ti + j] for j, tap in enumerate(taps)}
+                ti += len(taps)
+                rows = []
+                for i in range(m):
+                    row = P[k][i + 1] if i + 1 < m else zeros_like(P[k][0])
+                    if -(i + 1) in contrib:
+                        row = row + contrib[-(i + 1)]
+                    rows.append(row)
+                new_P.append(stack(rows, axis=0))
+            return new_P + [wb + g for wb, g in zip(wbars, ns_grads)] + seq_grads
+
+        P0 = [stack([zeros_like(state_traces[k][0])] * -min(taps), axis=0)
+              for k, taps in enumerate(info.taps)]
+        if any(not isinstance(w.type, TensorType) for w in non_seqs):
+            return [grad_not_implemented(self, i, inp, "non-tensor non-sequence")
+                    for i, inp in enumerate(inputs)]
+        w0 = [zeros_like(w) for w in non_seqs]
+
+        if truncate != -1:
+            # truncated BPTT: only the last `truncate` steps run backwards
+            rev_n_steps = tm.minimum(n_steps_i, tm.cast(truncate, "int64"))
+        else:
+            rev_n_steps = n_steps
+        try:
+            rev, _ = scan(reverse_step, sequences=rev_seqs,
+                          outputs_info=([dict(initial=p, taps=[-1]) for p in P0]
+                                        + [dict(initial=w, taps=[-1]) for w in w0]
+                                        + [None] * info.n_seqs),
+                          non_sequences=non_seqs, n_steps=rev_n_steps,
+                          name=f"grad_of_{self.name or 'scan'}", return_list=True)
+        except _NullInnerGradError as e:
+            return [grad_undefined(self, i, inp, str(e) or "undefined inner gradient inside scan")
+                    for i, inp in enumerate(inputs)]
+        P_traces = rev[: info.n_states]
+        w_traces = rev[info.n_states: info.n_states + info.n_non_seqs]
+        seq_grad_traces = rev[info.n_states + info.n_non_seqs:]
+
+        def zero_rows(template, n_rows):
+            if template.type.ndim > 1:
+                return alloc(zeros_like(template[0]), n_rows,
+                             *[shape(template)[d] for d in range(1, template.type.ndim)])
+            return alloc(tm.cast(0.0, template.type.dtype), n_rows)
+
+        try:
+            static_T = int(get_scalar_constant_value(n_steps))
+        except NotScalarConstantError:
+            static_T = None
+
+        grads = [DisconnectedType()()]  # n_steps
+        for i, s in enumerate(seqs):
+            g_seq = flip(seq_grad_traces[i], 0)
+            if truncate != -1:
+                # zeros for the steps before the window
+                pad = tm.maximum(n_steps_i - tm.cast(truncate, "int64"), tm.cast(0, "int64"))
+                g_seq = concatenate([zero_rows(g_seq, pad), g_seq], axis=0)
+            if not (s.type.shape[0] is not None and s.type.shape[0] == static_T):
+                # rows past n_steps were never read
+                tail = tm.maximum(tm.cast(shape(s)[0], "int64") - n_steps_i,
+                                  tm.cast(0, "int64"))
+                g_seq = concatenate([g_seq, zero_rows(g_seq, tail)], axis=0)
+            grads.append(g_seq)
+        for k, (init, taps) in enumerate(zip(inits, info.taps)):
+            final_P = P_traces[k][-1]  # (m, *core); slot i is h^{-1-i}
+            grads.append(final_P[0] if (-min(taps) == 1 and len(taps) == 1)
+                         else flip(final_P, 0))
+        grads += [w_traces[j][-1] for j in range(info.n_non_seqs)]
+        return grads
 
     def __str__(self):
         return f"Scan{{{self.name or 'scan'}, for}}"

@@ -2,12 +2,12 @@
 
 Counterpart of ``pytensor_tpu/tensor/__init__.py`` for the modules the
 port has: ``type``, ``variable``, ``elemwise``, ``basic``, ``math``,
-``shape``, ``subtensor``, ``blas``, ``type_other``, ``sharedvar``,
-``utils`` and ``exceptions``.  Not yet here (ROADMAP Queue 1): the
-special functions and ``functional`` (item 10), ``extra_ops``, ``sort``,
-``einsum``, ``pad``, ``fft``, ``signal`` and the rest of item 12,
-``blockwise`` and ``linalg`` (item 9), ``random`` (item 7) and
-bfloat16 and complex tensors.
+``shape``, ``subtensor``, ``blas``, ``blockwise``, ``type_other``,
+``sharedvar``, ``utils`` and ``exceptions``.  Not yet here (ROADMAP
+Queue 1): the special functions and ``functional`` (item 10),
+``extra_ops``, ``sort``, ``einsum``, ``pad``, ``fft``, ``signal`` and the
+rest of item 12, ``linalg`` (item 9), ``random`` (item 7) and bfloat16
+and complex tensors.
 """
 
 from pytensor_tpu_torch.tensor.type import *  # noqa: F401,F403
@@ -140,6 +140,10 @@ from pytensor_tpu_torch.tensor.blas import batched_dot  # noqa: E402,F401
 
 # registers the fusion pass into optdb
 import pytensor_tpu_torch.tensor.fused  # noqa: F401,E402
+
+# the batching rules of vectorize_graph register on import
+import pytensor_tpu_torch.tensor.blockwise  # noqa: F401,E402
+from pytensor_tpu_torch.tensor.blockwise import Blockwise  # noqa: F401,E402
 
 import pytensor_tpu_torch.tensor.type_other as slicetype  # noqa: F401,E402
 from pytensor_tpu_torch.tensor import exceptions, utils  # noqa: F401,E402

@@ -5,9 +5,9 @@ Argmax:142, Dot:3041, Sum/Prod/All/Any:3438-3587 and the elemwise
 wrappers).  Left out: the special functions of ``scalar/math.py`` but
 ``sigmoid`` (ROADMAP Queue 1 item 10), the complex ops (``real``,
 ``imag``, ``conj``, ``angle``, ``complex``: the port has no complex
-dtypes), and ``matmul`` of operands above 2-d, which needs ``Blockwise``
-(item 9).  The torch linker runs Dot as ``torch.matmul`` in full float32
-(``link/torch/dispatch.py``).
+dtypes).  ``matmul`` of operands above 2-d is a ``Blockwise`` of the core
+2-d ``Dot``.  The torch linker runs Dot as ``torch.matmul`` in full
+float32 (``link/torch/dispatch.py``).
 """
 
 from __future__ import annotations
@@ -513,8 +513,17 @@ def matmul(x, y, dtype=None):
         x, y = cast(x, dtype), cast(y, dtype)
     if x.type.ndim <= 2 and y.type.ndim <= 2:
         return _dot(x, y)
-    # batched: Blockwise over the core 2-d dot, which the port has not yet
-    raise NotImplementedError("matmul of operands above 2-d needs Blockwise")
+    # batched: Blockwise over the core 2-d dot
+    from pytensor_tpu_torch.tensor.blockwise import Blockwise
+
+    x_ = x if x.type.ndim >= 2 else tb.shape_padleft(x)
+    y_ = y if y.type.ndim >= 2 else tb.shape_padright(y)
+    out = Blockwise(_dot, signature="(m,k),(k,n)->(m,n)")(x_, y_)
+    if x.type.ndim == 1:
+        out = out[..., 0, :]
+    if y.type.ndim == 1:
+        out = out[..., 0]
+    return out
 
 
 def outer(x, y):

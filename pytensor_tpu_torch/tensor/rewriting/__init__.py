@@ -8,3 +8,4 @@ import pytensor_tpu_torch.tensor.rewriting.basic  # noqa: F401
 import pytensor_tpu_torch.tensor.rewriting.math  # noqa: F401
 import pytensor_tpu_torch.tensor.rewriting.shape  # noqa: F401
 import pytensor_tpu_torch.tensor.rewriting.subtensor  # noqa: F401
+import pytensor_tpu_torch.tensor.rewriting.blockwise  # noqa: F401

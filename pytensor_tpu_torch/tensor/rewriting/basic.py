@@ -2,7 +2,7 @@
 
 Counterpart of ``pytensor_tpu/tensor/rewriting/basic.py`` (PyTensor's
 tensor/rewriting/basic.py constant_folding:1236), cut to the rewrites that
-fire on the radon logp+dlogp graphs.  Each keeps its name, tags and
+fire on the radon logp+dlogp graphs and on the Elman BPTT step.  Each keeps its name, tags and
 database, and the modules register in the JAX package's order.
 """
 
@@ -13,8 +13,11 @@ from pytensor_tpu_torch.compile.mode import (
     register_specialize,
     register_useless,
 )
+import numpy as np
+
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
+from pytensor_tpu_torch.tensor.basic import Alloc, as_tensor_variable, cast, constant
 from pytensor_tpu_torch.tensor.elemwise import DimShuffle, Elemwise
 
 
@@ -72,6 +75,55 @@ def local_dimshuffle_lift(fgraph, node):
 
 
 register_canonicalize(local_dimshuffle_lift, name="local_dimshuffle_merge")
+
+
+@node_rewriter([Elemwise])
+def local_useless_switch(fgraph, node):
+    """switch(const, a, b) -> a or b; switch(c, x, x) -> x."""
+    if node.op.scalar_op.name != "switch":
+        return False
+    cond, t, f = node.inputs
+    out = node.outputs[0]
+    if isinstance(cond, Constant):
+        data = np.asarray(cond.data)
+        if data.size and np.all(data == data.flat[0]):
+            chosen = t if data.flat[0] else f
+            chosen = _broadcast_like(chosen, out)
+            if chosen is not None:
+                return [chosen]
+    if t is f:
+        b = _broadcast_like(t, out)
+        if b is not None:
+            return [b]
+    return False
+
+
+def _broadcast_like(v, model):
+    """Return v broadcast/cast to model's type, or None if not provable."""
+    from pytensor_tpu_torch.tensor import math as tm
+
+    v = as_tensor_variable(v)
+    if v.type == model.type:
+        return v
+    if v.type.dtype != model.type.dtype:
+        v = cast(v, model.type.dtype)
+    if v.type.ndim == model.type.ndim and all(
+        ms is None or vs == ms for vs, ms in zip(v.type.shape, model.type.shape)
+    ) and all(vs is not None for vs in v.type.shape):
+        return v
+    if model.type.is_super(v.type):
+        return v
+    # use `second` to broadcast against the model variable
+    return tm.second(model, v) if _cheap(model) else None
+
+
+def _cheap(model):
+    # only safe to reference the model output if it's not what we're
+    # replacing; use its inputs instead — conservatively bail out
+    return False
+
+
+register_canonicalize(local_useless_switch, name="local_useless_switch")
 
 
 @node_rewriter([Elemwise])
@@ -149,3 +201,31 @@ def local_dimshuffle_of_elemwise(fgraph, node):
 
 register_canonicalize(local_dimshuffle_of_elemwise,
                       name="local_dimshuffle_of_elemwise")
+
+
+@node_rewriter([DimShuffle])
+def local_dimshuffle_of_alloc(fgraph, node):
+    """dimshuffle(alloc(v, s...)) -> alloc(v, permuted s...) for scalar
+    fills and non-dropping dimshuffles."""
+    v = node.inputs[0]
+    if v.owner is None or not isinstance(v.owner.op, Alloc):
+        return False
+    fill, *shape_vars = v.owner.inputs
+    if fill.type.ndim != 0:
+        return False
+    op = node.op
+    if sorted(o for o in op.new_order if o != "x") != list(range(v.type.ndim)):
+        return False
+    new_shape = [
+        constant(np.int64(1)) if o == "x" else shape_vars[o]
+        for o in op.new_order
+    ]
+    out = node.outputs[0]
+    res = Alloc()(fill, *new_shape)
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_canonicalize(local_dimshuffle_of_alloc, name="local_dimshuffle_of_alloc")

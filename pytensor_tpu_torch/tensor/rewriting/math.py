@@ -2,8 +2,8 @@
 
 Counterpart of ``pytensor_tpu/tensor/rewriting/math.py`` (PyTensor's
 tensor/rewriting/math.py AlgebraicCanonizer:1119 and the exp/log/pow
-rules), cut to the rewrites that fire on the radon logp+dlogp graphs and
-on the logistic-regression and MLP steps.
+rules), cut to the rewrites that fire on the radon logp+dlogp graphs, on
+the logistic-regression and MLP steps and on the Elman BPTT step.
 Each keeps its name, tags, database and registration order.
 """
 
@@ -91,6 +91,31 @@ def _same_type_out(node, result):
         return None
     copy_stack_trace(out, result)
     return result
+
+
+@node_rewriter([Elemwise])
+def local_add_neutral(fgraph, node):
+    """add(..., 0, ...) -> add(...); single term passes through."""
+    if not _is_ew(node, "add"):
+        return False
+    new_inputs = []
+    changed = False
+    for i in node.inputs:
+        u = _unique_value(i)
+        if u is not None and u == 0:
+            changed = True
+            continue
+        new_inputs.append(i)
+    if not changed:
+        return False
+    if not new_inputs:
+        new_inputs = [node.inputs[0]]
+    res = new_inputs[0] if len(new_inputs) == 1 else tm.add(*new_inputs)
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_add_neutral, name="local_add_neutral")
 
 
 @node_rewriter([Elemwise])
@@ -632,6 +657,27 @@ register_specialize(local_div_abs_to_sign, name="local_div_abs_to_sign")
 
 
 @node_rewriter([Elemwise])
+def local_div_by_one(fgraph, node):
+    """x // 1 -> x; x / 1 -> x (dtype-preserving)."""
+    if node.op.scalar_op.name not in ("int_div", "true_div") \
+            or len(node.inputs) != 2:
+        return False
+    c = _unique_value(node.inputs[1])
+    if c is None or float(c) != 1.0:
+        return False
+    num = node.inputs[0]
+    if num.type.dtype != node.outputs[0].type.dtype:
+        if node.op.scalar_op.name == "true_div":
+            return False  # true_div upcasts ints; keep the cast semantics
+        num = cast(num, node.outputs[0].type.dtype)
+    res = _same_type_out(node, num)
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_div_by_one, name="local_div_by_one")
+
+
+@node_rewriter([Elemwise])
 def local_div_exp_to_mul_exp(fgraph, node):
     """y / exp(x) -> y * exp(-x); 1 / exp(x) -> exp(-x) (mul fuses
     better than div and feeds local_mul_exp_to_exp_add)."""
@@ -650,3 +696,80 @@ def local_div_exp_to_mul_exp(fgraph, node):
 
 
 register_specialize(local_div_exp_to_mul_exp, name="local_div_exp_to_mul_exp")
+
+
+def _is_nonneg(v, depth=0):
+    """Structurally non-negative: Shape/Shape_i outputs, non-negative
+    constants, and add/mul/maximum over such."""
+    from pytensor_tpu_torch.tensor.shape import Shape, Shape_i
+
+    if depth > 4:
+        return False
+    c = _unique_value(v)
+    if c is not None:
+        return float(c) >= 0
+    if isinstance(v, Constant):
+        data = np.asarray(v.data)
+        return data.size > 0 and bool((data >= 0).all())
+    if v.owner is None:
+        return v.type.dtype.startswith("uint") or v.type.dtype == "bool"
+    if isinstance(v.owner.op, (Shape, Shape_i)):
+        return True
+    if isinstance(v.owner.op, Elemwise) \
+            and v.owner.op.scalar_op.name in ("add", "mul", "maximum",
+                                              "minimum", "abs"):
+        return all(_is_nonneg(i, depth + 1) for i in v.owner.inputs)
+    if isinstance(v.owner.op, DimShuffle):
+        return _is_nonneg(v.owner.inputs[0], depth + 1)
+    return False
+
+
+@node_rewriter([Elemwise])
+def local_shape_cmp_zero(fgraph, node):
+    """Comparisons/extrema of structurally non-negative values (shapes)
+    against 0: lt(s, 0) -> 0, ge(s, 0) -> 1, maximum(s, 0) -> s,
+    minimum(s, 0) -> 0, eq(s, -1) -> 0."""
+    name = node.op.scalar_op.name
+    if name not in ("lt", "gt", "le", "ge", "maximum", "minimum", "eq") \
+            or len(node.inputs) != 2:
+        return False
+    from pytensor_tpu_torch.tensor.basic import zeros_like
+
+    a, b = node.inputs
+    ca, cb = _unique_value(a), _unique_value(b)
+    out_dt = node.outputs[0].type.dtype
+    # constants built standalone (NOT zeros_like(node.outputs[0]),
+    # which would reference the node being replaced and loop)
+    zero = as_tensor_variable(np.asarray(0, dtype=out_dt))
+    one = as_tensor_variable(np.asarray(1, dtype=out_dt))
+    res = None
+    if cb is not None and float(cb) == 0.0 and _is_nonneg(a):
+        if name == "lt":
+            res = zero
+        elif name == "ge":
+            res = one
+        elif name == "maximum":
+            res = a
+        elif name == "minimum":
+            res = zeros_like(a)
+    elif ca is not None and float(ca) == 0.0 and _is_nonneg(b):
+        if name == "gt":
+            res = zero
+        elif name == "le":
+            res = one
+        elif name == "maximum":
+            res = b
+        elif name == "minimum":
+            res = zeros_like(b)
+    elif name == "eq":
+        for s, c in ((a, cb), (b, ca)):
+            if c is not None and float(c) < 0 and _is_nonneg(s):
+                res = zero
+                break
+    if res is None:
+        return False
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_shape_cmp_zero, name="local_shape_cmp_zero")

@@ -19,7 +19,7 @@ def tensor_shared_constructor(value, name=None, borrow=False, shape=None, *, dev
     """A TensorSharedVariable holding a copy of ``value`` on ``device``.
 
     Python ints become int64 and Python floats ``floatX``, as in the JAX
-    package; arrays and tensors keep their dtype.  The static shape is
+    package; numpy scalars, arrays and tensors keep their dtype.  The static shape is
     fully unknown (the value may be resized by ``set_value``) unless
     ``shape`` gives it.  With ``borrow``, a torch tensor already on
     ``device`` is held as it is, not copied.
@@ -32,8 +32,8 @@ def tensor_shared_constructor(value, name=None, borrow=False, shape=None, *, dev
         if not borrow and tensor.data_ptr() == value.data_ptr():
             tensor = tensor.clone()
     else:
-        if isinstance(value, bool):
-            arr = np.asarray(value)
+        if isinstance(value, (bool, np.generic)):
+            arr = np.asarray(value)  # np.float64 is a float, and keeps its dtype
         elif isinstance(value, int):
             arr = np.asarray(value, dtype="int64")
         elif isinstance(value, float):

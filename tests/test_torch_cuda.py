@@ -22,7 +22,12 @@ linked eagerly where no kernel adds by atomics, else to ``1e-5`` of
 ``max(1, max|eager|)``.  K1 on every scalar op of the expression table in
 each dtype: the exact ops with the plain version's bits, the others at
 K1's tolerances; K2 on scans of its new ops at ``1e-6``; the logreg and
-MFU steps at small widths captured, with the eager plan's bits.
+MFU steps at small widths captured, with the eager plan's bits.  The
+Elman BPTT step and its loop at small widths captured, with the eager
+plan's bits and the CPU's values at ``1e-5`` of ``max(1, max|cpu|)``; a
+``Blockwise{Dot}`` and a looped ``Blockwise`` against the CPU at the
+same; a static BPTT under ``scan__pallas`` launching K2 once, for its
+forward scan, within ``1e-5`` of the step loop.
 """
 
 import numpy as np
@@ -808,3 +813,80 @@ def test_duplicate_index_write_takes_the_last_on_the_card(card, form, mode):
         for _ in range(3):
             got = f(as_torch(x0, card), as_torch(y0, card))
             np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("steps", [1, 3], ids=["function", "train_loop"])
+def test_elman_step_is_captured_and_matches_the_cpu(card, steps):
+    """The Elman BPTT step (and its loop, whose scans sit in the loop's
+    scan) at small widths: captured, with the eager plan's bits from the
+    same state and the CPU's values."""
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models.rnn import make_elman_rnn_bptt
+
+    def make(device, jit=True):
+        with config.change_flags(xla__jit=jit):
+            return make_elman_rnn_bptt(8, 4, 8, n_steps_per_call=steps, device=device)
+
+    (f, (X, y), ws), (f_e, _, ws_e), (f_c, _, ws_c) = make(card), make(card, False), make("cpu")
+    assert isinstance(f.linked, CapturedFunction) and f.linked.plan.host_reads == []
+    args = [as_torch(X, card), as_torch(y, card)]
+    init = [w.get_value() for w in ws]
+    f(*args)
+    for w, x in zip(ws, init):
+        w.set_value(x.clone())
+    out, out_e, out_c = f(*args), f_e(*args), f_c(X, y)
+    assert torch.equal(out, out_e)
+    assert _scaled(out.cpu(), out_c) <= 1e-5
+    for a, b, c in zip(ws, ws_e, ws_c):
+        assert torch.equal(a.get_value(), b.get_value())
+        assert _scaled(a.get_value().cpu(), c.get_value()) <= 1e-5
+
+
+def test_blockwise_on_the_card_matches_the_cpu(card):
+    """A Blockwise{Dot} (one batched torch.matmul) and a Blockwise of a core
+    op without a batching rule (the core lowering over the batch)."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.graph.replace import vectorize_graph
+
+    a = pt.tensor("a", dtype="float32", shape=(5, 1, 3, 4))
+    b = pt.tensor("b", dtype="float32", shape=(2, 4, 2))
+    x = pt.tensor("x", dtype="float32", shape=(4, 3))
+    xb = pt.tensor("xb", dtype="float32", shape=(2, 4, 3))
+    outs = [pt.matmul(a, b), vectorize_graph(pt.argmax(x, axis=0), replace={x: xb})]
+    rng = np.random.default_rng(0)
+    vals = [rng.standard_normal(v.type.shape).astype("float32") for v in (a, b, xb)]
+    got = ptt.function([a, b, xb], outs, device=card)(*[as_torch(v, card) for v in vals])
+    want = ptt.function([a, b, xb], outs, device="cpu")(*vals)
+    assert _scaled(got[0].cpu(), want[0]) <= 1e-5
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_static_bptt_takes_k2_for_its_forward_scan(card):
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+
+    def build():
+        v0 = pt.tensor("v0", dtype="float32", shape=(16,))
+        W = pt.tensor("W", dtype="float32", shape=(16, 16))
+        tr, _ = ptt.scan(lambda acc, w: pt.tanh(pt.dot(w, acc)), outputs_info=[v0],
+                         non_sequences=[W], n_steps=12)
+        loss = (tr ** 2).sum()
+        return [v0, W], [loss, *ptt.grad(loss, [v0, W])]
+
+    rng = np.random.default_rng(1)
+    vals = [as_torch(rng.standard_normal(16).astype("float32"), card),
+            as_torch((rng.standard_normal((16, 16)) * 0.3).astype("float32"), card)]
+    with config.change_flags(scan__pallas=True):
+        f = ptt.function(*build(), device=card)
+    loop = ptt.function(*build(), device=card)
+    f(*vals)
+    before = scan_kernel.LAUNCHES
+    got = f(*vals)
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES == before + 1
+    for g, w in zip(got, loop(*vals)):
+        assert _scaled(g, w) <= 1e-5

@@ -1,9 +1,13 @@
-"""The logistic-regression and MLP models of the port against the JAX
-package's, on the CPU at small widths.
+"""The logistic-regression, MLP and Elman RNN models of the port against
+the JAX package's, on the CPU at small widths.
 
 For the logistic-regression SGD step (``function`` and a 3-step
-``train_loop``), the 2-layer MLP step, the deep MLP "MFU" step (float32)
-and the GEMM chain: the rewritten graphs hold the JAX package's ops, a
+``train_loop``), the 2-layer MLP step, the deep MLP "MFU" step (float32),
+the GEMM chain and the Elman BPTT step (``function`` and a 3-step
+``train_loop``, whose scans sit inside the loop's scan; each scan's
+inner graph counted in, nested ones too, and the Elman gradients against
+``rnn_reference``, float64 NumPy): the rewritten graphs hold the JAX
+package's ops, a
 ``Counter`` of op names with each FusedElemwise group by its inner ops,
 ``Dot22Scalar`` and the scans' inner graphs included; the values match
 after 3 steps (losses and updated shared variables); and each linked plan
@@ -21,10 +25,16 @@ import torch
 
 import pytensor_tpu.models.logreg as jlogreg
 import pytensor_tpu.models.mlp as jmlp
+import pytensor_tpu.models.rnn as jrnn
+from pytensor_tpu.config import config as jconfig
+from pytensor_tpu.link.pallas.scan_pallas import pallas_scan_eligible
 
 import pytensor_tpu_torch as ptt
 import pytensor_tpu_torch.models.logreg as tlogreg
 import pytensor_tpu_torch.models.mlp as tmlp
+import pytensor_tpu_torch.models.rnn as trnn
+from pytensor_tpu_torch.config import config as tconfig
+from pytensor_tpu_torch.link.cuda.scan_kernel import scan_kernel_eligible
 
 RTOL = 1e-5
 
@@ -147,3 +157,95 @@ def test_gemm_chain():
     _same_graphs(jf, tf)
     for k in range(3):
         _close(tf(), jf(), f"scale {k}")
+
+
+# --- the Elman RNN BPTT step (models/rnn.py) -----------------------------------------
+
+ELMAN = dict(seq_len=8, n_in=4, n_hidden=8)
+
+
+def _deep_ops(fgraph, path=""):
+    """Op names by the path of scans they sit in, nested scans included;
+    a Blockwise by its core op, a FusedElemwise by its inner ops."""
+    c = Counter()
+    for node in fgraph.apply_nodes:
+        op = node.op
+        name = type(op).__name__
+        key = {"FusedElemwise": str(op), "Elemwise": str(op),
+               "Blockwise": f"Blockwise{{{type(getattr(op, 'core_op', op)).__name__}}}"}
+        c[path + key.get(name, name)] += 1
+        if name == "Scan":
+            c.update(_deep_ops(op.fgraph, f"{path}Scan[{op.name}]/"))
+    return c
+
+
+def _batch3(X, y):
+    return np.ascontiguousarray(X[:, :3]), np.ascontiguousarray(y[:3])
+
+
+@pytest.mark.parametrize("steps", [1, 3], ids=["function", "train_loop"])
+def test_elman_step(steps):
+    """The Elman step and its 3-step loop: the JAX package's ops in the
+    outer graph and in every scan's inner graph (the step: 4 FusedElemwise
+    groups, 3 Blockwise{Dot} the push-out made, the forward scan's Gemm and
+    the reverse scan's; the loop: 6 scans inside the loop's, with Dot and
+    no push-out there), the same losses and weights after 3 calls at batch
+    3, and nothing read back from the device."""
+    jf, (X, y), jw = jrnn.make_elman_rnn_bptt(n_steps_per_call=steps, **ELMAN)
+    tf, (X2, y2), tw = trnn.make_elman_rnn_bptt(n_steps_per_call=steps, device="cpu", **ELMAN)
+    np.testing.assert_array_equal(X, X2)
+    ops = _deep_ops(_fgraph(tf))
+    assert ops == _deep_ops(_fgraph(jf))
+    if steps == 1:
+        assert ops["Blockwise{Dot}"] == 3 and ops["Scan"] == 2
+        assert sum(v for k, v in ops.items() if k.startswith("FusedElemwise")) == 4
+    else:
+        assert ops["Scan[elman_loop]/Scan"] == 6 and not ops["Blockwise{Dot}"]
+    assert tf.linked.host_reads == []
+    X, y = _batch3(X, y)
+    for k in range(3):
+        _close(tf(X, y), jf(X, y), f"loss {k}")
+    for j, t in zip(jw, tw):
+        _close(t.get_value(), j.get_value(), str(t))
+
+
+def test_elman_gradients_against_rnn_reference():
+    """The step's loss and gradients (its graph linked with them as
+    outputs), one step's and three steps' updates against the float64
+    NumPy BPTT of ``rnn_reference``: the loss and each gradient to RTOL of
+    the gradient's max|ref|, each weight to RTOL of its largest update,
+    which a dropped update would miss by O(1)."""
+    X, y, W, loss, grads, _, (Xv, yv), _ = trnn.elman_graph(device="cpu", **ELMAN)
+    W0 = [_np(w.get_value()).copy() for w in W]
+    out = ptt.function([X, y], [loss, *grads], device="cpu")(Xv, yv)
+    losses, r_grads, after = trnn.rnn_reference(Xv, yv, *W0, 0.01, 3)
+    assert abs(float(out[0]) - losses[0]) <= RTOL * losses[0]
+    for g, r in zip(out[1:], r_grads):
+        assert np.abs(_np(g) - r).max() <= RTOL * np.abs(r).max()
+    f, _, tw = trnn.make_elman_rnn_bptt(device="cpu", **ELMAN)
+    for _ in range(3):
+        f(Xv, yv)
+    for w, r, x in zip(tw, after[-1], W0):
+        assert np.abs(_np(w.get_value()) - r).max() <= RTOL * np.abs(r - x).max()
+
+
+def test_elman_scans_take_the_step_loop_in_both():
+    """Under ``scan__pallas`` neither package sends the Elman scans to the
+    whole-loop kernel: their sequences and carries have unknown dims
+    (``(8, 4, ?)`` after the push-out, with a static batch of 4)."""
+    decisions = []
+    for (make, rule, config, kw) in ((jrnn.make_elman_rnn_bptt, pallas_scan_eligible, jconfig, {}),
+                                     (trnn.make_elman_rnn_bptt, scan_kernel_eligible, tconfig,
+                                      {"device": "cpu"})):
+        with config.change_flags(scan__pallas=True):
+            f, _, _ = make(**ELMAN, **kw)
+        decisions.append({n.op.name: rule(n.op, n) for n in _fgraph(f).apply_nodes
+                          if type(n.op).__name__ == "Scan"})
+    assert decisions[0] == decisions[1] == {"elman": False, "grad_of_elman": False}
+
+
+def test_elman_step_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        trnn.make_elman_rnn_bptt(**ELMAN)

@@ -274,6 +274,13 @@ def test_onehot_rewrites(onehot):
 # --- what the port leaves out raises ------------------------------------------------
 
 def test_while_scans_and_bptt_raise_not_implemented():
+    """While-scans raise, naming their ROADMAP item.  Backprop through
+    time is ported (``tests/test_torch_scan_grad.py``): what is left of
+    it raises as in the JAX package, a not-implemented gradient through a
+    tensor-typed untraced state (one the sit-sot rewrite makes)."""
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.gradient import NullTypeGradError
+    from pytensor_tpu_torch.scan.op import Scan, ScanInfo
     from pytensor_tpu_torch.scan.utils import until
 
     v0 = tpt.tensor("v0", dtype="float32", shape=(3,))
@@ -281,10 +288,13 @@ def test_while_scans_and_bptt_raise_not_implemented():
         tptt.scan(lambda acc: (acc * np.float32(2.0), until(tpt.ge(acc.sum(), np.float32(9.0)))),
                   outputs_info=[v0], n_steps=5)
     tr, _ = tptt.scan(lambda acc: acc * np.float32(2.0), outputs_info=[v0], n_steps=5)
-    from pytensor_tpu_torch.gradient import NullTypeGradError
-
-    with pytest.raises(NullTypeGradError, match="ROADMAP"):
-        tptt.grad(tr[-1].sum(), v0)
+    g = tptt.function([v0], tptt.grad(tr[-1].sum(), v0), device="cpu")(np.ones(3, "float32"))
+    np.testing.assert_array_equal(g.numpy(), np.full(3, 32.0, "float32"))
+    h = tpt.tensor("h", dtype="float32", shape=(3,))
+    untraced = Scan(FunctionGraph([h], [h * np.float32(2.0)], clone=True),
+                    ScanInfo(0, (), 0, 0, n_untraced=1))
+    with pytest.raises(NullTypeGradError, match="untraced"):
+        tptt.grad(untraced(5, v0).sum(), v0)
 
 
 def test_infer_shape_and_connection_pattern():
