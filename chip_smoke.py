@@ -1,5 +1,6 @@
-"""Drive the torch port's radon, sparse, logistic-regression, MLP and
-Elman RNN paths on one NVIDIA GPU.
+"""Drive the torch port's radon, sparse, logistic-regression, MLP, Elman
+RNN and linalg (GP, Kalman filter, batched Cholesky) paths on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -133,6 +134,24 @@ Phases, one line or more each, and any failure raises:
    steps/s, kernels a call with the top ones by name, the index kernels of
    the reversed sequences' copies a call, and the step at batch 1,024.
    K1's and K2's ``launches_by_path`` gain these three paths.
+13. linalg: the three paths of ``tensor/linalg.py`` (``phase_linalg``):
+   (a) the GP SGD step of ``benchsuite.py:143 ours_gp`` (n 256, float32)
+   through ``function()`` and as its 64-step ``train_loop``, and the GP
+   marginal likelihood with its gradient in float64; (b) the Kalman
+   log-likelihood and gradient (64 steps, k 4, p 2, float32) and the SGD
+   loop of ``benchsuite.py:1129 ours_kalman`` on a shared T, its step and
+   its 16-step ``train_loop``; (c) the batched Cholesky step of
+   ``benchsuite.py:978 ours_blockwise_chol`` (batch 128, 64 x 64, float32)
+   and its 32-step ``train_loop``.  Each captured, with
+   ``Plan.capturable`` printed; counts set to 0 before one replayed call of
+   each (K1 once a fused node, none in a loop; K2 never); the replay
+   against the eager plan by sha256; the values against float64 NumPy
+   (``LINALG_TOL``); each loop against as many calls of its step; every
+   K1 node of the paths against its plain version at the path's shapes;
+   the Cholesky calls of path (c), one a step of 128 matrices; wall and
+   device ms a call, captured and eager, busy share, steps/s, kernels a
+   call with the top ones by name and cuSOLVER's factorisation kernels a step.
+   K1's and K2's ``launches_by_path`` gain these eight paths.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -447,13 +466,17 @@ def without_free_lists(plan):
     return plan
 
 
-def captured_vs_eager(tag, captured, eager, functions, n_iter, n_dev=None, extra=""):
+def captured_vs_eager(tag, captured, eager, functions, n_iter, n_dev=None, extra="",
+                      eager_calls=None):
     """One linked function captured (``functions``: the CapturedFunctions a
     call replays) and eager, in turn: wall and device ms a call, the busy
     share, kernels a call, nodes a call, warm-up and capture seconds, peak
     MiB of a call; ``n_iter`` calls a wall time, ``n_dev`` (a quarter of
-    them by default) a device time.  Returns ``{"captured": ..., "eager": ...}``, each with
-    ``wall``, ``dev`` and ``by`` (device ms and launches by kernel)."""
+    them by default) a device time.  With ``eager_calls`` the eager side
+    takes the wall time of that many calls alone (no warm-up, no trace: a
+    call of hundreds of thousands of kernels takes seconds to trace).
+    Returns ``{"captured": ..., "eager": ...}``, each with ``wall``, ``dev``
+    and ``by`` (device ms and launches by kernel)."""
     from pytensor_tpu_torch.link.torch import linker as torch_linker
 
     torch_linker.NODES_RUN = 0
@@ -462,13 +485,17 @@ def captured_vs_eager(tag, captured, eager, functions, n_iter, n_dev=None, extra
     graphs = [g for f in functions for g in f.graphs.values()]
     row = {}
     for kind, call in (("captured", captured), ("eager", eager)):
+        if kind == "eager" and eager_calls:
+            row[kind] = {"wall": wall_ms(call, eager_calls, warmup=0), "dev": float("nan"),
+                         "by": {}, "peak": float("nan")}
+            continue
         wall = wall_ms(call, n_iter)
         dev, by = device_ms(call, n_dev or max(1, n_iter // 4))
         row[kind] = {"wall": wall, "dev": dev, "by": by, "peak": peak_mb(call)}
     c, e = row["captured"], row["eager"]
 
     def kernels(r):
-        return f"{sum(n for _, n in r['by'].values()):.0f}"
+        return f"{sum(n for _, n in r['by'].values()):.0f}" if r["by"] else "(not traced)"
 
     say(f"linked {tag}: captured wall {c['wall']:.4f} ms/call, device {c['dev']:.4f} ms, "
         f"busy {c['dev'] / c['wall']:.3f}, {kernels(c)} kernels/call, peak "
@@ -1113,6 +1140,350 @@ def phase_elman(dev, smi_line):
     return launches, k1_abs, k2_abs
 
 
+# --- the linalg slice ---------------------------------------------------------------
+
+# paths (a)-(c) at benchsuite's widths: the GP SGD step of
+# benchsuite.py:143 ours_gp (n 256, float32) and its 64-step train_loop,
+# the GP marginal likelihood in float64; the Kalman log-likelihood and
+# gradient (64 steps, k 4, p 2, float32) and the 16-step SGD loop of
+# benchsuite.py:1129 ours_kalman (with its step); the batched Cholesky of
+# benchsuite.py:978 ours_blockwise_chol (batch 128, 64 x 64, float32)
+# through function() and its 32-step train_loop
+GP_N, GP_LOOP, GP_LR = 256, 64, 1e-3
+KALMAN_T, KALMAN_K, KALMAN_P, KALMAN_LOOP, KALMAN_LR = 64, 4, 2, 16, 1e-5
+CHOL_BATCH, CHOL_N, CHOL_LOOP = 128, 64, 32
+# the linalg paths against float64 NumPy, each relative: GP nmll and
+# gradient (over max|g|) at the start, theta after 1 and 64 SGD steps
+# over the largest update (a dropped update reads 1), the float64 mll and
+# its gradient; the Kalman log-likelihood and its gradient (central
+# differences), T after 16 SGD steps over the largest update; the batched
+# Cholesky's loss, L over max|L| and its gradient against the identity;
+# each loop against as many calls of its step (over max(1, |value|))
+# each loop against as many calls of its step (over max(1, |value|)).
+# On an H100 80GB HBM3 at 700 W (two runs, the same readings): 5.69e-8,
+# 4.66e-8, 4.66e-8, 1.91e-5, 3.25e-17, 4.57e-9, 1.11e-6, 1.61e-5, 2.82e-8,
+# 1.45e-7, 9.54e-7, 5.04e-5, 4.31e-8 and 0; held at ~10x those readings,
+# and at no less than 4 ulps of the dtype where a reading fell below one
+# (the float64 mll, the batched Cholesky's loop)
+LINALG_TOL = {"gp_nmll": 6e-7, "gp_grad": 5e-7, "gp_update": 5e-7, "gp_update64": 2e-4,
+              "mll64": 1e-15, "kalman_ll": 5e-8, "kalman_grad": 1.2e-5,
+              "kalman_update16": 1.6e-4, "chol_loss": 3e-7, "chol_L": 1.5e-6,
+              "chol_grad": 1e-5, "gp_loop_vs_calls": 5e-4, "kalman_loop_vs_calls": 4.3e-7,
+              "chol_loop_vs_calls": 5e-7}
+
+
+def linalg_paths(dev):
+    """The functions of paths (a)-(c) on ``dev``: ``{tag: (f, state, args,
+    steps)}`` with the shared variables a call updates and the arguments
+    it takes (numpy values)."""
+    from pytensor_tpu_torch.models.batched_cholesky import make_batched_cholesky_step
+    from pytensor_tpu_torch.models.gp import make_gp_marginal_likelihood, make_gp_sgd_step
+    from pytensor_tpu_torch.models.kalman import (
+        make_kalman_loglike_and_grad,
+        make_kalman_sgd_step,
+    )
+
+    paths = {}
+    for tag, steps in (("gp step", 1), (f"gp loop x{GP_LOOP}", GP_LOOP)):
+        f, params = make_gp_sgd_step(GP_N, dtype="float32", lr=GP_LR, n_steps_per_call=steps,
+                                     device=dev)
+        paths[tag] = (f, params, [], steps)
+    f, theta0 = make_gp_marginal_likelihood(GP_N, dtype="float64", device=dev)
+    paths["gp mll float64"] = (f, [], list(theta0), 1)
+    f, theta0, _ = make_kalman_loglike_and_grad(KALMAN_T, KALMAN_K, KALMAN_P, "float32",
+                                                device=dev)
+    paths["kalman loglike+grad"] = (f, [], list(theta0), 1)
+    for tag, steps in (("kalman step", 1), (f"kalman loop x{KALMAN_LOOP}", KALMAN_LOOP)):
+        f, T, _ = make_kalman_sgd_step(KALMAN_T, KALMAN_K, KALMAN_P, KALMAN_LR,
+                                       n_steps_per_call=steps, device=dev)
+        paths[tag] = (f, [T], [], steps)
+    for tag, steps in (("chol step", 1), (f"chol loop x{CHOL_LOOP}", CHOL_LOOP)):
+        f, A = make_batched_cholesky_step(CHOL_BATCH, CHOL_N, n_steps_per_call=steps,
+                                          device=dev)
+        paths[tag] = (f, [A], [], steps)
+    return paths
+
+
+def linalg_kernels(dev):
+    """The K1 kernels of the linalg paths' functions, their graphs
+    rewritten on the CPU (the same sources as linking them for the card),
+    for the build pool of phase 2 (phase 13 finds them built)."""
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    return [fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+            for f, *_ in linalg_paths("cpu").values() for nd in f.fgraph.toposort()
+            if isinstance(nd.op, FusedElemwise)]
+
+
+def op_calls(call, name):
+    """Calls of the torch op ``name`` (``aten::...``) in one call, from a
+    trace of its host side."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+    return sum(e.count for e in prof.key_averages() if e.key == name)
+
+
+def phase_linalg(dev, smi_line):
+    """Phase 13: paths (a)-(c) of the linalg slice (``linalg_paths``), each
+    captured, with its eager twin: ``Plan.capturable``, K1's and K2's
+    launches in one replayed call (counts set to 0 just before it), the
+    replay's sha256 against the eager plan's from the same state; the
+    values against float64 NumPy (``LINALG_TOL``): the GP's nmll, gradient
+    and updates (``models/gp.py gp_reference``), the float64 mll, the
+    Kalman log-likelihood and gradient (``numpy_kalman_loglike``, central
+    differences) and its loop's update, the batched Cholesky's loss, L and
+    gradient, each loop against as many calls of its step; each K1 node of
+    the ``function()`` paths against its plain version at the path's
+    shapes; Cholesky calls and kernels a step of path (c) (one batched call,
+    not 128); then wall and device ms a call, captured and eager, busy
+    share, steps/s, kernels a call with the top ones by name.  Returns the
+    launches of each path and K1's largest absolute error.  On the CPU (a
+    rehearsal at small sizes) it checks the values only."""
+    import torch
+
+    import pytensor_tpu_torch as ptt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.cuda import scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction, fgraph_to_torch
+    from pytensor_tpu_torch.models import radon_kernel
+    from pytensor_tpu_torch.models.batched_cholesky import spd_stack
+    from pytensor_tpu_torch.models.gp import gp_data, gp_reference
+    from pytensor_tpu_torch.models.kalman import (
+        kalman_sim,
+        make_kalman_loglike_and_grad,
+        numpy_kalman_grad,
+        numpy_kalman_loglike,
+    )
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor import linalg as ptl
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    on_card = dev.type == "cuda"
+    t13 = time.perf_counter()
+
+    def zero():
+        fused_kernel.LAUNCHES = radon_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+        spmv_kernel.LAUNCHES = 0
+
+    def counts():
+        if on_card:
+            torch.cuda.synchronize()
+        return {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": scan_kernel.LAUNCHES}
+
+    def values(state):
+        return [v.get_value() for v in state]
+
+    def reset(state, vals):
+        for v, x in zip(state, vals):
+            v.set_value(x.clone())
+
+    def outs(res):
+        return [r for r in (res if isinstance(res, (list, tuple)) else [res])]
+
+    paths = linalg_paths(dev)
+    with config.change_flags(xla__jit=False):
+        eager = linalg_paths(dev)
+    say(f"linalg paths linked for the card in {time.perf_counter() - t13:.2f} s: "
+        + ", ".join(f"{tag} {type(p[0].linked).__name__}" for tag, p in paths.items()))
+    launches, results = {}, {}
+    for tag, (f, state, args, steps) in paths.items():
+        f_e, state_e = eager[tag][0], eager[tag][1]
+        plan = f.linked.plan if isinstance(f.linked, CapturedFunction) else f.linked
+        say(f"{tag}: Plan.capturable {plan.capturable}; {len(f.fgraph.apply_nodes)} outer nodes")
+        if plan.host_reads or (on_card and not isinstance(f.linked, CapturedFunction)):
+            raise AssertionError(f"{tag}: not captured: {plan.host_reads}")
+        a = [as_torch(np.asarray(v), dev) for v in args]
+        init = values(state)
+        f(*a)  # the capturing call
+        reset(state, init)
+        zero()
+        res = outs(f(*a))
+        launches[tag] = counts()
+        after = values(state)
+        reset(state_e, init)
+        res_e = outs(f_e(*a))
+        d_cap, d_eager = digest(*res, *after), digest(*res_e, *values(state_e))
+        if d_cap != d_eager:
+            raise AssertionError(f"{tag}: the replay differs from the eager plan")
+        fused = sum(isinstance(nd.op, FusedElemwise) for nd in f.fgraph.apply_nodes)
+        if launches[tag]["scan_whole_loop"] or (on_card
+                                                and launches[tag]["fused_elemwise"] != fused):
+            raise AssertionError(f"{tag}: launched {launches[tag]}: K1 once a fused node "
+                                 f"({fused}), K2 on no linalg scan")
+        say(f"{tag}: one replayed call launched {launches[tag]}; sha256 of the outputs and the "
+            f"state after it: replayed {d_cap}, eager {d_eager}")
+        results[tag] = (res, after, init, a)
+
+    def rel(got, want):
+        return float(np.max(np.abs(np.asarray(got, "float64") - want))
+                     / max(1.0, float(np.max(np.abs(want)))))
+
+    def n64(x):
+        return x.detach().cpu().numpy().astype("float64")
+
+    checks = {}
+    # (a) the GP against gp_reference, from theta = 0
+    X, y = gp_data(GP_N, 3, "float32")
+    nmlls, grads, thetas = gp_reference(X, y, np.zeros(3), GP_LR, GP_LOOP)
+    res, after, init, _ = results["gp step"]
+    checks["gp_nmll"] = abs(float(res[0]) - nmlls[0]) / nmlls[0]
+    upd = [float(n64(v)) for v in after]
+    checks["gp_update"] = float(np.max(np.abs(np.array(upd) - thetas[0]))
+                                / np.max(np.abs(thetas[0])))
+    checks["gp_grad"] = float(np.max(np.abs(-np.array(upd) / GP_LR - grads[0]))
+                              / np.max(np.abs(grads[0])))
+    res_l, after_l, _, _ = results[f"gp loop x{GP_LOOP}"]
+    checks["gp_update64"] = float(np.max(np.abs(np.array([float(n64(v)) for v in after_l])
+                                                - thetas[-1])) / np.max(np.abs(thetas[-1])))
+    f, state, _, _ = paths["gp step"]
+    reset(state, init)
+    for _ in range(GP_LOOP):
+        last = f()
+    calls = [float(n64(v)) for v in values(state)]
+    checks["gp_loop_vs_calls"] = max([rel(n64(v), c) for v, c in zip(after_l, calls)]
+                                     + [rel(n64(res_l[0]), n64(last))])
+    say(f"gp step: nmll {float(res[0]):.6f} vs float64 {nmlls[0]:.6f} (rel {checks['gp_nmll']:.2e}); "
+        f"gradient from the update {checks['gp_grad']:.2e} of max|g| (g = "
+        f"{', '.join(f'{g:.5f}' for g in grads[0])}); theta after 1 step {checks['gp_update']:.2e}, "
+        f"after {GP_LOOP} (the loop) {checks['gp_update64']:.2e} over the largest")
+    res, _, _, _ = results["gp mll float64"]
+    mll_ref = gp_reference(*gp_data(GP_N, 3, "float64"), np.zeros(3))
+    checks["mll64"] = max(rel(n64(res[0]), mll_ref[0][0]),
+                          rel(np.array([n64(r) for r in res[1:]]), mll_ref[1][0]))
+    say(f"gp mll float64: nmll {float(res[0]):.12f} vs {mll_ref[0][0]:.12f}, gradient "
+        f"{', '.join(f'{float(r):.9f}' for r in res[1:])}; max rel err {checks['mll64']:.2e}")
+    # (b) the Kalman filter against numpy_kalman_loglike and central differences
+    _, theta0, (ys, Zv) = make_kalman_loglike_and_grad(KALMAN_T, KALMAN_K, KALMAN_P, "float32",
+                                                       device="cpu")
+    res, _, _, _ = results["kalman loglike+grad"]
+    T0, lq, lh = (np.asarray(v, "float64") for v in theta0)
+    ll_ref = numpy_kalman_loglike(ys.astype("float64"), T0, Zv.astype("float64"), np.exp(lq),
+                                  np.exp(lh))
+    g_ref = numpy_kalman_grad(ys, T0, Zv, lq, lh)
+    checks["kalman_ll"] = abs(float(res[0]) - ll_ref) / abs(ll_ref)
+    checks["kalman_grad"] = max(float(np.max(np.abs(n64(r) - g)) / max(1.0, np.max(np.abs(g))))
+                                for r, g in zip(res[1:], g_ref))
+    say(f"kalman: loglike {float(res[0]):.8f} ({res[0].dtype}) vs float64 {ll_ref:.8f} (rel "
+        f"{checks['kalman_ll']:.2e}); gradient vs central differences {checks['kalman_grad']:.2e}")
+    ys2, T_true, Z2 = kalman_sim(KALMAN_T, KALMAN_K, KALMAN_P)
+    q, h = float(np.float32(0.09)), float(np.float32(0.04))
+    T = T_true.astype("float64")
+    lls = []
+    for _ in range(KALMAN_LOOP):
+        lls.append(numpy_kalman_loglike(ys2.astype("float64"), T, Z2.astype("float64"), q, h))
+        T = T + KALMAN_LR * numpy_kalman_grad(ys2, T, Z2, np.log(q), np.log(h))[0]
+    res_l, after_l, init_l, _ = results[f"kalman loop x{KALMAN_LOOP}"]
+    step_T = T_true.astype("float64")
+    checks["kalman_update16"] = float(np.max(np.abs(n64(after_l[0]) - T))
+                                      / np.max(np.abs(T - step_T)))
+    drop = float(np.max(np.abs(step_T - T)) / np.max(np.abs(T - step_T)))
+    f, state, _, _ = paths["kalman step"]
+    reset(state, init_l)
+    for _ in range(KALMAN_LOOP):
+        last = f()
+    checks["kalman_loop_vs_calls"] = max(rel(n64(after_l[0]), n64(values(state)[0])),
+                                         rel(n64(res_l[0]), n64(last)))
+    say(f"kalman loop x{KALMAN_LOOP}: last loglike {float(res_l[0]):.6f} vs float64 "
+        f"{lls[-1]:.6f}; T over the largest update of {KALMAN_LOOP} float64 steps "
+        f"{checks['kalman_update16']:.2e} (a dropped update reads {drop:.3g})")
+    # (c) the batched Cholesky: loss = sum of the traces; L and the gradient
+    A0 = spd_stack(CHOL_BATCH, CHOL_N).astype("float64")
+    res, after, init, _ = results["chol step"]
+    loss_ref = float(np.trace(A0, axis1=1, axis2=2).sum())
+    checks["chol_loss"] = abs(float(res[0]) - loss_ref) / loss_ref
+    A = paths["chol step"][1][0]
+    reset([A], init)
+    L_g = ptt.function([], [ptl.cholesky(A), ptt.grad(ptt.tensor.sum(ptl.cholesky(A) ** 2), A)],
+                       device=dev)
+    L, g = L_g()
+    L_ref = np.linalg.cholesky(A0)
+    checks["chol_L"] = float(np.max(np.abs(n64(L) - L_ref)) / np.max(np.abs(L_ref)))
+    checks["chol_grad"] = float(np.max(np.abs(n64(g) - np.eye(CHOL_N))))
+    res_l, after_l, _, _ = results[f"chol loop x{CHOL_LOOP}"]
+    f, state, _, _ = paths["chol step"]
+    reset(state, init)
+    for _ in range(CHOL_LOOP):
+        last = f()
+    checks["chol_loop_vs_calls"] = max(rel(n64(after_l[0]), n64(values(state)[0])),
+                                       rel(n64(res_l[0]), n64(last)))
+    say(f"chol step: loss {float(res[0]):.3f} vs float64 {loss_ref:.3f} (rel "
+        f"{checks['chol_loss']:.2e}); L over max|L| {checks['chol_L']:.2e}; the gradient of "
+        f"sum(L**2) = trace(A) against the identity {checks['chol_grad']:.2e}; each loop against "
+        f"as many calls of its step: gp {checks['gp_loop_vs_calls']:.2e}, kalman "
+        f"{checks['kalman_loop_vs_calls']:.2e}, chol {checks['chol_loop_vs_calls']:.2e}")
+    finite = all(np.isfinite(n64(r)).all() for res, after, _, _ in results.values()
+                 for r in [*res, *after])
+    if not (finite and all(v <= LINALG_TOL[k] for k, v in checks.items())):
+        raise AssertionError(f"linalg against float64 NumPy: {checks}; tol {LINALG_TOL}")
+    say(f"linalg against float64 NumPy: {json.dumps({k: float(f'{v:.3g}') for k, v in checks.items()})}"
+        f"; tol {LINALG_TOL}")
+
+    # path (c): one batched Cholesky a step
+    f_e = eager["chol step"][0]
+    chol_calls = op_calls(f_e, "aten::linalg_cholesky_ex")
+    chol_loop_calls = op_calls(eager[f"chol loop x{CHOL_LOOP}"][0], "aten::linalg_cholesky_ex")
+    if chol_calls != 1 or chol_loop_calls != CHOL_LOOP:
+        raise AssertionError(f"chol: {chol_calls} Cholesky calls a step, {chol_loop_calls} a "
+                             f"{CHOL_LOOP}-step loop; one a step expected")
+
+    # K1 on the fused nodes of the function() paths, on the inputs a call
+    # gives them
+    k1_abs, k1_rows = 0.0, []
+    for tag, (f, state, args, _) in paths.items():
+        reset(state, results[tag][2])
+        nodes = [nd for nd in f.fgraph.toposort() if isinstance(nd.op, FusedElemwise)]
+        needed = [i for nd in nodes for i in nd.inputs]
+        feed = fgraph_to_torch(FunctionGraph(f.fgraph.inputs, needed, clone=True), dev)
+        vals = iter(feed(*results[tag][3], *[v.get_value(borrow=True) for v in f.shared_vars]))
+        for nd in nodes:
+            xs = [next(vals) for _ in nd.inputs]
+            kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+            got, want = (kern.launch if on_card else kern)(*xs), kern.plain(*xs)
+            pairs = [errors(g.cpu(), w.cpu()) for g, w in zip(got, want)]
+            err = max(p[1] for p in pairs)
+            k1_abs = max([k1_abs] + [p[0] for p in pairs])
+            tol = K1_RTOL.get(nd.outputs[0].type.dtype, 0.0)
+            if not (err <= tol and all(g.shape == w.shape for g, w in zip(got, want))):
+                raise AssertionError(f"K1 {tag} {nd.op}: rel err {err} > {tol}")
+            k1_rows.append(err)
+            say(f"  K1 {tag:20s} {str(nd.op)[:64]:64s} in {[tuple(x.shape) for x in xs]} "
+                f"{nd.outputs[0].type.dtype} err {err:.2e}")
+    say(f"K1 on the linalg paths' fused nodes: {len(k1_rows)} kernels held against their plain "
+        f"version, max rel err {max(k1_rows):.2e} (tol {K1_RTOL})")
+    if not on_card:
+        return launches, k1_abs
+
+    # the times: captured and eager in turn, per call
+    for tag, (f, state, args, steps) in paths.items():
+        f_e = eager[tag][0]
+        a = results[tag][3]
+        n_iter = 20 if steps == 1 else 4
+        # an eager call of the Kalman loop runs ~250,000 nodes (~8 s)
+        row = captured_vs_eager(tag, lambda f=f, a=a: f(*a), lambda f=f_e, a=a: f(*a),
+                                [f.linked], n_iter, n_dev=1 if "kalman loop" in tag else 2,
+                                eager_calls=1 if "kalman loop" in tag else None)
+        c = row["captured"]
+        n_kern = sum(n for _, n in c["by"].values())
+        chol = [(kn, n) for kn, (ms, n) in c["by"].items() if "potrf" in kn or "getrf" in kn]
+        say(f"{tag} ({smi_line}): wall {c['wall']:.4f} ms/call, device {c['dev']:.4f} ms, busy "
+            f"{c['dev'] / c['wall']:.3f}, {steps * 1e3 / c['wall']:,.1f} steps/s; "
+            f"{n_kern:.0f} kernels a call ({n_kern / steps:.0f} a step); K1 "
+            f"{launches[tag]['fused_elemwise']} launches a call, K2 "
+            f"{launches[tag]['scan_whole_loop']}; cuSOLVER factorisation (potrf, getrf) kernels "
+            f"{sum(n for _, n in chol) / steps:.0f} a step")
+        for kname, (ms, count) in sorted(c["by"].items(), key=lambda kv: -kv[1][0])[:6]:
+            say(f"  {tag}: {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+    say(f"chol: {chol_calls} Cholesky call (aten::linalg_cholesky_ex) a step of "
+        f"{CHOL_BATCH} matrices, {chol_loop_calls} in a {CHOL_LOOP}-step loop")
+    say(f"linalg phase done in {time.perf_counter() - t13:.1f} s")
+    return launches, k1_abs
+
+
 def main(opts):
     import torch
 
@@ -1245,6 +1616,11 @@ def main(opts):
     elman_k1, elman_k2 = elman_kernels(dev)
     say(f"the Elman slice's graphs: {len(elman_k1)} K1 kernels of the step, {len(elman_k2)} K2 "
         f"kernel of the static BPTT; graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
+    # the linalg slice's: the K1 kernels of paths (a)-(c) (phase 13)
+    t0 = time.perf_counter()
+    linalg_k1 = linalg_kernels(dev)
+    say(f"the linalg slice's graphs: {len(linalg_k1)} K1 kernels; graph, rewrite and emit in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     def timed(fn):
         t = time.perf_counter()
@@ -1254,7 +1630,7 @@ def main(opts):
     with ThreadPoolExecutor(18) as pool:
         k1_jobs = [pool.submit(fused_kernel.build, kerns, verbose=True)
                    for kerns in [*k1_kernels.values(), list(op_kerns.values()), model_kerns,
-                                 elman_k1]]
+                                 elman_k1, linalg_k1]]
         jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
                 "K3 stamped": pool.submit(timed, lambda: radon_kernel.build(
                     verbose=True, flags=radon_kernel.STAMPED)),
@@ -1967,6 +2343,11 @@ def main(opts):
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_elman_abs)
     k2_abs = max(k2_abs, k2_elman_abs)
     model_launches.update(elman_launches)
+
+    # 13. the linalg slice: GP, Kalman, batched Cholesky ---------------------
+    linalg_launches, k1_linalg_abs = phase_linalg(dev, smi)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_linalg_abs)
+    model_launches.update(linalg_launches)
 
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "cuda",

@@ -32,6 +32,7 @@ import pytensor_tpu_torch.tensor as tensor  # noqa: F401
 
 # rewrite packs register into optdb at import time
 import pytensor_tpu_torch.tensor.rewriting  # noqa: F401
+import pytensor_tpu_torch.assumptions  # noqa: F401  (assumption-driven rewrites)
 import pytensor_tpu_torch.compile.rewriting  # noqa: F401
 
 from pytensor_tpu_torch.compile.maker import function  # noqa: F401

@@ -1,10 +1,11 @@
 """Inner-graph rewriting bridge.
 
 Counterpart of ``pytensor_tpu/compile/rewriting.py:18 RewriteInnerGraphs``:
-run the active mode's rewrite query inside the inner graph of every Scan,
-so that the tags a mode adds (``mode.including("onehot_gather")``) reach
-loop bodies.  Left out: OpFromGraph bodies, which in the port only come
-from the fusion pass, and fusion is excluded here.
+run the active mode's rewrite query inside the inner graph of every Scan
+and every OpFromGraph (the fused elementwise nodes, which the bridge
+follows in the pipeline), so that stabilisations reach loop bodies and
+fused bodies, and the tags a mode adds (``mode.including("onehot_gather")``)
+reach loop bodies.
 """
 
 from __future__ import annotations
@@ -40,19 +41,34 @@ class RewriteInnerGraphs(GraphRewriter):
         )
 
     def apply(self, fgraph):
-        """Each Scan is replaced by one whose inner graph is a rewritten
-        copy: the inner graph of a Scan the caller still holds is never
-        changed in place (the JAX package rewrites it in place)."""
+        """Each Scan and OpFromGraph is replaced by one whose inner graph is
+        a rewritten copy: the inner graph of an op the caller still holds is
+        never changed in place (the JAX package rewrites it in place).  A
+        fused body whose rewritten copy K1 could not emit (an op the fusion
+        pass would not admit, a constant output) keeps its body."""
+        from pytensor_tpu_torch.compile.builders import OpFromGraph
+        from pytensor_tpu_torch.graph.basic import Constant
         from pytensor_tpu_torch.scan.op import Scan
+        from pytensor_tpu_torch.tensor.fused import FusedElemwise, fusable
 
         rewriter = optdb.query(RewriteDatabaseQuery(include=self.include,
                                                     exclude=self.exclude))
         count = 0
         for node in fgraph.toposort():
-            if not isinstance(node.op, Scan):
+            op = node.op
+            if isinstance(op, Scan):
+                new_op = op.rebuilt(op.fgraph.clone(), op.info)
+                rewriter.rewrite(new_op.fgraph)
+            elif isinstance(op, OpFromGraph):
+                inner = op.fgraph.clone()
+                rewriter.rewrite(inner)
+                if isinstance(op, FusedElemwise) and (
+                        not all(fusable(n) for n in inner.apply_nodes)
+                        or any(isinstance(o, Constant) for o in inner.outputs)):
+                    continue
+                new_op = type(op)(inner.inputs, inner.outputs, name=op.name)
+            else:
                 continue
-            new_op = node.op.rebuilt(node.op.fgraph.clone(), node.op.info)
-            rewriter.rewrite(new_op.fgraph)
             fgraph.replace_all_validate(
                 list(zip(node.outputs, new_op(*node.inputs, return_list=True))),
                 reason=self.name)

@@ -30,7 +30,7 @@ from pytensor_tpu_torch.tensor.type import TensorType
 EXACT_OPS = {"gt", "le", "eq", "neq", "isnan", "isinf", "minimum", "and_", "or_", "xor",
              "invert", "left_shift", "right_shift", "int_div", "mod", "switch", "clip",
              "identity", "floor", "ceil", "trunc", "round_half_to_even",
-             "round_half_away_from_zero", "deg2rad", "rad2deg"}
+             "round_half_away_from_zero", "deg2rad", "rad2deg", "sign"}
 OP_GROUP_DTYPES = ("float32", "float64", "bool", "int8", "int16", "int32", "int64")
 def edge_values(dtype, n, seed):
     """n values of ``dtype`` with numpy's edges in front: NaN, +-inf, +-0.0,
@@ -71,7 +71,7 @@ def scalar_op_group(dtype):
         unary = ["exp2", "expm1", "log1p", "log2", "log10", "deg2rad", "rad2deg", "tan", "cosh",
                  "sinh", "arcsin", "arccos", "arctan", "arcsinh", "arccosh", "arctanh", "floor",
                  "ceil", "trunc", "round_half_to_even", "round_half_away_from_zero", "isnan",
-                 "isinf"]
+                 "isinf", "sign"]
         binary = ["arctan2", "int_div", "mod", "minimum", "gt", "le", "eq", "neq"]
         outs = ([getattr(pt, k)(x) for k in unary] + [ident(x)]
                 + [getattr(pt, k)(x, y) for k in binary]
@@ -83,10 +83,10 @@ def scalar_op_group(dtype):
     outs = [getattr(pt, k)(a, b) for k in binary]
     outs += [pt.left_shift(a, s), pt.right_shift(a, s), pt.invert(a), pt.clip(a, b, s),
              pt.switch(c, a, b), pt.round_half_to_even(a), pt.round_half_away_from_zero(a),
-             pt.isnan(a), pt.isinf(a), pt.floor(a), ident(a)]
+             pt.isnan(a), pt.isinf(a), pt.floor(a), ident(a), pt.sign(a)]
     return [a, b, s, c], outs, binary + [
         "left_shift", "right_shift", "invert", "clip", "switch", "round_half_to_even",
-        "round_half_away_from_zero", "isnan", "isinf", "floor", "identity"]
+        "round_half_away_from_zero", "isnan", "isinf", "floor", "identity", "sign"]
 
 
 def op_group_inputs(dtype, inputs, n):

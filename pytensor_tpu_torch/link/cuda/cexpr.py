@@ -172,6 +172,10 @@ CEXPR = {
                          if t in ("float32", "float64") else a[0] if t == "bool"
                          else f"({a[0]} < 0 ? -{a[0]} : {a[0]})"),
     "sqr": lambda a, t: a[0] if t == "bool" else f"({a[0]} * {a[0]})",
+    # jnp.sign's values: a float zero keeps its sign and NaN stays NaN
+    "sign": lambda a, t: (f"({a[0]} > 0 ? ({CTYPES[t]})1 : ({a[0]} < 0 ? ({CTYPES[t]})-1 : "
+                          f"{a[0]}))" if _is_float(t)
+                          else f"(({CTYPES[t]})(({a[0]} > 0) - ({a[0]} < 0)))"),
     "true_div": lambda a, t: f"({a[0]} / {a[1]})",
     "reciprocal": lambda a, t: f"(({CTYPES[t]})1 / {a[0]})",
     "pow": lambda a, t: (f"k2_ipow({a[0]}, {a[1]})" if t not in ("float32", "float64")

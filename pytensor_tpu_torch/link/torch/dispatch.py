@@ -49,7 +49,23 @@ from pytensor_tpu_torch.tensor.blockwise import Blockwise
 from pytensor_tpu_torch.tensor.blas import BatchedDot, Dot22, Dot22Scalar, Gemm, Gemv, Ger
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from pytensor_tpu_torch.tensor.fused import FusedElemwise
+from pytensor_tpu_torch.tensor.linalg import (
+    QR,
+    SVD,
+    Cholesky,
+    CholeskySolve,
+    Det,
+    Eigh,
+    Expm,
+    Lu,
+    MatrixInverse,
+    SLogDet,
+    Solve,
+    SolveTriangular,
+    TridiagonalSolve,
+)
 from pytensor_tpu_torch.tensor.math import Argmax, Dot
+from pytensor_tpu_torch.tensor.sort import ArgSortOp, SortOp
 from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape, Unbroadcast
 from pytensor_tpu_torch.tensor.type import TensorType
 from pytensor_tpu_torch.tensor.type_other import MakeSlice
@@ -75,7 +91,7 @@ def torch_funcify(op, node=None, device=None, **kwargs):
 ALL = "all"
 
 
-def ports(host=(), checked=(), scalar=(), reads_back=False, keeps_host=()):
+def ports(host=(), checked=(), scalar=(), reads_back=False, keeps_host=(), batched=False):
     """Declare, on a lowering, what its function does with the host.  Each
     of ``host``, ``checked``, ``scalar`` and ``keeps_host`` is a tuple of
     input positions, ``ALL`` or a function of the node giving them:
@@ -86,28 +102,38 @@ def ports(host=(), checked=(), scalar=(), reads_back=False, keeps_host=()):
       constant at link time, any other by reading its min and max);
     - ``scalar``: inputs at which a one-element host value is taken as a
       scalar argument, not a tensor copied to the device;
-    - ``reads_back``: the output's size is read back from the device;
+    - ``reads_back``: the function reads the device on the host (the
+      output's size, or a torch routine that synchronises): a string that
+      says why, or a function of the node giving one;
     - ``keeps_host``: inputs at which a host value is handed on as it is,
       to a plan that keeps it on the host (a scan's non-sequences, which
-      its step loop's inner plan reads as host values).
+      its step loop's inner plan reads as host values);
+    - ``batched``: the function takes leading batch dimensions on its
+      inputs and broadcasts them, so that a ``Blockwise`` of the op is one
+      call of it (a flag, or a function of the ``Blockwise`` node).
 
     The linker places the constants of ``host`` ports on the host, and its
     capture rule (``linker.py _host_reads``) reads these declarations."""
     def declare(lowering):
         lowering.ports = {"host": host, "checked": checked, "scalar": scalar,
-                          "reads_back": reads_back, "keeps_host": keeps_host}
+                          "reads_back": reads_back, "keeps_host": keeps_host,
+                          "batched": batched}
         return lowering
 
     return declare
 
 
-def ports_of(node, kind):
-    """What the lowering of ``node`` declares (``ports``): a set of input
-    positions, or ``reads_back``'s flag."""
-    spec = getattr(torch_funcify.dispatch(type(node.op)), "ports", {}).get(kind, ())
+def ports_of(node, kind, op=None):
+    """What the lowering of ``node``'s op (or of ``op``) declares
+    (``ports``): a set of input positions, ``reads_back``'s reason (empty
+    when it reads nothing back) or ``batched``'s flag."""
+    op = node.op if op is None else op
+    spec = getattr(torch_funcify.dispatch(type(op)), "ports", {}).get(kind, ())
     if callable(spec):
         spec = spec(node)
     if kind == "reads_back":
+        return spec or ""
+    if kind == "batched":
         return bool(spec)
     if spec == ALL:
         spec = range(len(node.inputs))
@@ -227,9 +253,22 @@ def _careduce(op, node=None, **kw):
 
 @torch_funcify.register(Dot)
 @torch_funcify.register(Dot22)
+@ports(batched=True)
 def _dot(op, node=None, **kw):
-    # full float32: a function linked for CUDA runs with TF32 off
-    return torch.matmul
+    """``torch.matmul`` (full float32: a function linked for CUDA runs with
+    TF32 off).  Operands with leading batch dimensions (a ``Blockwise``'s)
+    are matrices: a vector core is a row or a column of one."""
+    cx, cy = (i.type.ndim for i in node.inputs)
+    if cx == cy == 2:
+        return torch.matmul
+
+    def dot(x, y):
+        if x.ndim == cx and y.ndim == cy:
+            return torch.matmul(x, y)
+        r = torch.matmul(x.unsqueeze(-2) if cx == 1 else x, y.unsqueeze(-1) if cy == 1 else y)
+        return r[..., 0, 0] if cx == cy else r[..., 0] if cy == 1 else r[..., 0, :]
+
+    return dot
 
 
 @torch_funcify.register(BatchedDot)
@@ -251,9 +290,17 @@ def _gemm(op, node=None, **kw):
     constants, else the JAX package's expression; a 0-d host alpha or
     beta is a scalar argument."""
     alpha, beta = _const_scalar(node.inputs[1]), _const_scalar(node.inputs[4])
+    # the operands of other dtypes are cast to the output's, as numpy and
+    # XLA promote (a float32 constant z beside float64 x and y)
+    cast = _cast_to(node)
     if alpha is not None and beta is not None:
-        return lambda z, a, x, y, b: torch.addmm(z, x, y, beta=beta, alpha=alpha)
-    return lambda z, a, x, y, b: b * z + a * torch.matmul(x, y)
+        return lambda z, a, x, y, b: torch.addmm(*cast(z, x, y), beta=beta, alpha=alpha)
+
+    def gemm(z, a, x, y, b):
+        z, x, y = cast(z, x, y)
+        return b * z + a * torch.matmul(x, y)
+
+    return gemm
 
 
 @torch_funcify.register(Dot22Scalar)
@@ -449,15 +496,20 @@ def _eye(op, node=None, device=None, **kw):
 
 
 @torch_funcify.register(ExtractDiag)
+@ports(batched=True)
 def _extract_diag(op, node=None, **kw):
+    nd = node.inputs[0].type.ndim
+    a1, a2 = op.axis1 % nd, op.axis2 % nd
+
     def extract_diag(x):
-        return torch.diagonal(x, op.offset, op.axis1, op.axis2)
+        nb = x.ndim - nd  # a Blockwise's leading batch dimensions
+        return torch.diagonal(x, op.offset, a1 + nb, a2 + nb)
 
     return extract_diag
 
 
 @torch_funcify.register(Nonzero)
-@ports(reads_back=True)
+@ports(reads_back="its output length is read back from the device")
 def _nonzero(op, node=None, **kw):
     """The output length depends on the data: torch reads it back from the
     device, so a plan that holds this node is never captured."""
@@ -556,11 +608,46 @@ def _inc_subtensor(op, node=None, **kw):
     return inc_subtensor
 
 
+def arange_index(var):
+    """``(first, step)`` when ``var`` is ``arange(start, stop, step)`` with a
+    constant start and step, through DimShuffles and the addition of 0-d
+    integer constants (the indices of ``diagonal``'s gradient): its entries
+    are ``first + step * k`` for ``k`` below its size, so its bounds follow
+    from its size, which the host knows, and not from its values.  Else
+    None."""
+    first = 0
+    while var.owner is not None:
+        op, ins = var.owner.op, var.owner.inputs
+        if isinstance(op, DimShuffle):
+            var = ins[0]
+        elif (isinstance(op, Elemwise) and op.scalar_op.name == "add" and len(ins) == 2
+              and any(_const_int(i) is not None for i in ins)):
+            k = 0 if _const_int(ins[0]) is not None else 1
+            first += _const_int(ins[k])
+            var = ins[1 - k]
+        elif isinstance(op, ARange):
+            start, step = _const_int(ins[0]), _const_int(ins[2])
+            return None if start is None or step is None else (first + start, step)
+        else:
+            return None
+    return None
+
+
+def _const_int(var):
+    """The Python int of a 0-d integer constant, else None."""
+    if isinstance(var, Constant) and np.ndim(var.data) == 0 and var.type.dtype.startswith("int"):
+        return int(var.data)
+    return None
+
+
 class _IndexCheck:
-    """Bounds check and negative-index normalisation of one index input."""
+    """Bounds check and negative-index normalisation of one index input.
+    A constant is checked by its values, an ``arange_index`` by its size;
+    any other index reads its min and max on the host."""
 
     def __init__(self, var, static_dim=None):
         self.const = isinstance(var, Constant)
+        self.arange = arange_index(var)
         if self.const:
             data = np.asarray(var.data)
             self.lo = int(data.min()) if data.size else 0
@@ -579,10 +666,13 @@ class _IndexCheck:
             raise NotImplementedError("boolean mask indices have a dynamic shape")
         if self.const:
             lo, hi = self.lo, self.hi
-        elif idx.numel():
-            lo, hi = int(idx.min()), int(idx.max())
-        else:
+        elif not idx.numel():
             return idx.long()
+        elif self.arange is not None:
+            first, step = self.arange
+            lo, hi = sorted((first, first + step * (idx.numel() - 1)))
+        else:
+            lo, hi = int(idx.min()), int(idx.max())
         self._check(lo, hi, n)
         idx = idx.long()
         return torch.where(idx < 0, idx + n, idx) if lo < 0 else idx
@@ -668,7 +758,8 @@ def _copy_last(out, axis, idx, y, add):
     out.index_copy_(axis, idx, y.to(out.dtype))
 
 
-def _adv_index(idx_list, ind, checks, x):
+def _adv_index(idx_list, ind, checks, shape):
+    """The torch index of ``idx_list`` for a tensor of ``shape``."""
     it = iter(ind)
     idx = []
     axis = 0
@@ -678,7 +769,7 @@ def _adv_index(idx_list, ind, checks, x):
             idx.append(None)
             continue
         if e == DYN:
-            idx.append(checks[k](next(it), x.shape[axis]))
+            idx.append(checks[k](next(it), shape[axis]))
             k += 1
         elif isinstance(e, (int, np.integer)):
             idx.append(int(e))
@@ -699,7 +790,7 @@ def _adv_sub(op, node=None, **kw):
               for axis, pos in _adv_entries(idx_list, node.inputs[1:])]
 
     def adv_sub(x, *ind):
-        idx = _adv_index(idx_list, ind, checks, x)
+        idx = _adv_index(idx_list, ind, checks, x.shape)
         if _negative_steps(idx):
             raise NotImplementedError("AdvancedSubtensor with a negative slice step")
         return x[idx]
@@ -707,9 +798,22 @@ def _adv_sub(op, node=None, **kw):
     return adv_sub
 
 
+def _batched_adv_incsub(node):
+    """A ``Blockwise`` of an advanced increment takes its batch in one call
+    when its indices have no batch dimensions (each is cut to its core and
+    serves every batch element) and its array indices are adjacent, so
+    that full slices over the batch dimensions put the batch first, as the
+    ``Blockwise`` does."""
+    core = node.op.core_op
+    nb = node.op.node_batch_ndim(node)
+    adv = [d for d, e in enumerate(core.idx_list) if e == DYN]
+    return bool(adv) and adv == list(range(adv[0], adv[0] + len(adv))) and all(
+        all(s == 1 for s in i.type.shape[:nb]) for i in node.inputs[2:])
+
+
 @torch_funcify.register(AdvancedIncSubtensor)
 @ports(host=lambda node: _adv_ports(node, 2, host=True),
-       checked=lambda node: _adv_ports(node, 2))
+       checked=lambda node: _adv_ports(node, 2), batched=_batched_adv_incsub)
 def _adv_incsub(op, node=None, **kw):
     """One 1-d integer index along an axis, full slices elsewhere (the form
     a gradient of ``x[:, idx]`` takes) runs as ``index_add_``/``index_copy_``.
@@ -718,9 +822,12 @@ def _adv_incsub(op, node=None, **kw):
     ``index_put_`` into the flat copy, summing duplicates for an increment
     (``np.add.at``) unless ``ignore_duplicates``.  A set, or an increment
     that ignores duplicates (numpy's ``x[idx] += y``), writes each
-    position's last value, as numpy does (``_last_writes``)."""
+    position's last value, as numpy does (``_last_writes``).  Leading
+    batch dimensions of ``x`` and ``y`` (a ``Blockwise``'s, with indices
+    of no batch dimensions) take full slices."""
     idx_list = op.idx_list
     x_shape = node.inputs[0].type.shape
+    core_nd = node.inputs[0].type.ndim
     entries = _adv_entries(idx_list, node.inputs[2:])
     checks = [_IndexCheck(node.inputs[2 + pos], x_shape[axis]) for axis, pos in entries]
     set_mode = op.set_instead_of_inc
@@ -732,21 +839,23 @@ def _adv_incsub(op, node=None, **kw):
         check = checks[0]
 
         def adv_incsub_axis(x, y, ilist):
-            idx = check(ilist, x.shape[axis])
+            ax = axis + x.ndim - core_nd
+            idx = check(ilist, x.shape[ax])
             expected = list(x.shape)
-            expected[axis] = idx.shape[0]
+            expected[ax] = idx.shape[0]
             y = y.expand(expected)
             out = x.clone()
             if set_mode or op.ignore_duplicates:
-                _copy_last(out, axis, idx, y, add=not set_mode)
+                _copy_last(out, ax, idx, y, add=not set_mode)
             else:
-                out.index_add_(axis, idx, y)
+                out.index_add_(ax, idx, y)
             return out
 
         return adv_incsub_axis
 
     def adv_incsub(x, y, *ind):
-        idx = _adv_index(idx_list, ind, checks, x)
+        nb = x.ndim - core_nd
+        idx = (slice(None),) * nb + _adv_index(idx_list, ind, checks, x.shape[nb:])
         if _negative_steps(idx):
             raise NotImplementedError("AdvancedIncSubtensor with a negative slice step")
         sel = torch.arange(x.numel(), device=x.device).reshape(x.shape)[idx]
@@ -764,14 +873,230 @@ def _adv_incsub(op, node=None, **kw):
     return adv_incsub
 
 
+# --- sort -------------------------------------------------------------------------
+
+@torch_funcify.register(SortOp)
+@ports(host=(1,))
+def _sort(op, node=None, **kw):
+    # stable, as jnp.sort; numpy's quicksort orders ties arbitrarily
+    return lambda x, axis: torch.sort(x, dim=int(axis), stable=True).values
+
+
+@torch_funcify.register(ArgSortOp)
+@ports(host=(1,))
+def _argsort(op, node=None, **kw):
+    return lambda x, axis: torch.argsort(x, dim=int(axis), stable=True)
+
+
+# --- linalg -----------------------------------------------------------------------
+# torch.linalg, which runs cuSOLVER and cuBLAS on a card, as the JAX
+# package's lowerings run jnp.linalg and jax.scipy.linalg
+# (pytensor_tpu/tensor/linalg.py:914-1037, 1366-1373).  Each lowering takes
+# leading batch dimensions and broadcasts them (``batched``): a Blockwise of
+# the op is one call.  Operands are cast to the output dtype first (an
+# integer matrix is factorised in float64, ``upcast_float``).  None of these
+# reads the device on the host, but the three that declare ``reads_back``:
+# torch's eigh, svd and matrix_exp synchronise, and a CUDA graph refuses them.
+
+def _cast_to(node):
+    dtype = torch_dtype(node.outputs[0].type.dtype)
+    return lambda *xs: [x if x.dtype == dtype else x.to(dtype) for x in xs]
+
+
+def _cholesky_lower(x, masks):
+    """The lower factor of the lower triangle of ``x``, NaN in the lower
+    triangle of each matrix that is not positive definite, as XLA's
+    Cholesky gives (a raise would read ``info`` on the host every call).
+    ``masks`` caches the lower-triangle masks by size and device."""
+    L, info = torch.linalg.cholesky_ex(x)
+    key = (x.shape[-1], x.device)
+    if key not in masks:
+        masks[key] = torch.ones(key[0], key[0], dtype=torch.bool, device=x.device).tril_()
+    return L.masked_fill((info != 0)[..., None, None] & masks[key], float("nan"))
+
+
+def _trsm(a, b, lower, unit=False):
+    """``a^-1 b`` for triangular ``a`` (cuBLAS trsm), reading one triangle."""
+    return torch.linalg.solve_triangular(a, b, upper=not lower, unitriangular=unit)
+
+
+def _cho_solve(c, b, lower):
+    """``(c c^T)^-1 b`` as two triangular solves, as ``jax.scipy``'s
+    ``cho_solve`` computes it (torch's ``cholesky_solve`` takes MAGMA for a
+    batch, which a CUDA graph does not capture)."""
+    if lower:
+        return _trsm(c.mT, _trsm(c, b, True), False)
+    return _trsm(c, _trsm(c.mT, b, True), False)
+
+
+def _as_matrix(b_ndim, fn):
+    """``fn`` of a right-hand side of ``b_ndim`` core dimensions: a vector
+    is solved as one column."""
+    if b_ndim == 2:
+        return fn
+    return lambda a, b: fn(a, b.unsqueeze(-1)).squeeze(-1)
+
+
+@torch_funcify.register(Cholesky)
+@ports(batched=True)
+def _cholesky(op, node=None, **kw):
+    cast = _cast_to(node)
+    masks: dict = {}
+
+    def cholesky(x):
+        L = _cholesky_lower(*cast(x), masks)
+        return L if op.lower else L.mT
+
+    return cholesky
+
+
+@torch_funcify.register(SolveTriangular)
+@ports(batched=True)
+def _solve_triangular(op, node=None, **kw):
+    """``trans`` transposes ``a``, as the oracle's ``scipy`` call does
+    (``solve_triangular()`` never makes such a node: it transposes ``a`` in
+    the graph)."""
+    cast = _cast_to(node)
+    trans = op.trans in (1, 2, "T", "C")
+    lower = op.lower != trans
+    solve = _as_matrix(op.b_ndim, lambda a, b: _trsm(a.mT if trans else a, b, lower,
+                                                     op.unit_diagonal))
+    return lambda a, b: solve(*cast(a, b))
+
+
+@torch_funcify.register(CholeskySolve)
+@ports(batched=True)
+def _cholesky_solve(op, node=None, **kw):
+    cast = _cast_to(node)
+    solve = _as_matrix(op.b_ndim, lambda c, b: _cho_solve(c, b, op.lower))
+    return lambda c, b: solve(*cast(c, b))
+
+
+@torch_funcify.register(Solve)
+@ports(batched=True)
+def _solve(op, node=None, **kw):
+    """``assume_a="pos"`` is a Cholesky factorisation of the symmetric part
+    of ``a`` (``jnp.linalg.cholesky``'s default) and two triangular solves,
+    as in the JAX package; any other is an LU solve."""
+    cast = _cast_to(node)
+    masks: dict = {}
+    if op.assume_a == "pos":
+        solve = _as_matrix(op.b_ndim, lambda a, b: _cho_solve(
+            _cholesky_lower((a + a.mT) / 2, masks), b, True))
+    else:
+        solve = _as_matrix(op.b_ndim, lambda a, b: torch.linalg.solve_ex(a, b)[0])
+    return lambda a, b: solve(*cast(a, b))
+
+
+@torch_funcify.register(MatrixInverse)
+@ports(batched=True)
+def _matrix_inverse(op, node=None, **kw):
+    cast = _cast_to(node)
+    return lambda x: torch.linalg.inv_ex(*cast(x))[0]
+
+
+@torch_funcify.register(Det)
+@ports(batched=True)
+def _det(op, node=None, **kw):
+    cast = _cast_to(node)
+    return lambda x: torch.linalg.det(*cast(x))
+
+
+@torch_funcify.register(SLogDet)
+@ports(batched=True)
+def _slogdet(op, node=None, **kw):
+    cast = _cast_to(node)
+    return lambda x: list(torch.linalg.slogdet(*cast(x)))
+
+
+@torch_funcify.register(Eigh)
+@ports(batched=True, reads_back="torch's eigh synchronises (cuSOLVER syevd)")
+def _eigh(op, node=None, **kw):
+    cast = _cast_to(node)
+    return lambda x: list(torch.linalg.eigh(*cast(x), UPLO=op.UPLO))
+
+
+@torch_funcify.register(QR)
+@ports(batched=True)
+def _qr(op, node=None, **kw):
+    if op.mode not in ("reduced", "complete", "r"):
+        raise NotImplementedError(f"torch lowering of QR(mode={op.mode!r})")
+    cast = _cast_to(node)
+
+    def qr(x):
+        q, r = torch.linalg.qr(*cast(x), mode=op.mode)
+        return r if op.mode == "r" else [q, r]
+
+    return qr
+
+
+@torch_funcify.register(SVD)
+@ports(batched=True, reads_back="torch's svd synchronises (cuSOLVER gesvd)")
+def _svd(op, node=None, **kw):
+    cast = _cast_to(node)
+    if not op.compute_uv:
+        return lambda x: torch.linalg.svdvals(*cast(x))
+    return lambda x: list(torch.linalg.svd(*cast(x), full_matrices=op.full_matrices))
+
+
+@torch_funcify.register(Lu)
+@ports(batched=True)
+def _lu(op, node=None, **kw):
+    """``A = P L U``, the convention of ``scipy.linalg.lu``."""
+    cast = _cast_to(node)
+
+    def lu(x):
+        p, l, u = torch.linalg.lu(*cast(x))
+        return [p @ l, u] if op.permute_l else [p, l, u]
+
+    return lu
+
+
+@torch_funcify.register(Expm)
+@ports(batched=True, reads_back="torch's matrix_exp copies a value from the host")
+def _expm(op, node=None, **kw):
+    cast = _cast_to(node)
+    return lambda x: torch.linalg.matrix_exp(*cast(x))
+
+
+@torch_funcify.register(TridiagonalSolve)
+@ports(batched=True)
+def _tridiagonal_solve(op, node=None, **kw):
+    """The dense tridiagonal matrix's LU solve (torch has no ``gtsv``; XLA's
+    ``tridiagonal_solve`` is the Thomas algorithm): ``dl[0]`` and ``du[-1]``
+    are ignored, as in ``lax.linalg``."""
+    cast = _cast_to(node)
+
+    def tridiagonal_solve(dl, d, du, b):
+        dl, d, du, b = cast(dl, d, du, b)
+        a = (torch.diag_embed(d) + torch.diag_embed(du[..., :-1], 1)
+             + torch.diag_embed(dl[..., 1:], -1))
+        solve = _as_matrix(op.b_ndim, lambda a, b: torch.linalg.solve_ex(a, b)[0])
+        return solve(a, b)
+
+    return tridiagonal_solve
+
+
 # --- blockwise ------------------------------------------------------------------
 
 def _core_node(node):
-    """The core op's node on inputs of the core types."""
+    """The core op's node on inputs of the core types.  An input with no
+    batch dimensions, or with broadcast ones added by a DimShuffle (the
+    padding of ``Blockwise.make_node``), is the core variable itself, so
+    that the core lowering sees what it is (a constant, an ``arange``)."""
     op = node.op
-    return op.core_op.make_node(*[
-        TensorType(i.type.dtype, i.type.shape[i.type.ndim - c:] if c else ())()
-        for i, c in zip(node.inputs, op._core_ndims()[0])])
+
+    def core(i, c):
+        nb = i.type.ndim - c
+        if nb and all(s == 1 for s in i.type.shape[:nb]) and i.owner is not None \
+                and isinstance(i.owner.op, DimShuffle) \
+                and i.owner.op.new_order == ("x",) * nb + tuple(range(c)):
+            i = i.owner.inputs[0]
+        if i.type.ndim == c:
+            return i
+        return TensorType(i.type.dtype, i.type.shape[i.type.ndim - c:] if c else ())()
+
+    return op.core_op.make_node(*[core(i, c) for i, c in zip(node.inputs, op._core_ndims()[0])])
 
 
 def _core_ports(kind):
@@ -786,13 +1111,14 @@ def _blockwise(op, node=None, device=None, **kw):
     """The core lowering over the broadcast batch dimensions
     (``pytensor_tpu/link/xla/dispatch.py:870``, ``jax.vmap`` of the core
     lowering).  An input whose batch dimensions are all 1 stays unbatched:
-    it is cut to its core and given whole to every batch element.  A
-    ``Dot`` of 2-d cores is one ``torch.matmul``, which broadcasts the
-    batch itself, as XLA computes ``jnp.dot`` under ``vmap``; any other
-    core lowering runs once for each element of the flattened batch."""
+    it is cut to its core and given whole to every batch element.  A core
+    lowering that declares ``batched`` (``ports``: the linalg lowerings, a
+    ``Dot`` of 2-d cores) takes the batch itself in one call, as XLA
+    batches a custom call under ``vmap``; any other runs once for each
+    element of the flattened batch."""
     in_core, _ = op._core_ndims()
     core_fn = torch_funcify(op.core_op, node=_core_node(node), device=device)
-    matmul = isinstance(op.core_op, Dot) and in_core == [2, 2]
+    batched = ports_of(node, "batched", op=op.core_op)
     out_types = node.outputs
 
     def blockwise(*args):
@@ -805,8 +1131,9 @@ def _blockwise(op, node=None, device=None, **kw):
             res = core_fn(*args)
             res = res if isinstance(res, (list, tuple)) else (res,)
             res = [r.reshape(batch + tuple(r.shape)) for r in res]
-        elif matmul:
-            res = [torch.matmul(*args)]
+        elif batched:
+            res = core_fn(*args)
+            res = res if isinstance(res, (list, tuple)) else (res,)
         else:
             n = int(np.prod(batch))
             flat = [a if inv else a.expand(batch + tuple(a.shape[a.ndim - c:])).reshape(

@@ -23,8 +23,9 @@ kept; a sparse constant (a scipy matrix) becomes its canonical CSR triple
 outputs of ``Shape`` and ``Shape_i``, the arithmetic on them, and the
 constants that feed a reshape, a shape check or a basic index, so that
 the run never waits on the device to learn a shape.  Matrix products
-run in full float32: a plan linked for a CUDA device turns TF32 off for
-matmuls while it runs and puts the setting back when it returns.
+run in full float32, and factorisations in cuSOLVER: a plan linked for a
+CUDA device turns TF32 off for matmuls and makes cuSOLVER torch's linalg
+library while it runs, and puts both settings back when it returns.
 
 Each intermediate is freed after its last reader, by free lists made at
 link time (the rule of the oracle linker's ``allow_gc``,
@@ -50,7 +51,7 @@ from pytensor_tpu_torch.link.torch.convert import (
     sparse_as_torch,
     torch_dtype,
 )
-from pytensor_tpu_torch.link.torch.dispatch import ports_of, torch_funcify
+from pytensor_tpu_torch.link.torch.dispatch import arange_index, ports_of, torch_funcify
 from pytensor_tpu_torch.sparse.type import SparseTensorType
 from pytensor_tpu_torch.tensor import fused_kernel
 from pytensor_tpu_torch.tensor.basic import MakeVector
@@ -78,13 +79,24 @@ def _takes_host_scalar(node, k, var) -> bool:
 
 
 def _host_variables(order, host_inputs=()) -> set:
+    """The values computed on the host: shapes, and what the host-capable
+    ops compute from them and constants.  A host-capable op of constants
+    alone (a graph no rewrite folded, such as a nested scan's body) runs on
+    the host where a host port reads what it computes, and on the device
+    otherwise."""
+    wanted: set = set()
+    for node in reversed(order):
+        wanted.update(node.inputs[k] for k in ports_of(node, "host"))
+        if isinstance(node.op, _HOST_CAPABLE) and any(o in wanted for o in node.outputs):
+            wanted.update(node.inputs)
     host: set = set(host_inputs)
     for node in order:
         if isinstance(node.op, (Shape, Shape_i)):
             host.update(node.outputs)
         elif (isinstance(node.op, _HOST_CAPABLE)
-              and any(i in host for i in node.inputs)
-              and all(i in host or isinstance(i, Constant) for i in node.inputs)):
+              and all(i in host or isinstance(i, Constant) for i in node.inputs)
+              and (any(i in host for i in node.inputs)
+                   or any(o in wanted for o in node.outputs))):
             host.update(node.outputs)
     return host
 
@@ -119,15 +131,18 @@ def _host_reads(steps, host) -> list:
       the JAX package would make the input a static argument
       (``pytensor_tpu/link/xla/linker.py:194-231``);
     - a bounds check (``_IndexCheck``, the ``checked`` ports) of an index
-      that is not a constant: ``idx.min()``/``idx.max()``.  The port raises
-      on an index out of bounds where the XLA path clamps, and keeps that;
+      that is neither a constant nor an ``arange`` of constant start and
+      step (``dispatch.py arange_index``, bounded by its size):
+      ``idx.min()``/``idx.max()``.  The port raises on an index out of
+      bounds where the XLA path clamps, and keeps that;
     - a host value at any other port of a node that runs on the device,
       which torch copies to the device (``MakeVector``'s ``.to(device)``);
       a lowering's ``scalar`` ports (an ``Elemwise``'s, K1's, the blas
       ops' alpha and beta) take a one-element host value as a scalar
       argument instead (``_takes_host_scalar``);
-    - a lowering that reads its output's size back from the device
-      (``reads_back``: ``Nonzero``);
+    - a lowering that reads the device on the host (``reads_back``:
+      ``Nonzero``'s output size; ``Eigh``, ``SVD`` and ``Expm``, whose
+      torch routines synchronise);
     - the same in the inner plan of a scan that runs as the step loop,
       which takes the host values and constants among the scan's
       non-sequences as host values and constants (``keeps_host``).
@@ -148,14 +163,15 @@ def _host_reads(steps, host) -> list:
             continue  # computed on the host from host values and constants
         ports, checked = ports_of(node, "host"), ports_of(node, "checked")
         keeps = ports_of(node, "keeps_host")
-        if ports_of(node, "reads_back"):
-            reads.append(f"{node}: its output length is read back from the device")
+        why = ports_of(node, "reads_back")
+        if why:
+            reads.append(f"{node}: {why}")
         for k, i in enumerate(node.inputs):
             if isinstance(i, Constant):
                 continue
             if k in ports and i not in host:
                 reads.append(f"{node}: input {k} is read on the host and lives on the device")
-            elif k in checked:
+            elif k in checked and arange_index(i) is None:
                 reads.append(f"{node}: the bounds check of index input {k} reads its min and "
                              "max on the host")
             elif (k not in ports and k not in keeps and i in host
@@ -227,14 +243,18 @@ class Plan:
         if self.device.type != "cuda":
             return self.run(args)
         # full float32 matmuls, as the float32 tests and the JAX package
-        # expect; the caller's setting is restored on return
-        matmul = torch.backends.cuda.matmul
-        prev = matmul.allow_tf32
+        # expect, and cuSOLVER for the factorisations: torch takes MAGMA for
+        # a batch of LU factorisations by default, which synchronises and a
+        # CUDA graph refuses.  The caller's settings are restored on return.
+        matmul, cuda = torch.backends.cuda.matmul, torch.backends.cuda
+        prev = matmul.allow_tf32, cuda.preferred_linalg_library()
         matmul.allow_tf32 = False
+        cuda.preferred_linalg_library("cusolver")
         try:
             return self.run(args)
         finally:
-            matmul.allow_tf32 = prev
+            matmul.allow_tf32 = prev[0]
+            cuda.preferred_linalg_library(prev[1])
 
     def run(self, args):
         global NODES_RUN

@@ -3,11 +3,11 @@
 Counterpart of ``pytensor_tpu/tensor/__init__.py`` for the modules the
 port has: ``type``, ``variable``, ``elemwise``, ``basic``, ``math``,
 ``shape``, ``subtensor``, ``blas``, ``blockwise``, ``type_other``,
-``sharedvar``, ``utils`` and ``exceptions``.  Not yet here (ROADMAP
-Queue 1): the special functions and ``functional`` (item 10),
-``extra_ops``, ``sort``, ``einsum``, ``pad``, ``fft``, ``signal`` and the
-rest of item 12, ``linalg`` (item 9), ``random`` (item 7) and bfloat16
-and complex tensors.
+``sharedvar``, ``utils``, ``exceptions``, ``linalg`` and ``sort``'s
+``sort`` and ``argsort``.  Not yet here (ROADMAP Queue 1): the special
+functions and ``functional`` (item 10), ``extra_ops``, ``topk``,
+``einsum``, ``pad``, ``fft``, ``signal`` and the rest of item 12,
+``random`` (item 7) and bfloat16 and complex tensors.
 """
 
 from pytensor_tpu_torch.tensor.type import *  # noqa: F401,F403
@@ -147,3 +147,10 @@ from pytensor_tpu_torch.tensor.blockwise import Blockwise  # noqa: F401,E402
 
 import pytensor_tpu_torch.tensor.type_other as slicetype  # noqa: F401,E402
 from pytensor_tpu_torch.tensor import exceptions, utils  # noqa: F401,E402
+
+from pytensor_tpu_torch.tensor.sort import argsort, sort  # noqa: F401,E402
+import pytensor_tpu_torch.tensor.linalg as linalg  # noqa: F401,E402
+
+# the legacy names of the linalg namespace, as in the JAX package
+slinalg = linalg
+nlinalg = linalg

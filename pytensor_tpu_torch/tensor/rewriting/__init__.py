@@ -8,4 +8,5 @@ import pytensor_tpu_torch.tensor.rewriting.basic  # noqa: F401
 import pytensor_tpu_torch.tensor.rewriting.math  # noqa: F401
 import pytensor_tpu_torch.tensor.rewriting.shape  # noqa: F401
 import pytensor_tpu_torch.tensor.rewriting.subtensor  # noqa: F401
+import pytensor_tpu_torch.tensor.rewriting.linalg  # noqa: F401
 import pytensor_tpu_torch.tensor.rewriting.blockwise  # noqa: F401

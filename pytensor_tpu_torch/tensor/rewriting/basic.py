@@ -2,7 +2,8 @@
 
 Counterpart of ``pytensor_tpu/tensor/rewriting/basic.py`` (PyTensor's
 tensor/rewriting/basic.py constant_folding:1236), cut to the rewrites that
-fire on the radon logp+dlogp graphs and on the Elman BPTT step.  Each keeps its name, tags and
+fire on the radon logp+dlogp graphs, the Elman BPTT step and the GP,
+Kalman and batched-Cholesky graphs.  Each keeps its name, tags and
 database, and the modules register in the JAX package's order.
 """
 
@@ -17,7 +18,7 @@ import numpy as np
 
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
-from pytensor_tpu_torch.tensor.basic import Alloc, as_tensor_variable, cast, constant
+from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector, as_tensor_variable, cast, constant
 from pytensor_tpu_torch.tensor.elemwise import DimShuffle, Elemwise
 
 
@@ -53,6 +54,18 @@ def constant_folding(fgraph, node):
 
 register_canonicalize(constant_folding, name="constant_folding")
 register_specialize(constant_folding, name="constant_folding_spec")
+
+
+@node_rewriter([DimShuffle])
+def local_useless_dimshuffle(fgraph, node):
+    """Remove identity DimShuffles."""
+    op = node.op
+    if op.new_order == tuple(range(op.input_ndim)):
+        return [node.inputs[0]]
+    return False
+
+
+register_canonicalize(local_useless_dimshuffle, name="local_useless_dimshuffle")
 
 
 @node_rewriter([DimShuffle])
@@ -161,6 +174,22 @@ def local_useless_fill(fgraph, node):
 
 
 register_useless(local_useless_fill, name="local_useless_fill")
+
+
+@node_rewriter([MakeVector])
+def local_makevector_cast_fold(fgraph, node):
+    """MakeVector over all-Constant scalars folds even when
+    do_constant_folding is conservative elsewhere."""
+    if not all(isinstance(i, Constant) for i in node.inputs):
+        return False
+    vals = np.asarray([i.data for i in node.inputs],
+                      dtype=node.outputs[0].type.numpy_dtype)
+    c = node.outputs[0].type.make_constant(vals)
+    copy_stack_trace(node.outputs[0], c)
+    return [c]
+
+
+register_canonicalize(local_makevector_cast_fold, name="local_makevector_cast_fold")
 
 
 @node_rewriter([DimShuffle])

@@ -4,7 +4,7 @@ Counterpart of ``pytensor_tpu/tensor/variable.py`` (PyTensor's
 tensor/variable.py _tensor_py_operators:26, TensorVariable:838,
 TensorConstant:1020).
 The methods that need modules the port has not yet (``extra_ops``,
-``sort``, ``printing``: ROADMAP Queue 1 items 6 and 12) raise
+``printing``: ROADMAP Queue 1 items 6 and 12) raise
 ``NotImplementedError``.
 """
 
@@ -364,12 +364,12 @@ class _tensor_py_operators:
         return repeat(self, repeats, axis)
 
     def sort(self, axis=-1, kind="quicksort", order=None):
-        raise NotImplementedError("sort needs tensor/sort.py, which the port has not yet")
+        from pytensor_tpu_torch.tensor.sort import sort
 
         return sort(self, axis, kind, order)
 
     def argsort(self, axis=-1, kind="quicksort", order=None):
-        raise NotImplementedError("argsort needs tensor/sort.py, which the port has not yet")
+        from pytensor_tpu_torch.tensor.sort import argsort
 
         return argsort(self, axis, kind, order)
 

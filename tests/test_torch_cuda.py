@@ -27,7 +27,11 @@ Elman BPTT step and its loop at small widths captured, with the eager
 plan's bits and the CPU's values at ``1e-5`` of ``max(1, max|cpu|)``; a
 ``Blockwise{Dot}`` and a looped ``Blockwise`` against the CPU at the
 same; a static BPTT under ``scan__pallas`` launching K2 once, for its
-forward scan, within ``1e-5`` of the step loop.
+forward scan, within ``1e-5`` of the step loop.  The GP step and its loop
+and the Kalman log-likelihood and gradient at small widths captured, with
+the eager plan's bits and the CPU's values at ``1e-5``; a
+``Blockwise{Cholesky}`` of 16 matrices as one ``cholesky_ex`` call, within
+``1e-12`` of the CPU (float64), with the NaN and lower-triangle contracts.
 """
 
 import numpy as np
@@ -890,3 +894,80 @@ def test_static_bptt_takes_k2_for_its_forward_scan(card):
     assert scan_kernel.LAUNCHES == before + 1
     for g, w in zip(got, loop(*vals)):
         assert _scaled(g, w) <= 1e-5
+
+
+# --- the linalg slice ------------------------------------------------------------------
+
+@pytest.mark.parametrize("steps", [1, 3], ids=["function", "train_loop"])
+def test_gp_step_is_captured_and_matches_the_cpu(card, steps):
+    """The GP SGD step (n 32, float32) and its loop: captured, the eager
+    plan's bits from the same state, the CPU's values."""
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models.gp import make_gp_sgd_step
+
+    def make(device, jit=True):
+        with config.change_flags(xla__jit=jit):
+            return make_gp_sgd_step(32, dtype="float32", n_steps_per_call=steps, device=device)
+
+    (f, ps), (f_e, ps_e), (f_c, ps_c) = make(card), make(card, False), make("cpu")
+    assert isinstance(f.linked, CapturedFunction) and f.linked.plan.host_reads == []
+    f()
+    for p in ps:
+        p.set_value(np.zeros((), "float32"))
+    out, out_e, out_c = f(), f_e(), f_c()
+    assert torch.equal(out, out_e)
+    assert _scaled(out.cpu(), out_c) <= 1e-5
+    for a, b, c in zip(ps, ps_e, ps_c):
+        assert torch.equal(a.get_value(), b.get_value())
+        assert _scaled(a.get_value().cpu(), c.get_value()) <= 1e-5
+
+
+def test_kalman_loglike_and_grad_is_captured_and_matches_the_cpu(card):
+    """16 steps: the pushed-out Blockwise nodes and both scans captured
+    (the diagonal gradient's ``arange`` indices are bounded by their size,
+    with no read of the device), the CPU's values."""
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models.kalman import make_kalman_loglike_and_grad
+
+    f, theta, _ = make_kalman_loglike_and_grad(16, dtype="float32", device=card)
+    f_c, _, _ = make_kalman_loglike_and_grad(16, dtype="float32", device="cpu")
+    assert isinstance(f.linked, CapturedFunction) and f.linked.plan.host_reads == []
+    args = [as_torch(np.asarray(v), card) for v in theta]
+    f(*args)
+    for g, w in zip(f(*args), f_c(*theta)):
+        assert g.dtype == w.dtype
+        assert _scaled(g.cpu(), w) <= 1e-5
+
+
+def test_blockwise_cholesky_is_one_batched_call(card):
+    """A Blockwise{Cholesky} of 16 matrices is one call of
+    ``torch.linalg.cholesky_ex``, with the CPU's values; a matrix that is
+    not positive definite is NaN in its lower triangle alone, and only the
+    lower triangle is read, on the card as on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.tensor import linalg as ptl
+
+    A = pt.tensor("A", dtype="float64", shape=(16, 8, 8))
+    f = ptt.function([A], ptl.cholesky(A), device=card)
+    f_c = ptt.function([A], ptl.cholesky(A), device="cpu")
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((16, 8, 8))
+    v = a @ a.transpose(0, 2, 1) + 8 * np.eye(8)
+    v[3] = np.tril(v[3]) + np.triu(rng.standard_normal((8, 8)) * 50, 1)  # garbage above
+    v[5, 0, 0] = -1.0  # not positive definite
+    x = as_torch(v, card)
+    f(x)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        f.linked.plan(x)
+    calls = sum(e.count for e in prof.key_averages() if e.key == "aten::linalg_cholesky_ex")
+    assert calls == 1
+    got, want = f(x).cpu(), f_c(v)
+    assert torch.equal(got.isnan(), want.isnan())
+    lower = torch.tril_indices(8, 8)
+    assert bool(got[5][lower[0], lower[1]].isnan().all()) and bool((got[5].triu(1) == 0).all())
+    ok = [k for k in range(16) if k != 5]
+    assert _scaled(got[ok], want[ok]) <= 1e-12

@@ -365,7 +365,7 @@ def test_k1_source_bool_results_match_plain(k1_host):
 _EXACT = {"gt", "le", "eq", "neq", "lt", "ge", "isnan", "isinf", "minimum", "and_", "or_",
           "xor", "invert", "left_shift", "right_shift", "int_div", "mod", "switch", "clip",
           "identity", "floor", "ceil", "trunc", "round_half_to_even",
-          "round_half_away_from_zero", "deg2rad", "rad2deg", "maximum", "abs", "neg"}
+          "round_half_away_from_zero", "deg2rad", "rad2deg", "maximum", "abs", "neg", "sign"}
 
 
 def _edge_values(dtype, n, seed):

@@ -1,5 +1,6 @@
-"""The logistic-regression, MLP and Elman RNN models of the port against
-the JAX package's, on the CPU at small widths.
+"""The logistic-regression, MLP, Elman RNN, GP, Kalman-filter and
+batched-Cholesky models of the port against the JAX package's, on the CPU
+at small widths.
 
 For the logistic-regression SGD step (``function`` and a 3-step
 ``train_loop``), the 2-layer MLP step, the deep MLP "MFU" step (float32),
@@ -12,8 +13,10 @@ package's ops, a
 ``Dot22Scalar`` and the scans' inner graphs included; the values match
 after 3 steps (losses and updated shared variables); and each linked plan
 reads nothing back from the device (``Plan.host_reads`` is empty), so on
-a card each is one CUDA graph.  Tolerance: float32 ``rtol 1e-5`` over
-``max(1, |value|)``: XLA and torch sum the products of a matmul and a
+a card each is one CUDA graph.  The linalg models (GP at n 32, the Kalman
+filter over 16 steps, the batched Cholesky at batch 4, n 8) also against
+float64 NumPy, each tolerance stated in its test.  Tolerance: float32
+``rtol 1e-5`` over ``max(1, |value|)``: XLA and torch sum the products of a matmul and a
 mean in other orders, and the MFU step's ramps are float32 ``sin``s.
 """
 
@@ -23,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+import pytensor_tpu.models.gp as jgp
+import pytensor_tpu.models.kalman as jkalman
 import pytensor_tpu.models.logreg as jlogreg
 import pytensor_tpu.models.mlp as jmlp
 import pytensor_tpu.models.rnn as jrnn
@@ -30,6 +35,8 @@ from pytensor_tpu.config import config as jconfig
 from pytensor_tpu.link.pallas.scan_pallas import pallas_scan_eligible
 
 import pytensor_tpu_torch as ptt
+import pytensor_tpu_torch.models.gp as tgp
+import pytensor_tpu_torch.models.kalman as tkalman
 import pytensor_tpu_torch.models.logreg as tlogreg
 import pytensor_tpu_torch.models.mlp as tmlp
 import pytensor_tpu_torch.models.rnn as trnn
@@ -249,3 +256,114 @@ def test_elman_step_defaults_to_the_card():
         pytest.skip("a card is present")
     with pytest.raises((RuntimeError, AssertionError)):
         trnn.make_elman_rnn_bptt(**ELMAN)
+
+
+# --- the linalg paths: the GP, the Kalman filter, the batched Cholesky ---------------
+
+def _linalg_pair(path):
+    from test_torch_linalg_rewrites import _functions
+
+    return _functions("jax")[path](), _functions("torch")[path]()
+
+
+@pytest.mark.parametrize("steps", [1, 3], ids=["function", "train_loop"])
+def test_gp_sgd_step(steps):
+    """The GP SGD step (n 32, float32) and its 3-step loop: the JAX
+    package's values after 3 calls (each nmll and the hyperparameters), and
+    the float64 NumPy SGD of ``gp_reference`` (closed-form gradient): the
+    first nmll to RTOL, the hyperparameters after all the steps to RTOL of
+    the largest update (a dropped update reads 1)."""
+    jf, jp = jgp.make_gp_sgd_step(n=32, dtype="float32", n_steps_per_call=steps)
+    tf, tp = tgp.make_gp_sgd_step(n=32, dtype="float32", n_steps_per_call=steps, device="cpu")
+    assert tf.linked.host_reads == []
+    nmlls = [tf() for _ in range(3)]
+    for k, got in enumerate(nmlls):
+        _close(got, jf(), f"nmll {k}")
+    for j, t in zip(jp, tp):
+        _close(t.get_value(), j.get_value(), t.name)
+    X, y = tgp.gp_data(32, 3, "float32")
+    ref_nmll, _, thetas = tgp.gp_reference(X, y, np.zeros(3), 1e-3, 3 * steps)
+    if steps == 1:
+        assert abs(float(nmlls[0]) - ref_nmll[0]) <= RTOL * ref_nmll[0]
+    got = np.array([float(_np(p.get_value())) for p in tp])
+    assert np.abs(got - thetas[-1]).max() <= RTOL * np.abs(thetas[-1]).max()
+
+
+def test_gp_marginal_likelihood_float64():
+    """The float64 nmll and its gradient against the JAX package's and
+    against ``gp_reference``, within 1e-12 and 1e-10 relative."""
+    jf, theta = jgp.make_gp_marginal_likelihood(n=32)
+    tf, _ = tgp.make_gp_marginal_likelihood(n=32, device="cpu")
+    got, want = [_np(v) for v in tf(*theta)], [_np(v) for v in jf(*theta)]
+    assert [g.dtype for g in got] == [w.dtype for w in want] == [np.float64] * 4
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    nmll, grads, _ = tgp.gp_reference(*tgp.gp_data(32, 3, "float64"), np.zeros(3))
+    np.testing.assert_allclose(got, [nmll[0], *grads[0]], rtol=1e-10)
+
+
+def test_kalman_loglike_and_grad():
+    """16 steps, k 4, p 2, float32: the log-likelihood is float64 on the
+    float32 data in both packages; the outputs against the JAX package's
+    (RTOL), against ``numpy_kalman_loglike`` (float64; 1e-6, the filter's
+    float32 rounding) and the gradient against central differences of it
+    (1e-4 of max|g|)."""
+    jf, theta, (ys, Z) = jkalman.make_kalman_loglike_and_grad(16, dtype="float32")
+    tf, theta2, (ys2, Z2) = tkalman.make_kalman_loglike_and_grad(16, dtype="float32",
+                                                                 device="cpu")
+    np.testing.assert_array_equal(ys, ys2)
+    assert tf.linked.host_reads == []
+    got, want = tf(*theta), jf(*theta)
+    for k, (g, w) in enumerate(zip(got, want)):
+        _close(g, w, f"output {k}")
+    T, lq, lh = (np.asarray(v, "float64") for v in theta)
+    ll = tkalman.numpy_kalman_loglike(ys.astype("float64"), T, Z.astype("float64"),
+                                      np.exp(lq), np.exp(lh))
+    assert abs(float(got[0]) - ll) <= 1e-6 * abs(ll)
+    for g, r in zip(got[1:], tkalman.numpy_kalman_grad(ys, T, Z, lq, lh)):
+        assert np.abs(_np(g) - r).max() <= 1e-4 * max(1.0, np.abs(r).max())
+
+
+@pytest.mark.parametrize("path", ["kalman step", "kalman loop", "chol step", "chol loop"])
+def test_kalman_and_batched_cholesky_steps(path):
+    """The Kalman SGD step of ``benchsuite.py:1129`` (16 steps, shared T)
+    and the batched Cholesky step of ``benchsuite.py:978`` (batch 4, n 8),
+    each with its 3-step loop: the JAX package's outputs after 3 calls and
+    its state (RTOL)."""
+    jf, tf = _linalg_pair(path)
+    for k in range(3):
+        _close(tf(), jf(), f"{path} {k}")
+    jstate = {v.name: v.get_value() for v in jf.maker.fgraph.inputs if hasattr(v, "get_value")}
+    tstate = {v.name: v.get_value() for v in tf.shared_vars}
+    assert set(jstate) == set(tstate)
+    for name, v in tstate.items():
+        _close(v, jstate[name], name)
+
+
+def test_batched_cholesky_against_numpy():
+    """The loss, ``sum(L ** 2)``, is the sum of the traces of A; L against
+    float64 NumPy over max|L| and the gradient against the identity, to
+    RTOL."""
+    from pytensor_tpu_torch.models import batched_cholesky as tbc
+
+    f, A = tbc.make_batched_cholesky_step(4, 8, device="cpu")
+    A0 = tbc.spd_stack(4, 8).astype("float64")
+    loss = float(f())
+    assert abs(loss - np.trace(A0, axis1=1, axis2=2).sum()) <= RTOL * loss
+    A.set_value(tbc.spd_stack(4, 8))
+    L = ptt.tensor.linalg.cholesky(A)
+    L_v, g_v = ptt.function([], [L, ptt.grad(ptt.tensor.sum(L ** 2), A)], device="cpu")()
+    ref = np.linalg.cholesky(A0)
+    assert np.abs(_np(L_v) - ref).max() <= RTOL * np.abs(ref).max()
+    assert np.abs(_np(g_v) - np.eye(8)).max() <= RTOL
+
+
+def test_linalg_makers_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from pytensor_tpu_torch.models import batched_cholesky as tbc
+
+    for make in (lambda: tgp.make_gp_sgd_step(8), lambda: tgp.make_gp_marginal_likelihood(8),
+                 lambda: tkalman.make_kalman_loglike_and_grad(4),
+                 lambda: tkalman.make_kalman_sgd_step(4), lambda: tbc.make_batched_cholesky_step(2, 3)):
+        with pytest.raises((RuntimeError, AssertionError)):
+            make()
