@@ -1,6 +1,6 @@
 """Drive the torch port's radon, sparse, logistic-regression, MLP, Elman
-RNN and linalg (GP, Kalman filter, batched Cholesky) paths on one NVIDIA
-GPU.
+RNN, linalg (GP, Kalman filter, batched Cholesky) and special-function
+(the bessel loop) paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -152,6 +152,28 @@ Phases, one line or more each, and any failure raises:
    device ms a call, captured and eager, busy share, steps/s, kernels a
    call with the top ones by name and cuSOLVER's factorisation kernels a step.
    K1's and K2's ``launches_by_path`` gain these eight paths.
+14. special: every special function of ``scalar/math.py`` that K1 emits
+   (``link/cuda/special.py``), as a one-node K1 launch in float32 and
+   float64 on its grid (``link/cuda/cases.py SPECIAL_GRIDS``, the Bessel
+   functions also on ``tests/test_bessel_native.py``'s 12 x 12 grid) and
+   numpy's edges, held against float64 scipy (``SPECIAL_RTOL``; the edges
+   give scipy's value or the plain version's) and against its plain
+   version on the card; timed in float32 at 4,096 and at 2**24 elements
+   against its byte bound and the ``torch.special`` call where one exists
+   (``SPECIAL_LIBRARY``).  Then the bessel loop of ``benchsuite.py:1067
+   ours_bessel`` (``models/bessel.py``: 4,096 float32, 16 steps, captured):
+   (i) the step loop, K1 twice a step (kve and ive as one-node launches),
+   (ii) under ``scan__pallas``, one K2 launch a call, with K2 against its
+   plain step loop on the CPU, and (iii) the function of y and of
+   ``grad(sum(y), v)``, K1 on its fused nodes and on kve and ive alone;
+   each against float64 scipy (``BESSEL_TOL``), the replay against the
+   eager plan by sha256, launches in one replayed call (counts set to 0
+   just before it), wall and device ms a call, busy share and full-vector
+   kve+ive evals/s as ``benchsuite.py:1091-1092`` counts them.  Then Queue
+   3 item 1's stabilised expressions on the card against the reference's
+   values.  Phase 3 also runs one fused node a float dtype of every special
+   function against its plain version.  K1's and K2's ``launches_by_path``
+   gain ``special``.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -278,7 +300,9 @@ def device_ms(fn, n_iter, warmup=2):
     launches a call, the same in every call, are its traced count over
     ``n_iter`` rounded up.  Returns ``(ms, {name: (ms, launches)})``, both
     per call.  A trace that holds no CUDA kernel at all (on the H100 one of
-    some twenty traces in a run did) is taken again, up to three times.
+    some twenty traces in a run did, and three in a row in two runs) is
+    taken again, up to three times, and then the calls are timed with CUDA
+    events instead, with no split by kernel (an empty dict).
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -300,7 +324,12 @@ def device_ms(fn, n_iter, warmup=2):
             break
         say(f"  (torch.profiler traced no CUDA kernel, trace {attempt + 1} of 3)")
     else:
-        raise AssertionError("torch.profiler traced no CUDA kernel in three traces")
+        # fall back to CUDA events around the calls, which include the
+        # host's gaps, and no split by kernel
+        ms = wall_ms(fn, n_iter, warmup=0)
+        say(f"  (torch.profiler traced no CUDA kernel in three traces: {ms:.4f} ms a call from "
+            f"CUDA events, not split by kernel)")
+        return ms, {}
     by_name = {k: (ms / c * -(-c // n_iter), -(-c // n_iter)) for k, (ms, c) in by_name.items()}
     return sum(ms for ms, _ in by_name.values()), by_name
 
@@ -400,8 +429,9 @@ def k4_ms(launch, n_iter, flush=None):
             flush.zero_()
         return launch()
 
-    _, by_name = device_ms(call, n_iter)
-    return next(ms / count for kn, (ms, count) in by_name.items() if "spmv_csr_kernel" in kn)
+    total, by_name = device_ms(call, n_iter)
+    return next((ms / count for kn, (ms, count) in by_name.items() if "spmv_csr_kernel" in kn),
+                total)
 
 
 def parent_k4(root):
@@ -1484,6 +1514,393 @@ def phase_linalg(dev, smi_line):
     return launches, k1_abs
 
 
+# --- 14. the special functions and the bessel loop ---------------------------------
+
+# the tolerances of the special functions against float64 scipy
+# (tests/test_op_grids_special.py and tests/test_bessel_native.py, the JAX
+# package's own): float64 rtol 5e-9 with atol 1e-12 on the grids, a Bessel
+# function within 1e-9 absolute or 5e-8 relative; float32 2e-5 of
+# max(1, |scipy|).  Against the plain version on the card: float64 5e-9,
+# float32 2e-5 of max(1, |plain|), NaN and infinities where it has them
+SPECIAL_RTOL = {"float32": 2e-5, "float64": 5e-9}
+# the bessel loop's float32 state and output after 16 steps, and path
+# (iii)'s y and gradient, against float64 scipy: rel err (float32's
+# rounding of v ~ 2 over 16 steps, and of 0.999 + the Bessel terms)
+BESSEL_TOL = 2e-6
+BESSEL_STEPS = 16
+# the float32 sizes each special function is timed at
+SPECIAL_TIMING_SIZES = (4096, 2 ** 24)
+# the torch.special call that computes the same function, timed as the
+# library column (the port never calls one on the card); kve and ive have
+# one for order 1 alone, timed on that order
+SPECIAL_LIBRARY = {
+    "erf": "erf", "erfc": "erfc", "erfinv": "erfinv", "erfcx": "erfcx", "gammaln": "gammaln",
+    "psi": "digamma", "tri_gamma": ("polygamma", 1), "polygamma": ("polygamma", 2),
+    "i0": "i0", "i1": "i1", "ndtr": "ndtr", "ndtri": "ndtri", "logit": "logit",
+    "xlogy": "xlogy", "xlog1py": "xlog1py", "j0": "bessel_j0", "j1": "bessel_j1",
+    "kve": "scaled_modified_bessel_k1", "ive": "i1e", "gammainc": "gammainc",
+    "gammaincc": "gammaincc"}
+# Queue 3 item 1's stabilised expressions (float64) and the reference's
+# values
+STABILISED = [
+    ("x == x", lambda p, t, x: t.eq(x, x), [np.nan, 0.0, 2.0, np.inf], [1.0] * 4),
+    ("x % x", lambda p, t, x: x % x, [np.nan, 0.0, 2.0, np.inf], [0.0] * 4),
+    ("0 / x", lambda p, t, x: 0 / x, [np.nan, 0.0, 2.0, np.inf], [0.0] * 4),
+    ("log(1 + x)", lambda p, t, x: t.log(1 + x), [1e-20], [1e-20]),
+    ("exp(x) - 1", lambda p, t, x: t.exp(x) - 1, [1e-20], [1e-20]),
+    ("log(sum(exp(x)))", lambda p, t, x: t.log(t.sum(t.exp(x))), [800.0], [800.0]),
+    ("exp(x) * exp(-x)", lambda p, t, x: t.exp(x) * t.exp(-x), [800.0], [1.0]),
+    ("log(1 + exp(x))", lambda p, t, x: t.log(1 + t.exp(x)), [800.0], [800.0]),
+    ("grad log(1 + exp(x))", lambda p, t, x: p.grad(t.sum(t.log(1 + t.exp(x))), x), [800.0],
+     [1.0]),
+    ("log(sigmoid(x))", lambda p, t, x: t.log(t.sigmoid(x)), [-800.0], [-800.0]),
+    ("log(1 - sigmoid(x))", lambda p, t, x: t.log(1 - t.sigmoid(x)), [800.0], [-800.0]),
+    ("log(1 - exp(x))", lambda p, t, x: t.log(1 - t.exp(x)), [-1e-20], [np.log(1e-20)]),
+]
+
+
+def special_kernels(dev):
+    """The K1 and K2 kernels of phase 14, for the build pool of phase 2:
+    each special function as a one-node K1 kernel in float32 and float64
+    (``{(name, dtype): function}``, each with its kernel as ``.k1``), the
+    kernels of the bessel loop's step (its kve and ive alone), of the
+    function of y and its gradient (graphs rewritten on the CPU give the
+    same sources, so linking them for the card finds them built), and K2
+    of the loop under ``scan__pallas``.  Returns (one-node functions, lists
+    of K1 kernels to build a library each, K2 kernels)."""
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda import cases, scan_kernel
+    from pytensor_tpu_torch.link.torch.dispatch import _one_node_k1
+    from pytensor_tpu_torch.models.bessel import make_bessel_functions, make_bessel_loop
+    from pytensor_tpu_torch.scan.op import Scan
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    one_node = {}
+    for dtype in ("float32", "float64"):
+        for name in sorted(cases.SPECIAL_GRIDS):
+            node = cases.special_node(name, dtype)
+            one_node[name, dtype] = _one_node_k1(node.op, node, dev)
+    f_loop, _ = make_bessel_loop(64, 2, device="cpu")
+    loop_node = next(nd for nd in f_loop.fgraph.apply_nodes if isinstance(nd.op, Scan))
+    f_fun, _ = make_bessel_functions(64, device="cpu")
+    paths = [_one_node_k1(nd.op, nd, dev).k1
+             for fg in (loop_node.op.fgraph, f_fun.fgraph) for nd in fg.toposort()
+             if getattr(getattr(nd.op, "scalar_op", None), "special", False)]
+    paths += [fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+              for nd in f_fun.fgraph.toposort() if isinstance(nd.op, FusedElemwise)]
+    with config.change_flags(scan__pallas=True):
+        f_k2, _ = make_bessel_loop(BESSEL_N_K2, BESSEL_STEPS, device="cpu")
+    k2_node = next(nd for nd in f_k2.fgraph.apply_nodes if isinstance(nd.op, Scan))
+    # the libraries, cut so that the compilers run side by side: the Bessel
+    # functions (the longest sources) a library each dtype, the others in two
+    bessel = set(cases.BESSEL_OPS)
+    libs = [[one_node[n, d].k1 for n in sorted(cases.SPECIAL_GRIDS) if (n in bessel) == b]
+            for d in ("float32", "float64") for b in (True, False)]
+    libs.append(paths)
+    return one_node, libs, [scan_kernel.ScanKernel(k2_node.op, k2_node, dev)]
+
+
+# the bessel loop's vector (benchsuite.py:1064 BESSEL_N)
+BESSEL_N_K2 = 4096
+
+
+def _special_checks(name, dtype, vals, got, plain, n_edges):
+    """Phase 14's holds of one op: against float64 scipy on the grid, the
+    edges against scipy's or the plain version's value, and every point
+    against the plain version.  Returns the worst errors."""
+    from pytensor_tpu_torch.link.cuda import cases
+
+    want = cases.scipy_special(name, vals)
+    g = got.double().cpu().numpy()
+    p = plain.double().cpu().numpy()
+    grid, edge = slice(0, len(g) - n_edges), slice(len(g) - n_edges, None)
+    # against scipy on the grid
+    w, gg = want[grid], g[grid]
+    both_nan = np.isnan(w) & np.isnan(gg)
+    if dtype == "float32":
+        fin = np.isfinite(w) & (np.abs(w) < np.finfo(np.float32).max)
+        err = np.abs(gg[fin] - w[fin]) / np.maximum(1.0, np.abs(w[fin]))
+        ok = err <= SPECIAL_RTOL[dtype]
+        worst = float(err.max(initial=0.0))
+    elif name in cases.BESSEL_OPS:
+        fin = np.isfinite(w)
+        diff = np.abs(gg[fin] - w[fin])
+        ok = (diff < 1e-9) | (diff / np.maximum(np.abs(w[fin]), 1e-280) < 5e-8)
+        worst = float(np.where(ok, 0.0, diff).max(initial=0.0))
+    else:
+        fin = np.isfinite(w)
+        diff = np.abs(gg[fin] - w[fin])
+        ok = diff <= 1e-12 + 5e-9 * np.abs(w[fin])
+        worst = float((diff / np.maximum(1.0, np.abs(w[fin]))).max(initial=0.0))
+    nonfin = ~np.isfinite(w) & ~both_nan
+    if not ok.all() or not np.array_equal(gg[nonfin & ~np.isnan(w)], w[nonfin & ~np.isnan(w)]):
+        bad = np.flatnonzero(fin)[~ok][:4]
+        raise AssertionError(f"phase 14 {name} {dtype}: against scipy at "
+                             f"{[tuple(float(v[i]) for v in vals) for i in bad]}: "
+                             f"kernel {gg[bad]}, scipy {w[bad]}")
+
+    # the edges: scipy's value or the plain version's
+    def same(a, b):
+        close = np.isclose(a, b, rtol=SPECIAL_RTOL[dtype], atol=0)
+        return (np.isnan(a) & np.isnan(b)) | (a == b) | close
+
+    e_ok = same(g[edge], want[edge]) | same(g[edge], p[edge])
+    if not e_ok.all():
+        raise AssertionError(f"phase 14 {name} {dtype}: at numpy's edges "
+                             f"{[float(v[len(g) - n_edges + i]) for v in vals for i in range(n_edges)]}"
+                             f" kernel {g[edge]}, scipy {want[edge]}, plain {p[edge]}")
+    # against the plain version everywhere
+    if not np.array_equal(np.isnan(g), np.isnan(p)) or not np.array_equal(
+            g[np.isinf(p)], p[np.isinf(p)]):
+        raise AssertionError(f"phase 14 {name} {dtype}: NaN or inf where the plain version "
+                             f"has none")
+    fin_p = np.isfinite(p)
+    err_p = float((np.abs(g[fin_p] - p[fin_p]) / np.maximum(1.0, np.abs(p[fin_p])))
+                  .max(initial=0.0))
+    if not err_p <= SPECIAL_RTOL[dtype]:
+        raise AssertionError(f"phase 14 {name} {dtype}: rel err {err_p} against the plain "
+                             f"version > {SPECIAL_RTOL[dtype]}")
+    return worst, err_p, float(np.abs(g[fin_p] - p[fin_p]).max(initial=0.0))
+
+
+def _library_call(name, args):
+    """The torch.special call of SPECIAL_LIBRARY on the op's inputs (the
+    order of kve and ive dropped: the call computes order 1)."""
+    import torch
+
+    spec = SPECIAL_LIBRARY[name]
+    fn, lead = (spec, ()) if isinstance(spec, str) else (spec[0], (spec[1],))
+    call = getattr(torch.special, fn)
+    if name in ("kve", "ive"):
+        args = args[1:]
+    return lambda: call(*lead, *args)
+
+
+def phase_special(dev, smi_line, one_node):
+    """Phase 14: every special function, one-node K1 launches in float32
+    and float64 on its grid, held against float64 scipy and its plain
+    version on the card and timed at 4,096 and 2**24 float32 elements
+    against its byte bound and the torch.special call; the bessel loop of
+    ``benchsuite.py:1067 ours_bessel`` at its own size (4,096 float32, 16
+    steps, captured) as (i) the step loop with kve and ive as one-node K1
+    launches and (ii) one K2 launch under ``scan__pallas``, and (iii) the
+    function of y and of its gradient, where K1 fuses the expression; the
+    stabilised expressions of Queue 3 item 1 on the card.  Returns the
+    launches of the paths, K1's and K2's largest absolute errors and the
+    op table's rows."""
+    import torch
+
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda import cases, scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.dispatch import _one_node_k1 as one_node_k1
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models import radon_kernel
+    from pytensor_tpu_torch.models.bessel import (
+        bessel_grad_reference,
+        bessel_reference,
+        make_bessel_functions,
+        make_bessel_loop,
+        v_start,
+    )
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    t14 = time.perf_counter()
+    k1_abs = 0.0
+    rows = []
+    n_edges = len(cases.SPECIAL_EDGES)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for dtype in ("float32", "float64"):
+        worst = {}
+        for name in sorted(cases.SPECIAL_GRIDS):
+            fn = one_node[name, dtype]
+            vals = cases.special_inputs(name, dtype, 4096, 14)
+            args = [as_torch(v, dev) for v in vals]
+            got = fn.k1.launch(*args)[0]
+            plain = fn.k1.plain(*args)[0]
+            torch.cuda.synchronize()
+            # the grids' values reach 1e300 in float64, so their absolute
+            # errors go to this phase's line, not to the kernel line's
+            e_sp, e_plain, _ = _special_checks(name, dtype, vals, got, plain, n_edges)
+            worst[name] = (e_sp, e_plain)
+            if dtype != "float32":
+                continue
+            # times, float32: at 4,096 and at 2**24 elements on the op's grid
+            row = {"op": name, "max_err_scipy": e_sp, "max_err_plain": e_plain}
+            for n in SPECIAL_TIMING_SIZES:
+                t_args = [(torch.rand(n, device=dev, generator=gen) * (g[1] - g[0]) + g[0])
+                          for g in cases.SPECIAL_GRIDS[name] if not isinstance(g, float)]
+                out = fn.k1.launch(*t_args)[0]
+                n_iter = 20 if n > 4096 else 200
+                us = wall_ms(lambda: fn.k1.launch(*t_args), n_iter) * 1e3
+                b_ms, b_by = bound(nbytes(*t_args, out), n)
+                lib = (wall_ms(_library_call(name, t_args), n_iter) * 1e3
+                       if name in SPECIAL_LIBRARY else None)
+                row[n] = (us, b_ms * 1e3, b_by, lib)
+                del t_args, out
+            rows.append(row)
+            r4, r24 = (row[n] for n in SPECIAL_TIMING_SIZES)
+            say(f"  special {name:10s} float32: {r4[0]:9.2f} us at 4,096 (bound {r4[1]:.4f} us, "
+                f"torch.special {'-' if r4[3] is None else f'{r4[3]:.2f}'} us); "
+                f"{r24[0]:10.1f} us at 2**24 (bound {r24[1]:.1f} us {r24[2]}, torch.special "
+                f"{'-' if r24[3] is None else f'{r24[3]:.1f}'} us); max err vs scipy "
+                f"{e_sp:.2e}, vs plain {e_plain:.2e}")
+        say(f"special functions {dtype}: {len(worst)} ops, one-node K1 launches on their grids "
+            f"(4,096 points each, the Bessel functions also on tests/test_bessel_native.py's "
+            f"12 x 12 grid) and numpy's edges, held against float64 scipy (max "
+            f"{max(e for e, _ in worst.values()):.2e}) and the plain version on the card (max "
+            f"{max(e for _, e in worst.values()):.2e}); tol {SPECIAL_RTOL[dtype]:g}")
+
+    def zero():
+        fused_kernel.LAUNCHES = radon_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+        spmv_kernel.LAUNCHES = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": scan_kernel.LAUNCHES}
+
+    v0 = v_start(BESSEL_N_K2)
+    want_v, want_y0 = bessel_reference(v0, BESSEL_STEPS)
+    launches, prof = {}, {}
+    # K1 on the loop's one-node kve and ive against their plain versions,
+    # on the loop's first state
+    for name, order in (("kve", 1.0), ("ive", 0.5)):
+        x = pt.vector("x", dtype="float32")
+        node = getattr(pt, name)(order, x).owner
+        fn = one_node_k1(node.op, node, dev)
+        got, want = fn.k1.launch(as_torch(v0, dev))[0], fn.k1.plain(as_torch(v0, dev))[0]
+        torch.cuda.synchronize()
+        e_abs, e_rel = errors(got.cpu(), want.cpu())
+        if not e_rel <= SPECIAL_RTOL["float32"]:
+            raise AssertionError(f"the loop's {name}({order}, v): rel err {e_rel} against the "
+                                 f"plain version")
+        k1_abs = max(k1_abs, e_abs)
+    for tag, pallas in (("bessel loop (i)", False), ("bessel loop (ii) scan__pallas", True)):
+        with config.change_flags(scan__pallas=pallas):
+            f, v = make_bessel_loop(BESSEL_N_K2, BESSEL_STEPS, device=dev)
+            with config.change_flags(xla__jit=False):
+                f_e, v_e = make_bessel_loop(BESSEL_N_K2, BESSEL_STEPS, device=dev)
+        if not isinstance(f.linked, CapturedFunction) or f.linked.plan.host_reads:
+            raise AssertionError(f"{tag}: not captured")
+        f()  # the capturing call; the counted call is a replay from v0
+        v.set_value(as_torch(v0, dev))
+        zero()
+        y0 = f()
+        launches[tag] = counts()
+        want_launches = ({"fused_elemwise": 0, "scan_whole_loop": 1} if pallas else
+                         {"fused_elemwise": 2 * BESSEL_STEPS, "scan_whole_loop": 0})
+        if launches[tag] != want_launches:
+            raise AssertionError(f"{tag}: one call launched {launches[tag]}, not {want_launches}")
+        got_v = v.get_value().double().cpu().numpy()
+        e_v = float(np.max(np.abs(got_v - want_v) / np.abs(want_v)))
+        e_y = abs(float(y0) - want_y0) / abs(want_y0)
+        if not (np.all(np.isfinite(got_v)) and e_v <= BESSEL_TOL and e_y <= BESSEL_TOL):
+            raise AssertionError(f"{tag}: rel err v {e_v}, y[0] {e_y} against float64 scipy > "
+                                 f"{BESSEL_TOL}")
+        runs = {}
+        for kind, fn, var in (("replayed", f, v), ("eager", f_e, v_e)):
+            var.set_value(as_torch(v0, dev))
+            runs[kind] = digest(fn(), var.get_value())
+        if runs["replayed"] != runs["eager"]:
+            raise AssertionError(f"{tag}: the replay differs from the eager plan")
+        say(f"{tag}: {BESSEL_N_K2:,} float32, train_loop({BESSEL_STEPS} steps), captured; one "
+            f"replayed call launched {launches[tag]}; v rel err {e_v:.2e}, y[0] {e_y:.2e} "
+            f"against float64 scipy (tol {BESSEL_TOL:g}); sha256 replayed {runs['replayed']}, "
+            f"eager {runs['eager']}")
+        # K2's launch of ~2 ms is one of the few kernels of a call, and the
+        # trace can miss a long kernel: trace 20 calls
+        row = captured_vs_eager(tag, f, f_e, [f.linked], 20, n_dev=20)
+        prof[tag] = row
+        c = row["captured"]
+        say(f"{tag}: {c['wall']:.4f} ms a call, device {c['dev']:.4f} ms, busy "
+            f"{c['dev'] / c['wall']:.3f}; {BESSEL_STEPS * 1e3 / c['wall']:,.0f} full-vector "
+            f"kve+ive evals/s (benchsuite.py:1091-1092: k_inner over the time of a call)")
+        for kname, (ms, cnt) in sorted(c["by"].items(), key=lambda kv: -kv[1][0])[:6]:
+            say(f"  {ms:.4f} ms/call  {cnt:.0f} launches/call  {kname[:90]}")
+    # K2 of (ii) against its plain version, the step loop of plain torch
+    # ops on the CPU, from the same state
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
+
+    with config.change_flags(scan__pallas=True):
+        f2, _ = make_bessel_loop(BESSEL_N_K2, BESSEL_STEPS, device=dev)
+    plan2 = f2.linked.plan
+    kern2, node2 = next((fn, nd) for fn, nd, *_ in plan2.steps if type(fn).__name__ == "ScanKernel")
+    feed = fgraph_to_torch(FunctionGraph(plan2.fgraph.inputs, node2.inputs, clone=False), dev)
+    n_steps, *outer = feed(as_torch(v0, dev))
+    got2 = kern2.launch(n_steps, *outer)
+    plain2 = type(kern2)(node2.op, node2, "cpu").plain(n_steps, *[o.cpu() for o in outer])
+    torch.cuda.synchronize()
+    pairs = [errors(g.cpu(), w) for g, w in zip(got2, plain2)]
+    k2_abs = max(p_[0] for p_ in pairs)
+    if not max(p_[1] for p_ in pairs) <= BESSEL_TOL:
+        raise AssertionError(f"K2 bessel loop: rel err {max(p_[1] for p_ in pairs)} against the "
+                             f"plain step loop > {BESSEL_TOL}")
+    say(f"K2 bessel loop against its plain step loop (torch ops, CPU): max abs err {k2_abs:.2e}, "
+        f"rel {max(p_[1] for p_ in pairs):.2e} (tol {BESSEL_TOL:g})")
+
+    # (iii): the function of y and of its gradient, K1 fusing the expression
+    f3, v3 = make_bessel_functions(BESSEL_N_K2, device=dev)
+    with config.change_flags(xla__jit=False):
+        f3_e, _ = make_bessel_functions(BESSEL_N_K2, device=dev)
+    f3()
+    zero()
+    y3, g3 = f3()
+    tag = "bessel function and gradient (iii)"
+    launches[tag] = counts()
+    n_fused = sum(isinstance(nd.op, FusedElemwise) for nd in f3.fgraph.apply_nodes)
+    n_special = sum(getattr(getattr(nd.op, "scalar_op", None), "special", False)
+                    for nd in f3.fgraph.apply_nodes)
+    if launches[tag] != {"fused_elemwise": n_fused + n_special, "scan_whole_loop": 0}:
+        raise AssertionError(f"{tag}: launched {launches[tag]}; K1 once a fused node "
+                             f"({n_fused}) and a special function alone ({n_special})")
+    want_y, want_g = bessel_grad_reference(v0)
+    e3 = {"y": float(np.max(np.abs(y3.double().cpu().numpy() - want_y) / np.abs(want_y))),
+          "grad": float(np.max(np.abs(g3.double().cpu().numpy() - want_g) / np.abs(want_g)))}
+    if not all(e <= BESSEL_TOL for e in e3.values()):
+        raise AssertionError(f"{tag}: rel err {e3} against float64 scipy > {BESSEL_TOL}")
+    d3 = digest(*f3()), digest(*f3_e())
+    if d3[0] != d3[1]:
+        raise AssertionError(f"{tag}: the replay differs from the eager plan")
+    say(f"{tag}: ops {[type(nd.op).__name__ for nd in f3.fgraph.toposort()]}; one replayed call "
+        f"launched {launches[tag]}; rel err {_fmt(e3)} against float64 scipy's closed forms "
+        f"(tol {BESSEL_TOL:g}); sha256 replayed {d3[0]}, eager {d3[1]}")
+    prof[tag] = captured_vs_eager(tag, f3, f3_e, [f3.linked], 50, n_dev=20)
+    # K1 on each fused node of (iii) against its plain version, on the
+    # inputs the function gives it
+    nodes = [nd for nd in f3.fgraph.toposort() if isinstance(nd.op, FusedElemwise)]
+    feed = fgraph_to_torch(FunctionGraph(f3.fgraph.inputs, [i for nd in nodes for i in nd.inputs],
+                                         clone=False), dev)
+    values = iter(feed(v3.get_value()))
+    for nd in nodes:
+        args = [next(values) for _ in nd.inputs]
+        kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+        for g_, w_ in zip(kern.launch(*args), kern.plain(*args)):
+            err = rel_err(g_.cpu(), w_.cpu())
+            if not err <= SPECIAL_RTOL["float32"]:
+                raise AssertionError(f"{tag}: K1 {nd.op} rel err {err} against its plain version")
+            k1_abs = max(k1_abs, errors(g_.cpu(), w_.cpu())[0])
+    say(f"{tag}: K1 on its {len(nodes)} fused nodes against the plain version, on the inputs the "
+        f"function gives them: within {SPECIAL_RTOL['float32']:g}")
+
+    # Queue 3 item 1's stabilised expressions on the card
+    for expr, build, vals, want in STABILISED:
+        x = pt.dvector("x")
+        f = ptt.function([x], build(ptt, pt, x), device=dev)
+        got = f(as_torch(np.asarray(vals), dev))
+        got = np.asarray(got.double().cpu().numpy(), dtype="float64")
+        if not np.allclose(got, np.asarray(want, dtype="float64"), rtol=1e-12, atol=0):
+            raise AssertionError(f"stabilised {expr}: {got}, the reference's {want}")
+    say(f"Queue 3 item 1 on the card: {len(STABILISED)} expressions give the reference's values "
+        f"({', '.join(e for e, *_ in STABILISED)})")
+    say(f"special phase done in {time.perf_counter() - t14:.1f} s")
+    return launches, k1_abs, k2_abs, rows, prof
+
+
 def main(opts):
     import torch
 
@@ -1621,6 +2038,19 @@ def main(opts):
     linalg_k1 = linalg_kernels(dev)
     say(f"the linalg slice's graphs: {len(linalg_k1)} K1 kernels; graph, rewrite and emit in "
         f"{time.perf_counter() - t0:.2f} s")
+    # the special functions' (phase 14): each as a one-node K1 kernel a
+    # dtype, one fused node a dtype of all of them (phase 3), the bessel
+    # paths' K1 kernels and K2 of the loop under scan__pallas
+    t0 = time.perf_counter()
+    special_one_node, special_libs, special_k2 = special_kernels(dev)
+    special_groups = {dt: cases.special_op_group(dt) for dt in ("float32", "float64")}
+    special_group_kerns = {dt: fused_kernel.FusedElemwiseKernel(FusedElemwise(ins, outs).fgraph,
+                                                                dev)
+                           for dt, (ins, outs, _) in special_groups.items()}
+    say(f"the special slice's graphs: {len(special_one_node)} one-node K1 kernels in "
+        f"{len(special_libs) - 1} libraries, {sum(map(len, special_libs[-1:]))} K1 kernels of the "
+        f"bessel paths, {len(special_group_kerns)} K1 op groups, {len(special_k2)} K2 kernel; "
+        f"graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
 
     def timed(fn):
         t = time.perf_counter()
@@ -1630,7 +2060,8 @@ def main(opts):
     with ThreadPoolExecutor(18) as pool:
         k1_jobs = [pool.submit(fused_kernel.build, kerns, verbose=True)
                    for kerns in [*k1_kernels.values(), list(op_kerns.values()), model_kerns,
-                                 elman_k1, linalg_k1]]
+                                 elman_k1, linalg_k1, *special_libs,
+                                 list(special_group_kerns.values())]]
         jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
                 "K3 stamped": pool.submit(timed, lambda: radon_kernel.build(
                     verbose=True, flags=radon_kernel.STAMPED)),
@@ -1644,7 +2075,9 @@ def main(opts):
                 **{f"K2 case: {tag}": pool.submit(timed, lambda k=k: k.build(verbose=True))
                    for tag, _, _, k, _ in k2_cases},
                 **{"K2 static BPTT": pool.submit(timed, lambda k=k: k.build(verbose=True))
-                   for k in elman_k2}}
+                   for k in elman_k2},
+                **{"K2 bessel loop": pool.submit(timed, lambda k=k: k.build(verbose=True))
+                   for k in special_k2}}
         build_s = {tag: job.result() for tag, job in jobs.items()}
         for job in k1_jobs:
             job.result()
@@ -1655,7 +2088,8 @@ def main(opts):
                 radon_kernel.BUILD_LOGS[radon_kernel.STAMPED + K3_SHARED_WALK],
             "K2": k2.build_log, "K2 stamped": k2_stamped.build_log, "K4": spmv_kernel.BUILD_LOG,
             **{f"K2 case: {tag}": k.build_log for tag, _, _, k, _ in k2_cases},
-            **{"K2 static BPTT": k.build_log for k in elman_k2}}
+            **{"K2 static BPTT": k.build_log for k in elman_k2},
+            **{"K2 bessel loop": k.build_log for k in special_k2}}
     for tag, log in logs.items():
         say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
         for line in log.splitlines():
@@ -1777,6 +2211,28 @@ def main(opts):
             f"{inexact:.2e} (tol {K1_RTOL.get(dt, 0):g}); wall {op_wall * 1e3:.1f} us a launch")
     say(f"K1 ops: {n_ops} op-dtype pairs held against the plain version, max rel err of the "
         f"inexact ones {worst_op:.2e}")
+    # every special function of the expression table, a fused node a float dtype
+    for dt, (ins, outs, names) in special_groups.items():
+        kern = special_group_kerns[dt]
+        args = [as_torch(v, dev) for v in cases.special_group_inputs(dt, 4099)]
+        got, want = kern.launch(*args), kern.plain(*args)
+        torch.cuda.synchronize()
+        worst_sp = 0.0
+        for op_name, g, w in zip(names, got, want):
+            g, w = g.double().cpu(), w.double().cpu()
+            if not (torch.equal(g.isnan(), w.isnan()) and torch.equal(g[w.isinf()], w[w.isinf()])):
+                raise AssertionError(f"K1 special op {op_name} {dt}: NaN or inf where the plain "
+                                     f"version has none")
+            fin = torch.isfinite(w)
+            err = float(((g[fin] - w[fin]).abs() / w[fin].abs().clamp(min=1.0)).max())
+            if not err <= SPECIAL_RTOL[dt]:
+                raise AssertionError(f"K1 special op {op_name} {dt}: rel err {err} > "
+                                     f"{SPECIAL_RTOL[dt]}")
+            worst_sp = max(worst_sp, err)
+        say(f"  K1 special ops {dt}: {len(names)} ops in one fused node on 4,099 in-domain "
+            f"elements, max rel err {worst_sp:.2e} against the plain version (tol "
+            f"{SPECIAL_RTOL[dt]:g}); wall {wall_ms(lambda: kern.launch(*args), 20) * 1e3:.1f} us "
+            f"a launch")
     say(f"K1 phase done in {time.perf_counter() - t0:.1f} s")
 
     # 4. K3 -----------------------------------------------------------------
@@ -2331,8 +2787,9 @@ def main(opts):
     for kname, (ms, count) in sorted(power_by.items(), key=lambda kv: -kv[1][0])[:10]:
         say(f"  {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
     k4_power = [(ms, count) for kn, (ms, count) in power_by.items() if "spmv_csr_kernel" in kn]
-    say(f"K4 inside the power iteration: {k4_power[0][0] / k4_power[0][1] * 1e3:.2f} us a launch "
-        f"(device), {k4_power[0][1]:.0f} launches a call")
+    if k4_power:
+        say(f"K4 inside the power iteration: {k4_power[0][0] / k4_power[0][1] * 1e3:.2f} us a "
+            f"launch (device), {k4_power[0][1]:.0f} launches a call")
 
     # 11. models ----------------------------------------------------------
     model_launches, k1_model_abs = phase_models(dev, smi)
@@ -2348,6 +2805,15 @@ def main(opts):
     linalg_launches, k1_linalg_abs = phase_linalg(dev, smi)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_linalg_abs)
     model_launches.update(linalg_launches)
+
+    # 14. the special functions and the bessel loop ------------------------
+    special_launches, k1_special_abs, k2_special_abs, _, _ = phase_special(dev, smi,
+                                                                          special_one_node)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_special_abs)
+    k2_abs = max(k2_abs, k2_special_abs)
+    model_launches["special"] = {
+        kind: sum(v[kind] for v in special_launches.values())
+        for kind in ("fused_elemwise", "scan_whole_loop")}
 
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "cuda",

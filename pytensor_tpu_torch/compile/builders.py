@@ -1,9 +1,10 @@
 """OpFromGraph: encapsulate a subgraph as a single Op.
 
 Counterpart of ``pytensor_tpu/compile/builders.py`` (PyTensor's
-compile/builders.py OpFromGraph:116), cut to what ``FusedElemwise``
-needs: the inner FunctionGraph, typed make_node, a numpy ``perform`` and
-the inlining gradient.
+compile/builders.py OpFromGraph:116), cut to what ``FusedElemwise`` and
+``SymbolicOp`` (``tensor/special.py``'s softmax family) need: the inner
+FunctionGraph, typed make_node, a numpy ``perform`` and the inlining
+gradient.
 """
 
 from __future__ import annotations
@@ -78,3 +79,21 @@ class OpFromGraph(Op, HasInnerGraph):
 
     def __str__(self):
         return self.name or f"OpFromGraph{{{id(self):x}}}"
+
+
+class SymbolicOp(OpFromGraph):
+    """An OpFromGraph built from its ``symbolic_call`` (counterpart of
+    ``pytensor_tpu/compile/builders.py:151``): a named composite, such as
+    ``Softmax``, that rewrites track as one op.  Its lowering runs the
+    inner graph (``link/torch/dispatch.py``)."""
+
+    def __init__(self, *inputs, **params):
+        for k, v in params.items():
+            setattr(self, k, v)
+        outputs = self.symbolic_call(*inputs)
+        if not isinstance(outputs, (list, tuple)):
+            outputs = [outputs]
+        super().__init__(list(inputs), list(outputs), name=type(self).__name__)
+
+    def symbolic_call(self, *inputs):
+        raise NotImplementedError

@@ -17,6 +17,8 @@ as they are.
 
 from __future__ import annotations
 
+from pytensor_tpu_torch.link.torch.convert import UNSIGNED, unheld
+
 
 class Function:
     def __init__(self, linked, fgraph, n_explicit, shared_vars, update_targets,
@@ -50,6 +52,9 @@ class Function:
                     raise ValueError(f"update of {sv} has shape {tuple(value.shape)}, "
                                      f"the shared tensor {tuple(sv.storage[0].shape)}")
                 sv.storage[0].copy_(value)
+        # the unsigned dtypes above uint8 leave in torch's dtype of their width
+        outputs = [unheld(r, o.type.dtype) if o.type.dtype in UNSIGNED else r
+                   for r, o in zip(outputs, self.fgraph.outputs)]
         if self.unpack_single:
             return outputs[0]
         return outputs

@@ -6,9 +6,12 @@ of ``cexpr.py``'s table that takes that dtype, ``op_group_inputs`` its
 inputs with numpy's edges (NaN, +-inf, +-0.0, halves, integer extremes,
 shift counts past the width), and ``k2_new_op_scans()`` the scans of
 ``Dot22``, ``Gemm``, ``Dot22Scalar``, ``Join``, ``Split``, ``ARange``,
-``DeepCopyOp`` and ``ViewOp`` that K2 runs against its step loop.
-``chip_smoke.py`` and the card tests (``tests/test_torch_cuda.py``) use
-them alike.
+``DeepCopyOp`` and ``ViewOp`` that K2 runs against its step loop; and
+for the special functions (``link/cuda/special.py``) each op's grid
+(``SPECIAL_GRIDS``, ``special_node``, ``special_inputs``), scipy's value
+(``scipy_special``) and one fused node a dtype of every one of them
+(``special_op_group``).  ``chip_smoke.py`` and the card tests
+(``tests/test_torch_cuda.py``) use them alike.
 """
 
 from __future__ import annotations
@@ -163,3 +166,117 @@ def k2_new_op_scans():
                   [np.arange(6, dtype="float32"), np.arange(12, dtype="float32").reshape(3, 4)],
                   True))
     return cases
+
+
+# --- the special functions (link/cuda/special.py) ----------------------------------
+
+# op -> the grid of each operand (uniform on the interval), or a constant
+# operand (a float); the grids of tests/test_op_grids_special.py where it
+# has the op
+SPECIAL_GRIDS = {
+    "erf": [(-3, 3)], "erfc": [(-2, 6)], "erfinv": [(-0.95, 0.95)], "erfcinv": [(0.05, 1.95)],
+    "erfcx": [(-3, 10)], "gamma": [(0.1, 6)], "gammaln": [(-3.7, 10)], "psi": [(-3.7, 8)],
+    "tri_gamma": [(-3.7, 8)], "softplus": [(-40, 40)], "log1mexp": [(-6, -0.01)],
+    "logit": [(0.02, 0.98)], "i0": [(-4, 4)], "i1": [(-4, 4)], "j0": [(0.1, 8)],
+    "j1": [(0.1, 8)], "ndtr": [(-5, 5)], "ndtri": [(0.01, 0.99)], "ndtri_exp": [(-10, -0.01)],
+    "polygamma": [2.0, (0.2, 8)], "gammainc": [(0.5, 5), (0.1, 8)],
+    "gammaincc": [(0.5, 5), (0.1, 8)], "gammau": [(0.5, 5), (0.1, 8)],
+    "gammal": [(0.5, 5), (0.1, 8)], "betaln": [(0.5, 5), (0.5, 5)],
+    "xlogy": [(0, 2), (0.1, 4)], "xlog1py": [(0, 2), (-0.9, 4)], "chi2sf": [(0.1, 10), (1, 6)],
+    "betainc": [(0.5, 5), (0.5, 5), (0, 1)],
+    "iv": [(-5.5, 10), (0.01, 30)], "ive": [(-5.5, 40), (0.001, 500)],
+    "jv": [(-5.5, 20), (0.01, 100)], "yv": [(-5.5, 20), (0.01, 100)],
+    "kve": [(-5.5, 40), (0.001, 500)], "kv": [(-5.5, 10), (0.01, 30)],
+}
+BESSEL_OPS = ("iv", "ive", "jv", "yv", "kve", "kv")
+# tests/test_bessel_native.py:21-24
+BESSEL_V = np.array([-10.3, -5.0, -2.0, -0.5, 0.0, 0.3, 1.0, 2.7, 5.0, 10.3, 20.0, 40.0])
+BESSEL_X = np.array([1e-3, 0.1, 0.5, 1.9, 2.0, 3.0, 10.0, 30.0, 89.9, 90.1, 100.0, 500.0])
+# numpy's edges, on the last operand (the others at 1.5)
+SPECIAL_EDGES = [np.nan, np.inf, -np.inf, 0.0, -0.0, -1.0, 1.0]
+def special_op(name):
+    """The port's tensor-level op of a special function."""
+    if name in ("xlogy", "xlog1py"):
+        return getattr(pt.special, name)
+    return getattr(pt, name)
+
+
+def special_node(name, dtype):
+    """The Elemwise node of ``name`` on vector inputs of ``dtype`` (a
+    constant operand where SPECIAL_GRIDS gives a float)."""
+    ins = []
+    for k, g in enumerate(SPECIAL_GRIDS[name]):
+        if isinstance(g, float):
+            ins.append(constant(np.asarray(int(g) if name == "polygamma" else g)))
+        else:
+            ins.append(pt.tensor(f"a{k}", dtype=dtype, shape=(None,)))
+    return special_op(name)(*ins).owner
+
+
+def special_inputs(name, dtype, n, seed, edges=True):
+    """The values of the node's variable inputs: ``n`` points on the op's
+    grid (for a Bessel function, tests/test_bessel_native.py's V x X grid
+    first), then numpy's edges."""
+    rng = np.random.default_rng(seed)
+    grids = [g for g in SPECIAL_GRIDS[name] if not isinstance(g, float)]
+    vals = [rng.uniform(*g, size=n) for g in grids]
+    if name in BESSEL_OPS:
+        V, X = np.meshgrid(BESSEL_V, BESSEL_X, indexing="ij")
+        if name in ("iv", "kv"):
+            X = np.where(X >= 500, 30.0, X)  # the unscaled functions over- or underflow
+        vals = [np.concatenate([V.ravel(), vals[0]]), np.concatenate([X.ravel(), vals[1]])]
+    if edges:
+        last = len(vals) - 1
+        vals = [np.concatenate([v, SPECIAL_EDGES if j == last else [1.5] * len(SPECIAL_EDGES)])
+                for j, v in enumerate(vals)]
+    return [np.asarray(v, dtype=dtype) for v in vals]
+
+
+def scipy_special(name, args):
+    """scipy's value of the op on float64 ``args`` (the ops' oracle)."""
+    import scipy.special as sps
+
+    a = [np.asarray(x, dtype="float64") for x in args]
+    with np.errstate(all="ignore"):
+        if name == "polygamma":
+            return sps.polygamma(2, a[0])
+        if name == "tri_gamma":
+            return sps.polygamma(1, a[0])
+        if name == "gammau":
+            return sps.gammaincc(*a) * sps.gamma(a[0])
+        if name == "gammal":
+            return sps.gammainc(*a) * sps.gamma(a[0])
+        if name == "chi2sf":
+            return sps.chdtrc(a[1], a[0])
+        if name == "ndtri_exp":
+            return sps.ndtri(np.exp(a[0]))
+        if name == "softplus":
+            return np.logaddexp(0.0, a[0])
+        if name == "log1mexp":
+            return np.log(-np.expm1(a[0]))
+        return getattr(sps, name)(*a)
+
+
+def special_op_group(dtype):
+    """(inputs, outputs, op names): one fused node of ``dtype`` computing
+    every special function of the expression table on in-domain operands:
+    p in (0, 1), x and y positive (phase 3's sweep)."""
+    p, x, y = (pt.tensor(k, dtype=dtype, shape=(None,)) for k in "pxy")
+    unary_x = ["erf", "erfc", "erfcx", "gamma", "gammaln", "psi", "tri_gamma", "softplus", "i0",
+               "i1", "j0", "j1", "ndtr"]
+    unary_p = ["erfinv", "erfcinv", "logit", "ndtri"]
+    binary = ["gammainc", "gammaincc", "gammau", "gammal", "betaln", "xlogy", "xlog1py",
+              "iv", "ive", "jv", "yv", "kve", "kv"]
+    outs = ([special_op(k)(x) for k in unary_x] + [special_op(k)(p) for k in unary_p]
+            + [special_op(k)(y, x) for k in binary]
+            + [pt.log1mexp(-x), pt.ndtri_exp(-x), pt.chi2sf(x, y), pt.polygamma(2, x),
+               pt.betainc(y, x, p)])
+    names = unary_x + unary_p + binary + ["log1mexp", "ndtri_exp", "chi2sf", "polygamma",
+                                          "betainc"]
+    return [p, x, y], outs, names
+
+
+def special_group_inputs(dtype, n, seed=3):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(0.02, 0.98, n).astype(dtype), rng.uniform(0.1, 8.0, n).astype(dtype),
+            rng.uniform(0.5, 5.0, n).astype(dtype)]

@@ -13,6 +13,8 @@ import math
 
 import numpy as np
 
+from pytensor_tpu_torch.link.cuda import special
+
 CTYPES = {
     "float32": "float", "float64": "double", "bool": "bool",
     "int8": "signed char", "int16": "short", "int32": "int", "int64": "long long",
@@ -110,16 +112,26 @@ __device__ __forceinline__ double k2_mod(double a, double b) {
 }
 """,
 }
-# a helper that calls another
-_HELPER_NEEDS = {"k2_mod": ("k2_floordiv",)}
+# the special functions (``link/cuda/special.py``) after the helpers above
+HELPERS.update(special.HELPERS)
+# the other helpers that a helper calls
+_HELPER_NEEDS = {"k2_mod": ("k2_floordiv",), **special.NEEDS}
+# the functions a helper defines, where its name is not the one called
+_HELPER_ENTRIES = special.ENTRIES
 
 
 def helpers(body: str, have=("k2_max",)) -> str:
-    """The sources of the helpers that ``body`` calls, less those in
-    ``have`` (already in the source's prelude)."""
-    names = [n for n in HELPERS if n + "(" in body]
-    for n in list(names):
-        names += [m for m in _HELPER_NEEDS.get(n, ()) if m not in names]
+    """The sources of the helpers that ``body`` calls, and of the helpers
+    those call, in ``HELPERS``' order, less those in ``have`` (already in
+    the source's prelude)."""
+    names = {n for n in HELPERS
+             if any(e + "(" in body for e in _HELPER_ENTRIES.get(n, (n,)))}
+    todo = list(names)
+    while todo:
+        for m in _HELPER_NEEDS.get(todo.pop(), ()):
+            if m not in names:
+                names.add(m)
+                todo.append(m)
     return "".join(HELPERS[n] for n in HELPERS if n in names and n not in have)
 
 
@@ -244,6 +256,8 @@ CEXPR = {
     "arcsinh": _fn("asinhf", "asinh"),
     "arccosh": _fn("acoshf", "acosh"),
     "arctanh": _fn("atanhf", "atanh"),
+    # the special functions of scalar/math.py (link/cuda/special.py)
+    **special.CEXPR,
 }
 
 

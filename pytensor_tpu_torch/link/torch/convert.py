@@ -30,12 +30,43 @@ _DTYPES = {
 }
 
 
+# uint16, uint32 and uint64 are held in int64, whose bits agree with
+# numpy's wrap-around for +, - and * (torch has these dtypes, but few of
+# their kernels: its CPU add, comparisons and maximum refuse uint64); the
+# lowerings that meet them treat comparisons, division, maximum, minimum
+# and conversions as unsigned (``dispatch.py``), and a function returns
+# them in torch's unsigned dtype of their width
+UNSIGNED = {"uint16": torch.uint16, "uint32": torch.uint32, "uint64": torch.uint64}
+_DTYPES.update({d: torch.int64 for d in UNSIGNED})
+
+
 def torch_dtype(dtype) -> torch.dtype:
-    """torch dtype for a graph dtype name."""
+    """torch dtype for a graph dtype name (int64 for the unsigned dtypes
+    above uint8, which hold their values)."""
     try:
         return _DTYPES[str(dtype)]
     except KeyError:
         raise TypeError(f"dtype {dtype} has no torch counterpart") from None
+
+
+def held(value: torch.Tensor, dtype) -> torch.Tensor:
+    """A tensor of graph dtype ``dtype`` as the linker holds it: a uint16,
+    uint32 or uint64 tensor as int64 (uint64 by its bits)."""
+    if str(dtype) == "uint64" and value.dtype == torch.uint64:
+        return value.view(torch.int64)
+    if str(dtype) in UNSIGNED and value.dtype == UNSIGNED[str(dtype)]:
+        return value.to(torch.int64)
+    return value
+
+
+def unheld(value: torch.Tensor, dtype) -> torch.Tensor:
+    """The inverse of ``held``: a held unsigned value in torch's unsigned
+    dtype of its width."""
+    if str(dtype) == "uint64":
+        return value.view(torch.uint64)
+    if str(dtype) in UNSIGNED:
+        return value.to(UNSIGNED[str(dtype)])
+    return value
 
 
 def resolve_device(device) -> torch.device:
@@ -63,6 +94,10 @@ def as_torch(value, device) -> torch.Tensor:
         return value.to(device)
     arr = np.asarray(value)
     torch_dtype(arr.dtype)  # reject dtypes torch does not have
+    if arr.dtype == np.uint64:
+        arr = arr.view(np.int64)
+    elif arr.dtype in (np.uint16, np.uint32):
+        arr = arr.astype(np.int64)
     # a copy: the tensor never aliases the caller's array (torch refuses
     # negative strides, so reversed views are made contiguous first)
     return torch.tensor(np.array(arr, order="C"), device=device)

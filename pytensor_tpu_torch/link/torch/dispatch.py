@@ -26,11 +26,12 @@ from functools import singledispatch
 import numpy as np
 import torch
 
+from pytensor_tpu_torch.compile.builders import OpFromGraph
 from pytensor_tpu_torch.compile.ops import DeepCopyOp, TypeCastingOp
 from pytensor_tpu_torch.gradient import GradManipulatorOp
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.graph.fg import FunctionGraph
-from pytensor_tpu_torch.link.torch.convert import CSR, torch_dtype
+from pytensor_tpu_torch.link.torch.convert import CSR, UNSIGNED, torch_dtype
 from pytensor_tpu_torch.scan.op import Scan
 from pytensor_tpu_torch.sparse.basic import StructuredDot, StructuredDotGrad, Transpose
 from pytensor_tpu_torch.sparse.spmv import RoutedSpMV
@@ -158,6 +159,8 @@ def elemwise_fn(node):
     so = node.op.scalar_op
     so.check_inputs(*(i.type.dtype for i in node.inputs))
     fn = so.torch_fn
+    if any(v.type.dtype in UNSIGNED for v in node.inputs + node.outputs):
+        return _unsigned_elemwise(node)
     if so.name == "second" or so.name.startswith("cast{"):
         return fn
     comp = [torch_dtype(d) for d in so.compute_dtypes([i.type.dtype for i in node.inputs],
@@ -177,9 +180,109 @@ def elemwise_fn(node):
     return elemwise
 
 
+def _host_op_reads(node):
+    so = node.op.scalar_op
+    return f"{so.name} runs scipy on the host" if so.on_host else ""
+
+
+# --- uint16, uint32 and uint64, held in int64 (convert.py UNSIGNED) ---------------
+
+_SIGN_BIT = -(2 ** 63)
+
+
+def _width_mask(dtype):
+    """The bits of an unsigned dtype below 64 bits, else None."""
+    return {"uint16": 0xFFFF, "uint32": 0xFFFFFFFF}.get(str(dtype))
+
+
+def _to_held(x, src, dst):
+    """A value of graph dtype ``src`` converted to graph dtype ``dst``,
+    either side held: numpy's conversions, unsigned where a side is."""
+    if src == dst:
+        return x
+    if src in UNSIGNED and dst not in UNSIGNED:
+        if src == "uint64" and dst != "bool":
+            return x.view(torch.uint64).to(torch_dtype(dst))
+        return x.to(torch_dtype(dst))
+    if dst in UNSIGNED:
+        if x.is_floating_point():
+            # past int64's range a float wraps as numpy's conversion does
+            x = torch.where(x >= 2.0 ** 63, x - 2.0 ** 64, x).to(torch.int64)
+        x = x.to(torch.int64)
+        mask = _width_mask(dst)
+        return x & mask if mask is not None else x
+    return x.to(torch_dtype(dst))
+
+
+def _ucmp(a, b):
+    """Signed stand-ins of held uint64 values that order as the unsigned ones."""
+    return a ^ _SIGN_BIT, b ^ _SIGN_BIT
+
+
+def _udivmod64(a, b):
+    """numpy's unsigned floor division and remainder of held uint64 values
+    (an integer divisor of 0 gives 0, as numpy's)."""
+    zero = b == 0
+    b1 = torch.where(zero, torch.ones_like(b), b)
+    # a divisor of 2**63 or more: the quotient is 0 or 1
+    big_q = (_ucmp(a, b1)[0] >= _ucmp(a, b1)[1]).to(torch.int64)
+    # else twice the quotient of a >> 1 (a logical shift), then one more
+    # if the remainder, below 2 b, is b or more
+    bs = torch.where(b1 < 0, torch.ones_like(b1), b1)
+    q = torch.div((a >> 1) & ~_SIGN_BIT, bs, rounding_mode="floor") << 1
+    r = a - q * bs
+    q = q + (_ucmp(r, bs)[0] >= _ucmp(r, bs)[1]).to(torch.int64)
+    q = torch.where(b1 < 0, big_q, q)
+    q = torch.where(zero, torch.zeros_like(q), q)
+    return q, torch.where(zero, torch.zeros_like(a), a - q * b1)
+
+
+def _unsigned_elemwise(node):
+    """An Elemwise that meets uint16, uint32 or uint64: each operand
+    converted to its compute dtype by ``_to_held``; wrapping arithmetic in
+    int64, cut to the width; comparisons, division, maximum and minimum of
+    uint64 as unsigned."""
+    so = node.op.scalar_op
+    name = so.name
+    in_dts = [i.type.dtype for i in node.inputs]
+    out_dt = node.outputs[0].type.dtype
+    if name.startswith("cast{"):
+        return lambda a: _to_held(a, in_dts[0], out_dt)
+    comp = so.compute_dtypes(in_dts, out_dt)
+    c = comp[0]
+    fn = so.torch_fn
+    mask = _width_mask(out_dt)
+    wide = c == "uint64"
+
+    def unsigned(*args):
+        args = [_to_held(a, d, cd) for a, d, cd in zip(args, in_dts, comp)]
+        if c in UNSIGNED and name in ("lt", "gt", "le", "ge", "maximum", "minimum") and wide:
+            ua, ub = _ucmp(*args)
+            r = fn(ua, ub)
+            return r if r.dtype == torch.bool else r ^ _SIGN_BIT
+        if c in UNSIGNED and name in ("int_div", "mod") and wide:
+            return _udivmod64(*args)[0 if name == "int_div" else 1]
+        if c in UNSIGNED and name == "abs":
+            return args[0].clone()
+        if c in UNSIGNED and name == "sign":
+            return (args[0] != 0).to(torch.int64)
+        r = fn(*args)
+        if mask is not None and r.dtype == torch.int64:
+            r = r & mask
+        return r
+
+    return unsigned
+
+
 @torch_funcify.register(Elemwise)
-@ports(scalar=ALL)
-def _elemwise(op, node=None, **kw):
+@ports(scalar=ALL, reads_back=_host_op_reads)
+def _elemwise(op, node=None, device=None, **kw):
+    """The op's torch version; on a CUDA device, a special function of
+    ``scalar/math.py`` is K1 over the one-node graph (the fusion pass left
+    it alone, as it leaves every node of a scan's inner graph), and never
+    its plain version."""
+    if op.scalar_op.special and device is not None and torch.device(device).type == "cuda":
+        return _one_node_k1(op, node, device)
     fn = elemwise_fn(node)
 
     def elemwise(*args):
@@ -190,12 +293,49 @@ def _elemwise(op, node=None, **kw):
     return elemwise
 
 
+def _one_node_k1(op, node, device):
+    """K1 over the graph of ``node`` alone: its constants are the kernel's
+    literals (or, for arrays, its extra inputs), its other inputs the
+    kernel's.  The function takes the node's inputs; ``.k1`` is the
+    kernel, which the linker builds with the plan's others."""
+    from pytensor_tpu_torch.tensor.fused_kernel import FusedElemwiseKernel
+
+    takes = [k for k, i in enumerate(node.inputs) if not isinstance(i, Constant)]
+    fresh = {k: node.inputs[k].type() for k in takes}
+    args = [fresh.get(k, i) for k, i in enumerate(node.inputs)]
+    kern = FusedElemwiseKernel(
+        FunctionGraph([fresh[k] for k in takes], [op(*args)], clone=False), device)
+
+    def one_node_k1(*args):
+        if len(args) > 1:
+            Elemwise._check_runtime_broadcast(node, [tuple(a.shape) for a in args])
+        return kern(*[args[k] for k in takes])[0]
+
+    one_node_k1.k1 = kern
+    return one_node_k1
+
+
 @torch_funcify.register(FusedElemwise)
 @ports(scalar=ALL)
 def _fused(op, node=None, device=None, **kw):
     from pytensor_tpu_torch.tensor.fused_kernel import FusedElemwiseKernel
 
     return FusedElemwiseKernel(op.fgraph, device)
+
+
+@torch_funcify.register(OpFromGraph)
+def _op_from_graph(op, node=None, device=None, **kw):
+    """A composite (``SymbolicOp``: the softmax family) runs its inner graph
+    linked for ``device``."""
+    from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
+
+    inner = fgraph_to_torch(op.fgraph, device, trust_input=True)
+
+    def op_from_graph(*args):
+        res = inner(*args)
+        return res if len(res) > 1 else res[0]
+
+    return op_from_graph
 
 
 @torch_funcify.register(DimShuffle)
@@ -227,6 +367,10 @@ def _careduce(op, node=None, **kw):
     out = torch_dtype(node.outputs[0].type.dtype)
     acc = torch_dtype(op.acc_dtype) if op.acc_dtype is not None else out
 
+    in_dt, out_dt = node.inputs[0].type.dtype, node.outputs[0].type.dtype
+    if in_dt in UNSIGNED or out_dt in UNSIGNED:
+        return _unsigned_careduce(op, node)
+
     def careduce(x):
         dims = tuple(range(x.ndim)) if axis is None else tuple(axis)
         if not dims:
@@ -247,6 +391,48 @@ def _careduce(op, node=None, **kw):
             for d in sorted(dims, reverse=True):
                 r = torch.prod(r, dim=d)
         return r if r.dtype == out else r.to(out)
+
+    return careduce
+
+
+def _unsigned_careduce(op, node):
+    """A reduction that meets a held unsigned dtype: in the accumulator's
+    dtype, held (a sum wraps in int64, then is cut to the width); maximum
+    and minimum of uint64 as unsigned."""
+    name = op.scalar_op.name
+    in_dt, out_dt = node.inputs[0].type.dtype, node.outputs[0].type.dtype
+    acc_dt = op.acc_dtype or out_dt
+
+    def careduce(x):
+        dims = tuple(range(x.ndim)) if op.axis is None else tuple(op.axis)
+        x = _to_held(x, in_dt, acc_dt)
+        if not dims:
+            return _to_held(x.clone(), acc_dt, out_dt)
+        flip = acc_dt == "uint64" and name in ("maximum", "minimum")
+        if flip:
+            x = x ^ _SIGN_BIT
+        if name == "add":
+            r = torch.sum(x, dim=dims)
+        elif name == "maximum":
+            r = torch.amax(x, dim=dims)
+        elif name == "minimum":
+            r = torch.amin(x, dim=dims)
+        elif name == "and_":
+            r = torch.all(x, dim=dims)
+        elif name == "or_":
+            r = torch.any(x, dim=dims)
+        elif name == "mul":
+            r = x
+            for d in sorted(dims, reverse=True):
+                r = torch.prod(r, dim=d)
+        else:
+            raise NotImplementedError(f"torch lowering of {op}")
+        if flip:
+            r = r ^ _SIGN_BIT
+        mask = _width_mask(acc_dt)
+        if mask is not None and r.dtype == torch.int64:
+            r = r & mask
+        return _to_held(r, acc_dt, out_dt)
 
     return careduce
 
@@ -758,6 +944,24 @@ def _copy_last(out, axis, idx, y, add):
     out.index_copy_(axis, idx, y.to(out.dtype))
 
 
+def _take_negative_steps(x, idx):
+    """``(x', idx')`` with ``x'[idx'] == x[idx]`` and no negative step in
+    ``idx'``: each negative-step slice is taken first, as an
+    ``index_select`` of its positions, and becomes a full slice (a slice
+    keeps its dimension, so the advanced entries' placement is numpy's)."""
+    new = []
+    axis = 0
+    for e in idx:
+        if isinstance(e, slice) and e.step is not None and e.step < 0:
+            r = range(*e.indices(x.shape[axis]))
+            x = x.index_select(axis, torch.arange(r.start, r.stop, r.step, device=x.device))
+            e = slice(None)
+        new.append(e)
+        if e is not None:
+            axis += 1
+    return x, tuple(new)
+
+
 def _adv_index(idx_list, ind, checks, shape):
     """The torch index of ``idx_list`` for a tensor of ``shape``."""
     it = iter(ind)
@@ -792,7 +996,7 @@ def _adv_sub(op, node=None, **kw):
     def adv_sub(x, *ind):
         idx = _adv_index(idx_list, ind, checks, x.shape)
         if _negative_steps(idx):
-            raise NotImplementedError("AdvancedSubtensor with a negative slice step")
+            x, idx = _take_negative_steps(x, idx)
         return x[idx]
 
     return adv_sub
@@ -856,9 +1060,10 @@ def _adv_incsub(op, node=None, **kw):
     def adv_incsub(x, y, *ind):
         nb = x.ndim - core_nd
         idx = (slice(None),) * nb + _adv_index(idx_list, ind, checks, x.shape[nb:])
+        flat_pos = torch.arange(x.numel(), device=x.device).reshape(x.shape)
         if _negative_steps(idx):
-            raise NotImplementedError("AdvancedIncSubtensor with a negative slice step")
-        sel = torch.arange(x.numel(), device=x.device).reshape(x.shape)[idx]
+            flat_pos, idx = _take_negative_steps(flat_pos, idx)
+        sel = flat_pos[idx]
         pos = sel.reshape(-1)
         vals = y.to(x.dtype).expand(sel.shape).reshape(-1)
         out = x.clone()
@@ -1019,9 +1224,19 @@ def _eigh(op, node=None, **kw):
 @torch_funcify.register(QR)
 @ports(batched=True)
 def _qr(op, node=None, **kw):
-    if op.mode not in ("reduced", "complete", "r"):
+    if op.mode not in ("reduced", "complete", "r", "raw"):
         raise NotImplementedError(f"torch lowering of QR(mode={op.mode!r})")
     cast = _cast_to(node)
+    if op.mode == "raw":
+        # numpy's (h, tau): LAPACK's geqrf, h in Fortran order, so the
+        # transpose of torch's; shapes (n, m) and (k,), whatever the
+        # graph's types say (the JAX package's make_node types them as the
+        # complete mode's, pytensor_tpu/tensor/linalg.py:555-562)
+        def qr_raw(x):
+            a, tau = torch.geqrf(*cast(x))
+            return [a.transpose(-1, -2), tau]
+
+        return qr_raw
 
     def qr(x):
         q, r = torch.linalg.qr(*cast(x), mode=op.mode)

@@ -47,6 +47,7 @@ from pytensor_tpu_torch.link.cuda import scan_kernel, spmv_kernel
 from pytensor_tpu_torch.link.torch.convert import (
     CSR,
     as_torch,
+    held,
     resolve_device,
     sparse_as_torch,
     torch_dtype,
@@ -227,6 +228,7 @@ class Plan:
         if isinstance(var.type, SparseTensorType):
             return sparse_as_torch(var.type.filter(value), device)
         if isinstance(value, torch.Tensor):
+            value = held(value, var.type.dtype)
             if value.device != device:
                 raise ValueError(f"input {var} is on {value.device}, the function on {device}")
             if value.dtype != torch_dtype(var.type.dtype):
@@ -311,7 +313,9 @@ def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False,
                 for k, i in enumerate(node.inputs)]
         steps.append((fn, node, args, free))
     if device.type == "cuda":
-        kernels = [fn for fn, _, _, _ in steps if isinstance(fn, fused_kernel.FusedElemwiseKernel)]
+        # a FusedElemwise's kernel, or a special function's one-node K1
+        kernels = [k for k in (getattr(fn, "k1", fn) for fn, _, _, _ in steps)
+                   if isinstance(k, fused_kernel.FusedElemwiseKernel)]
         if kernels:
             fused_kernel.build(kernels)
     outputs = [("const", const_value(o, device)) if isinstance(o, Constant) else ("var", o)

@@ -67,15 +67,24 @@ class ScalarOp(MetaObject):
     dtype_rule   'upcast' | 'float' | callable(*dtypes)
     float_inputs the op takes float inputs only: a graph may hold it on
                  other inputs, and linking such a node raises TypeError
+    special      a special function of ``scalar/math.py``: on a CUDA device
+                 its Elemwise runs as a one-node K1 launch, never the
+                 plain torch version (``link/torch/dispatch.py``)
+    on_host      the op runs scipy on the host, as the JAX package's
+                 ``pure_callback`` lowering does (its Elemwise lowering
+                 declares ``reads_back``)
     """
 
     __props__ = ("name",)
 
     def __init__(self, name: str, nin: int, np_fn: Callable, torch_fn: Callable,
                  grad_fn: Callable | None = None, dtype_rule="upcast",
-                 identity=None, commutative: bool = False, float_inputs: bool = False):
+                 identity=None, commutative: bool = False, float_inputs: bool = False,
+                 special: bool = False, on_host: bool = False):
         self.name = name
         self.float_inputs = float_inputs
+        self.special = special
+        self.on_host = on_host
         self.nin = nin
         self.nout = 1
         self.np_fn = np_fn

@@ -4,8 +4,9 @@ Counterpart of ``pytensor_tpu/tensor/__init__.py`` for the modules the
 port has: ``type``, ``variable``, ``elemwise``, ``basic``, ``math``,
 ``shape``, ``subtensor``, ``blas``, ``blockwise``, ``type_other``,
 ``sharedvar``, ``utils``, ``exceptions``, ``linalg`` and ``sort``'s
-``sort`` and ``argsort``.  Not yet here (ROADMAP Queue 1): the special
-functions and ``functional`` (item 10), ``extra_ops``, ``topk``,
+``sort`` and ``argsort``, with the special functions and ``special``'s
+softmax family.  Not yet here (ROADMAP Queue 1): ``functional``,
+the shape-parameter gradients (item 10b), ``extra_ops``, ``topk``,
 ``einsum``, ``pad``, ``fft``, ``signal`` and the rest of item 12,
 ``random`` (item 7) and bfloat16 and complex tensors.
 """
@@ -150,6 +151,8 @@ from pytensor_tpu_torch.tensor import exceptions, utils  # noqa: F401,E402
 
 from pytensor_tpu_torch.tensor.sort import argsort, sort  # noqa: F401,E402
 import pytensor_tpu_torch.tensor.linalg as linalg  # noqa: F401,E402
+import pytensor_tpu_torch.tensor.special as special  # noqa: F401,E402
+from pytensor_tpu_torch.tensor.special import log_softmax, softmax  # noqa: F401,E402
 
 # the legacy names of the linalg namespace, as in the JAX package
 slinalg = linalg

@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from pytensor_tpu_torch.graph.basic import Constant
-from pytensor_tpu_torch.link.cuda.cexpr import CEXPR, HELPERS, ctype, literal
+from pytensor_tpu_torch.link.cuda.cexpr import CEXPR, ctype, helpers, literal
 
 THREADS = 256
 # a grid of more blocks than this strides over the elements
@@ -126,7 +126,7 @@ PRELUDE = f"""#include <cuda_runtime.h>
 #define K1_CONTIG {CONTIG}
 #define K1_SCALAR {SCALAR}
 #define K1_STRIDED {STRIDED}
-""" + "".join(HELPERS.values()) + r"""#ifndef K1_LAUNCH
+""" + r"""#ifndef K1_LAUNCH
 #define K1_LAUNCH(kernel, blocks, stream, ...) \
   kernel<<<blocks, K1_THREADS, 0, stream>>>(__VA_ARGS__)
 #endif
@@ -289,7 +289,7 @@ class FusedElemwiseKernel:
         body = self._emit()
         self.key = hashlib.sha256(body.encode()).hexdigest()[:16]
         self.unit = self._unit(body)
-        self.source = PRELUDE + self.unit
+        self.source = library_source([self.unit])
         self._layouts: dict = {}
         self._ptrs_t = ctypes.c_ulonglong * (len(self.tensor_vars) + len(self.outputs))
         self._fn = None
@@ -512,6 +512,13 @@ def _raw_stream(index):
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+def library_source(units) -> str:
+    """The source of a library of K1 units: the prelude, the expression
+    table's helpers that the units call (``cexpr.helpers``) and the units."""
+    body = "".join(units)
+    return PRELUDE + helpers(body, have=()) + body
+
+
 # key -> the C entry of every K1 kernel loaded in this process
 _ENTRIES: dict = {}
 
@@ -527,7 +534,7 @@ def build(kernels, verbose=False) -> str:
     log = ""
     if units:
         t0 = time.perf_counter()
-        lib, log = build_library(PRELUDE + "".join(units[k] for k in sorted(units)), "k1",
+        lib, log = build_library(library_source([units[k] for k in sorted(units)]), "k1",
                                  verbose=verbose, flags=K1_NVCC_FLAGS)
         for key in units:
             fn = getattr(lib, f"k1_{key}")

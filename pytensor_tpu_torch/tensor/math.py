@@ -116,8 +116,59 @@ def clip(x, min, max):
 
 
 second = scalar_elemwise(ps.second)
+# special functions (scalar/math.py)
+erf = scalar_elemwise(psm.erf)
+erfc = scalar_elemwise(psm.erfc)
+erfinv = scalar_elemwise(psm.erfinv)
+erfcinv = scalar_elemwise(psm.erfcinv)
+erfcx = scalar_elemwise(psm.erfcx)
+gamma = scalar_elemwise(psm.gamma)
+gammaln = scalar_elemwise(psm.gammaln)
+psi = scalar_elemwise(psm.psi)
+digamma = psi
+tri_gamma = scalar_elemwise(psm.tri_gamma)
+polygamma = scalar_elemwise(psm.polygamma)
+gammainc = scalar_elemwise(psm.gammainc)
+gammaincc = scalar_elemwise(psm.gammaincc)
+gammau = scalar_elemwise(psm.gammau)
+gammal = scalar_elemwise(psm.gammal)
+gammaincinv = scalar_elemwise(psm.gammaincinv)
+gammainccinv = scalar_elemwise(psm.gammainccinv)
+betainc = scalar_elemwise(psm.betainc)
+betaincinv = scalar_elemwise(psm.betaincinv)
+betaln = scalar_elemwise(psm.betaln)
 sigmoid = scalar_elemwise(psm.sigmoid)
 expit = sigmoid
+softplus = scalar_elemwise(psm.softplus)
+log1pexp = softplus
+log1mexp = scalar_elemwise(psm.log1mexp)
+logit = scalar_elemwise(psm.logit)
+iv = scalar_elemwise(psm.iv)
+ive = scalar_elemwise(psm.ive)
+jv = scalar_elemwise(psm.jv)
+yv = scalar_elemwise(psm.yv)
+kve = scalar_elemwise(psm.kve)
+kv = scalar_elemwise(psm.kv)
+kn = kv
+owens_t = scalar_elemwise(psm.owens_t)
+ndtri_exp = scalar_elemwise(psm.ndtri_exp)
+chi2sf = scalar_elemwise(psm.chi2sf)
+i0 = scalar_elemwise(psm.i0)
+i1 = scalar_elemwise(psm.i1)
+j0 = scalar_elemwise(psm.j0)
+j1 = scalar_elemwise(psm.j1)
+hyp2f1 = scalar_elemwise(psm.hyp2f1)
+ndtr = scalar_elemwise(psm.ndtr)
+ndtri = scalar_elemwise(psm.ndtri)
+# the shape-parameter gradient ops raise NotImplementedError: ROADMAP.md
+# Queue 1 item 10b
+betainc_dda = psm.betainc_dda
+betainc_ddb = psm.betainc_ddb
+gammainc_ddk = psm.gammainc_ddk
+gammaincc_ddk = psm.gammaincc_ddk
+hyp2f1_dda = psm.hyp2f1_dda
+hyp2f1_ddb = psm.hyp2f1_ddb
+hyp2f1_ddc = psm.hyp2f1_ddc
 
 
 def round(x, mode=None):

@@ -3,7 +3,13 @@
 Counterpart of ``pytensor_tpu/tensor/rewriting/math.py`` (PyTensor's
 tensor/rewriting/math.py AlgebraicCanonizer:1119 and the exp/log/pow
 rules), cut to the rewrites that fire on the radon logp+dlogp graphs, on
-the logistic-regression and MLP steps and on the Elman BPTT step.
+the logistic-regression and MLP steps and on the Elman BPTT step, and the
+rewrites that change a value: the identities at NaN and inf
+(``local_useless_eq_neq``, ``local_comparison_self``, ``local_mod_self``,
+``local_zero_div``) and the stabilisations (``local_log1p``,
+``local_log_sigmoid``, ``local_log1p_exp_to_softplus``,
+``local_log_sum_exp``, ``local_exp_over_1_plus_exp``, ``local_expm1``,
+``local_log1mexp``, ``local_log1msigm``, ``local_mul_exp_to_exp_add``).
 Each keeps its name, tags, database and registration order.
 """
 
@@ -225,6 +231,65 @@ register_specialize(local_pow_specialize, name="local_pow_specialize")
 
 
 @node_rewriter([Elemwise])
+def local_log1p(fgraph, node):
+    """log(1 + x) -> log1p(x); log(1 - y) -> log1p(-y)."""
+    if not _is_ew(node, "log"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None:
+        return False
+    if _is_ew(inner, "sub"):
+        a, b = inner.inputs
+        if _unique_value(a) == 1:
+            res = _same_type_out(node, tm.log1p(-b))
+            return [res] if res is not None else False
+        return False
+    if not _is_ew(inner, "add"):
+        return False
+    terms = inner.inputs
+    ones_idx = [k for k, t in enumerate(terms) if _unique_value(t) == 1]
+    if not ones_idx:
+        return False
+    rest = [t for k, t in enumerate(terms) if k != ones_idx[0]]
+    arg = rest[0] if len(rest) == 1 else tm.add(*rest)
+    res = _same_type_out(node, tm.log1p(arg))
+    return [res] if res is not None else False
+
+
+register_stabilize(local_log1p, name="local_log1p")
+
+
+@node_rewriter([Elemwise])
+def local_log_sigmoid(fgraph, node):
+    """log(sigmoid(x)) -> -softplus(-x)."""
+    if not _is_ew(node, "log"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is not None and _is_ew(inner, "sigmoid"):
+        res = _same_type_out(node, -tm.softplus(-inner.inputs[0]))
+        return [res] if res is not None else False
+    return False
+
+
+register_stabilize(local_log_sigmoid, name="local_log_sigmoid")
+
+
+@node_rewriter([Elemwise])
+def local_log1p_exp_to_softplus(fgraph, node):
+    """log1p(exp(x)) -> softplus(x)."""
+    if not _is_ew(node, "log1p"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is not None and _is_ew(inner, "exp"):
+        res = _same_type_out(node, tm.softplus(inner.inputs[0]))
+        return [res] if res is not None else False
+    return False
+
+
+register_stabilize(local_log1p_exp_to_softplus, name="local_log1p_exp_to_softplus")
+
+
+@node_rewriter([Elemwise])
 def local_one_minus_sigmoid(fgraph, node):
     """1 - sigmoid(x) -> sigmoid(-x)."""
     if not _is_ew(node, "sub"):
@@ -263,6 +328,26 @@ register_specialize(local_sum_of_neg, name="local_sum_of_neg")
 
 
 @node_rewriter([Elemwise])
+def local_useless_eq_neq(fgraph, node):
+    """eq(x, x) -> ones; neq(x, x) -> zeros (NaN included, as the
+    reference)."""
+    name = node.op.scalar_op.name
+    if name not in ("eq", "neq") or len(node.inputs) != 2:
+        return False
+    x, y = node.inputs
+    if x is not y:
+        return False
+    from pytensor_tpu_torch.tensor.basic import ones_like, zeros_like
+
+    res = ones_like(x, dtype="bool") if name == "eq" else zeros_like(x, dtype="bool")
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_useless_eq_neq, name="local_useless_eq_neq")
+
+
+@node_rewriter([Elemwise])
 def local_sqrt_sqr(fgraph, node):
     """sqrt(sqr(x)) -> abs(x)."""
     if not _is_ew(node, "sqrt"):
@@ -275,6 +360,63 @@ def local_sqrt_sqr(fgraph, node):
 
 
 register_canonicalize(local_sqrt_sqr, name="local_sqrt_sqr")
+
+
+@node_rewriter([Elemwise])
+def local_log_sum_exp(fgraph, node):
+    """log(sum(exp(x), axis)) -> the stable logsumexp graph."""
+    if not _is_ew(node, "log"):
+        return False
+    s = node.inputs[0].owner
+    if s is None or not isinstance(s.op, CAReduce) or s.op.scalar_op.name != "add":
+        return False
+    if len(fgraph.clients.get(node.inputs[0], ())) != 1:
+        return False
+    e = s.inputs[0].owner
+    if e is None or not _is_ew(e, "exp"):
+        return False
+    if len(fgraph.clients.get(s.inputs[0], ())) != 1:
+        return False
+    res = tm.logsumexp(e.inputs[0], axis=s.op.axis)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype:
+        res = cast(res, out.type.dtype)
+    if not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_stabilize(local_log_sum_exp, name="local_log_sum_exp")
+
+
+@node_rewriter([Elemwise])
+def local_exp_over_1_plus_exp(fgraph, node):
+    """exp(x) / (1 + exp(x)) -> sigmoid(x); 1 / (1 + exp(-x)) -> sigmoid(x)."""
+    if not _is_ew(node, "true_div"):
+        return False
+    num, den = node.inputs
+    if den.owner is None or not _is_ew(den.owner, "add") or len(den.owner.inputs) != 2:
+        return False
+    a, b = den.owner.inputs
+    one_side, exp_side = (a, b) if _unique_value(a) == 1 else (b, a)
+    if _unique_value(one_side) != 1 or exp_side.owner is None \
+            or not _is_ew(exp_side.owner, "exp"):
+        return False
+    (z,) = exp_side.owner.inputs
+    if num.owner is not None and _is_ew(num.owner, "exp") and num.owner.inputs[0] is z:
+        res = _same_type_out(node, tm.sigmoid(z))
+    elif _unique_value(num) == 1:
+        res = _same_type_out(node, tm.sigmoid(-z))
+    else:
+        return False
+    if res is None:
+        return False
+    copy_stack_trace(node.outputs[0], res)
+    return [res]
+
+
+register_stabilize(local_exp_over_1_plus_exp, name="local_exp_over_1_plus_exp")
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +649,89 @@ register_canonicalize(local_add_sub_canonizer, name="local_add_sub_canonizer")
 
 
 @node_rewriter([Elemwise])
+def local_expm1(fgraph, node):
+    """exp(x) - 1 -> expm1(x) (and add(exp(x), -1))."""
+    name = node.op.scalar_op.name
+    if name == "sub":
+        a, b = node.inputs
+        if _unique_value(b) == 1 and a.owner is not None and _is_ew(a.owner, "exp"):
+            res = _same_type_out(node, tm.expm1(a.owner.inputs[0]))
+            return [res] if res is not None else False
+    elif name == "add":
+        exps = [i for i in node.inputs if i.owner is not None and _is_ew(i.owner, "exp")]
+        m1 = [i for i in node.inputs if _unique_value(i) == -1]
+        if len(exps) == 1 and len(m1) == 1 and len(node.inputs) == 2:
+            res = _same_type_out(node, tm.expm1(exps[0].owner.inputs[0]))
+            return [res] if res is not None else False
+    return False
+
+
+register_stabilize(local_expm1, name="local_expm1")
+
+
+@node_rewriter([Elemwise])
+def local_log1mexp(fgraph, node):
+    """log1p(-exp(x)) -> log1mexp(x)."""
+    if not _is_ew(node, "log1p"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not _is_ew(inner, "neg"):
+        return False
+    e = inner.inputs[0].owner
+    if e is None or not _is_ew(e, "exp"):
+        return False
+    res = _same_type_out(node, tm.log1mexp(e.inputs[0]))
+    return [res] if res is not None else False
+
+
+register_stabilize(local_log1mexp, name="local_log1mexp")
+
+
+@node_rewriter([Elemwise])
+def local_log1msigm(fgraph, node):
+    """log1p(-sigmoid(x)) -> -softplus(x)."""
+    if not _is_ew(node, "log1p"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not _is_ew(inner, "neg"):
+        return False
+    s = inner.inputs[0].owner
+    if s is None or not _is_ew(s, "sigmoid"):
+        return False
+    res = _same_type_out(node, -tm.softplus(s.inputs[0]))
+    return [res] if res is not None else False
+
+
+register_stabilize(local_log1msigm, name="local_log1msigm")
+
+
+@node_rewriter([Elemwise])
+def local_mul_exp_to_exp_add(fgraph, node):
+    """exp(a) * exp(b) -> exp(a + b); exp(a) / exp(b) -> exp(a - b)."""
+    name = node.op.scalar_op.name
+    if name == "mul":
+        exps = [i for i in node.inputs
+                if i.owner is not None and _is_ew(i.owner, "exp") and _single_client(fgraph, i)]
+        if len(exps) < 2:
+            return False
+        rest = [i for i in node.inputs if i not in exps]
+        combined = tm.exp(tm.add(*[e.owner.inputs[0] for e in exps]))
+        res = _same_type_out(node, combined if not rest else tm.mul(combined, *rest))
+        return [res] if res is not None else False
+    if name == "true_div":
+        a, b = node.inputs
+        if (a.owner is not None and _is_ew(a.owner, "exp")
+                and b.owner is not None and _is_ew(b.owner, "exp")
+                and _single_client(fgraph, a) and _single_client(fgraph, b)):
+            res = _same_type_out(node, tm.exp(a.owner.inputs[0] - b.owner.inputs[0]))
+            return [res] if res is not None else False
+    return False
+
+
+register_specialize(local_mul_exp_to_exp_add, name="local_mul_exp_to_exp_add")
+
+
+@node_rewriter([Elemwise])
 def local_abs_simplify(fgraph, node):
     """abs(abs(x)) -> abs(x); abs(-x) -> abs(x); abs(sqr(x)) -> sqr(x);
     abs(exp(x)) -> exp(x) (all real-dtype)."""
@@ -550,6 +775,25 @@ def local_mul_to_sqr(fgraph, node):
 register_specialize(local_mul_to_sqr, name="local_mul_to_sqr")
 
 
+@node_rewriter([Elemwise])
+def local_comparison_self(fgraph, node):
+    """lt(x, x), gt(x, x) -> False; le(x, x), ge(x, x) -> True."""
+    name = node.op.scalar_op.name
+    if name not in ("lt", "gt", "le", "ge") or len(node.inputs) != 2:
+        return False
+    x, y = node.inputs
+    if x is not y:
+        return False
+    from pytensor_tpu_torch.tensor.basic import ones_like, zeros_like
+
+    val = ones_like if name in ("le", "ge") else zeros_like
+    res = _same_type_out(node, val(x, dtype="bool"))
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_comparison_self, name="local_comparison_self")
+
+
 @node_rewriter([CAReduce])
 def local_sum_div_by_scalar(fgraph, node):
     """sum(x / c) -> sum(x) / c for 0-d c (one division instead of n)."""
@@ -577,6 +821,23 @@ def local_sum_div_by_scalar(fgraph, node):
 
 
 register_specialize(local_sum_div_by_scalar, name="local_sum_div_by_scalar")
+
+
+@node_rewriter([Elemwise])
+def local_mod_self(fgraph, node):
+    """mod(x, x) -> 0 (mod(0, 0) included)."""
+    if node.op.scalar_op.name != "mod" or len(node.inputs) != 2:
+        return False
+    x, y = node.inputs
+    if x is not y:
+        return False
+    from pytensor_tpu_torch.tensor.basic import zeros_like
+
+    res = _same_type_out(node, zeros_like(x))
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_mod_self, name="local_mod_self")
 
 
 @node_rewriter([Elemwise])
@@ -654,6 +915,24 @@ def local_div_abs_to_sign(fgraph, node):
 
 register_canonicalize(local_div_abs_to_sign, name="local_div_abs_to_sign")
 register_specialize(local_div_abs_to_sign, name="local_div_abs_to_sign")
+
+
+@node_rewriter([Elemwise])
+def local_zero_div(fgraph, node):
+    """0 / x -> 0 (true_div and int_div)."""
+    if node.op.scalar_op.name not in ("true_div", "int_div") or len(node.inputs) != 2:
+        return False
+    c = _unique_value(node.inputs[0])
+    if c is None or float(c) != 0.0:
+        return False
+    # a new constant, never zeros_like of the node's own output: that would
+    # read the node being replaced and loop the equilibrium rewriter
+    zero = as_tensor_variable(np.asarray(0, dtype=node.outputs[0].type.dtype))
+    res = _same_type_out(node, zero)
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_zero_div, name="local_zero_div")
 
 
 @node_rewriter([Elemwise])

@@ -653,6 +653,234 @@ specialize.register("local_constant_scatter_to_onehot_dot",
                     local_constant_scatter_to_onehot_dot, "onehot_gather")
 
 
+
+# ---------------------------------------------------------------------------
+# data-dependent boolean masks -> where() (the JAX package's
+# tensor/rewriting/subtensor.py:1130-1355).  x[mask] has a dynamic (nnz)
+# shape; these rewrites turn the size-preserving uses (a reduction over
+# everything, set/inc with a broadcast value, the shape) into switch(),
+# so that sum, mean and .shape of x[mask], their gradients and set/inc of
+# x[mask] link with static shapes, as in the JAX package.
+# ---------------------------------------------------------------------------
+
+def _sole_bool_mask(node, n_lead):
+    """The mask variable when node indexes with exactly one boolean
+    mask (inputs = leading data inputs + the mask), else None."""
+    idx_inputs = node.inputs[n_lead:]
+    if len(idx_inputs) != 1 or idx_inputs[0].type.dtype != "bool":
+        return None
+    if tuple(node.op.idx_list) != (DYN,):
+        return None
+    return idx_inputs[0]
+
+
+def _broadcast_scalar_of(y, depth=4):
+    """The 0-d variable that ``y`` broadcasts, or None.  Recognizes the
+    forms the gradient builder emits: DimShuffle-expand, fill/second,
+    Alloc, plus a literal 0-d y."""
+    from pytensor_tpu_torch.tensor.basic import Alloc
+    from pytensor_tpu_torch.tensor.elemwise import DimShuffle, Elemwise
+
+    if y.type.ndim == 0:
+        return y
+    if all(s == 1 for s in y.type.shape):
+        # size-1 broadcast (e.g. the [1.] pullback seed): squeeze to 0-d
+        return DimShuffle(y.type.ndim, [])(y)
+    if depth <= 0 or y.owner is None:
+        return None
+    op = y.owner.op
+    if isinstance(op, DimShuffle) and not op.drop \
+            and y.owner.inputs[0].type.ndim == 0:
+        return y.owner.inputs[0]
+    if isinstance(op, Elemwise) and getattr(op.scalar_op, "name", "") == "second":
+        return _broadcast_scalar_of(y.owner.inputs[1], depth - 1)
+    if isinstance(op, Alloc):
+        return _broadcast_scalar_of(y.owner.inputs[0], depth - 1)
+    return None
+
+
+def _expand_mask(mask, ndim):
+    """DimShuffle a k-d mask up to ndim by appending broadcast axes."""
+    from pytensor_tpu_torch.tensor.elemwise import DimShuffle
+
+    k = mask.type.ndim
+    if k == ndim:
+        return mask
+    return DimShuffle(k, list(range(k)) + ["x"] * (ndim - k))(mask)
+
+
+def _subst_same_mask_gathers(v, mask_box, depth=8):
+    """Substitute every boolean-mask gather leaf in an elemwise tree by
+    its (1-d) operand, recording the common mask in ``mask_box[0]``.
+    Returns the substituted variable, or None if the tree mixes masks or
+    contains anything that neither broadcasts along the masked axis nor
+    is an elemwise of substitutable things."""
+    from pytensor_tpu_torch.tensor.elemwise import Elemwise as _EW
+    from pytensor_tpu_torch.tensor.subtensor import AdvancedSubtensor
+
+    if v.owner is not None and isinstance(v.owner.op, AdvancedSubtensor):
+        mk = _sole_bool_mask(v.owner, 1)
+        xk = v.owner.inputs[0]
+        if mk is None or xk.type.ndim != 1:
+            return None
+        if mask_box[0] is None:
+            mask_box[0] = mk
+        elif mask_box[0] is not mk:
+            return None  # mixed masks: not a single-mask fill
+        return xk
+    if v.type.ndim == 0 or (v.type.ndim == 1 and v.type.shape[0] == 1):
+        return v  # broadcasts along the masked axis
+    if depth > 0 and v.type.ndim == 1 and v.owner is not None \
+            and (isinstance(v.owner.op, _EW)
+                 or type(v.owner.op).__name__ == "FusedElemwise"):
+        subs = [_subst_same_mask_gathers(i, mask_box, depth - 1)
+                for i in v.owner.inputs]
+        if any(s is None for s in subs):
+            return None
+        r = v.owner.op(*subs)
+        return None if isinstance(r, (list, tuple)) else r
+    return None
+
+
+@node_rewriter([AdvancedIncSubtensor])
+def local_bool_set_or_inc_to_where(fgraph, node):
+    """set/inc_subtensor(x[mask], broadcast-scalar y) ->
+    switch(mask, y | x+y, x): size-preserving, XLA-compilable."""
+    from pytensor_tpu_torch.tensor.basic import cast as t_cast
+    from pytensor_tpu_torch.tensor.math import switch
+
+    mask = _sole_bool_mask(node, 2)
+    if mask is None:
+        return False
+    x, y = node.inputs[:2]
+    scalar = _broadcast_scalar_of(y)
+    if scalar is None and x.type.ndim == 1:
+        # vector y that is an elemwise tree over gathers of the SAME
+        # mask (e.g. the pullback of var(x[mask]): y = f(x[mask], ...))
+        mask_box = [mask]
+        scalar = _subst_same_mask_gathers(y, mask_box)
+    if scalar is None:
+        return False
+    m = _expand_mask(mask, x.type.ndim)
+    if node.op.set_instead_of_inc:
+        res = switch(m, scalar, x)
+    else:
+        res = switch(m, x + scalar, x)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype:
+        res = t_cast(res, out.type.dtype)
+    if not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_bool_set_or_inc_to_where,
+                    name="local_bool_set_or_inc_to_where")
+
+
+@node_rewriter(None)
+def local_reduce_of_bool_mask_to_where(fgraph, node):
+    """sum(x[mask]) / prod(x[mask]) reduced to a scalar ->
+    reduce(switch(mask, x, neutral)) over all of x."""
+    from pytensor_tpu_torch.tensor.elemwise import CAReduce
+    from pytensor_tpu_torch.tensor.math import switch
+    from pytensor_tpu_torch.tensor.subtensor import AdvancedSubtensor
+
+    if not isinstance(node.op, CAReduce):
+        return False
+    if node.outputs[0].type.ndim != 0:
+        return False
+    name = getattr(node.op.scalar_op, "name", "")
+    if name not in ("add", "mul"):
+        return False
+    arg = node.inputs[0]
+    if arg.owner is None:
+        return False
+    if isinstance(arg.owner.op, AdvancedSubtensor):
+        mask = _sole_bool_mask(arg.owner, 1)
+        if mask is None:
+            return False
+        x = arg.owner.inputs[0]
+        m = _expand_mask(mask, x.type.ndim)
+        neutral = np.asarray(0 if name == "add" else 1, dtype=x.type.dtype)
+        filled = switch(m, x, neutral)
+    else:
+        # sum(f(x[mask], broadcast...)) with f an elemwise TREE over 1-d
+        # operands: = sum(where(mask, f(x, broadcast...), neutral)) —
+        # substitute every same-mask gather leaf by its operand.  Covers
+        # var/std(x[mask]) ((x[m]-mean)^2 under the Sum) and friends.
+        mask_box = [None]
+        new_arg = _subst_same_mask_gathers(arg, mask_box)
+        mask = mask_box[0]
+        if new_arg is None or mask is None:
+            return False
+        x = new_arg
+        m = mask
+        neutral = np.asarray(0 if name == "add" else 1,
+                             dtype=new_arg.type.dtype)
+        filled = switch(m, new_arg, neutral)
+    res = CAReduce(node.op.scalar_op, axis=None, dtype=node.op.dtype,
+                   acc_dtype=node.op.acc_dtype,
+                   upcast_discrete_output=node.op.upcast_discrete_output)(filled)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_reduce_of_bool_mask_to_where,
+                    name="local_reduce_of_bool_mask_to_where")
+
+
+@node_rewriter(None)
+def local_shape_of_bool_mask(fgraph, node):
+    """shape(x[mask]) without the gather: nnz(mask) = sum(mask), and the
+    trailing dims are x's own.  Unlocks mean/var of masked values
+    (sum(where)/nnz) and any size query on a masked result."""
+    from pytensor_tpu_torch.tensor.basic import cast as t_cast
+    from pytensor_tpu_torch.tensor.math import sum as t_sum
+    from pytensor_tpu_torch.tensor.shape import Shape, Shape_i, shape as t_shape
+    from pytensor_tpu_torch.tensor.subtensor import AdvancedSubtensor
+
+    if not isinstance(node.op, (Shape, Shape_i)):
+        return False
+    arg = node.inputs[0]
+    if arg.owner is None or not isinstance(arg.owner.op, AdvancedSubtensor):
+        return False
+    mask = _sole_bool_mask(arg.owner, 1)
+    if mask is None:
+        return False
+    x = arg.owner.inputs[0]
+    k = mask.type.ndim
+    nnz = t_cast(t_sum(t_cast(mask, "int64")), "int64")
+    if isinstance(node.op, Shape_i):
+        if node.op.i == 0:
+            res = nnz
+        else:
+            res = t_shape(x)[k + node.op.i - 1]
+            res = t_cast(res, node.outputs[0].type.dtype) \
+                if res.type.dtype != node.outputs[0].type.dtype else res
+    else:
+        from pytensor_tpu_torch.tensor.basic import MakeVector
+
+        rest = [t_shape(x)[d] for d in range(k, x.type.ndim)]
+        res = MakeVector(dtype="int64")(nnz, *rest)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_canonicalize(local_shape_of_bool_mask,
+                      name="local_shape_of_bool_mask")
+register_specialize(local_shape_of_bool_mask,
+                    name="local_shape_of_bool_mask")
+
+
+
 def _is_shape_of_dim(var, x, d, fgraph=None):
     """Whether ``var`` is ``x.shape[d]``: a direct ``Shape_i`` of ``x``.
     The JAX package also matches x's symbolic dim-d entry through the

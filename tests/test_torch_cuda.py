@@ -32,6 +32,14 @@ and the Kalman log-likelihood and gradient at small widths captured, with
 the eager plan's bits and the CPU's values at ``1e-5``; a
 ``Blockwise{Cholesky}`` of 16 matrices as one ``cholesky_ex`` call, within
 ``1e-12`` of the CPU (float64), with the NaN and lower-triangle contracts.
+The special functions (``link/cuda/special.py``): each as a one-node K1
+launch in float32 and float64 on its grid and numpy's edges against its
+plain version on the card (``2e-5`` and ``5e-9`` of ``max(1, |plain|)``,
+NaN and infinities where the plain version has them), the special op
+group a dtype fused, an Elemwise of one on the card never running its
+plain version, a failed K1 build raising, and the bessel loop through K2
+under ``scan__pallas`` (one launch) and as the step loop (K1 twice a
+step), each within ``2e-6`` of the float64 scipy loop.
 """
 
 import numpy as np
@@ -971,3 +979,94 @@ def test_blockwise_cholesky_is_one_batched_call(card):
     assert bool(got[5][lower[0], lower[1]].isnan().all()) and bool((got[5].triu(1) == 0).all())
     ok = [k for k in range(16) if k != 5]
     assert _scaled(got[ok], want[ok]) <= 1e-12
+
+
+# --- the special functions ----------------------------------------------------------
+
+SPECIAL_TOL = {"float32": 2e-5, "float64": 5e-9}
+
+
+def _held_special(name, got, want, dtype):
+    g, w = got.double().cpu(), want.double().cpu()
+    assert torch.equal(g.isnan(), w.isnan()), name
+    inf = w.isinf()
+    assert torch.equal(g[inf], w[inf]), name
+    fin = torch.isfinite(w)
+    assert _scaled(g[fin], w[fin]) <= SPECIAL_TOL[dtype] if fin.any() else True, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k1_special_functions_match_plain(card, dtype):
+    from pytensor_tpu_torch.link.torch.dispatch import _one_node_k1
+
+    fns = {name: _one_node_k1(cases.special_node(name, dtype).op,
+                              cases.special_node(name, dtype), card)
+           for name in sorted(cases.SPECIAL_GRIDS)}
+    fused_kernel.build([f.k1 for f in fns.values()])
+    for name, fn in fns.items():
+        args = [as_torch(v, card) for v in cases.special_inputs(name, dtype, 4096, 5)]
+        got = fn.k1.launch(*args)[0]
+        _held_special(name, got, fn.k1.plain(*args)[0], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k1_special_op_group_matches_plain(card, dtype):
+    ins, outs, names = cases.special_op_group(dtype)
+    kern = fused_kernel.FusedElemwiseKernel(FusedElemwise(ins, outs).fgraph, card)
+    args = [as_torch(v, card) for v in cases.special_group_inputs(dtype, 4099)]
+    for name, g, w in zip(names, kern.launch(*args), kern.plain(*args)):
+        _held_special(name, g, w, dtype)
+
+
+def test_a_special_elemwise_on_the_card_launches_k1(card):
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+
+    x = pt.vector("x", dtype="float32")
+    f = ptt.function([x], pt.kve(1.0, x), device=card)
+    v = torch.linspace(0.5, 4.0, 1000, device=card)
+    f(v)
+    fused_kernel.LAUNCHES = 0
+    got = f(v)
+    torch.cuda.synchronize()
+    assert fused_kernel.LAUNCHES == 1
+    from pytensor_tpu_torch.scalar import bessel
+    torch.testing.assert_close(got, bessel.kve(torch.ones_like(v).double(), v.double()).float(),
+                               rtol=2e-6, atol=0)
+
+
+def test_a_failed_k1_build_raises(card, monkeypatch):
+    """No fallback: a K1 kernel whose build fails raises at its launch."""
+    from pytensor_tpu_torch.link.cuda import build as cuda_build
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("nvcc failed (refused by the test)")
+
+    node = cases.special_node("erfcx", "float32")
+    from pytensor_tpu_torch.link.torch.dispatch import _one_node_k1
+
+    fn = _one_node_k1(node.op, node, card)
+    monkeypatch.setattr(fused_kernel, "_ENTRIES", {})  # nothing built yet
+    monkeypatch.setattr(cuda_build, "build_library", refuse)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fn(torch.ones(8, device=card))
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["step_loop", "scan__pallas"])
+def test_bessel_loop_on_the_card(card, pallas):
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+    from pytensor_tpu_torch.models.bessel import bessel_reference, make_bessel_loop, v_start
+
+    with config.change_flags(scan__pallas=pallas):
+        f, v = make_bessel_loop(256, 4, device=card)
+    f()
+    v.set_value(as_torch(v_start(256), card))
+    fused_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+    f()
+    torch.cuda.synchronize()
+    launches = (fused_kernel.LAUNCHES, scan_kernel.LAUNCHES)
+    assert launches == ((0, 1) if pallas else (8, 0))
+    want, _ = bessel_reference(v_start(256), 4)
+    got = v.get_value().double().cpu().numpy()
+    assert np.max(np.abs(got - want) / np.abs(want)) <= 2e-6

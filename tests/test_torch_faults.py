@@ -1,4 +1,4 @@
-"""Five faults once found in the port, each held against the JAX package.
+"""Ten faults once found in the port, each held against the JAX package.
 
 The same numpy inputs go through ``function()`` of both packages on the
 CPU (FAST_RUN in both), and the port must give what the JAX package gives:
@@ -10,7 +10,22 @@ CPU (FAST_RUN in both), and the port must give what the JAX package gives:
 4. ``sigmoid`` of an integer tensor builds a graph and is refused with a
    ``TypeError`` when its function is built or run;
 5. ``grad(sum(sqrt(sqr(x))), x)`` rewrites to ``sign(x)`` op for op, so
-   it is finite at 0 and keeps the sign of -0.0.
+   it is finite at 0 and keeps the sign of -0.0;
+
+and the five of ROADMAP Queue 3 (repaired together):
+
+6. the rewrites that change a value: the identities at NaN and inf
+   (``x == x``, ``x % x``, ``0 / x``) and the stabilisations (``log(1 +
+   x)``, ``log(sum(exp(x)))``, ``log(1 + exp(x))`` and its gradient,
+   ...), each at the reference's value;
+7. ``sum``, ``mean`` and ``.shape`` of ``x[x > 0]``, their gradients and
+   ``set_``/``inc_subtensor`` of ``x[x > 0]`` (a bare ``x[x > 0]`` still
+   raises, in both packages);
+8. an advanced index beside a negative-step slice, read and written;
+9. ``uint16``, ``uint32`` and ``uint64``: held in int64, compared,
+   divided and converted as unsigned (``sum`` of three uint8 200s is 600,
+   uint64);
+10. ``QR(mode="raw")``: numpy's ``(h, tau)``.
 
 Values are compared exactly (bools, signs of zero) or at ``rtol 1e-12``.
 """
@@ -132,3 +147,139 @@ def test_grad_of_sqrt_sqr_is_sign_like_jax(dtype):
     np.testing.assert_array_equal(t, [0.0, 0.0, 1.0, -1.0])
     np.testing.assert_array_equal(np.signbit(t), [False, True, False, True])
     np.testing.assert_array_equal(np.signbit(t), np.signbit(j))
+
+
+# --- ROADMAP Queue 3's five faults ------------------------------------------------
+
+def _both(build, values, dtype="float64"):
+    """The outputs of ``function(inputs, build(ptt, pt, *inputs))`` on
+    ``values`` in the JAX package, then the port."""
+    res = []
+    for ptt, pt, kw in (JAX, PORT):
+        ins = [pt.tensor(f"x{k}", dtype=str(np.asarray(v).dtype) if dtype is None else dtype,
+                         shape=(None,) * np.ndim(v)) for k, v in enumerate(values)]
+        out = ptt.function(ins, build(ptt, pt, *ins), **kw)(*[
+            np.asarray(v) if dtype is None else np.asarray(v, dtype=dtype) for v in values])
+        res.append([_np(o) for o in (out if isinstance(out, list) else [out])])
+    return res
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (g.dtype, w.dtype, g.shape, w.shape)
+        if g.dtype.kind in "biu":
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-12)
+
+
+EDGES = [np.nan, 0.0, 2.0, np.inf]
+
+
+@pytest.mark.parametrize("build,values,want", [
+    (lambda p, t, x: t.eq(x, x), [EDGES], [True] * 4),
+    (lambda p, t, x: t.le(x, x), [EDGES], [True] * 4),
+    (lambda p, t, x: t.ge(x, x), [EDGES], [True] * 4),
+    (lambda p, t, x: x % x, [EDGES], [0.0] * 4),
+    (lambda p, t, x: 0 / x, [EDGES], [0.0] * 4),
+    (lambda p, t, x: t.log(1 + x), [[1e-20]], [1e-20]),
+    (lambda p, t, x: t.log(1 - x), [[1e-20]], [-1e-20]),
+    (lambda p, t, x: t.exp(x) - 1, [[1e-20]], [1e-20]),
+    (lambda p, t, x: t.log(t.sum(t.exp(x))), [[800.0]], 800.0),
+    (lambda p, t, x: t.exp(x) * t.exp(-x), [[800.0]], [1.0]),
+    (lambda p, t, x, y: t.exp(x) / t.exp(y), [[800.0, -800.0]] * 2, [1.0, 1.0]),
+    (lambda p, t, x: t.log(1 + t.exp(x)), [[800.0]], [800.0]),
+    (lambda p, t, x: p.grad(t.sum(t.log(1 + t.exp(x))), x), [[800.0]], [1.0]),
+    (lambda p, t, x: t.log(t.sigmoid(x)), [[-800.0]], [-800.0]),
+    (lambda p, t, x: t.log(1 - t.sigmoid(x)), [[800.0]], [-800.0]),
+    (lambda p, t, x: t.log(1 - t.exp(x)), [[-1e-20]], [np.log(1e-20)]),
+], ids=["eq", "le", "ge", "mod", "zero_div", "log1p", "log1m", "expm1", "logsumexp",
+        "exp_mul", "exp_div", "softplus", "softplus_grad", "log_sigmoid", "log1msigm",
+        "log1mexp"])
+def test_value_changing_rewrites(build, values, want):
+    jax, port = _both(build, values)
+    _same(port, jax)
+    np.testing.assert_allclose(port[0], np.asarray(want), rtol=1e-12)
+
+
+X = np.array([1.5, -2.0, 3.0, -0.5, 4.0])
+
+
+@pytest.mark.parametrize("build", [
+    lambda p, t, x: t.sum(x[x > 0]),
+    lambda p, t, x: t.mean(x[x > 0]),
+    lambda p, t, x: x[x > 0].shape,
+    lambda p, t, x: p.grad(t.sum(x[x > 0]), x),
+    lambda p, t, x: p.grad(t.mean(x[x > 0]), x),
+    lambda p, t, x: t.set_subtensor(x[x > 0], 0.0),
+    lambda p, t, x: t.inc_subtensor(x[x > 0], 1.0),
+], ids=["sum", "mean", "shape", "grad_sum", "grad_mean", "set", "inc"])
+def test_data_dependent_boolean_masks(build):
+    jax, port = _both(build, [X])
+    _same(port, jax)
+
+
+def test_a_bare_boolean_mask_still_raises_in_both():
+    for ptt, pt, kw in (JAX, PORT):
+        x = pt.dvector("x")
+        with pytest.raises(NotImplementedError):
+            ptt.function([x], x[x > 0], **kw)(X)
+
+
+M = np.arange(12.0).reshape(3, 4)
+
+
+@pytest.mark.parametrize("build", [
+    lambda p, t, x: x[::-1, [0, 2]],
+    lambda p, t, x: x[[0, 2], ::-2],
+    lambda p, t, x: x[[2, 0], 3:0:-2],
+    lambda p, t, x: t.set_subtensor(x[::-1, [0, 2]], -1.0),
+    lambda p, t, x: t.inc_subtensor(x[[0, 2], ::-2], np.array([[1.0, 2.0], [3.0, 4.0]])),
+    lambda p, t, x: t.inc_subtensor(x[::-1, [0, 2]], np.arange(6.0).reshape(3, 2)),
+], ids=["rev_adv", "adv_rev2", "adv_rev_bounded", "set_rev_adv", "inc_adv_rev",
+        "inc_rev_adv"])
+def test_advanced_index_beside_a_negative_step(build):
+    jax, port = _both(build, [M])
+    _same(port, jax)
+
+
+@pytest.mark.parametrize("build", [lambda p, t, x: t.sum(x), lambda p, t, x: t.prod(x)],
+                         ids=["sum", "prod"])
+def test_reductions_of_uint8_are_uint64(build):
+    jax, port = _both(build, [np.array([200, 200, 200], dtype="uint8")], dtype=None)
+    _same(port, jax)
+    assert port[0].dtype == np.uint64
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "uint64"])
+def test_wide_unsigned_dtypes(dtype):
+    top = np.iinfo(dtype).max
+    x = np.array([top, 3, 7, top // 2 + 1], dtype=dtype)
+    y = np.array([2, top, 7, 5], dtype=dtype)
+
+    def build(p, t, a, b):
+        return [a + b, a * b, a - b, a // b, a % b, a > b, a <= b, t.maximum(a, b),
+                t.minimum(a, b), t.cast(a, "float64"), t.cast(a, "int32"), t.max(a), t.min(a),
+                t.sum(a), a + 3, t.cast(t.cast(a, "float64") * 0.5, dtype)]
+
+    jax, port = _both(build, [x, y], dtype=None)
+    _same(port, jax)
+
+
+def test_qr_raw_gives_numpys_h_and_tau():
+    """``(h, tau)`` of shapes ``(n, m)`` and ``(k,)``; the node's types are
+    the JAX package's, which its ``make_node`` gives as ``(m, m)`` and
+    ``(m, n)`` (``pytensor_tpu/tensor/linalg.py:555-562``)."""
+    a = np.random.default_rng(3).standard_normal((5, 3))
+    jax, port = _both(lambda p, t, x: list(t.linalg.qr(x, mode="raw")), [a])
+    want = np.linalg.qr(a, mode="raw")
+    assert [p.shape for p in port] == [(3, 5), (3,)]
+    for got, w, j in zip(port, want, jax):
+        np.testing.assert_allclose(got, w, rtol=1e-12, atol=1e-15)
+        np.testing.assert_allclose(j, w, rtol=1e-12, atol=1e-15)
+    types = []
+    for ptt, pt, kw in (JAX, PORT):
+        node = pt.linalg.qr(pt.tensor("x", dtype="float64", shape=(5, 3)), mode="raw")[0].owner
+        types.append([o.type.shape for o in node.outputs])
+    assert types[0] == types[1] == [(5, 5), (5, 3)]

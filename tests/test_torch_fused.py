@@ -199,8 +199,8 @@ def k1_host():
 
     def lib_for(kernels):
         units = {k.key: k.unit for k in kernels}
-        src = (fused_kernel.PRELUDE.replace("#include <cuda_runtime.h>", f'#include "{HEADER}"')
-               + "".join(units[k] for k in sorted(units)))
+        src = fused_kernel.library_source([units[k] for k in sorted(units)]).replace(
+            "#include <cuda_runtime.h>", f'#include "{HEADER}"')
         key = hashlib.sha256(src.encode() + HEADER.read_bytes()).hexdigest()[:16]
         lib = BUILD / f"libk1_host_{key}.so"
         if not lib.exists():

@@ -595,3 +595,52 @@ def test_k2_radon_body_source_at_full_width():
     assert src.placement == "shared" and src.arena + len(src.const_bytes) < SMEM_LIMIT
     assert src.smem_bytes <= SMEM_LIMIT and src.smem_const_bytes == len(src.const_bytes)
     assert src.n_ops < 131 and src.n_barriers < 26
+
+
+# --- the bessel loop (benchsuite.py:1067 ours_bessel) --------------------------------
+
+def _bessel_loop(ptt_, pt_, kw):
+    """The bessel loop's scan as ``train_loop`` builds it: 3 steps of
+    ``0.999 v + 0.001 kve(1, v) ive(0.5, v)`` on a 64-vector."""
+    from pytensor_tpu_torch.models.bessel import v_start
+
+    v = ptt_.shared(v_start(64), name="v", shape=(64,), **kw)
+    y = 0.999 * v + 0.001 * pt_.kve(1.0, v) * pt_.ive(0.5, v)
+    return v, ptt_.train_loop([], y[0], {v: y}, n_steps=3, **kw)
+
+
+def test_emulated_k2_bessel_body_matches_loop(gxx):
+    """K2 emits kve and ive (link/cuda/special.py) inside its step: the
+    loop's Scan under the emulation against the step loop, on the state
+    the shared variable holds."""
+    with config.change_flags(scan__pallas=True):
+        v, f = _bessel_loop(ptt, pt, {"device": "cpu"})
+    (node,) = [nd for nd in f.fgraph.apply_nodes if type(nd.op).__name__ == "Scan"]
+    src = ScanKernelSource(node.op, node).source
+    assert "ks_kve(" in src and "ks_ive(" in src and "ks_ik_core" in src
+    assert "ks_jy_core" not in src
+    got, want = _emulated_vs_loop(gxx, f, [v.get_value().numpy()])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert float((g - w).abs().max()) <= TOL * max(1.0, float(w.abs().max()))
+
+
+def test_bessel_loop_is_k2_eligible_in_both_packages():
+    """The JAX package's whitelist takes any Elemwise (scan_pallas.py:40),
+    so its bessel loop is eligible under scan__pallas; so is the port's,
+    now that K2 emits kve and ive."""
+    import pytensor_tpu as jptt
+    import pytensor_tpu.tensor as jpt
+    from pytensor_tpu.config import config as jconfig
+    from pytensor_tpu.link.pallas.scan_pallas import pallas_scan_eligible
+
+    verdicts = []
+    for ptt_, pt_, kw, conf, eligible in (
+            (jptt, jpt, {}, jconfig, pallas_scan_eligible),
+            (ptt, pt, {"device": "cpu"}, config, scan_kernel_eligible)):
+        with conf.change_flags(scan__pallas=True):
+            _, f = _bessel_loop(ptt_, pt_, kw)
+        fg = f.maker.fgraph if hasattr(f, "maker") else f.fgraph
+        (node,) = [nd for nd in fg.apply_nodes if type(nd.op).__name__ == "Scan"]
+        verdicts.append(eligible(node.op, node))
+    assert verdicts == [True, True]
