@@ -1,6 +1,7 @@
 """Drive the torch port's radon, sparse, logistic-regression, MLP, Elman
-RNN, linalg (GP, Kalman filter, batched Cholesky) and special-function
-(the bessel loop) paths on one NVIDIA GPU.
+RNN, linalg (GP, Kalman filter, batched Cholesky), special-function (the
+bessel loop) and bfloat16 (the MLP "MFU" step, the GEMM chain) paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -174,6 +175,33 @@ Phases, one line or more each, and any failure raises:
    values.  Phase 3 also runs one fused node a float dtype of every special
    function against its plain version.  K1's and K2's ``launches_by_path``
    gain ``special``.
+15. bfloat16 (``phase_bf16``): the MFU step of ``benchsuite.py:263
+   ours_mlp_mfu`` at its size and dtype (batch 4,096, d 4,096, depth 4,
+   lr 1e-3, bfloat16) through ``function()`` and as its 4-step
+   ``train_loop``, captured; counts set to 0 before one replayed call of
+   each (K1 on the step's two fused nodes; none in the loop); the loss,
+   the gradients (the step's graph linked with them and the products
+   before each relu as outputs) and the update (one step at
+   ``BF16_UPDATE_LR``, where it shows in bfloat16) against
+   ``models/mlp.py mlp_mfu_reference`` in float64, rounding where the graph
+   rounds, on the card's sides of relu's kink (``BF16_TOL``); the loop
+   against 4 calls of the step; the step's K1 nodes against their plain
+   version at its shapes; wall and device ms a step, busy share, kernels
+   by name, TFLOP/s over 1.649 TFLOP a step and MFU against the dense
+   bfloat16 peak of NVIDIA's H100 SXM data sheet (``BF16_PEAK_S``); the
+   bfloat16 nodes K1 does not emit, by name.  The GEMM chain of
+   ``benchsuite.py:283 ours_gemm_chain`` (16,384 x 4,096, 8 matrices, 2
+   applications a call): the first application on 64 rows against float64
+   NumPy and its scale against a float32 chain on the card, the call
+   against two calls of one, wall and device ms a call, TFLOP/s.  The same
+   MFU step written in direct torch calls, eager, timed beside.  K1 on
+   every op of its table in bfloat16 as one-node launches on numpy's edges
+   against its plain version (``cases.BF16_EXACT_OPS`` bit for bit, the
+   others within 1 ulp) and the MFU class node at 2**24 against its byte
+   bound; K2 on ``benchsuite.py:87 ours_scan``'s EWMA in bfloat16 (n 4,096,
+   one launch) bit for bit its step loop, µs a step beside float32's.
+   K1's and K2's ``launches_by_path`` gain these paths; their kernel-line
+   entries gain ``bf16_mfu_class_node`` and ``ewma_n4096``.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -1901,6 +1929,566 @@ def phase_special(dev, smi_line, one_node):
     return launches, k1_abs, k2_abs, rows, prof
 
 
+# --- 15. bfloat16 ------------------------------------------------------------------
+
+# benchsuite.py:263 ours_mlp_mfu and :283 ours_gemm_chain at their own size
+# and dtype: the MFU step (batch 4,096, d 4,096, depth 4, lr 1e-3, 4 steps a
+# call) and the GEMM chain (batch 16,384, d 4,096, 8 matrices, 2
+# applications a call), bfloat16
+BF16_MFU_BATCH, BF16_MFU_D, BF16_MFU_DEPTH, BF16_MFU_STEPS, BF16_MFU_LR = 4096, 4096, 4, 4, 1e-3
+# one step at a learning rate whose update shows in bfloat16 weights, for
+# the update hold only: at 1e-3 a step moves almost no weight by half a
+# bfloat16 ulp (8 bits), so an update dropped there would read the same
+BF16_UPDATE_LR = 64.0
+GEMM_BATCH, GEMM_D, GEMM_NMAT, GEMM_STEPS = 16384, 4096, 8, 2
+# rows of the chain's first application held against float64 NumPy
+GEMM_ROWS = 64
+# NVIDIA's H100 SXM data sheet: the dense bfloat16 tensor-core rate
+BF16_PEAK_S = 989e12
+# benchsuite.py:87 ours_scan's EWMA, in bfloat16 and float32
+EWMA_N = 4096
+# K1's bfloat16 node of the MFU step's class, timed at this many elements
+BF16_TIMING_N = 2 ** 24
+# phase 15's holds.  The MFU step against the float64 step that rounds to
+# bfloat16 where the graph does (``mlp_mfu_reference(..., bf16=True)``; an
+# unrounded float64 step is no reference for a bfloat16 network, whose
+# batch sums cancel), on the card's sides of relu's kink: the loss
+# (relative, a float32 mean of 16.7M squares), the gradients (max error
+# over max|ref| a layer: sums of 4,096 bfloat16 products accumulated in
+# float32 where the reference sums in float64, and a 1-ulp difference
+# before a rounding carries on through the layers) and the update at
+# BF16_UPDATE_LR (the weights that differ from the reference's over those
+# the reference changes; a dropped update reads 1).  On an H100 80GB HBM3
+# at 700 W they read 5.9e-8, 4.1e-3 to 5.7e-3 and 7.0e-3.  The GEMM
+# chain's first application on GEMM_ROWS rows against float64 NumPy, max
+# error over max|ref|: each of the 8 products rounds to bfloat16 and the
+# ramps make each product cancel (the rows' rms is 1.2e-7 at the end of
+# the chain), so the rounding grows along it: 2.3e-2 on the H100, held at
+# ~4x.  Its scale against the float32 chain on the card (2.5e-5 there), the
+# 2-application call against two calls of one (over max|ref|; 0 there), and
+# the plain torch step's loss against the port's (0 there)
+BF16_TOL = {"mfu_loss": 1e-5, "mfu_grads": 3e-2, "mfu_update": 0.1, "gemm_rows": 0.1,
+            "gemm_scale": 2e-2, "gemm_calls": 0.1, "plain_loss": 1e-6}
+
+
+# the product kernels of cuBLAS (cuBLASLt's nvjet, the sm80/sm90 xmma and
+# cutlass gemms) in a trace's kernel names
+GEMM_KERNELS = re.compile(r"nvjet|gemm|xmma|cutlass", re.I)
+
+
+def n_products(f, steps=1):
+    """The matrix products a call of ``f`` launches: its Dot, Dot22,
+    Dot22Scalar and Gemm nodes, a scan's inner ones once a step."""
+    from pytensor_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm
+    from pytensor_tpu_torch.tensor.math import Dot
+
+    def count(fg, k):
+        n = 0
+        for nd in fg.apply_nodes:
+            if isinstance(nd.op, (Dot, Dot22, Dot22Scalar, Gemm)):
+                n += k
+            elif type(nd.op).__name__ == "Scan":
+                n += count(nd.op.fgraph, k * steps)
+        return n
+
+    return count(f.fgraph, 1)
+
+
+def with_products(traced_ms, by, n_gemm):
+    """Device ms a call from ``device_ms``'s ``(ms, split by kernel)``, with
+    the product kernels counted ``n_gemm`` times a call at their mean time
+    a traced launch (the trace misses some launches of kernels of a
+    millisecond or so, and a missed one would shorten the call), every
+    other kernel as traced; and the product launches the trace caught a
+    call.  Without a split (no trace), ``traced_ms`` as it is."""
+    g = [(ms, n) for k, (ms, n) in by.items() if GEMM_KERNELS.search(k)]
+    traced = sum(n for _, n in g)
+    rest = sum(ms for k, (ms, _) in by.items() if not GEMM_KERNELS.search(k))
+    if not traced:
+        return traced_ms, 0
+    return rest + sum(ms for ms, _ in g) / traced * n_gemm, traced
+
+
+def bf16_paths(dev):
+    """The functions and graphs of phase 15, built for ``dev``: the MFU
+    step through ``function()`` and as a BF16_MFU_STEPS-step
+    ``train_loop``, the step at BF16_UPDATE_LR, the step's graph linked
+    with its gradients and the products before each relu as outputs, and
+    the EWMA scans under ``scan__pallas`` in bfloat16 and float32."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.models.mlp import make_mlp_mfu_step, mlp_mfu_graph
+    from pytensor_tpu_torch.utils import np_dtype
+
+    size = (BF16_MFU_BATCH, BF16_MFU_D, BF16_MFU_DEPTH, "bfloat16")
+    step = make_mlp_mfu_step(*size, BF16_MFU_LR, device=dev)[0]
+    loop = make_mlp_mfu_step(*size, BF16_MFU_LR, n_steps_per_call=BF16_MFU_STEPS, device=dev)[0]
+    upd = make_mlp_mfu_step(*size, BF16_UPDATE_LR, device=dev)[0]
+    X, T, Ws, acts, loss, grads, _, data = mlp_mfu_graph(*size, BF16_MFU_LR, dev)
+    f_g = ptt.function([X, T], [loss, *grads, *acts], device=dev, trust_input=True)
+    ewma = {}
+    for dtype in ("bfloat16", "float32"):
+        c = np_dtype(dtype).type
+        x = pt.tensor("x", dtype=dtype, shape=(EWMA_N,))
+        with config.change_flags(scan__pallas=True):
+            tr, _ = ptt.scan(lambda xt, acc: c(0.98) * acc + c(0.02) * xt, sequences=[x],
+                             outputs_info=[pt.constant(np.asarray(0.0, np_dtype(dtype)))])
+            ewma[dtype] = ptt.function([x], tr, device=dev)
+    return step, loop, upd, (f_g, Ws, data), ewma
+
+
+def bf16_kernels(dev):
+    """The K1 and K2 kernels of phase 15, for the build pool of phase 2:
+    every op of K1's table in bfloat16 as a one-node kernel (one library;
+    each with the positions of its inputs in ``cases.bf16_op_group``),
+    K1's node of the MFU step's class, the K1 kernels of phase 15's
+    functions from their graphs made and rewritten on the CPU (the same
+    sources, so linking them for the card finds them built) and K2 of the
+    EWMA scans.  Returns (one-node kernels by op name, the class node's
+    kernel, the functions' K1 kernels, K2 kernels)."""
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.cuda import cases, scan_kernel
+    from pytensor_tpu_torch.scan.op import Scan
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    ins, outs, names = cases.bf16_op_group()
+    one_node = {}
+    for name, out in zip(names, outs):
+        used = [k for k, i in enumerate(ins) if i in out.owner.inputs]
+        one_node[name] = (fused_kernel.FusedElemwiseKernel(
+            FunctionGraph([ins[k] for k in used], [out], clone=True), dev), used)
+    cls = fused_kernel.FusedElemwiseKernel(bf16_class_node().fgraph, dev)
+    step, loop, upd, (f_g, _, _), ewma = bf16_paths("cpu")
+    kerns = [fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+             for f in (step, loop, upd, f_g) for nd in f.fgraph.toposort()
+             if isinstance(nd.op, FusedElemwise)]
+    k2 = {}
+    for dtype, f in ewma.items():
+        node = next(nd for nd in f.fgraph.apply_nodes if isinstance(nd.op, Scan))
+        k2[dtype] = scan_kernel.ScanKernel(node.op, node, dev)
+    return one_node, cls, kerns, k2
+
+
+def bf16_class_node():
+    """One FusedElemwise of the MFU step's class, all bfloat16: relu's
+    gradient and the SGD update (``w - lr * switch(a >= 0, g, 0)``) beside
+    relu (``maximum(a, 0)``)."""
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+    from pytensor_tpu_torch.utils import np_dtype
+
+    bf = np_dtype("bfloat16").type
+    a, g, w = (pt.tensor(k, dtype="bfloat16", shape=(None,)) for k in "agw")
+    outs = [w - bf(BF16_MFU_LR) * pt.switch(a >= 0, g, bf(0)), pt.maximum(a, bf(0))]
+    return FusedElemwise([a, g, w], outs)
+
+
+def bf16_plain_step(X, T, Ws, lr):
+    """The bfloat16 MFU step in direct torch calls, eager, on the same
+    tensors (the weights updated in place): the same arithmetic as the
+    graph, op for op, as PyTorch would be written by hand.  Timed beside
+    the port's step as the library's route; the port never calls it."""
+    import torch
+
+    hs, acts = [X], []
+    for W in Ws:
+        acts.append(hs[-1] @ W)
+        hs.append(torch.relu(acts[-1]))
+    diff = (hs[-1] - T).float()
+    loss = (diff * diff).mean()
+    g = (diff * (2.0 / diff.numel())).to(torch.bfloat16)
+    lr_bf = torch.tensor(lr, dtype=torch.bfloat16, device=X.device)
+    for i in reversed(range(len(Ws))):
+        ga = g * (acts[i] >= 0)
+        gW = hs[i].T @ ga
+        if i:
+            g = ga @ Ws[i].T
+        Ws[i].sub_(lr_bf * gW)
+    return loss
+
+
+def _ulps16(a, b):
+    """bfloat16 ulps between two bfloat16 tensors, element by element (0
+    where both are NaN)."""
+    import torch
+
+    def ordered(x):
+        u = x.view(torch.int16).to(torch.int32)
+        return torch.where(u < 0, -(u & 0x7FFF), u)
+
+    d = (ordered(a) - ordered(b)).abs()
+    return torch.where(a.isnan() & b.isnan(), torch.zeros_like(d), d)
+
+
+def phase_bf16(dev, smi_line, one_node, cls_kern):
+    """Phase 15: bfloat16.  (1) the MFU step of ``benchsuite.py:263
+    ours_mlp_mfu`` at its size and dtype, through ``function()`` and as
+    its 4-step ``train_loop``, captured: launches in one replayed call,
+    the loss, gradients and update against the float64 step that rounds
+    where the graph does (``BF16_TOL``), each K1 node of the step on the
+    inputs the first step gives it against its plain version, wall and
+    device ms a step, busy share, kernels by name, TFLOP/s and MFU against
+    BF16_PEAK_S; (2) the GEMM chain of ``benchsuite.py:283
+    ours_gemm_chain`` (2 applications a call) against float64 NumPy on
+    GEMM_ROWS rows and a float32 chain on the card, wall ms a call and
+    TFLOP/s; (3) the same step in direct torch calls, eager, timed beside;
+    (4) K1 on every op of its table in bfloat16, one node a launch, against
+    its plain version (``cases.BF16_EXACT_OPS`` bit for bit, the others
+    within 1 ulp), and the MFU class node at 2**24 against its byte bound;
+    (5) K2 on the EWMA of ``benchsuite.py:87 ours_scan`` in bfloat16 (n
+    4,096, one launch) against its step loop, µs a step beside float32's.
+    Returns the launches of the paths, K1's and K2's largest absolute
+    errors, and the kernel line's bfloat16 rows.  On the CPU (a rehearsal
+    at small sizes) it checks the values only."""
+    import torch
+
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.cuda import cases, scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction, fgraph_to_torch
+    from pytensor_tpu_torch.models import radon_kernel
+    from pytensor_tpu_torch.models.mlp import _to_bf16, make_gemm_chain, mlp_mfu_reference
+    from pytensor_tpu_torch.scan.op import Scan
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.elemwise import Elemwise
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    on_card = dev.type == "cuda"
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count if on_card else 0
+    t15 = time.perf_counter()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def zero_counts():
+        fused_kernel.LAUNCHES = radon_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+        spmv_kernel.LAUNCHES = 0
+
+    def counts():
+        return {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": scan_kernel.LAUNCHES}
+
+    def weights(f):
+        return sorted((v for v in f.shared_vars if v.name.startswith("W")), key=lambda v: v.name)
+
+    def reset(params, values):
+        for v, x in zip(params, values):
+            v.set_value(x.clone())
+
+    # (1) the MFU step ------------------------------------------------------
+    step, loop, upd, (f_g, Ws_g, (Xd, Td)), ewma = bf16_paths(dev)
+    flops = 3 * 2 * BF16_MFU_DEPTH * BF16_MFU_BATCH * BF16_MFU_D ** 2
+    launches = {}
+    paths = {"mfu bf16 step": (step, 1), f"mfu bf16 train_loop x{BF16_MFU_STEPS}":
+             (loop, BF16_MFU_STEPS), "mfu bf16 step (update lr)": (upd, 1)}
+    init = [v.get_value() for v in weights(step)]
+    if not all(torch.equal(W.get_value(borrow=True), x) for W, x in zip(Ws_g, init)):
+        raise AssertionError("the gradient graph's ramps are not the step's weights")
+    results = {}
+    for tag, (f, steps) in paths.items():
+        if on_card and not isinstance(f.linked, CapturedFunction):
+            raise AssertionError(f"{tag}: not captured: {f.linked.host_reads}")
+        params = weights(f)
+        f(Xd, Td)  # the capturing call; the counted call is a replay
+        reset(params, init)
+        zero_counts()
+        loss = f(Xd, Td)
+        sync()
+        launches[tag] = counts()
+        if steps == 1 and on_card and fused_kernel.LAUNCHES < 1:
+            raise AssertionError(f"{tag}: K1 was not launched: {launches[tag]}")
+        results[tag] = (float(loss), [v.get_value() for v in params])
+        reset(params, init)
+        say(f"{tag}: one replayed call launched {launches[tag]}; loss {float(loss):.7f}")
+    # the nodes K1 does not emit, left to their plain torch versions
+    plain_nodes = sorted({str(nd.op) for f, _ in paths.values() for nd in f.fgraph.apply_nodes
+                          if isinstance(nd.op, Elemwise) and not fused_kernel.emittable(nd)
+                          and "bfloat16" in [v.type.dtype for v in nd.inputs + nd.outputs]})
+    say(f"mfu bf16: Elemwise nodes of bfloat16 that K1 does not emit (the plain torch op runs): "
+        f"{plain_nodes or 'none'} (casts are never fused, as in the JAX package)")
+    # the holds: gradients from the same graph with them as outputs, on the
+    # card's sides of relu's kink
+    t_ref = time.perf_counter()
+    got = f_g(Xd, Td)
+    depth = BF16_MFU_DEPTH
+    g_grads = [g.cpu() for g in got[1:1 + depth]]
+    masks = [(a >= 0).cpu().numpy() for a in got[1 + depth:]]
+    del got
+    r_losses, r_after, r_grads = mlp_mfu_reference(Xd.cpu(), Td.cpu(), [x.cpu() for x in init],
+                                                   BF16_MFU_LR, 1, masks, bf16=True)
+    e_grads = [float(np.max(np.abs(g.double().numpy() - r)) / np.max(np.abs(r)))
+               for g, r in zip(g_grads, r_grads)]
+    e_loss = abs(results["mfu bf16 step"][0] - r_losses[0]) / abs(r_losses[0])
+    # the step at BF16_UPDATE_LR against the reference's weights from the same gradients
+    lr_u = float(_to_bf16(BF16_UPDATE_LR))
+    changed = missed = 0
+    for a, r_g, x in zip(results["mfu bf16 step (update lr)"][1], r_grads, init):
+        x64 = x.cpu().double().numpy()
+        ref = _to_bf16(x64 - _to_bf16(lr_u * r_g))
+        a64 = a.cpu().double().numpy()
+        changed += int(np.sum(ref != x64))
+        missed += int(np.sum(a64 != ref))
+    e_upd = missed / max(changed, 1)
+    # the loop against as many calls of the step from the same start
+    f1, p1 = step, weights(step)
+    for _ in range(BF16_MFU_STEPS):
+        l1 = f1(Xd, Td)
+    by_calls = [v.get_value() for v in p1]
+    reset(p1, init)
+    loop_loss, loop_after = results[f"mfu bf16 train_loop x{BF16_MFU_STEPS}"]
+    e_loop_loss = abs(loop_loss - float(l1)) / abs(float(l1))
+    e_loop = max(int(_ulps16(a, b).max()) for a, b in zip(loop_after, by_calls))
+    # the step at lr 1e-3 moves few weights: counted, not held
+    moved = sum(int((a != x).sum()) for a, x in zip(results["mfu bf16 step"][1], init))
+    finite = all(torch.isfinite(g).all() for g in g_grads)
+    say(f"mfu bf16 holds (against the float64 step rounded where the graph rounds, on the "
+        f"card's sides of relu's kink, {sum(int(m.size - m.sum()) for m in masks):,} of "
+        f"{sum(m.size for m in masks):,} products below 0): loss {results['mfu bf16 step'][0]:.7f}"
+        f" vs {r_losses[0]:.7f} (rel err {e_loss:.2e}, tol {BF16_TOL['mfu_loss']:g}); gradients "
+        f"max err over max|ref| a layer {', '.join(f'{e:.2e}' for e in e_grads)} (tol "
+        f"{BF16_TOL['mfu_grads']:g}); update at lr {BF16_UPDATE_LR:g}: {missed:,} weights off "
+        f"the reference's of the {changed:,} it changes ({e_upd:.2e}, tol "
+        f"{BF16_TOL['mfu_update']:g}, a dropped update reads 1); the {BF16_MFU_STEPS}-step loop "
+        f"against {BF16_MFU_STEPS} calls of the step: loss rel err {e_loop_loss:.2e}, weights "
+        f"within {e_loop} ulps (tol {BF16_TOL['mfu_loss']:g}, 1 ulp: the loop's products may sum "
+        f"in another order); at lr {BF16_MFU_LR:g} one step moves {moved:,} weights; references in "
+        f"{time.perf_counter() - t_ref:.1f} s")
+    if not (finite and e_loss <= BF16_TOL["mfu_loss"] and max(e_grads) <= BF16_TOL["mfu_grads"]
+            and changed > 0 and e_upd <= BF16_TOL["mfu_update"]
+            and e_loop_loss <= BF16_TOL["mfu_loss"] and e_loop <= 1):
+        raise AssertionError(f"mfu bf16: loss {e_loss}, gradients {e_grads}, update {e_upd} of "
+                             f"{changed}, loop {e_loop_loss} / {e_loop} ulps; tol {BF16_TOL}")
+    del g_grads, masks, r_after, r_grads, by_calls
+    # K1 on the step's own fused nodes, on the inputs the first step gives them
+    k1_abs, k1_rows = 0.0, []
+    f = step
+    nodes = [nd for nd in f.fgraph.toposort() if isinstance(nd.op, FusedElemwise)]
+    needed = [i for nd in nodes for i in nd.inputs]
+    feed = fgraph_to_torch(FunctionGraph(f.fgraph.inputs, needed, clone=True), dev)
+    values = iter(feed(Xd, Td, *[v.get_value(borrow=True) for v in f.shared_vars]))
+    for nd in nodes:
+        xs = [next(values) for _ in nd.inputs]
+        kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+        got, want = (kern.launch if on_card else kern)(*xs), kern.plain(*xs)
+        sync()
+        ulps = max(int(_ulps16(g, w).max()) if g.dtype == torch.bfloat16 else
+                   int((g != w).sum()) for g, w in zip(got, want))
+        k1_abs = max([k1_abs] + [errors(g.float().cpu(), w.float().cpu())[0]
+                                 for g, w in zip(got, want)])
+        exact = all(n.op.scalar_op.name in cases.BF16_EXACT_OPS for n in nd.op.fgraph.apply_nodes)
+        if ulps > (0 if exact else 1):
+            raise AssertionError(f"K1 mfu bf16 {nd.op}: {ulps} ulps from its plain version")
+        k1_rows.append(str(nd.op))
+        say(f"  K1 mfu bf16 step {str(nd.op)[:70]:70s} out {tuple(got[0].shape)}: {ulps} ulps "
+            f"from its plain version")
+    if not k1_rows:
+        raise AssertionError("no fused node in the bfloat16 MFU step")
+    rows = {}
+    for tag, (f, steps) in paths.items() if on_card else ():
+        if "update" in tag:
+            continue
+        params = weights(f)
+        n_iter = 8 if steps == 1 else 3
+        wall = wall_ms(lambda f=f: f(Xd, Td), n_iter)
+        traced_t, by = device_ms(lambda f=f: f(Xd, Td), max(2, n_iter // 2))
+        n_gemm = n_products(f, steps)
+        dev_t, caught = with_products(traced_t, by, n_gemm)
+        reset(params, init)
+        k1_by = sum(ms for kn, (ms, _) in by.items() if "k1_" in kn)
+        work = flops * steps
+        rows[tag] = (wall / steps, dev_t / steps)
+        say(f"{tag} ({smi_line}): wall {wall / steps:.4f} ms/step, device {dev_t / steps:.4f} "
+            f"ms/step, busy {dev_t / wall:.3f}, {steps * 1e3 / wall:,.1f} steps/s; K1 "
+            f"{launches[tag]['fused_elemwise']} launches a call, {k1_by:.4f} ms of device time; "
+            f"{work / dev_t / 1e9:,.1f} TFLOP/s on the card's time, {work / wall / 1e9:,.1f} on "
+            f"the wall ({flops / 1e12:.3f} TFLOP a step), MFU {work / wall / 1e9 / (BF16_PEAK_S / 1e12):.3f}"
+            f" on the wall and {work / dev_t / 1e9 / (BF16_PEAK_S / 1e12):.3f} on the card's time "
+            f"against the dense bfloat16 peak of {BF16_PEAK_S / 1e12:.0f} TFLOP/s (NVIDIA H100 "
+            f"SXM data sheet); the card's time counts the {n_gemm} products a call at their mean "
+            f"traced time, the trace having caught {caught:.0f} ({traced_t:.4f} ms traced)")
+        for kname, (ms, count) in sorted(by.items(), key=lambda kv: -kv[1][0])[:6]:
+            say(f"  {tag}: {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+    # (3) the step in direct torch calls, eager, from the same weights
+    Ws_p = [x.clone() for x in init]
+    plain_loss = float(bf16_plain_step(Xd, Td, Ws_p, BF16_MFU_LR))
+    e_plain = abs(plain_loss - results["mfu bf16 step"][0]) / abs(plain_loss)
+    plain_moved = sum(int((a != x).sum()) for a, x in zip(Ws_p, init))
+    if not e_plain <= BF16_TOL["plain_loss"]:
+        raise AssertionError(f"the plain torch bf16 step's loss is {e_plain} from the port's")
+    plain_row = None
+    if on_card:
+        Ws_p = [x.clone() for x in init]
+        p_wall = wall_ms(lambda: bf16_plain_step(Xd, Td, Ws_p, BF16_MFU_LR), 8)
+        p_traced, p_by = device_ms(lambda: bf16_plain_step(Xd, Td, Ws_p, BF16_MFU_LR), 4)
+        p_dev, p_caught = with_products(p_traced, p_by, n_products(step))
+        plain_row = (p_wall, p_dev)
+        say(f"plain torch bf16 step, eager ({smi_line}): wall {p_wall:.4f} ms/step, device "
+            f"{p_dev:.4f} ms/step (products counted {n_products(step)} times, {p_caught:.0f} "
+            f"traced), busy {p_dev / p_wall:.3f}, {flops / p_wall / 1e9:,.1f} TFLOP/s on the "
+            f"wall, {flops / p_dev / 1e9:,.1f} on the card's time; its loss {e_plain:.1e} from "
+            f"the port's, {plain_moved} weights moved (the port's step: {moved})")
+        for kname, (ms, count) in sorted(p_by.items(), key=lambda kv: -kv[1][0])[:4]:
+            say(f"  plain step: {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+    del step, loop, upd, f_g, Ws_p, init, results
+    # (2) the GEMM chain ------------------------------------------------------
+    t_g = time.perf_counter()
+    chains = {k: make_gemm_chain(GEMM_BATCH, GEMM_D, GEMM_NMAT, "bfloat16",
+                                 n_steps_per_call=k, device=dev)[0] for k in (1, GEMM_STEPS)}
+    gemm_flops = 2 * GEMM_NMAT * GEMM_BATCH * GEMM_D ** 2
+    g1, gk = chains[1], chains[GEMM_STEPS]
+    gx1 = next(v for v in g1.shared_vars if v.name == "gx")
+    Gs = sorted((v for v in g1.shared_vars if v.name.startswith("G")), key=lambda v: v.name)
+    x0 = gx1.get_value()
+    s1 = float(g1())
+    x1 = gx1.get_value()
+    g1()
+    x2 = gx1.get_value()
+    gxk = next(v for v in gk.shared_vars if v.name == "gx")
+    gk()  # the capturing call; the counted call is a replay
+    gxk.set_value(x0.clone())
+    zero_counts()
+    gk()
+    sync()
+    launches[f"gemm chain bf16 x{GEMM_STEPS}"] = counts()
+    e_calls = errors(gxk.get_value().float().cpu(), x2.float().cpu())[0] / float(
+        x2.float().abs().max())
+    # the float32 chain on the card (TF32 off) for the scale; float64 NumPy
+    # on GEMM_ROWS rows
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    y32 = x0.float()
+    for G in Gs:
+        y32 = y32 @ G.get_value(borrow=True).float()
+    torch.backends.cuda.matmul.allow_tf32 = prev
+    rms32 = float(torch.sqrt(torch.mean(y32.double() ** 2)))
+    s32 = rms32 + float(np.float32(1e-6))
+    del y32
+    e_scale = abs(s1 - s32) / s32
+    rows_i = torch.arange(0, GEMM_BATCH, GEMM_BATCH // GEMM_ROWS, device=dev)
+    y64 = x0[rows_i].double().cpu().numpy()
+    for G in Gs:
+        y64 = y64 @ G.get_value(borrow=True).double().cpu().numpy()
+    # divided by the port's own scale
+    ref = y64 / s1
+    e_rows = float(np.max(np.abs(x1[rows_i].double().cpu().numpy() - ref)) / np.max(np.abs(ref)))
+    rms_rows = (float(np.sqrt(np.mean((x1[rows_i].double().cpu().numpy() * s1) ** 2))),
+                float(np.sqrt(np.mean(y64 ** 2))))
+    say(f"gemm chain bf16 ({GEMM_BATCH:,} x {GEMM_D:,}, {GEMM_NMAT} matrices): one replayed call "
+        f"of {GEMM_STEPS} applications launched {launches[f'gemm chain bf16 x{GEMM_STEPS}']}; "
+        f"the first application's scale {s1:.7g} vs the float32 chain's {s32:.7g} (rel err "
+        f"{e_scale:.2e}, tol {BF16_TOL['gemm_scale']:g}; its rms part {rms32:.4g}, the rest the "
+        f"graph's 1e-6), {GEMM_ROWS} rows of its output against float64 NumPy: max err over "
+        f"max|ref| {e_rows:.2e} (tol {BF16_TOL['gemm_rows']:g}; the rows' rms {rms_rows[0]:.4g} "
+        f"against float64's {rms_rows[1]:.4g}); the {GEMM_STEPS}-application "
+        f"call against {GEMM_STEPS} calls of one: {e_calls:.2e} (tol {BF16_TOL['gemm_calls']:g})")
+    if not (np.isfinite(s1) and torch.isfinite(x2.float()).all()
+            and e_scale <= BF16_TOL["gemm_scale"] and e_rows <= BF16_TOL["gemm_rows"]
+            and e_calls <= BF16_TOL["gemm_calls"]):
+        raise AssertionError(f"gemm chain bf16: scale {e_scale}, rows {e_rows}, calls {e_calls}; "
+                             f"tol {BF16_TOL}")
+    gemm_row = None
+    if on_card:
+        wall = wall_ms(gk, 4, warmup=1)
+        traced_t, by = device_ms(gk, 2, warmup=0)
+        dev_t, caught = with_products(traced_t, by, n_products(gk, GEMM_STEPS))
+        work = gemm_flops * GEMM_STEPS
+        gemm_row = (wall, dev_t)
+        say(f"gemm chain bf16 x{GEMM_STEPS} ({smi_line}): wall {wall:.4f} ms/call, device "
+            f"{dev_t:.4f} ms/call (its {n_products(gk, GEMM_STEPS)} products at their mean traced "
+            f"time, {caught:.0f} traced), busy {dev_t / wall:.3f}; {work / wall / 1e9:,.1f} "
+            f"TFLOP/s on the wall, {work / dev_t / 1e9:,.1f} on the card's time "
+            f"({gemm_flops / 1e12:.3f} TFLOP an application), MFU "
+            f"{work / wall / 1e9 / (BF16_PEAK_S / 1e12):.3f} on the wall against "
+            f"{BF16_PEAK_S / 1e12:.0f} TFLOP/s")
+        for kname, (ms, count) in sorted(by.items(), key=lambda kv: -kv[1][0])[:4]:
+            say(f"  gemm chain: {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+    del chains, g1, gk, x0, x1, x2, Gs
+    say(f"gemm chain bf16 in {time.perf_counter() - t_g:.1f} s")
+    # (4) K1 on every op of its table in bfloat16 ------------------------------
+    ins, _, names = cases.bf16_op_group()
+    vals = [as_torch(v, dev) for v in cases.op_group_inputs("bfloat16", ins, 4099)]
+    worst = {}
+    for name in names:
+        kern, used = one_node[name]
+        xs = [vals[k] for k in used]
+        got = (kern.launch if on_card else kern)(*xs)[0]
+        want = kern.plain(*xs)[0]
+        sync()
+        if got.dtype == torch.bfloat16:
+            err = int(_ulps16(got, want).max())
+            zero = want == 0
+            if not torch.equal(torch.signbit(got[zero]), torch.signbit(want[zero])):
+                raise AssertionError(f"K1 bf16 {name}: the sign of a zero")
+        else:
+            err = int((got != want).sum())
+        worst[name] = err
+        if err > (0 if name in cases.BF16_EXACT_OPS else 1):
+            raise AssertionError(f"K1 bf16 {name}: {err} ulps (or elements) from its plain version")
+    say(f"K1 bf16: {len(worst)} ops, one node a launch, on numpy's edges (4,099 values): "
+        f"{sum(1 for n in worst if n in cases.BF16_EXACT_OPS)} exact ops bit for bit, the others "
+        f"within 1 ulp of their plain version ({sorted(n for n, e in worst.items() if e)} off by "
+        f"one somewhere)")
+    n = BF16_TIMING_N if on_card else 4099
+    gen = torch.Generator(device=dev).manual_seed(15)
+    xs = [torch.randn(n, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3)]
+    got, want = (cls_kern.launch if on_card else cls_kern)(*xs), cls_kern.plain(*xs)
+    sync()
+    if any(int(_ulps16(g, w).max()) for g, w in zip(got, want)):
+        raise AssertionError("K1 bf16 MFU class node differs from its plain version")
+    k1_row = None
+    if on_card:
+        k_ms = device_ms(lambda: cls_kern.launch(*xs), 20)[0]
+        p_ms = device_ms(lambda: cls_kern.plain(*xs), 20)[0]
+        k_wall = wall_ms(lambda: cls_kern.launch(*xs), 20)
+        p_wall = wall_ms(lambda: cls_kern.plain(*xs), 20)
+        b_ms, b_by = bound(nbytes(*xs, *got), 0)
+        k1_row = {"n": n, "ms": k_ms, "plain_ms": p_ms, "wall_ms": k_wall,
+                  "plain_wall_ms": p_wall, "bound_ms": b_ms, "bound_by": b_by}
+        say(f"K1 bf16 MFU class node at {n:,} elements (3 in, 2 out, 2 bytes each): kernel "
+            f"{k_ms * 1e3:.2f} us device ({k_wall * 1e3:.2f} wall), plain {p_ms * 1e3:.2f} us "
+            f"({p_wall * 1e3:.2f} wall), bound {b_ms * 1e3:.2f} us ({b_by}), "
+            f"{b_ms / k_ms:.3f} of it; vector path {cls_kern.vector} values a thread")
+    # (5) K2 on the EWMA ----------------------------------------------------
+    k2_abs, k2_row = 0.0, {}
+    xe = torch.randn(EWMA_N, generator=gen, device=dev)
+    for dtype, f in ewma.items():
+        x = xe.to(getattr(torch, dtype))
+        node = next(nd for nd in f.fgraph.apply_nodes if isinstance(nd.op, Scan))
+        f(x)  # the capturing call
+        zero_counts()
+        out = f(x)
+        sync()
+        tag = f"ewma {dtype} (scan__pallas)"
+        launches[tag] = counts()
+        if on_card and scan_kernel.LAUNCHES != 1:
+            raise AssertionError(f"{tag}: K2 launched {scan_kernel.LAUNCHES} times, not once")
+        kern = scan_kernel.ScanKernel(node.op, node, dev)
+        feed = fgraph_to_torch(FunctionGraph(f.fgraph.inputs, node.inputs, clone=True), dev)
+        n_steps, *outer = feed(x)
+        got = (kern.launch if on_card else kern)(n_steps, *outer)[0]
+        want = kern.plain(n_steps, *outer)[0]
+        sync()
+        if dtype == "bfloat16":
+            if int(_ulps16(got, want).max()) or not torch.equal(out, got):
+                raise AssertionError("K2 bf16 EWMA differs from its step loop or the function")
+        k2_abs = max(k2_abs, errors(got.float().cpu(), want.float().cpu())[0])
+        if dtype == "float32" and k2_abs > 1e-6:
+            raise AssertionError(f"K2 float32 EWMA: {k2_abs} from its step loop")
+        if on_card:
+            ms = device_ms(lambda: kern.launch(n_steps, *outer), 10)[0]
+            p_ms = wall_ms(lambda: kern.plain(n_steps, *outer), 2, warmup=1)
+            # the sequences read once, the trace written once; the inner
+            # graph's operations each step
+            b_ms, b_by = bound(nbytes(*outer, got), inner_ops(node.op.fgraph) * EWMA_N)
+            k2_row[dtype] = (ms, p_ms, b_ms, b_by)
+            say(f"K2 {tag} n {EWMA_N:,}: one launch {ms:.4f} ms device, "
+                f"{ms / EWMA_N * 1e3:.3f} us a step; its step loop {p_ms:.2f} ms wall; bound "
+                f"{b_ms * 1e3:.4f} us ({b_by}), on one SM's share {b_ms * n_sms * 1e3:.3f} us; "
+                f"{'bit for bit the step loop and the function' if dtype == 'bfloat16' else ''}")
+    say(f"bfloat16 phase done in {time.perf_counter() - t15:.1f} s")
+    return launches, k1_abs, k2_abs, {"mfu": rows, "plain_step": plain_row, "gemm": gemm_row,
+                                      "k1": k1_row, "k2": k2_row}
+
+
 def main(opts):
     import torch
 
@@ -2052,6 +2640,15 @@ def main(opts):
         f"bessel paths, {len(special_group_kerns)} K1 op groups, {len(special_k2)} K2 kernel; "
         f"graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
 
+    # the bfloat16 phase's (15): K1 on every op of its table in bfloat16, one
+    # node a kernel, the MFU class node, the bfloat16 MFU step's K1 kernels
+    # and K2 of the EWMA in bfloat16 and float32
+    t0 = time.perf_counter()
+    bf16_one_node, bf16_cls, bf16_model_k1, bf16_k2 = bf16_kernels(dev)
+    say(f"the bfloat16 slice's graphs: {len(bf16_one_node)} one-node K1 kernels, "
+        f"{len(bf16_model_k1)} K1 kernels of the MFU step's paths, {len(bf16_k2)} K2 kernels; "
+        f"graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
+
     def timed(fn):
         t = time.perf_counter()
         fn()
@@ -2061,7 +2658,9 @@ def main(opts):
         k1_jobs = [pool.submit(fused_kernel.build, kerns, verbose=True)
                    for kerns in [*k1_kernels.values(), list(op_kerns.values()), model_kerns,
                                  elman_k1, linalg_k1, *special_libs,
-                                 list(special_group_kerns.values())]]
+                                 list(special_group_kerns.values()),
+                                 [k for k, _ in bf16_one_node.values()] + [bf16_cls],
+                                 bf16_model_k1]]
         jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
                 "K3 stamped": pool.submit(timed, lambda: radon_kernel.build(
                     verbose=True, flags=radon_kernel.STAMPED)),
@@ -2077,7 +2676,9 @@ def main(opts):
                 **{"K2 static BPTT": pool.submit(timed, lambda k=k: k.build(verbose=True))
                    for k in elman_k2},
                 **{"K2 bessel loop": pool.submit(timed, lambda k=k: k.build(verbose=True))
-                   for k in special_k2}}
+                   for k in special_k2},
+                **{f"K2 ewma {dt}": pool.submit(timed, lambda k=k: k.build(verbose=True))
+                   for dt, k in bf16_k2.items()}}
         build_s = {tag: job.result() for tag, job in jobs.items()}
         for job in k1_jobs:
             job.result()
@@ -2089,7 +2690,8 @@ def main(opts):
             "K2": k2.build_log, "K2 stamped": k2_stamped.build_log, "K4": spmv_kernel.BUILD_LOG,
             **{f"K2 case: {tag}": k.build_log for tag, _, _, k, _ in k2_cases},
             **{"K2 static BPTT": k.build_log for k in elman_k2},
-            **{"K2 bessel loop": k.build_log for k in special_k2}}
+            **{"K2 bessel loop": k.build_log for k in special_k2},
+            **{f"K2 ewma {dt}": k.build_log for dt, k in bf16_k2.items()}}
     for tag, log in logs.items():
         say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
         for line in log.splitlines():
@@ -2815,6 +3417,17 @@ def main(opts):
         kind: sum(v[kind] for v in special_launches.values())
         for kind in ("fused_elemwise", "scan_whole_loop")}
 
+    # 15. bfloat16 -----------------------------------------------------------
+    bf16_launches, k1_bf16_abs, k2_bf16_abs, bf16_rows = phase_bf16(dev, smi, bf16_one_node,
+                                                                    bf16_cls)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_bf16_abs)
+    k2_abs = max(k2_abs, k2_bf16_abs)
+    model_launches.update(bf16_launches)
+    k1_bf16 = bf16_rows["k1"]
+    k2_bf16 = {dt: {"ms": ms, "us_a_step": ms / EWMA_N * 1e3, "plain_wall_ms": p,
+                    "bound_ms": b, "bound_by": by, "bound_one_sm_ms": b * n_sms}
+               for dt, (ms, p, b, by) in bf16_rows["k2"].items()}
+
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "cuda",
          "source": "pytensor_tpu_torch/tensor/fused_kernel.py",
@@ -2826,7 +3439,8 @@ def main(opts):
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "wall_ms": k1["wall_ms"], "plain_wall_ms": k1["plain_wall_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None},
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
+         "bf16_mfu_class_node": k1_bf16},
         {"name": "radon_leapfrog (K3)", "route": "cuda",
          "source": "pytensor_tpu_torch/csrc/radon_leapfrog.cu",
          "replaces": "pytensor_tpu/models/radon_pallas.py:28",
@@ -2846,7 +3460,8 @@ def main(opts):
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "wall_ms": k2_wall, "plain_wall_ms": k2_plain_wall,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "bound_one_sm_ms": k2_bound[0] * n_sms, "library_ms": None},
+         "bound_one_sm_ms": k2_bound[0] * n_sms, "library_ms": None,
+         "ewma_n4096": k2_bf16},
         {"name": "spmv_csr (K4)", "route": "cuda",
          "source": "pytensor_tpu_torch/csrc/spmv_csr.cu",
          "replaces": "pytensor_tpu/link/pallas/route.py:194",

@@ -114,7 +114,7 @@ config = Config()
 
 config.add(
     "floatX",
-    EnumStr("float32", ("float64",), doc="Default float dtype for literals."),
+    EnumStr("float32", ("float64", "bfloat16"), doc="Default float dtype for literals."),
 )
 config.add(
     "mode",

@@ -23,6 +23,7 @@ from pytensor_tpu_torch.graph.basic import Apply, Variable
 from pytensor_tpu_torch.graph.op import Op
 from pytensor_tpu_torch.graph.null_type import DisconnectedType, NullType
 from pytensor_tpu_torch.graph.traversal import io_toposort
+from pytensor_tpu_torch.utils import dtype_kind
 
 
 class GradientError(Exception):
@@ -107,7 +108,7 @@ def grad(
     outputs = []
     if cost is not None:
         g_cost = ones_like(cost)
-        if np.dtype(g_cost.type.dtype).kind in "biu":
+        if dtype_kind(g_cost.type.dtype) in "biu":
             from pytensor_tpu_torch.tensor.basic import cast
 
             g_cost = cast(g_cost, config.floatX)

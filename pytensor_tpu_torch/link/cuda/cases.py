@@ -27,6 +27,7 @@ from pytensor_tpu_torch.tensor import blas
 from pytensor_tpu_torch.tensor.basic import ARange, Split, constant
 from pytensor_tpu_torch.tensor.elemwise import Elemwise
 from pytensor_tpu_torch.tensor.type import TensorType
+from pytensor_tpu_torch.utils import dtype_kind, np_dtype
 # the scalar ops whose value is exact: held value for value (NaN at
 # the same places) against the plain version; the others at K1_RTOL over
 # max(1, |plain|)
@@ -41,10 +42,11 @@ def edge_values(dtype, n, seed):
     rng = np.random.default_rng(seed)
     if dtype == "bool":
         return rng.integers(0, 2, size=n).astype(bool)
-    if dtype.startswith("float"):
+    if dtype_kind(dtype) == "f":
         edge = [np.nan, np.inf, -np.inf, 0.0, -0.0, 0.5, -0.5, 1.5, -2.5, 2.5, 0.49999997,
                 -0.49999997, 1.0, -1.0, 7.0, -7.0]
-        return np.concatenate([edge, rng.standard_normal(n - len(edge)) * 4]).astype(dtype)
+        return np.concatenate([edge, rng.standard_normal(n - len(edge)) * 4]).astype(
+            np_dtype(dtype))
     info = np.iinfo(dtype)
     edge = [0, 1, -1, 7, -7, 3, -3, info.min, info.max, info.min + 1]
     return np.concatenate([edge, rng.integers(-50, 50, size=n - len(edge))]).astype(dtype)
@@ -90,6 +92,38 @@ def scalar_op_group(dtype):
     return [a, b, s, c], outs, binary + [
         "left_shift", "right_shift", "invert", "clip", "switch", "round_half_to_even",
         "round_half_away_from_zero", "isnan", "isinf", "floor", "identity", "sign"]
+
+
+# the bfloat16 ops whose value the plain version (torch's bfloat16 ops) and
+# K1 both round once from an exact or exactly rounded value: held bit for
+# bit; the others within 1 bfloat16 ulp (each library's float function,
+# rounded once)
+BF16_EXACT_OPS = {"neg", "abs", "sqr", "add", "sub", "mul", "true_div", "maximum", "minimum",
+                  "gt", "lt", "ge", "le", "eq", "neq", "isnan", "isinf", "switch", "clip",
+                  "identity", "floor", "ceil", "trunc", "round_half_to_even",
+                  "round_half_away_from_zero", "sign", "deg2rad", "rad2deg", "sqrt",
+                  "reciprocal", "mod", "add3", "mul3"}
+
+
+def bf16_op_group():
+    """(inputs, outputs, op names): every op of the expression table that
+    K1 emits in bfloat16 (all but the special functions, ``second`` and
+    ``int_div``), each one Elemwise node on the inputs (x, y, z bfloat16
+    vectors, c a bool one), and a three-operand add and mul."""
+    x, y, z = (pt.tensor(k, dtype="bfloat16", shape=(None,)) for k in "xyz")
+    c = pt.tensor("c", dtype="bool", shape=(None,))
+    unary = ["exp", "log", "sqrt", "sin", "cos", "tanh", "sigmoid", "neg", "abs", "sqr",
+             "reciprocal", "exp2", "expm1", "log1p", "log2", "log10", "deg2rad", "rad2deg",
+             "tan", "cosh", "sinh", "arcsin", "arccos", "arctan", "arcsinh", "arccosh",
+             "arctanh", "floor", "ceil", "trunc", "round_half_to_even",
+             "round_half_away_from_zero", "isnan", "isinf", "sign"]
+    binary = ["add", "sub", "mul", "true_div", "pow", "maximum", "minimum", "arctan2", "mod",
+              "gt", "lt", "ge", "le", "eq", "neq"]
+    outs = ([getattr(pt, k)(x) for k in unary] + [Elemwise(ps.identity)(x)]
+            + [getattr(pt, k)(x, y) for k in binary]
+            + [pt.clip(x, y, z), pt.switch(c, x, y), Elemwise(ps.mul)(x, y, z),
+               Elemwise(ps.add)(x, y, z)])
+    return [x, y, z, c], outs, unary + ["identity"] + binary + ["clip", "switch", "mul3", "add3"]
 
 
 def op_group_inputs(dtype, inputs, n):
@@ -229,7 +263,7 @@ def special_inputs(name, dtype, n, seed, edges=True):
         last = len(vals) - 1
         vals = [np.concatenate([v, SPECIAL_EDGES if j == last else [1.5] * len(SPECIAL_EDGES)])
                 for j, v in enumerate(vals)]
-    return [np.asarray(v, dtype=dtype) for v in vals]
+    return [np.asarray(v, dtype=np_dtype(dtype)) for v in vals]
 
 
 def scipy_special(name, args):
@@ -278,5 +312,6 @@ def special_op_group(dtype):
 
 def special_group_inputs(dtype, n, seed=3):
     rng = np.random.default_rng(seed)
+    dtype = np_dtype(dtype)
     return [rng.uniform(0.02, 0.98, n).astype(dtype), rng.uniform(0.1, 8.0, n).astype(dtype),
             rng.uniform(0.5, 5.0, n).astype(dtype)]

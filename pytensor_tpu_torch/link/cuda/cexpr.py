@@ -5,6 +5,13 @@ Shared by K1 (``tensor/fused_kernel.py``, a FusedElemwise) and K2
 one expression per scalar op over operands already cast to the compute
 dtype, and exact literals.  Both kernels are built with ``-fmad=false``,
 so each op rounds on its own, as torch's eager ops do.
+
+A bfloat16 value is ``__nv_bfloat16`` in memory and a float in registers
+(``rtype``).  A bfloat16 op computes in float, a special function in
+double, and its result is rounded to the nearest bfloat16 before the next
+op reads it (``k2_rbf``): XLA and torch round each bfloat16 op's result
+so, and rounding only once at the end of a fused chain gives other values.
+``expression`` and ``operand`` write both rules.
 """
 
 from __future__ import annotations
@@ -14,9 +21,10 @@ import math
 import numpy as np
 
 from pytensor_tpu_torch.link.cuda import special
+from pytensor_tpu_torch.utils import np_dtype
 
 CTYPES = {
-    "float32": "float", "float64": "double", "bool": "bool",
+    "float32": "float", "float64": "double", "bfloat16": "__nv_bfloat16", "bool": "bool",
     "int8": "signed char", "int16": "short", "int32": "int", "int64": "long long",
     "uint8": "unsigned char", "uint16": "unsigned short", "uint32": "unsigned int",
 }
@@ -30,9 +38,39 @@ template <typename T> __device__ __forceinline__ T k2_max(T a, T b) {
 """
 
 
+# bfloat16 in registers: loads widen to float, each op's result is rounded
+# to bfloat16 (to nearest, ties to even; NaN stays NaN), stores narrow
+BF16_SOURCE = """#include <cuda_bf16.h>
+// bfloat16 held in a float: each op's result rounded, loads, stores, and
+// a value from the host passed in its pointer's place (its low 16 bits)
+__device__ __forceinline__ float k2_rbf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float k2_ldbf(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ __nv_bfloat16 k2_stbf(float x) { return __float2bfloat16_rn(x); }
+__device__ __forceinline__ float k2_bfbits(const void* q) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(unsigned long long)q));
+}
+// K1's 16-byte vector of eight bfloat16 values, widened to floats
+template <typename I> __device__ __forceinline__ void k1_load(const __nv_bfloat16* p, I j, float* v) {
+  const uint4 q = reinterpret_cast<const uint4*>(p)[j];
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&q);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(h[k]);
+}
+template <typename I> __device__ __forceinline__ void k1_store(__nv_bfloat16* p, I j, const float* v) {
+  uint4 q;
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&q);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) h[k] = __float2bfloat16_rn(v[k]);
+  reinterpret_cast<uint4*>(p)[j] = q;
+}
+"""
+
 # helper functions an expression may call, by name; a source defines the
 # ones its expressions call (``helpers``)
 HELPERS = {
+    "k2_rbf": BF16_SOURCE,
     "k2_max": MAX_SOURCE,
     "k2_min": """// numpy's minimum: NaN in either operand gives NaN
 template <typename T> __device__ __forceinline__ T k2_min(T a, T b) {
@@ -117,7 +155,7 @@ HELPERS.update(special.HELPERS)
 # the other helpers that a helper calls
 _HELPER_NEEDS = {"k2_mod": ("k2_floordiv",), **special.NEEDS}
 # the functions a helper defines, where its name is not the one called
-_HELPER_ENTRIES = special.ENTRIES
+_HELPER_ENTRIES = {"k2_rbf": ("k2_rbf", "k2_ldbf", "k2_stbf", "k2_bfbits"), **special.ENTRIES}
 
 
 def helpers(body: str, have=("k2_max",)) -> str:
@@ -136,7 +174,59 @@ def helpers(body: str, have=("k2_max",)) -> str:
 
 
 def ctype(dtype) -> str:
+    """The C type of a dtype in memory."""
     return CTYPES[str(dtype)]
+
+
+def rtype(dtype) -> str:
+    """The C type of a dtype in registers: a bfloat16 value is a float."""
+    return "float" if str(dtype) == "bfloat16" else CTYPES[str(dtype)]
+
+
+def load(expr, dtype) -> str:
+    """A value of ``dtype`` read from memory (``expr``), in registers."""
+    return f"k2_ldbf({expr})" if dtype == "bfloat16" else expr
+
+
+def store(expr, dtype) -> str:
+    """A register value of ``dtype`` as it is written to memory."""
+    return f"k2_stbf({expr})" if dtype == "bfloat16" else expr
+
+
+def operand(expr, src, dst) -> str:
+    """Register value ``expr`` of dtype ``src`` as one of dtype ``dst``:
+    narrowed to bfloat16 it is rounded (through float, as torch converts)."""
+    if src == dst or (src == "bfloat16" and dst == "float32"):
+        return expr
+    if dst == "bfloat16":
+        return f"k2_rbf((float){expr})"
+    return f"(({rtype(dst)}){expr})"
+
+
+def expression(name, args, comp, out) -> str:
+    """The register value of dtype ``out`` of scalar op ``name`` over
+    register operands ``args``, already in their compute dtypes ``comp``.
+    A bfloat16 op computes in float (a special function in double) and
+    rounds its result to bfloat16; a variadic add or mul rounds after each
+    pair, as the plain version's fold does, and ``sigmoid`` after each of
+    its ops, as ``jax.nn.sigmoid`` does."""
+    t = comp[0]
+    if "bfloat16" not in comp:
+        return f"({rtype(out)}){CEXPR[name](args, t)}"
+    wide = "float64" if name in special.CEXPR else "float32"
+    args = [operand(a, c, wide) if c == "bfloat16" else a for a, c in zip(args, comp)]
+    if name == "sigmoid":
+        # jax.nn.sigmoid in bfloat16, as XLA computes it: 1 / (1 + exp(-x)),
+        # each op rounded (the plain version's too)
+        return f"k2_rbf(1.0f / k2_rbf(1.0f + k2_rbf(expf(-{args[0]}))))"
+    if name in ("add", "mul") and len(args) > 2:
+        acc = args[0]
+        for a in args[1:]:
+            acc = expression(name, [acc, a], ["bfloat16"] * 2, out)
+        return acc
+    # deg2rad and rad2deg multiply by their constant rounded to bfloat16
+    e = CEXPR[name](args, wide if t == "bfloat16" and name not in _TABLES else t)
+    return operand(f"({e})", wide, out) if out == "bfloat16" else f"({rtype(out)}){e}"
 
 
 def _fn(f32, f64):
@@ -166,8 +256,12 @@ def _times(table):
 
 
 # numpy's constants (scalar/basic.py _DEG2RAD, _RAD2DEG)
-_DEG2RAD = {"float32": np.float32(np.pi / 180), "float64": np.pi / 180}
-_RAD2DEG = {"float32": np.float32(180) / np.float32(np.pi), "float64": 180 / np.pi}
+_DEG2RAD = {"float32": np.float32(np.pi / 180), "float64": np.pi / 180,
+            "bfloat16": np_dtype("bfloat16").type(np.pi / 180)}
+_RAD2DEG = {"float32": np.float32(180) / np.float32(np.pi), "float64": 180 / np.pi,
+            "bfloat16": np_dtype("bfloat16").type(180 / np.pi)}
+
+_TABLES = ("deg2rad", "rad2deg")
 
 # scalar op name -> C++ expression over operands already cast to their
 # compute dtypes (``ScalarOp.compute_dtypes``); ``t`` is the first
@@ -264,9 +358,12 @@ CEXPR = {
 def literal(value, dtype) -> str:
     """An exact C++ literal of ``value`` in ``dtype`` (a hex float for a
     float: ``0x1.999999999999ap-4`` is float64's 0.1)."""
-    v = np.asarray(value).astype(dtype).item()
+    v = np.asarray(value).astype(np_dtype(dtype)).item()
     if dtype == "bool":
         return "true" if v else "false"
+    if dtype == "bfloat16":
+        # the bfloat16 value, exact as a float literal
+        return literal(float(v), "float32")
     if dtype in ("float32", "float64"):
         ct = ctype(dtype)
         if math.isnan(v):

@@ -80,11 +80,17 @@ what it can about each:
   that only feed static shape inputs (of ``Reshape``, ``SpecifyShape``,
   ``Alloc``) are not computed.
 
+A bfloat16 value is 2 bytes in the arguments, the slots and the arena (16-
+byte aligned as every slot) and a float in registers: each op rounds its
+result to bfloat16 as K1's do, and a product, a reduction or a one-hot
+segment sum accumulates in float and rounds once.
+
 Eligibility keeps the structure of ``scan_pallas.py:54
 pallas_scan_eligible``: every tap ``(-1,)`` (the port has no while-scans),
 static shapes for every inner variable and sequence, dtypes in
 ``_OK_DTYPES``, only ops this emitter covers, and the JAX package's 4 MiB
-budget, computed as it computes it (``_budget_bytes``), so that the same
+budget, computed as it computes it (``_budget_bytes``: 4 bytes an element,
+bfloat16 too), so that the same
 scans take the kernel in both packages: a scan over a full-width weight
 takes the step loop rather than one block.  The kernel's own limit,
 32-bit element offsets, holds too.  A
@@ -107,7 +113,18 @@ import torch
 
 from pytensor_tpu_torch.compile.ops import DeepCopyOp, ViewOp
 from pytensor_tpu_torch.graph.basic import Constant
-from pytensor_tpu_torch.link.cuda.cexpr import CEXPR, MAX_SOURCE, ctype, helpers, literal
+from pytensor_tpu_torch.link.cuda import cexpr
+from pytensor_tpu_torch.link.cuda.cexpr import (
+    CEXPR,
+    MAX_SOURCE,
+    ctype,
+    expression,
+    helpers,
+    literal,
+    load,
+    rtype,
+    store,
+)
 from pytensor_tpu_torch.tensor.basic import ARange, Alloc, Join, MakeVector, Split
 from pytensor_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
@@ -115,6 +132,7 @@ from pytensor_tpu_torch.tensor.fused import FusedElemwise
 from pytensor_tpu_torch.tensor.math import Dot, _dot
 from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape
 from pytensor_tpu_torch.tensor.subtensor import DYN, IncSubtensor, Subtensor
+from pytensor_tpu_torch.utils import dtype_kind, np_dtype
 
 THREADS = 1024
 WARPS = THREADS // 32
@@ -127,20 +145,26 @@ STAMP_FROM, STAMP_STEPS = 16, 16
 # launches of the kernel since the count was last set to 0
 LAUNCHES = 0
 
-# the JAX package's _OK_DTYPES (scan_pallas.py:49) less bfloat16, which
-# the port has no tensors of, and uint16 and uint32, which the port holds
-# in int64 (link/torch/convert.py UNSIGNED): a scan of them is refused at
-# rewrite time and takes the step loop
-_OK_DTYPES = ("float32", "bool", "int8", "int16", "int32", "int64", "uint8")
+# the JAX package's _OK_DTYPES (scan_pallas.py:49) less uint16 and uint32,
+# which the port holds in int64 (link/torch/convert.py UNSIGNED): a scan of
+# them is refused at rewrite time and takes the step loop.  A bfloat16
+# value is 2 bytes in the slots, the arena and the arguments and a float in
+# registers; each op rounds its result to bfloat16 as K1's do
+# (``cexpr.expression``), and a product or a reduction accumulates in
+# float and rounds once
+_OK_DTYPES = ("float32", "bfloat16", "bool", "int8", "int16", "int32", "int64", "uint8")
 
 _FLOAT_ONLY = frozenset({"true_div", "reciprocal", "exp", "log", "sqrt", "sin", "cos",
                          "tanh", "sigmoid"})
+# ops left to the step loop in bfloat16, as K1 leaves them to the plain
+# version (``tensor/fused_kernel.py _NO_BF16``)
+_NO_BF16 = frozenset({"int_div"})
 
 
 def _lowest(dtype):
     if dtype == "bool":
         return False
-    return -np.inf if dtype.startswith("float") else np.iinfo(dtype).min
+    return -np.inf if dtype_kind(dtype) == "f" else np.iinfo(dtype).min
 
 
 # CAReduce scalar op name -> (identity of the accumulator dtype, C++
@@ -181,12 +205,19 @@ template <typename T> __device__ __forceinline__ T k2_ipow(T a, T b) {
 
 
 def _acc_ctype(dtype):
-    """The accumulator's C type: warp shuffles take 32 and 64-bit values."""
+    """The accumulator's C type: warp shuffles take 32 and 64-bit values
+    (bfloat16 accumulates in float)."""
     if dtype in ("bool", "int8", "int16"):
         return "int"
     if dtype in ("uint8", "uint16"):
         return "unsigned int"
-    return ctype(dtype)
+    return rtype(dtype)
+
+
+def _from_acc(acc, dtype):
+    """An accumulator's value as it is stored in ``dtype`` (a bfloat16
+    rounded once)."""
+    return store(acc, dtype) if dtype == "bfloat16" else f"({ctype(dtype)}){acc}"
 
 
 def _size(shape):
@@ -246,13 +277,18 @@ def emittable(node) -> bool:
             return True
         if name not in CEXPR:
             return False
-        return name not in _FLOAT_ONLY or node.outputs[0].type.dtype.startswith("float")
+        if name in _NO_BF16 and any(v.type.dtype == "bfloat16"
+                                    for v in node.inputs + node.outputs):
+            return False
+        return name not in _FLOAT_ONLY or dtype_kind(node.outputs[0].type.dtype) == "f"
     if isinstance(op, CAReduce):
         return op.scalar_op.name in _REDUCE
     if isinstance(op, (Dot, Dot22, Gemm, Dot22Scalar)):
         return node.outputs[0].type.dtype != "bool"
     if isinstance(op, (Subtensor, IncSubtensor)):
         return not _dynamic_index(op)
+    if isinstance(op, ARange) and node.outputs[0].type.dtype == "bfloat16":
+        return False
     if isinstance(op, (Join, Split, ARange)):
         # static axes, sizes and bounds (the static output shapes the
         # eligibility asks for imply them)
@@ -360,6 +396,10 @@ class _Loc:
         if self.const is not None:
             return literal(self.const, self.dtype)
         return f"{self.root}[{self.off} + {idx}]" if self.off else f"{self.root}[{idx}]"
+
+    def value(self, idx):
+        """Element ``idx`` read into a register (a bfloat16 widened)."""
+        return self.at(idx) if self.const is not None else load(self.at(idx), self.dtype)
 
 
 class _ENode:
@@ -504,7 +544,7 @@ class ScanKernelSource:
 
     # --- slots and constants --------------------------------------------------
     def _slot(self, name, dtype, n, pinned=False):
-        self.slots[name] = (ctype(dtype), _align(max(n, 1) * np.dtype(dtype).itemsize))
+        self.slots[name] = (ctype(dtype), _align(max(n, 1) * np_dtype(dtype).itemsize))
         if pinned:
             self.pinned.append(name)
         return name
@@ -526,7 +566,7 @@ class ScanKernelSource:
     def _const_slot(self, c):
         """A graph constant: a literal when all its elements have one value
         (bit for bit), else a table."""
-        data = np.array(c.data, dtype=c.type.dtype, order="C")
+        data = np.array(c.data, dtype=np_dtype(c.type.dtype), order="C")
         raw, item = data.tobytes(), data.dtype.itemsize
         if data.size and raw == raw[:item] * data.size:
             return _Loc("", 0, c.type.dtype, c.type.shape, const=data.reshape(-1)[0])
@@ -548,10 +588,14 @@ class ScanKernelSource:
         """C++ value of element ``idx`` of ``v`` cast to ``dtype``; inside a
         run, a register where ``ident`` and ``v`` is the run's own."""
         loc = self.get(v)
+        bf16 = "bfloat16" in (loc.dtype, dtype)
         if loc.const is not None:
-            return f"(({ctype(dtype)}){literal(loc.const, loc.dtype)})"
+            lit = literal(loc.const, loc.dtype)
+            return cexpr.operand(lit, loc.dtype, dtype) if bf16 else f"(({ctype(dtype)}){lit})"
         reg = self.regs.get(loc.root) if ident and loc.off == 0 else None
-        expr = reg[0] if reg is not None and reg[1] == loc.size else loc.at(idx)
+        expr = reg[0] if reg is not None and reg[1] == loc.size else loc.value(idx)
+        if bf16:
+            return cexpr.operand(expr, loc.dtype, dtype)
         return expr if loc.dtype == dtype else f"(({ctype(dtype)}){expr})"
 
     def _commit(self, reads=(), writes=()):
@@ -673,13 +717,14 @@ class ScanKernelSource:
             n = _size(out.type.shape)
             dt = carried[k].type.dtype
             val = self.operand(out, "i", dt)
-            line = f"for (int i = tid; i < {n}; i += K2_THREADS) {{ const {ctype(dt)} x = {val}; st{k}_nx[i] = x;"
+            x = store("x", dt)
+            line = f"for (int i = tid; i < {n}; i += K2_THREADS) {{ const {rtype(dt)} x = {val}; st{k}_nx[i] = {x};"
             if k < info.n_states:
-                line += f" {trace_args[k]}[t * {n} + i] = x;"
+                line += f" {trace_args[k]}[t * {n} + i] = {x};"
             self.body.append(line + " }")
         for j, out in enumerate(self.nit_outs):
             n = _size(out.type.shape)
-            val = self.operand(out, "i", out.type.dtype)
+            val = store(self.operand(out, "i", out.type.dtype), out.type.dtype)
             self.body.append(f"for (int i = tid; i < {n}; i += K2_THREADS) "
                              f"{nit_args[j]}[t * {n} + i] = {val};")
         self._commit(reads=carried_outs + self.nit_outs)
@@ -844,7 +889,7 @@ class ScanKernelSource:
         # then the non-sequences, which no step changes
         self.smem_ns = {}
         for j, v in enumerate(self.nonseq_vars):
-            b = _align(max(_size(v.type.shape), 1) * np.dtype(v.type.dtype).itemsize)
+            b = _align(max(_size(v.type.shape), 1) * np_dtype(v.type.dtype).itemsize)
             if used + b <= SMEM_LIMIT:
                 self.smem_ns[j] = used
                 used += b
@@ -1067,12 +1112,12 @@ class ScanKernelSource:
         groups: dict = {}
         for k, u in enumerate(run.units):
             r = f"r{k}"
-            ct = ctype(u.out.type.dtype)
+            rt = rtype(u.out.type.dtype)
             lines = groups.setdefault(thread.get(u, 0), [])
-            lines += [f"{ct} {r};", "{"] + ["  " + s for s in u.code(r, k, flag)] + ["}"]
+            lines += [f"{rt} {r};", "{"] + ["  " + s for s in u.code(r, k, flag)] + ["}"]
             loc = self.get(u.out)
             if u.out in stores:
-                lines.append(f"{loc.at('i')} = {r};")
+                lines.append(f"{loc.at('i')} = {store(r, u.out.type.dtype)};")
             self.regs[loc.root] = (r, n)
         self.regs = {}
         for t, lines in groups.items():
@@ -1156,6 +1201,10 @@ class ScanKernelSource:
                 args.append(self.operand(i, idx, dt, ident=ident(loc)))
             if name.startswith("cast{"):
                 expr = f"({args[0]} != 0)" if out_dt == "bool" else args[0]
+                if "bfloat16" in (comp[0], out_dt):
+                    return lines + [f"{r} = {cexpr.operand(f'({expr})', comp[0], out_dt)};"]
+            elif "bfloat16" in comp:
+                return lines + [f"{r} = {expression(name, args, comp, out_dt)};"]
             else:
                 expr = CEXPR[name](args, comp[0])
             return lines + [f"{r} = ({ctype(out_dt)})({expr});"]
@@ -1277,7 +1326,8 @@ class ScanKernelSource:
             lines = _unravel(shape, "i", o)
             lines.append(f"{r} = {self.operand(x, 'i', out_dt, ident=True)};")
             yv = self.operand(y, yidx, out_dt)
-            upd = f"{r} = {yv};" if en.op.set_instead_of_inc else f"{r} = {r} + {yv};"
+            total = f"{r} + {yv}" if out_dt != "bfloat16" else f"k2_rbf({r} + {yv})"
+            upd = f"{r} = {yv};" if en.op.set_instead_of_inc else f"{r} = {total};"
             lines.append(f"if ({' && '.join(conds) or 'true'}) {upd}")
             return lines
 
@@ -1374,7 +1424,7 @@ class ScanKernelSource:
         outside = (f"c != (int){tab['idx']}[{p}]" if plan.kind == "gather"
                    else f"(int){tab['idx']}[c] != {p}")
         return (f"if ({flag}) for (int c = 0; c < {plan.C}; ++c) if ({outside} && "
-                f"!isfinite({self.get(plan.v).at(self._onehot_elem(plan, 'c', b))})) "
+                f"!isfinite({self.get(plan.v).value(self._onehot_elem(plan, 'c', b))})) "
                 f"{r} = ({ct})NAN;")
 
     def _onehot_unit(self, pos, en, plan):
@@ -1389,7 +1439,7 @@ class ScanKernelSource:
         ``0 * inf`` makes it NaN, and so does the guard here."""
         out_v, v = en.outputs[0], plan.v
         self._new_slot(out_v)
-        ct = ctype(out_v.type.dtype)
+        ct = rtype(out_v.type.dtype)
         tab = self._onehot_tables(plan)
         B, P = plan.B, plan.P
         p_of, b_of = ((f"i / {B}", f"i % {B}") if plan.side == "left"
@@ -1407,11 +1457,14 @@ class ScanKernelSource:
                 lines += [f"{r} = ({ct})0;",
                           f"for (int q = {tab['ptr']}[{p}]; q < {tab['ptr']}[{p} + 1]; ++q) "
                           f"{r} = {r} + {self.operand(v, at, out_v.type.dtype)};"]
+                if out_v.type.dtype == "bfloat16":
+                    # the segment's sum in float, rounded once
+                    lines.append(f"{r} = k2_rbf({r});")
             if flag is not None:
                 lines.append(self._onehot_nan(plan, tab, flag, r, p, b, ct))
             return lines
 
-        guard = v if v.type.dtype.startswith("float") else None
+        guard = v if dtype_kind(v.type.dtype) == "f" else None
         return _Unit(pos, out_v, [(v, "gen")], code, "onehot_dot", guard)
 
     def _segsum_by_warp(self, en, plan):
@@ -1422,10 +1475,10 @@ class ScanKernelSource:
         guard of ``_onehot_unit``.  Lane 0 writes the element."""
         out_v, v = en.outputs[0], plan.v
         out = self._new_slot(out_v)
-        ct = ctype(out_v.type.dtype)
+        ct = rtype(out_v.type.dtype)
         tab = self._onehot_tables(plan)
         flag = None
-        if v.type.dtype.startswith("float"):
+        if dtype_kind(v.type.dtype) == "f":
             flag = self._flush_reductions(guard=v)
         else:
             self.reads([(v, "gen")])
@@ -1457,7 +1510,7 @@ class ScanKernelSource:
                 f"      const int p = {p}; const int b = {b};"]
         if flag is not None:
             body.append("      " + self._onehot_nan(plan, tab, flag, "sum", "p", "b", ct))
-        body += [f"      {out.at('o')} = sum;", "    }", "  }", "}"]
+        body += [f"      {out.at('o')} = {store('sum', out_v.type.dtype)};", "    }", "  }", "}"]
         self.body += body
         self._commit(reads=[v], writes=[out_v])
         self.wrote(out_v, _Writer.OTHER)
@@ -1510,15 +1563,15 @@ class ScanKernelSource:
             red = f"(({acc}*)k2_red[{base + k}])"
             head += [f"  {acc} p{k} = {literal(ident_of(acc_dt), acc_dt)};",
                      f"  for (int j = tid; j < {xl.size}; j += K2_THREADS) "
-                     f"p{k} = {combine(f'p{k}', f'({acc})' + xl.at('j'))};",
+                     f"p{k} = {combine(f'p{k}', f'({acc})' + xl.value('j'))};",
                      f"  p{k} = {warp_fn}(p{k});",
                      f"  if ((tid & 31) == 0) {red}[tid >> 5] = p{k};"]
             tail.append(f"    {{ {acc} q = {red}[tid]; q = {warp_fn}(q); "
-                        f"if (tid == 0) {out.at(0)} = ({ctype(out_v.type.dtype)})q; }}")
+                        f"if (tid == 0) {out.at(0)} = {_from_acc('q', out_v.type.dtype)}; }}")
         if guard is not None:
             gl = self.get(guard)
             head.append(f"  for (int j = tid; j < {gl.size}; j += K2_THREADS) "
-                        f"{flag} |= !isfinite({gl.at('j')});")
+                        f"{flag} |= !isfinite({gl.value('j')});")
         self.body += head
         self._commit(reads=ins)
         self._barrier(f"  {flag} = __syncthreads_or({flag});" if guard is not None
@@ -1551,7 +1604,6 @@ class ScanKernelSource:
         ident_of, combine, warp_fn = _REDUCE[op.scalar_op.name]
         ident = literal(ident_of(acc_dt), acc_dt)
         st = _row_major(shape)
-        out_ct = ctype(out_v.type.dtype)
         kept_shape = [shape[d] for d in kept]
         red_shape = [shape[d] for d in red]
         base = _offset([st[d] for d in kept], "k")
@@ -1565,8 +1617,8 @@ class ScanKernelSource:
             lines.append(f"{acc} acc = {ident};")
             loops = "".join(f"for (int j{k} = 0; j{k} < {n}; ++j{k}) "
                             for k, n in enumerate(red_shape))
-            lines.append(f"{loops}acc = {combine('acc', f'({acc})' + xl.at('base + ' + roff))};")
-            lines.append(f"{out.at('i')} = ({out_ct})acc;")
+            lines.append(f"{loops}acc = {combine('acc', f'({acc})' + xl.value('base + ' + roff))};")
+            lines.append(f"{out.at('i')} = {_from_acc('acc', out_v.type.dtype)};")
             head = (f"for (int i = tid; i < {O}; i += K2_THREADS) {{" if O > 1
                     else "if (tid == 0) { const int i = 0;")
             self.body += [head] + ["  " + s for s in lines] + ["}"]
@@ -1580,9 +1632,10 @@ class ScanKernelSource:
         body += [f"    const int base = {base};", f"    {acc} acc = {ident};",
                  f"    for (int jj = lane; jj < {R}; jj += 32) {{"]
         body += ["      " + s for s in _unravel(red_shape, "jj", "j")]
-        body += [f"      acc = {combine('acc', f'({acc})' + xl.at('base + ' + roff))};", "    }",
+        body += [f"      acc = {combine('acc', f'({acc})' + xl.value('base + ' + roff))};", "    }",
                  f"    acc = {warp_fn}(acc);",
-                 f"    if (lane == 0) {out.at('i')} = ({out_ct})acc;", "  }", "}"]
+                 f"    if (lane == 0) {out.at('i')} = {_from_acc('acc', out_v.type.dtype)};",
+                 "  }", "}"]
         self.body += body
         self._commit(reads=[x], writes=[out_v])
         self.wrote(out_v, _Writer.OTHER)
@@ -1592,7 +1645,7 @@ class ScanKernelSource:
         multiply and the add rounded on its own, as the JAX package's
         expression is."""
         z, alpha, x, y, beta = en.inputs
-        ct = ctype(en.outputs[0].type.dtype)
+        ct = rtype(en.outputs[0].type.dtype)
         dt = en.outputs[0].type.dtype
         self._dot(en, x, y, [z, alpha, beta], lambda acc, o: (
             f"({self.operand(beta, '0', dt)} * {self.operand(z, o, dt)} + "
@@ -1602,7 +1655,10 @@ class ScanKernelSource:
         """alpha * dot(x, y)."""
         x, y, alpha = en.inputs
         dt = en.outputs[0].type.dtype
-        self._dot(en, x, y, [alpha], lambda acc, o: f"({self.operand(alpha, '0', dt)} * {acc})")
+        # in bfloat16 the product rounds, then the scaling, as the step
+        # loop's alpha * matmul(x, y)
+        prod = "k2_rbf(acc)" if dt == "bfloat16" else "acc"
+        self._dot(en, x, y, [alpha], lambda acc, o: f"({self.operand(alpha, '0', dt)} * {prod})")
 
     def _dot(self, en, x=None, y=None, extra=(), epilogue=None):
         """A product on the block's threads: one thread, or one warp, an
@@ -1616,7 +1672,8 @@ class ScanKernelSource:
         xl, yl = self.get(x), self.get(y)
         K = xl.shape[-1]
         O = out.size
-        ct = ctype(out_v.type.dtype)
+        # the accumulator: a bfloat16 product sums in float, rounded once
+        ct = rtype(out_v.type.dtype)
         if len(xl.shape) == 2 and len(yl.shape) == 1:
             xb, yb, ys = f"o * {K}", "0", 1
         elif len(xl.shape) == 1 and len(yl.shape) == 2:
@@ -1626,8 +1683,8 @@ class ScanKernelSource:
             xb, yb, ys = f"(o / {N}) * {K}", f"(o % {N})", N
         else:
             xb, yb, ys = "0", "0", 1
-        xk = f"({ct}){xl.at('xb + k')}"
-        yk = f"({ct}){yl.at(f'yb + k * {ys}' if ys != 1 else 'yb + k')}"
+        xk = f"({ct}){xl.value('xb + k')}"
+        yk = f"({ct}){yl.value(f'yb + k * {ys}' if ys != 1 else 'yb + k')}"
         # one rounding per multiply-add: an explicit FMA, since K2 is built
         # with -fmad=false
         step = (f"acc = {'fmaf' if ct == 'float' else 'fma'}({xk}, {yk}, acc)"
@@ -1636,7 +1693,7 @@ class ScanKernelSource:
         self._commit(reads=[x, y, *extra], writes=[out_v])
 
         def value(o):
-            return "acc" if epilogue is None else epilogue("acc", o)
+            return store("acc" if epilogue is None else epilogue("acc", o), out_v.type.dtype)
 
         by_thread = math.ceil(O / THREADS) * K
         by_warp = math.ceil(O / WARPS) * math.ceil(K / 32) + 5
@@ -1669,7 +1726,7 @@ class ScanKernelSource:
         out_v = en.outputs[0]
         out = self._new_slot(out_v)
         self.reads([(i, "t0") for i in en.inputs])
-        vals = [f"{out.at(j)} = {self.operand(i, '0', out_v.type.dtype)};"
+        vals = [f"{out.at(j)} = {store(self.operand(i, '0', out_v.type.dtype), out_v.type.dtype)};"
                 for j, i in enumerate(en.inputs)]
         self.body.append("if (tid == 0) { " + " ".join(vals) + " }")
         self._commit(reads=en.inputs, writes=[out_v])

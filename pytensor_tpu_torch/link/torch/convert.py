@@ -3,7 +3,9 @@
 The radon data, ``theta`` and ``m`` reach both packages as numpy arrays
 made from one seed; ``as_torch`` turns such a value into a tensor of the
 same dtype and shape on an explicit device.  The linker uses it for graph
-constants and the tests for inputs.  A sparse matrix reaches both
+constants and the tests for inputs.  numpy has no bfloat16: a bfloat16
+value on the host is an ``ml_dtypes.bfloat16`` array, which torch refuses,
+so it crosses as its 16 bits (``as_torch``, ``to_numpy``).  A sparse matrix reaches both
 packages as a scipy matrix; ``sparse_as_torch`` turns it into the port's
 one sparse value, the canonical CSR triple of ``CSR`` on a device.
 """
@@ -23,6 +25,7 @@ _DTYPES = {
     "int64": torch.int64,
     "uint8": torch.uint8,
     "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
     "float32": torch.float32,
     "float64": torch.float64,
     "complex64": torch.complex64,
@@ -94,6 +97,10 @@ def as_torch(value, device) -> torch.Tensor:
         return value.to(device)
     arr = np.asarray(value)
     torch_dtype(arr.dtype)  # reject dtypes torch does not have
+    if str(arr.dtype) == "bfloat16":
+        # torch refuses ml_dtypes' bfloat16 arrays: their bits, as int16
+        bits = torch.tensor(np.array(arr, order="C").view(np.int16), device=device)
+        return bits.view(torch.bfloat16)
     if arr.dtype == np.uint64:
         arr = arr.view(np.int64)
     elif arr.dtype in (np.uint16, np.uint32):
@@ -101,6 +108,17 @@ def as_torch(value, device) -> torch.Tensor:
     # a copy: the tensor never aliases the caller's array (torch refuses
     # negative strides, so reversed views are made contiguous first)
     return torch.tensor(np.array(arr, order="C"), device=device)
+
+
+def to_numpy(value: torch.Tensor) -> np.ndarray:
+    """A tensor's value as a numpy array on the host; a bfloat16 tensor as
+    an ``ml_dtypes.bfloat16`` array of the same bits."""
+    value = value.detach().cpu()
+    if value.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return value.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return value.numpy()
 
 
 @dataclass(frozen=True)

@@ -366,6 +366,9 @@ def _careduce(op, node=None, **kw):
     axis = op.axis
     out = torch_dtype(node.outputs[0].type.dtype)
     acc = torch_dtype(op.acc_dtype) if op.acc_dtype is not None else out
+    # a bfloat16 sum or product accumulates in float32 and rounds once, as
+    # XLA's reductions of bfloat16 do
+    acc = torch.float32 if acc == torch.bfloat16 else acc
 
     in_dt, out_dt = node.inputs[0].type.dtype, node.outputs[0].type.dtype
     if in_dt in UNSIGNED or out_dt in UNSIGNED:
@@ -442,7 +445,8 @@ def _unsigned_careduce(op, node):
 @ports(batched=True)
 def _dot(op, node=None, **kw):
     """``torch.matmul`` (full float32: a function linked for CUDA runs with
-    TF32 off).  Operands with leading batch dimensions (a ``Blockwise``'s)
+    TF32 off; a bfloat16 product accumulates in float32 and rounds once,
+    with cuBLAS's reduced-precision reductions off).  Operands with leading batch dimensions (a ``Blockwise``'s)
     are matrices: a vector core is a row or a column of one."""
     cx, cy = (i.type.ndim for i in node.inputs)
     if cx == cy == 2:

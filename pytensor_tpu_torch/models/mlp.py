@@ -6,9 +6,10 @@ Counterpart of ``pytensor_tpu/models/mlp.py`` (``make_mlp_training_step``,
 weights of the MFU step and the GEMM chain with ``jax.jit`` ramps of
 ``sin``; here torch makes the same ramps on the device, so both packages
 compute the same values up to the last bits of a float32 ``sin`` of
-arguments in the millions (XLA's and CUDA's differ there).  Data from
-``rng`` stays numpy's.  The port has no bfloat16 yet: ``dtype="bfloat16"``
-raises ``NotImplementedError``.
+arguments in the millions (XLA's and CUDA's differ there), then cast to
+``dtype`` (bfloat16 by default for the MFU step and the GEMM chain, as in
+the JAX package).  Data from ``rng`` stays numpy's; a bfloat16 array on the
+host is an ``ml_dtypes.bfloat16`` array.
 """
 
 from __future__ import annotations
@@ -18,11 +19,7 @@ import torch
 
 import pytensor_tpu_torch as ptt
 import pytensor_tpu_torch.tensor as pt
-
-
-def _check_dtype(dtype):
-    if dtype == "bfloat16":
-        raise NotImplementedError("the port has no bfloat16 tensors yet; pass dtype='float32'")
+from pytensor_tpu_torch.utils import np_dtype
 
 
 def make_mlp_training_step(n=64, d=32, h=64, dtype="float32", lr=0.1, seed=0,
@@ -30,7 +27,7 @@ def make_mlp_training_step(n=64, d=32, h=64, dtype="float32", lr=0.1, seed=0,
     """Compiled SGD step for a 2-layer MLP (tanh, sigmoid head).
 
     Returns ``(step_fn, (X, y), (W1, b1, W2, b2))``."""
-    _check_dtype(dtype)
+    dtype = np_dtype(dtype)
     rng = np.random.default_rng(seed)
     W1 = ptt.shared((0.1 * rng.standard_normal((d, h))).astype(dtype), name="W1",
                     device=device)
@@ -68,7 +65,6 @@ def mlp_mfu_graph(batch=4096, d=4096, depth=4, dtype="bfloat16", lr=1e-3, device
     its SGD updates.  Returns ``(X, T, Ws, acts, loss, grads, updates,
     (Xd, Td))``: the symbolic data, the shared weights, the products before
     each relu, and the device data the ramps made."""
-    _check_dtype(dtype)
     Ws = [ptt.shared(dev_ramp(d * d, 0.7 + 0.13 * i, 0.02, dtype, device).reshape(d, d),
                      name=f"W{i}", device=device, borrow=True)
           for i in range(depth)]
@@ -80,11 +76,11 @@ def mlp_mfu_graph(batch=4096, d=4096, depth=4, dtype="bfloat16", lr=1e-3, device
     h, acts = X, []
     for W in Ws:
         acts.append(pt.dot(h, W))
-        h = pt.maximum(acts[-1], np.asarray(0, dtype))
+        h = pt.maximum(acts[-1], np.asarray(0, np_dtype(dtype)))
     diff = pt.cast(h - T, "float32")
     loss = pt.mean(diff * diff)
     grads = ptt.grad(loss, Ws)
-    lr_c = np.asarray(lr, dtype)
+    lr_c = np.asarray(lr, np_dtype(dtype))
     updates = {W: W - lr_c * pt.cast(g, dtype) for W, g in zip(Ws, grads)}
     return X, T, Ws, acts, loss, grads, updates, (Xd, Td)
 
@@ -109,7 +105,22 @@ def make_mlp_mfu_step(batch=4096, d=4096, depth=4, dtype="bfloat16", lr=1e-3, se
     return f, flops_per_step, data
 
 
-def mlp_mfu_reference(X, T, Ws, lr, steps, masks=None):
+def _f64(v):
+    """A tensor or array (bfloat16 included) as a float64 numpy array."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().double().numpy()
+    return np.asarray(v).astype("float64")
+
+
+def _to_bf16(x):
+    """float64 values rounded to bfloat16 (through float32, as torch
+    converts), as float64."""
+    import ml_dtypes
+
+    return np.asarray(x).astype("float32").astype(ml_dtypes.bfloat16).astype("float64")
+
+
+def mlp_mfu_reference(X, T, Ws, lr, steps, masks=None, bf16=False):
     """The MFU step's SGD steps in float64 NumPy, independent of the graph:
     the check the linked step is held to.  Returns the loss of each step
     (before its update), the weights after each step and the gradients of
@@ -119,26 +130,35 @@ def mlp_mfu_reference(X, T, Ws, lr, steps, masks=None):
     of 0 a float32 run and this one may take different sides, and one such
     product moves a whole row of every earlier layer's gradient.  ``masks``
     (a list of ``a >= 0``, one a layer, from the run under test) makes the
-    first step's backward pass take the run's sides."""
-    Ws = [np.asarray(W, dtype="float64") for W in Ws]
-    X, T = np.asarray(X, dtype="float64"), np.asarray(T, dtype="float64")
+    first step's backward pass take the run's sides.
+
+    With ``bf16``, each value the bfloat16 graph rounds is rounded to
+    bfloat16 here too (the products, ``h - T``, the loss's gradient where
+    it is cast back, the learning rate and the update), the sums still in
+    float64.  A bfloat16 network's gradients differ from a float64
+    network's by far more than bfloat16's rounding (a gradient is a sum
+    over the batch that cancels, and the forward pass's rounding enters
+    each term), so the bfloat16 step is held to this one."""
+    r = _to_bf16 if bf16 else (lambda x: x)
+    Ws, X, T = [_f64(W) for W in Ws], _f64(X), _f64(T)
+    lr = float(r(lr))
     losses, after, first = [], [], None
     for step in range(steps):
         hs, acts = [X], []
         for W in Ws:
-            acts.append(hs[-1] @ W)
+            acts.append(r(hs[-1] @ W))
             hs.append(np.maximum(acts[-1], 0.0))
-        diff = hs[-1] - T
+        diff = r(hs[-1] - T)
         losses.append(float(np.mean(diff * diff)))
-        g = 2.0 * diff / diff.size
+        g = r(2.0 * diff / diff.size)
         grads = [None] * len(Ws)
         for i in reversed(range(len(Ws))):
             # the gradient of maximum(a, 0) at a >= 0
             ga = g * (acts[i] >= 0 if masks is None or step else masks[i])
-            grads[i] = hs[i].T @ ga
-            g = ga @ Ws[i].T
+            grads[i] = r(hs[i].T @ ga)
+            g = r(ga @ Ws[i].T)
         first = grads if first is None else first
-        Ws = [W - lr * gW for W, gW in zip(Ws, grads)]
+        Ws = [r(W - r(lr * gW)) for W, gW in zip(Ws, grads)]
         after.append(Ws)
     return losses, after, first
 
@@ -148,7 +168,6 @@ def make_gemm_chain(batch=8192, d=8192, nmat=4, dtype="bfloat16", seed=0,
     """A raw GEMM chain x -> x @ W1 @ ... @ Wn, renormalised so that the
     output can feed the next step; ``n_steps_per_call`` applications are
     one ``train_loop``.  Returns ``(f, flops_per_call)``."""
-    _check_dtype(dtype)
 
     def dev_w(i):
         ramp = torch.arange(d * d, dtype=torch.float32, device=device) * (0.7 + 0.13 * i)

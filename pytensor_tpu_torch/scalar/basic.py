@@ -23,20 +23,32 @@ import numpy as np
 import torch
 
 from pytensor_tpu_torch.config import config
-from pytensor_tpu_torch.utils import MetaObject
+from pytensor_tpu_torch.utils import MetaObject, dtype_kind, np_dtype
 
 discrete_kinds = "biu"
 int_types = ("int8", "int16", "int32", "int64")
 
 
 def upcast(*dtypes: str) -> str:
-    """numpy dtype promotion over dtype names."""
-    return str(np.result_type(*[str(d) for d in dtypes]))
+    """numpy dtype promotion over dtype names, bfloat16 by the JAX
+    package's rule (its scalar/basic.py:23-54): with a discrete dtype it
+    stays bfloat16, with float16 or float32 it is float32, with float64
+    float64."""
+    dtypes = [str(d) for d in dtypes]
+    rest = [d for d in dtypes if d != "bfloat16"]
+    if not rest:
+        return "bfloat16"
+    out = str(np.result_type(*rest))
+    if len(rest) == len(dtypes):
+        return out
+    if out == "float16":
+        return "float32"
+    return "bfloat16" if np.dtype(out).kind in discrete_kinds else out
 
 
 def upcast_float(*dtypes: str) -> str:
     out = upcast(*dtypes)
-    if np.dtype(out).kind in discrete_kinds:
+    if dtype_kind(out) in discrete_kinds:
         # discrete inputs promote to the smallest float that holds them
         # (bool/int8/int16 -> float32, int32/int64 -> float64)
         return str(np.promote_types(np.dtype(out), np.float32))
@@ -67,6 +79,7 @@ class ScalarOp(MetaObject):
     dtype_rule   'upcast' | 'float' | callable(*dtypes)
     float_inputs the op takes float inputs only: a graph may hold it on
                  other inputs, and linking such a node raises TypeError
+    refused      dtypes the JAX package's lowering refuses, refused so too
     special      a special function of ``scalar/math.py``: on a CUDA device
                  its Elemwise runs as a one-node K1 launch, never the
                  plain torch version (``link/torch/dispatch.py``)
@@ -80,9 +93,10 @@ class ScalarOp(MetaObject):
     def __init__(self, name: str, nin: int, np_fn: Callable, torch_fn: Callable,
                  grad_fn: Callable | None = None, dtype_rule="upcast",
                  identity=None, commutative: bool = False, float_inputs: bool = False,
-                 special: bool = False, on_host: bool = False):
+                 special: bool = False, on_host: bool = False, refused=()):
         self.name = name
         self.float_inputs = float_inputs
+        self.refused = tuple(refused)
         self.special = special
         self.on_host = on_host
         self.nin = nin
@@ -128,8 +142,10 @@ class ScalarOp(MetaObject):
         """Raise TypeError where the op refuses an input dtype (the JAX
         package's lowering raises it when the function is first run)."""
         for d in input_dtypes:
-            if self.float_inputs and not str(d).startswith("float"):
+            if self.float_inputs and dtype_kind(d) != "f":
                 raise TypeError(f"{self.name} does not accept dtype {d}; it takes floats")
+            if str(d) in self.refused:
+                raise TypeError(f"{self.name} does not accept dtype {d}")
 
     def impl(self, *args):
         return self.np_fn(*args)
@@ -207,7 +223,7 @@ def _true_div_grad(i, o, gz):
 
 def _true_div_dtype(a, b):
     # integer / integer divides at floatX, not numpy's float64
-    if np.dtype(upcast(a, b)).kind in discrete_kinds:
+    if dtype_kind(upcast(a, b)) in discrete_kinds:
         return config.floatX
     return upcast_float(a, b)
 
@@ -391,6 +407,10 @@ _LOG2, _LOG10 = float(np.log(2)), float(np.log(10))
 # rad2deg by float32(180) / float32(pi), not by float32(180 / pi)
 _DEG2RAD = {"float32": np.float32(np.pi / 180), "float64": np.pi / 180}
 _RAD2DEG = {"float32": np.float32(180) / np.float32(np.pi), "float64": 180 / np.pi}
+# bfloat16 multiplies by the constant rounded to bfloat16, as jnp's
+# deg2rad and rad2deg do
+_DEG2RAD["bfloat16"] = np_dtype("bfloat16").type(np.pi / 180)
+_RAD2DEG["bfloat16"] = np_dtype("bfloat16").type(180 / np.pi)
 
 
 def _angle_fn(table):
@@ -559,7 +579,7 @@ def cast_op(dtype: str) -> ScalarOp:
 
     dtype = str(dtype)
     if dtype not in _cast_ops:
-        npdt = np.dtype(dtype)
+        npdt = np_dtype(dtype)
         tdt = torch_dtype(dtype)
 
         def _cast_grad(i, o, gz, _dtype=dtype):
@@ -580,7 +600,7 @@ def cast_op(dtype: str) -> ScalarOp:
 
 
 def _is_discrete(x):
-    return np.dtype(x.type.dtype).kind in discrete_kinds
+    return dtype_kind(x.type.dtype) in discrete_kinds
 
 
 # ---------------------------------------------------------------------------

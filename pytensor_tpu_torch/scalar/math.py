@@ -277,9 +277,18 @@ def _np_sigmoid(x):
         return 1 / (1 + np.exp(-np.asarray(x)))
 
 
+def _torch_sigmoid(x):
+    """torch's sigmoid, but in bfloat16 the value of ``jax.nn.sigmoid``,
+    which XLA computes as ``1 / (1 + exp(-x))`` with each op rounded to
+    bfloat16 (torch's computes in float and rounds once)."""
+    if x.dtype == torch.bfloat16:
+        return 1 / (1 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
 # jax.nn.sigmoid, which the JAX package lowers it to, refuses integer and
 # bool inputs
-sigmoid = _op("sigmoid", 1, _np_sigmoid, torch.sigmoid,
+sigmoid = _op("sigmoid", 1, _np_sigmoid, _torch_sigmoid,
               lambda i, o, gz: [gz[0] * o[0] * (1 - o[0])], dtype_rule="float",
               float_inputs=True)
 expit = sigmoid
@@ -398,12 +407,15 @@ hyp2f1 = _host_op("hyp2f1", 4, _hyp2f1_grad)
 
 # --- the normal distribution ---
 
+# jax.scipy.special's ndtr and ndtri, which the JAX package lowers these to,
+# take float32 and float64 only
+_HALF_FLOATS = ("float16", "bfloat16")
 ndtr = _special("ndtr", 1, lambda x: _sps().ndtr(x), torch.special.ndtr,
                 lambda i, o, gz: [gz[0] * float(1 / np.sqrt(2 * np.pi))
-                                  * _tm().exp(-i[0] * i[0] / 2)])
+                                  * _tm().exp(-i[0] * i[0] / 2)], refused=_HALF_FLOATS)
 ndtri = _special("ndtri", 1, lambda x: _sps().ndtri(x), torch.special.ndtri,
                  lambda i, o, gz: [gz[0] * float(np.sqrt(2 * np.pi))
-                                   * _tm().exp(o[0] * o[0] / 2)])
+                                   * _tm().exp(o[0] * o[0] / 2)], refused=_HALF_FLOATS)
 
 
 # --- the long tail ---
@@ -429,7 +441,8 @@ def _ndtri_exp_grad(i, o, gz):
 
 
 ndtri_exp = _special("ndtri_exp", 1, lambda x: _sps().ndtri(np.exp(x)),
-                     lambda x: torch.special.ndtri(torch.exp(x)), _ndtri_exp_grad)
+                     lambda x: torch.special.ndtri(torch.exp(x)), _ndtri_exp_grad,
+                     refused=_HALF_FLOATS)
 
 
 def _chi2sf_grad(i, o, gz):

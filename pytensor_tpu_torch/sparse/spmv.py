@@ -14,13 +14,20 @@ So the op keeps its name, output type, ``infer_shape`` and ``L_op``, but
 its constant inputs are the canonical CSR of A (``indptr``, ``indices``,
 ``data``, from ``link/torch/convert.py canonical_csr``) where the JAX op
 takes eight routing tables.  The rewrite keeps the JAX package's gates:
-``config.sparse__routed_spmv``, a constant scipy A, a float32 output, a
-``(N,)`` or ``(N, 1)`` operand, at least 4,096 nonzeros, and the plan's
-own refusals (no nonzeros, a row longer than 128, a padded ``K`` above
-16,384), computed by the plan's numpy arithmetic without its tables, so
-that both packages rewrite the same graphs.  Left out: the routing plan
-(``plan_grid_permutation``, the edge colouring), ``build_spmv``,
-``spmv_np`` and bfloat16, which the port has no tensors of.
+``config.sparse__routed_spmv``, a constant scipy A, a float32 or bfloat16
+output, a ``(N,)`` or ``(N, 1)`` operand, at least 4,096 nonzeros, and the
+plan's own refusals (no nonzeros, a row longer than 128, a padded ``K``
+above 16,384), computed by the plan's numpy arithmetic without its
+tables, so that both packages rewrite the same graphs.  Left out: the
+routing plan (``plan_grid_permutation``, the edge colouring),
+``build_spmv`` and ``spmv_np``.
+
+A bfloat16 ``structured_dot`` of a scipy constant runs in neither
+package: scipy refuses an ``ml_dtypes.bfloat16`` matrix ("scipy.sparse
+does not support dtype bfloat16"), in the JAX package when the function
+converts the constant (``tocoo``), here when the rewrite or the linker
+makes its canonical CSR.  So the JAX package's bfloat16 branch of the
+routed matvec is unreachable, and K4 has no bfloat16 form.
 """
 
 from __future__ import annotations
@@ -144,8 +151,9 @@ def routed_spmv_graph(A, b_var):
 
 @node_rewriter([StructuredDot])
 def local_structured_dot_to_routed(fgraph, node):
-    """StructuredDot(A_const, b) -> RoutedSpMV for a float32 matvec with a
-    constant pattern of at least 4,096 nonzeros."""
+    """StructuredDot(A_const, b) -> RoutedSpMV for a float32 (or, as the
+    JAX package's gate reads, bfloat16) matvec with a constant pattern of
+    at least 4,096 nonzeros."""
     import scipy.sparse as sp
 
     if not config.sparse__routed_spmv:
@@ -153,7 +161,7 @@ def local_structured_dot_to_routed(fgraph, node):
     a, b = node.inputs
     if not isinstance(a, Constant) or not sp.issparse(a.data):
         return False
-    if str(node.outputs[0].type.dtype) != "float32":
+    if str(node.outputs[0].type.dtype) not in ("float32", "bfloat16"):
         return False
     if b.type.ndim == 2:
         if b.type.shape[1] != 1:

@@ -8,7 +8,8 @@ port has: ``type``, ``variable``, ``elemwise``, ``basic``, ``math``,
 softmax family.  Not yet here (ROADMAP Queue 1): ``functional``,
 the shape-parameter gradients (item 10b), ``extra_ops``, ``topk``,
 ``einsum``, ``pad``, ``fft``, ``signal`` and the rest of item 12,
-``random`` (item 7) and bfloat16 and complex tensors.
+``random`` (item 7) and complex tensors.  bfloat16 tensors are here
+(``ml_dtypes.bfloat16`` arrays on the host).
 """
 
 from pytensor_tpu_torch.tensor.type import *  # noqa: F401,F403

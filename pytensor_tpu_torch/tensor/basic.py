@@ -23,6 +23,7 @@ from pytensor_tpu_torch.graph.null_type import DisconnectedType
 from pytensor_tpu_torch.tensor.elemwise import DimShuffle, Elemwise, broadcast_static_shapes
 from pytensor_tpu_torch.tensor.type import TensorType, _np_dtype
 from pytensor_tpu_torch.tensor.variable import TensorConstant, TensorVariable
+from pytensor_tpu_torch.utils import dtype_kind
 
 
 class NotScalarConstantError(Exception):
@@ -449,9 +450,7 @@ class MakeVector(Op):
         (gz,) = output_grads
         grads = []
         for i, inp in enumerate(inputs):
-            if inp.type.dtype in ("bool",) or np.dtype(
-                inp.type.dtype if inp.type.dtype != "bfloat16" else "float32"
-            ).kind in "iu":
+            if dtype_kind(inp.type.dtype) in "biu":
                 grads.append(DisconnectedType()())
             else:
                 grads.append(gz[i])
@@ -560,9 +559,7 @@ class Join(Op):
                 gs = [gs]
         rval = [DisconnectedType()()]
         for t, g in zip(tensors, gs):
-            if t.type.dtype in ("bool",) or np.dtype(
-                t.type.dtype if t.type.dtype != "bfloat16" else "float32"
-            ).kind in "iu":
+            if dtype_kind(t.type.dtype) in "biu":
                 rval.append(DisconnectedType()())
             else:
                 rval.append(cast(g, t.type.dtype) if g.type.dtype != t.type.dtype else g)

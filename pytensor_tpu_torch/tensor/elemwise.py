@@ -19,6 +19,7 @@ from pytensor_tpu_torch.graph.null_type import DisconnectedType, NullType
 from pytensor_tpu_torch.graph.op import Op
 from pytensor_tpu_torch.scalar.basic import ScalarOp
 from pytensor_tpu_torch.tensor.type import TensorType
+from pytensor_tpu_torch.utils import np_dtype
 
 
 def broadcast_static_shapes(*shapes: tuple) -> tuple:
@@ -180,7 +181,7 @@ class Elemwise(Op):
                                           > np.dtype(widest).itemsize):
                         widest = dt
             if widest is not None and (np.dtype(widest).itemsize
-                                       > np.dtype(config.floatX).itemsize):
+                                       > np_dtype(config.floatX).itemsize):
                 weak_dtype = widest
         inputs = [
             as_tensor_variable(i, dtype=weak_dtype)
@@ -416,7 +417,7 @@ class CAReduce(Op):
         dt = node.outputs[0].type.numpy_dtype
         reducer = _np_reducers[self.scalar_op.name]
         acc = x
-        acc_dt = np.dtype(self.acc_dtype) if self.acc_dtype is not None else dt
+        acc_dt = np_dtype(self.acc_dtype) if self.acc_dtype is not None else dt
         if self.scalar_op.name in ("add", "mul") and acc.dtype != acc_dt:
             acc = acc.astype(acc_dt)
         for a in sorted(axis, reverse=True):

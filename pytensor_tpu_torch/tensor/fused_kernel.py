@@ -49,11 +49,19 @@ about that:
   a 919-element float32 node (229 vectors and a tail of 3) is one block
   of 256 threads, a 1,024 x 919 node 3,676 blocks.
 
+- **bfloat16.** An operand is ``__nv_bfloat16`` in memory and a float in
+  registers; each op's result is rounded to bfloat16 before the next op
+  reads it (``link/cuda/cexpr.py expression``), as XLA and torch round each
+  bfloat16 op (rounding once at the end of a chain gives other values),
+  and a special function computes in double and rounds once.  A vector is eight values.  The pass stays
+  bound by bytes: at 2**24 elements the MFU step's class of node (three
+  inputs, two outputs) moves 168 MB.
+
 ``emittable`` (and so ``tensor/fused.py fusable``) admits every op of the
 expression table but ``second`` (``_OPS``, as the JAX package's fusion
 groups every Elemwise but casts and ``second``) at the dtypes of
-``_DTYPES``, the ops of ``_FLOAT_ONLY`` at float dtypes only and the ops
-of ``_BOOL_OPS`` with a bool result, so the rewritten graphs hold the same
+``_DTYPES`` (but ``_NO_BF16`` in bfloat16), the ops of ``_FLOAT_ONLY`` at
+float dtypes only and the ops of ``_BOOL_OPS`` with a bool result, so the rewritten graphs hold the same
 FusedElemwise nodes as the JAX package's.  Each operand is cast to its
 compute dtype first (``ScalarOp.compute_dtypes``, the plain version's
 rule).  The plain version evaluates the inner graph with torch
@@ -71,7 +79,18 @@ import numpy as np
 import torch
 
 from pytensor_tpu_torch.graph.basic import Constant
-from pytensor_tpu_torch.link.cuda.cexpr import CEXPR, ctype, helpers, literal
+from pytensor_tpu_torch.link.cuda.cexpr import (
+    CEXPR,
+    ctype,
+    expression,
+    helpers,
+    literal,
+    load,
+    operand,
+    rtype,
+    store,
+)
+from pytensor_tpu_torch.utils import dtype_kind
 
 THREADS = 256
 # a grid of more blocks than this strides over the elements
@@ -87,7 +106,7 @@ LAUNCHES = 0
 # (kernels, seconds, compiler log) of every nvcc build of K1 in this process
 BUILDS: list = []
 
-_DTYPES = ("float32", "float64", "bool", "int8", "int16", "int32", "int64")
+_DTYPES = ("float32", "float64", "bfloat16", "bool", "int8", "int16", "int32", "int64")
 # every op of the expression table but ``second``: the JAX package's fusion
 # groups every Elemwise but casts and ``second`` (its tensor/fused.py:147)
 _OPS = frozenset(CEXPR) - {"second"}
@@ -100,8 +119,12 @@ _FLOAT_ONLY = frozenset({"true_div", "reciprocal", "exp", "log", "sqrt", "pow",
 _BOOL_OPS = frozenset({"add", "mul", "abs", "sqr", "maximum", "minimum", "lt", "gt", "le",
                        "ge", "eq", "neq", "isnan", "isinf", "and_", "or_", "xor", "invert",
                        "switch", "clip", "identity"})
-# elements of one 16-byte vector, by C type
-_VECTOR = {"float": 4, "double": 2}
+# ops K1 leaves to the plain version in bfloat16: numpy's floor division
+# of floats is a chain of ops, which torch's floor_divide rounds to
+# bfloat16 where K1 would keep float
+_NO_BF16 = frozenset({"int_div"})
+# elements of one 16-byte vector, by C type in memory
+_VECTOR = {"float": 4, "double": 2, "__nv_bfloat16": 8}
 
 
 def emittable(node) -> bool:
@@ -112,10 +135,12 @@ def emittable(node) -> bool:
     dtypes = [v.type.dtype for v in node.inputs + node.outputs]
     if any(d not in _DTYPES for d in dtypes):
         return False
+    if name in _NO_BF16 and "bfloat16" in dtypes:
+        return False
     out = node.outputs[0].type.dtype
     if out == "bool":
         return name in _BOOL_OPS
-    return name not in _FLOAT_ONLY or out.startswith("float")
+    return name not in _FLOAT_ONLY or dtype_kind(out) == "f"
 
 
 PRELUDE = f"""#include <cuda_runtime.h>
@@ -299,8 +324,11 @@ class FusedElemwiseKernel:
         """The kernel's namespace body: the scalar body ``op`` and the
         ``__global__`` function over the iteration space."""
         nd, nin, nout = self.ndim, len(self.tensor_vars), len(self.outputs)
-        cts = [ctype(v.type.dtype) for v in self.tensor_vars]
-        octs = [ctype(o.type.dtype) for o in self.outputs]
+        # C types in memory (the pointers) and in registers (the operands)
+        dts = [v.type.dtype for v in self.tensor_vars]
+        odts = [o.type.dtype for o in self.outputs]
+        cts, octs = [ctype(d) for d in dts], [ctype(d) for d in odts]
+        rts, orts = [rtype(d) for d in dts], [rtype(d) for d in odts]
         names = {v: (f"a{k}", v.type.dtype) for k, v in enumerate(self.tensor_vars)}
         op = []
         for n, node in enumerate(self.order):
@@ -313,14 +341,13 @@ class FusedElemwiseKernel:
                     args.append(literal(i.data, cdt))
                     continue
                 expr, dt = names[i]
-                args.append(expr if dt == cdt else f"(({ctype(cdt)}){expr})")
-            op.append(f"  const {ctype(out_dt)} v{n} = ({ctype(out_dt)})"
-                      f"{CEXPR[so.name](args, comp[0])};")
+                args.append(operand(expr, dt, cdt))
+            op.append(f"  const {rtype(out_dt)} v{n} = {expression(so.name, args, comp, out_dt)};")
             names[node.outputs[0]] = (f"v{n}", out_dt)
         for j, o in enumerate(self.outputs):
             op.append(f"  r{j} = {names[o][0]};")
-        params = ([f"const {ct} a{k}" for k, ct in enumerate(cts)]
-                  + [f"{ct}& r{j}" for j, ct in enumerate(octs)])
+        params = ([f"const {rt} a{k}" for k, rt in enumerate(rts)]
+                  + [f"{rt}& r{j}" for j, rt in enumerate(orts)])
         V = self.vector
 
         def call(a, r):
@@ -343,8 +370,9 @@ class FusedElemwiseKernel:
             "  const I first = (I)blockIdx.x * K1_THREADS + (I)threadIdx.x;",
             "  const I step = (I)gridDim.x * K1_THREADS;",
             "  // an input that is one element everywhere: one load a thread",
-            *[f"  const {ct} s{k} = L.xc[{k}] != K1_SCALAR ? ({ct})0 : L.xh[{k}] ? "
-              f"k1_bits<{ct}>(p.q[{k}]) : x{k}[0];" for k, ct in enumerate(cts)],
+            *[f"  const {rt} s{k} = L.xc[{k}] != K1_SCALAR ? ({rt})0 : L.xh[{k}] ? "
+              f"{_host_value(ct, k)} : {load(f'x{k}[0]', dt)};"
+              for k, (ct, rt, dt) in enumerate(zip(cts, rts, dts))],
             # unit j is vector j below nv, else element j + nv * (V - 1): each
             # thread a vector or an element of the tail, side by side
             f"  const I nv = L.vec ? n / {max(V, 1)} : 0;",
@@ -353,10 +381,10 @@ class FusedElemwiseKernel:
         if V:
             lines += [
                 "    if (j < nv) {",
-                *[f"      {ct} a{k}[{V}];" for k, ct in enumerate(cts)],
+                *[f"      {rt} a{k}[{V}];" for k, rt in enumerate(rts)],
                 *[f"      if (L.xc[{k}] == K1_SCALAR) {{ for (int v = 0; v < {V}; ++v) "
                   f"a{k}[v] = s{k}; }} else k1_load(x{k}, j, a{k});" for k in range(nin)],
-                *[f"      {ct} r{j}[{V}];" for j, ct in enumerate(octs)],
+                *[f"      {rt} r{j}[{V}];" for j, rt in enumerate(orts)],
                 "#pragma unroll",
                 f"      for (int v = 0; v < {V}; ++v) "
                 + call([f"a{k}[v]" for k in range(nin)], [f"r{j}[v]" for j in range(nout)]),
@@ -368,12 +396,15 @@ class FusedElemwiseKernel:
             f"    const I i = j + nv * {max(V, 1) - 1};",
             "    I idx[ND];",
             "    if (L.strided) k1_unravel<I, ND>(i, L.d, idx);",
-            *[f"    const {ct} a{k} = L.xc[{k}] == K1_CONTIG ? x{k}[i] : L.xc[{k}] == K1_SCALAR ? "
-              f"s{k} : x{k}[k1_offset<I, ND>(idx, L.xs[{k}])];" for k, ct in enumerate(cts)],
-            *[f"    {ct} r{j};" for j, ct in enumerate(octs)],
+            *[f"    const {rt} a{k} = L.xc[{k}] == K1_CONTIG ? {load(f'x{k}[i]', dt)} : "
+              f"L.xc[{k}] == K1_SCALAR ? s{k} : "
+              f"{load(f'x{k}[k1_offset<I, ND>(idx, L.xs[{k}])]', dt)};"
+              for k, (rt, dt) in enumerate(zip(rts, dts))],
+            *[f"    {rt} r{j};" for j, rt in enumerate(orts)],
             "    " + call([f"a{k}" for k in range(nin)], [f"r{j}" for j in range(nout)]),
-            *[f"    if (L.yc[{j}] == K1_CONTIG) y{j}[i] = r{j}; "
-              f"else y{j}[k1_offset<I, ND>(idx, L.ys[{j}])] = r{j};" for j in range(nout)],
+            *[f"    if (L.yc[{j}] == K1_CONTIG) y{j}[i] = {store(f'r{j}', dt)}; "
+              f"else y{j}[k1_offset<I, ND>(idx, L.ys[{j}])] = {store(f'r{j}', dt)};"
+              for j, dt in enumerate(odts)],
             "  }",
             "}",
         ]
@@ -499,10 +530,20 @@ class FusedElemwiseKernel:
         return [storage[o].contiguous() for o in self.outputs]
 
 
+def _host_value(ct, k):
+    """The C++ of input ``k``'s value from the host, of C type ``ct``,
+    passed in its pointer's place."""
+    if ct == "__nv_bfloat16":
+        return f"k2_bfbits(p.q[{k}])"
+    return f"k1_bits<{ct}>(p.q[{k}])"
+
+
 def _host_bits(a):
     """A one-element host value's bytes as the integer that takes its pointer's
     place (``k1_bits``)."""
-    return int.from_bytes(a.numpy().tobytes().ljust(8, b"\0"), "little")
+    from pytensor_tpu_torch.link.torch.convert import to_numpy
+
+    return int.from_bytes(to_numpy(a).tobytes().ljust(8, b"\0"), "little")
 
 
 def _raw_stream(index):

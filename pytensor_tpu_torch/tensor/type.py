@@ -13,10 +13,11 @@ import numpy as np
 
 from pytensor_tpu_torch.config import config
 from pytensor_tpu_torch.graph.type import Type
+from pytensor_tpu_torch.utils import np_dtype as _np_dtype
 
 int_dtypes = ("int8", "int16", "int32", "int64")
 uint_dtypes = ("uint8", "uint16", "uint32", "uint64")
-float_dtypes = ("float16", "float32", "float64")
+float_dtypes = ("float16", "bfloat16", "float32", "float64")
 complex_dtypes = ("complex64", "complex128")
 discrete_dtypes = ("bool",) + int_dtypes + uint_dtypes
 continuous_dtypes = float_dtypes + complex_dtypes
@@ -26,11 +27,9 @@ all_dtypes = discrete_dtypes + continuous_dtypes
 def _normalize_dtype(dtype) -> str:
     if dtype == "floatX":
         return config.floatX
+    if str(dtype) == "bfloat16":
+        return "bfloat16"
     return str(np.dtype(dtype))
-
-
-def _np_dtype(dtype: str):
-    return np.dtype(dtype)
 
 
 class TensorType(Type):
@@ -57,7 +56,7 @@ class TensorType(Type):
 
     @property
     def numpy_dtype(self):
-        return np.dtype(self.dtype)
+        return _np_dtype(self.dtype)
 
     def clone(self, dtype=None, shape=None, **kwargs):
         return type(self)(
@@ -83,7 +82,7 @@ class TensorType(Type):
                     ok = (
                         not isinstance(data, np.ndarray)
                         and converted.dtype.kind == "f"
-                        and self.dtype in ("float32", "float16")
+                        and self.dtype in ("float32", "bfloat16", "float16")
                     ) or (converted.dtype.kind in "iu" and self.dtype in int_dtypes + uint_dtypes
                           and np.can_cast(converted.dtype, self.numpy_dtype, "same_kind")
                     ) or (
@@ -311,8 +310,7 @@ for _kind in ("row", "col"):
     if _kind + "s" not in _g:
         _g[_kind + "s"] = _plural(_g[_kind])
 
-# dtype-family tuples (PyTensor's tensor/type.py exports); the port has
-# no bfloat16
+# dtype-family tuples (PyTensor's tensor/type.py exports)
 int_types = int_dtypes
 uint_types = uint_dtypes
 float_types = float_dtypes

@@ -10,6 +10,24 @@ from __future__ import annotations
 
 import traceback
 
+import numpy as np
+
+
+def np_dtype(dtype) -> np.dtype:
+    """numpy's dtype for a graph dtype name; ``"bfloat16"`` is
+    ``ml_dtypes.bfloat16`` (numpy has no bfloat16 of its own)."""
+    if str(dtype) == "bfloat16":
+        import ml_dtypes
+
+        return np.dtype(ml_dtypes.bfloat16)
+    return np.dtype(dtype)
+
+
+def dtype_kind(dtype) -> str:
+    """numpy's kind letter of a graph dtype name, ``"f"`` for bfloat16
+    (whose numpy dtype, from ml_dtypes, is of kind ``"V"``)."""
+    return "f" if str(dtype) == "bfloat16" else np.dtype(str(dtype)).kind
+
 
 class MetaObject:
     """Objects whose identity is defined by their ``__props__``.

@@ -19,6 +19,7 @@ inline int cudaGetLastError() { return 0; }
 
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
+#include "bf16_host.h"
 
 struct K1HostDim3 { unsigned int x; };
 static K1HostDim3 threadIdx, blockIdx, blockDim, gridDim;

@@ -31,6 +31,7 @@ typedef int cudaError_t;
 // cudaErrorInvalidValue, what the card returns for too much shared memory
 #define K2_HOST_INVALID_VALUE 1
 inline int cudaGetLastError() { return 0; }
+#include "bf16_host.h"
 
 static unsigned char* k2_host_smem;
 #define K2_SHARED_ARENA unsigned char* k2_smem = k2_host_smem

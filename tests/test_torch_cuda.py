@@ -39,7 +39,11 @@ NaN and infinities where the plain version has them), the special op
 group a dtype fused, an Elemwise of one on the card never running its
 plain version, a failed K1 build raising, and the bessel loop through K2
 under ``scan__pallas`` (one launch) and as the step loop (K1 twice a
-step), each within ``2e-6`` of the float64 scipy loop.
+step), each within ``2e-6`` of the float64 scipy loop.  bfloat16: a
+linked product with cuBLAS's reduced-precision reductions off, captured
+and replayed whatever the caller's setting, which each call restores; K1
+on every op of its table in bfloat16 (the exact ops bit for bit, the
+others within 1 ulp); K2 on a bfloat16 EWMA bit for bit its step loop.
 """
 
 import numpy as np
@@ -1070,3 +1074,86 @@ def test_bessel_loop_on_the_card(card, pallas):
     want, _ = bessel_reference(v_start(256), 4)
     got = v.get_value().double().cpu().numpy()
     assert np.max(np.abs(got - want) / np.abs(want)) <= 2e-6
+
+
+# --- bfloat16 --------------------------------------------------------------------------
+
+def _bf16_ulps(a, b):
+    def ordered(x):
+        u = x.view(torch.int16).to(torch.int32)
+        return torch.where(u < 0, -(u & 0x7FFF), u)
+
+    d = (ordered(a) - ordered(b)).abs()
+    return int(torch.where(a.isnan() & b.isnan(), torch.zeros_like(d), d).max())
+
+
+def test_bf16_products_reduce_in_float32_under_capture(card):
+    """A bfloat16 product inside a linked call runs with cuBLAS's
+    reduced-precision reductions off, captured and replayed alike, and the
+    caller's setting is back after each call: the replay's bits are the
+    product's taken with the setting off, whatever the caller's."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+
+    matmul = torch.backends.cuda.matmul
+    gen = torch.Generator(device=card).manual_seed(12)
+    x = torch.randn(64, 8192, generator=gen, device=card).to(torch.bfloat16)
+    y = torch.randn(8192, 64, generator=gen, device=card).to(torch.bfloat16)
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    try:
+        matmul.allow_bf16_reduced_precision_reduction = False
+        want = x @ y
+        xs, ys = pt.tensor("x", dtype="bfloat16", shape=(64, 8192)), pt.tensor(
+            "y", dtype="bfloat16", shape=(8192, 64))
+        f = ptt.function([xs, ys], pt.dot(xs, ys), device=card)
+        for setting in (True, False, True):
+            matmul.allow_bf16_reduced_precision_reduction = setting
+            got = f(x, y)  # a capture, then replays
+            assert matmul.allow_bf16_reduced_precision_reduction is setting
+            assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+def test_k1_bf16_op_group_matches_plain(card):
+    """K1 on every op of its table in bfloat16, one fused node, on numpy's
+    edges: the exact ops with the plain version's bits, the others within
+    1 ulp."""
+    ins, outs, names = cases.bf16_op_group()
+    kern = fused_kernel.FusedElemwiseKernel(FusedElemwise(ins, outs).fgraph, card)
+    vals = [as_torch(v, card) for v in cases.op_group_inputs("bfloat16", ins, 4099)]
+    got, want = kern.launch(*vals), kern.plain(*vals)
+    torch.cuda.synchronize()
+    for name, g, w in zip(names, got, want):
+        if g.dtype == torch.bool:
+            assert torch.equal(g, w), name
+        else:
+            assert _bf16_ulps(g, w) <= (0 if name in cases.BF16_EXACT_OPS else 1), name
+
+
+def test_k2_bf16_ewma_matches_its_step_loop(card):
+    """The EWMA scan in bfloat16 under ``scan__pallas``: one K2 launch, bit
+    for bit its step loop on the card."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+    from pytensor_tpu_torch.scan.op import Scan
+    from pytensor_tpu_torch.utils import np_dtype
+
+    bf = np_dtype("bfloat16").type
+    x = pt.tensor("x", dtype="bfloat16", shape=(512,))
+    with config.change_flags(scan__pallas=True):
+        tr, _ = ptt.scan(lambda xt, acc: bf(0.98) * acc + bf(0.02) * xt, sequences=[x],
+                         outputs_info=[pt.constant(np.asarray(0.0, np_dtype("bfloat16")))])
+        f = ptt.function([x], tr, device=card)
+    xv = torch.randn(512, device=card).to(torch.bfloat16)
+    f(xv)
+    scan_kernel.LAUNCHES = 0
+    got = f(xv)
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES == 1
+    node = next(nd for nd in f.fgraph.apply_nodes if isinstance(nd.op, Scan))
+    feed = fgraph_to_torch(FunctionGraph(f.fgraph.inputs, node.inputs, clone=True), card)
+    want = scan_kernel.ScanKernel(node.op, node, card).plain(*feed(xv))[0]
+    assert got.dtype == torch.bfloat16 and _bf16_ulps(got, want) == 0

@@ -200,7 +200,8 @@ def k1_host():
     def lib_for(kernels):
         units = {k.key: k.unit for k in kernels}
         src = fused_kernel.library_source([units[k] for k in sorted(units)]).replace(
-            "#include <cuda_runtime.h>", f'#include "{HEADER}"')
+            "#include <cuda_runtime.h>", f'#include "{HEADER}"').replace(
+            "#include <cuda_bf16.h>", "")
         key = hashlib.sha256(src.encode() + HEADER.read_bytes()).hexdigest()[:16]
         lib = BUILD / f"libk1_host_{key}.so"
         if not lib.exists():

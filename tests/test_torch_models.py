@@ -151,9 +151,25 @@ def test_mlp_mfu_gradients_and_update():
         assert (np.abs(x - r) - rounding).max() > 0.1 * np.abs(r - x).max()
 
 
-def test_mlp_mfu_step_refuses_bfloat16():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tmlp.make_mlp_mfu_step(batch=4, d=4, depth=1, device="cpu")
+def test_mlp_mfu_step_bfloat16():
+    """The MFU step at its default dtype, bfloat16 (batch 16, d 8, depth 2):
+    bfloat16 weights, a float32 loss, each step's loss within ``1e-6`` of
+    the float64 step that rounds where the graph rounds, from the same
+    weights, and the unrounded float64 step's within bfloat16's rounding
+    (``tests/test_torch_bfloat16.py`` holds it against the JAX package)."""
+    f, flops, (X, T) = tmlp.make_mlp_mfu_step(batch=16, d=8, depth=2, lr=0.5, device="cpu")
+    assert flops == 2 * 3 * 2 * 16 * 8 * 8
+    Ws = sorted(f.shared_vars, key=lambda v: v.name)
+    assert X.dtype == T.dtype == torch.bfloat16
+    assert all(w.get_value().dtype == torch.bfloat16 for w in Ws)
+    for _ in range(2):
+        before = [w.get_value() for w in Ws]
+        loss = f(X, T)
+        assert loss.dtype == torch.float32
+        ref, _, _ = tmlp.mlp_mfu_reference(X, T, before, 0.5, 1, bf16=True)
+        assert abs(float(loss) - ref[0]) <= 1e-6 * ref[0]
+        ref, _, _ = tmlp.mlp_mfu_reference(X, T, before, 0.5, 1)
+        assert abs(float(loss) - ref[0]) <= 2.0 ** -6 * ref[0]
 
 
 def test_gemm_chain():

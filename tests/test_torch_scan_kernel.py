@@ -37,7 +37,7 @@ from pytensor_tpu_torch.link.cuda.scan_kernel import (
     ScanKernelSource,
     scan_kernel_eligible,
 )
-from pytensor_tpu_torch.link.torch.convert import torch_dtype
+from pytensor_tpu_torch.link.torch.convert import as_torch, torch_dtype
 from pytensor_tpu_torch.link.torch.dispatch import scan_loop
 from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
 from pytensor_tpu_torch.tensor.basic import Alloc, MakeVector
@@ -58,7 +58,8 @@ def gxx():
 
 def _host_library(gxx, source):
     assert LAUNCH in source
-    src = source.replace("#include <cuda_runtime.h>", f'#include "{HEADER}"')
+    src = source.replace("#include <cuda_runtime.h>", f'#include "{HEADER}"').replace(
+        "#include <cuda_bf16.h>", "")
     src = src.replace(LAUNCH, "k2_host_launch(K2_THREADS, K2_SMEM, [&] { k2_kernel(a); });")
     key = hashlib.sha256(src.encode()).hexdigest()[:16]
     lib = BUILD / f"libk2_host_{key}.so"
@@ -101,7 +102,7 @@ def _emulated_vs_loop(gxx, f, values, fuse_inner=False, stamps=None):
     op = _fused(node.op) if fuse_inner else node.op
     assert scan_kernel_eligible(op, node)
     feed = fgraph_to_torch(FunctionGraph(f.fgraph.inputs, node.inputs, clone=False), "cpu")
-    n_steps, *outer = feed(*[torch.as_tensor(np.asarray(v)) for v in values])
+    n_steps, *outer = feed(*[as_torch(v, "cpu") for v in values])
     src = ScanKernelSource(op, node, stamps=stamps is not None)
     T = int(n_steps)
 
