@@ -1,6 +1,7 @@
 """Drive the torch port's radon, sparse, logistic-regression, MLP, Elman
 RNN, linalg (GP, Kalman filter, batched Cholesky), special-function (the
-bessel loop) and bfloat16 (the MLP "MFU" step, the GEMM chain) paths on
+bessel loop), bfloat16 (the MLP "MFU" step, the GEMM chain) and tensor
+library tail (the einsum loop, the scan rows, the new lowerings) paths on
 one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
@@ -202,6 +203,29 @@ Phases, one line or more each, and any failure raises:
    one launch) bit for bit its step loop, µs a step beside float32's.
    K1's and K2's ``launches_by_path`` gain these paths; their kernel-line
    entries gain ``bf16_mfu_class_node`` and ``ewma_n4096``.
+16. tail (``phase_tail``; its kernels from ``tail_kernels``, built in
+   phase 2's pool): (a) the einsum loop of ``benchsuite.py:197
+   ours_einsum`` (``models/einsum.py``: 32 x 4,096 float32, 64 applications
+   a call, captured): the path its Einsum lowering planned must cost the
+   optimal 1.684e7 FLOPs; launches in one replayed call; ``a`` after it
+   against the float64 loop (``TAIL_TOL``); applications/s as
+   ``benchsuite.py:226-227`` counts them, device ms split into the products
+   and the rest, busy share, and an application's bound (2 MiB at 3.35
+   TB/s, 1.684e7 FLOPs at 67 TFLOP/s); (b) the einsum step through
+   ``function()``: one K1 launch a replayed call, its K1 node against its
+   plain version, the step against float64; (c) ``benchsuite.py:87
+   ours_scan``'s cumsum and EWMA rows (n 4,096, float32, ``scan__pallas``):
+   one K2 launch a replayed call, K2 against its step loop, the cumsum row
+   against ``pt.cumsum(x) / n`` through ``CumOp``, calls/s over 48 chained
+   calls, K2's device ms and the CumOp call's wall beside; (d) every group
+   of the new lowerings (``cases.tail_cases`` at 2**18 elements: ``CumOp``
+   in bool, int32, float32 and float64, ``Repeat``, ``SearchsortedOp``,
+   ``TopKOp`` with ties, ``UnravelIndex``, ``RavelMultiIndex``, the real
+   FFTs in both float dtypes, the convolutions in each mode, ``pad`` in each
+   mode, ``interp``) linked for the card against the same graph linked for
+   the CPU (``cases.TAIL_RTOL``), and K1's floor division of a signed zero
+   (numpy's signs).  K1's and K2's ``launches_by_path`` gain these paths;
+   K2's kernel-line entry gains ``scan_rows_n4096``.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -2489,9 +2513,346 @@ def phase_bf16(dev, smi_line, one_node, cls_kern):
                                       "k1": k1_row, "k2": k2_row}
 
 
+# --- 16. the tensor library's tail: the einsum loop and the scan rows ---------------
+
+# benchsuite.py:197 ours_einsum: 64 applications a call (its k_inner); :87
+# ours_scan: n 4,096 float32, 48 chained calls (its iters)
+EINSUM_STEPS = 64
+SCAN_N, SCAN_CHAIN = 4096, 48
+# the tail's lowerings (phase 16(d)) at this many elements an input
+TAIL_N = 2 ** 18
+# phase 16's holds.  The einsum loop's a after one call of 64 applications
+# (its m x m block, max error over max|ref|) and the last application's
+# sum(out) (relative) against the float64 loop: float32 products of 4,096
+# terms, renormalised each application (on the CPU the port read 3.8e-7 and
+# 1.5e-7, on an H100 80GB HBM3 at 700 W 3.4e-7 and 5.4e-8), held at ~10x;
+# the step after one application the same.  K2 on a
+# scan row against its step loop over max(1, max|loop|), as phase 15's
+# EWMA; the cumsum row against CumOp (a sequential sum against torch's
+# scan, over max|cumop|)
+TAIL_TOL = {"einsum": 5e-6, "k2": 1e-6, "cumop": 1e-5}
+# cuBLAS's product kernels in a trace: GEMM_KERNELS and the split-K
+# reductions that follow a GEMM of a long inner dimension
+PRODUCT_KERNELS = re.compile(GEMM_KERNELS.pattern + r"|splitKreduce", re.I)
+
+
+def einsum_plans(plan):
+    """The plans (``fn.paths``) of every Einsum lowering a plan runs, its
+    scans' inner plans included."""
+    out = []
+    for fn, _, _, _ in plan.steps:
+        if hasattr(fn, "paths"):
+            out.append(fn.paths)
+        inner = getattr(fn, "inner", None)
+        if inner is not None:
+            out += einsum_plans(inner)
+    return out
+
+
+def tail_paths(dev):
+    """The functions of phase 16, built for ``dev``: the einsum loop of
+    EINSUM_STEPS applications and the einsum step, ``benchsuite.py:87``'s
+    cumsum and EWMA rows under ``scan__pallas``, the cumsum row through
+    ``CumOp``, and one function of each group of ``cases.tail_cases``."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda import cases
+    from pytensor_tpu_torch.models.einsum import make_einsum_loop, make_einsum_step
+
+    loop = make_einsum_loop(EINSUM_STEPS, device=dev)
+    step = make_einsum_step(device=dev)
+    x = pt.tensor("x", dtype="float32", shape=(SCAN_N,))
+    rows = {}
+    with config.change_flags(scan__pallas=True):
+        tr, _ = ptt.scan(lambda xt, acc: acc + xt, sequences=[x],
+                         outputs_info=[pt.constant(0.0, dtype="float32")])
+        rows["cumsum"] = ptt.function([x], tr / np.float32(SCAN_N), name="scan_cumsum",
+                                      device=dev)
+        tr, _ = ptt.scan(lambda xt, acc: 0.98 * acc + 0.02 * xt, sequences=[x],
+                         outputs_info=[pt.constant(0.0, dtype="float32")])
+        rows["ewma"] = ptt.function([x], tr, name="scan_ewma", device=dev)
+    cumop = ptt.function([x], pt.cumsum(x) / np.float32(SCAN_N), device=dev)
+    tail = [(tag, ins, outs, vals, ptt.function(ins, outs, device=dev))
+            for tag, ins, outs, vals in cases.tail_cases(TAIL_N)]
+    return loop, step, rows, cumop, tail
+
+
+def sign_nodes():
+    """K1's floor division of two float vectors, a node a float dtype."""
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    out = {}
+    for dtype in ("float32", "float64"):
+        x, y = (pt.tensor(k, dtype=dtype, shape=(None,)) for k in "xy")
+        out[dtype] = FusedElemwise([x, y], [x // y])
+    return out
+
+
+def tail_kernels(dev):
+    """The kernels of phase 16, for the build pool of phase 2: the K1
+    kernels of its functions, made from their graphs rewritten on the CPU
+    (the same sources, so linking them for the card finds them built), K1's
+    floor-division nodes and K2 of the two scan rows.  Returns (K1 kernels,
+    the floor-division kernels by dtype, K2 kernels by row)."""
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+    from pytensor_tpu_torch.scan.op import Scan
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    (loop, _), (step, _), rows, cumop, tail = tail_paths("cpu")
+    fns = [loop, step, *rows.values(), cumop] + [f for *_, f in tail]
+    kerns = {}
+    for f in fns:
+        for nd in f.fgraph.toposort():
+            if isinstance(nd.op, FusedElemwise):
+                k = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+                kerns.setdefault(k.key, k)
+    signs = {dt: fused_kernel.FusedElemwiseKernel(nd.fgraph, dev)
+             for dt, nd in sign_nodes().items()}
+    k2 = {}
+    for kind, f in rows.items():
+        node = next(nd for nd in f.fgraph.apply_nodes if isinstance(nd.op, Scan))
+        k2[kind] = scan_kernel.ScanKernel(node.op, node, dev)
+    return list(kerns.values()), signs, k2
+
+
+def phase_tail(dev, smi_line, signs):
+    """Phase 16: the tensor library's tail.  (a) the einsum loop of
+    ``benchsuite.py:197 ours_einsum`` (32 x 4,096 float32, 64 applications
+    a call, captured): the path its Einsum lowering planned (1.684e7 FLOPs),
+    launches in one replayed call, ``a`` after it against the float64 loop,
+    applications/s as benchsuite counts them, device ms split by kernel,
+    busy share, the bound of an application; (b) the einsum step through
+    ``function()``: one K1 launch a call, the K1 node against its plain
+    version, the step against float64; (c) ``benchsuite.py:87 ours_scan``'s
+    cumsum and EWMA rows (n 4,096, float32, ``scan__pallas``): one K2
+    launch a call, K2 against its step loop, the cumsum row against
+    ``pt.cumsum(x) / n`` through ``CumOp``, calls/s over 48 chained calls as
+    benchsuite chains them, the CumOp call's time beside; (d) every new
+    lowering (``cases.tail_cases`` at TAIL_N) linked for the card against
+    the same graph linked for the CPU, and K1's floor division of a signed
+    zero.  Returns the launches of the paths, K1's and K2's largest
+    absolute errors and the rows it timed.  On the CPU (a rehearsal) it
+    checks the values only."""
+    import torch
+
+    import pytensor_tpu_torch as ptt
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.cuda import cases, scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction, fgraph_to_torch
+    from pytensor_tpu_torch.models import radon_kernel
+    from pytensor_tpu_torch.models.einsum import einsum_data, einsum_flops, einsum_reference
+    from pytensor_tpu_torch.scan.op import Scan
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t16 = time.perf_counter()
+
+    def zero_counts():
+        fused_kernel.LAUNCHES = radon_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+        spmv_kernel.LAUNCHES = 0
+
+    def counts():
+        return {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": scan_kernel.LAUNCHES}
+
+    (loop, a_loop), (step, a_step), rows, cumop, tail = tail_paths(dev)
+    launches, timed = {}, {}
+    a0, b, c, d = einsum_data()
+    m = a0.shape[0]
+    # (a) the einsum loop ---------------------------------------------------
+    if on_card and not isinstance(loop.linked, CapturedFunction):
+        raise AssertionError(f"einsum loop: not captured: {loop.linked.host_reads}")
+    loop()  # the capturing call; the counted call is a replay from a0
+    a_loop.set_value(a0)
+    zero_counts()
+    total = float(loop())
+    sync()
+    launches[f"einsum loop x{EINSUM_STEPS}"] = counts()
+    plans = einsum_plans(loop.linked.plan if on_card else loop.linked)
+    (steps_flops,) = [p for paths in plans for p in paths.values()]
+    path_flops = steps_flops[1]
+    ref, ref_total = einsum_reference(a0, b, c, d, EINSUM_STEPS)
+    blk = a_loop.get_value().cpu().numpy()[:m, :m]
+    e_blk = float(np.max(np.abs(blk - ref[:m, :m])) / np.max(np.abs(ref[:m, :m])))
+    e_tot = abs(total - ref_total) / abs(ref_total)
+    say(f"einsum loop ({m} x {a0.shape[1]:,} float32, {EINSUM_STEPS} applications a call): the "
+        f"lowering's path {[spec for _, spec in steps_flops[0]]}, {path_flops:,} FLOPs an "
+        f"application (optimal: {einsum_flops():,}); one replayed call launched "
+        f"{launches[f'einsum loop x{EINSUM_STEPS}']}; a's {m} x {m} block after it against the "
+        f"float64 loop: {e_blk:.2e} of max|ref|, sum(out) rel err {e_tot:.2e} (tol "
+        f"{TAIL_TOL['einsum']:g})")
+    if path_flops != einsum_flops():
+        raise AssertionError(f"einsum path of {path_flops} FLOPs, not {einsum_flops()}")
+    if not (np.all(np.isfinite(blk)) and e_blk <= TAIL_TOL["einsum"]
+            and e_tot <= TAIL_TOL["einsum"]):
+        raise AssertionError(f"einsum loop: block {e_blk}, sum {e_tot}; tol {TAIL_TOL}")
+    # the bytes an application reads (a, b, c and d once) and its FLOPs
+    app_bytes = 4 * a0.size * 4
+    b_ms, b_by = bound(app_bytes, path_flops)
+    if on_card:
+        wall = wall_ms(loop, 20)
+        dev_t, by = device_ms(loop, 4)
+        # cuBLAS's kernels of the products: the GEMMs and their split-K reductions
+        gemm = {k: v for k, v in by.items() if PRODUCT_KERNELS.search(k)}
+        per_app = wall / EINSUM_STEPS
+        # the path's three contractions alone, at the loop's shapes: µs each
+        # (its kernels, a GEMM and a split-K reduction, together) from CUDA
+        # events around a replayed CUDA graph of 64 of them, so that no host
+        # gap between launches counts
+        prev, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, False
+        ops = [torch.as_tensor(x, device=dev) for x in (a0, b, c, d)]
+        products = []
+        for pos, spec in steps_flops[0]:
+            taken = [ops.pop(p) for p in pos]
+            ops.append(torch.einsum(spec, *taken))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(EINSUM_STEPS):
+                    torch.einsum(spec, *taken)
+            products.append((spec, wall_ms(graph.replay, 20) / EINSUM_STEPS * 1e3))
+        torch.backends.cuda.matmul.allow_tf32 = prev
+        rest_us = dev_t / EINSUM_STEPS * 1e3 - sum(us for _, us in products)
+        timed["einsum"] = {"wall_ms": wall, "device_ms": dev_t, "us_an_application": per_app * 1e3,
+                           "products_us": dict(products), "rest_us": rest_us,
+                           "bound_us": b_ms * 1e3, "bound_by": b_by}
+        say(f"einsum loop ({smi_line}): wall {wall:.4f} ms a call, {per_app * 1e3:.3f} us an "
+            f"application, {EINSUM_STEPS * 1e3 / wall:,.0f} applications/s (benchsuite.py:226-227's "
+            f"1/dt, dt a call's wall over {EINSUM_STEPS}); device {dev_t:.4f} ms a call, busy "
+            f"{dev_t / wall:.3f}, cuBLAS's product kernels {sum(ms for ms, _ in gemm.values()):.4f} "
+            f"ms of it in {sum(n for _, n in gemm.values()):.0f} launches; an application's device "
+            f"us: the products alone " + ", ".join(f"{sp} {us:.3f}" for sp, us in products)
+            + f", the rest {rest_us:.3f}; bound an application {b_ms * 1e3:.3f} us ({b_by}: "
+            f"{app_bytes / 2 ** 20:.2f} MiB at 3.35 TB/s {app_bytes / HBM_BYTES_S * 1e6:.3f} us, "
+            f"{path_flops:.4g} FLOPs at 67 TFLOP/s {path_flops / F32_OPS_S * 1e6:.3f} us), "
+            f"{b_ms / per_app:.4f} of it reached")
+        for kname, (ms, count) in sorted(by.items(), key=lambda kv: -kv[1][0])[:6]:
+            say(f"  einsum loop: {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+    # (b) the einsum step ---------------------------------------------------
+    step()  # the capturing call
+    a_step.set_value(a0)
+    zero_counts()
+    s1 = float(step())
+    sync()
+    launches["einsum step"] = counts()
+    if on_card and fused_kernel.LAUNCHES != 1:
+        raise AssertionError(f"einsum step: K1 launched {fused_kernel.LAUNCHES} times, not once")
+    ref1, tot1 = einsum_reference(a0, b, c, d, 1)
+    blk1 = a_step.get_value().cpu().numpy()[:m, :m]
+    e_step = max(float(np.max(np.abs(blk1 - ref1[:m, :m])) / np.max(np.abs(ref1[:m, :m]))),
+                 abs(s1 - tot1) / abs(tot1))
+    if not e_step <= TAIL_TOL["einsum"]:
+        raise AssertionError(f"einsum step: {e_step} from float64; tol {TAIL_TOL['einsum']}")
+    k1_abs = 0.0
+    a_step.set_value(a0)
+    nodes = [nd for nd in step.fgraph.toposort() if isinstance(nd.op, FusedElemwise)]
+    feed = fgraph_to_torch(FunctionGraph(step.fgraph.inputs, [i for nd in nodes for i in nd.inputs],
+                                         clone=True), dev)
+    values = iter(feed(*[v.get_value(borrow=True) for v in step.shared_vars]))
+    for nd in nodes:
+        xs = [next(values) for _ in nd.inputs]
+        kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+        got, want = (kern.launch if on_card else kern)(*xs), kern.plain(*xs)
+        sync()
+        errs = [errors(g.cpu(), w.cpu()) for g, w in zip(got, want)]
+        k1_abs = max([k1_abs] + [e[0] for e in errs])
+        if max(e[1] for e in errs) > K1_RTOL["float32"]:
+            raise AssertionError(f"K1 einsum step {nd.op}: {errs} from its plain version")
+    step_wall = wall_ms(step, 50) if on_card else float("nan")
+    say(f"einsum step through function(): one replayed call launched {launches['einsum step']}; "
+        f"against one float64 application {e_step:.2e}; its {len(nodes)} K1 node within "
+        f"{k1_abs:.2e} of its plain version; wall {step_wall:.4f} ms a call ({smi_line})")
+    # (c) the scan rows -----------------------------------------------------
+    k2_abs = 0.0
+    gen = torch.Generator(device=dev).manual_seed(16)
+    xs0 = torch.randn(SCAN_N, generator=gen, device=dev)
+    for kind, f in rows.items():
+        node = next(nd for nd in f.fgraph.apply_nodes if isinstance(nd.op, Scan))
+        f(xs0)  # the capturing call
+        zero_counts()
+        out = f(xs0)
+        sync()
+        launches[f"scan {kind} n{SCAN_N}"] = counts()
+        if on_card and scan_kernel.LAUNCHES != 1:
+            raise AssertionError(f"scan {kind}: K2 launched {scan_kernel.LAUNCHES} times, not once")
+        kern = scan_kernel.ScanKernel(node.op, node, dev)
+        feed = fgraph_to_torch(FunctionGraph(f.fgraph.inputs, node.inputs, clone=True), dev)
+        n_steps, *outer = feed(xs0)
+        got = (kern.launch if on_card else kern)(n_steps, *outer)[0]
+        want = kern.plain(n_steps, *outer)[0]
+        sync()
+        e_abs, e_rel = errors(got.cpu(), want.cpu())
+        k2_abs = max(k2_abs, e_abs)
+        if not e_rel <= TAIL_TOL["k2"]:
+            raise AssertionError(f"K2 scan {kind}: {e_rel} from its step loop")
+        line = f"scan {kind} (n {SCAN_N:,} float32, scan__pallas): one replayed call launched " \
+               f"{launches[f'scan {kind} n{SCAN_N}']}; K2 {e_rel:.2e} from its step loop"
+        if kind == "cumsum":
+            e_cum = float((out - cumop(xs0)).abs().max() / cumop(xs0).abs().max())
+            if not e_cum <= TAIL_TOL["cumop"]:
+                raise AssertionError(f"scan cumsum against CumOp: {e_cum}")
+            line += f"; the same function through CumOp {e_cum:.2e} from it (tol " \
+                    f"{TAIL_TOL['cumop']:g})"
+        if on_card:
+            def chained(f=f):
+                y = xs0
+                for _ in range(SCAN_CHAIN):
+                    y = f(y)
+                return y
+
+            per_call = wall_ms(chained, 3, warmup=1) / SCAN_CHAIN
+            k2_ms = device_ms(lambda: kern.launch(n_steps, *outer), 10)[0]
+            kb_ms, kb_by = bound(nbytes(*outer, got), inner_ops(node.op.fgraph) * SCAN_N)
+            timed[f"scan {kind}"] = {"wall_ms": per_call, "k2_ms": k2_ms, "bound_ms": kb_ms,
+                                     "bound_by": kb_by}
+            line += (f"; {SCAN_CHAIN} chained calls {per_call:.4f} ms a call, "
+                     f"{1e3 / per_call:,.0f} calls/s (benchsuite.py:117's count); K2 {k2_ms:.4f} "
+                     f"ms device, {k2_ms / SCAN_N * 1e3:.3f} us a step (bound {kb_ms * 1e3:.4f} us, "
+                     f"{kb_by})")
+            if kind == "cumsum":
+                c_ms = wall_ms(lambda: cumop(xs0), 50)
+                timed["cumop"] = {"wall_ms": c_ms}
+                line += f"; the CumOp function {c_ms:.4f} ms a call"
+        say(line + f" ({smi_line})" if on_card else line)
+    # (d) every new lowering against the CPU ------------------------------------
+    worst = {}
+    for tag, ins, outs, vals, f in tail:
+        cpu = ptt.function(ins, outs, device="cpu")
+        got, want = f(*vals), cpu(*vals)
+        sync()
+        errs = []
+        for g, w, o in zip(got, want, outs):
+            dt = o.type.dtype
+            err = cases.tail_held(g.cpu().numpy(), w.numpy(), dt)
+            tol = 0 if dt in ("bool", "int32", "int64") else cases.TAIL_RTOL[dt]
+            if err > tol:
+                raise AssertionError(f"{tag} {o}: {err} from the CPU (tol {tol})")
+            errs.append(err)
+        worst[tag] = (max(errs), isinstance(f.linked, CapturedFunction))
+    say("the tail's lowerings against the CPU (largest error over max|cpu|, exact for integers; "
+        f"captured or eager): " + "; ".join(f"{t} {e:.1e} {'captured' if cap else 'eager'}"
+                                           for t, (e, cap) in worst.items()))
+    for dtype, kern in signs.items():
+        tdt = getattr(torch, dtype)
+        x = torch.tensor([-0.0, 0.0, -0.0, 0.0], dtype=tdt, device=dev)
+        y = torch.tensor([0.3, 0.3, -0.3, -0.3], dtype=tdt, device=dev)
+        got = (kern.launch if on_card else kern)(x, y)[0]
+        if torch.signbit(got).cpu().tolist() != [True, False, False, True] or not torch.equal(
+                torch.signbit(got), torch.signbit(kern.plain(x, y)[0])):
+            raise AssertionError(f"K1 {dtype} floor division: signs {torch.signbit(got)}")
+    say("K1 floor division of a signed zero, float32 and float64: (-0.0) // 0.3 = -0.0, 0.0 // "
+        "-0.3 = -0.0, (-0.0) // -0.3 = 0.0, numpy's signs and its plain version's")
+    say(f"tail phase done in {time.perf_counter() - t16:.1f} s")
+    return launches, k1_abs, k2_abs, timed
+
+
 def main(opts):
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -2649,18 +3010,30 @@ def main(opts):
         f"{len(bf16_model_k1)} K1 kernels of the MFU step's paths, {len(bf16_k2)} K2 kernels; "
         f"graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
 
+    # the tail's (16): the K1 kernels of its functions, K1's floor division
+    # of a signed zero, and K2 of the scan rows whose source no other K2
+    # build holds (the EWMA row's is phase 15's float32 EWMA)
+    t0 = time.perf_counter()
+    tail_k1, tail_signs, tail_k2 = tail_kernels(dev)
+    other_k2 = {k.source for k in [k2, *elman_k2, *special_k2, *bf16_k2.values()]}
+    other_k2 |= {k.source for _, _, _, k, _ in k2_cases}
+    tail_k2 = {kind: k for kind, k in tail_k2.items() if k.source not in other_k2}
+    say(f"the tail slice's graphs: {len(tail_k1)} K1 kernels, {len(tail_signs)} floor-division "
+        f"nodes, {len(tail_k2)} K2 kernel(s) of the scan rows not built for another phase; "
+        f"graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
+
     def timed(fn):
         t = time.perf_counter()
         fn()
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(18) as pool:
+    with ThreadPoolExecutor(32) as pool:
         k1_jobs = [pool.submit(fused_kernel.build, kerns, verbose=True)
                    for kerns in [*k1_kernels.values(), list(op_kerns.values()), model_kerns,
                                  elman_k1, linalg_k1, *special_libs,
                                  list(special_group_kerns.values()),
                                  [k for k, _ in bf16_one_node.values()] + [bf16_cls],
-                                 bf16_model_k1]]
+                                 bf16_model_k1, tail_k1 + list(tail_signs.values())]]
         jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
                 "K3 stamped": pool.submit(timed, lambda: radon_kernel.build(
                     verbose=True, flags=radon_kernel.STAMPED)),
@@ -2678,7 +3051,9 @@ def main(opts):
                 **{"K2 bessel loop": pool.submit(timed, lambda k=k: k.build(verbose=True))
                    for k in special_k2},
                 **{f"K2 ewma {dt}": pool.submit(timed, lambda k=k: k.build(verbose=True))
-                   for dt, k in bf16_k2.items()}}
+                   for dt, k in bf16_k2.items()},
+                **{f"K2 scan {kind}": pool.submit(timed, lambda k=k: k.build(verbose=True))
+                   for kind, k in tail_k2.items()}}
         build_s = {tag: job.result() for tag, job in jobs.items()}
         for job in k1_jobs:
             job.result()
@@ -2691,7 +3066,8 @@ def main(opts):
             **{f"K2 case: {tag}": k.build_log for tag, _, _, k, _ in k2_cases},
             **{"K2 static BPTT": k.build_log for k in elman_k2},
             **{"K2 bessel loop": k.build_log for k in special_k2},
-            **{f"K2 ewma {dt}": k.build_log for dt, k in bf16_k2.items()}}
+            **{f"K2 ewma {dt}": k.build_log for dt, k in bf16_k2.items()},
+            **{f"K2 scan {kind}": k.build_log for kind, k in tail_k2.items()}}
     for tag, log in logs.items():
         say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
         for line in log.splitlines():
@@ -3428,6 +3804,12 @@ def main(opts):
                     "bound_ms": b, "bound_by": by, "bound_one_sm_ms": b * n_sms}
                for dt, (ms, p, b, by) in bf16_rows["k2"].items()}
 
+    # 16. the tensor library's tail: the einsum loop, the scan rows --------
+    tail_launches, k1_tail_abs, k2_tail_abs, tail_rows = phase_tail(dev, smi, tail_signs)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_tail_abs)
+    k2_abs = max(k2_abs, k2_tail_abs)
+    model_launches.update(tail_launches)
+
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "cuda",
          "source": "pytensor_tpu_torch/tensor/fused_kernel.py",
@@ -3461,12 +3843,14 @@ def main(opts):
          "wall_ms": k2_wall, "plain_wall_ms": k2_plain_wall,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "bound_one_sm_ms": k2_bound[0] * n_sms, "library_ms": None,
-         "ewma_n4096": k2_bf16},
+         "ewma_n4096": k2_bf16,
+         "scan_rows_n4096": {k: v for k, v in tail_rows.items() if k.startswith("scan")}},
         {"name": "spmv_csr (K4)", "route": "cuda",
          "source": "pytensor_tpu_torch/csrc/spmv_csr.cu",
          "replaces": "pytensor_tpu/link/pallas/route.py:194",
          "launches": power_launches["spmv_csr"], **k4},
     ]
+    say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                            "count": torch.cuda.device_count()}}))

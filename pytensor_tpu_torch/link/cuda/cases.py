@@ -10,8 +10,14 @@ shift counts past the width), and ``k2_new_op_scans()`` the scans of
 for the special functions (``link/cuda/special.py``) each op's grid
 (``SPECIAL_GRIDS``, ``special_node``, ``special_inputs``), scipy's value
 (``scipy_special``) and one fused node a dtype of every one of them
-(``special_op_group``).  ``chip_smoke.py`` and the card tests
-(``tests/test_torch_cuda.py``) use them alike.
+(``special_op_group``).  ``tail_cases()`` gives one graph for each
+group of the lowerings of the tensor library's tail (``CumOp`` in each
+dtype, ``Repeat``, ``SearchsortedOp``, ``TopKOp`` with ties,
+``UnravelIndex`` and ``RavelMultiIndex``, the real FFTs, the
+convolutions, ``pad`` in every mode, ``interp``) with its inputs, which a
+card holds against the same graph linked for the CPU (``TAIL_RTOL``).
+``chip_smoke.py`` and the card tests (``tests/test_torch_cuda.py``) use
+them alike.
 """
 
 from __future__ import annotations
@@ -315,3 +321,123 @@ def special_group_inputs(dtype, n, seed=3):
     dtype = np_dtype(dtype)
     return [rng.uniform(0.02, 0.98, n).astype(dtype), rng.uniform(0.1, 8.0, n).astype(dtype),
             rng.uniform(0.5, 5.0, n).astype(dtype)]
+
+
+# the tail's lowerings on a card against the CPU, over max|cpu| (exact for
+# integer and bool results): float32 cumulative sums and products and FFTs
+# add and multiply in other orders there (cuFFT, torch's scans); float64
+# within that of the same arithmetic
+TAIL_RTOL = {"float32": 1e-5, "float64": 1e-10}
+PAD_MODES = ("constant", "edge", "reflect", "symmetric", "wrap", "maximum", "minimum", "mean",
+             "linear_ramp")
+
+
+def tail_cases(n=2 ** 18):
+    """``[(tag, inputs, outputs, values)]``: one graph a group of the tail's
+    lowerings, each at most ``n`` elements an input (chip_smoke's phase 16
+    at ``2**18``; the card tests smaller), with inputs from a seed.
+    ``CumOp`` in bool, int32, float32 and float64 (axis 1, flat, the
+    product along axis 1, close to 1 so it stays finite); ``Repeat`` with
+    constant counts (a vector and a scalar); ``SearchsortedOp`` both sides
+    and with a sorter; ``TopKOp`` on values with ties, sorted and not;
+    ``UnravelIndex`` and ``RavelMultiIndex`` in C and F order and each
+    mode; ``RFFTOp`` and ``IRFFTOp`` in float32 and float64 with each norm
+    and an odd length; ``Convolve1d`` in each mode with an odd and an even
+    kernel, batched, and ``Convolve2d`` in each mode; ``pad`` in every
+    mode; ``interp``."""
+    from pytensor_tpu_torch.tensor.fft import IRFFTOp
+
+    rng = np.random.default_rng(16)
+    cols = 256
+    rows = max(n // cols, 2)
+    out = []
+    for dtype in ("bool", "int32", "float32", "float64"):
+        x = pt.tensor("x", dtype=dtype, shape=(rows, cols))
+        if dtype == "bool":
+            v = rng.random((rows, cols)) < 0.02
+        elif dtype == "int32":
+            v = rng.integers(-3, 4, (rows, cols))
+        else:
+            v = rng.uniform(0.995, 1.005, (rows, cols))
+        outs = [pt.cumsum(x, axis=1), pt.cumsum(x), pt.cumprod(x, axis=1)]
+        out.append((f"cumop {dtype}", [x], outs, [v.astype(dtype)]))
+    x = pt.tensor("x", dtype="float32", shape=(rows, cols))
+    counts = rng.integers(0, 4, cols)
+    out.append(("repeat", [x], [pt.repeat(x, counts, axis=1), pt.repeat(x[:8], 3, axis=0)],
+                [rng.standard_normal((rows, cols)).astype("float32")]))
+    a = pt.tensor("a", dtype="float32", shape=(4096,))
+    q = pt.tensor("q", dtype="float32", shape=(n,))
+    srt = pt.tensor("s", dtype="int64", shape=(4096,))
+    av = np.sort(rng.integers(0, 2048, 4096)).astype("float32")
+    qv = rng.integers(-8, 2056, n).astype("float32")
+    perm = rng.permutation(4096)
+    out.append(("searchsorted", [a, q, srt],
+                [pt.searchsorted(a, q), pt.searchsorted(a, q, side="right"),
+                 pt.searchsorted(a[perm], q, sorter=srt)],
+                [av, qv, np.argsort(av[perm], kind="stable")]))
+    x = pt.tensor("x", dtype="float32", shape=(rows, cols))
+    ties = rng.integers(0, 16, (rows, cols)).astype("float32")
+    out.append(("topk ties", [x], [*pt.topk(x, 16), *pt.topk(x, 5, sorted=False)], [ties]))
+    dims = (64, 32, 128)
+    i = pt.tensor("i", dtype="int64", shape=(n,))
+    iv = rng.integers(0, int(np.prod(dims)), n)
+    cs = pt.unravel_index(i, dims)
+    fs = pt.unravel_index(i, dims, order="F")
+    wild = [c * 3 - 7 for c in cs]
+    out.append(("unravel ravel", [i],
+                [*cs, *fs, pt.ravel_multi_index(cs, dims), pt.ravel_multi_index(fs, dims, order="F"),
+                 pt.ravel_multi_index(wild, dims, mode="wrap"),
+                 pt.ravel_multi_index(wild, dims, mode="clip")], [iv]))
+    for dtype in ("float32", "float64"):
+        x = pt.tensor("x", dtype=dtype, shape=(n // 4096, 4096))
+        y = pt.tensor("y", dtype=dtype, shape=(n // 4095, 4095))
+        outs = []
+        for norm in (None, "ortho", "forward"):
+            spec = pt.fft.rfft(x, norm=norm)
+            outs += [spec, pt.fft.irfft(spec, norm=norm)]
+        outs.append(IRFFTOp(n=4095)(pt.fft.rfft(y)))
+        out.append((f"fft {dtype}", [x, y], outs,
+                    [rng.standard_normal((n // 4096, 4096)).astype(dtype),
+                     rng.standard_normal((n // 4095, 4095)).astype(dtype)]))
+    sig = pt.tensor("sig", dtype="float32", shape=(n,))
+    k_odd = pt.tensor("k_odd", dtype="float32", shape=(33,))
+    k_even = pt.tensor("k_even", dtype="float32", shape=(32,))
+    batch = pt.tensor("batch", dtype="float32", shape=(16, n // 16))
+    outs = [pt.signal.convolve1d(sig, k, mode=m) for m in ("full", "valid", "same")
+            for k in (k_odd, k_even)]
+    outs.append(pt.signal.convolve1d(batch, k_odd))
+    out.append(("convolve1d", [sig, k_odd, k_even, batch], outs,
+                [rng.standard_normal(s).astype("float32") for s in ((n,), (33,), (32,),
+                                                                    (16, n // 16))]))
+    side = int(np.sqrt(n))
+    img = pt.tensor("img", dtype="float32", shape=(side, side))
+    ker = pt.tensor("ker", dtype="float32", shape=(7, 6))
+    out.append(("convolve2d", [img, ker],
+                [pt.signal.convolve2d(img, ker, mode=m) for m in ("full", "valid", "same")],
+                [rng.standard_normal((side, side)).astype("float32"),
+                 rng.standard_normal((7, 6)).astype("float32")]))
+    x = pt.tensor("x", dtype="float32", shape=(rows, cols))
+    out.append(("pad", [x], [pt.pad(x, ((3, 2), (1, 4)), mode=m) for m in PAD_MODES],
+                [rng.standard_normal((rows, cols)).astype("float32")]))
+    q = pt.tensor("q", dtype="float64", shape=(n,))
+    xp = np.sort(rng.uniform(-5, 5, 1024))
+    out.append(("interp", [q], [pt.interp(q, pt.constant(xp), pt.constant(np.sin(xp)))],
+                [rng.uniform(-6, 6, n)]))
+    return out
+
+
+def tail_held(got, want, dtype):
+    """The largest error of a card result against the CPU's, over
+    max|cpu| (an element count of the differences for integer and bool
+    results); raises when the shapes, dtypes or NaNs differ."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{got.shape} {got.dtype} against {want.shape} {want.dtype}")
+    if got.dtype.kind in "biu":
+        return float(np.sum(got != want))
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError("NaN at other places")
+    ok = ~np.isnan(want)
+    return float(np.max(np.abs(got[ok] - want[ok]), initial=0.0)) / max(
+        float(np.max(np.abs(want[ok]), initial=0.0)), np.finfo(dtype).tiny)
+

@@ -3,8 +3,10 @@
 Counterpart of ``pytensor_tpu/link/xla/dispatch.py`` (``xla_funcify:27``
 and the lowerings at ``:155-760``, with the blas lowerings of
 ``pytensor_tpu/tensor/blas.py:246-289``, and the ``Blockwise`` lowering
-of ``:870``; the lowerings of ``extra_ops``, ``sort``, ``FromFunctionOp``
-and ``Print`` wait for their modules), of the Scan lowering at
+of ``:870``, with those of ``extra_ops`` and ``sort`` at ``:772-868``;
+the lowerings of ``FromFunctionOp`` and ``Print`` wait for their
+modules), of the lowerings of ``pytensor_tpu/tensor/einsum.py:229``,
+``fft.py:142`` and ``signal/conv.py:180``, of the Scan lowering at
 ``pytensor_tpu/scan/op.py:790`` and of the sparse lowerings at
 ``pytensor_tpu/sparse/basic.py:642-757`` and ``sparse/spmv.py:412``.
 ``torch_funcify(op, node=node, device=device)`` returns a function of
@@ -31,6 +33,7 @@ from pytensor_tpu_torch.compile.ops import DeepCopyOp, TypeCastingOp
 from pytensor_tpu_torch.gradient import GradManipulatorOp
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.graph.fg import FunctionGraph
+from pytensor_tpu_torch.scalar.basic import upcast
 from pytensor_tpu_torch.link.torch.convert import CSR, UNSIGNED, torch_dtype
 from pytensor_tpu_torch.scan.op import Scan
 from pytensor_tpu_torch.sparse.basic import StructuredDot, StructuredDotGrad, Transpose
@@ -48,7 +51,17 @@ from pytensor_tpu_torch.tensor.basic import (
 )
 from pytensor_tpu_torch.tensor.blockwise import Blockwise
 from pytensor_tpu_torch.tensor.blas import BatchedDot, Dot22, Dot22Scalar, Gemm, Gemv, Ger
+from pytensor_tpu_torch.tensor.einsum import Einsum, contraction_path
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
+from pytensor_tpu_torch.tensor.extra_ops import (
+    CumOp,
+    RavelMultiIndex,
+    Repeat,
+    SearchsortedOp,
+    Unique,
+    UnravelIndex,
+)
+from pytensor_tpu_torch.tensor.fft import IRFFTOp, RFFTOp
 from pytensor_tpu_torch.tensor.fused import FusedElemwise
 from pytensor_tpu_torch.tensor.linalg import (
     QR,
@@ -66,7 +79,8 @@ from pytensor_tpu_torch.tensor.linalg import (
     TridiagonalSolve,
 )
 from pytensor_tpu_torch.tensor.math import Argmax, Dot
-from pytensor_tpu_torch.tensor.sort import ArgSortOp, SortOp
+from pytensor_tpu_torch.tensor.signal.conv import Convolve1d, Convolve2d
+from pytensor_tpu_torch.tensor.sort import ArgSortOp, SortOp, TopKOp
 from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape, Unbroadcast
 from pytensor_tpu_torch.tensor.type import TensorType
 from pytensor_tpu_torch.tensor.type_other import MakeSlice
@@ -851,18 +865,25 @@ class _IndexCheck:
             bad = lo if lo < -n else hi
             raise IndexError(f"index {bad} is out of bounds for axis with size {n}")
 
+    def bounds(self, idx):
+        """The least and greatest entry of ``idx`` (None when it is empty):
+        a constant's from link time, an ``arange_index``'s from its size,
+        any other's read on the host."""
+        if self.const:
+            return self.lo, self.hi
+        if not idx.numel():
+            return None
+        if self.arange is not None:
+            first, step = self.arange
+            return tuple(sorted((first, first + step * (idx.numel() - 1))))
+        return int(idx.min()), int(idx.max())
+
     def __call__(self, idx, n):
         if idx.dtype == torch.bool:
             raise NotImplementedError("boolean mask indices have a dynamic shape")
-        if self.const:
-            lo, hi = self.lo, self.hi
-        elif not idx.numel():
+        if not self.const and not idx.numel():
             return idx.long()
-        elif self.arange is not None:
-            first, step = self.arange
-            lo, hi = sorted((first, first + step * (idx.numel() - 1)))
-        else:
-            lo, hi = int(idx.min()), int(idx.max())
+        lo, hi = self.bounds(idx)
         self._check(lo, hi, n)
         idx = idx.long()
         return torch.where(idx < 0, idx + n, idx) if lo < 0 else idx
@@ -1095,6 +1116,297 @@ def _sort(op, node=None, **kw):
 @ports(host=(1,))
 def _argsort(op, node=None, **kw):
     return lambda x, axis: torch.argsort(x, dim=int(axis), stable=True)
+
+
+@torch_funcify.register(TopKOp)
+def _topk(op, node=None, **kw):
+    """``lax.top_k``'s order whether or not ``sorted`` is asked for: values
+    descending, the lowest index first among ties (a stable sort, cut to
+    k); ``torch.topk`` on a card orders ties as it likes."""
+    k, want = op.k, (op.return_values, op.return_indices)
+
+    def topk(x):
+        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        outs = [o[..., :k] for o, w in zip((vals, idx), want) if w]
+        return outs if len(outs) > 1 else outs[0]
+
+    return topk
+
+
+# --- extra_ops --------------------------------------------------------------------
+
+@torch_funcify.register(CumOp)
+def _cum(op, node=None, **kw):
+    """``torch.cumsum``/``torch.cumprod`` in the output's dtype (torch's own
+    result of an integer or bool input is int64).  A bool running sum or
+    product is taken in int64 and cast back, as the numpy oracle does
+    (``np.cumsum`` counts, then ``astype(bool)``); an unsigned dtype held in
+    int64 (``convert.py UNSIGNED``) wraps at its width."""
+    fn = torch.cumsum if op.mode == "add" else torch.cumprod
+    dtype = node.outputs[0].type.dtype
+    acc = torch.int64 if dtype == "bool" else torch_dtype(dtype)
+    mask = _width_mask(dtype)
+    dim = 0 if op.axis is None else op.axis
+
+    def cum(x):
+        r = fn(x.reshape(-1) if op.axis is None else x, dim, dtype=acc)
+        if dtype == "bool":
+            return r != 0
+        return r & mask if mask else r
+
+    return cum
+
+
+@torch_funcify.register(Repeat)
+@ports(host=(1,))
+def _repeat(op, node=None, device=None, **kw):
+    """``torch.repeat_interleave`` with concrete counts, read on the host.
+    Constant counts are read when the graph is linked, and a vector of them
+    goes to the device then, with its total as the output size, so a call
+    reads nothing back; counts that are a function input are a host read
+    (``linker.py _host_reads``: that plan runs eagerly)."""
+    axis, reps = op.axis, node.inputs[1]
+    static = None
+    if isinstance(reps, Constant) and np.ndim(reps.data) == 1:
+        counts = np.asarray(reps.data, dtype=np.int64)
+        static = (torch.as_tensor(counts, device=device), int(counts.sum()))
+
+    def repeat(x, repeats):
+        if static is not None:
+            return torch.repeat_interleave(x, static[0], dim=axis, output_size=static[1])
+        counts = repeats.tolist()
+        if not isinstance(counts, list):
+            return torch.repeat_interleave(x, int(counts), dim=axis)
+        r = torch.tensor(counts, dtype=torch.int64, device=x.device)
+        return torch.repeat_interleave(x, r, dim=axis, output_size=int(sum(counts)))
+
+    return repeat
+
+
+@torch_funcify.register(SearchsortedOp)
+@ports(checked=(2,))
+def _searchsorted(op, node=None, **kw):
+    """``torch.searchsorted`` on both operands in their common dtype; a
+    ``sorter`` is taken first, its entries bounds-checked."""
+    right = op.side == "right"
+    a_var, v_var = node.inputs[:2]
+    dtype = torch_dtype(upcast(a_var.type.dtype, v_var.type.dtype))
+    check = (_IndexCheck(node.inputs[2], a_var.type.shape[0]) if len(node.inputs) == 3
+             else None)
+
+    def searchsorted(a, v, *sorter):
+        if check is not None:
+            a = a.index_select(0, check(sorter[0], a.shape[0]))
+        return torch.searchsorted(a.to(dtype).contiguous(), v.to(dtype).contiguous(),
+                                  right=right)
+
+    return searchsorted
+
+
+def _check_range(check, idx, n, what):
+    """Raise unless every entry of ``idx`` is in ``[0, n)``, as numpy's
+    ``unravel_index`` and ``ravel_multi_index(mode="raise")`` do (the
+    entries of a constant or an ``arange`` are known without a read)."""
+    b = check.bounds(idx)
+    if b is not None and (b[0] < 0 or b[1] >= n):
+        raise ValueError(f"{what}: entry {b[0] if b[0] < 0 else b[1]} is out of bounds for "
+                         f"size {n}")
+
+
+@torch_funcify.register(UnravelIndex)
+@ports(host=(1,), checked=(0,))
+def _unravel_index(op, node=None, **kw):
+    """The coordinates of each flat index in ``dims`` (a host value, read
+    when the graph is linked where it is a constant); an index out of
+    range raises, as in the numpy oracle."""
+    check = _IndexCheck(node.inputs[0])
+    c_order = op.order == "C"
+
+    def unravel_index(indices, dims):
+        d = [int(x) for x in dims.tolist()]
+        _check_range(check, indices, int(np.prod(d)), "unravel_index")
+        rem, out = indices.long(), [None] * len(d)
+        for k in (reversed(range(len(d))) if c_order else range(len(d))):
+            out[k] = torch.remainder(rem, d[k])
+            rem = torch.div(rem, d[k], rounding_mode="floor")
+        return out
+
+    return unravel_index
+
+
+def _ravel_checked(node):
+    modes = node.op.mode if isinstance(node.op.mode, (list, tuple)) else [node.op.mode] * (
+        len(node.inputs) - 1)
+    return [k for k, m in enumerate(modes) if m == "raise"]
+
+
+@torch_funcify.register(RavelMultiIndex)
+@ports(host=lambda node: (len(node.inputs) - 1,), checked=_ravel_checked)
+def _ravel_multi_index(op, node=None, **kw):
+    """The flat index of each coordinate tuple in ``dims`` (a host value).
+    ``mode="raise"`` raises on an entry out of bounds, as the numpy oracle
+    does, where the JAX package's XLA path clips; its bounds check reads
+    the entries back (a plan holding it runs eagerly) unless they are
+    constants.  ``"wrap"`` and ``"clip"`` are numpy's."""
+    n = len(node.inputs) - 1
+    modes = list(op.mode) if isinstance(op.mode, (list, tuple)) else [op.mode] * n
+    checks = [_IndexCheck(v) for v in node.inputs[:n]]
+    c_order = op.order == "C"
+
+    def ravel_multi_index(*inp):
+        *multi, dims = inp
+        d = [int(x) for x in dims.tolist()]
+        strides = [int(np.prod(d[k + 1:] if c_order else d[:k])) for k in range(n)]
+        out = None
+        for k, (idx, mode) in enumerate(zip(multi, modes)):
+            idx = idx.long()
+            if mode == "raise":
+                _check_range(checks[k], idx, d[k], "ravel_multi_index")
+            elif mode == "wrap":
+                idx = torch.remainder(idx, d[k])
+            else:
+                idx = idx.clamp(0, d[k] - 1)
+            out = idx * strides[k] if out is None else out + idx * strides[k]
+        return out
+
+    return ravel_multi_index
+
+
+@torch_funcify.register(Unique)
+def _unique(op, node=None, **kw):
+    raise NotImplementedError(
+        "Unique has a data-dependent output shape and cannot be linked; its perform (the "
+        "numpy oracle) runs it")
+
+
+# --- einsum -----------------------------------------------------------------------
+
+@torch_funcify.register(Einsum)
+def _einsum(op, node=None, **kw):
+    """The contraction order of ``einsum.contraction_path`` (numpy's optimal
+    path), planned on the host once per input signature and run as
+    one- and two-operand ``torch.einsum`` calls (cuBLAS products on a
+    card, with TF32 off, as every product of the port); the operands in
+    the output's dtype first, as ``jnp.einsum`` promotes.  The plans by
+    input shapes are ``fn.paths``: ``(steps, flops)``."""
+    in_specs, out_spec = op._parse(None)
+    subscripts = ",".join(in_specs) + "->" + out_spec
+    dtype = torch_dtype(node.outputs[0].type.dtype)
+    paths: dict = {}
+
+    def einsum(*operands):
+        ops = [o if o.dtype == dtype else o.to(dtype) for o in operands]
+        key = tuple(tuple(o.shape) for o in ops)
+        if key not in paths:
+            paths[key] = contraction_path(subscripts, key)
+        for pos, spec in paths[key][0]:
+            taken = [ops.pop(p) for p in pos]
+            ops.append(torch.einsum(spec, *taken))
+        return ops[0]
+
+    einsum.paths = paths
+    return einsum
+
+
+# --- fft --------------------------------------------------------------------------
+# torch.fft (cuFFT on a card), a complex spectrum packed as a trailing
+# (real, imaginary) pair, as the JAX package packs it
+
+@torch_funcify.register(RFFTOp)
+def _rfft(op, node=None, **kw):
+    dtype, norm = torch_dtype(node.outputs[0].type.dtype), op.norm
+
+    def rfft(a):
+        return torch.view_as_real(torch.fft.rfft(a.to(dtype), dim=-1, norm=norm))
+
+    return rfft
+
+
+@torch_funcify.register(IRFFTOp)
+def _irfft(op, node=None, **kw):
+    """The inverse of a packed half spectrum; like numpy's, the transform
+    ignores the imaginary parts of the first bin (and of the last, for an
+    even length)."""
+    dtype, norm, n = torch_dtype(node.outputs[0].type.dtype), op.norm, op.n
+
+    def irfft(a):
+        a = a.to(dtype)
+        return torch.fft.irfft(torch.complex(a[..., 0], a[..., 1]), n=n, dim=-1, norm=norm)
+
+    return irfft
+
+
+# --- signal -----------------------------------------------------------------------
+# True convolutions: torch's conv1d and conv2d correlate, so the kernel is
+# flipped, and padded by its length less one for "full" and "same" ("same"
+# then takes numpy's centre, starting at (k - 1) // 2).  Floats go through
+# cuDNN on a card (with TF32 off while a linked call runs, linker.py); other
+# dtypes multiply and sum the windows of ``unfold``, which torch's
+# convolutions do not take.
+
+def _correlate1d(x, w, pad):
+    """Cross-correlation of rows ``x`` (B, n) with kernels ``w`` (B, k),
+    each row with its own kernel, padded by ``pad`` zeros at each end."""
+    B, k = w.shape
+    if x.dtype.is_floating_point:
+        return torch.nn.functional.conv1d(x[None], w[:, None], padding=pad, groups=B)[0]
+    xp = torch.nn.functional.pad(x, (pad, pad))
+    return (xp.unfold(-1, k, 1) * w[:, None, :]).sum(-1)
+
+
+@torch_funcify.register(Convolve1d)
+@ports(batched=True)
+def _convolve1d(op, node=None, **kw):
+    """``np.convolve`` of the last axes, over broadcast batch dimensions in
+    one call (a grouped convolution, a kernel a row): the longer operand is
+    the signal, as numpy swaps them."""
+    mode, dtype = op.mode, torch_dtype(node.outputs[0].type.dtype)
+
+    def convolve1d(a, v):
+        a, v = a.to(dtype), v.to(dtype)
+        if v.shape[-1] > a.shape[-1]:
+            a, v = v, a
+        n, k = a.shape[-1], v.shape[-1]
+        batch = tuple(torch.broadcast_shapes(a.shape[:-1], v.shape[:-1]))
+        rows = a.expand(*batch, n).reshape(-1, n)
+        kern = v.expand(*batch, k).reshape(-1, k).flip(-1)
+        out = _correlate1d(rows, kern, 0 if mode == "valid" else k - 1)
+        if mode == "same":
+            out = out[:, (k - 1) // 2:(k - 1) // 2 + n]
+        return out.reshape(*batch, out.shape[-1])
+
+    return convolve1d
+
+
+@torch_funcify.register(Convolve2d)
+def _convolve2d(op, node=None, **kw):
+    """``scipy.signal.convolve2d`` with zero fill: "valid" takes the larger
+    operand as the signal where scipy swaps them, "same" has the first
+    operand's shape."""
+    mode, dtype = op.mode, torch_dtype(node.outputs[0].type.dtype)
+
+    def convolve2d(a, v):
+        a, v = a.to(dtype), v.to(dtype)
+        if mode == "valid":
+            if all(p <= q for p, q in zip(a.shape, v.shape)) and a.shape != v.shape:
+                a, v = v, a
+            elif not all(p >= q for p, q in zip(a.shape, v.shape)):
+                raise ValueError("For 'valid' mode, one must be at least as large as the other "
+                                 "in every dimension")
+        (m, n), (kr, kc) = a.shape, v.shape
+        pad = (0, 0) if mode == "valid" else (kr - 1, kc - 1)
+        w = v.flip(0, 1)
+        if a.dtype.is_floating_point:
+            out = torch.nn.functional.conv2d(a[None, None], w[None, None], padding=pad)[0, 0]
+        else:
+            ap = torch.nn.functional.pad(a, (pad[1], pad[1], pad[0], pad[0]))
+            out = (ap.unfold(0, kr, 1).unfold(1, kc, 1) * w).sum((-2, -1))
+        if mode == "same":
+            r0, c0 = (kr - 1) // 2, (kc - 1) // 2
+            out = out[r0:r0 + m, c0:c0 + n]
+        return out
+
+    return convolve2d
 
 
 # --- linalg -----------------------------------------------------------------------

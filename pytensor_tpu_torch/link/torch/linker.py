@@ -23,11 +23,12 @@ kept; a sparse constant (a scipy matrix) becomes its canonical CSR triple
 outputs of ``Shape`` and ``Shape_i``, the arithmetic on them, and the
 constants that feed a reshape, a shape check or a basic index, so that
 the run never waits on the device to learn a shape.  Matrix products
-run in full float32, bfloat16 products accumulate in float32, and
-factorisations run in cuSOLVER: a plan linked for a CUDA device turns TF32
-and cuBLAS's reduced-precision bfloat16 reductions off for matmuls and
-makes cuSOLVER torch's linalg library while it runs, and puts the three
-settings back when it returns.
+and convolutions run in full float32, bfloat16 products accumulate in
+float32, and factorisations run in cuSOLVER: a plan linked for a CUDA
+device turns TF32 off for matmuls and cuDNN, turns cuBLAS's
+reduced-precision bfloat16 reductions off and makes cuSOLVER torch's
+linalg library while it runs, and puts the four settings back when it
+returns.
 
 Each intermediate is freed after its last reader, by free lists made at
 link time (the rule of the oracle linker's ``allow_gc``,
@@ -251,20 +252,23 @@ class Plan:
         # once, as XLA's do (torch lets cuBLAS reduce split sums in
         # bfloat16 by default); and cuSOLVER for the factorisations: torch
         # takes MAGMA for a batch of LU factorisations by default, which
-        # synchronises and a CUDA graph refuses.  The caller's settings are
-        # restored on return.
-        matmul, cuda = torch.backends.cuda.matmul, torch.backends.cuda
+        # synchronises and a CUDA graph refuses; and full float32
+        # convolutions (cuDNN takes TF32 by default).  The caller's settings
+        # are restored on return.
+        matmul, cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cuda, torch.backends.cudnn
         prev = (matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction,
-                cuda.preferred_linalg_library())
+                cuda.preferred_linalg_library(), cudnn.allow_tf32)
         matmul.allow_tf32 = False
         matmul.allow_bf16_reduced_precision_reduction = False
         cuda.preferred_linalg_library("cusolver")
+        cudnn.allow_tf32 = False
         try:
             return self.run(args)
         finally:
             matmul.allow_tf32 = prev[0]
             matmul.allow_bf16_reduced_precision_reduction = prev[1]
             cuda.preferred_linalg_library(prev[2])
+            cudnn.allow_tf32 = prev[3]
 
     def run(self, args):
         global NODES_RUN

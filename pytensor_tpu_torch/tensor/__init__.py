@@ -3,13 +3,14 @@
 Counterpart of ``pytensor_tpu/tensor/__init__.py`` for the modules the
 port has: ``type``, ``variable``, ``elemwise``, ``basic``, ``math``,
 ``shape``, ``subtensor``, ``blas``, ``blockwise``, ``type_other``,
-``sharedvar``, ``utils``, ``exceptions``, ``linalg`` and ``sort``'s
-``sort`` and ``argsort``, with the special functions and ``special``'s
-softmax family.  Not yet here (ROADMAP Queue 1): ``functional``,
-the shape-parameter gradients (item 10b), ``extra_ops``, ``topk``,
-``einsum``, ``pad``, ``fft``, ``signal`` and the rest of item 12,
-``random`` (item 7) and complex tensors.  bfloat16 tensors are here
-(``ml_dtypes.bfloat16`` arrays on the host).
+``sharedvar``, ``utils``, ``exceptions``, ``linalg``, ``sort``,
+``extra_ops``, ``einsum``, ``functional``, ``reshape``, ``pad``, ``fft``,
+``fourier``, ``signal``, ``interpolate`` and ``transfer``, with the
+special functions and ``special``'s softmax family.  Not yet here
+(ROADMAP Queue 1): ``optimize`` and the complex ops (item 12's tail), the
+shape-parameter gradients (item 10b), ``random`` (item 7) and complex
+tensors.  bfloat16 tensors are here (``ml_dtypes.bfloat16`` arrays on the
+host).
 """
 
 from pytensor_tpu_torch.tensor.type import *  # noqa: F401,F403
@@ -56,6 +57,32 @@ from pytensor_tpu_torch.tensor.basic import (  # noqa: F401
     zeros,
     zeros_like,
 )
+from pytensor_tpu_torch.tensor.reshape import join_dims, split_dims  # noqa: F401
+from pytensor_tpu_torch.tensor.functional import (  # noqa: F401
+    atleast_3d,
+    broadcast_shape,
+    ceil_intdiv,
+    fill_diagonal_offset,
+    get_vector_length,
+    inverse_permutation,
+    iround,
+    is_flat,
+    isfinite,
+    isneginf,
+    isposinf,
+    median,
+    nan_to_num,
+    roll,
+    round_half_away_from_zero,
+    slice_at_axis,
+    stacklists,
+    tril_indices,
+    tril_indices_from,
+    triu_indices,
+    triu_indices_from,
+    vectorize,
+)
+from pytensor_tpu_torch.tensor.interpolate import interp, interpolate1d  # noqa: F401
 from pytensor_tpu_torch.tensor.type_other import (  # noqa: F401
     MakeSlice,
     NoneConst,
@@ -107,6 +134,26 @@ from pytensor_tpu_torch.tensor.subtensor import (  # noqa: F401
     take_along_axis,
 )
 from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise  # noqa: F401
+from pytensor_tpu_torch.tensor import extra_ops  # noqa: F401
+from pytensor_tpu_torch.tensor.extra_ops import (  # noqa: F401
+    bartlett,
+    bincount,
+    broadcast_arrays,
+    broadcast_to,
+    compress,
+    cumprod,
+    cumsum,
+    diff,
+    fill_diagonal,
+    linspace,
+    logspace,
+    ravel_multi_index,
+    repeat,
+    searchsorted,
+    squeeze,
+    unique,
+    unravel_index,
+)
 from pytensor_tpu_torch.tensor.sharedvar import TensorSharedVariable  # noqa: F401
 from pytensor_tpu_torch.gradient import grad  # noqa: F401
 from pytensor_tpu_torch.compile.ops import view_op as tensor_copy  # noqa: F401
@@ -124,6 +171,37 @@ def scalar_from_tensor(x):
     if x.type.ndim != 0:
         raise TypeError("scalar_from_tensor expects a 0-d tensor")
     return x
+
+
+def concat_with_broadcast(tensor_list, axis=0):
+    """Concatenate after broadcasting all non-axis dims to a common shape
+    (PyTensor's tensor/basic.py concat_with_broadcast)."""
+    tensor_list = [as_tensor_variable(t) for t in tensor_list]
+    ndim = tensor_list[0].type.ndim
+    if axis < 0:
+        axis += ndim
+    # broadcast every non-axis dim: probe via zero-sums of slices
+    probes = []
+    for t in tensor_list:
+        idx = [slice(None)] * ndim
+        idx[axis] = slice(0, 1)
+        probes.append(t[tuple(idx)] * 0)
+    common = probes[0]
+    for p in probes[1:]:
+        common = common + p
+    return concatenate([t + cast(common, t.type.dtype) for t in tensor_list], axis=axis)
+
+
+def geomspace(start, stop, num=50, base=10.0, dtype=None):
+    from pytensor_tpu_torch.tensor import math as _m
+    from pytensor_tpu_torch.tensor.extra_ops import linspace as _linspace
+
+    start = as_tensor_variable(start)
+    stop = as_tensor_variable(stop)
+    lin = _linspace(_m.log(start) / float(_np.log(base)),
+                    _m.log(stop) / float(_np.log(base)), num)
+    out = as_tensor_variable(float(base)) ** lin
+    return cast(out, dtype) if dtype is not None else out
 
 
 import numpy as _np  # noqa: E402
@@ -150,10 +228,16 @@ from pytensor_tpu_torch.tensor.blockwise import Blockwise  # noqa: F401,E402
 import pytensor_tpu_torch.tensor.type_other as slicetype  # noqa: F401,E402
 from pytensor_tpu_torch.tensor import exceptions, utils  # noqa: F401,E402
 
-from pytensor_tpu_torch.tensor.sort import argsort, sort  # noqa: F401,E402
+from pytensor_tpu_torch.tensor.sort import argsort, sort, topk  # noqa: F401,E402
 import pytensor_tpu_torch.tensor.linalg as linalg  # noqa: F401,E402
 import pytensor_tpu_torch.tensor.special as special  # noqa: F401,E402
 from pytensor_tpu_torch.tensor.special import log_softmax, softmax  # noqa: F401,E402
+from pytensor_tpu_torch.tensor.einsum import einsum  # noqa: F401,E402
+from pytensor_tpu_torch.tensor.pad import pad  # noqa: F401,E402
+import pytensor_tpu_torch.tensor.fft as fft  # noqa: F401,E402
+import pytensor_tpu_torch.tensor.signal as signal  # noqa: F401,E402
+from pytensor_tpu_torch.tensor.signal import convolve1d, convolve2d  # noqa: F401,E402
+from pytensor_tpu_torch.tensor import transfer  # noqa: F401,E402
 
 # the legacy names of the linalg namespace, as in the JAX package
 slinalg = linalg

@@ -1189,7 +1189,9 @@ def meshgrid(*xi, indexing="xy"):
     if indexing == "xy" and n >= 2:
         outs = ([outs[0].swapaxes(0, 1)] + [outs[1].swapaxes(0, 1)]
                 + outs[2:])
-    return _broadcast_arrays(outs)
+    from pytensor_tpu_torch.tensor.extra_ops import broadcast_arrays
+
+    return list(broadcast_arrays(*outs))
 
 
 class _Grid:
@@ -1222,7 +1224,9 @@ class _Grid:
             outs.append(r[tuple(idx)])
         if self.sparse:
             return outs if n > 1 else outs[0]
-        dense = _broadcast_arrays(outs)
+        from pytensor_tpu_torch.tensor.extra_ops import broadcast_arrays
+
+        dense = list(broadcast_arrays(*outs))
         if n == 1:
             return dense[0]
         return stack(dense, axis=0)
@@ -1230,18 +1234,3 @@ class _Grid:
 
 mgrid = _Grid(sparse=False)
 ogrid = _Grid(sparse=True)
-
-
-def _broadcast_arrays(tensors):
-    """Each tensor broadcast against all the others (``second``); the
-    JAX package takes ``extra_ops.broadcast_arrays``, which the port has
-    not yet."""
-    from pytensor_tpu_torch.tensor import math as tm
-
-    out = []
-    for k, t in enumerate(tensors):
-        for m, other in enumerate(tensors):
-            if m != k:
-                t = tm.second(other, t)
-        out.append(t)
-    return out

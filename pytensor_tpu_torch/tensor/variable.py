@@ -3,9 +3,8 @@
 Counterpart of ``pytensor_tpu/tensor/variable.py`` (PyTensor's
 tensor/variable.py _tensor_py_operators:26, TensorVariable:838,
 TensorConstant:1020).
-The methods that need modules the port has not yet (``extra_ops``,
-``printing``: ROADMAP Queue 1 items 6 and 12) raise
-``NotImplementedError``.
+``dprint`` needs ``printing.py``, which the port has not yet (ROADMAP
+Queue 1 item 6), and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -244,17 +243,9 @@ class _tensor_py_operators:
         return _tb().swapaxes(self, axis1, axis2)
 
     def squeeze(self, axis=None):
-        """Drop the given axes, or every axis of static length 1."""
-        from pytensor_tpu_torch.tensor.elemwise import DimShuffle
+        from pytensor_tpu_torch.tensor.extra_ops import squeeze
 
-        nd = self.type.ndim
-        if axis is None:
-            drop = [d for d, s in enumerate(self.type.shape) if s == 1]
-        else:
-            drop = [int(a) % nd for a in (axis if isinstance(axis, (list, tuple)) else [axis])]
-        if not drop:
-            return self
-        return DimShuffle(nd, [d for d in range(nd) if d not in drop])(self)
+        return squeeze(self, axis)
 
     def sum(self, axis=None, dtype=None, keepdims=False, acc_dtype=None):
         return _tm().sum(self, axis=axis, dtype=dtype, keepdims=keepdims, acc_dtype=acc_dtype)
@@ -290,12 +281,12 @@ class _tensor_py_operators:
         return _tm().all(self, axis=axis, keepdims=keepdims)
 
     def cumsum(self, axis=None):
-        raise NotImplementedError("cumsum needs tensor/extra_ops.py, which the port has not yet")
+        from pytensor_tpu_torch.tensor.extra_ops import cumsum
 
         return cumsum(self, axis)
 
     def cumprod(self, axis=None):
-        raise NotImplementedError("cumprod needs tensor/extra_ops.py, which the port has not yet")
+        from pytensor_tpu_torch.tensor.extra_ops import cumprod
 
         return cumprod(self, axis)
 
@@ -359,7 +350,7 @@ class _tensor_py_operators:
         return take(self, indices, axis)
 
     def repeat(self, repeats, axis=None):
-        raise NotImplementedError("repeat needs tensor/extra_ops.py, which the port has not yet")
+        from pytensor_tpu_torch.tensor.extra_ops import repeat
 
         return repeat(self, repeats, axis)
 

@@ -1157,3 +1157,88 @@ def test_k2_bf16_ewma_matches_its_step_loop(card):
     feed = fgraph_to_torch(FunctionGraph(f.fgraph.inputs, node.inputs, clone=True), card)
     want = scan_kernel.ScanKernel(node.op, node, card).plain(*feed(xv))[0]
     assert got.dtype == torch.bfloat16 and _bf16_ulps(got, want) == 0
+
+
+TAIL_GROUPS = ("cumop bool", "cumop int32", "cumop float32", "cumop float64", "repeat",
+               "searchsorted", "topk ties", "unravel ravel", "fft float32", "fft float64",
+               "convolve1d", "convolve2d", "pad", "interp")
+
+
+@pytest.mark.parametrize("tag", TAIL_GROUPS)
+def test_tail_lowerings_match_the_cpu(card, tag):
+    """Each group of the tail's lowerings (``cases.tail_cases``) linked for
+    the card against the same graph linked for the CPU: integer and bool
+    results exactly, floats within ``cases.TAIL_RTOL`` of max|cpu|."""
+    import pytensor_tpu_torch as ptt
+
+    (_, ins, outs, vals), = [c for c in cases.tail_cases(2 ** 12) if c[0] == tag]
+    on_card = ptt.function(ins, outs, device=card)
+    on_cpu = ptt.function(ins, outs, device="cpu")
+    got, want = on_card(*vals), on_cpu(*vals)
+    for g, w, o in zip(got, want, outs):
+        err = cases.tail_held(g.cpu().numpy(), w.numpy(), o.type.dtype)
+        assert err <= (0 if o.type.dtype in ("bool", "int32", "int64") else
+                       cases.TAIL_RTOL[o.type.dtype]), (tag, str(o), err)
+
+
+def test_einsum_loop_and_step_on_the_card(card):
+    """The einsum loop at small widths, captured, against the float64
+    reference; the step launches K1 once a call (its FusedElemwise)."""
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models import einsum as em
+
+    m, n, steps = 8, 256, 4
+    loop, a = em.make_einsum_loop(steps, m=m, n=n, device=card)
+    assert isinstance(loop.linked, CapturedFunction)
+    loop()
+    ref, _ = em.einsum_reference(*em.einsum_data(m, n), 2 * steps)
+    block = a.get_value().cpu().numpy()[:m, :m]
+    assert np.max(np.abs(block - ref[:m, :m])) <= 1e-5 * np.max(np.abs(ref[:m, :m]))
+    step, _ = em.make_einsum_step(m=m, n=n, device=card)
+    step()
+    fused_kernel.LAUNCHES = 0
+    step()
+    torch.cuda.synchronize()
+    assert fused_kernel.LAUNCHES == 1
+
+
+def test_cumsum_scan_in_k2_equals_cumop(card):
+    """``benchsuite.py:87 ours_scan``'s cumsum row under ``scan__pallas``
+    (one K2 launch) and ``pt.cumsum(x) / n`` through ``CumOp``: the same
+    function by two routes, within ``1e-5`` of max|cumop|."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+
+    n = 1024
+    x = pt.tensor("x", dtype="float32", shape=(n,))
+    with config.change_flags(scan__pallas=True):
+        tr, _ = ptt.scan(lambda xt, acc: acc + xt, sequences=[x],
+                         outputs_info=[pt.constant(np.float32(0.0))])
+        f = ptt.function([x], tr / np.float32(n), device=card)
+    g = ptt.function([x], pt.cumsum(x) / np.float32(n), device=card)
+    xv = torch.randn(n, device=card)
+    f(xv)
+    scan_kernel.LAUNCHES = 0
+    got = f(xv)
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES == 1
+    want = g(xv)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_k1_floor_division_keeps_the_sign_of_zero(card):
+    """K1's floor division of a signed zero: numpy's sign (-0.0 // 0.3 is
+    -0.0), bit for bit its plain version."""
+    import pytensor_tpu_torch.tensor as pt
+
+    for dtype in ("float32", "float64"):
+        x, y = pt.tensor("x", dtype=dtype, shape=(None,)), pt.tensor("y", dtype=dtype,
+                                                                      shape=(None,))
+        kern = fused_kernel.FusedElemwiseKernel(FusedElemwise([x, y], [x // y]).fgraph, card)
+        xv = torch.tensor([-0.0, 0.0, -0.0, 0.0], dtype=getattr(torch, dtype), device=card)
+        yv = torch.tensor([0.3, 0.3, -0.3, -0.3], dtype=getattr(torch, dtype), device=card)
+        got = kern.launch(xv, yv)[0]
+        assert torch.equal(torch.signbit(got).cpu(), torch.tensor([True, False, False, True]))
+        assert torch.equal(torch.signbit(got), torch.signbit(kern.plain(xv, yv)[0]))

@@ -641,3 +641,22 @@ def test_namespace_holds_every_public_name_of_the_modules():
     assert not missing, missing
     assert NOT_YET <= names  # each exclusion is a name those modules define
     assert len(names) > 280
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_floor_division_of_a_signed_zero_follows_the_oracle(dtype):
+    """A reference behaviour, not a fault: ``(-0.0) // 0.3`` is -0.0 in the
+    numpy oracle and the port and +0.0 on the XLA path, and ``(-0.0) //
+    -0.3`` +0.0 against the XLA path's -0.0 (XLA's zero takes the
+    divisor's sign); ``0.0 // 0.3`` and ``0.0 // -0.3`` agree in all three."""
+    def build(pt):
+        x, y = pt.vector("x", dtype=dtype), pt.vector("y", dtype=dtype)
+        return [x, y], [x // y]
+
+    x = np.array([-0.0, 0.0, -0.0, 0.0], dtype=dtype)
+    y = np.array([0.3, 0.3, -0.3, -0.3], dtype=dtype)
+    fns = _compile(build)
+    got = _check(build, [x, y], kinds=("oracle", "torch"))[0]
+    np.testing.assert_array_equal(np.signbit(_as_np(got)), [True, False, False, True])
+    xla = np.asarray(fns["xla"](x, y)[0])
+    np.testing.assert_array_equal(np.signbit(xla), [False, False, True, True])
