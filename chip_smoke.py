@@ -1,7 +1,8 @@
 """Drive the torch port's radon, sparse, logistic-regression, MLP, Elman
 RNN, linalg (GP, Kalman filter, batched Cholesky), special-function (the
-bessel loop), bfloat16 (the MLP "MFU" step, the GEMM chain) and tensor
-library tail (the einsum loop, the scan rows, the new lowerings) paths on
+bessel loop), bfloat16 (the MLP "MFU" step, the GEMM chain), tensor
+library tail (the einsum loop, the scan rows, the new lowerings) and
+optimize and complex (the logistic-regression MAP, a periodogram) paths on
 one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
@@ -226,6 +227,37 @@ Phases, one line or more each, and any failure raises:
    the CPU (``cases.TAIL_RTOL``), and K1's floor division of a signed zero
    (numpy's signs).  K1's and K2's ``launches_by_path`` gain these paths;
    K2's kernel-line entry gains ``scan_rows_n4096``.
+17. optimize (``phase_optimize``; its kernels from ``optimize_kernels``,
+   built in phase 2's pool): (a) the MAP of ``models/logreg.py`` at
+   ``benchsuite.py:64``'s width (n 8,192, d 256), ``lam`` 1e-3, from w = 0,
+   in float64 and float32: ``minimize`` (BFGS, jax's algorithm: a plan
+   that runs eagerly around its evaluations, each a replay of one captured
+   CUDA graph with its K1 launches), ``root`` of the gradient (25 Newton
+   steps, the whole fit one captured graph) and the IFT gradients
+   ``d sum(w*)/d lam`` and ``d sum(w*)/d X``, against float64 NumPy
+   (scipy's BFGS with the analytic gradient, the closed forms at the
+   port's own x*; ``MAP_TOL``); BFGS's iterations, evaluations, reads of
+   the card and status, an evaluation's device ms and K1 launches, the
+   fits' and the IFT gradient's wall ms; each K1 node of the fits (BFGS's
+   evaluation, Newton's f and Jacobian, the IFT gradient's), fed its real
+   inputs at w = 0 and at w*, against its plain version (``K1_RTOL``).
+   (b) a periodogram (64 signals of 262,144 float32 samples: ``rfft``,
+   ``complex`` of the packed pairs, ``abs(c)**2`` and ``angle(c)``;
+   ``complex`` and ``angle`` single nodes and ``abs`` and ``sqr`` one K1
+   node, as the JAX package groups them; captured) against float64 NumPy
+   (``PERIODOGRAM_TOL``), its K1 node against its plain version and its
+   bound, and the chain as one K1 kernel (``cases.periodogram_chain``)
+   against its plain version, timed beside the port's three nodes; every
+   complex op K1 emits
+   (``cases.COMPLEX_OPS``, one node a launch) at 2**24 elements in
+   complex64 and complex128 against its plain version (the exact ops bit
+   for bit, the others within 8 epsilons of the modulus) and, on the first
+   2**16, numpy complex128, timed with CUDA events beside its plain
+   version, torch's call (``COMPLEX_LIBRARY``) and its byte bound.  Counts
+   are set to 0 just before the fits and the periodogram (after a first,
+   capturing call of each) and read just after.  K1's ``launches_by_path``
+   gains the three paths; its kernel-line entry gains
+   ``complex_ops_2e24``, ``periodogram_node`` and ``logreg_map``.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -2849,6 +2881,511 @@ def phase_tail(dev, smi_line, signs):
     return launches, k1_abs, k2_abs, timed
 
 
+# the logistic-regression MAP of phase 17: benchsuite.py:64's width
+# (LOGREG_N x LOGREG_D), the prior's precision and jax's gtol
+MAP_LAM, MAP_GTOL = 1e-3, 1e-5
+# the periodogram: 64 signals of 262,144 float32 samples; every complex op
+# at 2**24 elements; numpy's complex128 value taken on the first 2**16
+PERIODOGRAM_ROWS, PERIODOGRAM_N = 64, 262144
+COMPLEX_N, COMPLEX_NUMPY_N = 2 ** 24, 2 ** 16
+# the MAP against float64 NumPy (scipy's BFGS with the analytic gradient to
+# |g|_inf < 1e-10, and the closed forms of the IFT gradients at the port's
+# own x*): |g|_inf at the BFGS x* over jax's gtol; BFGS's and Newton's x*
+# against scipy's (max abs); d sum(w*)/d lam (relative) and d sum(w*)/d X
+# (over its max) against the closed forms, which leave out the graph's eps
+# of 1e-7 in the logs.  A rehearsal on the CPU (torch's CPU kernels, the
+# same data) read 9.8e-6 / 1.25e-5 (|g|_inf; jax's own float32 fit stops at
+# 1.03e-5 too), 4.7e-4 / 5.6e-4 (BFGS), 4.1e-8 / 2.2e-7 (Newton), 2.1e-7 /
+# 1.9e-5 (lam) and 5.1e-7 / 5.7e-6 (X) in float64 / float32, and the H100
+# the same to two digits (|g|_inf 9.78e-6 / 1.25e-5 to 1.26e-5, BFGS
+# 5.6e-4 to 5.7e-4 in float32); held at 2x and 4x jax's gtol (a float32
+# fit stopped early reads more), BFGS's x* at ~4x and the others at ~4-10x
+MAP_TOL = {"gmax": {"float64": 2.0, "float32": 4.0},
+           "bfgs_w": {"float64": 2e-3, "float32": 2e-3},
+           "newton_w": {"float64": 5e-7, "float32": 2e-5},
+           "glam": {"float64": 2e-6, "float32": 2e-4},
+           "gX": {"float64": 5e-6, "float32": 6e-5}}
+# the periodogram against float64 NumPy on 4 rows: the power over its
+# largest value, the phase where |c| is above 1e-3 of its largest (a
+# float32 FFT of 2**18 samples)
+PERIODOGRAM_TOL = {"power": 1e-5, "phase": 2e-3}
+# one PyTorch call of each complex op, the library time beside K1's
+COMPLEX_LIBRARY = {
+    "real": lambda z: z.real.clone(), "imag": lambda z: z.imag.clone(),
+    "conj": lambda z: __import__("torch").conj_physical(z),
+    "angle": lambda z: __import__("torch").angle(z),
+    "complex": lambda a, b: __import__("torch").complex(a, b),
+    "abs": lambda z: __import__("torch").abs(z), "neg": lambda z: -z,
+    "add": lambda a, b: a + b, "sub": lambda a, b: a - b, "mul": lambda a, b: a * b,
+    "true_div": lambda a, b: a / b, "sqr": lambda z: z * z,
+    "exp": lambda z: __import__("torch").exp(z), "log": lambda z: __import__("torch").log(z),
+    "sqrt": lambda z: __import__("torch").sqrt(z), "eq": lambda a, b: a == b,
+    "neq": lambda a, b: a != b, "identity": lambda z: z.clone()}
+
+
+def optimize_paths(dev):
+    """The functions of phase 17 on ``dev``: for each float dtype the BFGS
+    fit (``minimize``), the Newton fit (``root`` of the gradient) and the
+    IFT gradients (``d sum(w*) / d lam`` and ``/ d X``) of the MAP of
+    ``models/logreg.py``'s cross-entropy plus ``0.5 lam |w|^2`` over ``w``,
+    with their arguments ``(w0 = 0, X, y, b = 0, lam)``; and the
+    periodogram (``cases.periodogram_graph``)."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.link.cuda import cases
+    from pytensor_tpu_torch.models.logreg import _xent, make_logreg_graphs
+    from pytensor_tpu_torch.tensor.optimize import minimize, root
+
+    fits = {}
+    for dtype in ("float64", "float32"):
+        (X, y, w, b), _, (Xv, yv, wv, bv) = make_logreg_graphs(LOGREG_N, LOGREG_D, dtype)
+        lam = pt.tensor("lam", dtype=dtype, shape=())
+        obj = _xent(X, y, w, b, dtype) + 0.5 * lam * pt.sum(w ** 2)
+        (ws, ok), _ = minimize(obj, w)
+        (wr, okr), _ = root(ptt.grad(obj, w), w)
+        glam, gX = ptt.grad(pt.sum(ws), [lam, X])
+        ins = [w, X, y, b, lam]
+        fits[dtype] = ({"bfgs": ptt.function(ins, [ws, ok], device=dev),
+                        "newton": ptt.function(ins, [wr, okr], device=dev),
+                        "ift": ptt.function(ins, [glam, gX], device=dev)},
+                       (wv, Xv, yv, bv, np.asarray(MAP_LAM, dtype)))
+    return fits, ptt.function(*cases.periodogram_graph(), device=dev)
+
+
+def plan_kernels(plan, dev, out):
+    """The K1 kernels of ``plan`` and of the plans inside its steps (a BFGS
+    loop's evaluations, Newton's Jacobian), made for ``dev``, by key."""
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    for fn, nd, _, _ in plan.steps:
+        if isinstance(nd.op, FusedElemwise):
+            k = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+            out.setdefault(k.key, k)
+        inner = getattr(fn, "inner", None)
+        if hasattr(fn, "bfgs"):
+            inner = fn.bfgs.ev.plan
+        if inner is not None:
+            plan_kernels(inner, dev, out)
+    return out
+
+
+def plan_values(plan, args):
+    """Run ``plan`` on ``args`` (tensors on its device) step by step, as
+    ``Plan.run`` does but freeing nothing: ``[(lowering, node, its
+    arguments)]`` for every step, the real inputs of each node."""
+    storage, seen = dict(zip(plan.inputs, args)), []
+    for fn, node, spec, _ in plan.steps:
+        vals = [v if kind == "const" else storage[v] for kind, v in spec]
+        res = fn(*vals)
+        seen.append((fn, node, vals))
+        storage.update(zip(node.outputs, res if isinstance(res, (list, tuple)) else [res]))
+    return seen
+
+
+def map_node_values(fns, args, w_star):
+    """The K1 nodes of a MAP's functions with their real inputs: each
+    FusedElemwise of the BFGS, Newton and IFT plans at their arguments
+    (``w = 0``), of BFGS's evaluation plan (one inside the BFGS fit, one
+    inside the IFT gradient's) at ``w = 0`` and at ``w*`` along ``-g`` with
+    a step of 1, and of Newton's ``f``-and-Jacobian plan at both points.
+    Returns ``[(where, node, its arguments)]``."""
+    import torch
+
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+    from pytensor_tpu_torch.tensor.optimize import RootOp
+
+    found = []
+    for kind, f in fns.items():
+        plan = getattr(f.linked, "plan", f.linked)
+        for fn, node, vals in plan_values(plan, args):
+            if isinstance(node.op, FusedElemwise):
+                found.append((kind, node, vals))
+            if not (hasattr(fn, "bfgs") or isinstance(node.op, RootOp)):
+                continue
+            for x, at in ((vals[0], "w = 0"), (w_star, "w*")):
+                if hasattr(fn, "bfgs"):
+                    ev = fn.bfgs.ev.plan
+                    t = torch.ones((), dtype=x.dtype, device=x.device)
+                    _, g = ev.execute([x, torch.zeros_like(x), t, *vals[1:]])
+                    inner = plan_values(ev, [x, -g, t, *vals[1:]])
+                    where = f"{kind}: an evaluation at {at}"
+                else:
+                    inner = plan_values(fn.inner, [x, *vals[1:]])
+                    where = f"{kind}: f and its Jacobian at {at}"
+                found += [(where, nd, v) for _, nd, v in inner if isinstance(nd.op, FusedElemwise)]
+    return found
+
+
+def optimize_kernels(dev):
+    """The kernels of phase 17, for the build pool of phase 2: the K1
+    kernels of its functions (linked on the CPU, the same sources, so that
+    linking them for the card finds them built) and every complex op K1
+    emits as a one-node kernel in each complex dtype, and the periodogram's
+    whole chain as one kernel (``cases.periodogram_chain``).  Returns (the
+    functions' K1 kernels and the chain's, ``{(op, dtype): kernel}``)."""
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.cuda import cases
+    from pytensor_tpu_torch.tensor import fused_kernel
+
+    fits, periodogram = optimize_paths("cpu")
+    kerns: dict = {}
+    for fns, _ in fits.values():
+        for f in fns.values():
+            plan_kernels(f.linked, dev, kerns)
+    plan_kernels(periodogram.linked, dev, kerns)
+    chain = fused_kernel.FusedElemwiseKernel(
+        FunctionGraph(*cases.periodogram_chain(), clone=True), dev)
+    kerns.setdefault(chain.key, chain)
+    one_node = {}
+    for dtype in ("complex64", "complex128"):
+        for name in cases.COMPLEX_OPS:
+            node = cases.complex_node(name, dtype)
+            one_node[name, dtype] = fused_kernel.FusedElemwiseKernel(
+                FunctionGraph(list(node.inputs), node.outputs, clone=True), dev)
+    return list(kerns.values()), one_node
+
+
+def logreg_map_reference(X, y, lam):
+    """The MAP in float64 NumPy: scipy's BFGS with the analytic gradient
+    from 0 to |g|_inf < 1e-10 (the objective of ``models/logreg.py``, its
+    eps of 1e-7 in the logs included), and ``grad(w)`` for the port's x*."""
+    import scipy.optimize as sopt
+
+    X = X.astype(np.float64)
+    y = y.astype(np.float64)
+    n = len(y)
+
+    def f_and_g(w):
+        p = 1 / (1 + np.exp(-(X @ w)))
+        a, b_ = p + 1e-7, 1 - p + 1e-7
+        f = -np.mean(y * np.log(a) + (1 - y) * np.log(b_)) + 0.5 * lam * w @ w
+        dz = -(y / a - (1 - y) / b_) * p * (1 - p)
+        return f, X.T @ dz / n + lam * w
+
+    res = sopt.minimize(f_and_g, np.zeros(X.shape[1]), jac=True, method="BFGS",
+                        options={"gtol": 1e-10, "maxiter": 5000})
+    return res.x, (lambda w: f_and_g(np.asarray(w, np.float64))[1])
+
+
+def ift_closed_forms(X, y, lam, w):
+    """At ``w`` (float64): ``d sum(w*)/d lam = -1^T H^-1 w`` and
+    ``d sum(w*)/d X = -(outer(r, v) + outer((X v) p (1 - p), w)) / n`` with
+    ``H = X^T diag(p(1-p)) X / n + lam I``, ``v = H^-1 1`` and ``r = p - y``
+    (the logs' eps left out)."""
+    X = X.astype(np.float64)
+    n = len(y)
+    p = 1 / (1 + np.exp(-(X @ w)))
+    d = p * (1 - p)
+    H = X.T @ (X * d[:, None]) / n + lam * np.eye(len(w))
+    v = np.linalg.solve(H, np.ones(len(w)))
+    return -v @ w, -(np.outer(p - y, v) + np.outer((X @ v) * d, w)) / n
+
+
+def complex_held_on(dev_got, dev_want, name, dtype):
+    """``cases.complex_held`` on the card's tensors, without moving 2**24
+    values to the host: the exact ops bit for bit, the others within
+    ``cases.COMPLEX_ULPS`` epsilons of max(|plain|, the least normal) in the
+    modulus of the difference, NaN where the plain version has NaN."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import cases
+
+    if dev_got.dtype == torch.bool or name in cases.COMPLEX_EXACT:
+        real = torch.view_as_real(dev_got) if dev_got.is_complex() else dev_got
+        real_w = torch.view_as_real(dev_want) if dev_want.is_complex() else dev_want
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64, 1: torch.uint8}
+        return bool(torch.equal(real.view(bits[real.element_size()]),
+                                real_w.view(bits[real_w.element_size()])))
+    nan_g, nan_w = dev_got.isnan(), dev_want.isnan()
+    if not torch.equal(nan_g, nan_w):
+        return False
+    eps = float(np.finfo(np.float32 if dtype == "complex64" else np.float64).eps)
+    tiny = float(np.finfo(np.float32 if dtype == "complex64" else np.float64).tiny)
+    ok = torch.isfinite(dev_want) & ~nan_w
+    err = (dev_got[ok] - dev_want[ok]).abs().double()
+    scale = dev_want[ok].abs().double().clamp(min=tiny)
+    return bool((err <= cases.COMPLEX_ULPS * eps * scale).all())
+
+
+def phase_optimize(dev, smi_line, one_node):
+    """Phase 17: ``tensor/optimize.py`` and the complex ops.  (a) the MAP of
+    ``models/logreg.py`` at n 8,192, d 256, lam 1e-3, from w = 0, in float64
+    and float32: BFGS (``minimize``: an eager plan around its captured
+    evaluations, each a replay with its K1 launches), Newton (``root`` of
+    the gradient: 25 steps, the whole fit one captured CUDA graph) and the
+    IFT gradients ``d sum(w*)/d lam`` and ``d sum(w*)/d X`` (``L_op``),
+    against float64 NumPy (``logreg_map_reference``, ``ift_closed_forms``,
+    ``MAP_TOL``); BFGS's iterations, evaluations, reads and status, its
+    device ms and K1 launches an evaluation, the Newton fit's and the IFT
+    gradient's wall ms; each K1 node of the fits fed its real inputs at
+    ``w = 0`` and ``w*`` (``map_node_values``) against its plain version
+    (``K1_RTOL``).  (b) the periodogram (64 x 262,144 float32, captured:
+    ``complex``, one K1 node of ``abs`` and ``sqr``, ``angle``, as the JAX
+    package groups them) against float64 NumPy (``PERIODOGRAM_TOL``), its
+    K1 node and its whole chain as one K1 kernel
+    (``cases.periodogram_chain``) against their plain versions, the chain
+    timed both ways; every
+    complex op K1 emits (``one_node``) at 2**24 elements in both complex
+    dtypes against its plain version (``complex_held_on``) and, on the
+    first 2**16, numpy complex128 (``cases.complex_near``), its device time
+    from CUDA events beside its plain version's, one PyTorch call's
+    (``COMPLEX_LIBRARY``) and its byte bound.  Counts are set to 0 just
+    before the fits and the periodogram are driven (after a first,
+    capturing call of each) and read just after.  Returns the launches by
+    path, K1's largest absolute error and the rows it timed.  On the CPU
+    (a rehearsal) it checks the values only."""
+    import torch
+
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.cuda import cases, scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction, fgraph_to_torch
+    from pytensor_tpu_torch.models import radon_kernel
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.elemwise import Elemwise
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t17 = time.perf_counter()
+
+    def zero_counts():
+        fused_kernel.LAUNCHES = radon_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+        spmv_kernel.LAUNCHES = 0
+
+    def counts():
+        return {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": scan_kernel.LAUNCHES}
+
+    fits, periodogram = optimize_paths(dev)
+    say(f"phase 17 functions linked in {time.perf_counter() - t17:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    signal = torch.randn(PERIODOGRAM_ROWS, PERIODOGRAM_N, generator=gen, device=dev)
+    args = {dt: [as_torch(a, dev) for a in vals] for dt, (_, vals) in fits.items()}
+    # a first call of each: the captures (BFGS's evaluations, Newton's fit,
+    # the IFT gradient's evaluations, the periodogram)
+    for dt, (fns, _) in fits.items():
+        for f in fns.values():
+            f(*args[dt])
+    periodogram(signal)
+    sync()
+    if on_card:
+        for dt, (fns, _) in fits.items():
+            if not isinstance(fns["newton"].linked, CapturedFunction):
+                raise AssertionError(f"Newton {dt}: not captured: {fns['newton'].linked.host_reads}")
+            for kind in ("bfgs", "ift"):
+                reads = fns[kind].linked.host_reads
+                if not (len(reads) == 1 and "MinimizeOp" in reads[0]):
+                    raise AssertionError(f"{kind} {dt}: host reads {reads}")
+        if not isinstance(periodogram.linked, CapturedFunction):
+            raise AssertionError(f"periodogram: not captured: {periodogram.linked.host_reads}")
+    # the main path, counted -------------------------------------------------
+    launches, out, secs = {}, {}, {}
+    for dt, (fns, _) in fits.items():
+        zero_counts()
+        t = time.perf_counter()
+        out[dt, "bfgs"] = fns["bfgs"](*args[dt])
+        sync()
+        secs[dt, "bfgs"] = time.perf_counter() - t
+        out[dt, "newton"] = fns["newton"](*args[dt])
+        out[dt, "ift"] = fns["ift"](*args[dt])
+        sync()
+        launches[f"logreg MAP {dt}"] = counts()
+    zero_counts()
+    power, phase = periodogram(signal)
+    sync()
+    launches["periodogram"] = counts()
+    say(f"phase 17 launches, counts set to 0 just before each path and read just after: "
+        f"{launches}")
+    for path, c in launches.items():
+        if on_card and c["fused_elemwise"] < 1:
+            raise AssertionError(f"{path}: K1 never launched")
+    # (a) the MAP against float64 NumPy ------------------------------------------
+    rows = {}
+    k1_abs = 0.0
+    for dt, (fns, vals) in fits.items():
+        wv, Xv, yv, bv, lam = vals
+        w_ref, grad_ref = logreg_map_reference(Xv, yv, MAP_LAM)
+        w_b, ok_b = (v.cpu().numpy() for v in out[dt, "bfgs"])
+        w_n, ok_n = (v.cpu().numpy() for v in out[dt, "newton"])
+        glam, gX = (v.cpu().numpy() for v in out[dt, "ift"])
+        (bfgs,) = [fn.bfgs for fn, _, _, _ in fns["bfgs"].linked.steps if hasattr(fn, "bfgs")]
+        rec = bfgs.last
+        gmax = float(np.abs(grad_ref(w_b)).max())
+        e_b = float(np.abs(w_b - w_ref).max())
+        e_n = float(np.abs(w_n - w_ref).max())
+        glam_ref, gX_ref = ift_closed_forms(Xv, yv, MAP_LAM, w_b.astype(np.float64))
+        e_glam = abs(float(glam) - glam_ref) / abs(glam_ref)
+        e_gX = float(np.abs(gX - gX_ref).max() / np.abs(gX_ref).max())
+        finite = all(np.all(np.isfinite(v)) for v in (w_b, w_n, glam, gX))
+        say(f"logreg MAP {dt} (n {LOGREG_N:,}, d {LOGREG_D}, lam {MAP_LAM:g}, from 0): BFGS "
+            f"{rec['iterations']} iterations, {rec['evaluations']} evaluations, {rec['reads']} "
+            f"reads of the card, status {rec['status']}, success {bool(ok_b)}, |g|_inf at x* "
+            f"{gmax:.3e} in float64 (jax's gtol {MAP_GTOL:g}, held to "
+            f"{MAP_TOL['gmax'][dt]:g}x), x* {e_b:.2e} from scipy's converged x* (tol "
+            f"{MAP_TOL['bfgs_w'][dt]:g}); Newton x* {e_n:.2e} from it (tol "
+            f"{MAP_TOL['newton_w'][dt]:g}), success {bool(ok_n)}; IFT d sum(w*)/d lam "
+            f"{float(glam):.6f} against the closed form {glam_ref:.6f} at the same x* (rel "
+            f"{e_glam:.2e}, tol {MAP_TOL['glam'][dt]:g}), d sum(w*)/d X {e_gX:.2e} of its max "
+            f"(tol {MAP_TOL['gX'][dt]:g})")
+        if not (finite and w_b.shape == (LOGREG_D,) and gX.shape == (LOGREG_N, LOGREG_D)
+                and gmax <= MAP_TOL["gmax"][dt] * MAP_GTOL and e_b <= MAP_TOL["bfgs_w"][dt]
+                and e_n <= MAP_TOL["newton_w"][dt] and e_glam <= MAP_TOL["glam"][dt]
+                and e_gX <= MAP_TOL["gX"][dt]):
+            raise AssertionError(f"logreg MAP {dt}: gmax {gmax}, x* {e_b}, Newton {e_n}, glam "
+                                 f"{e_glam}, gX {e_gX}; tol {MAP_TOL}")
+        row = {"iterations": rec["iterations"], "evaluations": rec["evaluations"],
+               "reads": rec["reads"], "status": rec["status"], "success": bool(ok_b),
+               "gmax": gmax, "newton_success": bool(ok_n)}
+        if on_card:
+            ev = bfgs.ev
+            graph = next(iter(ev.graphs.values()))
+            ev_k1 = sum(n for k, n in graph.launches if k is fused_kernel)
+            ev_ms, _ = device_ms(graph.run, 20)
+            fit_ms = wall_ms(lambda: fns["bfgs"](*args[dt]), 3, warmup=1)
+            newton_ms = wall_ms(lambda: fns["newton"](*args[dt]), 5)
+            ift_ms = wall_ms(lambda: fns["ift"](*args[dt]), 3, warmup=1)
+            row.update(fit_wall_ms=fit_ms, evaluation_device_ms=ev_ms, k1_an_evaluation=ev_k1,
+                       newton_wall_ms=newton_ms, ift_wall_ms=ift_ms)
+            say(f"logreg MAP {dt} ({smi_line}): BFGS fit wall {fit_ms:.2f} ms "
+                f"({fit_ms / rec['evaluations']:.3f} ms an evaluation with its reads and the "
+                f"update), an evaluation's replay {ev_ms:.4f} ms on the card with {ev_k1} K1 "
+                f"launches; Newton's 25 steps, one captured graph, wall {newton_ms:.2f} ms; the "
+                f"IFT gradient function (its BFGS fit, the Hessian and the solve) wall "
+                f"{ift_ms:.2f} ms")
+        # each K1 node of the fits, fed its real inputs, against its plain version
+        nodes = map_node_values(fns, args[dt], out[dt, "bfgs"][0])
+        node_abs, node_rel = 0.0, 0.0
+        for where, nd, xs in nodes:
+            kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+            got, want = (kern.launch if on_card else kern)(*xs), kern.plain(*xs)
+            sync()
+            for g, w in zip(got, want):
+                e_abs, e_rel = errors(g.cpu(), w.cpu())
+                node_abs, node_rel = max(node_abs, e_abs), max(node_rel, e_rel)
+                if e_rel > K1_RTOL.get(str(w.dtype).removeprefix("torch."), 0.0):
+                    raise AssertionError(f"K1 logreg MAP {dt}, {where}, {nd.op}: {e_abs} "
+                                         f"({e_rel} of max(1, |plain|)) from its plain version")
+        k1_abs = max(k1_abs, node_abs)
+        by_where = {}
+        for where, _, _ in nodes:
+            by_where[where] = by_where.get(where, 0) + 1
+        say(f"logreg MAP {dt}: its {len(nodes)} K1 nodes fed their real inputs ({by_where}) "
+            f"within {node_abs:.2e} ({node_rel:.2e} of max(1, |plain|); tol "
+            f"{K1_RTOL[dt]:g}) of their plain versions")
+        row["k1_nodes_held"] = len(nodes)
+        rows[f"logreg MAP {dt}"] = row
+    # (b) the periodogram and the complex ops ----------------------------------------
+    x4 = signal[:4].double().cpu().numpy()
+    spec = np.fft.rfft(x4)
+    p_ref, a_ref = np.abs(spec) ** 2, np.angle(spec)
+    e_pow = float(np.abs(power[:4].cpu().numpy() - p_ref).max() / p_ref.max())
+    big = np.abs(spec) > 1e-3 * np.abs(spec).max()
+    dphi = np.abs(np.angle(np.exp(1j * (phase[:4].cpu().numpy() - a_ref))))[big]
+    e_phase = float(dphi.max())
+    fg = periodogram.fgraph
+    (pnode,) = [nd for nd in fg.toposort() if isinstance(nd.op, FusedElemwise)]
+    feed = fgraph_to_torch(FunctionGraph(fg.inputs, pnode.inputs, clone=True), dev)
+    pargs = list(feed(signal))
+    pkern = fused_kernel.FusedElemwiseKernel(pnode.op.fgraph, dev)
+    pgot, pwant = (pkern.launch if on_card else pkern)(*pargs), pkern.plain(*pargs)
+    sync()
+    p_held = all(complex_held_on(g, w, "abs", "complex64") for g, w in zip(pgot, pwant))
+    k1_abs = max([k1_abs] + [float((g - w).abs().max()) for g, w in zip(pgot, pwant)])
+    # the chain as the port runs it (``complex``, the K1 node, ``angle``; the
+    # JAX package's grouping) and as one K1 kernel that keeps c in registers
+    chain = [(fn, nd, v) for fn, nd, v in plan_values(getattr(periodogram.linked, "plan",
+                                                              periodogram.linked), [signal])
+             if isinstance(nd.op, (Elemwise, FusedElemwise))]
+    parts = chain[0][2]
+    ckern = fused_kernel.FusedElemwiseKernel(
+        FunctionGraph(*cases.periodogram_chain(), clone=True), dev)
+    cgot, cwant = (ckern.launch if on_card else ckern)(*parts), ckern.plain(*parts)
+    sync()
+    c_held = all(complex_held_on(g, w, "abs", "complex64") for g, w in zip(cgot, cwant))
+    k1_abs = max([k1_abs] + [float((g - w).abs().max()) for g, w in zip(cgot, cwant)])
+    say(f"periodogram ({PERIODOGRAM_ROWS} x {PERIODOGRAM_N:,} float32): the chain's nodes "
+        f"{[str(nd.op) for _, nd, _ in chain]}, fused ops "
+        f"{sorted(n.op.scalar_op.name for n in pnode.op.fgraph.toposort())} in its one K1 node, "
+        f"inputs of layout classes {pkern._layout(pkern._args(pargs)).classes[0]}; the whole "
+        f"chain as one K1 kernel within {cases.COMPLEX_ULPS} epsilons of its plain version: "
+        f"{c_held}; power "
+        f"{e_pow:.2e} of its max from float64 NumPy on 4 rows (tol {PERIODOGRAM_TOL['power']:g}), "
+        f"phase {e_phase:.2e} where |c| > 1e-3 max|c| (tol {PERIODOGRAM_TOL['phase']:g}); its K1 "
+        f"node within {cases.COMPLEX_ULPS} epsilons of its plain version: {p_held}")
+    if not (p_held and c_held and e_pow <= PERIODOGRAM_TOL["power"]
+            and e_phase <= PERIODOGRAM_TOL["phase"]
+            and power.shape == (PERIODOGRAM_ROWS, PERIODOGRAM_N // 2 + 1)):
+        raise AssertionError(f"periodogram: power {e_pow}, phase {e_phase}, K1 node {p_held}, "
+                             f"the chain as one kernel {c_held}")
+    if on_card:
+        p_ms = wall_ms(lambda: pkern.launch(*pargs), 20)
+        p_plain = wall_ms(lambda: pkern.plain(*pargs), 20)
+        p_bound = bound(nbytes(*pargs, *pgot), 0)
+        p_wall = wall_ms(lambda: periodogram(signal), 10)
+        chain_ms = wall_ms(lambda: [fn(*v) for fn, _, v in chain], 20)
+        one_ms = wall_ms(lambda: ckern.launch(*parts), 20)
+        c_bound = bound(nbytes(*parts, *cgot), 0)
+        rows["periodogram"] = {"wall_ms": p_wall, "k1_ms": p_ms, "plain_ms": p_plain,
+                               "bound_ms": p_bound[0], "bound_by": p_bound[1],
+                               "chain_ms": chain_ms, "chain_one_kernel_ms": one_ms,
+                               "chain_bound_ms": c_bound[0]}
+        say(f"periodogram ({smi_line}): a call wall {p_wall:.3f} ms (captured: the FFT, the "
+            f"slices, complex, the K1 node and angle); the K1 node {p_ms * 1e3:.1f} us (CUDA "
+            f"events, 20 launches), plain {p_plain * 1e3:.1f} us, bound {p_bound[0] * 1e3:.1f} "
+            f"us ({nbytes(*pargs, *pgot) / 2 ** 20:.0f} MiB moved); the chain from the two "
+            f"parts {chain_ms * 1e3:.1f} us as the port runs it (three launches, c written "
+            f"and read twice) against {one_ms * 1e3:.1f} us as one K1 kernel, bound "
+            f"{c_bound[0] * 1e3:.1f} us ({nbytes(*parts, *cgot) / 2 ** 20:.0f} MiB moved)")
+    n = COMPLEX_N if on_card else 4099
+    ops, bad = {}, []
+    for (name, dtype), kern in one_node.items():
+        edges = torch.from_numpy(cases.complex_values(dtype, cases.N_COMPLEX_EDGES, 0)).to(dev)
+        cdt = getattr(torch, dtype)
+        zargs = []
+        for k, var in enumerate(kern.inputs):
+            if var.type.dtype == dtype:
+                z = torch.randn(n, dtype=cdt, generator=gen, device=dev) * 3
+                z[: len(edges)] = edges.roll(5 * k)
+            else:
+                z = torch.randn(n, dtype=getattr(torch, var.type.dtype), generator=gen,
+                                device=dev) * 3
+            zargs.append(z)
+        (got,) = (kern.launch if on_card else kern)(*zargs)
+        (want,) = kern.plain(*zargs)
+        sync()
+        held = complex_held_on(got, want, name, dtype)
+        ref = cases.numpy_complex_op(name, [a[:COMPLEX_NUMPY_N].cpu().numpy() for a in zargs])
+        near = cases.complex_near(got[:COMPLEX_NUMPY_N].cpu().numpy(), ref, dtype)
+        if not (held and near):
+            bad.append(f"{name} {dtype}: against its plain version {held}, numpy {near}")
+        if got.dtype != torch.bool:
+            fin = torch.isfinite(want)
+            k1_abs = max(k1_abs, float((got[fin] - want[fin]).abs().max()))
+        if on_card:
+            k_ms = wall_ms(lambda: kern.launch(*zargs), 12)
+            pl_ms = wall_ms(lambda: kern.plain(*zargs), 12)
+            lib_ms = wall_ms(lambda: COMPLEX_LIBRARY[name](*zargs), 12)
+            b_ms, b_by = bound(nbytes(*zargs, got), 0)
+            ops[f"{name} {dtype}"] = {"ms": k_ms, "plain_ms": pl_ms, "library_ms": lib_ms,
+                                      "bound_ms": b_ms, "bound_by": b_by}
+        del zargs, got, want
+    if bad:
+        raise AssertionError(f"K1 complex ops: {bad}")
+    say(f"K1 complex ops: {len(one_node)} op-dtype pairs at {n:,} elements held against the "
+        f"plain version (exact ops bit for bit, the others within {cases.COMPLEX_ULPS} "
+        f"epsilons) and on the first {COMPLEX_NUMPY_N:,} against numpy complex128")
+    if on_card:
+        for key, r in ops.items():
+            say(f"  K1 {key:20s} {r['ms'] * 1e3:8.1f} us (CUDA events), plain "
+                f"{r['plain_ms'] * 1e3:8.1f} us, torch's call {r['library_ms'] * 1e3:8.1f} us, "
+                f"bound {r['bound_ms'] * 1e3:7.1f} us ({r['bound_by']}), "
+                f"{r['bound_ms'] / r['ms']:.2f} of it reached ({smi_line})")
+        rows["complex_ops_2e24"] = ops
+    say(f"optimize phase done in {time.perf_counter() - t17:.1f} s")
+    return launches, k1_abs, rows
+
+
 def main(opts):
     import torch
 
@@ -3022,6 +3559,15 @@ def main(opts):
         f"nodes, {len(tail_k2)} K2 kernel(s) of the scan rows not built for another phase; "
         f"graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
 
+    # phase 17's: the K1 kernels of the MAP's and the periodogram's
+    # functions (their plans' and the plans inside BFGS and Newton) and
+    # every complex op K1 emits, one node a kernel, a library a dtype
+    t0 = time.perf_counter()
+    opt_k1, complex_one_node = optimize_kernels(dev)
+    say(f"the optimize slice's graphs: {len(opt_k1)} K1 kernels of the MAP's and the "
+        f"periodogram's functions, {len(complex_one_node)} one-node complex K1 kernels; graph, "
+        f"rewrite and emit in {time.perf_counter() - t0:.2f} s")
+
     def timed(fn):
         t = time.perf_counter()
         fn()
@@ -3033,7 +3579,9 @@ def main(opts):
                                  elman_k1, linalg_k1, *special_libs,
                                  list(special_group_kerns.values()),
                                  [k for k, _ in bf16_one_node.values()] + [bf16_cls],
-                                 bf16_model_k1, tail_k1 + list(tail_signs.values())]]
+                                 bf16_model_k1, tail_k1 + list(tail_signs.values()), opt_k1,
+                                 *[[k for (_, d), k in complex_one_node.items() if d == dt]
+                                   for dt in ("complex64", "complex128")]]]
         jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
                 "K3 stamped": pool.submit(timed, lambda: radon_kernel.build(
                     verbose=True, flags=radon_kernel.STAMPED)),
@@ -3810,6 +4358,11 @@ def main(opts):
     k2_abs = max(k2_abs, k2_tail_abs)
     model_launches.update(tail_launches)
 
+    # 17. tensor/optimize.py and the complex ops -------------------------------
+    opt_launches, k1_opt_abs, opt_rows = phase_optimize(dev, smi, complex_one_node)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_opt_abs)
+    model_launches.update(opt_launches)
+
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "cuda",
          "source": "pytensor_tpu_torch/tensor/fused_kernel.py",
@@ -3822,7 +4375,9 @@ def main(opts):
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "wall_ms": k1["wall_ms"], "plain_wall_ms": k1["plain_wall_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
-         "bf16_mfu_class_node": k1_bf16},
+         "bf16_mfu_class_node": k1_bf16, "complex_ops_2e24": opt_rows["complex_ops_2e24"],
+         "periodogram_node": opt_rows["periodogram"],
+         "logreg_map": {k: v for k, v in opt_rows.items() if k.startswith("logreg")}},
         {"name": "radon_leapfrog (K3)", "route": "cuda",
          "source": "pytensor_tpu_torch/csrc/radon_leapfrog.cu",
          "replaces": "pytensor_tpu/models/radon_pallas.py:28",

@@ -441,3 +441,131 @@ def tail_held(got, want, dtype):
     return float(np.max(np.abs(got[ok] - want[ok]), initial=0.0)) / max(
         float(np.max(np.abs(want[ok]), initial=0.0)), np.finfo(dtype).tiny)
 
+
+
+# --- complex64 and complex128 (K1's complex ops) ---------------------------------
+
+# every op K1 emits with a complex operand or result (``cexpr.CCEXPR``)
+COMPLEX_OPS = ("real", "imag", "conj", "angle", "complex", "abs", "neg", "add", "sub", "mul",
+               "true_div", "sqr", "exp", "log", "sqrt", "eq", "neq", "identity")
+# the complex ops whose value is exact (each part rounded once, or none),
+# held bit for bit against the plain version; the others within
+# COMPLEX_ULPS units of the dtype's epsilon of max(|plain|, the least
+# normal), in the complex modulus of the difference
+COMPLEX_EXACT = {"real", "imag", "conj", "complex", "neg", "add", "sub", "eq", "neq",
+                 "identity"}
+COMPLEX_ULPS = 8
+_EPS = {"complex64": float(np.finfo(np.float32).eps), "complex128": float(np.finfo(np.float64).eps)}
+_TINY = {"complex64": float(np.finfo(np.float32).tiny),
+         "complex128": float(np.finfo(np.float64).tiny)}
+
+
+N_COMPLEX_EDGES = 17
+
+
+def complex_values(dtype, n, seed):
+    """n complex values of ``dtype``: signed zeros, units, the axes, parts
+    of very different sizes and points near the unit circle in front, then
+    normal parts of scale 3."""
+    rng = np.random.default_rng(seed)
+    edge = [0j, complex(-0.0, 0.0), complex(0.0, -0.0), complex(-0.0, -0.0), 1 + 0j, -1 + 0j,
+            1j, -1j, 3 - 4j, -3 + 4j, 1e-3 + 1e3j, -1e3 + 1e-3j, 1 + 1e-7j,
+            complex(np.cos(0.3), np.sin(0.3)), 0.5 - 0.5j, -2.5 + 0.0j, complex(-2.5, -0.0)]
+    assert len(edge) == N_COMPLEX_EDGES
+    body = rng.standard_normal(n - len(edge)) * 3 + 1j * rng.standard_normal(n - len(edge)) * 3
+    return np.concatenate([np.asarray(edge), body]).astype(dtype)
+
+
+def complex_node(name, dtype):
+    """One Elemwise node of complex op ``name`` in ``dtype``: over complex
+    operands, or for ``complex`` over the two real parts."""
+    from pytensor_tpu_torch.scalar.basic import real_dtype
+
+    if name == "complex":
+        re, im = (pt.tensor(k, dtype=real_dtype(dtype), shape=(None,)) for k in ("re", "im"))
+        return pt.complex(re, im).owner
+    op = {"sqr": ps.sqr, "identity": ps.identity, "complex": ps.complex_op}.get(name)
+    op = op or getattr(ps, name)
+    nin = 2 if op.nin < 0 else op.nin
+    args = [pt.tensor(f"z{k}", dtype=dtype, shape=(None,)) for k in range(nin)]
+    return Elemwise(op)(*args).owner
+
+
+def complex_inputs(name, dtype, n, seed):
+    """The inputs of ``complex_node(name, dtype)``: complex values with the
+    edges of ``complex_values``, one operand rolled against the other."""
+    from pytensor_tpu_torch.scalar.basic import real_dtype
+
+    z = complex_values(dtype, n, seed)
+    if name == "complex":
+        return [z.real.astype(real_dtype(dtype)), np.roll(z.imag, 3).astype(real_dtype(dtype))]
+    node = complex_node(name, dtype)
+    return [z if k == 0 else np.roll(complex_values(dtype, n, seed + k), 5)
+            for k in range(len(node.inputs))]
+
+
+def complex_held(got, want, name, dtype):
+    """``got`` against the plain version's ``want`` (numpy arrays): exact
+    ops bit for bit, the others within COMPLEX_ULPS epsilons; NaN, and
+    the infinities, where ``want`` has them."""
+    if got.dtype == bool or name in COMPLEX_EXACT:
+        return np.array_equal(got.view(np.uint8), want.view(np.uint8))
+    gp = np.stack([got.real, got.imag]) if np.iscomplexobj(got) else got[None]
+    wp = np.stack([want.real, want.imag]) if np.iscomplexobj(want) else want[None]
+    if not np.array_equal(np.isnan(gp), np.isnan(wp)):
+        return False
+    inf = np.isinf(wp)
+    if not np.array_equal(gp[inf], wp[inf]):
+        return False
+    fin = np.isfinite(wp).all(axis=0)
+    err = np.abs(gp[:, fin] - wp[:, fin]).max(axis=0, initial=0)
+    scale = np.maximum(np.abs(want[fin]).astype(np.float64), _TINY[dtype])
+    return bool((err <= COMPLEX_ULPS * _EPS[dtype] * scale).all())
+
+
+def numpy_complex_op(name, args):
+    """numpy's value of complex op ``name`` on ``args``, in complex128 (or
+    float64, or bool): the reference a K1 result is held to."""
+    wide = [a.astype("complex128" if np.iscomplexobj(a) else "float64") for a in args]
+    if name == "complex":
+        return wide[0] + 1j * wide[1]
+    fn = {"true_div": np.true_divide, "sqr": np.square, "neg": np.negative, "sub": np.subtract,
+          "mul": np.multiply, "add": np.add, "eq": np.equal, "neq": np.not_equal,
+          "identity": np.positive}.get(name) or getattr(np, name)
+    with np.errstate(all="ignore"):
+        return fn(*wide)
+
+
+def complex_near(got, ref, dtype):
+    """``got`` (of ``dtype``'s precision) within COMPLEX_ULPS epsilons of
+    ``dtype`` of numpy's wider ``ref``, over max(|ref|, the least normal),
+    on the values where ``ref`` is finite; bools equal."""
+    if ref.dtype == bool:
+        return np.array_equal(got, ref)
+    ok = np.isfinite(ref)
+    err = np.abs(got[ok].astype(ref.dtype) - ref[ok])
+    scale = np.maximum(np.abs(ref[ok]), _TINY[dtype])
+    return bool((err <= COMPLEX_ULPS * _EPS[dtype] * scale).all())
+
+
+def periodogram_graph(dtype="float32"):
+    """The periodogram's graph: the real FFT of each row of ``x``, its
+    packed pairs as a complex spectrum, the power ``abs(c)**2`` and the
+    phase ``angle(c)``.  The fusion pass, the JAX package's greedy one,
+    cuts at ``c``, which has two readers: ``complex`` and ``angle`` stay
+    single nodes, and ``abs`` and ``sqr`` are one FusedElemwise."""
+    x = pt.tensor("x", dtype=dtype, shape=(None, None))
+    packed = pt.fft.rfft(x)
+    c = pt.complex(packed[..., 0], packed[..., 1])
+    return [x], [pt.abs(c) ** 2, pt.angle(c)]
+
+
+def periodogram_chain(dtype="float32"):
+    """The periodogram's chain after its slices as one graph of its two
+    parts, ``(re, im) -> (sqr(abs(c)), angle(c))`` with ``c`` their complex:
+    the one K1 kernel that would keep ``c`` in registers, where the fusion
+    pass writes it (``periodogram_graph``)."""
+    re = pt.tensor("re", dtype=dtype, shape=(None, None))
+    im = pt.tensor("im", dtype=dtype, shape=(None, None))
+    c = pt.complex(re, im)
+    return [re, im], [pt.sqr(pt.abs(c)), pt.angle(c)]

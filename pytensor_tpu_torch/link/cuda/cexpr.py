@@ -12,6 +12,11 @@ double, and its result is rounded to the nearest bfloat16 before the next
 op reads it (``k2_rbf``): XLA and torch round each bfloat16 op's result
 so, and rounding only once at the end of a fused chain gives other values.
 ``expression`` and ``operand`` write both rules.
+
+A complex64 or complex128 value is a ``float2`` or ``double2`` (cuComplex's
+layout: the real part, then the imaginary part) in memory and in
+registers; its ops are the functions of ``COMPLEX_SOURCE``, numpy's
+definitions (``CCEXPR``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ CTYPES = {
     "float32": "float", "float64": "double", "bfloat16": "__nv_bfloat16", "bool": "bool",
     "int8": "signed char", "int16": "short", "int32": "int", "int64": "long long",
     "uint8": "unsigned char", "uint16": "unsigned short", "uint32": "unsigned int",
+    "complex64": "float2", "complex128": "double2",
 }
+COMPLEX = ("complex64", "complex128")
 
 # numpy's maximum, which both kernels' sources define: NaN in either
 # operand gives NaN
@@ -67,9 +74,103 @@ template <typename I> __device__ __forceinline__ void k1_store(__nv_bfloat16* p,
 }
 """
 
+# complex64 and complex128 as float2 and double2: numpy's definitions of
+# each op K1 emits (its loops for add, sub, mul and Smith's division, and
+# npy_math's cabs, carg, cexp, clog and csqrt)
+COMPLEX_SOURCE = r"""// complex64 / complex128 as float2 / double2 (the real part, then the
+// imaginary part), numpy's definitions of each op
+__device__ __forceinline__ float2 kc_make(float re, float im) {
+  float2 z;
+  z.x = re;
+  z.y = im;
+  return z;
+}
+__device__ __forceinline__ double2 kc_make(double re, double im) {
+  double2 z;
+  z.x = re;
+  z.y = im;
+  return z;
+}
+#define KC_DEFINE(C, R, F)                                                        \
+  __device__ __forceinline__ C kc_add(C a, C b) { return kc_make(a.x + b.x, a.y + b.y); } \
+  __device__ __forceinline__ C kc_sub(C a, C b) { return kc_make(a.x - b.x, a.y - b.y); } \
+  __device__ __forceinline__ C kc_neg(C a) { return kc_make(-a.x, -a.y); }             \
+  __device__ __forceinline__ C kc_conj(C a) { return kc_make(a.x, -a.y); }            \
+  __device__ __forceinline__ bool kc_eq(C a, C b) { return a.x == b.x && a.y == b.y; } \
+  __device__ __forceinline__ bool kc_neq(C a, C b) { return a.x != b.x || a.y != b.y; } \
+  __device__ __forceinline__ C kc_mul(C a, C b) {                                 \
+    return kc_make(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);                 \
+  }                                                                               \
+  /* Smith's division, as numpy's loop; a zero divisor gives inf or NaN */        \
+  __device__ __forceinline__ C kc_div(C a, C b) {                                 \
+    const R br = fabs##F(b.x), bi = fabs##F(b.y);                                 \
+    if (br >= bi) {                                                               \
+      if (br == 0 && bi == 0) return kc_make(a.x / br, a.y / br);                 \
+      const R rat = b.y / b.x, scl = (R)1 / (b.x + b.y * rat);                    \
+      return kc_make((a.x + a.y * rat) * scl, (a.y - a.x * rat) * scl);           \
+    }                                                                             \
+    const R rat = b.x / b.y, scl = (R)1 / (b.y + b.x * rat);                      \
+    return kc_make((a.x * rat + a.y) * scl, (a.y * rat - a.x) * scl);             \
+  }                                                                               \
+  /* the modulus without overflow or underflow */                                 \
+  __device__ __forceinline__ R kc_abs(C a) { return hypot##F(a.x, a.y); }          \
+  __device__ __forceinline__ R kc_angle(C a) { return atan2##F(a.y, a.x); }        \
+  __device__ __forceinline__ C kc_exp(C a) {                                      \
+    const R e = exp##F(a.x);                                                      \
+    if (a.y == 0) return kc_make(e, a.y);                                         \
+    return kc_make(e * cos##F(a.y), e * sin##F(a.y));                             \
+  }                                                                               \
+  /* npy_clog: log1p near |z| = 1, where log(|z|) would cancel */                 \
+  __device__ __forceinline__ C kc_log(C a) {                                      \
+    const R ax = fabs##F(a.x), ay = fabs##F(a.y);                                 \
+    const R h = hypot##F(ax, ay);                                                 \
+    R rr;                                                                         \
+    if (h >= (R)0.71 && h <= (R)1.73) {                                           \
+      const R am = ax > ay ? ax : ay, an = ax > ay ? ay : ax;                     \
+      rr = log1p##F((am - 1) * (am + 1) + an * an) / 2;                           \
+    } else {                                                                      \
+      rr = log##F(h);                                                             \
+    }                                                                             \
+    return kc_make(rr, atan2##F(a.y, a.x));                                       \
+  }
+KC_DEFINE(float2, float, f)
+KC_DEFINE(double2, double, )
+#undef KC_DEFINE
+// npy_csqrt (C99's csqrt): the branch cut's sign, infinities and NaN as C
+// says; a complex128 is scaled by 1/4 near overflow, a complex64 computed
+// in double
+__device__ __forceinline__ double2 kc_sqrt(double2 z) {
+  const double a = z.x, b = z.y;
+  if (a == 0 && b == 0) return kc_make(0.0, b);
+  if (isinf(b)) return kc_make((double)INFINITY, b);
+  if (isnan(a)) return kc_make(a, (b - b) / (b - b));
+  if (isinf(a)) {
+    if (signbit(a)) return kc_make(fabs(b - b), copysign(a, b));
+    return kc_make(a, copysign(b - b, b));
+  }
+  const double big = 7.446288774449766337959726e+307;
+  const bool scale = fabs(a) >= big || fabs(b) >= big;
+  const double s = scale ? 0.25 : 1.0, x = a * s, y = b * s;
+  double2 r;
+  if (x >= 0) {
+    const double t = sqrt((x + hypot(x, y)) * 0.5);
+    r = kc_make(t, y / (2 * t));
+  } else {
+    const double t = sqrt((-x + hypot(x, y)) * 0.5);
+    r = kc_make(fabs(y) / (2 * t), copysign(t, y));
+  }
+  return scale ? kc_make(r.x * 2, r.y * 2) : r;
+}
+__device__ __forceinline__ float2 kc_sqrt(float2 z) {
+  const double2 r = kc_sqrt(kc_make((double)z.x, (double)z.y));
+  return kc_make((float)r.x, (float)r.y);
+}
+"""
+
 # helper functions an expression may call, by name; a source defines the
 # ones its expressions call (``helpers``)
 HELPERS = {
+    "kc_make": COMPLEX_SOURCE,
     "k2_rbf": BF16_SOURCE,
     "k2_max": MAX_SOURCE,
     "k2_min": """// numpy's minimum: NaN in either operand gives NaN
@@ -155,7 +256,11 @@ HELPERS.update(special.HELPERS)
 # the other helpers that a helper calls
 _HELPER_NEEDS = {"k2_mod": ("k2_floordiv",), **special.NEEDS}
 # the functions a helper defines, where its name is not the one called
-_HELPER_ENTRIES = {"k2_rbf": ("k2_rbf", "k2_ldbf", "k2_stbf", "k2_bfbits"), **special.ENTRIES}
+_HELPER_ENTRIES = {"k2_rbf": ("k2_rbf", "k2_ldbf", "k2_stbf", "k2_bfbits"),
+                   "kc_make": ("kc_make", "kc_add", "kc_sub", "kc_neg", "kc_conj", "kc_eq",
+                               "kc_neq", "kc_mul", "kc_div", "kc_abs", "kc_angle", "kc_exp",
+                               "kc_log", "kc_sqrt"),
+                   **special.ENTRIES}
 
 
 def helpers(body: str, have=("k2_max",)) -> str:
@@ -198,6 +303,11 @@ def operand(expr, src, dst) -> str:
     narrowed to bfloat16 it is rounded (through float, as torch converts)."""
     if src == dst or (src == "bfloat16" and dst == "float32"):
         return expr
+    if dst in COMPLEX:
+        r = rtype(_REAL[dst])
+        if src in COMPLEX:
+            return f"kc_make(({r})({expr}).x, ({r})({expr}).y)"
+        return f"kc_make(({r}){expr}, ({r})0)"
     if dst == "bfloat16":
         return f"k2_rbf((float){expr})"
     return f"(({rtype(dst)}){expr})"
@@ -211,6 +321,9 @@ def expression(name, args, comp, out) -> str:
     pair, as the plain version's fold does, and ``sigmoid`` after each of
     its ops, as ``jax.nn.sigmoid`` does."""
     t = comp[0]
+    if out in COMPLEX or any(c in COMPLEX for c in comp):
+        # each expression is of the output's C type already
+        return CCEXPR[name](args)
     if "bfloat16" not in comp:
         return f"({rtype(out)}){CEXPR[name](args, t)}"
     wide = "float64" if name in special.CEXPR else "float32"
@@ -355,9 +468,51 @@ CEXPR = {
 }
 
 
+_REAL = {"complex64": "float32", "complex128": "float64"}
+
+
+def _fold(fn, a):
+    acc = a[0]
+    for b in a[1:]:
+        acc = f"{fn}({acc}, {b})"
+    return acc
+
+
+def _part(field):
+    return lambda a: f"({a[0]}).{field}"
+
+
+# scalar op name -> C++ expression over complex operands (``float2`` or
+# ``double2``), already cast to their compute dtypes: the ops K1 emits for
+# complex64 and complex128 (``tensor/fused_kernel.py _COMPLEX_OPS``)
+CCEXPR = {
+    "real": _part("x"),
+    "imag": _part("y"),
+    "conj": lambda a: f"kc_conj({a[0]})",
+    "angle": lambda a: f"kc_angle({a[0]})",
+    "abs": lambda a: f"kc_abs({a[0]})",
+    "complex": lambda a: f"kc_make({a[0]}, {a[1]})",
+    "neg": lambda a: f"kc_neg({a[0]})",
+    "add": lambda a: _fold("kc_add", a),
+    "sub": lambda a: f"kc_sub({a[0]}, {a[1]})",
+    "mul": lambda a: _fold("kc_mul", a),
+    "true_div": lambda a: f"kc_div({a[0]}, {a[1]})",
+    "sqr": lambda a: f"kc_mul({a[0]}, {a[0]})",
+    "exp": lambda a: f"kc_exp({a[0]})",
+    "log": lambda a: f"kc_log({a[0]})",
+    "sqrt": lambda a: f"kc_sqrt({a[0]})",
+    "eq": lambda a: f"kc_eq({a[0]}, {a[1]})",
+    "neq": lambda a: f"kc_neq({a[0]}, {a[1]})",
+    "identity": lambda a: a[0],
+}
+
+
 def literal(value, dtype) -> str:
     """An exact C++ literal of ``value`` in ``dtype`` (a hex float for a
     float: ``0x1.999999999999ap-4`` is float64's 0.1)."""
+    if dtype in COMPLEX:
+        v = complex(np.asarray(value).astype(dtype).item())
+        return f"kc_make({literal(v.real, _REAL[dtype])}, {literal(v.imag, _REAL[dtype])})"
     v = np.asarray(value).astype(np_dtype(dtype)).item()
     if dtype == "bool":
         return "true" if v else "false"

@@ -5,7 +5,8 @@ made from one seed; ``as_torch`` turns such a value into a tensor of the
 same dtype and shape on an explicit device.  The linker uses it for graph
 constants and the tests for inputs.  numpy has no bfloat16: a bfloat16
 value on the host is an ``ml_dtypes.bfloat16`` array, which torch refuses,
-so it crosses as its 16 bits (``as_torch``, ``to_numpy``).  A sparse matrix reaches both
+so it crosses as its 16 bits (``as_torch``, ``to_numpy``).  complex64 and
+complex128 cross as they are (a ``torch.conj`` view is resolved first).  A sparse matrix reaches both
 packages as a scipy matrix; ``sparse_as_torch`` turns it into the port's
 one sparse value, the canonical CSR triple of ``CSR`` on a device.
 """
@@ -114,6 +115,8 @@ def to_numpy(value: torch.Tensor) -> np.ndarray:
     """A tensor's value as a numpy array on the host; a bfloat16 tensor as
     an ``ml_dtypes.bfloat16`` array of the same bits."""
     value = value.detach().cpu()
+    if value.is_complex():
+        value = value.resolve_conj()
     if value.dtype == torch.bfloat16:
         import ml_dtypes
 

@@ -6,7 +6,8 @@ and the lowerings at ``:155-760``, with the blas lowerings of
 of ``:870``, with those of ``extra_ops`` and ``sort`` at ``:772-868``;
 the lowerings of ``FromFunctionOp`` and ``Print`` wait for their
 modules), of the lowerings of ``pytensor_tpu/tensor/einsum.py:229``,
-``fft.py:142`` and ``signal/conv.py:180``, of the Scan lowering at
+``fft.py:142`` and ``signal/conv.py:180``, of those of
+``pytensor_tpu/tensor/optimize.py:346`` (in ``link/torch/optimize.py``), of the Scan lowering at
 ``pytensor_tpu/scan/op.py:790`` and of the sparse lowerings at
 ``pytensor_tpu/sparse/basic.py:642-757`` and ``sparse/spmv.py:412``.
 ``torch_funcify(op, node=node, device=device)`` returns a function of
@@ -394,6 +395,8 @@ def _careduce(op, node=None, **kw):
             return x.to(out).clone()
         if name == "add":
             r = torch.sum(x, dim=dims, dtype=acc)
+        elif name in ("maximum", "minimum") and x.is_complex():
+            r = _complex_extreme(x, dims, name == "maximum")
         elif name == "maximum":
             # NaN propagates, as in numpy's maximum.reduce
             r = torch.amax(x, dim=dims)
@@ -410,6 +413,16 @@ def _careduce(op, node=None, **kw):
         return r if r.dtype == out else r.to(out)
 
     return careduce
+
+
+def _complex_extreme(x, dims, largest):
+    """numpy's max (or min) of complex values over ``dims``: the real parts'
+    extreme, then the imaginary parts' among the values that reach it."""
+    ext = torch.amax if largest else torch.amin
+    re = ext(x.real, dim=dims, keepdim=True)
+    fill = -torch.inf if largest else torch.inf
+    im = ext(torch.where(x.real == re, x.imag, torch.full_like(x.imag, fill)), dim=dims)
+    return torch.complex(re.squeeze(dims), im)
 
 
 def _unsigned_careduce(op, node):
@@ -1635,8 +1648,57 @@ def _core_ports(kind):
     return lambda node: ports_of(_core_node(node), kind)
 
 
+def _scatter_index(node):
+    """A Blockwise of ``IncSubtensor`` by one integer index of the core's
+    first axis (a row of a vectorized ``jacobian``): one scatter of the
+    whole batch, its index read on the device (``_batched_inc_subtensor``)."""
+    core = node.op.core_op
+    return (isinstance(core, IncSubtensor) and tuple(core.idx_list) == (DYN,)
+            and len(node.inputs) == 3)
+
+
+def _blockwise_host(node):
+    return () if _scatter_index(node) else _core_ports("host")(node)
+
+
+def _batched_inc_subtensor(op, node):
+    """``x[b][i[b]] (+)= y[b]`` for every element b of the batch, as one
+    advanced-index write with nothing read back: a negative index counts
+    from the end, and the update of an index still out of range is dropped,
+    as the JAX package's ``x.at[i]`` scatter drops it (the numpy oracle
+    raises)."""
+    set_mode = op.core_op.set_instead_of_inc
+    cx = node.inputs[0].type.ndim - node.inputs[2].type.ndim
+    cy = node.inputs[1].type.ndim - node.inputs[2].type.ndim
+    dtype = torch_dtype(node.outputs[0].type.dtype)
+
+    def scatter(x, y, i):
+        core, ycore = tuple(x.shape[x.ndim - cx:]), tuple(y.shape[y.ndim - cy:])
+        batch = tuple(torch.broadcast_shapes(x.shape[:x.ndim - cx], y.shape[:y.ndim - cy],
+                                             i.shape))
+        n = int(np.prod(batch))
+        out = x.to(dtype).expand(batch + core).reshape((n,) + core).clone()
+        idx = i.expand(batch).reshape(-1)
+        idx = torch.where(idx < 0, idx + core[0], idx)
+        keep = ((idx >= 0) & (idx < core[0])).reshape((n,) + (1,) * (len(core) - 1))
+        idx = idx.clamp(0, core[0] - 1)
+        rows = torch.arange(n, device=out.device)
+        # y's core broadcast against the row: (n,), 1s, then its own axes
+        vals = y.to(dtype).expand(batch + ycore).reshape(
+            (n,) + (1,) * (len(core) - 1 - len(ycore)) + ycore)
+        if set_mode:
+            # a dropped row is written with its own value
+            out[rows, idx] = torch.where(keep, vals, out[rows, idx])
+        else:
+            out[rows, idx] += torch.where(keep, vals, torch.zeros((), dtype=dtype,
+                                                                  device=out.device))
+        return out.reshape(batch + core)
+
+    return scatter
+
+
 @torch_funcify.register(Blockwise)
-@ports(host=_core_ports("host"), checked=_core_ports("checked"),
+@ports(host=_blockwise_host, checked=_core_ports("checked"),
        scalar=_core_ports("scalar"), reads_back=_core_ports("reads_back"))
 def _blockwise(op, node=None, device=None, **kw):
     """The core lowering over the broadcast batch dimensions
@@ -1646,7 +1708,10 @@ def _blockwise(op, node=None, device=None, **kw):
     lowering that declares ``batched`` (``ports``: the linalg lowerings, a
     ``Dot`` of 2-d cores) takes the batch itself in one call, as XLA
     batches a custom call under ``vmap``; any other runs once for each
-    element of the flattened batch."""
+    element of the flattened batch.  A Blockwise of ``IncSubtensor`` by one
+    integer index is one scatter (``_batched_inc_subtensor``)."""
+    if _scatter_index(node):
+        return _batched_inc_subtensor(op, node)
     in_core, _ = op._core_ndims()
     core_fn = torch_funcify(op.core_op, node=_core_node(node), device=device)
     batched = ports_of(node, "batched", op=op.core_op)
@@ -1870,3 +1935,8 @@ def _routed_spmv(op, node=None, **kw):
         return spmv(indptr, indices, data, x.contiguous())
 
     return routed_spmv
+
+
+# the lowerings of tensor/optimize.py's ops (BFGS and Newton), in a module
+# of their own
+import pytensor_tpu_torch.link.torch.optimize  # noqa: E402,F401

@@ -419,11 +419,16 @@ class CapturedGraph:
     def replay(self, args):
         for buffer, value in zip(self.inputs, args):
             _copy_into(buffer, value)
+        # fresh outputs: a later replay overwrites the graph's own
+        return tuple(_clone(o) for o in self.run())
+
+    def run(self):
+        """Replay on the static inputs as they are; returns the graph's own
+        outputs, which the next replay overwrites."""
         self.graph.replay()
         for kernel, n in self.launches:
             kernel.LAUNCHES += n
-        # fresh outputs: a later replay overwrites the graph's own
-        return tuple(_clone(o) for o in self.outputs)
+        return self.outputs
 
 
 class CapturedFunction:

@@ -1,9 +1,8 @@
 """Scalar op descriptors: the element-wise kernel table.
 
 Counterpart of ``pytensor_tpu/scalar/basic.py`` (PyTensor's
-scalar/basic.py ScalarOp:1151), every op but the complex ones (``real``,
-``imag``, ``conj``, ``angle``, ``complex``: the port has no complex
-dtypes yet).  Each descriptor carries a numpy implementation (what
+scalar/basic.py ScalarOp:1151), the complex ones (``real``, ``imag``,
+``conj``, ``angle``, ``complex``) included.  Each descriptor carries a numpy implementation (what
 constant folding evaluates, and the JAX package's oracle), a torch
 implementation (what the linker and the plain versions of the kernels
 call; where torch and numpy differ, as at an integer divisor of 0 or the
@@ -53,6 +52,11 @@ def upcast_float(*dtypes: str) -> str:
         # (bool/int8/int16 -> float32, int32/int64 -> float64)
         return str(np.promote_types(np.dtype(out), np.float32))
     return out
+
+
+def real_dtype(dtype: str) -> str:
+    """The dtype of a complex dtype's parts; any other dtype is its own."""
+    return {"complex64": "float32", "complex128": "float64"}.get(str(dtype), str(dtype))
 
 
 def _dg():
@@ -132,6 +136,13 @@ class ScalarOp(MetaObject):
         input_dtypes = [str(d) for d in input_dtypes]
         if self.name == "second" or self.name.startswith("cast{"):
             return input_dtypes
+        if self.name == "complex":
+            # the two parts in the output's real dtype
+            return [real_dtype(out_dtype)] * 2
+        if dtype_kind(out_dtype) != "c" and any(dtype_kind(d) == "c" for d in input_dtypes):
+            # a real result of complex operands (real, imag, angle, abs, a
+            # comparison): the operands' common dtype
+            return [upcast(*input_dtypes)] * len(input_dtypes)
         if out_dtype == "bool":
             return [upcast(*input_dtypes)] * len(input_dtypes)
         if self.name == "switch":
@@ -213,7 +224,21 @@ mul = _op(
     _mul_grad, identity=1, commutative=True,
 )
 
-sub = _op("sub", 2, np.subtract, torch.sub, lambda i, o, gz: [gz[0], -gz[0]])
+def _by_parts(fn, parts):
+    """``fn``, or for complex operands ``parts`` of their real and
+    imaginary parts: numpy's signs of zero (torch's complex neg and sub
+    give +0.0 where numpy gives -0.0)."""
+    def by_parts(*a):
+        if not any(x.is_complex() for x in a):
+            return fn(*a)
+        a = [x if x.is_complex() else torch.complex(x, torch.zeros_like(x)) for x in a]
+        return torch.complex(parts(*(x.real for x in a)), parts(*(x.imag for x in a)))
+
+    return by_parts
+
+
+sub = _op("sub", 2, np.subtract, _by_parts(torch.sub, torch.sub),
+          lambda i, o, gz: [gz[0], -gz[0]])
 
 
 def _true_div_grad(i, o, gz):
@@ -239,7 +264,7 @@ def _pow_grad(i, o, gz):
 
 
 pow = _op("pow", 2, np.power, torch.pow, _pow_grad)
-neg = _op("neg", 1, np.negative, torch.neg, lambda i, o, gz: [-gz[0]])
+neg = _op("neg", 1, np.negative, _by_parts(torch.neg, torch.neg), lambda i, o, gz: [-gz[0]])
 
 
 def _bool_identity(fn):
@@ -249,13 +274,17 @@ def _bool_identity(fn):
     return lambda a: a.clone() if a.dtype == torch.bool else fn(a)
 
 
+# abs of a complex is its modulus, a real: numpy's dtype (and PyTensor's);
+# the JAX package types it complex (ROADMAP Queue 3)
 abs = _op("abs", 1, np.abs, _bool_identity(torch.abs),
-          lambda i, o, gz: [gz[0] * _tm().sign(i[0])])
+          lambda i, o, gz: [gz[0] * _tm().sign(i[0])], dtype_rule=lambda a: real_dtype(a))
 
 
 def _sign(a):
     """jnp.sign's values: a float zero keeps its sign and NaN stays NaN
-    (torch.sign gives +0.0 for both)."""
+    (torch.sign gives +0.0 for both); a complex z is z / |z|."""
+    if a.is_complex():
+        return torch.sgn(a)
     if not a.is_floating_point():
         return torch.sign(a)
     return torch.where((a == 0) | a.isnan(), a, torch.sign(a))
@@ -270,8 +299,20 @@ reciprocal = _op("reciprocal", 1, np.reciprocal, torch.reciprocal,
                  lambda i, o, gz: [-gz[0] * o[0] * o[0]], dtype_rule="float")
 exp = _op("exp", 1, np.exp, torch.exp,
           lambda i, o, gz: [gz[0] * o[0]], dtype_rule="float")
-log = _op("log", 1, np.log, torch.log,
-          lambda i, o, gz: [gz[0] / i[0]], dtype_rule="float")
+def _log(a):
+    """torch.log; of a complex tensor numpy's ``npy_clog``, ``log1p`` near
+    the unit circle (torch's takes ``log(|z|)``, which cancels there)."""
+    if not a.is_complex():
+        return torch.log(a)
+    ax, ay = a.real.abs(), a.imag.abs()
+    h = torch.hypot(ax, ay)
+    am, an = torch.maximum(ax, ay), torch.minimum(ax, ay)
+    near = (h >= 0.71) & (h <= 1.73)
+    rr = torch.where(near, torch.log1p((am - 1) * (am + 1) + an * an) / 2, torch.log(h))
+    return torch.complex(rr, torch.atan2(a.imag, a.real))
+
+
+log = _op("log", 1, np.log, _log, lambda i, o, gz: [gz[0] / i[0]], dtype_rule="float")
 sin = _op("sin", 1, np.sin, torch.sin,
           lambda i, o, gz: [gz[0] * _tm().cos(i[0])], dtype_rule="float")
 cos = _op("cos", 1, np.cos, torch.cos,
@@ -284,10 +325,36 @@ def _zero_like(x):
     return x.zeros_like(dtype=config.floatX) if _is_discrete(x) else x.zeros_like()
 
 
+def _lexicographic(fn, strict):
+    """``fn`` of real tensors; of complex ones numpy's order, the real
+    parts first (by ``strict``, the strict form of ``fn``) and the
+    imaginary parts where those are equal (torch's comparisons refuse
+    complex tensors)."""
+    def compare(a, b):
+        if not (a.is_complex() or b.is_complex()):
+            return fn(a, b)
+        return strict(a.real, b.real) | ((a.real == b.real) & fn(a.imag, b.imag))
+
+    return compare
+
+
+def _complex_maximum(fn, pick):
+    """numpy's maximum (``pick=torch.gt``) or minimum (``torch.lt``) of
+    complex operands: the operand first in that order, NaN from either."""
+    def extreme(a, b):
+        if not (a.is_complex() or b.is_complex()):
+            return fn(a, b)
+        a, b = torch.broadcast_tensors(a, b)
+        first = _lexicographic(pick, pick)(a, b) | (a == b) | a.isnan()
+        return torch.where(first & ~b.isnan(), a, b)
+
+    return extreme
+
+
 # comparisons -> bool
-lt = _op("lt", 2, np.less, torch.lt,
+lt = _op("lt", 2, np.less, _lexicographic(torch.lt, torch.lt),
          lambda i, o, gz: [_zero_like(i[0]), _zero_like(i[1])], dtype_rule=lambda a, b: "bool")
-ge = _op("ge", 2, np.greater_equal, torch.ge,
+ge = _op("ge", 2, np.greater_equal, _lexicographic(torch.ge, torch.gt),
          lambda i, o, gz: [_zero_like(i[0]), _zero_like(i[1])], dtype_rule=lambda a, b: "bool")
 eq = _op("eq", 2, np.equal, torch.eq,
          lambda i, o, gz: [_zero_like(i[0]), _zero_like(i[1])], dtype_rule=lambda a, b: "bool",
@@ -302,7 +369,8 @@ def _maximum_grad(i, o, gz):
     return [gx, gy]
 
 
-maximum = _op("maximum", 2, np.maximum, torch.maximum, _maximum_grad, commutative=True)
+maximum = _op("maximum", 2, np.maximum, _complex_maximum(torch.maximum, torch.gt), _maximum_grad,
+              commutative=True)
 
 
 def _second_grad(i, o, gz):
@@ -476,8 +544,8 @@ def _cmp_grad(i, o, gz):
     return [_zero_like(x) for x in i]
 
 
-gt = _op("gt", 2, np.greater, torch.gt, _cmp_grad, dtype_rule="bool")
-le = _op("le", 2, np.less_equal, torch.le, _cmp_grad, dtype_rule="bool")
+gt = _op("gt", 2, np.greater, _lexicographic(torch.gt, torch.gt), _cmp_grad, dtype_rule="bool")
+le = _op("le", 2, np.less_equal, _lexicographic(torch.le, torch.lt), _cmp_grad, dtype_rule="bool")
 neq = _op("neq", 2, np.not_equal, torch.ne, _cmp_grad, dtype_rule="bool", commutative=True)
 isnan = _op("isnan", 1, np.isnan, torch.isnan, _cmp_grad, dtype_rule="bool")
 isinf = _op("isinf", 1, np.isinf, torch.isinf, _cmp_grad, dtype_rule="bool")
@@ -500,7 +568,8 @@ def _torch_minimum(a, b):
     return torch.where((a < b) | a.isnan(), a, b)
 
 
-minimum = _op("minimum", 2, np.minimum, _torch_minimum, _minimum_grad, commutative=True)
+minimum = _op("minimum", 2, np.minimum, _complex_maximum(_torch_minimum, torch.lt), _minimum_grad,
+              commutative=True)
 
 
 def _int_only(opname):
@@ -569,6 +638,41 @@ def _torch_clip(x, lo, hi):
 
 clip = _op("clip", 3, _np_clip, _torch_clip, _clip_grad,
            dtype_rule=lambda x, lo, hi: upcast(x, lo, hi))
+
+# ---------------------------------------------------------------------------
+# complex (the JAX package's scalar/basic.py:605-615)
+# ---------------------------------------------------------------------------
+
+def _part(fn):
+    """A part of a complex tensor, or of a real one (its real part is
+    itself and its imaginary part 0), as a fresh tensor: torch's are views."""
+    def part(a):
+        if a.is_complex():
+            return fn(a).clone()
+        return a.clone() if fn is torch.real else torch.zeros_like(a)
+
+    return part
+
+
+def _conj(a):
+    # conj_physical: torch.conj only sets a flag, which numpy() refuses
+    return torch.conj_physical(a) if a.is_complex() else a.clone()
+
+
+def _complex_dtype(a, b):
+    # the JAX package's rule: complex128 where the parts upcast to float64
+    return "complex128" if upcast(a, b) == "float64" else "complex64"
+
+
+real = _op("real", 1, np.real, _part(torch.real), dtype_rule=real_dtype)
+imag = _op("imag", 1, np.imag, _part(torch.imag), dtype_rule=real_dtype)
+# numpy's dtype, a real one; the JAX package types the angle of a complex
+# complex (ROADMAP Queue 3)
+angle = _op("angle", 1, np.angle, torch.angle,
+            dtype_rule=lambda a: real_dtype(upcast_float(a)))
+conj = _op("conj", 1, np.conj, _conj, lambda i, o, gz: [_tm().conj(gz[0])], dtype_rule="first")
+complex_op = _op("complex", 2, lambda re, im: re + 1j * im, torch.complex,
+                 dtype_rule=_complex_dtype)
 
 # casts: one op per target dtype
 _cast_ops: dict[str, ScalarOp] = {}

@@ -6,11 +6,11 @@ port has: ``type``, ``variable``, ``elemwise``, ``basic``, ``math``,
 ``sharedvar``, ``utils``, ``exceptions``, ``linalg``, ``sort``,
 ``extra_ops``, ``einsum``, ``functional``, ``reshape``, ``pad``, ``fft``,
 ``fourier``, ``signal``, ``interpolate`` and ``transfer``, with the
-special functions and ``special``'s softmax family.  Not yet here
-(ROADMAP Queue 1): ``optimize`` and the complex ops (item 12's tail), the
-shape-parameter gradients (item 10b), ``random`` (item 7) and complex
-tensors.  bfloat16 tensors are here (``ml_dtypes.bfloat16`` arrays on the
-host).
+special functions, ``special``'s softmax family, ``optimize`` and the
+complex ops.  Not yet here (ROADMAP Queue 1): the shape-parameter
+gradients (item 10b) and ``random`` (item 7).  bfloat16 tensors are here
+(``ml_dtypes.bfloat16`` arrays on the host), and complex64 and complex128
+ones.
 """
 
 from pytensor_tpu_torch.tensor.type import *  # noqa: F401,F403
@@ -102,6 +102,7 @@ from pytensor_tpu_torch.tensor.math import (  # noqa: F401
     sum,
 )
 from pytensor_tpu_torch.tensor.math import sign as sgn  # noqa: F401
+from pytensor_tpu_torch.tensor.math import conj as conjugate  # noqa: F401
 from pytensor_tpu_torch.tensor.basic import diagonal as extract_diag  # noqa: F401
 from pytensor_tpu_torch.tensor.shape import (  # noqa: F401
     Reshape,
@@ -173,6 +174,16 @@ def scalar_from_tensor(x):
     return x
 
 
+def complex_from_polar(abs_, angle):
+    """``abs_ * exp(1j * angle)`` in complex128, as the JAX package builds it."""
+    from pytensor_tpu_torch.tensor import math as _m
+
+    re = abs_ * _m.cos(angle)
+    im = abs_ * _m.sin(angle)
+    return (cast(re, "complex128")
+            + cast(as_tensor_variable(1j), "complex128") * cast(im, "complex128"))
+
+
 def concat_with_broadcast(tensor_list, axis=0):
     """Concatenate after broadcasting all non-axis dims to a common shape
     (PyTensor's tensor/basic.py concat_with_broadcast)."""
@@ -238,6 +249,7 @@ import pytensor_tpu_torch.tensor.fft as fft  # noqa: F401,E402
 import pytensor_tpu_torch.tensor.signal as signal  # noqa: F401,E402
 from pytensor_tpu_torch.tensor.signal import convolve1d, convolve2d  # noqa: F401,E402
 from pytensor_tpu_torch.tensor import transfer  # noqa: F401,E402
+import pytensor_tpu_torch.tensor.optimize as optimize  # noqa: F401,E402
 
 # the legacy names of the linalg namespace, as in the JAX package
 slinalg = linalg

@@ -57,12 +57,25 @@ about that:
   bound by bytes: at 2**24 elements the MFU step's class of node (three
   inputs, two outputs) moves 168 MB.
 
+- **complex64 and complex128.** An operand is a ``float2`` or ``double2``
+  (cuComplex's layout) in memory and in registers, and the ops of
+  ``_COMPLEX_OPS`` are numpy's definitions (``link/cuda/cexpr.py
+  COMPLEX_SOURCE``): Smith's division, the modulus by ``hypot``, ``clog``
+  by ``log1p`` near the unit circle, C99's ``csqrt``.  A complex value
+  inside a group stays in registers, and a kernel whose operands are all
+  complex64 loads and stores two of them a 16-byte vector.  The pass
+  stays bound by bytes: a complex op over 2**24 complex128 elements moves
+  256 MB or more.
+
 ``emittable`` (and so ``tensor/fused.py fusable``) admits every op of the
 expression table but ``second`` (``_OPS``, as the JAX package's fusion
 groups every Elemwise but casts and ``second``) at the dtypes of
 ``_DTYPES`` (but ``_NO_BF16`` in bfloat16), the ops of ``_FLOAT_ONLY`` at
-float dtypes only and the ops of ``_BOOL_OPS`` with a bool result, so the rewritten graphs hold the same
-FusedElemwise nodes as the JAX package's.  Each operand is cast to its
+float dtypes only, the ops of ``_BOOL_OPS`` with a bool result and the
+ops of ``_COMPLEX_OPS`` where an operand is complex (``real``, ``imag``,
+``conj`` and ``angle`` of a complex operand only), so the rewritten graphs
+hold the same FusedElemwise nodes as the JAX package's but where a complex
+op is not among them.  Each operand is cast to its
 compute dtype first (``ScalarOp.compute_dtypes``, the plain version's
 rule).  The plain version evaluates the inner graph with torch
 ops; the wrapper takes it for CPU tensors only, and on CUDA tensors
@@ -80,7 +93,9 @@ import torch
 
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.link.cuda.cexpr import (
+    CCEXPR,
     CEXPR,
+    COMPLEX,
     ctype,
     expression,
     helpers,
@@ -106,10 +121,11 @@ LAUNCHES = 0
 # (kernels, seconds, compiler log) of every nvcc build of K1 in this process
 BUILDS: list = []
 
-_DTYPES = ("float32", "float64", "bfloat16", "bool", "int8", "int16", "int32", "int64")
+_DTYPES = ("float32", "float64", "bfloat16", "bool", "int8", "int16", "int32", "int64",
+           "complex64", "complex128")
 # every op of the expression table but ``second``: the JAX package's fusion
 # groups every Elemwise but casts and ``second`` (its tensor/fused.py:147)
-_OPS = frozenset(CEXPR) - {"second"}
+_OPS = (frozenset(CEXPR) | frozenset(CCEXPR)) - {"second"}
 # ops K1 emits for floats only (an integer pow has no libdevice form)
 _FLOAT_ONLY = frozenset({"true_div", "reciprocal", "exp", "log", "sqrt", "pow",
                          "sin", "cos", "tanh", "sigmoid"})
@@ -123,8 +139,12 @@ _BOOL_OPS = frozenset({"add", "mul", "abs", "sqr", "maximum", "minimum", "lt", "
 # of floats is a chain of ops, which torch's floor_divide rounds to
 # bfloat16 where K1 would keep float
 _NO_BF16 = frozenset({"int_div"})
-# elements of one 16-byte vector, by C type in memory
-_VECTOR = {"float": 4, "double": 2, "__nv_bfloat16": 8}
+# the ops K1 emits where an operand or the result is complex (the table of
+# ``cexpr.CCEXPR``); the first four take a complex operand only
+_COMPLEX_OPS = frozenset(CCEXPR)
+_COMPLEX_ONLY = frozenset({"real", "imag", "conj", "angle"})
+# elements of one 16-byte vector, by C type in memory (a double2 is one)
+_VECTOR = {"float": 4, "double": 2, "__nv_bfloat16": 8, "float2": 2}
 
 
 def emittable(node) -> bool:
@@ -136,6 +156,12 @@ def emittable(node) -> bool:
     if any(d not in _DTYPES for d in dtypes):
         return False
     if name in _NO_BF16 and "bfloat16" in dtypes:
+        return False
+    complex_in = any(i.type.dtype in COMPLEX for i in node.inputs)
+    if complex_in or any(d in COMPLEX for d in dtypes):
+        return name in _COMPLEX_OPS and ("bfloat16" not in dtypes) and (
+            complex_in or name not in _COMPLEX_ONLY)
+    if name in _COMPLEX_ONLY:
         return False
     out = node.outputs[0].type.dtype
     if out == "bool":
@@ -215,6 +241,15 @@ template <typename I> __device__ __forceinline__ void k1_store(float* p, I j, co
 template <typename I> __device__ __forceinline__ void k1_store(double* p, I j, const double* v) {
   double2 q; q.x = v[0]; q.y = v[1];
   reinterpret_cast<double2*>(p)[j] = q;
+}
+// two complex64 values a 16-byte vector
+template <typename I> __device__ __forceinline__ void k1_load(const float2* p, I j, float2* v) {
+  const float4 q = reinterpret_cast<const float4*>(p)[j];
+  v[0].x = q.x; v[0].y = q.y; v[1].x = q.z; v[1].y = q.w;
+}
+template <typename I> __device__ __forceinline__ void k1_store(float2* p, I j, const float2* v) {
+  float4 q; q.x = v[0].x; q.y = v[0].y; q.z = v[1].x; q.w = v[1].y;
+  reinterpret_cast<float4*>(p)[j] = q;
 }
 
 // Fills the kernel's arguments from the wrapper's arrays (the pointers of
@@ -370,7 +405,7 @@ class FusedElemwiseKernel:
             "  const I first = (I)blockIdx.x * K1_THREADS + (I)threadIdx.x;",
             "  const I step = (I)gridDim.x * K1_THREADS;",
             "  // an input that is one element everywhere: one load a thread",
-            *[f"  const {rt} s{k} = L.xc[{k}] != K1_SCALAR ? ({rt})0 : L.xh[{k}] ? "
+            *[f"  const {rt} s{k} = L.xc[{k}] != K1_SCALAR ? {_zero(rt)} : L.xh[{k}] ? "
               f"{_host_value(ct, k)} : {load(f'x{k}[0]', dt)};"
               for k, (ct, rt, dt) in enumerate(zip(cts, rts, dts))],
             # unit j is vector j below nv, else element j + nv * (V - 1): each
@@ -488,6 +523,9 @@ class FusedElemwiseKernel:
                                    f"got a tensor of shape {tuple(a.shape)} on {a.device}")
             if a.dtype != dt:
                 raise TypeError(f"K1 input dtype {a.dtype} != {dt}")
+            if a.device.type == "cpu" and a.element_size() > 8:
+                raise TypeError(f"K1 takes a host value of at most 8 bytes in its pointer's "
+                                f"place; got {a.dtype}")
             host = host or a.device.type == "cpu"
             # a contiguous tensor's layout is its shape (and, from the host, its device)
             key.append((a.shape, a.device.type) if a.device.type == "cpu" else
@@ -528,6 +566,11 @@ class FusedElemwiseKernel:
         for node in self.order:
             storage[node.outputs[0]] = elemwise_fn(node)(*[storage[i] for i in node.inputs])
         return [storage[o].contiguous() for o in self.outputs]
+
+
+def _zero(rt):
+    """A zero of register type ``rt`` (a complex one has no C cast)."""
+    return f"{rt}{{}}" if rt in ("float2", "double2") else f"({rt})0"
 
 
 def _host_value(ct, k):

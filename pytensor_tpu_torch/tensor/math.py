@@ -3,9 +3,7 @@
 Counterpart of ``pytensor_tpu/tensor/math.py`` (PyTensor's tensor/math.py
 Argmax:142, Dot:3041, Sum/Prod/All/Any:3438-3587 and the elemwise
 wrappers).  Left out: the special functions of ``scalar/math.py`` but
-``sigmoid`` (ROADMAP Queue 1 item 10), the complex ops (``real``,
-``imag``, ``conj``, ``angle``, ``complex``: the port has no complex
-dtypes).  ``matmul`` of operands above 2-d is a ``Blockwise`` of the core
+``sigmoid`` (ROADMAP Queue 1 item 10).  ``matmul`` of operands above 2-d is a ``Blockwise`` of the core
 2-d ``Dot``.  The torch linker runs Dot as ``torch.matmul`` in full
 float32 (``link/torch/dispatch.py``).
 """
@@ -116,6 +114,11 @@ def clip(x, min, max):
 
 
 second = scalar_elemwise(ps.second)
+conj = scalar_elemwise(ps.conj)
+real = scalar_elemwise(ps.real)
+imag = scalar_elemwise(ps.imag)
+angle = scalar_elemwise(ps.angle)
+complex = scalar_elemwise(ps.complex_op)
 # special functions (scalar/math.py)
 erf = scalar_elemwise(psm.erf)
 erfc = scalar_elemwise(psm.erfc)

@@ -35,7 +35,17 @@ def _is_ew(node, name):
 
 
 def _unique_value(v):
-    """Scalar value if v is a constant with all-equal entries, else None."""
+    """Scalar value if v is a constant with all-equal entries, else None.
+    A complex value is its real part where its imaginary part is 0, and
+    None otherwise: the rewrites fold constants as floats, and a complex
+    one with an imaginary part would lose it."""
+    u = _unique_value_any(v)
+    if u is not None and np.iscomplexobj(u):
+        return u.real if u.imag == 0 else None
+    return u
+
+
+def _unique_value_any(v):
     if isinstance(v, TensorConstant):
         return v.unique_value
     if isinstance(v, Constant):

@@ -3,7 +3,8 @@
 // tests/test_torch_fused.py: a grid of blocks run one after another, the
 // threads of a block as a loop (K1 has no barrier and no shuffle), float4
 // and double2 as 16-byte aligned structs, the stream as a pointer that is
-// never read, and cudaGetLastError().  The test includes this header in
+// never read, and cudaGetLastError().  float2 (complex64) is an 8-byte
+// aligned struct.  The test includes this header in
 // place of <cuda_runtime.h> and compiles the source with g++ -std=c++17;
 // k1_host_blocks() gives the grid of the last launch.
 #pragma once
@@ -18,6 +19,7 @@ typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) double2 { double x, y; };
 #include "bf16_host.h"
 

@@ -44,6 +44,15 @@ linked product with cuBLAS's reduced-precision reductions off, captured
 and replayed whatever the caller's setting, which each call restores; K1
 on every op of its table in bfloat16 (the exact ops bit for bit, the
 others within 1 ulp); K2 on a bfloat16 EWMA bit for bit its step loop.
+complex64 and complex128: K1 on every complex op (``cases.COMPLEX_OPS``)
+as a one-node launch against its plain version on the card
+(``cases.complex_held``: exact ops bit for bit, the others within 8
+epsilons of the modulus) and numpy complex128 (``cases.complex_near``),
+and the periodogram's one K1 launch (its ``abs``-``sqr`` group of the
+complex spectrum) and its whole chain as one kernel.  ``tensor/optimize.py``:
+the logistic-regression MAP at n 512, d 16 in float64, BFGS with its
+evaluations replayed (K1 launches at each) and Newton captured whole,
+against the same functions linked for the CPU at ``1e-10``.
 """
 
 import numpy as np
@@ -1242,3 +1251,88 @@ def test_k1_floor_division_keeps_the_sign_of_zero(card):
         got = kern.launch(xv, yv)[0]
         assert torch.equal(torch.signbit(got).cpu(), torch.tensor([True, False, False, True]))
         assert torch.equal(torch.signbit(got), torch.signbit(kern.plain(xv, yv)[0]))
+
+
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_k1_complex_ops_match_plain_and_numpy(card, dtype):
+    """Every complex op K1 emits, one node a launch, on ``cases.complex_values``
+    (signed zeros, units, the axes, parts of very different sizes first)."""
+    from pytensor_tpu_torch.graph.fg import FunctionGraph as FG
+
+    bad = []
+    for name in cases.COMPLEX_OPS:
+        node = cases.complex_node(name, dtype)
+        kern = fused_kernel.FusedElemwiseKernel(FG(list(node.inputs), node.outputs, clone=True),
+                                                card)
+        vals = cases.complex_inputs(name, dtype, 4099, 17)
+        args = [as_torch(v, card) for v in vals]
+        (got,) = kern.launch(*args)
+        (want,) = kern.plain(*args)
+        torch.cuda.synchronize()
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        if not cases.complex_held(got, want, name, dtype):
+            bad.append((name, "plain"))
+        if not cases.complex_near(got, cases.numpy_complex_op(name, vals), dtype):
+            bad.append((name, "numpy"))
+    assert not bad, bad
+
+
+def test_periodogram_is_one_k1_launch(card):
+    """The periodogram (8 x 4,096 float32): one K1 launch a replayed call,
+    for the group of ``abs`` and ``sqr`` (``complex`` and ``angle`` are
+    single nodes, as in the JAX package), its power within ``1e-5`` of its
+    max and its phase within ``2e-3`` (where |c| is above 1e-3 of its max)
+    of float64 NumPy; and the whole chain as one K1 kernel
+    (``cases.periodogram_chain``) within 8 epsilons of its plain version."""
+    import pytensor_tpu_torch as ptt
+
+    f = ptt.function(*cases.periodogram_graph(), device=card)
+    x = torch.randn(8, 4096, device=card)
+    f(x)
+    fused_kernel.LAUNCHES = 0
+    power, phase = f(x)
+    torch.cuda.synchronize()
+    assert fused_kernel.LAUNCHES == 1
+    spec = np.fft.rfft(x.double().cpu().numpy())
+    assert np.abs(power.cpu().numpy() - np.abs(spec) ** 2).max() <= 1e-5 * (np.abs(spec) ** 2).max()
+    big = np.abs(spec) > 1e-3 * np.abs(spec).max()
+    dphi = np.angle(np.exp(1j * (phase.cpu().numpy() - np.angle(spec))))
+    assert np.abs(dphi[big]).max() <= 2e-3
+    kern = fused_kernel.FusedElemwiseKernel(FunctionGraph(*cases.periodogram_chain(),
+                                                          clone=True), card)
+    packed = torch.view_as_real(torch.fft.rfft(x))
+    parts = [packed[..., 0], packed[..., 1]]
+    for got, want in zip(kern.launch(*parts), kern.plain(*parts)):
+        torch.cuda.synchronize()
+        assert cases.complex_held(got.cpu().numpy(), want.cpu().numpy(), "abs", "complex64")
+
+
+def test_logreg_map_on_the_card_matches_the_cpu(card):
+    """The MAP of the logistic regression at n 512, d 16, float64, lam 1e-3:
+    BFGS (its evaluations replayed, each launching K1), Newton (captured
+    whole) and the IFT gradient, each within ``1e-10`` of the same function
+    linked for the CPU."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models.logreg import _xent, make_logreg_graphs
+    from pytensor_tpu_torch.tensor.optimize import minimize, root
+
+    (X, y, w, b), _, (Xv, yv, wv, bv) = make_logreg_graphs(512, 16, "float64")
+    lam = pt.dscalar("lam")
+    obj = _xent(X, y, w, b, "float64") + 0.5 * lam * pt.sum(w ** 2)
+    (ws, ok), _ = minimize(obj, w)
+    (wr, okr), _ = root(ptt.grad(obj, w), w)
+    outs = {"bfgs": [ws, ok, ptt.grad(pt.sum(ws), lam)], "newton": [wr, okr]}
+    vals = [wv, Xv, yv, bv, np.asarray(1e-3)]
+    for kind, o in outs.items():
+        on_card = ptt.function([w, X, y, b, lam], o, device=card)
+        on_cpu = ptt.function([w, X, y, b, lam], o, device="cpu")
+        assert isinstance(on_card.linked, CapturedFunction) == (kind == "newton")
+        on_card(*[as_torch(v, card) for v in vals])
+        fused_kernel.LAUNCHES = 0
+        got = on_card(*[as_torch(v, card) for v in vals])
+        torch.cuda.synchronize()
+        assert fused_kernel.LAUNCHES > 0
+        for g, w_ in zip(got, on_cpu(*vals)):
+            assert np.allclose(g.cpu().numpy(), w_.numpy(), rtol=1e-10, atol=1e-10), kind

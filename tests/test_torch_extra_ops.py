@@ -412,20 +412,20 @@ def test_interp():
 
 
 # the names of this slice's modules the port does not have yet: none of
-# them; tensor/optimize.py and the complex ops are still owed (ROADMAP
-# Queue 1, item 12's tail) and come from modules outside this slice
+# them; tensor/optimize.py and the complex ops, item 12's tail, come from
+# modules outside this slice and are here too
 SLICE_MODULES = ["tensor.extra_ops", "tensor.sort", "tensor.einsum", "tensor.functional",
                  "tensor.reshape", "tensor.pad", "tensor.fft", "tensor.fourier",
                  "tensor.signal", "tensor.signal.conv", "tensor.interpolate", "tensor.transfer"]
-STILL_OWED = {"optimize", "real", "imag", "conj", "conjugate", "angle", "complex",
-              "complex_from_polar"}
+TAIL = {"optimize", "real", "imag", "conj", "conjugate", "angle", "complex",
+        "complex_from_polar"}
 
 
 def test_namespace_holds_every_public_name_of_the_slice():
     """Every public name that ``pytensor_tpu.tensor`` takes from the slice's
     modules (and those modules themselves, ``pt.fft``, ``pt.signal``,
-    ``pt.extra_ops``, ``pt.transfer``) is in ``pytensor_tpu_torch.tensor``;
-    the ones still owed, ``optimize`` and the complex ops, are not yet."""
+    ``pt.extra_ops``, ``pt.transfer``) is in ``pytensor_tpu_torch.tensor``,
+    and so are item 12's tail, ``optimize`` and the complex ops."""
     names = {"fft", "signal", "extra_ops", "transfer", "concat_with_broadcast", "geomspace"}
     for m in SLICE_MODULES:
         jm = importlib.import_module("pytensor_tpu." + m)
@@ -435,8 +435,9 @@ def test_namespace_holds_every_public_name_of_the_slice():
     missing = sorted(n for n in names if not hasattr(tpt, n))
     assert not missing, missing
     assert len(names) > 60
-    assert all(hasattr(jpt, n) for n in STILL_OWED)
-    assert not any(hasattr(tpt, n) for n in STILL_OWED)
+    assert all(hasattr(jpt, n) for n in TAIL)
+    assert all(hasattr(tpt, n) for n in TAIL)
+    assert tpt.optimize.__name__ == "pytensor_tpu_torch.tensor.optimize"
     for sub in ("fft", "signal", "extra_ops", "transfer"):
         assert getattr(tpt, sub).__name__ == "pytensor_tpu_torch.tensor." + sub
     for n in ("broadcast_shape", "concat_with_broadcast"):

@@ -1,4 +1,5 @@
-"""Ten faults once found in the port, each held against the JAX package.
+"""Twelve faults once found in the port, each held against the JAX package
+(the eleventh against numpy: the JAX package has it too).
 
 The same numpy inputs go through ``function()`` of both packages on the
 CPU (FAST_RUN in both), and the port must give what the JAX package gives:
@@ -25,7 +26,25 @@ and the five of ROADMAP Queue 3 (repaired together):
 9. ``uint16``, ``uint32`` and ``uint64``: held in int64, compared,
    divided and converted as unsigned (``sum`` of three uint8 200s is 600,
    uint64);
-10. ``QR(mode="raw")``: numpy's ``(h, tau)``.
+10. ``QR(mode="raw")``: numpy's ``(h, tau)``;
+
+and one found with the complex dtypes:
+
+11. the constant-folding rewrites (``local_mul_div_canonizer``, the add
+    canonizer, ``x / 1``, ``0 / x``) read a constant through ``float()``,
+    which drops a complex constant's imaginary part: ``z * 2j * 3`` was 0
+    and ``complex_from_polar`` real.  A complex constant with an imaginary
+    part is no longer a foldable scalar (``tensor/rewriting/math.py
+    _unique_value``).  The JAX package keeps the fault (pinned; ROADMAP
+    Queue 3).
+
+and one found in the port's batched index write:
+
+12. a ``Blockwise`` of ``set_``/``inc_subtensor`` by one integer index (a
+    vectorized ``jacobian``'s row, one scatter on the device) clamped an
+    index out of range into the edge row and wrote there; the JAX
+    package's ``x.at[i]`` scatter drops that update, and a negative index
+    counts from the end in both.
 
 Values are compared exactly (bools, signs of zero) or at ``rtol 1e-12``.
 """
@@ -283,3 +302,51 @@ def test_qr_raw_gives_numpys_h_and_tau():
         node = pt.linalg.qr(pt.tensor("x", dtype="float64", shape=(5, 3)), mode="raw")[0].owner
         types.append([o.type.shape for o in node.outputs])
     assert types[0] == types[1] == [(5, 5), (5, 3)]
+
+
+def test_complex_constants_keep_their_imaginary_part():
+    """``z * 2j * 3``, ``z + 1j + 2``, ``(z * 2) / 4j``, ``z / (1 + 2j)`` and
+    ``(0 + 5j) / z`` against numpy; the JAX package's value, pinned, drops
+    the constants' imaginary parts (``float()`` of ``2j`` is 0)."""
+    z = np.array([1 + 1j, -2 + 0.5j, 3 - 4j])
+
+    def build(p, t, a):
+        return [a * 2j * 3, a + 1j + 2, (a * 2) / 4j, a / (1 + 2j), (0 + 5j) / a]
+
+    with np.errstate(all="ignore"):
+        want = [z * 6j, z + 1j + 2, z * 2 / 4j, z / (1 + 2j), 5j / z]
+    jax, port = _both(build, [z], dtype="complex128")
+    for got, w in zip(port, want):
+        np.testing.assert_allclose(got, w, rtol=1e-12)
+    np.testing.assert_array_equal(jax[0], np.zeros(3))  # 2j folded to 0
+
+
+@pytest.mark.parametrize("y_ndim,y_shape", [(0, ()), (0, (5,)), (1, (2,)), (1, (5, 2))],
+                         ids=["scalar", "batched_scalar", "row", "batched_row"])
+@pytest.mark.parametrize("inc", [False, True], ids=["set", "inc"])
+def test_batched_index_write_drops_an_index_out_of_range(inc, y_ndim, y_shape):
+    """``vectorize_graph`` of ``x[i] (+)= y`` over a batch of ``x`` and of
+    ``i`` (and of ``y``, or not): one index in range, one negative (the last row), two out of
+    range (3 and -4 of 3 rows: their updates dropped) and one in range
+    again, in the port and in the JAX package's XLA path."""
+    from pytensor_tpu.graph.replace import vectorize_graph as jvectorize
+    from pytensor_tpu_torch.graph.replace import vectorize_graph as tvectorize
+
+    rng = np.random.default_rng(12)
+    xv = rng.normal(size=(5, 3, 2))
+    yv = rng.normal(size=y_shape)
+    iv = np.array([0, -1, 3, -4, 2])
+    res = []
+    for (ptt, pt, kw), vectorize in ((JAX, jvectorize), (PORT, tvectorize)):
+        x, i = pt.matrix("x", dtype="float64"), pt.scalar("i", dtype="int64")
+        y = pt.tensor("y", dtype="float64", shape=(None,) * y_ndim)
+        write = pt.inc_subtensor if inc else pt.set_subtensor
+        xb = pt.tensor3("xb", dtype="float64")
+        ib = pt.vector("ib", dtype="int64")
+        yb = pt.tensor("yb", dtype="float64", shape=(None,) * len(y_shape))
+        out = vectorize(write(x[i], y), replace={x: xb, i: ib, y: yb})
+        assert type(out.owner.op).__name__ == "Blockwise"
+        res.append(_np(ptt.function([xb, ib, yb], out, **kw)(xv, iv, yv)))
+    jax, port = res
+    np.testing.assert_array_equal(port, jax)
+    np.testing.assert_array_equal(port[2:4], xv[2:4])

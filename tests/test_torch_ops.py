@@ -610,12 +610,11 @@ def test_make_slice_lowering():
     assert isinstance(node.op, MakeSlice)
 
 
-# complex ops (the port has no complex dtypes) and the seven shape-parameter
-# gradient ops of scalar/math.py (ROADMAP Queue 1 item 10b): defined by
-# tensor/math.py in the JAX package; in the port the seven raise
-# NotImplementedError (tests/test_torch_special.py)
+# the seven shape-parameter gradient ops of scalar/math.py (ROADMAP Queue 1
+# item 10b): defined by tensor/math.py in the JAX package; in the port the
+# seven raise NotImplementedError (tests/test_torch_special.py).  The
+# complex ops are here (tests/test_torch_complex.py)
 NOT_YET = {
-    "real", "imag", "conj", "angle", "complex",
     "betainc_dda", "betainc_ddb", "gammainc_ddk", "gammaincc_ddk", "hyp2f1_dda", "hyp2f1_ddb",
     "hyp2f1_ddc",
 }
