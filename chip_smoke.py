@@ -1,9 +1,9 @@
 """Drive the torch port's radon, sparse, logistic-regression, MLP, Elman
 RNN, linalg (GP, Kalman filter, batched Cholesky), special-function (the
 bessel loop), bfloat16 (the MLP "MFU" step, the GEMM chain), tensor
-library tail (the einsum loop, the scan rows, the new lowerings) and
-optimize and complex (the logistic-regression MAP, a periodogram) paths on
-one NVIDIA GPU.
+library tail (the einsum loop, the scan rows, the new lowerings),
+optimize and complex (the logistic-regression MAP, a periodogram) and
+random (threefry, the HMC transitions) paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -258,6 +258,27 @@ Phases, one line or more each, and any failure raises:
    capturing call of each) and read just after.  K1's ``launches_by_path``
    gains the three paths; its kernel-line entry gains
    ``complex_ops_2e24``, ``periodogram_node`` and ``logreg_map``.
+18. random (``phase_random``; threefry built in phase 2's pool, with the
+   HMC functions' K1 kernels from ``random_kernels``, which links the same
+   functions for the CPU as the reference): (a) the threefry kernel
+   (``csrc/threefry.cu``) against its plain version at 2**24 counters,
+   bit for bit in 32 and 64 bits, its keys and uniforms, its normals within
+   ``NORMAL_RTOL`` (CUDA's erfinv is not torch's), the uniforms and normals
+   also against the port's CPU draws at the same key, jax's Random123
+   answers and ``split(PRNGKey(42))`` (embedded), and each mode's device
+   and wall time at 2**24 and at the HMC paths' draws beside its plain
+   version's and its bound; (b) ``models/hmc.py``'s ``make_radon_hmc``,
+   ``make_radon_hmc_chains`` (256 chains) and
+   ``make_radon_multinomial_hmc`` at full width (919, 85, 16 leapfrog
+   steps of 0.02), with the default flags and with ``scan__pallas``: each
+   call one replay of one captured CUDA graph, no host read; the first
+   ``HMC_HELD`` transitions against the CPU (accepts and indices equal,
+   ``HMC_RTOL``); K1, K2 and threefry launches in one replayed call
+   (counts set to 0 just before it, read just after), K2's verdict on each
+   scan and why; ms a transition, transitions/s, busy share; each K1 node
+   of the calls against its plain version.  K1's and K2's
+   ``launches_by_path`` gain the six paths; the kernel line gains the
+   ``threefry2x32`` entry, timed at the 256-chain momenta's draw.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -277,7 +298,8 @@ rates; ``bound_by`` names the larger; K2 and K3, which run a chain on one
 block, also carry ``bound_one_sm_ms``, the same work at one SM's share of
 those rates), and ``library_ms``, the device
 time of one PyTorch call computing the same function (cuSPARSE's CSR
-matvec for K4; none exists for K1-K3).  It imports nothing of JAX.
+matvec for K4; none exists for K1-K3 or threefry: ``torch.rand`` is
+Philox, another function).  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -3386,6 +3408,287 @@ def phase_optimize(dev, smi_line, one_node):
     return launches, k1_abs, rows
 
 
+# --- phase 18: random and HMC ---------------------------------------------------
+
+# jax's answers, embedded since the card's machine has no jax: the three
+# Random123 known answers of threefry2x32 (key, the 64-bit counter, the
+# two words) and split(PRNGKey(42))
+RANDOM123 = [((0, 0), 0, (0x6B200159, 0x99BA4EFE)),
+             ((0xFFFFFFFF, 0xFFFFFFFF), 2 ** 64 - 1, (0x1CB996FC, 0xBB002BE7)),
+             ((0x13198A2E, 0x03707344), 0x243F6A8885A308D3, (0xC4923A9C, 0x483DF7A0))]
+SPLIT_42 = [[1832780943, 270669613], [64467757, 2916123636]]
+THREEFRY_N = 2 ** 24
+# the 32-bit integer operations of one hash: 20 rounds of an add, a rotate
+# (two shifts and an or) and an xor, five key injections of three adds, the
+# first two adds and the counter's split; ``bound`` counts them at the data
+# sheet's float32 rate (67 T/s), which the card's 32-bit integer pipes do
+# not exceed, so the bound is a least time all the same
+THREEFRY_OPS = 20 * 5 + 5 * 3 + 2 + 2
+# the normals: CUDA's erfinv against torch's, in float64
+NORMAL_RTOL = 1e-11
+HMC_CHAINS, HMC_STEPS, HMC_EPS = 256, 16, 0.02
+# transitions held against the same function on the CPU: the accept flags
+# and indices equal, logp and the position within HMC_RTOL of their largest
+# magnitude (a float32 leapfrog of 16 steps rounds differently on the card)
+HMC_HELD = 4
+HMC_RTOL = 2e-4
+HMC_PATHS = {"hmc 1 chain": "make_radon_hmc", "hmc 256 chains": "make_radon_hmc_chains",
+             "multinomial hmc": "make_radon_multinomial_hmc"}
+
+
+def hmc_functions(dev, pallas=False):
+    """The three HMC entry points of ``models/hmc.py`` at the radon model's
+    full width (919 observations, 85 counties, 16 leapfrog steps of 0.02;
+    256 chains), linked for ``dev`` with ``scan__pallas`` as given."""
+    import pytensor_tpu_torch.models.hmc as hmc
+    from pytensor_tpu_torch.config import config
+
+    kw = dict(n_obs=N_OBS, n_counties=N_COUNTIES, n_leapfrog=HMC_STEPS, step_size=HMC_EPS,
+              device=dev)
+    with config.change_flags(scan__pallas=pallas):
+        return {"hmc 1 chain": hmc.make_radon_hmc(**kw),
+                "hmc 256 chains": hmc.make_radon_hmc_chains(n_chains=HMC_CHAINS, **kw),
+                "multinomial hmc": hmc.make_radon_multinomial_hmc(**kw)}
+
+
+def random_kernels(dev):
+    """The kernels of phase 18, for the build pool of phase 2: the K1
+    kernels of the HMC functions, made from the functions linked for the
+    CPU (the same graphs, so the same sources; phase 18 runs those
+    functions as the card's reference).  Returns (the kernels, the CPU
+    functions)."""
+    cpu = hmc_functions("cpu")
+    kerns: dict = {}
+    for f, *_ in cpu.values():
+        plan_kernels(f.linked, dev, kerns)
+    return list(kerns.values()), cpu
+
+
+def threefry_times(kernel, plain, n_kernel, n_plain):
+    """The device ms of a call of the kernel and of its plain version
+    (``device_ms``, the kernels the profiler traced) and their wall ms
+    (``wall_ms``, CUDA events around back-to-back calls)."""
+    return {"ms": device_ms(kernel, n_kernel)[0], "plain_ms": device_ms(plain, n_plain)[0],
+            "wall_ms": wall_ms(kernel, n_kernel), "plain_wall_ms": wall_ms(plain, n_plain)}
+
+
+def phase_random(dev, smi_line, cpu_fns):
+    """Phase 18: random and HMC.  (a) threefry on the card: the kernel's
+    bits against its plain version (``tensor/random/threefry.py``, int64
+    torch ops) at 2**24 counters in 32 and 64 bits, its keys, uniforms and
+    normals against the port's CPU draws at the same key (uniforms bit for
+    bit, normals within ``NORMAL_RTOL``: CUDA's erfinv is not torch's),
+    jax's known answers (``RANDOM123``, ``SPLIT_42``), and each mode's time
+    at 2**24 and at the draws of the HMC paths (device and wall,
+    ``threefry_times``) beside its plain version's and its byte bound.
+    (b) ``models/hmc.py``'s three entry points at the radon model's full
+    width, with the default flags and with ``scan__pallas``: each call one
+    replay of one captured CUDA graph with no host read; the first
+    ``HMC_HELD`` transitions against the same function on the CPU (the
+    ``cpu_fns`` of ``random_kernels``); the launches of K1, K2 and threefry
+    in one call, counts set to 0 just before it and read just after; K2's
+    verdict on the leapfrog scan and why; ms a transition and
+    transitions/s (chain-transitions/s for 256 chains), the device's busy
+    share; each K1 node of the calls, fed its real inputs, against its
+    plain version.  Returns the launches by path, K1's largest absolute
+    error and the rows it timed.  On the CPU (a rehearsal) it checks the
+    values only, at ``THREEFRY_N`` and the HMC functions' sizes as set."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+    from pytensor_tpu_torch.link.cuda import threefry_kernel as tk
+    from pytensor_tpu_torch.link.cuda.scan_kernel import scan_kernel_eligible
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.scan.op import Scan
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+    from pytensor_tpu_torch.tensor.random import threefry as tf
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    launch = tk.launch if on_card else tk.plain
+    t18 = time.perf_counter()
+    rows: dict = {"threefry": {}, "hmc": {}}
+    tf_abs = 0.0
+
+    # (a) threefry ---------------------------------------------------------------
+    for key, first, want in RANDOM123:
+        got = launch(torch.tensor(key, device=dev), 1, tk.KEYS, first=first)[0].tolist()
+        if tuple(got) != want:
+            raise AssertionError(f"threefry of key {key} at {first:#x}: {got}, jax's {want}")
+    got = tf.split(tf.threefry_seed(42).to(dev)).tolist()
+    if got != SPLIT_42:
+        raise AssertionError(f"split(PRNGKey(42)): {got}, jax's {SPLIT_42}")
+    say(f"threefry: jax's three Random123 answers and split(PRNGKey(42)) = {SPLIT_42}")
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
+    n = THREEFRY_N if on_card else 2 ** 12
+    modes = {"bits32": (tk.BITS32, 0.0, 1.0), "bits64": (tk.BITS64, 0.0, 1.0),
+             "keys": (tk.KEYS, 0.0, 1.0), "uniform64": (tk.UNIFORM64, -2.5, 3.0),
+             "normal64": (tk.NORMAL64, 0.0, 1.0), "uniform32": (tk.UNIFORM32, -2.5, 3.0)}
+    for name, (mode, lo, hi) in modes.items():
+        got = launch(key, n, mode, lo, hi)
+        want = tk.plain(key, n, mode, lo, hi)
+        sync()
+        if name == "normal64":
+            err = float(((got - want).abs() / want.abs().clamp_min(1e-300)).max())
+            tf_abs = max(tf_abs, float((got - want).abs().max()))
+            ok = err <= NORMAL_RTOL
+        else:
+            err = 0.0 if torch.equal(got, want) else float("inf")
+            ok = err == 0.0
+        if name in ("uniform64", "normal64"):
+            # and the port's CPU draws at the same key
+            cpu = tk.plain(key.cpu(), n, mode, lo, hi)
+            cerr = float(((got.cpu() - cpu).abs() / cpu.abs().clamp_min(1e-300)).max())
+            ok = ok and (cerr == 0.0 if name == "uniform64" else cerr <= NORMAL_RTOL)
+            tf_abs = max(tf_abs, float((got.cpu() - cpu).abs().max()))
+            err = max(err, cerr)
+        if not ok:
+            raise AssertionError(f"threefry {name} at {n:,}: {err} from its plain version")
+        row = {"max_rel_err": err}
+        if on_card:
+            row.update(threefry_times(lambda: tk.launch(key, n, mode, lo, hi),
+                                      lambda: tk.plain(key, n, mode, lo, hi), 20, 3))
+            row["bound_ms"], row["bound_by"] = bound(nbytes(key, got), THREEFRY_OPS * n)
+        rows["threefry"][f"{name} 2e24"] = row
+        del got, want
+    say(f"threefry: {', '.join(modes)} at {n:,} counters against the plain version (bits, "
+        f"keys and uniforms bit for bit, normals within {NORMAL_RTOL:g}); the uniforms and "
+        f"normals against the CPU's draws at the same key the same")
+    if on_card:
+        for name, r in rows["threefry"].items():
+            say(f"  threefry {name:16s} device {r['ms'] * 1e3:9.2f} us, plain "
+                f"{r['plain_ms'] * 1e3:10.1f} us; wall {r['wall_ms'] * 1e3:9.2f} us, plain "
+                f"{r['plain_wall_ms'] * 1e3:10.1f} us; bound {r['bound_ms'] * 1e3:7.2f} us "
+                f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.2f} of it reached ({smi_line})")
+    # the draws of the HMC paths, at their shapes: a split (2 keys), the
+    # momenta (89 and 256 x 89 normals), the Metropolis and Gumbel uniforms
+    # (1, 256, 17)
+    draws = {"split": (tk.KEYS, 2), "normal 89": (tk.NORMAL64, N_COUNTIES + 4),
+             "normal 256x89": (tk.NORMAL64, HMC_CHAINS * (N_COUNTIES + 4)),
+             "uniform 1": (tk.UNIFORM64, 1), "uniform 17": (tk.UNIFORM64, HMC_STEPS + 1),
+             "uniform 256": (tk.UNIFORM64, HMC_CHAINS)}
+    for name, (mode, m) in draws.items():
+        got, want = launch(key, m, mode), tk.plain(key, m, mode)
+        sync()
+        same = torch.equal(got, want) if mode != tk.NORMAL64 else bool(
+            ((got - want).abs() <= NORMAL_RTOL * want.abs()).all())
+        if not same:
+            raise AssertionError(f"threefry {name}: the kernel is not its plain version")
+        if on_card:
+            r = threefry_times(lambda: tk.launch(key, m, mode), lambda: tk.plain(key, m, mode),
+                               200, 20)
+            r["bound_ms"], r["bound_by"] = bound(nbytes(key, got), THREEFRY_OPS * m)
+            rows["threefry"][name] = r
+            say(f"  threefry {name:16s} device {r['ms'] * 1e3:9.2f} us, plain "
+                f"{r['plain_ms'] * 1e3:10.1f} us; wall {r['wall_ms'] * 1e3:9.2f} us, plain "
+                f"{r['plain_wall_ms'] * 1e3:10.1f} us; bound {r['bound_ms'] * 1e3:7.4f} us "
+                f"({r['bound_by']}) ({smi_line})")
+
+    # (b) the HMC paths -------------------------------------------------------------
+    def zero_counts():
+        fused_kernel.LAUNCHES = scan_kernel.LAUNCHES = tk.LAUNCHES = 0
+
+    def counts():
+        return {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": scan_kernel.LAUNCHES,
+                "threefry": tk.LAUNCHES}
+
+    # the CPU's first transitions, the reference of both of the card's runs
+    ref = {}
+    for path, (g, g_pos, *_) in cpu_fns.items():
+        ref[path] = [[o.clone() for o in g()] + [g_pos.get_value()] for _ in range(HMC_HELD)]
+    say(f"phase 18: the CPU's {HMC_HELD} transitions of each HMC path in "
+        f"{time.perf_counter() - t18:.1f} s")
+    launches, k1_abs, k1_nodes = {}, 0.0, 0
+    for flags in ("default flags", "scan__pallas"):
+        t0 = time.perf_counter()
+        fns = hmc_functions(dev, pallas=flags == "scan__pallas")
+        say(f"phase 18: the HMC functions linked for {dev} with {flags} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for path, (f, pos, *_) in fns.items():
+            tag = f"{path}, {flags}"
+            plan = getattr(f.linked, "plan", f.linked)
+            if plan.host_reads:
+                raise AssertionError(f"{tag}: host reads {plan.host_reads}")
+            for step in range(HMC_HELD):
+                out = [o.cpu() for o in f()] + [pos.get_value().cpu()]
+                want = ref[path][step]
+                if not torch.equal(out[1], want[1]):
+                    raise AssertionError(f"{tag}, transition {step}: accept/index {out[1]} "
+                                         f"against the CPU's {want[1]}")
+                e_logp, e_pos = rel_err(out[0], want[0]), rel_err(out[2], want[2])
+                if not (e_logp <= HMC_RTOL and e_pos <= HMC_RTOL):
+                    raise AssertionError(f"{tag}, transition {step}: logp {e_logp}, position "
+                                         f"{e_pos} from the CPU's (tol {HMC_RTOL})")
+            if on_card and not (isinstance(f.linked, CapturedFunction)
+                                and len(f.linked.graphs) == 1):
+                raise AssertionError(f"{tag}: not one captured CUDA graph")
+            # the main path, counted: one replayed call
+            zero_counts()
+            logp, acc = f()
+            sync()
+            launches[tag] = counts()
+            if on_card and not (launches[tag]["fused_elemwise"] > 0
+                                and launches[tag]["threefry"] > 0):
+                raise AssertionError(f"{tag}: launches {launches[tag]}")
+            if not (torch.isfinite(logp).all() and torch.isfinite(pos.get_value()).all()):
+                raise AssertionError(f"{tag}: a value is not finite")
+            scans = [nd for nd in f.fgraph.toposort() if isinstance(nd.op, Scan)]
+            verdicts = []
+            for nd in scans:
+                ok = scan_kernel_eligible(nd.op, nd)
+                unknown = [i for i in nd.inputs[1:] if any(d is None for d in i.type.shape)]
+                why = ("takes it" if ok else "refuses it: the carried position "
+                       f"{unknown[0]} has an unknown static shape {unknown[0].type.shape}"
+                       if unknown else "refuses it")
+                verdicts.append(f"{nd.op.name}: K2 {why}")
+                if flags == "scan__pallas" and ok and launches[tag]["scan_whole_loop"] == 0:
+                    raise AssertionError(f"{tag}: K2 takes {nd.op.name} and never launched")
+            say(f"{tag}: launches in one replayed call (counts set to 0 just before it) "
+                f"{launches[tag]}; {'; '.join(verdicts)}; the first {HMC_HELD} transitions "
+                f"held against the CPU (accepts/indices equal, logp and position within "
+                f"{HMC_RTOL:g})")
+            row = {"launches": launches[tag], "k2": verdicts}
+            if on_card:
+                ms = wall_ms(f, 50)
+                per = HMC_CHAINS if path == "hmc 256 chains" else 1
+                row.update(ms=ms, transitions_s=per * 1e3 / ms)
+                if flags == "default flags":
+                    dev_ms, by = device_ms(f, 10)
+                    row.update(device_ms=dev_ms, busy=dev_ms / ms,
+                               kernels_a_call=sum(c for _, c in by.values()))
+                    tfr = [(k_ms, c) for kn, (k_ms, c) in by.items() if "threefry" in kn]
+                    row["threefry_device_us"] = sum(k for k, _ in tfr) * 1e3
+                say(f"  {tag}: {ms:.3f} ms a transition (wall, CUDA events over 50 calls), "
+                    f"{row['transitions_s']:,.0f} {'chain-' if per > 1 else ''}transitions/s"
+                    + (f"; device {row['device_ms']:.3f} ms a call, busy {row['busy']:.2f}, "
+                       f"{row['kernels_a_call']:.0f} kernels a call, threefry "
+                       f"{row['threefry_device_us']:.1f} us of it" if "device_ms" in row else "")
+                    + f" ({smi_line})")
+            rows["hmc"][tag] = row
+            if flags == "default flags":
+                # each K1 node of a call, fed its real inputs
+                args = [sv.storage[0] for sv in f.shared_vars]
+                for _, nd, xs in plan_values(plan, args):
+                    if not isinstance(nd.op, FusedElemwise):
+                        continue
+                    kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+                    got, want = (kern.launch if on_card else kern)(*xs), kern.plain(*xs)
+                    sync()
+                    for g, w in zip(got, want):
+                        e_abs, e_rel = errors(g.cpu().double(), w.cpu().double())
+                        k1_abs = max(k1_abs, e_abs)
+                        if e_rel > K1_RTOL.get(str(w.dtype).removeprefix("torch."), 0.0):
+                            raise AssertionError(f"K1 {tag} {nd.op}: {e_rel} from its plain "
+                                                 f"version")
+                    k1_nodes += 1
+    say(f"phase 18: {k1_nodes} K1 nodes of the HMC calls fed their real inputs within "
+        f"{k1_abs:.2e} of their plain versions (tol {K1_RTOL})")
+    rows["threefry_abs"] = tf_abs
+    say(f"random and HMC phase done in {time.perf_counter() - t18:.1f} s")
+    return launches, k1_abs, rows
+
+
 def main(opts):
     import torch
 
@@ -3401,7 +3704,7 @@ def main(opts):
     from pytensor_tpu_torch.config import config
     from pytensor_tpu_torch.entry import entry
     from pytensor_tpu_torch.graph.fg import FunctionGraph
-    from pytensor_tpu_torch.link.cuda import cases, scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.cuda import cases, scan_kernel, spmv_kernel, threefry_kernel
     from pytensor_tpu_torch.link.torch.convert import as_torch, sparse_as_torch
     from pytensor_tpu_torch.link.torch.linker import CapturedFunction, TorchLinker, fgraph_to_torch
     from pytensor_tpu_torch.models import radon_kernel
@@ -3568,6 +3871,14 @@ def main(opts):
         f"periodogram's functions, {len(complex_one_node)} one-node complex K1 kernels; graph, "
         f"rewrite and emit in {time.perf_counter() - t0:.2f} s")
 
+    # phase 18's: the K1 kernels of the three HMC functions, from the same
+    # functions linked for the CPU (phase 18's reference); threefry is
+    # built in the pool below
+    t0 = time.perf_counter()
+    random_k1, hmc_cpu = random_kernels(dev)
+    say(f"the random slice's graphs: {len(random_k1)} K1 kernels of the HMC functions; graph, "
+        f"rewrite and link for the CPU in {time.perf_counter() - t0:.2f} s")
+
     def timed(fn):
         t = time.perf_counter()
         fn()
@@ -3580,6 +3891,7 @@ def main(opts):
                                  list(special_group_kerns.values()),
                                  [k for k, _ in bf16_one_node.values()] + [bf16_cls],
                                  bf16_model_k1, tail_k1 + list(tail_signs.values()), opt_k1,
+                                 random_k1,
                                  *[[k for (_, d), k in complex_one_node.items() if d == dt]
                                    for dt in ("complex64", "complex128")]]]
         jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
@@ -3592,6 +3904,7 @@ def main(opts):
                 "K2": pool.submit(timed, lambda: k2.build(verbose=True)),
                 "K2 stamped": pool.submit(timed, lambda: k2_stamped.build(verbose=True)),
                 "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True)),
+                "threefry": pool.submit(timed, lambda: threefry_kernel.build(verbose=True)),
                 **{f"K2 case: {tag}": pool.submit(timed, lambda k=k: k.build(verbose=True))
                    for tag, _, _, k, _ in k2_cases},
                 **{"K2 static BPTT": pool.submit(timed, lambda k=k: k.build(verbose=True))
@@ -3611,6 +3924,7 @@ def main(opts):
             "K3 stamped, rows in shared memory":
                 radon_kernel.BUILD_LOGS[radon_kernel.STAMPED + K3_SHARED_WALK],
             "K2": k2.build_log, "K2 stamped": k2_stamped.build_log, "K4": spmv_kernel.BUILD_LOG,
+            "threefry": threefry_kernel.BUILD_LOG,
             **{f"K2 case: {tag}": k.build_log for tag, _, _, k, _ in k2_cases},
             **{"K2 static BPTT": k.build_log for k in elman_k2},
             **{"K2 bessel loop": k.build_log for k in special_k2},
@@ -4363,6 +4677,12 @@ def main(opts):
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_opt_abs)
     model_launches.update(opt_launches)
 
+    # 18. random and HMC ----------------------------------------------------------
+    random_launches, k1_random_abs, random_rows = phase_random(dev, smi, hmc_cpu)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_random_abs)
+    model_launches.update(random_launches)
+    main_draw = random_rows["threefry"]["normal 256x89"]
+
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "cuda",
          "source": "pytensor_tpu_torch/tensor/fused_kernel.py",
@@ -4404,6 +4724,16 @@ def main(opts):
          "source": "pytensor_tpu_torch/csrc/spmv_csr.cu",
          "replaces": "pytensor_tpu/link/pallas/route.py:194",
          "launches": power_launches["spmv_csr"], **k4},
+        {"name": "threefry2x32", "route": "cuda",
+         "source": "pytensor_tpu_torch/csrc/threefry.cu",
+         "replaces": "jax.random threefry2x32 (XLA; no Pallas kernel)",
+         "launches": sum(v["threefry"] for v in random_launches.values()),
+         "launches_by_path": {tag: v["threefry"] for tag, v in random_launches.items()},
+         "max_abs_err": random_rows["threefry_abs"],
+         "ms": main_draw["ms"], "plain_ms": main_draw["plain_ms"],
+         "bound_ms": main_draw["bound_ms"], "bound_by": main_draw["bound_by"],
+         "library_ms": None, "timed_at": "normal 256x89 (the 256-chain momenta)",
+         "draws": random_rows["threefry"], "hmc": random_rows["hmc"]},
     ]
     say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

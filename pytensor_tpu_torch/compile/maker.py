@@ -9,8 +9,11 @@ on a card, with ``config.xla__jit``) and wrap it in a ``Function``
 (``compile/executor.py``).
 
 The device is an argument, never guessed: every shared variable the
-graph reads must hold its tensor there, or ``function`` raises.  Left
-out: default updates (``no_default_updates``), ``rebuild_strict``,
+graph reads must hold its tensor there, or ``function`` raises.  A shared
+variable with a ``default_update`` (an RNG key of a RandomStream) is
+updated with it on every call unless the caller's updates name it or
+``no_default_updates`` leaves it out (``pytensor_tpu/compile/maker.py:146-147``).
+Left out: ``rebuild_strict``,
 ``allow_input_downcast``, ``profile``, ``on_unused_input`` (an unused
 input always raises), ``In(update=...)``, pickling, ``Function.copy``
 and the compile-time records.
@@ -34,7 +37,8 @@ class UnusedInputError(Exception):
 
 
 def function(inputs: Sequence, outputs=None, mode=None, updates=None, givens=None,
-             name: str | None = None, trust_input: bool = False, *, device):
+             no_default_updates=False, name: str | None = None,
+             trust_input: bool = False, *, device):
     """Compile a callable from graph inputs to outputs on ``device``.
 
     ``updates`` maps shared variables to new values (a dict or a list of
@@ -80,7 +84,8 @@ def function(inputs: Sequence, outputs=None, mode=None, updates=None, givens=Non
             update_pairs.append((k, k.type.filter_variable(v)))
 
     all_inputs, fg_outputs, (_, shared_vars, cloned_updates) = rebuild_collect_shared(
-        outputs_list, explicit, replace=givens, updates=update_pairs)
+        outputs_list, explicit, replace=givens, updates=update_pairs,
+        no_default_updates=no_default_updates)
     targets = list(cloned_updates)
     fg_outputs = list(fg_outputs) + [cloned_updates[k] for k in targets]
 

@@ -3,8 +3,10 @@
 Counterpart of ``pytensor_tpu/compile/rebuild.py:17
 rebuild_collect_shared``: clone a user graph applying ``replace``
 (givens) to its outputs and update values, and collect the shared
-variables it reads and their updates.  Left out: default updates, which
-only RNG shared variables have in the JAX package.
+variables it reads and their updates, with the default update of each
+shared variable that the caller's updates do not name (``:60``; only
+RNG keys have one, a RandomStream's next key), unless
+``no_default_updates``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from pytensor_tpu_torch.graph.basic import Variable, clone_get_equiv
 from pytensor_tpu_torch.graph.traversal import graph_inputs
 
 
-def rebuild_collect_shared(outputs, inputs=None, replace=None, updates=None):
+def rebuild_collect_shared(outputs, inputs=None, replace=None, updates=None,
+                           no_default_updates=False):
     """Returns ``(inputs, outputs, [clone_map, shared_inputs, updates])``:
     the cloned explicit inputs followed by the cloned shared inputs, the
     cloned outputs, and ``{shared variable: cloned update value}``."""
@@ -50,6 +53,17 @@ def rebuild_collect_shared(outputs, inputs=None, replace=None, updates=None):
             seen.add(k)
             shared_inputs.append(k)
     shared_updates = dict(update_items)
+    # default updates, to a fixpoint: a default update may read more shared
+    # variables
+    k = 0
+    while k < len(shared_inputs):
+        sv = shared_inputs[k]
+        k += 1
+        du = getattr(sv, "default_update", None)
+        if du is not None and sv not in shared_updates and not no_default_updates:
+            shared_updates[sv] = sv.type.filter_variable(du)
+            discover([du])
+    exprs = outputs_list + list(shared_updates.values())
     all_inputs = inputs + shared_inputs
     memo = clone_get_equiv(all_inputs, exprs, copy_inputs=True, copy_orphans=False)
     cloned_inputs = [memo.get(i, i) for i in all_inputs]

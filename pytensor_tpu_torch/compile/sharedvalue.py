@@ -1,10 +1,11 @@
 """Shared variables: graph variables with a persistent torch tensor.
 
 Counterpart of ``pytensor_tpu/compile/sharedvalue.py`` (SharedVariable:20,
-shared:75).  A shared variable holds a torch tensor on one explicit
-device, in a one-element ``storage`` list that its clones share.  A
-function that updates it writes the new value into that tensor in place
-(``copy_``), so the tensor object a caller holds sees every update.
+shared:75), with its ``default_update``.  A shared variable holds a torch
+tensor on one explicit device, in a one-element ``storage`` list that its
+clones share.  A function that updates it writes the new value into that
+tensor in place (``copy_``), so the tensor object a caller holds sees
+every update.
 ``set_value`` puts a new tensor in the storage, on the variable's device.
 """
 
@@ -18,11 +19,14 @@ from pytensor_tpu_torch.graph.basic import Variable
 class SharedVariable(Variable):
     """A Variable whose value lives in ``storage[0]``, a torch tensor."""
 
-    __slots__ = ("storage",)
+    __slots__ = ("storage", "default_update")
 
     def __init__(self, type, value: torch.Tensor, name=None, storage=None):
         super().__init__(type, None, None, name)
         self.storage = storage if storage is not None else [value]
+        # the value a function writes into it when the caller's updates do
+        # not name it (a RandomStream's key: its next key)
+        self.default_update = None
 
     @property
     def device(self) -> torch.device:
@@ -47,6 +51,7 @@ class SharedVariable(Variable):
     def clone(self, **kwargs):
         cp = self.__class__(self.type, None, name=self.name, storage=self.storage)
         cp.tag.__update__(self.tag)
+        cp.default_update = self.default_update
         return cp
 
     def __str__(self):
@@ -59,9 +64,18 @@ def shared(value, name=None, *, device, borrow=False, shape=None):
     ``value`` is a numpy array, a Python or numpy scalar, or a torch
     tensor (moved, never cast).  Its static shape is fully unknown, as in
     the JAX package, unless ``shape`` gives it; with ``borrow`` a torch
-    tensor already on ``device`` is held without a copy.
+    tensor already on ``device`` is held without a copy.  A
+    ``np.random.Generator`` makes a shared RNG key, as in the JAX package
+    (``tensor/random/utils.py rng_shared``).
     """
+    import numpy as np
+
     from pytensor_tpu_torch.tensor.sharedvar import tensor_shared_constructor
+
+    if isinstance(value, np.random.Generator):
+        from pytensor_tpu_torch.tensor.random.utils import rng_shared
+
+        return rng_shared(value, name=name, device=device)
 
     return tensor_shared_constructor(value, name=name, borrow=borrow, shape=shape,
                                      device=device)

@@ -23,12 +23,15 @@ class RewriteDatabase:
         self._names: dict[str, object] = {}
         self._tags: dict[str, set[str]] = {}
 
-    def register(self, name: str, rewriter, *tags):
+    def register(self, name: str, rewriter, *tags, use_db_name_as_tag: bool = True):
+        """Register ``rewriter`` under ``name``, selected by its name, its
+        ``tags`` and, unless ``use_db_name_as_tag`` is False, the name of
+        this database."""
         if name in self._names:
             raise ValueError(f"Rewrite name collision: {name}")
         self._names[name] = rewriter
         tagset = {name, *tags}
-        if getattr(self, "name", None):
+        if use_db_name_as_tag and getattr(self, "name", None):
             tagset.add(self.name)
         self._tags[name] = tagset
         return rewriter

@@ -794,10 +794,32 @@ def _positive_steps(x, idx, y):
     return tuple(new), (torch.flip(y, dims) if dims else y)
 
 
+def argmax_index(node):
+    """Does ``node``, a Subtensor, take one scalar index that an Argmax
+    computes over static lengths no longer than the axis it indexes (the
+    multinomial HMC's ``all_theta[argmax(H + G)]``)?  Such an index is in
+    bounds by construction: it stays on the device, and no check reads it
+    on the host."""
+    if tuple(node.op.idx_list) != (DYN,) or node.inputs[1].owner is None:
+        return False
+    am = node.inputs[1].owner
+    if not isinstance(am.op, Argmax):
+        return False
+    shape = am.inputs[0].type.shape
+    axes = range(len(shape)) if am.op.axis is None else am.op.axis
+    if any(shape[a] is None for a in axes):
+        return False
+    n = int(np.prod([shape[a] for a in axes]))
+    dim = node.inputs[0].type.shape[0]
+    return dim is not None and n <= dim
+
+
 @torch_funcify.register(Subtensor)
-@ports(host=_from(1))
+@ports(host=lambda node: () if argmax_index(node) else range(1, len(node.inputs)))
 def _subtensor(op, node=None, **kw):
     idx_list = op.idx_list
+    if argmax_index(node):
+        return lambda x, i: torch.index_select(x, 0, i.reshape(1))[0]
 
     def subtensor(x, *dyn):
         return _select(x, _basic_index(idx_list, dyn))
@@ -1626,8 +1648,13 @@ def _tridiagonal_solve(op, node=None, **kw):
 def _core_node(node):
     """The core op's node on inputs of the core types.  An input with no
     batch dimensions, or with broadcast ones added by a DimShuffle (the
-    padding of ``Blockwise.make_node``), is the core variable itself, so
-    that the core lowering sees what it is (a constant, an ``arange``)."""
+    padding of ``Blockwise.make_node``), is the core variable itself, and
+    a constant whose batch dimensions are all 1 is the constant of its
+    core, so that the core lowering sees what it is (a constant, an
+    ``arange``) and checks a constant index when it is linked, as the
+    capture rule (``linker.py _host_reads``) takes it to."""
+    from pytensor_tpu_torch.tensor.basic import constant
+
     op = node.op
 
     def core(i, c):
@@ -1636,6 +1663,9 @@ def _core_node(node):
                 and isinstance(i.owner.op, DimShuffle) \
                 and i.owner.op.new_order == ("x",) * nb + tuple(range(c)):
             i = i.owner.inputs[0]
+        if nb and isinstance(i, Constant) and all(s == 1 for s in np.shape(i.data)[:nb]):
+            return constant(np.asarray(i.data).reshape(np.shape(i.data)[nb:]),
+                            dtype=i.type.dtype)
         if i.type.ndim == c:
             return i
         return TensorType(i.type.dtype, i.type.shape[i.type.ndim - c:] if c else ())()
@@ -1940,3 +1970,6 @@ def _routed_spmv(op, node=None, **kw):
 # the lowerings of tensor/optimize.py's ops (BFGS and Newton), in a module
 # of their own
 import pytensor_tpu_torch.link.torch.optimize  # noqa: E402,F401
+
+# the lowerings of tensor/random (RandomVariable and the key ops)
+import pytensor_tpu_torch.link.torch.random  # noqa: E402,F401

@@ -13,9 +13,13 @@ sequences (each tap a shifted view of its sequence), several sequences
 of unknown length without ``n_steps`` (the shortest wins), ``strict``,
 ``return_list``, ``return_updates``, ``unroll`` (kept on the op, ignored
 by the step loop), and ``mode``, ``profile`` and ``allow_gc``, which the
-JAX package accepts and ignores too.  Left out: while-loops (``until``
-raises; ROADMAP.md Queue 1 item 4) and RNG states, which come with
-Random (item 7).
+JAX package accepts and ignores too.  A shared RNG key that a
+RandomVariable of the step consumes becomes an untraced state (the
+JAX package's ``scan/basic.py:345-480``): the key threads through the
+loop, each step drawing from it and passing on the next key, and its
+final value is the update of the shared variable; so does the target of
+an explicit update that is not a tensor.  Left out: while-loops
+(``until`` raises; ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ from typing import Callable
 
 from pytensor_tpu_torch.graph.basic import Constant, Variable
 from pytensor_tpu_torch.graph.fg import FunctionGraph, MissingInputError
-from pytensor_tpu_torch.graph.traversal import graph_inputs
-from pytensor_tpu_torch.scan.op import RANDOM, WHILE_SCANS, Scan, ScanInfo
+from pytensor_tpu_torch.graph.traversal import ancestors, graph_inputs
+from pytensor_tpu_torch.scan.op import WHILE_SCANS, Scan, ScanInfo
 from pytensor_tpu_torch.scan.utils import until
 from pytensor_tpu_torch.tensor.basic import as_tensor_variable
 from pytensor_tpu_torch.tensor.type import TensorType
@@ -117,6 +121,8 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
     from pytensor_tpu_torch.graph.basic import clone_get_equiv
     from pytensor_tpu_torch.graph.replace import graph_replace
     from pytensor_tpu_torch.scalar.basic import upcast
+    from pytensor_tpu_torch.tensor.random.op import RandomVariable
+    from pytensor_tpu_torch.tensor.random.type import RandomGeneratorType
 
     sequences = _listify(sequences)
     outputs_info = _listify(outputs_info)
@@ -172,11 +178,8 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
 
     def collect_updates(u):
         for k, v in (u.items() if isinstance(u, dict) else u):
-            if not isinstance(getattr(k, "type", None), TensorType):
-                raise NotImplementedError(
-                    f"scan updates of non-tensor shared variables (RNG states) come with "
-                    f"Random ({RANDOM})")
-            explicit_updates[k] = as_tensor_variable(v)
+            tensor = isinstance(getattr(k, "type", None), TensorType)
+            explicit_updates[k] = as_tensor_variable(v) if tensor else v
 
     if isinstance(raw, until) or (isinstance(raw, tuple) and any(isinstance(r, until)
                                                                  for r in raw)):
@@ -263,43 +266,82 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
         if strict and v not in upd_targets:
             raise MissingInputError(f"scan(strict=True): implicit input {v}")
         implicit.append(v)
-    implicit = [v for v in implicit if v not in upd_targets]
+    # shared RNG keys the step reads become untraced states below
+    rng_implicit = [v for v in implicit if isinstance(v, SharedVariable)
+                    and isinstance(v.type, RandomGeneratorType) and v not in upd_targets]
+    implicit = [v for v in implicit if v not in upd_targets and v not in rng_implicit]
 
-    upd_in = []
-    if implicit or upd_targets or non_seq_vars:
+    # tensor update targets thread as traced states (so gradients flow
+    # through them; the update reads trace[-1]); other targets, and the
+    # RNG keys, as untraced states
+    traced_upd = [k for k in upd_targets if isinstance(k.type, TensorType)]
+    untraced_upd = [k for k in upd_targets if not isinstance(k.type, TensorType)]
+    traced_in, traced_out, untraced_inits, untraced_in, untraced_out = [], [], [], [], []
+    nonseq_inputs = []
+    if implicit or upd_targets or non_seq_vars or rng_implicit:
         ns_placeholders = [v.type(v.name or "w") for v in non_seq_vars]
         placeholders = [v.type() for v in implicit]
-        upd_in = [v.type() for v in upd_targets]
-        memo = dict(zip(non_seq_vars + implicit + upd_targets,
-                        ns_placeholders + placeholders + upd_in))
-        memo = clone_get_equiv(inner_inputs + non_seq_vars + implicit + upd_targets,
-                               inner_outputs + upd_exprs, copy_inputs=False,
-                               copy_orphans=False, memo=memo)
+        rng_placeholders = [v.type() for v in rng_implicit]
+        upd_in = {k: k.type() for k in upd_targets}
+        outer = non_seq_vars + implicit + rng_implicit + upd_targets
+        memo = dict(zip(outer, ns_placeholders + placeholders + rng_placeholders
+                        + [upd_in[k] for k in upd_targets]))
+        memo = clone_get_equiv(inner_inputs + outer, inner_outputs + upd_exprs,
+                               copy_inputs=False, copy_orphans=False, memo=memo)
         inner_outputs = [memo[o] for o in inner_outputs]
         upd_exprs = [memo.get(e, e) for e in upd_exprs]
+        upd_of = dict(zip(upd_targets, upd_exprs))
+        traced_in = [upd_in[k] for k in traced_upd]
+        traced_out = [upd_of[k] for k in traced_upd]
+        untraced_inits = list(untraced_upd)
+        untraced_in = [upd_in[k] for k in untraced_upd]
+        untraced_out = [upd_of[k] for k in untraced_upd]
         non_seq_vars = non_seq_vars + implicit
         nonseq_inputs = ns_placeholders + placeholders
-    else:
-        nonseq_inputs = []
+        # a key's transition is the next key of the RandomVariable that
+        # consumes it; a key read by nothing else stays a non-sequence
+        consumers = {}
+        for v in ancestors(inner_outputs + upd_exprs):
+            node = v.owner
+            if node is not None and isinstance(node.op, RandomVariable):
+                consumers.setdefault(node.inputs[0], node.outputs[0])
+        for sv, ph in zip(rng_implicit, rng_placeholders):
+            if ph in consumers:
+                untraced_inits.append(sv)
+                untraced_in.append(ph)
+                untraced_out.append(consumers[ph])
+            else:
+                non_seq_vars.append(sv)
+                nonseq_inputs.append(ph)
 
     n_user_states = len(state_outs)
-    info = ScanInfo(n_seqs=len(seq_vars), taps=taps_list + ((-1,),) * len(upd_targets),
-                    n_nit_sot=len(nit_outs), n_non_seqs=len(non_seq_vars))
-    # canonical order: seqs + taps (user states, then update states) + non-seqs;
-    # outputs: user states, update states, nit-sots
+    info = ScanInfo(n_seqs=len(seq_vars), taps=taps_list + ((-1,),) * len(traced_upd),
+                    n_nit_sot=len(nit_outs), n_non_seqs=len(non_seq_vars),
+                    n_untraced=len(untraced_in))
+    # canonical order: seqs + taps (user states, then update states) +
+    # untraced + non-seqs; outputs: user states, update states, untraced,
+    # nit-sots
     fgraph = FunctionGraph(
-        inner_seqs + flat_taps + upd_in + nonseq_inputs,
-        inner_outputs[:n_user_states] + upd_exprs + inner_outputs[n_user_states:],
+        inner_seqs + flat_taps + traced_in + untraced_in + nonseq_inputs,
+        inner_outputs[:n_user_states] + traced_out + untraced_out
+        + inner_outputs[n_user_states:],
         clone=True)
     node_outs = Scan(fgraph, info, name=name, truncate_gradient=truncate_gradient,
                      unroll=unroll)(
-        n_steps_var, *seq_vars, *inits, *upd_targets, *non_seq_vars, return_list=True)
+        n_steps_var, *seq_vars, *inits, *traced_upd, *untraced_inits, *non_seq_vars,
+        return_list=True)
 
     updates = OrderedUpdates()
-    for j, sv in enumerate(upd_targets):
-        updates[sv] = node_outs[n_user_states + j][-1]
+    traced_pos = {sv: n_user_states + j for j, sv in enumerate(traced_upd)}
+    untraced_pos = {sv: info.n_states + u for u, sv in enumerate(untraced_inits)}
+    for sv in upd_targets:
+        updates[sv] = (node_outs[traced_pos[sv]][-1] if sv in traced_pos
+                       else node_outs[untraced_pos[sv]])
+    for sv in untraced_inits:
+        if sv not in updates:
+            updates[sv] = node_outs[untraced_pos[sv]]
     traces = iter(node_outs[:n_user_states])
-    nits = iter(node_outs[info.n_states:])
+    nits = iter(node_outs[info.n_states + info.n_untraced:])
     results = [next(traces) if st is not None else next(nits) for st in states]
     if len(results) == 1 and not return_list:
         results = results[0]

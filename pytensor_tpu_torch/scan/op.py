@@ -20,8 +20,7 @@ as one kernel (K2, ``link/cuda/scan_kernel.py``).  ``unroll`` is kept for
 equality and ignored by the lowering: the step loop has no compiled body
 to replicate.  ``perform`` is the numpy loop that constant folding
 evaluates.  Left out: while-scans, with their ``L_op`` branch
-(``scan/basic.py`` raises on ``until``; ROADMAP.md Queue 1 item 4), and
-the replay of RNG keys in the gradient, which comes with Random (item 7).
+(``scan/basic.py`` raises on ``until``; ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -42,7 +41,6 @@ from pytensor_tpu_torch.tensor.basic import (
 from pytensor_tpu_torch.tensor.type import TensorType
 
 WHILE_SCANS = "ROADMAP.md Queue 1, item 4"
-RANDOM = "ROADMAP.md Queue 1, item 7"
 
 
 class _NullInnerGradError(Exception):
@@ -329,6 +327,12 @@ class Scan(Op, HasInnerGraph):
         for each non-sequence its accumulated gradient; its nit-sots are
         the sequences' gradients.  With ``truncate_gradient = n`` only the
         last n steps run, and earlier sequence rows get zeros.
+
+        RNG keys (untraced states) have no gradient, but the reverse scan
+        must draw what each forward step drew: the forward is run again
+        with a trace of the key each step consumed (``TensorFromKey``), and
+        the reverse scan takes the reversed trace as a sequence and draws
+        from each key again (``pytensor_tpu/scan/op.py:419-461, :573-620``).
         """
         from pytensor_tpu_torch.graph.basic import clone_get_equiv
         from pytensor_tpu_torch.gradient import grad_not_implemented, grad_undefined, pullback
@@ -344,16 +348,35 @@ class Scan(Op, HasInnerGraph):
         from pytensor_tpu_torch.tensor.shape import shape
         from pytensor_tpu_torch.tensor.subtensor import flip
 
+        from pytensor_tpu_torch.tensor.random.type import (
+            RandomGeneratorType,
+            key_from_tensor,
+            tensor_from_key,
+        )
+
         info = self.info
+        key_traces = []
         if info.n_untraced:
-            if any(not isinstance(v.type, TensorType) for v in self.inner_untraced_vars()):
-                raise NotImplementedError(
-                    f"the gradient of a scan with RNG states comes with Random ({RANDOM})")
-            # tensor-typed untraced states only arise from rewrites (scan()
-            # threads explicit updates as traced states); BPTT through them
-            # would need their per-step values
-            return [grad_not_implemented(self, i, inp, "tensor-typed untraced scan state")
-                    for i, inp in enumerate(inputs)]
+            if any(not isinstance(v.type, RandomGeneratorType)
+                   for v in self.inner_untraced_vars()):
+                # tensor-typed untraced states only arise from rewrites
+                # (scan() threads explicit updates as traced states); BPTT
+                # through them would need their per-step values
+                return [grad_not_implemented(self, i, inp, "tensor-typed untraced scan state")
+                        for i, inp in enumerate(inputs)]
+            # the forward again, with each step's consumed key as a nit-sot
+            aug_fg = FunctionGraph(
+                list(self.fgraph.inputs),
+                list(self.fgraph.outputs) + [tensor_from_key(v)
+                                             for v in self.inner_untraced_vars()],
+                clone=True)
+            aug_info = ScanInfo(n_seqs=info.n_seqs, taps=info.taps,
+                                n_nit_sot=info.n_nit_sot + info.n_untraced,
+                                n_non_seqs=info.n_non_seqs, n_untraced=info.n_untraced)
+            aug_outs = Scan(aug_fg, aug_info, name=f"{self.name or 'scan'}_keys",
+                            unroll=self.unroll)(*inputs, return_list=True)
+            base = info.n_states + info.n_untraced + info.n_nit_sot
+            key_traces = aug_outs[base: base + info.n_untraced]
 
         n_steps = inputs[0]
         truncate = self.truncate_gradient
@@ -376,9 +399,11 @@ class Scan(Op, HasInnerGraph):
                         "initial state the output's type.")
         state_traces = outputs[: info.n_states]
 
-        # missing output cotangents are zeros
+        # missing output cotangents are zeros; the keys have none
+        data = slice(info.n_states, info.n_states + info.n_untraced)
         filled = []
-        for out, g in zip(outputs, output_grads):
+        for out, g in zip(outputs[:data.start] + outputs[data.stop:],
+                          output_grads[:data.start] + output_grads[data.stop:]):
             if isinstance(getattr(g, "type", None), (DisconnectedType, NullType)):
                 filled.append(zeros_like(out))
                 continue
@@ -406,14 +431,15 @@ class Scan(Op, HasInnerGraph):
         # a sequence may be longer than n_steps: only the consumed prefix
         # is reversed
         rev_seqs += [flip(s[:n_steps_i], 0) for s in seqs]
+        rev_seqs += [flip(k, 0) for k in key_traces]
 
         n_taps_total = sum(len(t) for t in info.taps)
         op = self
 
         def reverse_step(*args):
             # args: state cotangents, nit-sot cotangents, tap values, sequence
-            # slices, then the carries (windows, accumulators), then the
-            # non-sequences
+            # slices, the step's keys, then the carries (windows,
+            # accumulators), then the non-sequences
             pos = 0
 
             def take(n):
@@ -425,6 +451,7 @@ class Scan(Op, HasInnerGraph):
             g_nits = take(info.n_nit_sot)
             tap_vals = take(n_taps_total)
             seq_vals = take(info.n_seqs)
+            key_vals = take(info.n_untraced)
             P = take(info.n_states)
             wbars = take(info.n_non_seqs)
             ns_vals = list(args[pos:])
@@ -432,9 +459,13 @@ class Scan(Op, HasInnerGraph):
             memo = dict(zip(op.inner_seq_vars(), seq_vals))
             memo.update(zip([v for g in op.inner_tap_vars() for v in g], tap_vals))
             memo.update(zip(op.inner_non_seq_vars(), ns_vals))
+            memo.update((v, key_from_tensor(k)) for v, k in zip(op.inner_untraced_vars(),
+                                                                 key_vals))
             memo = clone_get_equiv(op.fgraph.inputs, op.fgraph.outputs, copy_inputs=False,
                                    copy_orphans=False, memo=memo)
             step_outs = [memo[o] for o in op.fgraph.outputs]
+            # the next keys take no cotangent
+            step_outs = step_outs[:data.start] + step_outs[data.stop:]
 
             # a state's output takes its trace's cotangent and the head of
             # its pending window
@@ -530,6 +561,10 @@ class Scan(Op, HasInnerGraph):
             final_P = P_traces[k][-1]  # (m, *core); slot i is h^{-1-i}
             grads.append(final_P[0] if (-min(taps) == 1 and len(taps) == 1)
                          else flip(final_P, 0))
+        first = 1 + info.n_seqs + info.n_states
+        grads += [grad_undefined(self, first + u, inputs[first + u],
+                                 "RNG state is not differentiable")
+                  for u in range(info.n_untraced)]
         grads += [w_traces[j][-1] for j in range(info.n_non_seqs)]
         return grads
 

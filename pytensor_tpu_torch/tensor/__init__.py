@@ -5,10 +5,10 @@ port has: ``type``, ``variable``, ``elemwise``, ``basic``, ``math``,
 ``shape``, ``subtensor``, ``blas``, ``blockwise``, ``type_other``,
 ``sharedvar``, ``utils``, ``exceptions``, ``linalg``, ``sort``,
 ``extra_ops``, ``einsum``, ``functional``, ``reshape``, ``pad``, ``fft``,
-``fourier``, ``signal``, ``interpolate`` and ``transfer``, with the
-special functions, ``special``'s softmax family, ``optimize`` and the
-complex ops.  Not yet here (ROADMAP Queue 1): the shape-parameter
-gradients (item 10b) and ``random`` (item 7).  bfloat16 tensors are here
+``fourier``, ``signal``, ``interpolate``, ``transfer`` and ``random``,
+with the special functions, ``special``'s softmax family, ``optimize`` and
+the complex ops.  Not yet here (ROADMAP Queue 1): the shape-parameter
+gradients (item 10b) and jax's loop samplers (item 7b).  bfloat16 tensors are here
 (``ml_dtypes.bfloat16`` arrays on the host), and complex64 and complex128
 ones.
 """
@@ -250,6 +250,7 @@ import pytensor_tpu_torch.tensor.signal as signal  # noqa: F401,E402
 from pytensor_tpu_torch.tensor.signal import convolve1d, convolve2d  # noqa: F401,E402
 from pytensor_tpu_torch.tensor import transfer  # noqa: F401,E402
 import pytensor_tpu_torch.tensor.optimize as optimize  # noqa: F401,E402
+import pytensor_tpu_torch.tensor.random as random  # noqa: F401,E402
 
 # the legacy names of the linalg namespace, as in the JAX package
 slinalg = linalg

@@ -52,7 +52,12 @@ and the periodogram's one K1 launch (its ``abs``-``sqr`` group of the
 complex spectrum) and its whole chain as one kernel.  ``tensor/optimize.py``:
 the logistic-regression MAP at n 512, d 16 in float64, BFGS with its
 evaluations replayed (K1 launches at each) and Newton captured whole,
-against the same functions linked for the CPU at ``1e-10``.
+against the same functions linked for the CPU at ``1e-10``.  Random:
+the threefry kernel in each mode against its plain version on the card
+(bit for bit; the normals within ``1e-11``) and jax's Random123 answers;
+the three HMC transitions of ``models/hmc.py`` at small widths, each one
+captured CUDA graph launching K1 and threefry, against the CPU at
+``2e-4`` with the same accepts or indices.
 """
 
 import numpy as np
@@ -1336,3 +1341,63 @@ def test_logreg_map_on_the_card_matches_the_cpu(card):
         assert fused_kernel.LAUNCHES > 0
         for g, w_ in zip(got, on_cpu(*vals)):
             assert np.allclose(g.cpu().numpy(), w_.numpy(), rtol=1e-10, atol=1e-10), kind
+
+
+# jax's answers for threefry2x32 (key, 64-bit counter, the two words)
+RANDOM123 = [((0, 0), 0, (0x6B200159, 0x99BA4EFE)),
+             ((0xFFFFFFFF, 0xFFFFFFFF), 2 ** 64 - 1, (0x1CB996FC, 0xBB002BE7)),
+             ((0x13198A2E, 0x03707344), 0x243F6A8885A308D3, (0xC4923A9C, 0x483DF7A0))]
+
+
+@pytest.mark.parametrize("mode", ["bits32", "bits64", "keys", "uniform64", "normal64",
+                                  "uniform32"])
+def test_threefry_kernel_matches_plain(card, mode):
+    """Each mode of the threefry kernel at 2**20 + 3 counters against its
+    plain version on the card (the normals within ``1e-11``, CUDA's erfinv
+    not being torch's; the rest bit for bit), and jax's answers."""
+    from pytensor_tpu_torch.link.cuda import threefry_kernel as tk
+
+    m = {"bits32": tk.BITS32, "bits64": tk.BITS64, "keys": tk.KEYS,
+         "uniform64": tk.UNIFORM64, "normal64": tk.NORMAL64, "uniform32": tk.UNIFORM32}[mode]
+    key = torch.tensor([0x13198A2E, 0xFFFFFFFF], dtype=torch.int64, device=card)
+    before = tk.LAUNCHES
+    got = tk.launch(key, 2 ** 20 + 3, m, -2.5, 3.0)
+    want = tk.plain(key, 2 ** 20 + 3, m, -2.5, 3.0)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 1
+    if mode == "normal64":
+        assert bool(((got - want).abs() <= 1e-11 * want.abs()).all())
+    else:
+        assert torch.equal(got, want)
+    for k, first, words in RANDOM123:
+        out = tk.launch(torch.tensor(k, device=card), 1, tk.KEYS, first=first)
+        assert tuple(out[0].tolist()) == words
+
+
+@pytest.mark.parametrize("entry", ["make_radon_hmc", "make_radon_hmc_chains",
+                                   "make_radon_multinomial_hmc"])
+def test_hmc_transition_is_one_replay_and_matches_the_cpu(card, entry):
+    """An HMC transition at 50 observations, 6 counties, 6 leapfrog steps
+    (4 chains): one captured CUDA graph, K1 and threefry launched at each
+    replay, and 3 transitions within ``2e-4`` of the same function on the
+    CPU, with the same accepts or indices."""
+    import pytensor_tpu_torch.models.hmc as hmc
+    from pytensor_tpu_torch.link.cuda import threefry_kernel as tk
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+
+    kw = dict(n_obs=50, n_counties=6, n_leapfrog=6)
+    if entry == "make_radon_hmc_chains":
+        kw["n_chains"] = 4
+    f, pos = getattr(hmc, entry)(device=card, **kw)[:2]
+    g, gpos = getattr(hmc, entry)(device="cpu", **kw)[:2]
+    assert isinstance(f.linked, CapturedFunction)
+    for step in range(3):
+        if step == 2:
+            fused_kernel.LAUNCHES = tk.LAUNCHES = 0
+        (a_logp, a_acc), (b_logp, b_acc) = f(), g()
+        torch.cuda.synchronize()
+        assert torch.equal(a_acc.cpu(), b_acc)
+        assert _scaled(a_logp.cpu().double(), b_logp.double()) <= 2e-4
+        assert _scaled(pos.get_value().cpu().double(), gpos.get_value().double()) <= 2e-4
+    assert fused_kernel.LAUNCHES > 0 and tk.LAUNCHES > 0
+    assert len(f.linked.graphs) == 1

@@ -310,3 +310,35 @@ def test_nodes_run_counts_a_step_loops_inner_nodes():
     out = f(np.ones(3, dtype="float32"))
     assert linker.NODES_RUN == len(f.linked.steps) + 4 * len(scan_fn.inner.steps)
     assert out.numpy().tolist() == [31.0, 31.0, 31.0]
+
+
+def test_a_blockwise_checks_a_constant_index_when_linked():
+    """A ``Blockwise{AdvancedSubtensor1}`` whose index is a constant with
+    batch dimensions of 1 (the radon model's ``a[county]`` vectorized over
+    a trajectory, in the multinomial HMC step) checks the index when it is
+    linked, as the capture rule takes a constant to be: its core lowering
+    sees the constant, and no call reads the index on the host."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.graph.basic import Constant
+    from pytensor_tpu_torch.link.torch import dispatch
+    from pytensor_tpu_torch.tensor.blockwise import Blockwise
+    from pytensor_tpu_torch.tensor.subtensor import AdvancedSubtensor1
+
+    x = pt.tensor("x", dtype="float32", shape=(4, 6))
+    idx = pt.as_tensor_variable(np.array([[0, 5, 2, 2, -1]]))
+    out = Blockwise(AdvancedSubtensor1(), signature="(n),(k)->(k)")(x, idx)
+    f = ptt.function([x], out, device="cpu")
+    (node,) = [n for n in f.fgraph.toposort() if isinstance(n.op, Blockwise)]
+    assert isinstance(dispatch._core_node(node).inputs[1], Constant)
+    assert f.linked.host_reads == []
+    reads = []
+    orig = dispatch._IndexCheck.bounds
+    dispatch._IndexCheck.bounds = lambda self, i: reads.append(self.const) or orig(self, i)
+    try:
+        xv = np.arange(24, dtype="float32").reshape(4, 6)
+        got = f(xv).numpy()
+    finally:
+        dispatch._IndexCheck.bounds = orig
+    assert reads and all(reads)
+    np.testing.assert_array_equal(got, xv[:, [0, 5, 2, 2, -1]])
