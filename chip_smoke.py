@@ -2,8 +2,9 @@
 RNN, linalg (GP, Kalman filter, batched Cholesky), special-function (the
 bessel loop), bfloat16 (the MLP "MFU" step, the GEMM chain), tensor
 library tail (the einsum loop, the scan rows, the new lowerings),
-optimize and complex (the logistic-regression MAP, a periodogram) and
-random (threefry, the HMC transitions) paths on one NVIDIA GPU.
+optimize and complex (the logistic-regression MAP, a periodogram),
+random (threefry, the HMC transitions) and loop-sampler (jax's gamma,
+Poisson and binomial loops, the RBM Gibbs chain) paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -279,6 +280,33 @@ Phases, one line or more each, and any failure raises:
    of the calls against its plain version.  K1's and K2's
    ``launches_by_path`` gain the six paths; the kernel line gains the
    ``threefry2x32`` entry, timed at the 256-chain momenta's draw.
+19. loop samplers (``phase_loops``; the gamma, Poisson and binomial
+   kernels, ``csrc/{gamma,poisson,binomial}.cu``, built in phase 2's
+   pool): (a) each of the twelve samplers whose jax sampler is a loop
+   (``cases.LOOP_SAMPLERS``) at 2**20 draws on its edge grid
+   (``cases.loop_grid``) in float32 and float64, through its RV's draw on
+   the card against the same draw on the plain loops
+   (``tensor/random/samplers.py``) on the card: integers bit for bit,
+   floats within ``LOOP_FLOAT_ULPS`` (0); (b) the RBM Gibbs chain of
+   ``models/rbm.py`` at DeepLearningTutorials ``rbm.py``'s sampling width
+   (784 visible, 500 hidden, 20 chains, 1,000 steps a call, float32): one
+   replay of one captured CUDA graph a call, no host read, threefry's and
+   the binomial kernel's launches in one call (counts set to 0 just before
+   it, read just after), K2's refusal of its scan under ``scan__pallas``;
+   its first step against the same step on the CPU at the same keys (the
+   draws equal wherever the two devices' p agree bit for bit; the count of
+   p that differ printed); the binomial kernel on that step's real p bit
+   for bit its plain version; ms a call, Gibbs steps/s, device busy share,
+   kernels a call and the top ones by name; (c) each sampler at 2**20
+   through ``function()`` on a shared key (float32), captured: its
+   kernel's launches in one call, ms a call; the Poisson and binomial
+   kernels' pass 1 and pass 2 timed apart; (d) each kernel on
+   ``cases.LOOP_TYPICAL`` at 2**20 and the binomial kernel at the Gibbs
+   draws: device and wall time beside its plain version's and torch's
+   sampler of the same distribution (other bits), the threefry hashes the
+   draw needs (its plain version's tally) and its bound; the gamma kernel
+   built with ``-fmad=false`` against the plain loops, by alpha.  The
+   kernel line gains an entry for each of the three kernels.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -294,12 +322,19 @@ last ``{"ok": true, "device": {...}}``.  Each entry has ``bound_ms``, the
 least time the card could take for the kernel's work (the larger of its
 bytes, each input read once and each output written once, over 3.35 TB/s
 and its float32 operations over 67 TFLOP/s, the H100 SXM data sheet's
-rates; ``bound_by`` names the larger; K2 and K3, which run a chain on one
+rates, or for threefry and the loop samplers' kernels the threefry
+hashes the function needs over the hashes the card can make a second:
+one hash's SASS instructions (``HASH_PROBE``, read by cuobjdump) at 64
+ALU lanes an SM a clock for the ALU pipe's and 128 dispatched for all of them,
+at 132 SMs and 1,980 MHz; ``bound_by`` names the larger; the script fails
+if a kernel takes less than its bound; K2 and K3, which run a chain on one
 block, also carry ``bound_one_sm_ms``, the same work at one SM's share of
 those rates), and ``library_ms``, the device
 time of one PyTorch call computing the same function (cuSPARSE's CSR
 matvec for K4; none exists for K1-K3 or threefry: ``torch.rand`` is
-Philox, another function).  It imports nothing of JAX.
+Philox, another function; for the loop samplers' kernels torch's
+sampler of the same distribution, whose bits are not jax's).  It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -368,6 +403,13 @@ SPARSE_N, SPARSE_NNZ_ROW, SPARSE_STEPS = 65536, 10, 64
 SPARSE_TOL = {"cost": 2.4e-7, "grad": 3.5e-7, "x": 5.4e-7, "out": 2.4e-7}
 # the H100 SXM data sheet's rates, for the bound of each kernel
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
+# its integer rate, for the threefry hash (integer adds, rotates and
+# xors): 132 SMs at the 1,980 MHz boost clock; an SM dispatches 128
+# thread-instructions a clock (four schedulers, a warp instruction each),
+# of which its ALU pipe (IADD3, LOP3, SHF, LEA, PRMT) takes 64, the 64
+# INT32 lanes of NVIDIA's Hopper white paper; IMAD runs on the FMA pipe
+SM_CLOCKS_S = 132 * 1.98e9
+DISPATCH_LANES, ALU_LANES = 128, 64
 # written between K4 launches to time it with L2 cold (the H100's is 50 MB)
 L2_FLUSH_BYTES = 128 * 2 ** 20
 
@@ -452,13 +494,21 @@ def rel_err(a, b):
     return errors(a, b)[1]
 
 
+def within_bound(tag, row):
+    """A timed row's bound is a least time: raise if the kernel took less."""
+    if row["bound_ms"] > row["ms"]:
+        raise AssertionError(f"{tag}: {row['ms'] * 1e3:.3f} us on the card, under its bound of "
+                             f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+
+
 def _fmt(errs):
     return {k: float(f"{v:.2e}") for k, v in errs.items()}
 
 
-def bound(n_bytes, n_ops):
-    """(ms, "bytes" or "operations"): the least time for this work."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / F32_OPS_S * 1e3
+def bound(n_bytes, n_ops, ops_s=F32_OPS_S):
+    """(ms, "bytes" or "operations"): the least time for this work, its
+    operations at ``ops_s`` (float32's by default)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / ops_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3418,12 +3468,13 @@ RANDOM123 = [((0, 0), 0, (0x6B200159, 0x99BA4EFE)),
              ((0x13198A2E, 0x03707344), 0x243F6A8885A308D3, (0xC4923A9C, 0x483DF7A0))]
 SPLIT_42 = [[1832780943, 270669613], [64467757, 2916123636]]
 THREEFRY_N = 2 ** 24
-# the 32-bit integer operations of one hash: 20 rounds of an add, a rotate
-# (two shifts and an or) and an xor, five key injections of three adds, the
-# first two adds and the counter's split; ``bound`` counts them at the data
-# sheet's float32 rate (67 T/s), which the card's 32-bit integer pipes do
-# not exceed, so the bound is a least time all the same
-THREEFRY_OPS = 20 * 5 + 5 * 3 + 2 + 2
+# the threefry hashes the card can make a second (the bounds of threefry
+# and the loop samplers' kernels): on the card from the hash's SASS
+# (``hash_instructions``); until then from the hash as written, 20 rounds
+# of an add, a rotate and an xor and 5 key injections of two adds, as ALU
+# instructions
+HASH_SASS = {"alu": 20 * 3 + 5 * 2, "fma": 0, "all": 20 * 3 + 5 * 2}
+HASH_S = SM_CLOCKS_S * ALU_LANES / HASH_SASS["alu"]
 # the normals: CUDA's erfinv against torch's, in float64
 NORMAL_RTOL = 1e-11
 HMC_CHAINS, HMC_STEPS, HMC_EPS = 256, 16, 0.02
@@ -3549,7 +3600,8 @@ def phase_random(dev, smi_line, cpu_fns):
         if on_card:
             row.update(threefry_times(lambda: tk.launch(key, n, mode, lo, hi),
                                       lambda: tk.plain(key, n, mode, lo, hi), 20, 3))
-            row["bound_ms"], row["bound_by"] = bound(nbytes(key, got), THREEFRY_OPS * n)
+            row["bound_ms"], row["bound_by"] = bound(nbytes(key, got), n, HASH_S)
+            within_bound(f"threefry {name} at {n:,}", row)
         rows["threefry"][f"{name} 2e24"] = row
         del got, want
     say(f"threefry: {', '.join(modes)} at {n:,} counters against the plain version (bits, "
@@ -3578,7 +3630,8 @@ def phase_random(dev, smi_line, cpu_fns):
         if on_card:
             r = threefry_times(lambda: tk.launch(key, m, mode), lambda: tk.plain(key, m, mode),
                                200, 20)
-            r["bound_ms"], r["bound_by"] = bound(nbytes(key, got), THREEFRY_OPS * m)
+            r["bound_ms"], r["bound_by"] = bound(nbytes(key, got), m, HASH_S)
+            within_bound(f"threefry {name}", r)
             rows["threefry"][name] = r
             say(f"  threefry {name:16s} device {r['ms'] * 1e3:9.2f} us, plain "
                 f"{r['plain_ms'] * 1e3:10.1f} us; wall {r['wall_ms'] * 1e3:9.2f} us, plain "
@@ -3689,6 +3742,490 @@ def phase_random(dev, smi_line, cpu_fns):
     return launches, k1_abs, rows
 
 
+# --- phase 19: jax's loop samplers and the RBM Gibbs chain ------------------------
+
+LOOP_N = 2 ** 20
+# the loop kernels' float draws against their plain versions on the card:
+# each multiply, add and divide is rounded alike and the math functions
+# (erfinv, log, log1p, lgamma, pow) are the ones torch's CUDA ops call, so
+# bit for bit (0 ulps)
+LOOP_FLOAT_ULPS = 0
+LOOP_KERNELS = ("gamma", "poisson", "binomial")
+# the kernel-line name and library call of each loop kernel
+LOOP_LIBRARY = {"gamma": "torch._standard_gamma", "poisson": "torch.poisson",
+                "binomial": "torch.binomial"}
+
+
+# two kernels alike but for threefry hashes: four under one key a thread
+# (so that the key's schedule, which a kernel hashing many counters under
+# one key computes once, is shared), and none; the hash's instructions are
+# the difference of their SASS over four
+HASH_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "threefry.cuh"
+extern "C" __global__ void with_hashes(const uint2* __restrict__ in, uint2* __restrict__ out) {
+  const uint2 k = in[0];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint2 x = in[1 + 4 * threadIdx.x + j];
+    const TfKey h = tf_hash(TfKey{k.x, k.y}, ((unsigned long long)x.x << 32) | x.y);
+    out[4 * threadIdx.x + j] = make_uint2(h.k0, h.k1);
+  }
+}
+extern "C" __global__ void without_hashes(const uint2* __restrict__ in, uint2* __restrict__ out) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[4 * threadIdx.x + j] = in[1 + 4 * threadIdx.x + j];
+}
+"""
+# the ALU pipe's integer instructions on sm_90; IMAD (with .MOV, .IADD,
+# .SHL, .WIDE) runs on the FMA pipe
+ALU_OPS = ("IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "PRMT", "IABS",
+           "IMNMX", "ISCADD", "SEL")
+
+
+def hash_instructions():
+    """One threefry hash's SASS instructions on sm_90a (``HASH_PROBE``
+    built by nvcc and read by ``cuobjdump -sass``): ``{"alu", "fma",
+    "all"}``, the ALU pipe's, IMAD's and all of them, NOPs and branches
+    aside."""
+    import shutil
+    import tempfile
+
+    from pytensor_tpu_torch.link.cuda.build import BUILD_DIR, CSRC, nvcc
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        src, cubin = Path(tmp, "hash_probe.cu"), Path(tmp, "hash_probe.cubin")
+        src.write_text(HASH_PROBE)
+        subprocess.run([nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", f"-I{CSRC}", "-o", str(cubin), str(src)],
+                       capture_output=True, text=True, check=True)
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True, text=True,
+                              check=True).stdout
+    ops: dict = {"with_hashes": [], "without_hashes": []}
+    body = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            body = ops.get(line.split("Function :")[1].strip())
+        elif body is not None:
+            body.extend(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                                   line))
+
+    def count(names):
+        names = [o for o in names if o not in ("NOP", "BRA", "EXIT")]
+        return {"alu": sum(o in ALU_OPS for o in names),
+                "fma": sum(o == "IMAD" for o in names), "all": len(names)}
+
+    w, wo = count(ops["with_hashes"]), count(ops["without_hashes"])
+    got = {k: (w[k] - wo[k]) / 4 for k in w}
+    if not (wo["all"] and got["alu"] > 0 and got["all"] >= got["alu"] + got["fma"]):
+        raise AssertionError(f"the hash probe's SASS: {w} with the hashes, {wo} without")
+    return got
+
+
+def gamma_fmad_false():
+    """``csrc/gamma.cu`` built with ``-fmad=false``, as ``poisson.cu`` and
+    ``binomial.cu`` are (``gamma_kernel.FLAGS`` keeps nvcc's default
+    contraction; phase 19 prints why)."""
+    import ctypes
+
+    from pytensor_tpu_torch.link.cuda import gamma_kernel
+    from pytensor_tpu_torch.link.cuda.build import build_csrc
+
+    lib, _ = build_csrc("gamma", gamma_kernel.HEADERS, False, ("-fmad=false",))
+    p = ctypes.c_void_p
+    lib.gamma_draw.argtypes = [p, p, ctypes.c_longlong, ctypes.c_int, p, p]
+    lib.gamma_draw.restype = ctypes.c_int
+    return lib
+
+
+class plain_loops:
+    """Within it, the loop samplers' wrappers take their plain versions on
+    the card too (the kernels' reference; no launch is counted)."""
+
+    def __enter__(self):
+        from pytensor_tpu_torch.link.cuda import binomial_kernel, gamma_kernel, poisson_kernel
+
+        self.saved = [(m, m.draw) for m in (gamma_kernel, poisson_kernel, binomial_kernel)]
+        for m, _ in self.saved:
+            m.draw = m.plain
+
+    def __exit__(self, *exc):
+        for m, draw in self.saved:
+            m.draw = draw
+
+
+def loop_rv(name):
+    """The RandomVariable of sampler ``name`` (gamma's takes the scale)."""
+    from pytensor_tpu_torch.tensor.random import basic
+
+    return basic._gamma if name == "gamma" else getattr(basic, name)
+
+
+def float_ulps(got, want):
+    """(elements that differ, their largest ulp distance), NaNs equal."""
+    import torch
+
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    it = torch.int32 if got.dtype == torch.float32 else torch.int64
+    dist = (got.view(it).long() - want.view(it).long()).abs()
+    return int((~same).sum()), int(torch.where(same, 0, dist).max()) if got.numel() else 0
+
+
+def loop_held(tag, got, want):
+    """Integers bit for bit; floats within ``LOOP_FLOAT_ULPS``.  Returns
+    (draws that differ, their largest ulp distance, their largest absolute
+    difference), NaNs equal."""
+    import torch
+
+    if not got.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag}: {int((got != want).sum())} draws differ from the "
+                                 f"plain version's")
+        return 0, 0, 0.0
+    n_diff, ulps = float_ulps(got, want)
+    if ulps > LOOP_FLOAT_ULPS:
+        raise AssertionError(f"{tag}: {n_diff} draws differ from the plain version's, by up to "
+                             f"{ulps} ulps (allowed {LOOP_FLOAT_ULPS})")
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    diff = torch.where(same, 0.0, (got.double() - want.double()).abs())
+    return n_diff, ulps, float(diff.max()) if got.numel() else 0.0
+
+
+def loop_typical(kernel, dev, n):
+    """The timing inputs of a loop kernel (``cases.LOOP_TYPICAL`` tiled to
+    ``n``), as its wrapper takes them."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda.cases import LOOP_TYPICAL
+
+    vals = LOOP_TYPICAL[kernel]
+    if kernel == "binomial":
+        count = np.resize(np.array([c for c, _ in vals], "float32"), n)
+        prob = np.resize(np.array([q for _, q in vals], "float32"), n)
+        return [torch.from_numpy(count).to(dev), torch.from_numpy(prob).to(dev)]
+    dtype = "float64" if kernel == "gamma" else "float32"
+    return [torch.from_numpy(np.resize(np.array(vals, dtype), n)).to(dev)]
+
+
+def loop_times(kernel, args, dev, n_iter):
+    """A loop kernel's device and wall ms on ``args`` beside its plain
+    version's and torch's sampler of the same distribution (other bits),
+    the threefry hashes the draw needs (its plain version's tally), and
+    its bound (inputs read and outputs written once; the hashes at
+    ``HASH_S``)."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import binomial_kernel, gamma_kernel, poisson_kernel
+
+    mod = {"gamma": gamma_kernel, "poisson": poisson_kernel, "binomial": binomial_kernel}[kernel]
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
+    # the binomial random variables' int64 draws
+    extra = (torch.int64,) if kernel == "binomial" else ()
+    library = {"gamma": lambda: torch._standard_gamma(args[0]),
+               "poisson": lambda: torch.poisson(args[0]),
+               "binomial": lambda: torch.binomial(args[0], args[1])}[kernel]
+    out = mod.launch(key, *args, *extra)
+    tally: list = []
+    mod.plain(key, *args, *extra, tally=tally)
+    n_hash = int(sum(tally))
+    row = {"n": args[0].numel(), "hashes": n_hash,
+           "ms": device_ms(lambda: mod.launch(key, *args, *extra), n_iter)[0],
+           "wall_ms": wall_ms(lambda: mod.launch(key, *args, *extra), n_iter),
+           "plain_ms": device_ms(lambda: mod.plain(key, *args, *extra), 2)[0],
+           "plain_wall_ms": wall_ms(lambda: mod.plain(key, *args, *extra), 2),
+           "library_ms": device_ms(library, n_iter)[0], "library": LOOP_LIBRARY[kernel] +
+           " (same distribution, other bits)"}
+    row["bound_ms"], row["bound_by"] = bound(nbytes(*args, out), n_hash, HASH_S)
+    within_bound(f"{kernel} at {row['n']:,} draws", row)
+    return row
+
+
+def loop_passes_ms(kernel, args, dev, n_iter):
+    """The wall ms of pass 1 and of pass 2 of the Poisson or binomial
+    kernel on ``args`` (CUDA events over back-to-back launches of one
+    pass; pass 2 on what one pass 1 left)."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import binomial_kernel, poisson_kernel
+
+    mod = poisson_kernel if kernel == "poisson" else binomial_kernel
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
+    out = torch.empty(args[0].shape, dtype=torch.int64, device=dev)
+    scratch = torch.empty(args[0].numel() + 1, dtype=torch.int32, device=dev)
+    p1 = wall_ms(lambda: mod.run_passes(key, *args, out, scratch, mod.PASS1), n_iter)
+    mod.run_passes(key, *args, out, scratch, mod.PASS1)
+    p2 = wall_ms(lambda: mod.run_passes(key, *args, out, scratch, mod.PASS2), n_iter)
+    return {"pass1_ms": p1, "pass2_ms": p2, "passes_N": int(scratch[-1])}
+
+
+def gibbs_probe(W, bh, bv, v0, dev):
+    """One Gibbs step from ``v0`` on ``dev`` with the chain's stream seed:
+    the hidden means and sample, the visible means and sample."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.tensor.math import dot, sigmoid
+    from pytensor_tpu_torch.tensor.random import RandomStream
+
+    Ws = ptt.shared(W, device=dev)
+    bhs, bvs = ptt.shared(bh, device=dev), ptt.shared(bv, device=dev)
+    v = pt.matrix(dtype="float32")
+    trng = RandomStream(99, device=dev)
+    hmean = sigmoid(dot(v, Ws) + bhs)
+    hsample = pt.cast(trng.binomial(1, hmean, size=hmean.shape), dtype="float32")
+    vmean = sigmoid(dot(hsample, Ws.T) + bvs)
+    vsample = pt.cast(trng.binomial(1, vmean, size=vmean.shape), dtype="float32")
+    f = ptt.function([v], [hmean, hsample, vmean, vsample], device=dev)
+    return [o.cpu() for o in f(v0)]
+
+
+def phase_loops(dev, smi_line):
+    """Phase 19: jax's loop samplers and the RBM Gibbs chain.  (a) Each of
+    the twelve samplers at ``LOOP_N`` draws on its edge grid
+    (``cases.loop_grid``) in float32 and float64, through its RV's draw on
+    the card (the gamma, Poisson and binomial kernels) against the same
+    draw with every loop on its plain version (``plain_loops``): integers
+    bit for bit, floats within ``LOOP_FLOAT_ULPS``.  (b) The Gibbs chain
+    of ``models/rbm.py`` at ``rbm.py``'s width (784 x 500, 20 chains,
+    1,000 steps, float32): one replay of one captured CUDA graph a call,
+    no host read, launches by kernel in one call (counts set to 0 just
+    before it and read just after), K2's verdict on its scan under
+    ``scan__pallas``; its first step against the same step on the CPU at
+    the same keys (draws equal wherever the two devices' p agree bit for
+    bit); the binomial kernel on that step's real p against its plain
+    version; ms a call, steps/s, device busy share and kernels a call.
+    (c) Each sampler at ``LOOP_N`` through ``function()`` on a shared key
+    (float32): captured, launches a call, ms a call; pass 1 and pass 2 of
+    the Poisson and binomial kernels.  (d) Each kernel on
+    ``cases.LOOP_TYPICAL`` at ``LOOP_N`` and the binomial kernel at the
+    Gibbs draws: device and wall time beside its plain version's and
+    torch's sampler's, the hashes the draw made and its bound.  Returns
+    the launches by path and the rows.  On the CPU (a rehearsal) it checks
+    the values only, at the sizes set."""
+    import torch
+
+    import pytensor_tpu_torch as ptt
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.link.cuda import (
+        binomial_kernel,
+        gamma_kernel,
+        poisson_kernel,
+        scan_kernel,
+        threefry_kernel,
+    )
+    from pytensor_tpu_torch.link.cuda.cases import LOOP_SAMPLERS, loop_grid
+    from pytensor_tpu_torch.link.cuda.scan_kernel import scan_kernel_eligible
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models.rbm import PLOT_EVERY, make_gibbs_chain, rbm_weights
+    from pytensor_tpu_torch.scan.op import Scan
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.random import RandomStream
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t19 = time.perf_counter()
+    mods = {"gamma": gamma_kernel, "poisson": poisson_kernel, "binomial": binomial_kernel}
+    rows: dict = {"holds": {}, "samplers": {}, "gibbs": {}, "kernels": {}}
+    launches: dict = {}
+
+    def zero_counts():
+        fused_kernel.LAUNCHES = scan_kernel.LAUNCHES = threefry_kernel.LAUNCHES = 0
+        for m in mods.values():
+            m.LAUNCHES = 0
+
+    def counts():
+        return {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": scan_kernel.LAUNCHES,
+                "threefry": threefry_kernel.LAUNCHES,
+                **{k: m.LAUNCHES for k, m in mods.items()}}
+
+    # (a) every sampler on its edge grid, kernels against plain loops ----------------
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
+    n = LOOP_N if on_card else 2 ** 10
+    for name, kernel in LOOP_SAMPLERS.items():
+        rv = loop_rv(name)
+        batch = (n // 4,) if rv.ndim_supp else (n,)
+        for dt in ("float32", "float64"):
+            params = [torch.from_numpy(a.astype(dt)).to(dev) for a in loop_grid(name, batch)]
+            out_dtype = dt if rv.dtype == "floatX" else rv.dtype
+            got = rv.draw(key, None, params, out_dtype)[1]
+            with plain_loops():
+                want = rv.draw(key, None, params, out_dtype)[1]
+            sync()
+            n_diff, ulps, abs_err = loop_held(f"{name} {dt}", got, want)
+            rows["holds"][f"{name} {dt}"] = {"draws": got.numel(), "differ": n_diff,
+                                             "ulps": ulps, "abs": abs_err}
+            del got, want, params
+    say(f"phase 19: the twelve loop samplers at {n:,} draws on their edge grids in float32 and "
+        f"float64, kernels against their plain versions on {dev}: integers bit for bit, floats "
+        f"within {LOOP_FLOAT_ULPS} ulps (largest "
+        f"{max(r['ulps'] for r in rows['holds'].values())}) in "
+        f"{time.perf_counter() - t19:.1f} s")
+    if on_card:
+        # the gamma kernel built with -fmad=false against the same plain
+        # loops, by alpha, on the timed grid and the edge grid: why
+        # gamma_kernel.FLAGS keeps nvcc's default contraction
+        from pytensor_tpu_torch.link.cuda.cases import LOOP_GAMMA_ALPHA, LOOP_TYPICAL
+
+        fmad_lib, by_alpha = gamma_fmad_false(), {}
+        for grid in (LOOP_TYPICAL["gamma"], LOOP_GAMMA_ALPHA):
+            alpha = torch.from_numpy(np.resize(np.array(grid, "float64"), n)).to(dev)
+            fmad = torch.empty_like(alpha)
+            if fmad_lib.gamma_draw(key.data_ptr(), alpha.data_ptr(), n, 0, fmad.data_ptr(),
+                                   torch.cuda.current_stream(dev).cuda_stream) != 0:
+                raise AssertionError("the gamma kernel built with -fmad=false did not launch")
+            default, want = gamma_kernel.launch(key, alpha), gamma_kernel.plain(key, alpha)
+            for a in grid:
+                at = torch.isnan(alpha) if np.isnan(a) else alpha == a
+                by_alpha[f"{a:g} of {len(grid)}"] = (float_ulps(fmad[at], want[at]),
+                                                      float_ulps(default[at], want[at]))
+        rows["gamma_fmad_false"] = by_alpha
+        say(f"gamma kernel against its plain loops at {n:,} draws, by alpha (of the grid of "
+            f"4 timed, 7 edge): (draws that differ, largest ulps) built with -fmad=false, "
+            f"then as built: " + "; ".join(f"{a} {f} {d}" for a, (f, d) in by_alpha.items()))
+
+    # (b) the Gibbs chain -----------------------------------------------------------------
+    W, bh, bv, v0 = rbm_weights()
+    steps = PLOT_EVERY if on_card else 3
+    t0 = time.perf_counter()
+    chain, _ = make_gibbs_chain(W, bh, bv, n_steps=steps, device=dev)
+    v = torch.from_numpy(v0).to(dev)
+    first = chain(v)
+    sync()
+    plan = getattr(chain.linked, "plan", chain.linked)
+    if plan.host_reads:
+        raise AssertionError(f"the Gibbs chain reads the card: {plan.host_reads}")
+    if on_card and not (isinstance(chain.linked, CapturedFunction)
+                        and len(chain.linked.graphs) == 1):
+        raise AssertionError("the Gibbs chain is not one captured CUDA graph")
+    say(f"gibbs: {steps} steps at 784 x 500, 20 chains linked and captured in "
+        f"{time.perf_counter() - t0:.1f} s")
+    zero_counts()
+    out = chain(v)
+    sync()
+    launches["gibbs chain"] = counts()
+    if on_card and not (launches["gibbs chain"]["binomial"] > 0
+                        and launches["gibbs chain"]["threefry"] > 0):
+        raise AssertionError(f"gibbs chain: launches {launches['gibbs chain']}")
+    if tuple(out.shape) != v0.shape or not bool(((out == 0) | (out == 1)).all()):
+        raise AssertionError(f"gibbs chain: a draw of shape {tuple(out.shape)} outside {{0, 1}}")
+    if torch.equal(out, first):
+        raise AssertionError("gibbs chain: two calls drew the same sample")
+    with config.change_flags(scan__pallas=True):
+        pallas_chain, _ = make_gibbs_chain(W, bh, bv, n_steps=4, device=dev)
+    node = next(nd for nd in pallas_chain.fgraph.toposort() if isinstance(nd.op, Scan))
+    verdict = ("K2 takes it" if scan_kernel_eligible(node.op, node) else
+               "K2 refuses it (a RandomVariable is on neither package's white list)")
+    if "takes" in verdict:
+        raise AssertionError("K2 takes the Gibbs scan, which the JAX package refuses")
+    say(f"gibbs chain: launches in one replayed call of {steps} steps (counts set to 0 just "
+        f"before it) {launches['gibbs chain']}; with scan__pallas, {verdict}; the step loop "
+        f"runs")
+    # its first step against the CPU's at the same keys
+    card = gibbs_probe(W, bh, bv, v, dev)
+    cpu = gibbs_probe(W, bh, bv, torch.from_numpy(v0), torch.device("cpu"))
+    one, _ = make_gibbs_chain(W, bh, bv, n_steps=1, device=dev)
+    if not torch.equal(one(v).cpu(), card[3]):
+        raise AssertionError("the probe's first step is not the chain's")
+    p_diff = {}
+    for tag, (mean, sample) in {"hidden": (0, 1), "visible": (2, 3)}.items():
+        same_p = card[mean] == cpu[mean]
+        if tag == "visible":
+            # the visible means follow the hidden sample
+            same_p &= bool(torch.equal(card[1], cpu[1]))
+        if not torch.equal(card[sample][same_p], cpu[sample][same_p]):
+            raise AssertionError(f"gibbs first step: {tag} draws differ where p agrees")
+        p_diff[tag] = int((~same_p).sum())
+        # the binomial kernel on the real p, against its plain version
+        prob = card[mean].to(dev).reshape(-1).contiguous()
+        ones = torch.ones_like(prob)
+        got = binomial_kernel.draw(key, ones, prob, torch.int64)
+        want = binomial_kernel.plain(key, ones, prob, torch.int64)
+        sync()
+        n_diff, ulps, abs_err = loop_held(f"binomial at the Gibbs {tag} p", got, want)
+        rows["holds"][f"binomial gibbs {tag}"] = {"draws": got.numel(), "differ": n_diff,
+                                                  "ulps": ulps, "abs": abs_err}
+        rows["kernels"][f"binomial gibbs {tag}"] = (
+            loop_times("binomial", [ones, prob], dev, 200) if on_card else {})
+    say(f"gibbs first step: the card's draws equal the CPU's wherever p agrees bit for bit; "
+        f"p differs at {p_diff['hidden']} of {card[0].numel()} hidden and "
+        f"{p_diff['visible']} of {card[2].numel()} visible elements; the binomial kernel on "
+        f"that step's p is its plain version's, bit for bit")
+    rows["gibbs"] = {"steps": steps, "launches": launches["gibbs chain"], "k2": verdict,
+                     "p_differs": p_diff}
+    if on_card:
+        ms = wall_ms(lambda: chain(v), 5)
+        dev_ms, by = device_ms(lambda: chain(v), 2)
+        bin_us = sum(k_ms for kn, (k_ms, _) in by.items() if "binomial" in kn) * 1e3
+        rows["gibbs"].update(ms=ms, steps_s=steps * 1e3 / ms, device_ms=dev_ms,
+                             busy=dev_ms / ms, kernels_a_call=sum(c for _, c in by.values()),
+                             binomial_device_us=bin_us,
+                             top=[(kn[:60], k_ms, c) for kn, (k_ms, c) in
+                                  sorted(by.items(), key=lambda kv: -kv[1][0])[:6]])
+        g = rows["gibbs"]
+        say(f"  gibbs chain: {ms:.2f} ms a call of {steps} steps (wall, CUDA events), "
+            f"{g['steps_s']:,.0f} Gibbs steps/s; device {dev_ms:.2f} ms a call, busy "
+            f"{g['busy']:.2f}, {g['kernels_a_call']:.0f} kernels a call, the binomial kernel "
+            f"{bin_us:.0f} us of it ({smi_line})")
+        for kn, k_ms, c in g["top"]:
+            say(f"    {k_ms:.3f} ms/call {c:.0f} launches/call {kn}")
+
+    # (c) each sampler through function() on a shared key -----------------------------
+    for name, kernel in LOOP_SAMPLERS.items():
+        rv = loop_rv(name)
+        batch = (n // 4,) if rv.ndim_supp else (n,)
+        params = [ptt.shared(a.astype("float32"), device=dev) for a in loop_grid(name, batch)]
+        with config.change_flags(floatX="float32"):
+            srng = RandomStream(5, device=dev)
+            x = (srng.gamma(params[0], scale=params[1]) if name == "gamma"
+                 else getattr(srng, name)(*params))
+            f = ptt.function([], x, device=dev)
+        f()
+        sync()
+        zero_counts()
+        f()
+        sync()
+        launches[f"{name} 2e20"] = counts()
+        if on_card and launches[f"{name} 2e20"][kernel] == 0:
+            raise AssertionError(f"{name}: the {kernel} kernel never launched")
+        row = {"launches": launches[f"{name} 2e20"]}
+        if on_card:
+            if not (isinstance(f.linked, CapturedFunction) and len(f.linked.graphs) == 1):
+                raise AssertionError(f"{name}: not one captured CUDA graph")
+            row["ms"] = wall_ms(f, 10)
+        rows["samplers"][name] = row
+    for kernel in ("poisson", "binomial"):
+        if on_card:
+            rows["samplers"][f"{kernel} passes"] = loop_passes_ms(
+                kernel, loop_typical(kernel, dev, n), dev, 20)
+    say(f"phase 19: the twelve samplers at {n:,} draws through function() on a shared key, "
+        f"launches a call " + "; ".join(
+            f"{k} {v['launches'][LOOP_SAMPLERS[k]]}" for k, v in rows["samplers"].items()
+            if k in LOOP_SAMPLERS))
+    if on_card:
+        for k, r in rows["samplers"].items():
+            if k in LOOP_SAMPLERS:
+                say(f"  {k:18s} {r['ms']:8.3f} ms a call (wall, CUDA events) ({smi_line})")
+            else:
+                say(f"  {k}: pass 1 {r['pass1_ms']:.3f} ms, pass 2 {r['pass2_ms']:.3f} ms "
+                    f"(N = {r['passes_N']} passes) at {n:,} draws ({smi_line})")
+
+    # (d) each kernel timed beside its plain version and torch's sampler ---------------
+    if on_card:
+        for kernel in LOOP_KERNELS:
+            rows["kernels"][f"{kernel} 2e20"] = loop_times(
+                kernel, loop_typical(kernel, dev, n), dev, 20)
+        for tag, r in rows["kernels"].items():
+            say(f"  {tag:24s} device {r['ms'] * 1e3:9.1f} us (wall {r['wall_ms'] * 1e3:9.1f}), "
+                f"plain {r['plain_ms'] * 1e3:10.1f} us (wall {r['plain_wall_ms'] * 1e3:9.1f}), "
+                f"{r['library']} {r['library_ms'] * 1e3:8.1f} us; {r['hashes']:,} hashes, bound "
+                f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), {r['bound_ms'] / r['ms']:.2f} "
+                f"of it reached ({smi_line})")
+    say(f"loop samplers phase done in {time.perf_counter() - t19:.1f} s")
+    return launches, rows
+
+
 def main(opts):
     import torch
 
@@ -3704,7 +4241,15 @@ def main(opts):
     from pytensor_tpu_torch.config import config
     from pytensor_tpu_torch.entry import entry
     from pytensor_tpu_torch.graph.fg import FunctionGraph
-    from pytensor_tpu_torch.link.cuda import cases, scan_kernel, spmv_kernel, threefry_kernel
+    from pytensor_tpu_torch.link.cuda import (
+        binomial_kernel,
+        cases,
+        gamma_kernel,
+        poisson_kernel,
+        scan_kernel,
+        spmv_kernel,
+        threefry_kernel,
+    )
     from pytensor_tpu_torch.link.torch.convert import as_torch, sparse_as_torch
     from pytensor_tpu_torch.link.torch.linker import CapturedFunction, TorchLinker, fgraph_to_torch
     from pytensor_tpu_torch.models import radon_kernel
@@ -3905,6 +4450,11 @@ def main(opts):
                 "K2 stamped": pool.submit(timed, lambda: k2_stamped.build(verbose=True)),
                 "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True)),
                 "threefry": pool.submit(timed, lambda: threefry_kernel.build(verbose=True)),
+                "hash probe": pool.submit(hash_instructions),
+                "gamma -fmad=false": pool.submit(timed, gamma_fmad_false),
+                **{name: pool.submit(timed, lambda m=m: m.build(verbose=True))
+                   for name, m in (("gamma", gamma_kernel), ("poisson", poisson_kernel),
+                                   ("binomial", binomial_kernel))},
                 **{f"K2 case: {tag}": pool.submit(timed, lambda k=k: k.build(verbose=True))
                    for tag, _, _, k, _ in k2_cases},
                 **{"K2 static BPTT": pool.submit(timed, lambda k=k: k.build(verbose=True))
@@ -3924,7 +4474,8 @@ def main(opts):
             "K3 stamped, rows in shared memory":
                 radon_kernel.BUILD_LOGS[radon_kernel.STAMPED + K3_SHARED_WALK],
             "K2": k2.build_log, "K2 stamped": k2_stamped.build_log, "K4": spmv_kernel.BUILD_LOG,
-            "threefry": threefry_kernel.BUILD_LOG,
+            "threefry": threefry_kernel.BUILD_LOG, "gamma": gamma_kernel.BUILD_LOG,
+            "poisson": poisson_kernel.BUILD_LOG, "binomial": binomial_kernel.BUILD_LOG,
             **{f"K2 case: {tag}": k.build_log for tag, _, _, k, _ in k2_cases},
             **{"K2 static BPTT": k.build_log for k in elman_k2},
             **{"K2 bessel loop": k.build_log for k in special_k2},
@@ -3935,6 +4486,16 @@ def main(opts):
         for line in log.splitlines():
             if "ptxas info" in line and "registers" in line or "bytes stack frame" in line:
                 say(f"  {tag} ptxas:", line.strip())
+    # the threefry hash's integer instructions, for the bounds of phases 18
+    # and 19
+    global HASH_SASS, HASH_S
+    HASH_SASS = build_s.pop("hash probe")
+    HASH_S = SM_CLOCKS_S / max(HASH_SASS["alu"] / ALU_LANES, HASH_SASS["all"] / DISPATCH_LANES)
+    say(f"threefry hash (cuobjdump -sass of csrc/threefry.cuh's hash, HASH_PROBE): "
+        f"{HASH_SASS['all']:g} instructions, {HASH_SASS['alu']:g} on the ALU pipe and "
+        f"{HASH_SASS['fma']:g} IMAD on the FMA pipe; at most {HASH_S / 1e9:.1f} G hashes a "
+        f"second on the card ({ALU_LANES} ALU and {DISPATCH_LANES} dispatched lanes an SM a "
+        f"clock)")
     # K1: one library for the kernels of a linked function that no library
     # holds yet; the chain's were built when phase 2 linked it, each slice
     # graph's in the pool above
@@ -4683,6 +5244,31 @@ def main(opts):
     model_launches.update(random_launches)
     main_draw = random_rows["threefry"]["normal 256x89"]
 
+    # 19. jax's loop samplers and the RBM Gibbs chain ----------------------------
+    loop_launches, loop_rows = phase_loops(dev, smi)
+    loop_entries = []
+    for kname, timed_at in (("gamma", "gamma 2e20"), ("poisson", "poisson 2e20"),
+                            ("binomial", "binomial gibbs visible")):
+        r = loop_rows["kernels"][timed_at]
+        by_path = {tag: v[kname] for tag, v in loop_launches.items()}
+        held = [h for t, h in loop_rows["holds"].items()
+                if cases.LOOP_SAMPLERS[t.split()[0]] == kname]
+        loop_entries.append({
+            "name": f"{kname} (jax's loop sampler)", "route": "cuda",
+            "source": f"pytensor_tpu_torch/csrc/{kname}.cu",
+            "replaces": "jax.random's while_loop sampler (XLA; no Pallas kernel)",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(h["abs"] for h in held), "max_ulps": max(
+                h["ulps"] for h in held),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "wall_ms": r["wall_ms"],
+            "plain_wall_ms": r["plain_wall_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": r["library"], "timed_at": f"{timed_at} ({r['n']:,} draws)",
+            "hashes": r["hashes"],
+            "timings": {t: v for t, v in loop_rows["kernels"].items() if t.startswith(kname)},
+            **({"gibbs": loop_rows["gibbs"], "samplers": loop_rows["samplers"]}
+               if kname == "binomial" else {})})
+
     kernels = [
         {"name": "fused_elemwise (K1)", "route": "cuda",
          "source": "pytensor_tpu_torch/tensor/fused_kernel.py",
@@ -4733,8 +5319,12 @@ def main(opts):
          "ms": main_draw["ms"], "plain_ms": main_draw["plain_ms"],
          "bound_ms": main_draw["bound_ms"], "bound_by": main_draw["bound_by"],
          "library_ms": None, "timed_at": "normal 256x89 (the 256-chain momenta)",
+         "hash_instructions": HASH_SASS,
          "draws": random_rows["threefry"], "hmc": random_rows["hmc"]},
+        *loop_entries,
     ]
+    for entry in kernels:
+        within_bound(entry["name"], entry)
     say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

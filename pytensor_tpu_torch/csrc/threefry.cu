@@ -44,12 +44,16 @@
 // The key is read on the card, never on the host, so a launch may be
 // captured into a CUDA graph while the key changes from replay to replay.
 // Built by nvcc (sm_90a) into a shared library with a plain C interface
-// and called through ctypes (link/cuda/threefry_kernel.py).  The host test
-// (tests/threefry_host.h) defines THREEFRY_LAUNCH and the CUDA intrinsics
-// used here, and runs this source under g++.
+// and called through ctypes (link/cuda/threefry_kernel.py).  The hash and
+// the draws from its bits are threefry.cuh's, which the loop samplers'
+// kernels share.  The host test (tests/threefry_host.h) defines
+// THREEFRY_LAUNCH and the CUDA intrinsics used here, and runs this source
+// under g++.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "threefry.cuh"
 
 #define THREEFRY_THREADS 256
 #define THREEFRY_MAX_BLOCKS (1 << 20)
@@ -60,38 +64,6 @@
 #endif
 
 enum { BITS32 = 0, BITS64 = 1, KEYS = 2, UNIFORM64 = 3, NORMAL64 = 4, UNIFORM32 = 5 };
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int d) {
-  return __funnelshift_l(x, x, d);
-}
-
-// (x0, x1) <- threefry2x32((k0, k1), (x0, x1))
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
-                                             uint32_t& x1) {
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int g = 0; g < 5; ++g) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[g & 1][j]);
-      x1 ^= x0;
-    }
-    x0 += ks[(g + 1) % 3];
-    x1 += ks[(g + 2) % 3] + (uint32_t)(g + 1);
-  }
-}
-
-__device__ __forceinline__ double uniform64(uint32_t x0, uint32_t x1, double lo, double hi) {
-  const uint64_t bits = ((uint64_t)x0 << 32) | x1;
-  const double f =
-      __longlong_as_double((long long)((bits >> 12) | 0x3FF0000000000000ull)) - 1.0;
-  const double u = __dadd_rn(__dmul_rn(f, hi - lo), lo);
-  return u > lo ? u : lo;
-}
 
 template <int MODE>
 __global__ void __launch_bounds__(THREEFRY_THREADS)
@@ -114,14 +86,9 @@ __global__ void __launch_bounds__(THREEFRY_THREADS)
     } else if (MODE == UNIFORM64) {
       ((double*)out)[i] = uniform64(x0, x1, lo, hi);
     } else if (MODE == NORMAL64) {
-      // lo = nextafter(-1, 0), hi = 1; np.sqrt(2) in float64
-      const double u = uniform64(x0, x1, -0x1.fffffffffffffp-1, 1.0);
-      ((double*)out)[i] = __dmul_rn(1.4142135623730951, erfinv(u));
+      ((double*)out)[i] = normal64(x0, x1);
     } else {  // UNIFORM32
-      const float flo = (float)lo, fhi = (float)hi;
-      const float f = __int_as_float((int)(((x0 ^ x1) >> 9) | 0x3F800000u)) - 1.0f;
-      const float u = __fadd_rn(__fmul_rn(f, fhi - flo), flo);
-      ((float*)out)[i] = u > flo ? u : flo;
+      ((float*)out)[i] = uniform32(x0, x1, (float)lo, (float)hi);
     }
   }
 }

@@ -17,6 +17,7 @@ import subprocess
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -63,3 +64,12 @@ def build_library(source: str, stem: str, source_path: Path | None = None,
             raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source_path}:\n{log}")
         os.replace(tmp, lib_path)
     return ctypes.CDLL(str(lib_path)), log
+
+
+def build_csrc(stem: str, headers=(), verbose: bool = False,
+               flags=()) -> tuple[ctypes.CDLL, str]:
+    """``build_library`` of ``csrc/<stem>.cu``, keyed also by the ``csrc/``
+    headers it includes."""
+    source = CSRC / f"{stem}.cu"
+    text = "".join((CSRC / h).read_text() for h in headers) + source.read_text()
+    return build_library(text, stem, source, verbose, flags)

@@ -16,8 +16,12 @@ dtype, ``Repeat``, ``SearchsortedOp``, ``TopKOp`` with ties,
 ``UnravelIndex`` and ``RavelMultiIndex``, the real FFTs, the
 convolutions, ``pad`` in every mode, ``interp``) with its inputs, which a
 card holds against the same graph linked for the CPU (``TAIL_RTOL``).
-``chip_smoke.py`` and the card tests (``tests/test_torch_cuda.py``) use
-them alike.
+For jax's loop samplers (``tensor/random/samplers.py``), ``loop_grid``
+gives each sampler's parameters tiled over a draw's shape, spanning each
+branch of its loops (``LOOP_LAM``, ``LOOP_NP``, ``LOOP_GAMMA_ALPHA``,
+``LOOP_DIRICHLET_ALPHA``), and ``loop_typical`` a grid inside their
+domains.  ``chip_smoke.py``, the card tests (``tests/test_torch_cuda.py``)
+and the CPU tests against the JAX package use them alike.
 """
 
 from __future__ import annotations
@@ -569,3 +573,59 @@ def periodogram_chain(dtype="float32"):
     im = pt.tensor("im", dtype=dtype, shape=(None, None))
     c = pt.complex(re, im)
     return [re, im], [pt.sqr(pt.abs(c)), pt.angle(c)]
+
+
+# --- jax's loop samplers ------------------------------------------------------------
+
+# the twelve RVs whose jax sampler is a loop, by the kernel under them
+LOOP_SAMPLERS = {"gamma": "gamma", "beta": "gamma", "dirichlet": "gamma",
+                 "chisquare": "gamma", "invgamma": "gamma", "gengamma": "gamma", "t": "gamma",
+                 "poisson": "poisson", "negative_binomial": "poisson", "binomial": "binomial",
+                 "betabinom": "binomial", "multinomial": "binomial"}
+# Knuth (lam < 10, NaN), PTRS, and 0
+LOOP_LAM = [0, 1e-3, 3, 9.999, 10, 50, 1e4, np.nan]
+# inversion (count q <= 10, a NaN or negative count), BTRS, and jax's
+# edges; jax's loop never ends for an infinite count with p 0 or 1
+LOOP_NP = [(n, p) for n in (0, 1, 10, 100, 1e4, -3, np.inf)
+           for p in (0, 1e-3, 0.3, 0.5, 0.7, 1, np.nan) if not (n == np.inf and p in (0, 1))]
+# the boost below 1, Marsaglia and Tsang's loops, and the edges
+LOOP_GAMMA_ALPHA = [1e-3, 0.5, 1, 2.5, 100, 0, np.nan]
+LOOP_DIRICHLET_ALPHA = [1e-2, 0.5, 3, 10]
+
+
+def _tile(vals, shape):
+    return np.resize(np.asarray(vals, dtype="float64"), shape)
+
+
+def _rows(vals, shape):
+    return np.broadcast_to(np.asarray(vals, dtype="float64"), tuple(shape) + (len(vals),)).copy()
+
+
+_LOOP_GRIDS = {
+    "poisson": lambda s: [_tile(LOOP_LAM, s)],
+    "binomial": lambda s: [_tile([n for n, _ in LOOP_NP], s), _tile([p for _, p in LOOP_NP], s)],
+    "negative_binomial": lambda s: [_tile([1, 5, 20, 0.5, 100], s),
+                                    _tile([0.1, 0.4, 0.9, 0.999], s)],
+    "betabinom": lambda s: [_tile([0, 1, 10, 100, 1e4], s), _tile([0.5, 2, 10], s),
+                            _tile([3, 0.7], s)],
+    "multinomial": lambda s: [_tile([0, 10, 100, 1e4], s), _rows([0.5, 0.25, 0.2, 0.05], s)],
+    "gamma": lambda s: [_tile(LOOP_GAMMA_ALPHA, s), _tile([1.5], s)],
+    "beta": lambda s: [_tile([1e-3, 0.5, 1, 2.5, 100], s), _tile([0.7, 3, 1e-2, 10], s)],
+    "dirichlet": lambda s: [_rows(LOOP_DIRICHLET_ALPHA, s)],
+    "chisquare": lambda s: [_tile([0.5, 1, 3, 50, 0, np.nan], s)],
+    "invgamma": lambda s: [_tile([1e-3, 0.5, 2.5, 100, np.nan], s), _tile([2.0], s)],
+    "gengamma": lambda s: [_tile([0.5, 2.5, 100], s), _tile([0.5, 1, 3, 2], s), _tile([2.0], s)],
+    "t": lambda s: [_tile([0.5, 1, 4, 100, np.nan], s), _tile([1.0], s), _tile([2.0], s)],
+}
+
+
+def loop_grid(name, shape):
+    """``name``'s parameters (float64 arrays, in its RV's order; gamma's
+    second is the scale) over a draw of batch shape ``shape``: the edge
+    grid, tiled."""
+    return _LOOP_GRIDS[name](tuple(shape))
+
+
+# inside each kernel's domain (for timing beside torch's samplers)
+LOOP_TYPICAL = {"gamma": [0.5, 1, 2.5, 100], "poisson": [1e-3, 3, 9.999, 10, 50, 1e4],
+                "binomial": [(n, p) for n in (0, 1, 10, 100, 1e4) for p in (1e-3, 0.3, 0.5, 0.7)]}

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "threefry.cu"
+# the hash and the draws of its bits, which the loop samplers' kernels share
+HEADER = SOURCE.with_suffix(".cuh")
 
 BITS32, BITS64, KEYS, UNIFORM64, NORMAL64, UNIFORM32 = range(6)
 # the dtype each mode writes (KEYS two values a draw)
@@ -42,12 +44,12 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     """Compile (once per source hash) and load the threefry library; with
     ``verbose`` the compiler's ``-Xptxas -v`` report is kept in
     ``BUILD_LOG``."""
-    from pytensor_tpu_torch.link.cuda.build import build_library
+    from pytensor_tpu_torch.link.cuda.build import build_csrc
 
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
-    lib, BUILD_LOG = build_library(SOURCE.read_text(), "threefry", SOURCE, verbose)
+    lib, BUILD_LOG = build_csrc("threefry", (HEADER.name,), verbose)
     p = ctypes.c_void_p
     lib.threefry2x32_draw.argtypes = [p, ctypes.c_ulonglong, ctypes.c_longlong, ctypes.c_int,
                                       p, ctypes.c_double, ctypes.c_double, p]

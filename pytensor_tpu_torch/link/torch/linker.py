@@ -46,7 +46,14 @@ from pytensor_tpu_torch.config import config
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.graph.fg import FunctionGraph
 from pytensor_tpu_torch.link.basic import raise_with_op
-from pytensor_tpu_torch.link.cuda import scan_kernel, spmv_kernel, threefry_kernel
+from pytensor_tpu_torch.link.cuda import (
+    binomial_kernel,
+    gamma_kernel,
+    poisson_kernel,
+    scan_kernel,
+    spmv_kernel,
+    threefry_kernel,
+)
 from pytensor_tpu_torch.link.torch.convert import (
     CSR,
     as_torch,
@@ -66,9 +73,11 @@ from pytensor_tpu_torch.tensor.type import TensorType
 
 # ops that compute on the host when every non-constant input is host
 _HOST_CAPABLE = (Elemwise, DimShuffle, MakeVector, CAReduce, Subtensor)
-# the kernel wrappers a linked function launches (K1, K2, K4, threefry);
-# each counts its launches in LAUNCHES
-_KERNELS = (fused_kernel, scan_kernel, spmv_kernel, threefry_kernel)
+# the kernel wrappers a linked function launches (K1, K2, K4, threefry and
+# the loop samplers' gamma, Poisson and binomial kernels); each counts its
+# launches in LAUNCHES
+_KERNELS = (fused_kernel, scan_kernel, spmv_kernel, threefry_kernel, gamma_kernel,
+            poisson_kernel, binomial_kernel)
 
 # nodes run by plans since the count was last set to 0 (a scan's step
 # loop runs its inner plan's nodes once a step)

@@ -6,8 +6,11 @@ Counterpart of the JAX package's lowerings at
 A RandomVariable's function splits its key and runs the op's sampler on
 the second key (``RandomVariable.draw``): on the card each split and each
 uniform or normal is one launch of the threefry kernel
-(``link/cuda/threefry_kernel.py``), and the key is never read on the host,
-so a plan holding draws may be captured into a CUDA graph.  ``size`` is
+(``link/cuda/threefry_kernel.py``), and each of jax's loop samplers one
+launch of the gamma kernel or two of the Poisson or binomial kernel
+(``link/cuda/{gamma,poisson,binomial}_kernel.py``; a multinomial two a
+category), and the key is never read on the host, so a plan holding draws
+may be captured into a CUDA graph.  ``size`` is
 read on the host (a constant, as the JAX package's ``_concrete(size, "rv
 size")`` requires, or a shape value), and so are the parameters a sampler
 reads as Python ints (``RandomVariable.host_params``); hypergeometric's
@@ -18,7 +21,7 @@ a key is two int64 on the device either way.
 from __future__ import annotations
 
 from pytensor_tpu_torch.link.torch.dispatch import ports, torch_funcify
-from pytensor_tpu_torch.tensor.random.op import LOOP_SAMPLERS, RandomVariable
+from pytensor_tpu_torch.tensor.random.op import RandomVariable
 from pytensor_tpu_torch.tensor.random.type import KeyFromTensor, TensorFromKey
 
 
@@ -26,9 +29,6 @@ from pytensor_tpu_torch.tensor.random.type import KeyFromTensor, TensorFromKey
 @ports(host=lambda node: (1, *(2 + k for k in node.op.host_params)),
        reads_back=lambda node: node.op.reads_back)
 def _random_variable(op, node=None, **kw):
-    if op.sampler is None:
-        raise NotImplementedError(
-            f"the {op.name} sampler is a loop in jax; it comes with {LOOP_SAMPLERS}")
     out_dtype = node.outputs[1].type.dtype
 
     def random_variable(rng, size, *params):

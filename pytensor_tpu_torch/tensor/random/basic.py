@@ -12,14 +12,20 @@ A float draw is a float64 draw from 64-bit bits, as the JAX package's
 dtype; ``bernoulli``, ``geometric``, ``categorical`` and ``choice`` draw
 in their probability's dtype, as jax does.
 
-Tier A (every sampler here) is jax's closed form of the bits, held to the
-JAX package's draws.  ``hypergeometric`` draws with numpy on the host from
-a seed of the key, as the JAX package's ``pure_callback`` does, so its
-lowering reads back.  Tier B, jax's loop samplers (``gamma``, ``beta``,
-``dirichlet``, ``chisquare``, ``invgamma``, ``gengamma``, ``t``,
+Tier A is jax's closed form of the bits, held to the JAX package's
+draws.  ``hypergeometric`` draws with numpy on the host from a seed of the
+key, as the JAX package's ``pure_callback`` does, so its lowering reads
+back.  Tier B, the distributions whose jax sampler is a loop (``gamma``,
+``beta``, ``dirichlet``, ``chisquare``, ``invgamma``, ``gengamma``, ``t``,
 ``negative_binomial``, ``poisson``, ``binomial``, ``betabinom``,
-``multinomial``), keeps its op, types and static shapes, and raises when
-drawn (ROADMAP.md Queue 1, item 7b).
+``multinomial``), are the JAX package's compositions of jax's samplers,
+which ``tensor/random/samplers.py`` ports step for step: on the card the
+gamma, Poisson and binomial kernels, on the CPU their plain loops.  jax
+draws gamma, beta, dirichlet, chisquare and t in float64 whatever the
+parameters' dtype (``dtype=None`` under ``enable_x64``), Poisson in
+float32, and binomial in the probability's dtype; ``binomial`` and
+``betabinom`` cast that draw to int64 as XLA casts it, on the card in the
+binomial kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from pytensor_tpu_torch.tensor.random import samplers as sp
 from pytensor_tpu_torch.tensor.random import threefry as tf
 from pytensor_tpu_torch.tensor.random.op import RandomVariable
 
@@ -152,9 +159,16 @@ lognormal = RandomVariable(
     defaults=(0.0, 1.0),
 )
 
-beta = RandomVariable("beta", [0, 0], 0, "floatX", None)
+beta = RandomVariable(
+    "beta", [0, 0], 0, "floatX",
+    lambda key, shape, a, b: sp.beta(key, a, b, _full_shape(shape, a, b)),
+)
 
-_gamma = RandomVariable("gamma", [0, 0], 0, "floatX", None)
+_gamma = RandomVariable(
+    "gamma", [0, 0], 0, "floatX",
+    lambda key, shape, shape_p, scale: _mul(
+        sp.gamma(key, shape_p, _full_shape(shape, shape_p, scale)), scale),
+)
 
 
 def gamma(shape, rate=None, scale=None, **kwargs):
@@ -169,7 +183,10 @@ def gamma(shape, rate=None, scale=None, **kwargs):
     return _gamma(shape, scale, **kwargs)
 
 
-chisquare = RandomVariable("chisquare", [0], 0, "floatX", None)
+chisquare = RandomVariable(
+    "chisquare", [0], 0, "floatX",
+    lambda key, shape, df: sp.chisquare(key, df, _full_shape(shape, df)),
+)
 
 exponential = RandomVariable(
     "exponential", [0], 0, "floatX",
@@ -218,7 +235,10 @@ def _vonmises(key, shape, mu, kappa):
 
 vonmises = RandomVariable("vonmises", [0, 0], 0, "floatX", _vonmises)
 
-invgamma = RandomVariable("invgamma", [0, 0], 0, "floatX", None)
+invgamma = RandomVariable(
+    "invgamma", [0, 0], 0, "floatX",
+    lambda key, shape, a, scale: _div(scale, sp.gamma(key, a, _full_shape(shape, a, scale))),
+)
 
 
 def _truncexpon(key, shape, b, loc, scale):
@@ -229,9 +249,25 @@ def _truncexpon(key, shape, b, loc, scale):
 
 truncexpon = RandomVariable("truncexpon", [0, 0, 0], 0, "floatX", _truncexpon)
 
-betabinom = RandomVariable("betabinom", [0, 0, 0], 0, "int64", None)
+def _betabinom(key, shape, n, a, b):
+    # the JAX package's beta, then binomial on the second key (basic.py:179)
+    keys = tf.split(key)
+    shp = _full_shape(shape, n, a, b)
+    return sp.binomial(keys[1], n, sp.beta(keys[0], a, b, shp), shp, torch.int64)
 
-gengamma = RandomVariable("gengamma", [0, 0, 0], 0, "floatX", None,
+
+betabinom = RandomVariable("betabinom", [0, 0, 0], 0, "int64", _betabinom)
+
+
+def _gengamma(key, shape, alpha, p, lambd):
+    # scipy's convention, as the JAX package (basic.py:191):
+    # lambd * gamma(alpha / p) ** (1 / p)
+    shp = _full_shape(shape, alpha, p, lambd)
+    g = sp.gamma(key, _div(_inexact(alpha), _inexact(p)), shp)
+    return _mul(lambd, torch.pow(g, sp.true_div(1.0, p.to(g.dtype))))
+
+
+gengamma = RandomVariable("gengamma", [0, 0, 0], 0, "floatX", _gengamma,
                           defaults=(1.0, 1.0, 1.0))
 
 
@@ -297,7 +333,12 @@ def _wald(key, shape, mean, scale):
 
 wald = RandomVariable("wald", [0, 0], 0, "floatX", _wald, defaults=(1.0, 1.0))
 
-t = RandomVariable("t", [0, 0, 0], 0, "floatX", None, defaults=(0.0, 1.0))
+t = RandomVariable(
+    "t", [0, 0, 0], 0, "floatX",
+    lambda key, shape, df, loc, scale: _add(loc, _mul(scale, sp.t(
+        key, df, _full_shape(shape, df, loc, scale)))),
+    defaults=(0.0, 1.0),
+)
 
 
 def _triangular(key, shape, left, mode, right):
@@ -363,11 +404,18 @@ multivariate_normal = RandomVariable(
 )
 mvnormal = multivariate_normal
 
-dirichlet = RandomVariable("dirichlet", [1], 1, "floatX", None)
+dirichlet = RandomVariable(
+    "dirichlet", [1], 1, "floatX",
+    lambda key, shape, alpha: sp.dirichlet(key, alpha, None if shape is None else tuple(shape)),
+)
 
 # --- discrete -----------------------------------------------------------------
 
-poisson = RandomVariable("poisson", [0], 0, "int64", None, defaults=(1.0,))
+poisson = RandomVariable(
+    "poisson", [0], 0, "int64",
+    lambda key, shape, lam: sp.poisson(key, lam, _full_shape(shape, lam)),
+    defaults=(1.0,),
+)
 
 
 def _bernoulli(key, shape, p):
@@ -378,9 +426,21 @@ def _bernoulli(key, shape, p):
 
 bernoulli = RandomVariable("bernoulli", [0], 0, "int64", _bernoulli)
 
-binomial = RandomVariable("binomial", [0, 0], 0, "int64", None)
+binomial = RandomVariable(
+    "binomial", [0, 0], 0, "int64",
+    lambda key, shape, n, p: sp.binomial(key, n, p, _full_shape(shape, n, p), torch.int64),
+)
 
-negative_binomial = RandomVariable("negative_binomial", [0, 0], 0, "int64", None)
+
+def _negbinom(key, shape, n, p):
+    # the JAX package's gamma-Poisson mixture on two keys (basic.py:358)
+    keys = tf.split(key)
+    shp = _full_shape(shape, n, p)
+    g = _div(_mul(sp.gamma(keys[0], n, shp), _sub(1, p)), p)
+    return sp.poisson(keys[1], g, shp)
+
+
+negative_binomial = RandomVariable("negative_binomial", [0, 0], 0, "int64", _negbinom)
 nbinom = negative_binomial
 
 
@@ -411,7 +471,15 @@ def _categorical(key, shape, p):
 
 categorical = RandomVariable("categorical", [1], 0, "int64", _categorical)
 
-multinomial = RandomVariable("multinomial", [0, 1], 1, "int64", None)
+def _multinomial(key, shape, n, p):
+    # the JAX package's broadcasting (basic.py:385), then jax's multinomial
+    batch = _full_shape(shape, n, p[..., 0])
+    n_b = n.expand(batch).to(p.dtype)
+    p_b = p.expand(batch + tuple(p.shape[-1:]))
+    return sp.multinomial(key, n_b, p_b)
+
+
+multinomial = RandomVariable("multinomial", [0, 1], 1, "int64", _multinomial)
 
 
 def _urem(a, b):

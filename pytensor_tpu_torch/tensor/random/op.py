@@ -9,10 +9,13 @@ and ``normalize_size_param:264``): a gufunc-signature sampler with inputs
 then the sampler on ``sample_key``.  The sampler is a function of torch
 tensors in place of the JAX package's ``jax_sampler``: it draws through
 ``tensor/random/threefry.py``, so on the card its bits are the threefry
-kernel's.  ``perform`` (the oracle) runs the same sampler on the CPU, on
-the plain threefry.  A distribution whose jax sampler is a loop (ROADMAP.md
-Queue 1, item 7b) has no sampler yet: its op, types and static shapes are
-the JAX package's, and drawing from it raises.
+kernel's.  A distribution whose jax sampler is a loop (gamma, poisson,
+binomial and the nine built on them) draws through
+``tensor/random/samplers.py``: on the card the gamma, Poisson and binomial
+kernels, on the CPU their plain torch loops.  ``perform`` (the oracle)
+runs the same sampler on the CPU, on the plain threefry and the plain
+loops.  A float draw cast to an integer dtype is cast as XLA casts it
+(toward zero, NaN to 0, out of range to the nearest end).
 """
 
 from __future__ import annotations
@@ -34,8 +37,6 @@ from pytensor_tpu_torch.tensor.elemwise import broadcast_static_shapes
 from pytensor_tpu_torch.tensor.random.type import random_generator_type
 from pytensor_tpu_torch.tensor.type import TensorType
 from pytensor_tpu_torch.tensor.type_other import NoneConst, NoneTypeT
-
-LOOP_SAMPLERS = "ROADMAP.md Queue 1, item 7b"
 
 # the JAX package's class names (op.py:36-60): downstream code (PyMC in
 # particular) dispatches with ``isinstance(rv.owner.op, NormalRV)``
@@ -95,7 +96,7 @@ class RandomVariable(Op):
     ndim_supp     core ndim of one draw
     dtype         draw dtype ('floatX' resolves at make_node)
     sampler       fn(key, shape_or_None, *core_params) -> draws, of torch
-                  tensors; None for a loop sampler not ported yet
+                  tensors
     reads_back    why the sampler reads the device on the host, or ""
     host_params   the parameters the sampler reads on the host (the length
                   of ``permutation(n)``, the population of ``choice(n)``)
@@ -119,7 +120,7 @@ class RandomVariable(Op):
         return super().__reduce__()
 
     def __init__(self, name: str, ndims_params: Sequence[int], ndim_supp: int,
-                 dtype: str, sampler: Callable | None, param_dtypes=None,
+                 dtype: str, sampler: Callable, param_dtypes=None,
                  defaults: Sequence = (), reads_back: str = "", host_params=()):
         self.name = name
         self.defaults = tuple(defaults)  # trailing-parameter defaults
@@ -201,14 +202,12 @@ class RandomVariable(Op):
         torch parameters: the JAX package's split, then the sampler on the
         second key, the draws cast to ``out_dtype``."""
         from pytensor_tpu_torch.link.torch.convert import torch_dtype
+        from pytensor_tpu_torch.tensor.random.samplers import saturating_cast
         from pytensor_tpu_torch.tensor.random.threefry import split
 
-        if self.sampler is None:
-            raise NotImplementedError(
-                f"the {self.name} sampler is a loop in jax; it comes with {LOOP_SAMPLERS}")
         keys = split(key)
         draws = self.sampler(keys[1], shape, *params)
-        return keys[0], draws.to(torch_dtype(out_dtype))
+        return keys[0], saturating_cast(draws, torch_dtype(out_dtype))
 
     def perform(self, node, inputs, output_storage):
         import torch

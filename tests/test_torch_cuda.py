@@ -57,7 +57,12 @@ the threefry kernel in each mode against its plain version on the card
 (bit for bit; the normals within ``1e-11``) and jax's Random123 answers;
 the three HMC transitions of ``models/hmc.py`` at small widths, each one
 captured CUDA graph launching K1 and threefry, against the CPU at
-``2e-4`` with the same accepts or indices.
+``2e-4`` with the same accepts or indices.  jax's loop samplers: each of
+the twelve on its edge grid in both float dtypes through the gamma,
+Poisson or binomial kernel, bit for bit the same draw on the plain loops
+on the card; the RBM Gibbs chain at small widths, one captured CUDA graph
+launching the binomial kernel, with the CPU's draws where its products
+are exact on both devices.
 """
 
 import numpy as np
@@ -1401,3 +1406,84 @@ def test_hmc_transition_is_one_replay_and_matches_the_cpu(card, entry):
         assert _scaled(pos.get_value().cpu().double(), gpos.get_value().double()) <= 2e-4
     assert fused_kernel.LAUNCHES > 0 and tk.LAUNCHES > 0
     assert len(f.linked.graphs) == 1
+
+
+@pytest.mark.parametrize("name", list(cases.LOOP_SAMPLERS))
+def test_loop_sampler_kernels_match_plain(card, name):
+    """Each of jax's loop samplers at 4,096 draws on its edge grid
+    (``cases.loop_grid``) in float32 and float64: the draw through the
+    gamma, Poisson or binomial kernel (two launches of the latter two, no
+    host read) bit for bit the draw with the plain loops on the card."""
+    from pytensor_tpu_torch.link.cuda import binomial_kernel, gamma_kernel, poisson_kernel
+    from pytensor_tpu_torch.tensor.random import basic
+
+    mods = {"gamma": gamma_kernel, "poisson": poisson_kernel, "binomial": binomial_kernel}
+    mod = mods[cases.LOOP_SAMPLERS[name]]
+    rv = basic._gamma if name == "gamma" else getattr(basic, name)
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=card)
+    batch = (1024,) if rv.ndim_supp else (4096,)
+    for dt in ("float32", "float64"):
+        params = [torch.from_numpy(a.astype(dt)).to(card) for a in cases.loop_grid(name, batch)]
+        out_dtype = dt if rv.dtype == "floatX" else rv.dtype
+        before = mod.LAUNCHES
+        got = rv.draw(key, None, params, out_dtype)[1]
+        assert mod.LAUNCHES > before
+        saved = {m: m.draw for m in mods.values()}
+        try:
+            for m in mods.values():
+                m.draw = m.plain
+            want = rv.draw(key, None, params, out_dtype)[1]
+        finally:
+            for m, draw in saved.items():
+                m.draw = draw
+        torch.cuda.synchronize()
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want)) if got.is_floating_point() \
+            else got == want
+        assert bool(same.all()), (name, dt, int((~same).sum()))
+
+
+def test_binomial_kernel_int64_draws_are_the_cast_float64_draws(card):
+    """The binomial kernel's int64 draws (the binomial RVs') are its float64
+    draws cast as XLA casts them, and its plain version's, on the edge grid
+    (NaN draws to 0, an infinite count to the largest int64)."""
+    from pytensor_tpu_torch.link.cuda import binomial_kernel
+    from pytensor_tpu_torch.tensor.random.samplers import saturating_cast
+
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=card)
+    for dt in (torch.float32, torch.float64):
+        count, prob = (torch.from_numpy(a).to(dt).to(card).contiguous()
+                       for a in cases.loop_grid("binomial", (4096,)))
+        got = binomial_kernel.launch(key, count, prob, torch.int64)
+        wide = binomial_kernel.launch(key, count, prob, torch.float64)
+        want = binomial_kernel.plain(key, count, prob, torch.int64)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int64
+        assert torch.equal(got, saturating_cast(wide, torch.int64))
+        assert torch.equal(got, want)
+
+
+def test_gibbs_chain_is_one_replay_and_matches_the_cpu(card):
+    """The RBM Gibbs chain at the JAX package's test sizes (20 x 30, 3
+    chains, 10 steps): one captured CUDA graph launching threefry and the
+    binomial kernel, and {0, 1} draws of the chain's shape; with the
+    products exact in float32 on both devices (W of halves, zero biases),
+    the card's draws are the CPU's at the same keys."""
+    from pytensor_tpu_torch.link.cuda import binomial_kernel
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models.rbm import make_gibbs_chain
+
+    rng = np.random.default_rng(41)
+    W = (rng.integers(-2, 3, (20, 30)) * 0.5).astype("float32")
+    zeros_h, zeros_v = np.zeros(30, "float32"), np.zeros(20, "float32")
+    v0 = rng.binomial(1, 0.5, size=(3, 20)).astype("float32")
+    f, _ = make_gibbs_chain(W, zeros_h, zeros_v, n_steps=10, device=card)
+    g, _ = make_gibbs_chain(W, zeros_h, zeros_v, n_steps=10, device="cpu")
+    assert isinstance(f.linked, CapturedFunction)
+    for call in range(2):
+        if call == 1:
+            binomial_kernel.LAUNCHES = 0
+        a, b = f(torch.from_numpy(v0).to(card)), g(v0)
+        torch.cuda.synchronize()
+        assert tuple(a.shape) == (3, 20) and bool(((a == 0) | (a == 1)).all())
+        assert torch.equal(a.cpu(), b)
+    assert binomial_kernel.LAUNCHES == 40 and len(f.linked.graphs) == 1

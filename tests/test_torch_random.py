@@ -9,8 +9,9 @@
   against ``tests/threefry_host.h``, in every mode against its plain
   version, bit for bit (the normals within 1e-12: the host's erfinv);
 - tier A is ``tests/test_torch_random_dists.py``;
-- tier B: each loop sampler builds with the JAX package's static type and
-  raises naming item 7b when linked or performed;
+- tier B, jax's loop samplers: each builds with the JAX package's static
+  type and draws the JAX package's values, linked and performed (their
+  grids and kernels are ``tests/test_torch_random_loops*.py``);
 - the lift rewrites give the JAX package's graphs op for op, and the same
   draws;
 - default updates and ``no_default_updates``; shared keys from a numpy
@@ -35,6 +36,7 @@ import torch
 from jax._src import prng as jprng
 
 import pytensor_tpu as jptt
+import pytensor_tpu.tensor.random as jrand
 from pytensor_tpu.graph.rewriting.utils import rewrite_graph as jrewrite
 import pytensor_tpu_torch as tptt
 import pytensor_tpu_torch.tensor.random as trand
@@ -138,7 +140,8 @@ def threefry_host():
     source = tk.SOURCE.read_text()
     assert "#include <cuda_runtime.h>" in source
     src = source.replace("#include <cuda_runtime.h>", f'#include "{HEADER}"')
-    key = hashlib.sha256(src.encode() + HEADER.read_bytes()).hexdigest()[:16]
+    key = hashlib.sha256(src.encode() + HEADER.read_bytes()
+                         + tk.HEADER.read_bytes()).hexdigest()[:16]
     lib = BUILD / f"libthreefry_host_{key}.so"
     if not lib.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
@@ -146,7 +149,8 @@ def threefry_host():
         cpp.write_text(src)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run([gxx, "-std=c++17", "-O1", "-w", "-ffp-contract=off", "-shared",
-                               "-fPIC", f"-I{HEADER.parent}", "-o", str(tmp), str(cpp)],
+                               "-fPIC", f"-I{HEADER.parent}", f"-I{tk.HEADER.parent}", "-o",
+                               str(tmp), str(cpp)],
                               capture_output=True, text=True)
         assert proc.returncode == 0, proc.stderr[:4000]
         os.replace(tmp, lib)
@@ -213,19 +217,27 @@ TIER_B = {
 
 @pytest.mark.parametrize("name", list(TIER_B))
 def test_tier_b_builds_and_raises(name):
-    types = {}
+    """Each loop sampler: the JAX package's static type, and its draws
+    (linked, and through ``perform`` at the JAX package's next key)."""
+    types, draws = {}, {}
     for pkg, (ptt, pt, ptr, config) in PKGS.items():
         rng = ptr.rng(3, **kw(pkg))
         x = getattr(ptr, name)(*TIER_B[name], size=(2, 3), rng=rng)
         types[pkg] = (x.type.dtype, x.type.shape, type(x.owner.op).__name__)
+        draws[pkg] = ptt.function([], [x.owner.outputs[0], x], **kw(pkg))()
     assert types["torch"] == types["jax"]
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tptt.function([], x, device="cpu")
+    for got, want, what in zip(draws["torch"], draws["jax"], ("next key", "draw")):
+        held(got, want, f"{name} {what}")
     node = x.owner
     out = [[None], [None]]
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        node.op.perform(node, [np.array([0, 3], np.uint32), np.array([2, 3]),
-                               *[np.asarray(c.data) for c in node.inputs[2:]]], out)
+    node.op.perform(node, [np.array([0, 3], np.uint32), np.array([2, 3]),
+                           *[np.asarray(c.data) for c in node.inputs[2:]]], out)
+    jnode = getattr(jrand, name)(*TIER_B[name], size=(2, 3), rng=jrand.rng(3)).owner
+    jout = [[None], [None]]
+    jnode.op.perform(jnode, [np.array([0, 3], np.uint32), np.array([2, 3]),
+                             *[np.asarray(c.data) for c in jnode.inputs[2:]]], jout)
+    held(out[0][0], jout[0][0], f"{name} perform's next key")
+    held(out[1][0], jout[1][0], f"{name} perform's draw")
 
 
 # --- the lifts ------------------------------------------------------------------------
