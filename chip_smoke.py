@@ -300,13 +300,25 @@ Phases, one line or more each, and any failure raises:
    kernels a call and the top ones by name; (c) each sampler at 2**20
    through ``function()`` on a shared key (float32), captured: its
    kernel's launches in one call, ms a call; the Poisson and binomial
-   kernels' pass 1 and pass 2 timed apart; (d) each kernel on
+   draws (one cooperative launch of phases A, B and C of
+   ``csrc/loops.cuh``) captured into a CUDA graph and replayed with the
+   eager draw's bits; (d) each kernel on
    ``cases.LOOP_TYPICAL`` at 2**20 and the binomial kernel at the Gibbs
    draws: device and wall time beside its plain version's and torch's
    sampler of the same distribution (other bits), the threefry hashes the
    draw needs (its plain version's tally) and its bound; the gamma kernel
-   built with ``-fmad=false`` against the plain loops, by alpha.  The
-   kernel line gains an entry for each of the three kernels.
+   built with ``-fmad=false`` against the plain loops, by alpha; (e) the
+   stamped variants' split of the Poisson and binomial kernels' draw at
+   the Gibbs visible draw and at 2**20 (``loop_split``: the sources built
+   with ``-DLOOP_STAMPS``, each thread's ``clock64()`` cycles by slot, a
+   warp's active lanes, the hashes the threads made against those the
+   draw needs); (f) with ``--parent DIR``, DIR's ``csrc/poisson.cu`` and
+   ``csrc/binomial.cu`` built with their own headers (``parent_loops``,
+   which calls the two-pass C entry of the loop kernels' first tree or the
+   one-launch entry of this one, and refuses another), their draws
+   required to be this tree's at both Gibbs draws and at 2**20, and the
+   two timed in turn, twice.  The kernel line gains an entry for each of
+   the three kernels.
 
 Two clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -3943,22 +3955,231 @@ def loop_times(kernel, args, dev, n_iter):
     return row
 
 
-def loop_passes_ms(kernel, args, dev, n_iter):
-    """The wall ms of pass 1 and of pass 2 of the Poisson or binomial
-    kernel on ``args`` (CUDA events over back-to-back launches of one
-    pass; pass 2 on what one pass 1 left)."""
+def parent_interface(src, entry):
+    """The C interface of ``entry`` (``poisson_draw`` or ``binomial_draw``)
+    in the source ``src`` of a parent tree: "two passes" (the loop
+    kernels' first tree: a scratch of n + 1 int32 and a pass mask, 3 for
+    both passes) or "one launch" (this tree's: a state of int32 words and
+    no mask).  Raises for any other."""
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    names = [a.split()[-1].lstrip("*") for a in m.group(1).split(",")] if m else []
+    if names[-3:] == ["first", "passes", "stream"]:
+        return "two passes"
+    if names[-2:] == ["state", "stream"]:
+        return "one launch"
+    raise SystemExit(f"--parent: {entry}({', '.join(names)}) is neither the two-pass C entry of "
+                     f"the loop kernels' first tree nor this tree's one-launch entry")
+
+
+def parent_loops(root):
+    """The Poisson and binomial draws as built from the tree at ``root``
+    (its ``csrc/poisson.cu`` and ``csrc/binomial.cu`` with their own
+    headers, as ``link/cuda`` builds them, called through the C interface
+    that ``parent_interface`` reads from the source):
+    ``{kernel: draw(key, *args)}``, each draw returning int64.  Its
+    launches are not counted."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import binomial_kernel, poisson_kernel
+    from pytensor_tpu_torch.link.cuda.build import build_library
+
+    draws = {}
+    for kernel, mod in (("poisson", poisson_kernel), ("binomial", binomial_kernel)):
+        src = Path(root, "pytensor_tpu_torch", "csrc", f"{kernel}.cu")
+        text = src.read_text()
+        two_passes = parent_interface(text, f"{kernel}_draw") == "two passes"
+        lib, _ = build_library(text, f"{kernel}_parent", src, False, mod.FLAGS)
+        p = ctypes.c_void_p
+        # the pass mask before the stream in the two-pass entry
+        mask = [ctypes.c_int] if two_passes else []
+        entry = getattr(lib, f"{kernel}_draw")
+        entry.argtypes = ([p, p, ctypes.c_longlong, p, p, *mask, p] if kernel == "poisson" else
+                          [p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p, p, *mask, p])
+        entry.restype = ctypes.c_int
+
+        def draw(key, *args, lib=lib, kernel=kernel, two_passes=two_passes):
+            n = args[0].numel()
+            out = torch.empty(n, dtype=torch.int64, device=key.device)
+            # the two-pass scratch (each element's first accept, then N),
+            # or the state words (64: more than either tree uses)
+            scratch = torch.empty(n + 1 if two_passes else 64, dtype=torch.int32,
+                                  device=key.device)
+            tail = ([3] if two_passes else []) + [torch.cuda.current_stream(key.device).cuda_stream]
+            if kernel == "poisson":
+                err = lib.poisson_draw(key.data_ptr(), args[0].data_ptr(), n, out.data_ptr(),
+                                       scratch.data_ptr(), *tail)
+            else:
+                err = lib.binomial_draw(key.data_ptr(), args[0].data_ptr(), args[1].data_ptr(),
+                                        n, int(args[1].dtype == torch.float64), 2,
+                                        out.data_ptr(), scratch.data_ptr(), *tail)
+            if err != 0:
+                raise RuntimeError(f"the parent's {kernel} launch failed: CUDA error {err}")
+            return out
+
+        draws[kernel] = draw
+    return draws
+
+
+def loop_beside_parent(kernel, args, dev, parent):
+    """This tree's draw against the parent's (the same bits required) and
+    the two timed in turn, twice: {"this": [ms, ms], "parent": [ms, ms]}
+    (device ms a draw, memsets included)."""
     import torch
 
     from pytensor_tpu_torch.link.cuda import binomial_kernel, poisson_kernel
 
     mod = poisson_kernel if kernel == "poisson" else binomial_kernel
     key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
-    out = torch.empty(args[0].shape, dtype=torch.int64, device=dev)
-    scratch = torch.empty(args[0].numel() + 1, dtype=torch.int32, device=dev)
-    p1 = wall_ms(lambda: mod.run_passes(key, *args, out, scratch, mod.PASS1), n_iter)
-    mod.run_passes(key, *args, out, scratch, mod.PASS1)
-    p2 = wall_ms(lambda: mod.run_passes(key, *args, out, scratch, mod.PASS2), n_iter)
-    return {"pass1_ms": p1, "pass2_ms": p2, "passes_N": int(scratch[-1])}
+    extra = (torch.int64,) if kernel == "binomial" else ()
+    this = lambda: mod.launch(key, *args, *extra)  # noqa: E731
+    theirs = lambda: parent[kernel](key, *args)  # noqa: E731
+    if not torch.equal(this(), theirs()):
+        raise AssertionError(f"{kernel}: the parent's draws differ from this tree's")
+    turns = {"this": [], "parent": []}
+    for _ in range(2):
+        for who, fn in (("this", this), ("parent", theirs)):
+            turns[who].append(device_ms(fn, 20)[0])
+    return turns
+
+
+def loop_capture_holds(dev):
+    """Each kernel's draw (one cooperative launch) captured into a CUDA
+    graph and replayed gives the eager draw's bits, at ``LOOP_N`` on its
+    timed grid and on the Gibbs chain's binomial(1, p)."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import binomial_kernel, poisson_kernel
+
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
+    lam = loop_typical("poisson", dev, LOOP_N)
+    count_prob = loop_typical("binomial", dev, LOOP_N)
+    gibbs_p = torch.linspace(0.01, 0.99, 15680, device=dev)
+    ones = torch.ones_like(gibbs_p)
+    cases = {"poisson 2e20": lambda: poisson_kernel.launch(key, *lam),
+             "binomial 2e20": lambda: binomial_kernel.launch(key, *count_prob, torch.int64),
+             "binomial(1, p)": lambda: binomial_kernel.launch(key, ones, gibbs_p, torch.int64)}
+    for tag, fn in cases.items():
+        eager = fn()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(replayed, eager):
+                raise AssertionError(f"{tag}: a replayed capture of the draw gives other bits")
+    return list(cases)
+
+
+# the stamped variant's slots (csrc/loops.cuh): cycles, then counts
+LOOP_CYCLE_SLOTS = ("chain", "dummy", "own loop", "rejection", "rest")
+LOOP_COUNT_SLOTS = ("dummy passes", "own passes", "rejection passes", "hashes", "chain hashes")
+
+
+def loop_stamped(mod):
+    """The stamped variant of a loop kernel (its source built with
+    ``-DLOOP_STAMPS``; csrc/loops.cuh), bound as the kernel is: (seconds,
+    library, build log)."""
+    from pytensor_tpu_torch.link.cuda.build import build_csrc
+
+    t0 = time.perf_counter()
+    lib, log = build_csrc(mod.SOURCE.stem, mod.HEADERS, True, (*mod.FLAGS, "-DLOOP_STAMPS"))
+    mod.bind(lib)
+    lib.loop_stamps_at.argtypes = [ctypes.c_void_p]
+    lib.loop_stamps_at.restype = ctypes.c_int
+    return time.perf_counter() - t0, lib, log
+
+
+def kernel_ms(name, fn, n_iter):
+    """The device ms a call of the kernels whose names hold ``name`` (the
+    whole call's from CUDA events where the trace held no kernel at all);
+    raises where the trace holds kernels but none of that name."""
+    total, by = device_ms(fn, n_iter)
+    if not by:
+        return total
+    if not any(name in kn for kn in by):
+        raise AssertionError(f"torch.profiler traced no kernel named {name!r}: {sorted(by)}")
+    return sum(ms for kn, (ms, _) in by.items() if name in kn)
+
+
+def loop_split(kernel, args, dev, lib, needed):
+    """The split of a Poisson or binomial draw on ``args`` (one launch) by
+    its stamped variant ``lib``: the launch's device time (unstamped, and
+    stamped), the share of the threads' cycles by slot, the slowest
+    thread's cycles at the SM clock, each loop's passes by warp (largest
+    lane against the mean: the active lanes), and the hashes the threads
+    made against ``needed`` (the plain version's tally)."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import binomial_kernel, loop_state, poisson_kernel
+
+    mod = poisson_kernel if kernel == "poisson" else binomial_kernel
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
+    n = args[0].numel()
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    state = torch.empty(loop_state.STATE_WORDS, dtype=torch.int32, device=dev)
+    threads = -(-n // 256) * 256 + 1024
+    buf = torch.zeros((threads, len(LOOP_CYCLE_SLOTS) + len(LOOP_COUNT_SLOTS)),
+                      dtype=torch.int64, device=dev)
+    if lib.loop_stamps_at(buf.data_ptr()) != 0:
+        raise AssertionError("loop_stamps_at failed")
+    mod.run(key, *args, out, state, lib=lib)
+    r = buf.cpu().numpy().astype("float64")
+    # the stamped launches timed below stamp into a buffer of their own
+    sink = torch.zeros_like(buf)
+    lib.loop_stamps_at(sink.data_ptr())
+    want = mod.launch(key, *args, torch.int64) if kernel == "binomial" else mod.launch(key, *args)
+    if not torch.equal(out, want):
+        raise AssertionError(f"{kernel}: the stamped variant's draws differ from the kernel's")
+    plain_ms = kernel_ms(kernel, lambda: mod.run(key, *args, out, state), 50)
+    stamped_ms = kernel_ms(kernel, lambda: mod.run(key, *args, out, state, lib=lib), 10)
+    cyc = r[:, :len(LOOP_CYCLE_SLOTS)]
+    cnt = r[:, len(LOOP_CYCLE_SLOTS):]
+    total = cyc.sum()
+    # a warp's time: its slowest lane's; on each slot of work as long as
+    # its slowest lane there, the rest (waiting) to "rest"
+    wcyc = cyc.reshape(-1, 32, cyc.shape[1])
+    elapsed = wcyc.sum(axis=2).max(axis=1)
+    work = wcyc[:, :, :-1].max(axis=1)
+    warp_share = {c: float(work[:, j].sum() / elapsed.sum())
+                  for j, c in enumerate(LOOP_CYCLE_SLOTS[:-1])} if elapsed.sum() else {}
+    if warp_share:
+        warp_share["rest"] = 1.0 - sum(warp_share.values())
+    warps = cnt.reshape(-1, 32, cnt.shape[1])
+    lanes = {}
+    for j, c in enumerate(LOOP_COUNT_SLOTS[:3]):
+        mx = warps[:, :, j].max(axis=1)
+        if mx.sum():
+            lanes[c] = float(warps[:, :, j].sum() / (32 * mx.sum()))
+    return {"one launch": {
+        "ms": plain_ms, "stamped_ms": stamped_ms,
+        "share": {c: float(cyc[:, j].sum() / total) if total else 0.0
+                  for j, c in enumerate(LOOP_CYCLE_SLOTS)},
+        "warp_share": warp_share,
+        "slowest_thread_us": float(cyc.sum(axis=1).max() / (SM_CLOCKS_S / 132) * 1e6),
+        "active_lanes": lanes,
+        "passes": {c: int(cnt[:, j].sum()) for j, c in enumerate(LOOP_COUNT_SLOTS[:3])},
+        "hashes": int(cnt[:, 3].sum()), "chain_hashes": int(cnt[:, 4].sum()),
+        "needed": needed}}
+
+
+def say_split(tag, report, smi_line):
+    for name, r in report.items():
+        say(f"  split of {tag} {name}: device {r['ms'] * 1e3:.2f} us (stamped "
+            f"{r['stamped_ms'] * 1e3:.2f}); threads' cycles " + ", ".join(
+                f"{c} {v:.3f}" for c, v in r["share"].items())
+            + "; warps' cycles (a slot as long as its slowest lane) " + ", ".join(
+                f"{c} {v:.3f}" for c, v in r["warp_share"].items())
+            + f"; slowest thread {r['slowest_thread_us']:.2f} us at 1.98 GHz; active lanes "
+            + (", ".join(f"{c} {v:.2f}" for c, v in r["active_lanes"].items()) or "none")
+            + "; passes " + ", ".join(f"{c} {v:,}" for c, v in r["passes"].items())
+            + f"; hashes made {r['hashes']:,} (chain {r['chain_hashes']:,}) against "
+            f"{r['needed']:,} the draw needs ({smi_line})")
 
 
 def gibbs_probe(W, bh, bv, v0, dev):
@@ -3981,7 +4202,7 @@ def gibbs_probe(W, bh, bv, v0, dev):
     return [o.cpu() for o in f(v0)]
 
 
-def phase_loops(dev, smi_line):
+def phase_loops(dev, smi_line, stamped=None, parent=None):
     """Phase 19: jax's loop samplers and the RBM Gibbs chain.  (a) Each of
     the twelve samplers at ``LOOP_N`` draws on its edge grid
     (``cases.loop_grid``) in float32 and float64, through its RV's draw on
@@ -3997,13 +4218,15 @@ def phase_loops(dev, smi_line):
     bit); the binomial kernel on that step's real p against its plain
     version; ms a call, steps/s, device busy share and kernels a call.
     (c) Each sampler at ``LOOP_N`` through ``function()`` on a shared key
-    (float32): captured, launches a call, ms a call; pass 1 and pass 2 of
-    the Poisson and binomial kernels.  (d) Each kernel on
-    ``cases.LOOP_TYPICAL`` at ``LOOP_N`` and the binomial kernel at the
-    Gibbs draws: device and wall time beside its plain version's and
-    torch's sampler's, the hashes the draw made and its bound.  Returns
-    the launches by path and the rows.  On the CPU (a rehearsal) it checks
-    the values only, at the sizes set."""
+    (float32): captured, launches a call, ms a call; the Poisson and
+    binomial draws captured and replayed.  (d) Each kernel on ``cases.LOOP_TYPICAL`` at
+    ``LOOP_N`` and the binomial kernel at the Gibbs draws: device and wall
+    time beside its plain version's and torch's sampler's, the hashes the
+    draw needs and its bound.  (e) The ``stamped`` variants' split of the
+    draw (``loop_split``).  (f) With ``parent`` (a checkout), its Poisson
+    and binomial kernels beside these.  Returns the launches by path and
+    the rows.  On the CPU (a rehearsal) it checks the values only, at the
+    sizes set."""
     import torch
 
     import pytensor_tpu_torch as ptt
@@ -4087,6 +4310,7 @@ def phase_loops(dev, smi_line):
 
     # (b) the Gibbs chain -----------------------------------------------------------------
     W, bh, bv, v0 = rbm_weights()
+    gibbs_args: dict = {}
     steps = PLOT_EVERY if on_card else 3
     t0 = time.perf_counter()
     chain, _ = make_gibbs_chain(W, bh, bv, n_steps=steps, device=dev)
@@ -4148,6 +4372,7 @@ def phase_loops(dev, smi_line):
                                                   "ulps": ulps, "abs": abs_err}
         rows["kernels"][f"binomial gibbs {tag}"] = (
             loop_times("binomial", [ones, prob], dev, 200) if on_card else {})
+        gibbs_args[tag] = [ones, prob]
     say(f"gibbs first step: the card's draws equal the CPU's wherever p agrees bit for bit; "
         f"p differs at {p_diff['hidden']} of {card[0].numel()} hidden and "
         f"{p_diff['visible']} of {card[2].numel()} visible elements; the binomial kernel on "
@@ -4195,21 +4420,14 @@ def phase_loops(dev, smi_line):
                 raise AssertionError(f"{name}: not one captured CUDA graph")
             row["ms"] = wall_ms(f, 10)
         rows["samplers"][name] = row
-    for kernel in ("poisson", "binomial"):
-        if on_card:
-            rows["samplers"][f"{kernel} passes"] = loop_passes_ms(
-                kernel, loop_typical(kernel, dev, n), dev, 20)
     say(f"phase 19: the twelve samplers at {n:,} draws through function() on a shared key, "
         f"launches a call " + "; ".join(
-            f"{k} {v['launches'][LOOP_SAMPLERS[k]]}" for k, v in rows["samplers"].items()
-            if k in LOOP_SAMPLERS))
+            f"{k} {v['launches'][LOOP_SAMPLERS[k]]}" for k, v in rows["samplers"].items()))
     if on_card:
         for k, r in rows["samplers"].items():
-            if k in LOOP_SAMPLERS:
-                say(f"  {k:18s} {r['ms']:8.3f} ms a call (wall, CUDA events) ({smi_line})")
-            else:
-                say(f"  {k}: pass 1 {r['pass1_ms']:.3f} ms, pass 2 {r['pass2_ms']:.3f} ms "
-                    f"(N = {r['passes_N']} passes) at {n:,} draws ({smi_line})")
+            say(f"  {k:18s} {r['ms']:8.3f} ms a call (wall, CUDA events) ({smi_line})")
+        say(f"phase 19: one cooperative launch captured into a CUDA graph and replayed twice, "
+            f"the eager draw's bits: {', '.join(loop_capture_holds(dev))}")
 
     # (d) each kernel timed beside its plain version and torch's sampler ---------------
     if on_card:
@@ -4222,8 +4440,88 @@ def phase_loops(dev, smi_line):
                 f"{r['library']} {r['library_ms'] * 1e3:8.1f} us; {r['hashes']:,} hashes, bound "
                 f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), {r['bound_ms'] / r['ms']:.2f} "
                 f"of it reached ({smi_line})")
+    # (e) the stamped variants' split of each launch ---------------------------------
+    if on_card:
+        rows["split"] = {}
+        for kernel, tag, args in (("binomial", "binomial gibbs visible", gibbs_args["visible"]),
+                                  ("binomial", "binomial 2e20", loop_typical("binomial", dev, n)),
+                                  ("poisson", "poisson 2e20", loop_typical("poisson", dev, n))):
+            rows["split"][tag] = loop_split(kernel, args, dev, stamped[kernel],
+                                            rows["kernels"][tag]["hashes"])
+            say_split(tag, rows["split"][tag], smi_line)
+    # (f) with --parent, the parent's Poisson and binomial kernels beside these
+    if on_card and parent:
+        theirs, rows["parent"] = parent_loops(parent), {}
+        for tag, kernel, args in (("binomial gibbs visible", "binomial", gibbs_args["visible"]),
+                                  ("binomial gibbs hidden", "binomial", gibbs_args["hidden"]),
+                                  ("binomial 2e20", "binomial", loop_typical("binomial", dev, n)),
+                                  ("poisson 2e20", "poisson", loop_typical("poisson", dev, n))):
+            t = rows["parent"][tag] = loop_beside_parent(kernel, args, dev, theirs)
+            say(f"  {tag} beside the parent's ({parent}), the same bits; in turn, device us a "
+                f"draw: " + "; ".join(f"{who} " + ", ".join(f"{v * 1e3:.2f}" for v in vs)
+                                      for who, vs in t.items()) + f" ({smi_line})")
     say(f"loop samplers phase done in {time.perf_counter() - t19:.1f} s")
     return launches, rows
+
+
+def loop_builds(pool, timed):
+    """Phase 2's jobs for phases 18 and 19: threefry, the hash probe, the
+    three loop kernels, gamma with ``-fmad=false`` and the stamped
+    variants of the Poisson and binomial kernels."""
+    from pytensor_tpu_torch.link.cuda import (
+        binomial_kernel,
+        gamma_kernel,
+        poisson_kernel,
+        threefry_kernel,
+    )
+
+    return {"threefry": pool.submit(timed, lambda: threefry_kernel.build(verbose=True)),
+            "hash probe": pool.submit(hash_instructions),
+            "gamma -fmad=false": pool.submit(timed, gamma_fmad_false),
+            **{name: pool.submit(timed, lambda m=m: m.build(verbose=True))
+               for name, m in (("gamma", gamma_kernel), ("poisson", poisson_kernel),
+                               ("binomial", binomial_kernel))},
+            **{f"{name} stamped": pool.submit(loop_stamped, m)
+               for name, m in (("poisson", poisson_kernel), ("binomial", binomial_kernel))}}
+
+
+def loop_build_logs(build_s):
+    """The build logs of ``loop_builds``' jobs; the stamped variants'
+    libraries go to ``build_s["stamped"]``, by kernel."""
+    from pytensor_tpu_torch.link.cuda import (
+        binomial_kernel,
+        gamma_kernel,
+        poisson_kernel,
+        threefry_kernel,
+    )
+
+    build_s["stamped"], logs = {}, {}
+    for name in ("poisson", "binomial"):
+        tag = f"{name} stamped"
+        build_s[tag], build_s["stamped"][name], logs[tag] = build_s[tag]
+    return {"threefry": threefry_kernel.BUILD_LOG, "gamma": gamma_kernel.BUILD_LOG,
+            "poisson": poisson_kernel.BUILD_LOG, "binomial": binomial_kernel.BUILD_LOG, **logs}
+
+
+def say_builds(logs, build_s):
+    """Print each build's seconds and ptxas lines; take the hash probe's
+    count into ``HASH_SASS`` and ``HASH_S``."""
+    for tag, log in logs.items():
+        say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
+        for line in log.splitlines():
+            if "ptxas info" in line and ("registers" in line or "smem" in line) \
+                    or "bytes stack frame" in line:
+                say(f"  {tag} ptxas:", line.strip())
+    # the threefry hash's integer instructions, for the bounds of phases 18
+    # and 19
+    global HASH_SASS, HASH_S
+    HASH_SASS = build_s.pop("hash probe")
+    HASH_S = SM_CLOCKS_S / max(HASH_SASS["alu"] / ALU_LANES, HASH_SASS["all"] / DISPATCH_LANES)
+    say(f"threefry hash (cuobjdump -sass of csrc/threefry.cuh's hash, HASH_PROBE): "
+        f"{HASH_SASS['all']:g} instructions, {HASH_SASS['alu']:g} on the ALU pipe and "
+        f"{HASH_SASS['fma']:g} IMAD on the FMA pipe; at most {HASH_S / 1e9:.1f} G hashes a "
+        f"second on the card ({ALU_LANES} ALU and {DISPATCH_LANES} dispatched lanes an SM a "
+        f"clock)")
 
 
 def main(opts):
@@ -4269,6 +4567,12 @@ def main(opts):
     from pytensor_tpu_torch.tensor.fused import FusedElemwise
 
     dev = torch.device("cuda")
+    if opts.parent:
+        # a parent whose loop kernels phase 19 cannot call is refused now,
+        # not after the other phases
+        for kernel in ("poisson", "binomial"):
+            parent_interface(Path(opts.parent, "pytensor_tpu_torch", "csrc",
+                                  f"{kernel}.cu").read_text(), f"{kernel}_draw")
 
     # 1. device -------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4449,12 +4753,7 @@ def main(opts):
                 "K2": pool.submit(timed, lambda: k2.build(verbose=True)),
                 "K2 stamped": pool.submit(timed, lambda: k2_stamped.build(verbose=True)),
                 "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True)),
-                "threefry": pool.submit(timed, lambda: threefry_kernel.build(verbose=True)),
-                "hash probe": pool.submit(hash_instructions),
-                "gamma -fmad=false": pool.submit(timed, gamma_fmad_false),
-                **{name: pool.submit(timed, lambda m=m: m.build(verbose=True))
-                   for name, m in (("gamma", gamma_kernel), ("poisson", poisson_kernel),
-                                   ("binomial", binomial_kernel))},
+                **loop_builds(pool, timed),
                 **{f"K2 case: {tag}": pool.submit(timed, lambda k=k: k.build(verbose=True))
                    for tag, _, _, k, _ in k2_cases},
                 **{"K2 static BPTT": pool.submit(timed, lambda k=k: k.build(verbose=True))
@@ -4474,28 +4773,13 @@ def main(opts):
             "K3 stamped, rows in shared memory":
                 radon_kernel.BUILD_LOGS[radon_kernel.STAMPED + K3_SHARED_WALK],
             "K2": k2.build_log, "K2 stamped": k2_stamped.build_log, "K4": spmv_kernel.BUILD_LOG,
-            "threefry": threefry_kernel.BUILD_LOG, "gamma": gamma_kernel.BUILD_LOG,
-            "poisson": poisson_kernel.BUILD_LOG, "binomial": binomial_kernel.BUILD_LOG,
+            **loop_build_logs(build_s),
             **{f"K2 case: {tag}": k.build_log for tag, _, _, k, _ in k2_cases},
             **{"K2 static BPTT": k.build_log for k in elman_k2},
             **{"K2 bessel loop": k.build_log for k in special_k2},
             **{f"K2 ewma {dt}": k.build_log for dt, k in bf16_k2.items()},
             **{f"K2 scan {kind}": k.build_log for kind, k in tail_k2.items()}}
-    for tag, log in logs.items():
-        say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
-        for line in log.splitlines():
-            if "ptxas info" in line and "registers" in line or "bytes stack frame" in line:
-                say(f"  {tag} ptxas:", line.strip())
-    # the threefry hash's integer instructions, for the bounds of phases 18
-    # and 19
-    global HASH_SASS, HASH_S
-    HASH_SASS = build_s.pop("hash probe")
-    HASH_S = SM_CLOCKS_S / max(HASH_SASS["alu"] / ALU_LANES, HASH_SASS["all"] / DISPATCH_LANES)
-    say(f"threefry hash (cuobjdump -sass of csrc/threefry.cuh's hash, HASH_PROBE): "
-        f"{HASH_SASS['all']:g} instructions, {HASH_SASS['alu']:g} on the ALU pipe and "
-        f"{HASH_SASS['fma']:g} IMAD on the FMA pipe; at most {HASH_S / 1e9:.1f} G hashes a "
-        f"second on the card ({ALU_LANES} ALU and {DISPATCH_LANES} dispatched lanes an SM a "
-        f"clock)")
+    say_builds(logs, build_s)
     # K1: one library for the kernels of a linked function that no library
     # holds yet; the chain's were built when phase 2 linked it, each slice
     # graph's in the pool above
@@ -5245,7 +5529,7 @@ def main(opts):
     main_draw = random_rows["threefry"]["normal 256x89"]
 
     # 19. jax's loop samplers and the RBM Gibbs chain ----------------------------
-    loop_launches, loop_rows = phase_loops(dev, smi)
+    loop_launches, loop_rows = phase_loops(dev, smi, build_s["stamped"], opts.parent)
     loop_entries = []
     for kname, timed_at in (("gamma", "gamma 2e20"), ("poisson", "poisson 2e20"),
                             ("binomial", "binomial gibbs visible")):
@@ -5335,6 +5619,6 @@ def main(opts):
 if __name__ == "__main__":
     cli = argparse.ArgumentParser(description="Drive the torch port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
-                     help="a checkout of an earlier commit whose K4 phase 9 holds and times "
-                          "beside this tree's")
+                     help="a checkout of an earlier commit whose K4 (phase 9) and Poisson and "
+                          "binomial kernels (phase 19) are held and timed beside this tree's")
     sys.exit(main(cli.parse_args()))

@@ -1,5 +1,5 @@
 // jax's binomial sampler: the inversion loop and BTRS, with jax's
-// whole-array loop semantics, in two launches.
+// whole-array loop semantics, in the three phases of csrc/loops.cuh.
 //
 // Replaces no Pallas kernel: the JAX package draws binomial, betabinom's
 // binomial and each category of multinomial through jax.random, whose
@@ -9,38 +9,41 @@
 // count is NaN or negative, BTRS (:2734) for the rest, BTRS running the
 // inversion elements on the dummy count 1e4 and q 0.5.  The port's plain
 // version is tensor/random/samplers.py binomial_loops (torch ops, a host
-// read a pass); this kernel is two launches a draw, with no host read.
+// read a pass); this kernel draws with no host read.
 //
-// The inversion loop is monotone (an element whose sum of geometric draws
-// has passed its count never changes again), so thread i runs its own
-// element to its end.  BTRS is not: jax's body writes
-// k_out = select(accept, k, k_out) for every element on every pass, until
-// the last element has accepted, so an element's draw is its k at its
-// last accept within the whole array's N passes (loops.cuh).  Pass 1 runs
-// each element's BTRS (on its count and q, or on the dummy ones) to its
-// first accept, records that pass and the k, takes the largest pass + 1
-// into N on the card, and finishes the inversion elements; pass 2 runs
-// each BTRS element on to pass N - 1, keeps its last accept and writes the
-// draw.  Where no element takes BTRS (the Gibbs chain's binomial(1, p)),
-// pass 2's threads all return at once.  Then jax's edges: NaN for a NaN or
+// Phase A runs each inversion element's loop to its end (the loop is
+// monotone) and each BTRS element to its first accept, taken into N;
+// phase B, only where some element takes BTRS, runs BTRS on the dummy
+// parameters for each inversion element where it can raise N; phase C,
+// the same, searches each BTRS element's passes from N - 1 down for its
+// last accept.  Then jax's edges: NaN for a NaN or
 // negative q or count, inf for an infinite count, and count - k where
 // p > 0.5.  The inversion chain is subkey, key = split(key); BTRS's is
-// key, u's key, v's key = split(key, 3); each thread rehashes it.
+// key, u's key, v's key = split(key, 3): two tables of pass keys a block.
 //
 // T is the probability's dtype, the type of every operation; O the draw's:
 // jax's dtype argument (float64, or T under multinomial), or int64 for the
 // binomial random variables, whose float64 draw XLA casts to int64
 // (saturating_int64, written here so that no cast follows the kernel).
 //
-// What bounds it on this card: the threefry hashes.  The draw needs 1 an
-// element an inversion pass (~count q + 1 passes) and 2 a BTRS pass, plus
-// the key chain's 2 and 3 a pass for the whole array; each thread here
-// rehashes the chain, so it makes 3 and 5.  A pass adds a log (seven logs
-// and four Stirling tails for BTRS), against 2 sizeof(T) + sizeof(O) bytes
-// an element moved.  Every multiply and add
-// is rounded on its own (built with -fmad=false), as the plain version's
-// torch ops round them; log, log1p, floor and ceil are the functions
-// torch's CUDA ops call.
+// What bounds it: not the threefry hashes the draw needs (1 an element an
+// inversion pass, ~count q + 1 passes; 2 a BTRS pass, up to an element's
+// first accept and from its last to N - 1; the chains' 2 and 3 a pass for
+// the whole array), but each element's serial chain of passes (a hash, then
+// a log; seven logs and four Stirling tails a BTRS pass) and the lanes a
+// warp leaves idle while its longest loop runs.  A thread that rehashed the
+// chains itself and walked each BTRS element through every pass would make
+// 4.3 times those hashes; a dummy search for every inversion element, read
+// or not, was most of a Gibbs draw; both loops in every warp and a forward
+// walk of each BTRS element to N - 1 left most lanes idle at 2**20
+// (PERF.md).  So the chains' keys live in shared memory, phases B and C run
+// only where a BTRS element is, accept1 alone settles most dummies, a tile's
+// elements are queued by branch and each queue drained (a thread takes the
+// next element when its own ends), and a BTRS element's draw is found by a
+// search down from N - 1 (csrc/loops.cuh).  Every multiply and add is
+// rounded on its own (built with -fmad=false), as the plain version's torch
+// ops round them; log, log1p, floor and ceil are the functions torch's CUDA
+// ops call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,16 +51,18 @@
 #include "threefry.cuh"
 #include "loops.cuh"
 
-// jax's _stirling_approx_tail (random.py:2681): the table at k <= 9, else
-// its formula at k clamped to [0, 9] (NaN stays NaN)
+// jax's table of the Stirling tail at k = 0..9 (random.py:2681)
+__device__ const double kStirlingTail[10] = {
+    0.0810614667953272,  0.0413406959554092,  0.0276779256849983, 0.02079067210376509,
+    0.0166446911898211,  0.0138761288230707,  0.0118967099458917, 0.0104112652619720,
+    0.00925546218271273, 0.00833056343336287};
+
+// jax's _stirling_approx_tail: the table at k <= 9, else its formula at k
+// clamped to [0, 9] (NaN stays NaN)
 template <typename T>
 __device__ __forceinline__ T stirling_tail(T k) {
-  const double table[10] = {0.0810614667953272, 0.0413406959554092, 0.0276779256849983,
-                            0.02079067210376509, 0.0166446911898211, 0.0138761288230707,
-                            0.0118967099458917, 0.0104112652619720, 0.00925546218271273,
-                            0.00833056343336287};
   const T kc = k < T(0) ? T(0) : (k > T(9) ? T(9) : k);
-  if (k <= T(9)) return (T)table[(int)m_floor(kc)];
+  if (k <= T(9)) return (T)kStirlingTail[(int)m_floor(kc)];
   const T kp1sq = (kc + T(1)) * (kc + T(1));
   return (T(1.0 / 12) - (T(1.0 / 360) - T(1.0 / 1260) / kp1sq) / kp1sq) / (kc + T(1));
 }
@@ -66,7 +71,7 @@ __device__ __forceinline__ T stirling_tail(T k) {
 template <typename T>
 struct Binom {
   bool p_lt_half, count_nan_or_neg, count_inf, q_is_nan, q_l_0, use_inversion;
-  T q, count, count_btrs, q_btrs;
+  T q, count;
 };
 
 template <typename T>
@@ -81,8 +86,6 @@ __device__ __forceinline__ Binom<T> binom_setup(T count, T prob) {
   s.q = (s.q_is_nan | s.q_l_0) ? T(0.01) : q;
   s.use_inversion = s.count_nan_or_neg | (count * s.q <= T(10));
   s.count = m_floor(count);
-  s.count_btrs = s.use_inversion ? T(1e4) : s.count;
-  s.q_btrs = s.use_inversion ? T(0.5) : s.q;
   return s;
 }
 
@@ -109,12 +112,22 @@ __device__ __forceinline__ Btrs<T> btrs_setup(T count, T prob) {
   return s;
 }
 
-// one BTRS pass of element i under the pass's key: whether it accepts,
-// and its k
+// BTRS's first test alone of element i under a pass's u and v keys (the
+// same arithmetic as btrs_pass's): whether it accepts without a log
 template <typename T>
-__device__ __forceinline__ bool btrs_pass(const Btrs<T>& s, TfKey key, long long i, T& k) {
-  const T u = tf_uniform(tf_hash(key, 1), (unsigned long long)i, T(0)) - T(0.5);
-  const T v0 = tf_uniform(tf_hash(key, 2), (unsigned long long)i, T(0));
+__device__ __forceinline__ bool btrs_accept1(const Btrs<T>& s, TfKey ku, TfKey kv, long long i) {
+  const T u = tf_uniform(ku, (unsigned long long)i, T(0)) - T(0.5);
+  const T v0 = tf_uniform(kv, (unsigned long long)i, T(0));
+  return (T(0.5) - m_fabs(u) >= T(0.07)) & (v0 <= s.v_r);
+}
+
+// one BTRS pass of element i under the pass's u and v keys: whether it
+// accepts, and its k
+template <typename T>
+__device__ __forceinline__ bool btrs_pass(const Btrs<T>& s, TfKey ku, TfKey kv, long long i,
+                                          T& k) {
+  const T u = tf_uniform(ku, (unsigned long long)i, T(0)) - T(0.5);
+  const T v0 = tf_uniform(kv, (unsigned long long)i, T(0));
   const T us = T(0.5) - m_fabs(u);
   const bool accept1 = (us >= T(0.07)) & (v0 <= s.v_r);
   k = m_floor((T(2) * s.a / us + s.b) * u + s.c);
@@ -128,24 +141,23 @@ __device__ __forceinline__ bool btrs_pass(const Btrs<T>& s, TfKey key, long long
   return accept1 | (!reject & (v <= ub));
 }
 
-// an element's slot of out, for a draw of type O: a float draw is stored
-// as it is (W = O); an int64 draw is the float64 draw (W = double) cast as
-// XLA casts it, and its slot keeps pass 1's k as the double's bits until
-// pass 2 finishes it
+// the float64 draw behind an int64 one (XLA's cast after it), else the draw
 template <typename O>
-struct Slot {
+struct Wide {
   typedef O W;
-  __device__ static O keep(W k) { return k; }
-  __device__ static W kept(O v) { return v; }
-  __device__ static O store(W draw) { return draw; }
 };
 template <>
-struct Slot<long long> {
+struct Wide<long long> {
   typedef double W;
-  __device__ static long long keep(double k) { return __double_as_longlong(k); }
-  __device__ static double kept(long long v) { return __longlong_as_double(v); }
-  __device__ static long long store(double draw) { return saturating_int64(draw); }
 };
+template <typename O>
+__device__ __forceinline__ O store_as(double draw) {
+  return (O)draw;
+}
+template <>
+__device__ __forceinline__ long long store_as<long long>(double draw) {
+  return saturating_int64(draw);
+}
 
 // jax's edges on the draw k (in W) of an element
 template <typename T, typename W>
@@ -157,116 +169,217 @@ __device__ __forceinline__ W binom_finish(const Binom<T>& s, W k) {
                                                                         : (W)s.count - out;
 }
 
+// a tile's queues (loop_queue) and the tables, in shared memory
+template <typename T>
+struct BinomShared {
+  PassKeys keys[2];  // 0: the inversion loop's chain, 1: BTRS's
+  int offset[LOOP_QUEUE];
+  T count[LOOP_QUEUE], prob[LOOP_QUEUE];
+  int counts[2][4][LOOP_WARPS];
+  int next[2];
+  int go;
+};
+
+// the queued elements' loops, for loop_drain: the inversion loop to its
+// end (LOOP_OWN, phase A), BTRS forward to the first accept (LOOP_FIRST,
+// phase A) and down from N - 1 to the last accept (LOOP_LAST, phase C)
 template <typename T, typename O>
-__global__ void __launch_bounds__(LOOP_THREADS)
-    binomial_pass1(const long long* __restrict__ key, const T* __restrict__ count,
-                   const T* __restrict__ prob, long long n, O* __restrict__ out,
-                   int* __restrict__ first) {
-  typedef typename Slot<O>::W W;
-  const TfKey root{(uint32_t)key[0], (uint32_t)key[1]};
-  LOOP_FOR_EACH(i, n) {
-    const Binom<T> s = binom_setup(count[i], prob[i]);
-    // BTRS to its first accept, on the dummy parameters for an inversion
-    // element
-    const Btrs<T> bt = btrs_setup(s.count_btrs, s.q_btrs);
-    TfKey kk = root;
-    T k = T(-1);
-    int pass = LOOP_MAX_ITERS - 1;
-    for (int it = 0; it < LOOP_MAX_ITERS; ++it) {
-      T kt;
-      if (btrs_pass(bt, kk, i, kt)) {
-        k = kt;
-        pass = it;
-        break;
-      }
-      kk = tf_hash(kk, 0);
-    }
-    loop_count_at_least(first + n, pass + 1);
-    if (s.use_inversion) {
-      // the inversion loop on (count, q): subkey, key = split(key)
-      const T log1minusprob = m_log1p(-s.q);
-      T num_geom = T(0), geom_sum = T(0);
-      TfKey ik = root;
-      for (int it = 0; it < LOOP_MAX_ITERS && geom_sum <= s.count; ++it) {
-        const TfKey sub = tf_hash(ik, 0);
-        ik = tf_hash(ik, 1);
-        num_geom = num_geom + T(1);
-        const T u = tf_uniform(sub, (unsigned long long)i, T(0));
-        geom_sum = geom_sum + m_ceil(m_log(u) / log1minusprob);
-      }
-      out[i] = Slot<O>::store(binom_finish(s, (W)(num_geom - T(1))));
-      first[i] = -1;
+struct BinomDrain {
+  typedef typename Wide<O>::W W;
+  const BinomShared<T>& sh;
+  long long base;
+  O* out;
+  int* state;
+  int mode, slot, hashes, top, pass, first;
+  long long i;
+  Binom<T> s;
+  T log1minusprob, num_geom, geom_sum;
+  Btrs<T> bt;
+  W k;
+
+  __device__ BinomDrain(const BinomShared<T>& sh, long long base, O* out, int* state, int mode,
+                        int top = 0)
+      : sh(sh), base(base), out(out), state(state), mode(mode),
+        slot(mode == LOOP_OWN ? S_OWN : S_REJECT), hashes(mode == LOOP_OWN ? 1 : 2), top(top) {}
+  __device__ void start(int q) {
+    i = base + sh.offset[q];
+    s = binom_setup(sh.count[q], sh.prob[q]);
+    if (mode == LOOP_OWN) {
+      log1minusprob = m_log1p(-s.q);
+      num_geom = geom_sum = T(0);
+      pass = 0;
     } else {
-      out[i] = Slot<O>::keep((W)k);
-      first[i] = pass;
+      bt = btrs_setup(s.count, s.q);
+      first = -1;
+      k = W(-1);
+      pass = mode == LOOP_FIRST ? 0 : top;
     }
   }
-}
+  __device__ bool live() const {
+    if (mode == LOOP_OWN) return geom_sum <= s.count && pass < LOOP_MAX_ITERS;
+    return first < 0 && pass >= 0 && pass < LOOP_MAX_ITERS;
+  }
+  __device__ void step(TfKey s0, TfKey s1) {
+    if (mode == LOOP_OWN) {
+      num_geom = num_geom + T(1);
+      const T u = tf_uniform(s0, (unsigned long long)i, T(0));
+      geom_sum = geom_sum + m_ceil(m_log(u) / log1minusprob);
+      ++pass;
+      return;
+    }
+    T kt;
+    if (btrs_pass(bt, s0, s1, i, kt)) {
+      first = pass;
+      k = (W)kt;
+    } else {
+      pass += mode == LOOP_FIRST ? 1 : -1;
+    }
+  }
+  __device__ void finish() {
+    if (mode == LOOP_OWN)
+      out[i] = store_as<O>(binom_finish(s, (W)(num_geom - T(1))));
+    else if (mode == LOOP_FIRST)
+      loop_count_at_least(state + LOOP_STATE_N, first < 0 ? LOOP_MAX_ITERS : first + 1);
+    else
+      out[i] = store_as<O>(binom_finish(s, k));
+  }
+};
+
 
 template <typename T, typename O>
 __global__ void __launch_bounds__(LOOP_THREADS)
-    binomial_pass2(const long long* __restrict__ key, const T* __restrict__ count,
-                   const T* __restrict__ prob, long long n, O* __restrict__ out,
-                   const int* __restrict__ first) {
-  typedef typename Slot<O>::W W;
-  const TfKey root{(uint32_t)key[0], (uint32_t)key[1]};
-  const int passes = first[n];
-  LOOP_FOR_EACH(i, n) {
-    const int from = first[i] + 1;
-    if (from <= 0) continue;
-    const Binom<T> s = binom_setup(count[i], prob[i]);
-    W k = Slot<O>::kept(out[i]);
-    if (from < passes) {
-      const Btrs<T> bt = btrs_setup(s.count_btrs, s.q_btrs);
-      TfKey kk = chain_key(root, from, 0);
-      for (int it = from; it < passes; ++it) {
-        T kt;
-        if (btrs_pass(bt, kk, i, kt)) k = (W)kt;
-        kk = tf_hash(kk, 0);
+    binomial_kernel(const long long* __restrict__ key, const T* __restrict__ count,
+                    const T* __restrict__ prob, long long n, O* __restrict__ out,
+                    int* __restrict__ state) {
+  const int warp = threadIdx.x >> 5;
+  __shared__ BinomShared<T> sh;
+  LOOP_STAMP_BEGIN;
+  if (threadIdx.x == 0) {
+    const TfKey root{(uint32_t)key[0], (uint32_t)key[1]};
+    keys_init(sh.keys[0], root, 1, 1, 0, 0);
+    keys_init(sh.keys[1], root, 0, 2, 1, 2);
+  }
+  __syncthreads();
+  keys_start(sh.keys, 2 LOOP_STAMPS_ARG);
+  const int spread = loop_spread(n), tile = spread * LOOP_THREADS;
+  // a queued element: its offset in the tile and its parameters
+  const auto store = [&](long long base, long long i, int at) {
+    sh.offset[at] = (int)(i - base);
+    sh.count[at] = count[i];
+    sh.prob[at] = prob[i];
+  };
+  LOOP_FOR_EACH_TILE(base, tile, n) {
+    // the inversion elements to queue A, the BTRS elements to queue B
+    const LoopQueue q = loop_queue(
+        sh.counts, base, n, spread,
+        [&](long long i, int& need) {
+          const Binom<T> s = binom_setup(count[i], prob[i]);
+          // an inversion element's passes are at most floor(count) + 1
+          need = !s.use_inversion ? LOOP_FIRST_NEED
+                                  : loop_need(s.count_nan_or_neg ? T(-1) : s.count * s.q,
+                                              s.count + T(1));
+          return s.use_inversion ? 1 : 2;
+        },
+        [&](long long i, int at) { store(base, i, at); });
+    if (threadIdx.x == 0) {
+      loop_tile_grouped(state, q.b > 0);
+      sh.next[0] = 0;
+      sh.next[1] = LOOP_QUEUE - q.b;
+    }
+    if (warp < 2) keys_extend(sh.keys[warp], q.need[warp] LOOP_STAMPS_ARG);
+    __syncthreads();
+    LOOP_STAMP(S_REST);
+    BinomDrain<T, O> inversion(sh, base, out, state, LOOP_OWN);
+    loop_drain(&sh.next[0], q.a, sh.keys[0], inversion LOOP_STAMPS_ARG);
+    BinomDrain<T, O> first(sh, base, out, state, LOOP_FIRST);
+    loop_drain(&sh.next[1], LOOP_QUEUE, sh.keys[1], first LOOP_STAMPS_ARG);
+    __syncthreads();
+  }
+  // phases B and C only where some tile has a BTRS element
+  if (loop_rejection_anywhere(state, n, tile, &sh.go)) {
+    // the dummy parameters' first accepts, where they can raise N above
+    // the N known now (phase A's, or part of it): an accept1 (no log) at a
+    // pass below it means a first accept no later, so only a dummy with
+    // none runs BTRS to its first accept
+    const Btrs<T> dummy = btrs_setup(T(1e4), T(0.5));
+    const int known = loop_state(state, LOOP_STATE_N);
+    if (warp == 1) keys_extend(sh.keys[1], known LOOP_STAMPS_ARG);
+    __syncthreads();
+    LOOP_STAMP(S_CHAIN);
+    LOOP_FOR_EACH(i, n) {
+      if (!binom_setup(count[i], prob[i]).use_inversion) continue;
+      TfKey ku, kv;
+      int t = 0;
+      for (; t < known; ++t) {
+        keys_at(sh.keys[1], t, ku, kv);
+        LOOP_COUNT(C_DUMMY, 1);
+        LOOP_COUNT(C_HASHES, 2);
+        if (btrs_accept1(dummy, ku, kv, i)) break;
+      }
+      if (t == known) {
+        for (t = 0; t < LOOP_MAX_ITERS; ++t) {
+          keys_at(sh.keys[1], t, ku, kv);
+          T k;
+          LOOP_COUNT(C_DUMMY, 1);
+          LOOP_COUNT(C_HASHES, 2);
+          if (btrs_pass(dummy, ku, kv, i, k)) break;
+        }
+        loop_count_at_least(state + LOOP_STATE_N, t < LOOP_MAX_ITERS ? t + 1 : LOOP_MAX_ITERS);
       }
     }
-    out[i] = Slot<O>::store(binom_finish(s, k));
+    LOOP_STAMP(S_DUMMY);
+    loop_grid_sync(state);
+    // each BTRS element's last accept before pass N, searched down from
+    // N - 1 on the BTRS chain's table, built to N first
+    const int passes = loop_state(state, LOOP_STATE_N);
+    if (warp == 1) keys_extend(sh.keys[1], passes LOOP_STAMPS_ARG);
+    __syncthreads();
+    LOOP_STAMP(S_CHAIN);
+    LOOP_FOR_EACH_TILE(base, tile, n) {
+      const LoopQueue q = loop_queue(
+          sh.counts, base, n, spread,
+          [&](long long i, int&) { return binom_setup(count[i], prob[i]).use_inversion ? 0 : 1; },
+          [&](long long i, int at) { store(base, i, at); });
+      if (threadIdx.x == 0) sh.next[0] = 0;
+      __syncthreads();
+      LOOP_STAMP(S_REST);
+      BinomDrain<T, O> last(sh, base, out, state, LOOP_LAST, passes - 1);
+      loop_drain(&sh.next[0], q.a, sh.keys[1], last LOOP_STAMPS_ARG);
+      __syncthreads();
+    }
   }
+  LOOP_STAMP_END;
 }
 
 template <typename T, typename O>
 int binomial_launch(const long long* key, const void* count, const void* prob, long long n,
-                    void* out, int* first, int passes, cudaStream_t stream) {
-  const int blocks = loop_blocks(n);
-  if (passes & 1) {
-    const int err = (int)cudaMemsetAsync(first + n, 0, sizeof(int), stream);
-    if (err != 0) return err;
-    const auto pass1 = binomial_pass1<T, O>;
-    LOOP_LAUNCH(pass1, blocks, stream, key, (const T*)count, (const T*)prob, n, (O*)out, first);
-  }
-  if (passes & 2) {
-    const auto pass2 = binomial_pass2<T, O>;
-    LOOP_LAUNCH(pass2, blocks, stream, key, (const T*)count, (const T*)prob, n, (O*)out, first);
-  }
-  return (int)cudaGetLastError();
+                    void* out, int* state, cudaStream_t stream) {
+  const auto kernel = binomial_kernel<T, O>;
+  const T* c = (const T*)count;
+  const T* p = (const T*)prob;
+  int err = (int)cudaMemsetAsync(state, 0, LOOP_STATE_WORDS * sizeof(int), stream);
+  if (err == 0) err = LOOP_COOP_LAUNCH(kernel, n, stream, key, c, p, n, (O*)out, state);
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // out[i] <- jax's binomial draw of count[i] trials of prob[i] under key, on
-// `stream`.  count and prob are float32 (`wide` 0) or float64 (`wide` 1);
-// out is float32 (`out_kind` 0), float64 (1) or int64 (2, the float64 draw
-// cast as XLA casts it).  `first` is scratch of n + 1 int32 (each
-// element's first BTRS accept, or -1 for an inversion element, then N).
-// `passes` 1 runs pass 1 (after setting N to 0), 2 pass 2, 3 both.
-// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
-// for float64 probabilities with a float32 draw or an unknown out_kind.
+// `stream`, as one cooperative launch.  count and prob are float32 (`wide`
+// 0) or float64 (`wide` 1); out is float32 (`out_kind` 0), float64 (1) or
+// int64 (2, the float64 draw cast as XLA casts it).  `state` is scratch of
+// LOOP_STATE_WORDS int32 (N, phase A's record, the grid barrier's), set to
+// 0 first.  Returns the launch's error, or cudaErrorInvalidValue for
+// float64 probabilities with a float32 draw or an unknown out_kind.
 extern "C" int binomial_draw(const long long* key, const void* count, const void* prob,
-                             long long n, int wide, int out_kind, void* out, int* first,
-                             int passes, cudaStream_t stream) {
+                             long long n, int wide, int out_kind, void* out, int* state,
+                             cudaStream_t stream) {
   if (n <= 0) return 0;
   if ((wide && out_kind == 0) || out_kind < 0 || out_kind > 2)
     return (int)cudaErrorInvalidValue;
   if (out_kind == 2)
-    return wide ? binomial_launch<double, long long>(key, count, prob, n, out, first, passes,
-                                                     stream)
-                : binomial_launch<float, long long>(key, count, prob, n, out, first, passes,
-                                                    stream);
+    return wide ? binomial_launch<double, long long>(key, count, prob, n, out, state, stream)
+                : binomial_launch<float, long long>(key, count, prob, n, out, state, stream);
   if (out_kind == 1)
-    return wide ? binomial_launch<double, double>(key, count, prob, n, out, first, passes, stream)
-                : binomial_launch<float, double>(key, count, prob, n, out, first, passes, stream);
-  return binomial_launch<float, float>(key, count, prob, n, out, first, passes, stream);
+    return wide ? binomial_launch<double, double>(key, count, prob, n, out, state, stream)
+                : binomial_launch<float, double>(key, count, prob, n, out, state, stream);
+  return binomial_launch<float, float>(key, count, prob, n, out, state, stream);
 }

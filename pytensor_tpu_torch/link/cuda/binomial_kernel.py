@@ -5,18 +5,23 @@ No Pallas kernel is its counterpart: the JAX package draws binomial,
 betabinom and multinomial through ``jax.random``, whose ``_binomial`` XLA
 runs as the inversion and BTRS ``while_loop``s over the whole array, in
 the probability's dtype (``jax/_src/random.py:2681-2838``).  The CUDA
-kernel (``csrc/binomial.cu``) keeps jax's whole-array semantics in two
-launches: pass 1 runs each element to its first BTRS accept (and the
-inversion elements to their end) and takes the array's pass count N on
-the card, pass 2 runs the BTRS elements on to N, keeps their last accept
-and applies jax's edges; its source says what bounds it and how.
+kernel (``csrc/binomial.cu``) keeps jax's whole-array semantics in one
+cooperative launch of the three phases of ``csrc/loops.cuh``
+(``loop_state``): the inversion elements to their end and the BTRS
+elements to their first accept, then, only where a BTRS element is, the dummy parameters' first accepts into the
+pass count N (where they can raise it) and each BTRS element's last
+accept before N, searched down from N - 1, with jax's edges.  N stays on
+the card.  A block shares the two key chains' pass keys in shared memory,
+queues its elements by branch and drains each queue, a thread taking the
+next element when its own ends; the source says what bounds the kernel
+and how the design meets it.
 
 Built by ``link/cuda/build.py`` (nvcc for sm_90a, ``-fmad=false``) at
 first use and called through ``ctypes`` on torch's current stream.
 ``draw`` takes the plain version (``tensor/random/samplers.py
 binomial_loops``) for a key on the CPU only; for a key on the card it
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, two a
-draw.
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches: one
+a draw.
 """
 
 from __future__ import annotations
@@ -26,19 +31,28 @@ import ctypes
 import torch
 
 from pytensor_tpu_torch.link.cuda.build import CSRC
+from pytensor_tpu_torch.link.cuda.loop_state import STATE_WORDS
 
 SOURCE = CSRC / "binomial.cu"
 HEADERS = ("threefry.cuh", "loops.cuh")
 FLAGS = ("-fmad=false",)
-PASS1, PASS2 = 1, 2
 # the kernel's out_kind of each draw dtype
 OUT_KINDS = {torch.float32: 0, torch.float64: 1, torch.int64: 2}
 
-# launches of the kernel's passes since the count was last set to 0
+# launches of the kernel since the count was last set to 0
 LAUNCHES = 0
 
 _LIB = None
 BUILD_LOG = ""
+
+
+def bind(lib):
+    """Give ``lib``'s C entry its argument types."""
+    p = ctypes.c_void_p
+    lib.binomial_draw.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p, p,
+                                  p]
+    lib.binomial_draw.restype = ctypes.c_int
+    return lib
 
 
 def build(verbose: bool = False) -> ctypes.CDLL:
@@ -48,11 +62,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     global _LIB, BUILD_LOG
     if _LIB is None:
         lib, BUILD_LOG = build_csrc("binomial", HEADERS, verbose, FLAGS)
-        p = ctypes.c_void_p
-        lib.binomial_draw.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                      p, p, ctypes.c_int, p]
-        lib.binomial_draw.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind(lib)
     return _LIB
 
 
@@ -74,20 +84,21 @@ def _check(key, count, prob, dtype):
             raise ValueError(f"the key is on {key.device}, a parameter on {x.device}")
 
 
-def run_passes(key, count, prob, out, scratch, passes):
-    """Launch the kernel's ``passes`` (``PASS1``, ``PASS2`` or both) on
-    ``out`` (n draws) and ``scratch`` (int32, n + 1) as pass 1 left them."""
+def run(key, count, prob, out, state, lib=None):
+    """Draw into ``out`` (n draws) with ``state`` (``STATE_WORDS`` int32)
+    as scratch; ``lib``, a build of the source other than the kernel's
+    (the stamped variant), launches uncounted."""
     global LAUNCHES
     if key.device.type != "cuda":
         raise ValueError(f"the binomial kernel runs on CUDA tensors; the key is on {key.device}")
-    err = build().binomial_draw(
+    err = (lib or build()).binomial_draw(
         key.data_ptr(), count.data_ptr(), prob.data_ptr(), prob.numel(),
         int(prob.dtype == torch.float64), OUT_KINDS[out.dtype], out.data_ptr(),
-        scratch.data_ptr(), int(passes), torch.cuda.current_stream(key.device).cuda_stream)
+        state.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"binomial launch failed: CUDA error {err}")
-    if prob.numel():
-        LAUNCHES += bool(passes & PASS1) + bool(passes & PASS2)
+    if prob.numel() and lib is None:
+        LAUNCHES += 1
 
 
 def launch(key, count, prob, dtype=torch.float64):
@@ -96,8 +107,8 @@ def launch(key, count, prob, dtype=torch.float64):
     kernel."""
     _check(key, count, prob, dtype)
     out = torch.empty(prob.shape, dtype=dtype, device=prob.device)
-    scratch = torch.empty(prob.numel() + 1, dtype=torch.int32, device=prob.device)
-    run_passes(key, count, prob, out, scratch, PASS1 | PASS2)
+    state = torch.empty(STATE_WORDS, dtype=torch.int32, device=prob.device)
+    run(key, count, prob, out, state)
     return out
 
 

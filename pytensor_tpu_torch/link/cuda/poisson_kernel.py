@@ -5,18 +5,22 @@ No Pallas kernel is its counterpart: the JAX package draws poisson
 through ``jax.random``, whose ``_poisson`` XLA runs as Knuth's and
 Hormann's (PTRS) ``while_loop``s over the whole array, in float32
 (``jax/_src/random.py:1547-1631``).  The CUDA kernel (``csrc/poisson.cu``)
-keeps jax's whole-array semantics in two launches: pass 1 runs each
-element to its first PTRS accept (and Knuth's elements to their end) and
-takes the array's pass count N on the card, pass 2 runs the PTRS elements
-on to N and keeps their last accept; its source says what bounds it and
-how.
+keeps jax's whole-array semantics in one cooperative launch of the three
+phases of ``csrc/loops.cuh`` (``loop_state``): Knuth's elements to their
+end and the PTRS elements to their first accept, then, only where a PTRS
+element is, the dummy lam's first accepts into the pass count N (where
+they can raise it) and each PTRS element's last accept before N,
+searched down from N - 1.  N stays on the card.  A block shares the key chain's pass
+keys in shared memory, queues its elements by branch and drains each
+queue, a thread taking the next element when its own ends; the source
+says what bounds the kernel and how the design meets it.
 
 Built by ``link/cuda/build.py`` (nvcc for sm_90a, ``-fmad=false``) at
 first use and called through ``ctypes`` on torch's current stream.
 ``draw`` takes the plain version (``tensor/random/samplers.py
 poisson_loops``) for a key on the CPU only; for a key on the card it
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, two a
-draw.
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches: one
+a draw.
 """
 
 from __future__ import annotations
@@ -26,17 +30,25 @@ import ctypes
 import torch
 
 from pytensor_tpu_torch.link.cuda.build import CSRC
+from pytensor_tpu_torch.link.cuda.loop_state import STATE_WORDS
 
 SOURCE = CSRC / "poisson.cu"
 HEADERS = ("threefry.cuh", "loops.cuh")
 FLAGS = ("-fmad=false",)
-PASS1, PASS2 = 1, 2
 
-# launches of the kernel's passes since the count was last set to 0
+# launches of the kernel since the count was last set to 0
 LAUNCHES = 0
 
 _LIB = None
 BUILD_LOG = ""
+
+
+def bind(lib):
+    """Give ``lib``'s C entry its argument types."""
+    p = ctypes.c_void_p
+    lib.poisson_draw.argtypes = [p, p, ctypes.c_longlong, p, p, p]
+    lib.poisson_draw.restype = ctypes.c_int
+    return lib
 
 
 def build(verbose: bool = False) -> ctypes.CDLL:
@@ -46,10 +58,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     global _LIB, BUILD_LOG
     if _LIB is None:
         lib, BUILD_LOG = build_csrc("poisson", HEADERS, verbose, FLAGS)
-        p = ctypes.c_void_p
-        lib.poisson_draw.argtypes = [p, p, ctypes.c_longlong, p, p, ctypes.c_int, p]
-        lib.poisson_draw.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind(lib)
     return _LIB
 
 
@@ -64,27 +73,28 @@ def _check(key, lam):
         raise ValueError(f"the key is on {key.device}, lam on {lam.device}")
 
 
-def run_passes(key, lam, out, scratch, passes):
-    """Launch the kernel's ``passes`` (``PASS1``, ``PASS2`` or both) on
-    ``out`` (int64, n) and ``scratch`` (int32, n + 1) as pass 1 left them."""
+def run(key, lam, out, state, lib=None):
+    """Draw into ``out`` (int64, n) with ``state`` (``STATE_WORDS`` int32)
+    as scratch; ``lib``, a build of the source other than the kernel's
+    (the stamped variant), launches uncounted."""
     global LAUNCHES
     if key.device.type != "cuda":
         raise ValueError(f"the Poisson kernel runs on CUDA tensors; the key is on {key.device}")
-    err = build().poisson_draw(key.data_ptr(), lam.data_ptr(), lam.numel(), out.data_ptr(),
-                               scratch.data_ptr(), int(passes),
-                               torch.cuda.current_stream(key.device).cuda_stream)
+    err = (lib or build()).poisson_draw(key.data_ptr(), lam.data_ptr(), lam.numel(),
+                                        out.data_ptr(), state.data_ptr(),
+                                        torch.cuda.current_stream(key.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"Poisson launch failed: CUDA error {err}")
-    if lam.numel():
-        LAUNCHES += bool(passes & PASS1) + bool(passes & PASS2)
+    if lam.numel() and lib is None:
+        LAUNCHES += 1
 
 
 def launch(key, lam):
     """jax's Poisson draws (int64) of ``lam`` under ``key``, by the kernel."""
     _check(key, lam)
     out = torch.empty(lam.shape, dtype=torch.int64, device=lam.device)
-    scratch = torch.empty(lam.numel() + 1, dtype=torch.int32, device=lam.device)
-    run_passes(key, lam, out, scratch, PASS1 | PASS2)
+    state = torch.empty(STATE_WORDS, dtype=torch.int32, device=lam.device)
+    run(key, lam, out, state)
     return out
 
 

@@ -13,12 +13,12 @@ steps between samples (``plot_every``), float32, W uniform in
 ``RBM.__init__`` draws them (here from a numpy seed; no MNIST is needed).
 
 Every binomial draw has ``count * q <= 1``, so it takes jax's inversion
-loop; the BTRS loop still runs on jax's dummy parameters (the binomial
-kernel's pass 1 finds no element needs more, and its pass 2 returns at
-once).  On a card a call is one replay of one captured CUDA graph: per
-step two products, the fused elementwise work, a split of each stream's
-key (threefry) and two binomial launches a draw, with nothing read back
-on the host.  K2 refuses the scan (no RandomVariable is on its white
+loop; jax's BTRS loop still runs on its dummy parameters, but nothing
+reads its pass count unless an element takes BTRS, so the binomial kernel
+skips it (no block sets its flag).  On a card a call is one replay of one
+captured CUDA graph: per step two products, the fused elementwise work, a
+split of each stream's key (threefry) and one binomial launch a draw, with
+nothing read back on the host.  K2 refuses the scan (no RandomVariable is on its white
 list, ``link/cuda/scan_kernel.py``), so it runs as the step loop.  Every
 entry point takes ``device``, the card unless the caller asks for the
 CPU.

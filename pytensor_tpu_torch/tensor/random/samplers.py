@@ -38,14 +38,17 @@ This is the CPU path and the kernels' oracle: ``gamma_loops``,
 card takes instead, with no host read.  Given a ``tally`` (a list), each
 adds to it the threefry hashes the draw needs, for the kernels' bounds:
 every hash of an element's own key chain, each element's uniforms in each
-pass it needs (a PTRS or BTRS element every pass of the whole array's
-loop, an element on jax's dummy parameters up to its first accept, a Knuth
-or inversion element up to its own end), and the key chain that the whole
-array shares once a pass.  XLA on the CPU contracts
-multiplies and adds into fused ones and rounds its own ``log`` and
-``lgamma``; these loops round each torch op on its own, so a float draw
-is jax's within a few ulps, and an integer draw is jax's unless an accept
-test falls within that rounding of its threshold.
+pass it needs (a PTRS or BTRS element up to its first accept and from its
+last accept to the end of the whole array's loop, a Knuth or inversion
+element up to its own end and, where some element takes PTRS or BTRS and
+so reads N, on jax's dummy parameters up to its first accept), and the
+key chain that the whole array shares once a pass.  Where no element
+takes PTRS or BTRS, nothing reads that loop, so none of its hashes count.
+XLA on the CPU contracts multiplies and adds into fused ones and rounds
+its own ``log`` and ``lgamma``; these loops round each torch op on its
+own, so a float draw is jax's within a few ulps, and an integer draw is
+jax's unless an accept test falls within that rounding of its
+threshold.
 """
 
 from __future__ import annotations
@@ -88,6 +91,31 @@ def _tally(tally, shared, per_element, need):
     array's keys."""
     if tally is not None:
         tally.append(need.any() * shared + per_element * need.sum())
+
+
+class _RejectionTally:
+    """The hashes a whole-array rejection loop's draw needs: the pass's
+    shared keys, each element's uniforms up to its first accept and, for
+    an element whose draw is the loop's (``every_pass``, not one on jax's
+    dummy parameters), those from its last accept to the loop's end, which
+    the kernels search down from pass N - 1 for; the passes between its
+    first and last accepts are not needed."""
+
+    def __init__(self, tally, every_pass):
+        self.tally, self.every_pass = tally, every_pass
+        self.first = torch.full(every_pass.shape, -1, device=every_pass.device)
+        self.last = self.first.clone()
+
+    def before(self, accepted):
+        _tally(self.tally, 3, 2, ~accepted)
+
+    def after(self, accepted, accept, it):
+        self.first = torch.where(~accepted & accept, it, self.first)
+        self.last = torch.where(accept, it, self.last)
+
+    def end(self, accepted, passes):
+        after = passes - torch.maximum(self.last, self.first + 1)
+        self.tally.append(2 * torch.where(self.every_pass & accepted, after, 0).sum())
 
 
 def true_div(c, x):
@@ -209,7 +237,7 @@ def _poisson_knuth(key, lam, tally=None):
 
 
 def _poisson_rejection(key, lam, tally=None, every_pass=None):
-    # every_pass: the elements whose draw needs every pass (not those on
+    # every_pass: the elements whose draw is this loop's (not those on
     # the dummy lam, which only set the pass count)
     n = lam.numel()
     log_lam = torch.log(lam)
@@ -219,10 +247,11 @@ def _poisson_rejection(key, lam, tally=None, every_pass=None):
     v_r = 0.9277 - true_div(3.6224, b - 2)
     k_out = torch.full_like(lam, -1.0)
     accepted = torch.zeros(n, dtype=torch.bool, device=lam.device)
+    count_hashes = _RejectionTally(tally, every_pass) if tally is not None else None
     it = 0
     while it < MAX_ITERS and not bool(accepted.all()):
-        if tally is not None:
-            _tally(tally, 3, 2, every_pass | ~accepted)
+        if count_hashes is not None:
+            count_hashes.before(accepted)
         keys = _split(key, 3)
         key = keys[0]
         u = _uniform(keys[1], n, F32) - 0.5
@@ -234,9 +263,13 @@ def _poisson_rejection(key, lam, tally=None, every_pass=None):
         accept1 = (u_shifted >= 0.07) & (v <= v_r)
         reject = (k < 0) | ((u_shifted < 0.013) & (v > u_shifted))
         accept = accept1 | (~reject & (s <= t))
+        if count_hashes is not None:
+            count_hashes.after(accepted, accept, it)
         k_out = torch.where(accept, k, k_out)
         accepted = accepted | accept
         it += 1
+    if count_hashes is not None:
+        count_hashes.end(accepted, it)
     return saturating_cast(k_out, torch.int64)
 
 
@@ -246,8 +279,10 @@ def poisson_loops(key, lam, tally=None):
     use_knuth = torch.isnan(lam) | (lam < 10)
     lam_knuth = torch.where(use_knuth, lam, 0.0)
     lam_rejection = torch.where(use_knuth, 1e5, lam)
+    # the rejection loop's hashes count only where an element reads its N
+    rejection_tally = tally if bool((~use_knuth).any()) else None
     result = torch.where(use_knuth, _poisson_knuth(key, lam_knuth, tally),
-                         _poisson_rejection(key, lam_rejection, tally, ~use_knuth))
+                         _poisson_rejection(key, lam_rejection, rejection_tally, ~use_knuth))
     return torch.where(lam == 0, 0, result)
 
 
@@ -299,10 +334,11 @@ def _btrs(key, count, prob, tally=None, every_pass=None):
     m = torch.floor((count + 1) * prob)
     k_out = torch.full_like(prob, -1.0)
     accepted = torch.zeros(n, dtype=torch.bool, device=prob.device)
+    count_hashes = _RejectionTally(tally, every_pass) if tally is not None else None
     it = 0
     while it < MAX_ITERS and not bool(accepted.all()):
-        if tally is not None:
-            _tally(tally, 3, 2, every_pass | ~accepted)
+        if count_hashes is not None:
+            count_hashes.before(accepted)
         keys = _split(key, 3)
         key = keys[0]
         u = _uniform(keys[1], n, prob.dtype)
@@ -321,9 +357,13 @@ def _btrs(key, count, prob, tally=None, every_pass=None):
               - _stirling_approx_tail(k)
               - _stirling_approx_tail(count - k))
         accept = accept1 | (~reject & (v <= ub))
+        if count_hashes is not None:
+            count_hashes.after(accepted, accept, it)
         k_out = torch.where(accept, k, k_out)
         accepted = accepted | accept
         it += 1
+    if count_hashes is not None:
+        count_hashes.end(accepted, it)
     return k_out
 
 
@@ -346,9 +386,11 @@ def binomial_loops(key, count, prob, dtype=F64, tally=None):
     count_inv = torch.where(use_inversion, count, 0.0)
     count_btrs = torch.where(use_inversion, 1e4, count)
     q_btrs = torch.where(use_inversion, 0.5, q)
+    # BTRS's hashes count only where an element reads its N
+    btrs_tally = tally if bool((~use_inversion).any()) else None
     samples = torch.where(
         use_inversion, _binomial_inversion(key, count_inv, q, tally, use_inversion).to(dtype),
-        _btrs(key, count_btrs, q_btrs, tally, ~use_inversion).to(dtype))
+        _btrs(key, count_btrs, q_btrs, btrs_tally, ~use_inversion).to(dtype))
     invalid = q_l_0 | q_is_nan | count_nan_or_neg
     samples = torch.where(invalid, math.nan, samples)
     samples = torch.where(count_inf & ~invalid, math.inf, samples)

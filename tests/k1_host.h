@@ -24,7 +24,8 @@ struct alignas(16) double2 { double x, y; };
 #include "bf16_host.h"
 
 struct K1HostDim3 { unsigned int x; };
-static K1HostDim3 threadIdx, blockIdx, blockDim, gridDim;
+// a thread's own, so that tests/loops_host.h may run blocks on threads
+static thread_local K1HostDim3 threadIdx, blockIdx, blockDim, gridDim;
 
 template <typename F> void k1_host_launch(unsigned blocks, unsigned threads, F body) {
   gridDim.x = blocks;

@@ -1412,8 +1412,8 @@ def test_hmc_transition_is_one_replay_and_matches_the_cpu(card, entry):
 def test_loop_sampler_kernels_match_plain(card, name):
     """Each of jax's loop samplers at 4,096 draws on its edge grid
     (``cases.loop_grid``) in float32 and float64: the draw through the
-    gamma, Poisson or binomial kernel (two launches of the latter two, no
-    host read) bit for bit the draw with the plain loops on the card."""
+    gamma, Poisson or binomial kernel (one launch each, no host read) bit
+    for bit the draw with the plain loops on the card."""
     from pytensor_tpu_torch.link.cuda import binomial_kernel, gamma_kernel, poisson_kernel
     from pytensor_tpu_torch.tensor.random import basic
 
@@ -1486,4 +1486,50 @@ def test_gibbs_chain_is_one_replay_and_matches_the_cpu(card):
         torch.cuda.synchronize()
         assert tuple(a.shape) == (3, 20) and bool(((a == 0) | (a == 1)).all())
         assert torch.equal(a.cpu(), b)
-    assert binomial_kernel.LAUNCHES == 40 and len(f.linked.graphs) == 1
+    # one cooperative launch a draw, two draws a step
+    assert binomial_kernel.LAUNCHES == 20 and len(f.linked.graphs) == 1
+
+
+@pytest.mark.parametrize("kernel", ["poisson", "binomial"])
+def test_loop_kernel_launch_and_capture(card, kernel):
+    """The Poisson and binomial kernels' draw, one cooperative launch
+    counted, is the plain loops' draw, on the timed grid
+    (``cases.LOOP_TYPICAL``) and, for binomial, the Gibbs chain's
+    binomial(1, p) (phases B and C do nothing: the flag and N stay 0);
+    captured into a CUDA graph it replays the same bits."""
+    from pytensor_tpu_torch.link.cuda import binomial_kernel, loop_state, poisson_kernel
+
+    mod = poisson_kernel if kernel == "poisson" else binomial_kernel
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=card)
+    if kernel == "binomial":
+        pairs = np.array(cases.LOOP_TYPICAL["binomial"], "float32")
+        grids = {"typical": [torch.from_numpy(np.resize(pairs[:, j], 16384)).to(card)
+                             for j in (0, 1)],
+                 "gibbs": [torch.ones(15680, device=card),
+                           torch.linspace(0.01, 0.99, 15680, device=card)]}
+    else:
+        grids = {"typical": [torch.from_numpy(np.resize(np.array(
+            cases.LOOP_TYPICAL["poisson"], "float32"), 16384)).to(card)]}
+    extra = (torch.int64,) if kernel == "binomial" else ()
+    for tag, args in grids.items():
+        want = mod.plain(key, *args, *extra)
+        out = torch.empty(args[0].shape, dtype=torch.int64, device=card)
+        state = torch.empty(loop_state.STATE_WORDS, dtype=torch.int32, device=card)
+        before = mod.LAUNCHES
+        mod.run(key, *args, out, state)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == before + 1
+        assert torch.equal(out, want), tag
+        assert (int(state[loop_state.STATE_FLAG]) == 0) == (tag == "gibbs")
+        assert (int(state[loop_state.STATE_N]) == 0) == (tag == "gibbs")
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            mod.launch(key, *args, *extra)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = mod.launch(key, *args, *extra)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, want), tag

@@ -1,26 +1,41 @@
 """The loop samplers' kernel sources (``csrc/gamma.cu``, ``csrc/poisson.cu``,
 ``csrc/binomial.cu``) compiled by g++ against ``tests/loops_host.h`` and
 held against their plain versions (``tensor/random/samplers.py``) on the
-CPU: the gamma loops, and pass 1 and pass 2 of the Poisson and binomial
-kernels, on the grids of ``tests/torch_random_loops.py``.
+CPU.  The host header runs a block's threads as fibers, so the kernels'
+barriers, warp votes and shared memory run as written, and a cooperative
+launch's blocks on threads of their own, one at a time, so its grid
+barrier and a block that goes on from part of the others' work run as on
+the card: the gamma loops; the Poisson and binomial kernels' draw (one
+cooperative launch of three phases, ``csrc/loops.cuh``) on one block and
+on several, on the grids of ``tests/torch_random_loops.py``:
 
 - gamma: within 1e-12 of max(1, |draw|) (the host's erfinv, log and pow
   are glibc's and ``tests/k1_host.h``'s, not torch's);
-- Poisson: pass 1 finishes Knuth's elements (-1 in the scratch) and leaves
-  each PTRS element at its first accept, with the array's pass count N
-  that the plain loop runs; after pass 2 the draws are the plain
-  version's, but where glibc's float32 ``logf``/``lgammaf`` and torch's
-  move a PTRS accept test across its threshold (each such element shown
-  within rounding, pass by pass);
-- binomial: both passes bit for bit in each of the kernel's dtypes
-  (float32 and float64 probabilities; float64, int64 or the probability's
-  draws), on the edge grid, a BTRS-heavy grid and the Gibbs chain's
-  binomial(1, p).
+- Poisson: Knuth's elements finished, the flag set where a PTRS element
+  is, the array's pass count N that the plain loop runs (0 where no
+  element takes PTRS: the dummy search is skipped), and the draws the
+  plain version's, but where glibc's float32 ``logf``/``lgammaf`` and
+  torch's move a PTRS accept test across its threshold (each such element
+  shown within rounding, pass by pass);
+- binomial: bit for bit in each of the kernel's dtypes (float32 and
+  float64 probabilities; float64, int64 or the probability's draws), on
+  the edge grid, a BTRS-heavy grid and the Gibbs chain's binomial(1, p)
+  (no BTRS element: the flag and N stay 0);
+- a lone PTRS or BTRS element among 4,095 of the other branch, whose draw
+  reads N, which the dummy parameters' first accepts set, also where the
+  block that holds it starts the dummy search from the N of its own
+  phase A, below the array's;
+- a block's table of pass keys (``PassKeys``, built by ``keys_extend``
+  and read by ``keys_at``, which walks the chain on past what the table
+  holds) against the key chain walked in torch, for each of the three
+  chains, past the table's 128 passes.
 
 The plain versions' tally of the threefry hashes a draw needs (the
 kernels' bound in chip_smoke.py) is held against the same count made from
-each element's first accept (the dummy parameters' too), the array's pass
-count N and each Knuth or inversion element's draw.
+each element's first accept, each rejection element's last accept (the
+dummy parameters' first accepts only where some element takes the
+rejection branch), the array's pass count N and each Knuth or inversion
+element's draw.
 """
 
 import ctypes
@@ -36,9 +51,18 @@ import torch
 
 from pytensor_tpu_torch.link.cuda import binomial_kernel as bk
 from pytensor_tpu_torch.link.cuda import gamma_kernel as gk
+from pytensor_tpu_torch.link.cuda import loop_state as ls
 from pytensor_tpu_torch.link.cuda import poisson_kernel as pk
 from pytensor_tpu_torch.link.cuda.build import CSRC
-from tests.torch_random_loops import GAMMA_ALPHA, LAM, NP, ptrs_near_threshold, ptrs_passes
+from pytensor_tpu_torch.tensor.random import samplers as S
+from tests.torch_random_loops import (
+    GAMMA_ALPHA,
+    LAM,
+    NP,
+    btrs_accepts,
+    ptrs_near_threshold,
+    ptrs_passes,
+)
 
 BUILD = Path(__file__).resolve().parents[1] / "build" / "loops_host"
 HOST = Path(__file__).resolve().parent / "loops_host.h"
@@ -46,13 +70,44 @@ HEADERS = [HOST, HOST.parent / "threefry_host.h", HOST.parent / "k1_host.h",
            CSRC / "threefry.cuh", CSRC / "loops.cuh"]
 KEY = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64)
 P = ctypes.c_void_p
+N_DRAWS = 4096
+# a block's table of pass keys built to pass `depth` (keys_start and
+# keys_extend) and read by keys_at for passes 0 to upto - 1, those past the
+# table walked on from its last key, for test_pass_key_table_against_the_chain
+TABLE_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "threefry.cuh"
+#include "loops.cuh"
+__global__ void table_kernel(const long long* key, int next_at, int nsub, int s0, int s1,
+                             int depth, int upto, uint32_t* read) {
+  __shared__ PassKeys tab[1];
+  if (threadIdx.x == 0)
+    keys_init(tab[0], TfKey{(uint32_t)key[0], (uint32_t)key[1]}, next_at, nsub, s0, s1);
+  __syncthreads();
+  keys_start(tab, 1);
+  if (threadIdx.x < 32) keys_extend(tab[0], depth);
+  __syncthreads();
+  if ((int)threadIdx.x < upto) {
+    TfKey a, b;
+    keys_at(tab[0], threadIdx.x, a, b);
+    read[4 * threadIdx.x] = a.k0; read[4 * threadIdx.x + 1] = a.k1;
+    read[4 * threadIdx.x + 2] = b.k0; read[4 * threadIdx.x + 3] = b.k1;
+  }
+}
+extern "C" int table_keys(const long long* key, int next_at, int nsub, int s0, int s1,
+                          int depth, int upto, uint32_t* read) {
+  LOOP_LAUNCH(table_kernel, 1, nullptr, key, next_at, nsub, s0, s1, depth, upto, read);
+  return 0;
+}
+"""
 
 
-def _build(stem):
+def _build(stem, source=None):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the loop kernels' sources for the host")
-    source = (CSRC / f"{stem}.cu").read_text()
+    source = source or (CSRC / f"{stem}.cu").read_text()
     assert "#include <cuda_runtime.h>" in source
     src = source.replace("#include <cuda_runtime.h>", f'#include "{HOST}"')
     key = hashlib.sha256(src.encode() + b"".join(h.read_bytes() for h in HEADERS)).hexdigest()[:16]
@@ -74,18 +129,30 @@ def _build(stem):
 def host():
     libs = {stem: _build(stem) for stem in ("gamma", "poisson", "binomial")}
     libs["gamma"].gamma_draw.argtypes = [P, P, ctypes.c_longlong, ctypes.c_int, P, P]
-    libs["poisson"].poisson_draw.argtypes = [P, P, ctypes.c_longlong, P, P, ctypes.c_int, P]
-    libs["binomial"].binomial_draw.argtypes = [P, P, P, ctypes.c_longlong, ctypes.c_int,
-                                               ctypes.c_int, P, P, ctypes.c_int, P]
-    for lib in libs.values():
-        for fn in ("gamma_draw", "poisson_draw", "binomial_draw"):
-            if hasattr(lib, fn):
-                getattr(lib, fn).restype = ctypes.c_int
+    libs["gamma"].gamma_draw.restype = ctypes.c_int
+    pk.bind(libs["poisson"])
+    bk.bind(libs["binomial"])
+    for stem in ("poisson", "binomial"):
+        libs[stem].loops_host_set_grid.argtypes = [ctypes.c_uint]
     return libs
 
 
 def _tile(vals, n, dtype):
     return torch.tensor(np.resize(np.asarray(vals, dtype="float64"), n), dtype=dtype)
+
+
+LONE_AT = N_DRAWS // 2 + 7
+
+
+def _lone(vals, dtype, lone):
+    """``vals`` tiled to ``N_DRAWS``, with ``lone`` at ``LONE_AT``."""
+    x = _tile(vals, N_DRAWS, dtype)
+    x[LONE_AT] = lone
+    return x
+
+
+def _state():
+    return torch.full((ls.STATE_WORDS,), -7, dtype=torch.int32)
 
 
 @pytest.mark.parametrize("log_space", [False, True], ids=["gamma", "loggamma"])
@@ -106,91 +173,231 @@ def test_gamma_source_against_plain(host, alpha, log_space):
     assert (float(err.max()) if err.numel() else 0.0) <= 1e-12, err
 
 
-@pytest.mark.parametrize("lam", [LAM, [3.0], [50.0], [1e4]], ids=["grid", "3", "50", "1e4"])
-def test_poisson_source_passes_against_plain(host, lam):
-    n = 4096
-    lv = _tile(lam, n, torch.float32)
-    out = torch.empty(n, dtype=torch.int64)
-    scratch = torch.empty(n + 1, dtype=torch.int32)
-    lib = host["poisson"]
-    assert lib.poisson_draw(KEY.data_ptr(), lv.data_ptr(), n, out.data_ptr(), scratch.data_ptr(),
-                            pk.PASS1, None) == 0
+def _poisson(host, lv, blocks=1):
+    """The host kernel's draws of ``lv`` by a cooperative launch on at most
+    ``blocks`` blocks, and the state it leaves."""
+    out = torch.full((lv.numel(),), -99, dtype=torch.int64)
+    state = _state()
+    host["poisson"].loops_host_set_grid(blocks)
+    assert host["poisson"].poisson_draw(KEY.data_ptr(), lv.data_ptr(), lv.numel(),
+                                        out.data_ptr(), state.data_ptr(), None) == 0
+    return out, state
+
+
+def _poisson_held(lv, out):
+    """The draws are the plain version's, but near a PTRS threshold."""
     want = pk.plain(KEY, lv)
-    knuth = torch.isnan(lv) | (lv < 10)
-    assert torch.equal(scratch[:n][knuth], torch.full_like(scratch[:n][knuth], -1))
-    assert bool((scratch[:n][~knuth] >= 0).all())
-    assert torch.equal(out[knuth], want[knuth])
-    assert int(scratch[n]) == len(list(ptrs_passes(KEY, lv)))
-    assert lib.poisson_draw(KEY.data_ptr(), lv.data_ptr(), n, out.data_ptr(), scratch.data_ptr(),
-                            pk.PASS2, None) == 0
     for i in (out != want).nonzero()[:, 0].tolist():
         draws = (int(out[i]), int(want[i]))
         assert ptrs_near_threshold(KEY, lv.numpy(), i, draws), (i, draws)
 
 
+@pytest.mark.parametrize("lam", [LAM, [3.0], [50.0], [1e4]], ids=["grid", "3", "50", "1e4"])
+def test_poisson_source_passes_against_plain(host, lam):
+    lv = _tile(lam, N_DRAWS, torch.float32)
+    out, state = _poisson(host, lv)
+    knuth = torch.isnan(lv) | (lv < 10)
+    # Knuth's elements, the flag set where a PTRS element is
+    want = pk.plain(KEY, lv)
+    assert torch.equal(out[knuth], want[knuth])
+    ptrs = bool((~knuth).any())
+    assert (int(state[ls.STATE_FLAG]) > 0) == ptrs
+    # the plain loop's pass count N (the dummies' first accepts counted
+    # only where a PTRS element reads N)
+    assert int(state[ls.STATE_N]) == (len(list(ptrs_passes(KEY, lv))) if ptrs else 0)
+    _poisson_held(lv, out)
+
+
+POISSON_GRIDS = {"grid": (LAM, None), "all-knuth": ([1e-3, 3, 9.999, 0, np.nan], None),
+                 "lone-ptrs": ([1e-3, 3, 9.999], 50.0)}
+
+
+def _ptrs_first(passes, i):
+    """Element ``i``'s first accepting pass of ``ptrs_passes``."""
+    return next(t for t, (_, s, u, accept1, reject, _) in enumerate(passes)
+                if accept1[i] or (not reject[i] and s[i] <= u[i]))
+
+
+@pytest.mark.parametrize("blocks", [1, 3], ids=lambda b: f"{b}-blocks")
+@pytest.mark.parametrize("grid", list(POISSON_GRIDS))
+def test_poisson_source_phases(host, grid, blocks):
+    vals, lone = POISSON_GRIDS[grid]
+    lv = (_tile(vals, N_DRAWS, torch.float32) if lone is None
+          else _lone(vals, torch.float32, lone))
+    out, state = _poisson(host, lv, blocks)
+    ptrs = ~(torch.isnan(lv) | (lv < 10))
+    passes = list(ptrs_passes(KEY, lv)) if bool(ptrs.any()) else []
+    assert int(state[ls.STATE_N]) == len(passes)
+    assert (int(state[ls.STATE_FLAG]) > 0) == bool(passes)
+    if lone is not None:
+        # the lone PTRS element's draw reads N, which the 4,095 dummies set
+        assert len(passes) - 1 > _ptrs_first(passes, LONE_AT)
+    _poisson_held(lv, out)
+
+
 BINOMIAL_GRIDS = {"edges": NP, "btrs": [(100, 0.4), (1e4, 0.3), (50, 0.9), (12, 0.95)],
                   "gibbs": [(1, p) for p in np.linspace(0.01, 0.99, 37)]}
+DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.float64),
+          (torch.float64, torch.float64), (torch.float32, torch.int64),
+          (torch.float64, torch.int64)]
+DTYPE_IDS = ["f32", "f32-to-f64", "f64", "f32-to-i64", "f64-to-i64"]
+
+
+def _binomial(host, count, prob, out_dtype, blocks=1):
+    """The host kernel's draws by a cooperative launch on at most
+    ``blocks`` blocks, and the state it leaves."""
+    out = torch.empty(count.numel(), dtype=out_dtype)
+    state = _state()
+    host["binomial"].loops_host_set_grid(blocks)
+    assert host["binomial"].binomial_draw(
+        KEY.data_ptr(), count.data_ptr(), prob.data_ptr(), count.numel(),
+        int(prob.dtype == torch.float64), bk.OUT_KINDS[out_dtype], out.data_ptr(),
+        state.data_ptr(), None) == 0
+    return out, state
+
+
+def _binomial_held(count, prob, out, out_dtype):
+    want = bk.plain(KEY, count, prob, out_dtype)
+    if out_dtype.is_floating_point:
+        assert torch.equal(torch.isnan(out), torch.isnan(want))
+        out, want = out[~torch.isnan(want)], want[~torch.isnan(want)]
+    assert torch.equal(out, want)
+
+
+def _inversion(count, prob):
+    q = torch.where(prob < 0.5, prob, 1 - prob)
+    return torch.isnan(count) | (count < 0) | (count * torch.where(torch.isnan(q) | (q < 0),
+                                                                   0.01, q) <= 10)
 
 
 @pytest.mark.parametrize("grid", list(BINOMIAL_GRIDS))
-@pytest.mark.parametrize("dtype,out_dtype", [(torch.float32, torch.float32),
-                                             (torch.float32, torch.float64),
-                                             (torch.float64, torch.float64),
-                                             (torch.float32, torch.int64),
-                                             (torch.float64, torch.int64)],
-                         ids=["f32", "f32-to-f64", "f64", "f32-to-i64", "f64-to-i64"])
+@pytest.mark.parametrize("dtype,out_dtype", DTYPES, ids=DTYPE_IDS)
 def test_binomial_source_passes_against_plain(host, grid, dtype, out_dtype):
-    n = 4096
     pairs = BINOMIAL_GRIDS[grid]
-    count = _tile([c for c, _ in pairs], n, dtype)
-    prob = _tile([p for _, p in pairs], n, dtype)
-    out = torch.empty(n, dtype=out_dtype)
-    scratch = torch.empty(n + 1, dtype=torch.int32)
-    lib = host["binomial"]
-    args = (KEY.data_ptr(), count.data_ptr(), prob.data_ptr(), n, int(dtype == torch.float64),
-            bk.OUT_KINDS[out_dtype], out.data_ptr(), scratch.data_ptr())
-    assert lib.binomial_draw(*args, bk.PASS1, None) == 0
-    assert int(scratch[n]) >= 1
-    assert lib.binomial_draw(*args, bk.PASS2, None) == 0
+    count = _tile([c for c, _ in pairs], N_DRAWS, dtype)
+    prob = _tile([p for _, p in pairs], N_DRAWS, dtype)
+    out, state = _binomial(host, count, prob, out_dtype)
+    btrs = bool((~_inversion(count, prob)).any())
+    # the flag; N only where a BTRS element reads it
+    assert (int(state[ls.STATE_FLAG]) > 0) == btrs
+    assert (int(state[ls.STATE_N]) >= 1) == btrs
     tally = []
-    want = bk.plain(KEY, count, prob, out_dtype, tally)
-    # a BTRS pass at least (2 hashes, and the pass's 3 keys) for every element
-    assert int(sum(tally)) >= 2 * n + 3
-    assert torch.equal(torch.isnan(out), torch.isnan(want))
-    ok = ~torch.isnan(want)
-    assert torch.equal(out[ok], want[ok])
+    bk.plain(KEY, count, prob, out_dtype, tally)
+    # a pass at least (a BTRS pass's 2 hashes or an inversion pass's 1, and
+    # its keys) for every element
+    assert int(sum(tally)) >= (2 if btrs else 1) * N_DRAWS + 2
+    _binomial_held(count, prob, out, out_dtype)
+
+
+def _binomial_grid(grid, dtype):
+    if grid == "lone-btrs":
+        pairs = BINOMIAL_GRIDS["gibbs"]
+        return (_lone([c for c, _ in pairs], dtype, 100.0),
+                _lone([p for _, p in pairs], dtype, 0.4))
+    pairs = BINOMIAL_GRIDS[grid]
+    return (_tile([c for c, _ in pairs], N_DRAWS, dtype),
+            _tile([p for _, p in pairs], N_DRAWS, dtype))
+
+
+def _btrs_accepts(count, prob, dtype):
+    """Each element's first and last BTRS accepts, the inversion elements
+    on jax's dummy count and q, where some element takes BTRS."""
+    inversion = _inversion(count, prob)
+    q = torch.where(prob < 0.5, prob, 1 - prob)
+    c_btrs = torch.where(inversion, 1e4, torch.floor(count)).to(dtype)
+    q_btrs = torch.where(inversion, 0.5, torch.where(torch.isnan(q) | (q < 0), 0.01, q))
+    return btrs_accepts(KEY, c_btrs, q_btrs.to(dtype))
+
+
+@pytest.mark.parametrize("blocks", [1, 3], ids=lambda b: f"{b}-blocks")
+@pytest.mark.parametrize("grid", ["edges", "gibbs", "lone-btrs"])
+@pytest.mark.parametrize("dtype,out_dtype", DTYPES[2:], ids=DTYPE_IDS[2:])
+def test_binomial_source_phases(host, grid, dtype, out_dtype, blocks):
+    count, prob = _binomial_grid(grid, dtype)
+    out, state = _binomial(host, count, prob, out_dtype, blocks)
+    inversion = _inversion(count, prob)
+    if bool((~inversion).any()):
+        first, _ = _btrs_accepts(count, prob, dtype)
+        N = int(first.max()) + 1
+        if grid == "lone-btrs":
+            # the lone BTRS element's draw reads N, which the dummies set
+            assert N - 1 > int(first[~inversion].max())
+    else:
+        N = 0
+    assert int(state[ls.STATE_N]) == N
+    assert (int(state[ls.STATE_FLAG]) > 0) == (N > 0)
+    _binomial_held(count, prob, out, out_dtype)
 
 
 def test_binomial_source_refuses_a_narrowing_draw(host):
     x = torch.ones(4, dtype=torch.float64)
     out = torch.empty(4, dtype=torch.float32)
-    scratch = torch.empty(5, dtype=torch.int32)
     assert host["binomial"].binomial_draw(KEY.data_ptr(), x.data_ptr(), x.data_ptr(), 4, 1, 0,
-                                          out.data_ptr(), scratch.data_ptr(), 3, None) != 0
+                                          out.data_ptr(), _state().data_ptr(), None) != 0
+
+
+# (next, subkeys) of each chain: binomial's inversion loop, Knuth's loop,
+# and PTRS's and BTRS's
+CHAINS = {"inversion": (1, (0,)), "knuth": (0, (1,)), "ptrs-btrs": (0, (1, 2))}
+
+
+@pytest.mark.parametrize("chain", list(CHAINS))
+@pytest.mark.parametrize("upto,depth", [(1, 2), (2, 2), (64, 64), (64, 16), (160, 160)],
+                         ids=lambda v: str(v))
+def test_pass_key_table_against_the_chain(chain, upto, depth):
+    lib = _build("table_probe", TABLE_PROBE)
+    lib.table_keys.argtypes = [P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, P]
+    next_at, subs = CHAINS[chain]
+    read = torch.zeros((upto, 2, 2), dtype=torch.int32)
+    lib.table_keys(KEY.data_ptr(), next_at, len(subs), subs[0], subs[-1], depth, upto,
+                   read.data_ptr())
+    want, k = [], KEY
+    for _ in range(upto):
+        keys = S._split(k, 3)
+        want.append(torch.stack([keys[subs[0]], keys[subs[-1]]]))
+        k = keys[next_at]
+    want = torch.stack(want)
+    assert torch.equal(read.long()[:, : len(subs)] & 0xFFFFFFFF, want[:, : len(subs)])
 
 
 def test_poisson_tally_counts_what_the_draw_needs(host):
-    n = 4096
+    n = N_DRAWS
     lv = _tile(LAM, n, torch.float32)
     tally = []
     draws = pk.plain(KEY, lv, tally)
     knuth = torch.isnan(lv) | (lv < 10)
-    # each element's first PTRS accept in the plain version's arithmetic
-    # (the host's lgammaf moves some), the Knuth elements' on jax's dummy
-    # lam, which sets N as well
+    # each element's first and last PTRS accepts in the plain version's
+    # arithmetic (the host's lgammaf moves some), the Knuth elements' on
+    # jax's dummy lam, which set N as well
     first = torch.full((n,), -1, dtype=torch.int64)
+    last = first.clone()
     for N, (_, s, t, accept1, reject, _) in enumerate(ptrs_passes(KEY, lv), 1):
         accept = accept1 | (~reject & (s <= t))
         first = torch.where((first < 0) & accept, N - 1, first)
+        last = torch.where(accept, N - 1, last)
     own = torch.where(knuth & (lv != 0), draws + 1, 0)  # Knuth's passes; NaN's draw is -1
-    want = (3 * N + 2 * int(own.max()) + 2 * N * int((~knuth).sum())
-            + int((2 * (first + 1) + own)[knuth].sum()))
+    # every element's passes up to its first accept, a PTRS element's from
+    # its last accept to pass N - 1 (its draw), Knuth's to its end
+    after = N - torch.maximum(last, first + 1)
+    want = (3 * N + 2 * int(own.max()) + int((2 * (first + 1)).sum()) + int(own[knuth].sum())
+            + 2 * int(after[~knuth].sum()))
     assert int(sum(tally)) == want
+
+
+def test_poisson_tally_skips_the_dummy_search():
+    # no element takes PTRS: nothing reads N, so the dummies' hashes are
+    # not needed
+    lv = _tile([1e-3, 3, 9.999, 0], N_DRAWS, torch.float32)
+    tally = []
+    draws = pk.plain(KEY, lv, tally)
+    own = torch.where(lv != 0, draws + 1, 0)
+    assert int(sum(tally)) == 2 * int(own.max()) + int(own.sum())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_binomial_tally_counts_what_the_draw_needs(host, dtype):
-    n = 4096
+    n = N_DRAWS
     pairs = [(c, q) for c in (0, 1, 10, 100, 1e4) for q in (1e-3, 0.3, 0.5, 0.7)]
     count = _tile([c for c, _ in pairs], n, dtype)
     prob = _tile([q for _, q in pairs], n, dtype)
@@ -200,16 +407,51 @@ def test_binomial_tally_counts_what_the_draw_needs(host, dtype):
     inversion = count * q <= 10
     # the inversion elements' BTRS on jax's dummy count and q
     c_btrs = torch.where(inversion, 1e4, count).to(dtype).contiguous()
-    p_btrs = torch.where(inversion, 0.5, prob).to(dtype).contiguous()
-    out = torch.empty(n, dtype=torch.float64)
-    scratch = torch.empty(n + 1, dtype=torch.int32)
-    assert host["binomial"].binomial_draw(
-        KEY.data_ptr(), c_btrs.data_ptr(), p_btrs.data_ptr(), n, int(dtype == torch.float64), 1,
-        out.data_ptr(), scratch.data_ptr(), bk.PASS1, None) == 0
-    first, N = scratch[:n].long(), int(scratch[n])
-    assert bool((first >= 0).all())
+    p_btrs = torch.where(inversion, 0.5, q).to(dtype).contiguous()
+    first, last = btrs_accepts(KEY, c_btrs, p_btrs)
+    N = int(first.max()) + 1
     k = torch.where(prob < 0.5, draws, count.double() - draws)
     own = torch.where(inversion, k + 1, 0).long()  # the inversion loop's passes
-    want = (3 * N + 2 * int(own.max()) + 2 * N * int((~inversion).sum())
-            + int((2 * (first + 1) + own)[inversion].sum()))
+    after = N - torch.maximum(last, first + 1)
+    want = (3 * N + 2 * int(own.max()) + int((2 * (first + 1)).sum())
+            + int(own[inversion].sum()) + 2 * int(after[~inversion].sum()))
     assert int(sum(tally)) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_binomial_tally_skips_the_dummy_search(dtype):
+    # the Gibbs chain's binomial(1, p): no element takes BTRS, so nothing
+    # reads N and the dummies' hashes are not needed
+    count = _tile([1.0], N_DRAWS, dtype)
+    prob = _tile(np.linspace(0.01, 0.99, 37), N_DRAWS, dtype)
+    tally = []
+    draws = bk.plain(KEY, count, prob, torch.float64, tally)
+    k = torch.where(prob < 0.5, draws, count.double() - draws)
+    own = (k + 1).long()
+    assert int(sum(tally)) == 2 * int(own.max()) + int(own.sum())
+
+
+@pytest.mark.parametrize("blocks", [2, 4], ids=lambda b: f"{b}-blocks")
+@pytest.mark.parametrize("kernel", ["poisson", "binomial"])
+def test_dummy_search_from_a_partial_n(host, kernel, blocks):
+    """A cooperative launch on several blocks, where the block that holds
+    the lone rejection element (``LONE_AT``, in the third tile of 1,024)
+    is the first to end phase A with the flag set (``loops_host.h`` runs a
+    block until it waits on another): it starts the dummies' search with N
+    known as its element's first accept + 1, below the array's N.  The
+    accept1 sweep below that N, and the full search where it finds none,
+    leave the array's N and the plain loops' draws."""
+    if kernel == "poisson":
+        lv = _lone([1e-3, 3, 9.999], torch.float32, 50.0)
+        passes = list(ptrs_passes(KEY, lv))
+        known, N = _ptrs_first(passes, LONE_AT) + 1, len(passes)
+        out, state = _poisson(host, lv, blocks)
+        _poisson_held(lv, out)
+    else:
+        count, prob = _binomial_grid("lone-btrs", torch.float64)
+        first, _ = _btrs_accepts(count, prob, torch.float64)
+        known, N = int(first[LONE_AT]) + 1, int(first.max()) + 1
+        out, state = _binomial(host, count, prob, torch.int64, blocks)
+        _binomial_held(count, prob, out, torch.int64)
+    assert known < N
+    assert int(state[ls.STATE_N]) == N and int(state[ls.STATE_FLAG]) > 0

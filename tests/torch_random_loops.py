@@ -184,3 +184,43 @@ def ptrs_near_threshold(key, lam, i, draws):
         if not accept1[i] and not reject[i] and near and int(k[i]) in draws:
             return True
     return False
+
+
+def btrs_accepts(key, count, prob):
+    """Each element's first and last accepting passes of jax's whole-array
+    BTRS loop on ``count`` and ``prob`` (flat, one float dtype) under
+    ``key``, in the plain version's arithmetic: the loop runs until every
+    element has accepted."""
+    n = prob.numel()
+    c, p = count, prob
+    stddev = torch.sqrt(c * p * (1 - p))
+    b = 1.15 + 2.53 * stddev
+    a = -0.0873 + 0.0248 * b + 0.01 * p
+    cc = c * p + 0.5
+    v_r = 0.92 - S.true_div(4.2, b)
+    r = p / (1 - p)
+    alpha = (2.83 + S.true_div(5.1, b)) * stddev
+    m = torch.floor((c + 1) * p)
+    first = torch.full((n,), -1, dtype=torch.int64)
+    last = first.clone()
+    t = 0
+    while t < S.MAX_ITERS and bool((first < 0).any()):
+        keys = S._split(key, 3)
+        key = keys[0]
+        u = S._uniform(keys[1], n, p.dtype) - 0.5
+        v = S._uniform(keys[2], n, p.dtype)
+        us = 0.5 - torch.abs(u)
+        accept1 = (us >= 0.07) & (v <= v_r)
+        k = torch.floor((2 * a / us + b) * u + cc)
+        reject = (k < 0) | (k > c)
+        v = torch.log(v * alpha / (a / (us * us) + b))
+        tail = S._stirling_approx_tail
+        ub = ((m + 0.5) * torch.log((m + 1) / (r * (c - m + 1)))
+              + (c + 1) * torch.log((c - m + 1) / (c - k + 1))
+              + (k + 0.5) * torch.log(r * (c - k + 1) / (k + 1))
+              + tail(m) + tail(c - m) - tail(k) - tail(c - k))
+        accept = accept1 | (~reject & (v <= ub))
+        first = torch.where((first < 0) & accept, t, first)
+        last = torch.where(accept, t, last)
+        t += 1
+    return first, last
