@@ -3798,35 +3798,12 @@ ALU_OPS = ("IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "PRMT", "
 
 def hash_instructions():
     """One threefry hash's SASS instructions on sm_90a (``HASH_PROBE``
-    built by nvcc and read by ``cuobjdump -sass``): ``{"alu", "fma",
-    "all"}``, the ALU pipe's, IMAD's and all of them, NOPs and branches
-    aside."""
-    import shutil
-    import tempfile
-
-    from pytensor_tpu_torch.link.cuda.build import BUILD_DIR, CSRC, nvcc
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        src, cubin = Path(tmp, "hash_probe.cu"), Path(tmp, "hash_probe.cubin")
-        src.write_text(HASH_PROBE)
-        subprocess.run([nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
-                        "-std=c++17", "-O3", f"-I{CSRC}", "-o", str(cubin), str(src)],
-                       capture_output=True, text=True, check=True)
-        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-        sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True, text=True,
-                              check=True).stdout
-    ops: dict = {"with_hashes": [], "without_hashes": []}
-    body = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            body = ops.get(line.split("Function :")[1].strip())
-        elif body is not None:
-            body.extend(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
-                                   line))
+    read by ``sass_ops``): ``{"alu", "fma", "all"}``, the ALU pipe's,
+    IMAD's and all of them, NOPs and branches aside."""
+    ops = {name: [o for o, _ in found] for name, found in
+           sass_ops(HASH_PROBE, ("with_hashes", "without_hashes")).items()}
 
     def count(names):
-        names = [o for o in names if o not in ("NOP", "BRA", "EXIT")]
         return {"alu": sum(o in ALU_OPS for o in names),
                 "fma": sum(o == "IMAD" for o in names), "all": len(names)}
 
@@ -3835,6 +3812,117 @@ def hash_instructions():
     if not (wo["all"] and got["alu"] > 0 and got["all"] >= got["alu"] + got["fma"]):
         raise AssertionError(f"the hash probe's SASS: {w} with the hashes, {wo} without")
     return got
+
+
+# each piece of the gamma draw's float64 work (csrc/gamma.cu's functions) on
+# inputs from memory: an element's d and c; an inner pass (the normal and
+# v); an outer pass (X, V, U and the test's two logs); the draw from d and
+# V; and a boosted draw's (its uniform and pow); gamma's draws as timed,
+# not in log space
+FP64_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "gamma.cu"
+extern "C" __global__ void fp_setup(const double* __restrict__ in, double* __restrict__ out) {
+  const int t = threadIdx.x;
+  double d, c;
+  gamma_setup(in[t], d, c);
+  out[2 * t] = d;
+  out[2 * t + 1] = c;
+}
+extern "C" __global__ void fp_inner(const uint2* __restrict__ bits, const double* __restrict__ in,
+                                    double* __restrict__ out) {
+  const int t = threadIdx.x;
+  const double x = normal64(bits[t].x, bits[t].y);
+  out[2 * t] = x;
+  out[2 * t + 1] = __dadd_rn(1.0, __dmul_rn(x, in[t]));
+}
+extern "C" __global__ void fp_outer(const uint2* __restrict__ bits, const double* __restrict__ in,
+                                    double* __restrict__ out) {
+  const int t = threadIdx.x;
+  const double x = in[3 * t], v = in[3 * t + 1];
+  const double X = __dmul_rn(x, x), V = __dmul_rn(__dmul_rn(v, v), v);
+  const double U = uniform64(bits[t].x, bits[t].y, 0.0, 1.0);
+  out[2 * t] = V;
+  out[2 * t + 1] = gamma_test(X, V, U, in[3 * t + 2]) ? 1.0 : 0.0;
+}
+extern "C" __global__ void fp_draw(const double* __restrict__ in, double* __restrict__ out) {
+  const int t = threadIdx.x;
+  out[t] = gamma_boost(gamma_base(in[3 * t + 1], in[3 * t + 2], 0), in[3 * t], 0.0, false, 0);
+}
+extern "C" __global__ void fp_boosted(const uint2* __restrict__ bits,
+                                      const double* __restrict__ in, double* __restrict__ out) {
+  const int t = threadIdx.x;
+  const double u = uniform64(bits[t].x, bits[t].y, 0.0, 1.0);
+  out[t] = gamma_boost(gamma_base(in[3 * t + 1], in[3 * t + 2], 0), in[3 * t], u, true, 0);
+}
+"""
+# the FP64 pipe's instructions on sm_90 (and MUFU's double reciprocal and
+# square root seeds, counted with them); an SM runs 64 FP64 lanes a clock
+FP64_OPS = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX", "DSET")
+FP64_LANES = 64
+# the FP64-pipe instructions of each piece of FP64_PROBE on the card
+# (``fp64_instructions``), set by say_builds
+GAMMA_FP64: dict = {}
+
+
+def sass_ops(source, names):
+    """Each of ``names``' SASS instructions on sm_90a (``source`` built by
+    nvcc with ``csrc/`` on the include path and read by ``cuobjdump
+    -sass``): {name: [(opcode, modifiers)]}, NOPs, branches and exits
+    aside."""
+    import shutil
+    import tempfile
+
+    from pytensor_tpu_torch.link.cuda.build import BUILD_DIR, CSRC, nvcc
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        src, cubin = Path(tmp, "probe.cu"), Path(tmp, "probe.cubin")
+        src.write_text(source)
+        subprocess.run([nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", f"-I{CSRC}", "-o", str(cubin), str(src)],
+                       capture_output=True, text=True, check=True)
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True, text=True,
+                              check=True).stdout
+    ops: dict = {name: [] for name in names}
+    body = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            body = ops.get(line.split("Function :")[1].strip())
+        elif body is not None:
+            body.extend(o for o in re.findall(
+                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)", line)
+                if o[0] not in ("NOP", "BRA", "EXIT"))
+    return ops
+
+
+def fp64_instructions():
+    """The FP64-pipe instructions of each piece of gamma's float64 work
+    (``FP64_PROBE``'s kernels): {"setup", "inner", "outer", "draw",
+    "boosted"}, "boosted" over "draw".  Static counts: they hold every
+    branch of CUDA's erfinv, log and pow, also those a draw does not take,
+    so the time priced from them can be more than the FP64 pipe needs
+    (phase 19 prints it beside the hashes' bound)."""
+    names = ("fp_setup", "fp_inner", "fp_outer", "fp_draw", "fp_boosted")
+    ops = sass_ops(FP64_PROBE, names)
+    got = {name[3:]: sum(o in FP64_OPS or (o == "MUFU" and "64H" in m) for o, m in ops[name])
+           for name in names}
+    got["boosted"] -= got["draw"]
+    if min(got["setup"], got["inner"], got["outer"], got["boosted"]) <= 0:
+        raise AssertionError(f"the FP64 probe's SASS: {got}")
+    return got
+
+
+def gamma_fp64_ms(n, passes):
+    """The least time of gamma's FP64 pipe for a draw of ``n`` elements
+    with the plain loops' ``passes`` (outer, inner, boosted): its pieces'
+    instructions (``GAMMA_FP64``) at ``FP64_LANES`` lanes an SM a clock."""
+    f = GAMMA_FP64
+    instructions = (n * (f["setup"] + f["draw"]) + passes["outer"] * f["outer"]
+                    + passes["inner"] * f["inner"] + passes["boosted"] * f["boosted"])
+    return instructions / (SM_CLOCKS_S * FP64_LANES) * 1e3, instructions
 
 
 def gamma_fmad_false():
@@ -3941,7 +4029,8 @@ def loop_times(kernel, args, dev, n_iter):
                "binomial": lambda: torch.binomial(args[0], args[1])}[kernel]
     out = mod.launch(key, *args, *extra)
     tally: list = []
-    mod.plain(key, *args, *extra, tally=tally)
+    passes: dict = {}
+    mod.plain(key, *args, *extra, tally=tally, **({"passes": passes} if kernel == "gamma" else {}))
     n_hash = int(sum(tally))
     row = {"n": args[0].numel(), "hashes": n_hash,
            "ms": device_ms(lambda: mod.launch(key, *args, *extra), n_iter)[0],
@@ -3951,6 +4040,15 @@ def loop_times(kernel, args, dev, n_iter):
            "library_ms": device_ms(library, n_iter)[0], "library": LOOP_LIBRARY[kernel] +
            " (same distribution, other bits)"}
     row["bound_ms"], row["bound_by"] = bound(nbytes(*args, out), n_hash, HASH_S)
+    row["bound_pipe"] = "hashes" if row["bound_by"] == "operations" else "bytes"
+    if kernel == "gamma":
+        # the larger of the hash bound and the FP64 pipe's
+        row["passes"] = passes
+        row["hash_bound_ms"] = row["bound_ms"]
+        row["fp64_ms"], row["fp64_instructions"] = gamma_fp64_ms(row["n"], passes)
+        if row["fp64_ms"] > row["bound_ms"]:
+            row["bound_ms"], row["bound_by"], row["bound_pipe"] = (row["fp64_ms"], "operations",
+                                                                   "FP64 pipe")
     within_bound(f"{kernel} at {row['n']:,} draws", row)
     return row
 
@@ -4042,6 +4140,53 @@ def loop_beside_parent(kernel, args, dev, parent):
     return turns
 
 
+def parent_gamma(root):
+    """The gamma draw as built from the tree at ``root`` (its
+    ``csrc/gamma.cu`` with its own headers, the kernel's flags; the C
+    entry ``gamma_draw(key, alpha, n, log_space, out, stream)``, which
+    ``main`` checks at the start): ``draw(key, alpha, log_space)``.  Its
+    launches are not counted."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import gamma_kernel
+    from pytensor_tpu_torch.link.cuda.build import build_library
+
+    src = Path(root, "pytensor_tpu_torch", "csrc", "gamma.cu")
+    lib = gamma_kernel.bind(build_library(src.read_text(), "gamma_parent", src, False,
+                                          gamma_kernel.FLAGS)[0])
+
+    def draw(key, alpha, log_space=False):
+        out = torch.empty_like(alpha)
+        gamma_kernel.run(key, alpha, out, log_space, lib=lib)
+        return out
+
+    return draw
+
+
+def gamma_beside_parent(alpha, dev, theirs):
+    """This tree's gamma draws of ``alpha`` against the parent's in both
+    ``log_space`` modes (the same bits, NaNs equal, required) and the two
+    gamma draws timed in turn, twice: {"this": [ms, ms], "parent": [ms,
+    ms]} (device ms a draw)."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import gamma_kernel
+
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
+    for log_space in (False, True):
+        n_diff, _ = float_ulps(gamma_kernel.launch(key, alpha, log_space),
+                               theirs(key, alpha, log_space))
+        if n_diff:
+            raise AssertionError(f"gamma (log_space {log_space}): the parent's draws differ from "
+                                 f"this tree's at {n_diff} elements")
+    turns = {"this": [], "parent": []}
+    for _ in range(2):
+        for who, fn in (("this", lambda: gamma_kernel.launch(key, alpha)),
+                        ("parent", lambda: theirs(key, alpha))):
+            turns[who].append(device_ms(fn, 20)[0])
+    return turns
+
+
 def loop_capture_holds(dev):
     """Each kernel's draw (one cooperative launch) captured into a CUDA
     graph and replayed gives the eager draw's bits, at ``LOOP_N`` on its
@@ -4107,6 +4252,47 @@ def kernel_ms(name, fn, n_iter):
     return sum(ms for kn, (ms, _) in by.items() if name in kn)
 
 
+def stamp_report(r, cycles, counts, lanes):
+    """The split of a stamped launch from its threads' rows ``r`` (one a
+    thread, ``LOOP_SLOTS`` columns): ``cycles`` and ``counts`` name the
+    columns of each kind, one of the cycles "rest" (loads, stores, waiting);
+    ``lanes`` the counts of passes whose active lanes are reported (a
+    warp's lanes' passes against 32 times its largest lane's).  "warps": a
+    slot as long as a warp's slowest lane there, the rest waiting."""
+    names = list(cycles)
+    cyc = r[:, list(cycles.values())]
+    total = cyc.sum()
+    wcyc = cyc.reshape(-1, 32, cyc.shape[1])
+    elapsed = wcyc.sum(axis=2).max(axis=1)
+    warp_share = {}
+    if elapsed.sum():
+        warp_share = {c: float(wcyc[:, :, j].max(axis=1).sum() / elapsed.sum())
+                      for j, c in enumerate(names) if c != "rest"}
+        warp_share["rest"] = 1.0 - sum(warp_share.values())
+    active = {}
+    for c in lanes:
+        w = r[:, counts[c]].reshape(-1, 32)
+        if w.max(axis=1).sum():
+            active[c] = float(w.sum() / (32 * w.max(axis=1).sum()))
+    return {"share": {c: float(cyc[:, j].sum() / total) if total else 0.0
+                      for j, c in enumerate(names)},
+            "warp_share": warp_share,
+            "slowest_thread_us": float(cyc.sum(axis=1).max() / (SM_CLOCKS_S / 132) * 1e6),
+            "active_lanes": active, "counts": {c: int(r[:, j].sum()) for c, j in counts.items()}}
+
+
+def stamp_rows(n, dev, lib):
+    """A zeroed buffer of stamped rows for a launch on ``n`` elements, set
+    as the stamped library's target."""
+    import torch
+
+    buf = torch.zeros((-(-n // 256) * 256 + 1024, len(LOOP_CYCLE_SLOTS) + len(LOOP_COUNT_SLOTS)),
+                      dtype=torch.int64, device=dev)
+    if lib.loop_stamps_at(buf.data_ptr()) != 0:
+        raise AssertionError("loop_stamps_at failed")
+    return buf
+
+
 def loop_split(kernel, args, dev, lib, needed):
     """The split of a Poisson or binomial draw on ``args`` (one launch) by
     its stamped variant ``lib``: the launch's device time (unstamped, and
@@ -4123,63 +4309,77 @@ def loop_split(kernel, args, dev, lib, needed):
     n = args[0].numel()
     out = torch.empty(n, dtype=torch.int64, device=dev)
     state = torch.empty(loop_state.STATE_WORDS, dtype=torch.int32, device=dev)
-    threads = -(-n // 256) * 256 + 1024
-    buf = torch.zeros((threads, len(LOOP_CYCLE_SLOTS) + len(LOOP_COUNT_SLOTS)),
-                      dtype=torch.int64, device=dev)
-    if lib.loop_stamps_at(buf.data_ptr()) != 0:
-        raise AssertionError("loop_stamps_at failed")
+    buf = stamp_rows(n, dev, lib)
     mod.run(key, *args, out, state, lib=lib)
     r = buf.cpu().numpy().astype("float64")
     # the stamped launches timed below stamp into a buffer of their own
-    sink = torch.zeros_like(buf)
-    lib.loop_stamps_at(sink.data_ptr())
+    sink = stamp_rows(n, dev, lib)
     want = mod.launch(key, *args, torch.int64) if kernel == "binomial" else mod.launch(key, *args)
     if not torch.equal(out, want):
         raise AssertionError(f"{kernel}: the stamped variant's draws differ from the kernel's")
     plain_ms = kernel_ms(kernel, lambda: mod.run(key, *args, out, state), 50)
     stamped_ms = kernel_ms(kernel, lambda: mod.run(key, *args, out, state, lib=lib), 10)
-    cyc = r[:, :len(LOOP_CYCLE_SLOTS)]
-    cnt = r[:, len(LOOP_CYCLE_SLOTS):]
-    total = cyc.sum()
-    # a warp's time: its slowest lane's; on each slot of work as long as
-    # its slowest lane there, the rest (waiting) to "rest"
-    wcyc = cyc.reshape(-1, 32, cyc.shape[1])
-    elapsed = wcyc.sum(axis=2).max(axis=1)
-    work = wcyc[:, :, :-1].max(axis=1)
-    warp_share = {c: float(work[:, j].sum() / elapsed.sum())
-                  for j, c in enumerate(LOOP_CYCLE_SLOTS[:-1])} if elapsed.sum() else {}
-    if warp_share:
-        warp_share["rest"] = 1.0 - sum(warp_share.values())
-    warps = cnt.reshape(-1, 32, cnt.shape[1])
-    lanes = {}
-    for j, c in enumerate(LOOP_COUNT_SLOTS[:3]):
-        mx = warps[:, :, j].max(axis=1)
-        if mx.sum():
-            lanes[c] = float(warps[:, :, j].sum() / (32 * mx.sum()))
-    return {"one launch": {
-        "ms": plain_ms, "stamped_ms": stamped_ms,
-        "share": {c: float(cyc[:, j].sum() / total) if total else 0.0
-                  for j, c in enumerate(LOOP_CYCLE_SLOTS)},
-        "warp_share": warp_share,
-        "slowest_thread_us": float(cyc.sum(axis=1).max() / (SM_CLOCKS_S / 132) * 1e6),
-        "active_lanes": lanes,
-        "passes": {c: int(cnt[:, j].sum()) for j, c in enumerate(LOOP_COUNT_SLOTS[:3])},
-        "hashes": int(cnt[:, 3].sum()), "chain_hashes": int(cnt[:, 4].sum()),
-        "needed": needed}}
+    nc = len(LOOP_CYCLE_SLOTS)
+    report = stamp_report(r, {c: j for j, c in enumerate(LOOP_CYCLE_SLOTS)},
+                          {c: nc + j for j, c in enumerate(LOOP_COUNT_SLOTS)}, LOOP_COUNT_SLOTS[:3])
+    del sink
+    return {"one launch": {"ms": plain_ms, "stamped_ms": stamped_ms, **report, "needed": needed}}
+
+
+# the gamma kernel's stamped slots (csrc/gamma.cu G_*): cycles, then counts
+GAMMA_CYCLE_SLOTS = ("key setup", "outer hashes", "inner hashes, erfinv", "test logs", "rest",
+                     "tail")
+GAMMA_COUNT_SLOTS = ("outer passes", "inner passes", "boosted", "hashes")
+# the gamma kernel's designs: the first, one element a thread (the stamped
+# variant's gamma_serial_draw), and the kernel's
+GAMMA_ENTRIES = {"serial": "gamma_serial_draw", "kernel": "gamma_draw"}
+
+
+def gamma_split(alpha, dev, lib, needed, design):
+    """The split of a gamma draw of ``alpha`` by the stamped variant
+    ``lib``, for ``design`` (``GAMMA_ENTRIES``): as ``loop_split``, the
+    active lanes of each kind of pass and of the boosted draws' tail.  The
+    draw must be the kernel's, bit for bit; "ms" is the unstamped kernel's
+    (its own design only)."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import gamma_kernel
+
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
+    out = torch.empty_like(alpha)
+    entry = GAMMA_ENTRIES[design]
+    buf = stamp_rows(alpha.numel(), dev, lib)
+    gamma_kernel.run(key, alpha, out, lib=lib, entry=entry)
+    r = buf.cpu().numpy().astype("float64")
+    sink = stamp_rows(alpha.numel(), dev, lib)
+    n_diff, _ = float_ulps(out, gamma_kernel.launch(key, alpha))
+    if n_diff:
+        raise AssertionError(f"gamma {design}: the stamped variant's draws differ from the "
+                             f"kernel's at {n_diff} elements")
+    nc = len(GAMMA_CYCLE_SLOTS)
+    report = stamp_report(r, {c: j for j, c in enumerate(GAMMA_CYCLE_SLOTS)},
+                          {c: nc + j for j, c in enumerate(GAMMA_COUNT_SLOTS)},
+                          GAMMA_COUNT_SLOTS[:3])
+    ms = (kernel_ms("gamma", lambda: gamma_kernel.run(key, alpha, out), 50)
+          if design == "kernel" else None)
+    stamped_ms = kernel_ms("gamma", lambda: gamma_kernel.run(key, alpha, out, lib=lib,
+                                                              entry=entry), 10)
+    del sink
+    return {design: {"ms": ms, "stamped_ms": stamped_ms, **report, "needed": needed}}
 
 
 def say_split(tag, report, smi_line):
     for name, r in report.items():
-        say(f"  split of {tag} {name}: device {r['ms'] * 1e3:.2f} us (stamped "
-            f"{r['stamped_ms'] * 1e3:.2f}); threads' cycles " + ", ".join(
+        say(f"  split of {tag} {name}: device "
+            + (f"{r['ms'] * 1e3:.2f} us" if r["ms"] is not None else "not timed unstamped")
+            + f" (stamped {r['stamped_ms'] * 1e3:.2f}); threads' cycles " + ", ".join(
                 f"{c} {v:.3f}" for c, v in r["share"].items())
             + "; warps' cycles (a slot as long as its slowest lane) " + ", ".join(
                 f"{c} {v:.3f}" for c, v in r["warp_share"].items())
             + f"; slowest thread {r['slowest_thread_us']:.2f} us at 1.98 GHz; active lanes "
             + (", ".join(f"{c} {v:.2f}" for c, v in r["active_lanes"].items()) or "none")
-            + "; passes " + ", ".join(f"{c} {v:,}" for c, v in r["passes"].items())
-            + f"; hashes made {r['hashes']:,} (chain {r['chain_hashes']:,}) against "
-            f"{r['needed']:,} the draw needs ({smi_line})")
+            + "; " + ", ".join(f"{c} {v:,}" for c, v in r["counts"].items())
+            + f" made, against {r['needed']:,} hashes the draw needs ({smi_line})")
 
 
 def gibbs_probe(W, bh, bv, v0, dev):
@@ -4222,11 +4422,14 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
     binomial draws captured and replayed.  (d) Each kernel on ``cases.LOOP_TYPICAL`` at
     ``LOOP_N`` and the binomial kernel at the Gibbs draws: device and wall
     time beside its plain version's and torch's sampler's, the hashes the
-    draw needs and its bound.  (e) The ``stamped`` variants' split of the
-    draw (``loop_split``).  (f) With ``parent`` (a checkout), its Poisson
-    and binomial kernels beside these.  Returns the launches by path and
-    the rows.  On the CPU (a rehearsal) it checks the values only, at the
-    sizes set."""
+    draw needs and its bound (gamma's the larger of the hashes' and its
+    FP64 pipe's, ``gamma_fp64_ms``).  (e) The ``stamped`` variants' split
+    of the draw (``loop_split``; gamma's in its first design and its own,
+    ``gamma_split``).  (f) With ``parent`` (a checkout), its gamma, Poisson
+    and binomial kernels beside these (gamma on the timed grid and on
+    jax's edges, in both ``log_space`` modes).  Returns the launches by
+    path and the rows.  On the CPU (a rehearsal) it checks the values
+    only, at the sizes set."""
     import torch
 
     import pytensor_tpu_torch as ptt
@@ -4438,8 +4641,11 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
             say(f"  {tag:24s} device {r['ms'] * 1e3:9.1f} us (wall {r['wall_ms'] * 1e3:9.1f}), "
                 f"plain {r['plain_ms'] * 1e3:10.1f} us (wall {r['plain_wall_ms'] * 1e3:9.1f}), "
                 f"{r['library']} {r['library_ms'] * 1e3:8.1f} us; {r['hashes']:,} hashes, bound "
-                f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), {r['bound_ms'] / r['ms']:.2f} "
-                f"of it reached ({smi_line})")
+                f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: {r['bound_pipe']}), "
+                f"{r['bound_ms'] / r['ms']:.2f} of it reached" + (
+                    f"; the hashes' bound {r['hash_bound_ms'] * 1e3:.2f} us, the FP64 pipe's "
+                    f"{r['fp64_ms'] * 1e3:.2f} us ({r['fp64_instructions']:,} instructions; "
+                    f"passes {r['passes']})" if "fp64_ms" in r else "") + f" ({smi_line})")
     # (e) the stamped variants' split of each launch ---------------------------------
     if on_card:
         rows["split"] = {}
@@ -4449,6 +4655,13 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
             rows["split"][tag] = loop_split(kernel, args, dev, stamped[kernel],
                                             rows["kernels"][tag]["hashes"])
             say_split(tag, rows["split"][tag], smi_line)
+        # gamma's, in the first design (one element a thread) and the kernel's
+        alpha = loop_typical("gamma", dev, n)[0]
+        rows["split"]["gamma 2e20"] = {}
+        for design in GAMMA_ENTRIES:
+            rows["split"]["gamma 2e20"].update(gamma_split(
+                alpha, dev, stamped["gamma"], rows["kernels"]["gamma 2e20"]["hashes"], design))
+        say_split("gamma 2e20", rows["split"]["gamma 2e20"], smi_line)
     # (f) with --parent, the parent's Poisson and binomial kernels beside these
     if on_card and parent:
         theirs, rows["parent"] = parent_loops(parent), {}
@@ -4460,14 +4673,27 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
             say(f"  {tag} beside the parent's ({parent}), the same bits; in turn, device us a "
                 f"draw: " + "; ".join(f"{who} " + ", ".join(f"{v * 1e3:.2f}" for v in vs)
                                       for who, vs in t.items()) + f" ({smi_line})")
+        # gamma: the same bits on the timed grid and on jax's edges (0 and
+        # NaN), in both log_space modes; each grid's draws timed in turn
+        from pytensor_tpu_torch.link.cuda.cases import LOOP_GAMMA_ALPHA, LOOP_TYPICAL
+
+        theirs_gamma = parent_gamma(parent)
+        for tag, grid in (("gamma 2e20", LOOP_TYPICAL["gamma"]),
+                          ("gamma edges 2e20", LOOP_GAMMA_ALPHA)):
+            alpha = torch.from_numpy(np.resize(np.array(grid, "float64"), n)).to(dev)
+            t = rows["parent"][tag] = gamma_beside_parent(alpha, dev, theirs_gamma)
+            say(f"  {tag} beside the parent's ({parent}), the same bits in both log_space "
+                f"modes; in turn, device us a draw: " + "; ".join(
+                    f"{who} " + ", ".join(f"{v * 1e3:.2f}" for v in vs) for who, vs in t.items())
+                + f" ({smi_line})")
     say(f"loop samplers phase done in {time.perf_counter() - t19:.1f} s")
     return launches, rows
 
 
 def loop_builds(pool, timed):
     """Phase 2's jobs for phases 18 and 19: threefry, the hash probe, the
-    three loop kernels, gamma with ``-fmad=false`` and the stamped
-    variants of the Poisson and binomial kernels."""
+    FP64 probe, the three loop kernels, gamma with ``-fmad=false`` and the
+    stamped variants of the three."""
     from pytensor_tpu_torch.link.cuda import (
         binomial_kernel,
         gamma_kernel,
@@ -4481,8 +4707,10 @@ def loop_builds(pool, timed):
             **{name: pool.submit(timed, lambda m=m: m.build(verbose=True))
                for name, m in (("gamma", gamma_kernel), ("poisson", poisson_kernel),
                                ("binomial", binomial_kernel))},
+            "fp64 probe": pool.submit(fp64_instructions),
             **{f"{name} stamped": pool.submit(loop_stamped, m)
-               for name, m in (("poisson", poisson_kernel), ("binomial", binomial_kernel))}}
+               for name, m in (("gamma", gamma_kernel), ("poisson", poisson_kernel),
+                               ("binomial", binomial_kernel))}}
 
 
 def loop_build_logs(build_s):
@@ -4496,7 +4724,7 @@ def loop_build_logs(build_s):
     )
 
     build_s["stamped"], logs = {}, {}
-    for name in ("poisson", "binomial"):
+    for name in ("gamma", "poisson", "binomial"):
         tag = f"{name} stamped"
         build_s[tag], build_s["stamped"][name], logs[tag] = build_s[tag]
     return {"threefry": threefry_kernel.BUILD_LOG, "gamma": gamma_kernel.BUILD_LOG,
@@ -4522,6 +4750,11 @@ def say_builds(logs, build_s):
         f"{HASH_SASS['fma']:g} IMAD on the FMA pipe; at most {HASH_S / 1e9:.1f} G hashes a "
         f"second on the card ({ALU_LANES} ALU and {DISPATCH_LANES} dispatched lanes an SM a "
         f"clock)")
+    # gamma's float64 work, for its bound in phase 19
+    GAMMA_FP64.update(build_s.pop("fp64 probe"))
+    say("gamma's float64 work (cuobjdump -sass of FP64_PROBE; every branch of erfinv, log and "
+        "pow): FP64-pipe instructions " + ", ".join(f"{k} {v}" for k, v in GAMMA_FP64.items())
+        + f", at {FP64_LANES} lanes an SM a clock")
 
 
 def main(opts):
@@ -4573,6 +4806,12 @@ def main(opts):
         for kernel in ("poisson", "binomial"):
             parent_interface(Path(opts.parent, "pytensor_tpu_torch", "csrc",
                                   f"{kernel}.cu").read_text(), f"{kernel}_draw")
+        gamma_entry = re.search(r'extern "C" int gamma_draw\(([^)]*)\)', Path(
+            opts.parent, "pytensor_tpu_torch", "csrc", "gamma.cu").read_text())
+        if not gamma_entry or [a.split()[-1].lstrip("*") for a in gamma_entry.group(1).split(
+                ",")] != ["key", "alpha", "n", "log_space", "out", "stream"]:
+            raise SystemExit("--parent: its gamma_draw is not (key, alpha, n, log_space, out, "
+                             "stream)")
 
     # 1. device -------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5549,6 +5788,7 @@ def main(opts):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library": r["library"], "timed_at": f"{timed_at} ({r['n']:,} draws)",
             "hashes": r["hashes"],
+            **{k: r[k] for k in ("bound_pipe", "hash_bound_ms", "fp64_ms", "passes") if k in r},
             "timings": {t: v for t, v in loop_rows["kernels"].items() if t.startswith(kname)},
             **({"gibbs": loop_rows["gibbs"], "samplers": loop_rows["samplers"]}
                if kname == "binomial" else {})})
@@ -5619,6 +5859,7 @@ def main(opts):
 if __name__ == "__main__":
     cli = argparse.ArgumentParser(description="Drive the torch port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
-                     help="a checkout of an earlier commit whose K4 (phase 9) and Poisson and "
-                          "binomial kernels (phase 19) are held and timed beside this tree's")
+                     help="a checkout of an earlier commit whose K4 (phase 9) and gamma, "
+                          "Poisson and binomial kernels (phase 19) are held and timed beside "
+                          "this tree's")
     sys.exit(main(cli.parse_args()))

@@ -1,5 +1,6 @@
 // What the loop samplers' kernels (csrc/gamma.cu, csrc/poisson.cu,
-// csrc/binomial.cu) share: the loops' bound, the block size and launches,
+// csrc/binomial.cu) share: the loops' bound, the block size and launches
+// (gamma's a plain launch on the blocks the card holds),
 // XLA's saturating conversion of a float to int64, the math functions by
 // operand type, the stamped variant's stamps, and for the Poisson and
 // binomial kernels the pieces of jax's whole-array rejection loops on
@@ -115,24 +116,47 @@ template <typename T>
 struct LoopSame {
   typedef T type;
 };
+// the blocks of `kernel` the card holds at once, into `room`
+template <typename K>
+__host__ int loop_room(K kernel, int& room) {
+  int per_sm = 0, sms = 0, dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, LOOP_THREADS, 0);
+  room = per_sm * sms;
+  return err;
+}
 // a cooperative launch of `kernel` on at most the blocks the card holds at
 // once (every block resident, so that loop_grid_sync cannot wait on a
 // block that is not running)
 template <typename... A>
 __host__ int loop_coop_launch(void (*kernel)(A...), long long n, cudaStream_t stream,
                               typename LoopSame<A>::type... a) {
-  int per_sm = 0, sms = 0, dev = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (!err)
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, LOOP_THREADS, 0);
+  int room = 0;
+  const int err = loop_room(kernel, room);
   if (err) return err;
-  const int need = loop_blocks(n), room = per_sm * sms;
+  const int need = loop_blocks(n);
   void* args[] = {(void*)&a...};
   return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(need < room ? need : room),
                                           dim3(LOOP_THREADS), args, 0, stream);
 }
 #define LOOP_COOP_LAUNCH(kernel, n, stream, ...) loop_coop_launch(kernel, n, stream, __VA_ARGS__)
+// a plain launch of `kernel` on at most the blocks the card holds at once
+// (a kernel whose blocks never wait on each other, each taking its share
+// of the elements in tiles); returns cudaGetLastError() after it
+template <typename... A>
+__host__ int loop_resident_launch(void (*kernel)(A...), long long n, cudaStream_t stream,
+                                  typename LoopSame<A>::type... a) {
+  int room = 0;
+  const int err = loop_room(kernel, room);
+  if (err) return err;
+  const int need = loop_blocks(n);
+  kernel<<<need < room ? need : room, LOOP_THREADS, 0, stream>>>(a...);
+  return (int)cudaGetLastError();
+}
+#define LOOP_RESIDENT_LAUNCH(kernel, n, stream, ...) \
+  loop_resident_launch(kernel, n, stream, __VA_ARGS__)
 #endif
 
 // XLA's float -> int64: toward zero, NaN to 0, out of range to the end

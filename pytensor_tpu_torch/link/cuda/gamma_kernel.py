@@ -4,8 +4,11 @@ No Pallas kernel is its counterpart: the JAX package draws gamma,
 loggamma and the distributions built on them through ``jax.random``,
 whose ``_gamma_one`` XLA runs as a vmapped ``while_loop``
 (``jax/_src/random.py:1298, :1398``).  The CUDA kernel
-(``csrc/gamma.cu``) runs each element's two loops in one thread, its keys
-hashed in registers; its source says what bounds it and how.
+(``csrc/gamma.cu``) runs on the blocks the card holds: each lane runs one
+step of its element's loops an iteration, hashing in registers only the
+keys that step reads, and takes the block's next element when its own is
+done; a warp's boosted draws run their tails 32 at a time.  Its source
+says what bounds it and how.
 
 Built by ``link/cuda/build.py`` (nvcc for sm_90a, into the gitignored
 ``build/kernels/``) at first use and called through ``ctypes`` on torch's
@@ -38,6 +41,17 @@ _LIB = None
 BUILD_LOG = ""
 
 
+def bind(lib):
+    """Give ``lib``'s C entries their argument types (the stamped
+    variant's also ``gamma_serial_draw``, the first design's draw)."""
+    p = ctypes.c_void_p
+    for name in ("gamma_draw", "gamma_serial_draw"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [p, p, ctypes.c_longlong, ctypes.c_int, p, p]
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
 def build(verbose: bool = False) -> ctypes.CDLL:
     """Compile (once per source hash) and load the gamma library."""
     from pytensor_tpu_torch.link.cuda.build import build_csrc
@@ -45,10 +59,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     global _LIB, BUILD_LOG
     if _LIB is None:
         lib, BUILD_LOG = build_csrc("gamma", HEADERS, verbose, FLAGS)
-        p = ctypes.c_void_p
-        lib.gamma_draw.argtypes = [p, p, ctypes.c_longlong, ctypes.c_int, p, p]
-        lib.gamma_draw.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind(lib)
     return _LIB
 
 
@@ -63,32 +74,39 @@ def _check(key, alpha):
         raise ValueError(f"the key is on {key.device}, alpha on {alpha.device}")
 
 
+def run(key, alpha, out, log_space=False, lib=None, entry="gamma_draw"):
+    """Draw into ``out`` (float64, n); ``lib``, a build of the source other
+    than the kernel's (the stamped variant), launches ``entry`` uncounted."""
+    global LAUNCHES
+    if key.device.type != "cuda":
+        raise ValueError(f"the gamma kernel runs on CUDA tensors; the key is on {key.device}")
+    err = getattr(lib or build(), entry)(key.data_ptr(), alpha.data_ptr(), alpha.numel(),
+                                         int(bool(log_space)), out.data_ptr(),
+                                         torch.cuda.current_stream(key.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gamma launch failed: CUDA error {err}")
+    if alpha.numel() and lib is None:
+        LAUNCHES += 1
+
+
 def launch(key, alpha, log_space=False):
     """jax's standard gamma (``loggamma`` with ``log_space``) of each
     element of ``alpha`` under ``split(key, n)[i]``, by the kernel."""
-    global LAUNCHES
     _check(key, alpha)
-    if key.device.type != "cuda":
-        raise ValueError(f"the gamma kernel runs on CUDA tensors; the key is on {key.device}")
-    lib = build()
     out = torch.empty_like(alpha)
-    err = lib.gamma_draw(key.data_ptr(), alpha.data_ptr(), alpha.numel(), int(bool(log_space)),
-                         out.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gamma launch failed: CUDA error {err}")
-    if alpha.numel():
-        LAUNCHES += 1
+    run(key, alpha, out, log_space)
     return out
 
 
-def plain(key, alpha, log_space=False, tally=None):
+def plain(key, alpha, log_space=False, tally=None, passes=None):
     """The same draws in torch ops, on any device; with ``tally`` (a
-    list), the threefry hashes the draw needs are added to it
+    list), the threefry hashes the draw needs are added to it, and with
+    ``passes`` (a dict) its outer and inner passes and boosted draws
     (``samplers.py``)."""
     from pytensor_tpu_torch.tensor.random.samplers import gamma_loops
 
     _check(key, alpha)
-    return gamma_loops(key, alpha, log_space, tally)
+    return gamma_loops(key, alpha, log_space, tally, passes)
 
 
 def draw(key, alpha, log_space=False):

@@ -37,7 +37,8 @@ This is the CPU path and the kernels' oracle: ``gamma_loops``,
 (``link/cuda/{gamma,poisson,binomial}_kernel.py``), which a key on the
 card takes instead, with no host read.  Given a ``tally`` (a list), each
 adds to it the threefry hashes the draw needs, for the kernels' bounds:
-every hash of an element's own key chain, each element's uniforms in each
+each hash of an element's own key chain that its draw reads (gamma's
+next keys only where another pass follows), each element's uniforms in each
 pass it needs (a PTRS or BTRS element up to its first accept and from its
 last accept to the end of the whole array's loop, a Knuth or inversion
 element up to its own end and, where some element takes PTRS or BTRS and
@@ -165,18 +166,24 @@ def _gamma_cond(X, V, U, d):
         torch.log(U) >= X * 0.5 + d * ((1.0 - V) + torch.log(V)))
 
 
-def gamma_loops(key, alpha, log_space=False, tally=None):
+def gamma_loops(key, alpha, log_space=False, tally=None, passes=None):
     """jax's standard gamma (``loggamma`` with ``log_space``) of each
     element of ``alpha`` (float64, flat) under ``split(key, n)[i]``, in
     float64: the plain version of the gamma kernel.  Each element hashes
-    its own keys: 4 (its key, its two keys, the boost's uniform), 4 an
-    outer pass (the split into three, U), 3 an inner pass (the split into
-    two, the normal)."""
+    its own keys; ``tally`` gets the hashes its draw reads: its key and
+    the loop's key; the boost's subkey and uniform only where the draw is
+    boosted (alpha below 1, or NaN); 3 an outer pass (its two keys, U) and
+    1 more where another outer pass follows (the next key); 2 an inner
+    pass (the normal's key and bits) and 1 more where another inner pass
+    follows.  ``passes`` gets the outer and inner passes and the boosted
+    draws (``"outer"``, ``"inner"``, ``"boosted"``)."""
     n = alpha.numel()
-    if tally is not None:
-        tally.append(4 * n)
     keys = _split(key, n).T.contiguous()
     boost = alpha >= 1.0
+    if tally is not None:
+        tally.append(2 * n + 2 * (~boost).sum())
+    if passes is not None:
+        passes.update(outer=0, inner=0, boosted=int((~boost).sum()))
     alpha_b = torch.where(boost, alpha, alpha + 1.0)
     d = alpha_b - THIRD
     c = true_div(THIRD, torch.sqrt(d))
@@ -187,12 +194,16 @@ def gamma_loops(key, alpha, log_space=False, tally=None):
     live = _gamma_cond(X, V, U, d)
     it = 0
     while it < MAX_ITERS and bool(live.any()):
-        _tally(tally, 0, 4, live)
+        _tally(tally, 0, 3, live)
+        if passes is not None:
+            passes["outer"] += int(live.sum())
         nk, xk, uk = (_split_each(kk, j) for j in range(3))
         x, v = torch.zeros_like(alpha), torch.full_like(alpha, -1.0)
         inner, jt = live.clone(), 0
         while jt < MAX_ITERS and bool(inner.any()):
-            _tally(tally, 0, 3, inner)
+            _tally(tally, 0, 2, inner)
+            if passes is not None:
+                passes["inner"] += int(inner.sum())
             xk_next, sub = _split_each(xk, 0), _split_each(xk, 1)
             xn = _normal64_each(sub)
             x = torch.where(inner, xn, x)
@@ -200,12 +211,17 @@ def gamma_loops(key, alpha, log_space=False, tally=None):
             xk = torch.where(inner, xk_next, xk)
             inner = inner & (v <= 0.0)
             jt += 1
+            if jt < MAX_ITERS:
+                # the next key, where another inner pass reads it
+                _tally(tally, 0, 1, inner)
         X = torch.where(live, x * x, X)
         V = torch.where(live, (v * v) * v, V)
         U = torch.where(live, _uniform64_each(uk), U)
         kk = torch.where(live, nk, kk)
         live = live & _gamma_cond(X, V, U, d)
         it += 1
+        if it < MAX_ITERS:
+            _tally(tally, 0, 1, live)
     if log_space:
         # -exponential(subkey) = -(-log1p(-u))
         log_samples = -(-torch.log1p(-_uniform64_each(subkey)))

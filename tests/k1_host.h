@@ -14,7 +14,7 @@
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 

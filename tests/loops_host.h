@@ -5,9 +5,10 @@
 // a block's threads as fibers (ucontext), so that a barrier or a warp vote
 // runs as on the card: a fiber that reaches __syncthreads() waits until
 // every thread of its block that has not exited has reached it, one at
-// __syncwarp(), __ballot_sync, __reduce_max_sync or __shfl_sync until its
+// __syncwarp(), __ballot_sync, __any_sync, __reduce_max_sync or __shfl_sync until its
 // warp's have.
-// A launch runs its blocks one after another.  A cooperative launch runs
+// A launch runs its blocks one after another, a resident launch at most
+// loops_host_set_grid's.  A cooperative launch runs
 // each block of its grid (at most loops_host_set_grid's blocks, 1 unless
 // set) on a thread of its own, one at a time: a block runs until it ends
 // or waits on a word that another block writes (LOOP_SPIN), then hands on
@@ -21,6 +22,7 @@
 #pragma once
 #include <ucontext.h>
 
+#include <chrono>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
@@ -266,6 +268,14 @@ inline void exchange(uint64_t v) {
   loops_host::launch(blocks, LOOP_THREADS, [&] { kernel(__VA_ARGS__); })
 #define LOOP_COOP_LAUNCH(kernel, n, stream, ...) \
   (loops_host::coop_launch(loop_blocks(n), LOOP_THREADS, [&] { kernel(__VA_ARGS__); }), 0)
+// a plain launch on the resident blocks: at most loops_host_set_grid's,
+// one after another
+#define LOOP_RESIDENT_LAUNCH(kernel, n, stream, ...)                                       \
+  (loops_host::launch((unsigned)loop_blocks(n) < loops_host::coop_most                     \
+                          ? (unsigned)loop_blocks(n)                                       \
+                          : loops_host::coop_most,                                         \
+                      LOOP_THREADS, [&] { kernel(__VA_ARGS__); }),                         \
+   0)
 #define LOOP_SPIN() loops_host::spin()
 
 // the most blocks a cooperative launch runs, for the tests
@@ -283,6 +293,7 @@ inline unsigned __ballot_sync(unsigned, int p) {
   __syncwarp();
   return bits;
 }
+inline int __any_sync(unsigned mask, int p) { return __ballot_sync(mask, p) != 0; }
 inline int __reduce_max_sync(unsigned, int v) {
   loops_host::Block& b = loops_host::block();
   loops_host::exchange((uint64_t)(uint32_t)v);
@@ -324,6 +335,16 @@ inline int atomicExch(int* address, int value) {
   const int old = *address;
   *address = value;
   return old;
+}
+// the stamped variant's (-DLOOP_STAMPS): a cycle count from the host's
+// clock, and the rows' pointer set as on the card
+inline long long clock64() {
+  return (long long)std::chrono::steady_clock::now().time_since_epoch().count();
+}
+template <typename T>
+inline int cudaMemcpyToSymbol(T& symbol, const void* src, size_t bytes) {
+  std::memcpy(&symbol, src, bytes);
+  return 0;
 }
 inline int cudaMemsetAsync(void* ptr, int value, size_t bytes, cudaStream_t) {
   std::memset(ptr, value, bytes);

@@ -1442,6 +1442,28 @@ def test_loop_sampler_kernels_match_plain(card, name):
         assert bool(same.all()), (name, dt, int((~same).sum()))
 
 
+@pytest.mark.parametrize("grid", ["typical", "edges", "boosted"])
+def test_gamma_kernel_across_its_tiles_and_drains(card, grid):
+    """The gamma kernel against its plain version, bit for bit, at sizes
+    around its block's share and tiles (one element; a block's first
+    round; a share of several tiles ending mid-tile; 2**20 + 7, where the
+    queue of the boosted grid fills and drains mid-share), in both
+    ``log_space`` modes."""
+    from pytensor_tpu_torch.link.cuda import gamma_kernel
+
+    vals = {"typical": cases.LOOP_TYPICAL["gamma"], "edges": cases.LOOP_GAMMA_ALPHA,
+            "boosted": [1e-3, 0.5]}[grid]
+    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=card)
+    for n in (1, 255, 257, 4097, 135_173, 2 ** 20 + 7):
+        alpha = torch.from_numpy(np.resize(np.array(vals, "float64"), n)).to(card)
+        for log_space in (False, True):
+            got = gamma_kernel.launch(key, alpha, log_space)
+            want = gamma_kernel.plain(key, alpha, log_space)
+            torch.cuda.synchronize()
+            same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+            assert bool(same.all()), (n, log_space, int((~same).sum()))
+
+
 def test_binomial_kernel_int64_draws_are_the_cast_float64_draws(card):
     """The binomial kernel's int64 draws (the binomial RVs') are its float64
     draws cast as XLA casts them, and its plain version's, on the edge grid

@@ -10,7 +10,14 @@ cooperative launch of three phases, ``csrc/loops.cuh``) on one block and
 on several, on the grids of ``tests/torch_random_loops.py``:
 
 - gamma: within 1e-12 of max(1, |draw|) (the host's erfinv, log and pow
-  are glibc's and ``tests/k1_host.h``'s, not torch's);
+  are glibc's and ``tests/k1_host.h``'s, not torch's) on one block and on
+  a grid cut to 2, 3 and 5 blocks, on jax's edges, the timed alphas, a
+  grid of boosted draws only (a warp's tail queue runs full many times)
+  and one of alphas below 0 (many passes an element); and bit for bit the
+  first design's
+  draws (one element a thread, the stamped variant's
+  ``gamma_serial_draw``) with the same math library, the stamped kernel's
+  hashes and passes the plain loops' tally and passes;
 - Poisson: Knuth's elements finished, the flag set where a PTRS element
   is, the array's pass count N that the plain loop runs (0 where no
   element takes PTRS: the dummy search is skipped), and the draws the
@@ -35,7 +42,7 @@ kernels' bound in chip_smoke.py) is held against the same count made from
 each element's first accept, each rejection element's last accept (the
 dummy parameters' first accepts only where some element takes the
 rejection branch), the array's pass count N and each Knuth or inversion
-element's draw.
+element's draw; gamma's against each element's passes walked alone.
 """
 
 import ctypes
@@ -128,11 +135,15 @@ def _build(stem, source=None):
 @pytest.fixture(scope="module")
 def host():
     libs = {stem: _build(stem) for stem in ("gamma", "poisson", "binomial")}
-    libs["gamma"].gamma_draw.argtypes = [P, P, ctypes.c_longlong, ctypes.c_int, P, P]
-    libs["gamma"].gamma_draw.restype = ctypes.c_int
+    # the stamped variant, which also holds the first design
+    libs["gamma stamped"] = _build("gamma_stamped",
+                                   "#define LOOP_STAMPS\n" + (CSRC / "gamma.cu").read_text())
+    gk.bind(libs["gamma"])
+    gk.bind(libs["gamma stamped"])
+    libs["gamma stamped"].loop_stamps_at.argtypes = [P]
     pk.bind(libs["poisson"])
     bk.bind(libs["binomial"])
-    for stem in ("poisson", "binomial"):
+    for stem in ("gamma", "gamma stamped", "poisson", "binomial"):
         libs[stem].loops_host_set_grid.argtypes = [ctypes.c_uint]
     return libs
 
@@ -155,22 +166,98 @@ def _state():
     return torch.full((ls.STATE_WORDS,), -7, dtype=torch.int32)
 
 
-@pytest.mark.parametrize("log_space", [False, True], ids=["gamma", "loggamma"])
-@pytest.mark.parametrize("alpha", [GAMMA_ALPHA, [2.5], [1e-3]], ids=["grid", "2.5", "1e-3"])
-def test_gamma_source_against_plain(host, alpha, log_space):
-    a = _tile(alpha, 4096, torch.float64)
-    out = torch.empty_like(a)
-    assert host["gamma"].gamma_draw(KEY.data_ptr(), a.data_ptr(), a.numel(), int(log_space),
-                                    out.data_ptr(), None) == 0
-    tally = []
-    want = gk.plain(KEY, a, log_space, tally)
-    # each element's key and its two and the final uniform, and where alpha
-    # is not NaN at least one pass of each loop (4 + 3 hashes)
-    assert int(sum(tally)) >= 4 * a.numel() + 7 * int((~torch.isnan(a)).sum())
+def _gamma(host, a, log_space, blocks=1, lib="gamma", entry="gamma_draw"):
+    """The host kernel's draws of ``a`` on at most ``blocks`` blocks (the
+    first design's with ``entry`` ``gamma_serial_draw``)."""
+    out = torch.full_like(a, -99.0)
+    host[lib].loops_host_set_grid(blocks)
+    assert getattr(host[lib], entry)(KEY.data_ptr(), a.data_ptr(), a.numel(), int(log_space),
+                                     out.data_ptr(), None) == 0
+    return out
+
+
+def _gamma_held(a, out, log_space):
+    """Within 1e-12 of max(1, |draw|) of the plain loops' (the host's
+    erfinv, log, log1p and pow are glibc's and ``tests/k1_host.h``'s, not
+    torch's), NaN where they are."""
+    want = gk.plain(KEY, a, log_space)
     assert torch.equal(torch.isnan(out), torch.isnan(want))
     ok = ~torch.isnan(want) & (out != want)
     err = (out[ok] - want[ok]).abs() / want[ok].abs().clamp_min(1.0)
     assert (float(err.max()) if err.numel() else 0.0) <= 1e-12, err
+
+
+# gamma's grids: jax's edges (0 and NaN among them), the timed alphas, one
+# alpha, the boosted alphas (every draw a tail: a warp's tail queue runs
+# 32 at a time, many times a warp), and alphas below 0 (d under 1/3: many
+# inner and outer passes, elements going on in their lanes while the
+# other lanes take new ones)
+GAMMA_GRIDS = {"grid": GAMMA_ALPHA, "2.5": [2.5], "1e-3": [1e-3], "typical": [0.5, 1, 2.5, 100],
+               "boosted": [1e-3, 0.5], "retries": [-0.6, -0.3]}
+
+
+@pytest.mark.parametrize("log_space", [False, True], ids=["gamma", "loggamma"])
+@pytest.mark.parametrize("alpha", list(GAMMA_GRIDS))
+def test_gamma_source_against_plain(host, alpha, log_space):
+    # one block: 4,096 elements, ~16 a lane
+    a = _tile(GAMMA_GRIDS[alpha], 4096, torch.float64)
+    out = _gamma(host, a, log_space)
+    tally = []
+    gk.plain(KEY, a, log_space, tally)
+    # each element's key and the loop's, the boost's subkey and uniform
+    # where alpha is below 1 or NaN, and where alpha is not NaN at least one
+    # pass of each loop (3 + 2 hashes)
+    boosted = ~(a >= 1.0)
+    assert int(sum(tally)) >= (2 * a.numel() + 2 * int(boosted.sum())
+                               + 5 * int((~torch.isnan(a)).sum()))
+    _gamma_held(a, out, log_space)
+
+
+@pytest.mark.parametrize("log_space", [False, True], ids=["gamma", "loggamma"])
+@pytest.mark.parametrize("alpha", ["grid", "typical", "boosted", "retries"])
+@pytest.mark.parametrize("blocks,n", [(3, 4096), (2, 1500), (5, 777)], ids=lambda v: str(v))
+def test_gamma_source_on_several_blocks(host, blocks, n, alpha, log_space):
+    """The grid cut to ``blocks``: each block's share of ``n`` (4,096 on 3
+    blocks: 1,366, ~5 elements a lane), a last block with less (777 on 5:
+    156 and 153); the draws are those of one block."""
+    a = _tile(GAMMA_GRIDS[alpha], n, torch.float64)
+    out = _gamma(host, a, log_space, blocks)
+    _gamma_held(a, out, log_space)
+    assert torch.equal(out.view(torch.int64), _gamma(host, a, log_space).view(torch.int64))
+
+
+GAMMA_SLOTS = ("setup", "outer", "inner", "test", "rest", "tail", "outer passes",
+               "inner passes", "boosted", "hashes")
+
+
+def _gamma_stamped(host, a, log_space, entry, blocks=1):
+    """The stamped variant's draws and its rows' counts, summed."""
+    rows = torch.zeros((-(-a.numel() // 256) * 256, len(GAMMA_SLOTS)), dtype=torch.int64)
+    assert host["gamma stamped"].loop_stamps_at(rows.data_ptr()) == 0
+    out = _gamma(host, a, log_space, blocks, "gamma stamped", entry)
+    return out, dict(zip(GAMMA_SLOTS[6:], rows[:, 6:].sum(0).tolist()))
+
+
+@pytest.mark.parametrize("log_space", [False, True], ids=["gamma", "loggamma"])
+@pytest.mark.parametrize("alpha", list(GAMMA_GRIDS))
+def test_gamma_source_is_the_first_design(host, alpha, log_space):
+    """The first design (one element a thread, every key hashed as soon as
+    it can be; the stamped variant's ``gamma_serial_draw``) and the lanes
+    that take the next element give the same bits with the same math
+    library, and the kernel's
+    stamped counts are what the draw reads: its hashes the plain loops'
+    tally, its passes theirs, a tail a boosted draw.  The first design
+    made more hashes."""
+    a = _tile(GAMMA_GRIDS[alpha], 4096, torch.float64)
+    first, made_first = _gamma_stamped(host, a, log_space, "gamma_serial_draw")
+    got, made = _gamma_stamped(host, a, log_space, "gamma_draw", blocks=3)
+    assert torch.equal(got.view(torch.int64), first.view(torch.int64))
+    assert torch.equal(got.view(torch.int64), _gamma(host, a, log_space).view(torch.int64))
+    tally, passes = [], {}
+    gk.plain(KEY, a, log_space, tally, passes)
+    assert made == {"outer passes": passes["outer"], "inner passes": passes["inner"],
+                    "boosted": passes["boosted"], "hashes": int(sum(tally))}
+    assert made_first["hashes"] > made["hashes"]
 
 
 def _poisson(host, lv, blocks=1):
@@ -359,6 +446,58 @@ def test_pass_key_table_against_the_chain(chain, upto, depth):
         k = keys[next_at]
     want = torch.stack(want)
     assert torch.equal(read.long()[:, : len(subs)] & 0xFFFFFFFF, want[:, : len(subs)])
+
+
+def _gamma_walk(key, alpha):
+    """Each element's outer and inner passes and draw, walked one element
+    at a time (jax's ``_gamma_one``) in the plain loops' arithmetic."""
+    keys = S._split(key, alpha.numel())
+    passes, draws = [], []
+    for j, a in enumerate(alpha.reshape(-1, 1)):
+        ki = keys[j].reshape(2, 1)
+        boost = a >= 1.0
+        d = torch.where(boost, a, a + 1.0) - S.THIRD
+        c = S.true_div(S.THIRD, torch.sqrt(d))
+        kk = S._split_each(ki, 0)
+        X, V, U = torch.zeros_like(a), torch.ones_like(a), torch.full_like(a, 2.0)
+        outer = inner = 0
+        while bool(S._gamma_cond(X, V, U, d)):
+            outer += 1
+            nk, xk, uk = (S._split_each(kk, t) for t in range(3))
+            while True:
+                inner += 1
+                x = S._normal64_each(S._split_each(xk, 1))
+                v = 1.0 + x * c
+                xk = S._split_each(xk, 0)
+                if not bool(v <= 0.0):
+                    break
+            X, V, U, kk = x * x, (v * v) * v, S._uniform64_each(uk), nk
+        passes.append((outer, inner))
+        boost_by = torch.where(boost, 1.0, torch.pow(1.0 - S._uniform64_each(
+            S._split_each(ki, 1)), S.true_div(1.0, a)))
+        draws.append(float((d * V) * boost_by))
+    return passes, torch.tensor(draws, dtype=torch.float64)
+
+
+def test_gamma_tally_counts_what_the_draw_needs():
+    """The plain loops' tally against each element's passes, walked alone:
+    its key and the loop's; 3 an outer pass, and 1 where another follows;
+    2 an inner pass, and 1 where another follows in the same outer pass;
+    the boost's subkey and uniform where alpha is below 1 or NaN."""
+    a = _tile([1e-3, 0.5, 1, 2.5, 100, 0, np.nan, -0.6], 64, torch.float64)
+    tally, counted = [], {}
+    draws = gk.plain(KEY, a, False, tally, counted)
+    passes, walked = _gamma_walk(KEY, a)
+    assert torch.equal(torch.isnan(draws), torch.isnan(walked))
+    assert torch.equal(draws[~torch.isnan(draws)], walked[~torch.isnan(walked)])
+    boosted = ~(a >= 1.0)
+    want = sum(2 + 2 * int(b) + 3 * o + max(o - 1, 0) + 2 * i + (i - o)
+               for (o, i), b in zip(passes, boosted.tolist()))
+    assert int(sum(tally)) == want
+    assert counted == {"outer": sum(o for o, _ in passes), "inner": sum(i for _, i in passes),
+                       "boosted": int(boosted.sum())}
+    # the retries the grid holds: another outer pass, another inner pass
+    assert any(o > 1 for o, _ in passes) and any(i > o for o, i in passes)
 
 
 def test_poisson_tally_counts_what_the_draw_needs(host):
