@@ -266,20 +266,28 @@ Phases, one line or more each, and any failure raises:
    bit for bit in 32 and 64 bits, its keys and uniforms, its normals within
    ``NORMAL_RTOL`` (CUDA's erfinv is not torch's), the uniforms and normals
    also against the port's CPU draws at the same key, jax's Random123
-   answers and ``split(PRNGKey(42))`` (embedded), and each mode's device
-   and wall time at 2**24 and at the HMC paths' draws beside its plain
-   version's and its bound; (b) ``models/hmc.py``'s ``make_radon_hmc``,
+   answers and ``split(PRNGKey(42))`` (embedded, and by a folded draw),
+   each mode also folded (under ``split(key)[1]``, writing the split) at
+   2**24 and at the HMC paths' draws; each mode's time at 2**24 (CUDA
+   events over ``THREEFRY_STREAM`` launches after an L2 flush,
+   ``stream_ms``, against ``stream_bound``; the normals' bound the larger
+   of the hashes' and the FP64 pipe's, ``NORMAL_PROBE``) beside its plain
+   version's, with ``--parent``
+   the parent's kernel in turn at 2**24; the folded draw at the HMC
+   paths' sizes in turn with the split and draw it replaces (device
+   times); (b) ``models/hmc.py``'s ``make_radon_hmc``,
    ``make_radon_hmc_chains`` (256 chains) and
    ``make_radon_multinomial_hmc`` at full width (919, 85, 16 leapfrog
    steps of 0.02), with the default flags and with ``scan__pallas``: each
    call one replay of one captured CUDA graph, no host read; the first
    ``HMC_HELD`` transitions against the CPU (accepts and indices equal,
    ``HMC_RTOL``); K1, K2 and threefry launches in one replayed call
-   (counts set to 0 just before it, read just after), K2's verdict on each
-   scan and why; ms a transition, transitions/s, busy share; each K1 node
-   of the calls against its plain version.  K1's and K2's
+   (counts set to 0 just before it, read just after; threefry twice a
+   transition, the momenta and the uniforms, each folded), K2's verdict on
+   each scan and why; ms a transition, transitions/s, busy share; each K1
+   node of the calls against its plain version.  K1's and K2's
    ``launches_by_path`` gain the six paths; the kernel line gains the
-   ``threefry2x32`` entry, timed at the 256-chain momenta's draw.
+   ``threefry2x32`` entry, timed at the 256-chain momenta's folded draw.
 19. loop samplers (``phase_loops``; the gamma, Poisson and binomial
    kernels, ``csrc/{gamma,poisson,binomial}.cu``, built in phase 2's
    pool): (a) each of the twelve samplers whose jax sampler is a loop
@@ -290,23 +298,27 @@ Phases, one line or more each, and any failure raises:
    floats within ``LOOP_FLOAT_ULPS`` (0); (b) the RBM Gibbs chain of
    ``models/rbm.py`` at DeepLearningTutorials ``rbm.py``'s sampling width
    (784 visible, 500 hidden, 20 chains, 1,000 steps a call, float32): one
-   replay of one captured CUDA graph a call, no host read, threefry's and
-   the binomial kernel's launches in one call (counts set to 0 just before
-   it, read just after), K2's refusal of its scan under ``scan__pallas``;
+   replay of one captured CUDA graph a call, no host read, the binomial
+   kernel's launches in one call and no threefry launch (each draw makes
+   its key's split; counts set to 0 just before it, read just after), K2's
+   refusal of its scan under ``scan__pallas``;
    its first step against the same step on the CPU at the same keys (the
    draws equal wherever the two devices' p agree bit for bit; the count of
    p that differ printed); the binomial kernel on that step's real p bit
    for bit its plain version; ms a call, Gibbs steps/s, device busy share,
-   kernels a call and the top ones by name; (c) each sampler at 2**20
+   kernels a call, the top ones by name and the launches a call of each;
+   (c) each sampler at 2**20
    through ``function()`` on a shared key (float32), captured: its
    kernel's launches in one call, ms a call; the Poisson and binomial
    draws (one cooperative launch of phases A, B and C of
    ``csrc/loops.cuh``) captured into a CUDA graph and replayed with the
    eager draw's bits; (d) each kernel on
    ``cases.LOOP_TYPICAL`` at 2**20 and the binomial kernel at the Gibbs
-   draws: device and wall time beside its plain version's and torch's
-   sampler of the same distribution (other bits), the threefry hashes the
-   draw needs (its plain version's tally) and its bound; the gamma kernel
+   draws, each folded as a random variable draws (the split made in the
+   same launch, held against the plain split and loops): device and wall
+   time beside its plain version's and torch's sampler of the same
+   distribution (other bits), the threefry hashes the draw needs (its
+   plain version's tally, and the split's two) and its bound; the gamma kernel
    built with ``-fmad=false`` against the plain loops, by alpha; (e) the
    stamped variants' split of the Poisson and binomial kernels' draw at
    the Gibbs visible draw and at 2**20 (``loop_split``: the sources built
@@ -320,14 +332,18 @@ Phases, one line or more each, and any failure raises:
    two timed in turn, twice.  The kernel line gains an entry for each of
    the three kernels.
 
-Two clocks are kept apart.  ``wall_ms`` is CUDA events around
+Three clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
 host's launch path, not the card.  ``device_ms`` takes the durations of
 the CUDA kernels that ``torch.profiler`` traces, per launch, so that a
-launch the trace missed does not shorten a kernel.  The kernel line's
-``ms`` and ``plain_ms`` are device times; ``wall_ms`` and
-``plain_wall_ms`` beside them are wall times.  A replayed CUDA graph's
-kernels are traced one by one, as the eager ones are.
+launch the trace missed does not shorten a kernel.  A traced launch ends
+when its stores reach the L2, so a kernel that writes more than the L2
+holds is timed by ``stream_ms``: CUDA events over back-to-back launches
+after an L2 flush, against ``stream_bound``, which takes from each
+launch's bytes the L2's share of the launches.  The kernel line's ``ms``
+and ``plain_ms`` are device times; ``wall_ms`` and ``plain_wall_ms``
+beside them are wall times.  A replayed CUDA graph's kernels are traced
+one by one, as the eager ones are.
 
 The second-to-last line is a JSON object with one entry per kernel, the
 last ``{"ok": true, "device": {...}}``.  Each entry has ``bound_ms``, the
@@ -337,8 +353,8 @@ and its float32 operations over 67 TFLOP/s, the H100 SXM data sheet's
 rates, or for threefry and the loop samplers' kernels the threefry
 hashes the function needs over the hashes the card can make a second:
 one hash's SASS instructions (``HASH_PROBE``, read by cuobjdump) at 64
-ALU lanes an SM a clock for the ALU pipe's and 128 dispatched for all of them,
-at 132 SMs and 1,980 MHz; ``bound_by`` names the larger; the script fails
+lanes an SM a clock for the ALU pipe's, 64 for the FMA pipe's (IMAD) and
+128 dispatched for all of them, at 132 SMs and 1,980 MHz; ``bound_by`` names the larger; the script fails
 if a kernel takes less than its bound; K2 and K3, which run a chain on one
 block, also carry ``bound_one_sm_ms``, the same work at one SM's share of
 those rates), and ``library_ms``, the device
@@ -419,10 +435,12 @@ HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
 # xors): 132 SMs at the 1,980 MHz boost clock; an SM dispatches 128
 # thread-instructions a clock (four schedulers, a warp instruction each),
 # of which its ALU pipe (IADD3, LOP3, SHF, LEA, PRMT) takes 64, the 64
-# INT32 lanes of NVIDIA's Hopper white paper; IMAD runs on the FMA pipe
+# INT32 lanes of NVIDIA's Hopper white paper; IMAD runs on the FMA pipe,
+# also 64 lanes
 SM_CLOCKS_S = 132 * 1.98e9
-DISPATCH_LANES, ALU_LANES = 128, 64
-# written between K4 launches to time it with L2 cold (the H100's is 50 MB)
+DISPATCH_LANES, ALU_LANES, FMA_LANES = 128, 64, 64
+# written to empty the L2 (the H100's is 50 MiB) before a timing that wants
+# it cold (``flush_l2``)
 L2_FLUSH_BYTES = 128 * 2 ** 20
 
 
@@ -492,6 +510,55 @@ def device_ms(fn, n_iter, warmup=2):
         return ms, {}
     by_name = {k: (ms / c * -(-c // n_iter), -(-c // n_iter)) for k, (ms, c) in by_name.items()}
     return sum(ms for ms, _ in by_name.values()), by_name
+
+
+_FLUSH: list = []
+
+
+def flush_l2():
+    """Write ``L2_FLUSH_BYTES`` on the card: the L2 (50 MB on the H100)
+    then holds none of what a kernel read or wrote before."""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda"))
+    _FLUSH[0].fill_(1.0)
+
+
+def stream_ms(fn, n_iter, warmup=2):
+    """The mean time of ``n_iter`` back-to-back calls by CUDA events, after
+    a flush of the L2: every input comes from device memory, and all but
+    what the L2 can hold of the calls' writes (``l2_bytes``) reaches device
+    memory inside the timing.  The time of a kernel that writes more than
+    the L2 holds: a kernel's traced duration ends when its stores reach
+    the L2, and the L2 may drain up to 50 MB of them after it."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    flush_l2()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_iter):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n_iter
+
+
+def l2_bytes():
+    """The card's L2 in bytes (50 MiB on the H100)."""
+    import torch
+
+    return torch.cuda.get_device_properties(0).L2_cache_size
+
+
+def stream_bound(n_bytes, n_ops, n_iter, ops_s=F32_OPS_S):
+    """``bound`` of a call timed by ``stream_ms`` over ``n_iter`` calls: the
+    bytes that must reach device memory, each call's less the L2's share
+    of the calls (the last call's writes the L2 may still hold)."""
+    return bound(max(0.0, n_bytes - l2_bytes() / n_iter), n_ops, ops_s)
 
 
 def errors(a, b):
@@ -588,13 +655,12 @@ def k2_stamp_breakdown(kern, k2_ms, plain_outs, n_steps, outer):
         say(f"    {per_op[k - 1]:8.0f}  {labels[k][0]:14s} lines {first}-{at[k]}  {labels[k][1]}")
 
 
-def k4_ms(launch, n_iter, flush=None):
-    """Device time a launch of K4's kernel alone, from the profile, with
-    ``flush`` written before each launch when given, so that the launch
-    finds L2 cold."""
+def k4_ms(launch, n_iter, cold=False):
+    """Device time a launch of K4's kernel alone, from the profile; with
+    ``cold``, the L2 flushed before each launch (``flush_l2``)."""
     def call():
-        if flush is not None:
-            flush.zero_()
+        if cold:
+            flush_l2()
         return launch()
 
     total, by_name = device_ms(call, n_iter)
@@ -1904,9 +1970,13 @@ def phase_special(dev, smi_line, one_node):
                           for g in cases.SPECIAL_GRIDS[name] if not isinstance(g, float)]
                 out = fn.k1.launch(*t_args)[0]
                 n_iter = 20 if n > 4096 else 200
-                us = wall_ms(lambda: fn.k1.launch(*t_args), n_iter) * 1e3
-                b_ms, b_by = bound(nbytes(*t_args, out), n)
-                lib = (wall_ms(_library_call(name, t_args), n_iter) * 1e3
+                # past the L2, the mean after a flush, the bytes the L2 may
+                # still hold taken from the bound (stream_ms)
+                timer = stream_ms if n > 4096 else wall_ms
+                us = timer(lambda: fn.k1.launch(*t_args), n_iter) * 1e3
+                b_ms, b_by = (stream_bound(nbytes(*t_args, out), n, n_iter) if n > 4096
+                              else bound(nbytes(*t_args, out), n))
+                lib = (timer(_library_call(name, t_args), n_iter) * 1e3
                        if name in SPECIAL_LIBRARY else None)
                 row[n] = (us, b_ms * 1e3, b_by, lib)
                 del t_args, out
@@ -2576,15 +2646,18 @@ def phase_bf16(dev, smi_line, one_node, cls_kern):
         raise AssertionError("K1 bf16 MFU class node differs from its plain version")
     k1_row = None
     if on_card:
-        k_ms = device_ms(lambda: cls_kern.launch(*xs), 20)[0]
+        # it writes more than the L2 holds: the mean of launches after a
+        # flush, against the bytes that must reach device memory
+        k_ms = stream_ms(lambda: cls_kern.launch(*xs), 20)
         p_ms = device_ms(lambda: cls_kern.plain(*xs), 20)[0]
         k_wall = wall_ms(lambda: cls_kern.launch(*xs), 20)
         p_wall = wall_ms(lambda: cls_kern.plain(*xs), 20)
-        b_ms, b_by = bound(nbytes(*xs, *got), 0)
+        b_ms, b_by = stream_bound(nbytes(*xs, *got), 0, 20)
         k1_row = {"n": n, "ms": k_ms, "plain_ms": p_ms, "wall_ms": k_wall,
                   "plain_wall_ms": p_wall, "bound_ms": b_ms, "bound_by": b_by}
         say(f"K1 bf16 MFU class node at {n:,} elements (3 in, 2 out, 2 bytes each): kernel "
-            f"{k_ms * 1e3:.2f} us device ({k_wall * 1e3:.2f} wall), plain {p_ms * 1e3:.2f} us "
+            f"{k_ms * 1e3:.2f} us (CUDA events after an L2 flush; {k_wall * 1e3:.2f} wall), plain "
+            f"{p_ms * 1e3:.2f} us device "
             f"({p_wall * 1e3:.2f} wall), bound {b_ms * 1e3:.2f} us ({b_by}), "
             f"{b_ms / k_ms:.3f} of it; vector path {cls_kern.vector} values a thread")
     # (5) K2 on the EWMA ----------------------------------------------------
@@ -3403,20 +3476,23 @@ def phase_optimize(dev, smi_line, one_node):
         raise AssertionError(f"periodogram: power {e_pow}, phase {e_phase}, K1 node {p_held}, "
                              f"the chain as one kernel {c_held}")
     if on_card:
-        p_ms = wall_ms(lambda: pkern.launch(*pargs), 20)
+        # past the L2: means after a flush, bounds of the bytes that must
+        # reach device memory (stream_ms, stream_bound)
+        p_ms = stream_ms(lambda: pkern.launch(*pargs), 20)
         p_plain = wall_ms(lambda: pkern.plain(*pargs), 20)
-        p_bound = bound(nbytes(*pargs, *pgot), 0)
+        p_bound = stream_bound(nbytes(*pargs, *pgot), 0, 20)
         p_wall = wall_ms(lambda: periodogram(signal), 10)
-        chain_ms = wall_ms(lambda: [fn(*v) for fn, _, v in chain], 20)
-        one_ms = wall_ms(lambda: ckern.launch(*parts), 20)
-        c_bound = bound(nbytes(*parts, *cgot), 0)
+        chain_ms = stream_ms(lambda: [fn(*v) for fn, _, v in chain], 20)
+        one_ms = stream_ms(lambda: ckern.launch(*parts), 20)
+        c_bound = stream_bound(nbytes(*parts, *cgot), 0, 20)
         rows["periodogram"] = {"wall_ms": p_wall, "k1_ms": p_ms, "plain_ms": p_plain,
                                "bound_ms": p_bound[0], "bound_by": p_bound[1],
                                "chain_ms": chain_ms, "chain_one_kernel_ms": one_ms,
                                "chain_bound_ms": c_bound[0]}
         say(f"periodogram ({smi_line}): a call wall {p_wall:.3f} ms (captured: the FFT, the "
             f"slices, complex, the K1 node and angle); the K1 node {p_ms * 1e3:.1f} us (CUDA "
-            f"events, 20 launches), plain {p_plain * 1e3:.1f} us, bound {p_bound[0] * 1e3:.1f} "
+            f"events, 20 launches after an L2 flush), plain {p_plain * 1e3:.1f} us, bound "
+            f"{p_bound[0] * 1e3:.1f} "
             f"us ({nbytes(*pargs, *pgot) / 2 ** 20:.0f} MiB moved); the chain from the two "
             f"parts {chain_ms * 1e3:.1f} us as the port runs it (three launches, c written "
             f"and read twice) against {one_ms * 1e3:.1f} us as one K1 kernel, bound "
@@ -3447,10 +3523,10 @@ def phase_optimize(dev, smi_line, one_node):
             fin = torch.isfinite(want)
             k1_abs = max(k1_abs, float((got[fin] - want[fin]).abs().max()))
         if on_card:
-            k_ms = wall_ms(lambda: kern.launch(*zargs), 12)
+            k_ms = stream_ms(lambda: kern.launch(*zargs), 12)
             pl_ms = wall_ms(lambda: kern.plain(*zargs), 12)
-            lib_ms = wall_ms(lambda: COMPLEX_LIBRARY[name](*zargs), 12)
-            b_ms, b_by = bound(nbytes(*zargs, got), 0)
+            lib_ms = stream_ms(lambda: COMPLEX_LIBRARY[name](*zargs), 12)
+            b_ms, b_by = stream_bound(nbytes(*zargs, got), 0, 12)
             ops[f"{name} {dtype}"] = {"ms": k_ms, "plain_ms": pl_ms, "library_ms": lib_ms,
                                       "bound_ms": b_ms, "bound_by": b_by}
         del zargs, got, want
@@ -3486,7 +3562,22 @@ THREEFRY_N = 2 ** 24
 # of an add, a rotate and an xor and 5 key injections of two adds, as ALU
 # instructions
 HASH_SASS = {"alu": 20 * 3 + 5 * 2, "fma": 0, "all": 20 * 3 + 5 * 2}
-HASH_S = SM_CLOCKS_S * ALU_LANES / HASH_SASS["alu"]
+
+
+def hash_rate(sass):
+    """The hashes the card can make a second from one hash's SASS by pipe:
+    the ALU pipe (IADD3, LOP3, SHF) and the FMA pipe (IMAD) each take 64
+    lanes an SM a clock, and the four schedulers dispatch 128."""
+    return SM_CLOCKS_S / max(sass["alu"] / ALU_LANES, sass["fma"] / FMA_LANES,
+                             sass["all"] / DISPATCH_LANES)
+
+
+HASH_S = hash_rate(HASH_SASS)
+# the threefry kernel's SASS a draw by pipe in each mode
+# (``threefry_instructions``) and normal64's FP64-pipe instructions a draw
+# (``normal_instructions``), set by say_builds
+THREEFRY_SASS: dict = {}
+NORMAL_FP64: dict = {}
 # the normals: CUDA's erfinv against torch's, in float64
 NORMAL_RTOL = 1e-11
 HMC_CHAINS, HMC_STEPS, HMC_EPS = 256, 16, 0.02
@@ -3495,6 +3586,8 @@ HMC_CHAINS, HMC_STEPS, HMC_EPS = 256, 16, 0.02
 # magnitude (a float32 leapfrog of 16 steps rounds differently on the card)
 HMC_HELD = 4
 HMC_RTOL = 2e-4
+# threefry's launches in one transition (one replayed call)
+HMC_THREEFRY_LAUNCHES = 2
 HMC_PATHS = {"hmc 1 chain": "make_radon_hmc", "hmc 256 chains": "make_radon_hmc_chains",
              "multinomial hmc": "make_radon_multinomial_hmc"}
 
@@ -3527,6 +3620,67 @@ def random_kernels(dev):
     return list(kerns.values()), cpu
 
 
+# back-to-back launches a 2**24 threefry row is timed over (stream_ms)
+THREEFRY_STREAM = 20
+def c_params(src, entry):
+    """The parameter names of the C entry ``entry`` in the source ``src``
+    (empty if it has none)."""
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    return [a.split()[-1].lstrip("*") for a in m.group(1).split(",")] if m else []
+
+
+def parent_threefry(root):
+    """The threefry draw as built from the tree at ``root`` (its
+    ``csrc/threefry.cu`` with its own header), through its C entry
+    ``threefry2x32_draw``: this tree's, whose ``split`` it passes null and
+    which returns the launches it made, or the earlier trees' (no
+    ``split``; 0 on success): ``draw(key, n, mode, lo, hi)``.  Its
+    launches are not counted."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import threefry_kernel as tk
+    from pytensor_tpu_torch.link.cuda.build import build_library
+
+    src = Path(root, "pytensor_tpu_torch", "csrc", "threefry.cu")
+    text = src.with_suffix(".cuh").read_text() + src.read_text()
+    fold = [None] if "split" in c_params(src.read_text(), "threefry2x32_draw") else []
+    lib = build_library(text, "threefry_parent", src, False)[0]
+    p = ctypes.c_void_p
+    lib.threefry2x32_draw.argtypes = [p, *[p for _ in fold], ctypes.c_ulonglong,
+                                      ctypes.c_longlong, ctypes.c_int, p, ctypes.c_double,
+                                      ctypes.c_double, p]
+    lib.threefry2x32_draw.restype = ctypes.c_int
+
+    def draw(key, n, mode, lo=0.0, hi=1.0):
+        out = torch.empty(tk._shape(n, mode), dtype=tk._OUT[mode], device=key.device)
+        err = lib.threefry2x32_draw(key.data_ptr(), *fold, 0, n, mode, out.data_ptr(), lo, hi,
+                                    torch.cuda.current_stream(key.device).cuda_stream)
+        if err < 0 or (err and not fold):
+            raise RuntimeError(f"the parent's threefry launch failed: {err}")
+        return out
+
+    return draw
+
+
+def threefry_beside_parent(key, n, modes, parent, held):
+    """Each mode's draws at ``n`` against the parent's kernel (the same
+    draws required: ``held``) and the two timed in turn, twice, by
+    ``stream_ms``: {mode: {"this": [ms, ms], "parent": [ms, ms]}}."""
+    from pytensor_tpu_torch.link.cuda import threefry_kernel as tk
+
+    theirs = parent_threefry(parent)
+    got = {}
+    for name, (mode, lo, hi) in modes.items():
+        if not held(name, tk.launch(key, n, mode, lo, hi), theirs(key, n, mode, lo, hi))[0]:
+            raise AssertionError(f"threefry {name}: the parent's draws differ from this tree's")
+        turns = got[f"{name} 2e24"] = {"this": [], "parent": []}
+        for _ in range(2):
+            for who, fn in (("this", lambda: tk.launch(key, n, mode, lo, hi)),
+                            ("parent", lambda: theirs(key, n, mode, lo, hi))):
+                turns[who].append(stream_ms(fn, THREEFRY_STREAM))
+    return got
+
+
 def threefry_times(kernel, plain, n_kernel, n_plain):
     """The device ms of a call of the kernel and of its plain version
     (``device_ms``, the kernels the profiler traced) and their wall ms
@@ -3535,7 +3689,7 @@ def threefry_times(kernel, plain, n_kernel, n_plain):
             "wall_ms": wall_ms(kernel, n_kernel), "plain_wall_ms": wall_ms(plain, n_plain)}
 
 
-def phase_random(dev, smi_line, cpu_fns):
+def phase_random(dev, smi_line, cpu_fns, parent=None):
     """Phase 18: random and HMC.  (a) threefry on the card: the kernel's
     bits against its plain version (``tensor/random/threefry.py``, int64
     torch ops) at 2**24 counters in 32 and 64 bits, its keys, uniforms and
@@ -3579,75 +3733,134 @@ def phase_random(dev, smi_line, cpu_fns):
         got = launch(torch.tensor(key, device=dev), 1, tk.KEYS, first=first)[0].tolist()
         if tuple(got) != want:
             raise AssertionError(f"threefry of key {key} at {first:#x}: {got}, jax's {want}")
-    got = tf.split(tf.threefry_seed(42).to(dev)).tolist()
-    if got != SPLIT_42:
-        raise AssertionError(f"split(PRNGKey(42)): {got}, jax's {SPLIT_42}")
-    say(f"threefry: jax's three Random123 answers and split(PRNGKey(42)) = {SPLIT_42}")
+    seed42 = tf.threefry_seed(42).to(dev)
+    folded42 = torch.empty((2, 2), dtype=torch.int64, device=dev)
+    launch(seed42, 1, tk.UNIFORM64, split=folded42)
+    got = tf.split(seed42).tolist()
+    if got != SPLIT_42 or folded42.tolist() != SPLIT_42:
+        raise AssertionError(f"split(PRNGKey(42)): {got}, folded {folded42.tolist()}, jax's "
+                             f"{SPLIT_42}")
+    say(f"threefry: jax's three Random123 answers and split(PRNGKey(42)) = {SPLIT_42}, by a "
+        f"split and by a folded draw")
     key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
     n = THREEFRY_N if on_card else 2 ** 12
     modes = {"bits32": (tk.BITS32, 0.0, 1.0), "bits64": (tk.BITS64, 0.0, 1.0),
              "keys": (tk.KEYS, 0.0, 1.0), "uniform64": (tk.UNIFORM64, -2.5, 3.0),
              "normal64": (tk.NORMAL64, 0.0, 1.0), "uniform32": (tk.UNIFORM32, -2.5, 3.0)}
+
+    def held(name, got, want):
+        """(ok, largest relative error): bit for bit, normals within
+        NORMAL_RTOL."""
+        if name.startswith("normal"):
+            err = float(((got - want).abs() / want.abs().clamp_min(1e-300)).max())
+            return err <= NORMAL_RTOL, err
+        return torch.equal(got, want), 0.0 if torch.equal(got, want) else float("inf")
+
     for name, (mode, lo, hi) in modes.items():
         got = launch(key, n, mode, lo, hi)
         want = tk.plain(key, n, mode, lo, hi)
         sync()
+        ok, err = held(name, got, want)
         if name == "normal64":
-            err = float(((got - want).abs() / want.abs().clamp_min(1e-300)).max())
             tf_abs = max(tf_abs, float((got - want).abs().max()))
-            ok = err <= NORMAL_RTOL
-        else:
-            err = 0.0 if torch.equal(got, want) else float("inf")
-            ok = err == 0.0
         if name in ("uniform64", "normal64"):
             # and the port's CPU draws at the same key
             cpu = tk.plain(key.cpu(), n, mode, lo, hi)
-            cerr = float(((got.cpu() - cpu).abs() / cpu.abs().clamp_min(1e-300)).max())
-            ok = ok and (cerr == 0.0 if name == "uniform64" else cerr <= NORMAL_RTOL)
+            c_ok, cerr = held(name, got.cpu(), cpu)
             tf_abs = max(tf_abs, float((got.cpu() - cpu).abs().max()))
-            err = max(err, cerr)
+            ok, err = ok and c_ok, max(err, cerr)
+        # the folded draw: under split(key)[1], the split written beside it
+        fsplit, psplit = (torch.empty((2, 2), dtype=torch.int64, device=dev) for _ in range(2))
+        f_ok, f_err = held(name, launch(key, n, mode, lo, hi, split=fsplit),
+                           tk.plain(key, n, mode, lo, hi, split=psplit))
+        ok = ok and f_ok and torch.equal(fsplit, psplit)
         if not ok:
-            raise AssertionError(f"threefry {name} at {n:,}: {err} from its plain version")
-        row = {"max_rel_err": err}
+            raise AssertionError(f"threefry {name} at {n:,}: {max(err, f_err)} from its plain "
+                                 f"version (split {fsplit.tolist()} against {psplit.tolist()})")
+        row = {"max_rel_err": max(err, f_err)}
         if on_card:
             row.update(threefry_times(lambda: tk.launch(key, n, mode, lo, hi),
                                       lambda: tk.plain(key, n, mode, lo, hi), 20, 3))
-            row["bound_ms"], row["bound_by"] = bound(nbytes(key, got), n, HASH_S)
+            # the traced time of a launch ends when its stores reach the L2:
+            # the mean of back-to-back launches after a flush, with the bytes
+            # the L2 may still hold at the end taken from the bound
+            row["traced_ms"] = row["ms"]
+            row["ms"] = stream_ms(lambda: tk.launch(key, n, mode, lo, hi), THREEFRY_STREAM)
+            row["bound_ms"], row["bound_by"] = stream_bound(nbytes(key, got), n,
+                                                            THREEFRY_STREAM, HASH_S)
+            row["hash_bound_ms"] = n / HASH_S * 1e3
+            if name == "normal64":
+                row["fp64_ms"] = normal64_fp64_ms(n)
+                if row["fp64_ms"] > row["bound_ms"]:
+                    row["bound_ms"], row["bound_by"] = row["fp64_ms"], "operations"
             within_bound(f"threefry {name} at {n:,}", row)
         rows["threefry"][f"{name} 2e24"] = row
         del got, want
     say(f"threefry: {', '.join(modes)} at {n:,} counters against the plain version (bits, "
-        f"keys and uniforms bit for bit, normals within {NORMAL_RTOL:g}); the uniforms and "
-        f"normals against the CPU's draws at the same key the same")
+        f"keys and uniforms bit for bit, normals within {NORMAL_RTOL:g}), each also folded "
+        f"(under split(key)[1], the split written beside: both the plain split's); the "
+        f"uniforms and normals against the CPU's draws at the same key the same")
     if on_card:
         for name, r in rows["threefry"].items():
-            say(f"  threefry {name:16s} device {r['ms'] * 1e3:9.2f} us, plain "
-                f"{r['plain_ms'] * 1e3:10.1f} us; wall {r['wall_ms'] * 1e3:9.2f} us, plain "
-                f"{r['plain_wall_ms'] * 1e3:10.1f} us; bound {r['bound_ms'] * 1e3:7.2f} us "
-                f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.2f} of it reached ({smi_line})")
-    # the draws of the HMC paths, at their shapes: a split (2 keys), the
-    # momenta (89 and 256 x 89 normals), the Metropolis and Gumbel uniforms
-    # (1, 256, 17)
-    draws = {"split": (tk.KEYS, 2), "normal 89": (tk.NORMAL64, N_COUNTIES + 4),
+            say(f"  threefry {name:16s} {r['ms'] * 1e3:9.2f} us (CUDA events, "
+                f"{THREEFRY_STREAM} launches after a flush; traced {r['traced_ms'] * 1e3:.2f}), "
+                f"plain {r['plain_ms'] * 1e3:10.1f} us; wall {r['wall_ms'] * 1e3:9.2f} us; "
+                f"bound {r['bound_ms'] * 1e3:7.2f} us ({r['bound_by']}; the hashes' "
+                f"{r['hash_bound_ms'] * 1e3:.2f}" + (f", the FP64 pipe's {r['fp64_ms'] * 1e3:.2f}"
+                                                     if "fp64_ms" in r else "")
+                + f"), {r['bound_ms'] / r['ms']:.2f} of it reached ({smi_line})")
+        if parent:
+            rows["threefry_parent"] = threefry_beside_parent(key, n, modes, parent, held)
+            for name, t in rows["threefry_parent"].items():
+                say(f"  threefry {name} beside the parent's ({parent}), the same draws; in "
+                    f"turn, us a launch (CUDA events after a flush): " + "; ".join(
+                        f"{who} " + ", ".join(f"{v * 1e3:.2f}" for v in vs)
+                        for who, vs in t.items()) + f" ({smi_line})")
+    # the draws of the HMC paths, at their shapes, each folded (one launch
+    # under split(key)[1] that writes the split) beside the split and the
+    # draw it replaces (two launches): the momenta (89 and 256 x 89
+    # normals), the Metropolis and Gumbel uniforms (1, 256, 17)
+    draws = {"normal 89": (tk.NORMAL64, N_COUNTIES + 4),
              "normal 256x89": (tk.NORMAL64, HMC_CHAINS * (N_COUNTIES + 4)),
              "uniform 1": (tk.UNIFORM64, 1), "uniform 17": (tk.UNIFORM64, HMC_STEPS + 1),
              "uniform 256": (tk.UNIFORM64, HMC_CHAINS)}
+    fsplit, psplit = (torch.empty((2, 2), dtype=torch.int64, device=dev) for _ in range(2))
     for name, (mode, m) in draws.items():
-        got, want = launch(key, m, mode), tk.plain(key, m, mode)
+        got, want = launch(key, m, mode, split=fsplit), tk.plain(key, m, mode, split=psplit)
+        pair = launch(launch(key, 2, tk.KEYS)[1], m, mode)
         sync()
-        same = torch.equal(got, want) if mode != tk.NORMAL64 else bool(
-            ((got - want).abs() <= NORMAL_RTOL * want.abs()).all())
-        if not same:
-            raise AssertionError(f"threefry {name}: the kernel is not its plain version")
+        same = [held(name, g, want)[0] for g in (got, pair)]
+        if not (all(same) and torch.equal(fsplit, psplit)):
+            raise AssertionError(f"threefry {name}: the folded draw {same[0]}, the split and "
+                                 f"draw {same[1]}, the split {fsplit.tolist()} against "
+                                 f"{psplit.tolist()}")
         if on_card:
-            r = threefry_times(lambda: tk.launch(key, m, mode), lambda: tk.plain(key, m, mode),
-                               200, 20)
-            r["bound_ms"], r["bound_by"] = bound(nbytes(key, got), m, HASH_S)
-            within_bound(f"threefry {name}", r)
-            rows["threefry"][name] = r
-            say(f"  threefry {name:16s} device {r['ms'] * 1e3:9.2f} us, plain "
-                f"{r['plain_ms'] * 1e3:10.1f} us; wall {r['wall_ms'] * 1e3:9.2f} us, plain "
-                f"{r['plain_wall_ms'] * 1e3:10.1f} us; bound {r['bound_ms'] * 1e3:7.4f} us "
+            def two():
+                tk.launch(tk.launch(key, 2, tk.KEYS)[1], m, mode)
+
+            turns = {"folded": [], "pair": []}
+            for who, fn in (("pair", two), ("folded", lambda: tk.launch(key, m, mode, split=fsplit)),
+                            ("folded", lambda: tk.launch(key, m, mode, split=fsplit)),
+                            ("pair", two)):
+                turns[who].append(device_ms(fn, 200)[0])
+            r = {"ms": float(np.mean(turns["folded"])), "pair_ms": float(np.mean(turns["pair"])),
+                 "turns": turns,
+                 "plain_ms": device_ms(lambda: tk.plain(key, m, mode, split=psplit), 20)[0],
+                 "wall_ms": wall_ms(lambda: tk.launch(key, m, mode, split=fsplit), 200),
+                 "pair_wall_ms": wall_ms(two, 200)}
+            r["bound_ms"], r["bound_by"] = bound(nbytes(key, fsplit, got), m + 2, HASH_S)
+            if mode == tk.NORMAL64:
+                fp64 = normal64_fp64_ms(m)
+                if fp64 > r["bound_ms"]:
+                    r["bound_ms"], r["bound_by"] = fp64, "operations"
+            within_bound(f"threefry folded {name}", r)
+            rows["threefry"][f"folded {name}"] = r
+            say(f"  threefry {name:16s} folded {r['ms'] * 1e3:7.2f} us a launch (device; "
+                f"{', '.join(f'{v * 1e3:.2f}' for v in turns['folded'])}), the split and the "
+                f"draw {r['pair_ms'] * 1e3:7.2f} us (two launches; "
+                f"{', '.join(f'{v * 1e3:.2f}' for v in turns['pair'])}), in turn; wall "
+                f"{r['wall_ms'] * 1e3:.2f} against {r['pair_wall_ms'] * 1e3:.2f} us; plain "
+                f"{r['plain_ms'] * 1e3:.1f} us; bound {r['bound_ms'] * 1e3:.4f} us "
                 f"({r['bound_by']}) ({smi_line})")
 
     # (b) the HMC paths -------------------------------------------------------------
@@ -3693,9 +3906,12 @@ def phase_random(dev, smi_line, cpu_fns):
             logp, acc = f()
             sync()
             launches[tag] = counts()
+            # a transition draws the momenta and the Metropolis or Gumbel
+            # uniforms, each one folded launch with its split
             if on_card and not (launches[tag]["fused_elemwise"] > 0
-                                and launches[tag]["threefry"] > 0):
-                raise AssertionError(f"{tag}: launches {launches[tag]}")
+                                and launches[tag]["threefry"] == HMC_THREEFRY_LAUNCHES):
+                raise AssertionError(f"{tag}: launches {launches[tag]}, threefry "
+                                     f"{HMC_THREEFRY_LAUNCHES} a transition expected")
             if not (torch.isfinite(logp).all() and torch.isfinite(pos.get_value()).all()):
                 raise AssertionError(f"{tag}: a value is not finite")
             scans = [nd for nd in f.fgraph.toposort() if isinstance(nd.op, Scan)]
@@ -3797,9 +4013,10 @@ ALU_OPS = ("IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "PRMT", "
 
 
 def hash_instructions():
-    """One threefry hash's SASS instructions on sm_90a (``HASH_PROBE``
-    read by ``sass_ops``): ``{"alu", "fma", "all"}``, the ALU pipe's,
-    IMAD's and all of them, NOPs and branches aside."""
+    """One threefry hash's SASS instructions on sm_90a (``HASH_PROBE``,
+    read by ``sass_ops``): ``{"alu", "fma", "all"}``,
+    the ALU pipe's, IMAD's (the FMA pipe's) and all of them, NOPs and
+    branches aside."""
     ops = {name: [o for o, _ in found] for name, found in
            sass_ops(HASH_PROBE, ("with_hashes", "without_hashes")).items()}
 
@@ -3866,12 +4083,10 @@ FP64_LANES = 64
 GAMMA_FP64: dict = {}
 
 
-def sass_ops(source, names):
-    """Each of ``names``' SASS instructions on sm_90a (``source`` built by
-    nvcc with ``csrc/`` on the include path and read by ``cuobjdump
-    -sass``): {name: [(opcode, modifiers)]}, NOPs, branches and exits
-    aside."""
-    import shutil
+def sass_code(source):
+    """Each function's SASS on sm_90a (``source`` built by nvcc with
+    ``csrc/`` on the include path, read by ``cuobjdump -sass``,
+    ``sass_of``)."""
     import tempfile
 
     from pytensor_tpu_torch.link.cuda.build import BUILD_DIR, CSRC, nvcc
@@ -3883,19 +4098,186 @@ def sass_ops(source, names):
         subprocess.run([nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
                         "-std=c++17", "-O3", f"-I{CSRC}", "-o", str(cubin), str(src)],
                        capture_output=True, text=True, check=True)
-        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-        sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True, text=True,
-                              check=True).stdout
-    ops: dict = {name: [] for name in names}
-    body = None
+        return sass_of(cubin)
+
+
+def sass_of(binary):
+    """Each function's SASS in ``binary`` (a cubin, or a library that nvcc
+    built, read by ``cuobjdump -sass``): {name: [(address, predicated,
+    opcode, modifiers, target)]}, ``target`` the address a branch goes to
+    (None for the others)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return parse_sass(subprocess.run([tool, "-sass", str(binary)], capture_output=True,
+                                     text=True, check=True).stdout)
+
+
+def parse_sass(sass):
+    """``sass_of``'s reading of cuobjdump's text."""
+    code: dict = {}
+    body, labels = None, {}
     for line in sass.splitlines():
         if "Function :" in line:
-            body = ops.get(line.split("Function :")[1].strip())
-        elif body is not None:
-            body.extend(o for o in re.findall(
-                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)", line)
-                if o[0] not in ("NOP", "BRA", "EXIT"))
-    return ops
+            body = code.setdefault(line.split("Function :")[1].strip(), [])
+            continue
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label and body is not None:
+            labels[(id(body), label.group(1))] = len(body)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)"
+                      r"([^;]*)", line)
+        if body is None or not m:
+            continue
+        target = None
+        if m.group(3) == "BRA":
+            t = re.search(r"(0x[0-9a-f]+|\.L_x_\d+)", m.group(5))
+            target = t.group(1) if t else None
+        body.append([int(m.group(1), 16), bool(m.group(2)), m.group(3), m.group(4), target])
+    for name, body in code.items():
+        at = {ins[0]: ins[0] for ins in body}
+        for ins in body:
+            t = ins[4]
+            if t is not None:
+                ins[4] = (int(t, 16) if t.startswith("0x") else
+                          body[labels[(id(body), t)]][0] if (id(body), t) in labels else None)
+                ins[4] = at.get(ins[4])
+        code[name] = [tuple(ins) for ins in body]
+    return code
+
+
+def sass_ops(source, names):
+    """Each of ``names``' SASS instructions (``sass_code``): {name:
+    [(opcode, modifiers)]}, NOPs, branches and exits aside."""
+    code = sass_code(source)
+    return {name: [(op, mods) for _, _, op, mods, _ in code.get(name, [])
+                   if op not in ("NOP", "BRA", "EXIT")] for name in names}
+
+
+def sass_least(code, weight, start=0, stop=None, through=()):
+    """The least total ``weight`` of the instructions on a path through
+    ``code`` (one function's ``sass_code``) from instruction ``start`` to an
+    EXIT or, given ``stop``, to instruction ``stop``, by way of each of the
+    instructions ``through`` in turn, taking only forward branches: every
+    run of that stretch that passes those instructions executes at least as
+    much (a predicated instruction issues either way)."""
+    n, inf = len(code), float("inf")
+    index = {ins[0]: i for i, ins in enumerate(code)}
+
+    def between(a, b):
+        best = [inf] * (n + 1)
+        for i in range(n - 1, a - 1, -1):
+            _, pred, op, mods, target = code[i]
+            w = weight(op, mods)
+            if i == b:
+                best[i] = w
+                continue
+            if op == "EXIT":
+                best[i] = w if b is None else (w + best[i + 1] if pred else inf)
+                continue
+            nxt = [i + 1] if (op != "BRA" or pred) else []
+            t = index.get(target, -1) if op == "BRA" else -1
+            if t > i:
+                nxt.append(t)
+            best[i] = w + min((best[j] for j in nxt), default=inf)
+        return best[a]
+
+    points = [start, *through, stop]
+    return sum(between(a, b) for a, b in zip(points, points[1:])) - sum(
+        weight(*code[k][2:4]) for k in through)
+
+
+def is_alu(op, mods):
+    return op in ALU_OPS
+
+
+def is_fma(op, mods):
+    return op == "IMAD"
+
+
+def is_fp64(op, mods):
+    return op in FP64_OPS or (op == "MUFU" and "64H" in mods)
+
+
+def is_issued(op, mods):
+    return op not in ("NOP", "BRA", "EXIT")
+
+
+PIPES = {"alu": is_alu, "fma": is_fma, "fp64": is_fp64, "all": is_issued}
+THREEFRY_MODES = ("bits32", "bits64", "keys", "uniform64", "normal64", "uniform32")
+
+
+def threefry_instructions(lib):
+    """The threefry kernel's SASS a draw, by pipe, in each mode (``lib``, a
+    build of ``csrc/threefry.cu``), of the kernel that a draw of 2**24
+    takes (the most counters a thread): the least count on a path through
+    the grid-stride loop's body (the store that a whole aligned vector
+    takes; for the normals, by way of each erfinv's log, ``erfinv_logs``),
+    over the counters a thread takes there.  {mode: {"alu", "fma",
+    "fp64", "all", "fp64_static", "per"}}, "fp64_static" the body's FP64-pipe instructions on every branch, as
+    ``fp64_instructions`` counts gamma's."""
+    code = sass_of(lib._name)
+    got = {}
+    for name, body in code.items():
+        m = re.search(r"threefry_kernelILi(\d)ELi(\d)E", name)
+        if not m:
+            continue
+        mode, per = THREEFRY_MODES[int(m.group(1))], int(m.group(2))
+        if got.get(mode, {}).get("per", 0) > per:
+            continue
+        # the grid-stride loop: the outermost backward branch
+        back = [(ins[4], i) for i, ins in enumerate(body) if ins[2] == "BRA"
+                and ins[4] is not None and ins[4] < ins[0]]
+        if not back:
+            raise AssertionError(f"threefry {mode}: no loop in its SASS")
+        target, stop = min(back)
+        start = next(i for i, ins in enumerate(body) if ins[0] == target)
+        through = erfinv_logs(body[:stop + 1], start)
+        got[mode] = {pipe: sass_least(body, w, start, stop, through) / per
+                     for pipe, w in PIPES.items()}
+        got[mode]["fp64_static"] = sum(is_fp64(op, mods) for _, _, op, mods, _ in
+                                       body[start:stop + 1]) / per
+        got[mode]["per"] = per
+    return {mode: got[mode] for mode in THREEFRY_MODES}
+
+
+# a normal64 draw from bits in memory
+NORMAL_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "threefry.cuh"
+extern "C" __global__ void normal_draw(const uint2* __restrict__ bits, double* __restrict__ out) {
+  const int t = threadIdx.x;
+  out[t] = normal64(bits[t].x, bits[t].y);
+}
+"""
+
+
+def erfinv_logs(code, start=0):
+    """The instructions of ``code`` from ``start`` on that every draw of a
+    normal passes: CUDA's double erfinv(u) takes a branch of a few
+    instructions only where |u| >= 1, which no uniform of the draw on
+    [nextafter(-1, 0), 1) is, and every other u first computes log(1 -
+    u^2), whose reciprocal seed is the branch's first MUFU.RCP64H."""
+    return [i for i in range(start, len(code)) if code[i][2] == "MUFU" and "RCP64H" in code[i][3]]
+
+
+def normal_instructions():
+    """normal64's FP64-pipe instructions a draw (``NORMAL_PROBE``):
+    {"least": on the shortest path of a draw, by way of erfinv's log
+    (``erfinv_logs``), "static": on every branch}."""
+    code = next(v for k, v in sass_code(NORMAL_PROBE).items() if k.endswith("normal_draw"))
+    logs = erfinv_logs(code)
+    if len(logs) != 1:
+        raise AssertionError(f"the normal probe's SASS: {len(logs)} logs of erfinv")
+    return {"least": sass_least(code, is_fp64, through=logs),
+            "static": sum(is_fp64(op, mods) for _, _, op, mods, _ in code)}
+
+
+def normal64_fp64_ms(n):
+    """The FP64 pipe's least time for ``n`` normals: ``NORMAL_FP64["least"]``
+    instructions a draw at ``FP64_LANES`` lanes an SM a clock."""
+    return n * NORMAL_FP64["least"] / (SM_CLOCKS_S * FP64_LANES) * 1e3
 
 
 def fp64_instructions():
@@ -3907,8 +4289,7 @@ def fp64_instructions():
     (phase 19 prints it beside the hashes' bound)."""
     names = ("fp_setup", "fp_inner", "fp_outer", "fp_draw", "fp_boosted")
     ops = sass_ops(FP64_PROBE, names)
-    got = {name[3:]: sum(o in FP64_OPS or (o == "MUFU" and "64H" in m) for o, m in ops[name])
-           for name in names}
+    got = {name[3:]: sum(is_fp64(o, m) for o, m in ops[name]) for name in names}
     got["boosted"] -= got["draw"]
     if min(got["setup"], got["inner"], got["outer"], got["boosted"]) <= 0:
         raise AssertionError(f"the FP64 probe's SASS: {got}")
@@ -3929,16 +4310,11 @@ def gamma_fmad_false():
     """``csrc/gamma.cu`` built with ``-fmad=false``, as ``poisson.cu`` and
     ``binomial.cu`` are (``gamma_kernel.FLAGS`` keeps nvcc's default
     contraction; phase 19 prints why)."""
-    import ctypes
-
     from pytensor_tpu_torch.link.cuda import gamma_kernel
     from pytensor_tpu_torch.link.cuda.build import build_csrc
 
-    lib, _ = build_csrc("gamma", gamma_kernel.HEADERS, False, ("-fmad=false",))
-    p = ctypes.c_void_p
-    lib.gamma_draw.argtypes = [p, p, ctypes.c_longlong, ctypes.c_int, p, p]
-    lib.gamma_draw.restype = ctypes.c_int
-    return lib
+    return gamma_kernel.bind(build_csrc("gamma", gamma_kernel.HEADERS, False,
+                                        ("-fmad=false",))[0])
 
 
 class plain_loops:
@@ -4011,10 +4387,12 @@ def loop_typical(kernel, dev, n):
 
 
 def loop_times(kernel, args, dev, n_iter):
-    """A loop kernel's device and wall ms on ``args`` beside its plain
-    version's and torch's sampler of the same distribution (other bits),
-    the threefry hashes the draw needs (its plain version's tally), and
-    its bound (inputs read and outputs written once; the hashes at
+    """A loop kernel's device and wall ms on ``args``, folded as a random
+    variable draws (the split of the key made in the same launch, held
+    against the plain split and loops), beside its plain version's and
+    torch's sampler of the same distribution (other bits), the threefry
+    hashes the draw needs (its plain version's tally and the split's two),
+    and its bound (inputs read and outputs written once; the hashes at
     ``HASH_S``)."""
     import torch
 
@@ -4027,19 +4405,27 @@ def loop_times(kernel, args, dev, n_iter):
     library = {"gamma": lambda: torch._standard_gamma(args[0]),
                "poisson": lambda: torch.poisson(args[0]),
                "binomial": lambda: torch.binomial(args[0], args[1])}[kernel]
-    out = mod.launch(key, *args, *extra)
-    tally: list = []
+    # the draw as a random variable makes it: under split(key)[1], the
+    # launch writing the split (two hashes more)
+    fsplit, psplit = (torch.empty((2, 2), dtype=torch.int64, device=dev) for _ in range(2))
+    out = mod.launch(key, *args, *extra, split=fsplit)
+    tally: list = [2]
     passes: dict = {}
-    mod.plain(key, *args, *extra, tally=tally, **({"passes": passes} if kernel == "gamma" else {}))
+    want = mod.plain(key, *args, *extra, tally=tally, split=psplit,
+                     **({"passes": passes} if kernel == "gamma" else {}))
+    loop_held(f"{kernel} folded at {args[0].numel():,} draws", out, want)
+    if not torch.equal(fsplit, psplit):
+        raise AssertionError(f"{kernel}: the folded launch's split {fsplit.tolist()}, the plain "
+                             f"one {psplit.tolist()}")
     n_hash = int(sum(tally))
     row = {"n": args[0].numel(), "hashes": n_hash,
-           "ms": device_ms(lambda: mod.launch(key, *args, *extra), n_iter)[0],
-           "wall_ms": wall_ms(lambda: mod.launch(key, *args, *extra), n_iter),
-           "plain_ms": device_ms(lambda: mod.plain(key, *args, *extra), 2)[0],
-           "plain_wall_ms": wall_ms(lambda: mod.plain(key, *args, *extra), 2),
+           "ms": device_ms(lambda: mod.launch(key, *args, *extra, split=fsplit), n_iter)[0],
+           "wall_ms": wall_ms(lambda: mod.launch(key, *args, *extra, split=fsplit), n_iter),
+           "plain_ms": device_ms(lambda: mod.plain(key, *args, *extra, split=psplit), 2)[0],
+           "plain_wall_ms": wall_ms(lambda: mod.plain(key, *args, *extra, split=psplit), 2),
            "library_ms": device_ms(library, n_iter)[0], "library": LOOP_LIBRARY[kernel] +
            " (same distribution, other bits)"}
-    row["bound_ms"], row["bound_by"] = bound(nbytes(*args, out), n_hash, HASH_S)
+    row["bound_ms"], row["bound_by"] = bound(nbytes(*args, out, fsplit), n_hash, HASH_S)
     row["bound_pipe"] = "hashes" if row["bound_by"] == "operations" else "bytes"
     if kernel == "gamma":
         # the larger of the hash bound and the FP64 pipe's
@@ -4057,10 +4443,10 @@ def parent_interface(src, entry):
     """The C interface of ``entry`` (``poisson_draw`` or ``binomial_draw``)
     in the source ``src`` of a parent tree: "two passes" (the loop
     kernels' first tree: a scratch of n + 1 int32 and a pass mask, 3 for
-    both passes) or "one launch" (this tree's: a state of int32 words and
-    no mask).  Raises for any other."""
-    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
-    names = [a.split()[-1].lstrip("*") for a in m.group(1).split(",")] if m else []
+    both passes) or "one launch" (later trees': a state of int32 words and
+    no mask; this tree's also takes a ``split``, which ``parent_loops``
+    passes null).  Raises for any other."""
+    names = c_params(src, entry)
     if names[-3:] == ["first", "passes", "stream"]:
         return "two passes"
     if names[-2:] == ["state", "stream"]:
@@ -4086,16 +4472,21 @@ def parent_loops(root):
         src = Path(root, "pytensor_tpu_torch", "csrc", f"{kernel}.cu")
         text = src.read_text()
         two_passes = parent_interface(text, f"{kernel}_draw") == "two passes"
+        # a null split where the entry takes one
+        fold = [None] if "split" in c_params(text, f"{kernel}_draw") else []
         lib, _ = build_library(text, f"{kernel}_parent", src, False, mod.FLAGS)
         p = ctypes.c_void_p
         # the pass mask before the stream in the two-pass entry
         mask = [ctypes.c_int] if two_passes else []
+        split = [p for _ in fold]
         entry = getattr(lib, f"{kernel}_draw")
-        entry.argtypes = ([p, p, ctypes.c_longlong, p, p, *mask, p] if kernel == "poisson" else
-                          [p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p, p, *mask, p])
+        entry.argtypes = ([p, *split, p, ctypes.c_longlong, p, p, *mask, p]
+                          if kernel == "poisson" else
+                          [p, *split, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p, p,
+                           *mask, p])
         entry.restype = ctypes.c_int
 
-        def draw(key, *args, lib=lib, kernel=kernel, two_passes=two_passes):
+        def draw(key, *args, lib=lib, kernel=kernel, two_passes=two_passes, fold=fold):
             n = args[0].numel()
             out = torch.empty(n, dtype=torch.int64, device=key.device)
             # the two-pass scratch (each element's first accept, then N),
@@ -4104,12 +4495,13 @@ def parent_loops(root):
                                   device=key.device)
             tail = ([3] if two_passes else []) + [torch.cuda.current_stream(key.device).cuda_stream]
             if kernel == "poisson":
-                err = lib.poisson_draw(key.data_ptr(), args[0].data_ptr(), n, out.data_ptr(),
-                                       scratch.data_ptr(), *tail)
+                err = lib.poisson_draw(key.data_ptr(), *fold, args[0].data_ptr(), n,
+                                       out.data_ptr(), scratch.data_ptr(), *tail)
             else:
-                err = lib.binomial_draw(key.data_ptr(), args[0].data_ptr(), args[1].data_ptr(),
-                                        n, int(args[1].dtype == torch.float64), 2,
-                                        out.data_ptr(), scratch.data_ptr(), *tail)
+                err = lib.binomial_draw(key.data_ptr(), *fold, args[0].data_ptr(),
+                                        args[1].data_ptr(), n,
+                                        int(args[1].dtype == torch.float64), 2, out.data_ptr(),
+                                        scratch.data_ptr(), *tail)
             if err != 0:
                 raise RuntimeError(f"the parent's {kernel} launch failed: CUDA error {err}")
             return out
@@ -4119,45 +4511,60 @@ def parent_loops(root):
 
 
 def loop_beside_parent(kernel, args, dev, parent):
-    """This tree's draw against the parent's (the same bits required) and
-    the two timed in turn, twice: {"this": [ms, ms], "parent": [ms, ms]}
+    """This tree's draw as a random variable makes it (folded: under
+    ``split(key)[1]``, the split made in the same launch) against the
+    parent's under ``split(key)[1]`` (the same bits required), and the two
+    timed in turn, three times: {"this": [ms, ...], "parent": [ms, ...]}
     (device ms a draw, memsets included)."""
     import torch
 
     from pytensor_tpu_torch.link.cuda import binomial_kernel, poisson_kernel
+    from pytensor_tpu_torch.tensor.random.threefry import split as tf_split
 
     mod = poisson_kernel if kernel == "poisson" else binomial_kernel
     key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
     extra = (torch.int64,) if kernel == "binomial" else ()
-    this = lambda: mod.launch(key, *args, *extra)  # noqa: E731
-    theirs = lambda: parent[kernel](key, *args)  # noqa: E731
+    split = torch.empty((2, 2), dtype=torch.int64, device=dev)
+    sub = tf_split(key)[1].contiguous()
+    this = lambda: mod.launch(key, *args, *extra, split=split)  # noqa: E731
+    theirs = lambda: parent[kernel](sub, *args)  # noqa: E731
     if not torch.equal(this(), theirs()):
         raise AssertionError(f"{kernel}: the parent's draws differ from this tree's")
     turns = {"this": [], "parent": []}
-    for _ in range(2):
+    for _ in range(3):
         for who, fn in (("this", this), ("parent", theirs)):
             turns[who].append(device_ms(fn, 20)[0])
     return turns
 
 
+GAMMA_PARAMS = ["key", "alpha", "n", "log_space", "out", "stream"]
+
+
 def parent_gamma(root):
     """The gamma draw as built from the tree at ``root`` (its
     ``csrc/gamma.cu`` with its own headers, the kernel's flags; the C
-    entry ``gamma_draw(key, alpha, n, log_space, out, stream)``, which
-    ``main`` checks at the start): ``draw(key, alpha, log_space)``.  Its
-    launches are not counted."""
+    entry ``gamma_draw(key, alpha, n, log_space, out, stream)``, with a
+    ``split`` after the key in this tree's, passed null; ``main`` checks it
+    at the start): ``draw(key, alpha, log_space)``.  Its launches are not
+    counted."""
     import torch
 
     from pytensor_tpu_torch.link.cuda import gamma_kernel
     from pytensor_tpu_torch.link.cuda.build import build_library
 
     src = Path(root, "pytensor_tpu_torch", "csrc", "gamma.cu")
-    lib = gamma_kernel.bind(build_library(src.read_text(), "gamma_parent", src, False,
-                                          gamma_kernel.FLAGS)[0])
+    fold = [None] if "split" in c_params(src.read_text(), "gamma_draw") else []
+    lib = build_library(src.read_text(), "gamma_parent", src, False, gamma_kernel.FLAGS)[0]
+    p = ctypes.c_void_p
+    lib.gamma_draw.argtypes = [p, *[p for _ in fold], p, ctypes.c_longlong, ctypes.c_int, p, p]
+    lib.gamma_draw.restype = ctypes.c_int
 
     def draw(key, alpha, log_space=False):
         out = torch.empty_like(alpha)
-        gamma_kernel.run(key, alpha, out, log_space, lib=lib)
+        if lib.gamma_draw(key.data_ptr(), *fold, alpha.data_ptr(), alpha.numel(),
+                          int(log_space), out.data_ptr(),
+                          torch.cuda.current_stream(key.device).cuda_stream):
+            raise RuntimeError("the parent's gamma launch failed")
         return out
 
     return draw
@@ -4498,9 +4905,7 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
         for grid in (LOOP_TYPICAL["gamma"], LOOP_GAMMA_ALPHA):
             alpha = torch.from_numpy(np.resize(np.array(grid, "float64"), n)).to(dev)
             fmad = torch.empty_like(alpha)
-            if fmad_lib.gamma_draw(key.data_ptr(), alpha.data_ptr(), n, 0, fmad.data_ptr(),
-                                   torch.cuda.current_stream(dev).cuda_stream) != 0:
-                raise AssertionError("the gamma kernel built with -fmad=false did not launch")
+            gamma_kernel.run(key, alpha, fmad, lib=fmad_lib)
             default, want = gamma_kernel.launch(key, alpha), gamma_kernel.plain(key, alpha)
             for a in grid:
                 at = torch.isnan(alpha) if np.isnan(a) else alpha == a
@@ -4532,9 +4937,11 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
     out = chain(v)
     sync()
     launches["gibbs chain"] = counts()
+    # each draw is one binomial launch that makes its own key's split
     if on_card and not (launches["gibbs chain"]["binomial"] > 0
-                        and launches["gibbs chain"]["threefry"] > 0):
-        raise AssertionError(f"gibbs chain: launches {launches['gibbs chain']}")
+                        and launches["gibbs chain"]["threefry"] == 0):
+        raise AssertionError(f"gibbs chain: launches {launches['gibbs chain']}, no threefry "
+                             f"launch expected")
     if tuple(out.shape) != v0.shape or not bool(((out == 0) | (out == 1)).all()):
         raise AssertionError(f"gibbs chain: a draw of shape {tuple(out.shape)} outside {{0, 1}}")
     if torch.equal(out, first):
@@ -4598,6 +5005,10 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
             f"{bin_us:.0f} us of it ({smi_line})")
         for kn, k_ms, c in g["top"]:
             say(f"    {k_ms:.3f} ms/call {c:.0f} launches/call {kn}")
+        g["launches_by_kernel"] = {kn: c for kn, (_, c) in by.items()}
+        say("  gibbs chain: launches a call by kernel (traced): " + "; ".join(
+            f"{c:.0f} {kn[:48]}" for kn, c in sorted(g["launches_by_kernel"].items(),
+                                                    key=lambda kv: -kv[1])))
 
     # (c) each sampler through function() on a shared key -----------------------------
     for name, kernel in LOOP_SAMPLERS.items():
@@ -4670,8 +5081,8 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
                                   ("binomial 2e20", "binomial", loop_typical("binomial", dev, n)),
                                   ("poisson 2e20", "poisson", loop_typical("poisson", dev, n))):
             t = rows["parent"][tag] = loop_beside_parent(kernel, args, dev, theirs)
-            say(f"  {tag} beside the parent's ({parent}), the same bits; in turn, device us a "
-                f"draw: " + "; ".join(f"{who} " + ", ".join(f"{v * 1e3:.2f}" for v in vs)
+            say(f"  {tag} folded beside the parent's under the split key ({parent}), the same "
+                f"bits; in turn, device us a draw: " + "; ".join(f"{who} " + ", ".join(f"{v * 1e3:.2f}" for v in vs)
                                       for who, vs in t.items()) + f" ({smi_line})")
         # gamma: the same bits on the timed grid and on jax's edges (0 and
         # NaN), in both log_space modes; each grid's draws timed in turn
@@ -4692,7 +5103,7 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
 
 def loop_builds(pool, timed):
     """Phase 2's jobs for phases 18 and 19: threefry, the hash probe, the
-    FP64 probe, the three loop kernels, gamma with ``-fmad=false`` and the
+    normal probe, the FP64 probe, the three loop kernels, gamma with ``-fmad=false`` and the
     stamped variants of the three."""
     from pytensor_tpu_torch.link.cuda import (
         binomial_kernel,
@@ -4703,6 +5114,7 @@ def loop_builds(pool, timed):
 
     return {"threefry": pool.submit(timed, lambda: threefry_kernel.build(verbose=True)),
             "hash probe": pool.submit(hash_instructions),
+            "normal probe": pool.submit(normal_instructions),
             "gamma -fmad=false": pool.submit(timed, gamma_fmad_false),
             **{name: pool.submit(timed, lambda m=m: m.build(verbose=True))
                for name, m in (("gamma", gamma_kernel), ("poisson", poisson_kernel),
@@ -4733,7 +5145,10 @@ def loop_build_logs(build_s):
 
 def say_builds(logs, build_s):
     """Print each build's seconds and ptxas lines; take the hash probe's
-    count into ``HASH_SASS`` and ``HASH_S``."""
+    count into ``HASH_SASS`` and ``HASH_S``, and the threefry kernel's
+    SASS a draw by mode into ``THREEFRY_SASS``."""
+    from pytensor_tpu_torch.link.cuda import threefry_kernel
+
     for tag, log in logs.items():
         say(f"build: {tag} nvcc sm_90a in {build_s[tag]:.2f} s (started together)")
         for line in log.splitlines():
@@ -4744,12 +5159,23 @@ def say_builds(logs, build_s):
     # and 19
     global HASH_SASS, HASH_S
     HASH_SASS = build_s.pop("hash probe")
-    HASH_S = SM_CLOCKS_S / max(HASH_SASS["alu"] / ALU_LANES, HASH_SASS["all"] / DISPATCH_LANES)
+    HASH_S = hash_rate(HASH_SASS)
+    alu_only = SM_CLOCKS_S / max(HASH_SASS["alu"] / ALU_LANES, HASH_SASS["all"] / DISPATCH_LANES)
     say(f"threefry hash (cuobjdump -sass of csrc/threefry.cuh's hash, HASH_PROBE): "
         f"{HASH_SASS['all']:g} instructions, {HASH_SASS['alu']:g} on the ALU pipe and "
         f"{HASH_SASS['fma']:g} IMAD on the FMA pipe; at most {HASH_S / 1e9:.1f} G hashes a "
-        f"second on the card ({ALU_LANES} ALU and {DISPATCH_LANES} dispatched lanes an SM a "
-        f"clock)")
+        f"second on the card ({ALU_LANES} ALU, {FMA_LANES} FMA and {DISPATCH_LANES} dispatched "
+        f"lanes an SM a clock; {alu_only / 1e9:.1f} G counting the ALU pipe and dispatch "
+        f"alone)")
+    THREEFRY_SASS.update(threefry_instructions(threefry_kernel.build()))
+    NORMAL_FP64.update(build_s.pop("normal probe"))
+    say("threefry kernel a draw (cuobjdump -sass of csrc/threefry.cu, the grid-stride loop's "
+        "least path over its counters), by pipe: " + "; ".join(
+            f"{m} " + ", ".join(f"{k} {v:g}" for k, v in c.items())
+            for m, c in THREEFRY_SASS.items()))
+    say(f"normal64's FP64-pipe instructions a draw (NORMAL_PROBE): {NORMAL_FP64['least']:g} on "
+        f"the shortest path (by way of erfinv's log), {NORMAL_FP64['static']:g} on every branch, "
+        f"at {FP64_LANES} lanes an SM a clock")
     # gamma's float64 work, for its bound in phase 19
     GAMMA_FP64.update(build_s.pop("fp64 probe"))
     say("gamma's float64 work (cuobjdump -sass of FP64_PROBE; every branch of erfinv, log and "
@@ -4806,12 +5232,11 @@ def main(opts):
         for kernel in ("poisson", "binomial"):
             parent_interface(Path(opts.parent, "pytensor_tpu_torch", "csrc",
                                   f"{kernel}.cu").read_text(), f"{kernel}_draw")
-        gamma_entry = re.search(r'extern "C" int gamma_draw\(([^)]*)\)', Path(
-            opts.parent, "pytensor_tpu_torch", "csrc", "gamma.cu").read_text())
-        if not gamma_entry or [a.split()[-1].lstrip("*") for a in gamma_entry.group(1).split(
-                ",")] != ["key", "alpha", "n", "log_space", "out", "stream"]:
-            raise SystemExit("--parent: its gamma_draw is not (key, alpha, n, log_space, out, "
-                             "stream)")
+        names = c_params(Path(opts.parent, "pytensor_tpu_torch", "csrc",
+                              "gamma.cu").read_text(), "gamma_draw")
+        if [a for a in names if a != "split"] != GAMMA_PARAMS:
+            raise SystemExit(f"--parent: its gamma_draw is not ({', '.join(GAMMA_PARAMS)}), "
+                             f"with or without a split")
 
     # 1. device -------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5545,7 +5970,6 @@ def main(opts):
     k4 = {}
     parent = parent_k4(opts.parent) if opts.parent else None
     # written between launches for the cold-L2 time: 128 MB, over twice L2
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     for tag, M in (("A", A), ("A^T", A.T.tocsr())):
         c = sparse_as_torch(M, dev)
         args = (c.indptr, c.indices, c.data, x0_d)
@@ -5567,7 +5991,7 @@ def main(opts):
         G = spmv_kernel.group_size(n, M.nnz)
         plan4 = spmv_kernel.plan(n, G)
         ms4 = k4_ms(lambda: spmv_kernel.launch(*args), 50)
-        cold4 = k4_ms(lambda: spmv_kernel.launch(*args), 50, flush)
+        cold4 = k4_ms(lambda: spmv_kernel.launch(*args), 50, cold=True)
         plain4, _ = device_ms(lambda: spmv_kernel.plain(*args), 20)
         lib4, _ = device_ms(lambda: lib_mat @ x0_d, 50)
         wall4 = wall_ms(lambda: spmv_kernel.launch(*args), 200)
@@ -5593,7 +6017,7 @@ def main(opts):
             for _ in range(2):
                 for who, fn in (("this", spmv_kernel.launch), ("parent", parent)):
                     turns[who].append((k4_ms(lambda: fn(*args), 50),
-                                       k4_ms(lambda: fn(*args), 50, flush)))
+                                       k4_ms(lambda: fn(*args), 50, cold=True)))
             say(f"K4 {tag} beside the parent's ({opts.parent}), in turn, 50 launches a timing, "
                 "warm / cold us: " + "; ".join(
                     f"{who} " + ", ".join(f"{w * 1e3:.2f} / {c * 1e3:.2f}" for w, c in t)
@@ -5607,7 +6031,6 @@ def main(opts):
                   "library_ms": lib4, "bound_ms": b4[0], "bound_by": b4[1]}
         else:
             k4["max_abs_err"] = max(k4["max_abs_err"], float(diff.max()))
-    del flush
 
     # 10. the sparse slice: gradient function and the power iteration ----------
     A_var = as_sparse_variable(A)
@@ -5762,10 +6185,10 @@ def main(opts):
     model_launches.update(opt_launches)
 
     # 18. random and HMC ----------------------------------------------------------
-    random_launches, k1_random_abs, random_rows = phase_random(dev, smi, hmc_cpu)
+    random_launches, k1_random_abs, random_rows = phase_random(dev, smi, hmc_cpu, opts.parent)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_random_abs)
     model_launches.update(random_launches)
-    main_draw = random_rows["threefry"]["normal 256x89"]
+    main_draw = random_rows["threefry"]["folded normal 256x89"]
 
     # 19. jax's loop samplers and the RBM Gibbs chain ----------------------------
     loop_launches, loop_rows = phase_loops(dev, smi, build_s["stamped"], opts.parent)
@@ -5842,8 +6265,9 @@ def main(opts):
          "max_abs_err": random_rows["threefry_abs"],
          "ms": main_draw["ms"], "plain_ms": main_draw["plain_ms"],
          "bound_ms": main_draw["bound_ms"], "bound_by": main_draw["bound_by"],
-         "library_ms": None, "timed_at": "normal 256x89 (the 256-chain momenta)",
-         "hash_instructions": HASH_SASS,
+         "library_ms": None,
+         "timed_at": "folded normal 256x89 (the 256-chain momenta, with their split)",
+         "hash_instructions": HASH_SASS, "kernel_instructions": THREEFRY_SASS,
          "draws": random_rows["threefry"], "hmc": random_rows["hmc"]},
         *loop_entries,
     ]

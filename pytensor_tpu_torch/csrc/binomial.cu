@@ -248,17 +248,18 @@ struct BinomDrain {
 
 template <typename T, typename O>
 __global__ void __launch_bounds__(LOOP_THREADS)
-    binomial_kernel(const long long* __restrict__ key, const T* __restrict__ count,
-                    const T* __restrict__ prob, long long n, O* __restrict__ out,
-                    int* __restrict__ state) {
+    binomial_kernel(const long long* __restrict__ key, long long* __restrict__ split,
+                    const T* __restrict__ count, const T* __restrict__ prob, long long n,
+                    O* __restrict__ out, int* __restrict__ state) {
   const int warp = threadIdx.x >> 5;
   __shared__ BinomShared<T> sh;
   LOOP_STAMP_BEGIN;
   if (threadIdx.x == 0) {
-    const TfKey root{(uint32_t)key[0], (uint32_t)key[1]};
+    const TfKey root = tf_draw_key(key, split, true);
     keys_init(sh.keys[0], root, 1, 1, 0, 0);
     keys_init(sh.keys[1], root, 0, 2, 1, 2);
   }
+  if (threadIdx.x == 32) tf_next_key(key, split);
   __syncthreads();
   keys_start(sh.keys, 2 LOOP_STAMPS_ARG);
   const int spread = loop_spread(n), tile = spread * LOOP_THREADS;
@@ -352,34 +353,39 @@ __global__ void __launch_bounds__(LOOP_THREADS)
 }
 
 template <typename T, typename O>
-int binomial_launch(const long long* key, const void* count, const void* prob, long long n,
-                    void* out, int* state, cudaStream_t stream) {
+int binomial_launch(const long long* key, long long* split, const void* count, const void* prob,
+                    long long n, void* out, int* state, cudaStream_t stream) {
   const auto kernel = binomial_kernel<T, O>;
   const T* c = (const T*)count;
   const T* p = (const T*)prob;
   int err = (int)cudaMemsetAsync(state, 0, LOOP_STATE_WORDS * sizeof(int), stream);
-  if (err == 0) err = LOOP_COOP_LAUNCH(kernel, n, stream, key, c, p, n, (O*)out, state);
+  if (err == 0) err = LOOP_COOP_LAUNCH(kernel, n, stream, key, split, c, p, n, (O*)out, state);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // out[i] <- jax's binomial draw of count[i] trials of prob[i] under key, on
-// `stream`, as one cooperative launch.  count and prob are float32 (`wide`
-// 0) or float64 (`wide` 1); out is float32 (`out_kind` 0), float64 (1) or
-// int64 (2, the float64 draw cast as XLA casts it).  `state` is scratch of
-// LOOP_STATE_WORDS int32 (N, phase A's record, the grid barrier's), set to
-// 0 first.  Returns the launch's error, or cudaErrorInvalidValue for
-// float64 probabilities with a float32 draw or an unknown out_kind.
-extern "C" int binomial_draw(const long long* key, const void* count, const void* prob,
-                             long long n, int wide, int out_kind, void* out, int* state,
-                             cudaStream_t stream) {
+// `stream`, as one cooperative launch; with `split` (four int64 on the
+// card) under split(key)[1], a random variable's draw key, with split(key)
+// written into `split` (the next key, then the draw key; tf_draw_key).
+// count and prob are float32 (`wide` 0) or float64 (`wide` 1); out is
+// float32 (`out_kind` 0), float64 (1) or int64 (2, the float64 draw cast
+// as XLA casts it).  `state` is scratch of LOOP_STATE_WORDS int32 (N,
+// phase A's record, the grid barrier's), set to 0 first.  Returns the
+// launch's error, or cudaErrorInvalidValue for float64 probabilities with
+// a float32 draw or an unknown out_kind.
+extern "C" int binomial_draw(const long long* key, long long* split, const void* count,
+                             const void* prob, long long n, int wide, int out_kind, void* out,
+                             int* state, cudaStream_t stream) {
   if (n <= 0) return 0;
   if ((wide && out_kind == 0) || out_kind < 0 || out_kind > 2)
     return (int)cudaErrorInvalidValue;
   if (out_kind == 2)
-    return wide ? binomial_launch<double, long long>(key, count, prob, n, out, state, stream)
-                : binomial_launch<float, long long>(key, count, prob, n, out, state, stream);
+    return wide ? binomial_launch<double, long long>(key, split, count, prob, n, out, state,
+                                                     stream)
+                : binomial_launch<float, long long>(key, split, count, prob, n, out, state,
+                                                    stream);
   if (out_kind == 1)
-    return wide ? binomial_launch<double, double>(key, count, prob, n, out, state, stream)
-                : binomial_launch<float, double>(key, count, prob, n, out, state, stream);
-  return binomial_launch<float, float>(key, count, prob, n, out, state, stream);
+    return wide ? binomial_launch<double, double>(key, split, count, prob, n, out, state, stream)
+                : binomial_launch<float, double>(key, split, count, prob, n, out, state, stream);
+  return binomial_launch<float, float>(key, split, count, prob, n, out, state, stream);
 }

@@ -127,7 +127,8 @@ struct GammaTail {
 
 struct GammaShared {
   GammaTail tail[LOOP_WARPS][GAMMA_TAILS];
-  int next;  // the block's next element, from the start of its share
+  int next;    // the block's next element, from the start of its share
+  TfKey root;  // the draw's key (tf_draw_key)
 };
 
 // a lane's element: what its next step runs
@@ -159,16 +160,21 @@ __device__ __forceinline__ void gamma_tails(const GammaTail* tail, int count,
 // and five or six blocks leave it 48 or 40, which spill; each is slower
 // (PERF.md)
 __global__ void __launch_bounds__(LOOP_THREADS, 4)
-    gamma_kernel(const long long* __restrict__ key, const double* __restrict__ alpha,
-                 long long n, int log_space, double* __restrict__ out) {
+    gamma_kernel(const long long* __restrict__ key, long long* __restrict__ split,
+                 const double* __restrict__ alpha, long long n, int log_space,
+                 double* __restrict__ out) {
   __shared__ GammaShared sh;
   LOOP_STAMP_BEGIN;
-  const TfKey root{(uint32_t)key[0], (uint32_t)key[1]};
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   GammaTail* tail = sh.tail[threadIdx.x >> 5];
-  if (threadIdx.x == 0) sh.next = 0;
+  if (threadIdx.x == 0) {
+    sh.next = 0;
+    sh.root = tf_draw_key(key, split, true);
+  }
+  if (threadIdx.x == 32) tf_next_key(key, split);
   __syncthreads();
+  const TfKey root = sh.root;
   // the block's share of the elements
   const long long share = (n + gridDim.x - 1) / gridDim.x;
   const long long begin = (long long)blockIdx.x * share;
@@ -268,21 +274,26 @@ __global__ void __launch_bounds__(LOOP_THREADS, 4)
 
 // out[i] <- jax's standard gamma (loggamma with log_space) of alpha[i]
 // under split(key, n)[i], float64, on `stream`, by a launch on the blocks
-// the card holds.  Returns the launch's error.
-extern "C" int gamma_draw(const long long* key, const double* alpha, long long n, int log_space,
-                          double* out, cudaStream_t stream) {
+// the card holds; with `split` (four int64 on the card) key is a random
+// variable's own key, the draw is under split(key)[1], and split(key) is
+// written into `split` (the next key, then the draw key; tf_draw_key).
+// Returns the launch's error.
+extern "C" int gamma_draw(const long long* key, long long* split, const double* alpha,
+                          long long n, int log_space, double* out, cudaStream_t stream) {
   if (n <= 0) return 0;
-  return LOOP_RESIDENT_LAUNCH(gamma_kernel, n, stream, key, alpha, n, log_space, out);
+  return LOOP_RESIDENT_LAUNCH(gamma_kernel, n, stream, key, split, alpha, n, log_space, out);
 }
 
 #ifdef LOOP_STAMPS
 // The first design, for the split of its time (never on a path): one
 // element a thread, every key hashed as soon as it can be.
 __global__ void __launch_bounds__(LOOP_THREADS)
-    gamma_serial_kernel(const long long* __restrict__ key, const double* __restrict__ alpha,
-                        long long n, int log_space, double* __restrict__ out) {
+    gamma_serial_kernel(const long long* __restrict__ key, long long* __restrict__ split,
+                        const double* __restrict__ alpha, long long n, int log_space,
+                        double* __restrict__ out) {
   LOOP_STAMP_BEGIN;
-  const TfKey root{(uint32_t)key[0], (uint32_t)key[1]};
+  const TfKey root = tf_draw_key(key, split, threadIdx.x == 0);
+  if (threadIdx.x == LOOP_THREADS - 1) tf_next_key(key, split);
   LOOP_FOR_EACH(i, n) {
     const double a = alpha[i];
     LOOP_STAMP(G_REST);
@@ -330,10 +341,11 @@ __global__ void __launch_bounds__(LOOP_THREADS)
   LOOP_STAMP_END;
 }
 
-extern "C" int gamma_serial_draw(const long long* key, const double* alpha, long long n,
-                                 int log_space, double* out, cudaStream_t stream) {
+// gamma_draw's interface
+extern "C" int gamma_serial_draw(const long long* key, long long* split, const double* alpha,
+                                 long long n, int log_space, double* out, cudaStream_t stream) {
   if (n <= 0) return 0;
-  LOOP_LAUNCH(gamma_serial_kernel, loop_blocks(n), stream, key, alpha, n, log_space, out);
+  LOOP_LAUNCH(gamma_serial_kernel, loop_blocks(n), stream, key, split, alpha, n, log_space, out);
   return (int)cudaGetLastError();
 }
 #endif

@@ -158,11 +158,13 @@ struct PoissonDrain {
 __device__ __forceinline__ bool use_knuth(float lam) { return (lam != lam) | (lam < 10.0f); }
 
 __global__ void __launch_bounds__(LOOP_THREADS)
-    poisson_kernel(const long long* __restrict__ key, const float* __restrict__ lam,
-                   long long n, long long* __restrict__ out, int* __restrict__ state) {
+    poisson_kernel(const long long* __restrict__ key, long long* __restrict__ split,
+                   const float* __restrict__ lam, long long n, long long* __restrict__ out,
+                   int* __restrict__ state) {
   __shared__ PoissonShared sh;
   LOOP_STAMP_BEGIN;
-  if (threadIdx.x == 0) keys_init(sh.keys, TfKey{(uint32_t)key[0], (uint32_t)key[1]}, 0, 2, 1, 2);
+  if (threadIdx.x == 0) keys_init(sh.keys, tf_draw_key(key, split, true), 0, 2, 1, 2);
+  if (threadIdx.x == 32) tf_next_key(key, split);
   __syncthreads();
   keys_start(&sh.keys, 1 LOOP_STAMPS_ARG);
   const int spread = loop_spread(n), tile = spread * LOOP_THREADS;
@@ -253,13 +255,15 @@ __global__ void __launch_bounds__(LOOP_THREADS)
 }
 
 // out[i] <- jax's Poisson draw of lam[i] (float32) under key, on `stream`,
-// as one cooperative launch.  `state` is scratch of LOOP_STATE_WORDS int32
-// (N, phase A's record, the grid barrier's), set to 0 first.  Returns the
-// launch's error.
-extern "C" int poisson_draw(const long long* key, const float* lam, long long n, long long* out,
-                            int* state, cudaStream_t stream) {
+// as one cooperative launch; with `split` (four int64 on the card) under
+// split(key)[1], a random variable's draw key, with split(key) written
+// into `split` (the next key, then the draw key; tf_draw_key).  `state` is
+// scratch of LOOP_STATE_WORDS int32 (N, phase A's record, the grid
+// barrier's), set to 0 first.  Returns the launch's error.
+extern "C" int poisson_draw(const long long* key, long long* split, const float* lam, long long n,
+                            long long* out, int* state, cudaStream_t stream) {
   if (n <= 0) return 0;
   int err = (int)cudaMemsetAsync(state, 0, LOOP_STATE_WORDS * sizeof(int), stream);
-  if (err == 0) err = LOOP_COOP_LAUNCH(poisson_kernel, n, stream, key, lam, n, out, state);
+  if (err == 0) err = LOOP_COOP_LAUNCH(poisson_kernel, n, stream, key, split, lam, n, out, state);
   return err != 0 ? err : (int)cudaGetLastError();
 }

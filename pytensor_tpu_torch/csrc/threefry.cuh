@@ -1,5 +1,5 @@
 // threefry2x32 and jax's draws from its bits, for the kernels that hash in
-// registers: csrc/threefry.cu (one draw a thread) and the loop samplers
+// registers: csrc/threefry.cu (a few draws a thread) and the loop samplers
 // csrc/gamma.cu, csrc/poisson.cu and csrc/binomial.cu (a key chain a
 // thread).  Each function is jax's (jax/_src/prng.py:883
 // _threefry2x32_lowering, :1156 _threefry_split_foldlike, :1184
@@ -13,7 +13,13 @@
 // otherwise contract them into a fused multiply-add, whose one rounding
 // is not jax's two.  The includer brings <cuda_runtime.h> (or the host
 // tests' emulation of it) and <stdint.h>.
-
+//
+// The hash is 32-bit integer work, 68.25 SASS instructions on this card:
+// 50 on the ALU pipe (IADD3, LOP3, SHF) and 17.5 on the FMA pipe (IMAD),
+// which take 64 lanes an SM a clock each (chip_smoke.py HASH_PROBE).  A
+// rotate can also be an FMA-pipe multiply (the xor of the two words of
+// x * 2^r); on an H100 every round so written made the hash slower
+// (PERF.md), so each rotate is a funnel shift.
 #pragma once
 
 struct TfKey {
@@ -39,8 +45,7 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t&
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       x0 += x1;
-      x1 = rotl32(x1, rot[g & 1][j]);
-      x1 ^= x0;
+      x1 = rotl32(x1, rot[g & 1][j]) ^ x0;
     }
     x0 += ks[(g + 1) % 3];
     x1 += ks[(g + 2) % 3] + (uint32_t)(g + 1);
@@ -53,6 +58,34 @@ __device__ __forceinline__ TfKey tf_hash(TfKey key, unsigned long long c) {
   uint32_t x0 = (uint32_t)(c >> 32), x1 = (uint32_t)c;
   threefry2x32(key.k0, key.k1, x0, x1);
   return TfKey{x0, x1};
+}
+
+// A random variable's split, made by the launch that draws under it.
+// With `split` null the draw is under `key` itself.  Else `key` is the
+// variable's own key, the draw is under split(key)[1] (the hash of the
+// counter 1), and block 0 writes split(key), two keys as four int64, into
+// `split` for the wrapper: the draw key by its thread that `writes` here,
+// the next key split(key)[0] by tf_next_key.
+__device__ __forceinline__ TfKey tf_draw_key(const long long* key, long long* split,
+                                             bool writes) {
+  const TfKey k{(uint32_t)key[0], (uint32_t)key[1]};
+  if (split == nullptr) return k;
+  const TfKey sub = tf_hash(k, 1);
+  if (writes && blockIdx.x == 0) {
+    split[2] = sub.k0;
+    split[3] = sub.k1;
+  }
+  return sub;
+}
+
+// split(key)[0], the variable's next key, into split[0:2] from block 0.
+// Called by a thread in another warp than those that wait for the draw
+// key, so that its hash is not on their path.
+__device__ __forceinline__ void tf_next_key(const long long* key, long long* split) {
+  if (split == nullptr || blockIdx.x != 0) return;
+  const TfKey next = tf_hash(TfKey{(uint32_t)key[0], (uint32_t)key[1]}, 0);
+  split[0] = next.k0;
+  split[1] = next.k1;
 }
 
 // jax's float64 uniform in [lo, hi) from the words (x0, x1): the top 52

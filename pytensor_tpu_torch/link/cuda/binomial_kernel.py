@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from pytensor_tpu_torch.link.cuda import threefry_kernel as tk
 from pytensor_tpu_torch.link.cuda.build import CSRC
 from pytensor_tpu_torch.link.cuda.loop_state import STATE_WORDS
 
@@ -49,8 +50,8 @@ BUILD_LOG = ""
 def bind(lib):
     """Give ``lib``'s C entry its argument types."""
     p = ctypes.c_void_p
-    lib.binomial_draw.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p, p,
-                                  p]
+    lib.binomial_draw.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p,
+                                  p, p]
     lib.binomial_draw.restype = ctypes.c_int
     return lib
 
@@ -84,15 +85,18 @@ def _check(key, count, prob, dtype):
             raise ValueError(f"the key is on {key.device}, a parameter on {x.device}")
 
 
-def run(key, count, prob, out, state, lib=None):
+def run(key, count, prob, out, state, lib=None, split=None):
     """Draw into ``out`` (n draws) with ``state`` (``STATE_WORDS`` int32)
     as scratch; ``lib``, a build of the source other than the kernel's
-    (the stamped variant), launches uncounted."""
+    (the stamped variant), launches uncounted; with ``split`` (a (2, 2)
+    int64 tensor) the draw is under ``split(key)[1]`` and the launch writes
+    ``split(key)`` into it."""
     global LAUNCHES
     if key.device.type != "cuda":
         raise ValueError(f"the binomial kernel runs on CUDA tensors; the key is on {key.device}")
     err = (lib or build()).binomial_draw(
-        key.data_ptr(), count.data_ptr(), prob.data_ptr(), prob.numel(),
+        key.data_ptr(), None if split is None else split.data_ptr(), count.data_ptr(),
+        prob.data_ptr(), prob.numel(),
         int(prob.dtype == torch.float64), OUT_KINDS[out.dtype], out.data_ptr(),
         state.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
     if err != 0:
@@ -101,29 +105,28 @@ def run(key, count, prob, out, state, lib=None):
         LAUNCHES += 1
 
 
-def launch(key, count, prob, dtype=torch.float64):
+def launch(key, count, prob, dtype=torch.float64, split=None):
     """jax's binomial draws of ``count`` trials of ``prob`` under ``key``
     in ``dtype`` (int64: the float64 draws cast as XLA casts them), by the
-    kernel."""
+    kernel; with ``split``, under ``split(key)[1]``, the launch writing
+    ``split(key)`` into ``split``."""
     _check(key, count, prob, dtype)
     out = torch.empty(prob.shape, dtype=dtype, device=prob.device)
     state = torch.empty(STATE_WORDS, dtype=torch.int32, device=prob.device)
-    run(key, count, prob, out, state)
+    run(key, count, prob, out, state, split=split)
     return out
 
 
-def plain(key, count, prob, dtype=torch.float64, tally=None):
-    """The same draws in torch ops, on any device; with ``tally`` (a
-    list), the threefry hashes the draw needs are added to it
-    (``samplers.py``)."""
+def plain(key, count, prob, dtype=torch.float64, tally=None, split=None):
+    """The same draws in torch ops, on any device (with ``split`` the
+    plain split written into it first); with ``tally`` (a list), the
+    threefry hashes the draw needs are added to it (``samplers.py``)."""
     from pytensor_tpu_torch.tensor.random.samplers import binomial_loops
 
     _check(key, count, prob, dtype)
-    return binomial_loops(key, count, prob, dtype, tally)
+    return binomial_loops(tk.split_into(key, split), count, prob, dtype, tally)
 
 
-def draw(key, count, prob, dtype=torch.float64):
+def draw(key, count, prob, dtype=torch.float64, split=None):
     """``plain`` for a key on the CPU, else ``launch``."""
-    if key.device.type == "cpu":
-        return plain(key, count, prob, dtype)
-    return launch(key, count, prob, dtype)
+    return (plain if key.device.type == "cpu" else launch)(key, count, prob, dtype, split=split)

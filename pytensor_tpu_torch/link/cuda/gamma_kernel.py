@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from pytensor_tpu_torch.link.cuda import threefry_kernel as tk
 from pytensor_tpu_torch.link.cuda.build import CSRC
 
 SOURCE = CSRC / "gamma.cu"
@@ -47,7 +48,7 @@ def bind(lib):
     p = ctypes.c_void_p
     for name in ("gamma_draw", "gamma_serial_draw"):
         if hasattr(lib, name):
-            getattr(lib, name).argtypes = [p, p, ctypes.c_longlong, ctypes.c_int, p, p]
+            getattr(lib, name).argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_int, p, p]
             getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -74,43 +75,46 @@ def _check(key, alpha):
         raise ValueError(f"the key is on {key.device}, alpha on {alpha.device}")
 
 
-def run(key, alpha, out, log_space=False, lib=None, entry="gamma_draw"):
+def run(key, alpha, out, log_space=False, lib=None, entry="gamma_draw", split=None):
     """Draw into ``out`` (float64, n); ``lib``, a build of the source other
-    than the kernel's (the stamped variant), launches ``entry`` uncounted."""
+    than the kernel's (the stamped variant), launches ``entry`` uncounted;
+    with ``split`` (a (2, 2) int64 tensor) the draw is under
+    ``split(key)[1]`` and the launch writes ``split(key)`` into it."""
     global LAUNCHES
     if key.device.type != "cuda":
         raise ValueError(f"the gamma kernel runs on CUDA tensors; the key is on {key.device}")
-    err = getattr(lib or build(), entry)(key.data_ptr(), alpha.data_ptr(), alpha.numel(),
-                                         int(bool(log_space)), out.data_ptr(),
-                                         torch.cuda.current_stream(key.device).cuda_stream)
+    err = getattr(lib or build(), entry)(
+        key.data_ptr(), None if split is None else split.data_ptr(), alpha.data_ptr(),
+        alpha.numel(), int(bool(log_space)), out.data_ptr(),
+        torch.cuda.current_stream(key.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gamma launch failed: CUDA error {err}")
     if alpha.numel() and lib is None:
         LAUNCHES += 1
 
 
-def launch(key, alpha, log_space=False):
+def launch(key, alpha, log_space=False, split=None):
     """jax's standard gamma (``loggamma`` with ``log_space``) of each
-    element of ``alpha`` under ``split(key, n)[i]``, by the kernel."""
+    element of ``alpha`` under ``split(key, n)[i]``, by the kernel; with
+    ``split``, under ``split(key)[1]``, the launch writing ``split(key)``
+    into ``split``."""
     _check(key, alpha)
     out = torch.empty_like(alpha)
-    run(key, alpha, out, log_space)
+    run(key, alpha, out, log_space, split=split)
     return out
 
 
-def plain(key, alpha, log_space=False, tally=None, passes=None):
-    """The same draws in torch ops, on any device; with ``tally`` (a
-    list), the threefry hashes the draw needs are added to it, and with
-    ``passes`` (a dict) its outer and inner passes and boosted draws
-    (``samplers.py``)."""
+def plain(key, alpha, log_space=False, tally=None, passes=None, split=None):
+    """The same draws in torch ops, on any device (with ``split`` the
+    plain split written into it first); with ``tally`` (a list), the
+    threefry hashes the draw needs are added to it, and with ``passes`` (a
+    dict) its outer and inner passes and boosted draws (``samplers.py``)."""
     from pytensor_tpu_torch.tensor.random.samplers import gamma_loops
 
     _check(key, alpha)
-    return gamma_loops(key, alpha, log_space, tally, passes)
+    return gamma_loops(tk.split_into(key, split), alpha, log_space, tally, passes)
 
 
-def draw(key, alpha, log_space=False):
+def draw(key, alpha, log_space=False, split=None):
     """``plain`` for a key on the CPU, else ``launch``."""
-    if key.device.type == "cpu":
-        return plain(key, alpha, log_space)
-    return launch(key, alpha, log_space)
+    return (plain if key.device.type == "cpu" else launch)(key, alpha, log_space, split=split)

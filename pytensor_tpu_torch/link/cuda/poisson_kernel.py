@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from pytensor_tpu_torch.link.cuda import threefry_kernel as tk
 from pytensor_tpu_torch.link.cuda.build import CSRC
 from pytensor_tpu_torch.link.cuda.loop_state import STATE_WORDS
 
@@ -46,7 +47,7 @@ BUILD_LOG = ""
 def bind(lib):
     """Give ``lib``'s C entry its argument types."""
     p = ctypes.c_void_p
-    lib.poisson_draw.argtypes = [p, p, ctypes.c_longlong, p, p, p]
+    lib.poisson_draw.argtypes = [p, p, p, ctypes.c_longlong, p, p, p]
     lib.poisson_draw.restype = ctypes.c_int
     return lib
 
@@ -73,43 +74,46 @@ def _check(key, lam):
         raise ValueError(f"the key is on {key.device}, lam on {lam.device}")
 
 
-def run(key, lam, out, state, lib=None):
+def run(key, lam, out, state, lib=None, split=None):
     """Draw into ``out`` (int64, n) with ``state`` (``STATE_WORDS`` int32)
     as scratch; ``lib``, a build of the source other than the kernel's
-    (the stamped variant), launches uncounted."""
+    (the stamped variant), launches uncounted; with ``split`` (a (2, 2)
+    int64 tensor) the draw is under ``split(key)[1]`` and the launch writes
+    ``split(key)`` into it."""
     global LAUNCHES
     if key.device.type != "cuda":
         raise ValueError(f"the Poisson kernel runs on CUDA tensors; the key is on {key.device}")
-    err = (lib or build()).poisson_draw(key.data_ptr(), lam.data_ptr(), lam.numel(),
-                                        out.data_ptr(), state.data_ptr(),
-                                        torch.cuda.current_stream(key.device).cuda_stream)
+    err = (lib or build()).poisson_draw(
+        key.data_ptr(), None if split is None else split.data_ptr(), lam.data_ptr(),
+        lam.numel(), out.data_ptr(), state.data_ptr(),
+        torch.cuda.current_stream(key.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"Poisson launch failed: CUDA error {err}")
     if lam.numel() and lib is None:
         LAUNCHES += 1
 
 
-def launch(key, lam):
-    """jax's Poisson draws (int64) of ``lam`` under ``key``, by the kernel."""
+def launch(key, lam, split=None):
+    """jax's Poisson draws (int64) of ``lam`` under ``key``, by the kernel;
+    with ``split``, under ``split(key)[1]``, the launch writing
+    ``split(key)`` into ``split``."""
     _check(key, lam)
     out = torch.empty(lam.shape, dtype=torch.int64, device=lam.device)
     state = torch.empty(STATE_WORDS, dtype=torch.int32, device=lam.device)
-    run(key, lam, out, state)
+    run(key, lam, out, state, split=split)
     return out
 
 
-def plain(key, lam, tally=None):
-    """The same draws in torch ops, on any device; with ``tally`` (a
-    list), the threefry hashes the draw needs are added to it
-    (``samplers.py``)."""
+def plain(key, lam, tally=None, split=None):
+    """The same draws in torch ops, on any device (with ``split`` the
+    plain split written into it first); with ``tally`` (a list), the
+    threefry hashes the draw needs are added to it (``samplers.py``)."""
     from pytensor_tpu_torch.tensor.random.samplers import poisson_loops
 
     _check(key, lam)
-    return poisson_loops(key, lam, tally)
+    return poisson_loops(tk.split_into(key, split), lam, tally)
 
 
-def draw(key, lam):
+def draw(key, lam, split=None):
     """``plain`` for a key on the CPU, else ``launch``."""
-    if key.device.type == "cpu":
-        return plain(key, lam)
-    return launch(key, lam)
+    return (plain if key.device.type == "cpu" else launch)(key, lam, split=split)

@@ -6,7 +6,10 @@ The CUDA kernel (``csrc/threefry.cu``) hashes the counters ``0..n-1``
 (or ``first..first+n-1``) under a key held on the card and writes, by
 mode, the 32- or 64-bit bits, the keys of a split, or jax's float64 or
 float32 uniforms and float64 normals; its source says what bounds it and
-how.
+how.  Given a ``split`` output, a draw takes a random variable's own key
+and draws under ``split(key)[1]``, writing ``split(key)`` beside its
+draws: the split made in the same launch (``tensor/random/threefry.py
+SplitKey``), not in one of its own.
 
 The kernel is built by ``link/cuda/build.py`` (nvcc for sm_90a into the
 gitignored ``build/kernels/``) at first use and called through ``ctypes``
@@ -36,6 +39,17 @@ NORMAL_LO = float(np.nextafter(-1.0, 0.0))
 # launches of the kernel since the count was last set to 0
 LAUNCHES = 0
 
+
+def split_into(key, split):
+    """The key a plain draw is under: ``key``, or with ``split`` the second
+    key of ``key``'s plain split, which is written into ``split`` first
+    (a folded draw's plain version)."""
+    if split is None:
+        return key
+    split.copy_(plain(key, 2, KEYS))
+    return split[1]
+
+
 _LIB = None
 BUILD_LOG = ""
 
@@ -47,18 +61,26 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     from pytensor_tpu_torch.link.cuda.build import build_csrc
 
     global _LIB, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
-    lib, BUILD_LOG = build_csrc("threefry", (HEADER.name,), verbose)
+    if _LIB is None:
+        lib, BUILD_LOG = build_csrc("threefry", (HEADER.name,), verbose)
+        _LIB = bind(lib)
+    return _LIB
+
+
+def bind(lib):
+    """Give ``lib``'s C entry its argument types."""
     p = ctypes.c_void_p
-    lib.threefry2x32_draw.argtypes = [p, ctypes.c_ulonglong, ctypes.c_longlong, ctypes.c_int,
+    lib.threefry2x32_draw.argtypes = [p, p, ctypes.c_ulonglong, ctypes.c_longlong, ctypes.c_int,
                                       p, ctypes.c_double, ctypes.c_double, p]
     lib.threefry2x32_draw.restype = ctypes.c_int
-    _LIB = lib
     return lib
 
 
-def _check(key, n, mode):
+def _check(key, n, mode, split=None):
+    if split is not None and (split.dtype != torch.int64 or tuple(split.shape) != (2, 2)
+                              or not split.is_contiguous() or split.device != key.device):
+        raise ValueError("a folded draw writes its split into 2 x 2 contiguous int64 on the "
+                         "key's device")
     if key.dtype != torch.int64 or tuple(key.shape) != (2,) or not key.is_contiguous():
         raise ValueError(f"threefry takes a key of 2 contiguous int64 (each a uint32), got "
                          f"{key.dtype} of shape {tuple(key.shape)}")
@@ -72,31 +94,36 @@ def _shape(n, mode):
     return (n, 2) if mode == KEYS else (n,)
 
 
-def launch(key, n, mode, lo=0.0, hi=1.0, first=0):
+def launch(key, n, mode, lo=0.0, hi=1.0, first=0, split=None):
     """The ``n`` draws of ``mode`` under ``key`` (a CUDA tensor) at the
     counters ``first, first + 1, ...`` (``first`` below 2**64; jax's draws
     count from 0), by the kernel; ``lo`` and ``hi`` bound the uniform
-    modes."""
+    modes.  With ``split`` (a (2, 2) int64 tensor) the draws are under
+    ``split(key)[1]``, and the launch writes ``split(key)`` into
+    ``split``."""
     global LAUNCHES
-    _check(key, n, mode)
+    _check(key, n, mode, split)
     if key.device.type != "cuda":
         raise ValueError(f"the threefry kernel runs on CUDA tensors; the key is on {key.device}")
-    lib = build()
     out = torch.empty(_shape(n, mode), dtype=_OUT[mode], device=key.device)
-    stream = torch.cuda.current_stream(key.device).cuda_stream
-    err = lib.threefry2x32_draw(key.data_ptr(), int(first) % 2 ** 64, int(n), int(mode),
-                                out.data_ptr(), float(lo), float(hi), stream)
-    if err != 0:
-        raise RuntimeError(f"threefry launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    made = build().threefry2x32_draw(
+        key.data_ptr(), None if split is None else split.data_ptr(), int(first) % 2 ** 64, int(n),
+        int(mode), out.data_ptr(), float(lo), float(hi),
+        torch.cuda.current_stream(key.device).cuda_stream)
+    if made < 0:
+        raise RuntimeError(f"threefry launch failed: CUDA error {-made}")
+    LAUNCHES += made
     return out
 
 
-def plain(key, n, mode, lo=0.0, hi=1.0, first=0):
-    """The same draws in int64 torch ops, on any device."""
+def plain(key, n, mode, lo=0.0, hi=1.0, first=0, split=None):
+    """The same draws in int64 torch ops, on any device; with ``split``
+    the plain split of ``key`` is written into it first, and the draws are
+    under its second key."""
     from pytensor_tpu_torch.tensor.random import threefry as tf
 
-    _check(key, n, mode)
+    _check(key, n, mode, split)
+    key = split_into(key, split)
     first = int(first) % 2 ** 64
     # the counters as int64 of their 64 bits, wrapping as the kernel's do
     c = torch.arange(n, dtype=torch.int64, device=key.device) + (
@@ -116,9 +143,8 @@ def plain(key, n, mode, lo=0.0, hi=1.0, first=0):
     return tf.SQRT2 * torch.erfinv(tf.uniform64_from_bits(bits, NORMAL_LO, 1.0))
 
 
-def draw(key, n, mode, lo=0.0, hi=1.0):
-    """The draws of a sampler (counted from 0): ``plain`` for a key on the
-    CPU, else ``launch``."""
-    if key.device.type == "cpu":
-        return plain(key, n, mode, lo, hi)
-    return launch(key, n, mode, lo, hi)
+def draw(key, n, mode, lo=0.0, hi=1.0, split=None):
+    """The draws of a sampler (counted from 0) under ``key``, with
+    ``split`` as ``launch`` takes it: ``plain`` for a key on the CPU, else
+    ``launch``."""
+    return (plain if key.device.type == "cpu" else launch)(key, n, mode, lo, hi, split=split)

@@ -4,14 +4,16 @@ KeyFromTensor.
 Counterpart of the JAX package's lowerings at
 ``pytensor_tpu/tensor/random/utils.py:97-121`` and ``type.py:106-115``.
 A RandomVariable's function splits its key and runs the op's sampler on
-the second key (``RandomVariable.draw``): on the card each split and each
-uniform or normal is one launch of the threefry kernel
-(``link/cuda/threefry_kernel.py``), and each of jax's loop samplers one
-launch of the gamma kernel or two of the Poisson or binomial kernel
-(``link/cuda/{gamma,poisson,binomial}_kernel.py``; a multinomial two a
-category), and the key is never read on the host, so a plan holding draws
-may be captured into a CUDA graph.  ``size`` is
-read on the host (a constant, as the JAX package's ``_concrete(size, "rv
+the second key (``RandomVariable.draw``), the split deferred to the
+sampler's first draw: on the card a uniform or normal is one launch of the
+threefry kernel (``link/cuda/threefry_kernel.py``) that also makes the
+split; gamma, poisson and binomial are one launch of their kernel
+(``link/cuda/{gamma,poisson,binomial}_kernel.py``) that makes it likewise;
+a sampler that splits its key again (beta, t, betabinom,
+negative_binomial, multinomial) makes the deferred split and its own in
+one threefry launch.  The key is never read on the host, so
+a plan holding draws may be captured into a CUDA graph.  ``size`` is read
+on the host (a constant, as the JAX package's ``_concrete(size, "rv
 size")`` requires, or a shape value), and so are the parameters a sampler
 reads as Python ints (``RandomVariable.host_params``); hypergeometric's
 sampler runs numpy on the host and declares ``reads_back``.  The two key ops are identities:

@@ -16,9 +16,9 @@ Every binomial draw has ``count * q <= 1``, so it takes jax's inversion
 loop; jax's BTRS loop still runs on its dummy parameters, but nothing
 reads its pass count unless an element takes BTRS, so the binomial kernel
 skips it (no block sets its flag).  On a card a call is one replay of one
-captured CUDA graph: per step two products, the fused elementwise work, a
-split of each stream's key (threefry) and one binomial launch a draw, with
-nothing read back on the host.  K2 refuses the scan (no RandomVariable is on its white
+captured CUDA graph: per step two products, the fused elementwise work
+and one binomial launch a draw, which also makes the split of its
+stream's key, with nothing read back on the host.  K2 refuses the scan (no RandomVariable is on its white
 list, ``link/cuda/scan_kernel.py``), so it runs as the step loop.  Every
 entry point takes ``device``, the card unless the caller asks for the
 CPU.

@@ -276,7 +276,7 @@ def _hypergeometric(key, shape, ngood, nbad, nsample):
     # parameters' values): as the JAX package's pure_callback, numpy on the
     # host, seeded by the sum of the key's words
     shp = _full_shape(shape, ngood, nbad, nsample)
-    seed = int(key.cpu().sum())
+    seed = int(tf.as_key(key).cpu().sum())
     host = np.random.default_rng(seed)
     g, b, n = (np.broadcast_to(p.cpu().numpy(), shp) for p in (ngood, nbad, nsample))
     draws = host.hypergeometric(g, b, n, size=shp).astype(np.int64)

@@ -6,7 +6,9 @@ and ``normalize_size_param:264``): a gufunc-signature sampler with inputs
 ``(rng, size, *dist_params)`` and outputs ``(next_rng, draws)``
 (``default_output=1``).  A draw follows the JAX package's order
 (``op.py:205``, ``utils.py:112``): ``next_key, sample_key = split(key)``,
-then the sampler on ``sample_key``.  The sampler is a function of torch
+then the sampler on ``sample_key``; the split is the sampler's first
+draw's to make (a ``SplitKey``), in the same launch on the card.  The
+sampler is a function of torch
 tensors in place of the JAX package's ``jax_sampler``: it draws through
 ``tensor/random/threefry.py``, so on the card its bits are the threefry
 kernel's.  A distribution whose jax sampler is a loop (gamma, poisson,
@@ -200,14 +202,17 @@ class RandomVariable(Op):
     def draw(self, key, shape, params, out_dtype):
         """``(next_key, draws)`` from ``key`` (two int64 on any device) and
         torch parameters: the JAX package's split, then the sampler on the
-        second key, the draws cast to ``out_dtype``."""
+        second key, the draws cast to ``out_dtype``.  The sampler gets the
+        split deferred (a ``SplitKey``): its first draw makes the split
+        in the same launch on the card (the plain split, then the plain
+        draw, on the CPU), and the next key is the split's first."""
         from pytensor_tpu_torch.link.torch.convert import torch_dtype
         from pytensor_tpu_torch.tensor.random.samplers import saturating_cast
-        from pytensor_tpu_torch.tensor.random.threefry import split
+        from pytensor_tpu_torch.tensor.random.threefry import SplitKey
 
-        keys = split(key)
-        draws = self.sampler(keys[1], shape, *params)
-        return keys[0], saturating_cast(draws, torch_dtype(out_dtype))
+        keys = SplitKey(key)
+        draws = self.sampler(keys, shape, *params)
+        return keys.next_key(), saturating_cast(draws, torch_dtype(out_dtype))
 
     def perform(self, node, inputs, output_storage):
         import torch

@@ -427,7 +427,8 @@ def _gamma(key, a, shape, log_space):
     from pytensor_tpu_torch.link.cuda import gamma_kernel
 
     shape = tuple(a.shape) if shape is None else tuple(shape)
-    draws = gamma_kernel.draw(tf.as_key(key), _flat(a, shape, F64), log_space)
+    a = _flat(a, shape, F64)
+    draws = tf.folded(key, a.numel(), lambda k, s: gamma_kernel.draw(k, a, log_space, split=s))
     return draws.reshape(shape)
 
 
@@ -448,7 +449,8 @@ def poisson(key, lam, shape=None):
 
     shape = tuple(lam.shape) if shape is None else tuple(shape)
     lam = lam.expand(shape).to(F32).reshape(-1).contiguous()
-    return poisson_kernel.draw(tf.as_key(key), lam).reshape(shape)
+    return tf.folded(key, lam.numel(),
+                     lambda k, s: poisson_kernel.draw(k, lam, split=s)).reshape(shape)
 
 
 def _inexact_dtype(x):
@@ -467,8 +469,9 @@ def binomial(key, n, p, shape=None, dtype=F64):
         shape = tuple(torch.broadcast_shapes(n.shape, p.shape))
     shape = tuple(shape)
     pdt = _inexact_dtype(p)
-    draws = binomial_kernel.draw(tf.as_key(key), _flat(n, shape, pdt), _flat(p, shape, pdt),
-                                 dtype)
+    n, p = _flat(n, shape, pdt), _flat(p, shape, pdt)
+    draws = tf.folded(key, p.numel(),
+                      lambda k, s: binomial_kernel.draw(k, n, p, dtype, split=s))
     return draws.reshape(shape)
 
 

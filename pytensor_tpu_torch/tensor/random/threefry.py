@@ -23,7 +23,10 @@ same bits.  The hash here is the plain version: int64 torch ops, each
 add masked to 32 bits and each rotation a shift of a masked value.  A key
 on the CPU takes it; a key on the card takes the threefry kernel
 (``link/cuda/threefry_kernel.py``), one launch a draw, and nothing is
-read back on the host.
+read back on the host.  The draws take a ``SplitKey`` too (a random
+variable's key with its split deferred, ``RandomVariable.draw``): the
+first of them makes the split in its own launch, a kernel's or, on the
+CPU, the plain split then the plain draw.
 """
 
 from __future__ import annotations
@@ -75,7 +78,10 @@ def uniform32_from_bits(bits, lo, hi):
 # --- jax's API -----------------------------------------------------------------
 
 def as_key(key) -> torch.Tensor:
-    """A key as the port holds it: two int64 on the key's device."""
+    """A key as the port holds it: two int64 on the key's device (a
+    ``SplitKey``'s draw key, made if no draw made it)."""
+    if isinstance(key, SplitKey):
+        return key.key()
     if isinstance(key, torch.Tensor):
         return key.to(torch.int64).contiguous()
     return torch.as_tensor(np.asarray(key, dtype=np.uint32).astype(np.int64))
@@ -104,10 +110,71 @@ def threefry_2x32(key, count) -> torch.Tensor:
     return (out[:-1] if odd else out).reshape(count.shape)
 
 
+class SplitKey:
+    """``split(parent)`` not made yet: a random variable's draw key
+    ``split(parent)[1]`` and its next key ``split(parent)[0]``.
+
+    ``fold`` runs the first non-empty draw under it as a draw that makes
+    the split itself (one launch on the card, the plain split then the
+    plain draw on the CPU) and keeps the split; ``key`` and ``next_key``
+    read it, making it by a draw of keys (one launch on the card) if no
+    draw did.
+    """
+
+    def __init__(self, parent):
+        self.parent = parent
+        self.keys = None
+
+    @property
+    def device(self):
+        return self.parent.device
+
+    def fold(self, n, fn):
+        """``fn(key, split)``: with this split not made and ``n`` draws,
+        ``fn(parent, split)`` draws under ``split(parent)[1]`` and writes
+        ``split(parent)`` into ``split``, a new (2, 2) int64 tensor; an
+        empty draw, which reads no key, ``fn(parent, None)``; else
+        ``fn(self.key(), None)``."""
+        if n <= 0:
+            return fn(self.parent, None)
+        if self.keys is not None:
+            return fn(self.key(), None)
+        keys = torch.empty((2, 2), dtype=torch.int64, device=self.parent.device)
+        out = fn(self.parent, keys)
+        self.keys = keys
+        return out
+
+    def key(self):
+        """The draw key, ``split(parent)[1]``."""
+        if self.keys is None:
+            self.keys = tk.draw(self.parent, 2, tk.KEYS)
+        return self.keys[1]
+
+    def next_key(self):
+        """The random variable's next key, ``split(parent)[0]``."""
+        self.key()
+        return self.keys[0]
+
+
+def folded(key, n, fn):
+    """``fn(key, split)`` for a draw of ``n`` under ``key``: a ``SplitKey``
+    folds its split into the draw (``SplitKey.fold``); any other key is
+    drawn under as it is (``as_key``), with ``split`` None."""
+    if isinstance(key, SplitKey):
+        return key.fold(n, fn)
+    return fn(as_key(key), None)
+
+
+def _draw(key, n, mode, lo=0.0, hi=1.0):
+    """The kernel's ``n`` draws of ``mode`` under ``key`` (its plain
+    version for a key on the CPU), a ``SplitKey``'s split folded in."""
+    return folded(key, n, lambda k, s: tk.draw(k, n, mode, lo, hi, split=s))
+
+
 def split(key, num: int = 2) -> torch.Tensor:
     """``num`` new keys from ``key``, as a ``(num, 2)`` tensor; on the card
     one launch of the kernel."""
-    return tk.draw(as_key(key), int(num), tk.KEYS)
+    return _draw(key, int(num), tk.KEYS)
 
 
 def _size(shape) -> int:
@@ -121,7 +188,7 @@ def random_bits(key, bit_width: int, shape) -> torch.Tensor:
     if bit_width not in (8, 16, 32, 64):
         raise TypeError("requires 8-, 16-, 32- or 64-bit field width.")
     mode = tk.BITS64 if bit_width == 64 else tk.BITS32
-    bits = tk.draw(as_key(key), _size(shape), mode).reshape(shape)
+    bits = _draw(key, _size(shape), mode).reshape(shape)
     if bit_width < 32:
         bits = bits & ((1 << bit_width) - 1)
     return bits
@@ -133,18 +200,18 @@ def uniform(key, shape, dtype=torch.float64, minval=0.0, maxval=1.0) -> torch.Te
     ``dtype``, broadcast) are applied to the draw in ``[0, 1)``, which is
     the same arithmetic."""
     shape = tuple(int(s) for s in shape)
-    key = as_key(key)
+    key = key if isinstance(key, SplitKey) else as_key(key)
     mode = {torch.float64: tk.UNIFORM64, torch.float32: tk.UNIFORM32}.get(dtype)
     if mode is None:
         raise TypeError(f"uniform draws float32 or float64, not {dtype}")
     if isinstance(minval, torch.Tensor) or isinstance(maxval, torch.Tensor):
         lo = torch.as_tensor(minval).to(dtype=dtype, device=key.device)
         hi = torch.as_tensor(maxval).to(dtype=dtype, device=key.device)
-        f = tk.draw(key, _size(shape), mode).reshape(shape)
+        f = _draw(key, _size(shape), mode).reshape(shape)
         return torch.maximum(f * (hi - lo) + lo, lo)
     if dtype == torch.float32:
         minval, maxval = float(np.float32(minval)), float(np.float32(maxval))
-    return tk.draw(key, _size(shape), mode, float(minval), float(maxval)).reshape(shape)
+    return _draw(key, _size(shape), mode, float(minval), float(maxval)).reshape(shape)
 
 
 def normal(key, shape, dtype=torch.float64) -> torch.Tensor:
@@ -152,9 +219,8 @@ def normal(key, shape, dtype=torch.float64) -> torch.Tensor:
     ``[nextafter(-1, 0), 1)``; in float64 one launch of the kernel on the
     card."""
     shape = tuple(int(s) for s in shape)
-    key = as_key(key)
     if dtype == torch.float64:
-        return tk.draw(key, _size(shape), tk.NORMAL64).reshape(shape)
+        return _draw(key, _size(shape), tk.NORMAL64).reshape(shape)
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, dtype, lo, 1.0)
     return torch.erfinv(u) * float(np.float32(SQRT2))

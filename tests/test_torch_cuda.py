@@ -54,10 +54,13 @@ the logistic-regression MAP at n 512, d 16 in float64, BFGS with its
 evaluations replayed (K1 launches at each) and Newton captured whole,
 against the same functions linked for the CPU at ``1e-10``.  Random:
 the threefry kernel in each mode against its plain version on the card
-(bit for bit; the normals within ``1e-11``) and jax's Random123 answers;
-the three HMC transitions of ``models/hmc.py`` at small widths, each one
-captured CUDA graph launching K1 and threefry, against the CPU at
-``2e-4`` with the same accepts or indices.  jax's loop samplers: each of
+(bit for bit; the normals within ``1e-11``) and jax's Random123 answers,
+its folded draw (the split made in the same launch) against the split
+followed by the plain draw, at an HMC step's sizes and at 2**20 + 3, and
+a draw whose counters cross 2**32; the three HMC transitions of
+``models/hmc.py`` at small widths, each one captured CUDA graph launching
+K1 and threefry (twice a transition), against the CPU at ``2e-4`` with the
+same accepts or indices.  jax's loop samplers: each of
 the twelve on its edge grid in both float dtypes through the gamma,
 Poisson or binomial kernel, bit for bit the same draw on the plain loops
 on the card; the RBM Gibbs chain at small widths, one captured CUDA graph
@@ -1379,6 +1382,47 @@ def test_threefry_kernel_matches_plain(card, mode):
         assert tuple(out[0].tolist()) == words
 
 
+@pytest.mark.parametrize("mode", ["bits32", "bits64", "keys", "uniform64", "normal64",
+                                  "uniform32"])
+def test_threefry_folded_draw_is_the_split_then_the_draw(card, mode):
+    """Each mode's folded draw (one launch under ``split(key)[1]`` that
+    writes ``split(key)``) at 89, 22,784 and 2**20 + 3 draws against the
+    split followed by the plain draw, and the draws at the counters
+    ``2**32 - 3`` on, plain and folded (two launches, counted, the
+    second's output off a 16-byte boundary and, folded, under the draw key
+    the first wrote) against the plain version."""
+    from pytensor_tpu_torch.link.cuda import threefry_kernel as tk
+    from pytensor_tpu_torch.tensor.random import threefry as tf
+
+    m = {"bits32": tk.BITS32, "bits64": tk.BITS64, "keys": tk.KEYS,
+         "uniform64": tk.UNIFORM64, "normal64": tk.NORMAL64, "uniform32": tk.UNIFORM32}[mode]
+    key = torch.tensor([0x13198A2E, 0xFFFFFFFF], dtype=torch.int64, device=card)
+
+    def same(got, want):
+        if mode == "normal64":
+            return bool(((got - want).abs() <= 1e-11 * want.abs()).all())
+        return torch.equal(got, want)
+
+    for n in (89, 22784, 2 ** 20 + 3):
+        split = torch.full((2, 2), -1, dtype=torch.int64, device=card)
+        before = tk.LAUNCHES
+        got = tk.launch(key, n, m, -2.5, 3.0, split=split)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES == before + 1
+        keys = tf.split(key)
+        assert torch.equal(split, keys)
+        assert same(got, tk.plain(keys[1].contiguous(), n, m, -2.5, 3.0))
+    first, n = 2 ** 32 - 3, 2 ** 20 + 3
+    split = torch.full((2, 2), -1, dtype=torch.int64, device=card)
+    before = tk.LAUNCHES
+    got = tk.launch(key, n, m, -2.5, 3.0, first=first)
+    folded = tk.launch(key, n, m, -2.5, 3.0, first=first, split=split)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 4
+    assert same(got, tk.plain(key, n, m, -2.5, 3.0, first=first))
+    assert same(folded, tk.plain(keys[1].contiguous(), n, m, -2.5, 3.0, first=first))
+
+
 @pytest.mark.parametrize("entry", ["make_radon_hmc", "make_radon_hmc_chains",
                                    "make_radon_multinomial_hmc"])
 def test_hmc_transition_is_one_replay_and_matches_the_cpu(card, entry):
@@ -1404,7 +1448,9 @@ def test_hmc_transition_is_one_replay_and_matches_the_cpu(card, entry):
         assert torch.equal(a_acc.cpu(), b_acc)
         assert _scaled(a_logp.cpu().double(), b_logp.double()) <= 2e-4
         assert _scaled(pos.get_value().cpu().double(), gpos.get_value().double()) <= 2e-4
-    assert fused_kernel.LAUNCHES > 0 and tk.LAUNCHES > 0
+    # the momenta's normals and the Metropolis or Gumbel uniforms, each one
+    # launch that also makes its key's split
+    assert fused_kernel.LAUNCHES > 0 and tk.LAUNCHES == 2
     assert len(f.linked.graphs) == 1
 
 
@@ -1486,11 +1532,13 @@ def test_binomial_kernel_int64_draws_are_the_cast_float64_draws(card):
 
 def test_gibbs_chain_is_one_replay_and_matches_the_cpu(card):
     """The RBM Gibbs chain at the JAX package's test sizes (20 x 30, 3
-    chains, 10 steps): one captured CUDA graph launching threefry and the
-    binomial kernel, and {0, 1} draws of the chain's shape; with the
-    products exact in float32 on both devices (W of halves, zero biases),
-    the card's draws are the CPU's at the same keys."""
+    chains, 10 steps): one captured CUDA graph launching the binomial
+    kernel, which makes each draw's split, and no threefry launch, and {0,
+    1} draws of the chain's shape; with the products exact in float32 on
+    both devices (W of halves, zero biases), the card's draws are the
+    CPU's at the same keys."""
     from pytensor_tpu_torch.link.cuda import binomial_kernel
+    from pytensor_tpu_torch.link.cuda import threefry_kernel as tk
     from pytensor_tpu_torch.link.torch.linker import CapturedFunction
     from pytensor_tpu_torch.models.rbm import make_gibbs_chain
 
@@ -1503,13 +1551,13 @@ def test_gibbs_chain_is_one_replay_and_matches_the_cpu(card):
     assert isinstance(f.linked, CapturedFunction)
     for call in range(2):
         if call == 1:
-            binomial_kernel.LAUNCHES = 0
+            binomial_kernel.LAUNCHES = tk.LAUNCHES = 0
         a, b = f(torch.from_numpy(v0).to(card)), g(v0)
         torch.cuda.synchronize()
         assert tuple(a.shape) == (3, 20) and bool(((a == 0) | (a == 1)).all())
         assert torch.equal(a.cpu(), b)
     # one cooperative launch a draw, two draws a step
-    assert binomial_kernel.LAUNCHES == 20 and len(f.linked.graphs) == 1
+    assert binomial_kernel.LAUNCHES == 20 and tk.LAUNCHES == 0 and len(f.linked.graphs) == 1
 
 
 @pytest.mark.parametrize("kernel", ["poisson", "binomial"])

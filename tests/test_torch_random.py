@@ -7,7 +7,17 @@
   is not XLA's);
 - the threefry kernel's own source (``csrc/threefry.cu``), compiled by g++
   against ``tests/threefry_host.h``, in every mode against its plain
-  version, bit for bit (the normals within 1e-12: the host's erfinv);
+  version, bit for bit (the normals within 1e-12: the host's erfinv); its
+  folded entry (the draw under ``split(key)[1]``, the split written beside
+  it) against the split followed by the plain draw; the launches its C
+  entry counts (one for each run of counters that keeps its high word);
+  and the source built with its wide plan (four counters a thread on a
+  resident grid) at the host's sizes, with jax's Random123 answers at
+  counters near 0, 2**32 and 2**64;
+- a random variable's draw with its split deferred (``SplitKey``) against
+  the split followed by the sampler on the second key;
+- ``chip_smoke.py``'s least-path count of SASS (the kernels' bounds) on a
+  listing written out here;
 - tier A is ``tests/test_torch_random_dists.py``;
 - tier B, jax's loop samplers: each builds with the JAX package's static
   type and draws the JAX package's values, linked and performed (their
@@ -132,16 +142,18 @@ BUILD = Path(__file__).resolve().parents[1] / "build" / "threefry_host"
 HEADER = Path(__file__).resolve().parent / "threefry_host.h"
 
 
-@pytest.fixture(scope="module")
-def threefry_host():
+def _host_build(flags=()):
+    """``csrc/threefry.cu`` built by g++ against ``tests/threefry_host.h``
+    with ``flags`` (``-DTHREEFRY_WIDE_N``), bound as the wrapper binds the
+    card's build."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the threefry kernel's source for the host")
     source = tk.SOURCE.read_text()
     assert "#include <cuda_runtime.h>" in source
     src = source.replace("#include <cuda_runtime.h>", f'#include "{HEADER}"')
-    key = hashlib.sha256(src.encode() + HEADER.read_bytes()
-                         + tk.HEADER.read_bytes()).hexdigest()[:16]
+    key = hashlib.sha256(src.encode() + HEADER.read_bytes() + tk.HEADER.read_bytes()
+                         + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD / f"libthreefry_host_{key}.so"
     if not lib.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
@@ -149,21 +161,27 @@ def threefry_host():
         cpp.write_text(src)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run([gxx, "-std=c++17", "-O1", "-w", "-ffp-contract=off", "-shared",
-                               "-fPIC", f"-I{HEADER.parent}", f"-I{tk.HEADER.parent}", "-o",
-                               str(tmp), str(cpp)],
+                               "-fPIC", *flags, f"-I{HEADER.parent}", f"-I{tk.HEADER.parent}",
+                               "-o", str(tmp), str(cpp)],
                               capture_output=True, text=True)
         assert proc.returncode == 0, proc.stderr[:4000]
         os.replace(tmp, lib)
-    handle = ctypes.CDLL(str(lib))
-    p = ctypes.c_void_p
-    handle.threefry2x32_draw.argtypes = [p, ctypes.c_ulonglong, ctypes.c_longlong, ctypes.c_int,
-                                         p, ctypes.c_double, ctypes.c_double, p]
-    handle.threefry2x32_draw.restype = ctypes.c_int
-    return handle
+    return tk.bind(ctypes.CDLL(str(lib)))
+
+
+@pytest.fixture(scope="module")
+def threefry_host():
+    return _host_build()
 
 
 MODES = {"bits32": tk.BITS32, "bits64": tk.BITS64, "keys": tk.KEYS,
          "uniform64": tk.UNIFORM64, "normal64": tk.NORMAL64, "uniform32": tk.UNIFORM32}
+
+
+def _launches(first, n):
+    """The launches a draw of ``n`` (below 2**30) at the counters from
+    ``first`` makes: one for each high word of its counters."""
+    return len({((first + i) % 2 ** 64) >> 32 for i in (0, n - 1)})
 
 
 @pytest.mark.parametrize("first", [0, 2 ** 32 - 3, 2 ** 64 - 2], ids=["0", "2e32", "2e64"])
@@ -175,15 +193,15 @@ def test_kernel_source_against_plain(threefry_host, mode, n, first):
     lo, hi = (-2.5, 3.0) if mode.startswith("uniform") else (0.0, 1.0)
     want = tk.plain(key, n, m, lo, hi, first)
     out = torch.empty_like(want)
-    err = threefry_host.threefry2x32_draw(key.data_ptr(), first, n, m, out.data_ptr(), lo, hi,
-                                          None)
-    assert err == 0
+    made = threefry_host.threefry2x32_draw(key.data_ptr(), None, first, n, m, out.data_ptr(),
+                                           lo, hi, None)
+    assert made == _launches(first, n)
     if mode == "normal64":
         np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-12, atol=1e-15)
     else:
         assert torch.equal(out, want)
-    assert threefry_host.threefry2x32_draw(key.data_ptr(), first, n, 9, out.data_ptr(), lo, hi,
-                                           None) != 0
+    assert threefry_host.threefry2x32_draw(key.data_ptr(), None, first, n, 9, out.data_ptr(), lo,
+                                           hi, None) < 0
 
 
 @pytest.mark.parametrize("key,count,want", RANDOM123)
@@ -191,10 +209,182 @@ def test_kernel_source_gives_the_random123_answers(threefry_host, key, count, wa
     out = torch.empty((1, 2), dtype=torch.int64)
     first = (count[0] << 32) | count[1]
     k = torch.tensor(key, dtype=torch.int64)
-    assert threefry_host.threefry2x32_draw(k.data_ptr(), first, 1, tk.KEYS, out.data_ptr(),
-                                           0.0, 1.0, None) == 0
+    assert threefry_host.threefry2x32_draw(k.data_ptr(), None, first, 1, tk.KEYS,
+                                           out.data_ptr(), 0.0, 1.0, None) == 1
     assert tuple(out[0].tolist()) == want
     assert tuple(tk.plain(k, 1, tk.KEYS, first=first)[0].tolist()) == want
+
+
+@pytest.mark.parametrize("n", [1, 2, 300, 5000])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_folded_entry_is_the_split_then_the_draw(threefry_host, mode, n):
+    m = MODES[mode]
+    key = torch.tensor([0x13198A2E, 0xFFFFFFFF], dtype=torch.int64)
+    lo, hi = (-2.5, 3.0) if mode.startswith("uniform") else (0.0, 1.0)
+    split = torch.full((2, 2), -1, dtype=torch.int64)
+    want = tk.plain(tf.split(key)[1].contiguous(), n, m, lo, hi)
+    out = torch.empty_like(want)
+    assert threefry_host.threefry2x32_draw(key.data_ptr(), split.data_ptr(), 0, n, m,
+                                           out.data_ptr(), lo, hi, None) == 1
+    # the split written beside the draws: the next key first, the draw key
+    assert torch.equal(split, tf.split(key))
+    psplit = torch.empty_like(split)
+    assert torch.equal(tk.plain(key, n, m, lo, hi, split=psplit), want)
+    assert torch.equal(psplit, split)
+    if mode == "normal64":
+        np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-12, atol=1e-15)
+    else:
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 300, 5000])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_folded_entry_across_a_counter_boundary(threefry_host, mode, n):
+    """A folded draw at the counters from ``2**32 - 3``: the launches after
+    the first read the draw key that the first wrote, and the entry counts
+    every launch."""
+    m = MODES[mode]
+    key = torch.tensor([0x13198A2E, 0xFFFFFFFF], dtype=torch.int64)
+    lo, hi = (-2.5, 3.0) if mode.startswith("uniform") else (0.0, 1.0)
+    first = 2 ** 32 - 3
+    split = torch.full((2, 2), -1, dtype=torch.int64)
+    want = tk.plain(tf.split(key)[1].contiguous(), n, m, lo, hi, first)
+    out = torch.empty_like(want)
+    assert threefry_host.threefry2x32_draw(key.data_ptr(), split.data_ptr(), first, n, m,
+                                           out.data_ptr(), lo, hi, None) == _launches(first, n)
+    assert torch.equal(split, tf.split(key))
+    if mode == "normal64":
+        np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-12, atol=1e-15)
+    else:
+        assert torch.equal(out, want)
+
+
+# the source's wide plan at the host's sizes (four counters a thread on the
+# resident grid, 3 blocks on the host, but keys and normals), from 1,000
+# draws on and from the first; plain and folded draws, the folded ones
+# also where a launch crosses a 2**32 boundary of the counters and the
+# next reads the draw key the first wrote
+VARIANTS = {"wide-plan": ("-DTHREEFRY_WIDE_N=1000",), "all-wide": ("-DTHREEFRY_WIDE_N=1",)}
+
+
+@pytest.mark.parametrize("first", [0, 2 ** 32 - 3, 2 ** 64 - 2], ids=["0", "2e32", "2e64"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_kernel_source_choices_against_plain(variant, first):
+    lib = _host_build(VARIANTS[variant])
+    key = torch.tensor([0x13198A2E, 0xFFFFFFFF], dtype=torch.int64)
+    for mode, m in MODES.items():
+        lo, hi = (-2.5, 3.0) if mode.startswith("uniform") else (0.0, 1.0)
+        for n in (3, 1027, 5001):
+            want = tk.plain(key, n, m, lo, hi, first)
+            out = torch.empty_like(want)
+            assert lib.threefry2x32_draw(key.data_ptr(), None, first, n, m, out.data_ptr(), lo,
+                                         hi, None) == _launches(first, n)
+            split = torch.empty((2, 2), dtype=torch.int64)
+            folded = torch.empty_like(want)
+            assert lib.threefry2x32_draw(key.data_ptr(), split.data_ptr(), first, n, m,
+                                         folded.data_ptr(), lo, hi, None) == _launches(first, n)
+            assert torch.equal(split, tf.split(key))
+            out = torch.stack([out, folded])
+            want = torch.stack([want, tk.plain(split[1].contiguous(), n, m, lo, hi, first)])
+            if mode == "normal64":
+                np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-12, atol=1e-15)
+            else:
+                assert torch.equal(out, want), (mode, n)
+    for k, count, answer in RANDOM123:
+        out = torch.empty((1, 2), dtype=torch.int64)
+        assert lib.threefry2x32_draw(torch.tensor(k).data_ptr(), None,
+                                     (count[0] << 32) | count[1], 1, tk.KEYS, out.data_ptr(), 0.0,
+                                     1.0, None) == 1
+        assert tuple(out[0].tolist()) == answer
+
+
+# cuobjdump's text of two functions: a normal's shape (a short branch for
+# |u| >= 1, else erfinv's log and a polynomial) and a loop with a
+# branch inside its body
+SASS = """
+        Function : probe
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x000 */
+        /*0010*/                   FSETP.GEU.AND P0, PT, |R3|, 1.875, PT ; /* 0x000 */
+        /*0020*/              @!P0 BRA 0x50 ;                             /* 0x000 */
+        /*0030*/                   DADD R4, R2, R2 ;                      /* 0x000 */
+        /*0040*/                   BRA 0x90 ;                             /* 0x000 */
+        /*0050*/                   MUFU.RCP64H R5, R3 ;                   /* 0x000 */
+        /*0060*/                   DFMA R4, R2, R2, R4 ;                  /* 0x000 */
+        /*0070*/                   DFMA R4, R2, R2, R4 ;                  /* 0x000 */
+        /*0080*/                   DMUL R4, R4, R4 ;                      /* 0x000 */
+        /*0090*/                   DMUL R2, R2, R4 ;                      /* 0x000 */
+        /*00a0*/                   STG.E.64 desc[UR8][R4.64], R2 ;        /* 0x000 */
+        /*00b0*/                   EXIT ;                                 /* 0x000 */
+        /*00c0*/                   BRA 0xc0;                              /* 0x000 */
+        Function : loop
+        /*0000*/                   MOV R0, RZ ;                           /* 0x000 */
+        /*0010*/                   IADD3 R0, R0, 0x1, RZ ;                /* 0x000 */
+        /*0020*/               @P0 BRA 0x40 ;                             /* 0x000 */
+        /*0030*/                   LOP3.LUT R2, R0, R1, RZ, 0x3c, !PT ;   /* 0x000 */
+        /*0040*/                   SHF.L.W.U32.HI R2, R2, 0xd, R2 ;       /* 0x000 */
+        /*0050*/               @P1 BRA 0x10 ;                             /* 0x000 */
+        /*0060*/                   EXIT ;                                 /* 0x000 */
+"""
+
+
+def test_sass_least_path_counts_the_shortest_run():
+    """chip_smoke.py's reading of SASS for the kernels' bounds: the least
+    count on a path (forward branches; by way of given instructions; to a
+    loop's back edge), and the normals' path by way of erfinv's log."""
+    import chip_smoke as cs
+
+    code = cs.parse_sass(SASS)
+    probe, loop = code["probe"], code["loop"]
+    # a predicated branch and its target
+    assert probe[2][1:3] == (True, "BRA") and probe[2][4] == 0x50
+    logs = cs.erfinv_logs(probe)
+    assert [probe[i][2:4] for i in logs] == [("MUFU", ".RCP64H")]
+    assert cs.sass_least(probe, cs.is_fp64) == 2
+    assert cs.sass_least(probe, cs.is_fp64, through=logs) == 5
+    assert sum(cs.is_fp64(op, m) for _, _, op, m, _ in probe) == 6
+    # the loop's body from its back edge's target to the back edge
+    assert cs.sass_least(loop, cs.is_alu, 1, 5) == 2
+    # the instructions issued, branches aside: the add and the rotate
+    assert cs.sass_least(loop, cs.is_issued, 1, 5) == 2
+
+
+def test_split_key_folds_its_split_into_the_first_draw():
+    key = tf.threefry_seed(7)
+    sk = tf.SplitKey(key)
+    calls = []
+
+    def fn(k, split):
+        calls.append(split is not None)
+        return tk.plain(k, 5, tk.UNIFORM64, split=split)
+
+    first = sk.fold(5, fn)
+    again = sk.fold(5, fn)
+    assert calls == [True, False]
+    keys = tf.split(key)
+    assert torch.equal(first, tk.plain(keys[1], 5, tk.UNIFORM64))
+    assert torch.equal(again, first)
+    assert torch.equal(sk.next_key(), keys[0]) and torch.equal(tf.as_key(sk), keys[1])
+    # an empty draw makes no split; reading the keys then makes it
+    empty = tf.SplitKey(key)
+    assert tf.uniform(empty, (0,)).numel() == 0 and empty.keys is None
+    assert torch.equal(empty.next_key(), keys[0])
+
+
+@pytest.mark.parametrize("name,params,size", [
+    ("normal", (0.0, 1.0), (5,)), ("uniform", (0.0, 2.0), (3, 2)), ("_gamma", (2.0, 1.5), (4,)),
+    ("binomial", (10, 0.3), (6,)), ("poisson", (3.0,), (5,)), ("t", (4.0, 0.0, 1.0), (3,)),
+    ("multinomial", (10, np.ones(3) / 3), (2,)), ("hypergeometric", (5, 6, 4), (3,)),
+    ("integers", (0, 9), (4,)), ("permutation_rv", (np.arange(6.0),), None)])
+def test_draw_defers_the_split_to_the_sampler(name, params, size):
+    rv = getattr(trand.basic, name)
+    key = tf.threefry_seed(11)
+    ps = [torch.as_tensor(np.asarray(p)) for p in params]
+    shape = None if size is None else size
+    next_key, draws = rv.draw(key, shape, ps, rv.dtype if rv.dtype != "floatX" else "float64")
+    keys = tf.split(key)
+    want = rv.sampler(keys[1], shape, *ps)
+    assert torch.equal(next_key, keys[0])
+    assert torch.equal(draws.to(want.dtype), want)
 
 
 def test_draws_take_the_plain_version_on_the_cpu_and_count_no_launch():

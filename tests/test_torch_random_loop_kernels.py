@@ -32,6 +32,11 @@ on several, on the grids of ``tests/torch_random_loops.py``:
   reads N, which the dummy parameters' first accepts set, also where the
   block that holds it starts the dummy search from the N of its own
   phase A, below the array's;
+- each kernel's folded draw (its entry given a ``split`` output: the draw
+  under ``split(key)[1]``, the split written beside it) on one block and
+  on 3:
+  the split's keys, and the draws bit for bit those of the same source
+  under ``split(key)[1]`` and the plain loops' under it;
 - a block's table of pass keys (``PassKeys``, built by ``keys_extend``
   and read by ``keys_at``, which walks the chain on past what the table
   holds) against the key chain walked in torch, for each of the three
@@ -171,8 +176,8 @@ def _gamma(host, a, log_space, blocks=1, lib="gamma", entry="gamma_draw"):
     first design's with ``entry`` ``gamma_serial_draw``)."""
     out = torch.full_like(a, -99.0)
     host[lib].loops_host_set_grid(blocks)
-    assert getattr(host[lib], entry)(KEY.data_ptr(), a.data_ptr(), a.numel(), int(log_space),
-                                     out.data_ptr(), None) == 0
+    assert getattr(host[lib], entry)(KEY.data_ptr(), None, a.data_ptr(), a.numel(),
+                                     int(log_space), out.data_ptr(), None) == 0
     return out
 
 
@@ -266,7 +271,7 @@ def _poisson(host, lv, blocks=1):
     out = torch.full((lv.numel(),), -99, dtype=torch.int64)
     state = _state()
     host["poisson"].loops_host_set_grid(blocks)
-    assert host["poisson"].poisson_draw(KEY.data_ptr(), lv.data_ptr(), lv.numel(),
+    assert host["poisson"].poisson_draw(KEY.data_ptr(), None, lv.data_ptr(), lv.numel(),
                                         out.data_ptr(), state.data_ptr(), None) == 0
     return out, state
 
@@ -337,7 +342,7 @@ def _binomial(host, count, prob, out_dtype, blocks=1):
     state = _state()
     host["binomial"].loops_host_set_grid(blocks)
     assert host["binomial"].binomial_draw(
-        KEY.data_ptr(), count.data_ptr(), prob.data_ptr(), count.numel(),
+        KEY.data_ptr(), None, count.data_ptr(), prob.data_ptr(), count.numel(),
         int(prob.dtype == torch.float64), bk.OUT_KINDS[out_dtype], out.data_ptr(),
         state.data_ptr(), None) == 0
     return out, state
@@ -419,8 +424,8 @@ def test_binomial_source_phases(host, grid, dtype, out_dtype, blocks):
 def test_binomial_source_refuses_a_narrowing_draw(host):
     x = torch.ones(4, dtype=torch.float64)
     out = torch.empty(4, dtype=torch.float32)
-    assert host["binomial"].binomial_draw(KEY.data_ptr(), x.data_ptr(), x.data_ptr(), 4, 1, 0,
-                                          out.data_ptr(), _state().data_ptr(), None) != 0
+    assert host["binomial"].binomial_draw(KEY.data_ptr(), None, x.data_ptr(), x.data_ptr(), 4, 1,
+                                          0, out.data_ptr(), _state().data_ptr(), None) != 0
 
 
 # (next, subkeys) of each chain: binomial's inversion loop, Knuth's loop,
@@ -594,3 +599,71 @@ def test_dummy_search_from_a_partial_n(host, kernel, blocks):
         _binomial_held(count, prob, out, torch.int64)
     assert known < N
     assert int(state[ls.STATE_N]) == N and int(state[ls.STATE_FLAG]) > 0
+
+
+# the folded entries on grids where the host's math gives the plain
+# loops' draws bit for bit (Knuth's and the inversion loop, gamma within
+# 1e-12): each kernel under split(KEY)[1], which it makes itself
+FOLDED = {"gamma": [0.5, 1, 2.5, 100, 1e-3], "poisson": [1e-3, 3, 9.999, 0],
+          "binomial": [(1, p) for p in np.linspace(0.01, 0.99, 37)]}
+
+
+@pytest.mark.parametrize("blocks", [1, 3], ids=lambda b: f"{b}-blocks")
+@pytest.mark.parametrize("kernel", list(FOLDED))
+def test_folded_entry_draws_under_the_split(host, kernel, blocks):
+    from pytensor_tpu_torch.tensor.random import threefry as tf
+
+    keys = tf.split(KEY)
+    sub = keys[1].contiguous()
+    split = torch.full((2, 2), -1, dtype=torch.int64)
+    lib = host[kernel]
+    lib.loops_host_set_grid(blocks)
+    if kernel == "gamma":
+        a = _tile(FOLDED[kernel], N_DRAWS, torch.float64)
+        out, alone = torch.full_like(a, -99.0), torch.full_like(a, -99.0)
+        assert lib.gamma_draw(KEY.data_ptr(), split.data_ptr(), a.data_ptr(), a.numel(), 0,
+                              out.data_ptr(), None) == 0
+        assert lib.gamma_draw(sub.data_ptr(), None, a.data_ptr(), a.numel(), 0, alone.data_ptr(),
+                              None) == 0
+        want = gk.plain(sub, a)
+        err = (out - want).abs() / want.abs().clamp_min(1.0)
+        assert float(err.max()) <= 1e-12
+    elif kernel == "poisson":
+        lv = _tile(FOLDED[kernel], N_DRAWS, torch.float32)
+        out, alone = (torch.full((N_DRAWS,), -99, dtype=torch.int64) for _ in range(2))
+        assert lib.poisson_draw(KEY.data_ptr(), split.data_ptr(), lv.data_ptr(), N_DRAWS,
+                                out.data_ptr(), _state().data_ptr(), None) == 0
+        assert lib.poisson_draw(sub.data_ptr(), None, lv.data_ptr(), N_DRAWS, alone.data_ptr(),
+                                _state().data_ptr(), None) == 0
+        assert torch.equal(out, pk.plain(sub, lv))
+    else:
+        count = _tile([c for c, _ in FOLDED[kernel]], N_DRAWS, torch.float32)
+        prob = _tile([q for _, q in FOLDED[kernel]], N_DRAWS, torch.float32)
+        out, alone = (torch.full((N_DRAWS,), -99, dtype=torch.int64) for _ in range(2))
+        for k, o, folds in ((KEY, out, split.data_ptr()), (sub, alone, None)):
+            assert lib.binomial_draw(k.data_ptr(), folds, count.data_ptr(), prob.data_ptr(),
+                                     N_DRAWS, 0, bk.OUT_KINDS[torch.int64], o.data_ptr(),
+                                     _state().data_ptr(), None) == 0
+        assert torch.equal(out, bk.plain(sub, count, prob, torch.int64))
+    assert torch.equal(split, keys)
+    assert torch.equal(out.view(torch.int64), alone.view(torch.int64))
+
+
+# the C entries of this tree as chip_smoke.py's --parent reads another
+# tree's: with a split after the key (passed null for a parent's draw), the
+# loop kernels' one-launch interface, gamma's parameters
+PARENT_ENTRIES = {"threefry": "threefry2x32_draw", "gamma": "gamma_draw",
+                  "poisson": "poisson_draw", "binomial": "binomial_draw"}
+
+
+@pytest.mark.parametrize("kernel", list(PARENT_ENTRIES))
+def test_chip_smoke_reads_this_trees_entries(kernel):
+    import chip_smoke as cs
+
+    src = (CSRC / f"{kernel}.cu").read_text()
+    names = cs.c_params(src, PARENT_ENTRIES[kernel])
+    assert names[:2] == ["key", "split"] and names[-1] == "stream"
+    if kernel == "gamma":
+        assert [a for a in names if a != "split"] == cs.GAMMA_PARAMS
+    elif kernel != "threefry":
+        assert cs.parent_interface(src, PARENT_ENTRIES[kernel]) == "one launch"

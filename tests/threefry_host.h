@@ -3,15 +3,18 @@
 // tests/test_torch_random.py: K1's host header (a grid of blocks run one
 // after another, the threads of a block as a loop; erfinv), CUDA's
 // funnel shift, the bit casts and the rounded multiply and add
-// intrinsics.  The test includes this header in place of
-// <cuda_runtime.h> and compiles the source with g++ -ffp-contract=off,
-// so that no multiply and add is fused, as the intrinsics promise.
+// intrinsics.  A resident grid is 3 blocks, so that a thread strides over
+// the draws.  The test includes this header in place of <cuda_runtime.h>
+// and compiles the source with g++ -ffp-contract=off, so that no multiply
+// and add is fused, as the intrinsics promise.
 #pragma once
 #include <cstdint>
 #include <cstring>
 #include "k1_host.h"
 
 enum { cudaErrorInvalidValue = 1 };
+
+#define THREEFRY_ROOM(kernel) 3
 
 // the high word of (hi:lo) << (shift & 31)
 inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t shift) {
