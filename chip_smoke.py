@@ -368,9 +368,11 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import atexit
 import ctypes
 import hashlib
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -400,6 +402,9 @@ K3_SHARED_WALK = ("-DK3_ROW_CAP=0",)
 # terms; atol scaled to max|dlogp| because some entries are near zero
 SLICE_RTOL, SLICE_ATOL = 1e-4, 1e-4
 K2_STEPS, CHAIN_STEPS, BATCH_STEPS = 64, 8192, 16
+# the steps of phase 8's longest capture (a float64 chain through the step
+# loop; 1,024 before it was cut with the script's other repeats)
+LONG_CAPTURE_STEPS = 512
 # K2 after 64 float32 steps, over max(1, max|ref|), against its plain step
 # loop and against the float64 loop: both sum in other orders than K2 (on
 # an H100 80GB HBM3 at 700 W K2 ended 0 / 1.1e-7 / 0 from the loop and
@@ -446,6 +451,21 @@ L2_FLUSH_BYTES = 128 * 2 ** 20
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+class Laps:
+    """Each phase's seconds: ``lap(n)`` ends phase ``n`` where the last lap
+    (or the start) ended, prints its seconds and keeps them in ``seconds``."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self.last = time.perf_counter()
+
+    def __call__(self, n):
+        now = time.perf_counter()
+        self.seconds[f"phase {n}"] = now - self.last
+        self.last = now
+        say(f"phase {n}: {self.seconds[f'phase {n}']:.1f} s")
 
 
 def wall_ms(fn, n_iter, warmup=2):
@@ -744,14 +764,17 @@ def captured_vs_eager(tag, captured, eager, functions, n_iter, n_dev=None, extra
     from pytensor_tpu_torch.link.torch import linker as torch_linker
 
     torch_linker.NODES_RUN = 0
-    eager()
-    nodes = torch_linker.NODES_RUN
+    if not eager_calls:
+        eager()
+    else:
+        # the eager side's timed calls count the nodes (a call of seconds)
+        e_wall = wall_ms(eager, eager_calls, warmup=0)
+    nodes = torch_linker.NODES_RUN // (eager_calls or 1)
     graphs = [g for f in functions for g in f.graphs.values()]
     row = {}
     for kind, call in (("captured", captured), ("eager", eager)):
         if kind == "eager" and eager_calls:
-            row[kind] = {"wall": wall_ms(call, eager_calls, warmup=0), "dev": float("nan"),
-                         "by": {}, "peak": float("nan")}
+            row[kind] = {"wall": e_wall, "dev": float("nan"), "by": {}, "peak": float("nan")}
             continue
         wall = wall_ms(call, n_iter)
         dev, by = device_ms(call, n_dev or max(1, n_iter // 4))
@@ -956,8 +979,8 @@ def phase_models(dev, smi_line):
     kind = type(f_g.linked).__name__
     del f_g, got, Ws
     # the float64 steps, the first on the sides of relu's kink the card took
-    mfu_ref = mlp_mfu_reference(Xg.cpu().numpy(), Tg.cpu().numpy(),
-                                [x.cpu().numpy() for x in mfu_init], MFU_LR, MFU_STEPS, masks)
+    # (in float64 on the card: NumPy took ~50 s of the host)
+    mfu_ref = mlp_mfu_reference(Xg, Tg, mfu_init, MFU_LR, MFU_STEPS, masks, device=dev)
     r_grads = mfu_ref[2]
     e_grads = [float(np.max(np.abs(g.astype("float64") - r)) / np.max(np.abs(r)))
                for g, r in zip(g_grads, r_grads)]
@@ -1044,10 +1067,11 @@ def phase_models(dev, smi_line):
                 f"of the weights, norm-wise; the update against {against}, beyond the weights' "
                 f"rounding, over the largest: {e_upd:.2e} (tol {MODEL_TOL['mfu_update']:g}; a "
                 f"dropped update reads {e_drop:.3g})")
-        say(f"{tag}: loss {loss:.7f} vs float64 NumPy {r_loss:.7f} (rel err {e_loss:.2e}, tol "
+        say(f"{tag}: loss {loss:.7f} vs float64 {r_loss:.7f} (rel err {e_loss:.2e}, tol "
             f"{MODEL_TOL[tol_l]:g}); after {steps} step(s), {what}")
     del mfu_ref
-    say(f"float64 NumPy references in {time.perf_counter() - t_ref:.1f} s")
+    say(f"float64 references (NumPy; the MFU steps by torch on the card) in "
+        f"{time.perf_counter() - t_ref:.1f} s")
     # K1 on the steps' own fused nodes, each on the inputs the first step
     # gives it (computed on the card from the initial state), against its
     # plain version; these launches come after the counted calls
@@ -1371,10 +1395,11 @@ def phase_elman(dev, smi_line):
 
     # the times: captured and eager in turn, per call
     for tag, (f, f_e, ws, args, steps, *_rest) in paths.items():
-        # an eager loop call takes ~1.9 s on the host
-        n_iter = 20 if steps == 1 else 4
+        # an eager loop call takes ~2 s on the host: one, untraced
+        n_iter = 20 if steps == 1 else 2
         row = captured_vs_eager(tag, lambda f=f, a=args: f(*a), lambda f=f_e, a=args: f(*a),
-                                [f.linked], n_iter, n_dev=max(2, n_iter // 4))
+                                [f.linked], n_iter, n_dev=max(1, n_iter // 4),
+                                eager_calls=None if steps == 1 else 1)
         c = row["captured"]
         k1_by = [(ms, n) for kn, (ms, n) in c["by"].items() if "k1_" in kn]
         flips = sum(n for kn, (ms, n) in c["by"].items() if "index" in kn.lower())
@@ -1414,7 +1439,9 @@ def phase_elman(dev, smi_line):
 # benchsuite.py:978 ours_blockwise_chol (batch 128, 64 x 64, float32)
 # through function() and its 32-step train_loop
 GP_N, GP_LOOP, GP_LR = 256, 64, 1e-3
-KALMAN_T, KALMAN_K, KALMAN_P, KALMAN_LOOP, KALMAN_LR = 64, 4, 2, 16, 1e-5
+# (the SGD loop 8 steps a call, 16 before it was cut: its eager call took
+# ~8 s, twice; cut with the script's other repeats)
+KALMAN_T, KALMAN_K, KALMAN_P, KALMAN_LOOP, KALMAN_LR = 64, 4, 2, 8, 1e-5
 CHOL_BATCH, CHOL_N, CHOL_LOOP = 128, 64, 32
 # the linalg paths against float64 NumPy, each relative: GP nmll and
 # gradient (over max|g|) at the start, theta after 1 and 64 SGD steps
@@ -1726,11 +1753,12 @@ def phase_linalg(dev, smi_line):
     for tag, (f, state, args, steps) in paths.items():
         f_e = eager[tag][0]
         a = results[tag][3]
-        n_iter = 20 if steps == 1 else 4
-        # an eager call of the Kalman loop runs ~250,000 nodes (~8 s)
+        n_iter = 6 if steps == 1 else 2
+        # an eager call of the Kalman loop runs ~250,000 nodes (~9.5 s): the
+        # loops' eager side is one untraced call
         row = captured_vs_eager(tag, lambda f=f, a=a: f(*a), lambda f=f_e, a=a: f(*a),
-                                [f.linked], n_iter, n_dev=1 if "kalman loop" in tag else 2,
-                                eager_calls=1 if "kalman loop" in tag else None)
+                                [f.linked], n_iter, n_dev=1 if steps > 1 else 2,
+                                eager_calls=1 if steps > 1 else None)
         c = row["captured"]
         n_kern = sum(n for _, n in c["by"].values())
         chol = [(kn, n) for kn, (ms, n) in c["by"].items() if "potrf" in kn or "getrf" in kn]
@@ -1827,10 +1855,13 @@ def special_kernels(dev):
         f_k2, _ = make_bessel_loop(BESSEL_N_K2, BESSEL_STEPS, device="cpu")
     k2_node = next(nd for nd in f_k2.fgraph.apply_nodes if isinstance(nd.op, Scan))
     # the libraries, cut so that the compilers run side by side: the Bessel
-    # functions (the longest sources) a library each dtype, the others in two
-    bessel = set(cases.BESSEL_OPS)
-    libs = [[one_node[n, d].k1 for n in sorted(cases.SPECIAL_GRIDS) if (n in bessel) == b]
-            for d in ("float32", "float64") for b in (True, False)]
+    # functions (the longest sources) a library each dtype, the shape-parameter
+    # gradients a library each dtype, the others in two
+    def group(n):
+        return 0 if n in cases.BESSEL_OPS else 1 if n in cases.GRAD_OPS else 2
+
+    libs = [[one_node[n, d].k1 for n in sorted(cases.SPECIAL_GRIDS) if group(n) == g]
+            for d in ("float32", "float64") for g in (0, 1, 2)]
     libs.append(paths)
     return one_node, libs, [scan_kernel.ScanKernel(k2_node.op, k2_node, dev)]
 
@@ -1862,6 +1893,11 @@ def _special_checks(name, dtype, vals, got, plain, n_edges):
         diff = np.abs(gg[fin] - w[fin])
         ok = (diff < 1e-9) | (diff / np.maximum(np.abs(w[fin]), 1e-280) < 5e-8)
         worst = float(np.where(ok, 0.0, diff).max(initial=0.0))
+    elif name in cases.GRAD_OPS:
+        fin = np.isfinite(w)
+        err = np.abs(gg[fin] - w[fin]) / np.maximum(1.0, np.abs(w[fin]))
+        ok = err <= GRAD_ORACLE_RTOL
+        worst = float(err.max(initial=0.0))
     else:
         fin = np.isfinite(w)
         diff = np.abs(gg[fin] - w[fin])
@@ -1961,7 +1997,9 @@ def phase_special(dev, smi_line, one_node):
             # errors go to this phase's line, not to the kernel line's
             e_sp, e_plain, _ = _special_checks(name, dtype, vals, got, plain, n_edges)
             worst[name] = (e_sp, e_plain)
-            if dtype != "float32":
+            # (the shape-parameter gradients are timed at 2**20 in float64,
+            # ``special_grads``)
+            if dtype != "float32" or name in cases.GRAD_OPS:
                 continue
             # times, float32: at 4,096 and at 2**24 elements on the op's grid
             row = {"op": name, "max_err_scipy": e_sp, "max_err_plain": e_plain}
@@ -2135,8 +2173,245 @@ def phase_special(dev, smi_line, one_node):
             raise AssertionError(f"stabilised {expr}: {got}, the reference's {want}")
     say(f"Queue 3 item 1 on the card: {len(STABILISED)} expressions give the reference's values "
         f"({', '.join(e for e, *_ in STABILISED)})")
+    grads_abs, launches["special gradients"] = special_grads(dev, smi_line, one_node)
+    k1_abs = max(k1_abs, grads_abs)
+    scalar_loop_on_the_card(dev)
     say(f"special phase done in {time.perf_counter() - t14:.1f} s")
     return launches, k1_abs, k2_abs, rows, prof
+
+
+# --- 14, continued: the shape-parameter gradients and ScalarLoop -------------------
+
+# the seven gradients' one-node K1 launches at GRAD_N elements in each float
+# dtype, held against their plain versions on the card (SPECIAL_RTOL of
+# max(1, |plain|), NaN and infinities where the plain version has them) and
+# timed in float64 against their bound
+GRAD_N = 2 ** 20
+# their float64 oracle, scipy's central differences (step 1e-5 of the
+# parameter), on phase 14's grids: 1e-8 of max(1, |oracle|), the
+# differences' own error (~1e-11 of the function over the step, readings
+# up to 3e-10 in the CPU tests)
+GRAD_ORACLE_RTOL = 1e-8
+# FP64-pipe instructions of one iteration of each gradient's loops
+# (``grad_fp64_instructions``), set by say_builds; and phase 14's rows of
+# the seven at GRAD_N, float64, for the kernels line
+GRAD_FP64: dict = {}
+GRAD_ROWS: dict = {}
+GRAD_PATH_LAUNCHES: dict = {}
+# the operands of each gradient's family
+GRAD_NIN = {"betainc": 3, "gammainc": 2, "hyp2f1": 4}
+# the for-form ScalarLoop at GRAD_N: 8 of Newton's steps to sqrt(c) from c,
+# float64, on the card against the CPU (the same torch ops, each rounded
+# alone: 1e-15 of max(1, |cpu|))
+SCALAR_LOOP_STEPS, SCALAR_LOOP_RTOL = 8, 1e-15
+
+
+def grad_fp64_instructions():
+    """FP64-pipe instructions of one iteration of each gradient's loops
+    (``special.GRAD_STEPS``: betainc's two fractions, gammainc's series and
+    fraction, hyp2f1's series): each loop body alone in a probe kernel that
+    loads its operands and duals from memory and stores the duals, read by
+    ``cuobjdump -sass``, the least path through it (``sass_least``, which
+    skips the divisions' slow paths) less that of the probe with no body.
+    The set-up outside the loops (lgamma, digamma, exp, log) is left out:
+    the count times the iterations is a floor of what a call executes."""
+    from pytensor_tpu_torch.link.cuda import cexpr, special
+
+    def probe(tag, body):
+        return (f'extern "C" __global__ void probe_{tag}(const double* __restrict__ in, '
+                f"double* __restrict__ out) {{\n  const int t = threadIdx.x;\n"
+                f"  const double* a = in + 20 * t;\n  ks_dual d[4];\n"
+                f"  for (int j = 0; j < 4; ++j)\n"
+                f"    d[j] = {{a[4 + 4 * j], a[5 + 4 * j], a[6 + 4 * j] != 0.0, "
+                f"a[7 + 4 * j] != 0.0}};\n  {body};\n"
+                f"  for (int j = 0; j < 4; ++j) {{\n    out[20 * t + 4 * j] = d[j].v;\n"
+                f"    out[20 * t + 4 * j + 1] = d[j].d;\n"
+                f"    out[20 * t + 4 * j + 2] = d[j].z ? 1.0 : 0.0;\n"
+                f"    out[20 * t + 4 * j + 3] = d[j].p ? 1.0 : 0.0;\n  }}\n}}\n")
+
+    kernels, names = [probe("base", "(void)0")], ["probe_base"]
+    for name, steps in special.GRAD_STEPS.items():
+        for k, body in enumerate(steps):
+            kernels.append(probe(f"{name}_{k}", body))
+            names.append(f"probe_{name}_{k}")
+    source = ("#include <cuda_runtime.h>\n#include <math.h>\n"
+              + cexpr.helpers("ks_betainc_dda(", have=()) + "".join(kernels))
+    code = sass_code(source)
+    least = {n: sass_least(next(v for k, v in code.items() if k.endswith(n)), is_fp64)
+             for n in names}
+    got = {}
+    for name, steps in special.GRAD_STEPS.items():
+        per = [least[f"probe_{name}_{k}"] - least["probe_base"] for k in range(len(steps))]
+        if min(per) <= 0:
+            raise AssertionError(f"the gradients' FP64 probe, {name}: {per} a loop body")
+        got[name] = sum(per)
+    return got
+
+
+def grad_bound(name, n, n_bytes):
+    """(ms, by) of a gradient at ``n`` elements: the larger of its bytes at
+    HBM_BYTES_S and its loops' FP64-pipe instructions (``GRAD_FP64``, an
+    iteration of each loop, times the iterations) at FP64_LANES lanes an
+    SM a clock."""
+    from pytensor_tpu_torch.link.cuda import special
+
+    iters = special.GRAD_ITERATIONS[special.GRAD_FAMILY[name]]
+    t_ops = n * GRAD_FP64[name] * iters / (SM_CLOCKS_S * FP64_LANES)
+    t_bytes = n_bytes / HBM_BYTES_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def special_grads(dev, smi_line, one_node):
+    """Phase 14's shape-parameter gradients at GRAD_N: each as a one-node
+    K1 launch in float64 and float32 on its grid (``cases.SPECIAL_GRIDS``)
+    against its plain version on the card (reverse-mode autograd in
+    float64), and in float64 timed by CUDA events after an L2 flush beside
+    the plain version and its bound; then this phase's path of the four
+    that phase 20's does not run (``grads_path``).  Rows into
+    ``GRAD_ROWS``; returns the largest absolute error and the path's
+    launches."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import cases
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+
+    rng = np.random.default_rng(20)
+    worst_abs = 0.0
+    held = {}
+    for name in cases.GRAD_OPS:
+        grids = cases.SPECIAL_GRIDS[name]
+        vals = [rng.uniform(*g, size=GRAD_N) for g in grids]
+        for dtype in ("float64", "float32"):
+            fn = one_node[name, dtype]
+            args = [as_torch(v.astype(dtype), dev) for v in vals]
+            got = fn.k1.launch(*args)[0]
+            # the plain version once (seconds a call), timed by CUDA events
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            plain = fn.k1.plain(*args)[0]
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            g, p = got.double().cpu().numpy(), plain.double().cpu().numpy()
+            if not (np.array_equal(np.isnan(g), np.isnan(p))
+                    and np.array_equal(g[np.isinf(p)], p[np.isinf(p)])
+                    and not np.isinf(g[~np.isinf(p)]).any()):
+                raise AssertionError(f"phase 14 {name} {dtype} at {GRAD_N}: NaN or inf where the "
+                                     f"plain version has none")
+            fin = np.isfinite(p)
+            diff = np.abs(g[fin] - p[fin])
+            err = float((diff / np.maximum(1.0, np.abs(p[fin]))).max(initial=0.0))
+            if not err <= SPECIAL_RTOL[dtype]:
+                raise AssertionError(f"phase 14 {name} {dtype} at {GRAD_N}: rel err {err} against "
+                                     f"the plain version > {SPECIAL_RTOL[dtype]}")
+            if dtype == "float32":
+                say(f"  gradient {name:13s} float32 at 2**20: max err vs plain {err:.2e} (tol "
+                    f"{SPECIAL_RTOL[dtype]:g})")
+                continue
+            worst_abs = max(worst_abs, float(diff.max(initial=0.0)))
+            held[name] = (args, got)
+            ms = stream_ms(lambda: fn.k1.launch(*args), 10)
+            b_ms, b_by = grad_bound(name, GRAD_N, nbytes(*args, got))
+            GRAD_ROWS[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "max_abs_err": float(diff.max(initial=0.0)),
+                               "max_rel_err": err}
+            say(f"  gradient {name:13s} float64 at 2**20 ({smi_line}): K1 {ms * 1e3:.1f} us, plain "
+                f"{plain_ms * 1e3:.1f} us (reverse-mode autograd, one call), bound "
+                f"{b_ms * 1e3:.1f} us "
+                f"({b_by}; {GRAD_FP64[name]} FP64-pipe instructions an iteration); max err vs "
+                f"plain {err:.2e} (tol {SPECIAL_RTOL[dtype]:g}); library: none")
+            within_bound(f"gradient {name}", GRAD_ROWS[name])
+            del args, got, plain
+    say(f"shape-parameter gradients: {len(cases.GRAD_OPS)} device functions at 2**20 in float32 "
+        f"and float64 against their plain versions on the card, largest abs err {worst_abs:.2e}")
+    return worst_abs, grads_path(dev, held, one_node)
+
+
+# the device functions of phase 14's path (phase 20's runs the other three)
+GRADS_PATH_OPS = ("gammainc_ddk", "hyp2f1_dda", "hyp2f1_ddb", "hyp2f1_ddc")
+
+
+def grads_path(dev, held, one_node):
+    """Phase 14's path through ``function()``: the gradient of
+    sum(hyp2f1(a, b, c, z)) in a, b and c and of sum(gammainc(k, x)) in k,
+    at GRAD_N float64 on the inputs ``hyp2f1_dda``'s and ``gammainc_ddk``'s
+    one-node launches were held on (``held``: {name: (inputs, output)}),
+    one captured CUDA graph of K1 launches.  The counts are set to 0 just
+    before a replayed call and read after it: each device function of
+    GRADS_PATH_OPS must have been launched; the outputs (the gradients,
+    times the sum's ones) are the one-node launches' (``one_node``) bit for
+    bit.  Returns the path's launches, and
+    puts the launches by device function into ``GRAD_PATH_LAUNCHES``."""
+    import torch
+
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.tensor import fused_kernel
+
+    a, b, c, z, k, x = (pt.dvector(n) for n in "abczkx")
+    outs = [*ptt.grad(pt.sum(pt.hyp2f1(a, b, c, z)), [a, b, c]),
+            ptt.grad(pt.sum(pt.gammainc(k, x)), k)]
+    f = ptt.function([a, b, c, z, k, x], outs, device=dev)
+    plan = getattr(f.linked, "plan", f.linked)
+    if not isinstance(f.linked, CapturedFunction) or plan.host_reads:
+        raise AssertionError(f"the gradients' path: not one captured graph: {plan.host_reads}")
+    args = [*held["hyp2f1_dda"][0], *held["gammainc_ddk"][0]]
+    f(*args)
+    torch.cuda.synchronize()
+    fused_kernel.LAUNCHES = 0
+    fused_kernel.OP_LAUNCHES.clear()
+    got = f(*args)
+    torch.cuda.synchronize()
+    launches = {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": 0}
+    GRAD_PATH_LAUNCHES.update({name: fused_kernel.OP_LAUNCHES[name] for name in GRADS_PATH_OPS})
+    if min(GRAD_PATH_LAUNCHES.values()) < 1:
+        raise AssertionError(f"the gradients' path: launches {GRAD_PATH_LAUNCHES}")
+    for name, g in zip(("hyp2f1_dda", "hyp2f1_ddb", "hyp2f1_ddc", "gammainc_ddk"), got):
+        family = "gammainc_ddk" if name == "gammainc_ddk" else "hyp2f1_dda"
+        if not torch.equal(g, one_node[name, "float64"].k1.launch(*held[family][0])[0]):
+            raise AssertionError(f"the gradients' path, {name}: not the one-node launch's bits")
+    say(f"the gradients' path (hyp2f1's in a, b, c and gammainc's in k at 2**20, one captured "
+        f"graph): a replayed call launched K1 {launches['fused_elemwise']} times, "
+        + ", ".join(f"{k} {v}" for k, v in GRAD_PATH_LAUNCHES.items())
+        + "; its outputs the one-node launches' bits")
+    return launches
+
+
+def scalar_loop_on_the_card(dev):
+    """A for-form ScalarLoop (SCALAR_LOOP_STEPS of Newton's square root) at
+    GRAD_N through ``function()`` on the card, captured, against the same
+    function on the CPU."""
+    import torch
+
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.scalar.loop import ScalarLoop
+
+    st, cc = pt.dscalar("st"), pt.dscalar("cc")
+    loop = ScalarLoop([st], [0.5 * (st + cc / st)], [cc], name="newton_sqrt")
+    c = pt.dvector("c")
+    out = loop(SCALAR_LOOP_STEPS, c, c)
+    cv = np.random.default_rng(21).uniform(0.5, 4.0, GRAD_N)
+    f, f_cpu = (ptt.function([c], out, device=d) for d in (dev, "cpu"))
+    plan = getattr(f.linked, "plan", f.linked)
+    if plan.host_reads or not isinstance(f.linked, CapturedFunction):
+        raise AssertionError(f"the for-form ScalarLoop: not captured: {plan.host_reads}")
+    want = np.asarray(f_cpu(cv))
+    cv_d = as_torch(cv, dev)
+    f(cv_d)
+    got = f(cv_d)
+    torch.cuda.synchronize()
+    err = rel_err(got.cpu().numpy(), want)
+    if not err <= SCALAR_LOOP_RTOL or not np.allclose(want, np.sqrt(cv), rtol=1e-12):
+        raise AssertionError(f"ScalarLoop on the card: rel err {err} against the CPU")
+    ms = wall_ms(lambda: f(cv_d), 5)
+    say(f"ScalarLoop (for form, {SCALAR_LOOP_STEPS} Newton steps to sqrt) at 2**20 float64, "
+        f"captured: rel err vs the CPU {err:.2e} (tol {SCALAR_LOOP_RTOL:g}); wall {ms:.4f} ms a "
+        f"call")
 
 
 # --- 15. bfloat16 ------------------------------------------------------------------
@@ -3607,6 +3882,24 @@ def hmc_functions(dev, pallas=False):
                 "multinomial hmc": hmc.make_radon_multinomial_hmc(**kw)}
 
 
+def hmc_cpu_reference(cpu_fns=None):
+    """Phase 18's reference: the first HMC_HELD transitions of each HMC path
+    linked for the CPU (``hmc_functions("cpu")`` unless given), in the
+    references' process beside phases 3-17.  Returns ({path: [outputs and
+    position, a transition]}, seconds)."""
+    import torch
+
+    t0 = time.perf_counter()
+    if cpu_fns is None:
+        torch.set_num_threads(REF_THREADS)
+        cpu_fns = hmc_functions("cpu")
+    # numpy arrays, which a pool's pipe carries by value
+    ref = {path: [[o.numpy().copy() for o in g()] + [g_pos.get_value().numpy().copy()]
+                  for _ in range(HMC_HELD)]
+           for path, (g, g_pos, *_) in cpu_fns.items()}
+    return ref, time.perf_counter() - t0
+
+
 def random_kernels(dev):
     """The kernels of phase 18, for the build pool of phase 2: the K1
     kernels of the HMC functions, made from the functions linked for the
@@ -3872,11 +4165,12 @@ def phase_random(dev, smi_line, cpu_fns, parent=None):
                 "threefry": tk.LAUNCHES}
 
     # the CPU's first transitions, the reference of both of the card's runs
-    ref = {}
-    for path, (g, g_pos, *_) in cpu_fns.items():
-        ref[path] = [[o.clone() for o in g()] + [g_pos.get_value()] for _ in range(HMC_HELD)]
-    say(f"phase 18: the CPU's {HMC_HELD} transitions of each HMC path in "
-        f"{time.perf_counter() - t18:.1f} s")
+    # (``hmc_cpu_reference``: ``cpu_fns`` is the job computing them in the
+    # references' process, or, in a rehearsal, the CPU functions)
+    t0 = time.perf_counter()
+    ref, ref_s = hmc_cpu_reference(cpu_fns) if isinstance(cpu_fns, dict) else cpu_fns.get()
+    say(f"phase 18: the CPU's {HMC_HELD} transitions of each HMC path in {ref_s:.1f} s (waited "
+        f"{time.perf_counter() - t0:.1f} s for them)")
     launches, k1_abs, k1_nodes = {}, 0.0, 0
     for flags in ("default flags", "scan__pallas"):
         t0 = time.perf_counter()
@@ -3890,7 +4184,7 @@ def phase_random(dev, smi_line, cpu_fns, parent=None):
                 raise AssertionError(f"{tag}: host reads {plan.host_reads}")
             for step in range(HMC_HELD):
                 out = [o.cpu() for o in f()] + [pos.get_value().cpu()]
-                want = ref[path][step]
+                want = [torch.as_tensor(w) for w in ref[path][step]]
                 if not torch.equal(out[1], want[1]):
                     raise AssertionError(f"{tag}, transition {step}: accept/index {out[1]} "
                                          f"against the CPU's {want[1]}")
@@ -4421,8 +4715,11 @@ def loop_times(kernel, args, dev, n_iter):
     row = {"n": args[0].numel(), "hashes": n_hash,
            "ms": device_ms(lambda: mod.launch(key, *args, *extra, split=fsplit), n_iter)[0],
            "wall_ms": wall_ms(lambda: mod.launch(key, *args, *extra, split=fsplit), n_iter),
-           "plain_ms": device_ms(lambda: mod.plain(key, *args, *extra, split=psplit), 2)[0],
-           "plain_wall_ms": wall_ms(lambda: mod.plain(key, *args, *extra, split=psplit), 2),
+           # (the plain loops take ~0.2 s a call at 2**20: one call each, warm)
+           "plain_ms": device_ms(lambda: mod.plain(key, *args, *extra, split=psplit), 1,
+                                 warmup=0)[0],
+           "plain_wall_ms": wall_ms(lambda: mod.plain(key, *args, *extra, split=psplit), 1,
+                                    warmup=0),
            "library_ms": device_ms(library, n_iter)[0], "library": LOOP_LIBRARY[kernel] +
            " (same distribution, other bits)"}
     row["bound_ms"], row["bound_by"] = bound(nbytes(*args, out, fsplit), n_hash, HASH_S)
@@ -5120,6 +5417,7 @@ def loop_builds(pool, timed):
                for name, m in (("gamma", gamma_kernel), ("poisson", poisson_kernel),
                                ("binomial", binomial_kernel))},
             "fp64 probe": pool.submit(fp64_instructions),
+            "gradients' fp64 probe": pool.submit(grad_fp64_instructions),
             **{f"{name} stamped": pool.submit(loop_stamped, m)
                for name, m in (("gamma", gamma_kernel), ("poisson", poisson_kernel),
                                ("binomial", binomial_kernel))}}
@@ -5176,11 +5474,209 @@ def say_builds(logs, build_s):
     say(f"normal64's FP64-pipe instructions a draw (NORMAL_PROBE): {NORMAL_FP64['least']:g} on "
         f"the shortest path (by way of erfinv's log), {NORMAL_FP64['static']:g} on every branch, "
         f"at {FP64_LANES} lanes an SM a clock")
+    # the shape-parameter gradients' loops, for their bounds in phase 14
+    GRAD_FP64.update(build_s.pop("gradients' fp64 probe"))
+    say("the shape-parameter gradients' loops (cuobjdump -sass of their templates at 2 and 3 "
+        "iterations): FP64-pipe instructions an iteration "
+        + ", ".join(f"{k} {v}" for k, v in GRAD_FP64.items()) + f", at {FP64_LANES} lanes an SM "
+        "a clock")
     # gamma's float64 work, for its bound in phase 19
     GAMMA_FP64.update(build_s.pop("fp64 probe"))
     say("gamma's float64 work (cuobjdump -sass of FP64_PROBE; every branch of erfinv, log and "
         "pow): FP64-pipe instructions " + ", ".join(f"{k} {v}" for k, v in GAMMA_FP64.items())
         + f", at {FP64_LANES} lanes an SM a clock")
+
+
+# --- 20. a censored-likelihood gradient (models/censored.py) ----------------------
+
+# PyMC's right-censored Gamma term and a Beta log-CDF term at 2**20 float64
+# elements each, and the gradient in (k, theta, a, b): data from seed 20
+CENSORED_SEED = 20
+# against the same graph through the port's plain versions on the CPU:
+# logp and each gradient within 1e-9 of its magnitude (the device functions
+# are within 5e-9 of their plain versions an element, the sums of 2**20
+# terms run in other orders); against scipy's central differences of logp
+# (step 1e-5 of the parameter; their own error ~1e-11 of |logp| over the
+# step): 1e-6
+CENSORED_TOL = {"cpu": 1e-9, "differences": 1e-6}
+# replays a call of the counted run
+CENSORED_CALLS = 3
+# the CPU threads of the process that computes phase 18's and 20's
+# references beside the other phases (the host has 8 cores)
+REF_THREADS = 4
+# the device functions the path must launch
+CENSORED_GRADS = ("gammaincc_ddk", "betainc_dda", "betainc_ddb")
+
+
+def censored_cpu_reference(seed):
+    """Phase 20's references, computed in a process of their own while the
+    card runs phases 3-19 (some two minutes of the host's CPU): the
+    function linked for the CPU (the port's plain versions) on the data
+    of ``seed``, and scipy's logp with its central differences.  Returns
+    (outputs, seconds, (logp, gradients), seconds)."""
+    import torch
+
+    from pytensor_tpu_torch.models import censored
+
+    torch.set_num_threads(REF_THREADS)
+    t, y = censored.censored_data(censored.CENSORED_N, seed)
+    t0 = time.perf_counter()
+    f_cpu = censored.make_censored_logp(device="cpu")
+    want = [float(np.asarray(o)) for o in f_cpu(t, y, *[np.asarray(p) for p in censored.PARAMS])]
+    t1 = time.perf_counter()
+    ref = censored.censored_reference(t, y)
+    return want, t1 - t0, ref, time.perf_counter() - t1
+
+
+def start_references():
+    """The host's references that need no card, in a spawned process of
+    their own beside phases 3-19: phase 18's HMC transitions on the CPU
+    (``hmc_cpu_reference``) and phase 20's (``censored_cpu_reference``).
+    Returns (the pool, the HMC job, (the pool, the censored job)); the
+    pool is terminated when the script exits, however it exits."""
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    atexit.register(pool.join)
+    atexit.register(pool.terminate)
+    hmc = pool.apply_async(hmc_cpu_reference)
+    return pool, hmc, (pool, pool.apply_async(censored_cpu_reference, (CENSORED_SEED,)))
+
+
+def censored_kernels(dev):
+    """The K1 kernels of phase 20, for the build pool of phase 2: the
+    function's fused nodes and its special functions' one-node kernels,
+    made from the function linked for the CPU (the same graph, so the same
+    sources; phase 20 runs that function as the card's reference).
+    Returns (the kernels, the CPU function)."""
+    from pytensor_tpu_torch.link.torch.dispatch import _one_node_k1
+    from pytensor_tpu_torch.models import censored
+    from pytensor_tpu_torch.tensor.elemwise import Elemwise
+
+    f_cpu = censored.make_censored_logp(device="cpu")
+    kerns = plan_kernels(f_cpu.linked, dev, {})
+    for nd in f_cpu.fgraph.toposort():
+        if isinstance(nd.op, Elemwise) and nd.op.scalar_op.special:
+            k = _one_node_k1(nd.op, nd, dev).k1
+            kerns.setdefault(k.key, k)
+    return list(kerns.values()), f_cpu
+
+
+def phase_censored(dev, smi_line, reference):
+    """Phase 20: ``models/censored.py``'s logp and its gradient in (k,
+    theta, a, b) at 2**20 survival times and 2**20 proportions, float64,
+    linked by ``function()`` for the card as one captured CUDA graph: the
+    main path of the shape-parameter gradients.  The counts are set to 0,
+    the function replayed CENSORED_CALLS times and the counts read: K1
+    launches and the launches of the kernels holding each of
+    CENSORED_GRADS.  Held against the same graph through the plain
+    versions on the CPU at full size and against scipy's central
+    differences; each K1 node against its plain version on the inputs the
+    graph gives it; wall and device ms a call, kernels by name.  Returns
+    ({"censored": launches}, K1's largest absolute error, the row)."""
+    import torch
+
+    from pytensor_tpu_torch.graph.basic import Constant
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.dispatch import _one_node_k1
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction, fgraph_to_torch
+    from pytensor_tpu_torch.models import censored
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.elemwise import Elemwise
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    t20 = time.perf_counter()
+    t, y = censored.censored_data(censored.CENSORED_N, CENSORED_SEED)
+    params = [np.asarray(p) for p in censored.PARAMS]
+    f = censored.make_censored_logp(device=dev)
+    plan = getattr(f.linked, "plan", f.linked)
+    if not isinstance(f.linked, CapturedFunction) or plan.host_reads:
+        raise AssertionError(f"censored logp: not one captured graph: "
+                             f"{type(f.linked).__name__}, {plan.host_reads}")
+    args = [as_torch(v, dev) for v in (t, y, *params)]
+    f(*args)
+    # the main path: counts to 0, the replays, the counts
+    torch.cuda.synchronize()
+    fused_kernel.LAUNCHES = 0
+    fused_kernel.OP_LAUNCHES.clear()
+    for _ in range(CENSORED_CALLS):
+        out = f(*args)
+    torch.cuda.synchronize()
+    launches = {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": 0}
+    by_grad = {name: fused_kernel.OP_LAUNCHES[name] for name in CENSORED_GRADS}
+    if min(by_grad.values()) < CENSORED_CALLS:
+        raise AssertionError(f"censored logp: the gradients' kernels were launched {by_grad} "
+                             f"times in {CENSORED_CALLS} calls")
+    got = [float(o.cpu()) for o in out]
+    if not all(np.isfinite(got)):
+        raise AssertionError(f"censored logp: {got}")
+    say(f"censored logp at 2**20 + 2**20 float64, one captured graph: {CENSORED_CALLS} replayed "
+        f"calls launched K1 {launches['fused_elemwise']} times, the kernels holding "
+        + ", ".join(f"{k} {v}" for k, v in by_grad.items()))
+    # against the plain versions on the CPU at full size, and scipy's central
+    # differences of logp (``censored_cpu_reference``, run beside phases 3-19)
+    t_ref = time.perf_counter()
+    pool, job = reference
+    want, cpu_s, (logp_ref, grads_ref), diff_s = job.get()
+    pool.close()
+    pool.join()
+    say(f"censored references: waited {time.perf_counter() - t_ref:.1f} s for them")
+    e_cpu = [abs(g - w) / max(1.0, abs(w)) for g, w in zip(got, want)]
+    e_diff = [abs(g - w) / max(1.0, abs(w)) for g, w in zip(got, [logp_ref, *grads_ref])]
+    names = ("logp", "dk", "dtheta", "da", "db")
+    say(f"censored logp: " + ", ".join(f"{n} {g:.10g}" for n, g in zip(names, got))
+        + f"; rel err vs the CPU's plain versions {max(e_cpu):.2e} (tol {CENSORED_TOL['cpu']:g}, "
+        f"{cpu_s:.1f} s), vs scipy and its central differences {max(e_diff):.2e} (tol "
+        f"{CENSORED_TOL['differences']:g}, {diff_s:.1f} s)")
+    if not (max(e_cpu) <= CENSORED_TOL["cpu"] and max(e_diff) <= CENSORED_TOL["differences"]):
+        raise AssertionError(f"censored logp: {dict(zip(names, got))} against the CPU "
+                             f"{dict(zip(names, want))}, scipy "
+                             f"{dict(zip(names, [logp_ref, *grads_ref]))}")
+    # each K1 node against its plain version, on the inputs the graph gives it
+    k1_nodes = [nd for nd in f.fgraph.toposort() if isinstance(nd.op, FusedElemwise)
+                or (isinstance(nd.op, Elemwise) and nd.op.scalar_op.special)]
+    # (a one-node kernel takes its node's inputs but the constants, its literals)
+    needed = [i for nd in k1_nodes for i in nd.inputs if not isinstance(i, Constant)]
+    feed = fgraph_to_torch(FunctionGraph(f.fgraph.inputs, needed, clone=True), dev)
+    values = iter(feed(*args))
+    k1_abs = 0.0
+    for nd in k1_nodes:
+        xs = [next(values) for i in nd.inputs if not isinstance(i, Constant)]
+        if isinstance(nd.op, FusedElemwise):
+            kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+            ops = [m.op.scalar_op.name for m in nd.op.fgraph.toposort()]
+        else:
+            kern = _one_node_k1(nd.op, nd, dev).k1
+            ops = [nd.op.scalar_op.name]
+        g_, w_ = kern.launch(*xs), kern.plain(*xs)
+        torch.cuda.synchronize()
+        node_err = 0.0
+        for a, b in zip(g_, w_):
+            a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                raise AssertionError(f"censored K1 {ops}: NaN where the plain version has none")
+            fin = np.isfinite(b)
+            diff = np.abs(a[fin] - b[fin])
+            err = float((diff / np.maximum(1.0, np.abs(b[fin]))).max(initial=0.0))
+            if not err <= SPECIAL_RTOL["float64"]:
+                raise AssertionError(f"censored K1 {ops}: rel err {err} > "
+                                     f"{SPECIAL_RTOL['float64']}")
+            k1_abs = max(k1_abs, float(diff.max(initial=0.0)))
+            node_err = max(node_err, err)
+        say(f"  censored K1 node {'fused' if isinstance(nd.op, FusedElemwise) else 'one-node'}: "
+            f"ops {ops}, inputs {[tuple(x.shape) for x in xs]}, max err vs plain "
+            f"{node_err:.2e} (tol {SPECIAL_RTOL['float64']:g})")
+    # the times
+    wall = wall_ms(lambda: f(*args), 10)
+    dev_ms, by = device_ms(lambda: f(*args), 3)
+    n_kern = sum(n for _, n in by.values())
+    row = {"wall_ms": wall, "device_ms": dev_ms, "kernels": n_kern, "launches": launches,
+           "by_grad": by_grad, "rel_err_cpu": max(e_cpu), "rel_err_differences": max(e_diff)}
+    say(f"censored logp+grad ({smi_line}): wall {wall:.4f} ms/call, device {dev_ms:.4f} ms, busy "
+        f"{dev_ms / wall:.3f}, {n_kern:.0f} kernels a call")
+    for kname, (ms, count) in sorted(by.items(), key=lambda kv: -kv[1][0])[:8]:
+        say(f"  censored: {ms:.4f} ms/call  {count:.0f} launches/call  {kname[:90]}")
+    say(f"censored phase done in {time.perf_counter() - t20:.1f} s")
+    return {"censored": launches}, k1_abs, row
 
 
 def main(opts):
@@ -5238,6 +5734,7 @@ def main(opts):
             raise SystemExit(f"--parent: its gamma_draw is not ({', '.join(GAMMA_PARAMS)}), "
                              f"with or without a split")
 
+    lap = Laps()
     # 1. device -------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -5250,7 +5747,31 @@ def main(opts):
         f"CUDA {torch.version.cuda}, capability {torch.cuda.get_device_capability(0)}")
     say(smi)
 
+    lap(1)
     # 2. build --------------------------------------------------------------
+    # each build starts as soon as its source exists, beside the emission of
+    # the later slices' graphs (nvcc runs in processes of its own)
+    def timed(fn):
+        t = time.perf_counter()
+        fn()
+        return time.perf_counter() - t
+
+    pool = ThreadPoolExecutor(32)
+    k1_jobs: list = []
+
+    def build_k1(*libraries):
+        k1_jobs.extend(pool.submit(fused_kernel.build, kerns, verbose=True)
+                       for kerns in libraries)
+
+    jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
+            "K3 stamped": pool.submit(timed, lambda: radon_kernel.build(
+                verbose=True, flags=radon_kernel.STAMPED)),
+            "K3, rows in shared memory": pool.submit(timed, lambda: radon_kernel.build(
+                verbose=True, flags=K3_SHARED_WALK)),
+            "K3 stamped, rows in shared memory": pool.submit(timed, lambda: radon_kernel.build(
+                verbose=True, flags=radon_kernel.STAMPED + K3_SHARED_WALK)),
+            "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True)),
+            **loop_builds(pool, timed)}
     # K2 for the leapfrog chain at full width: the Scan node of the linked
     # 64-step chain (the 8,192-step chain has the same body, so the same
     # source and library)
@@ -5260,6 +5781,8 @@ def main(opts):
     k2 = scan_kernel.ScanKernel(scan_node.op, scan_node, dev)
     # the same kernel with clock64() stamps, for phase 6's breakdown only
     k2_stamped = scan_kernel.ScanKernel(scan_node.op, scan_node, dev, stamps=True)
+    jobs["K2"] = pool.submit(timed, lambda: k2.build(verbose=True))
+    jobs["K2 stamped"] = pool.submit(timed, lambda: k2_stamped.build(verbose=True))
     src = k2.src
     say(f"K2 source: {len(scan_node.op.fgraph.apply_nodes)} inner nodes -> {src.n_units} "
         f"emitted ops in {src.n_ops} loops and {src.n_barriers} barriers a step; arena "
@@ -5287,6 +5810,7 @@ def main(opts):
     k1_kernels = {key: [fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
                         for nd in fg.toposort() if isinstance(nd.op, FusedElemwise)]
                   for key, (fg, _) in graphs.items()}
+    build_k1(*k1_kernels.values())
 
     def linked(dtype, batched):
         fg, n = graphs[dtype, batched]
@@ -5326,6 +5850,9 @@ def main(opts):
                    for f in cpu_models for nd in f.fgraph.toposort()
                    if isinstance(nd.op, FusedElemwise)]
     del cpu_models
+    build_k1(list(op_kerns.values()), model_kerns)
+    jobs.update({f"K2 case: {tag}": pool.submit(timed, lambda k=k: k.build(verbose=True))
+                 for tag, _, _, k, _ in k2_cases})
     say(f"the slice's graphs: {len(op_kerns)} K1 op groups, {len(k2_cases)} K2 cases, "
         f"{len(model_kerns)} K1 kernels of the logreg and MFU steps; graph, rewrite and emit in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -5333,11 +5860,15 @@ def main(opts):
     # forward scan (phase 12 finds them built)
     t0 = time.perf_counter()
     elman_k1, elman_k2 = elman_kernels(dev)
+    build_k1(elman_k1)
+    jobs.update({"K2 static BPTT": pool.submit(timed, lambda k=k: k.build(verbose=True))
+                 for k in elman_k2})
     say(f"the Elman slice's graphs: {len(elman_k1)} K1 kernels of the step, {len(elman_k2)} K2 "
         f"kernel of the static BPTT; graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
     # the linalg slice's: the K1 kernels of paths (a)-(c) (phase 13)
     t0 = time.perf_counter()
     linalg_k1 = linalg_kernels(dev)
+    build_k1(linalg_k1)
     say(f"the linalg slice's graphs: {len(linalg_k1)} K1 kernels; graph, rewrite and emit in "
         f"{time.perf_counter() - t0:.2f} s")
     # the special functions' (phase 14): each as a one-node K1 kernel a
@@ -5349,6 +5880,9 @@ def main(opts):
     special_group_kerns = {dt: fused_kernel.FusedElemwiseKernel(FusedElemwise(ins, outs).fgraph,
                                                                 dev)
                            for dt, (ins, outs, _) in special_groups.items()}
+    build_k1(*special_libs, list(special_group_kerns.values()))
+    jobs.update({"K2 bessel loop": pool.submit(timed, lambda k=k: k.build(verbose=True))
+                 for k in special_k2})
     say(f"the special slice's graphs: {len(special_one_node)} one-node K1 kernels in "
         f"{len(special_libs) - 1} libraries, {sum(map(len, special_libs[-1:]))} K1 kernels of the "
         f"bessel paths, {len(special_group_kerns)} K1 op groups, {len(special_k2)} K2 kernel; "
@@ -5359,6 +5893,9 @@ def main(opts):
     # and K2 of the EWMA in bfloat16 and float32
     t0 = time.perf_counter()
     bf16_one_node, bf16_cls, bf16_model_k1, bf16_k2 = bf16_kernels(dev)
+    build_k1([k for k, _ in bf16_one_node.values()] + [bf16_cls], bf16_model_k1)
+    jobs.update({f"K2 ewma {dt}": pool.submit(timed, lambda k=k: k.build(verbose=True))
+                 for dt, k in bf16_k2.items()})
     say(f"the bfloat16 slice's graphs: {len(bf16_one_node)} one-node K1 kernels, "
         f"{len(bf16_model_k1)} K1 kernels of the MFU step's paths, {len(bf16_k2)} K2 kernels; "
         f"graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
@@ -5371,6 +5908,9 @@ def main(opts):
     other_k2 = {k.source for k in [k2, *elman_k2, *special_k2, *bf16_k2.values()]}
     other_k2 |= {k.source for _, _, _, k, _ in k2_cases}
     tail_k2 = {kind: k for kind, k in tail_k2.items() if k.source not in other_k2}
+    build_k1(tail_k1 + list(tail_signs.values()))
+    jobs.update({f"K2 scan {kind}": pool.submit(timed, lambda k=k: k.build(verbose=True))
+                 for kind, k in tail_k2.items()})
     say(f"the tail slice's graphs: {len(tail_k1)} K1 kernels, {len(tail_signs)} floor-division "
         f"nodes, {len(tail_k2)} K2 kernel(s) of the scan rows not built for another phase; "
         f"graph, rewrite and emit in {time.perf_counter() - t0:.2f} s")
@@ -5380,6 +5920,8 @@ def main(opts):
     # every complex op K1 emits, one node a kernel, a library a dtype
     t0 = time.perf_counter()
     opt_k1, complex_one_node = optimize_kernels(dev)
+    build_k1(opt_k1, *[[k for (_, d), k in complex_one_node.items() if d == dt]
+                       for dt in ("complex64", "complex128")])
     say(f"the optimize slice's graphs: {len(opt_k1)} K1 kernels of the MAP's and the "
         f"periodogram's functions, {len(complex_one_node)} one-node complex K1 kernels; graph, "
         f"rewrite and emit in {time.perf_counter() - t0:.2f} s")
@@ -5388,49 +5930,21 @@ def main(opts):
     # functions linked for the CPU (phase 18's reference); threefry is
     # built in the pool below
     t0 = time.perf_counter()
-    random_k1, hmc_cpu = random_kernels(dev)
+    random_k1, _ = random_kernels(dev)
+    build_k1(random_k1)
     say(f"the random slice's graphs: {len(random_k1)} K1 kernels of the HMC functions; graph, "
         f"rewrite and link for the CPU in {time.perf_counter() - t0:.2f} s")
+    # phase 20's: the censored function's K1 kernels, from it linked for the CPU
+    t0 = time.perf_counter()
+    censored_k1, _ = censored_kernels(dev)
+    build_k1(censored_k1)
+    say(f"the censored slice's graph: {len(censored_k1)} K1 kernels; graph, rewrite and link for "
+        f"the CPU in {time.perf_counter() - t0:.2f} s")
 
-    def timed(fn):
-        t = time.perf_counter()
-        fn()
-        return time.perf_counter() - t
-
-    with ThreadPoolExecutor(32) as pool:
-        k1_jobs = [pool.submit(fused_kernel.build, kerns, verbose=True)
-                   for kerns in [*k1_kernels.values(), list(op_kerns.values()), model_kerns,
-                                 elman_k1, linalg_k1, *special_libs,
-                                 list(special_group_kerns.values()),
-                                 [k for k, _ in bf16_one_node.values()] + [bf16_cls],
-                                 bf16_model_k1, tail_k1 + list(tail_signs.values()), opt_k1,
-                                 random_k1,
-                                 *[[k for (_, d), k in complex_one_node.items() if d == dt]
-                                   for dt in ("complex64", "complex128")]]]
-        jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
-                "K3 stamped": pool.submit(timed, lambda: radon_kernel.build(
-                    verbose=True, flags=radon_kernel.STAMPED)),
-                "K3, rows in shared memory": pool.submit(timed, lambda: radon_kernel.build(
-                    verbose=True, flags=K3_SHARED_WALK)),
-                "K3 stamped, rows in shared memory": pool.submit(timed, lambda: radon_kernel.build(
-                    verbose=True, flags=radon_kernel.STAMPED + K3_SHARED_WALK)),
-                "K2": pool.submit(timed, lambda: k2.build(verbose=True)),
-                "K2 stamped": pool.submit(timed, lambda: k2_stamped.build(verbose=True)),
-                "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True)),
-                **loop_builds(pool, timed),
-                **{f"K2 case: {tag}": pool.submit(timed, lambda k=k: k.build(verbose=True))
-                   for tag, _, _, k, _ in k2_cases},
-                **{"K2 static BPTT": pool.submit(timed, lambda k=k: k.build(verbose=True))
-                   for k in elman_k2},
-                **{"K2 bessel loop": pool.submit(timed, lambda k=k: k.build(verbose=True))
-                   for k in special_k2},
-                **{f"K2 ewma {dt}": pool.submit(timed, lambda k=k: k.build(verbose=True))
-                   for dt, k in bf16_k2.items()},
-                **{f"K2 scan {kind}": pool.submit(timed, lambda k=k: k.build(verbose=True))
-                   for kind, k in tail_k2.items()}}
-        build_s = {tag: job.result() for tag, job in jobs.items()}
-        for job in k1_jobs:
-            job.result()
+    build_s = {tag: job.result() for tag, job in jobs.items()}
+    for job in k1_jobs:
+        job.result()
+    pool.shutdown()
     logs = {"K3": radon_kernel.BUILD_LOGS[()],
             "K3 stamped": radon_kernel.BUILD_LOGS[radon_kernel.STAMPED],
             "K3, rows in shared memory": radon_kernel.BUILD_LOGS[K3_SHARED_WALK],
@@ -5444,6 +5958,8 @@ def main(opts):
             **{f"K2 ewma {dt}": k.build_log for dt, k in bf16_k2.items()},
             **{f"K2 scan {kind}": k.build_log for kind, k in tail_k2.items()}}
     say_builds(logs, build_s)
+    # the references of phases 18 and 20 on the host's CPU, beside phases 3-19
+    _, hmc_reference, censored_reference = start_references()
     # K1: one library for the kernels of a linked function that no library
     # holds yet; the chain's were built when phase 2 linked it, each slice
     # graph's in the pool above
@@ -5463,6 +5979,7 @@ def main(opts):
             th = np.tile(th, (chains, 1))
         return (th + 0.1 * rng.standard_normal(th.shape)).astype(dtype)
 
+    lap(2)
     # 3. K1 -----------------------------------------------------------------
     k1 = {"max_abs_err": 0.0}
     t0 = time.perf_counter()
@@ -5584,6 +6101,7 @@ def main(opts):
             f"a launch")
     say(f"K1 phase done in {time.perf_counter() - t0:.1f} s")
 
+    lap(3)
     # 4. K3 -----------------------------------------------------------------
     fn3, th0, m0, _ = radon_kernel.make_radon_leapfrog_kernel(
         K3_STEPS, N_OBS, N_COUNTIES, EPS, device=dev)
@@ -5660,6 +6178,7 @@ def main(opts):
     k3_stamp_breakdown(fn3.data, th0_d, m0_d, got, k3_shared_ms,
                        "K3 with rows in shared memory", K3_SHARED_WALK)
 
+    lap(4)
     # 5. slice --------------------------------------------------------------
     fn, (theta0,) = entry("cuda")
     _, fn_b, n = linked("float32", batched=True)
@@ -5728,6 +6247,7 @@ def main(opts):
     say(f"leapfrog() {LEAPFROG_STEPS} steps via the linked graph: logp {float(lf_lp):.6f}, "
         f"rel err vs analytic chain {lf_err}")
 
+    lap(5)
     # 6. K2 against plain ---------------------------------------------------
     # the Scan node's outer inputs, computed on the card from K3's start
     feed = fgraph_to_torch(FunctionGraph(chain64.fgraph.inputs, scan_node.inputs,
@@ -5787,6 +6307,7 @@ def main(opts):
             f"{err_c:.2e} (tol {K2_CASE_TOL:g}); {kern_c.src.n_ops} loops, "
             f"{kern_c.src.n_barriers} barriers a step")
 
+    lap(6)
     # 7. chain through scan + function() --------------------------------------
     chain = make_leapfrog_chain("float32", None, CHAIN_STEPS, N_OBS, N_COUNTIES, device=dev)
     chain(th0_d, m0_d)  # the capturing call; the counted call is a replay
@@ -5850,6 +6371,7 @@ def main(opts):
     say(f"batched chain x{N_CHAINS}, {BATCH_STEPS} steps (step loop): sum logp "
         f"{float(b_out[2]):.3f}; rel err vs K3 {_fmt(b_err)} (tol {BATCH_RTOL})")
 
+    lap(7)
     # 8. profile -------------------------------------------------------------
     theta_b_d = as_torch(theta_b, dev)
     theta_d, m_d = as_torch(theta, dev), as_torch(m_start, dev)
@@ -5908,7 +6430,8 @@ def main(opts):
         f"of eager's in this process")
     # the longest capture of the path: a float64 chain through the step
     # loop, ~120 nodes a step
-    long_chain = make_leapfrog_chain("float64", None, K3_STEPS, N_OBS, N_COUNTIES, device=dev)
+    long_chain = make_leapfrog_chain("float64", None, LONG_CAPTURE_STEPS, N_OBS, N_COUNTIES,
+                                     device=dev)
     th64, m64 = th0_d.double(), m0_d.double()
     long_first = long_chain(th64, m64)
     long_wall = wall_ms(lambda: long_chain(th64, m64), 2, warmup=1)
@@ -5918,7 +6441,7 @@ def main(opts):
     long_err = {k: rel_err(a.cpu(), b.cpu()) for k, a, b in zip(keys, long_again, long_first)}
     if not all(bool(torch.isfinite(v).all()) for v in long_again):
         raise AssertionError("the replayed float64 chain is not finite")
-    say(f"longest capture: float64 chain of {K3_STEPS} steps through the step loop: "
+    say(f"longest capture: float64 chain of {LONG_CAPTURE_STEPS} steps through the step loop: "
         f"{g_long.nodes} nodes, warm-up {g_long.warmup_s:.2f} s, capture {g_long.capture_s:.2f} s "
         f"({g_long.capture_s / g_long.nodes * 1e6:.1f} us a node); replay wall {long_wall:.2f} "
         f"ms/call; replay vs the warm-up's outputs, rel err {_fmt(long_err)} (index_add_ adds "
@@ -5957,6 +6480,7 @@ def main(opts):
         f"{k2_ms / K2_STEPS * 1e3:.2f} us/step device, {k2_wall / K2_STEPS * 1e3:.2f} "
         f"us/step wall")
 
+    lap(8)
     # 9. K4 at full size ---------------------------------------------------------
     t0 = time.perf_counter()
     n = SPARSE_N
@@ -6032,6 +6556,7 @@ def main(opts):
         else:
             k4["max_abs_err"] = max(k4["max_abs_err"], float(diff.max()))
 
+    lap(9)
     # 10. the sparse slice: gradient function and the power iteration ----------
     A_var = as_sparse_variable(A)
     x_var = pt.tensor("x", dtype="float32", shape=(n,))
@@ -6138,21 +6663,25 @@ def main(opts):
         say(f"K4 inside the power iteration: {k4_power[0][0] / k4_power[0][1] * 1e3:.2f} us a "
             f"launch (device), {k4_power[0][1]:.0f} launches a call")
 
+    lap(10)
     # 11. models ----------------------------------------------------------
     model_launches, k1_model_abs = phase_models(dev, smi)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_model_abs)
 
+    lap(11)
     # 12. the Elman RNN BPTT step ------------------------------------------
     elman_launches, k1_elman_abs, k2_elman_abs = phase_elman(dev, smi)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_elman_abs)
     k2_abs = max(k2_abs, k2_elman_abs)
     model_launches.update(elman_launches)
 
+    lap(12)
     # 13. the linalg slice: GP, Kalman, batched Cholesky ---------------------
     linalg_launches, k1_linalg_abs = phase_linalg(dev, smi)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_linalg_abs)
     model_launches.update(linalg_launches)
 
+    lap(13)
     # 14. the special functions and the bessel loop ------------------------
     special_launches, k1_special_abs, k2_special_abs, _, _ = phase_special(dev, smi,
                                                                           special_one_node)
@@ -6162,6 +6691,7 @@ def main(opts):
         kind: sum(v[kind] for v in special_launches.values())
         for kind in ("fused_elemwise", "scan_whole_loop")}
 
+    lap(14)
     # 15. bfloat16 -----------------------------------------------------------
     bf16_launches, k1_bf16_abs, k2_bf16_abs, bf16_rows = phase_bf16(dev, smi, bf16_one_node,
                                                                     bf16_cls)
@@ -6173,25 +6703,38 @@ def main(opts):
                     "bound_ms": b, "bound_by": by, "bound_one_sm_ms": b * n_sms}
                for dt, (ms, p, b, by) in bf16_rows["k2"].items()}
 
+    lap(15)
     # 16. the tensor library's tail: the einsum loop, the scan rows --------
     tail_launches, k1_tail_abs, k2_tail_abs, tail_rows = phase_tail(dev, smi, tail_signs)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_tail_abs)
     k2_abs = max(k2_abs, k2_tail_abs)
     model_launches.update(tail_launches)
 
+    lap(16)
     # 17. tensor/optimize.py and the complex ops -------------------------------
     opt_launches, k1_opt_abs, opt_rows = phase_optimize(dev, smi, complex_one_node)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_opt_abs)
     model_launches.update(opt_launches)
 
+    lap(17)
     # 18. random and HMC ----------------------------------------------------------
-    random_launches, k1_random_abs, random_rows = phase_random(dev, smi, hmc_cpu, opts.parent)
+    random_launches, k1_random_abs, random_rows = phase_random(dev, smi, hmc_reference,
+                                                               opts.parent)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_random_abs)
     model_launches.update(random_launches)
     main_draw = random_rows["threefry"]["folded normal 256x89"]
 
+    lap(18)
     # 19. jax's loop samplers and the RBM Gibbs chain ----------------------------
     loop_launches, loop_rows = phase_loops(dev, smi, build_s["stamped"], opts.parent)
+    lap(19)
+
+    # 20. a censored-likelihood gradient: the shape-parameter gradients ----------
+    censored_launches, k1_censored_abs, censored_row = phase_censored(dev, smi,
+                                                                     censored_reference)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_censored_abs)
+    model_launches.update(censored_launches)
+    lap(20)
     loop_entries = []
     for kname, timed_at in (("gamma", "gamma 2e20"), ("poisson", "poisson 2e20"),
                             ("binomial", "binomial gibbs visible")):
@@ -6271,8 +6814,29 @@ def main(opts):
          "draws": random_rows["threefry"], "hmc": random_rows["hmc"]},
         *loop_entries,
     ]
+    # each op's line in the JAX package (its lowering is jax.grad of the
+    # fraction or series, _betainc_grad_jax, _gammainc_grad_k_jax,
+    # _hyp2f1_grad_jax, which K1's pallas_call holds)
+    grad_lines = {"betainc_dda": 422, "betainc_ddb": 424, "gammainc_ddk": 529,
+                  "gammaincc_ddk": 531, "hyp2f1_dda": 631, "hyp2f1_ddb": 633, "hyp2f1_ddc": 635}
+    for name, line in grad_lines.items():
+        r = GRAD_ROWS[name]
+        kernels.append({
+            "name": f"{name} (K1 device function)", "route": "cuda",
+            "source": "pytensor_tpu_torch/link/cuda/special.py",
+            "replaces": f"pytensor_tpu/tensor/fused.py:88 (K1's pallas_call, holding "
+                        f"pytensor_tpu/scalar/math.py:{line}'s jax.grad)",
+            "launches": censored_row["by_grad"].get(name, 0) + GRAD_PATH_LAUNCHES.get(name, 0),
+            "launches_by_path": {"censored": censored_row["by_grad"].get(name, 0),
+                                 "special gradients": GRAD_PATH_LAUNCHES.get(name, 0)},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "timed_at": f"one-node K1 launch, {GRAD_N:,} float64 elements",
+            "fp64_instructions_an_iteration": GRAD_FP64[name]})
+    kernels[0]["censored"] = censored_row
     for entry in kernels:
         within_bound(entry["name"], entry)
+    say("phase seconds: " + json.dumps({k: round(v, 1) for k, v in lap.seconds.items()}))
     say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -1,8 +1,8 @@
 """Typed configuration flags.
 
 The port's copy of the config system (PyTensor's configparser.py:65
-``PyTensorConfigParser`` and configdefaults.py), cut to the five flags the
-port reads: ``floatX``, ``mode``, ``sparse__routed_spmv``,
+``PyTensorConfigParser`` and configdefaults.py), cut to the six flags the
+port reads: ``floatX``, ``cast_policy``, ``mode``, ``sparse__routed_spmv``,
 ``scan__pallas`` and ``xla__jit``.  A flag's value
 comes from ``PYTENSOR_TPU_TORCH_FLAGS`` (``name=value,...``) if set there,
 else its default, and may be assigned later or set for a block with
@@ -115,6 +115,13 @@ config = Config()
 config.add(
     "floatX",
     EnumStr("float32", ("float64", "bfloat16"), doc="Default float dtype for literals."),
+)
+config.add(
+    "cast_policy",
+    EnumStr("custom", ("numpy+floatX", "numpy"),
+            doc="How python literals are cast (scalar/compatnames.py NumpyAutocaster): "
+                "custom, the smallest dtype that holds the value; the name, options "
+                "and default are the JAX package's."),
 )
 config.add(
     "mode",

@@ -231,7 +231,16 @@ SPECIAL_GRIDS = {
     "iv": [(-5.5, 10), (0.01, 30)], "ive": [(-5.5, 40), (0.001, 500)],
     "jv": [(-5.5, 20), (0.01, 100)], "yv": [(-5.5, 20), (0.01, 100)],
     "kve": [(-5.5, 40), (0.001, 500)], "kv": [(-5.5, 10), (0.01, 30)],
+    "betainc_dda": [(0.5, 5), (0.5, 5), (0, 1)], "betainc_ddb": [(0.5, 5), (0.5, 5), (0, 1)],
+    "gammainc_ddk": [(0.5, 5), (0.1, 8)], "gammaincc_ddk": [(0.5, 5), (0.1, 8)],
+    "hyp2f1_dda": [(0.5, 2), (0.5, 2), (1, 3), (-0.8, 0.8)],
+    "hyp2f1_ddb": [(0.5, 2), (0.5, 2), (1, 3), (-0.8, 0.8)],
+    "hyp2f1_ddc": [(0.5, 2), (0.5, 2), (1, 3), (-0.8, 0.8)],
 }
+# the shape-parameter gradients, whose oracle is the op's own: central
+# differences of scipy's function
+GRAD_OPS = ("betainc_dda", "betainc_ddb", "gammainc_ddk", "gammaincc_ddk", "hyp2f1_dda",
+            "hyp2f1_ddb", "hyp2f1_ddc")
 BESSEL_OPS = ("iv", "ive", "jv", "yv", "kve", "kv")
 # tests/test_bessel_native.py:21-24
 BESSEL_V = np.array([-10.3, -5.0, -2.0, -0.5, 0.0, 0.3, 1.0, 2.7, 5.0, 10.3, 20.0, 40.0])
@@ -298,6 +307,10 @@ def scipy_special(name, args):
             return np.logaddexp(0.0, a[0])
         if name == "log1mexp":
             return np.log(-np.expm1(a[0]))
+        if name in GRAD_OPS:
+            from pytensor_tpu_torch.scalar import math as psm
+
+            return getattr(psm, name).np_fn(*a)
         return getattr(sps, name)(*a)
 
 

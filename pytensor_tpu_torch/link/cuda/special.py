@@ -21,7 +21,16 @@ form for float32).  The rest is written here:
   x = 2 or Steed's CF2 above, the Wronskian, the upward recurrence),
   ``J``/``Y`` (``:366 _jy_core``, with the complex CF2), their
   asymptotic expansions above max(90, 3 v^2) and scipy's contracts at
-  x <= 0 and for negative order (``:297-360``).
+  x <= 0 and for negative order (``:297-360``);
+- the seven shape-parameter gradients (``betainc_dda``, ``betainc_ddb``,
+  ``gammainc_ddk``, ``gammaincc_ddk``, ``hyp2f1_dda``, ``hyp2f1_ddb``,
+  ``hyp2f1_ddc``; the JAX package's ``jax.grad`` of its fixed-count
+  fractions and series, ``pytensor_tpu/scalar/math.py:332-635``) in
+  forward mode: a dual (value, derivative in the one parameter, and two
+  flags that give the reverse pass's NaN where a select cuts a branch
+  off) through the same count of iterations, no early exit; each loop's
+  body is a function of its own (``GRAD_STEPS``, which a probe of its
+  SASS counts).
 
 The JAX package evaluates each continued fraction over the whole array
 until every lane has converged; here each thread loops until its own
@@ -615,6 +624,258 @@ __device__ __noinline__ double ks_yv(double v, double x) {
 __device__ __forceinline__ float ks_yv(float v, float x) { return (float)ks_yv((double)v, (double)x); }
 """ % {"xser": X_SERIES, "xasym": X_ASYM, "terms": ASYM_TERMS}
 
+# the JAX package's fixed counts (pytensor_tpu/scalar/math.py:332, :444, :561)
+GRAD_ITERATIONS = {"betainc": 128, "gammainc": 128, "hyp2f1": 256}
+# each gradient's loop bodies, one iteration each (a probe of their SASS
+# counts an iteration's FP64-pipe instructions): calls over the loaded
+# operands ``a[0..3]`` (double) and duals ``d[0..3]``, mutated in place
+GRAD_STEPS = {
+    "betainc_dda": ("ks_dbetacf_step(ks_param(a[0]), a[1], a[2], a[3], d[0], d[1], d[2])",
+                    "ks_dbetacf_step(a[1], ks_param(a[0]), a[2], a[3], d[0], d[1], d[2])"),
+    "betainc_ddb": ("ks_dbetacf_step(a[0], ks_param(a[1]), a[2], a[3], d[0], d[1], d[2])",
+                    "ks_dbetacf_step(ks_param(a[1]), a[0], a[2], a[3], d[0], d[1], d[2])"),
+    "gammainc_ddk": ("ks_dgser_step(ks_param(a[0]), d[3], a[1], d[0], d[1])",
+                     "ks_dgcf_step(ks_param(a[0]), a[1], d[0], d[1], d[2], d[3])"),
+    "hyp2f1_dda": ("ks_dhyp2f1_step(ks_param(a[0]), a[1], a[2], a[3], a[1], d[0], d[1])",),
+    "hyp2f1_ddb": ("ks_dhyp2f1_step(a[0], ks_param(a[1]), a[2], a[3], a[1], d[0], d[1])",),
+    "hyp2f1_ddc": ("ks_dhyp2f1_step(a[0], a[1], ks_param(a[2]), a[3], a[1], d[0], d[1])",),
+}
+GRAD_STEPS["gammaincc_ddk"] = GRAD_STEPS["gammainc_ddk"]
+GRAD_FAMILY = {name: name.split("_")[0].replace("gammaincc", "gammainc") for name in GRAD_STEPS}
+
+_GRADS = r"""// the shape-parameter gradients: forward-mode duals (a value and its
+// derivative in the one parameter) through the JAX package's fixed-count
+// fractions and series (pytensor_tpu/scalar/math.py:332-605), no early exit
+#define KS_GTINY (2.2250738585072014e-308 * 1e6)
+// the JAX package's fixed counts of iterations
+#define KS_BETAINC_ITERS %(betainc)d
+#define KS_GAMMAINC_ITERS %(gammainc)d
+#define KS_HYP2F1_ITERS %(hyp2f1)d
+// The NaN of a reverse pass, which the plain version is: where a select
+// (where, a guard, a clip) cuts a branch off, the branch receives an exact
+// zero cotangent, whatever the partials above the select are, and the
+// partials below it turn that zero into NaN if one of them is not finite.
+// So a dual carries two flags besides its derivative: z, the derivative is
+// such an exact zero (a constant's too), and p, a partial on a path from
+// the parameter to the value is not finite.  A cut branch's contribution
+// is NaN where p, else an exact zero; the derivative itself may overflow
+// where the partials do not, and the reverse pass's zero stays 0.
+struct ks_dual { double v, d; bool z, p; };
+__device__ __forceinline__ ks_dual ks_const(double v) { return {v, 0.0, true, false}; }
+__device__ __forceinline__ ks_dual ks_param(double v) { return {v, 1.0, false, false}; }
+__device__ __forceinline__ double ks_val(double x) { return x; }
+__device__ __forceinline__ double ks_val(ks_dual x) { return x.v; }
+// partial times the derivative of t, nothing where that is an exact zero
+__device__ __forceinline__ double ks_dt(double partial, ks_dual t) {
+  return t.z ? 0.0 : partial * t.d;
+}
+// whether a path through t meets a partial that is not finite
+__device__ __forceinline__ bool ks_dp(double partial, ks_dual t) {
+  return !t.z && (t.p || !isfinite(partial));
+}
+__device__ __forceinline__ ks_dual operator+(ks_dual a, ks_dual b) {
+  return {a.v + b.v, a.d + b.d, a.z && b.z, a.p || b.p};
+}
+__device__ __forceinline__ ks_dual operator+(ks_dual a, double b) { return {a.v + b, a.d, a.z, a.p}; }
+__device__ __forceinline__ ks_dual operator+(double a, ks_dual b) { return {a + b.v, b.d, b.z, b.p}; }
+__device__ __forceinline__ ks_dual operator-(ks_dual a, ks_dual b) {
+  return {a.v - b.v, a.d - b.d, a.z && b.z, a.p || b.p};
+}
+__device__ __forceinline__ ks_dual operator-(ks_dual a, double b) { return {a.v - b, a.d, a.z, a.p}; }
+__device__ __forceinline__ ks_dual operator-(double a, ks_dual b) { return {a - b.v, -b.d, b.z, b.p}; }
+__device__ __forceinline__ ks_dual operator-(ks_dual a) { return {-a.v, -a.d, a.z, a.p}; }
+__device__ __forceinline__ ks_dual operator*(ks_dual a, ks_dual b) {
+  return {a.v * b.v, ks_dt(b.v, a) + ks_dt(a.v, b), a.z && b.z, ks_dp(b.v, a) || ks_dp(a.v, b)};
+}
+__device__ __forceinline__ ks_dual operator*(ks_dual a, double b) {
+  return {a.v * b, ks_dt(b, a), a.z, ks_dp(b, a)};
+}
+__device__ __forceinline__ ks_dual operator*(double a, ks_dual b) {
+  return {a * b.v, ks_dt(a, b), b.z, ks_dp(a, b)};
+}
+// the quotient's derivative as torch's: a' / b - b' (a / b) / b
+__device__ __forceinline__ ks_dual operator/(ks_dual a, ks_dual b) {
+  const double q = a.v / b.v, r = 1.0 / b.v, s = q / b.v;
+  return {q, (a.z ? 0.0 : a.d / b.v) - ks_dt(s, b), a.z && b.z, ks_dp(r, a) || ks_dp(s, b)};
+}
+__device__ __forceinline__ ks_dual operator/(ks_dual a, double b) {
+  return {a.v / b, a.z ? 0.0 : a.d / b, a.z, ks_dp(1.0 / b, a)};
+}
+__device__ __forceinline__ ks_dual operator/(double a, ks_dual b) {
+  const double q = a / b.v, s = q / b.v;
+  return {q, -ks_dt(s, b), b.z, ks_dp(s, b)};
+}
+__device__ __forceinline__ double ks_dexp(double x) { return exp(x); }
+__device__ __forceinline__ ks_dual ks_dexp(ks_dual x) {
+  const double e = exp(x.v);
+  return {e, ks_dt(e, x), x.z, ks_dp(e, x)};
+}
+__device__ __forceinline__ double ks_dlog(double x) { return log(x); }
+__device__ __forceinline__ ks_dual ks_dlog(ks_dual x) {
+  return {log(x.v), x.z ? 0.0 : x.d / x.v, x.z, ks_dp(1.0 / x.v, x)};
+}
+__device__ __forceinline__ double ks_dlgamma(double x) { return lgamma(x); }
+__device__ __forceinline__ ks_dual ks_dlgamma(ks_dual x) {
+  const double psi = ks_psi(x.v);
+  return {lgamma(x.v), ks_dt(psi, x), x.z, ks_dp(psi, x)};
+}
+// the value c, the derivative of t cut off by a select: an exact zero, or
+// NaN where a partial on t's paths is not finite
+__device__ __forceinline__ ks_dual ks_cut(double c, ks_dual t) {
+  return {c, t.p ? (double)NAN : 0.0, !t.p, t.p};
+}
+// where(c, a, b)
+__device__ __forceinline__ ks_dual ks_dwhere(bool c, ks_dual a, ks_dual b) {
+  const ks_dual r = c ? a : b, cut = ks_cut(0.0, c ? b : a);
+  return {r.v, r.d + cut.d, r.z && cut.z, r.p || cut.p};
+}
+// where(|t| < tiny, tiny, t)
+__device__ __forceinline__ ks_dual ks_dguard(ks_dual t) {
+  return fabs(t.v) < KS_GTINY ? ks_cut(KS_GTINY, t) : t;
+}
+__device__ __forceinline__ double ks_dguard(double t) { return fabs(t) < KS_GTINY ? KS_GTINY : t; }
+// torch.maximum / torch.minimum with a constant (jnp.clip's halves): half
+// the derivative at a tie, the side cut off as by a where, NaN kept
+__device__ __forceinline__ ks_dual ks_dmax(ks_dual x, double c) {
+  return x.v < c ? ks_cut(c, x) : x.v == c ? ks_dual{c, 0.5 * x.d, x.z, x.p} : x;
+}
+__device__ __forceinline__ ks_dual ks_dmin(ks_dual x, double c) {
+  return x.v > c ? ks_cut(c, x) : x.v == c ? ks_dual{c, 0.5 * x.d, x.z, x.p} : x;
+}
+__device__ __forceinline__ double ks_cmax(double x, double c) { return x < c ? c : x; }
+__device__ __forceinline__ double ks_cmin(double x, double c) { return x > c ? c : x; }
+
+// one iteration of the incomplete beta's Lentz fraction (_betainc_cf_jax's
+// betacf body), the m-th
+template <typename A, typename B>
+__device__ __forceinline__ void ks_dbetacf_step(A a, B b, double x, double md, ks_dual& c,
+                                                ks_dual& d, ks_dual& h) {
+  const ks_dual qab = a + b;
+  const A qap = a + 1.0, qam = a - 1.0;
+  const double m2 = 2.0 * md;
+  ks_dual aa = md * (b - md) * x / ((qam + m2) * (a + m2));
+  d = ks_dguard(1.0 + aa * d);
+  c = 1.0 + aa / ks_dguard(c);
+  d = 1.0 / d;
+  h = h * d * c;
+  aa = -(a + md) * (qab + md) * x / ((a + m2) * (qap + m2));
+  d = ks_dguard(1.0 + aa * d);
+  c = 1.0 + aa / ks_dguard(c);
+  d = 1.0 / d;
+  h = h * d * c;
+}
+// the fraction, N iterations
+template <int N, typename A, typename B> __device__ ks_dual ks_dbetacf(A a, B b, double x) {
+  ks_dual c = ks_const(1.0), d = 1.0 / ks_dguard(1.0 - (a + b) * x / (a + 1.0)), h = d;
+  for (int m = 1; m <= N; ++m) ks_dbetacf_step(a, b, x, (double)m, c, d, h);
+  return h;
+}
+// d I_x(a, b) in the parameter that is the dual, through _betainc_cf_jax
+template <int N, typename A, typename B> __device__ double ks_dbetainc(A a, B b, double x) {
+  const ks_dual lbeta = ks_dlgamma(a + b) - ks_dlgamma(a) - ks_dlgamma(b);
+  const double xs = ks_cmin(ks_cmax(x, KS_GTINY), 1.0 - KS_GTINY);
+  const ks_dual bt = ks_dexp(a * log(xs) + b * log1p(-xs) + lbeta);
+  const ks_dual direct = bt * ks_dbetacf<N>(a, b, xs) / a;
+  const ks_dual flipped = 1.0 - bt * ks_dbetacf<N>(b, a, 1.0 - xs) / b;
+  const bool use = xs < ks_val((a + 1.0) / (a + b + 2.0));
+  return ks_dmin(ks_dmax(ks_dwhere(use, direct, flipped), 0.0), 1.0).d;
+}
+__device__ __noinline__ double ks_betainc_dda(double a, double b, double x) {
+  return ks_dbetainc<KS_BETAINC_ITERS>(ks_param(a), b, x);
+}
+__device__ __noinline__ double ks_betainc_ddb(double a, double b, double x) {
+  return ks_dbetainc<KS_BETAINC_ITERS>(a, ks_param(b), x);
+}
+__device__ __forceinline__ float ks_betainc_dda(float a, float b, float x) {
+  return (float)ks_betainc_dda((double)a, (double)b, (double)x);
+}
+__device__ __forceinline__ float ks_betainc_ddb(float a, float b, float x) {
+  return (float)ks_betainc_ddb((double)a, (double)b, (double)x);
+}
+
+// one term of the incomplete gamma's series (_gammainc_native_jax's
+// series body), the n-th
+__device__ __forceinline__ void ks_dgser_step(ks_dual k, ks_dual x, double n, ks_dual& term,
+                                              ks_dual& total) {
+  term = term * x / (k + n);
+  total = total + term;
+}
+// one step of the Lentz fraction of its complement (contfrac's body), the i-th
+__device__ __forceinline__ void ks_dgcf_step(ks_dual k, double i, ks_dual& b, ks_dual& c,
+                                             ks_dual& d, ks_dual& h) {
+  const ks_dual an = -i * (i - k);
+  b = b + 2.0;
+  d = ks_dguard(an * d + b);
+  c = ks_dguard(b + an / ks_dguard(c));
+  d = 1.0 / d;
+  h = h * d * c;
+}
+// d P(k, x) / dk through _gammainc_native_jax: N terms of the series and N
+// steps of the fraction, both at safe arguments, selected
+template <int N> __device__ double ks_dgammainc(double kv, double x) {
+  const ks_dual k = ks_param(kv);
+  const double xs = ks_cmax(x, KS_GTINY);
+  const bool use = xs < kv + 1.0;
+  const ks_dual xser = ks_dwhere(use, ks_const(xs), k + 0.5);
+  const ks_dual xcf = ks_dwhere(use, k + 1.5, ks_const(xs));
+  ks_dual term = ks_const(1.0), total = term;
+  for (int n = 1; n <= N; ++n) ks_dgser_step(k, xser, (double)n, term, total);
+  const ks_dual pser = ks_dexp(k * ks_dlog(xser) - xser - ks_dlgamma(k + 1.0)) * total;
+  ks_dual b = xcf + 1.0 - k, d = 1.0 / ks_dguard(b), h = d;
+  ks_dual c = ks_const(1.0 / KS_GTINY);
+  for (int i = 1; i <= N; ++i) ks_dgcf_step(k, (double)i, b, c, d, h);
+  const ks_dual pcf = 1.0 - ks_dexp(k * ks_dlog(xcf) - xcf - ks_dlgamma(k)) * h;
+  return ks_dmin(ks_dmax(ks_dwhere(use, pser, pcf), 0.0), 1.0).d;
+}
+__device__ __noinline__ double ks_gammainc_ddk(double k, double x) {
+  return ks_dgammainc<KS_GAMMAINC_ITERS>(k, x);
+}
+__device__ __forceinline__ double ks_gammaincc_ddk(double k, double x) {
+  return -1.0 * ks_gammainc_ddk(k, x);
+}
+__device__ __forceinline__ float ks_gammainc_ddk(float k, float x) {
+  return (float)ks_gammainc_ddk((double)k, (double)x);
+}
+__device__ __forceinline__ float ks_gammaincc_ddk(float k, float x) {
+  return (float)ks_gammaincc_ddk((double)k, (double)x);
+}
+
+// one term of the Gauss series (_hyp2f1_series_jax's body), the n-th past the first
+template <typename A, typename B, typename C>
+__device__ __forceinline__ void ks_dhyp2f1_step(A a, B b, C c, double z, double nd,
+                                                ks_dual& term, ks_dual& total) {
+  term = term * (a + nd) * (b + nd) / ((c + nd) * (nd + 1.0)) * z;
+  total = total + term;
+}
+// d 2F1 in the parameter that is the dual: N terms of the Gauss series past
+// the first, at z clipped to +-0.92 (_hyp2f1_series_jax)
+template <int N, typename A, typename B, typename C>
+__device__ double ks_dhyp2f1(A a, B b, C c, double z) {
+  z = z != z ? z : ks_cmin(ks_cmax(z, -0.92), 0.92);
+  ks_dual term = ks_const(1.0), total = term;
+  for (int n = 0; n < N; ++n) ks_dhyp2f1_step(a, b, c, z, (double)n, term, total);
+  return total.d;
+}
+__device__ __noinline__ double ks_hyp2f1_dda(double a, double b, double c, double z) {
+  return ks_dhyp2f1<KS_HYP2F1_ITERS>(ks_param(a), b, c, z);
+}
+__device__ __noinline__ double ks_hyp2f1_ddb(double a, double b, double c, double z) {
+  return ks_dhyp2f1<KS_HYP2F1_ITERS>(a, ks_param(b), c, z);
+}
+__device__ __noinline__ double ks_hyp2f1_ddc(double a, double b, double c, double z) {
+  return ks_dhyp2f1<KS_HYP2F1_ITERS>(a, b, ks_param(c), z);
+}
+__device__ __forceinline__ float ks_hyp2f1_dda(float a, float b, float c, float z) {
+  return (float)ks_hyp2f1_dda((double)a, (double)b, (double)c, (double)z);
+}
+__device__ __forceinline__ float ks_hyp2f1_ddb(float a, float b, float c, float z) {
+  return (float)ks_hyp2f1_ddb((double)a, (double)b, (double)c, (double)z);
+}
+__device__ __forceinline__ float ks_hyp2f1_ddc(float a, float b, float c, float z) {
+  return (float)ks_hyp2f1_ddc((double)a, (double)b, (double)c, (double)z);
+}
+""" % GRAD_ITERATIONS
+
 # name -> source; a source's place in this order puts it after what it calls
 HELPERS = {
     "ks_base": _BASE,
@@ -627,6 +888,7 @@ HELPERS = {
     "ks_softplus": _ELEMENTARY,
     "ks_kve": _IK,
     "ks_jv": _JY,
+    "ks_grads": _GRADS,
 }
 # the other helpers each one calls
 NEEDS = {
@@ -639,6 +901,7 @@ NEEDS = {
     "ks_softplus": ("ks_base",),
     "ks_kve": ("ks_base",),
     "ks_jv": ("ks_base", "ks_kve"),
+    "ks_grads": ("ks_base", "ks_psi"),
 }
 # the entry points each helper defines, by which an expression calls it
 ENTRIES = {
@@ -650,6 +913,8 @@ ENTRIES = {
                     "ks_betaln"),
     "ks_kve": ("ks_kve", "ks_kv", "ks_ive", "ks_iv"),
     "ks_jv": ("ks_jv", "ks_yv"),
+    "ks_grads": ("ks_betainc_dda", "ks_betainc_ddb", "ks_gammainc_ddk", "ks_gammaincc_ddk",
+                 "ks_hyp2f1_dda", "ks_hyp2f1_ddb", "ks_hyp2f1_ddc"),
     "ks_base": ("ks_lgamma", "ks_tgamma", "ks_exp", "ks_log", "ks_log1p", "ks_expm1"),
 }
 
@@ -711,6 +976,13 @@ CEXPR = {
     "ndtri": _lib("normcdfinvf", "normcdfinv"),
     "ndtri_exp": lambda a, t: (f"{'normcdfinvf(expf' if t == 'float32' else 'normcdfinv(exp'}"
                                f"({a[0]}))"),
+    "betainc_dda": _call("ks_betainc_dda"),
+    "betainc_ddb": _call("ks_betainc_ddb"),
+    "gammainc_ddk": _call("ks_gammainc_ddk"),
+    "gammaincc_ddk": _call("ks_gammaincc_ddk"),
+    "hyp2f1_dda": _call("ks_hyp2f1_dda"),
+    "hyp2f1_ddb": _call("ks_hyp2f1_ddb"),
+    "hyp2f1_ddc": _call("ks_hyp2f1_ddc"),
     # chi2sf(x, k) = Q(k / 2, x / 2)
     "chi2sf": lambda a, t: (f"ks_gammaincc(({_cast(t)})0.5 * {a[1]}, "
                             f"({_cast(t)})0.5 * {a[0]})"),

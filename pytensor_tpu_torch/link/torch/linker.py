@@ -391,6 +391,7 @@ def _capture(plan, args):
     del warm
     t1 = time.perf_counter()
     before = [k.LAUNCHES for k in _KERNELS]
+    before_ops = fused_kernel.OP_LAUNCHES.copy()
     nodes = NODES_RUN
     graph = torch.cuda.CUDAGraph()
     try:
@@ -406,6 +407,11 @@ def _capture(plan, args):
     launches = [(k, k.LAUNCHES - n) for k, n in zip(_KERNELS, before) if k.LAUNCHES != n]
     for k, n in zip(_KERNELS, before):
         k.LAUNCHES = n
+    ops = fused_kernel.OP_LAUNCHES - before_ops
+    if ops:
+        launches.append((fused_kernel.OP_LAUNCHES, ops))
+        fused_kernel.OP_LAUNCHES.clear()
+        fused_kernel.OP_LAUNCHES.update(before_ops)
     return CapturedGraph(graph, inputs, outputs, launches, NODES_RUN - nodes, t1 - t0,
                          time.perf_counter() - t1), first
 
@@ -413,8 +419,9 @@ def _capture(plan, args):
 class CapturedGraph:
     """One capture of a plan: the static input buffers, the CUDA graph,
     its outputs (in the graph's memory pool), the kernel launches a replay
-    makes, the nodes the capture ran, and the seconds of the warm-up and
-    of the capture."""
+    makes (a kernel module and its count, or K1's ``OP_LAUNCHES`` and the
+    counts by device function), the nodes the capture ran, and the seconds
+    of the warm-up and of the capture."""
 
     def __init__(self, graph, inputs, outputs, launches, nodes, warmup_s, capture_s):
         self.graph = graph
@@ -436,7 +443,10 @@ class CapturedGraph:
         outputs, which the next replay overwrites."""
         self.graph.replay()
         for kernel, n in self.launches:
-            kernel.LAUNCHES += n
+            if kernel is fused_kernel.OP_LAUNCHES:
+                kernel.update(n)
+            else:
+                kernel.LAUNCHES += n
         return self.outputs
 
 

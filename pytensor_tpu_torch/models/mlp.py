@@ -120,7 +120,7 @@ def _to_bf16(x):
     return np.asarray(x).astype("float32").astype(ml_dtypes.bfloat16).astype("float64")
 
 
-def mlp_mfu_reference(X, T, Ws, lr, steps, masks=None, bf16=False):
+def mlp_mfu_reference(X, T, Ws, lr, steps, masks=None, bf16=False, device=None):
     """The MFU step's SGD steps in float64 NumPy, independent of the graph:
     the check the linked step is held to.  Returns the loss of each step
     (before its update), the weights after each step and the gradients of
@@ -138,7 +138,13 @@ def mlp_mfu_reference(X, T, Ws, lr, steps, masks=None, bf16=False):
     float64.  A bfloat16 network's gradients differ from a float64
     network's by far more than bfloat16's rounding (a gradient is a sum
     over the batch that cancels, and the forward pass's rounding enters
-    each term), so the bfloat16 step is held to this one."""
+    each term), so the bfloat16 step is held to this one.
+
+    With ``device`` (and not ``bf16``) the same float64 steps run as torch
+    ops on that device (on a card, float64 GEMMs: seconds of a host's CPU
+    become milliseconds); the results are numpy arrays either way."""
+    if device is not None and not bf16:
+        return _mfu_reference_torch(X, T, Ws, lr, steps, masks, device)
     r = _to_bf16 if bf16 else (lambda x: x)
     Ws, X, T = [_f64(W) for W in Ws], _f64(X), _f64(T)
     lr = float(r(lr))
@@ -161,6 +167,35 @@ def mlp_mfu_reference(X, T, Ws, lr, steps, masks=None, bf16=False):
         Ws = [r(W - r(lr * gW)) for W, gW in zip(Ws, grads)]
         after.append(Ws)
     return losses, after, first
+
+
+def _mfu_reference_torch(X, T, Ws, lr, steps, masks, device):
+    """``mlp_mfu_reference``'s float64 steps in torch ops on ``device``."""
+    def f64(v):
+        return torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                               device=device).double()
+
+    Ws, X, T = [f64(W) for W in Ws], f64(X), f64(T)
+    masks = None if masks is None else [torch.as_tensor(m, device=device) for m in masks]
+    losses, after, first = [], [], None
+    for step in range(steps):
+        hs, acts = [X], []
+        for W in Ws:
+            acts.append(hs[-1] @ W)
+            hs.append(torch.clamp(acts[-1], min=0.0))
+        diff = hs[-1] - T
+        losses.append(float(torch.mean(diff * diff)))
+        g = 2.0 * diff / diff.numel()
+        grads = [None] * len(Ws)
+        for i in reversed(range(len(Ws))):
+            # the gradient of maximum(a, 0) at a >= 0
+            ga = g * (acts[i] >= 0 if masks is None or step else masks[i])
+            grads[i] = hs[i].T @ ga
+            g = ga @ Ws[i].T
+        first = grads if first is None else first
+        Ws = [W - lr * gW for W, gW in zip(Ws, grads)]
+        after.append([W.cpu().numpy() for W in Ws])
+    return losses, after, [g.cpu().numpy() for g in first]
 
 
 def make_gemm_chain(batch=8192, d=8192, nmat=4, dtype="bfloat16", seed=0,

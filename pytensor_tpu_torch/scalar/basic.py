@@ -15,7 +15,6 @@ whole-loop scan kernel (``link/cuda/scan_kernel.py``).
 
 from __future__ import annotations
 
-import builtins
 from typing import Callable
 
 import numpy as np
@@ -708,57 +707,12 @@ def _is_discrete(x):
 
 
 # ---------------------------------------------------------------------------
-# literal autocasting (PyTensor's scalar/basic.py:94 NumpyAutocaster)
+# literal autocasting: the one NumpyAutocaster, in scalar/compatnames.py
 # ---------------------------------------------------------------------------
 
-class NumpyAutocaster:
-    """Cast python ints/floats to numpy values (PyTensor's 'custom' policy).
-
-    The first dtype of ``self.dtypes`` that represents the value without
-    precision loss wins; float literals go to floatX directly when floatX
-    is not float64.
-    """
-
-    def __init__(self, dtypes):
-        self.dtypes = tuple(dtypes)
-
-    def __call__(self, x):
-        try:
-            if str(x.dtype) in self.dtypes:
-                return np.asarray(x)
-        except AttributeError:
-            pass
-        if (isinstance(x, builtins.float)
-                and config.floatX in self.dtypes
-                and config.floatX != "float64"):
-            return np.asarray(x, dtype=config.floatX)
-        x_ = np.asarray(x)
-        last = x_
-        for dtype in self.dtypes:
-            if dtype == "float16":
-                continue
-            cand = x_.astype(dtype)
-            if np.array_equal(x_, cand):
-                return cand
-            last = cand
-        if isinstance(x, builtins.int):
-            # no listed int dtype holds the value exactly: keep numpy's choice
-            return x_
-        return last
-
-
-autocast_int = NumpyAutocaster(int_types)
-autocast_float = NumpyAutocaster(("float16", "float32", "float64"))
-
-
-def convert(x, dtype=None):
-    """Convert a python/numpy value per the casting policy."""
-    if dtype is not None:
-        return np.asarray(x, dtype=dtype)
-    if isinstance(x, (builtins.bool, np.bool_)):
-        return np.asarray(x, dtype="bool")
-    if isinstance(x, int):
-        return autocast_int(x)
-    if isinstance(x, builtins.float):
-        return autocast_float(x)
-    return np.asarray(x)
+from pytensor_tpu_torch.scalar.compatnames import (  # noqa: E402,F401
+    NumpyAutocaster,
+    autocast_float,
+    autocast_int,
+    convert,
+)

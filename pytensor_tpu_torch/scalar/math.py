@@ -1,12 +1,13 @@
 """Scalar special functions.
 
-Counterpart of ``pytensor_tpu/scalar/math.py``: every op but the seven
-shape-parameter gradient ops (``betainc_dda``, ``betainc_ddb``,
+Counterpart of ``pytensor_tpu/scalar/math.py``, every op of it.  The
+seven shape-parameter gradient ops (``betainc_dda``, ``betainc_ddb``,
 ``gammainc_ddk``, ``gammaincc_ddk``, ``hyp2f1_dda``, ``hyp2f1_ddb``,
 ``hyp2f1_ddc``), which the JAX package gets from jax autodiff through its
-continued fractions (``:332-640``) and which wait for ROADMAP.md Queue 1
-item 10b: each raises ``NotImplementedError``, and so does a gradient
-that needs one.
+fixed-count fractions and series (``:324-651``), are those fractions and
+series in torch ops differentiated by torch.autograd in reverse mode (the
+plain versions), and on the card forward-mode device functions of K1
+through the same iterations.  Nothing of the module is left to port.
 
 Each op carries scipy as its numpy implementation (the oracle), the
 gradient the JAX package defines and a plain torch version: the
@@ -18,10 +19,12 @@ plain version computes in float64 too and rounds.  On a CUDA device an
 Elemwise of one of these ops runs as K1 (fused, or one node alone), never
 the plain version, which runs on CPU tensors only.
 
-``gammaincinv``, ``gammainccinv``, ``betaincinv``, ``hyp2f1`` and
-``owens_t`` run scipy on the host, as the JAX package's ``_host``
-lowering (``:37``) does through ``jax.pure_callback``: K1 cannot emit
-them, and their lowering declares ``reads_back``.
+``gammaincinv``, ``gammainccinv``, ``betaincinv`` and ``owens_t`` run
+scipy on the host, as the JAX package's ``_host`` lowering (``:37``) does
+through ``jax.pure_callback``, and ``hyp2f1`` runs the JAX package's
+``_hyp2f1_jax`` (``:576``) there: the 256-term series below |z| = 0.92,
+scipy from it.  K1 cannot emit them, and their lowering declares
+``reads_back``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,6 @@ from pytensor_tpu_torch.scalar.basic import _op, _tm, upcast_float
 
 _SQRT_PI = float(np.sqrt(np.pi))
 _2_OVER_SQRT_PI = 2.0 / _SQRT_PI
-_ITEM_10B = "ROADMAP.md Queue 1 item 10b (the shape-parameter gradients of the special functions)"
 
 
 def _sps():
@@ -65,10 +67,6 @@ def _dg():
     from pytensor_tpu_torch import gradient
 
     return gradient
-
-
-def _deferred(op, pos, x, what):
-    return _dg().grad_not_implemented(op, pos, x, f"{what}: {_ITEM_10B}")
 
 
 # --- error function family ---
@@ -162,14 +160,20 @@ def _gamma_pdf(k, x):
     return tm.exp(-x + (k - 1) * tm.log(x) - tm.gammaln(k))
 
 
+def _gammainc_grad(i, o, gz):
+    gx = gz[0] * _gamma_pdf(*i)
+    return [gz[0] * _tm().gammainc_ddk(*i), gx]
+
+
+def _gammaincc_grad(i, o, gz):
+    gx = -gz[0] * _gamma_pdf(*i)
+    return [gz[0] * _tm().gammaincc_ddk(*i), gx]
+
+
 gammainc = _special("gammainc", 2, lambda k, x: _sps().gammainc(k, x),
-                    _in_float64(torch.special.gammainc),
-                    lambda i, o, gz: [_deferred(gammainc, 0, i[0], "gammainc_ddk"),
-                                      gz[0] * _gamma_pdf(*i)])
+                    _in_float64(torch.special.gammainc), _gammainc_grad)
 gammaincc = _special("gammaincc", 2, lambda k, x: _sps().gammaincc(k, x),
-                     _in_float64(torch.special.gammaincc),
-                     lambda i, o, gz: [_deferred(gammaincc, 0, i[0], "gammaincc_ddk"),
-                                       -gz[0] * _gamma_pdf(*i)])
+                     _in_float64(torch.special.gammaincc), _gammaincc_grad)
 gammau = _special("gammau", 2, lambda k, x: _sps().gammaincc(k, x) * _sps().gamma(k),
                   _in_float64(lambda k, x: torch.special.gammaincc(k, x) * _torch_gamma(k)))
 gammal = _special("gammal", 2, lambda k, x: _sps().gammainc(k, x) * _sps().gamma(k),
@@ -257,8 +261,9 @@ def _betainc_grad(i, o, gz):
     a, b, x = i
     tm = _tm()
     gx = gz[0] * tm.exp((a - 1) * tm.log(x) + (b - 1) * tm.log1p(-x) - tm.betaln(a, b))
-    return [_deferred(betainc, 0, a, "betainc_dda"), _deferred(betainc, 1, b, "betainc_ddb"),
-            gx]
+    ga = gz[0] * tm.betainc_dda(a, b, x)
+    gb = gz[0] * tm.betainc_ddb(a, b, x)
+    return [ga, gb, gx]
 
 
 betainc = _special("betainc", 3, lambda a, b, x: _sps().betainc(a, b, x),
@@ -398,12 +403,27 @@ def _hyp2f1_grad(i, o, gz):
     tm = _tm()
     a, b, c, z = i
     # d/dz 2F1(a, b; c; z) = ab/c 2F1(a+1, b+1; c+1; z)
-    return [_deferred(hyp2f1, 0, a, "hyp2f1_dda"), _deferred(hyp2f1, 1, b, "hyp2f1_ddb"),
-            _deferred(hyp2f1, 2, c, "hyp2f1_ddc"),
-            gz[0] * (a * b / c) * tm.hyp2f1(a + 1, b + 1, c + 1, z)]
+    gzz = gz[0] * (a * b / c) * tm.hyp2f1(a + 1, b + 1, c + 1, z)
+    return [gz[0] * tm.hyp2f1_dda(a, b, c, z), gz[0] * tm.hyp2f1_ddb(a, b, c, z),
+            gz[0] * tm.hyp2f1_ddc(a, b, c, z), gzz]
 
 
-hyp2f1 = _host_op("hyp2f1", 4, _hyp2f1_grad)
+def _hyp2f1_value(a, b, c, z):
+    """2F1 on the host as the JAX package's ``_hyp2f1_jax`` (``:576``): the
+    256-term series (``_hyp2f1_series``) at z clipped to +-0.92, scipy's
+    value where |z| >= 0.92, in float64 and rounded.  Where a + b - c is
+    large the series has not converged below 0.92: that is the JAX
+    package's value, and the port's."""
+    dtype, device = a.dtype, a.device
+    a, b, c, z = (t.detach().to("cpu", torch.float64) for t in torch.broadcast_tensors(a, b, c, z))
+    series = _hyp2f1_series(a, b, c, z.clamp(-HYP2F1_Z, HYP2F1_Z))
+    host = torch.from_numpy(np.asarray(_sps().hyp2f1(a.numpy(), b.numpy(), c.numpy(),
+                                                     z.numpy()), dtype="float64"))
+    return torch.where(z.abs() >= HYP2F1_Z, host, series).to(device, dtype)
+
+
+hyp2f1 = _op("hyp2f1", 4, lambda *a: _sps().hyp2f1(*a), _hyp2f1_value, _hyp2f1_grad,
+             dtype_rule="float", on_host=True)
 
 # --- the normal distribution ---
 
@@ -459,20 +479,201 @@ chi2sf = _special("chi2sf", 2, lambda x, k: _sps().chdtrc(k, x),
                   _chi2sf_grad)
 
 
-# --- the shape-parameter gradient ops: ROADMAP.md Queue 1 item 10b ---
-
-def _not_ported(name):
-    def fn(*args):
-        raise NotImplementedError(f"{name} is not ported: {_ITEM_10B}")
-
-    fn.__name__ = name
-    return fn
 
 
-betainc_dda = _not_ported("betainc_dda")
-betainc_ddb = _not_ported("betainc_ddb")
-gammainc_ddk = _not_ported("gammainc_ddk")
-gammaincc_ddk = _not_ported("gammaincc_ddk")
-hyp2f1_dda = _not_ported("hyp2f1_dda")
-hyp2f1_ddb = _not_ported("hyp2f1_ddb")
-hyp2f1_ddc = _not_ported("hyp2f1_ddc")
+# --- the shape-parameter gradients (pytensor_tpu/scalar/math.py:324-651) ---
+# The JAX package lowers each to jax.grad of a fixed-count continued
+# fraction or series, under jnp.vectorize, in float64.  The plain versions
+# below are the same fractions and series in torch ops, differentiated by
+# torch.autograd in reverse mode; K1 emits each as a forward-mode device
+# function of link/cuda/special.py through the same count of iterations.
+# The oracles are the JAX package's: 4th-order central differences on scipy.
+
+_TINY = float(np.finfo(np.float64).tiny) * 1e6
+# elements a reverse pass takes at once, by device: its tape keeps every
+# iteration's intermediates (some 10,000 tensors for betainc's two fractions;
+# on a card each op is a launch, so larger chunks make fewer of them)
+_GRAD_CHUNK = {"cpu": 1 << 16, "cuda": 1 << 18}
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: a maximum, then a minimum, each of which (as jax's)
+    splits the cotangent in half at a tie (``torch.clamp`` passes it all)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def _guard(t):
+    return torch.where(t.abs() < _TINY, _TINY, t)
+
+
+def _betainc_cf(a, b, x, n_iter=128):
+    """I_x(a, b) as ``_betainc_cf_jax`` (``:332``): the Lentz fraction for
+    ``n_iter`` iterations on both sides of (a + 1) / (a + b + 2), selected,
+    clipped to [0, 1]."""
+    def betacf(a, b, x):
+        qab, qap, qam = a + b, a + 1.0, a - 1.0
+        c = torch.ones_like(x)
+        d = 1.0 / _guard(1.0 - qab * x / qap)
+        h = d
+        for m in range(1, n_iter + 1):
+            m2 = 2.0 * m
+            aa = m * (b - m) * x / ((qam + m2) * (a + m2))
+            d = _guard(1.0 + aa * d)
+            c = 1.0 + aa / _guard(c)
+            d = 1.0 / d
+            h = h * d * c
+            aa = -(a + m) * (qab + m) * x / ((a + m2) * (qap + m2))
+            d = _guard(1.0 + aa * d)
+            c = 1.0 + aa / _guard(c)
+            d = 1.0 / d
+            h = h * d * c
+        return h
+
+    lbeta = torch.lgamma(a + b) - torch.lgamma(a) - torch.lgamma(b)
+    xs = _clip(x, _TINY, 1.0 - _TINY)
+    bt = torch.exp(a * torch.log(xs) + b * torch.log1p(-xs) + lbeta)
+    direct = bt * betacf(a, b, xs) / a
+    flipped = 1.0 - bt * betacf(b, a, 1.0 - xs) / b
+    return _clip(torch.where(xs < (a + 1.0) / (a + b + 2.0), direct, flipped), 0.0, 1.0)
+
+
+def _gammainc_native(k, x, n_iter=128):
+    """P(k, x) as ``_gammainc_native_jax`` (``:444``): ``n_iter`` terms of
+    the series below x = k + 1, ``n_iter`` steps of the Lentz fraction for
+    the complement above, both evaluated at safe arguments and selected."""
+    xs = torch.maximum(x, x.new_tensor(_TINY))
+
+    def series(k, x):
+        term = torch.ones_like(x)
+        total = term
+        for n in range(1, n_iter + 1):
+            term = term * x / (k + n)
+            total = total + term
+        return torch.exp(k * torch.log(x) - x - torch.lgamma(k + 1.0)) * total
+
+    def contfrac(k, x):
+        b = x + 1.0 - k
+        c = torch.full_like(x, 1.0 / _TINY)
+        d = 1.0 / _guard(b)
+        h = d
+        for i in range(1, n_iter + 1):
+            an = -i * (i - k)
+            b = b + 2.0
+            d = _guard(an * d + b)
+            c = _guard(b + an / _guard(c))
+            d = 1.0 / d
+            h = h * d * c
+        return torch.exp(k * torch.log(x) - x - torch.lgamma(k)) * h
+
+    use_series = xs < k + 1.0
+    p_ser = series(k, torch.where(use_series, xs, k + 0.5))
+    p_cf = 1.0 - contfrac(k, torch.where(use_series, k + 1.5, xs))
+    return _clip(torch.where(use_series, p_ser, p_cf), 0.0, 1.0)
+
+
+def _hyp2f1_series(a, b, c, z, n_iter=256):
+    """``n_iter`` terms of the Gauss series past the first
+    (``_hyp2f1_series_jax``, ``:561``)."""
+    term = torch.ones_like(z)
+    total = term
+    for n in range(n_iter):
+        term = term * (a + n) * (b + n) / ((c + n) * (n + 1.0)) * z
+        total = total + term
+    return total
+
+
+HYP2F1_Z = 0.92  # |z| from which the JAX package asks scipy (``:584``)
+
+
+def _reverse_grad(fn, wrt, sign=1.0, clip_z=False):
+    """The plain version of a shape-parameter gradient: d fn / d(operand
+    ``wrt``) element by element, by torch.autograd in reverse mode (the
+    JAX package's ``jax.grad`` under ``jnp.vectorize``), in float64 and
+    rounded; hyp2f1's at z clipped to +-0.92, as the JAX package's."""
+    def grad(*args):
+        dtype, device = args[0].dtype, args[0].device
+        shape = torch.broadcast_shapes(*(a.shape for a in args))
+        flat = [a.to(torch.float64).expand(shape).reshape(-1) for a in args]
+        if clip_z:
+            flat[-1] = flat[-1].clamp(-HYP2F1_Z, HYP2F1_Z)
+        out = torch.empty(flat[0].shape, dtype=torch.float64, device=device)
+        chunk = _GRAD_CHUNK.get(device.type, _GRAD_CHUNK["cpu"])
+        with torch.enable_grad():
+            for lo in range(0, out.numel(), chunk):
+                part = [f[lo:lo + chunk].detach().clone() for f in flat]
+                part[wrt].requires_grad_(True)
+                (g,) = torch.autograd.grad(fn(*part).sum(), part[wrt])
+                out[lo:lo + chunk] = g if sign == 1.0 else sign * g
+        return out.reshape(shape).to(dtype)
+
+    return grad
+
+
+def _central_differences(fn, args, wrt, sign=1.0):
+    """The JAX package's oracle (``:396``, ``:514``, ``:608``): the
+    4th-order central difference of scipy's ``fn`` in operand ``wrt``."""
+    args = [np.asarray(v, dtype="float64") for v in args]
+    t = args[wrt]
+    h = 1e-5 * np.maximum(1.0, np.abs(t))
+
+    def at(step):
+        moved = [v.copy() for v in args]
+        moved[wrt] = t + step
+        return fn(*moved)
+
+    return sign * (8 * (at(h) - at(-h)) - (at(2 * h) - at(-2 * h))) / (12 * h)
+
+
+def _np_betainc_grad(wrt):
+    return lambda a, b, x: _central_differences(_sps().betainc, (a, b, x), wrt)
+
+
+def _np_gammainc_grad(sign):
+    return lambda k, x: _central_differences(_sps().gammainc, (k, x), 0, sign)
+
+
+def _np_hyp2f1_grad(wrt):
+    return lambda a, b, c, z: _central_differences(_sps().hyp2f1, (a, b, c, z), wrt)
+
+
+betainc_dda = _special("betainc_dda", 3, _np_betainc_grad(0), _reverse_grad(_betainc_cf, 0))
+betainc_ddb = _special("betainc_ddb", 3, _np_betainc_grad(1), _reverse_grad(_betainc_cf, 1))
+gammainc_ddk = _special("gammainc_ddk", 2, _np_gammainc_grad(1.0),
+                        _reverse_grad(_gammainc_native, 0))
+gammaincc_ddk = _special("gammaincc_ddk", 2, _np_gammainc_grad(-1.0),
+                         _reverse_grad(_gammainc_native, 0, sign=-1.0))
+hyp2f1_dda = _special("hyp2f1_dda", 4, _np_hyp2f1_grad(0),
+                      _reverse_grad(_hyp2f1_series, 0, clip_z=True))
+hyp2f1_ddb = _special("hyp2f1_ddb", 4, _np_hyp2f1_grad(1),
+                      _reverse_grad(_hyp2f1_series, 1, clip_z=True))
+hyp2f1_ddc = _special("hyp2f1_ddc", 4, _np_hyp2f1_grad(2),
+                      _reverse_grad(_hyp2f1_series, 2, clip_z=True))
+
+
+def betainc_grad(p, q, x, wrtp=True):
+    """d/dp (or d/dq) of betainc."""
+    return betainc_dda(p, q, x) if wrtp else betainc_ddb(p, q, x)
+
+
+def gammainc_grad(k, x):
+    """d/dk of the regularized lower incomplete gamma."""
+    return gammainc_ddk(k, x)
+
+
+def gammaincc_grad(k, x):
+    """d/dk of the regularized upper incomplete gamma."""
+    return gammaincc_ddk(k, x)
+
+
+def hyp2f1_grad(a, b, c, z, wrt):
+    """hyp2f1's gradient in the parameters ``wrt``: an index in {0, 1, 2}
+    (one variable) or a collection of them (a list)."""
+    single = isinstance(wrt, int)
+    kernels = {0: hyp2f1_dda, 1: hyp2f1_ddb, 2: hyp2f1_ddc}
+    outs = [kernels[i](a, b, c, z) for i in ([wrt] if single else list(wrt))]
+    return outs[0] if single else outs
+
+
+# the JAX package's name for the kernels' class (PyTensor's fused loop of
+# the three parameter gradients)
+Grad2F1Loop = type(hyp2f1_dda)

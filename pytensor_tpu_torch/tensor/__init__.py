@@ -7,8 +7,8 @@ port has: ``type``, ``variable``, ``elemwise``, ``basic``, ``math``,
 ``extra_ops``, ``einsum``, ``functional``, ``reshape``, ``pad``, ``fft``,
 ``fourier``, ``signal``, ``interpolate``, ``transfer`` and ``random``,
 with the special functions, ``special``'s softmax family, ``optimize`` and
-the complex ops.  Not yet here (ROADMAP Queue 1): the shape-parameter
-gradients (item 10b).  bfloat16 tensors are here
+the complex ops, and the special functions' shape-parameter gradients.
+bfloat16 tensors are here
 (``ml_dtypes.bfloat16`` arrays on the host), and complex64 and complex128
 ones.
 """

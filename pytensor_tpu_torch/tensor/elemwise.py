@@ -278,7 +278,13 @@ class Elemwise(Op):
         return [tuple(result)]
 
     def L_op(self, inputs, outputs, output_grads):
-        scalar_grads = self.scalar_op.grad(inputs, outputs, output_grads)
+        so = self.scalar_op
+        if hasattr(so, "L_op"):
+            # PyTensor-style ops (scalar/compatnames.py): L_op(inputs,
+            # outputs, grads), which chains to grad(inputs, grads)
+            scalar_grads = so.L_op(inputs, outputs, output_grads)
+        else:
+            scalar_grads = so.grad(inputs, outputs, output_grads)
         rval = []
         for g, inp in zip(scalar_grads, inputs):
             if isinstance(getattr(g, "type", None), (DisconnectedType, NullType)):

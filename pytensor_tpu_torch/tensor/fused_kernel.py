@@ -84,6 +84,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import time
@@ -105,6 +106,7 @@ from pytensor_tpu_torch.link.cuda.cexpr import (
     rtype,
     store,
 )
+from pytensor_tpu_torch.link.cuda.special import GRAD_STEPS
 from pytensor_tpu_torch.utils import dtype_kind
 
 THREADS = 256
@@ -118,6 +120,11 @@ CONTIG, SCALAR, STRIDED = 0, 1, 2
 
 # launches of the kernel since the count was last set to 0
 LAUNCHES = 0
+# launches, since the counts were last set to 0, of the kernels that compute
+# each of these device functions (the special functions' shape-parameter
+# gradients, link/cuda/special.py): a launch counts once for each it holds
+COUNTED_OPS = frozenset(GRAD_STEPS)
+OP_LAUNCHES: collections.Counter = collections.Counter()
 # (kernels, seconds, compiler log) of every nvcc build of K1 in this process
 BUILDS: list = []
 
@@ -329,6 +336,7 @@ class FusedElemwiseKernel:
             node.op.scalar_op.check_inputs(*(i.type.dtype for i in node.inputs))
             if not emittable(node):
                 raise TypeError(f"K1 cannot emit {node}")
+        self.counted = sorted({n.op.scalar_op.name for n in self.order} & COUNTED_OPS)
         # scalar constants are literals; every other constant is an input
         self.array_consts = []
         for node in self.order:
@@ -543,6 +551,7 @@ class FusedElemwiseKernel:
             if err != 0:
                 raise RuntimeError(f"K1 launch failed: CUDA error {err}")
             LAUNCHES += 1
+            OP_LAUNCHES.update(self.counted)
         return outs
 
     def _load(self):

@@ -163,15 +163,14 @@ j1 = scalar_elemwise(psm.j1)
 hyp2f1 = scalar_elemwise(psm.hyp2f1)
 ndtr = scalar_elemwise(psm.ndtr)
 ndtri = scalar_elemwise(psm.ndtri)
-# the shape-parameter gradient ops raise NotImplementedError: ROADMAP.md
-# Queue 1 item 10b
-betainc_dda = psm.betainc_dda
-betainc_ddb = psm.betainc_ddb
-gammainc_ddk = psm.gammainc_ddk
-gammaincc_ddk = psm.gammaincc_ddk
-hyp2f1_dda = psm.hyp2f1_dda
-hyp2f1_ddb = psm.hyp2f1_ddb
-hyp2f1_ddc = psm.hyp2f1_ddc
+# the shape-parameter gradients (pytensor_tpu/tensor/math.py:774-780)
+betainc_dda = scalar_elemwise(psm.betainc_dda)
+betainc_ddb = scalar_elemwise(psm.betainc_ddb)
+gammainc_ddk = scalar_elemwise(psm.gammainc_ddk)
+gammaincc_ddk = scalar_elemwise(psm.gammaincc_ddk)
+hyp2f1_dda = scalar_elemwise(psm.hyp2f1_dda)
+hyp2f1_ddb = scalar_elemwise(psm.hyp2f1_ddb)
+hyp2f1_ddc = scalar_elemwise(psm.hyp2f1_ddc)
 
 
 def round(x, mode=None):

@@ -9,7 +9,13 @@ rewrites that change a value: the identities at NaN and inf
 ``local_zero_div``) and the stabilisations (``local_log1p``,
 ``local_log_sigmoid``, ``local_log1p_exp_to_softplus``,
 ``local_log_sum_exp``, ``local_exp_over_1_plus_exp``, ``local_expm1``,
-``local_log1mexp``, ``local_log1msigm``, ``local_mul_exp_to_exp_add``).
+``local_log1mexp``, ``local_log1msigm``, ``local_mul_exp_to_exp_add``),
+and the special-function rewrites (``local_one_pm_erf``,
+``local_log_erfc``, ``local_grad_log_erfc_neg``,
+``local_grad_log_erfc_neg_mul``, ``local_reciprocal_1_plus_exp``,
+``local_sigm_times_exp``, ``local_odds_sigmoid``,
+``local_sigmoid_of_logit``, ``local_logit_of_sigmoid``,
+``local_logdiffexp``, ``local_log_kv_iv``, ``local_polygamma_specialize``).
 Each keeps its name, tags, database and registration order.
 """
 
@@ -850,6 +856,506 @@ def local_mod_self(fgraph, node):
 register_canonicalize(local_mod_self, name="local_mod_self")
 
 
+# ---------------------------------------------------------------------------
+# erf / erfc family (PyTensor's local_one_plus_erf, local_one_minus_erf,
+# local_erf_minus_one, local_one_minus_erfc, local_erf_neg_minus_one,
+# local_log_erfc, local_grad_log_erfc_neg)
+# ---------------------------------------------------------------------------
+
+def _split_pm_one(node):
+    """For add/sub nodes: return (sign_of_one, other) when one operand is
+    the constant +-1: add(1, t) -> (+1, t); sub(1, t) -> (+1, -t-slot);
+    handled per caller.  Returns (const_val, other, other_is_rhs)."""
+    if len(node.inputs) != 2:
+        return None
+    a, b = node.inputs
+    va, vb = _unique_value(a), _unique_value(b)
+    if va is not None and va in (1, -1, 1.0, -1.0):
+        return (float(va), b, True)
+    if vb is not None and vb in (1, -1, 1.0, -1.0):
+        return (float(vb), a, False)
+    return None
+
+
+def _strip_neg(v):
+    """Peel neg(x) / mul(-1, x) -> (flipped, x)."""
+    if v.owner is not None and _is_ew(v.owner, "neg"):
+        return True, v.owner.inputs[0]
+    if v.owner is not None and _is_ew(v.owner, "mul") \
+            and len(v.owner.inputs) == 2:
+        for i, j in ((0, 1), (1, 0)):
+            c = _unique_value(v.owner.inputs[i])
+            if c is not None and c in (-1, -1.0):
+                return True, v.owner.inputs[j]
+    return False, v
+
+
+@node_rewriter([Elemwise])
+def local_one_pm_erf(fgraph, node):
+    """1 + erf(x) -> erfc(-x); 1 - erf(x) -> erfc(x);
+    erf(x) - 1 -> -erfc(x); -1 + erfc(-x) composes via
+    local_odd_fn_of_neg."""
+    name = node.op.scalar_op.name
+    if name not in ("add", "sub"):
+        return False
+    split = _split_pm_one(node)
+    if split is None:
+        return False
+    cval, other, one_first = split
+    neg_other, core = _strip_neg(other)
+    if core.owner is None:
+        return False
+    if _is_ew(core.owner, "erf"):
+        x = core.owner.inputs[0]
+        # effective expression: c1*1 + c2*erf(x) with c2 = +-1
+        if name == "add":
+            one_sign, erf_sign = cval, (-1.0 if neg_other else 1.0)
+        elif one_first:   # sub(1, t) = 1 - t
+            one_sign, erf_sign = cval, (1.0 if neg_other else -1.0)
+        else:             # sub(t, 1) = t - 1
+            one_sign, erf_sign = -cval, (-1.0 if neg_other else 1.0)
+        if one_sign == 1.0 and erf_sign == 1.0:
+            res = tm.erfc(-x)
+        elif one_sign == 1.0 and erf_sign == -1.0:
+            res = tm.erfc(x)
+        elif one_sign == -1.0 and erf_sign == 1.0:
+            res = -tm.erfc(x)
+        else:  # -1 - erf(x) = -erfc(-x)
+            res = -tm.erfc(-x)
+        res = _same_type_out(node, res)
+        return [res] if res is not None else False
+    if _is_ew(core.owner, "erfc"):
+        x = core.owner.inputs[0]
+        if name == "add":
+            one_sign, e_sign = cval, (-1.0 if neg_other else 1.0)
+        elif one_first:
+            one_sign, e_sign = cval, (1.0 if neg_other else -1.0)
+        else:
+            one_sign, e_sign = -cval, (-1.0 if neg_other else 1.0)
+        # 1 - erfc(x) -> erf(x); -1 + erfc(x) -> -erf(x)
+        if one_sign == 1.0 and e_sign == -1.0:
+            res = tm.erf(x)
+        elif one_sign == -1.0 and e_sign == 1.0:
+            res = -tm.erf(x)
+        else:
+            return False
+        res = _same_type_out(node, res)
+        return [res] if res is not None else False
+    return False
+
+
+register_stabilize(local_one_pm_erf, name="local_one_pm_erf")
+register_specialize(local_one_pm_erf, name="local_one_pm_erf")
+
+
+def _erfc_thresholds(dtype):
+    if dtype in ("float32", "float16", "bfloat16"):
+        return 9.0
+    return 26.0
+
+
+def _is_clamped_min(v):
+    """True when v is minimum(x, const): marks an already-stabilized
+    erfc argument (recursion guard)."""
+    return (v.owner is not None and _is_ew(v.owner, "minimum")
+            and any(_unique_value(i) is not None for i in v.owner.inputs))
+
+
+@node_rewriter([Elemwise])
+def local_log_erfc(fgraph, node):
+    """log(erfc(x)) -> switch(x < T, log(erfc(min(x, T))), asymptotic).
+
+    erfc underflows around x=26.64 (f64) / 10.05 (f32); beyond the
+    threshold use -x^2 - log(x) - log(pi)/2 + log1p(-1/(2x^2) + 3/(4x^4)
+    - 15/(8x^6)) (PyTensor's tensor/rewriting/math.py:3080).  The safe branch's
+    argument is clamped to T so it never underflows AND so this rewrite
+    does not re-match its own output."""
+    if not _is_ew(node, "log"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not _is_ew(inner, "erfc"):
+        return False
+    x = inner.inputs[0]
+    if x.type.dtype.startswith(("int", "uint", "bool")):
+        return False
+    if _is_clamped_min(x):
+        return False
+    T = _erfc_thresholds(node.outputs[0].type.dtype)
+    xs = tm.minimum(x, T)
+    x2 = tm.sqr(x)
+    stab = (-x2 - tm.log(tm.abs(x) + 1e-300) - 0.5 * float(np.log(np.pi))
+            + tm.log1p(-1 / (2 * x2) + 3 / (4 * tm.sqr(x2))
+                       - 15 / (8 * x2 * tm.sqr(x2))))
+    res = tm.switch(x < T, tm.log(tm.erfc(xs)), stab)
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_stabilize(local_log_erfc, name="local_log_erfc")
+
+
+def _is_neg_sqr_of(t, x):
+    """True when t == -(x**2) structurally: flattens nested neg/mul
+    trees and constant -1 factors, accepting sqr(x) or x*x as the
+    square (grad graphs spell ``-i*i`` as mul(neg(x), x))."""
+    if t.owner is None:
+        return False
+    sign = 1.0
+    stack = [t]
+    factors = []
+    for _ in range(16):
+        if not stack:
+            break
+        v = stack.pop()
+        if v.owner is not None and _is_ew(v.owner, "neg"):
+            sign = -sign
+            stack.append(v.owner.inputs[0])
+        elif v.owner is not None and _is_ew(v.owner, "mul"):
+            stack.extend(v.owner.inputs)
+        else:
+            c = _unique_value(v)
+            if c is not None:
+                if float(c) not in (1.0, -1.0):
+                    return False
+                sign *= float(c)
+            else:
+                factors.append(v)
+    if stack or sign != -1.0:
+        return False
+    if len(factors) == 1:
+        u = factors[0]
+        return (u.owner is not None and _is_ew(u.owner, "sqr")
+                and u.owner.inputs[0] is x)
+    if len(factors) == 2:
+        return factors[0] is x and factors[1] is x
+    return False
+
+
+@node_rewriter([Elemwise])
+def local_grad_log_erfc_neg(fgraph, node):
+    """([y*]exp(-x^2))/erfc(x) -> switch to the asymptotic
+    sqrt(pi)*x/(1 - 1/(2x^2) + 3/(4x^4) - 15/(8x^6)) beyond the erfc
+    underflow threshold (the grad of log(erfc(x));
+    PyTensor's tensor/rewriting/math.py:3126)."""
+    if not _is_ew(node, "true_div"):
+        return False
+    num, den = node.inputs
+    if den.owner is None or not _is_ew(den.owner, "erfc"):
+        return False
+    x = den.owner.inputs[0]
+    if _is_clamped_min(x) or x.type.dtype.startswith(("int", "uint", "bool")):
+        return False
+    # num = exp(t) or mul(y..., exp(t)) with t == -(x**2)
+    y_factors = []
+    exp_v = None
+    if num.owner is not None and _is_ew(num.owner, "exp"):
+        exp_v = num
+    elif num.owner is not None and _is_ew(num.owner, "mul"):
+        for i in num.owner.inputs:
+            if exp_v is None and i.owner is not None \
+                    and _is_ew(i.owner, "exp") \
+                    and _is_neg_sqr_of(i.owner.inputs[0], x):
+                exp_v = i
+            else:
+                y_factors.append(i)
+    if exp_v is None or not _is_neg_sqr_of(exp_v.owner.inputs[0], x):
+        return False
+    T = _erfc_thresholds(x.type.dtype)
+    xs = tm.minimum(x, T)
+    safe = tm.exp(-tm.sqr(xs)) / tm.erfc(xs)
+    x2 = tm.sqr(x)
+    stab = (x * float(np.sqrt(np.pi))
+            / (1 - 1 / (2 * x2) + 3 / (4 * tm.sqr(x2))
+               - 15 / (8 * x2 * tm.sqr(x2))))
+    core = tm.switch(x < T, safe, stab)
+    if not y_factors:
+        res = core
+    else:
+        y = y_factors[0] if len(y_factors) == 1 else tm.mul(*y_factors)
+        res = y * core
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_stabilize(local_grad_log_erfc_neg, name="local_grad_log_erfc_neg")
+register_specialize(local_grad_log_erfc_neg, name="local_grad_log_erfc_neg")
+
+
+def _flat_mul_factors(v, depth=0):
+    """Flatten nested mul/neg trees into (sign, [factors])."""
+    if depth > 6 or v.owner is None:
+        return 1.0, [v]
+    if _is_ew(v.owner, "neg"):
+        s, fs = _flat_mul_factors(v.owner.inputs[0], depth + 1)
+        return -s, fs
+    if _is_ew(v.owner, "mul"):
+        sign = 1.0
+        factors = []
+        for i in v.owner.inputs:
+            s, fs = _flat_mul_factors(i, depth + 1)
+            sign *= s
+            factors.extend(fs)
+        return sign, factors
+    return 1.0, [v]
+
+
+@node_rewriter([Elemwise])
+def local_grad_log_erfc_neg_mul(fgraph, node):
+    """mul(..., true_div(y, erfc(x)), ..., exp(-x^2), ...) — the shape
+    actual pullback graphs take (the exp factor multiplies OUTSIDE the
+    division) — rewritten to the stabilized switch form.  Complements
+    local_grad_log_erfc_neg, which needs the exp inside the numerator."""
+    if not _is_ew(node, "mul"):
+        return False
+    sign, factors = _flat_mul_factors(node.outputs[0])
+    div_i = exp_i = None
+    x = None
+    for i, f in enumerate(factors):
+        if div_i is None and f.owner is not None \
+                and _is_ew(f.owner, "true_div") \
+                and f.owner.inputs[1].owner is not None \
+                and _is_ew(f.owner.inputs[1].owner, "erfc"):
+            cand = f.owner.inputs[1].owner.inputs[0]
+            if not _is_clamped_min(cand) \
+                    and not cand.type.dtype.startswith(("int", "uint",
+                                                        "bool")):
+                div_i, x = i, cand
+    if div_i is None:
+        return False
+    for i, f in enumerate(factors):
+        if i != div_i and f.owner is not None and _is_ew(f.owner, "exp") \
+                and _is_neg_sqr_of(f.owner.inputs[0], x):
+            exp_i = i
+            break
+    if exp_i is None:
+        return False
+    T = _erfc_thresholds(x.type.dtype)
+    xs = tm.minimum(x, T)
+    safe = tm.exp(-tm.sqr(xs)) / tm.erfc(xs)
+    x2 = tm.sqr(x)
+    stab = (x * float(np.sqrt(np.pi))
+            / (1 - 1 / (2 * x2) + 3 / (4 * tm.sqr(x2))
+               - 15 / (8 * x2 * tm.sqr(x2))))
+    core = tm.switch(x < T, safe, stab)
+    rest = [f for i, f in enumerate(factors) if i not in (div_i, exp_i)]
+    num = factors[div_i].owner.inputs[0]
+    if _unique_value(num) not in (1, 1.0):
+        rest.append(num)
+    res = core if not rest else tm.mul(*rest, core)
+    if sign < 0:
+        res = -res
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_stabilize(local_grad_log_erfc_neg_mul,
+                   name="local_grad_log_erfc_neg_mul")
+register_specialize(local_grad_log_erfc_neg_mul,
+                    name="local_grad_log_erfc_neg_mul")
+
+
+# ---------------------------------------------------------------------------
+# sigmoid / exp specializations (PyTensor's local_reciprocal_1_plus_exp,
+# local_sigm_times_exp, local_logit_sigmoid, odds-sigmoid patterns;
+# pinned by PyTensor's tests/tensor/rewriting/test_math.py TestSigmoidRewrites)
+# ---------------------------------------------------------------------------
+
+@node_rewriter([Elemwise])
+def local_reciprocal_1_plus_exp(fgraph, node):
+    """reciprocal(1 + exp(x)) -> sigmoid(-x); c/(1 + exp(x)) with c = +-1
+    -> +-sigmoid(-x)."""
+    name = node.op.scalar_op.name
+    if name == "reciprocal":
+        den, c = node.inputs[0], 1.0
+    elif name == "true_div" and len(node.inputs) == 2:
+        c = _unique_value(node.inputs[0])
+        if c is None or float(c) not in (1.0, -1.0):
+            return False
+        c = float(c)
+        den = node.inputs[1]
+    else:
+        return False
+    if den.owner is None or not _is_ew(den.owner, "add") \
+            or len(den.owner.inputs) != 2:
+        return False
+    a, b = den.owner.inputs
+    for one, e in ((a, b), (b, a)):
+        if _unique_value(one) in (1, 1.0) and e.owner is not None \
+                and _is_ew(e.owner, "exp"):
+            x = e.owner.inputs[0]
+            res = tm.sigmoid(-x) if c == 1.0 else -tm.sigmoid(-x)
+            res = _same_type_out(node, res)
+            return [res] if res is not None else False
+    return False
+
+
+register_stabilize(local_reciprocal_1_plus_exp,
+                   name="local_reciprocal_1_plus_exp")
+register_specialize(local_reciprocal_1_plus_exp,
+                    name="local_reciprocal_1_plus_exp")
+
+
+@node_rewriter([Elemwise])
+def local_sigm_times_exp(fgraph, node):
+    """sigmoid(-x) * exp(x) -> sigmoid(x); sigmoid(x) * exp(-x) ->
+    sigmoid(-x) (pairwise inside a flat mul)."""
+    if not _is_ew(node, "mul"):
+        return False
+    ins = list(node.inputs)
+    sig_idx = [i for i, v in enumerate(ins)
+               if v.owner is not None and _is_ew(v.owner, "sigmoid")]
+    exp_idx = [i for i, v in enumerate(ins)
+               if v.owner is not None and _is_ew(v.owner, "exp")]
+    for si in sig_idx:
+        s_arg = ins[si].owner.inputs[0]
+        s_neg, s_core = _strip_neg(s_arg)
+        for ei in exp_idx:
+            e_arg = ins[ei].owner.inputs[0]
+            e_neg, e_core = _strip_neg(e_arg)
+            merged = None
+            if s_neg and not e_neg and s_core is e_arg:
+                merged = tm.sigmoid(e_arg)       # sig(-x)*exp(x)
+            elif e_neg and not s_neg and e_core is s_arg:
+                merged = tm.sigmoid(-s_arg)      # sig(x)*exp(-x)
+            if merged is not None:
+                rest = [v for i, v in enumerate(ins) if i not in (si, ei)]
+                res = merged if not rest else tm.mul(*rest, merged)
+                res = _same_type_out(node, res)
+                return [res] if res is not None else False
+    return False
+
+
+register_stabilize(local_sigm_times_exp, name="local_sigm_times_exp")
+register_specialize(local_sigm_times_exp, name="local_sigm_times_exp")
+
+
+@node_rewriter([Elemwise])
+def local_odds_sigmoid(fgraph, node):
+    """sigmoid(x) / sigmoid(-x) -> exp(x)  (the odds ratio
+    sigmoid/(1-sigmoid); 1-sigmoid has already been canonicalized to
+    sigmoid(-x) by local_one_minus_sigmoid).  1 - sigmoid cancels to
+    exactly 0 for x >~ 37 so the unrewritten ratio hits inf long before
+    exp(x) overflows."""
+    if not _is_ew(node, "true_div"):
+        return False
+    num, den = node.inputs
+    if num.owner is None or den.owner is None \
+            or not _is_ew(num.owner, "sigmoid") \
+            or not _is_ew(den.owner, "sigmoid"):
+        return False
+    a = num.owner.inputs[0]
+    b = den.owner.inputs[0]
+    a_neg, a_core = _strip_neg(a)
+    b_neg, b_core = _strip_neg(b)
+    if (b_neg and not a_neg and b_core is a) \
+            or (a_neg and not b_neg and a_core is b):
+        res = _same_type_out(node, tm.exp(a))
+        return [res] if res is not None else False
+    return False
+
+
+register_specialize(local_odds_sigmoid, name="local_odds_sigmoid")
+register_stabilize(local_odds_sigmoid, name="local_odds_sigmoid")
+
+
+@node_rewriter([Elemwise])
+def local_sigmoid_of_logit(fgraph, node):
+    """sigmoid(log(x / (1 - x))) -> x (also via logit())."""
+    if not _is_ew(node, "sigmoid"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is not None and _is_ew(inner, "logit"):
+        res = _same_type_out(node, inner.inputs[0])
+        return [res] if res is not None else False
+    if inner is None or not _is_ew(inner, "log"):
+        return False
+    div = inner.inputs[0].owner
+    if div is None or not _is_ew(div, "true_div"):
+        return False
+    x, den = div.inputs
+    d = den.owner
+    if d is not None and _is_ew(d, "sub") and len(d.inputs) == 2 \
+            and _unique_value(d.inputs[0]) in (1, 1.0) \
+            and d.inputs[1] is x:
+        res = _same_type_out(node, x)
+        return [res] if res is not None else False
+    return False
+
+
+register_specialize(local_sigmoid_of_logit, name="local_sigmoid_of_logit")
+
+
+@node_rewriter([Elemwise])
+def local_logit_of_sigmoid(fgraph, node):
+    """log(sigmoid(x) / sigmoid(-x)) -> x; logit(sigmoid(x)) -> x."""
+    name = node.op.scalar_op.name
+    if name == "logit":
+        inner = node.inputs[0].owner
+        if inner is not None and _is_ew(inner, "sigmoid"):
+            res = _same_type_out(node, inner.inputs[0])
+            return [res] if res is not None else False
+        return False
+    if name != "log":
+        return False
+    inner = node.inputs[0].owner
+    if inner is not None and _is_ew(inner, "exp"):
+        # log(exp(x)) -> x: covered by local_log_exp; skip
+        return False
+    return False
+
+
+register_specialize(local_logit_of_sigmoid, name="local_logit_of_sigmoid")
+
+
+# ---------------------------------------------------------------------------
+# log/exp stabilizations (PyTensor's local_logdiffexp, log_kv/log_iv
+# stabilization, log/sign of reciprocal and constant divisions)
+# ---------------------------------------------------------------------------
+
+@node_rewriter([Elemwise])
+def local_logdiffexp(fgraph, node):
+    """log(exp(x) - exp(y)) -> x + log1mexp(y - x)."""
+    if not _is_ew(node, "log"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not _is_ew(inner, "sub") or len(inner.inputs) != 2:
+        return False
+    ex, ey = inner.inputs
+    if ex.owner is None or ey.owner is None \
+            or not _is_ew(ex.owner, "exp") or not _is_ew(ey.owner, "exp"):
+        return False
+    x = ex.owner.inputs[0]
+    y = ey.owner.inputs[0]
+    res = _same_type_out(node, x + tm.log1mexp(y - x))
+    return [res] if res is not None else False
+
+
+register_stabilize(local_logdiffexp, name="local_logdiffexp")
+
+
+@node_rewriter([Elemwise])
+def local_log_kv_iv(fgraph, node):
+    """log(kv(v, x)) -> log(kve(v, x)) - x (kv underflows ~700 for f64);
+    log(iv(v, x)) -> log(ive(v, x)) + x (iv overflows)."""
+    if not _is_ew(node, "log"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None:
+        return False
+    if _is_ew(inner, "kv"):
+        v, x = inner.inputs
+        res = _same_type_out(node, tm.log(tm.kve(v, x)) - x)
+        return [res] if res is not None else False
+    if _is_ew(inner, "iv"):
+        v, x = inner.inputs
+        res = _same_type_out(node, tm.log(tm.ive(v, x)) + x)
+        return [res] if res is not None else False
+    return False
+
+
+register_stabilize(local_log_kv_iv, name="local_log_kv_iv")
+
+
 @node_rewriter([Elemwise])
 def local_add_neg_to_sub(fgraph, node):
     """x + (-y) -> x - y; (-x) + y -> y - x."""
@@ -868,6 +1374,29 @@ def local_add_neg_to_sub(fgraph, node):
 
 
 register_specialize(local_add_neg_to_sub, name="local_add_neg_to_sub")
+
+
+@node_rewriter([Elemwise])
+def local_polygamma_specialize(fgraph, node):
+    """polygamma(0, x) -> psi(x); polygamma(1, x) -> tri_gamma(x)
+    (cheaper dedicated kernels)."""
+    if not _is_ew(node, "polygamma"):
+        return False
+    n, x = node.inputs
+    c = _unique_value(n)
+    if c is None:
+        return False
+    if int(c) == 0:
+        res = _same_type_out(node, tm.psi(x))
+    elif int(c) == 1:
+        res = _same_type_out(node, tm.tri_gamma(x))
+    else:
+        return False
+    return [res] if res is not None else False
+
+
+register_specialize(local_polygamma_specialize,
+                    name="local_polygamma_specialize")
 
 
 def _split_const_factors(v):

@@ -1044,6 +1044,29 @@ def test_k1_special_op_group_matches_plain(card, dtype):
         _held_special(name, g, w, dtype)
 
 
+def test_censored_gradient_counts_its_device_functions(card):
+    """models/censored.py's logp and gradient, captured: a replay counts
+    one launch of each kernel holding gammaincc_ddk, betainc_dda and
+    betainc_ddb (``fused_kernel.OP_LAUNCHES``), and gives the CPU's plain
+    versions' values within 1e-9."""
+    from pytensor_tpu_torch.models import censored
+
+    t, y = censored.censored_data(4096, 3)
+    params = [np.asarray(p) for p in censored.PARAMS]
+    f = censored.make_censored_logp(device=card)
+    args = [as_torch(v, card) for v in (t, y, *params)]
+    f(*args)
+    fused_kernel.OP_LAUNCHES.clear()
+    got = f(*args)
+    torch.cuda.synchronize()
+    assert {k: fused_kernel.OP_LAUNCHES[k] for k in
+            ("gammaincc_ddk", "betainc_dda", "betainc_ddb")} == {
+        "gammaincc_ddk": 1, "betainc_dda": 1, "betainc_ddb": 1}
+    want = censored.make_censored_logp(device="cpu")(t, y, *params)
+    np.testing.assert_allclose([float(g.cpu()) for g in got], [float(w) for w in want],
+                               rtol=1e-9)
+
+
 def test_a_special_elemwise_on_the_card_launches_k1(card):
     import pytensor_tpu_torch as ptt
     import pytensor_tpu_torch.tensor as pt

@@ -151,6 +151,25 @@ def test_mlp_mfu_gradients_and_update():
         assert (np.abs(x - r) - rounding).max() > 0.1 * np.abs(r - x).max()
 
 
+
+def test_mlp_mfu_reference_in_torch_is_the_numpy_steps():
+    """``mlp_mfu_reference(..., device=)``, the float64 steps as torch ops
+    (what ``chip_smoke.py`` phase 11 runs on the card), gives the NumPy
+    steps' losses, weights and first gradients, on the run's sides of
+    relu's kink, within float64 rounding (1e-12 of each array's largest)."""
+    X, T, Ws, acts, loss, grads, _, (Xd, Td) = tmlp.mlp_mfu_graph(64, 32, 3, "float32",
+                                                                  device="cpu")
+    out = ptt.function([X, T], [loss, *grads, *acts], device="cpu")(Xd, Td)
+    init = [_np(W.get_value()) for W in Ws]
+    masks = [_np(a) >= 0 for a in out[4:]]
+    want = tmlp.mlp_mfu_reference(_np(Xd), _np(Td), init, 1e-3, 3, masks)
+    got = tmlp.mlp_mfu_reference(Xd, Td, [W.get_value() for W in Ws], 1e-3, 3, masks,
+                                 device="cpu")
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
+    for g, w in zip([*sum(got[1], []), *got[2]], [*sum(want[1], []), *want[2]]):
+        assert isinstance(g, np.ndarray) and g.dtype == np.float64
+        assert np.abs(g - w).max() <= 1e-12 * np.abs(w).max()
+
 def test_mlp_mfu_step_bfloat16():
     """The MFU step at its default dtype, bfloat16 (batch 16, d 8, depth 2):
     bfloat16 weights, a float32 loss, each step's loss within ``1e-6`` of

@@ -610,21 +610,17 @@ def test_make_slice_lowering():
     assert isinstance(node.op, MakeSlice)
 
 
-# the seven shape-parameter gradient ops of scalar/math.py (ROADMAP Queue 1
-# item 10b): defined by tensor/math.py in the JAX package; in the port the
-# seven raise NotImplementedError (tests/test_torch_special.py).  The
-# complex ops are here (tests/test_torch_complex.py)
-NOT_YET = {
-    "betainc_dda", "betainc_ddb", "gammainc_ddk", "gammaincc_ddk", "hyp2f1_dda", "hyp2f1_ddb",
-    "hyp2f1_ddc",
-}
+# every name is here: the seven shape-parameter gradient ops of
+# scalar/math.py too (tests/test_torch_special_grads.py), and the complex
+# ops (tests/test_torch_complex.py)
+NOT_YET = set()
 
 
 def test_namespace_holds_every_public_name_of_the_modules():
     """Every public name that the JAX package's tensor namespace takes from
     tensor/{elemwise,math,basic,shape,subtensor,blas,utils,exceptions,
     sharedvar,variable,type_other}.py and compile/ops.py is in the port's,
-    apart from NOT_YET: the special functions among them since item 10."""
+    apart from NOT_YET (none left)."""
     import importlib
 
     mods = ["tensor.elemwise", "tensor.math", "tensor.basic", "tensor.shape", "tensor.subtensor",

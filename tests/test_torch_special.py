@@ -253,31 +253,47 @@ def test_binary_gradient_against_the_jax_package(name, wrt):
 
 
 def test_betainc_x_gradient_and_deferred_parameter_gradients():
-    """The gradient with respect to x is the JAX package's; those with
-    respect to the shape parameters wait for ROADMAP item 10b."""
+    """The gradient with respect to x is the JAX package's; so are those
+    with respect to the shape parameters, which waited for ROADMAP item
+    10b (they raised NullTypeGradError) and now build."""
     a, b, x = np.array([0.7, 2.0]), np.array([1.5, 3.0]), np.array([0.3, 0.6])
+    for wrt in (2, 0, 1):
+        out = []
+        for ptt, pt, kw in ((jptt, jpt, {}), (tptt, tpt, {"device": "cpu"})):
+            av, bv, xv = pt.dvector("a"), pt.dvector("b"), pt.dvector("x")
+            g = ptt.grad(pt.sum(pt.betainc(av, bv, xv)), [av, bv, xv][wrt])
+            out.append(np.asarray(ptt.function([av, bv, xv], g, **kw)(a, b, x)))
+        np.testing.assert_allclose(out[1], out[0], rtol=1e-7)
+
+
+# the seven shape-parameter gradient ops, and the gradient of gammaincc in k
+SHAPE_GRADS = [("betainc_dda", 3), ("betainc_ddb", 3), ("gammainc_ddk", 2),
+               ("gammaincc_ddk", 2), ("hyp2f1_dda", 4), ("hyp2f1_ddb", 4), ("hyp2f1_ddc", 4),
+               ("grad_gammaincc", 2)]
+
+
+@pytest.mark.parametrize("name,nin", SHAPE_GRADS)
+def test_shape_parameter_gradient_values(name, nin):
+    """Each of the seven ops (they raised NotImplementedError until item
+    10b) against the JAX package's XLA path and float64 scipy's central
+    differences, the ops' oracle (rtol 1e-6: the differences' own error)."""
+    vals = [np.array([0.8, 1.5, 3.0]), np.array([1.2, 2.5, 0.9]),
+            np.array([2.3, 1.7, 3.1]), np.array([0.3, 0.6, 0.8])][-nin:]
+    if nin == 4:
+        vals[0], vals[1] = np.array([0.8, 1.5, 3.0]), np.array([1.2, 2.5, 0.9])
     out = []
     for ptt, pt, kw in ((jptt, jpt, {}), (tptt, tpt, {"device": "cpu"})):
-        av, bv, xv = pt.dvector("a"), pt.dvector("b"), pt.dvector("x")
-        g = ptt.grad(pt.sum(pt.betainc(av, bv, xv)), xv)
-        out.append(np.asarray(ptt.function([av, bv, xv], g, **kw)(a, b, x)))
-    np.testing.assert_allclose(out[1], out[0], rtol=1e-7)
-    from pytensor_tpu_torch.gradient import NullTypeGradError
+        vs = [pt.dvector(f"a{k}") for k in range(nin)]
+        if name == "grad_gammaincc":
+            y = ptt.grad(pt.sum(pt.gammaincc(*vs)), vs[0])
+        else:
+            y = getattr(pt, name)(*vs)
+        out.append(np.asarray(ptt.function(vs, y, **kw)(*vals)))
+    np.testing.assert_allclose(out[1], out[0], rtol=1e-10, atol=1e-14)
+    oracle = ("gammaincc_ddk" if name == "grad_gammaincc" else name)
+    from pytensor_tpu_torch.scalar import math as tpsm
 
-    av, bv, xv = tpt.dvector("a"), tpt.dvector("b"), tpt.dvector("x")
-    for wrt in (av, bv):
-        with pytest.raises(NullTypeGradError, match="item 10b"):
-            tptt.grad(tpt.sum(tpt.betainc(av, bv, xv)), wrt)
-    with pytest.raises(NullTypeGradError, match="item 10b"):
-        tptt.grad(tpt.sum(tpt.gammainc(av, xv)), av)
-
-
-@pytest.mark.parametrize("name", ["betainc_dda", "betainc_ddb", "gammainc_ddk",
-                                  "gammaincc_ddk", "hyp2f1_dda", "hyp2f1_ddb", "hyp2f1_ddc"])
-def test_deferred_gradient_ops_name_item_10b(name):
-    v = tpt.dvector("v")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        getattr(tpt, name)(*([v] * (4 if name.startswith("hyp") else 3)))
+    np.testing.assert_allclose(out[1], getattr(tpsm, oracle).np_fn(*vals), rtol=1e-6)
 
 
 def test_special_composites_of_tensor_special():
