@@ -278,7 +278,9 @@ Phases, one line or more each, and any failure raises:
    times); (b) ``models/hmc.py``'s ``make_radon_hmc``,
    ``make_radon_hmc_chains`` (256 chains) and
    ``make_radon_multinomial_hmc`` at full width (919, 85, 16 leapfrog
-   steps of 0.02), with the default flags and with ``scan__pallas``: each
+   steps of 0.02), with the default flags (not again under
+   ``scan__pallas``, which gives the same rows: K2 refuses the leapfrog
+   scans, and the verdict is printed): each
    call one replay of one captured CUDA graph, no host read; the first
    ``HMC_HELD`` transitions against the CPU (accepts and indices equal,
    ``HMC_RTOL``); K1, K2 and threefry launches in one replayed call
@@ -286,7 +288,7 @@ Phases, one line or more each, and any failure raises:
    transition, the momenta and the uniforms, each folded), K2's verdict on
    each scan and why; ms a transition, transitions/s, busy share; each K1
    node of the calls against its plain version.  K1's and K2's
-   ``launches_by_path`` gain the six paths; the kernel line gains the
+   ``launches_by_path`` gain the three paths; the kernel line gains the
    ``threefry2x32`` entry, timed at the 256-chain momenta's folded draw.
 19. loop samplers (``phase_loops``; the gamma, Poisson and binomial
    kernels, ``csrc/{gamma,poisson,binomial}.cu``, built in phase 2's
@@ -331,6 +333,28 @@ Phases, one line or more each, and any failure raises:
    required to be this tree's at both Gibbs draws and at 2**20, and the
    two timed in turn, twice.  The kernel line gains an entry for each of
    the three kernels.
+20. the censored-likelihood gradient (``phase_censored``): the
+   shape-parameter gradients' main path, one captured graph.
+21. while-scans (``phase_while``): (a) ``benchsuite.py:160``'s power
+   iteration as a while-scan (``models/power.py``: at most 64 steps,
+   stopped where ``max|x_new - x|`` falls below a tolerance chosen from
+   the float64 scipy loop so that it fires after step 16), through
+   ``function()``, eager (the step loop reads its condition after each
+   step): the counts set to 0 before one call of the iterates' function
+   and one of the gradient of ``sum(xs[-1] * w)`` in ``x0`` and read
+   after (K4 once a forward step, once on Aᵀ a reverse step), the exit
+   step against the float64 loop's, the iterates against the plain SpMV
+   step loop on the card and float64 scipy, the gradient against
+   torch's autograd of the plain loop in float64 (within four times the
+   float32 plain loop's own error); (b) the radon leapfrog trajectory in
+   float64 at full width (``models/radon.py make_radon_trajectory``),
+   stopped where ``|H - H0| > 1000``, at a step size where that fires
+   mid-way and one where it never does: the exit steps, the rows against
+   the same steps as a for-scan, the divergence test against the
+   energies, and each call with torch's defaults against the held rows;
+   each path's K1 nodes against their plain version; a step's cost with
+   the condition's read against the step of a for-scan that computes and
+   traces the same test, both eager, in alternated calls.
 
 Three clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -3867,19 +3891,17 @@ HMC_PATHS = {"hmc 1 chain": "make_radon_hmc", "hmc 256 chains": "make_radon_hmc_
              "multinomial hmc": "make_radon_multinomial_hmc"}
 
 
-def hmc_functions(dev, pallas=False):
+def hmc_functions(dev):
     """The three HMC entry points of ``models/hmc.py`` at the radon model's
     full width (919 observations, 85 counties, 16 leapfrog steps of 0.02;
-    256 chains), linked for ``dev`` with ``scan__pallas`` as given."""
+    256 chains), linked for ``dev``."""
     import pytensor_tpu_torch.models.hmc as hmc
-    from pytensor_tpu_torch.config import config
 
     kw = dict(n_obs=N_OBS, n_counties=N_COUNTIES, n_leapfrog=HMC_STEPS, step_size=HMC_EPS,
               device=dev)
-    with config.change_flags(scan__pallas=pallas):
-        return {"hmc 1 chain": hmc.make_radon_hmc(**kw),
-                "hmc 256 chains": hmc.make_radon_hmc_chains(n_chains=HMC_CHAINS, **kw),
-                "multinomial hmc": hmc.make_radon_multinomial_hmc(**kw)}
+    return {"hmc 1 chain": hmc.make_radon_hmc(**kw),
+            "hmc 256 chains": hmc.make_radon_hmc_chains(n_chains=HMC_CHAINS, **kw),
+            "multinomial hmc": hmc.make_radon_multinomial_hmc(**kw)}
 
 
 def hmc_cpu_reference(cpu_fns=None):
@@ -3992,7 +4014,7 @@ def phase_random(dev, smi_line, cpu_fns, parent=None):
     at 2**24 and at the draws of the HMC paths (device and wall,
     ``threefry_times``) beside its plain version's and its byte bound.
     (b) ``models/hmc.py``'s three entry points at the radon model's full
-    width, with the default flags and with ``scan__pallas``: each call one
+    width, with the default flags: each call one
     replay of one captured CUDA graph with no host read; the first
     ``HMC_HELD`` transitions against the same function on the CPU (the
     ``cpu_fns`` of ``random_kernels``); the launches of K1, K2 and threefry
@@ -4172,91 +4194,88 @@ def phase_random(dev, smi_line, cpu_fns, parent=None):
     say(f"phase 18: the CPU's {HMC_HELD} transitions of each HMC path in {ref_s:.1f} s (waited "
         f"{time.perf_counter() - t0:.1f} s for them)")
     launches, k1_abs, k1_nodes = {}, 0.0, 0
-    for flags in ("default flags", "scan__pallas"):
-        t0 = time.perf_counter()
-        fns = hmc_functions(dev, pallas=flags == "scan__pallas")
-        say(f"phase 18: the HMC functions linked for {dev} with {flags} in "
-            f"{time.perf_counter() - t0:.1f} s")
-        for path, (f, pos, *_) in fns.items():
-            tag = f"{path}, {flags}"
-            plan = getattr(f.linked, "plan", f.linked)
-            if plan.host_reads:
-                raise AssertionError(f"{tag}: host reads {plan.host_reads}")
-            for step in range(HMC_HELD):
-                out = [o.cpu() for o in f()] + [pos.get_value().cpu()]
-                want = [torch.as_tensor(w) for w in ref[path][step]]
-                if not torch.equal(out[1], want[1]):
-                    raise AssertionError(f"{tag}, transition {step}: accept/index {out[1]} "
-                                         f"against the CPU's {want[1]}")
-                e_logp, e_pos = rel_err(out[0], want[0]), rel_err(out[2], want[2])
-                if not (e_logp <= HMC_RTOL and e_pos <= HMC_RTOL):
-                    raise AssertionError(f"{tag}, transition {step}: logp {e_logp}, position "
-                                         f"{e_pos} from the CPU's (tol {HMC_RTOL})")
-            if on_card and not (isinstance(f.linked, CapturedFunction)
-                                and len(f.linked.graphs) == 1):
-                raise AssertionError(f"{tag}: not one captured CUDA graph")
-            # the main path, counted: one replayed call
-            zero_counts()
-            logp, acc = f()
+    # not again under scan__pallas, which gives the same rows: K2 refuses
+    # the leapfrog scans, as the verdicts say
+    flags = "default flags"
+    t0 = time.perf_counter()
+    fns = hmc_functions(dev)
+    say(f"phase 18: the HMC functions linked for {dev} with {flags} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for path, (f, pos, *_) in fns.items():
+        tag = f"{path}, {flags}"
+        plan = getattr(f.linked, "plan", f.linked)
+        if plan.host_reads:
+            raise AssertionError(f"{tag}: host reads {plan.host_reads}")
+        for step in range(HMC_HELD):
+            out = [o.cpu() for o in f()] + [pos.get_value().cpu()]
+            want = [torch.as_tensor(w) for w in ref[path][step]]
+            if not torch.equal(out[1], want[1]):
+                raise AssertionError(f"{tag}, transition {step}: accept/index {out[1]} "
+                                     f"against the CPU's {want[1]}")
+            e_logp, e_pos = rel_err(out[0], want[0]), rel_err(out[2], want[2])
+            if not (e_logp <= HMC_RTOL and e_pos <= HMC_RTOL):
+                raise AssertionError(f"{tag}, transition {step}: logp {e_logp}, position "
+                                     f"{e_pos} from the CPU's (tol {HMC_RTOL})")
+        if on_card and not (isinstance(f.linked, CapturedFunction)
+                            and len(f.linked.graphs) == 1):
+            raise AssertionError(f"{tag}: not one captured CUDA graph")
+        # the main path, counted: one replayed call
+        zero_counts()
+        logp, acc = f()
+        sync()
+        launches[tag] = counts()
+        # a transition draws the momenta and the Metropolis or Gumbel
+        # uniforms, each one folded launch with its split
+        if on_card and not (launches[tag]["fused_elemwise"] > 0
+                            and launches[tag]["threefry"] == HMC_THREEFRY_LAUNCHES):
+            raise AssertionError(f"{tag}: launches {launches[tag]}, threefry "
+                                 f"{HMC_THREEFRY_LAUNCHES} a transition expected")
+        if not (torch.isfinite(logp).all() and torch.isfinite(pos.get_value()).all()):
+            raise AssertionError(f"{tag}: a value is not finite")
+        scans = [nd for nd in f.fgraph.toposort() if isinstance(nd.op, Scan)]
+        verdicts = []
+        for nd in scans:
+            ok = scan_kernel_eligible(nd.op, nd)
+            unknown = [i for i in nd.inputs[1:] if any(d is None for d in i.type.shape)]
+            why = ("takes it" if ok else "refuses it: the carried position "
+                   f"{unknown[0]} has an unknown static shape {unknown[0].type.shape}"
+                   if unknown else "refuses it")
+            verdicts.append(f"{nd.op.name}: K2 {why}")
+        say(f"{tag}: launches in one replayed call (counts set to 0 just before it) "
+            f"{launches[tag]}; {'; '.join(verdicts)}; the first {HMC_HELD} transitions "
+            f"held against the CPU (accepts/indices equal, logp and position within "
+            f"{HMC_RTOL:g})")
+        row = {"launches": launches[tag], "k2": verdicts}
+        if on_card:
+            ms = wall_ms(f, 50)
+            per = HMC_CHAINS if path == "hmc 256 chains" else 1
+            row.update(ms=ms, transitions_s=per * 1e3 / ms)
+            dev_ms, by = device_ms(f, 10)
+            row.update(device_ms=dev_ms, busy=dev_ms / ms,
+                       kernels_a_call=sum(c for _, c in by.values()))
+            tfr = [(k_ms, c) for kn, (k_ms, c) in by.items() if "threefry" in kn]
+            row["threefry_device_us"] = sum(k for k, _ in tfr) * 1e3
+            say(f"  {tag}: {ms:.3f} ms a transition (wall, CUDA events over 50 calls), "
+                f"{row['transitions_s']:,.0f} {'chain-' if per > 1 else ''}transitions/s; "
+                f"device {row['device_ms']:.3f} ms a call, busy {row['busy']:.2f}, "
+                f"{row['kernels_a_call']:.0f} kernels a call, threefry "
+                f"{row['threefry_device_us']:.1f} us of it ({smi_line})")
+        rows["hmc"][tag] = row
+        # each K1 node of a call, fed its real inputs
+        args = [sv.storage[0] for sv in f.shared_vars]
+        for _, nd, xs in plan_values(plan, args):
+            if not isinstance(nd.op, FusedElemwise):
+                continue
+            kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+            got, want = (kern.launch if on_card else kern)(*xs), kern.plain(*xs)
             sync()
-            launches[tag] = counts()
-            # a transition draws the momenta and the Metropolis or Gumbel
-            # uniforms, each one folded launch with its split
-            if on_card and not (launches[tag]["fused_elemwise"] > 0
-                                and launches[tag]["threefry"] == HMC_THREEFRY_LAUNCHES):
-                raise AssertionError(f"{tag}: launches {launches[tag]}, threefry "
-                                     f"{HMC_THREEFRY_LAUNCHES} a transition expected")
-            if not (torch.isfinite(logp).all() and torch.isfinite(pos.get_value()).all()):
-                raise AssertionError(f"{tag}: a value is not finite")
-            scans = [nd for nd in f.fgraph.toposort() if isinstance(nd.op, Scan)]
-            verdicts = []
-            for nd in scans:
-                ok = scan_kernel_eligible(nd.op, nd)
-                unknown = [i for i in nd.inputs[1:] if any(d is None for d in i.type.shape)]
-                why = ("takes it" if ok else "refuses it: the carried position "
-                       f"{unknown[0]} has an unknown static shape {unknown[0].type.shape}"
-                       if unknown else "refuses it")
-                verdicts.append(f"{nd.op.name}: K2 {why}")
-                if flags == "scan__pallas" and ok and launches[tag]["scan_whole_loop"] == 0:
-                    raise AssertionError(f"{tag}: K2 takes {nd.op.name} and never launched")
-            say(f"{tag}: launches in one replayed call (counts set to 0 just before it) "
-                f"{launches[tag]}; {'; '.join(verdicts)}; the first {HMC_HELD} transitions "
-                f"held against the CPU (accepts/indices equal, logp and position within "
-                f"{HMC_RTOL:g})")
-            row = {"launches": launches[tag], "k2": verdicts}
-            if on_card:
-                ms = wall_ms(f, 50)
-                per = HMC_CHAINS if path == "hmc 256 chains" else 1
-                row.update(ms=ms, transitions_s=per * 1e3 / ms)
-                if flags == "default flags":
-                    dev_ms, by = device_ms(f, 10)
-                    row.update(device_ms=dev_ms, busy=dev_ms / ms,
-                               kernels_a_call=sum(c for _, c in by.values()))
-                    tfr = [(k_ms, c) for kn, (k_ms, c) in by.items() if "threefry" in kn]
-                    row["threefry_device_us"] = sum(k for k, _ in tfr) * 1e3
-                say(f"  {tag}: {ms:.3f} ms a transition (wall, CUDA events over 50 calls), "
-                    f"{row['transitions_s']:,.0f} {'chain-' if per > 1 else ''}transitions/s"
-                    + (f"; device {row['device_ms']:.3f} ms a call, busy {row['busy']:.2f}, "
-                       f"{row['kernels_a_call']:.0f} kernels a call, threefry "
-                       f"{row['threefry_device_us']:.1f} us of it" if "device_ms" in row else "")
-                    + f" ({smi_line})")
-            rows["hmc"][tag] = row
-            if flags == "default flags":
-                # each K1 node of a call, fed its real inputs
-                args = [sv.storage[0] for sv in f.shared_vars]
-                for _, nd, xs in plan_values(plan, args):
-                    if not isinstance(nd.op, FusedElemwise):
-                        continue
-                    kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
-                    got, want = (kern.launch if on_card else kern)(*xs), kern.plain(*xs)
-                    sync()
-                    for g, w in zip(got, want):
-                        e_abs, e_rel = errors(g.cpu().double(), w.cpu().double())
-                        k1_abs = max(k1_abs, e_abs)
-                        if e_rel > K1_RTOL.get(str(w.dtype).removeprefix("torch."), 0.0):
-                            raise AssertionError(f"K1 {tag} {nd.op}: {e_rel} from its plain "
-                                                 f"version")
-                    k1_nodes += 1
+            for g, w in zip(got, want):
+                e_abs, e_rel = errors(g.cpu().double(), w.cpu().double())
+                k1_abs = max(k1_abs, e_abs)
+                if e_rel > K1_RTOL.get(str(w.dtype).removeprefix("torch."), 0.0):
+                    raise AssertionError(f"K1 {tag} {nd.op}: {e_rel} from its plain "
+                                         f"version")
+            k1_nodes += 1
     say(f"phase 18: {k1_nodes} K1 nodes of the HMC calls fed their real inputs within "
         f"{k1_abs:.2e} of their plain versions (tol {K1_RTOL})")
     rows["threefry_abs"] = tf_abs
@@ -5679,6 +5698,478 @@ def phase_censored(dev, smi_line, reference):
     return {"censored": launches}, k1_abs, row
 
 
+# --- phase 21: while-scans -------------------------------------------------------------
+
+# the converged power iteration: benchsuite.py:160's matrix, start and step
+# as a while-scan of at most POWER_STEPS steps, whose tolerance fires after
+# step POWER_EXIT of the float64 loop (power.choose_tol: the geometric mean
+# of its differences after steps POWER_EXIT - 1 and POWER_EXIT)
+POWER_STEPS, POWER_EXIT = 64, 16
+# the iterates against the plain SpMV step loop on the card (the rows add in
+# another order: ~1e-7 a step) and against float64 scipy; the gradient's
+# error against torch's autograd of the plain loop in float64 on the card,
+# over its largest magnitude, within four times the float32 plain loop's own
+# (autograd's) plus 1e-6: the normalisation's gradient cancels, and at
+# 4,096 rows on the CPU the graph's gradient is 4.2e-6 off, autograd's
+# 2.0e-6, in other orders of the same float32 operations
+POWER_TOL = {"plain": 1e-6, "float64": 1e-5, "grad": 1e-6}
+POWER_CALLS = 10
+# the condition's read a step: alternated calls of the while-scan and of
+# the for-scan that computes and traces the same test, at least this many
+# pairs and at most this many seconds (alternated_ms)
+POWER_PAIRS = (20, 3.0)
+TRAJ_PAIRS = (6, 6.0)
+# the divergence-stopped radon trajectory: float64, at most TRAJ_STEPS
+# leapfrog steps of each size, stopped after the first at which |H - H0| >
+# models/radon.py MAX_DH; at the first size the energy diverges on the way
+# (the CPU's exit step 49, the same from starts moved by 1e-14; at 0.02 it
+# crossed 1,000 slowly, at step 870 on the CPU and never on the card), at
+# the second never (|H - H0| at most ~150 on the CPU).  The trajectory
+# amplifies rounding (starts 1e-14 apart end ~5 apart after 1,024 steps of
+# 0.01), so the while- and for-scans are held with torch's deterministic
+# algorithms: the float64 gradient's scatter-add (index_add_) then adds in
+# a fixed order, and the two give the same bits; timed without them
+TRAJ_STEPS = 1024
+TRAJ_EPS = {"fires": 0.022, "never": 0.01}
+TRAJ_SEED = 1
+# a call with torch's defaults against the held rows: within rtol of
+# max(1, |row|) over the first `steps` steps (on the CPU a start moved by
+# 1e-15 moves the rows by at most 6.9e-11 in the 49 steps of 0.022 and
+# 2.2e-11 in the first 200 of 0.01); past them rounding alone parts the
+# trajectories (by 0.9 at step 1,024 of 0.01), and the rows are held by
+# the energy's test: the same exit step and |H - H0| <= MAX_DH before it
+TRAJ_DEFAULT = {"rtol": 1e-8, "steps": 200}
+
+
+def while_setup():
+    """The power iteration's matrix, start and tolerance (phase 2 builds
+    its kernels from them, phase 21 runs them): ``(A, x0, the float64
+    loop's differences, tol, margin)``."""
+    from pytensor_tpu_torch.models.power import choose_tol, power_matrix, power_reference
+
+    A, x0 = power_matrix(SPARSE_N, SPARSE_NNZ_ROW, seed=0)  # benchsuite.py's SUITE_SEED
+    diffs = power_reference(A, x0, POWER_STEPS)
+    tol, margin = choose_tol(diffs, POWER_EXIT)
+    return A, x0, diffs, tol, margin
+
+
+def while_functions(setup, dev):
+    """Phase 21's functions on ``dev``: the power iteration's (while and
+    for, ``make_power_functions``) and the radon trajectory's (while and
+    for, ``make_radon_trajectory``: the step size and count are inputs).
+    The for-scans compute and trace the while-scans' test a step; they are
+    linked eager, like the while-scans, and without the scan rewrites,
+    which a while-scan refuses (pushed out of the loop, a step's
+    subexpression would run as a K1 node, whose rounding is not torch's),
+    so that both run the same step."""
+    from pytensor_tpu_torch.compile.mode import get_mode
+    from pytensor_tpu_torch.config import config
+    from pytensor_tpu_torch.models.power import make_power_functions
+    from pytensor_tpu_torch.models.radon import make_radon_trajectory
+
+    A, _, _, tol, _ = setup
+    same_step = get_mode(None).excluding("scan")
+    fns = {"power": make_power_functions(A, tol, POWER_STEPS, device=dev)}
+    with config.change_flags(xla__jit=False):
+        fns["power for"] = make_power_functions(A, tol, POWER_EXIT, False, same_step,
+                                                device=dev)
+        fns["radon"] = make_radon_trajectory(True, N_OBS, N_COUNTIES, device=dev)
+        fns["radon for"] = make_radon_trajectory(False, N_OBS, N_COUNTIES, same_step,
+                                                 device=dev)
+    return fns
+
+
+def while_kernels(dev, setup):
+    """The K1 kernels of phase 21's functions, for phase 2's pool: made
+    from the functions linked for the CPU (the same graphs; a scan's inner
+    graph fuses nothing, so only the outer graphs' nodes)."""
+    kerns: dict = {}
+    for fs in while_functions(setup, "cpu").values():
+        for f in (fs if isinstance(fs, tuple) else (fs,)):
+            plan_kernels(f.linked, dev, kerns)
+    return list(kerns.values())
+
+
+def k1_nodes_held(f, args, dev, tag):
+    """Each K1 node of ``f``'s graph against its plain version, on the
+    inputs the graph gives it (``SPECIAL_RTOL`` of its dtype); returns the
+    largest absolute error."""
+    import torch
+
+    from pytensor_tpu_torch.graph.basic import Constant
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    nodes = [nd for nd in f.fgraph.toposort() if isinstance(nd.op, FusedElemwise)]
+    if not nodes or dev.type != "cuda":  # (a rehearsal on the CPU has no kernel)
+        return 0.0
+    needed = [i for nd in nodes for i in nd.inputs if not isinstance(i, Constant)]
+    values = iter(fgraph_to_torch(FunctionGraph(f.fgraph.inputs, needed, clone=True), dev)(*args))
+    worst = 0.0
+    for nd in nodes:
+        xs = [next(values) for i in nd.inputs if not isinstance(i, Constant)]
+        kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
+        got, want = kern.launch(*xs), kern.plain(*xs)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            rtol = SPECIAL_RTOL[str(b.dtype).replace("torch.", "")]
+            a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+            diff = np.abs(a - b)
+            err = float((diff / np.maximum(1.0, np.abs(b))).max(initial=0.0))
+            if not (np.array_equal(np.isnan(a), np.isnan(b)) and err <= rtol):
+                raise AssertionError(f"{tag} K1 node {nd}: rel err {err} > {rtol}")
+            worst = max(worst, float(np.nan_to_num(diff).max(initial=0.0)))
+        say(f"  {tag} K1 node: ops {[m.op.scalar_op.name for m in nd.op.fgraph.toposort()]}, "
+            f"inputs {[tuple(x.shape) for x in xs]}, held against plain")
+    return worst
+
+
+def phase_while(dev, smi_line, setup):
+    """Phase 21: while-scans.  (a) The converged power iteration at
+    ``benchsuite.py:160``'s size, through ``scan`` with ``until`` and
+    ``function()`` (eager: the step loop reads its condition after each
+    step): the counts set to 0 before one call of the iterates' function
+    and one of the gradient's, and read after (K4 once a forward step, and
+    on Aᵀ once a reverse step, over the executed steps only); the exit step
+    against the float64 loop's, the iterates against the plain SpMV step
+    loop on the card and float64 scipy, the gradient against torch's
+    autograd of the plain loop.  (b) The radon trajectory, float64, at each
+    ``TRAJ_EPS``: its exit step, its rows against the same steps as an
+    eager for-scan, the divergence test against the energies.  Each
+    path's K1 nodes against their plain version; each step's cost with the
+    condition's read against the step of a for-scan that computes the same
+    test.  Returns ({path: launches},
+    {path: K4 launches}, K1's largest absolute error, the row)."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import sparse_as_torch
+    from pytensor_tpu_torch.models.radon import radon_logp_dlogp_reference, theta_start
+    from pytensor_tpu_torch.tensor import fused_kernel
+
+    t21 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    A, x0, diffs, tol, margin = setup
+    n = A.shape[0]
+    t0 = time.perf_counter()
+    fns = while_functions(setup, dev)
+    f, fg = fns["power"]
+    f_for, _ = fns["power for"]
+    say(f"while-scan functions built in {time.perf_counter() - t0:.2f} s; the power iteration's "
+        f"plan: {[type(nd.op).__name__ for nd in f.fgraph.toposort()]}, host reads "
+        f"{f.linked.host_reads}")
+
+    def reset():
+        if cuda:
+            torch.cuda.synchronize()
+        fused_kernel.LAUNCHES = spmv_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+
+    def counts():
+        if cuda:
+            torch.cuda.synchronize()
+        return {"spmv_csr": spmv_kernel.LAUNCHES, "fused_elemwise": fused_kernel.LAUNCHES,
+                "scan_whole_loop": scan_kernel.LAUNCHES}
+
+    # (a) the converged power iteration ------------------------------------------
+    say(f"converged power iteration: {n:,}² CSR, {A.nnz:,} nonzeros, float32, at most "
+        f"{POWER_STEPS} steps; tol {tol:.6g}, from the float64 loop's max|x_new - x| after steps "
+        f"{POWER_EXIT - 1} and {POWER_EXIT} ({diffs[POWER_EXIT - 2]:.6g}, "
+        f"{diffs[POWER_EXIT - 1]:.6g}: a margin of {margin:.3f} on either side)")
+    x0_d = torch.from_numpy(x0).to(dev)
+    w = np.random.default_rng(TRAJ_SEED).standard_normal((n, 1)).astype("float32")
+    w_d = torch.from_numpy(w).to(dev)
+    reset()
+    (xs,) = f(x0_d)
+    fwd = counts()
+    steps = int(xs.shape[0])
+    reset()
+    last, g = fg(x0_d, w_d)
+    bwd = counts()
+    say(f"converged power iteration: exit after step {steps} of {POWER_STEPS} (the float64 "
+        f"loop's: {POWER_EXIT}); launches of one call of the iterates' function {fwd}, of one "
+        f"call of the gradient's {bwd}")
+    if steps != POWER_EXIT:
+        raise AssertionError(f"power iteration: exit after step {steps}, not {POWER_EXIT}")
+    if cuda and (fwd["spmv_csr"] != steps or bwd["spmv_csr"] != 2 * steps):
+        raise AssertionError(f"power iteration: K4 launched {fwd['spmv_csr']} and "
+                             f"{bwd['spmv_csr']} times, not {steps} and {2 * steps}")
+    # the plain SpMV step loop on the card, and float64 scipy
+    c = sparse_as_torch(A, dev)
+
+    def plain_loop(x, n_steps, stop, data=c.data):
+        rows = []
+        for _ in range(n_steps):
+            y = spmv_kernel.plain(c.indptr, c.indices, data, x.reshape(-1)).reshape(n, 1)
+            x_new = y / (y.abs().max() + 1e-9)
+            rows.append(x_new)
+            done = stop and bool((x_new - x).abs().max() < np.float32(tol))
+            x = x_new
+            if done:
+                break
+        return torch.stack(rows)
+
+    plain_xs = plain_loop(x0_d, POWER_STEPS, True)
+    if plain_xs.shape != xs.shape:
+        raise AssertionError(f"power iteration: the plain loop ran {plain_xs.shape[0]} steps, "
+                             f"the while-scan {steps}")
+    e_plain = float((xs - plain_xs).abs().max())
+    v = x0.astype("float64")
+    A64 = A.astype("float64")
+    e64 = 0.0
+    for t in range(steps):
+        yv = A64 @ v
+        v = yv / (np.max(np.abs(yv)) + 1e-9)
+        e64 = max(e64, float(np.max(np.abs(xs[t].cpu().numpy() - v))))
+    # the gradient: autograd of the plain loop, in float32 and in float64
+    grads = []
+    for dt in (torch.float32, torch.float64):
+        x_req = x0_d.to(dt).requires_grad_(True)
+        out = plain_loop(x_req, steps, False, c.data.to(dt))[-1]
+        grads.append(torch.autograd.grad((out * w_d.to(dt)).sum(), x_req)[0])
+    g_plain, g64 = grads
+    e_grad = float((g.double() - g64).abs().max() / g64.abs().max())
+    e_grad32 = float((g_plain.double() - g64).abs().max() / g64.abs().max())
+    e_last = float((last - xs[-1]).abs().max())
+    say(f"converged power iteration: iterates vs the plain step loop on the card max|err| "
+        f"{e_plain:.3e} (tol {POWER_TOL['plain']:g}), vs float64 scipy {e64:.3e} (tol "
+        f"{POWER_TOL['float64']:g}); gradient vs float64 autograd of the plain loop "
+        f"max|err|/max|g| {e_grad:.3e}, the float32 plain loop's {e_grad32:.3e} (tol 4x it "
+        f"+ {POWER_TOL['grad']:g}); the gradient function's last iterate vs the iterates' "
+        f"{e_last:.3e}")
+    if not (torch.isfinite(xs).all() and torch.isfinite(g).all() and e_plain <= POWER_TOL["plain"]
+            and e64 <= POWER_TOL["float64"] and e_grad <= 4 * e_grad32 + POWER_TOL["grad"]
+            and e_last == 0.0):
+        raise AssertionError("power iteration: a hold failed (above)")
+    k1_abs = max(k1_nodes_held(f, [x0_d], dev, "power iteration"),
+                 k1_nodes_held(fg, [x0_d, w_d], dev, "power iteration gradient"))
+    # a step with the condition's read against the same step of the
+    # for-scan of the executed steps, which computes and traces the same
+    # test (the same inner graph), both eager
+    xs_for, converged = f_for(x0_d)
+    converged = converged.cpu().numpy()
+    if not (torch.equal(xs_for, xs) and converged[-1] and not converged[:-1].any()):
+        raise AssertionError(f"power iteration: the for-scan of the executed steps gives other "
+                             f"iterates or tests {converged}")
+    timing = {}
+    if cuda:
+        def same_iterates(out):
+            if not torch.equal(out[0], xs):
+                raise AssertionError("power iteration: a timed call gave other iterates")
+
+        pair = alternated_ms(lambda: f(x0_d), lambda: f_for(x0_d), POWER_PAIRS, same_iterates)
+        w_grad = wall_ms(lambda: fg(x0_d, w_d), POWER_CALLS)
+        d_while, by = device_ms(lambda: f(x0_d), 3)
+        timing = {**read_cost(pair, steps), "grad_wall_ms": w_grad, "device_ms": d_while,
+                  "read_span_us": read_span(lambda: f(x0_d), steps, same_iterates),
+                  "kernels": sum(c_ for _, c_ in by.values())}
+        say(f"converged power iteration ({smi_line}): {say_read(timing, steps)}; device "
+            f"{d_while:.4f} ms a call, busy {d_while / timing['wall_ms']:.3f}, "
+            f"{timing['kernels']:.0f} kernels a call; the gradient's call {w_grad:.4f} ms")
+        for kname, (ms, cnt) in sorted(by.items(), key=lambda kv: -kv[1][0])[:6]:
+            say(f"  power until: {ms:.4f} ms/call  {cnt:.0f} launches/call  {kname[:90]}")
+    row = {"power": {"exit": steps, "tol": tol, "launches": fwd, "grad_launches": bwd,
+                     "err_plain": e_plain, "err_float64": e64, "err_grad": e_grad,
+                     "err_grad_plain32": e_grad32, **timing}}
+    launches = {"power until": fwd, "power until gradient": bwd}
+    k4_by_path = {"converged power iteration": fwd["spmv_csr"],
+                  "its gradient": bwd["spmv_csr"]}
+
+    # (b) the divergence-stopped radon trajectory --------------------------------------
+    n_params = N_COUNTIES + 4
+    th0 = theta_start(n_params)
+    m0 = np.random.default_rng(TRAJ_SEED).standard_normal(n_params)
+    logp0, _ = radon_logp_dlogp_reference(th0, N_OBS, N_COUNTIES)
+    H0 = -float(np.ravel(logp0)[0]) + 0.5 * float(m0 @ m0)
+    th_d, m_d = torch.from_numpy(th0).to(dev), torch.from_numpy(m0).to(dev)
+    k1_abs = max(k1_abs, trajectories(fns, th_d, m_d, H0, launches, row, reset, counts, dev,
+                                      smi_line))
+    say(f"while-scan phase done in {time.perf_counter() - t21:.1f} s")
+    return launches, k4_by_path, k1_abs, row
+
+
+def paired(d):
+    """The median of paired differences ``d`` and its standard error, from
+    their median absolute deviation (a host's stall in one call moves
+    neither)."""
+    med = float(np.median(d))
+    return med, 1.2533 * 1.4826 * float(np.median(np.abs(d - med))) / np.sqrt(len(d))
+
+
+def alternated_ms(fa, fb, budget, check):
+    """Wall ms of calls of ``fa`` and of ``fb`` in turn (a b, b a, a b,
+    ...), each alone (the card idle before and after), until the pairs'
+    differences resolve (``paired``: their median more than three standard
+    errors from 0, after at least ``budget[0]`` pairs) or ``budget[1]``
+    seconds have gone; ``check`` is given each call's output.  Returns
+    (a's, b's)."""
+    import torch
+
+    times: tuple[list, list] = ([], [])
+    t0 = time.perf_counter()
+    while True:
+        for k in ((0, 1) if len(times[0]) % 2 == 0 else (1, 0)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = (fa, fb)[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t) * 1e3)
+            check(out)
+        med, se = paired(np.subtract(*times))
+        n = len(times[0])
+        if n >= 2 and (time.perf_counter() - t0 > budget[1] or (
+                n >= budget[0] and abs(med) > 3 * se)):
+            return times
+
+
+def read_cost(pair, steps):
+    """The condition's read a step from ``alternated_ms``' while- and
+    for-scan calls of ``steps`` steps: the pairs' median difference and
+    its standard error (``paired``), the mean's and the minima's
+    differences, in µs."""
+    a, b = (np.asarray(t) for t in pair)
+    d = (a - b) / steps * 1e3
+    med, se = paired(d)
+    return {"pairs": len(d), "wall_ms": float(np.median(a)), "for_wall_ms": float(np.median(b)),
+            "step_us": float(np.median(a)) / steps * 1e3,
+            "for_step_us": float(np.median(b)) / steps * 1e3,
+            "read_us": med, "read_se_us": se, "read_mean_us": float(d.mean()),
+            "read_min_us": float(a.min() - b.min()) / steps * 1e3,
+            "resolved": bool(abs(med) > 3 * se)}
+
+
+def read_span(fn, steps, check):
+    """The condition's read from the inside: the host's time in
+    ``aten::is_nonzero`` (``bool()`` of the condition: the copy to the
+    host and the wait for the card) that ``torch.profiler`` traces over one
+    call of ``fn``, which must read it once a step; µs a read.  ``check``
+    is given the call's output."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        check(fn())
+    reads = [e for e in prof.key_averages() if e.key == "aten::is_nonzero"]
+    if sum(e.count for e in reads) != steps:
+        raise AssertionError(f"the while-scan read its condition {[e.count for e in reads]} "
+                             f"times in {steps} steps")
+    return sum(e.cpu_time_total for e in reads) / steps
+
+
+def say_read(r, steps):
+    return (f"{r['step_us']:.2f} µs a step with the condition's read ({steps} steps, median "
+            f"{r['wall_ms']:.4f} ms a call), against {r['for_step_us']:.2f} µs a step of the "
+            f"eager for-scan of {steps} that computes the same test ({r['for_wall_ms']:.4f} ms); "
+            f"the read {r['read_us']:.2f} ± {r['read_se_us']:.2f} µs a step, the median of "
+            f"{r['pairs']} alternated pairs' differences ("
+            + ("resolved: more than three standard errors from 0" if r["resolved"]
+               else "not resolved: within three standard errors of 0")
+            + f"), {r['read_mean_us']:.2f} their mean, "
+            f"{r['read_min_us']:.2f} between the minima; the read's own span (torch.profiler, "
+            f"aten::is_nonzero) {r['read_span_us']:.2f} µs")
+
+
+def trajectories(fns, th_d, m_d, H0, launches, row, reset, counts, dev, smi_line):
+    """Phase 21 (b): the radon trajectory at each ``TRAJ_EPS``, into
+    ``launches`` and ``row``; returns its K1 nodes' largest error.  The
+    while-scan (at most ``TRAJ_STEPS`` steps) and the for-scan of as many
+    steps as it ran, held with torch's deterministic algorithms
+    (``TRAJ_EPS``); then with torch's defaults, each call held against
+    those rows (``TRAJ_DEFAULT``): where it diverges, the two in turn
+    (``alternated_ms``), timed; where it does not, the while-scan once."""
+    import torch
+
+    from pytensor_tpu_torch.models.radon import MAX_DH
+
+    cuda = dev.type == "cuda"
+    fw, ff = fns["radon"], fns["radon for"]
+    k1_abs = 0.0
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if cuda:
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for label, eps in TRAJ_EPS.items():
+        args = [th_d, m_d, np.float64(eps)]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            reset()
+            tw, w_det = timed(fw, *args, np.int64(TRAJ_STEPS))
+            launches[f"radon trajectory {label}"] = counts()
+            k = int(tw[0].shape[0])
+            tf, f_det = timed(ff, *args, np.int64(k))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        same = [torch.equal(a, b) for a, b in zip(tw, tf)]
+        hs = tw[2].cpu().numpy()
+        dh = np.abs(hs - H0)
+        stops = bool(dh[-1] > MAX_DH) and bool((dh[:-1] <= MAX_DH).all())
+        tested = tf[3].cpu().numpy()  # the for-scan's trace of the same test
+        say(f"radon trajectory, eps {eps}: exit after step {k} of {TRAJ_STEPS}; H0 {H0:.6f}, "
+            f"|H - H0| at the exit {dh[-1]:.6g}, largest before {dh[:-1].max(initial=0.0):.6g}; "
+            f"rows equal to the for-scan's of {k} steps (theta, m, H): {same}; launches "
+            f"{launches[f'radon trajectory {label}']}")
+        if not all(same) or tested[:-1].any() or bool(tested[-1]) != (k < TRAJ_STEPS):
+            raise AssertionError(f"radon trajectory {label}: rows or tests differ from the "
+                                 f"for-scan's ({tested})")
+        if label == "fires" and not (1 < k < TRAJ_STEPS and stops):
+            raise AssertionError(f"radon trajectory {label}: exit after step {k}, |H - H0| {dh}")
+        if label == "never" and not (k == TRAJ_STEPS and (dh <= MAX_DH).all()):
+            raise AssertionError(f"radon trajectory {label}: exit after step {k}")
+        if not (np.isfinite(hs[:-1]).all() and tw[0][:-1].isfinite().all()):
+            raise AssertionError(f"radon trajectory {label}: a value before the exit is not "
+                                 f"finite")
+        k1_abs = max(k1_abs, k1_nodes_held(fw, [*args, np.int64(TRAJ_STEPS)], dev,
+                                           f"radon trajectory {label}"))
+        r = {"exit": k, "eps": eps, "dh_exit": float(dh[-1]),
+             "deterministic_step_us": w_det / k * 1e3,
+             "deterministic_for_step_us": f_det / k * 1e3}
+        # with torch's defaults (the gradient's scatter-adds by atomics):
+        # each call's exit and rows against the held ones
+        worst = [0.0, 0.0]
+
+        def held(out, label=label, tw=tw, k=k):
+            rows = out[:3]
+            if int(rows[0].shape[0]) != k:
+                raise AssertionError(f"radon trajectory {label}: a call with torch's defaults "
+                                     f"exits after step {rows[0].shape[0]}, not {k}")
+            err = np.asarray([((a - b).abs() / b.abs().clamp(min=1.0)).reshape(k, -1)
+                              .amax(1).cpu().numpy() for a, b in zip(rows, tw)]).max(0)
+            n = min(k, TRAJ_DEFAULT["steps"])
+            worst[0] = max(worst[0], float(err[:n].max()))
+            worst[1] = max(worst[1], float(err.max()))
+            dh_ = (out[2] - H0).abs().cpu().numpy()
+            if not (err[:n].max() <= TRAJ_DEFAULT["rtol"]
+                    and (dh_[:-1] <= MAX_DH).all() and (dh_[-1] > MAX_DH) == (k < TRAJ_STEPS)):
+                raise AssertionError(f"radon trajectory {label}: a call with torch's defaults "
+                                     f"is {err[:n].max():.3e} from the held rows in its first "
+                                     f"{n} steps, or its energies fail the test")
+
+        if cuda and label == "fires":
+            pair = alternated_ms(lambda: fw(*args, np.int64(TRAJ_STEPS)),
+                                 lambda: ff(*args, np.int64(k)), TRAJ_PAIRS, held)
+            r.update(read_cost(pair, k),
+                     read_span_us=read_span(lambda: fw(*args, np.int64(TRAJ_STEPS)), k, held))
+            say(f"radon trajectory, eps {eps} ({smi_line}): {say_read(r, k)}")
+        elif cuda:
+            out, w_while = timed(fw, *args, np.int64(TRAJ_STEPS))
+            held(out)
+            r.update(wall_ms=w_while, step_us=w_while / k * 1e3)
+            say(f"radon trajectory, eps {eps} ({smi_line}): {r['step_us']:.2f} µs a step with "
+                f"the condition's read, one call of {k} steps")
+        r.update(default_err=worst[0], default_err_all=worst[1])
+        say(f"radon trajectory, eps {eps}: with torch's defaults, each call's rows within "
+            f"{worst[0]:.3e} of the held ones in their first {min(k, TRAJ_DEFAULT['steps'])} "
+            f"steps (tol {TRAJ_DEFAULT['rtol']:g}), {worst[1]:.3e} over all {k}; with torch's "
+            f"deterministic algorithms {r['deterministic_step_us']:.2f} and "
+            f"{r['deterministic_for_step_us']:.2f} µs a step")
+        row[f"radon {label}"] = r
+    return k1_abs
+
+
 def main(opts):
     import torch
 
@@ -5940,6 +6431,14 @@ def main(opts):
     build_k1(censored_k1)
     say(f"the censored slice's graph: {len(censored_k1)} K1 kernels; graph, rewrite and link for "
         f"the CPU in {time.perf_counter() - t0:.2f} s")
+    # phase 21's: the while-scan functions' K1 kernels, from them linked for
+    # the CPU, and the power iteration's tolerance from the float64 loop
+    t0 = time.perf_counter()
+    while_set = while_setup()
+    while_k1 = while_kernels(dev, while_set)
+    build_k1(while_k1)
+    say(f"the while-scan slice's graphs: {len(while_k1)} K1 kernels; the float64 power loop, "
+        f"graph, rewrite and link for the CPU in {time.perf_counter() - t0:.2f} s")
 
     build_s = {tag: job.result() for tag, job in jobs.items()}
     for job in k1_jobs:
@@ -6735,6 +7234,11 @@ def main(opts):
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_censored_abs)
     model_launches.update(censored_launches)
     lap(20)
+    # 21. while-scans: the converged power iteration, the radon trajectory ----------
+    while_launches, k4_while, k1_while_abs, while_row = phase_while(dev, smi, while_set)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_while_abs)
+    model_launches.update(while_launches)
+    lap(21)
     loop_entries = []
     for kname, timed_at in (("gamma", "gamma 2e20"), ("poisson", "poisson 2e20"),
                             ("binomial", "binomial gibbs visible")):
@@ -6799,7 +7303,9 @@ def main(opts):
         {"name": "spmv_csr (K4)", "route": "cuda",
          "source": "pytensor_tpu_torch/csrc/spmv_csr.cu",
          "replaces": "pytensor_tpu/link/pallas/route.py:194",
-         "launches": power_launches["spmv_csr"], **k4},
+         "launches": power_launches["spmv_csr"] + sum(k4_while.values()),
+         "launches_by_path": {"power iteration": power_launches["spmv_csr"], **k4_while},
+         "while_scans": while_row, **k4},
         {"name": "threefry2x32", "route": "cuda",
          "source": "pytensor_tpu_torch/csrc/threefry.cu",
          "replaces": "jax.random threefry2x32 (XLA; no Pallas kernel)",

@@ -330,8 +330,11 @@ def _budget_bytes(op, node) -> int:
 
 def scan_kernel_eligible(op, node=None) -> bool:
     """Can this Scan run as one K2 launch?  Same structure as the JAX
-    package's ``pallas_scan_eligible``."""
+    package's ``pallas_scan_eligible``: a while-scan never (its step loop
+    reads the condition after each step)."""
     info = op.info
+    if info.as_while:
+        return False
     if any(t != (-1,) for t in info.taps):
         return False
     if info.n_seqs:

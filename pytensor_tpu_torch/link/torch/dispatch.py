@@ -36,6 +36,7 @@ from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.graph.fg import FunctionGraph
 from pytensor_tpu_torch.scalar.basic import upcast
 from pytensor_tpu_torch.link.torch.convert import CSR, UNSIGNED, torch_dtype
+from pytensor_tpu_torch.scan.dynlen import PadTraceGrad, TruncateToDone
 from pytensor_tpu_torch.scan.op import Scan
 from pytensor_tpu_torch.sparse.basic import StructuredDot, StructuredDotGrad, Transpose
 from pytensor_tpu_torch.sparse.spmv import RoutedSpMV
@@ -1798,14 +1799,22 @@ def _non_seq_ports(node):
     return range(len(node.inputs) - op.info.n_non_seqs, len(node.inputs))
 
 
+def _reads_condition(node):
+    if node.op.info.as_while:
+        return "a while-scan reads its condition on the host after each step"
+    return ""
+
+
 @torch_funcify.register(Scan)
-@ports(host=(0,), keeps_host=_non_seq_ports)
+@ports(host=(0,), keeps_host=_non_seq_ports, reads_back=_reads_condition)
 def _scan(op, node=None, device=None, host=frozenset(), **kw):
     """The loop below, or with ``config.scan__pallas`` and an eligible
     scan the whole-loop kernel K2 (the rule of
     ``pytensor_tpu/scan/op.py:801-806``); K2's wrapper runs this loop on
     CPU tensors and the kernel on CUDA tensors, never the loop in its place.
-    ``host`` holds the variables of the outer plan that are host values."""
+    ``host`` holds the variables of the outer plan that are host values.
+    A while-scan reads its condition back after each step, so a plan that
+    holds one runs eagerly (``reads_back``)."""
     from pytensor_tpu_torch.link.cuda.scan_kernel import ScanKernel
 
     if _takes_kernel(op, node):
@@ -1814,11 +1823,23 @@ def _scan(op, node=None, device=None, host=frozenset(), **kw):
 
 
 def scan_loop(op, device, node=None, host=frozenset()):
-    """A for-scan as a torch step loop over the inner graph linked for
-    ``device`` (counterpart of ``pytensor_tpu/scan/op.py:817-875``); the
+    """A scan as a torch step loop over the inner graph linked for
+    ``device`` (counterpart of ``pytensor_tpu/scan/op.py:817-946``); the
     plain version of K2.  Returns ``loop(n_steps, *outer)``, which gives
     the traces of the states, the final untraced states and the nit-sot
-    traces, in that order; ``loop.inner`` is the inner plan.
+    traces, in that order, and a while-scan's ``steps_done`` last;
+    ``loop.inner`` is the inner plan.
+
+    A while-scan (the counterpart of the JAX package's ``lax.while_loop``
+    lowering, ``pytensor_tpu/scan/op.py:876-946``) reads each step's
+    condition with ``bool()`` (one wait on the device a step), stops after
+    the step at which it holds, or at ``n_steps``, and pads its traces
+    with zero rows to ``(n_steps, *core)``.  ``steps_done`` is the
+    count of steps run, a 0-d int64 tensor on the CPU: the loop knows it
+    without a read, and ``TruncateToDone`` and the gradient's reverse scan
+    take it as a host integer.  Left out: a loop that reads the condition
+    less often (a chunk of steps run ahead and masked; ROADMAP.md, item 4's
+    note).
 
     Given the ``node`` and the outer plan's ``host`` values, a non-sequence
     that is a host value stays one in the inner plan, and a constant
@@ -1840,13 +1861,14 @@ def scan_loop(op, device, node=None, host=frozenset()):
             fgraph = FunctionGraph(fgraph.inputs, clone_replace(fgraph.outputs, consts),
                                    clone=True)
     inner = fgraph_to_torch(fgraph, device, trust_input=True, host_inputs=host_inputs)
-    n_seqs, n_states, n_unt = info.n_seqs, info.n_states, info.n_untraced
+    n_seqs, n_states, n_unt, n_nit = info.n_seqs, info.n_states, info.n_untraced, info.n_nit_sot
     depth = [-min(taps) for taps in info.taps]
     single = [m == 1 and len(taps) == 1 for m, taps in zip(depth, info.taps)]
     nit_types = [o.type for o in op.inner_nit_sot_outs()]
 
-    def loop(n_steps, *outer):
-        T = int(n_steps)
+    def steps(T, outer):
+        """The inner plan's outputs, a step at a time, for at most ``T``
+        steps."""
         seqs = outer[:n_seqs]
         for s in seqs:
             if s.shape[0] < T:
@@ -1857,34 +1879,71 @@ def scan_loop(op, device, node=None, host=frozenset()):
         # state histories, oldest first
         hist = [[init] if one else [init[i] for i in range(m)]
                 for init, one, m in zip(inits, single, depth)]
-        traces = [[] for _ in range(n_states)]
-        nits = [[] for _ in range(info.n_nit_sot)]
         for t in range(T):
             args = [s[t] for s in seqs]
             for k, taps in enumerate(info.taps):
                 args.extend(hist[k][depth[k] + tap] for tap in taps)
             res = inner(*args, *untraced, *non_seqs)
             for k in range(n_states):
-                traces[k].append(res[k])
                 hist[k] = hist[k][1:] + [res[k]]
             untraced = list(res[n_states: n_states + n_unt])
-            for j in range(info.n_nit_sot):
-                nits[j].append(res[n_states + n_unt + j])
+            yield res
 
-        def stacked(rows, core_shape, dtype):
-            if rows:
-                return torch.stack(rows)
-            return torch.empty((0, *core_shape), dtype=dtype, device=device)
+    def empty(k, outer):
+        """Output ``k``'s trace of no step (a state's, then a nit-sot's)."""
+        if k < n_states:
+            init = outer[n_seqs + k]
+            core = init.shape if single[k] else init.shape[1:]
+            return torch.empty((0, *core), dtype=init.dtype, device=device)
+        ty = nit_types[k - n_states]
+        return torch.empty((0, *(s or 0 for s in ty.shape)), dtype=torch_dtype(ty.dtype),
+                           device=device)
 
-        out = [stacked(traces[k], tuple(hist[k][-1].shape), inits[k].dtype)
-               for k in range(n_states)]
-        out += untraced
-        out += [stacked(nits[j], tuple(s or 0 for s in nit_types[j].shape),
-                        torch_dtype(nit_types[j].dtype)) for j in range(info.n_nit_sot)]
-        return out
+    def loop(n_steps, *outer):
+        T = int(n_steps)
+        untraced = list(outer[n_seqs + n_states: n_seqs + n_states + n_unt])
+        rows = [[] for _ in range(n_states + n_nit)]
+        t = 0
+        for res in steps(T, outer):
+            untraced = list(res[n_states: n_states + n_unt])
+            # (a while-scan's condition, its last output, makes no row)
+            for r, row in zip(rows, res[:n_states] + res[n_states + n_unt:]):
+                r.append(row)
+            t += 1
+            if info.as_while and bool(res[-1]):
+                break
+        out = [torch.stack(r) if r else empty(k, outer) for k, r in enumerate(rows)]
+        if not info.as_while:
+            return out[:n_states] + untraced + out[n_states:]
+        # the traces are (n_steps, *core), zero past the exit step
+        out = [torch.cat([o, o.new_zeros((T - t, *o.shape[1:]))]) if t < T else o for o in out]
+        return out[:n_states] + untraced + out[n_states:] + [torch.tensor(t, dtype=torch.int64)]
 
     loop.inner = inner
     return loop
+
+
+# --- while-scan traces --------------------------------------------------------------
+
+@torch_funcify.register(TruncateToDone)
+@ports(host=(1,))
+def _truncate_to_done(op, node=None, **kw):
+    """The executed prefix, a view; ``steps_done`` is the while-scan's
+    host integer."""
+    def truncate_to_done(trace, steps_done):
+        return trace[: int(steps_done)]
+
+    return truncate_to_done
+
+
+@torch_funcify.register(PadTraceGrad)
+def _pad_trace_grad(op, node=None, **kw):
+    def pad_trace_grad(g, like, steps_done):
+        out = torch.zeros_like(like)
+        out[: g.shape[0]] = g
+        return out
+
+    return pad_trace_grad
 
 
 # --- sparse ---------------------------------------------------------------------

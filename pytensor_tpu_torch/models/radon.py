@@ -10,7 +10,9 @@ varying-intercept model with non-centered parameterization,
 
 The graphs map the flat free-parameter vector to (logp, dlogp), which is
 what a NUTS leapfrog step evaluates; ``leapfrog`` drives a linked
-function the way a sampler does.
+function the way a sampler does.  ``make_radon_trajectory`` is a
+sampler's trajectory as a while-scan: leapfrog steps that stop where the
+energy diverges.
 """
 
 from __future__ import annotations
@@ -178,6 +180,61 @@ def make_leapfrog_chain(dtype="float32", n_chains=None, n_steps=8192, n_obs=919,
         return ptt.function([theta0, m0], [thetas[-1], ms[-1], final_logp],
                             name="leapfrog_chain", mode=mode, trust_input=True,
                             device=device)
+
+
+MAX_DH = 1000.0  # a sampler's divergence test: |H - H0| > 1000
+
+
+def trajectory_graphs(ptt, pt, graphs, n_steps, eps, stop=True):
+    """``(theta0, m0, traces)`` of a package's namespaces (``ptt`` the
+    package, ``pt`` its tensor module) over its radon ``graphs``
+    (``make_radon_graphs``' result): a leapfrog trajectory of ``n_steps``
+    steps of ``eps`` (numbers or scalar variables) from ``(theta0, m0)``,
+    ``traces`` its ``[thetas, ms, hs]`` with the energy ``H = -logp +
+    |m|^2 / 2`` after each step.  With ``stop``, a while-scan that stops
+    after the first step at which ``|H - H0| > MAX_DH`` (the traces are
+    then the executed prefix); else a for-scan that computes the same
+    test a step and traces it as a fourth output."""
+    import importlib
+
+    until = importlib.import_module(ptt.__name__ + ".scan").until
+    graph_replace = importlib.import_module(ptt.__name__ + ".graph.replace").graph_replace
+    (theta_in,), (logp, dlogp), n_params = graphs
+    dtype = theta_in.type.dtype
+    theta0 = pt.tensor("theta0", dtype=dtype, shape=(n_params,))
+    m0 = pt.tensor("m0", dtype=dtype, shape=(n_params,))
+
+    def energy(theta, m):
+        return -graph_replace(logp, {theta_in: theta}) + 0.5 * pt.sum(m * m)
+
+    def step(theta, m, h0, eps):
+        m_half = m + (eps / 2) * graph_replace(dlogp, {theta_in: theta})
+        theta_new = theta + eps * m_half
+        m_new = m_half + (eps / 2) * graph_replace(dlogp, {theta_in: theta_new})
+        h = energy(theta_new, m_new)
+        diverged = pt.gt(pt.abs(h - h0), MAX_DH)
+        if stop:
+            return (theta_new, m_new, h), until(diverged)
+        return theta_new, m_new, h, diverged
+
+    traces, _ = ptt.scan(step, outputs_info=[theta0, m0, None] + ([] if stop else [None]),
+                         non_sequences=[energy(theta0, m0), eps], n_steps=n_steps,
+                         name="trajectory")
+    return theta0, m0, list(traces)
+
+
+def make_radon_trajectory(stop=True, n_obs=919, n_counties=85, mode=None, *, device="cuda"):
+    """``f(theta0, m0, eps, n_steps) -> traces``: ``trajectory_graphs`` of
+    the radon model in float64 with the step size and the step count as
+    inputs, linked (in ``mode``).  With ``stop`` (a while-scan) the
+    traces' length is the exit step; the function runs eagerly, as the
+    step loop reads its condition on the host after each step (and the
+    step count is read on the host)."""
+    graphs = make_radon_graphs(n_obs, n_counties, "float64")
+    eps, n_steps = pt.scalar("eps", dtype="float64"), pt.scalar("n_steps", dtype="int64")
+    theta0, m0, traces = trajectory_graphs(ptt, pt, graphs, n_steps, eps, stop)
+    return ptt.function([theta0, m0, eps, n_steps], traces, name="radon_trajectory", mode=mode,
+                        device=device)
 
 
 def radon_logp_dlogp_reference(theta, n_obs=919, n_counties=85, seed=0):

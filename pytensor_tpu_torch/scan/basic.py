@@ -18,8 +18,15 @@ RandomVariable of the step consumes becomes an untraced state (the
 JAX package's ``scan/basic.py:345-480``): the key threads through the
 loop, each step drawing from it and passing on the next key, and its
 final value is the update of the shared variable; so does the target of
-an explicit update that is not a tensor.  Left out: while-loops
-(``until`` raises; ROADMAP.md Queue 1 item 4).
+an explicit update that is not a tensor.
+
+A step function that returns ``until(cond)`` (alone, or as ``(outputs,
+until)`` or ``(outputs, updates, until)``) makes a while-scan
+(``pytensor_tpu/scan/basic.py:269-300, :484-530``): the loop stops after
+the step at which ``cond`` holds, or at ``n_steps``.  Each trace it
+returns, and the last value a traced update reads, is the executed prefix
+(``scan/dynlen.py TruncateToDone``), and outer variables that only the
+condition reads become implicit non-sequences too.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from typing import Callable
 from pytensor_tpu_torch.graph.basic import Constant, Variable
 from pytensor_tpu_torch.graph.fg import FunctionGraph, MissingInputError
 from pytensor_tpu_torch.graph.traversal import ancestors, graph_inputs
-from pytensor_tpu_torch.scan.op import WHILE_SCANS, Scan, ScanInfo
+from pytensor_tpu_torch.scan.op import Scan, ScanInfo
 from pytensor_tpu_torch.scan.utils import until
 from pytensor_tpu_torch.tensor.basic import as_tensor_variable
 from pytensor_tpu_torch.tensor.type import TensorType
@@ -181,16 +188,25 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
             tensor = isinstance(getattr(k, "type", None), TensorType)
             explicit_updates[k] = as_tensor_variable(v) if tensor else v
 
-    if isinstance(raw, until) or (isinstance(raw, tuple) and any(isinstance(r, until)
-                                                                 for r in raw)):
-        raise NotImplementedError(f"while-scans (until) are not ported yet ({WHILE_SCANS})")
+    condition = None
     if isinstance(raw, dict) or (_is_updates(raw) and not isinstance(raw, tuple)):
         outputs_raw = []
         collect_updates(raw)
-    elif (isinstance(raw, tuple) and len(raw) == 2 and _is_updates(raw[1])
+    elif (isinstance(raw, tuple) and len(raw) in (2, 3)
+          and (isinstance(raw[-1], until) or _is_updates(raw[-1]) or len(raw) == 3)
           and not all(isinstance(r, Variable) for r in raw)):
+        # (outputs, updates), (outputs, until), (outputs, updates, until)
         outputs_raw = raw[0]
-        collect_updates(raw[1])
+        for extra in raw[1:]:
+            if isinstance(extra, until):
+                condition = extra.condition
+            elif isinstance(extra, dict) or _is_updates(extra):
+                collect_updates(extra)
+            else:
+                raise TypeError(f"unexpected scan fn return component {extra}")
+    elif isinstance(raw, until):
+        outputs_raw = []
+        condition = raw.condition
     else:
         outputs_raw = raw
     user_outs = [as_tensor_variable(o) for o in _listify(outputs_raw)]
@@ -223,11 +239,14 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
         mapping = [(old, new) for og, ng in zip(inner_taps, new_taps)
                    for old, new in zip(og, ng) if old.type != new.type]
         keys = list(explicit_updates)
-        exprs = graph_replace(user_outs + [explicit_updates[k] for k in keys], mapping,
+        exprs = graph_replace(user_outs + [explicit_updates[k] for k in keys]
+                              + ([condition] if condition is not None else []), mapping,
                               strict=False)
         user_outs = list(exprs[: len(user_outs)])
-        for k, v in zip(keys, exprs[len(user_outs):]):
+        for k, v in zip(keys, exprs[len(user_outs): len(user_outs) + len(keys)]):
             explicit_updates[k] = v
+        if condition is not None:
+            condition = exprs[-1]
         inner_taps = new_taps
     else:
         raise TypeError("scan could not reconcile state dtypes with fn outputs")
@@ -243,7 +262,7 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
                  for k, init in enumerate(inits)]
     flat_taps = [v for g in inner_taps for v in g]
     inner_inputs = inner_seqs + flat_taps
-    inner_outputs = state_outs + nit_outs
+    inner_outputs = state_outs + nit_outs + ([condition] if condition is not None else [])
 
     # implicit non-sequences: outer variables the inner graph reads
     upd_targets = list(explicit_updates)
@@ -317,10 +336,10 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
     n_user_states = len(state_outs)
     info = ScanInfo(n_seqs=len(seq_vars), taps=taps_list + ((-1,),) * len(traced_upd),
                     n_nit_sot=len(nit_outs), n_non_seqs=len(non_seq_vars),
-                    n_untraced=len(untraced_in))
+                    n_untraced=len(untraced_in), as_while=condition is not None)
     # canonical order: seqs + taps (user states, then update states) +
     # untraced + non-seqs; outputs: user states, update states, untraced,
-    # nit-sots
+    # nit-sots, the condition
     fgraph = FunctionGraph(
         inner_seqs + flat_taps + traced_in + untraced_in + nonseq_inputs,
         inner_outputs[:n_user_states] + traced_out + untraced_out
@@ -331,17 +350,28 @@ def scan(fn: Callable, sequences=None, outputs_info=None, non_sequences=None,
         n_steps_var, *seq_vars, *inits, *traced_upd, *untraced_inits, *non_seq_vars,
         return_list=True)
 
+    steps_done = node_outs[-1] if info.as_while else None
+
+    def prefix(trace):
+        """A while-scan trace's executed prefix; a for-scan's whole trace."""
+        if steps_done is None:
+            return trace
+        from pytensor_tpu_torch.scan.dynlen import truncate_to_done
+
+        return truncate_to_done(trace, steps_done)
+
     updates = OrderedUpdates()
     traced_pos = {sv: n_user_states + j for j, sv in enumerate(traced_upd)}
     untraced_pos = {sv: info.n_states + u for u, sv in enumerate(untraced_inits)}
     for sv in upd_targets:
-        updates[sv] = (node_outs[traced_pos[sv]][-1] if sv in traced_pos
+        updates[sv] = (prefix(node_outs[traced_pos[sv]])[-1] if sv in traced_pos
                        else node_outs[untraced_pos[sv]])
     for sv in untraced_inits:
         if sv not in updates:
             updates[sv] = node_outs[untraced_pos[sv]]
-    traces = iter(node_outs[:n_user_states])
-    nits = iter(node_outs[info.n_states + info.n_untraced:])
+    traces = iter(prefix(o) for o in node_outs[:n_user_states])
+    nit_end = info.n_states + info.n_untraced + info.n_nit_sot
+    nits = iter(prefix(o) for o in node_outs[info.n_states + info.n_untraced: nit_end])
     results = [next(traces) if st is not None else next(nits) for st in states]
     if len(results) == 1 and not return_list:
         results = results[0]

@@ -1,9 +1,15 @@
 """The Scan op: a loop over an inner graph.
 
-Counterpart of ``pytensor_tpu/scan/op.py`` (ScanInfo:93, Scan:116), for
-for-scans.  The state taxonomy is the JAX package's: sequences, states
-with negative taps (a sit-sot is taps ``(-1,)``), untraced states (the
-final value only, no trace), nit-sots and non-sequences.  Two Scans are
+Counterpart of ``pytensor_tpu/scan/op.py`` (ScanInfo:93, Scan:116).  The
+state taxonomy is the JAX package's: sequences, states with negative taps
+(a sit-sot is taps ``(-1,)``), untraced states (the final value only, no
+trace), nit-sots, non-sequences and, in a while-scan (``as_while``), a
+condition: the inner graph's last output, which stops the loop after the
+step at which it holds.  A while-scan's node has one more output, the
+int64 ``steps_done``, and its traces are static ``(n_steps, *core)``
+buffers that are zero past the last step run (``scan()`` wraps each in
+``scan/dynlen.py TruncateToDone``); its untraced states are their values
+after that step.  Two Scans are
 equal when their static structure, ``truncate_gradient``, ``unroll`` and
 inner graphs agree structurally (``_signature``), as ``ScanMerge`` and
 the merge pass need.
@@ -12,15 +18,17 @@ The gradient (``L_op``, ``pytensor_tpu/scan/op.py:399-780``) is backprop
 through time as a graph: a reverse scan over the pullback of the inner
 graph, with the state cotangents carried as windows of the states' taps
 and the non-sequences' gradients accumulated in carries, truncated to the
-last ``truncate_gradient`` steps when that is set.
+last ``truncate_gradient`` steps when that is set.  A while-scan's
+reverse scan runs over the steps its forward ran (``steps_done``), where
+the JAX package's runs all ``n_steps`` and masks the ones past the exit.
 
 The torch lowering (``link/torch/dispatch.py``) runs the loop step by
-step, or, with ``config.scan__pallas`` on a CUDA device, an eligible scan
-as one kernel (K2, ``link/cuda/scan_kernel.py``).  ``unroll`` is kept for
-equality and ignored by the lowering: the step loop has no compiled body
-to replicate.  ``perform`` is the numpy loop that constant folding
-evaluates.  Left out: while-scans, with their ``L_op`` branch
-(``scan/basic.py`` raises on ``until``; ROADMAP.md Queue 1 item 4).
+step, or, with ``config.scan__pallas`` on a CUDA device, an eligible
+for-scan as one kernel (K2, ``link/cuda/scan_kernel.py``; it refuses a
+while-scan, as the JAX package's Pallas kernel does).  ``unroll`` is kept
+for equality and ignored by the lowering: the step loop has no compiled
+body to replicate.  ``perform`` is the numpy loop that constant folding
+evaluates.
 """
 
 from __future__ import annotations
@@ -39,9 +47,6 @@ from pytensor_tpu_torch.tensor.basic import (
     get_scalar_constant_value,
 )
 from pytensor_tpu_torch.tensor.type import TensorType
-
-WHILE_SCANS = "ROADMAP.md Queue 1, item 4"
-
 
 class _NullInnerGradError(Exception):
     """Raised while building the reverse scan when an inner gradient is
@@ -96,9 +101,11 @@ class ScanInfo:
 
     taps[k] = negative taps of recurrent state k (sit-sot = (-1,)).
     Inner-input order:  seq slices + state taps (flattened) + untraced + non_seqs.
-    Inner-output order: state outs + untraced outs + nit-sot outs.
+    Inner-output order: state outs + untraced outs + nit-sot outs (+ the
+    condition, last, in a while-scan).
     Outer-input order:  n_steps + seqs + state inits + untraced inits + non_seqs.
-    Outer-output order: state traces + untraced finals + nit-sot traces.
+    Outer-output order: state traces + untraced finals + nit-sot traces (+
+    ``steps_done``, last, in a while-scan).
     """
 
     n_seqs: int
@@ -106,6 +113,7 @@ class ScanInfo:
     n_nit_sot: int
     n_non_seqs: int
     n_untraced: int = 0
+    as_while: bool = False
 
     @property
     def n_states(self):
@@ -122,7 +130,7 @@ class Scan(Op, HasInnerGraph):
         self.unroll = max(1, int(1 if unroll is None else unroll))
         expected_in = (info.n_seqs + sum(len(t) for t in info.taps)
                        + info.n_untraced + info.n_non_seqs)
-        expected_out = info.n_states + info.n_untraced + info.n_nit_sot
+        expected_out = info.n_states + info.n_untraced + info.n_nit_sot + info.as_while
         if len(fgraph.inputs) != expected_in:
             raise ValueError(
                 f"Scan inner graph has {len(fgraph.inputs)} inputs, expected {expected_in}")
@@ -232,6 +240,8 @@ class Scan(Op, HasInnerGraph):
         outputs += [o.type() for o in self.inner_untraced_outs()]
         outputs += [TensorType(o.type.dtype, (static_T, *o.type.shape))()
                     for o in self.inner_nit_sot_outs()]
+        if info.as_while:
+            outputs.append(TensorType("int64", ())())  # steps_done
         return Apply(self, [n_steps, *outer_inputs], outputs)
 
     # --- numpy loop (constant folding) ---
@@ -259,6 +269,7 @@ class Scan(Op, HasInnerGraph):
             hist.append([np.asarray(init)] if single else [np.asarray(init[i]) for i in range(m)])
         state_traces = [[] for _ in range(info.n_states)]
         nit_traces = [[] for _ in range(info.n_nit_sot)]
+        steps_done = 0
         for t in range(n_steps):
             args = [np.asarray(s[t]) for s in seqs]
             for k, taps in enumerate(info.taps):
@@ -274,6 +285,12 @@ class Scan(Op, HasInnerGraph):
             untraced = res[info.n_states: info.n_states + info.n_untraced]
             for j in range(info.n_nit_sot):
                 nit_traces[j].append(res[info.n_states + info.n_untraced + j])
+            steps_done += 1
+            if info.as_while and bool(res[-1]):
+                break  # the condition held: this step is the last
+        # a while-scan's traces are zero past its last step
+        for tr in state_traces + nit_traces:
+            tr.extend([np.zeros_like(tr[-1])] * (n_steps - len(tr)) if tr else [])
         outs = node.outputs
         for k in range(info.n_states):
             output_storage[k][0] = (np.stack(state_traces[k]) if n_steps else np.zeros(
@@ -285,6 +302,8 @@ class Scan(Op, HasInnerGraph):
             shape = tuple(s or 0 for s in outs[pos].type.shape[1:])
             output_storage[pos][0] = (np.stack(nit_traces[j]) if n_steps else
                                       np.zeros((0, *shape), dtype=outs[pos].type.numpy_dtype))
+        if info.as_while:
+            output_storage[-1][0] = np.int64(steps_done)
 
     def infer_shape(self, fgraph, node, input_shapes):
         """Trace shapes are (n_steps, *core); a state's core shape comes
@@ -308,6 +327,8 @@ class Scan(Op, HasInnerGraph):
             for d, static in enumerate(inner_out.type.shape):
                 dims.append(static if static is not None else sym_shape(out)[d + 1])
             res.append(tuple(dims))
+        if info.as_while:
+            res.append(())
         return res
 
     def connection_pattern(self, node):
@@ -333,6 +354,16 @@ class Scan(Op, HasInnerGraph):
         with a trace of the key each step consumed (``TensorFromKey``), and
         the reverse scan takes the reversed trace as a sequence and draws
         from each key again (``pytensor_tpu/scan/op.py:419-461, :573-620``).
+
+        A while-scan's reverse scan (``pytensor_tpu/scan/op.py:468-616``)
+        runs over the executed prefixes, ``steps_done`` steps, where the
+        JAX package's runs ``n_steps`` and masks the steps past the exit:
+        the values are the same, and the padded rows' pullbacks (a 0 * inf
+        there is NaN in the JAX package) are never built.  With
+        ``truncate_gradient = n`` it takes ``steps_done`` as a
+        non-sequence and each reverse step's forward index as a sequence,
+        as the JAX package's does, and keeps the cotangents of the last n
+        steps run only, the pending windows cut below them.
         """
         from pytensor_tpu_torch.graph.basic import clone_get_equiv
         from pytensor_tpu_torch.gradient import grad_not_implemented, grad_undefined, pullback
@@ -340,6 +371,7 @@ class Scan(Op, HasInnerGraph):
         from pytensor_tpu_torch.tensor import math as tm
         from pytensor_tpu_torch.tensor.basic import (
             alloc,
+            arange,
             concatenate,
             shape_padleft,
             stack,
@@ -365,19 +397,27 @@ class Scan(Op, HasInnerGraph):
                 return [grad_not_implemented(self, i, inp, "tensor-typed untraced scan state")
                         for i, inp in enumerate(inputs)]
             # the forward again, with each step's consumed key as a nit-sot
+            # (a while-scan's condition stays last)
+            outs = list(self.fgraph.outputs)
+            cond = [outs.pop()] if info.as_while else []
             aug_fg = FunctionGraph(
                 list(self.fgraph.inputs),
-                list(self.fgraph.outputs) + [tensor_from_key(v)
-                                             for v in self.inner_untraced_vars()],
+                outs + [tensor_from_key(v) for v in self.inner_untraced_vars()] + cond,
                 clone=True)
             aug_info = ScanInfo(n_seqs=info.n_seqs, taps=info.taps,
                                 n_nit_sot=info.n_nit_sot + info.n_untraced,
-                                n_non_seqs=info.n_non_seqs, n_untraced=info.n_untraced)
+                                n_non_seqs=info.n_non_seqs, n_untraced=info.n_untraced,
+                                as_while=info.as_while)
             aug_outs = Scan(aug_fg, aug_info, name=f"{self.name or 'scan'}_keys",
                             unroll=self.unroll)(*inputs, return_list=True)
             base = info.n_states + info.n_untraced + info.n_nit_sot
             key_traces = aug_outs[base: base + info.n_untraced]
 
+        as_while = info.as_while
+        if as_while:
+            # steps_done has no cotangent; trace rows past it are zero
+            steps_done = outputs[-1]
+            outputs, output_grads = outputs[:-1], output_grads[:-1]
         n_steps = inputs[0]
         truncate = self.truncate_gradient
         seqs = list(self.outer_seqs(inputs))
@@ -422,16 +462,24 @@ class Scan(Op, HasInnerGraph):
             hists.append(concatenate([init_buf, state_traces[k]], axis=0))
 
         n_steps_i = tm.cast(n_steps, "int64")
-        rev_seqs = [flip(g, 0) for g in filled]
+        # the steps the forward ran: all n_steps, or a while-scan's
+        # steps_done
+        n_run = steps_done if as_while else n_steps_i
+        # a truncated while-scan masks by the step index
+        window = as_while and truncate != -1
+        rev_seqs = [flip(g[:n_run] if as_while else g, 0) for g in filled]
         for k, taps in enumerate(info.taps):
             m = -min(taps)
             for tap in taps:
                 # the value tap read at step t is hist[t + m + tap]
-                rev_seqs.append(flip(hists[k][m + tap: m + tap + n_steps_i], 0))
+                rev_seqs.append(flip(hists[k][m + tap: m + tap + n_run], 0))
         # a sequence may be longer than n_steps: only the consumed prefix
         # is reversed
-        rev_seqs += [flip(s[:n_steps_i], 0) for s in seqs]
-        rev_seqs += [flip(k, 0) for k in key_traces]
+        rev_seqs += [flip(s[:n_run], 0) for s in seqs]
+        rev_seqs += [flip(k[:n_run] if as_while else k, 0) for k in key_traces]
+        if window:
+            # the forward step of each reverse step: n-1, ..., 0
+            rev_seqs.append(flip(arange(n_run), 0))
 
         n_taps_total = sum(len(t) for t in info.taps)
         op = self
@@ -452,9 +500,17 @@ class Scan(Op, HasInnerGraph):
             tap_vals = take(n_taps_total)
             seq_vals = take(info.n_seqs)
             key_vals = take(info.n_untraced)
+            t_idx = take(1)[0] if window else None
             P = take(info.n_states)
             wbars = take(info.n_non_seqs)
             ns_vals = list(args[pos:])
+            if window:
+                # only the last `truncate` steps run keep their cotangents,
+                # and the pending windows are cut below them
+                below = tm.lt(t_idx, ns_vals.pop() - truncate)
+                P = [tm.switch(below, zeros_like(p), p) for p in P]
+                g_states = [tm.switch(below, zeros_like(g), g) for g in g_states]
+                g_nits = [tm.switch(below, zeros_like(g), g) for g in g_nits]
 
             memo = dict(zip(op.inner_seq_vars(), seq_vals))
             memo.update(zip([v for g in op.inner_tap_vars() for v in g], tap_vals))
@@ -464,6 +520,8 @@ class Scan(Op, HasInnerGraph):
             memo = clone_get_equiv(op.fgraph.inputs, op.fgraph.outputs, copy_inputs=False,
                                    copy_orphans=False, memo=memo)
             step_outs = [memo[o] for o in op.fgraph.outputs]
+            if as_while:
+                step_outs = step_outs[:-1]  # the condition takes no cotangent
             # the next keys take no cotangent
             step_outs = step_outs[:data.start] + step_outs[data.stop:]
 
@@ -514,7 +572,10 @@ class Scan(Op, HasInnerGraph):
                     for i, inp in enumerate(inputs)]
         w0 = [zeros_like(w) for w in non_seqs]
 
-        if truncate != -1:
+        if as_while:
+            # a while-scan truncates by the mask in reverse_step
+            rev_n_steps = steps_done
+        elif truncate != -1:
             # truncated BPTT: only the last `truncate` steps run backwards
             rev_n_steps = tm.minimum(n_steps_i, tm.cast(truncate, "int64"))
         else:
@@ -524,7 +585,8 @@ class Scan(Op, HasInnerGraph):
                           outputs_info=([dict(initial=p, taps=[-1]) for p in P0]
                                         + [dict(initial=w, taps=[-1]) for w in w0]
                                         + [None] * info.n_seqs),
-                          non_sequences=non_seqs, n_steps=rev_n_steps,
+                          non_sequences=non_seqs + ([steps_done] if window else []),
+                          n_steps=rev_n_steps,
                           name=f"grad_of_{self.name or 'scan'}", return_list=True)
         except _NullInnerGradError as e:
             return [grad_undefined(self, i, inp, str(e) or "undefined inner gradient inside scan")
@@ -547,6 +609,12 @@ class Scan(Op, HasInnerGraph):
         grads = [DisconnectedType()()]  # n_steps
         for i, s in enumerate(seqs):
             g_seq = flip(seq_grad_traces[i], 0)
+            if as_while:
+                # rows past steps_done were never read
+                tail = tm.maximum(tm.cast(shape(s)[0], "int64") - steps_done,
+                                  tm.cast(0, "int64"))
+                grads.append(concatenate([g_seq, zero_rows(g_seq, tail)], axis=0))
+                continue
             if truncate != -1:
                 # zeros for the steps before the window
                 pad = tm.maximum(n_steps_i - tm.cast(truncate, "int64"), tm.cast(0, "int64"))
@@ -569,4 +637,4 @@ class Scan(Op, HasInnerGraph):
         return grads
 
     def __str__(self):
-        return f"Scan{{{self.name or 'scan'}, for}}"
+        return f"Scan{{{self.name or 'scan'}, {'while' if self.info.as_while else 'for'}}}"

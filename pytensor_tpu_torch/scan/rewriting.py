@@ -8,7 +8,9 @@ equal positions): ``scan_remove_unused_outputs`` (1.605),
 (1.625), ``ScanMerge`` (1.63), ``scan_push_out_non_seqs`` (1.601),
 ``scan_push_out_seqs`` (1.602, batched over time by ``vectorize_graph``),
 ``scan_push_out_non_recurrent_outputs`` (1.603), ``scan_push_out_add``
-(1.602) and ``scan_reduce_nsteps`` (1.611).
+(1.602) and ``scan_reduce_nsteps`` (1.611).  Each refuses a while-scan,
+as the JAX package's does: pushing a nit-sot or a reduction out of one,
+or cutting its trace, would change what its executed prefix holds.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ def scan_remove_unused_outputs(fgraph, node):
     """Rebuild a Scan without the nit-sot outputs that have no clients."""
     op = node.op
     info = op.info
+    if info.as_while:
+        return False
     if info.n_nit_sot == 0:
         return False
     nit_start = info.n_states + info.n_untraced
@@ -97,6 +101,8 @@ def scan_sit_sot_to_untraced(fgraph, node):
     (n_steps, ...) trace."""
     op = node.op
     info = op.info
+    if info.as_while:
+        return False
     convert = [k for k, taps in enumerate(info.taps)
                if taps == (-1,) and _last_index_clients_only(fgraph, node, node.outputs[k])]
     if not convert:
@@ -152,6 +158,8 @@ def scan_truncate_trace_window(fgraph, node):
 
     op = node.op
     info = op.info
+    if info.as_while:
+        return False
     n_steps = _static_n_steps(node)
     if n_steps is None:
         return False
@@ -254,7 +262,8 @@ class ScanMerge(GraphRewriter):
         merged = 0
         groups = defaultdict(list)
         for node in fgraph.toposort():
-            if isinstance(node.op, Scan) and node.op.truncate_gradient == -1:
+            if (isinstance(node.op, Scan) and node.op.truncate_gradient == -1
+                    and not node.op.info.as_while):
                 groups[id(node.inputs[0])].append(node)
         for nodes in groups.values():
             if len(nodes) < 2:
@@ -328,6 +337,8 @@ def scan_push_out_non_seqs(fgraph, node):
     once in the outer graph."""
     op = node.op
     info = op.info
+    if info.as_while:
+        return False
     inner_non_seqs = set(op.inner_non_seq_vars())
     memo: dict = {}
 
@@ -379,6 +390,8 @@ def scan_push_out_seqs(fgraph, node):
     the time axis by ``vectorize_graph``, and comes back as a sequence."""
     op = node.op
     info = op.info
+    if info.as_while:
+        return False
     if info.n_seqs == 0:
         return False
     inner_seqs = list(op.inner_seq_vars())
@@ -472,6 +485,8 @@ def scan_push_out_non_recurrent_outputs(fgraph, node):
 
     op = node.op
     info = op.info
+    if info.as_while:
+        return False
     if info.n_nit_sot == 0:
         return False
     inner_seqs = list(op.inner_seq_vars())
@@ -516,6 +531,8 @@ def scan_push_out_add(fgraph, node):
 
     op = node.op
     info = op.info
+    if info.as_while:
+        return False
     tap_groups = op.inner_tap_vars()
     carries = {v for g in tap_groups for v in g} | set(op.inner_untraced_vars())
     state_outs = op.inner_state_outs()
@@ -580,6 +597,8 @@ def scan_reduce_nsteps(fgraph, node):
 
     op = node.op
     info = op.info
+    if info.as_while:
+        return False
     T = _static_n_steps(node)
     if T is None:
         return False

@@ -16,7 +16,20 @@ and the special-function rewrites (``local_one_pm_erf``,
 ``local_sigm_times_exp``, ``local_odds_sigmoid``,
 ``local_sigmoid_of_logit``, ``local_logit_of_sigmoid``,
 ``local_logdiffexp``, ``local_log_kv_iv``, ``local_polygamma_specialize``).
-Each keeps its name, tags, database and registration order.
+The twenty-three rewrites that the probe of ROADMAP Queue 3 item 1
+(``tests/torch_math_probe.py``) showed to change a value, or that it named:
+``local_exp_log``, ``local_sum_sum``, ``local_sum_mul_by_scalar``,
+``local_mul_switch_sink``, ``local_div_switch_sink``, ``local_0_dot_x``,
+``local_log_sqrt``, ``local_exp_log_nan_switch``, ``local_pow_pow``,
+``local_reduce_chain``, ``local_sum_of_alloc``, ``local_odd_fn_of_neg``,
+``local_inverse_composition``, ``local_log_reciprocal_or_div_const``,
+``local_sign_reciprocal_or_div_const``, ``local_sqr_of_sqrt``,
+``local_exp_of_log_nan_switch``, ``local_logexp_of_log_nan_switch``,
+``local_pow_to_nested_squaring``, ``local_log_neg_expm1``,
+``local_func_inverse``, ``local_mul_pow_to_pow_add`` and
+``local_sumsqr2dot``.  Each keeps its name, tags, database and
+registration order.  Left out: the eighteen that change only op counts
+(ROADMAP.md Queue 1 item 6 lists them).
 """
 
 from __future__ import annotations
@@ -323,6 +336,26 @@ def local_one_minus_sigmoid(fgraph, node):
 register_stabilize(local_one_minus_sigmoid, name="local_one_minus_sigmoid")
 
 
+@node_rewriter([Elemwise])
+def local_exp_log(fgraph, node):
+    """exp(log(x)) -> x is unsafe (domain); but exp(log1p(x)) -> 1+x is
+    similarly unsafe.  Do the safe one: exp(-softplus(-x)) -> sigmoid(x)."""
+    if not _is_ew(node, "exp"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is not None and _is_ew(inner, "neg"):
+        inner2 = inner.inputs[0].owner
+        if inner2 is not None and _is_ew(inner2, "softplus"):
+            arg = inner2.inputs[0].owner
+            if arg is not None and _is_ew(arg, "neg"):
+                res = _same_type_out(node, tm.sigmoid(arg.inputs[0]))
+                return [res] if res is not None else False
+    return False
+
+
+register_specialize(local_exp_log, name="local_exp_softplus_sigmoid")
+
+
 @node_rewriter([CAReduce])
 def local_sum_of_neg(fgraph, node):
     """sum(-x) -> -sum(x)."""
@@ -378,6 +411,77 @@ def local_sqrt_sqr(fgraph, node):
 register_canonicalize(local_sqrt_sqr, name="local_sqrt_sqr")
 
 
+@node_rewriter([CAReduce])
+def local_sum_sum(fgraph, node):
+    """sum(sum(x, a), b) -> one sum over the combined axes."""
+    if node.op.scalar_op.name != "add":
+        return False
+    inner_var = node.inputs[0]
+    if inner_var.owner is None or not isinstance(inner_var.owner.op, CAReduce):
+        return False
+    if inner_var.owner.op.scalar_op.name != "add":
+        return False
+    if len(fgraph.clients.get(inner_var, ())) != 1:
+        return False
+    x = inner_var.owner.inputs[0]
+    inner_axes = inner_var.owner.op.axis
+    outer_axes = node.op.axis
+    if inner_axes is None or outer_axes is None:
+        combined = None
+    else:
+        # outer axes index the reduced tensor: map back to x's axes
+        kept = [d for d in range(x.type.ndim) if d not in inner_axes]
+        combined = tuple(sorted(set(inner_axes) | {kept[a] for a in outer_axes}))
+    from pytensor_tpu_torch.tensor.elemwise import Sum
+
+    res = Sum(combined, dtype=node.op.dtype)(x)
+    out = node.outputs[0]
+    if not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_canonicalize(local_sum_sum, name="local_sum_sum")
+
+
+@node_rewriter([CAReduce])
+def local_sum_mul_by_scalar(fgraph, node):
+    """sum(x * c) -> c * sum(x) when c is 0-d (fewer flops on big x)."""
+    if node.op.scalar_op.name != "add" or node.op.axis is not None:
+        return False
+    inner_var = node.inputs[0]
+    if inner_var.owner is None or not _is_ew(inner_var.owner, "mul"):
+        return False
+    if len(fgraph.clients.get(inner_var, ())) != 1:
+        return False
+    scalars = []
+    tensors = []
+    for i in inner_var.owner.inputs:
+        if i.type.ndim == 0:
+            scalars.append(i)
+        else:
+            tensors.append(i)
+    if not scalars or not tensors:
+        return False
+    from pytensor_tpu_torch.tensor.elemwise import Sum
+
+    base = tensors[0] if len(tensors) == 1 else tm.mul(*tensors)
+    res = tm.mul(*scalars) * Sum(None, dtype=node.op.dtype)(base)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype:
+        from pytensor_tpu_torch.tensor.basic import cast
+
+        res = cast(res, out.type.dtype)
+    if not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_sum_mul_by_scalar, name="local_sum_mul_by_scalar")
+
+
 @node_rewriter([Elemwise])
 def local_log_sum_exp(fgraph, node):
     """log(sum(exp(x), axis)) -> the stable logsumexp graph."""
@@ -404,6 +508,89 @@ def local_log_sum_exp(fgraph, node):
 
 
 register_stabilize(local_log_sum_exp, name="local_log_sum_exp")
+
+
+def _as_guarded_switch(v, fgraph):
+    """If v (possibly under neg) is switch(c, ...) with a zero branch and a
+    single client chain, return (cond, zero_idx, other_branch, negate)."""
+    negate = False
+    while v.owner is not None and _is_ew(v.owner, "neg") \
+            and len(fgraph.clients.get(v, ())) == 1:
+        negate = not negate
+        v = v.owner.inputs[0]
+    if v.owner is None or not _is_ew(v.owner, "switch") \
+            or len(fgraph.clients.get(v, ())) != 1:
+        return None
+    cond, tbranch, fbranch = v.owner.inputs
+    if _unique_value(tbranch) == 0:
+        return cond, 1, fbranch, negate
+    if _unique_value(fbranch) == 0:
+        return cond, 2, tbranch, negate
+    return None
+
+
+@node_rewriter([Elemwise])
+def local_mul_switch_sink(fgraph, node):
+    """mul(switch(c, 0, x), y) -> switch(c, 0, mul(x, y)) (reference
+    rewriting/math.py local_mul_switch_sink).  Load-bearing for NaN-free
+    gradients: logp graphs guard invalid regions with switch(cond, 0, expr);
+    without sinking, grad produces 0 * inf = NaN."""
+    if not _is_ew(node, "mul"):
+        return False
+    for pos, inp in enumerate(node.inputs):
+        got = _as_guarded_switch(inp, fgraph)
+        if got is None:
+            continue
+        cond, zero_idx, other_branch, negate = got
+        others = [i for k, i in enumerate(node.inputs) if k != pos]
+        new_mul = tm.mul(other_branch, *others)
+        if negate:
+            new_mul = -new_mul
+        zero = tm.second(new_mul, cast(as_tensor_variable(0.0),
+                                       new_mul.type.dtype))
+        if zero_idx == 1:
+            res = tm.switch(cond, zero, new_mul)
+        else:
+            res = tm.switch(cond, new_mul, zero)
+        res = _same_type_out(node, res)
+        if res is None:
+            return False
+        copy_stack_trace(node.outputs[0], res)
+        return [res]
+    return False
+
+
+register_specialize(local_mul_switch_sink, name="local_mul_switch_sink")
+
+
+@node_rewriter([Elemwise])
+def local_div_switch_sink(fgraph, node):
+    """true_div(switch(c, 0, x), y) -> switch(c, 0, x/y) (reference
+    local_div_switch_sink); same NaN-guard rationale as mul."""
+    if not _is_ew(node, "true_div"):
+        return False
+    num, den = node.inputs
+    got = _as_guarded_switch(num, fgraph)
+    if got is None:
+        return False
+    cond, zero_idx, other_branch, negate = got
+    new_div = tm.true_div(other_branch, den)
+    if negate:
+        new_div = -new_div
+    zero = tm.second(new_div, cast(as_tensor_variable(0.0),
+                                   new_div.type.dtype))
+    if zero_idx == 1:
+        res = tm.switch(cond, zero, new_div)
+    else:
+        res = tm.switch(cond, new_div, zero)
+    res = _same_type_out(node, res)
+    if res is None:
+        return False
+    copy_stack_trace(node.outputs[0], res)
+    return [res]
+
+
+register_specialize(local_div_switch_sink, name="local_div_switch_sink")
 
 
 @node_rewriter([Elemwise])
@@ -433,6 +620,44 @@ def local_exp_over_1_plus_exp(fgraph, node):
 
 
 register_stabilize(local_exp_over_1_plus_exp, name="local_exp_over_1_plus_exp")
+
+
+@node_rewriter(None)
+def local_0_dot_x(fgraph, node):
+    """dot(zeros, x) -> zeros (reference local_0_dot_x)."""
+    from pytensor_tpu_torch.tensor.basic import zeros
+    from pytensor_tpu_torch.tensor.math import Dot
+    from pytensor_tpu_torch.tensor.shape import shape
+
+    if not isinstance(node.op, Dot):
+        return False
+    x, y = node.inputs
+    if _unique_value(x) == 0 or _unique_value(y) == 0:
+        out = node.outputs[0]
+        # output dims: x's leading dim when x is a matrix, then y's
+        # trailing dim when y is a matrix (never index shape(v)[1] of a
+        # vector -- static-shape indexing raises at graph build)
+        if out.type.ndim == 0:
+            shp = []
+        elif out.type.ndim == 1:
+            shp = [shape(x)[0]] if x.type.ndim == 2 else [shape(y)[1]]
+        else:
+            shp = [shape(x)[0], shape(y)[1]]
+        res = zeros(shp, dtype=out.type.dtype) if shp else \
+            cast(as_tensor_variable(0.0), out.type.dtype)
+        if res.type.ndim == out.type.ndim and any(d is not None
+                                                  for d in out.type.shape):
+            from pytensor_tpu_torch.tensor.shape import specify_shape
+
+            res = specify_shape(res, out.type.shape)
+        if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+            return False
+        copy_stack_trace(out, res)
+        return [res]
+    return False
+
+
+register_canonicalize(local_0_dot_x, name="local_0_dot_x")
 
 
 # ---------------------------------------------------------------------------
@@ -722,6 +947,24 @@ register_stabilize(local_log1msigm, name="local_log1msigm")
 
 
 @node_rewriter([Elemwise])
+def local_log_sqrt(fgraph, node):
+    """log(sqrt(x)) -> 0.5 * log(x)."""
+    if not _is_ew(node, "log"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not _is_ew(inner, "sqrt"):
+        return False
+    if not _single_client(fgraph, node.inputs[0]):
+        return False
+    x = inner.inputs[0]
+    res = _same_type_out(node, 0.5 * tm.log(x))
+    return [res] if res is not None else False
+
+
+register_stabilize(local_log_sqrt, name="local_log_sqrt")
+
+
+@node_rewriter([Elemwise])
 def local_mul_exp_to_exp_add(fgraph, node):
     """exp(a) * exp(b) -> exp(a + b); exp(a) / exp(b) -> exp(a - b)."""
     name = node.op.scalar_op.name
@@ -745,6 +988,25 @@ def local_mul_exp_to_exp_add(fgraph, node):
 
 
 register_specialize(local_mul_exp_to_exp_add, name="local_mul_exp_to_exp_add")
+
+
+@node_rewriter([Elemwise])
+def local_exp_log_nan_switch(fgraph, node):
+    """exp(x)**c with constant c -> exp(c*x)."""
+    if not _is_ew(node, "pow"):
+        return False
+    base, expo = node.inputs
+    if base.owner is None or not _is_ew(base.owner, "exp"):
+        return False
+    if _unique_value(expo) is None:
+        return False
+    if not _single_client(fgraph, base):
+        return False
+    res = _same_type_out(node, tm.exp(expo * base.owner.inputs[0]))
+    return [res] if res is not None else False
+
+
+register_specialize(local_exp_log_nan_switch, name="local_pow_of_exp")
 
 
 @node_rewriter([Elemwise])
@@ -792,6 +1054,33 @@ register_specialize(local_mul_to_sqr, name="local_mul_to_sqr")
 
 
 @node_rewriter([Elemwise])
+def local_pow_pow(fgraph, node):
+    """(x**a)**b -> x**(a*b) for constant positive-integer a, b (the only
+    composition that is domain-safe for all real x)."""
+    if not _is_ew(node, "pow"):
+        return False
+    base, expo = node.inputs
+    if base.owner is None or not _is_ew(base.owner, "pow"):
+        return False
+    if not _single_client(fgraph, base):
+        return False
+    a = _unique_value(base.owner.inputs[1])
+    b = _unique_value(expo)
+    if a is None or b is None:
+        return False
+    af, bf = float(a), float(b)
+    if af <= 0 or bf <= 0 or af != int(af) or bf != int(bf):
+        return False
+    res = _same_type_out(
+        node, tm.pow(base.owner.inputs[0],
+                     constant_like(af * bf, node.outputs[0].type.dtype)))
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_pow_pow, name="local_pow_pow")
+
+
+@node_rewriter([Elemwise])
 def local_comparison_self(fgraph, node):
     """lt(x, x), gt(x, x) -> False; le(x, x), ge(x, x) -> True."""
     name = node.op.scalar_op.name
@@ -808,6 +1097,81 @@ def local_comparison_self(fgraph, node):
 
 
 register_canonicalize(local_comparison_self, name="local_comparison_self")
+
+
+_CHAINABLE_REDUCE = ("mul", "maximum", "minimum", "and_", "or_")
+
+
+@node_rewriter([CAReduce])
+def local_reduce_chain(fgraph, node):
+    """reduce(reduce(x, a), b) -> one reduce over combined axes, for
+    prod/max/min/all/any (sum handled by local_sum_sum)."""
+    name = node.op.scalar_op.name
+    if name not in _CHAINABLE_REDUCE:
+        return False
+    inner_var = node.inputs[0]
+    inner = inner_var.owner
+    if inner is None or not isinstance(inner.op, CAReduce):
+        return False
+    if inner.op.scalar_op.name != name:
+        return False
+    if len(fgraph.clients.get(inner_var, ())) != 1:
+        return False
+    x = inner.inputs[0]
+    inner_axes = inner.op.axis
+    outer_axes = node.op.axis
+    if inner_axes is None or outer_axes is None:
+        combined = None
+    else:
+        kept = [d for d in range(x.type.ndim) if d not in inner_axes]
+        combined = tuple(sorted(set(inner_axes) | {kept[a] for a in outer_axes}))
+    res = CAReduce(node.op.scalar_op, combined, node.op.dtype,
+                   node.op.acc_dtype, node.op.upcast_discrete_output)(x)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_canonicalize(local_reduce_chain, name="local_reduce_chain")
+
+
+@node_rewriter([CAReduce])
+def local_sum_of_alloc(fgraph, node):
+    """sum(alloc(c, s0, s1, ...), axis) -> alloc(c * prod(reduced sizes),
+    kept sizes) for scalar fill c: removes the materialization entirely."""
+    from pytensor_tpu_torch.tensor.basic import Alloc, alloc
+
+    if node.op.scalar_op.name != "add":
+        return False
+    inner_var = node.inputs[0]
+    inner = inner_var.owner
+    if inner is None or not isinstance(inner.op, Alloc):
+        return False
+    if len(fgraph.clients.get(inner_var, ())) != 1:
+        return False
+    c, *shape_vars = inner.inputs
+    if c.type.ndim != 0:
+        return False
+    ndim = len(shape_vars)
+    axes = node.op.axis if node.op.axis is not None else tuple(range(ndim))
+    out = node.outputs[0]
+    count = None
+    for a in axes:
+        count = shape_vars[a] if count is None else count * shape_vars[a]
+    scaled = c * cast(count, out.type.dtype) if count is not None else c
+    if scaled.type.dtype != out.type.dtype:
+        scaled = cast(scaled, out.type.dtype)
+    kept = [shape_vars[d] for d in range(ndim) if d not in axes]
+    res = alloc(scaled, *kept) if kept else scaled
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_sum_of_alloc, name="local_sum_of_alloc")
 
 
 @node_rewriter([CAReduce])
@@ -854,6 +1218,45 @@ def local_mod_self(fgraph, node):
 
 
 register_canonicalize(local_mod_self, name="local_mod_self")
+
+
+_ODD_FNS = ("sin", "tan", "sinh", "tanh", "arcsin", "arctan", "arcsinh",
+            "arctanh", "erf", "sign", "cbrt")
+
+
+@node_rewriter([Elemwise])
+def local_odd_fn_of_neg(fgraph, node):
+    """f(-x) -> -f(x) for odd f: pulls the neg up where canonizers can
+    cancel it."""
+    name = node.op.scalar_op.name
+    if name not in _ODD_FNS:
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not _is_ew(inner, "neg"):
+        return False
+    res = _same_type_out(node, -Elemwise(node.op.scalar_op)(inner.inputs[0]))
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_odd_fn_of_neg, name="local_odd_fn_of_neg")
+
+
+@node_rewriter([Elemwise])
+def local_inverse_composition(fgraph, node):
+    """tan(arctan(x)) -> x, sinh(arcsinh(x)) -> x (total-domain inverse
+    pairs only, so NaN semantics are preserved)."""
+    name = node.op.scalar_op.name
+    pairs = {"tan": "arctan", "sinh": "arcsinh"}
+    if name not in pairs:
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not _is_ew(inner, pairs[name]):
+        return False
+    res = _same_type_out(node, inner.inputs[0])
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_inverse_composition, name="local_inverse_composition")
 
 
 # ---------------------------------------------------------------------------
@@ -1356,6 +1759,85 @@ def local_log_kv_iv(fgraph, node):
 register_stabilize(local_log_kv_iv, name="local_log_kv_iv")
 
 
+def _pos_const(v):
+    c = _unique_value(v)
+    if c is None:
+        return None
+    c = float(c)
+    return c if c > 0 else None
+
+
+@node_rewriter([Elemwise])
+def local_log_reciprocal_or_div_const(fgraph, node):
+    """log(1/x) -> -log(x); log(c/x) -> log(c) - log(x) (c > 0 const);
+    log(x/c) -> log(x) - log(c)."""
+    if not _is_ew(node, "log"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None:
+        return False
+    if _is_ew(inner, "reciprocal"):
+        res = _same_type_out(node, -tm.log(inner.inputs[0]))
+        return [res] if res is not None else False
+    if _is_ew(inner, "true_div") and len(inner.inputs) == 2:
+        num, den = inner.inputs
+        out_dt = node.outputs[0].type.dtype
+        cn = _pos_const(num)
+        if cn is not None:
+            if cn == 1.0:
+                res = -tm.log(den)
+            else:
+                # fold the constant's log at the OUTPUT dtype (a bare
+                # Python float would round through floatX=float32)
+                res = np.asarray(np.log(np.float64(cn)),
+                                 dtype=out_dt) - tm.log(den)
+            res = _same_type_out(node, res)
+            return [res] if res is not None else False
+        cd = _pos_const(den)
+        if cd is not None:
+            res = tm.log(num) - np.asarray(np.log(np.float64(cd)),
+                                           dtype=out_dt)
+            res = _same_type_out(node, res)
+            return [res] if res is not None else False
+    return False
+
+
+register_stabilize(local_log_reciprocal_or_div_const,
+                   name="local_log_reciprocal_or_div_const")
+register_specialize(local_log_reciprocal_or_div_const,
+                    name="local_log_reciprocal_or_div_const")
+
+
+@node_rewriter([Elemwise])
+def local_sign_reciprocal_or_div_const(fgraph, node):
+    """sign(1/x) -> sign(x); sign(c/x) -> sign(c)*sign(x);
+    sign(x/c) -> sign(c)*sign(x) (c a nonzero constant)."""
+    if not _is_ew(node, "sign"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None:
+        return False
+    if _is_ew(inner, "reciprocal"):
+        res = _same_type_out(node, tm.sign(inner.inputs[0]))
+        return [res] if res is not None else False
+    if _is_ew(inner, "true_div") and len(inner.inputs) == 2:
+        num, den = inner.inputs
+        for c_v, other in ((num, den), (den, num)):
+            c = _unique_value(c_v)
+            if c is not None and float(c) != 0.0:
+                s = tm.sign(other)
+                res = s if float(c) > 0 else -s
+                res = _same_type_out(node, res)
+                return [res] if res is not None else False
+    return False
+
+
+register_specialize(local_sign_reciprocal_or_div_const,
+                    name="local_sign_reciprocal_or_div_const")
+register_stabilize(local_sign_reciprocal_or_div_const,
+                   name="local_sign_reciprocal_or_div_const")
+
+
 @node_rewriter([Elemwise])
 def local_add_neg_to_sub(fgraph, node):
     """x + (-y) -> x - y; (-x) + y -> y - x."""
@@ -1374,6 +1856,132 @@ def local_add_neg_to_sub(fgraph, node):
 
 
 register_specialize(local_add_neg_to_sub, name="local_add_neg_to_sub")
+
+
+@node_rewriter([Elemwise])
+def local_sqr_of_sqrt(fgraph, node):
+    """sqr(sqrt(x)) -> switch(x >= 0, x, nan) (preserves the sqrt's
+    domain error signal)."""
+    if not _is_ew(node, "sqr"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is not None and _is_ew(inner, "sqrt"):
+        x = inner.inputs[0]
+        res = tm.switch(tm.ge(x, 0), x,
+                        np.asarray(np.nan, dtype=node.outputs[0].type.dtype))
+        res = _same_type_out(node, res)
+        return [res] if res is not None else False
+    return False
+
+
+register_specialize(local_sqr_of_sqrt, name="local_sqr_of_sqrt")
+
+
+@node_rewriter([Elemwise])
+def local_exp_of_log_nan_switch(fgraph, node):
+    """exp/expm1(log|log1p|log1mexp(x)) -> closed form wrapped in
+    switch(<domain>, value, nan) preserving the inner log's domain error;
+    exp/expm1(softplus(x)) -> 1+exp(x) / exp(x) needs no guard
+    (reference local_exp_log_nan_switch + local_exp_log)."""
+    name = node.op.scalar_op.name
+    if name not in ("exp", "expm1"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not isinstance(inner.op, Elemwise):
+        return False
+    iname = inner.op.scalar_op.name
+    if iname not in ("log", "log1p", "log1mexp", "softplus"):
+        return False
+    x = inner.inputs[0]
+    nan = np.asarray(np.nan, dtype=node.outputs[0].type.dtype)
+    if iname == "softplus":
+        res = 1 + tm.exp(x) if name == "exp" else tm.exp(x)
+    elif iname == "log":
+        val = x if name == "exp" else x - 1
+        res = tm.switch(tm.ge(x, 0), val, nan)
+    elif iname == "log1p":
+        val = x + 1 if name == "exp" else x
+        res = tm.switch(tm.ge(x, -1), val, nan)
+    else:  # log1mexp
+        val = 1 - tm.exp(x) if name == "exp" else -tm.exp(x)
+        res = tm.switch(tm.le(x, 0), val, nan)
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_specialize(local_exp_of_log_nan_switch, name="local_exp_log_nan_switch")
+
+
+@node_rewriter([Elemwise])
+def local_logexp_of_log_nan_switch(fgraph, node):
+    """softplus(log(x)) -> log1p(x); log1mexp(log(x)) -> log1p(-x);
+    log1mexp(log1mexp(x)) -> x — each guarded by the inner log's domain
+    nan-switch (reference local_exp_log_nan_switch tail cases)."""
+    name = node.op.scalar_op.name
+    if name not in ("softplus", "log1mexp"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not isinstance(inner.op, Elemwise):
+        return False
+    iname = inner.op.scalar_op.name
+    x = inner.inputs[0]
+    nan = np.asarray(np.nan, dtype=node.outputs[0].type.dtype)
+    if iname == "log":
+        val = tm.log1p(x) if name == "softplus" else tm.log1p(-x)
+        res = tm.switch(tm.ge(x, 0), val, nan)
+    elif iname == "log1mexp" and name == "log1mexp":
+        res = tm.switch(tm.le(x, 0), x, nan)
+    else:
+        return False
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_specialize(local_logexp_of_log_nan_switch,
+                    name="local_logexp_log_nan_switch")
+
+
+@node_rewriter([Elemwise])
+def local_pow_to_nested_squaring(fgraph, node):
+    """pow(x, integer const n) with 2 < |n| <= 512 -> binary-exponentiation
+    multiply/square chain (reference local_pow_to_nested_squaring): about
+    log2(n) multiplies in place of a pow."""
+    if not _is_ew(node, "pow"):
+        return False
+    x, y = node.inputs
+    u = _unique_value(y)
+    if u is None:
+        return False
+    try:
+        f = float(u)
+    except (TypeError, ValueError):
+        return False
+    if not f.is_integer():
+        return False
+    n = int(f)
+    if not (2 < abs(n) <= 512):
+        return False
+    if n < 0 and x.type.dtype.startswith(("int", "uint")):
+        # numpy raises on negative integer powers of ints; keep the pow so
+        # the oracle raises identically
+        return False
+    m = abs(n)
+    pow2 = x
+    result = None
+    while m:
+        if m & 1:
+            result = pow2 if result is None else result * pow2
+        m >>= 1
+        if m:
+            pow2 = tm.sqr(pow2)
+    if n < 0:
+        result = tm.reciprocal(result)
+    res = _same_type_out(node, result)
+    return [res] if res is not None else False
+
+
+register_specialize(local_pow_to_nested_squaring,
+                    name="local_pow_to_nested_squaring")
 
 
 @node_rewriter([Elemwise])
@@ -1516,6 +2124,60 @@ def local_div_exp_to_mul_exp(fgraph, node):
 register_specialize(local_div_exp_to_mul_exp, name="local_div_exp_to_mul_exp")
 
 
+@node_rewriter([Elemwise])
+def local_log_neg_expm1(fgraph, node):
+    """log(-expm1(x)) -> log1mexp(x) (also reaches log(-(exp(x)-1))
+    after expm1 canonicalization)."""
+    if not _is_ew(node, "log"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not _is_ew(inner, "neg"):
+        return False
+    em = inner.inputs[0].owner
+    if em is None or not _is_ew(em, "expm1"):
+        return False
+    res = _same_type_out(node, tm.log1mexp(em.inputs[0]))
+    return [res] if res is not None else False
+
+
+register_stabilize(local_log_neg_expm1, name="local_log_neg_expm1")
+
+
+_INVERSE_PAIRS = {
+    ("deg2rad", "rad2deg"), ("rad2deg", "deg2rad"),
+    ("cosh", "arccosh"), ("arcsinh", "sinh"), ("sinh", "arcsinh"),
+    ("arctanh", "tanh"), ("tanh", "arctanh"),
+    ("neg", "neg"), ("reciprocal", "reciprocal"),
+    ("conj", "conj"), ("arccosh", "cosh"),
+    ("log1p", "expm1"), ("expm1", "log1p"),
+}
+
+
+@node_rewriter([Elemwise])
+def local_func_inverse(fgraph, node):
+    """outer(inner(x)) -> x for functional-inverse pairs (deg2rad/
+    rad2deg, sinh/arcsinh, tanh/arctanh, cosh/arccosh, log1p/expm1,
+    self-inverses)."""
+    name = node.op.scalar_op.name
+    inner = node.inputs[0].owner if node.inputs else None
+    if inner is None or not isinstance(inner.op, Elemwise):
+        return False
+    pair = (name, inner.op.scalar_op.name)
+    if pair not in _INVERSE_PAIRS:
+        return False
+    x = inner.inputs[0]
+    out = node.outputs[0]
+    if x.type.dtype != out.type.dtype:
+        # float(int) round trips are exact for the small table above;
+        # keep the float output dtype
+        x = cast(x, out.type.dtype)
+    res = _same_type_out(node, x)
+    return [res] if res is not None else False
+
+
+register_specialize(local_func_inverse, name="local_func_inverse")
+
+
 def _is_nonneg(v, depth=0):
     """Structurally non-negative: Shape/Shape_i outputs, non-negative
     constants, and add/mul/maximum over such."""
@@ -1591,3 +2253,75 @@ def local_shape_cmp_zero(fgraph, node):
 
 
 register_canonicalize(local_shape_cmp_zero, name="local_shape_cmp_zero")
+
+
+@node_rewriter([Elemwise])
+def local_mul_pow_to_pow_add(fgraph, node):
+    """a^x * a^y -> a^(x+y) inside a flat mul, grouping repeated bases
+    (and composing with the exp grouping)."""
+    if not _is_ew(node, "mul") or len(node.inputs) < 2:
+        return False
+    groups = {}
+    others = []
+    order = []
+    for i in node.inputs:
+        if i.owner is not None and _is_ew(i.owner, "pow"):
+            base, expo = i.owner.inputs
+            key = id(base)
+            if key not in groups:
+                groups[key] = (base, [])
+                order.append(key)
+            groups[key][1].append(expo)
+        else:
+            others.append(i)
+    if not any(len(exps) > 1 for _, exps in groups.values()):
+        return False
+    factors = list(others)
+    for key in order:
+        base, exps = groups[key]
+        factors.append(base ** (exps[0] if len(exps) == 1 else tm.add(*exps)))
+    res = factors[0] if len(factors) == 1 else tm.mul(*factors)
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_specialize(local_mul_pow_to_pow_add, name="local_mul_pow_to_pow_add")
+
+
+@node_rewriter([CAReduce])
+def local_sumsqr2dot(fgraph, node):
+    """sqr(W.dimshuffle('x',0,1) * G.dimshuffle(0,'x',1)).sum(axis=(1,2))
+    -> dot(sqr(G), sqr(W).sum(axis=0)): the (n, r, c) broadcast product
+    never materializes (reference local_sumsqr2dot)."""
+    if node.op.scalar_op.name != "add" or node.op.axis != (1, 2):
+        return False
+    sq = node.inputs[0]
+    if sq.owner is None or not _is_ew(sq.owner, "sqr"):
+        return False
+    m = sq.owner.inputs[0]
+    if m.owner is None or not _is_ew(m.owner, "mul") \
+            or len(m.owner.inputs) != 2:
+        return False
+    W = G = None
+    for v in m.owner.inputs:
+        if v.owner is not None and isinstance(v.owner.op, DimShuffle):
+            order = v.owner.op.new_order
+            if order == ("x", 0, 1):
+                W = v.owner.inputs[0]
+            elif order == (0, "x", 1):
+                G = v.owner.inputs[0]
+    if W is None or G is None:
+        return False
+    from pytensor_tpu_torch.tensor.math import _dot
+
+    res = _dot(tm.sqr(G), tm.sqr(W).sum(axis=0))
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype:
+        res = cast(res, out.type.dtype)
+    if not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_sumsqr2dot, name="local_sumsqr2dot")

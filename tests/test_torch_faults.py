@@ -1,5 +1,5 @@
-"""Twelve faults once found in the port, each held against the JAX package
-(the eleventh against numpy: the JAX package has it too).
+"""Thirteen faults once found in the port, each held against the JAX
+package (the eleventh against numpy: the JAX package has it too).
 
 The same numpy inputs go through ``function()`` of both packages on the
 CPU (FAST_RUN in both), and the port must give what the JAX package gives:
@@ -45,6 +45,17 @@ and one found in the port's batched index write:
     index out of range into the edge row and wrote there; the JAX
     package's ``x.at[i]`` scatter drops that update, and a negative index
     counts from the end in both.
+
+and the one of ROADMAP Queue 3 item 1:
+
+13. twenty-three rewrites of the JAX package's ``tensor/rewriting/math.py``
+    that the port lacked: the twenty-two that the probe of
+    ``tests/torch_math_probe.py`` shows to change a value (``log(-expm1(-x))``
+    2.6e-8 off in relative terms, ``log(1 / x)`` NaN at -0.0, ``exp(x)**3``
+    34 ulps, ...) and ``local_odd_fn_of_neg``, which it named.  Each graph
+    is op for op the JAX package's, each rewrite fires as often, and the
+    values are within the ulps stated for each graph: what torch's and
+    XLA's own functions (``sinh``, ``log1mexp``, ...) differ by.
 
 Values are compared exactly (bools, signs of zero) or at ``rtol 1e-12``.
 """
@@ -350,3 +361,59 @@ def test_batched_index_write_drops_an_index_out_of_range(inc, y_ndim, y_shape):
     jax, port = res
     np.testing.assert_array_equal(port, jax)
     np.testing.assert_array_equal(port[2:4], xv[2:4])
+
+
+# --- 13. the value-changing rewrites of tensor/rewriting/math.py ---------------------
+
+# the repaired rewrites, and the largest distance in ulps of the port's value
+# from the JAX package's on each of their probe graphs: 0 where both compute
+# the same operations with the same rounding, else what torch's and XLA's
+# implementations of the same function differ by on the probe's values
+MATH_ULPS = {
+    "exp(-softplus(-x))": 2, "sum(sum(m, 0))": 2, "sum(x * c)": 2,
+    "switch(x < 1, 0, x) * log(x)": 2, "switch(x < 1, 0, x) / x": 0, "dot(zeros, x)": 0,
+    "log(sqrt(x))": 1, "exp(x)**3": 1, "(x**3)**2": 0, "prod(prod(m, 0))": 12,
+    "max(max(m, 0))": 0, "sum(alloc(c, 4097))": 0, "sinh(-x)": 16, "tanh(-x)": 7,
+    "sin(-x)": 1, "arctan(-x)": 1, "arcsinh(-x)": 2, "erf(-x)": 1, "tan(arctan(x))": 0,
+    "sinh(arcsinh(x))": 0, "log(1 / x)": 1, "log(3 / x)": 4, "log(x / 3)": 4,
+    "sign(1 / x)": 0, "sign(-2 / x)": 0, "sqr(sqrt(x))": 0, "exp(log(x))": 0,
+    "expm1(log1p(x))": 0, "exp(softplus(x))": 1, "softplus(log(x))": 2, "x**5": 0,
+    "x**-3": 0, "log(-expm1(-x))": 121, "log1p(expm1(x))": 0, "arcsinh(sinh(x))": 0,
+    "deg2rad(rad2deg(x))": 0, "x**2.5 * x**0.7": 1,
+    "sum(sqr(W[None] * G[:, None]), (1, 2))": 2,
+}
+
+
+def _math_cases():
+    from tests.torch_math_probe import GRAPHS, PORTED
+
+    return [(name, graph) for name in PORTED for graph in GRAPHS[name]]
+
+
+@pytest.mark.parametrize("name,graph", _math_cases(),
+                         ids=[f"{n}:{g[0]}" for n, g in _math_cases()])
+def test_value_changing_math_rewrites(name, graph):
+    """Each repaired rewrite of Queue 3 item 1 on its probe graph (4,096
+    float64 values in [0.01, 20] and -0.0 and -inf, or 16 seeded draws of
+    a reduction's inputs): the same ops, the same count of firings (none
+    on the port before the repair) and the JAX package's value within the
+    stated ulps, NaNs and infinities exactly."""
+    from tests.torch_math_probe import _fired, compiled, input_sets, ulps
+
+    label, build, inputs, _ = graph
+    counts, undo = _fired()
+    try:
+        ops = []
+        for ptt, pt, kw in (JAX, PORT):
+            ins = [pt.tensor(f"x{k}", dtype=np.asarray(v).dtype, shape=(None,) * np.ndim(v))
+                   for k, v in enumerate(input_sets(inputs)[0])]
+            f = ptt.function(ins, build(pt, *ins), **kw)
+            fg = f.maker.fgraph if hasattr(f, "maker") else f.fgraph
+            ops.append([type(n.op).__name__ for n in fg.toposort()])
+        jax, port = compiled(build, inputs)
+    finally:
+        undo()
+    assert ops[1] == ops[0]
+    assert counts["torch"][name] == counts["jax"][name] > 0
+    assert port.dtype == jax.dtype and port.shape == jax.shape
+    assert ulps(port, jax) <= MATH_ULPS[label]

@@ -274,19 +274,24 @@ def test_onehot_rewrites(onehot):
 # --- what the port leaves out raises ------------------------------------------------
 
 def test_while_scans_and_bptt_raise_not_implemented():
-    """While-scans raise, naming their ROADMAP item.  Backprop through
-    time is ported (``tests/test_torch_scan_grad.py``): what is left of
-    it raises as in the JAX package, a not-implemented gradient through a
-    tensor-typed untraced state (one the sit-sot rewrite makes)."""
+    """While-scans no longer raise: they are ported
+    (``tests/test_torch_while_scan.py``), and this one stops after its
+    third step.  Backprop through time is ported
+    (``tests/test_torch_scan_grad.py``): what is left of it raises as in
+    the JAX package, a not-implemented gradient through a tensor-typed
+    untraced state (one the sit-sot rewrite makes)."""
     from pytensor_tpu_torch.graph.fg import FunctionGraph
     from pytensor_tpu_torch.gradient import NullTypeGradError
     from pytensor_tpu_torch.scan.op import Scan, ScanInfo
     from pytensor_tpu_torch.scan.utils import until
 
     v0 = tpt.tensor("v0", dtype="float32", shape=(3,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tptt.scan(lambda acc: (acc * np.float32(2.0), until(tpt.ge(acc.sum(), np.float32(9.0)))),
-                  outputs_info=[v0], n_steps=5)
+    tw, _ = tptt.scan(
+        lambda acc: (acc * np.float32(2.0), until(tpt.ge(acc.sum(), np.float32(9.0)))),
+        outputs_info=[v0], n_steps=5)
+    got = tptt.function([v0], tw, device="cpu")(np.ones(3, "float32"))
+    np.testing.assert_array_equal(got.numpy(), np.array([[2.0] * 3, [4.0] * 3, [8.0] * 3],
+                                                        "float32"))
     tr, _ = tptt.scan(lambda acc: acc * np.float32(2.0), outputs_info=[v0], n_steps=5)
     g = tptt.function([v0], tptt.grad(tr[-1].sum(), v0), device="cpu")(np.ones(3, "float32"))
     np.testing.assert_array_equal(g.numpy(), np.full(3, 32.0, "float32"))
