@@ -352,9 +352,26 @@ Phases, one line or more each, and any failure raises:
    mid-way and one where it never does: the exit steps, the rows against
    the same steps as a for-scan, the divergence test against the
    energies, and each call with torch's defaults against the held rows;
-   each path's K1 nodes against their plain version; a step's cost with
-   the condition's read against the step of a for-scan that computes and
-   traces the same test, both eager, in alternated calls.
+   each path's K1 nodes against their plain version; the power
+   iteration's step cost with the condition's read against the step of a
+   for-scan that computes and traces the same test, both eager, in
+   alternated calls; the trajectory's read by its span in
+   ``torch.profiler`` (its alternated calls were cut to make room for
+   phase 22: they did not resolve the read in 6-10 s).
+22. the compile driver (``phase_compile``): the radon logp and dlogp at
+   full width in float64 under ``mode="FAST_COMPILE"``, ``"PY"`` and
+   ``"FAST_RUN"`` (compile seconds, ms a call, K1 launches a call: none
+   under ``FAST_COMPILE``), each against the others and the CPU; the
+   Hessian-vector product ``pushforward(dlogp, theta, v)`` against central
+   differences of ``dlogp`` and the CPU; ``Function.copy`` of phase 10's
+   power iteration in its three forms (K4 64 launches a call, the
+   original's bits, only its own shared tensor moving) and the same
+   function through ``pkl_utils.dump_function``/``load_function``; phase
+   7's 8,192-step chain through ``pickle`` (one K2 launch a call, the
+   original's bits; seconds from ``loads`` to the first result); and
+   ``profile=True`` under ``FAST_RUN`` and ``PY`` (calls, host and device
+   ms, the first call's peak bytes, the static op table's top 5).  Each K1
+   node of the ``FAST_RUN`` functions against its plain version.
 
 Three clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -5718,7 +5735,6 @@ POWER_CALLS = 10
 # the for-scan that computes and traces the same test, at least this many
 # pairs and at most this many seconds (alternated_ms)
 POWER_PAIRS = (20, 3.0)
-TRAJ_PAIRS = (6, 6.0)
 # the divergence-stopped radon trajectory: float64, at most TRAJ_STEPS
 # leapfrog steps of each size, stopped after the first at which |H - H0| >
 # models/radon.py MAX_DH; at the first size the energy diverges on the way
@@ -6075,8 +6091,8 @@ def trajectories(fns, th_d, m_d, H0, launches, row, reset, counts, dev, smi_line
     while-scan (at most ``TRAJ_STEPS`` steps) and the for-scan of as many
     steps as it ran, held with torch's deterministic algorithms
     (``TRAJ_EPS``); then with torch's defaults, each call held against
-    those rows (``TRAJ_DEFAULT``): where it diverges, the two in turn
-    (``alternated_ms``), timed; where it does not, the while-scan once."""
+    those rows (``TRAJ_DEFAULT``): the while-scan timed once, and where it
+    diverges its read's span (``read_span``)."""
     import torch
 
     from pytensor_tpu_torch.models.radon import MAX_DH
@@ -6148,18 +6164,19 @@ def trajectories(fns, th_d, m_d, H0, launches, row, reset, counts, dev, smi_line
                                      f"is {err[:n].max():.3e} from the held rows in its first "
                                      f"{n} steps, or its energies fail the test")
 
-        if cuda and label == "fires":
-            pair = alternated_ms(lambda: fw(*args, np.int64(TRAJ_STEPS)),
-                                 lambda: ff(*args, np.int64(k)), TRAJ_PAIRS, held)
-            r.update(read_cost(pair, k),
-                     read_span_us=read_span(lambda: fw(*args, np.int64(TRAJ_STEPS)), k, held))
-            say(f"radon trajectory, eps {eps} ({smi_line}): {say_read(r, k)}")
-        elif cuda:
+        if cuda:
             out, w_while = timed(fw, *args, np.int64(TRAJ_STEPS))
             held(out)
             r.update(wall_ms=w_while, step_us=w_while / k * 1e3)
+            span = ""
+            if label == "fires":
+                # the read by its span alone: alternated calls against the
+                # for-scan did not resolve it in 6-10 s on an H100
+                r["read_span_us"] = read_span(lambda: fw(*args, np.int64(TRAJ_STEPS)), k, held)
+                span = (f"; the read's own span (torch.profiler, aten::is_nonzero) "
+                        f"{r['read_span_us']:.2f} µs")
             say(f"radon trajectory, eps {eps} ({smi_line}): {r['step_us']:.2f} µs a step with "
-                f"the condition's read, one call of {k} steps")
+                f"the condition's read, one call of {k} steps{span}")
         r.update(default_err=worst[0], default_err_all=worst[1])
         say(f"radon trajectory, eps {eps}: with torch's defaults, each call's rows within "
             f"{worst[0]:.3e} of the held ones in their first {min(k, TRAJ_DEFAULT['steps'])} "
@@ -6168,6 +6185,265 @@ def trajectories(fns, th_d, m_d, H0, launches, row, reset, counts, dev, smi_line
             f"{r['deterministic_for_step_us']:.2f} µs a step")
         row[f"radon {label}"] = r
     return k1_abs
+
+
+# --- phase 22: the compile driver -------------------------------------------------------
+
+# the radon function under each mode against the others and the CPU, over
+# max(1, |ref|): float64, and the gradient's scatter-add (index_add_) adds
+# in any order on the card (on the CPU the port and the JAX package agree
+# to 4e-16)
+MODE_RTOL = 1e-12
+COMPILE_MODES = ("FAST_COMPILE", "PY", "FAST_RUN")
+# the Hessian-vector product against central differences of dlogp (step
+# HVP_H along v) and against the CPU, over max|hvp| (at 40/5 on the CPU the
+# differences are within 1e-7 and the JAX package's product within 4e-16)
+HVP_TOL = {"differences": 1e-6, "cpu": 1e-10}
+HVP_H, HVP_SEED = 1e-5, 22
+COMPILE_CALLS = 20
+
+
+def compile_functions(dev):
+    """Phase 22's radon functions on ``dev``: ``{mode: f}`` for each of
+    ``COMPILE_MODES`` and ``"hvp"``, ``pushforward(dlogp, theta, v)``
+    under ``FAST_RUN``; and the Hessian-vector product's inputs."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.models.radon import make_radon_graphs
+
+    fns = {}
+    for mode in COMPILE_MODES:
+        ins, outs, n = make_radon_graphs(N_OBS, N_COUNTIES, "float64")
+        fns[mode] = ptt.function(ins, outs, mode=mode, name=f"radon {mode}", device=dev)
+    (theta,), (_, dlogp), n = make_radon_graphs(N_OBS, N_COUNTIES, "float64")
+    v = pt.dvector("v")
+    fns["hvp"] = ptt.function([theta, v], ptt.pushforward(dlogp, theta, v), name="radon hvp",
+                              device=dev)
+    fns["dlogp"] = ptt.function([theta], dlogp, name="radon dlogp", device=dev)
+    return fns, n
+
+
+def compile_kernels(dev):
+    """The K1 kernels of phase 22's functions, from them linked for the CPU
+    (phase 2's pool), and those CPU functions (phase 22's references)."""
+    cpu, _ = compile_functions("cpu")
+    kerns: dict = {}
+    for f in cpu.values():
+        plan_kernels(f.linked, dev, kerns)
+    return list(kerns.values()), cpu
+
+
+def phase_compile(dev, smi_line, cpu, chain, chain_args, power, power_x, power_x0):
+    """Phase 22: the compile driver.  (a) The radon logp and dlogp at
+    919/85 in float64 under each of ``COMPILE_MODES`` on the card: compile
+    seconds, ms a call, the counts set to 0 before a (replayed, where
+    captured) call and read after; each against the others and the CPU
+    (``MODE_RTOL``).  (b) ``pushforward(dlogp, theta, v)`` under
+    ``FAST_RUN`` against central differences of ``dlogp`` and the CPU
+    (``HVP_TOL``); the K1 nodes of (a) and (b) against their plain
+    version.  (c) ``power`` (phase 10's 64-step power iteration, whose
+    shared ``power_x`` is set to ``power_x0``) copied three ways, and
+    saved and loaded by ``pkl_utils``: each from the same state launches K4
+    64 times a call, gives the original's bits and moves only its own
+    shared tensor.  (d) ``chain`` (phase 7's 8,192-step chain) pickled and
+    loaded: one K2 launch a call, the original's bits on ``chain_args``.
+    (e) ``profile=True`` under ``FAST_RUN`` and ``PY``.  Returns
+    ({path: launches}, {path: K4 launches}, K1's largest absolute error,
+    the row)."""
+    import io
+    import pickle
+
+    import torch
+
+    import pytensor_tpu_torch as ptt
+    from pytensor_tpu_torch.link.cuda import scan_kernel, spmv_kernel
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.misc import pkl_utils
+    from pytensor_tpu_torch.models.radon import theta_start
+    from pytensor_tpu_torch.tensor import fused_kernel
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    kernels = (fused_kernel, scan_kernel, spmv_kernel)
+
+    def reset():
+        for k in kernels:
+            k.LAUNCHES = 0
+
+    def counts():
+        sync()
+        return {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": scan_kernel.LAUNCHES,
+                "spmv_csr": spmv_kernel.LAUNCHES}
+
+    def scaled(a, b):
+        a, b = (np.asarray(x.detach().double().cpu()) for x in (a, b))
+        return float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+
+    t0 = time.perf_counter()
+    fns, n = compile_functions(dev)
+    say(f"phase 22 functions linked in {time.perf_counter() - t0:.2f} s: "
+        + "; ".join(f"{m} {f.compile_time:.3f} s (rewrites {f.rewrite_time:.3f} s, "
+                    f"{len(f.fgraph.apply_nodes)} nodes, {type(f.linked).__name__})"
+                    for m, f in fns.items()))
+    rng = np.random.default_rng(HVP_SEED)
+    th = theta_start(n, "float64") + 0.1 * rng.standard_normal(n)
+    v = rng.standard_normal(n)
+    th_d, v_d = as_torch(th, dev), as_torch(v, dev)
+    launches, k4, row = {}, {}, {"modes": {}}
+    # (a) the modes
+    want = [t.numpy() for t in cpu["FAST_RUN"](th)]
+    k1_abs = 0.0
+    for mode in COMPILE_MODES:
+        f = fns[mode]
+        f(th_d)  # captures where the linker captures
+        reset()
+        got = f(th_d)
+        launches[f"compile driver {mode}"] = c = counts()
+        errs = [scaled(g, torch.from_numpy(w)) for g, w in zip(got, want)]
+        others = [scaled(g, o) for g, o in zip(got, fns["FAST_RUN"](th_d))]
+        if not (max(errs + others) <= MODE_RTOL and all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"radon {mode}: {errs} from the CPU, {others} from FAST_RUN on "
+                                 f"the card; tol {MODE_RTOL}")
+        if cuda and (c["fused_elemwise"] == 0) != (mode == "FAST_COMPILE"):
+            raise AssertionError(f"radon {mode}: K1 launched {c['fused_elemwise']} times")
+        ms = wall_ms(lambda: f(th_d), COMPILE_CALLS) if cuda else float("nan")
+        row["modes"][mode] = {"compile_s": f.compile_time, "rewrite_s": f.rewrite_time,
+                              "nodes": len(f.fgraph.apply_nodes), "ms": ms, "launches": c,
+                              "err_cpu": max(errs), "err_fast_run": max(others),
+                              "linked": type(f.linked).__name__}
+        say(f"radon {mode} ({smi_line}): compile {f.compile_time:.3f} s, "
+            f"{len(f.fgraph.apply_nodes)} nodes, {type(f.linked).__name__}; {ms:.4f} ms/call "
+            f"(wall); launches a call {c}; logp, dlogp within {max(errs):.2e} of the CPU and "
+            f"{max(others):.2e} of FAST_RUN on the card (tol {MODE_RTOL:g})")
+        if mode != "FAST_COMPILE":
+            k1_abs = max(k1_abs, k1_nodes_held(f, [th_d], dev, f"radon {mode}"))
+    # (b) the Hessian-vector product
+    hvp = fns["hvp"]
+    hvp(th_d, v_d)
+    reset()
+    got = hvp(th_d, v_d)
+    launches["compile driver hvp"] = c = counts()
+    d = fns["dlogp"]
+    fd = (d(as_torch(th + HVP_H * v, dev)) - d(as_torch(th - HVP_H * v, dev))) / (2 * HVP_H)
+    ref = cpu["hvp"](th, v)
+    scale = float(ref.abs().max())
+    e_fd = float((got - fd).abs().max()) / scale
+    e_cpu = float((got.cpu() - ref).abs().max()) / scale
+    if not (e_fd <= HVP_TOL["differences"] and e_cpu <= HVP_TOL["cpu"]
+            and (c["fused_elemwise"] or not cuda)):
+        raise AssertionError(f"radon hvp: {e_fd} from central differences, {e_cpu} from the "
+                             f"CPU, K1 {c['fused_elemwise']} launches; tol {HVP_TOL}")
+    hvp_ms = wall_ms(lambda: hvp(th_d, v_d), COMPILE_CALLS) if cuda else float("nan")
+    k1_abs = max(k1_abs, k1_nodes_held(hvp, [th_d, v_d], dev, "radon hvp"))
+    row["hvp"] = {"compile_s": hvp.compile_time, "nodes": len(hvp.fgraph.apply_nodes),
+                  "ms": hvp_ms, "launches": c, "err_differences": e_fd, "err_cpu": e_cpu}
+    say(f"radon Hessian-vector product, pushforward(dlogp, theta, v) under FAST_RUN "
+        f"({smi_line}): compile {hvp.compile_time:.3f} s, {len(hvp.fgraph.apply_nodes)} nodes; "
+        f"{hvp_ms:.4f} ms/call (wall); launches a call {c}; {e_fd:.2e} of max|hvp| from central "
+        f"differences of dlogp (h {HVP_H:g}), {e_cpu:.2e} from the CPU (tol {HVP_TOL})")
+    # (c) copies of the power iteration, and the same through pkl_utils
+    power_x.set_value(power_x0)
+    x2 = ptt.shared(power_x0, name="x2", device=dev)
+    t0 = time.perf_counter()
+    copies = {"copy()": power.copy(), "copy(swap={x: x2})": power.copy(swap={power_x: x2}),
+              "copy(delete_updates=True)": power.copy(delete_updates=True)}
+    buf = io.BytesIO()
+    pkl_utils.dump_function(power, buf)
+    buf.seek(0)
+    copies["pkl_utils.load_function"] = pkl_utils.load_function(buf)
+    copy_s = time.perf_counter() - t0
+    owned = {tag: g.shared_vars[0] for tag, g in copies.items()}
+    want = power()
+    moved = power_x.get_value()
+    row["copies"] = {"seconds": copy_s, "zip_bytes": len(buf.getvalue())}
+    for tag, g in copies.items():
+        first = g()  # captures
+        owned[tag].set_value(power_x0)
+        reset()
+        out = g()
+        launches[f"power {tag}"] = c = counts()
+        k4[f"power {tag}"] = c["spmv_csr"]
+        after = owned[tag].get_value()
+        updates = "delete_updates" not in tag
+        ok = ((c["spmv_csr"] == SPARSE_STEPS or not cuda) and c["fused_elemwise"] == 0
+              and c["scan_whole_loop"] == 0 and torch.equal(out, want)
+              and torch.equal(first, want)
+              and torch.equal(after, moved if updates else as_torch(power_x0, dev))
+              and torch.equal(power_x.get_value(), moved) and (owned[tag] is not power_x))
+        if tag.startswith("copy(swap"):
+            ok = ok and owned[tag] is x2
+        if not ok:
+            raise AssertionError(f"power iteration {tag}: launches {c}, bits equal "
+                                 f"{torch.equal(out, want)}, its shared tensor "
+                                 f"{torch.equal(after, moved)}, the original's moved "
+                                 f"{not torch.equal(power_x.get_value(), moved)}")
+        ms = wall_ms(g, 8) if cuda else float("nan")
+        row["copies"][tag] = {"launches": c, "ms": ms}
+        say(f"power iteration {tag} ({smi_line}): launches a replayed call {c}; output bit for "
+            f"bit the original's from the same state; its own shared tensor "
+            f"{'moved as the original' if updates else 'kept'}, the original's untouched; "
+            f"{ms:.3f} ms/call (wall)")
+    say(f"power iteration: three copies and a pkl_utils round trip ({len(buf.getvalue()):,} "
+        f"bytes of zip) made in {copy_s:.2f} s")
+    # (d) the chain through pickle
+    want = chain(*chain_args)
+    t0 = time.perf_counter()
+    blob = pickle.dumps(chain)
+    dump_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = pickle.loads(blob)
+    first = again(*chain_args)
+    sync()
+    load_s = time.perf_counter() - t0
+    reset()
+    got = again(*chain_args)
+    launches["reloaded chain"] = c = counts()
+    same = [torch.equal(a, b) for a, b in zip(got, want)] + [
+        torch.equal(a, b) for a, b in zip(first, want)]
+    if not (all(same) and (c["scan_whole_loop"] == 1 or not cuda)):
+        raise AssertionError(f"reloaded chain: bits equal {same}, launches {c}")
+    row["chain"] = {"pickle_bytes": len(blob), "dumps_s": dump_s, "loads_to_result_s": load_s,
+                    "launches": c}
+    say(f"chain {CHAIN_STEPS} steps through pickle ({smi_line}): {len(blob):,} bytes, dumps "
+        f"{dump_s:.2f} s, loads to the first result {load_s:.2f} s; launches a replayed call "
+        f"{c}; outputs bit for bit the original's")
+    # (e) profiles
+    row["profile"] = {}
+    for mode in ("FAST_RUN", "PY"):
+        f = ptt.function(*_radon_io(), mode=mode, profile=True, name=f"radon {mode}",
+                         device=dev)
+        for _ in range(COMPILE_CALLS):
+            f(th_d)
+        st = f.profile
+        top = [{"op": op, "count": k, "flops": fl, "bytes": by} for op, k, fl, by in
+               st.op_table[:5]]
+        later = st.call_count - 1  # the first call captures (FAST_RUN)
+        host = (st.call_time - st.first_call_time) / later * 1e3
+        device = (st.device_time - st.first_device_time) / later * 1e3
+        row["profile"][mode] = {"calls": st.call_count, "host_ms": host, "device_ms": device,
+                                "first_host_ms": st.first_call_time * 1e3,
+                                "first_device_ms": st.first_device_time * 1e3,
+                                "peak_bytes": st.peak_bytes, "op_table_top5": top,
+                                "nodes_timed": sum(st.op_calls.values())}
+        say(f"profile=True, radon {mode} ({smi_line}): {st.call_count} calls, after the first "
+            f"host {host:.4f} ms/call and device {device:.4f} ms/call (CUDA events around each "
+            f"call, which waits for the card), the first {st.first_call_time * 1e3:.2f} ms; "
+            f"the first call's peak {st.peak_bytes} bytes; {sum(st.op_calls.values())} nodes "
+            f"timed; op table: "
+            + "; ".join(f"{t['op'][:40]} x{t['count']} {t['flops']:,} flops {t['bytes']:,} B"
+                        for t in top))
+        if mode == "PY":
+            slow = sorted(st.op_time.items(), key=lambda kv: -kv[1])[:3]
+            say("  PY's costliest ops by device time: " + "; ".join(
+                f"{op[:50]} {t / st.call_count * 1e3:.4f} ms/call" for op, t in slow))
+    return launches, k4, k1_abs, row
+
+
+def _radon_io():
+    from pytensor_tpu_torch.models.radon import make_radon_graphs
+
+    ins, outs, _ = make_radon_graphs(N_OBS, N_COUNTIES, "float64")
+    return ins, outs
 
 
 def main(opts):
@@ -6439,6 +6715,13 @@ def main(opts):
     build_k1(while_k1)
     say(f"the while-scan slice's graphs: {len(while_k1)} K1 kernels; the float64 power loop, "
         f"graph, rewrite and link for the CPU in {time.perf_counter() - t0:.2f} s")
+    # phase 22's: the K1 kernels of the compile driver's radon functions (the
+    # Hessian-vector product's are new), from them linked for the CPU
+    t0 = time.perf_counter()
+    compile_k1, compile_cpu = compile_kernels(dev)
+    build_k1(compile_k1)
+    say(f"the compile driver's graphs: {len(compile_k1)} K1 kernels; graph, rewrite and link for "
+        f"the CPU in {time.perf_counter() - t0:.2f} s")
 
     build_s = {tag: job.result() for tag, job in jobs.items()}
     for job in k1_jobs:
@@ -7239,6 +7522,13 @@ def main(opts):
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_while_abs)
     model_launches.update(while_launches)
     lap(21)
+    # 22. the compile driver: modes, pushforward, copies, pickling, profiles ----------
+    compile_launches, k4_compile, k1_compile_abs, compile_row = phase_compile(
+        dev, smi, compile_cpu, chain, (th0_d, m0_d), power, xsh, x0)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_compile_abs)
+    model_launches.update(compile_launches)
+    k4_while.update(k4_compile)
+    lap(22)
     loop_entries = []
     for kname, timed_at in (("gamma", "gamma 2e20"), ("poisson", "poisson 2e20"),
                             ("binomial", "binomial gibbs visible")):
@@ -7305,7 +7595,7 @@ def main(opts):
          "replaces": "pytensor_tpu/link/pallas/route.py:194",
          "launches": power_launches["spmv_csr"] + sum(k4_while.values()),
          "launches_by_path": {"power iteration": power_launches["spmv_csr"], **k4_while},
-         "while_scans": while_row, **k4},
+         "while_scans": while_row, "compile_driver": compile_row, **k4},
         {"name": "threefry2x32", "route": "cuda",
          "source": "pytensor_tpu_torch/csrc/threefry.cu",
          "replaces": "jax.random threefry2x32 (XLA; no Pallas kernel)",

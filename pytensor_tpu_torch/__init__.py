@@ -18,13 +18,17 @@ __version__ = "0.1.0"
 from pytensor_tpu_torch.graph.basic import Apply, Constant, Variable  # noqa: F401
 from pytensor_tpu_torch.graph.fg import FunctionGraph  # noqa: F401
 from pytensor_tpu_torch.graph.op import Op  # noqa: F401
-from pytensor_tpu_torch.compile.mode import FAST_RUN, Mode, get_mode  # noqa: F401
+from pytensor_tpu_torch.compile.mode import FAST_COMPILE, FAST_RUN, Mode, get_mode  # noqa: F401
+from pytensor_tpu_torch.compile.io import In, Out  # noqa: F401
 from pytensor_tpu_torch.graph.replace import clone_replace, graph_replace, vectorize_graph  # noqa: F401,E501
 from pytensor_tpu_torch.gradient import (  # noqa: F401
+    Lop,
+    Rop,
     grad,
     hessian,
     jacobian,
     pullback,
+    pushforward,
     verify_grad,
 )
 
@@ -36,6 +40,7 @@ import pytensor_tpu_torch.assumptions  # noqa: F401  (assumption-driven rewrites
 import pytensor_tpu_torch.compile.rewriting  # noqa: F401
 
 from pytensor_tpu_torch.compile.maker import function  # noqa: F401
+from pytensor_tpu_torch.compile.builders import OpFromGraph  # noqa: F401
 from pytensor_tpu_torch.compile.train import train_loop  # noqa: F401
 from pytensor_tpu_torch.compile.sharedvalue import shared  # noqa: F401
 from pytensor_tpu_torch.updates import OrderedUpdates  # noqa: F401

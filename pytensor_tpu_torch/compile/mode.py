@@ -9,12 +9,27 @@ the scan rewrites at 1.601-1.62 (``scan/rewriting.py``) and the
 inner-graph bridge at 49.6 (``compile/rewriting.py``).
 ``FAST_RUN`` links with ``"torch"``, whose ``required_rewrites`` tag is
 ``"torch"``: passes tagged for the XLA linker have no place here.
+
+The modes are the JAX package's (``pytensor_tpu/compile/mode.py:191-244``):
+``FAST_COMPILE`` is the ``"fast_compile"`` query linked with ``"py"``,
+``PY`` the ``"fast_run"`` query linked with ``"py"``, ``FAST_RUN`` the
+``"fast_run"`` query linked with ``"torch"``.  The JAX package's ``"py"``
+linker runs each node's numpy ``perform`` on the host; the port's ops have
+no numpy ``perform``, so its ``"py"`` is the linker's plan run eagerly,
+node by node, on the device the caller names, never captured
+(``link/torch/linker.py PyLinker``).  The other backends' mode names map
+as in the JAX package: ``C`` and ``CVM`` to ``"py"`` with ``"fast_run"``,
+``NUMBA``, ``JAX``, ``PYTORCH`` and ``MLX`` to ``FAST_RUN``.  Left out:
+``AddDestroyHandler`` and ``PrintCurrentFunctionGraph``, which need
+``graph/destroyhandler.py`` and ``printing.py`` (ROADMAP.md Queue 1 item
+6), the ``check_stack_trace`` audit pass, and the ``DebugMode`` and
+``NanGuardMode`` names (item 11).
 """
 
 from __future__ import annotations
 
 from pytensor_tpu_torch.config import config
-from pytensor_tpu_torch.graph.rewriting.basic import MergeOptimizer
+from pytensor_tpu_torch.graph.rewriting.basic import GraphRewriter, MergeOptimizer
 from pytensor_tpu_torch.graph.rewriting.db import (
     EquilibriumDB,
     RewriteDatabaseQuery,
@@ -89,41 +104,80 @@ def register_useless(rewrite, *tags, name=None, **kwargs):
 
 # --- Mode -------------------------------------------------------------------
 
-def _linker_class(name: str):
-    if name != "torch":
-        raise ValueError(f"Unknown linker {name!r}; the port has 'torch'")
-    # imported late: the linker's dispatch table imports every op module
-    from pytensor_tpu_torch.link.torch.linker import TorchLinker
+# the linkers by name; the classes are imported at first use (the linker's
+# dispatch table imports every op module)
+predefined_linkers: dict = {}
 
-    return TorchLinker
+
+def _linker_class(linker):
+    if not isinstance(linker, str):
+        return linker if isinstance(linker, type) else type(linker)
+    if not predefined_linkers:
+        from pytensor_tpu_torch.link.torch.linker import PyLinker, TorchLinker
+
+        predefined_linkers.setdefault("torch", TorchLinker)
+        predefined_linkers.setdefault("py", PyLinker)
+    if linker not in predefined_linkers:
+        raise ValueError(f"Unknown linker {linker!r}; the port has {sorted(predefined_linkers)}")
+    return predefined_linkers[linker]
 
 
 class Mode:
-    """A linker (by name) plus a query of ``optdb``."""
+    """A linker (a name, a class or an instance) plus a query of ``db``
+    (``optdb`` unless given).  ``optimizer`` is a query or the name of a
+    tag (``"None"`` selects nothing)."""
 
-    def __init__(self, linker: str, optimizer: RewriteDatabaseQuery):
-        self.linker = linker
+    def __init__(self, linker=None, optimizer="fast_run", db=None):
+        self.linker = "torch" if linker is None else linker
+        if isinstance(optimizer, str):
+            optimizer = RewriteDatabaseQuery(include=[optimizer] if optimizer != "None" else [])
         self._optimizer = optimizer
+        self.db = optdb if db is None else db
+
+    def make_linker(self):
+        """The linker: its ``make_torch_fn(fgraph, device, trust_input)``
+        links a rewritten graph."""
+        linker = self.linker
+        if isinstance(linker, str):
+            return _linker_class(linker)()
+        return linker() if isinstance(linker, type) else linker
 
     @property
     def optimizer(self):
         """The pass pipeline: the query plus the linker's required tags."""
-        req = _linker_class(self.linker).required_rewrites
-        return optdb.query(self._optimizer.including(*req))
+        req = getattr(_linker_class(self.linker), "required_rewrites", ())
+        return self.db.query(self._optimizer.including(*req))
 
     def including(self, *tags):
-        return Mode(self.linker, self._optimizer.including(*tags))
+        return Mode(self.linker, self._optimizer.including(*tags), self.db)
 
     def excluding(self, *tags):
-        return Mode(self.linker, self._optimizer.excluding(*tags))
+        return Mode(self.linker, self._optimizer.excluding(*tags), self.db)
+
+    def requiring(self, *tags):
+        return Mode(self.linker, self._optimizer.requiring(*tags), self.db)
+
+    def register(self, *rewrites):
+        """A mode that also runs ``rewrites`` after the selected passes."""
+        return Mode(self.linker, self._optimizer.register(*rewrites), self.db)
+
+    def __reduce__(self):
+        # a pickle names optdb rather than holding it
+        return (Mode, (self.linker, self._optimizer, None if self.db is optdb else self.db))
 
     def __str__(self):
         return f"Mode(linker={self.linker}, optimizer={self._optimizer})"
 
 
+FAST_COMPILE = Mode("py", RewriteDatabaseQuery(include=["fast_compile"]))
 FAST_RUN = Mode("torch", RewriteDatabaseQuery(include=["fast_run"]))
+PY = Mode("py", RewriteDatabaseQuery(include=["fast_run"]))
 
-predefined_modes = {"FAST_RUN": FAST_RUN}
+predefined_modes = {
+    "FAST_COMPILE": FAST_COMPILE,
+    "FAST_RUN": FAST_RUN,
+    "PY": PY,
+}
 
 
 def get_mode(mode):
@@ -135,3 +189,69 @@ def get_mode(mode):
             raise ValueError(f"Unknown mode {mode!r}")
         return predefined_modes[mode]
     return mode
+
+
+def get_default_mode():
+    return get_mode(None)
+
+
+# --- the registries and the named queries of the JAX package ----------------
+
+predefined_optimizers = {
+    "fast_run": RewriteDatabaseQuery(include=["fast_run"]),
+    "fast_compile": RewriteDatabaseQuery(include=["fast_compile"]),
+    "None": RewriteDatabaseQuery(include=[]),
+    "merge": RewriteDatabaseQuery(include=["merge"]),
+}
+OPT_NONE = predefined_optimizers["None"]
+OPT_MERGE = predefined_optimizers["merge"]
+OPT_FAST_COMPILE = predefined_optimizers["fast_compile"]
+OPT_FAST_RUN = predefined_optimizers["fast_run"]
+OPT_FAST_RUN_STABLE = OPT_FAST_RUN
+OPT_O2 = OPT_FAST_RUN
+OPT_O3 = OPT_FAST_RUN
+OPT_STABILIZE = RewriteDatabaseQuery(include=["fast_run", "stabilize"])
+OPT_UNSAFE = OPT_FAST_RUN
+
+
+def register_linker(name, linker_cls):
+    _linker_class("torch")  # the built-in linkers first
+    predefined_linkers[name] = linker_cls
+
+
+def register_optimizer(name, query):
+    predefined_optimizers[name] = query
+
+
+def register_mode(name, mode):
+    predefined_modes[name] = mode
+
+
+class AddFeatureOptimizer(GraphRewriter):
+    """A pass that attaches ``feature`` to the graph (PyTensor's
+    compile/mode.py:155)."""
+
+    def __init__(self, feature):
+        self.feature = feature
+
+    def apply(self, fgraph):
+        pass
+
+    def add_requirements(self, fgraph):
+        from pytensor_tpu_torch.graph.features import AlreadyThere
+
+        try:
+            fgraph.attach_feature(self.feature)
+        except AlreadyThere:
+            pass
+
+
+# the other backends' mode names, as the JAX package maps them
+C = Mode(linker="py", optimizer="fast_run")
+CVM = C
+NUMBA = FAST_RUN
+JAX = FAST_RUN
+PYTORCH = FAST_RUN
+MLX = FAST_RUN
+
+local_useless = useless  # PyTensor's compile/mode.py:201 name

@@ -1,12 +1,13 @@
 """Graph rebuilding for function compilation.
 
 Counterpart of ``pytensor_tpu/compile/rebuild.py:17
-rebuild_collect_shared``: clone a user graph applying ``replace``
-(givens) to its outputs and update values, and collect the shared
+rebuild_collect_shared``: clone a user graph, and collect the shared
 variables it reads and their updates, with the default update of each
 shared variable that the caller's updates do not name (``:60``; only
 RNG keys have one, a RandomStream's next key), unless
-``no_default_updates``.
+``no_default_updates``.  Its ``replace`` (givens) is left out:
+``function`` applies the givens first, and keeps the graph they give for
+``Function.copy`` and pickling.
 """
 
 from __future__ import annotations
@@ -16,25 +17,14 @@ from pytensor_tpu_torch.graph.basic import Variable, clone_get_equiv
 from pytensor_tpu_torch.graph.traversal import graph_inputs
 
 
-def rebuild_collect_shared(outputs, inputs=None, replace=None, updates=None,
-                           no_default_updates=False):
+def rebuild_collect_shared(outputs, inputs=None, updates=None, no_default_updates=False):
     """Returns ``(inputs, outputs, [clone_map, shared_inputs, updates])``:
     the cloned explicit inputs followed by the cloned shared inputs, the
     cloned outputs, and ``{shared variable: cloned update value}``."""
-    from pytensor_tpu_torch.graph.replace import graph_replace
-
     one = isinstance(outputs, Variable)
     outputs_list = [outputs] if one else list(outputs or [])
     inputs = list(inputs or [])
-    replace_items = list(replace.items()) if isinstance(replace, dict) else list(replace or [])
     update_items = list(updates.items()) if isinstance(updates, dict) else list(updates or [])
-
-    if replace_items:
-        exprs = outputs_list + [u for _, u in update_items]
-        if exprs:
-            exprs = graph_replace(exprs, replace_items, strict=False)
-        outputs_list = exprs[: len(outputs_list)]
-        update_items = [(k, e) for (k, _), e in zip(update_items, exprs[len(outputs_list):])]
 
     shared_inputs: list[SharedVariable] = []
     seen = set()

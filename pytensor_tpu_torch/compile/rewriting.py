@@ -66,7 +66,7 @@ class RewriteInnerGraphs(GraphRewriter):
                         not all(fusable(n) for n in inner.apply_nodes)
                         or any(isinstance(o, Constant) for o in inner.outputs)):
                     continue
-                new_op = type(op)(inner.inputs, inner.outputs, name=op.name)
+                new_op = op.with_fgraph(inner)
             else:
                 continue
             fgraph.replace_all_validate(

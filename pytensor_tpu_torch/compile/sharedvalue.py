@@ -7,6 +7,8 @@ clones share.  A function that updates it writes the new value into that
 tensor in place (``copy_``), so the tensor object a caller holds sees
 every update.
 ``set_value`` puts a new tensor in the storage, on the variable's device.
+A pickle holds the value and its device; loading it where that device is
+absent raises.
 """
 
 from __future__ import annotations
@@ -48,6 +50,22 @@ class SharedVariable(Variable):
                             f"does not fit {self.type}")
         self.storage[0] = v
 
+    def snapshot(self):
+        """A new shared variable of the same type holding a copy of the
+        value on the same device, with no default update."""
+        return self.__class__(self.type, self.storage[0].clone(), name=self.name)
+
+    def __reduce__(self):
+        # the value pickles with its device: loading it where that device
+        # is absent raises (resolve_device), it never lands elsewhere
+        value = self.storage[0].detach().cpu()
+        return (_load_shared, (self.__class__, self.type, value, str(self.device)),
+                {"name": self.name, "default_update": self.default_update})
+
+    def __setstate__(self, state):
+        self.name = state["name"]
+        self.default_update = state["default_update"]
+
     def clone(self, **kwargs):
         cp = self.__class__(self.type, None, name=self.name, storage=self.storage)
         cp.tag.__update__(self.tag)
@@ -56,6 +74,13 @@ class SharedVariable(Variable):
 
     def __str__(self):
         return self.name or f"shared_{self.auto_name}"
+
+
+def _load_shared(cls, type, value, device):
+    """A pickled shared variable, its value on its recorded device."""
+    from pytensor_tpu_torch.link.torch.convert import resolve_device
+
+    return cls(type, value.to(resolve_device(device)))
 
 
 def shared(value, name=None, *, device, borrow=False, shape=None):

@@ -1,14 +1,24 @@
 """Typed configuration flags.
 
 The port's copy of the config system (PyTensor's configparser.py:65
-``PyTensorConfigParser`` and configdefaults.py), cut to the six flags the
+``PyTensorConfigParser`` and configdefaults.py), cut to the flags the
 port reads: ``floatX``, ``cast_policy``, ``mode``, ``sparse__routed_spmv``,
-``scan__pallas`` and ``xla__jit``.  A flag's value
+``scan__pallas``, ``xla__jit``, ``profile``, ``profile_optimizer``,
+``matmul_precision`` and ``xla__matmul_precision``.  A flag's value
 comes from ``PYTENSOR_TPU_TORCH_FLAGS`` (``name=value,...``) if set there,
 else its default, and may be assigned later or set for a block with
 ``config.change_flags``.  The device is not a flag: it is an argument of
 the linker (``link.torch.linker.fgraph_to_torch``) and of ``function``.
 ``scan__unroll`` is not ported: eager torch has no loop to unroll.
+
+The two precision flags keep the JAX package's names and values and set
+what a plan linked for a CUDA device runs its products with
+(``matmul_settings``, read by ``link/torch/linker.py Plan.execute``):
+``"default"``, ``"highest"`` and ``"float32"`` full float32 (TF32 off)
+and bfloat16 products reduced in float32; ``"high"`` and
+``"tensorfloat32"`` TF32 on; ``"bfloat16"`` torch's ``"medium"``, TF32
+on and bfloat16 reductions allowed.  ``xla__matmul_precision`` wins where
+it is not ``"default"``.
 """
 
 from __future__ import annotations
@@ -125,7 +135,8 @@ config.add(
 )
 config.add(
     "mode",
-    EnumStr("FAST_RUN", (), doc="Default compilation mode (compile.mode.get_mode)."),
+    EnumStr("FAST_RUN", ("FAST_COMPILE", "PY"),
+            doc="Default compilation mode (compile.mode.get_mode)."),
 )
 config.add(
     "sparse__routed_spmv",
@@ -146,3 +157,32 @@ config.add(
                         "off = eager, for debugging.  Read when a function is linked.  "
                         "The name and default are the JAX package's."),
 )
+config.add("profile", BoolParam(False, doc="Profile every function (compile/debug/profiling.py); "
+                                        "the summaries print at exit."))
+config.add("profile_optimizer", BoolParam(False, doc="Keep each rewrite pass's seconds in a "
+                                                  "function's profile."))
+config.add(
+    "matmul_precision",
+    EnumStr("default", ("high", "highest", "bfloat16", "float32"),
+            doc="Precision of the products a plan linked for a CUDA device runs "
+                "(matmul_settings); the name and values are the JAX package's."),
+)
+config.add(
+    "xla__matmul_precision",
+    EnumStr("default", ("bfloat16", "tensorfloat32", "float32", "highest"),
+            doc="As matmul_precision, and read before it; the name and values are "
+                "the JAX package's."),
+)
+
+# (allow_tf32, allow_bf16_reduced_precision_reduction) of each precision
+_MATMUL = {"default": (False, False), "highest": (False, False), "float32": (False, False),
+           "high": (True, False), "tensorfloat32": (True, False), "bfloat16": (True, True)}
+
+
+def matmul_settings() -> tuple[bool, bool]:
+    """``(allow_tf32, allow_bf16_reduced_precision_reduction)`` for the
+    products of a plan on a CUDA device, from the precision flags."""
+    precision = config.xla__matmul_precision
+    if precision == "default":
+        precision = config.matmul_precision
+    return _MATMUL[precision]

@@ -3,11 +3,13 @@
 Counterpart of ``pytensor_tpu/gradient.py`` (PyTensor's gradient.py
 grad:568, pullback:452), cut to ``grad``, ``pullback``, ``jacobian``
 (rows batched by ``vectorize_graph``), ``hessian``,
-``hessian_vector_product``, ``verify_grad`` with ``numeric_grad``, and
-the gradient-manipulating ops (``gradient.py:447-517``: ZeroGrad,
+``hessian_vector_product``, ``verify_grad`` with ``numeric_grad``, the
+gradient-manipulating ops (``gradient.py:447-517``: ZeroGrad,
 DisconnectedGrad, UndefinedGrad, GradClip, GradScale, identities in the
-forward pass).  ``Rop``/``pushforward`` wait for ROADMAP.md Queue 1
-item 5.  Everything
+forward pass), forward mode as the JAX package builds it (``pushforward``
+as the double pullback, ``:331-359``, with ``Rop`` and ``Lop`` its
+aliases and ``Rop_via_pushforward`` for the ops' ``R_op``),
+``subgraph_grad`` and ``as_list_or_tuple``.  Everything
 stays in graph land: grad() returns symbolic graphs built from per-Op
 L_op rules, so ``dlogp`` is a graph the rewrites and the linker see like
 any other.
@@ -324,6 +326,69 @@ def pullback(outputs, inputs, output_grads=None, **kwargs):
     return res[0] if one else res
 
 
+def Lop(f, wrt, eval_points, **kwargs):
+    """``pullback`` by its older name (PyTensor's gradient.py:544)."""
+    return pullback(f, wrt, eval_points, **kwargs)
+
+
+def pushforward(outputs, inputs, input_tangents, **kwargs):
+    """The Jacobian-vector product of ``outputs`` at ``inputs`` along
+    ``input_tangents``, as two pullbacks (PyTensor's
+    pushforward_through_pullback:163): the pullback of dummy cotangents
+    ``u`` is linear in ``u``, so the pullback of its inner product with the
+    tangents, taken with respect to ``u``, is the product.  It holds for
+    every op with an ``L_op``."""
+    from pytensor_tpu_torch.graph.replace import graph_replace
+    from pytensor_tpu_torch.tensor import math as tm
+    from pytensor_tpu_torch.tensor.basic import as_tensor_variable
+
+    one = isinstance(outputs, Variable)
+    outputs_l = _as_list(outputs)
+    inputs_l = _as_list(inputs)
+    tangents = [as_tensor_variable(t) for t in _as_list(input_tangents)]
+
+    u = [o.type() for o in outputs_l]
+    vjps = grad(cost=None, wrt=inputs_l, known_grads=dict(zip(outputs_l, u)),
+                disconnected_inputs="ignore", return_disconnected="zero")
+    inner = None
+    for g, t in zip(vjps, tangents):
+        term = tm.sum(g * t)
+        inner = term if inner is None else inner + term
+    jvps = grad(cost=None, wrt=u, known_grads={inner: _ones_like_scalar(inner)},
+                disconnected_inputs="ignore", return_disconnected="zero")
+    # the value does not depend on u, but a shape-only reference (fill,
+    # second) may keep u in the graph: the outputs, of the same types,
+    # take its place
+    jvps = graph_replace(jvps, dict(zip(u, outputs_l)), strict=False)
+    return jvps[0] if one else jvps
+
+
+# PyTensor's name for the same construction
+pushforward_through_pullback = pushforward
+
+
+def _ones_like_scalar(v):
+    # a constant seed: ones_like(v) would keep the dummy cotangents' graph
+    # in the product
+    from pytensor_tpu_torch.tensor.basic import constant
+
+    return constant(np.ones((), dtype=v.type.dtype))
+
+
+def Rop(f, wrt, eval_points, **kwargs):
+    """``pushforward`` by its older name (PyTensor's gradient.py:521)."""
+    return pushforward(f, wrt, eval_points, **kwargs)
+
+
+def Rop_via_pushforward(op, inputs, eval_points):
+    """An op's ``R_op`` by ``pushforward`` of one application of it (an
+    absent tangent is zero)."""
+    node = op.make_node(*inputs)
+    tangents = [ep if ep is not None else _zeros_like_var(i)
+                for i, ep in zip(inputs, eval_points)]
+    return _as_list(pushforward(node.outputs, list(inputs), tangents))
+
+
 def jacobian(expression, wrt, consider_constant=None, disconnected_inputs="raise",
              vectorize=False):
     """Jacobian of a 0-d or 1-d ``expression``: row i is the gradient of
@@ -398,6 +463,9 @@ class ZeroGrad(GradManipulatorOp):
 
     def L_op(self, inputs, outputs, output_grads):
         return [_zeros_like_var(inputs[0])]
+
+    def R_op(self, inputs, eval_points):
+        return [None]
 
 
 class DisconnectedGrad(GradManipulatorOp):
@@ -544,3 +612,52 @@ def verify_grad(fun, pt, n_tests=2, rng=None, eps=None, out_grad_dtype=None, abs
                 f"verify_grad failed for input {i} at {idx}: analytic={a[idx]}, "
                 f"numeric={n[idx]}, abs_err={np.abs(a - n)[idx]}, rel_err={rel[idx]}")
     return True
+
+
+def as_list_or_tuple(use_list, use_tuple, outputs):
+    """``outputs`` as a list, a tuple, or as it is (PyTensor's
+    gradient.py:51)."""
+    if use_list and use_tuple:
+        raise ValueError("Both flags cannot be simultaneously True")
+    if use_list or use_tuple:
+        if isinstance(outputs, (list, tuple)):
+            return list(outputs) if use_list else tuple(outputs)
+        return [outputs] if use_list else (outputs,)
+    return outputs
+
+
+def subgraph_grad(wrt, end, start=None, cost=None, details=False):
+    """The gradients of ``cost`` and of the cotangents ``start`` with
+    respect to ``wrt`` and to ``end``, stopping at ``end`` (PyTensor's
+    gradient.py:817): ``end`` is held constant, so the ``end`` gradients
+    chain into a further call.  With ``details`` the ``start`` and
+    ``cost`` parts come separately too."""
+    if cost is None and start is None:
+        raise ValueError("`cost` or `start` must be specified.")
+    if not isinstance(end, list):
+        raise TypeError("`end` must be a list.")
+    if not isinstance(wrt, list):
+        raise TypeError("`wrt` must be a list.")
+    if start is not None and not isinstance(start, dict):
+        raise TypeError("`start` must be a dictionary.")
+
+    params = list(dict.fromkeys(wrt + end))
+    start_grads = cost_grads = None
+    if start is not None:
+        start_grads = list(grad(cost=None, wrt=params, known_grads=dict(start),
+                                consider_constant=end, disconnected_inputs="ignore"))
+    if cost is not None:
+        cost_grads = list(grad(cost=cost, wrt=params, consider_constant=end,
+                               disconnected_inputs="ignore"))
+    if start is None:
+        grads = cost_grads
+    else:
+        grads = list(start_grads)
+        if cost_grads is not None:
+            grads = [g + cg for g, cg in zip(grads, cost_grads)]
+    pgrads = dict(zip(params, grads))
+    wrt_grads = [pgrads[k] for k in wrt]
+    end_grads = [pgrads[k] for k in end]
+    if details:
+        return wrt_grads, end_grads, start_grads, cost_grads
+    return wrt_grads, end_grads

@@ -17,6 +17,13 @@ if TYPE_CHECKING:
     from pytensor_tpu_torch.graph.type import Type
 
 
+def _picklable_tag(tag: Scratchpad) -> Scratchpad:
+    """A copy of ``tag`` without its creation trace."""
+    out = Scratchpad().__update__(tag)
+    out.__dict__.pop("trace", None)
+    return out
+
+
 class Node:
     """Base for Apply and Variable: anything in a graph."""
 
@@ -94,6 +101,12 @@ class Apply(Node):
             node.tag.__update__(self.tag)
         return node
 
+    def __getstate__(self):
+        return (self.op, self.inputs, self.outputs, _picklable_tag(self.tag))
+
+    def __setstate__(self, state):
+        self.op, self.inputs, self.outputs, self.tag = state
+
     def __str__(self) -> str:
         return f"{self.op}({', '.join(map(str, self.inputs))})"
 
@@ -126,6 +139,21 @@ class Variable(Node):
         cp = self.__class__(self.type, None, None, kwargs.get("name", self.name))
         cp.tag.__update__(self.tag)
         return cp
+
+    def __getstate__(self):
+        # every slot of the class and its bases, the tag without its
+        # creation trace (frames of another process say nothing)
+        d = {}
+        for klass in type(self).__mro__:
+            for slot in getattr(klass, "__slots__", ()):
+                if slot != "__weakref__" and hasattr(self, slot):
+                    d[slot] = getattr(self, slot)
+        d["tag"] = _picklable_tag(d["tag"])
+        return d
+
+    def __setstate__(self, d):
+        for k, v in d.items():
+            setattr(self, k, v)
 
     def __str__(self) -> str:
         if self.name is not None:

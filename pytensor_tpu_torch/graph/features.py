@@ -2,7 +2,9 @@
 
 Parallels PyTensor's graph/features.py (Feature:297,
 History:439, ReplaceValidate:710): features get callbacks on graph
-mutation and can validate or veto replacements.
+mutation and can validate or veto replacements.  A feature that binds
+closures onto its graph names them in ``pickle_rm_attr``; a pickle of the
+graph leaves them out and ``unpickle`` binds them again on load.
 """
 
 from __future__ import annotations
@@ -63,6 +65,18 @@ class History(Feature):
             lambda: fgraph.change_node_input(node, i, old_var, reason="Revert")
         )
 
+    def __getstate__(self):
+        # the recorded edits are closures over live graphs: a loaded
+        # graph starts with an empty history
+        d = self.__dict__.copy()
+        d["history"] = {}
+        return d
+
+    def unpickle(self, fgraph):
+        self.history.setdefault(fgraph, [])
+        fgraph.checkpoint = lambda: len(self.history[fgraph])
+        fgraph.revert = lambda checkpoint: self.revert(fgraph, checkpoint)
+
     def revert(self, fgraph, checkpoint):
         h = self.history[fgraph]
         self.history[fgraph] = None
@@ -84,6 +98,10 @@ class Validator(Feature):
     def on_detach(self, fgraph):
         del fgraph.validate
         del fgraph.consistent
+
+    def unpickle(self, fgraph):
+        fgraph.validate = lambda: self.validate_(fgraph)
+        fgraph.consistent = lambda: self.consistent_(fgraph)
 
     def validate_(self, fgraph):
         return fgraph.execute_callbacks("validate")
@@ -122,6 +140,16 @@ class ReplaceValidate(History, Validator):
         Validator.on_detach(self, fgraph)
         del fgraph.replace_validate
         del fgraph.replace_all_validate
+
+    def unpickle(self, fgraph):
+        History.unpickle(self, fgraph)
+        Validator.unpickle(self, fgraph)
+        fgraph.replace_validate = lambda r, new_r, reason=None, **kw: self.replace_validate(
+            fgraph, r, new_r, reason=reason, **kw
+        )
+        fgraph.replace_all_validate = lambda repl, reason=None, **kw: self.replace_all_validate(
+            fgraph, repl, reason=reason, **kw
+        )
 
     def replace_validate(self, fgraph, r, new_r, reason=None, **kwargs):
         self.replace_all_validate(fgraph, [(r, new_r)], reason=reason, **kwargs)

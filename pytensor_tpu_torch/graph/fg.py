@@ -286,6 +286,22 @@ class FunctionGraph:
             fg.check_integrity()
         return fg, memo
 
+    def __getstate__(self):
+        """The features' closures bound onto the graph (``pickle_rm_attr``)
+        are left out; each feature binds them again on load."""
+        d = self.__dict__.copy()
+        for feature in self._features:
+            for attr in getattr(feature, "pickle_rm_attr", ()):
+                d.pop(attr, None)
+        return d
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        for feature in self._features:
+            unpickle = getattr(feature, "unpickle", None)
+            if unpickle is not None:
+                unpickle(self)
+
     def __contains__(self, thing):
         if isinstance(thing, Variable):
             return thing in self.variables

@@ -71,6 +71,11 @@ class Op(MetaObject):
         """vJp rule. Default delegates to ``grad`` (which may not need outputs)."""
         return self.grad(inputs, output_grads)
 
+    def R_op(self, inputs, eval_points):
+        """Jvp rule: the outputs' tangents from the inputs' (None where an
+        input has none).  ``gradient.pushforward`` needs none of them."""
+        raise NotImplementedError(f"{type(self).__name__}.R_op")
+
 
     # --- static analysis ---
 

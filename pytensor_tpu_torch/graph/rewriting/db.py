@@ -56,21 +56,38 @@ class RewriteDatabase:
 
 class RewriteDatabaseQuery:
     """The tags that select rewrites from a database: a rewrite is selected
-    when it carries any of ``include`` and none of ``exclude``."""
+    when it carries any of ``include`` and none of ``exclude``.
+    ``require`` is recorded, as the JAX package records it, and selects
+    nothing; ``extra_rewrites`` run after the selected passes of a
+    ``SequenceDB`` (``Mode.register``)."""
 
-    def __init__(self, include: Iterable[str], exclude: Iterable[str] = ()):
+    def __init__(self, include: Iterable[str], exclude: Iterable[str] = (),
+                 require: Iterable[str] = (), extra_rewrites=()):
         self.include = frozenset(include)
         self.exclude = frozenset(exclude)
+        self.require = frozenset(require)
+        self.extra_rewrites = tuple(extra_rewrites)
+
+    def _with(self, include, exclude, require=None, extra=()):
+        return RewriteDatabaseQuery(include, exclude,
+                                    self.require if require is None else require,
+                                    self.extra_rewrites + tuple(extra))
 
     def including(self, *tags) -> "RewriteDatabaseQuery":
-        return RewriteDatabaseQuery(self.include | set(tags), self.exclude - set(tags))
+        return self._with(self.include | set(tags), self.exclude - set(tags))
 
     def excluding(self, *tags) -> "RewriteDatabaseQuery":
-        return RewriteDatabaseQuery(self.include - set(tags), self.exclude | set(tags))
+        return self._with(self.include - set(tags), self.exclude | set(tags))
+
+    def requiring(self, *tags) -> "RewriteDatabaseQuery":
+        return self._with(self.include, self.exclude, self.require | set(tags))
+
+    def register(self, *rewrites) -> "RewriteDatabaseQuery":
+        return self._with(self.include, self.exclude, extra=rewrites)
 
     def __str__(self):
         return (f"RewriteDatabaseQuery(inc={sorted(self.include)}, "
-                f"ex={sorted(self.exclude)})")
+                f"ex={sorted(self.exclude)}, req={sorted(self.require)})")
 
 
 class SequenceDB(RewriteDatabase):
@@ -90,18 +107,21 @@ class SequenceDB(RewriteDatabase):
 
     def query(self, query: RewriteDatabaseQuery):
         selected = []
+        # the extra rewrites run once, after this database's passes
+        inner = RewriteDatabaseQuery(query.include, query.exclude, query.require)
         for name, rewriter in self._names.items():
             if not self._selected(name, query):
                 continue
             if isinstance(rewriter, RewriteDatabase):
-                rewriter = rewriter.query(query)
+                rewriter = rewriter.query(inner)
             elif getattr(rewriter, "wants_query", False):
                 # the inner-graph bridge re-runs the active mode's pipeline
                 # inside Scan bodies: hand it the query it was selected under
                 rewriter = rewriter.bind_query(query)
             selected.append((self.positions[name], rewriter))
         selected.sort(key=lambda t: t[0])
-        return self.seq_rewriter([r for _, r in selected], name=self.name)
+        return self.seq_rewriter([r for _, r in selected] + list(query.extra_rewrites),
+                                 name=self.name)
 
 
 class EquilibriumDB(RewriteDatabase):

@@ -16,6 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from pytensor_tpu_torch.compile.compilelock import lock_ctx
+
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,21 +51,31 @@ def build_library(source: str, stem: str, source_path: Path | None = None,
     lib_path = BUILD_DIR / f"lib{stem}_{key}.so"
     log = ""
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        if source_path is None:
-            source_path = BUILD_DIR / f"{stem}_{key}.cu"
-            tmp_src = source_path.with_suffix(f".{os.getpid()}.tmp")
-            tmp_src.write_text(source)
-            os.replace(tmp_src, source_path)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *cmd_flags, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(source_path)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source_path}:\n{log}")
-        os.replace(tmp, lib_path)
+        # one process builds it; another that asks for it meanwhile waits,
+        # then finds it built (compile/compilelock.py)
+        with lock_ctx(BUILD_DIR, f"_{stem}_{key}"):
+            if not lib_path.exists():
+                log = _nvcc(source, stem, key, source_path, cmd_flags, lib_path, verbose)
     return ctypes.CDLL(str(lib_path)), log
+
+
+def _nvcc(source, stem, key, source_path, cmd_flags, lib_path, verbose) -> str:
+    """Compile into ``lib_path`` (written to a temporary name, then moved);
+    returns the compiler's output."""
+    if source_path is None:
+        source_path = BUILD_DIR / f"{stem}_{key}.cu"
+        tmp_src = source_path.with_suffix(f".{os.getpid()}.tmp")
+        tmp_src.write_text(source)
+        os.replace(tmp_src, source_path)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *cmd_flags, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(source_path)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source_path}:\n{log}")
+    os.replace(tmp, lib_path)
+    return log
 
 
 def build_csrc(stem: str, headers=(), verbose: bool = False,

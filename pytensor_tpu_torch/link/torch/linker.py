@@ -26,9 +26,10 @@ the run never waits on the device to learn a shape.  Matrix products
 and convolutions run in full float32, bfloat16 products accumulate in
 float32, and factorisations run in cuSOLVER: a plan linked for a CUDA
 device turns TF32 off for matmuls and cuDNN, turns cuBLAS's
-reduced-precision bfloat16 reductions off and makes cuSOLVER torch's
-linalg library while it runs, and puts the four settings back when it
-returns.
+reduced-precision bfloat16 reductions off (unless ``config.matmul_precision``
+asks for them) and makes cuSOLVER torch's linalg library while it runs,
+and puts the four settings back when it returns.  ``PyLinker`` is the
+``"py"`` linker: the eager plan, never captured.
 
 Each intermediate is freed after its last reader, by free lists made at
 link time (the rule of the oracle linker's ``allow_gc``,
@@ -42,7 +43,7 @@ import time
 
 import torch
 
-from pytensor_tpu_torch.config import config
+from pytensor_tpu_torch.config import config, matmul_settings
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.graph.fg import FunctionGraph
 from pytensor_tpu_torch.link.basic import raise_with_op
@@ -203,7 +204,8 @@ class Plan:
     ``steps`` holds, for each node in topological order, its lowering, the
     node, its arguments (a constant's value or the variable to read) and
     its free list.  ``host_reads`` is the capture rule's verdict
-    (``_host_reads``), ``capturable`` whether it is empty.
+    (``_host_reads``), ``capturable`` whether it is empty.  ``timer``,
+    when set, times each node of a run (``PyLinker``'s profiles).
     """
 
     def __init__(self, fgraph, device, steps, outputs, host_reads, trust_input):
@@ -214,6 +216,8 @@ class Plan:
         self.outputs = outputs
         self.host_reads = host_reads
         self.trust_input = trust_input
+        # times each node when set (compile/debug/profiling.py NodeTimer)
+        self.timer = None
 
     @property
     def capturable(self):
@@ -264,13 +268,16 @@ class Plan:
         # synchronises and a CUDA graph refuses; and full float32
         # convolutions (cuDNN takes TF32 by default).  The caller's settings
         # are restored on return.
+        # ``config.matmul_precision`` may allow TF32 and bfloat16 reductions
+        # (``config.matmul_settings``), read when the plan runs.
         matmul, cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cuda, torch.backends.cudnn
         prev = (matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction,
                 cuda.preferred_linalg_library(), cudnn.allow_tf32)
-        matmul.allow_tf32 = False
-        matmul.allow_bf16_reduced_precision_reduction = False
+        tf32, bf16_reduced = matmul_settings()
+        matmul.allow_tf32 = tf32
+        matmul.allow_bf16_reduced_precision_reduction = bf16_reduced
         cuda.preferred_linalg_library("cusolver")
-        cudnn.allow_tf32 = False
+        cudnn.allow_tf32 = tf32
         try:
             return self.run(args)
         finally:
@@ -283,10 +290,16 @@ class Plan:
         global NODES_RUN
         NODES_RUN += len(self.steps)
         storage = dict(zip(self.inputs, args))
+        timer = self.timer
         for fn, node, spec, free in self.steps:
             vals = [v if kind == "const" else storage[v] for kind, v in spec]
             try:
-                res = fn(*vals)
+                if timer is None:
+                    res = fn(*vals)
+                else:
+                    mark = timer.start()
+                    res = fn(*vals)
+                    timer.stop(node, mark)
             except Exception:
                 raise_with_op(self.fgraph, node)
             if isinstance(res, (list, tuple)):
@@ -496,3 +509,22 @@ class TorchLinker:
         if plan.device.type == "cuda" and config.xla__jit and plan.capturable:
             return CapturedFunction(plan)
         return plan
+
+
+class PyLinker:
+    """Linker selected by ``Mode(linker="py")`` (``FAST_COMPILE``, ``PY``).
+
+    The JAX package's ``"py"`` linker (``pytensor_tpu/link/basic.py:86
+    PerformLinker``) runs each node's numpy ``perform`` on the host, one
+    thunk a node.  The port's ops have no numpy ``perform``, so its
+    ``"py"`` returns the eager ``Plan`` on the device the caller names:
+    each node's lowering called in turn, never captured into a CUDA graph,
+    whatever ``config.xla__jit`` says.  ``Plan.timer`` times each node
+    (``compile/debug/profiling.py``).
+    """
+
+    required_rewrites = ("torch",)
+
+    @staticmethod
+    def make_torch_fn(fgraph: FunctionGraph, device, trust_input: bool = False):
+        return fgraph_to_torch(fgraph, device, trust_input)

@@ -169,6 +169,13 @@ class ScalarOp(MetaObject):
     def __str__(self):
         return self.name
 
+    def __reduce__(self):
+        # the implementations are lambdas, which do not pickle: a pickle
+        # holds the name, and loading takes the op from the registry
+        if self.name.startswith("cast{"):
+            return (cast_op, (self.name[5:-1],))
+        return (get_scalar_op, (self.name,))
+
     def __call__(self, *inputs):
         """Apply at the tensor level (scalar ops act through Elemwise)."""
         from pytensor_tpu_torch.tensor.elemwise import Elemwise
@@ -177,6 +184,16 @@ class ScalarOp(MetaObject):
 
 
 _registry: dict[str, ScalarOp] = {}
+
+
+def get_scalar_op(name: str) -> ScalarOp:
+    """The registered scalar op named ``name`` (what a pickle holds)."""
+    if name not in _registry:
+        if name.startswith("cast{"):
+            return cast_op(name[5:-1])
+        # the special functions register when scalar/math.py is imported
+        import pytensor_tpu_torch.scalar.math  # noqa: F401
+    return _registry[name]
 
 
 def _op(name, nin, np_fn, torch_fn, grad_fn=None, **kw) -> ScalarOp:

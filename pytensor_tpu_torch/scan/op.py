@@ -148,6 +148,13 @@ class Scan(Op, HasInnerGraph):
                                      _structural_signature(self.fgraph))
         return sig
 
+    def __getstate__(self):
+        # the signature holds every constant's bytes; a loaded op makes it
+        # again when it is first compared
+        d = self.__dict__.copy()
+        d.pop("_sig_cache", None)
+        return d
+
     def __eq__(self, other):
         if self is other:
             return True

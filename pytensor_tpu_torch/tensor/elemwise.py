@@ -135,6 +135,11 @@ class DimShuffle(Op):
             gz = specify_shape(gz, pinned)
         return [DimShuffle(gz.type.ndim, grad_order)(gz)]
 
+    def R_op(self, inputs, eval_points):
+        if eval_points[0] is None:
+            return [None]
+        return [self(eval_points[0])]
+
     def c_like_str(self):
         return f"DimShuffle{{{','.join(map(str, self.new_order))}}}"
 
@@ -292,6 +297,12 @@ class Elemwise(Op):
                 continue
             rval.append(_sum_grad_over_bcasted_dims(inp, g))
         return rval
+
+    def R_op(self, inputs, eval_points):
+        # the scalar op's gradient rule, applied forward
+        from pytensor_tpu_torch.gradient import Rop_via_pushforward
+
+        return Rop_via_pushforward(self, inputs, eval_points)
 
     def __str__(self):
         if self.name:

@@ -1626,3 +1626,62 @@ def test_loop_kernel_launch_and_capture(card, kernel):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(replayed, want), tag
+
+
+def test_pickled_function_relinks_on_the_card(card):
+    """A function pickled with its shared value loads on the card it was
+    made for, captures its own graph and launches K1 as the original does,
+    with the original's bits; ``pkl_utils.load_function`` does the same
+    from its zip."""
+    import io
+    import pickle
+
+    import pytensor_tpu_torch as ptt
+    from pytensor_tpu_torch.misc import pkl_utils
+
+    (theta,), (logp, dlogp), n = make_radon_graphs(40, 5, "float32")
+    scale = ptt.shared(np.float32(1.5), name="scale", device=card)
+    f = ptt.function([theta], [logp * scale, dlogp], device=card)
+    th = as_torch(theta_start(n, "float32"), card)
+    want = f(th)
+    want = f(th)  # a replay
+    for g in (pickle.loads(pickle.dumps(f)), _zip_round_trip(f, pkl_utils, io)):
+        assert g.device == f.device and g.shared_vars[0].device == card
+        g(th)  # captures
+        before = fused_kernel.LAUNCHES
+        got = g(th)
+        assert fused_kernel.LAUNCHES > before
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _zip_round_trip(f, pkl_utils, io):
+    buf = io.BytesIO()
+    pkl_utils.dump_function(f, buf)
+    buf.seek(0)
+    return pkl_utils.load_function(buf)
+
+
+def test_a_copy_replays_its_own_shared_tensors(card):
+    """A copy's CUDA graph reads and updates its own shared tensor: the
+    original's graph, captured first, is never replayed with the copy's
+    state, and each moves only its own."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+
+    s = ptt.shared(np.arange(4, dtype="float32"), name="s", device=card)
+    x = pt.tensor("x", dtype="float32", shape=(4,))
+    f = ptt.function([x], pt.sum(s * x), updates={s: s * 2 + x}, device=card)
+    ones = torch.ones(4, device=card)
+    f(ones)
+    f(ones)  # captured, then replayed
+    g = f.copy()
+    t = ptt.shared(np.full(4, 10, dtype="float32"), device=card)
+    h = f.copy(swap={s: t})
+    s_before = s.get_value()
+    assert float(g(ones)) == float(s_before.sum())
+    assert float(g(ones)) == float((s_before * 2 + 1).sum())
+    assert float(h(ones)) == 40.0 and float(h(ones)) == 84.0
+    assert torch.equal(s.get_value(), s_before)  # neither copy moved the original's
+    assert torch.equal(t.get_value(), torch.full((4,), 43.0, device=card))
+    assert type(g.linked).__name__ == "CapturedFunction" and g.linked is not f.linked
