@@ -3,8 +3,10 @@ RNN, linalg (GP, Kalman filter, batched Cholesky), special-function (the
 bessel loop), bfloat16 (the MLP "MFU" step, the GEMM chain), tensor
 library tail (the einsum loop, the scan rows, the new lowerings),
 optimize and complex (the logistic-regression MAP, a periodogram),
-random (threefry, the HMC transitions) and loop-sampler (jax's gamma,
-Poisson and binomial loops, the RBM Gibbs chain) paths on one NVIDIA GPU.
+random (threefry, the HMC transitions), loop-sampler (jax's gamma,
+Poisson and binomial loops, the RBM Gibbs chain), while-scan, compile
+driver and graph-layer (the rewrite probe, printing, the destroy
+handler) paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -372,6 +374,29 @@ Phases, one line or more each, and any failure raises:
    ``profile=True`` under ``FAST_RUN`` and ``PY`` (calls, host and device
    ms, the first call's peak bytes, the static op table's top 5).  Each K1
    node of the ``FAST_RUN`` functions against its plain version.
+23. the graph layer (``phase_graph``; its K1 kernels from
+   ``graph_kernels``, built in phase 2's pool): (a) each probe graph of
+   ``pytensor_tpu_torch/link/cuda/rewrite_cases.py`` (the ShapeFeature's
+   two graphs on inputs of unknown shape, and one or more graphs for each
+   of the 54 ``local_*`` rewrites of ``tensor/rewriting/{basic,subtensor,
+   math}.py`` that ROADMAP Queue 1 item 6 ported) at 4,096 x 4,096 or
+   2**24 float32 elements under ``FAST_RUN``, captured: the rewrite fires
+   while linking (counted by wrapping ``FromFunctionNodeRewriter
+   .transform``), nodes as on the CPU and against the graph without the
+   rewrite, K1 and K2 launches in one replayed call, the value against
+   float64 numpy (``GRAPH_TOL``), every K1 node against its plain
+   version; the ShapeFeature's graphs and the four rewrites that move a
+   product or a reduction timed with the rewrite and without it (device
+   ms); one line a family (shape, basic, subtensor, math).  (b) ``dprint``
+   of the radon logp and dlogp at 919/85 in float64 (its FusedElemwise
+   nodes), ``pprint`` of logp, ``Print`` on dlogp (the plan eager and
+   why, the message once a call, the captured function's bits).  (c) The
+   radon function and phase 7's chain again under
+   ``FAST_RUN.register(AddDestroyHandler())``: ``validate``, the donation
+   report, one K2 launch a chain call with the original's bits, and
+   destroyers in a cycle refused.  (d) ``misc/check_blas.py``'s GEMM at
+   4,096 in float32 and bfloat16 (cuBLAS; GFLOP/s).  K1's and K2's
+   ``launches_by_path`` gain ``graph`` and the paths of (b) and (c).
 
 Three clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -5806,10 +5831,10 @@ def while_kernels(dev, setup):
     return list(kerns.values())
 
 
-def k1_nodes_held(f, args, dev, tag):
+def k1_nodes_held(f, args, dev, tag, quiet=False):
     """Each K1 node of ``f``'s graph against its plain version, on the
     inputs the graph gives it (``SPECIAL_RTOL`` of its dtype); returns the
-    largest absolute error."""
+    largest absolute error.  ``quiet`` prints no line a node."""
     import torch
 
     from pytensor_tpu_torch.graph.basic import Constant
@@ -5830,15 +5855,19 @@ def k1_nodes_held(f, args, dev, tag):
         got, want = kern.launch(*xs), kern.plain(*xs)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
-            rtol = SPECIAL_RTOL[str(b.dtype).replace("torch.", "")]
+            # an integer or bool output is exact
+            rtol = SPECIAL_RTOL.get(str(b.dtype).replace("torch.", ""), 0.0)
             a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
-            diff = np.abs(a - b)
+            with np.errstate(invalid="ignore"):
+                # equal infinities agree, and NaN with NaN
+                diff = np.where((a == b) | (np.isnan(a) & np.isnan(b)), 0.0, np.abs(a - b))
             err = float((diff / np.maximum(1.0, np.abs(b))).max(initial=0.0))
             if not (np.array_equal(np.isnan(a), np.isnan(b)) and err <= rtol):
                 raise AssertionError(f"{tag} K1 node {nd}: rel err {err} > {rtol}")
             worst = max(worst, float(np.nan_to_num(diff).max(initial=0.0)))
-        say(f"  {tag} K1 node: ops {[m.op.scalar_op.name for m in nd.op.fgraph.toposort()]}, "
-            f"inputs {[tuple(x.shape) for x in xs]}, held against plain")
+        if not quiet:
+            say(f"  {tag} K1 node: ops {[m.op.scalar_op.name for m in nd.op.fgraph.toposort()]}, "
+                f"inputs {[tuple(x.shape) for x in xs]}, held against plain")
     return worst
 
 
@@ -6439,6 +6468,385 @@ def phase_compile(dev, smi_line, cpu, chain, chain_args, power, power_x, power_x
     return launches, k4, k1_abs, row
 
 
+# --- phase 23: the graph layer -----------------------------------------------------------
+
+# the probe graphs' size: 4,096 x 4,096 matrices and vectors of 2**24
+# elements, float32 (the MFU width and K1's 2**24 rows)
+GRAPH_SIDE = 4096
+# values against float64 numpy on the same float32 inputs, over
+# max(1, |ref|): an elementwise graph's rounding (a float32 transcendental
+# within a few ulps), a product's or a sum's over 4,096 terms
+GRAPH_TOL = {"elemwise": 1e-6, "shape": 1e-6, "product": 1e-4}
+GRAPH_TIMED_CALLS = 5
+BLAS_N = 4096
+PRINT_MESSAGE = "phase 23 dlogp"
+
+
+def fired_rewrites():
+    """Count the port's node rewrites that change a graph while linking:
+    ``(counts, undo)``, ``counts`` keyed by the rewrite's name."""
+    import collections
+
+    from pytensor_tpu_torch.graph.rewriting import basic
+
+    counts = collections.Counter()
+    orig = basic.FromFunctionNodeRewriter.transform
+
+    def transform(self, fgraph, node):
+        res = orig(self, fgraph, node)
+        if res:
+            counts[str(self)] += 1
+        return res
+
+    basic.FromFunctionNodeRewriter.transform = transform
+
+    def undo():
+        basic.FromFunctionNodeRewriter.transform = orig
+
+    return counts, undo
+
+
+def graph_link(case, dev, mode):
+    """``case``'s probe graph at ``GRAPH_SIDE`` in float32 linked for ``dev``
+    under ``mode``; inputs of unknown shape."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+
+    vals = case.inputs(GRAPH_SIDE, "float32")
+    ins = [pt.tensor(f"x{k}", dtype=np.asarray(v).dtype, shape=(None,) * np.ndim(v))
+           for k, v in enumerate(vals)]
+    return ptt.function(ins, case.build(pt, GRAPH_SIDE, *ins), mode=mode, device=dev,
+                        name=f"graph {case.label}")
+
+
+def graph_modes(case):
+    """The case's mode (``FAST_RUN`` less its ``exclude``) and the same less
+    the rewrite (``without``)."""
+    from pytensor_tpu_torch.compile.mode import FAST_RUN
+
+    mode = FAST_RUN.excluding(*case.exclude) if case.exclude else FAST_RUN
+    return mode, mode.excluding(*case.without)
+
+
+def print_functions(dev):
+    """Phase 23's radon functions at 919/85 in float64 under ``FAST_RUN``:
+    logp and dlogp, and the same with ``Print`` on dlogp."""
+    import pytensor_tpu_torch as ptt
+    from pytensor_tpu_torch.models.radon import make_radon_graphs
+    from pytensor_tpu_torch.printing import Print
+
+    ins, (logp, dlogp), _ = make_radon_graphs(N_OBS, N_COUNTIES, "float64")
+    f = ptt.function(ins, [logp, dlogp], name="radon", device=dev)
+    ins, (logp, dlogp), _ = make_radon_graphs(N_OBS, N_COUNTIES, "float64")
+    g = ptt.function(ins, [logp, Print(PRINT_MESSAGE)(dlogp)], name="radon Print", device=dev)
+    return f, g, logp
+
+
+def graph_kernels(dev):
+    """Phase 23's K1 kernels, for phase 2's pool: from its probe graphs (and
+    the timed ones without their rewrite) and the Print function, linked for
+    the CPU; and each probe graph's node counts there, with the rewrite and
+    without it."""
+    from pytensor_tpu_torch.link.cuda.rewrite_cases import CASES, TIMED
+
+    kerns: dict = {}
+    nodes = []
+    for case in CASES:
+        mode, without = graph_modes(case)
+        f, g = graph_link(case, "cpu", mode), graph_link(case, "cpu", without)
+        plan_kernels(f.linked, dev, kerns)
+        if case.rewrite in TIMED:
+            plan_kernels(g.linked, dev, kerns)
+        nodes.append((len(f.fgraph.apply_nodes), len(g.fgraph.apply_nodes)))
+    for f in print_functions("cpu")[:2]:
+        plan_kernels(f.linked, dev, kerns)
+    return list(kerns.values()), nodes
+
+
+def graph_value_error(got, ref):
+    """The largest error of ``got`` against the float64 numpy ``ref`` over
+    max(1, |ref|), on ``got``'s device; non-finite values must match
+    exactly (NaN to NaN), integers and bools everywhere."""
+    import torch
+
+    ref = np.asarray(ref)
+    if not ref.flags.c_contiguous:
+        ref = np.ascontiguousarray(ref)
+    want = torch.from_numpy(ref).to(got.device)
+    if tuple(got.shape) != tuple(want.shape):
+        raise AssertionError(f"shape {tuple(got.shape)}, want {tuple(want.shape)}")
+    if not want.is_floating_point():
+        return 0.0 if torch.equal(got.to(want.dtype), want) else float("inf")
+    got = got.double()
+    fin = torch.isfinite(want)
+    bad = ~fin & ~((got == want) | (torch.isnan(got) & torch.isnan(want)))
+    if bool(bad.any()):
+        return float("inf")
+    err = (got - want).abs() / want.abs().clamp(min=1.0)
+    return float(err[fin].max()) if bool(fin.any()) else 0.0
+
+
+def phase_graph(dev, smi_line, nodes_cpu, chain, chain_args):
+    """Phase 23: the graph-and-rewrite layer.  (a) Each probe graph of
+    ``link/cuda/rewrite_cases.py`` (the ShapeFeature's, and one or more for
+    each of the 54 rewrites item 6 ported) at ``GRAPH_SIDE`` in float32,
+    linked under ``FAST_RUN`` (less the case's ``exclude``) and captured:
+    the rewrite fires while linking (the ShapeFeature's graph has fewer
+    nodes than without it), the graph's nodes against the CPU's and those
+    without the rewrite, K1 and K2 launches in one replayed call (the counts
+    set to 0 just before it), the value against float64 numpy
+    (``GRAPH_TOL``), every K1 node against its plain version; the timed
+    graphs' device ms a call with the rewrite and without it.  One line a
+    family.  (b) ``dprint`` of the radon logp and dlogp at 919/85 in
+    float64 (its FusedElemwise nodes, which K1 runs), ``pprint`` of logp, and
+    ``Print`` on dlogp: the plan eager and why, the message once a call,
+    logp and dlogp the captured function's bits (under torch's
+    deterministic algorithms, whose index_add_ adds in one order).  (c) The
+    radon function and ``chain`` (phase 7's 8,192-step chain) linked again
+    under ``FAST_RUN.register(AddDestroyHandler())``: ``validate`` passes,
+    the donation report, one K2 launch a chain call with the original's
+    bits on ``chain_args``; ``validate`` refuses destroyers whose orderings
+    form a cycle.  (d) ``misc/check_blas.py``'s GEMM at ``BLAS_N`` in
+    float32 and bfloat16.  Returns ({path: launches}, K1's largest absolute
+    error, the row)."""
+    import contextlib
+    import io
+
+    import torch
+
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.compile.executor import _rebuild_function
+    from pytensor_tpu_torch.compile.mode import FAST_RUN, AddDestroyHandler, get_mode
+    from pytensor_tpu_torch.graph.basic import Apply
+    from pytensor_tpu_torch.graph.destroyhandler import (
+        DestroyHandler,
+        InconsistencyError,
+        donation_report,
+    )
+    from pytensor_tpu_torch.graph.fg import FunctionGraph
+    from pytensor_tpu_torch.graph.op import Op
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+    from pytensor_tpu_torch.link.cuda.rewrite_cases import CASES, FAMILIES, TIMED
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.misc.check_blas import execute
+    from pytensor_tpu_torch.models.radon import theta_start
+    from pytensor_tpu_torch.printing import pprint
+    from pytensor_tpu_torch.tensor import fused_kernel
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def reset():
+        fused_kernel.LAUNCHES = scan_kernel.LAUNCHES = 0
+
+    def counts():
+        sync()
+        return {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": scan_kernel.LAUNCHES}
+
+    def dev_ms(fn):
+        return device_ms(fn, GRAPH_TIMED_CALLS)[0] if cuda else float("nan")
+
+    launches, row, k1_abs = {}, {"families": {}, "timed": {}}, 0.0
+    total = {"fused_elemwise": 0, "scan_whole_loop": 0}
+    fam = {f: {"graphs": 0, "fired": 0, "nodes": 0, "nodes_without": 0, "k1": 0, "worst": 0.0,
+               "s": 0.0, "link_s": 0.0} for f in FAMILIES}
+    uploaded = {}
+
+    def upload(v):
+        """An input on the card, once for each of the read-only values the
+        cases share (the entry holds the array, so its id stays its own)."""
+        hit = uploaded.get(id(v))
+        if hit is not None and hit[0] is v:
+            return hit[1]
+        t = as_torch(np.array(v), dev)
+        if not v.flags.writeable:
+            uploaded[id(v)] = (v, t)
+        return t
+
+    def reference(case):
+        return case.reference(*case.inputs(GRAPH_SIDE, "float32"))
+
+    # (a) the probe graphs, each float64 reference made on a host thread
+    # while the card links and runs the graph before it
+    refs = ThreadPoolExecutor(1)
+    pending = refs.submit(reference, CASES[0])
+    for i, (case, (n_cpu, n_without)) in enumerate(zip(CASES, nodes_cpu)):
+        t0 = time.perf_counter()
+        mode, without = graph_modes(case)
+        fired, undo = fired_rewrites()
+        try:
+            f = graph_link(case, dev, mode)
+        finally:
+            undo()
+        t_link = time.perf_counter() - t0
+        n = len(f.fgraph.apply_nodes)
+        took = n_without - n if case.rewrite == "shape_feature" else fired[case.rewrite]
+        if n != n_cpu or took <= 0:
+            raise AssertionError(f"graph {case.label}: {n} nodes on the card, {n_cpu} on the "
+                                 f"CPU; {case.rewrite} took it {took} times")
+        vals = case.inputs(GRAPH_SIDE, "float32")
+        args = [upload(v) for v in vals]
+        ref = pending
+        if i + 1 < len(CASES):  # the next reference on the host beside this graph's work
+            pending = refs.submit(reference, CASES[i + 1])
+        f(*args)  # captures
+        reset()
+        out = f(*args)
+        c = counts()
+        for k in total:
+            total[k] += c[k]
+        err = graph_value_error(out, ref.result())
+        if not err <= GRAPH_TOL[case.kind]:
+            raise AssertionError(f"graph {case.label}: {err} from float64 numpy, tol "
+                                 f"{GRAPH_TOL[case.kind]}")
+        k1_abs = max(k1_abs, k1_nodes_held(f, args, dev, f"graph {case.label}", quiet=True))
+        if case.rewrite in TIMED:
+            g = graph_link(case, dev, without)
+            g_err = graph_value_error(g(*args), ref.result())
+            ms, ms_without = dev_ms(lambda: f(*args)), dev_ms(lambda: g(*args))
+            row["timed"][case.label] = {"rewrite": case.rewrite, "ms": ms,
+                                        "ms_without": ms_without, "nodes": n,
+                                        "nodes_without": len(g.fgraph.apply_nodes),
+                                        "err": err, "err_without": g_err}
+            say(f"graph {case.label} ({smi_line}): {ms:.4f} ms/call (device) with "
+                f"{case.rewrite}, {ms_without:.4f} without ({', '.join(case.without)} "
+                f"excluded); {n} nodes against {len(g.fgraph.apply_nodes)}; "
+                f"{err:.2e} and {g_err:.2e} from float64 numpy")
+            del g
+        r = fam[case.family]
+        r["graphs"] += 1
+        r["fired"] += took
+        r["nodes"] += n
+        r["nodes_without"] += n_without
+        r["k1"] += c["fused_elemwise"]
+        r["worst"] = max(r["worst"], err)
+        r["s"] += time.perf_counter() - t0
+        r["link_s"] += t_link
+        del f, args, out, ref
+    refs.shutdown()
+    uploaded.clear()
+    for name, r in fam.items():
+        row["families"][name] = r
+        fired = "saved" if name == "shape" else "fired"
+        say(f"graph family {name} ({smi_line}): {r['graphs']} graphs at {GRAPH_SIDE:,}^2 "
+            f"float32 elements, the rewrites {fired} {r['fired']} "
+            f"{'nodes' if name == 'shape' else 'times'}, {r['nodes']} nodes in all against "
+            f"{r['nodes_without']} without them; K1 {r['k1']} launches in their replayed calls; "
+            f"values within "
+            f"{r['worst']:.2e} of float64 numpy; each K1 node held against its plain "
+            f"version; {r['s']:.1f} s, {r['link_s']:.1f} s of it linking")
+    launches["graph"] = total
+    # (b) printing on the radon function
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(23)
+    th = as_torch(theta_start(N_COUNTIES + 4, "float64")
+                  + 0.1 * rng.standard_normal(N_COUNTIES + 4), dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        f, g, logp = print_functions(dev)
+        f(th)  # captures
+        reset()
+        want = f(th)
+        launches["graph radon"] = counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            reset()
+            got = [g(th) for _ in range(3)]
+            launches["graph Print"] = counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    printed = buf.getvalue().splitlines()
+    why = [r for r in g.linked.host_reads if "Print" in r]
+    same = [torch.equal(a, b) for call in got for a, b in zip(call, want)]
+    n_fused = sum(isinstance(nd.op, FusedElemwise) for nd in f.fgraph.apply_nodes)
+    text = f.dprint(file="str")
+    ok = (isinstance(f.linked, CapturedFunction) or not cuda) and why and \
+        not isinstance(g.linked, CapturedFunction) and all(same) and \
+        sum(ln.startswith(PRINT_MESSAGE + " [") for ln in printed) == 3 and \
+        n_fused > 0 and text.count("Inner graphs of FusedElemwise") == n_fused
+    if not ok:
+        raise AssertionError(f"printing: Print plan eager for {why}, bits equal {same}, "
+                             f"{len(printed)} lines printed, {n_fused} fused nodes, "
+                             f"{text.count('Inner graphs of FusedElemwise')} printed")
+    logp_text = pprint(logp)
+    row["printing"] = {"dprint_lines": len(text.splitlines()), "fused_nodes": n_fused,
+                       "pprint_chars": len(logp_text), "print_reason": why[0],
+                       "printed_lines": len(printed), "launches": launches["graph Print"]}
+    say(f"dprint of the radon logp and dlogp (919/85, float64, FAST_RUN): "
+        f"{len(text.splitlines())} lines, {n_fused} FusedElemwise nodes, each with its inner "
+        f"graph, which K1 runs ({launches['graph radon']['fused_elemwise']} launches a replayed "
+        f"call); its first line: {text.splitlines()[0]}")
+    say(f"pprint of logp ({len(logp_text)} characters): {logp_text[:160]}...")
+    say(f"Print on dlogp: the plan runs eagerly ({why[0]}); 3 calls printed the message 3 "
+        f"times in {len(printed)} lines ('{printed[0][:60]}...'); K1 "
+        f"{launches['graph Print']['fused_elemwise']} launches in 3 calls; logp and dlogp bit "
+        f"for bit the captured function's; (b) in {time.perf_counter() - t0:.1f} s")
+    # (c) the destroy handler
+    t0 = time.perf_counter()
+    handled = FAST_RUN.register(AddDestroyHandler())
+    f_dh = _rebuild_function({**f._spec, "device": str(dev)}, mode=handled)
+    spec = chain._spec
+    chain_dh = _rebuild_function({**spec, "device": str(dev)},
+                                 mode=get_mode(spec["mode"]).register(AddDestroyHandler()))
+    for h in (f_dh, chain_dh):
+        h.fgraph.destroy_handler.validate(h.fgraph)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        f_dh(th)
+        same = [torch.equal(a, b) for a, b in zip(f_dh(th), want)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want_chain = chain(*chain_args)
+    chain_dh(*chain_args)  # captures
+    reset()
+    got_chain = chain_dh(*chain_args)
+    launches["graph destroy handler chain"] = c = counts()
+    same_chain = [torch.equal(a, b) for a, b in zip(got_chain, want_chain)]
+    report = donation_report(chain_dh.fgraph)
+
+    class DestroyFirst(Op):
+        """Destroys its first input and reads its second."""
+        __props__ = ()
+        destroy_map = {0: [0]}
+
+        def make_node(self, x, y):
+            return Apply(self, [x, y], [x.type()])
+
+    x, y = pt.dvector("x"), pt.dvector("y")
+    x.tag.destroyable = y.tag.destroyable = True
+    cyc = FunctionGraph([x, y], [DestroyFirst()(x, y), DestroyFirst()(y, x)], clone=False)
+    cyc.attach_feature(DestroyHandler())
+    try:
+        cyc.destroy_handler.validate(cyc)
+        refused = None
+    except InconsistencyError as e:
+        refused = str(e)
+    if not (all(same) and all(same_chain) and (c["scan_whole_loop"] == 1 or not cuda)
+            and refused == "destroy orderings introduce a cycle"):
+        raise AssertionError(f"destroy handler: radon bits {same}, chain bits {same_chain}, "
+                             f"launches {c}, the cycle refused: {refused}")
+    row["destroy_handler"] = {"radon_donatable": donation_report(f_dh.fgraph),
+                              "chain_donatable": report, "chain_launches": c}
+    say(f"AddDestroyHandler ({smi_line}): radon and the {CHAIN_STEPS}-step chain validate; "
+        f"donation report: radon {sum(donation_report(f_dh.fgraph).values())} of "
+        f"{len(f_dh.fgraph.inputs)} inputs donatable, chain "
+        f"{sum(report.values())} of {len(report)}; the chain {c} a replayed call with the "
+        f"original's bits, radon the captured function's bits; destroyers in a cycle refused "
+        f"('{refused}'); (c) in {time.perf_counter() - t0:.1f} s")
+    # (d) check_blas
+    row["check_blas"] = {}
+    for dtype in ("float32", "bfloat16"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            gflops = execute(BLAS_N, 10, dtype, device=dev) if cuda else float("nan")
+        row["check_blas"][dtype] = gflops
+        say(f"check_blas.execute({BLAS_N}, {dtype}) ({smi_line}): {gflops:.1f} GFLOP/s "
+            f"({' / '.join(out.getvalue().splitlines())})")
+    return launches, k1_abs, row
+
+
 def _radon_io():
     from pytensor_tpu_torch.models.radon import make_radon_graphs
 
@@ -6722,6 +7130,13 @@ def main(opts):
     build_k1(compile_k1)
     say(f"the compile driver's graphs: {len(compile_k1)} K1 kernels; graph, rewrite and link for "
         f"the CPU in {time.perf_counter() - t0:.2f} s")
+    # phase 23's: the K1 kernels of the probe graphs and the Print function,
+    # from them linked for the CPU, with the probe graphs' node counts
+    t0 = time.perf_counter()
+    graph_k1, graph_nodes = graph_kernels(dev)
+    build_k1(graph_k1)
+    say(f"the graph layer's probe graphs: {len(graph_k1)} K1 kernels of {len(graph_nodes)} "
+        f"graphs; graph, rewrite and link for the CPU in {time.perf_counter() - t0:.2f} s")
 
     build_s = {tag: job.result() for tag, job in jobs.items()}
     for job in k1_jobs:
@@ -7529,6 +7944,13 @@ def main(opts):
     model_launches.update(compile_launches)
     k4_while.update(k4_compile)
     lap(22)
+    # 23. the graph layer: the ShapeFeature, item 6's rewrites, printing, the
+    # destroy handler, check_blas ------------------------------------------------------
+    graph_launches, k1_graph_abs, graph_row = phase_graph(dev, smi, graph_nodes, chain,
+                                                          (th0_d, m0_d))
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_graph_abs)
+    model_launches.update(graph_launches)
+    lap(23)
     loop_entries = []
     for kname, timed_at in (("gamma", "gamma 2e20"), ("poisson", "poisson 2e20"),
                             ("binomial", "binomial gibbs visible")):
@@ -7630,6 +8052,7 @@ def main(opts):
             "timed_at": f"one-node K1 launch, {GRAD_N:,} float64 elements",
             "fp64_instructions_an_iteration": GRAD_FP64[name]})
     kernels[0]["censored"] = censored_row
+    kernels[0]["graph_layer"] = graph_row
     for entry in kernels:
         within_bound(entry["name"], entry)
     say("phase seconds: " + json.dumps({k: round(v, 1) for k, v in lap.seconds.items()}))

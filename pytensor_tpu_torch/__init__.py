@@ -40,6 +40,9 @@ import pytensor_tpu_torch.assumptions  # noqa: F401  (assumption-driven rewrites
 import pytensor_tpu_torch.compile.rewriting  # noqa: F401
 
 from pytensor_tpu_torch.compile.maker import function  # noqa: F401
+from pytensor_tpu_torch.basic_symbolic import as_symbolic  # noqa: F401
+from pytensor_tpu_torch.printing import debugprint, dprint, pp, pprint, pydotprint  # noqa: F401
+import pytensor_tpu_torch.basic_symbolic as basic  # noqa: F401  (PyTensor's pytensor.basic)
 from pytensor_tpu_torch.compile.builders import OpFromGraph  # noqa: F401
 from pytensor_tpu_torch.compile.train import train_loop  # noqa: F401
 from pytensor_tpu_torch.compile.sharedvalue import shared  # noqa: F401

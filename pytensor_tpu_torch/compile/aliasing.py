@@ -6,8 +6,8 @@ insert_deepcopy:165).  ``Supervisor`` refuses a node that destroys a
 protected (not mutable) input; ``infer_reuse_pattern`` follows the view
 chains of outputs.  ``insert_deepcopy`` changes nothing: the executor
 copies an output that shares storage with a shared tensor
-(``compile/executor.py``).  ``alias_root`` and ``view_tree_set`` wait for
-``graph/destroyhandler.py`` (ROADMAP.md Queue 1 item 6).
+(``compile/executor.py``).  ``alias_root`` and ``view_tree_set`` are
+``graph/destroyhandler.py``'s view analysis.
 """
 
 from __future__ import annotations
@@ -64,3 +64,17 @@ def insert_deepcopy(fgraph, wrapped_inputs, wrapped_outputs):
     """Nothing to insert: ``Function`` copies the outputs that share
     storage with a shared tensor when it returns them."""
     return fgraph
+
+
+def alias_root(var):
+    """Storage root of a view chain (``graph.destroyhandler.view_root``)."""
+    from pytensor_tpu_torch.graph.destroyhandler import view_root
+
+    return view_root(var)
+
+
+def view_tree_set(fgraph, var):
+    """Every live alias of ``var``'s storage root."""
+    from pytensor_tpu_torch.graph.destroyhandler import _aliases_of, view_root
+
+    return _aliases_of(fgraph, view_root(var))

@@ -18,7 +18,7 @@ variable later (``Out(borrow=True)`` changes nothing there).  An update
 value that shares memory with a shared tensor this call updates is
 copied before any update is written, so a swap of two shared variables
 reads both old values.  Other values are returned as they are.
-``dprint`` waits for ``printing.py`` (ROADMAP.md Queue 1 item 6).
+``dprint`` prints the rewritten graph (``printing.py``).
 """
 
 from __future__ import annotations
@@ -170,6 +170,11 @@ class Function:
         graphs = getattr(self.linked, "graphs", None)
         if graphs is not None:
             graphs.clear()
+
+    def dprint(self, **kwargs):
+        from pytensor_tpu_torch.printing import debugprint
+
+        return debugprint(self.fgraph, **kwargs)
 
     def get_shared(self):
         return list(self.shared_vars)

@@ -19,11 +19,12 @@ no numpy ``perform``, so its ``"py"`` is the linker's plan run eagerly,
 node by node, on the device the caller names, never captured
 (``link/torch/linker.py PyLinker``).  The other backends' mode names map
 as in the JAX package: ``C`` and ``CVM`` to ``"py"`` with ``"fast_run"``,
-``NUMBA``, ``JAX``, ``PYTORCH`` and ``MLX`` to ``FAST_RUN``.  Left out:
-``AddDestroyHandler`` and ``PrintCurrentFunctionGraph``, which need
-``graph/destroyhandler.py`` and ``printing.py`` (ROADMAP.md Queue 1 item
-6), the ``check_stack_trace`` audit pass, and the ``DebugMode`` and
-``NanGuardMode`` names (item 11).
+``NUMBA``, ``JAX``, ``PYTORCH`` and ``MLX`` to ``FAST_RUN``.
+``AddDestroyHandler``, ``AddFeatureOptimizer`` and
+``PrintCurrentFunctionGraph`` are passes a mode runs after its own
+(``Mode.register``).  Left out: the ``check_stack_trace`` audit pass, and
+the ``DebugMode`` and ``NanGuardMode`` names (ROADMAP.md Queue 1 item
+11).
 """
 
 from __future__ import annotations
@@ -227,6 +228,24 @@ def register_mode(name, mode):
     predefined_modes[name] = mode
 
 
+class AddDestroyHandler(GraphRewriter):
+    """A pass that attaches the DestroyHandler (PyTensor's
+    compile/mode.py:118): its orderings then order the graph's toposort,
+    and its ``validate`` refuses unsafe destruction."""
+
+    def apply(self, fgraph):
+        pass
+
+    def add_requirements(self, fgraph):
+        from pytensor_tpu_torch.graph.destroyhandler import DestroyHandler
+        from pytensor_tpu_torch.graph.features import AlreadyThere
+
+        try:
+            fgraph.attach_feature(DestroyHandler())
+        except AlreadyThere:
+            pass
+
+
 class AddFeatureOptimizer(GraphRewriter):
     """A pass that attaches ``feature`` to the graph (PyTensor's
     compile/mode.py:155)."""
@@ -244,6 +263,21 @@ class AddFeatureOptimizer(GraphRewriter):
             fgraph.attach_feature(self.feature)
         except AlreadyThere:
             pass
+
+
+class PrintCurrentFunctionGraph(GraphRewriter):
+    """A pass that prints the graph when it is reached (PyTensor's
+    compile/mode.py:171)."""
+
+    def __init__(self, header=""):
+        self.header = header
+
+    def apply(self, fgraph):
+        from pytensor_tpu_torch.printing import debugprint
+
+        if self.header:
+            print(self.header)
+        debugprint(fgraph)
 
 
 # the other backends' mode names, as the JAX package maps them

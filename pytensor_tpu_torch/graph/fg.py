@@ -229,6 +229,15 @@ class FunctionGraph:
                 return
         self._features.append(feature)
 
+    def remove_feature(self, feature: Feature):
+        try:
+            self._features.remove(feature)
+        except ValueError:
+            return
+        detach = getattr(feature, "on_detach", None)
+        if detach is not None:
+            detach(self)
+
     def execute_callbacks(self, name: str, *args, **kwargs):
         for feature in self._features:
             fn = getattr(feature, name, None)
@@ -312,3 +321,41 @@ class FunctionGraph:
 
     def __repr__(self):
         return str(self)
+
+    def dprint(self, **kwargs):
+        from pytensor_tpu_torch.printing import debugprint
+
+        return debugprint(self, **kwargs)
+
+
+def equal_computations(xs, ys, in_xs=None, in_ys=None):
+    """Structural graph equality (PyTensor's graph/basic.py
+    equal_computations): True iff xs and ys compute the same outputs given
+    in_xs == in_ys."""
+    in_xs = list(in_xs or [])
+    in_ys = list(in_ys or [])
+    if len(xs) != len(ys) or len(in_xs) != len(in_ys):
+        return False
+    equiv: dict = dict(zip(in_xs, in_ys))
+
+    def eq(a, b):
+        if a in equiv:
+            return equiv[a] is b
+        if isinstance(a, Constant) and isinstance(b, Constant):
+            return a.type == b.type and a.type.values_eq(a.data, b.data)
+        if (a.owner is None) != (b.owner is None):
+            return False
+        if a.owner is None:
+            # free variables must be the same variable
+            return a is b
+        na, nb = a.owner, b.owner
+        if na.op != nb.op or len(na.inputs) != len(nb.inputs):
+            return False
+        if na.outputs.index(a) != nb.outputs.index(b):
+            return False
+        if not all(eq(ia, ib) for ia, ib in zip(na.inputs, nb.inputs)):
+            return False
+        equiv[a] = b
+        return True
+
+    return all(eq(x, y) for x, y in zip(xs, ys))

@@ -40,3 +40,7 @@ class DisconnectedType(Type):
 
     def __str__(self):
         return "DisconnectedType"
+
+
+null_type = NullType()
+disconnected_type = DisconnectedType()

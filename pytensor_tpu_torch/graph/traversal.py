@@ -61,6 +61,15 @@ def vars_between(ins: Iterable[Variable], outs: Iterable[Variable]) -> Iterator[
     yield from walk(outs, expand)
 
 
+def applys_between(ins: Iterable[Variable], outs: Iterable[Variable]) -> Iterator[Apply]:
+    """All Apply nodes on paths from ins to outs."""
+    seen = set()
+    for v in vars_between(ins, outs):
+        if v.owner is not None and id(v.owner) not in seen:
+            seen.add(id(v.owner))
+            yield v.owner
+
+
 def general_toposort(
     outputs: Iterable,
     deps: Callable,

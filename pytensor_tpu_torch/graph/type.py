@@ -79,3 +79,11 @@ class Type(MetaObject):
 
     def values_eq(self, a, b) -> bool:
         return a == b
+
+
+class HasDataType:
+    """Mixin marker: type has a ``dtype`` attribute."""
+
+
+class HasShape:
+    """Mixin marker: type has ``ndim`` and ``shape`` attributes."""

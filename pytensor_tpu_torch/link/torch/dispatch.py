@@ -34,6 +34,7 @@ from pytensor_tpu_torch.compile.ops import DeepCopyOp, TypeCastingOp
 from pytensor_tpu_torch.gradient import GradManipulatorOp
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.graph.fg import FunctionGraph
+from pytensor_tpu_torch.printing import Print
 from pytensor_tpu_torch.scalar.basic import upcast
 from pytensor_tpu_torch.link.torch.convert import CSR, UNSIGNED, torch_dtype
 from pytensor_tpu_torch.scan.dynlen import PadTraceGrad, TruncateToDone
@@ -574,6 +575,18 @@ def _deep_copy(op, node=None, **kw):
     # torch tensors are mutable, so the copy is real (the JAX package's
     # arrays are not, and its DeepCopyOp is the identity)
     return torch.clone
+
+
+@torch_funcify.register(Print)
+@ports(reads_back="Print reads its value back to the host and prints it")
+def _print(op, node=None, **kw):
+    from pytensor_tpu_torch.link.torch.convert import to_numpy
+
+    def print_(x):
+        op.show(to_numpy(x))
+        return x
+
+    return print_
 
 
 @torch_funcify.register(MakeSlice)

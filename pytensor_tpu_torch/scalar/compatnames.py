@@ -22,9 +22,11 @@ module gives PyTensor's user-facing scalar API on that design:
 - ``LogicalComparison``, ``FixedLogicalComparison``, ``UnaryBitOp``,
   ``BinaryBitOp``, ``Composite`` and the variable constructors.
 
-The JAX package's graph-level re-exports that the port has no module for
-(``pprint``, ``disconnected_type``, ``HasDataType``, ``HasShape``,
-``applys_between``, ``difference``, ``to_return_values``) are not here.
+- the JAX package's graph-level re-exports (``pprint``,
+  ``disconnected_type``, ``HasDataType``, ``HasShape``,
+  ``applys_between``, ``difference``, ``to_return_values``).  The JAX
+  package's lazy ``disconnected_type`` looks in its ``gradient`` module,
+  which has none, and raises; the port's is ``graph/null_type.py``'s.
 """
 
 from __future__ import annotations
@@ -542,7 +544,10 @@ complexs128 = _multi_ctor("complex128")
 from pytensor_tpu_torch.graph.basic import Apply, Constant, Variable  # noqa: E402,F401
 from pytensor_tpu_torch.graph.op import HasInnerGraph, Op  # noqa: E402,F401
 from pytensor_tpu_torch.graph.replace import clone_replace  # noqa: E402,F401
+from pytensor_tpu_torch.graph.traversal import applys_between  # noqa: E402,F401
+from pytensor_tpu_torch.graph.type import HasDataType, HasShape  # noqa: E402,F401
 from pytensor_tpu_torch.graph.type import Type as CType  # noqa: E402,F401
+from pytensor_tpu_torch.utils import difference, to_return_values  # noqa: E402,F401
 
 
 class MethodNotDefined(Exception):
@@ -555,7 +560,8 @@ class COp(Op):
 
 # names that would import tensor or gradient when this module is imported
 _LAZY = {"Cast", "ScalarVariable", "ScalarConstant", "ScalarConstantSignature",
-         "ScalarInnerGraphOp", "grad_undefined", "grad_not_implemented"} | {
+         "ScalarInnerGraphOp", "pprint", "grad_undefined", "grad_not_implemented",
+         "disconnected_type"} | {
     f"convert_to_{d}" for d in ("bool", "int8", "int16", "int32", "int64", "uint8", "uint16",
                                 "uint32", "uint64", "float16", "float32", "float64",
                                 "complex64", "complex128")}
@@ -586,6 +592,14 @@ def __getattr__(name):
         from pytensor_tpu_torch.scalar.loop import ScalarLoop
 
         return ScalarLoop
+    if name == "pprint":
+        from pytensor_tpu_torch.printing import pprint
+
+        return pprint
+    if name == "disconnected_type":
+        from pytensor_tpu_torch.graph.null_type import disconnected_type
+
+        return disconnected_type
     from pytensor_tpu_torch import gradient
 
     return getattr(gradient, name)

@@ -27,9 +27,18 @@ The twenty-three rewrites that the probe of ROADMAP Queue 3 item 1
 ``local_exp_of_log_nan_switch``, ``local_logexp_of_log_nan_switch``,
 ``local_pow_to_nested_squaring``, ``local_log_neg_expm1``,
 ``local_func_inverse``, ``local_mul_pow_to_pow_add`` and
-``local_sumsqr2dot``.  Each keeps its name, tags, database and
-registration order.  Left out: the eighteen that change only op counts
-(ROADMAP.md Queue 1 item 6 lists them).
+``local_sumsqr2dot``.  And the eighteen that change only op counts,
+which decide which K1 groups form and how large they are:
+``local_neg_neg``, ``local_sqr_of_sqrt_even_pow``,
+``local_extremum_self``, ``local_extremum_inf``, ``local_logical_self``,
+``local_useless_clip``, ``local_extremum_of_neg``,
+``local_even_fn_of_neg``, ``local_useless_floor_ceil_int``,
+``local_sign_of_sign``, ``local_reduce_empty_axis``,
+``local_sum_of_makevector``, ``local_sub_neg_to_add``,
+``local_mul_minus_one``, ``local_merge_switch_same_cond``,
+``local_xor_self``, ``local_reduce_join`` and ``local_dot_to_mul``.  So the
+port has every ``local_*`` rewrite of the JAX package's file; each keeps
+its name, tags, database and registration order.
 """
 
 from __future__ import annotations
@@ -211,6 +220,24 @@ register_canonicalize(local_flatten_assoc, name="local_flatten_assoc")
 
 
 @node_rewriter([Elemwise])
+def local_neg_neg(fgraph, node):
+    if not _is_ew(node, "neg"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is not None and _is_ew(inner, "neg"):
+        res = _same_type_out(node, inner.inputs[0])
+        return [res] if res is not None else False
+    return False
+
+
+register_canonicalize(local_neg_neg, name="local_neg_neg")
+# also in specialize: later-phase rewrites (odds-sigmoid, reciprocal-of-
+# 1+exp) emit fresh neg(neg(x)) / log(exp(x)) that canonicalize has
+# already finished cleaning
+register_specialize(local_neg_neg, name="local_neg_neg")
+
+
+@node_rewriter([Elemwise])
 def local_log_exp(fgraph, node):
     """log(exp(x)) -> x (float domain)."""
     if not _is_ew(node, "log"):
@@ -268,6 +295,7 @@ def local_log1p(fgraph, node):
     if inner is None:
         return False
     if _is_ew(inner, "sub"):
+        # log(1 - y) -> log1p(-y)
         a, b = inner.inputs
         if _unique_value(a) == 1:
             res = _same_type_out(node, tm.log1p(-b))
@@ -500,6 +528,8 @@ def local_log_sum_exp(fgraph, node):
     res = tm.logsumexp(e.inputs[0], axis=s.op.axis)
     out = node.outputs[0]
     if res.type.dtype != out.type.dtype:
+        from pytensor_tpu_torch.tensor.basic import cast
+
         res = cast(res, out.type.dtype)
     if not out.type.is_super(res.type):
         return False
@@ -508,6 +538,7 @@ def local_log_sum_exp(fgraph, node):
 
 
 register_stabilize(local_log_sum_exp, name="local_log_sum_exp")
+
 
 
 def _as_guarded_switch(v, fgraph):
@@ -889,6 +920,10 @@ def local_add_sub_canonizer(fgraph, node):
 register_canonicalize(local_add_sub_canonizer, name="local_add_sub_canonizer")
 
 
+# ---------------------------------------------------------------------------
+# exp / log family (reference rewriting/math.py stabilize rules)
+# ---------------------------------------------------------------------------
+
 @node_rewriter([Elemwise])
 def local_expm1(fgraph, node):
     """exp(x) - 1 -> expm1(x) (and add(exp(x), -1))."""
@@ -1009,6 +1044,10 @@ def local_exp_log_nan_switch(fgraph, node):
 register_specialize(local_exp_log_nan_switch, name="local_pow_of_exp")
 
 
+# ---------------------------------------------------------------------------
+# abs / sqr / pow simplifications
+# ---------------------------------------------------------------------------
+
 @node_rewriter([Elemwise])
 def local_abs_simplify(fgraph, node):
     """abs(abs(x)) -> abs(x); abs(-x) -> abs(x); abs(sqr(x)) -> sqr(x);
@@ -1081,6 +1120,26 @@ register_canonicalize(local_pow_pow, name="local_pow_pow")
 
 
 @node_rewriter([Elemwise])
+def local_sqr_of_sqrt_even_pow(fgraph, node):
+    """sqr(abs(x)) -> sqr(x) (even powers ignore sign)."""
+    if not _is_ew(node, "sqr"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is not None and _is_ew(inner, "abs"):
+        res = _same_type_out(node, tm.sqr(inner.inputs[0]))
+        return [res] if res is not None else False
+    return False
+
+
+register_canonicalize(local_sqr_of_sqrt_even_pow, name="local_sqr_of_abs")
+
+
+# ---------------------------------------------------------------------------
+# comparison / extremum / logical simplifications
+# (reference rewriting/math.py local_useless_elemwise family)
+# ---------------------------------------------------------------------------
+
+@node_rewriter([Elemwise])
 def local_comparison_self(fgraph, node):
     """lt(x, x), gt(x, x) -> False; le(x, x), ge(x, x) -> True."""
     name = node.op.scalar_op.name
@@ -1098,6 +1157,95 @@ def local_comparison_self(fgraph, node):
 
 register_canonicalize(local_comparison_self, name="local_comparison_self")
 
+
+@node_rewriter([Elemwise])
+def local_extremum_self(fgraph, node):
+    """maximum(x,x) -> x; minimum(x,x) -> x."""
+    name = node.op.scalar_op.name
+    if name not in ("maximum", "minimum") or len(node.inputs) != 2:
+        return False
+    x, y = node.inputs
+    if x is not y:
+        return False
+    res = _same_type_out(node, x)
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_extremum_self, name="local_extremum_self")
+
+
+@node_rewriter([Elemwise])
+def local_extremum_inf(fgraph, node):
+    """maximum(x, -inf) -> x; minimum(x, +inf) -> x; also the saturated
+    duals maximum(x, +inf) -> +inf etc. for float dtypes."""
+    name = node.op.scalar_op.name
+    if name not in ("maximum", "minimum") or len(node.inputs) != 2:
+        return False
+    out = node.outputs[0]
+    if not out.type.dtype.startswith("float"):
+        return False
+    for pos in (0, 1):
+        u = _unique_value(node.inputs[pos])
+        if u is None or np.isfinite(u):
+            continue
+        other = node.inputs[1 - pos]
+        if (name == "maximum") == (float(u) < 0):
+            res = _same_type_out(node, other)  # neutral element
+        else:
+            res = _same_type_out(node, as_tensor_variable(float(u)))
+        if res is not None:
+            return [res]
+    return False
+
+
+register_canonicalize(local_extremum_inf, name="local_extremum_inf")
+
+
+@node_rewriter([Elemwise])
+def local_logical_self(fgraph, node):
+    """and_(x,x)->x, or_(x,x)->x, xor(x,x)->0."""
+    name = node.op.scalar_op.name
+    if name not in ("and_", "or_", "xor") or len(node.inputs) != 2:
+        return False
+    x, y = node.inputs
+    if x is not y:
+        return False
+    from pytensor_tpu_torch.tensor.basic import zeros_like
+
+    res = zeros_like(x) if name == "xor" else x
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_logical_self, name="local_logical_self")
+
+
+@node_rewriter([Elemwise])
+def local_useless_clip(fgraph, node):
+    """clip(x, -inf, +inf) -> x; one-sided infinities -> maximum/minimum."""
+    if node.op.scalar_op.name != "clip":
+        return False
+    x, lo, hi = node.inputs
+    lo_u, hi_u = _unique_value(lo), _unique_value(hi)
+    lo_free = lo_u is not None and np.isneginf(float(lo_u))
+    hi_free = hi_u is not None and np.isposinf(float(hi_u))
+    if lo_free and hi_free:
+        res = _same_type_out(node, x)
+    elif lo_free:
+        res = _same_type_out(node, tm.minimum(x, hi))
+    elif hi_free:
+        res = _same_type_out(node, tm.maximum(x, lo))
+    else:
+        return False
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_useless_clip, name="local_useless_clip")
+
+
+# ---------------------------------------------------------------------------
+# reduction rewrites (reference local_reduce_chain / local_sum_prod_*)
+# ---------------------------------------------------------------------------
 
 _CHAINABLE_REDUCE = ("mul", "maximum", "minimum", "and_", "or_")
 
@@ -1135,6 +1283,29 @@ def local_reduce_chain(fgraph, node):
 
 
 register_canonicalize(local_reduce_chain, name="local_reduce_chain")
+
+
+@node_rewriter([CAReduce])
+def local_extremum_of_neg(fgraph, node):
+    """max(-x) -> -min(x); min(-x) -> -max(x)."""
+    name = node.op.scalar_op.name
+    if name not in ("maximum", "minimum"):
+        return False
+    inner_var = node.inputs[0]
+    inner = inner_var.owner
+    if inner is None or not _is_ew(inner, "neg") \
+            or len(fgraph.clients.get(inner_var, ())) != 1:
+        return False
+    from pytensor_tpu_torch.scalar import basic as ps
+
+    dual = ps.minimum if name == "maximum" else ps.maximum
+    s = CAReduce(dual, node.op.axis, node.op.dtype, node.op.acc_dtype,
+                 node.op.upcast_discrete_output)(inner.inputs[0])
+    res = _same_type_out(node, -s)
+    return [res] if res is not None else False
+
+
+register_specialize(local_extremum_of_neg, name="local_extremum_of_neg")
 
 
 @node_rewriter([CAReduce])
@@ -1220,8 +1391,29 @@ def local_mod_self(fgraph, node):
 register_canonicalize(local_mod_self, name="local_mod_self")
 
 
+# ---------------------------------------------------------------------------
+# parity (even/odd) function rules + inverse-composition identities
+# ---------------------------------------------------------------------------
+
+_EVEN_FNS = ("cos", "cosh", "sqr", "abs")
 _ODD_FNS = ("sin", "tan", "sinh", "tanh", "arcsin", "arctan", "arcsinh",
             "arctanh", "erf", "sign", "cbrt")
+
+
+@node_rewriter([Elemwise])
+def local_even_fn_of_neg(fgraph, node):
+    """f(-x) -> f(x) for even f (cos, cosh, sqr, abs)."""
+    name = node.op.scalar_op.name
+    if name not in _EVEN_FNS:
+        return False
+    inner = node.inputs[0].owner
+    if inner is None or not _is_ew(inner, "neg"):
+        return False
+    res = _same_type_out(node, Elemwise(node.op.scalar_op)(inner.inputs[0]))
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_even_fn_of_neg, name="local_even_fn_of_neg")
 
 
 @node_rewriter([Elemwise])
@@ -1257,6 +1449,80 @@ def local_inverse_composition(fgraph, node):
 
 
 register_canonicalize(local_inverse_composition, name="local_inverse_composition")
+
+
+@node_rewriter([Elemwise])
+def local_useless_floor_ceil_int(fgraph, node):
+    """floor/ceil/trunc/round of an integer-dtype tensor -> identity."""
+    name = node.op.scalar_op.name
+    if name not in ("floor", "ceil", "trunc", "round_half_to_even"):
+        return False
+    x = node.inputs[0]
+    if not x.type.dtype.startswith(("int", "uint", "bool")):
+        return False
+    res = _same_type_out(node, x)
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_useless_floor_ceil_int,
+                      name="local_useless_floor_ceil_int")
+
+
+@node_rewriter([Elemwise])
+def local_sign_of_sign(fgraph, node):
+    """sign(sign(x)) -> sign(x)."""
+    if not _is_ew(node, "sign"):
+        return False
+    inner = node.inputs[0].owner
+    if inner is not None and _is_ew(inner, "sign"):
+        res = _same_type_out(node, node.inputs[0])
+        return [res] if res is not None else False
+    return False
+
+
+register_canonicalize(local_sign_of_sign, name="local_sign_of_sign")
+
+
+@node_rewriter([CAReduce])
+def local_reduce_empty_axis(fgraph, node):
+    """reduce(x, axis=()) -> x (dtype-adjusted): reduces nothing."""
+    if node.op.axis != ():
+        return False
+    x = node.inputs[0]
+    res = _same_type_out(node, x)
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_reduce_empty_axis, name="local_reduce_empty_axis")
+
+
+@node_rewriter([CAReduce])
+def local_sum_of_makevector(fgraph, node):
+    """sum(make_vector(a, b, c)) -> a + b + c: no buffer, pure scalar
+    adds."""
+    from pytensor_tpu_torch.tensor.basic import MakeVector
+
+    if node.op.scalar_op.name != "add" or node.op.axis not in (None, (0,)):
+        return False
+    v = node.inputs[0]
+    if v.owner is None or not isinstance(v.owner.op, MakeVector):
+        return False
+    if len(fgraph.clients.get(v, ())) != 1:
+        return False
+    elems = v.owner.inputs
+    if not elems:
+        return False
+    res = elems[0] if len(elems) == 1 else tm.add(*elems)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype:
+        res = cast(res, out.type.dtype)
+    if not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_sum_of_makevector, name="local_sum_of_makevector")
 
 
 # ---------------------------------------------------------------------------
@@ -1838,6 +2104,25 @@ register_stabilize(local_sign_reciprocal_or_div_const,
                    name="local_sign_reciprocal_or_div_const")
 
 
+# ---------------------------------------------------------------------------
+# add/sub-of-neg specializations and sqr/sqrt inverses
+# ---------------------------------------------------------------------------
+
+@node_rewriter([Elemwise])
+def local_sub_neg_to_add(fgraph, node):
+    """x - (-y) -> x + y."""
+    if not _is_ew(node, "sub") or len(node.inputs) != 2:
+        return False
+    x, y = node.inputs
+    if y.owner is not None and _is_ew(y.owner, "neg"):
+        res = _same_type_out(node, x + y.owner.inputs[0])
+        return [res] if res is not None else False
+    return False
+
+
+register_canonicalize(local_sub_neg_to_add, name="local_sub_neg_to_add")
+
+
 @node_rewriter([Elemwise])
 def local_add_neg_to_sub(fgraph, node):
     """x + (-y) -> x - y; (-x) + y -> y - x."""
@@ -1876,6 +2161,11 @@ def local_sqr_of_sqrt(fgraph, node):
 
 register_specialize(local_sqr_of_sqrt, name="local_sqr_of_sqrt")
 
+
+# ---------------------------------------------------------------------------
+# exp/expm1 of the log family -> closed form guarded by a domain nan-switch
+# (reference rewriting/math.py local_exp_log_nan_switch)
+# ---------------------------------------------------------------------------
 
 @node_rewriter([Elemwise])
 def local_exp_of_log_nan_switch(fgraph, node):
@@ -1985,6 +2275,36 @@ register_specialize(local_pow_to_nested_squaring,
 
 
 @node_rewriter([Elemwise])
+def local_mul_minus_one(fgraph, node):
+    """mul(..., -1, ...) -> +-neg(mul(rest)) (reference
+    local_mul_specialize's -1 case)."""
+    if not _is_ew(node, "mul"):
+        return False
+    negs, rest, changed = 0, [], False
+    for i in node.inputs:
+        u = _unique_value(i)
+        if u is not None and u == -1:
+            negs += 1
+            changed = True
+        else:
+            rest.append(i)
+    if not changed or not rest:
+        return False
+    res = rest[0] if len(rest) == 1 else tm.mul(*rest)
+    if negs % 2:
+        res = tm.neg(res)
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_specialize(local_mul_minus_one, name="local_mul_minus_one")
+
+
+# ---------------------------------------------------------------------------
+# polygamma specialization + x/abs(x) -> sign(x)
+# ---------------------------------------------------------------------------
+
+@node_rewriter([Elemwise])
 def local_polygamma_specialize(fgraph, node):
     """polygamma(0, x) -> psi(x); polygamma(1, x) -> tri_gamma(x)
     (cheaper dedicated kernels)."""
@@ -2062,6 +2382,51 @@ def local_div_abs_to_sign(fgraph, node):
 
 register_canonicalize(local_div_abs_to_sign, name="local_div_abs_to_sign")
 register_specialize(local_div_abs_to_sign, name="local_div_abs_to_sign")
+
+
+# ---------------------------------------------------------------------------
+# switch merging, zero/one division, pow grouping, functional inverses,
+# shape-vs-zero comparisons, reduce-of-join (reference
+# local_merge_switch_same_cond, local_zero_div, local_div_by_one,
+# local_mul_pow_to_pow_add, local_func_inv, local_useless_elemwise_
+# comparison shape cases, local_reduce_join)
+# ---------------------------------------------------------------------------
+
+@node_rewriter([Elemwise])
+def local_merge_switch_same_cond(fgraph, node):
+    """op(switch(c, a, b), switch(c, x, y), ...) ->
+    switch(c, op(a, x, ...), op(b, y, ...)): one select instead of N."""
+    name = node.op.scalar_op.name
+    if name == "switch":
+        return False
+    cond = None
+    n_switch = 0
+    for i in node.inputs:
+        if i.owner is not None and _is_ew(i.owner, "switch"):
+            if cond is None:
+                cond = i.owner.inputs[0]
+                n_switch = 1
+            elif i.owner.inputs[0] is cond:
+                n_switch += 1
+    if cond is None or n_switch < 2:
+        return False
+    trues, falses = [], []
+    for i in node.inputs:
+        if i.owner is not None and _is_ew(i.owner, "switch") \
+                and i.owner.inputs[0] is cond:
+            trues.append(i.owner.inputs[1])
+            falses.append(i.owner.inputs[2])
+        else:
+            trues.append(i)
+            falses.append(i)
+    op = node.op
+    res = tm.switch(cond, op(*trues), op(*falses))
+    res = _same_type_out(node, res)
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_merge_switch_same_cond,
+                      name="local_merge_switch_same_cond")
 
 
 @node_rewriter([Elemwise])
@@ -2143,6 +2508,9 @@ def local_log_neg_expm1(fgraph, node):
 register_stabilize(local_log_neg_expm1, name="local_log_neg_expm1")
 
 
+# functional-inverse pairs: outer(inner(x)) == x on the inner's range.
+# Only pairs that are true inverses for all real inputs the INNER op
+# accepts (matching the reference's local_func_inv table).
 _INVERSE_PAIRS = {
     ("deg2rad", "rad2deg"), ("rad2deg", "deg2rad"),
     ("cosh", "arccosh"), ("arcsinh", "sinh"), ("sinh", "arcsinh"),
@@ -2176,6 +2544,23 @@ def local_func_inverse(fgraph, node):
 
 
 register_specialize(local_func_inverse, name="local_func_inverse")
+
+
+@node_rewriter([Elemwise])
+def local_xor_self(fgraph, node):
+    """xor(x, x) -> 0."""
+    if node.op.scalar_op.name != "xor" or len(node.inputs) != 2:
+        return False
+    x, y = node.inputs
+    if x is not y:
+        return False
+    from pytensor_tpu_torch.tensor.basic import zeros_like
+
+    res = _same_type_out(node, zeros_like(x))
+    return [res] if res is not None else False
+
+
+register_canonicalize(local_xor_self, name="local_xor_self")
 
 
 def _is_nonneg(v, depth=0):
@@ -2286,6 +2671,116 @@ def local_mul_pow_to_pow_add(fgraph, node):
 
 
 register_specialize(local_mul_pow_to_pow_add, name="local_mul_pow_to_pow_add")
+
+
+@node_rewriter([CAReduce])
+def local_reduce_join(fgraph, node):
+    """reduce(join(0, a[None], b[None], ...), axis=0) -> elemwise
+    op(a, b, ...) for sum/prod/max/min: no concat buffer (reference
+    local_reduce_join)."""
+    if node.op.axis not in ((0,),):
+        return False
+    name = node.op.scalar_op.name
+    if name not in ("add", "mul", "maximum", "minimum"):
+        return False
+    j = node.inputs[0]
+    from pytensor_tpu_torch.tensor.basic import Join
+
+    if j.owner is None or not isinstance(j.owner.op, Join):
+        return False
+    ax = j.owner.inputs[0]
+    ax_c = _unique_value(ax)
+    if ax_c is None or int(ax_c) != 0:
+        return False
+    parts = []
+    for p in j.owner.inputs[1:]:
+        # each part must be a length-1 slab along axis 0:
+        # expand_dims (DimShuffle x->(1,...)) or static shape[0] == 1
+        if p.owner is not None and isinstance(p.owner.op, DimShuffle) \
+                and p.owner.op.new_order[0] == "x":
+            inner = p.owner.inputs[0]
+            if p.owner.op.new_order[1:] == tuple(range(inner.type.ndim)):
+                parts.append(inner)
+                continue
+        if p.type.shape[0] == 1:
+            parts.append(p[0])
+            continue
+        return False
+    if len(parts) < 2:
+        return False
+    fn = {"add": tm.add, "mul": tm.mul,
+          "maximum": tm.maximum, "minimum": tm.minimum}[name]
+    res = fn(*parts)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype:
+        res = cast(res, out.type.dtype)
+    if not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_reduce_join, name="local_reduce_join")
+
+
+# ---------------------------------------------------------------------------
+# dot-to-mul and sumsqr-to-dot (reference rewriting/math.py local_dot_to_mul
+# :456, local_sumsqr2dot:763; pinned by tests/tensor/rewriting/test_math.py)
+# ---------------------------------------------------------------------------
+
+def _dot_to_mul_tracks():
+    from pytensor_tpu_torch.tensor.blockwise import Blockwise
+    from pytensor_tpu_torch.tensor.math import Dot
+
+    return [Blockwise, Dot]
+
+
+@node_rewriter(_dot_to_mul_tracks())
+def local_dot_to_mul(fgraph, node):
+    """dot(a (..,m,1), b (..,1,n)) with a length-1 contracted dim ->
+    broadcast mul: no summation happens, and the elemwise form fuses.
+    Core (unbatched) outer products are kept as Dot (one product call;
+    mul would materialize the full (m, n) intermediate for any consumer
+    chain), as in the JAX package."""
+    from pytensor_tpu_torch.tensor.blockwise import Blockwise
+    from pytensor_tpu_torch.tensor.math import Dot
+
+    op = node.op
+    if isinstance(op, Blockwise):
+        if not isinstance(op.core_op, Dot) \
+                or op.signature != "(m,k),(k,n)->(m,n)":
+            return False
+        batched = True
+    elif isinstance(op, Dot):
+        batched = False
+    else:
+        return False
+    a, b = node.inputs
+    if a.type.ndim < 2 or b.type.ndim < 2:
+        return False
+    a_shape = a.type.shape
+    b_shape = b.type.shape
+    if not (a_shape[-1] == 1 or b_shape[-2] == 1):
+        return False
+    if not batched and not (a_shape[-2] == 1 or b_shape[-1] == 1):
+        # unbatched outer product: keep as Dot (see docstring)
+        return False
+    from pytensor_tpu_torch.tensor.shape import specify_shape
+
+    if a_shape[-1] != 1:
+        a = specify_shape(a, (None,) * (a.type.ndim - 1) + (1,))
+    if b_shape[-2] != 1:
+        b = specify_shape(b, (None,) * (b.type.ndim - 2) + (1, None))
+    out = node.outputs[0]
+    res = tm.mul(a, b)
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_canonicalize(local_dot_to_mul, name="local_dot_to_mul")
+register_specialize(local_dot_to_mul, name="local_dot_to_mul")
 
 
 @node_rewriter([CAReduce])

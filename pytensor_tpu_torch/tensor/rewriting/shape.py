@@ -1,11 +1,15 @@
 """Shape rewrites: fold static shapes to constants, lift shape queries
-through the ops that compute a value.
+through the ops that compute a value, and the ShapeFeature: per-variable
+symbolic shape tuples.
 
 Counterpart of ``pytensor_tpu/tensor/rewriting/shape.py`` (PyTensor's
-tensor/rewriting/shape.py), its local rewrites in the JAX package's
-order.  Its ShapeFeature (and the ShapeFeature branch of
-``local_useless_reshape``, which proves a reshape useless on graphs with
-unknown dims) is not ported yet (ROADMAP Queue 1 item 6).
+tensor/rewriting/shape.py ShapeFeature:70, ShapeOptimizer:420), whole:
+the local rewrites in the JAX package's order, and the ShapeFeature,
+attached by ``ShapeOpt`` in ``FAST_RUN`` and ``FAST_COMPILE`` and detached
+by ``UnShapeOpt`` after specialize, whose ``same_shape`` queries give
+graphs with ``None`` dims the shape-driven rewrites of static ones
+(``local_useless_reshape`` here, ``_is_shape_of_dim`` in
+``subtensor.py``).
 """
 
 from __future__ import annotations
@@ -13,15 +17,167 @@ from __future__ import annotations
 import numpy as np
 
 from pytensor_tpu_torch.compile.mode import (
+    optdb,
     register_canonicalize,
     register_specialize,
     register_useless,
 )
-from pytensor_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
+from pytensor_tpu_torch.graph.features import Feature
+from pytensor_tpu_torch.graph.fg import equal_computations
+from pytensor_tpu_torch.graph.rewriting.basic import GraphRewriter, copy_stack_trace, node_rewriter
 from pytensor_tpu_torch.tensor.basic import MakeVector, constant
 from pytensor_tpu_torch.tensor.elemwise import CAReduce as _CAReduce
 from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, _try_shape_entries, shape_i
 from pytensor_tpu_torch.tensor.subtensor import Subtensor
+
+
+class ShapeFeature(Feature):
+    """Lazily computed symbolic shape tuples per variable.
+
+    ``shape_tuple(var)`` returns one entry per dim: a python int for a
+    statically known dim, else a (loose, not-in-fgraph) int64 scalar
+    graph derived through each op's ``infer_shape`` down to ``Shape_i``
+    of fgraph inputs.  ``same_shape(a, b)`` decides structural equality
+    of the symbolic entries — the query rewrites use to treat
+    ``None``-dim graphs like static ones.
+
+    PyTensor's tensor/rewriting/shape.py ShapeFeature:70; this version,
+    as the JAX package's, is pull-based with whole-cache invalidation (the
+    graph mutates far less often than shapes are queried during
+    specialize).
+    """
+
+    def on_attach(self, fgraph):
+        if hasattr(fgraph, "shape_feature"):
+            raise RuntimeError("ShapeFeature already attached")
+        fgraph.shape_feature = self
+        self._cache = {}
+
+    def on_detach(self, fgraph):
+        if getattr(fgraph, "shape_feature", None) is self:
+            del fgraph.shape_feature
+        self._cache = {}
+
+    def on_import(self, fgraph, node, reason):
+        self._cache.clear()
+
+    def on_prune(self, fgraph, node, reason):
+        self._cache.clear()
+
+    def on_change_input(self, fgraph, node, i, old_var, new_var,
+                        reason=None):
+        self._cache.clear()
+
+    def shape_tuple(self, var, _depth=0):
+        """Tuple of per-dim entries (int | int64 scalar Variable)."""
+        if not hasattr(var.type, "ndim") or not hasattr(var.type, "shape"):
+            return None
+        cached = self._cache.get(var)
+        if cached is not None:
+            return cached
+        static = var.type.shape
+        if all(s is not None for s in static):
+            out = tuple(int(s) for s in static)
+            self._cache[var] = out
+            return out
+        out = None
+        if var.owner is not None and _depth < 40:
+            node = var.owner
+            try:
+                in_shapes = []
+                for inp in node.inputs:
+                    st = self.shape_tuple(inp, _depth + 1)
+                    in_shapes.append(
+                        None if st is None else tuple(
+                            constant(np.int64(e)) if isinstance(e, int)
+                            else e for e in st))
+                inferred = node.op.infer_shape(None, node, in_shapes)
+                idx = node.outputs.index(var)
+                entries = []
+                for d, e in enumerate(inferred[idx]):
+                    if static[d] is not None:
+                        entries.append(int(static[d]))
+                        continue
+                    ev = _as_int_entry(e)
+                    entries.append(ev)
+                out = tuple(entries)
+            except Exception:
+                out = None
+        if out is None:
+            out = tuple(
+                int(s) if s is not None else shape_i(var, d)
+                for d, s in enumerate(static))
+        self._cache[var] = out
+        return out
+
+    def get_shape(self, var, dim):
+        st = self.shape_tuple(var)
+        return None if st is None else st[dim]
+
+    def same_shape(self, a, b, dim_a=None, dim_b=None):
+        """True iff the (selected dims of the) shapes are provably equal."""
+        sa = self.shape_tuple(a)
+        sb = self.shape_tuple(b)
+        if sa is None or sb is None:
+            return False
+        if dim_a is not None or dim_b is not None:
+            return self._entry_eq(sa[dim_a], sb[dim_b])
+        if len(sa) != len(sb):
+            return False
+        return all(self._entry_eq(x, y) for x, y in zip(sa, sb))
+
+    @staticmethod
+    def _entry_eq(x, y):
+        if isinstance(x, int) and isinstance(y, int):
+            return x == y
+        if isinstance(x, int) or isinstance(y, int):
+            return False
+        if x is y:
+            return True
+        try:
+            return equal_computations([x], [y])
+        except Exception:
+            return False
+
+
+def _as_int_entry(e):
+    """Normalize an infer_shape entry to an int (when constant) or an
+    int64 scalar Variable."""
+    from pytensor_tpu_torch.graph.basic import Constant
+    from pytensor_tpu_torch.tensor.basic import as_tensor_variable, cast
+
+    v = as_tensor_variable(e)
+    if isinstance(v, Constant):
+        return int(np.asarray(v.data))
+    if v.type.dtype != "int64":
+        v = cast(v, "int64")
+    return v
+
+
+class ShapeOptimizer(GraphRewriter):
+    """Attach the ShapeFeature (PyTensor's ShapeOptimizer:420)."""
+
+    def add_requirements(self, fgraph):
+        if not hasattr(fgraph, "shape_feature"):
+            fgraph.attach_feature(ShapeFeature())
+
+    def apply(self, fgraph):
+        pass
+
+
+class UnShapeOptimizer(GraphRewriter):
+    """Detach the ShapeFeature after specialize (PyTensor's :444)."""
+
+    def apply(self, fgraph):
+        feature = getattr(fgraph, "shape_feature", None)
+        if feature is not None:
+            fgraph.remove_feature(feature)
+
+
+optdb.register("ShapeOpt", ShapeOptimizer(), "fast_run", "fast_compile",
+               position=0.1)
+optdb.register("UnShapeOpt", UnShapeOptimizer(), "fast_run",
+               "fast_compile", position=10)
 
 
 @node_rewriter([Shape_i])
@@ -98,10 +254,18 @@ register_canonicalize(local_subtensor_of_shape, name="local_subtensor_of_shape")
 
 @node_rewriter([Reshape])
 def local_useless_reshape(fgraph, node):
-    """reshape(x, shape-of-x) -> x when the static types prove it."""
+    """reshape(x, shape-of-x) -> x: statically, or via the ShapeFeature's
+    symbolic same_shape on ``None``-dim graphs (PyTensor's
+    tensor/rewriting/shape.py local_useless_reshape)."""
     x = node.inputs[0]
     out = node.outputs[0]
     if x.type == out.type and all(s is not None for s in x.type.shape):
+        return [x]
+    feature = getattr(fgraph, "shape_feature", None)
+    if (feature is not None and x.type.ndim == out.type.ndim
+            and x.type.dtype == out.type.dtype
+            and feature.same_shape(x, out)
+            and out.type.is_super(x.type)):
         return [x]
     return False
 

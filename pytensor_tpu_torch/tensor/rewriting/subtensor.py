@@ -23,6 +23,7 @@ from pytensor_tpu_torch.tensor.subtensor import (
     AdvancedIncSubtensor1,
     AdvancedSubtensor,
     AdvancedSubtensor1,
+    IncSubtensor,
     Subtensor,
 )
 
@@ -394,6 +395,36 @@ def local_subtensor_merge(fgraph, node):
 register_canonicalize(local_subtensor_merge, name="local_subtensor_merge")
 
 
+@node_rewriter([Subtensor])
+def local_subtensor_of_dot(fgraph, node):
+    """dot(a, b)[i_rows] -> dot(a[i_rows], b) (reference
+    rewriting/subtensor.py local_subtensor_of_dot): indexing before the
+    matmul shrinks the product's work and its memory traffic."""
+    from pytensor_tpu_torch.tensor.math import Dot, dot
+
+    x = node.inputs[0]
+    if x.owner is None or not isinstance(x.owner.op, Dot):
+        return False
+    if len(fgraph.clients.get(x, ())) != 1:
+        return False
+    a, b = x.owner.inputs
+    if a.type.ndim != 2:
+        return False
+    idx = node.op.idx_list
+    if len(idx) != 1:
+        return False  # only leading-dim indexing moves cleanly
+    new_a = type(node.op)(node.op.idx_list)(a, *node.inputs[1:])
+    res = dot(new_a, b)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_subtensor_of_dot, name="local_subtensor_of_dot")
+
+
 @node_rewriter([AdvancedIncSubtensor, AdvancedIncSubtensor1])
 def local_scatter_add_to_onehot_dot(fgraph, node):
     """zeros[..., idx, ...] += y  ->  moveaxis(tensordot(y, onehot), ...)
@@ -476,6 +507,11 @@ def local_scatter_add_to_onehot_dot(fgraph, node):
 register_specialize(local_scatter_add_to_onehot_dot,
                     name="local_scatter_add_to_onehot_dot")
 
+
+# ---------------------------------------------------------------------------
+# subtensor lift pack (reference tensor/rewriting/subtensor_lift.py):
+# push indexing toward the leaves so downstream ops compute less.
+# ---------------------------------------------------------------------------
 
 def _entry_ndyn(e):
     """Dynamic inputs consumed by a single idx_list entry."""
@@ -560,6 +596,219 @@ def local_subtensor_of_elemwise(fgraph, node):
 
 
 register_specialize(local_subtensor_of_elemwise, name="local_subtensor_of_elemwise")
+
+
+@node_rewriter([Subtensor])
+def local_subtensor_of_dimshuffle(fgraph, node):
+    """x.dimshuffle(perm/'x')[idx] -> x[permuted idx].dimshuffle(...) for
+    non-dropping DimShuffles (transpose and expand_dims)."""
+    from pytensor_tpu_torch.tensor.elemwise import DimShuffle
+
+    v = node.inputs[0]
+    if v.owner is None or not isinstance(v.owner.op, DimShuffle):
+        return False
+    if len(fgraph.clients.get(v, ())) != 1:
+        return False
+    ds = v.owner.op
+    x = v.owner.inputs[0]
+    if sorted(o for o in ds.new_order if o != "x") != list(range(x.type.ndim)):
+        return False  # drops dims: leave alone
+    pairs = _split_dyn(node.op.idx_list, node.inputs[1:])
+    # pad to the dimshuffled ndim
+    while len(pairs) < len(ds.new_order):
+        pairs.append((FULL, []))
+    x_entries = {}
+    kept = []  # (order_pos, 'x' or input axis) for output dims
+    for k, o in enumerate(ds.new_order):
+        e, ed = pairs[k]
+        if o == "x":
+            if e == FULL:
+                kept.append((k, "x"))
+                continue
+            if isinstance(e, (int, np.integer)) and e in (0, -1):
+                continue  # drops the inserted axis
+            return False  # dynamic/sliced index into a synthetic axis
+        x_entries[o] = (e, ed)
+        if not isinstance(e, (int, np.integer)) and e != DYN:
+            kept.append((k, o))
+    # build the inner subtensor in input-axis order
+    entries = []
+    dyns = []
+    for a in range(x.type.ndim):
+        e, ed = x_entries.get(a, (FULL, []))
+        entries.append(e)
+        dyns.extend(ed)
+    while entries and entries[-1] == FULL:
+        entries.pop()
+    inner = Subtensor(entries)(x, *dyns) if entries else x
+    # remaining input axes in ascending order = inner's dim order
+    kept_in_axes = sorted(o for _, o in kept if o != "x")
+    new_order = []
+    for _, o in sorted(kept):
+        new_order.append("x" if o == "x" else kept_in_axes.index(o))
+    res = inner
+    if new_order != list(range(inner.type.ndim)):
+        res = DimShuffle(inner.type.ndim, tuple(new_order))(inner)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_subtensor_of_dimshuffle,
+                    name="local_subtensor_of_dimshuffle")
+
+
+@node_rewriter([Subtensor])
+def local_subtensor_of_alloc(fgraph, node):
+    """Alloc(v, s...)[idx] -> Alloc(v, sliced lengths...) for a scalar
+    fill value: never materialize the big buffer."""
+    from pytensor_tpu_torch.tensor.basic import Alloc, alloc
+    from pytensor_tpu_torch.tensor.subtensor import _sym_slice_len
+
+    v0 = node.inputs[0]
+    if v0.owner is None or not isinstance(v0.owner.op, Alloc):
+        return False
+    fill, *shape_vars = v0.owner.inputs
+    if fill.type.ndim != 0:
+        return False
+    idx_list = node.op.idx_list
+    if any(_entry_ndyn(e) for e in idx_list) or DYN in idx_list:
+        return False  # dynamic bounds: net win unclear, skip
+    new_shape = []
+    d = 0
+    for e in idx_list:
+        if isinstance(e, (int, np.integer)):
+            d += 1
+            continue
+        _, a, b, c = e
+        new_shape.append(_sym_slice_len(a, b, c, shape_vars[d]))
+        d += 1
+    new_shape.extend(shape_vars[d:])
+    out = node.outputs[0]
+    res = alloc(fill, *new_shape) if new_shape else fill
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_subtensor_of_alloc, name="local_subtensor_of_alloc")
+
+
+@node_rewriter([Subtensor])
+def local_subtensor_of_makevector(fgraph, node):
+    """MakeVector(a, b, c)[static idx] -> the element / a smaller
+    MakeVector."""
+    from pytensor_tpu_torch.tensor.basic import MakeVector, make_vector
+
+    v = node.inputs[0]
+    if v.owner is None or not isinstance(v.owner.op, MakeVector):
+        return False
+    idx_list = node.op.idx_list
+    if len(idx_list) != 1:
+        return False
+    (e,) = idx_list
+    elems = v.owner.inputs
+    out = node.outputs[0]
+    if isinstance(e, (int, np.integer)):
+        res = elems[int(e)]
+    elif isinstance(e, tuple) and e[0] == "slice" \
+            and not any(b == DYN for b in e[1:]):
+        picked = elems[slice(e[1], e[2], e[3])]
+        if len(picked) == len(elems):
+            return False
+        res = MakeVector(v.owner.op.dtype)(*picked)
+    else:
+        return False
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_canonicalize(local_subtensor_of_makevector,
+                      name="local_subtensor_of_makevector")
+
+
+def _full_reversed_slice(e):
+    """('slice', None, None, -1): the whole axis, reversed."""
+    return (isinstance(e, tuple) and e and e[0] == "slice"
+            and e[1] is None and e[2] is None and e[3] == -1)
+
+
+@node_rewriter([IncSubtensor])
+def local_useless_inc_subtensor(fgraph, node):
+    """Writes covering every position of the buffer drop the scatter
+    (reference test_local_useless_inc_subtensor): each index entry is a
+    full or fully-reversed slice, so ``set(x[idx], y) -> y[idx]`` and
+    ``inc(x[idx], y) -> x + y[idx]`` (reversal is self-inverse, so the
+    same idx_list maps y's positions back)."""
+    x, y = node.inputs[0], node.inputs[1]
+    shape = x.type.shape
+    entries = []
+    any_rev = False
+    for i, e in enumerate(node.op.idx_list):
+        dim = shape[i] if i < len(shape) else None
+        if _full_slice(e, dim):
+            entries.append(("slice", None, None, None))
+        elif _full_reversed_slice(e):
+            entries.append(("slice", None, None, -1))
+            any_rev = True
+        else:
+            return False
+    out = node.outputs[0]
+    if y.type.ndim != x.type.ndim:
+        return False
+    if any_rev:
+        while entries and _full_slice(entries[-1]):
+            entries.pop()
+        y_view = Subtensor(tuple(entries))(y)
+    else:
+        y_view = y
+    if node.op.set_instead_of_inc:
+        res = y_view
+        if res.type.dtype != out.type.dtype or not out.type.is_super(
+                res.type):
+            return False
+    else:
+        res = x + y_view
+        if res.type.dtype != out.type.dtype or not out.type.is_super(
+                res.type):
+            return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_useless(local_useless_inc_subtensor, name="local_useless_inc_subtensor")
+
+
+@node_rewriter([Subtensor])
+def local_subtensor_of_unbroadcast_cast(fgraph, node):
+    """x.astype(d)[idx] -> x[idx].astype(d): index before the copy."""
+    from pytensor_tpu_torch.tensor.basic import cast as t_cast
+    from pytensor_tpu_torch.tensor.elemwise import Elemwise
+
+    v = node.inputs[0]
+    if v.owner is None or not isinstance(v.owner.op, Elemwise):
+        return False
+    if not v.owner.op.scalar_op.name.startswith("cast{"):
+        return False
+    if len(fgraph.clients.get(v, ())) != 1:
+        return False
+    inner = v.owner.inputs[0]
+    res = t_cast(Subtensor(node.op.idx_list)(inner, *node.inputs[1:]),
+                 v.type.dtype)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_subtensor_of_unbroadcast_cast,
+                    name="local_subtensor_of_cast")
 
 
 # Constant-index gather/scatter -> one-hot matrix products
@@ -652,6 +901,230 @@ def local_constant_scatter_to_onehot_dot(fgraph, node):
 specialize.register("local_constant_scatter_to_onehot_dot",
                     local_constant_scatter_to_onehot_dot, "onehot_gather")
 
+
+@node_rewriter([Subtensor])
+def local_subtensor_of_reduce(fgraph, node):
+    """reduce(x, axis)[idx] -> reduce(x[idx'], axis') — index BEFORE
+    reducing so only the consumed slice is computed (reference
+    subtensor_lift.py:553).  Handles a single leading index entry."""
+    from pytensor_tpu_torch.tensor.elemwise import CAReduce
+
+    x = node.inputs[0]
+    if x.owner is None or not isinstance(x.owner.op, CAReduce):
+        return False
+    if len(fgraph.clients.get(x, ())) > 1:
+        return False  # reduction shared: lifting would recompute
+    red = x.owner.op
+    inner = x.owner.inputs[0]
+    axes = red.axis
+    if axes is None:
+        axes = tuple(range(inner.type.ndim))
+    idx_list = node.op.idx_list
+    if not idx_list:
+        return False
+    # lift the FIRST NON-TRIVIAL entry (a leading full slice would
+    # reproduce the same pattern and ping-pong the equilibrium pass)
+    k = next((i for i, e in enumerate(idx_list) if not _full_slice(e)), None)
+    if k is None or idx_list[k] == DYN:
+        return False
+    entry = idx_list[k]
+    # map output dim k back to the k-th NON-reduced input dim
+    non_reduced = [d for d in range(inner.type.ndim) if d not in axes]
+    if k >= len(non_reduced):
+        return False
+    dk = non_reduced[k]
+    dyn = node.inputs[1:]
+    # count dynamic inputs consumed by one entry (full slices take none)
+    def _dyn_count(e):
+        if e == DYN:
+            return 1
+        if isinstance(e, tuple) and e[0] == "slice":
+            return sum(1 for p in e[1:] if p == DYN)
+        return 0
+
+    n0 = _dyn_count(entry)
+    inner_idx = [("slice", None, None, None)] * dk + [entry]
+    sub_inner = Subtensor(tuple(inner_idx))(inner, *dyn[:n0])
+    dropped = isinstance(entry, (int, np.integer))
+    if dropped:
+        new_axes = tuple(a - 1 if a > dk else a for a in axes)
+    else:
+        new_axes = axes
+    from pytensor_tpu_torch.tensor.elemwise import CAReduce as _CR
+
+    new_red = _CR(red.scalar_op, new_axes, red.dtype, red.acc_dtype,
+                  red.upcast_discrete_output)(sub_inner)
+    # remaining outer index: leading full slices kept, position k either
+    # dropped (int) or turned into a full slice, tail unchanged
+    full = ("slice", None, None, None)
+    rest_idx = list(idx_list[:k])
+    if not dropped:
+        rest_idx.append(full)
+    rest_idx.extend(idx_list[k + 1:])
+    while rest_idx and _full_slice(rest_idx[-1]):
+        rest_idx.pop()
+    if rest_idx:
+        new_out = Subtensor(tuple(rest_idx))(new_red, *dyn[n0:])
+    else:
+        new_out = new_red
+    if not node.outputs[0].type.is_super(new_out.type):
+        return False
+    copy_stack_trace(node.outputs[0], new_out)
+    return [new_out]
+
+
+register_specialize(local_subtensor_of_reduce,
+                    name="local_subtensor_of_reduce")
+
+
+@node_rewriter(None)
+def local_advanced_subtensor1_of_dot(fgraph, node):
+    """dot(A, B)[rows] -> dot(A[rows], B): the gather moves to the
+    small operand and the matmul shrinks (reference
+    subtensor_lift.py:351 local_advanced_subtensor_of_dot, the
+    row-vector case)."""
+    from pytensor_tpu_torch.tensor.blas import Dot22
+    from pytensor_tpu_torch.tensor.math import Dot, dot
+    from pytensor_tpu_torch.tensor.subtensor import AdvancedSubtensor1
+
+    if not isinstance(node.op, AdvancedSubtensor1):
+        return False
+    x, ilist = node.inputs
+    if x.owner is None or not isinstance(x.owner.op, (Dot, Dot22)):
+        return False
+    if len(fgraph.clients.get(x, ())) > 1:
+        return False  # product materialized anyway
+    a, b = x.owner.inputs
+    if a.type.ndim != 2 or b.type.ndim != 2:
+        return False
+    res = dot(AdvancedSubtensor1()(a, ilist), b)
+    out = node.outputs[0]
+    if not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_advanced_subtensor1_of_dot,
+                    name="local_advanced_subtensor1_of_dot")
+
+
+@node_rewriter([Subtensor])
+def local_subtensor_of_join(fgraph, node):
+    """join(axis, a, b, ...)[idx] with the index on a NON-join axis ->
+    join of the indexed pieces (reference subtensor_lift.py:1198)."""
+    from pytensor_tpu_torch.graph.basic import Constant
+    from pytensor_tpu_torch.tensor.basic import Join
+
+    x = node.inputs[0]
+    if x.owner is None or not isinstance(x.owner.op, Join):
+        return False
+    if len(fgraph.clients.get(x, ())) > 1:
+        return False
+    axis_var = x.owner.inputs[0]
+    if not isinstance(axis_var, Constant):
+        return False
+    jaxis = int(np.asarray(axis_var.data))
+    if jaxis < 0:
+        jaxis += x.type.ndim
+    idx_list = node.op.idx_list
+    # index entries must leave the join axis untouched (full slice or
+    # not indexed at all)
+    if jaxis < len(idx_list):
+        e = idx_list[jaxis]
+        if not (isinstance(e, tuple) and e[:1] == ("slice",)
+                and e[1:] == (None, None, None)):
+            return False
+    pieces = x.owner.inputs[1:]
+    dyn = node.inputs[1:]
+    new_pieces = [Subtensor(idx_list)(p, *dyn) for p in pieces]
+    # int entries before the join axis shift it left
+    n_dropped = sum(1 for i, e in enumerate(idx_list)
+                    if i < jaxis and isinstance(e, (int, np.integer)))
+    new_out = Join()(jaxis - n_dropped, *new_pieces)
+    if not node.outputs[0].type.is_super(new_out.type):
+        return False
+    copy_stack_trace(node.outputs[0], new_out)
+    return [new_out]
+
+
+register_specialize(local_subtensor_of_join, name="local_subtensor_of_join")
+
+
+@node_rewriter([Subtensor])
+def local_subtensor_of_specify_shape(fgraph, node):
+    """x_specified[idx] -> x[idx] when the output type keeps the static
+    info, else (reference subtensor_lift.py:1077) lift integer-only
+    indexing through and re-specify the trailing dims:
+    ``specify_shape(x, s)[i_1..i_n] -> specify_shape(x[i_1..i_n],
+    s[n:])``.  Slices stay under the SpecifyShape — numpy clips slice
+    bounds, so without the runtime check the sliced length is weaker
+    than the declared type."""
+    from pytensor_tpu_torch.tensor.shape import SpecifyShape, specify_shape
+
+    x = node.inputs[0]
+    if x.owner is None or not isinstance(x.owner.op, SpecifyShape):
+        return False
+    inner = x.owner.inputs[0]
+    new_out = Subtensor(node.op.idx_list)(inner, *node.inputs[1:])
+    if node.outputs[0].type.is_super(new_out.type):
+        copy_stack_trace(node.outputs[0], new_out)
+        return [new_out]
+    if any(isinstance(e, tuple) for e in node.op.idx_list):
+        return False  # slice entries: the check still guards their length
+    shape_args = x.owner.inputs[1:]
+    if new_out.type.ndim == 0:
+        copy_stack_trace(node.outputs[0], new_out)
+        return [new_out]
+    res = specify_shape(new_out, shape_args[len(node.op.idx_list):])
+    if not node.outputs[0].type.is_super(res.type):
+        return False
+    copy_stack_trace(node.outputs[0], res)
+    return [res]
+
+
+register_specialize(local_subtensor_of_specify_shape,
+                    name="local_subtensor_of_specify_shape")
+
+
+@node_rewriter(None)
+def local_extract_diag_of_eye(fgraph, node):
+    """diagonal(eye(n, m, k)) -> ones/zeros vector (reference
+    subtensor_lift.py:959) — no matrix is ever materialized."""
+    from pytensor_tpu_torch.graph.basic import Constant
+    from pytensor_tpu_torch.tensor.basic import (ExtractDiag, Eye, NotScalarConstantError,
+                                           get_scalar_constant_value, ones, zeros)
+
+    if not isinstance(node.op, ExtractDiag):
+        return False
+    x = node.inputs[0]
+    if x.owner is None or not isinstance(x.owner.op, Eye):
+        return False
+    if (node.op.axis1, node.op.axis2) != (0, 1):
+        return False
+    n_v, m_v, k_v = x.owner.inputs
+    try:
+        n = int(get_scalar_constant_value(n_v))
+        m = int(get_scalar_constant_value(m_v))
+        k_eye = int(get_scalar_constant_value(k_v))
+    except NotScalarConstantError:
+        return False
+    k_extract = node.op.offset
+    # length of the extracted diagonal
+    L = max(0, min(n + min(0, k_extract), m - max(0, k_extract)))
+    dtype = x.type.dtype
+    new_out = (ones((L,), dtype=dtype) if k_extract == k_eye
+               else zeros((L,), dtype=dtype))
+    if not node.outputs[0].type.is_super(new_out.type):
+        return False
+    copy_stack_trace(node.outputs[0], new_out)
+    return [new_out]
+
+
+register_canonicalize(local_extract_diag_of_eye,
+                      name="local_extract_diag_of_eye")
+register_specialize(local_extract_diag_of_eye,
+                    name="local_extract_diag_of_eye")
 
 
 # ---------------------------------------------------------------------------
@@ -880,19 +1353,535 @@ register_specialize(local_shape_of_bool_mask,
                     name="local_shape_of_bool_mask")
 
 
+# ---------------------------------------------------------------------------
+# write/read interaction family (reference rewriting/subtensor.py:1156
+# local_set_to_inc_subtensor, :1898 local_incsubtensor_of_zeros, :1923
+# local_incsubtensor_of_zeros_to_setsubtensor, :1945
+# local_setsubtensor_of_constants, :1980 local_read_of_write_same_indices,
+# :2330 local_write_of_write_same_indices).  Each write these remove is a
+# scatter kernel and a full-size copy of its operand the card does not run.
+# ---------------------------------------------------------------------------
+
+def _underlying_const(v):
+    """The scalar a variable is uniformly filled with (through
+    Alloc/DimShuffle/uniform Constant arrays), or None."""
+    from pytensor_tpu_torch.graph.basic import Constant
+    from pytensor_tpu_torch.tensor.basic import get_underlying_scalar_constant_value
+
+    if isinstance(v, Constant):
+        data = np.asarray(v.data)
+        if data.size == 0:
+            return None
+        flat = data.reshape(-1)
+        return flat[0] if np.all(flat == flat[0]) else None
+    return get_underlying_scalar_constant_value(v, raise_not_constant=False)
+
+
+def _mixed_sign(data):
+    """Positive and negative entries together may alias (0 and -dim name
+    the same position), so value-distinctness stops proving
+    position-distinctness (reference rewriting/subtensor.py:294)."""
+    return bool((data >= 0).any() and (data < 0).any())
+
+
+def _arange_provably_unique(start, stop, step, shift=0):
+    """Whether ``arange(start, stop, step) + shift`` provably names each
+    position at most once: its entries are distinct VALUES by
+    construction, so the only aliasing channel is sign wraparound
+    (reference ``_arange_provably_unique``)."""
+    from pytensor_tpu_torch.assumptions import FactState, holds
+    from pytensor_tpu_torch.graph.basic import Constant
+
+    def const(v):
+        if isinstance(v, (int, np.integer)):
+            return int(v)
+        if isinstance(v, Constant) and np.ndim(v.data) == 0:
+            return int(v.data)
+        return None
+
+    cstart, cstop, cstep = const(start), const(stop), const(step)
+    if cstart is not None and cstop is not None and cstep is not None:
+        vals = np.arange(cstart, cstop, cstep) + shift
+        return vals.size == 0 or not _mixed_sign(vals)
+
+    def non_neg(v):
+        c = const(v)
+        if c is not None:
+            return c >= 0
+        if getattr(v.type, "dtype", "").startswith("uint"):
+            return True
+        return holds(v, "non_negative") == FactState.TRUE
+
+    if cstep is None:
+        return False
+    if cstep > 0:
+        # ascending: entries >= start + shift
+        c = const(start)
+        if c is not None:
+            return c + shift >= 0
+        return shift >= 0 and non_neg(start)
+    # descending: entries > stop + shift (first entry is start + shift)
+    c = const(stop)
+    if c is not None:
+        return c + shift >= -1
+    if shift >= -1 and non_neg(stop):
+        return True
+    # or all-negative: entries <= start + shift < 0
+    c = const(start)
+    return c is not None and c + shift < 0
+
+
+def _index_provably_unique(idx):
+    """Whether a single advanced index selects each position on its axis
+    at most once (reference rewriting/subtensor.py:243): constants with
+    single-signed duplicate-free values, boolean masks (each position
+    tested once), ``arange`` forms that provably don't wrap around zero
+    (possibly shifted by a constant), axis-preserving views of such, and
+    indices the user declared ``unique_indices`` via ``assume``."""
+    from pytensor_tpu_torch.graph.basic import Constant
+    from pytensor_tpu_torch.tensor.basic import ARange
+    from pytensor_tpu_torch.tensor.elemwise import DimShuffle, Elemwise
+
+    if getattr(idx.type, "ndim", 0) == 0:
+        return True
+    if idx.type.dtype == "bool":
+        return True
+    if isinstance(idx, Constant):
+        data = np.asarray(idx.data)
+        if _mixed_sign(data):
+            return False
+        return len(np.unique(data)) == data.size
+    if "unique_indices" in getattr(idx.tag, "assumptions", ()):
+        return True
+    owner = idx.owner
+    if owner is None:
+        return False
+    # constant shift of an arange: arange(...) +/- c
+    if isinstance(owner.op, Elemwise) and \
+            getattr(owner.op.scalar_op, "name", "") in ("add", "sub") and \
+            len(owner.inputs) == 2:
+        name = owner.op.scalar_op.name
+        for a, b in (owner.inputs, owner.inputs[::-1]):
+            if a.owner is not None and isinstance(a.owner.op, ARange):
+                cshift = _underlying_const(b)
+                if cshift is None or not float(cshift).is_integer():
+                    continue
+                cshift = int(cshift)
+                if name == "sub":
+                    if b is owner.inputs[1]:
+                        cshift = -cshift
+                    else:
+                        continue  # c - arange reverses sign: skip
+                return _arange_provably_unique(*a.owner.inputs, shift=cshift)
+        return False
+    if isinstance(owner.op, ARange):
+        return _arange_provably_unique(*owner.inputs)
+    if isinstance(owner.op, DimShuffle):
+        # DimShuffle reorders, inserts size-1 dims, or drops size-1 dims:
+        # all keep the value multiset
+        return _index_provably_unique(owner.inputs[0])
+    return False
+
+
+def _indices_jointly_unique(node_or_ilist):
+    """True when a write op's index coordinates are provably duplicate-free.
+
+    Basic IncSubtensor indices (ints/slices) are always unique.  Advanced
+    integer-array indices are unique when every index is duplicate-free on
+    its own axis (then the broadcast joint tuples are distinct), when they
+    are all the coordinate outputs of one ``Nonzero`` (distinct by
+    construction, e.g. symbolic ``tril_indices``), or when they are all
+    constants whose stacked coordinate tuples have no duplicates
+    (reference rewriting/subtensor.py:303).  Symbolic slice bounds among
+    ``inputs[2:]`` are 0-d and basic — never mistaken for advanced
+    indices."""
+    from pytensor_tpu_torch.graph.basic import Constant
+    from pytensor_tpu_torch.tensor.basic import Nonzero
+
+    node = node_or_ilist
+    if isinstance(node.op, IncSubtensor):
+        return True
+    adv = [i for i in node.inputs[2:] if getattr(i.type, "ndim", 0) > 0]
+    if all(_index_provably_unique(i) for i in adv):
+        return True
+    if len(adv) > 1:
+        owners = {i.owner for i in adv}
+        if len(owners) == 1:
+            owner = next(iter(owners))
+            if owner is not None and isinstance(owner.op, Nonzero) and \
+                    set(adv) == set(owner.outputs):
+                return True
+        if all(isinstance(i, Constant) for i in adv):
+            datas = [np.asarray(i.data) for i in adv]
+            if any(_mixed_sign(d) for d in datas):
+                return False
+            try:
+                coords = np.broadcast_arrays(*datas)
+            except ValueError:
+                return False
+            flat = np.stack([c.reshape(-1) for c in coords], axis=-1)
+            return len(np.unique(flat, axis=0)) == flat.shape[0]
+    return False
+
+
+def _matching_read_of(node, write_types):
+    """When ``node`` reads exactly what an inner write op wrote (same base
+    structural index, identical index variables), return the write node."""
+    inner = node.inputs[0]
+    if inner.owner is None or not isinstance(inner.owner.op, write_types):
+        return None
+    wnode = inner.owner
+    if isinstance(node.op, (Subtensor, AdvancedSubtensor)):
+        if getattr(node.op, "idx_list", None) != getattr(wnode.op, "idx_list", None):
+            return None
+        read_idx = node.inputs[1:]
+        write_idx = wnode.inputs[2:]
+    else:  # AdvancedSubtensor1 / AdvancedIncSubtensor1
+        read_idx = node.inputs[1:]
+        write_idx = wnode.inputs[2:]
+    if len(read_idx) != len(write_idx):
+        return None
+    if not all(r is w for r, w in zip(read_idx, write_idx)):
+        return None
+    return wnode
+
+
+@node_rewriter([IncSubtensor, AdvancedIncSubtensor, AdvancedIncSubtensor1])
+def local_set_to_inc_subtensor(fgraph, node):
+    """set_subtensor(x[idx], x[idx] + other) -> inc_subtensor(x[idx], other)
+    (reference rewriting/subtensor.py:1156).  Valid only for provably
+    duplicate-free indices: set is last-write-wins, inc accumulates."""
+    from pytensor_tpu_torch.tensor.elemwise import Elemwise
+
+    if not node.op.set_instead_of_inc:
+        return False
+    x, y = node.inputs[0], node.inputs[1]
+    if y.owner is None or not isinstance(y.owner.op, Elemwise) \
+            or getattr(y.owner.op.scalar_op, "name", "") != "add" \
+            or len(y.owner.inputs) != 2:
+        return False
+    read_type = {IncSubtensor: Subtensor,
+                 AdvancedIncSubtensor: AdvancedSubtensor,
+                 AdvancedIncSubtensor1: AdvancedSubtensor1}[type(node.op)]
+    for a, other in (y.owner.inputs, y.owner.inputs[::-1]):
+        if a.owner is None or not isinstance(a.owner.op, read_type):
+            continue
+        rnode = a.owner
+        if rnode.inputs[0] is not x:
+            continue
+        if isinstance(node.op, (IncSubtensor, AdvancedIncSubtensor)):
+            if rnode.op.idx_list != node.op.idx_list:
+                continue
+        if len(rnode.inputs[1:]) != len(node.inputs[2:]) or \
+                not all(r is w for r, w in
+                        zip(rnode.inputs[1:], node.inputs[2:])):
+            continue
+        if not _indices_jointly_unique(node):
+            return False
+        if isinstance(node.op, AdvancedIncSubtensor1):
+            new_op = AdvancedIncSubtensor1(set_instead_of_inc=False, ignore_duplicates=node.op.ignore_duplicates)
+        elif isinstance(node.op, AdvancedIncSubtensor):
+            new_op = AdvancedIncSubtensor(
+                node.op.idx_list, set_instead_of_inc=False,
+                ignore_duplicates=node.op.ignore_duplicates)
+        else:
+            new_op = IncSubtensor(node.op.idx_list, set_instead_of_inc=False)
+        res = new_op(x, other, *node.inputs[2:])
+        out = node.outputs[0]
+        if not out.type.is_super(res.type):
+            return False
+        copy_stack_trace(out, res)
+        return [res]
+    return False
+
+
+register_canonicalize(local_set_to_inc_subtensor,
+                      name="local_set_to_inc_subtensor")
+
+
+@node_rewriter([IncSubtensor, AdvancedIncSubtensor, AdvancedIncSubtensor1])
+def local_incsubtensor_of_zeros(fgraph, node):
+    """inc_subtensor(x[idx], 0) -> x (reference :1898)."""
+    if node.op.set_instead_of_inc:
+        return False
+    y = node.inputs[1]
+    c = _underlying_const(y)
+    if c is None or c != 0:
+        return False
+    x = node.inputs[0]
+    out = node.outputs[0]
+    if not out.type.is_super(x.type):
+        return False
+    return [x]
+
+
+register_canonicalize(local_incsubtensor_of_zeros,
+                      name="local_incsubtensor_of_zeros")
+register_specialize(local_incsubtensor_of_zeros,
+                    name="local_incsubtensor_of_zeros")
+
+
+@node_rewriter([IncSubtensor, AdvancedIncSubtensor, AdvancedIncSubtensor1])
+def local_incsubtensor_of_zeros_to_setsubtensor(fgraph, node):
+    """inc_subtensor(zeros[idx], y) -> set_subtensor(zeros[idx], y)
+    (reference :1923) — a set scatter needs no read of the operand.
+    Sound only for duplicate-free indices (inc at a repeated position
+    accumulates; set keeps one)."""
+    from pytensor_tpu_torch.assumptions import FactState, holds_in
+
+    if node.op.set_instead_of_inc:
+        return False
+    x = node.inputs[0]
+    if holds_in(fgraph, x, "zero") != FactState.TRUE:
+        return False
+    if not _indices_jointly_unique(node):
+        return False
+    if isinstance(node.op, AdvancedIncSubtensor1):
+        new_op = AdvancedIncSubtensor1(set_instead_of_inc=True, ignore_duplicates=node.op.ignore_duplicates)
+    elif isinstance(node.op, AdvancedIncSubtensor):
+        new_op = AdvancedIncSubtensor(node.op.idx_list,
+                                      set_instead_of_inc=True)
+    else:
+        new_op = IncSubtensor(node.op.idx_list, set_instead_of_inc=True)
+    res = new_op(*node.inputs)
+    copy_stack_trace(node.outputs[0], res)
+    return [res]
+
+
+register_canonicalize(local_incsubtensor_of_zeros_to_setsubtensor,
+                      name="local_incsubtensor_of_zeros_to_setsubtensor")
+
+
+from pytensor_tpu_torch.tensor.elemwise import Elemwise as _Elemwise
+
+
+@node_rewriter([_Elemwise])
+def local_add_of_sparse_write(fgraph, node):
+    """``x + set/inc(zeros, v, idx) -> x[idx].inc(v)`` (reference
+    rewriting/subtensor.py local_add_of_sparse_write): the dense zeros
+    buffer + full-size add collapses into one scatter-add on ``x``: the
+    gradient-accumulation pattern (sums of scatters into zeros) updates
+    one buffer instead of materializing k full-size temporaries.
+
+    inc-into-zeros folds unconditionally (inc applies the same
+    per-position delta whether the base is zeros-then-added or ``x``
+    itself, so duplicate indices accumulate identically).  set-into-zeros
+    needs provably duplicate-free indices: a dense set is last-wins,
+    while the folded inc would accumulate at repeated positions."""
+    if getattr(node.op.scalar_op, "name", "") != "add":
+        return False
+    out = node.outputs[0]
+    for k, w in enumerate(node.inputs):
+        wnode = w.owner
+        if wnode is None or not isinstance(
+                wnode.op,
+                (IncSubtensor, AdvancedIncSubtensor, AdvancedIncSubtensor1)):
+            continue
+        if len(fgraph.clients.get(w, ())) != 1:
+            continue
+        from pytensor_tpu_torch.assumptions import FactState, holds_in
+
+        if holds_in(fgraph, wnode.inputs[0], "zero") != FactState.TRUE:
+            continue
+        if wnode.op.set_instead_of_inc and \
+                not _indices_jointly_unique(wnode):
+            continue
+        from pytensor_tpu_torch.tensor.math import add as _add
+
+        others = [i for j, i in enumerate(node.inputs) if j != k]
+        x = others[0] if len(others) == 1 else _add(*others)
+        if x.type.ndim != w.type.ndim:
+            continue
+        if isinstance(wnode.op, AdvancedIncSubtensor1):
+            new_op = AdvancedIncSubtensor1(
+                set_instead_of_inc=False,
+                ignore_duplicates=wnode.op.ignore_duplicates)
+        elif isinstance(wnode.op, AdvancedIncSubtensor):
+            new_op = AdvancedIncSubtensor(wnode.op.idx_list,
+                                          set_instead_of_inc=False)
+        else:
+            new_op = IncSubtensor(wnode.op.idx_list, set_instead_of_inc=False)
+        try:
+            res = new_op(x, *wnode.inputs[1:])
+        except (TypeError, ValueError):
+            continue
+        if not out.type.is_super(res.type):
+            continue
+        copy_stack_trace(out, res)
+        return [res]
+    return False
+
+
+register_specialize(local_add_of_sparse_write,
+                    name="local_add_of_sparse_write")
+
+
+@node_rewriter([IncSubtensor, AdvancedIncSubtensor, AdvancedIncSubtensor1])
+def local_setsubtensor_of_constants(fgraph, node):
+    """set_subtensor(fill(c)[idx], fill(c)) -> the operand unchanged
+    (reference :1945): writing the value that is already there."""
+    if not node.op.set_instead_of_inc:
+        return False
+    cx = _underlying_const(node.inputs[0])
+    cy = _underlying_const(node.inputs[1])
+    if cx is None or cy is None or cx != cy:
+        return False
+    x, out = node.inputs[0], node.outputs[0]
+    if not out.type.is_super(x.type):
+        return False
+    return [x]
+
+
+register_canonicalize(local_setsubtensor_of_constants,
+                      name="local_setsubtensor_of_constants")
+
+
+@node_rewriter([Subtensor, AdvancedSubtensor, AdvancedSubtensor1])
+def local_read_of_write_same_indices(fgraph, node):
+    """set_subtensor(x[idx], v)[idx] -> v;
+    inc_subtensor(x[idx], v)[idx] -> x[idx] + v (reference :1980).
+    Advanced integer-array indices must be constant and duplicate-free
+    (duplicates make the read order-dependent)."""
+    write_types = {Subtensor: IncSubtensor,
+                   AdvancedSubtensor: AdvancedIncSubtensor,
+                   AdvancedSubtensor1: AdvancedIncSubtensor1}[type(node.op)]
+    wnode = _matching_read_of(node, write_types)
+    if wnode is None:
+        return False
+    x, v = wnode.inputs[0], wnode.inputs[1]
+    out = node.outputs[0]
+
+    def read_of_x():
+        if isinstance(node.op, AdvancedSubtensor1):
+            return AdvancedSubtensor1()(x, *node.inputs[1:])
+        return type(node.op)(node.op.idx_list)(x, *node.inputs[1:])
+
+    if wnode.op.set_instead_of_inc:
+        # the set path needs no uniqueness: duplicate writes are
+        # last-wins, and the read returns the surviving values -- the
+        # reference fires this unconditionally under shape_unsafe
+        # (reference :2020)
+        from pytensor_tpu_torch.tensor.basic import cast as _cast
+
+        res = v
+        if res.type.dtype != out.type.dtype:
+            res = _cast(res, out.type.dtype)
+        if res.type.ndim != out.type.ndim or any(
+                res.type.shape[d] == 1 and out.type.shape[d] != 1
+                for d in range(out.type.ndim)):
+            # v is a broadcast-smaller update (fewer dims, or size-1 dims
+            # the region may exceed): fill it to the read's shape
+            # (elemwise; no reference back to the replaced out)
+            from pytensor_tpu_torch.tensor.math import second
+
+            res = second(read_of_x(), res)
+        elif not out.type.is_super(res.type):
+            # same shape, weaker statics: recover them without a read
+            from pytensor_tpu_torch.tensor.shape import specify_shape
+
+            res = specify_shape(res, out.type.shape)
+        if not out.type.is_super(res.type):
+            return False
+    else:
+        # inc reads back base + delta, which is order-independent only
+        # for duplicate-free indices
+        if not _indices_jointly_unique(wnode):
+            return False
+        res = read_of_x() + v
+        if not out.type.is_super(res.type):
+            return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_canonicalize(local_read_of_write_same_indices, "shape_unsafe",
+                      name="local_read_of_write_same_indices")
+register_specialize(local_read_of_write_same_indices, "shape_unsafe",
+                    name="local_read_of_write_same_indices")
+
+
+@node_rewriter([IncSubtensor, AdvancedIncSubtensor, AdvancedIncSubtensor1])
+def local_write_of_write_same_indices(fgraph, node):
+    """Collapse nested writes at identical indices (reference :2330):
+    outer set shadows the inner write; inc+inc accumulates; inc-of-set
+    merges when indices are duplicate-free."""
+    inner_x, b = node.inputs[0], node.inputs[1]
+    if inner_x.owner is None or type(inner_x.owner.op) is not type(node.op):
+        return False
+    wnode = inner_x.owner
+    if isinstance(node.op, (IncSubtensor, AdvancedIncSubtensor)):
+        if wnode.op.idx_list != node.op.idx_list:
+            return False
+    if len(wnode.inputs[2:]) != len(node.inputs[2:]) or \
+            not all(r is w for r, w in zip(wnode.inputs[2:], node.inputs[2:])):
+        return False
+    if len(fgraph.clients.get(inner_x, ())) != 1:
+        return False
+    base, a = wnode.inputs[0], wnode.inputs[1]
+    outer_set = node.op.set_instead_of_inc
+    inner_set = wnode.op.set_instead_of_inc
+    if outer_set:
+        new_val, use_set = b, True
+    elif inner_set:
+        if not _indices_jointly_unique(node):
+            return False
+        new_val, use_set = a + b, True
+    else:
+        new_val, use_set = a + b, False
+    if isinstance(node.op, AdvancedIncSubtensor1):
+        new_op = AdvancedIncSubtensor1(set_instead_of_inc=use_set, ignore_duplicates=node.op.ignore_duplicates)
+    elif isinstance(node.op, AdvancedIncSubtensor):
+        new_op = AdvancedIncSubtensor(node.op.idx_list,
+                                      set_instead_of_inc=use_set)
+    else:
+        new_op = IncSubtensor(node.op.idx_list, set_instead_of_inc=use_set)
+    res = new_op(base, new_val, *node.inputs[2:])
+    out = node.outputs[0]
+    if not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_canonicalize(local_write_of_write_same_indices,
+                      name="local_write_of_write_same_indices")
+
+
+# ---------------------------------------------------------------------------
+# index canonicalization / gather-to-slice family (reference
+# rewriting/subtensor.py:516 local_useless_slice, :1048
+# local_subtensor_remove_broadcastable_index, :1376
+# local_convert_negative_indices, :1460 local_adv_idx_to_diagonal, :1577
+# local_adv_idx_to_slice, :2507 local_join_subtensors).  The
+# gather->slice rules are speed rules, not just cleanups: a gather is a
+# kernel that reads an index a row, a slice is a view.
+# ---------------------------------------------------------------------------
 
 def _is_shape_of_dim(var, x, d, fgraph=None):
-    """Whether ``var`` is ``x.shape[d]``: a direct ``Shape_i`` of ``x``.
-    The JAX package also matches x's symbolic dim-d entry through the
-    fgraph's ShapeFeature, which the port has not yet (ROADMAP.md Queue 1
-    item 6)."""
+    """Whether ``var`` is symbolically ``x.shape[d]`` (the reference's
+    local_useless_slice does the same bound-vs-shape match at :516):
+    either a direct ``Shape_i`` of ``x``, or — through the fgraph's
+    ShapeFeature — structurally equal to x's symbolic dim-d entry (so
+    ``exp(x)[:x.shape[0]]`` still matches after the slice is lifted onto
+    ``exp``'s output)."""
     from pytensor_tpu_torch.tensor.shape import Shape_i
 
     owner = getattr(var, "owner", None)
     if (owner is not None and isinstance(owner.op, Shape_i)
             and owner.op.i == d and owner.inputs[0] is x):
         return True
-    return False
+    if fgraph is None:
+        return False
+    sf = getattr(fgraph, "shape_feature", None)
+    if sf is None:
+        from pytensor_tpu_torch.tensor.rewriting.shape import ShapeFeature
+
+        sf = ShapeFeature()
+        fgraph.attach_feature(sf)
+    entry = sf.get_shape(x, d)
+    if entry is None or isinstance(entry, int):
+        return False
+    return sf._entry_eq(entry, var)
 
 
 def local_useless_slice_parts(fgraph, node):
@@ -1149,3 +2138,458 @@ def local_adv_idx_to_slice(fgraph, node):
 
 
 register_specialize(local_adv_idx_to_slice, name="local_adv_idx_to_slice")
+
+
+@node_rewriter([AdvancedSubtensor])
+def local_adv_idx_to_diagonal(fgraph, node):
+    """x[arange(d), arange(d)+k] on consecutive axes -> diagonal(x, k)
+    (reference :1460): the paired gather is a strided diagonal read.
+    Constant full-coverage aranges only."""
+    from pytensor_tpu_torch.tensor.basic import diagonal
+
+    x = node.inputs[0]
+    it = iter(node.inputs[1:])
+    indices, positions = [], []
+    d = 0
+    for e in node.op.idx_list:
+        if e == DYN:
+            v = next(it)
+            if v.type.ndim != 1 or v.type.dtype == "bool":
+                return False
+            indices.append(v)
+            positions.append(d)
+        elif isinstance(e, (int, np.integer)):
+            return False
+        elif not _full_slice(e):
+            return False
+        d += 1
+    if len(indices) != 2 or positions[1] != positions[0] + 1:
+        return False
+    a1, a2 = positions
+    m1 = _constant_arange_step1(indices[0])
+    m2 = _constant_arange_step1(indices[1])
+    if m1 is None or m2 is None or m1[1] != m2[1]:
+        return False
+    (r_off, n), (c_off, _) = m1, m2
+    if r_off != 0 and c_off != 0:
+        return False
+    dim_a = x.type.shape[a1] if a1 < x.type.ndim else None
+    dim_b = x.type.shape[a2] if a2 < x.type.ndim else None
+    if dim_a is None or dim_b is None:
+        return False
+    if n != min(dim_a - r_off, dim_b - c_off):
+        return False  # partial diagonal: diagonal() can't express it
+    res = diagonal(x, offset=c_off - r_off, axis1=a1, axis2=a2)
+    # diagonal() puts the diagonal last; numpy keeps consecutive advanced
+    # axes in place
+    if a1 != res.type.ndim - 1:
+        from pytensor_tpu_torch.tensor.basic import moveaxis
+
+        res = moveaxis(res, -1, a1)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_adv_idx_to_diagonal,
+                    name="local_adv_idx_to_diagonal")
+
+
+@node_rewriter(None)
+def local_join_subtensors(fgraph, node):
+    """join(axis, x[..., a:b], x[..., b:c]) -> x[..., a:c]
+    (reference :2507): adjacent reads of the same base concatenate to one
+    strided window — removes a copy and a concat kernel."""
+    from pytensor_tpu_torch.tensor.basic import Join
+
+    if not isinstance(node.op, Join):
+        return False
+    axis_in, *parts = node.inputs
+    if len(parts) != 2:
+        return False
+    try:
+        from pytensor_tpu_torch.tensor.basic import get_scalar_constant_value
+
+        axis = int(get_scalar_constant_value(axis_in))
+    except Exception:
+        return False
+    p0, p1 = parts
+    if p0.owner is None or p1.owner is None:
+        return False
+    if not isinstance(p0.owner.op, Subtensor) or \
+            not isinstance(p1.owner.op, Subtensor):
+        return False
+    if p0.owner.inputs[0] is not p1.owner.inputs[0]:
+        return False
+    x = p0.owner.inputs[0]
+    if axis < 0:
+        axis += x.type.ndim
+
+    def static_bounds(snode):
+        """(start, stop) ints of the slice at `axis` when every other
+        entry is a full slice and all parts are static; else None."""
+        res = None
+        d = 0
+        for e in snode.op.idx_list:
+            if isinstance(e, tuple) and e and e[0] == "slice":
+                _, a, b, c = e
+                if d == axis:
+                    if c not in (None, 1) or a == DYN or b == DYN:
+                        return None
+                    if (a is not None and a < 0) or \
+                            (b is not None and b < 0):
+                        return None
+                    res = (a or 0, b)
+                elif not _full_slice(e):
+                    return None
+                d += 1
+            else:
+                return None
+        if d <= axis:
+            return None
+        return res
+
+    b0 = static_bounds(p0.owner)
+    b1 = static_bounds(p1.owner)
+    if b0 is None or b1 is None:
+        return None
+    dim = x.type.shape[axis]
+    (s0, e0), (s1, e1) = b0, b1
+    # adjacency: first slice's stop == second slice's start.  Python
+    # clamping composes consistently ([a,b) ++ [b,c) == [a,c) within
+    # bounds), but a reversed slice (stop < start) would not — require
+    # non-decreasing bounds.
+    if e0 is None:
+        if dim is None or s1 != dim:
+            return None
+    elif s1 != e0 or s0 > e0:
+        return None
+    if e1 is not None and e1 < s1:
+        return None
+    if (s0 or 0) == 0 and e1 is None:
+        res = x
+    else:
+        idx_list = [("slice", None, None, None)] * axis + \
+            [("slice", s0 or None, e1, None)]
+        res = Subtensor(idx_list)(x)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return None
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_join_subtensors, name="local_join_subtensors")
+
+
+# ---------------------------------------------------------------------------
+# round-4 long tail: diag-of-dot fold, constant read-of-write lookup,
+# alloc-increment elision, subtensor through Blockwise batch dims
+# (reference rewriting/subtensor.py:2127,2417; subtensor_lift.py:438,983)
+# ---------------------------------------------------------------------------
+
+@node_rewriter(None)
+def local_extract_diag_of_dot(fgraph, node):
+    """diagonal(A @ B, k) -> (A' * B'.mT).sum(-1) (reference
+    subtensor_lift.py:983 lowers ExtractDiag to a paired-arange gather
+    feeding local_advanced_subtensor_of_dot; here the fold is direct).
+
+    This removes the full O(n^3) product: only the n^2 products on the
+    diagonal survive, as one elemwise product and a reduction.  Fires for
+    Dot and Blockwise(Dot) when the diagonal is over the two core dims
+    and the sliced extents are static.
+    """
+    from pytensor_tpu_torch.tensor.basic import ExtractDiag
+    from pytensor_tpu_torch.tensor.blockwise import Blockwise
+    from pytensor_tpu_torch.tensor.math import Dot
+
+    if not isinstance(node.op, ExtractDiag):
+        return False
+    x = node.inputs[0]
+    if x.owner is None:
+        return False
+    inner_op = x.owner.op
+    if isinstance(inner_op, Dot):
+        batch = 0
+    elif isinstance(inner_op, Blockwise) and \
+            isinstance(inner_op.core_op, Dot):
+        batch = x.type.ndim - 2
+    else:
+        return False
+    if x.type.ndim < 2:
+        return False
+    a1, a2 = node.op.axis1 % x.type.ndim, node.op.axis2 % x.type.ndim
+    k = node.op.offset
+    A, B = x.owner.inputs
+    if A.type.ndim < 2 or B.type.ndim < 2:
+        return False  # matrix-vector dot has no 2-d diagonal
+    if {a1, a2} != {x.type.ndim - 2, x.type.ndim - 1}:
+        return False
+    if a1 > a2:
+        # diagonal(M, k, 1, 0) == diagonal(M.T, k); (A@B).T == B.T@A.T
+        A, B = B.mT if hasattr(B, "mT") else B.T, \
+            A.mT if hasattr(A, "mT") else A.T
+    m = A.type.shape[-2]
+    n = B.type.shape[-1]
+    if m is None or n is None:
+        return False
+    d = min(m + min(0, k), n - max(0, k))
+    if d <= 0:
+        return False  # empty diagonal: leave to shape machinery
+    from pytensor_tpu_torch.tensor.math import sum as t_sum
+
+    if k >= 0:
+        As = A[..., :d, :]
+        Bs = B[..., :, k:k + d]
+    else:
+        As = A[..., -k:-k + d, :]
+        Bs = B[..., :, :d]
+    Bt = Bs.mT if hasattr(Bs, "mT") else Bs.T
+    res = t_sum(As * Bt, axis=-1)
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    if batch and out.type.ndim != res.type.ndim:
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_extract_diag_of_dot,
+                    name="local_extract_diag_of_dot")
+
+
+def _const_1d_int_index(v):
+    """The numpy int array behind a constant 1-d integer/bool index, or
+    None."""
+    from pytensor_tpu_torch.graph.basic import Constant
+
+    if not isinstance(v, Constant):
+        return None
+    data = np.asarray(v.data)
+    if data.ndim != 1:
+        return None
+    if data.dtype == np.bool_:
+        return np.flatnonzero(data)
+    if data.dtype.kind not in "iu":
+        return None
+    return data.astype(np.int64)
+
+
+@node_rewriter([AdvancedSubtensor1, Subtensor])
+def local_advanced_read_of_write_constant_indices(fgraph, node):
+    """x[w_idx].set/inc(v)[r_idx] with CONSTANT index vectors -> a
+    host-computed lookup (reference rewriting/subtensor.py:2127,
+    single-advanced-axis case).
+
+    set: full coverage -> v[lookup]; none -> x[r_idx]; partial -> mix.
+    inc: requires duplicate-free writes; full -> x[r_idx] + v[lookup].
+    Kills both the scatter and the gather when the graph writes then
+    reads disjoint or aligned constant index sets.  Also matches an
+    axis-0 constant-slice read (what ``local_adv_idx_to_slice`` turns a
+    constant arange read into).
+    """
+    from pytensor_tpu_torch.tensor.basic import alloc, as_tensor_variable, cast
+
+    inner = node.inputs[0]
+    if inner.owner is None or \
+            not isinstance(inner.owner.op, AdvancedIncSubtensor1):
+        return False
+    if isinstance(node.op, Subtensor):
+        # a single constant axis-0 slice over a statically-sized write
+        idx_list = node.op.idx_list
+        dim = inner.type.shape[0] if inner.type.ndim else None
+        if (len(node.inputs) != 1 or dim is None or len(idx_list) != 1
+                or not (isinstance(idx_list[0], tuple)
+                        and idx_list[0][0] == "slice")):
+            return False
+        _, a, b, c = idx_list[0]
+        if any(x is not None and not isinstance(x, int) for x in (a, b, c)):
+            return False
+        r_arr = np.arange(dim, dtype=np.int64)[slice(a, b, c)]
+    else:
+        r_arr = _const_1d_int_index(node.inputs[1])
+    if r_arr is None or (r_arr < 0).any():
+        return False
+    base, v = inner.owner.inputs[0], inner.owner.inputs[1]
+    w_arr = _const_1d_int_index(inner.owner.inputs[2])
+    if w_arr is None or (w_arr < 0).any():
+        return False
+    is_set = inner.owner.op.set_instead_of_inc
+    n_write = len(w_arr)
+    write_dict = {}
+    for kk in range(n_write):
+        coord = int(w_arr[kk])
+        if not is_set and coord in write_dict:
+            return False  # inc with duplicate writes: keep the scatter
+        write_dict[coord] = kk
+    lookup = np.array([write_dict.get(int(rc), -1) for rc in r_arr],
+                      dtype=np.int64)
+    covered = lookup >= 0
+    out = node.outputs[0]
+    read_idx = as_tensor_variable(r_arr)
+
+    # bring v to its natural (n_write, *base.shape[1:]) shape so the
+    # advanced axis can be indexed directly
+    def natural_v():
+        vv = v
+        tail = [base.shape[i] for i in range(1, base.type.ndim)]
+        vv = alloc(vv, as_tensor_variable(np.int64(n_write)), *tail)
+        if vv.type.dtype != out.type.dtype:
+            vv = cast(vv, out.type.dtype)
+        return vv
+
+    if is_set:
+        if covered.all():
+            res = natural_v()[as_tensor_variable(lookup)]
+        elif not covered.any():
+            res = base[read_idx]
+        else:
+            base_part = base[read_idx]
+            sub = natural_v()[as_tensor_variable(lookup[covered])]
+            res = AdvancedIncSubtensor1(set_instead_of_inc=True)(
+                base_part, sub,
+                as_tensor_variable(np.flatnonzero(covered)))
+    else:
+        base_part = base[read_idx]
+        if not covered.any():
+            res = base_part
+        elif covered.all():
+            res = base_part + natural_v()[as_tensor_variable(lookup)]
+        else:
+            sub = natural_v()[as_tensor_variable(lookup[covered])]
+            res = AdvancedIncSubtensor1(set_instead_of_inc=False)(
+                base_part, sub,
+                as_tensor_variable(np.flatnonzero(covered)))
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_advanced_read_of_write_constant_indices,
+                    name="local_advanced_read_of_write_constant_indices")
+
+
+@node_rewriter([IncSubtensor, AdvancedIncSubtensor, AdvancedIncSubtensor1])
+def local_useless_inc_subtensor_alloc(fgraph, node):
+    """inc/set_subtensor(x[idx], alloc(z, ...)) -> drop the alloc when
+    the static shapes prove z broadcasts to x[idx] (reference
+    rewriting/subtensor.py:2417; the reference adds runtime Asserts for
+    unprovable dims — here the rewrite simply declines, keeping it
+    shape-safe by construction)."""
+    from pytensor_tpu_torch.tensor.basic import Alloc
+
+    x, y = node.inputs[0], node.inputs[1]
+    if y.owner is None or not isinstance(y.owner.op, Alloc):
+        return False
+    z = y.owner.inputs[0]
+    # the written block x[idx]
+    if isinstance(node.op, IncSubtensor):
+        xi = Subtensor(node.op.idx_list)(x, *node.inputs[2:])
+    elif isinstance(node.op, AdvancedIncSubtensor1):
+        xi = AdvancedSubtensor1()(x, node.inputs[2])
+    else:
+        xi = AdvancedSubtensor(node.op.idx_list)(x, *node.inputs[2:])
+    if z.type.ndim > xi.type.ndim:
+        return False
+    # prove every y-dim is either 1 (inc_subtensor broadcasts it) or
+    # statically equal to the block's dim
+    offset = xi.type.ndim - y.type.ndim
+    for kk in range(y.type.ndim):
+        ys = y.type.shape[kk]
+        xs = xi.type.shape[kk + offset]
+        if ys == 1:
+            continue
+        if ys is None or xs is None or ys != xs:
+            return False
+    # and z itself must broadcast into y's shape (alloc guarantees the
+    # values; we only need shape-compatibility for the replacement)
+    zoff = y.type.ndim - z.type.ndim
+    for kk in range(z.type.ndim):
+        zs = z.type.shape[kk]
+        ys = y.type.shape[kk + zoff]
+        if zs == 1 or zs == ys:
+            continue
+        return False
+    res = node.op(x, z, *node.inputs[2:])
+    out = node.outputs[0]
+    if not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_useless_inc_subtensor_alloc,
+                    name="local_useless_inc_subtensor_alloc")
+
+
+@node_rewriter([Subtensor])
+def local_subtensor_of_batch_dims(fgraph, node):
+    """blockwise(a, b, ...)[batch_idx] -> blockwise(a[idx'], b[idx'])
+    (reference subtensor_lift.py:438): indexing only batch dims commutes
+    with the blockwise, so compute on the smaller block."""
+    from pytensor_tpu_torch.tensor.blockwise import Blockwise
+
+    x = node.inputs[0]
+    if x.owner is None or not isinstance(x.owner.op, Blockwise):
+        return False
+    if len(fgraph.clients.get(x, ())) != 1:
+        return False
+    op = x.owner.op
+    out_core = len(op.outputs_sig[0])
+    if len(x.owner.outputs) != 1:
+        return False
+    batch_ndim = x.type.ndim - out_core
+    idx_list = node.op.idx_list
+    if len(idx_list) > batch_ndim:
+        return False
+    pairs = _split_dyn(idx_list, node.inputs[1:])
+    in_core = [len(s) for s in op.inputs_sig]
+    new_inputs = []
+    for i, core in zip(x.owner.inputs, in_core):
+        ib = i.type.ndim - core
+        offset = batch_ndim - ib
+        entries, dyns = [], []
+        ok = True
+        for kk, (e, ed) in enumerate(pairs):
+            if kk < offset:
+                continue  # input broadcasts over this leading batch dim
+            d = kk - offset
+            if i.type.shape[d] == 1 and x.type.shape[kk] != 1:
+                if isinstance(e, tuple) and e[0] == "slice":
+                    entries.append(FULL)
+                else:
+                    entries.append(0)
+                continue
+            if i.type.shape[d] is not None and \
+                    x.type.shape[kk] is not None and \
+                    i.type.shape[d] == x.type.shape[kk]:
+                entries.append(e)
+                dyns.extend(ed)
+                continue
+            if e == FULL:
+                entries.append(e)
+                continue
+            ok = False
+            break
+        if not ok:
+            return False
+        while entries and entries[-1] == FULL:
+            entries.pop()
+        new_inputs.append(
+            Subtensor(entries)(i, *dyns) if entries else i)
+    res = x.owner.op(*new_inputs)
+    if isinstance(res, (list, tuple)):
+        res = res[0]
+    out = node.outputs[0]
+    if res.type.dtype != out.type.dtype or not out.type.is_super(res.type):
+        return False
+    copy_stack_trace(out, res)
+    return [res]
+
+
+register_specialize(local_subtensor_of_batch_dims,
+                    name="local_subtensor_of_batch_dims")

@@ -1,10 +1,9 @@
 """Tensor utilities.
 
 Counterpart of ``pytensor_tpu/tensor/utils.py`` (PyTensor's
-tensor/utils.py): ``hash_from_ndarray``, ``shape_of_variables`` and the
-normalizers op constructors use.  ``shape_of_variables`` evaluates the
-shapes on the CPU through the torch linker: the port has no
-``ShapeFeature`` yet (ROADMAP Queue 1 item 6).
+tensor/utils.py): ``hash_from_ndarray``, ``shape_of_variables`` (through
+the ``ShapeFeature``, as the JAX package's) and the normalizers op
+constructors use.
 """
 
 
@@ -131,19 +130,46 @@ def get_static_shape_from_size_variables(size_vars):
 
 
 def shape_of_variables(fgraph, input_shapes):
-    """Numeric shapes of every tensor variable in ``fgraph`` given input
-    shapes (PyTensor's tensor/utils.py:43): the graph's shapes evaluated on
-    zeros of those shapes, on the CPU."""
-    from pytensor_tpu_torch.graph.fg import FunctionGraph
-    from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
-    from pytensor_tpu_torch.link.torch.convert import as_torch
-    from pytensor_tpu_torch.tensor.shape import shape
-    from pytensor_tpu_torch.tensor.type import TensorType
+    """Numeric shapes of every variable in ``fgraph`` given input shapes
+    (PyTensor's tensor/utils.py:43).
 
-    variables = [v for v in fgraph.variables if isinstance(v.type, TensorType)]
-    outs = [shape(v) for v in variables]
-    plan = fgraph_to_torch(FunctionGraph(list(fgraph.inputs), outs, clone=True), "cpu")
-    args = [as_torch(np.zeros(tuple(input_shapes[i]), dtype=i.type.dtype), "cpu")
-            for i in fgraph.inputs]
-    vals = plan(*args)
-    return {v: tuple(np.asarray(int(d)) for d in s.tolist()) for v, s in zip(variables, vals)}
+    Attaches a ``ShapeFeature`` (mutates the fgraph), resolves each
+    variable's symbolic shape tuple, and evaluates the non-static entries
+    as one function of the inputs, linked for the CPU (shapes are host
+    values).
+    """
+    from pytensor_tpu_torch.graph.basic import Variable
+    from pytensor_tpu_torch.tensor.rewriting.shape import ShapeFeature
+
+    if not hasattr(fgraph, "shape_feature"):
+        fgraph.attach_feature(ShapeFeature())
+    sf = fgraph.shape_feature
+
+    sym = {}
+    dim_vars = {}
+    for var in fgraph.variables:
+        st = sf.shape_tuple(var)
+        sym[var] = st
+        if st is not None:
+            for e in st:
+                if isinstance(e, Variable):
+                    dim_vars[e] = None
+
+    val_map = {}
+    if dim_vars:
+        from pytensor_tpu_torch.compile.maker import function
+
+        dims = list(dim_vars)
+        f = function(list(fgraph.inputs), dims, on_unused_input="ignore", device="cpu")
+        args = [np.zeros(tuple(input_shapes[i]), dtype=i.type.dtype) for i in fgraph.inputs]
+        vals = f(*args)
+        if len(dims) == 1:
+            vals = [vals]
+        val_map = {d: np.asarray(v) for d, v in zip(dims, vals)}
+
+    out = {}
+    for var, st in sym.items():
+        if st is None:
+            continue
+        out[var] = tuple(val_map[e] if isinstance(e, Variable) else np.asarray(e) for e in st)
+    return out

@@ -3,8 +3,6 @@
 Counterpart of ``pytensor_tpu/tensor/variable.py`` (PyTensor's
 tensor/variable.py _tensor_py_operators:26, TensorVariable:838,
 TensorConstant:1020).
-``dprint`` needs ``printing.py``, which the port has not yet (ROADMAP
-Queue 1 item 6), and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -392,7 +390,7 @@ class _tensor_py_operators:
         return _tb().cast(self, dtype)
 
     def dprint(self, **kwargs):
-        raise NotImplementedError("dprint needs printing.py, which the port has not yet")
+        from pytensor_tpu_torch.printing import debugprint
 
         return debugprint(self, **kwargs)
 

@@ -88,3 +88,16 @@ def add_tag_trace(thing):
     tr = [t for t in tr if "pytensor_tpu" not in (t.filename or "")]
     thing.tag.trace = [tr]
     return thing
+
+
+def difference(seq1, seq2):
+    """Elements of seq1 not in seq2, preserving order."""
+    s2 = set(seq2)
+    return [x for x in seq1 if x not in s2]
+
+
+def to_return_values(values):
+    """A one-element list as its element, else the list itself."""
+    if len(values) == 1:
+        return values[0]
+    return values

@@ -1685,3 +1685,87 @@ def test_a_copy_replays_its_own_shared_tensors(card):
     assert torch.equal(s.get_value(), s_before)  # neither copy moved the original's
     assert torch.equal(t.get_value(), torch.full((4,), 43.0, device=card))
     assert type(g.linked).__name__ == "CapturedFunction" and g.linked is not f.linked
+
+
+def _k1_nodes_match_plain(f, args, dtype):
+    """Each FusedElemwise node of ``f``'s graph launched on the inputs the
+    graph gives it, against its plain version."""
+    from pytensor_tpu_torch.graph.fg import FunctionGraph as FG
+
+    fg = f.maker.fgraph
+    nodes = [nd for nd in fg.toposort() if isinstance(nd.op, FusedElemwise)]
+    needed = [i for nd in nodes for i in nd.inputs]
+    values = iter(fgraph_to_torch(FG(fg.inputs, needed, clone=False), args[0].device)(*args))
+    for nd in nodes:
+        ins = [next(values) for _ in nd.inputs]
+        kern = fused_kernel.FusedElemwiseKernel(nd.op.fgraph, args[0].device)
+        for got, want in zip(kern.launch(*ins), kern.plain(*ins)):
+            got, want = got.cpu(), want.cpu()  # a host value's plain result is on the host
+            fin = torch.isfinite(want)
+            np.testing.assert_array_equal(got[~fin].numpy(), want[~fin].numpy())
+            assert _scaled(got[fin].double(), want[fin].double()) <= K1_RTOL[dtype], str(nd.op)
+    return len(nodes)
+
+
+@pytest.mark.parametrize("family", ["shape", "basic", "subtensor", "math"])
+def test_rewrite_probe_graphs_on_the_card(card, family):
+    """The probe graphs of ``link/cuda/rewrite_cases.py`` (side 64, float32)
+    linked for the card: the ops of the same graph linked for the CPU, its
+    values within K1's float32 tolerance of the CPU's (the products and
+    sums at 1e-5 of max(1, max|cpu|)), each K1 node against its plain
+    version."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.compile.mode import get_mode
+    from pytensor_tpu_torch.link.cuda.rewrite_cases import CASES
+
+    for case in [c for c in CASES if c.family == family]:
+        vals = case.inputs(64, "float32")
+        fs = {}
+        for dev in (card, "cpu"):
+            ins = [pt.tensor(f"x{k}", dtype=np.asarray(v).dtype, shape=(None,) * np.ndim(v))
+                   for k, v in enumerate(vals)]
+            fs[str(dev)] = ptt.function(ins, case.build(pt, 64, *ins),
+                                        mode=get_mode(None).excluding(*case.exclude),
+                                        device=dev)
+        f, cpu = fs[str(card)], fs["cpu"]
+        assert [type(n.op) for n in f.maker.fgraph.toposort()] == \
+            [type(n.op) for n in cpu.maker.fgraph.toposort()], case.label
+        args = [as_torch(v, card) for v in vals]
+        got, want = f(*args).cpu(), cpu(*vals)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if got.dtype.is_floating_point:
+            fin = torch.isfinite(want)
+            np.testing.assert_array_equal(got[~fin].numpy(), want[~fin].numpy(), case.label)
+            assert _scaled(got[fin].double(), want[fin].double()) <= 1e-5, case.label
+        else:
+            assert torch.equal(got, want), case.label
+        _k1_nodes_match_plain(f, args, "float32")
+
+
+def test_print_on_the_card_prints_once_a_call(card, capsys):
+    """A plan holding ``Print`` runs eagerly on the card (``reads_back``)
+    and prints the value once a call; the values are the CPU's."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.printing import Print
+
+    x = pt.dvector("x")
+    y = Print("y")(pt.exp(x) * 2)
+    f = ptt.function([x], [y.sum(), y + 1], device=card)
+    assert not isinstance(f.linked, CapturedFunction)
+    assert any("Print" in r for r in f.linked.host_reads)
+    v = np.array([0.0, 1.0])
+    for _ in range(3):
+        s, t = f(as_torch(v, card))
+    out = capsys.readouterr().out
+    assert out.count("y [") == 3 and out.splitlines()[0] == f"y {np.exp(v) * 2}"
+    assert abs(float(s) - float((np.exp(v) * 2).sum())) <= 1e-15 * 8
+
+
+def test_check_blas_on_the_card(card):
+    from pytensor_tpu_torch.misc.check_blas import execute
+
+    for dtype in ("float32", "bfloat16"):
+        assert execute(N=512, iters=3, dtype=dtype, verbose=False, device=card) > 0

@@ -364,13 +364,11 @@ def test_misc_helpers():
 
 def test_the_jax_packages_names_are_here():
     """Every name the JAX package's scalar namespace takes from compatnames,
-    but its graph-level re-exports the port has no module for."""
+    its graph-level re-exports included."""
     from pytensor_tpu.scalar import compatnames as jcn
 
-    absent = {"pprint", "disconnected_type", "HasDataType", "HasShape", "applys_between",
-              "difference", "to_return_values"}
     names = {n for n in vars(jcn) if not n.startswith("_")} | set(jcn._LAZY_COMPAT)
-    missing = sorted(n for n in names - absent
+    missing = sorted(n for n in names
                      if not hasattr(tps, n) and n not in ("builtins", "np", "annotations",
                                                           "config"))
     assert not missing, missing
