@@ -5,8 +5,9 @@ library tail (the einsum loop, the scan rows, the new lowerings),
 optimize and complex (the logistic-regression MAP, a periodogram),
 random (threefry, the HMC transitions), loop-sampler (jax's gamma,
 Poisson and binomial loops, the RBM Gibbs chain), while-scan, compile
-driver and graph-layer (the rewrite probe, printing, the destroy
-handler) paths on one NVIDIA GPU.
+driver, graph-layer (the rewrite probe, printing, the destroy
+handler) and control and debug (IfElse, asserts, the debug modes, typed
+lists) paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -14,12 +15,12 @@ Phases, one line or more each, and any failure raises:
 
 1. device: require CUDA; print the card's name and power limit.
 2. build: the fused elementwise kernels (K1) of the four radon graphs in
-   one library, the radon leapfrog kernel (K3), its stamped variant and
-   both again with every county's rows in shared memory, the whole-loop
-   scan kernel (K2) of the leapfrog chain at full width, K2's stamped
-   variant and the CSR matvec kernel (K4), with nvcc, the compilers
-   started together; print K2's loops, barriers, arena bytes, placement
-   and source sha256, each build's seconds and the ``-Xptxas -v``
+   one library, the radon leapfrog kernel (K3), the whole-loop scan kernel
+   (K2) of the leapfrog chain at full width and the CSR matvec kernel
+   (K4), with nvcc, the compilers started together, and K3 built to walk
+   every county's rows from shared memory (K3's and K2's stamped
+   variants, diagnostics of their redesigns, are no longer built); print K2's loops, barriers, arena bytes,
+   placement and source sha256, each build's seconds and the ``-Xptxas -v``
    register and spill lines (for K1, a summary of each library's).  With
    them: K1 for one fused node a dtype holding every scalar op of the
    expression table, K2 for three scans of the slice's new ops, and the K1
@@ -38,11 +39,9 @@ Phases, one line or more each, and any failure raises:
    version's bits, the others within ``K1_RTOL``.
 4. K3: the leapfrog chain at full width (919 observations, 85 counties),
    1,024 steps, held against its plain torch version; sha256 digests of
-   its outputs (one chain and 1,024 chains), the same kernel walking every
-   county from shared memory (bit-identical, and its time), and K3's step
-   split by part from the stamped variants (block 0's thread 0's
-   ``clock64()`` after each part of steps 16-31; the stamped launch must
-   give K3's bits).
+   its outputs (one chain and 1,024 chains).  The build that walks every
+   county's rows from shared memory (the path a county of more than
+   ``K3_ROW_CAP`` rows takes) must give K3's bits.
 5. slice: ``entry("cuda")`` logp and dlogp against a float64 NumPy
    evaluation of the closed form; the batched graph at 1,024 chains; 64
    leapfrog steps through ``leapfrog()``; then one trajectory through K3's
@@ -55,10 +54,7 @@ Phases, one line or more each, and any failure raises:
 6. K2: the chain of ``make_leapfrog_chain`` at full width, one float32
    chain, 64 steps: K2 (one launch) against its plain step loop on the
    card, and the chain against the float64 loop; relative errors of
-   theta, m and logp.  Then K2's step split by op: the stamped variant
-   (thread 0's ``clock64()`` after each loop and barrier of steps 16-31),
-   which must give K2's bits, as cycles a step by op class and the ten
-   costliest loops with their lines in the generated source.  Then K2 on
+   theta, m and logp.  Then K2 on
    ``tanh(dot(W, acc))`` with a 5 x 5 W, on a body of Dot22, Gemm and
    Dot22Scalar and on a body of Join, Split, ARange, DeepCopyOp and
    ViewOp, each against its step loop (``K2_CASE_TOL``).
@@ -323,12 +319,10 @@ Phases, one line or more each, and any failure raises:
    time beside its plain version's and torch's sampler of the same
    distribution (other bits), the threefry hashes the draw needs (its
    plain version's tally, and the split's two) and its bound; the gamma kernel
-   built with ``-fmad=false`` against the plain loops, by alpha; (e) the
-   stamped variants' split of the Poisson and binomial kernels' draw at
-   the Gibbs visible draw and at 2**20 (``loop_split``: the sources built
-   with ``-DLOOP_STAMPS``, each thread's ``clock64()`` cycles by slot, a
-   warp's active lanes, the hashes the threads made against those the
-   draw needs); (f) with ``--parent DIR``, DIR's ``csrc/poisson.cu`` and
+   built with ``-fmad=false`` against the plain loops, by alpha (the
+   stamped variants' split of the draws, ``-DLOOP_STAMPS``, is no longer
+   run: a diagnostic of the kernels' redesigns); (f) with ``--parent
+   DIR``, DIR's ``csrc/poisson.cu`` and
    ``csrc/binomial.cu`` built with their own headers (``parent_loops``,
    which calls the two-pass C entry of the loop kernels' first tree or the
    one-launch entry of this one, and refuses another), their draws
@@ -397,6 +391,32 @@ Phases, one line or more each, and any failure raises:
    destroyers in a cycle refused.  (d) ``misc/check_blas.py``'s GEMM at
    4,096 in float32 and bfloat16 (cuBLAS; GFLOP/s).  K1's and K2's
    ``launches_by_path`` gain ``graph`` and the paths of (b) and (c).
+24. control and debug ops (``phase_control``; its K1 kernels from
+   ``control_kernels``, built in phase 2's pool): (a) the guarded radon
+   function of ``models/radon.py guarded_graphs`` (919/85, float64 and
+   float32: ``ifelse(all(isfinite(theta)), [logp, dlogp], [-inf, 0])``,
+   an assert the assumptions prove and one on the data): its ``IfElse``
+   and ``CheckAndRaise`` nodes as on the CPU; at a finite theta K1
+   launches as the unguarded function does (captured), with its bits, and
+   the two conditions' own fused nodes, and so does the float64 function
+   with the asserts alone (captured, its flags read after each replay);
+   at a theta holding a NaN only the condition's node, and -inf and
+   zeros; observations holding an inf raising the data assert's
+   message and node from both; the float64 values against the CPU
+   (``CONTROL_RTOL``); ms a call of each in turn and the host's reads of
+   a guarded call in ``torch.profiler``.  (b) A nested ``ifelse`` whose
+   untaken branches hold a counting probe op: the probe runs only where
+   its branch is taken.  (c) ``DebugMode`` on the float64 radon function:
+   every node held against its oracle, each K1 node against its plain
+   version (launched once a node), ms a call; a toy op's wrong lowering
+   raising ``BadThunkOutput``; a rewrite that scales ``exp`` named by
+   ``BadOptimization``.  (d) ``NanGuardMode`` at a NaN theta raising the
+   CPU's message, ms a call at a finite one; (e) ``MonitorMode``'s
+   callback seeing every node once a call; (f) each typed-list op on a
+   list of four thetas against the CPU, and whether its plan captures;
+   (g) ``PdbBreakpoint`` with its debugger replaced by a counter, firing
+   only where its condition holds, with the card's values.  K1's
+   ``launches_by_path`` gains the ``control`` paths.
 
 Three clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -700,47 +720,6 @@ def inner_ops(fgraph):
     return total
 
 
-def k2_stamp_breakdown(kern, k2_ms, plain_outs, n_steps, outer):
-    """Phase 6's split of K2's step by op, from the stamped variant: thread
-    0's clock64() after each op and barrier of steps STAMP_FROM.., as
-    cycles a step by op class and the ten costliest ops with their lines in
-    the generated source.  The stamps change no arithmetic, so the stamped
-    launch must give K2's bits."""
-    import torch
-    from pytensor_tpu_torch.link.cuda.scan_kernel import STAMP_FROM, STAMP_STEPS
-
-    got = kern.launch(n_steps, *outer)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, plain_outs)):
-        raise AssertionError("the stamped K2 differs from K2")
-    stamped_ms = wall_ms(lambda: kern.launch(n_steps, *outer), 3)
-    cyc = kern.stamp_buf.cpu().numpy().astype("float64")
-    labels = kern.src.stamp_labels
-    if not (np.all(cyc > 0) and np.all(np.diff(cyc, axis=1) >= 0)):
-        raise AssertionError("K2's stamps are missing or out of order")
-    per_op = np.diff(cyc, axis=1).mean(axis=0)  # stamp k - stamp k-1, k >= 1
-    step = float(cyc[:, -1].mean() - cyc[:, 0].mean())
-    steps = int(n_steps)
-    us_step = stamped_ms / steps * 1e3
-    lines = kern.src.source.splitlines()
-    at = {int(ln.split("K2_STAMP(")[1].split(")")[0]): no + 1
-          for no, ln in enumerate(lines) if "K2_STAMP(" in ln and "#define" not in ln}
-    by_class: dict = {}
-    for k, (cls, _) in enumerate(labels[1:], start=1):
-        c, n = by_class.get(cls, (0.0, 0))
-        by_class[cls] = (c + per_op[k - 1], n + 1)
-    say(f"K2 stamps (thread 0's clock64(), steps {STAMP_FROM}-{STAMP_FROM + STAMP_STEPS - 1} "
-        f"of {steps}): {step:.0f} cycles a step; the stamped launch {us_step:.2f} us/step "
-        f"wall, K2 {k2_ms / steps * 1e3:.2f} us/step device; {len(labels) - 1} stamps a step")
-    for cls, (c, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
-        say(f"  {cls:14s} {n:4d} stamps {c:10.0f} cycles/step {c / step:6.3f} of the step "
-            f"(~{c / step * us_step:.2f} us)")
-    say("  top 10 ops (cycles/step, class, source lines, op):")
-    for k in sorted(range(1, len(labels)), key=lambda k: -per_op[k - 1])[:10]:
-        first = at[k - 1] + 1
-        say(f"    {per_op[k - 1]:8.0f}  {labels[k][0]:14s} lines {first}-{at[k]}  {labels[k][1]}")
-
-
 def k4_ms(launch, n_iter, cold=False):
     """Device time a launch of K4's kernel alone, from the profile; with
     ``cold``, the L2 flushed before each launch (``flush_l2``)."""
@@ -858,41 +837,6 @@ def captured_vs_eager(tag, captured, eager, functions, n_iter, n_dev=None, extra
         + ", ".join(f"{g.warmup_s:.3f}" for g in graphs) + " s, capture "
         + ", ".join(f"{g.capture_s:.3f}" for g in graphs) + f" s{extra}")
     return row
-
-
-def k3_stamp_breakdown(data, th0, m0, want, k3_ms, tag="K3", flags=()):
-    """K3's step split by part, from the stamped variant (of the build that
-    ``flags`` pick): block 0's thread 0 records clock64() after each part of
-    steps STAMP_FROM.. of the 1,024-step chain.  The stamps change no
-    arithmetic, so the stamped launch must give K3's bits."""
-    import torch
-    from pytensor_tpu_torch.models import radon_kernel
-
-    labels = radon_kernel.stamp_labels()
-    buf = torch.zeros((radon_kernel.STAMP_STEPS, len(labels)), dtype=torch.int64,
-                      device=th0.device)
-
-    def run():
-        return radon_kernel.leapfrog_launch(th0, m0, data, K3_STEPS, EPS, stamps=buf,
-                                            flags=flags)
-
-    got = run()
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError(f"the stamped {tag} differs from K3")
-    stamped_ms = wall_ms(run, 5)
-    cyc = buf.cpu().numpy().astype("float64")
-    if not (np.all(cyc > 0) and np.all(np.diff(cyc, axis=1) >= 0)):
-        raise AssertionError("K3's stamps are missing or out of order")
-    step = float(np.diff(cyc[:, 0]).mean())
-    parts = np.diff(cyc, axis=1).mean(axis=0)
-    rest = step - float(parts.sum())
-    say(f"{tag} stamps (block 0's thread 0, clock64(), steps {radon_kernel.STAMP_FROM}-"
-        f"{radon_kernel.STAMP_FROM + radon_kernel.STAMP_STEPS - 1} of {K3_STEPS}): "
-        f"{step:.0f} cycles a step; the stamped launch {stamped_ms / K3_STEPS * 1e3:.3f} us/step "
-        f"wall, K3 {k3_ms / K3_STEPS * 1e3:.3f} us/step device; bit-identical to K3")
-    for label, c in zip(labels[1:] + ["to the next step"], list(parts) + [rest]):
-        say(f"  {label:28s} {c:8.0f} cycles/step {c / step:6.3f} of the step")
 
 
 # --- the logistic-regression and MLP slice ----------------------------------------
@@ -4986,167 +4930,6 @@ def loop_capture_holds(dev):
     return list(cases)
 
 
-# the stamped variant's slots (csrc/loops.cuh): cycles, then counts
-LOOP_CYCLE_SLOTS = ("chain", "dummy", "own loop", "rejection", "rest")
-LOOP_COUNT_SLOTS = ("dummy passes", "own passes", "rejection passes", "hashes", "chain hashes")
-
-
-def loop_stamped(mod):
-    """The stamped variant of a loop kernel (its source built with
-    ``-DLOOP_STAMPS``; csrc/loops.cuh), bound as the kernel is: (seconds,
-    library, build log)."""
-    from pytensor_tpu_torch.link.cuda.build import build_csrc
-
-    t0 = time.perf_counter()
-    lib, log = build_csrc(mod.SOURCE.stem, mod.HEADERS, True, (*mod.FLAGS, "-DLOOP_STAMPS"))
-    mod.bind(lib)
-    lib.loop_stamps_at.argtypes = [ctypes.c_void_p]
-    lib.loop_stamps_at.restype = ctypes.c_int
-    return time.perf_counter() - t0, lib, log
-
-
-def kernel_ms(name, fn, n_iter):
-    """The device ms a call of the kernels whose names hold ``name`` (the
-    whole call's from CUDA events where the trace held no kernel at all);
-    raises where the trace holds kernels but none of that name."""
-    total, by = device_ms(fn, n_iter)
-    if not by:
-        return total
-    if not any(name in kn for kn in by):
-        raise AssertionError(f"torch.profiler traced no kernel named {name!r}: {sorted(by)}")
-    return sum(ms for kn, (ms, _) in by.items() if name in kn)
-
-
-def stamp_report(r, cycles, counts, lanes):
-    """The split of a stamped launch from its threads' rows ``r`` (one a
-    thread, ``LOOP_SLOTS`` columns): ``cycles`` and ``counts`` name the
-    columns of each kind, one of the cycles "rest" (loads, stores, waiting);
-    ``lanes`` the counts of passes whose active lanes are reported (a
-    warp's lanes' passes against 32 times its largest lane's).  "warps": a
-    slot as long as a warp's slowest lane there, the rest waiting."""
-    names = list(cycles)
-    cyc = r[:, list(cycles.values())]
-    total = cyc.sum()
-    wcyc = cyc.reshape(-1, 32, cyc.shape[1])
-    elapsed = wcyc.sum(axis=2).max(axis=1)
-    warp_share = {}
-    if elapsed.sum():
-        warp_share = {c: float(wcyc[:, :, j].max(axis=1).sum() / elapsed.sum())
-                      for j, c in enumerate(names) if c != "rest"}
-        warp_share["rest"] = 1.0 - sum(warp_share.values())
-    active = {}
-    for c in lanes:
-        w = r[:, counts[c]].reshape(-1, 32)
-        if w.max(axis=1).sum():
-            active[c] = float(w.sum() / (32 * w.max(axis=1).sum()))
-    return {"share": {c: float(cyc[:, j].sum() / total) if total else 0.0
-                      for j, c in enumerate(names)},
-            "warp_share": warp_share,
-            "slowest_thread_us": float(cyc.sum(axis=1).max() / (SM_CLOCKS_S / 132) * 1e6),
-            "active_lanes": active, "counts": {c: int(r[:, j].sum()) for c, j in counts.items()}}
-
-
-def stamp_rows(n, dev, lib):
-    """A zeroed buffer of stamped rows for a launch on ``n`` elements, set
-    as the stamped library's target."""
-    import torch
-
-    buf = torch.zeros((-(-n // 256) * 256 + 1024, len(LOOP_CYCLE_SLOTS) + len(LOOP_COUNT_SLOTS)),
-                      dtype=torch.int64, device=dev)
-    if lib.loop_stamps_at(buf.data_ptr()) != 0:
-        raise AssertionError("loop_stamps_at failed")
-    return buf
-
-
-def loop_split(kernel, args, dev, lib, needed):
-    """The split of a Poisson or binomial draw on ``args`` (one launch) by
-    its stamped variant ``lib``: the launch's device time (unstamped, and
-    stamped), the share of the threads' cycles by slot, the slowest
-    thread's cycles at the SM clock, each loop's passes by warp (largest
-    lane against the mean: the active lanes), and the hashes the threads
-    made against ``needed`` (the plain version's tally)."""
-    import torch
-
-    from pytensor_tpu_torch.link.cuda import binomial_kernel, loop_state, poisson_kernel
-
-    mod = poisson_kernel if kernel == "poisson" else binomial_kernel
-    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
-    n = args[0].numel()
-    out = torch.empty(n, dtype=torch.int64, device=dev)
-    state = torch.empty(loop_state.STATE_WORDS, dtype=torch.int32, device=dev)
-    buf = stamp_rows(n, dev, lib)
-    mod.run(key, *args, out, state, lib=lib)
-    r = buf.cpu().numpy().astype("float64")
-    # the stamped launches timed below stamp into a buffer of their own
-    sink = stamp_rows(n, dev, lib)
-    want = mod.launch(key, *args, torch.int64) if kernel == "binomial" else mod.launch(key, *args)
-    if not torch.equal(out, want):
-        raise AssertionError(f"{kernel}: the stamped variant's draws differ from the kernel's")
-    plain_ms = kernel_ms(kernel, lambda: mod.run(key, *args, out, state), 50)
-    stamped_ms = kernel_ms(kernel, lambda: mod.run(key, *args, out, state, lib=lib), 10)
-    nc = len(LOOP_CYCLE_SLOTS)
-    report = stamp_report(r, {c: j for j, c in enumerate(LOOP_CYCLE_SLOTS)},
-                          {c: nc + j for j, c in enumerate(LOOP_COUNT_SLOTS)}, LOOP_COUNT_SLOTS[:3])
-    del sink
-    return {"one launch": {"ms": plain_ms, "stamped_ms": stamped_ms, **report, "needed": needed}}
-
-
-# the gamma kernel's stamped slots (csrc/gamma.cu G_*): cycles, then counts
-GAMMA_CYCLE_SLOTS = ("key setup", "outer hashes", "inner hashes, erfinv", "test logs", "rest",
-                     "tail")
-GAMMA_COUNT_SLOTS = ("outer passes", "inner passes", "boosted", "hashes")
-# the gamma kernel's designs: the first, one element a thread (the stamped
-# variant's gamma_serial_draw), and the kernel's
-GAMMA_ENTRIES = {"serial": "gamma_serial_draw", "kernel": "gamma_draw"}
-
-
-def gamma_split(alpha, dev, lib, needed, design):
-    """The split of a gamma draw of ``alpha`` by the stamped variant
-    ``lib``, for ``design`` (``GAMMA_ENTRIES``): as ``loop_split``, the
-    active lanes of each kind of pass and of the boosted draws' tail.  The
-    draw must be the kernel's, bit for bit; "ms" is the unstamped kernel's
-    (its own design only)."""
-    import torch
-
-    from pytensor_tpu_torch.link.cuda import gamma_kernel
-
-    key = torch.tensor([0x13198A2E, 0x03707344], dtype=torch.int64, device=dev)
-    out = torch.empty_like(alpha)
-    entry = GAMMA_ENTRIES[design]
-    buf = stamp_rows(alpha.numel(), dev, lib)
-    gamma_kernel.run(key, alpha, out, lib=lib, entry=entry)
-    r = buf.cpu().numpy().astype("float64")
-    sink = stamp_rows(alpha.numel(), dev, lib)
-    n_diff, _ = float_ulps(out, gamma_kernel.launch(key, alpha))
-    if n_diff:
-        raise AssertionError(f"gamma {design}: the stamped variant's draws differ from the "
-                             f"kernel's at {n_diff} elements")
-    nc = len(GAMMA_CYCLE_SLOTS)
-    report = stamp_report(r, {c: j for j, c in enumerate(GAMMA_CYCLE_SLOTS)},
-                          {c: nc + j for j, c in enumerate(GAMMA_COUNT_SLOTS)},
-                          GAMMA_COUNT_SLOTS[:3])
-    ms = (kernel_ms("gamma", lambda: gamma_kernel.run(key, alpha, out), 50)
-          if design == "kernel" else None)
-    stamped_ms = kernel_ms("gamma", lambda: gamma_kernel.run(key, alpha, out, lib=lib,
-                                                              entry=entry), 10)
-    del sink
-    return {design: {"ms": ms, "stamped_ms": stamped_ms, **report, "needed": needed}}
-
-
-def say_split(tag, report, smi_line):
-    for name, r in report.items():
-        say(f"  split of {tag} {name}: device "
-            + (f"{r['ms'] * 1e3:.2f} us" if r["ms"] is not None else "not timed unstamped")
-            + f" (stamped {r['stamped_ms'] * 1e3:.2f}); threads' cycles " + ", ".join(
-                f"{c} {v:.3f}" for c, v in r["share"].items())
-            + "; warps' cycles (a slot as long as its slowest lane) " + ", ".join(
-                f"{c} {v:.3f}" for c, v in r["warp_share"].items())
-            + f"; slowest thread {r['slowest_thread_us']:.2f} us at 1.98 GHz; active lanes "
-            + (", ".join(f"{c} {v:.2f}" for c, v in r["active_lanes"].items()) or "none")
-            + "; " + ", ".join(f"{c} {v:,}" for c, v in r["counts"].items())
-            + f" made, against {r['needed']:,} hashes the draw needs ({smi_line})")
-
-
 def gibbs_probe(W, bh, bv, v0, dev):
     """One Gibbs step from ``v0`` on ``dev`` with the chain's stream seed:
     the hidden means and sample, the visible means and sample."""
@@ -5167,7 +4950,7 @@ def gibbs_probe(W, bh, bv, v0, dev):
     return [o.cpu() for o in f(v0)]
 
 
-def phase_loops(dev, smi_line, stamped=None, parent=None):
+def phase_loops(dev, smi_line, parent=None):
     """Phase 19: jax's loop samplers and the RBM Gibbs chain.  (a) Each of
     the twelve samplers at ``LOOP_N`` draws on its edge grid
     (``cases.loop_grid``) in float32 and float64, through its RV's draw on
@@ -5188,9 +4971,8 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
     ``LOOP_N`` and the binomial kernel at the Gibbs draws: device and wall
     time beside its plain version's and torch's sampler's, the hashes the
     draw needs and its bound (gamma's the larger of the hashes' and its
-    FP64 pipe's, ``gamma_fp64_ms``).  (e) The ``stamped`` variants' split
-    of the draw (``loop_split``; gamma's in its first design and its own,
-    ``gamma_split``).  (f) With ``parent`` (a checkout), its gamma, Poisson
+    FP64 pipe's, ``gamma_fp64_ms``).  (f) With ``parent`` (a checkout), its
+    gamma, Poisson
     and binomial kernels beside these (gamma on the timed grid and on
     jax's edges, in both ``log_space`` modes).  Returns the launches by
     path and the rows.  On the CPU (a rehearsal) it checks the values
@@ -5415,22 +5197,6 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
                     f"; the hashes' bound {r['hash_bound_ms'] * 1e3:.2f} us, the FP64 pipe's "
                     f"{r['fp64_ms'] * 1e3:.2f} us ({r['fp64_instructions']:,} instructions; "
                     f"passes {r['passes']})" if "fp64_ms" in r else "") + f" ({smi_line})")
-    # (e) the stamped variants' split of each launch ---------------------------------
-    if on_card:
-        rows["split"] = {}
-        for kernel, tag, args in (("binomial", "binomial gibbs visible", gibbs_args["visible"]),
-                                  ("binomial", "binomial 2e20", loop_typical("binomial", dev, n)),
-                                  ("poisson", "poisson 2e20", loop_typical("poisson", dev, n))):
-            rows["split"][tag] = loop_split(kernel, args, dev, stamped[kernel],
-                                            rows["kernels"][tag]["hashes"])
-            say_split(tag, rows["split"][tag], smi_line)
-        # gamma's, in the first design (one element a thread) and the kernel's
-        alpha = loop_typical("gamma", dev, n)[0]
-        rows["split"]["gamma 2e20"] = {}
-        for design in GAMMA_ENTRIES:
-            rows["split"]["gamma 2e20"].update(gamma_split(
-                alpha, dev, stamped["gamma"], rows["kernels"]["gamma 2e20"]["hashes"], design))
-        say_split("gamma 2e20", rows["split"]["gamma 2e20"], smi_line)
     # (f) with --parent, the parent's Poisson and binomial kernels beside these
     if on_card and parent:
         theirs, rows["parent"] = parent_loops(parent), {}
@@ -5461,8 +5227,8 @@ def phase_loops(dev, smi_line, stamped=None, parent=None):
 
 def loop_builds(pool, timed):
     """Phase 2's jobs for phases 18 and 19: threefry, the hash probe, the
-    normal probe, the FP64 probe, the three loop kernels, gamma with ``-fmad=false`` and the
-    stamped variants of the three."""
+    normal probe, the FP64 probe, the three loop kernels and gamma with
+    ``-fmad=false``."""
     from pytensor_tpu_torch.link.cuda import (
         binomial_kernel,
         gamma_kernel,
@@ -5478,15 +5244,11 @@ def loop_builds(pool, timed):
                for name, m in (("gamma", gamma_kernel), ("poisson", poisson_kernel),
                                ("binomial", binomial_kernel))},
             "fp64 probe": pool.submit(fp64_instructions),
-            "gradients' fp64 probe": pool.submit(grad_fp64_instructions),
-            **{f"{name} stamped": pool.submit(loop_stamped, m)
-               for name, m in (("gamma", gamma_kernel), ("poisson", poisson_kernel),
-                               ("binomial", binomial_kernel))}}
+            "gradients' fp64 probe": pool.submit(grad_fp64_instructions)}
 
 
 def loop_build_logs(build_s):
-    """The build logs of ``loop_builds``' jobs; the stamped variants'
-    libraries go to ``build_s["stamped"]``, by kernel."""
+    """The build logs of ``loop_builds``' jobs."""
     from pytensor_tpu_torch.link.cuda import (
         binomial_kernel,
         gamma_kernel,
@@ -5494,12 +5256,8 @@ def loop_build_logs(build_s):
         threefry_kernel,
     )
 
-    build_s["stamped"], logs = {}, {}
-    for name in ("gamma", "poisson", "binomial"):
-        tag = f"{name} stamped"
-        build_s[tag], build_s["stamped"][name], logs[tag] = build_s[tag]
     return {"threefry": threefry_kernel.BUILD_LOG, "gamma": gamma_kernel.BUILD_LOG,
-            "poisson": poisson_kernel.BUILD_LOG, "binomial": binomial_kernel.BUILD_LOG, **logs}
+            "poisson": poisson_kernel.BUILD_LOG, "binomial": binomial_kernel.BUILD_LOG}
 
 
 def say_builds(logs, build_s):
@@ -6847,6 +6605,540 @@ def phase_graph(dev, smi_line, nodes_cpu, chain, chain_args):
     return launches, k1_abs, row
 
 
+# --- phase 24: control and debug ops -------------------------------------------------
+
+CONTROL_DTYPES = ("float64", "float32")
+CONTROL_CALLS = 20
+CONTROL_SEED = 24
+# the float64 guarded and unguarded functions against the same functions
+# linked for the CPU (the same ops, another device's rounding of exp and
+# log), over max(1, |cpu|)
+CONTROL_RTOL = {"float64": 1e-12, "float32": 2e-6}
+CONTROL_LIST_LEN = 4
+
+
+class CountingProbe:
+    """Phase 24's probe op: ``2 x``, with a lowering that counts its calls
+    (made on first use, so that the module imports nothing of the port)."""
+
+    op = None
+    calls = 0
+
+    @classmethod
+    def make(cls):
+        if cls.op is None:
+            from pytensor_tpu_torch.graph.basic import Apply
+            from pytensor_tpu_torch.graph.op import Op
+            from pytensor_tpu_torch.link.torch.dispatch import torch_funcify
+
+            class Probe(Op):
+                __props__ = ()
+
+                def make_node(self, x):
+                    return Apply(self, [x], [x.type()])
+
+                def perform(self, node, inputs, output_storage):
+                    output_storage[0][0] = inputs[0] * 2.0
+
+            class Wrong(Op):
+                """A toy op whose lowering disagrees with its perform."""
+
+                __props__ = ()
+
+                def make_node(self, x):
+                    return Apply(self, [x], [x.type()])
+
+                def perform(self, node, inputs, output_storage):
+                    output_storage[0][0] = inputs[0] * 2.0
+
+            @torch_funcify.register(Probe)
+            def _probe(op, node=None, **kw):
+                def probe(x):
+                    cls.calls += 1
+                    return x * 2.0
+
+                return probe
+
+            @torch_funcify.register(Wrong)
+            def _wrong(op, node=None, **kw):
+                return lambda x: x * 3.0
+
+            cls.op, cls.wrong = Probe(), Wrong()
+        return cls.op
+
+
+def control_functions(dev, references=False):
+    """Phase 24's functions on ``dev``, by name: for each of
+    ``CONTROL_DTYPES`` the guarded radon function (``models/radon.py
+    guarded_graphs``: its ``IfElse`` and asserts) and the same model with
+    neither (``unguarded``), and in float64 with the asserts alone
+    (``asserts``); the
+    float64 radon function (``make_radon_graphs``) under ``DebugMode``,
+    ``NanGuardMode`` and ``MonitorMode``; the nested ``ifelse`` with the
+    counting probe in its untaken branches; one function a typed-list op on
+    a list of ``CONTROL_LIST_LEN`` thetas; the ``PdbBreakpoint`` function.
+    With ``references``, the CPU's references only: the guarded functions
+    (which hold every K1 source of the others) and neither ``DebugMode``
+    nor ``MonitorMode`` nor the breakpoint.  Returns ``(fns, n_params, y,
+    seen)``, ``seen`` the nodes ``MonitorMode``'s callback saw."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    import pytensor_tpu_torch.typed_list as tl
+    from pytensor_tpu_torch.breakpoint import PdbBreakpoint
+    from pytensor_tpu_torch.compile.debug import DebugMode, MonitorMode, NanGuardMode
+    from pytensor_tpu_torch.models.radon import guarded_graphs, make_radon_graphs
+
+    fns, seen = {}, []
+    for dtype in CONTROL_DTYPES:
+        variants = [("guarded", True, True)]
+        if not references:
+            variants.append(("unguarded", False, False))
+        if not references and dtype == "float64":
+            variants.append(("asserts", True, False))
+        for name, asserts, cond in variants:
+            ins, outs, n, y = guarded_graphs(ptt, pt, N_OBS, N_COUNTIES, dtype, asserts=asserts,
+                                             conditional=cond)
+            fns[name, dtype] = ptt.function(ins, outs, name=f"radon {name} {dtype}", device=dev)
+    modes = {"NanGuardMode": NanGuardMode()}
+    if not references:
+        modes.update(DebugMode=DebugMode(),
+                     MonitorMode=MonitorMode(post_func=lambda node, thunk: seen.append(node)))
+    for tag, mode in modes.items():
+        ins, outs, _ = make_radon_graphs(N_OBS, N_COUNTIES, "float64")
+        fns[tag] = ptt.function(ins, outs, mode=mode, name=f"radon {tag}", device=dev)
+    c1, c2 = pt.tensor("c1", dtype="bool", shape=()), pt.tensor("c2", dtype="bool", shape=())
+    x = pt.tensor("x", dtype="float64", shape=(n,))
+    inner = ptt.ifelse(c2, CountingProbe.make()(x), x - 1.0)
+    fns["nested"] = ptt.function([c1, c2, x], ptt.ifelse(c1, pt.exp(x) + 1.0, inner),
+                                 name="nested ifelse", device=dev)
+    th = [pt.tensor(f"t{k}", dtype="float64", shape=(n,)) for k in range(CONTROL_LIST_LEN)]
+    i = pt.scalar("i", dtype="int64")
+    lst = tl.make_list(th)
+    for tag, out in (("getitem", tl.getitem(lst, 2)), ("getitem by input", tl.getitem(lst, i)),
+                     ("append", tl.append(lst, th[0] * 2.0)), ("extend", tl.extend(lst, lst)),
+                     ("insert", tl.insert(lst, 1, th[3] + 1.0)), ("remove", tl.remove(lst, th[1])),
+                     ("reverse", tl.reverse(lst)), ("length", tl.length(lst) * 1),
+                     ("count", tl.count(lst, th[0])), ("index", tl.index_(lst, th[2]))):
+        fns["list " + tag] = ptt.function(th + [i], out, name=f"list {tag}", device=dev,
+                                          on_unused_input="ignore")
+    if not references:
+        cond = pt.gt(x.sum(), 0.0)
+        fns["breakpoint"] = ptt.function(
+            [x], PdbBreakpoint("phase 24")(cond, x * 2.0, pt.exp(x)), name="breakpoint",
+            device=dev)
+    return fns, n, y, seen
+
+
+def control_kernels(dev):
+    """The K1 kernels of phase 24's functions, from them linked for the CPU
+    (phase 2's pool), and those CPU functions (phase 24's references; the
+    debug modes' radon function is phase 22's, whose kernels are built)."""
+    cpu = control_functions("cpu", references=True)
+    kerns: dict = {}
+    for f in cpu[0].values():
+        plan_kernels(getattr(f.linked, "plan", f.linked), dev, kerns)
+    return list(kerns.values()), cpu
+
+
+def _guard_k1(f):
+    """The K1 nodes of ``f`` that compute its ``IfElse``'s condition and its
+    asserts' conditions (``isfinite`` is a fused ``invert(or(isnan,
+    isinf))``): ``(for the IfElse, for the asserts)``."""
+    from pytensor_tpu_torch.graph.traversal import applys_between
+    from pytensor_tpu_torch.ifelse import IfElse
+    from pytensor_tpu_torch.raise_op import CheckAndRaise
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    def k1(conds):
+        return len([nd for nd in applys_between(f.fgraph.inputs, conds)
+                    if isinstance(nd.op, FusedElemwise)])
+
+    nodes = f.fgraph.apply_nodes
+    return (k1([nd.inputs[0] for nd in nodes if isinstance(nd.op, IfElse)]),
+            k1([c for nd in nodes if isinstance(nd.op, CheckAndRaise) for c in nd.inputs[1:]]))
+
+
+def _count(f, cls_name):
+    return sum(type(nd.op).__name__ == cls_name or any(
+        c.__name__ == cls_name for c in type(nd.op).__mro__) for nd in f.fgraph.apply_nodes)
+
+
+def _control_reset():
+    """Phase 24's counts set to 0."""
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+    from pytensor_tpu_torch.tensor import fused_kernel
+
+    fused_kernel.LAUNCHES = 0
+    scan_kernel.LAUNCHES = 0
+
+
+def _control_counts():
+    """Phase 24's counts, once the card has done what was launched."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import scan_kernel
+    from pytensor_tpu_torch.tensor import fused_kernel
+
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return {"fused_elemwise": fused_kernel.LAUNCHES, "scan_whole_loop": scan_kernel.LAUNCHES}
+
+
+def _near(got, want, rtol):
+    """Whether ``got`` is within ``rtol`` of ``max(1, |want|)`` everywhere,
+    equal infinities and NaNs agreeing."""
+    got, want = (np.asarray(v.detach().double().cpu()) for v in (got, want))
+    with np.errstate(invalid="ignore"):
+        diff = np.where(got == want, 0.0, np.abs(got - want))
+    return float((diff / np.maximum(1.0, np.abs(want))).max(initial=0.0)) <= rtol
+
+
+def _guarded_radon(fns, cpu_fns, n, y, rng, dev, smi_line, launches, row):
+    """Phase 24 (a), for each of ``CONTROL_DTYPES``: ``launches`` and
+    ``row["guarded"]`` gain its counts and times."""
+    import torch
+
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models.radon import DATA_MESSAGE, theta_start
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    for dtype in CONTROL_DTYPES:
+        fg, fu = fns["guarded", dtype], fns["unguarded", dtype]
+        fa = fns.get(("asserts", dtype))
+        nodes = {c: _count(fg, c) for c in ("IfElse", "CheckAndRaise")}
+        cpu_nodes = {c: _count(cpu_fns["guarded", dtype], c) for c in ("IfElse", "CheckAndRaise")}
+        if nodes != cpu_nodes or nodes != {"IfElse": 1, "CheckAndRaise": 1} or (
+                fa is not None and (_count(fa, "IfElse"), _count(fa, "CheckAndRaise")) != (0, 1)):
+            raise AssertionError(f"guarded radon {dtype}: nodes {nodes}, on the CPU {cpu_nodes}")
+        if cuda and not all(isinstance(f.linked, CapturedFunction) for f in (fu, fa) if f):
+            raise AssertionError(f"the unguarded and assert-only {dtype} functions must capture")
+        if fg.linked.capturable or fg.linked.lazy is None:
+            raise AssertionError(f"the guarded {dtype} function must run lazily and eagerly")
+        th = (theta_start(n, dtype) + 0.1 * rng.standard_normal(n)).astype(dtype)
+        th_d, y_d = as_torch(th, dev), as_torch(y.astype(dtype), dev)
+        for f in (fu, fa or fu, fg):
+            f(th_d, y_d)  # the capturing calls
+        _control_reset()
+        u_out = fu(th_d, y_d)
+        cu = _control_counts()
+        _control_reset()
+        g_out = fg(th_d, y_d)
+        cg = _control_counts()
+        _control_reset()
+        a_out = (fa or fu)(th_d, y_d)
+        ca = _control_counts()
+        # the model's K1 launches, the unguarded function's, and the guards'
+        # own conditions' K1 nodes (a rehearsal on the CPU launches none)
+        g_cond, g_assert = _guard_k1(fg)
+        a_cond, a_assert = _guard_k1(fa or fu)
+        k = cuda and 1
+        if not (cg["fused_elemwise"] - k * (g_cond + g_assert) == cu["fused_elemwise"]
+                == ca["fused_elemwise"] - k * a_assert and (cu["fused_elemwise"] > 0 or not cuda)
+                and a_cond == 0):
+            raise AssertionError(f"guarded radon {dtype}: K1 launches guarded {cg}, unguarded "
+                                 f"{cu}, asserts {ca}; the guards' K1 nodes "
+                                 f"{(g_cond, g_assert, a_assert)}")
+        if not all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(g_out, u_out, a_out)):
+            raise AssertionError(f"guarded radon {dtype}: not the unguarded function's bits")
+        want = cpu_fns["guarded", dtype](th, y.astype(dtype))
+        if not all(_near(a, b, CONTROL_RTOL[dtype]) for a, b in zip(u_out, want)):
+            raise AssertionError(f"guarded radon {dtype}: off the CPU's values")
+        launches[f"control guarded {dtype}"] = cg
+        launches[f"control unguarded {dtype}"] = cu
+        if fa is not None:
+            launches[f"control asserts {dtype}"] = ca
+        bad = th.copy()
+        bad[N_COUNTIES + 2] = np.nan
+        _control_reset()
+        b_out = fg(as_torch(bad, dev), y_d)
+        cb = _control_counts()
+        launches[f"control guarded {dtype}, NaN theta"] = cb
+        if cb["fused_elemwise"] != k * g_cond or not (float(b_out[0]) == -np.inf
+                                                      and not bool(b_out[1].any())):
+            raise AssertionError(f"guarded radon {dtype} at a NaN theta: {cb}, logp "
+                                 f"{float(b_out[0])}")
+        bad_y = y.astype(dtype).copy()
+        bad_y[100] = np.inf
+        for tag, f in (("guarded, eager", fg), ("asserts, captured", fa))[:2 if fa else 1]:
+            try:
+                f(th_d, as_torch(bad_y, dev))
+            except AssertionError as e:
+                if DATA_MESSAGE not in str(e) or "Apply node that caused the error: Assert" \
+                        not in str(e):
+                    raise AssertionError(f"{tag}: the data assert's message {e}") from e
+            else:
+                raise AssertionError(f"guarded radon {dtype} {tag}: a failing data assert "
+                                     f"did not raise")
+        if not all(torch.equal(a, b) for a, b in zip((fa or fg)(th_d, y_d), u_out)):
+            raise AssertionError("a guarded function after a failed call differs")
+        r = {"k1_launches": cg["fused_elemwise"], "k1_launches_nan_theta": cb["fused_elemwise"],
+             "k1_of_the_model": cu["fused_elemwise"],
+             "k1_of_the_conditions": {"ifelse": g_cond, "asserts": g_assert}}
+        if cuda:
+            ms = {}
+            for tag, f in (("unguarded", fu), ("asserts", fa), ("guarded", fg), ("guarded", fg),
+                           ("asserts", fa), ("unguarded", fu)):
+                if f is not None:
+                    ms.setdefault(tag, []).append(wall_ms(lambda f=f: f(th_d, y_d),
+                                                          CONTROL_CALLS))
+            ms["guarded, NaN theta"] = [wall_ms(lambda: fg(as_torch(bad, dev), y_d),
+                                                CONTROL_CALLS)]
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                fg(th_d, y_d)
+                sync()
+            reads = [e for e in prof.key_averages() if e.key == "aten::is_nonzero"]
+            r.update(ms={k: v for k, v in ms.items()},
+                     read_us=sum(e.cpu_time_total for e in reads),
+                     reads=sum(e.count for e in reads))
+            say(f"guarded radon {dtype} ({smi_line}): ms a call, unguarded captured "
+                f"{ms['unguarded']}, asserts alone captured (with the flags' read) "
+                f"{ms.get('asserts', 'not run')}, guarded eager {ms['guarded']}, guarded at a "
+                f"NaN theta "
+                f"{ms['guarded, NaN theta']}; the host's reads in a guarded call "
+                f"(aten::is_nonzero, the condition's and the flags') {r['reads']}, "
+                f"{r['read_us']:.1f} us")
+        row["guarded"][dtype] = r
+        say(f"guarded radon {dtype}: IfElse {nodes['IfElse']}, CheckAndRaise "
+            f"{nodes['CheckAndRaise']} (the proven assert removed; as on the CPU); "
+            f"K1 launches at a finite theta {cg['fused_elemwise']}: the unguarded function's "
+            f"{cu['fused_elemwise']} and its bits, and the conditions' own fused nodes (the "
+            f"IfElse's {g_cond}, the data assert's {g_assert}); asserts alone "
+            f"{ca['fused_elemwise'] if fa else 'not run'}; at a NaN theta "
+            f"{cb['fused_elemwise']} (the IfElse's "
+            f"condition only), logp -inf, dlogp 0; the data assert raised its message from the "
+            f"eager function{' and the captured one' if fa else ''}")
+
+
+def phase_control(dev, smi_line, cpu):
+    """Phase 24: the control and debug ops at the radon model's full width
+    (919/85).  (a) The guarded radon function (``IfElse`` on a finite
+    theta, the proven and the data assert) in float64 and float32: its
+    ``IfElse`` and ``CheckAndRaise`` nodes as on the CPU; at a finite
+    theta K1 launches as the unguarded function does, with its bits, and
+    the conditions' own fused nodes; at a theta holding a NaN only the
+    condition's, and ``-inf`` and zeros; a failing data assert raising
+    its message and node, from the eager plan and from the float64
+    assert-only function captured; ms a call of each (the guarded
+    eager, the others replayed) and the condition's read in
+    ``torch.profiler``.  (b) The nested ``ifelse``: its probe never runs in
+    an untaken branch.  (c) ``DebugMode`` on the float64 radon function:
+    every node against its oracle, each K1 node against its plain version
+    on the CPU; a wrong lowering of a toy op raising ``BadThunkOutput``; a
+    semantics-changing rewrite named by ``BadOptimization``.  (d)
+    ``NanGuardMode`` naming the CPU's first node at a NaN theta.  (e)
+    ``MonitorMode``'s callback seeing every node once a call.  (f) Each
+    typed-list op on four thetas against the CPU, and whether its plan
+    captures.  (g) ``PdbBreakpoint`` with its debugger replaced by a
+    counter.  Counts are set to 0 just before each counted call and read
+    just after.  Returns ``(launches, k1_abs, row)``."""
+    import torch
+
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.breakpoint import PdbBreakpoint
+    from pytensor_tpu_torch.compile.debug import BadThunkOutput, DebugMode
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models.radon import theta_start
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    cuda = dev.type == "cuda"
+    cpu_fns, _, _, _ = cpu
+
+    secs, t0 = {}, time.perf_counter()
+
+    def section(name):
+        nonlocal t0
+        secs[name] = round(time.perf_counter() - t0, 2)
+        t0 = time.perf_counter()
+
+    fns, n, y, seen = control_functions(dev)
+    section("link")
+    rng = np.random.default_rng(CONTROL_SEED)
+    launches, row, k1_abs = {}, {"guarded": {}}, 0.0
+    # (a) the guarded radon function, under torch's deterministic algorithms
+    # (dlogp's index_add_ otherwise adds in any order on the card), its
+    # captures included -------------------------------------------------------------------
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _guarded_radon(fns, cpu_fns, n, y, rng, dev, smi_line, launches, row)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for dtype in CONTROL_DTYPES:
+        fg = fns["guarded", dtype]
+        th = as_torch((theta_start(n, dtype) + 0.1 * rng.standard_normal(n)).astype(dtype), dev)
+        k1_abs = max(k1_abs, k1_nodes_held(fg, (th, as_torch(y.astype(dtype), dev)), dev,
+                                           f"guarded {dtype}", quiet=True))
+    section("guarded")
+    # (b) the nested ifelse ---------------------------------------------------------------
+    x = as_torch(rng.standard_normal(n), dev)
+    probe_calls, nested_k1 = [], []
+    for c1, c2, want_calls in ((True, True, 0), (False, False, 0), (False, True, 1)):
+        CountingProbe.calls = 0
+        _control_reset()
+        out = fns["nested"](np.bool_(c1), np.bool_(c2), x)
+        c = _control_counts()
+        want = (x.exp() + 1.0) if c1 else (x * 2.0 if c2 else x - 1.0)
+        if CountingProbe.calls != want_calls or not torch.allclose(out, want, rtol=1e-12):
+            raise AssertionError(f"nested ifelse ({c1}, {c2}): probe calls "
+                                 f"{CountingProbe.calls}, launches {c}")
+        probe_calls.append(CountingProbe.calls)
+        nested_k1.append(c["fused_elemwise"])
+        launches[f"control nested ifelse {c1} {c2}"] = c
+    section("nested")
+    say(f"nested ifelse: probe calls {probe_calls} for (c1, c2) = (T, T), (F, F), (F, T); "
+        f"K1 launches {nested_k1}")
+    # (c) DebugMode ------------------------------------------------------------------------
+    th64 = as_torch(theta_start(n, "float64") + 0.1 * rng.standard_normal(n), dev)
+    fd = fns["DebugMode"]
+    _control_reset()
+    fd(th64)
+    cd = _control_counts()
+    holds = fd.linked.holds
+    if [h[0] for h in holds] != fd.fgraph.toposort():
+        raise AssertionError("DebugMode held not every node")
+    k1_holds = [(h, err) for nd, h, err in holds if isinstance(nd.op, FusedElemwise)]
+    if not k1_holds or any(h != "the CPU lowering" for h, _ in k1_holds) or (
+            cuda and cd["fused_elemwise"] != len(k1_holds)):
+        raise AssertionError(f"DebugMode's K1 holds {k1_holds}, launches {cd}")
+    k1_debug = max(err for _, err in k1_holds)
+    k1_abs = max(k1_abs, k1_debug)
+    launches["control DebugMode"] = cd
+    debug_ms = wall_ms(lambda: fd(th64), 3) if cuda else float("nan")
+    w = pt.dvector("w")
+    wrong = ptt.function([w], CountingProbe.wrong(w), mode=DebugMode(), device=dev)
+    try:
+        wrong(np.ones(3))
+    except BadThunkOutput:
+        pass
+    else:
+        raise AssertionError("DebugMode passed a wrong lowering")
+    blamed = _blamed_rewrite(dev)
+    if "evil_exp_scale" not in blamed:
+        raise AssertionError(f"BadOptimization named {blamed!r}")
+    section("DebugMode")
+    row["debug_mode"] = {"nodes": len(holds), "k1_nodes": len(k1_holds),
+                         "k1_max_abs_err": k1_debug, "ms": debug_ms}
+    say(f"DebugMode on the float64 radon function: {len(holds)} nodes held against their oracle "
+        f"({sum(h == 'perform' for _, h, _ in holds)} by perform, "
+        f"{sum(h != 'perform' for _, h, _ in holds)} by the CPU lowering), {len(k1_holds)} K1 "
+        f"nodes against their plain version, largest abs difference {k1_debug:.3e}; "
+        f"{cd['fused_elemwise']} K1 launches a call; {debug_ms:.2f} ms a call; a wrong lowering "
+        f"raised BadThunkOutput; BadOptimization named {blamed.split(': ')[-1]}")
+    # (d) NanGuardMode, (e) MonitorMode -------------------------------------------------------
+    fn_guard = fns["NanGuardMode"]
+    nan_th = th64.clone()
+    nan_th[N_COUNTIES + 1] = float("nan")
+    messages = []
+    for f, arg in ((fn_guard, nan_th), (cpu_fns["NanGuardMode"], nan_th.cpu())):
+        try:
+            f(arg)
+        except AssertionError as e:
+            messages.append(str(e))
+        else:
+            raise AssertionError("NanGuardMode passed a NaN theta")
+    if messages[0] != messages[1] or "NanGuardMode: NaN detected" not in messages[0]:
+        raise AssertionError(f"NanGuardMode's messages {messages}")
+    want = fd(th64)
+    got = fn_guard(th64)
+    if not all(_near(a, b, CONTROL_RTOL["float64"]) for a, b in zip(got, want)):
+        raise AssertionError("NanGuardMode's values off DebugMode's")
+    guard_ms = wall_ms(lambda: fn_guard(th64), 5) if cuda else float("nan")
+    seen.clear()
+    fns["MonitorMode"](th64)
+    order = fns["MonitorMode"].fgraph.toposort()
+    if seen != order:
+        raise AssertionError(f"MonitorMode saw {len(seen)} nodes of {len(order)}")
+    row["nan_guard_ms"] = guard_ms
+    section("NanGuardMode, MonitorMode")
+    say(f"NanGuardMode: at a NaN theta it raised as on the CPU ({messages[0][:90]}...); "
+        f"{guard_ms:.2f} ms a call at a finite theta; MonitorMode's callback saw each of the "
+        f"{len(order)} nodes once a call")
+    # (f) typed lists ------------------------------------------------------------------------
+    thetas = [rng.standard_normal(n) for _ in range(CONTROL_LIST_LEN)]
+    args = [as_torch(t, dev) for t in thetas] + [np.int64(3)]
+    captures = {}
+    for tag in [k for k in fns if isinstance(k, str) and k.startswith("list ")]:
+        f = fns[tag]
+        got, want = f(*args), cpu_fns[tag](*thetas, np.int64(3))
+        got = got if isinstance(got, list) else [got]
+        want = want if isinstance(want, list) else [want]
+        if len(got) != len(want) or not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+            raise AssertionError(f"typed {tag}: differs from the CPU")
+        captures[tag[5:]] = isinstance(f.linked, CapturedFunction)
+    row["typed_lists_capture"] = captures
+    section("typed lists")
+    say(f"typed lists of {CONTROL_LIST_LEN} thetas on the card, each op's value the CPU's; "
+        f"captured: {captures}")
+    # (g) PdbBreakpoint --------------------------------------------------------------------------
+    fired = []
+    real = PdbBreakpoint.debugger
+    PdbBreakpoint.debugger = staticmethod(lambda name, monitored: fired.append(
+        (name, monitored)))
+    try:
+        pos = as_torch(np.abs(thetas[0]) + 0.1, dev)
+        fns["breakpoint"](-pos)
+        if fired:
+            raise AssertionError("the breakpoint fired where its condition is false")
+        outs = fns["breakpoint"](pos)
+    finally:
+        PdbBreakpoint.debugger = real
+    if len(fired) != 1 or not (np.array_equal(fired[0][1][0], (pos * 2.0).cpu().numpy())
+                               and np.array_equal(fired[0][1][1], outs[1].cpu().numpy())):
+        raise AssertionError(f"the breakpoint fired {len(fired)} times")
+    section("PdbBreakpoint")
+    row["seconds"] = secs
+    say(f"PdbBreakpoint: fired once, where its condition held, with the card's values "
+        f"({[m.shape for m in fired[0][1]]}); phase 24's seconds by part {secs}")
+    return launches, k1_abs, row
+
+
+def _blamed_rewrite(dev):
+    """The rewrite ``BadOptimization`` names for ``exp(x) + 1`` under
+    ``DebugMode`` with a rewrite that scales ``exp`` registered at optdb
+    47.5 (``tests/test_more.py:282``), unregistered after."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.compile.debug import BadOptimization, DebugMode
+    from pytensor_tpu_torch.compile.mode import optdb
+    from pytensor_tpu_torch.graph.rewriting.basic import node_rewriter
+    from pytensor_tpu_torch.graph.rewriting.db import EquilibriumDB
+    from pytensor_tpu_torch.scalar import basic as ps
+    from pytensor_tpu_torch.tensor.basic import constant
+    from pytensor_tpu_torch.tensor.elemwise import Elemwise
+
+    @node_rewriter([Elemwise])
+    def evil_exp_scale(fgraph, node):
+        if getattr(node.op.scalar_op, "name", None) != "exp" or getattr(node.tag, "evil", False):
+            return False
+        new = Elemwise(ps.exp)(*node.inputs)
+        new.owner.tag.evil = True
+        return [new * constant(np.float64(1.5))]
+
+    db = EquilibriumDB(name="evil")
+    db.register("evil_exp_scale", evil_exp_scale, "evil_tag_test")
+    optdb.register("evil_test", db, position=47.5)
+    try:
+        x = pt.dvector("x")
+        f = ptt.function([x], pt.exp(x) + 1.0, mode=DebugMode().including("evil_tag_test"),
+                         device=dev)
+        try:
+            f(np.ones(3))
+        except BadOptimization as e:
+            return str(e)
+        return ""
+    finally:
+        del optdb._names["evil_test"]
+        del optdb._tags["evil_test"]
+        del optdb.positions["evil_test"]
+
+
 def _radon_io():
     from pytensor_tpu_torch.models.radon import make_radon_graphs
 
@@ -6939,12 +7231,8 @@ def main(opts):
                        for kerns in libraries)
 
     jobs = {"K3": pool.submit(timed, lambda: radon_kernel.build(verbose=True)),
-            "K3 stamped": pool.submit(timed, lambda: radon_kernel.build(
-                verbose=True, flags=radon_kernel.STAMPED)),
             "K3, rows in shared memory": pool.submit(timed, lambda: radon_kernel.build(
                 verbose=True, flags=K3_SHARED_WALK)),
-            "K3 stamped, rows in shared memory": pool.submit(timed, lambda: radon_kernel.build(
-                verbose=True, flags=radon_kernel.STAMPED + K3_SHARED_WALK)),
             "K4": pool.submit(timed, lambda: spmv_kernel.build(verbose=True)),
             **loop_builds(pool, timed)}
     # K2 for the leapfrog chain at full width: the Scan node of the linked
@@ -6954,10 +7242,7 @@ def main(opts):
     chain64 = make_leapfrog_chain("float32", None, K2_STEPS, N_OBS, N_COUNTIES, device=dev)
     scan_node = next(nd for nd in chain64.fgraph.apply_nodes if isinstance(nd.op, Scan))
     k2 = scan_kernel.ScanKernel(scan_node.op, scan_node, dev)
-    # the same kernel with clock64() stamps, for phase 6's breakdown only
-    k2_stamped = scan_kernel.ScanKernel(scan_node.op, scan_node, dev, stamps=True)
     jobs["K2"] = pool.submit(timed, lambda: k2.build(verbose=True))
-    jobs["K2 stamped"] = pool.submit(timed, lambda: k2_stamped.build(verbose=True))
     src = k2.src
     say(f"K2 source: {len(scan_node.op.fgraph.apply_nodes)} inner nodes -> {src.n_units} "
         f"emitted ops in {src.n_ops} loops and {src.n_barriers} barriers a step; arena "
@@ -7137,17 +7422,21 @@ def main(opts):
     build_k1(graph_k1)
     say(f"the graph layer's probe graphs: {len(graph_k1)} K1 kernels of {len(graph_nodes)} "
         f"graphs; graph, rewrite and link for the CPU in {time.perf_counter() - t0:.2f} s")
+    # phase 24's: the K1 kernels of the guarded radon functions and the
+    # debug modes', from them linked for the CPU (phase 24's references)
+    t0 = time.perf_counter()
+    control_k1, control_cpu = control_kernels(dev)
+    build_k1(control_k1)
+    say(f"the control and debug functions: {len(control_k1)} K1 kernels; graph, rewrite and link "
+        f"for the CPU in {time.perf_counter() - t0:.2f} s")
 
     build_s = {tag: job.result() for tag, job in jobs.items()}
     for job in k1_jobs:
         job.result()
     pool.shutdown()
     logs = {"K3": radon_kernel.BUILD_LOGS[()],
-            "K3 stamped": radon_kernel.BUILD_LOGS[radon_kernel.STAMPED],
             "K3, rows in shared memory": radon_kernel.BUILD_LOGS[K3_SHARED_WALK],
-            "K3 stamped, rows in shared memory":
-                radon_kernel.BUILD_LOGS[radon_kernel.STAMPED + K3_SHARED_WALK],
-            "K2": k2.build_log, "K2 stamped": k2_stamped.build_log, "K4": spmv_kernel.BUILD_LOG,
+            "K2": k2.build_log, "K4": spmv_kernel.BUILD_LOG,
             **loop_build_logs(build_s),
             **{f"K2 case: {tag}": k.build_log for tag, _, _, k, _ in k2_cases},
             **{"K2 static BPTT": k.build_log for k in elman_k2},
@@ -7365,15 +7654,9 @@ def main(opts):
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(shared, got)):
         raise AssertionError("K3 walking shared memory differs from K3")
-    k3_shared_ms, _ = device_ms(lambda: radon_kernel.leapfrog_launch(
-        th0_d, m0_d, fn3.data, K3_STEPS, EPS, flags=K3_SHARED_WALK), 5)
     say(f"K3 threads a block {radon_kernel.build().radon_leapfrog_threads(N_COUNTIES)}, largest "
         f"county {fn3.data.max_rows} rows; the same kernel walking every county from shared "
-        f"memory: device {k3_shared_ms:.4f} ms ({k3_shared_ms / K3_STEPS * 1e3:.3f} us/step), "
-        f"bit-identical")
-    k3_stamp_breakdown(fn3.data, th0_d, m0_d, got, k3_ms)
-    k3_stamp_breakdown(fn3.data, th0_d, m0_d, got, k3_shared_ms,
-                       "K3 with rows in shared memory", K3_SHARED_WALK)
+        f"memory: bit-identical")
 
     lap(4)
     # 5. slice --------------------------------------------------------------
@@ -7486,7 +7769,6 @@ def main(opts):
     say(f"K2 bound for {K2_STEPS} steps ({k2_bound[1]}): the card {k2_bound[0] * 1e3:.4f} us, one "
         f"SM {k2_bound[0] * n_sms * 1e3:.2f} us ({k2_bound[0] * n_sms / K2_STEPS * 1e3:.3f} us a "
         f"step); K2 runs a chain on one block")
-    k2_stamp_breakdown(k2_stamped, k2_ms, got2, n_steps, outer)
     # the K2 cases of the slice's new ops, each against its step loop
     for tag, fg_c, node_c, kern_c, vals in k2_cases:
         feed_c = fgraph_to_torch(FunctionGraph(fg_c.inputs, node_c.inputs, clone=False), dev)
@@ -7923,7 +8205,7 @@ def main(opts):
 
     lap(18)
     # 19. jax's loop samplers and the RBM Gibbs chain ----------------------------
-    loop_launches, loop_rows = phase_loops(dev, smi, build_s["stamped"], opts.parent)
+    loop_launches, loop_rows = phase_loops(dev, smi, opts.parent)
     lap(19)
 
     # 20. a censored-likelihood gradient: the shape-parameter gradients ----------
@@ -7951,6 +8233,12 @@ def main(opts):
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_graph_abs)
     model_launches.update(graph_launches)
     lap(23)
+    # 24. control and debug ops: IfElse, CheckAndRaise, the debug modes, typed
+    # lists, PdbBreakpoint ------------------------------------------------------------------
+    control_launches, k1_control_abs, control_row = phase_control(dev, smi, control_cpu)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_control_abs)
+    model_launches.update(control_launches)
+    lap(24)
     loop_entries = []
     for kname, timed_at in (("gamma", "gamma 2e20"), ("poisson", "poisson 2e20"),
                             ("binomial", "binomial gibbs visible")):
@@ -8053,6 +8341,7 @@ def main(opts):
             "fp64_instructions_an_iteration": GRAD_FP64[name]})
     kernels[0]["censored"] = censored_row
     kernels[0]["graph_layer"] = graph_row
+    kernels[0]["control"] = control_row
     for entry in kernels:
         within_bound(entry["name"], entry)
     say("phase seconds: " + json.dumps({k: round(v, 1) for k, v in lap.seconds.items()}))

@@ -59,3 +59,19 @@ from pytensor_tpu_torch.scan.views import reduce as scan_reduce  # noqa: F401,E4
 
 map = scan_map
 reduce = scan_reduce
+
+
+# import the submodule eagerly, then rebind the name to the callable: a
+# later `from pytensor_tpu_torch.ifelse import ...` must not shadow it back
+# to the module (the import system only sets the parent attr on the
+# submodule's FIRST load)
+import pytensor_tpu_torch.ifelse as _ifelse_module  # noqa: E402,F401
+from pytensor_tpu_torch.ifelse import ifelse  # noqa: E402,F401
+
+
+def __getattr__(name):
+    if name == "breakpoint":
+        import pytensor_tpu_torch.breakpoint as breakpoint
+
+        return breakpoint
+    raise AttributeError(f"module pytensor_tpu_torch has no attribute {name}")

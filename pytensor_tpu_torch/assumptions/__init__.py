@@ -5,9 +5,9 @@ assumptions/: FactState core.py:13, AssumptionFeature:178,
 register_assumption:127, and the per-op rule modules): facts like
 symmetric / positive-definite / triangular propagate through op-specific
 inference rules and feed rewrites (generic solve -> triangular/cholesky
-solve).  Two of the JAX package's rewrites here wait for their ops:
-``local_remove_proven_assert`` for ``CheckAndRaise`` (ROADMAP.md Queue 1
-item 11) and ``local_eig_to_eigh`` for ``Eig`` (item 17).
+solve, an assert whose condition is proven dropped).  One of the JAX
+package's rewrites here waits for its op: ``local_eig_to_eigh`` for
+``Eig`` (ROADMAP.md Queue 1 item 17).
 
 Layout: this module owns the fact vocabulary, the rule registry, the
 recursive ``holds`` query and constant evaluation; the per-op rules
@@ -201,6 +201,7 @@ def _register_rewrites():
     tensor/rewriting/assumptions.py:64 + linalg/solvers.py:703)."""
     from pytensor_tpu_torch.compile.mode import register_specialize
     from pytensor_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
+    from pytensor_tpu_torch.raise_op import CheckAndRaise
     from pytensor_tpu_torch.tensor.linalg import Solve, SolveTriangular
 
     @node_rewriter([Solve])
@@ -234,6 +235,27 @@ def _register_rewrites():
         return [res]
 
     register_specialize(local_solve_to_cholesky, name="local_solve_to_cholesky")
+
+    @node_rewriter([CheckAndRaise])
+    def local_remove_proven_assert(fgraph, node):
+        """Drop asserts whose condition is a proven fact (a condition that
+        is proven positive is true).  Where some conditions stay, they
+        stay in a ``CheckAndRaise`` of the same exception and message: the
+        JAX package's ``type(node.op)(exc_type, msg)`` raises for an
+        ``Assert``, and its rewrite then changes nothing."""
+        value, *conds = node.inputs
+        remaining = []
+        for c in conds:
+            if holds_in(fgraph, c, "positive") == FactState.TRUE:
+                continue
+            remaining.append(c)
+        if len(remaining) == len(conds):
+            return False
+        if not remaining:
+            return [value]
+        return [CheckAndRaise(node.op.exc_type, node.op.msg)(value, *remaining)]
+
+    register_specialize(local_remove_proven_assert, name="local_remove_proven_assert")
 
 
 _register_rewrites()

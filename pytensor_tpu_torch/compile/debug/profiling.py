@@ -101,7 +101,7 @@ def estimate_node_cost(node):
 
 
 class NodeTimer:
-    """Times each node of an eager plan (``Plan.timer``): CUDA events
+    """Times each node of an eager plan (a ``Plan.hook``): CUDA events
     around each node on a card, read after the call; the host's clock on
     the CPU."""
 
@@ -110,14 +110,14 @@ class NodeTimer:
         self.cuda = device.type == "cuda"
         self.pending: list = []
 
-    def start(self):
+    def before(self, node, inputs):
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             return ev
         return time.perf_counter()
 
-    def stop(self, node, mark):
+    def after(self, node, mark, inputs, outputs):
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
@@ -269,7 +269,7 @@ def profile_function(fn, stats: ProfileStats | None = None):
     stats.record_rewrite_profile(getattr(fn, "rewrite_profile", None))
     stats.build_op_table(fn.fgraph)
     if fn.mode is not None and _linker_class(fn.mode.linker) is PyLinker:
-        stats.node_timer = fn.linked.timer = NodeTimer(stats, fn.device)
+        stats.node_timer = fn.linked.hook = NodeTimer(stats, fn.device)
     return fn
 
 

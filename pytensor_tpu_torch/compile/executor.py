@@ -103,13 +103,11 @@ class Function:
         else:
             results = list(stats.timed_call(self.linked, args, shared))
         held = {t.untyped_storage().data_ptr() for t in shared}
-        outputs = [r.clone() if r.untyped_storage().data_ptr() in held else r
-                   for r in results[: self.n_outputs]]
+        outputs = [_copied(r, held) for r in results[: self.n_outputs]]
         if self.update_targets:
             updated = {sv.storage[0].untyped_storage().data_ptr()
                        for sv in self.update_targets}
-            values = [r.clone() if r.untyped_storage().data_ptr() in updated else r
-                      for r in results[self.n_outputs:]]
+            values = [_copied(r, updated) for r in results[self.n_outputs:]]
             for sv, value in zip(self.update_targets, values):
                 if value.shape != sv.storage[0].shape:
                     # copy_ would broadcast; an update keeps the shape
@@ -118,7 +116,7 @@ class Function:
                 sv.storage[0].copy_(value)
         self.call_count += 1
         # the unsigned dtypes above uint8 leave in torch's dtype of their width
-        outputs = [unheld(r, o.type.dtype) if o.type.dtype in UNSIGNED else r
+        outputs = [unheld(r, o.type.dtype) if getattr(o.type, "dtype", None) in UNSIGNED else r
                    for r, o in zip(outputs, self.fgraph.outputs)]
         if self.unpack_single:
             return outputs[0]
@@ -181,6 +179,14 @@ class Function:
 
     def __str__(self):
         return f"Function({self.name or 'anonymous'}, device={self.device})"
+
+
+def _copied(value, held):
+    """``value``, or a copy of it where it shares storage with one of the
+    tensors ``held`` names (a typed list element by element)."""
+    if isinstance(value, list):
+        return [_copied(v, held) for v in value]
+    return value.clone() if value.untyped_storage().data_ptr() in held else value
 
 
 def _rebuild_function(payload, mode=None, device=None):

@@ -4,8 +4,9 @@ inner function.
 Counterpart of ``pytensor_tpu/compile/inner_function.py`` (PyTensor's
 compile/inner_function.py:26).  The JAX package compiles the inner graph
 with its numpy oracle linker; the port compiles it with the ``"py"``
-linker, unrewritten, on the device it is asked for (``fn(device)``), and
-``perform`` runs it on the CPU.
+linker, unrewritten, on the device it is asked for (``fn(device)``; the
+card unless the caller asks for the CPU, as every entry point of the
+port), and ``perform`` runs it on the CPU, which it asks for.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ class HasInnerFunction(HasInnerGraph):
 
     _inner_fns = None
 
-    def fn(self, device="cpu"):
+    def fn(self, device="cuda"):
         from pytensor_tpu_torch.compile.maker import function
         from pytensor_tpu_torch.compile.mode import Mode
         from pytensor_tpu_torch.link.torch.convert import resolve_device

@@ -22,9 +22,9 @@ as in the JAX package: ``C`` and ``CVM`` to ``"py"`` with ``"fast_run"``,
 ``NUMBA``, ``JAX``, ``PYTORCH`` and ``MLX`` to ``FAST_RUN``.
 ``AddDestroyHandler``, ``AddFeatureOptimizer`` and
 ``PrintCurrentFunctionGraph`` are passes a mode runs after its own
-(``Mode.register``).  Left out: the ``check_stack_trace`` audit pass, and
-the ``DebugMode`` and ``NanGuardMode`` names (ROADMAP.md Queue 1 item
-11).
+(``Mode.register``).  ``get_mode`` also takes the names ``DebugMode`` and
+``NanGuardMode`` (``compile/debug/``), a new mode each time, as in the
+JAX package.  Left out: the ``check_stack_trace`` audit pass.
 """
 
 from __future__ import annotations
@@ -186,6 +186,14 @@ def get_mode(mode):
     if mode is None:
         mode = config.mode
     if isinstance(mode, str):
+        if mode == "DebugMode":
+            from pytensor_tpu_torch.compile.debug.debugmode import DebugMode
+
+            return DebugMode()
+        if mode == "NanGuardMode":
+            from pytensor_tpu_torch.compile.debug.nanguardmode import NanGuardMode
+
+            return NanGuardMode()
         if mode not in predefined_modes:
             raise ValueError(f"Unknown mode {mode!r}")
         return predefined_modes[mode]

@@ -135,7 +135,7 @@ config.add(
 )
 config.add(
     "mode",
-    EnumStr("FAST_RUN", ("FAST_COMPILE", "PY"),
+    EnumStr("FAST_RUN", ("FAST_COMPILE", "PY", "DebugMode", "NanGuardMode"),
             doc="Default compilation mode (compile.mode.get_mode)."),
 )
 config.add(
@@ -157,6 +157,10 @@ config.add(
                         "off = eager, for debugging.  Read when a function is linked.  "
                         "The name and default are the JAX package's."),
 )
+config.add("nan_guard__nan_is_error", BoolParam(True, doc="NanGuardMode raises on a NaN."))
+config.add("nan_guard__inf_is_error", BoolParam(True, doc="NanGuardMode raises on an inf."))
+config.add("nan_guard__big_is_error", BoolParam(True, doc="NanGuardMode raises on a value "
+                                                           "above 1e10 in magnitude."))
 config.add("profile", BoolParam(False, doc="Profile every function (compile/debug/profiling.py); "
                                         "the summaries print at exit."))
 config.add("profile_optimizer", BoolParam(False, doc="Keep each rewrite pass's seconds in a "

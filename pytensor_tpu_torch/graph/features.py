@@ -1,7 +1,7 @@
 """Observer plugins for FunctionGraph.
 
 Parallels PyTensor's graph/features.py (Feature:297,
-History:439, ReplaceValidate:710): features get callbacks on graph
+History:439, FullHistory:502, ReplaceValidate:710): features get callbacks on graph
 mutation and can validate or veto replacements.  A feature that binds
 closures onto its graph names them in ``pickle_rm_attr``; a pickle of the
 graph leaves them out and ``unpickle`` binds them again on load.
@@ -168,3 +168,70 @@ class ReplaceValidate(History, Validator):
             fgraph.revert(chk)
             raise
         return chk
+
+
+class FullHistory(Feature):
+    """Complete undo/redo history of graph changes (PyTensor's
+    graph/features.py FullHistory:502), with each change's reason: step
+    backward and forward through the rewrites (``DebugMode``'s rewrite
+    blame, ``compile/debug/debugmode.py``)."""
+
+    def __init__(self, callback=None):
+        self.fw: list = []
+        self.bw: list = []
+        self.reasons: list = []  # rewrite reason per recorded change
+        self.pointer = -1
+        self.fg = None
+        self.callback = callback
+
+    def on_attach(self, fgraph):
+        if self.fg is not None:
+            raise AlreadyThere("FullHistory already attached")
+        self.fg = fgraph
+
+    def on_change_input(self, fgraph, node, i, old_var, new_var, reason=None):
+        if self.pointer != len(self.fw) - 1 and self.pointer != -1:
+            # drop the redo tail after a new change
+            del self.fw[self.pointer + 1:]
+            del self.bw[self.pointer + 1:]
+            del self.reasons[self.pointer + 1:]
+        self.bw.append(lambda: fgraph.change_node_input(node, i, old_var,
+                                                        reason="undo"))
+        self.fw.append(lambda: fgraph.change_node_input(node, i, new_var,
+                                                        reason="redo"))
+        self.reasons.append(reason)
+        self.pointer = len(self.fw) - 1
+        if self.callback:
+            self.callback()
+
+    def prev(self):
+        if self.pointer >= 0:
+            f = self.bw[self.pointer]
+            # temporarily detach to avoid recording the undo itself
+            ptr = self.pointer
+            fw, bw = self.fw, self.bw
+            self.fw, self.bw = [], []
+            f()
+            self.fw, self.bw = fw, bw
+            self.pointer = ptr - 1
+        return self.fg
+
+    def next(self):
+        if self.pointer < len(self.fw) - 1:
+            ptr = self.pointer
+            fw, bw = self.fw, self.bw
+            self.fw, self.bw = [], []
+            fw[ptr + 1]()
+            self.fw, self.bw = fw, bw
+            self.pointer = ptr + 1
+        return self.fg
+
+    def start(self):
+        while self.pointer >= 0:
+            self.prev()
+        return self.fg
+
+    def end(self):
+        while self.pointer < len(self.fw) - 1:
+            self.next()
+        return self.fg

@@ -90,5 +90,13 @@ class Op(MetaObject):
 class HasInnerGraph:
     """Mixin for ops holding an inner FunctionGraph (Scan, OpFromGraph)."""
 
+    @property
+    def inner_inputs(self):
+        return self.fgraph.inputs
+
+    @property
+    def inner_outputs(self):
+        return self.fgraph.outputs
+
     def clone(self):
         raise NotImplementedError

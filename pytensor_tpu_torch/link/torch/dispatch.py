@@ -4,8 +4,10 @@ Counterpart of ``pytensor_tpu/link/xla/dispatch.py`` (``xla_funcify:27``
 and the lowerings at ``:155-760``, with the blas lowerings of
 ``pytensor_tpu/tensor/blas.py:246-289``, and the ``Blockwise`` lowering
 of ``:870``, with those of ``extra_ops`` and ``sort`` at ``:772-868``;
-the lowerings of ``FromFunctionOp`` and ``Print`` wait for their
-modules), of the lowerings of ``pytensor_tpu/tensor/einsum.py:229``,
+the lowering of ``FromFunctionOp`` waits for its module), of the
+lowerings of ``pytensor_tpu/raise_op.py:81``, ``ifelse.py:114``,
+``breakpoint.py:94`` and ``typed_list/basic.py:255-357``, of the
+lowerings of ``pytensor_tpu/tensor/einsum.py:229``,
 ``fft.py:142`` and ``signal/conv.py:180``, of those of
 ``pytensor_tpu/tensor/optimize.py:346`` (in ``link/torch/optimize.py``), of the Scan lowering at
 ``pytensor_tpu/scan/op.py:790`` and of the sparse lowerings at
@@ -29,12 +31,15 @@ from functools import singledispatch
 import numpy as np
 import torch
 
+from pytensor_tpu_torch.breakpoint import PdbBreakpoint
 from pytensor_tpu_torch.compile.builders import OpFromGraph
 from pytensor_tpu_torch.compile.ops import DeepCopyOp, TypeCastingOp
 from pytensor_tpu_torch.gradient import GradManipulatorOp
 from pytensor_tpu_torch.graph.basic import Constant
 from pytensor_tpu_torch.graph.fg import FunctionGraph
+from pytensor_tpu_torch.ifelse import IfElse
 from pytensor_tpu_torch.printing import Print
+from pytensor_tpu_torch.raise_op import CheckAndRaise
 from pytensor_tpu_torch.scalar.basic import upcast
 from pytensor_tpu_torch.link.torch.convert import CSR, UNSIGNED, torch_dtype
 from pytensor_tpu_torch.scan.dynlen import PadTraceGrad, TruncateToDone
@@ -87,6 +92,18 @@ from pytensor_tpu_torch.tensor.sort import ArgSortOp, SortOp, TopKOp
 from pytensor_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape, Unbroadcast
 from pytensor_tpu_torch.tensor.type import TensorType
 from pytensor_tpu_torch.tensor.type_other import MakeSlice
+from pytensor_tpu_torch.typed_list.basic import (
+    Append,
+    Count,
+    Extend,
+    GetItem,
+    Index,
+    Insert,
+    Length,
+    MakeList,
+    Remove,
+    Reverse,
+)
 from pytensor_tpu_torch.tensor.subtensor import (
     DYN,
     AdvancedIncSubtensor,
@@ -341,12 +358,12 @@ def _fused(op, node=None, device=None, **kw):
 
 
 @torch_funcify.register(OpFromGraph)
-def _op_from_graph(op, node=None, device=None, **kw):
+def _op_from_graph(op, node=None, device=None, checks=None, **kw):
     """A composite (``SymbolicOp``: the softmax family) runs its inner graph
-    linked for ``device``."""
+    linked for ``device`` (its deferred checks the outer plan's)."""
     from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
 
-    inner = fgraph_to_torch(op.fgraph, device, trust_input=True)
+    inner = fgraph_to_torch(op.fgraph, device, trust_input=True, checks=checks)
 
     def op_from_graph(*args):
         res = inner(*args)
@@ -587,6 +604,165 @@ def _print(op, node=None, **kw):
         return x
 
     return print_
+
+
+# --- control and debug ops ---------------------------------------------------
+
+@torch_funcify.register(CheckAndRaise)
+@ports(keeps_host=_from(1))
+def _check_and_raise(op, node=None, device=None, checks=None, slot=None, host=frozenset(),
+                     **kw):
+    """On the CPU the check at the node, in ``perform``'s order.  On a CUDA
+    device (a plan given ``checks``) a condition that is a host value is
+    checked at the node, and a device one ORs whether it failed into the
+    node's slot of the outermost plan's flags (``linker.py Checks``), read
+    after the call: no read of the device here, so the plan may still be
+    captured."""
+    def check_at_node(value, *conds):
+        for c in conds:
+            if not bool(torch.as_tensor(c).all()):
+                raise op.exc_type(op.msg)
+        return value
+
+    if checks is None:
+        return check_at_node
+
+    on_host = [i in host for i in node.inputs[1:]]
+
+    def check_deferred(value, *conds):
+        failed = None
+        for c, at_host in zip(conds, on_host):
+            if at_host:
+                if not bool(c.all()):
+                    raise op.exc_type(op.msg)
+            else:
+                bad = c.all().logical_not()
+                failed = bad if failed is None else failed.logical_or(bad)
+        if failed is not None:
+            checks.buffer[slot].logical_or_(failed)
+        return value if value.device == device else value.to(device)
+
+    return check_deferred
+
+
+@torch_funcify.register(IfElse)
+@ports(reads_back="the condition is read on the host to choose the branch")
+def _ifelse(op, node=None, device=None, **kw):
+    """The taken branch's values.  The linker's lazy run (``linker.py
+    Lazy``) reads the condition once, computes only the taken branch and
+    passes the condition as a Python bool, the other branch's values as
+    None; a branch value that is a host value moves to the device."""
+    n = op.n_outs
+
+    def ifelse(cond, *branches):
+        chosen = [b if b.device == device else b.to(device)
+                  for b in (branches[:n] if bool(cond) else branches[n:])]
+        return chosen if n > 1 else chosen[0]
+
+    return ifelse
+
+
+@torch_funcify.register(PdbBreakpoint)
+@ports(reads_back="the condition is read on the host to decide whether to break")
+def _pdb_breakpoint(op, node=None, **kw):
+    """The monitored values themselves; where the condition holds, the
+    debugger first, with CPU numpy copies of them."""
+    from pytensor_tpu_torch.link.torch.convert import to_numpy
+
+    def breakpoint_(condition, *monitored):
+        if bool(condition):
+            type(op).debugger(op.name, [to_numpy(m) for m in monitored])
+        return monitored[0] if len(monitored) == 1 else tuple(monitored)
+
+    return breakpoint_
+
+
+# --- typed lists (Python lists of tensors) --------------------------------------
+
+def _list_equal(v, e):
+    """``np.array_equal`` of two tensors as a 0-d bool on the device."""
+    if v.shape != e.shape:
+        return torch.zeros((), dtype=torch.bool, device=v.device)
+    return (v == e).all()
+
+
+@torch_funcify.register(MakeList)
+def _make_list(op, node=None, **kw):
+    return lambda *elems: list(elems)
+
+
+@torch_funcify.register(GetItem)
+@ports(host=(1,))
+def _getitem(op, node=None, **kw):
+    return lambda x, i: x[int(i)]
+
+
+@torch_funcify.register(Append)
+def _append(op, node=None, **kw):
+    return lambda x, e: list(x) + [e]
+
+
+@torch_funcify.register(Extend)
+def _extend(op, node=None, **kw):
+    return lambda x, y: list(x) + list(y)
+
+
+@torch_funcify.register(Insert)
+@ports(host=(1,))
+def _insert(op, node=None, **kw):
+    def insert(x, i, e):
+        res = list(x)
+        res.insert(int(i), e)
+        return res
+
+    return insert
+
+
+@torch_funcify.register(Remove)
+@ports(reads_back="the list's values are compared on the host to find the one to remove")
+def _remove(op, node=None, **kw):
+    def remove(x, e):
+        res = list(x)
+        for k, v in enumerate(res):
+            if bool(_list_equal(v, e)):
+                del res[k]
+                break
+        return res
+
+    return remove
+
+
+@torch_funcify.register(Reverse)
+def _reverse(op, node=None, **kw):
+    return lambda x: list(reversed(x))
+
+
+@torch_funcify.register(Length)
+def _length(op, node=None, **kw):
+    # a host value (linker.py _host_variables): the length is the list's
+    return lambda x: torch.tensor(len(x), dtype=torch.int64)
+
+
+@torch_funcify.register(Count)
+def _count(op, node=None, device=None, **kw):
+    def count(x, e):
+        if not x:
+            return torch.zeros((), dtype=torch.int64, device=device)
+        return torch.stack([_list_equal(v, e) for v in x]).sum(dtype=torch.int64)
+
+    return count
+
+
+@torch_funcify.register(Index)
+@ports(reads_back="the list's values are compared on the host to find the first match")
+def _index(op, node=None, device=None, **kw):
+    def index(x, e):
+        for k, v in enumerate(x):
+            if bool(_list_equal(v, e)):
+                return torch.tensor(k, dtype=torch.int64, device=device)
+        raise ValueError("element not in typed list")
+
+    return index
 
 
 @torch_funcify.register(MakeSlice)
@@ -1820,7 +1996,7 @@ def _reads_condition(node):
 
 @torch_funcify.register(Scan)
 @ports(host=(0,), keeps_host=_non_seq_ports, reads_back=_reads_condition)
-def _scan(op, node=None, device=None, host=frozenset(), **kw):
+def _scan(op, node=None, device=None, host=frozenset(), checks=None, **kw):
     """The loop below, or with ``config.scan__pallas`` and an eligible
     scan the whole-loop kernel K2 (the rule of
     ``pytensor_tpu/scan/op.py:801-806``); K2's wrapper runs this loop on
@@ -1832,10 +2008,10 @@ def _scan(op, node=None, device=None, host=frozenset(), **kw):
 
     if _takes_kernel(op, node):
         return ScanKernel(op, node, device)
-    return scan_loop(op, device, node, host)
+    return scan_loop(op, device, node, host, checks)
 
 
-def scan_loop(op, device, node=None, host=frozenset()):
+def scan_loop(op, device, node=None, host=frozenset(), checks=None):
     """A scan as a torch step loop over the inner graph linked for
     ``device`` (counterpart of ``pytensor_tpu/scan/op.py:817-946``); the
     plain version of K2.  Returns ``loop(n_steps, *outer)``, which gives
@@ -1859,7 +2035,9 @@ def scan_loop(op, device, node=None, host=frozenset()):
     non-sequence is linked into the inner plan as that constant, as the
     JAX package's loop body closes over static values: a shape, a step
     count or an index that the rewrites hoisted out of the loop is then
-    read on the host, with no read of the device."""
+    read on the host, with no read of the device.  ``checks`` is the outer
+    plan's ``Checks`` (``linker.py``): a ``CheckAndRaise`` of the step
+    ORs each step's result into its slot."""
     from pytensor_tpu_torch.graph.replace import clone_replace
     from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
 
@@ -1873,7 +2051,8 @@ def scan_loop(op, device, node=None, host=frozenset()):
         if consts:
             fgraph = FunctionGraph(fgraph.inputs, clone_replace(fgraph.outputs, consts),
                                    clone=True)
-    inner = fgraph_to_torch(fgraph, device, trust_input=True, host_inputs=host_inputs)
+    inner = fgraph_to_torch(fgraph, device, trust_input=True, host_inputs=host_inputs,
+                            checks=checks)
     n_seqs, n_states, n_unt, n_nit = info.n_seqs, info.n_states, info.n_untraced, info.n_nit_sot
     depth = [-min(taps) for taps in info.taps]
     single = [m == 1 and len(taps) == 1 for m, taps in zip(depth, info.taps)]

@@ -35,12 +35,26 @@ Each intermediate is freed after its last reader, by free lists made at
 link time (the rule of the oracle linker's ``allow_gc``,
 ``pytensor_tpu/link/basic.py:131-151``, always on): inputs, constants and
 outputs are never freed.
+
+A plan that holds an ``IfElse`` runs demand-driven (``Lazy``), as the JAX
+package's oracle linker runs such a graph
+(``pytensor_tpu/link/basic.py:160-250``): from the outputs' producers
+down, an ``IfElse`` depending on its condition's producers only, and on
+the taken branch's once the condition is read, so an untaken branch runs
+no node.  Its values are freed by what has run: a value goes once every
+node that reads it has run, and one that a node never run would read
+stays until the call returns.  Every other plan keeps the topological
+loop.  On a CUDA device the ``CheckAndRaise`` nodes of a plan and of its
+inner plans defer their checks to the outermost plan (``Checks``), which
+reads them once after the call.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
+import numpy as np
 import torch
 
 from pytensor_tpu_torch.config import config, matmul_settings
@@ -64,6 +78,8 @@ from pytensor_tpu_torch.link.torch.convert import (
     torch_dtype,
 )
 from pytensor_tpu_torch.link.torch.dispatch import arange_index, ports_of, torch_funcify
+from pytensor_tpu_torch.ifelse import IfElse
+from pytensor_tpu_torch.raise_op import CheckAndRaise
 from pytensor_tpu_torch.sparse.type import SparseTensorType
 from pytensor_tpu_torch.tensor import fused_kernel
 from pytensor_tpu_torch.tensor.basic import MakeVector
@@ -71,6 +87,7 @@ from pytensor_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from pytensor_tpu_torch.tensor.shape import Shape, Shape_i
 from pytensor_tpu_torch.tensor.subtensor import Subtensor
 from pytensor_tpu_torch.tensor.type import TensorType
+from pytensor_tpu_torch.typed_list.basic import Length, TypedListType
 
 # ops that compute on the host when every non-constant input is host
 _HOST_CAPABLE = (Elemwise, DimShuffle, MakeVector, CAReduce, Subtensor)
@@ -93,11 +110,11 @@ def _takes_host_scalar(node, k, var) -> bool:
 
 
 def _host_variables(order, host_inputs=()) -> set:
-    """The values computed on the host: shapes, and what the host-capable
-    ops compute from them and constants.  A host-capable op of constants
-    alone (a graph no rewrite folded, such as a nested scan's body) runs on
-    the host where a host port reads what it computes, and on the device
-    otherwise."""
+    """The values computed on the host: shapes and typed lists' lengths,
+    and what the host-capable ops compute from them and constants.  A
+    host-capable op of constants alone (a graph no rewrite folded, such as
+    a nested scan's body) runs on the host where a host port reads what it
+    computes, and on the device otherwise."""
     wanted: set = set()
     for node in reversed(order):
         wanted.update(node.inputs[k] for k in ports_of(node, "host"))
@@ -105,7 +122,7 @@ def _host_variables(order, host_inputs=()) -> set:
             wanted.update(node.inputs)
     host: set = set(host_inputs)
     for node in order:
-        if isinstance(node.op, (Shape, Shape_i)):
+        if isinstance(node.op, (Shape, Shape_i, Length)):
             host.update(node.outputs)
         elif (isinstance(node.op, _HOST_CAPABLE)
               and all(i in host or isinstance(i, Constant) for i in node.inputs)
@@ -197,6 +214,95 @@ def _host_reads(steps, host) -> list:
     return reads
 
 
+def node_outputs(node, res) -> list:
+    """A lowering's result as the list of ``node``'s output values: a list
+    or a tuple holds the outputs, but where the output is a typed list,
+    which is a Python list itself."""
+    if isinstance(res, (list, tuple)) and not isinstance(node.outputs[0].type, TypedListType):
+        return list(res)
+    return [res]
+
+
+class Checks:
+    """The deferred checks of the ``CheckAndRaise`` nodes of a plan on a
+    CUDA device and of its inner plans (a scan's step loop, a composite):
+    one slot each, in topological order (an inner plan's at its node's
+    place), in a device buffer of flags that the outermost plan zeroes at
+    the start of each call and reads once after it (``raise_failed``).  A
+    node's lowering ORs into its slot whether a condition failed, so a
+    step loop's slot holds whether any step failed."""
+
+    def __init__(self, device):
+        self.device = device
+        self.nodes: list = []
+        self.buffer = None
+
+    def slot(self, fgraph, node) -> int:
+        self.nodes.append((fgraph, node))
+        return len(self.nodes) - 1
+
+    def allocate(self):
+        if self.nodes:
+            self.buffer = torch.zeros(len(self.nodes), dtype=torch.bool, device=self.device)
+
+    def zero(self):
+        if self.buffer is not None:
+            self.buffer.zero_()
+
+    def raise_failed(self):
+        """Raise the first failed node's ``exc_type(msg)``, annotated with
+        that node (``raise_with_op``); one copy of the flags to the host."""
+        if self.buffer is None:
+            return
+        failed = self.buffer.cpu()
+        if not bool(failed.any()):
+            return
+        fgraph, node = self.nodes[int(failed.nonzero()[0, 0])]
+        try:
+            raise node.op.exc_type(node.op.msg)
+        except Exception:
+            raise_with_op(fgraph, node)
+
+
+# the depth of ``fgraph_to_torch`` calls made by lowerings, per thread
+_LOWERING = threading.local()
+
+
+class Lazy:
+    """The demand-driven order of a plan that holds an ``IfElse``
+    (``pytensor_tpu/link/basic.py:160-250``): for each step the steps it
+    needs (an ``IfElse``'s: its condition's producers) and, for an
+    ``IfElse``, its condition and each branch's producers; the outputs'
+    producers; each freeable value's count of reading steps, and each
+    step's freeable inputs."""
+
+    def __init__(self, steps, fgraph):
+        index = {node: k for k, (_, node, _, _) in enumerate(steps)}
+
+        def producers(variables):
+            return tuple(dict.fromkeys(index[v.owner] for v in variables
+                                       if v.owner is not None and v.owner in index))
+
+        keep = set(fgraph.inputs) | set(fgraph.outputs)
+        self.deps, self.branches, self.reads = [], [], []
+        self.readers: dict = {}
+        for _, node, _, _ in steps:
+            if isinstance(node.op, IfElse):
+                n = node.op.n_outs
+                self.deps.append(producers(node.inputs[:1]))
+                self.branches.append((node.inputs[0], producers(node.inputs[1: 1 + n]),
+                                      producers(node.inputs[1 + n:])))
+            else:
+                self.deps.append(producers(node.inputs))
+                self.branches.append(None)
+            reads = tuple(dict.fromkeys(i for i in node.inputs
+                                        if not isinstance(i, Constant) and i not in keep))
+            self.reads.append(reads)
+            for i in reads:
+                self.readers[i] = self.readers.get(i, 0) + 1
+        self.targets = producers(fgraph.outputs)
+
+
 class Plan:
     """``fgraph_to_torch``'s callable: ``plan(*inputs)`` returns a tuple of
     tensors.
@@ -204,11 +310,19 @@ class Plan:
     ``steps`` holds, for each node in topological order, its lowering, the
     node, its arguments (a constant's value or the variable to read) and
     its free list.  ``host_reads`` is the capture rule's verdict
-    (``_host_reads``), ``capturable`` whether it is empty.  ``timer``,
-    when set, times each node of a run (``PyLinker``'s profiles).
+    (``_host_reads``), ``capturable`` whether it is empty.  ``lazy``, for
+    a plan that holds an ``IfElse``, is its demand-driven order
+    (``Lazy``).  ``checks`` are the deferred checks (``Checks``) on a CUDA
+    device, of which the outermost plan (``owns_checks``) zeroes and reads
+    the flags.  ``hook``, when set, is called around each node a run
+    runs: ``hook.before(node, inputs)`` gives a mark, and
+    ``hook.after(node, mark, inputs, outputs)`` follows the node (the
+    ``"py"`` linker's profiles, ``compile/debug/profiling.py NodeTimer``,
+    and the debug modes, ``compile/debug/``).
     """
 
-    def __init__(self, fgraph, device, steps, outputs, host_reads, trust_input):
+    def __init__(self, fgraph, device, steps, outputs, host_reads, trust_input, lazy=None,
+                 checks=None, owns_checks=False):
         self.fgraph = fgraph
         self.device = device
         self.steps = steps
@@ -216,8 +330,10 @@ class Plan:
         self.outputs = outputs
         self.host_reads = host_reads
         self.trust_input = trust_input
-        # times each node when set (compile/debug/profiling.py NodeTimer)
-        self.timer = None
+        self.lazy = lazy
+        self.checks = checks
+        self.owns_checks = owns_checks
+        self.hook = None
 
     @property
     def capturable(self):
@@ -232,29 +348,41 @@ class Plan:
             raise TypeError(f"expected {len(self.inputs)} inputs, got {len(args)}")
         if not self.trust_input:
             args = self.convert(args)
-        return self.execute(args)
+        res = self.execute(args)
+        self.raise_failed()
+        return res
+
+    def raise_failed(self):
+        """The outermost plan's read of its deferred checks after a call."""
+        if self.owns_checks:
+            self.checks.raise_failed()
 
     def convert(self, args):
         """The inputs checked for device, dtype and shape, numpy values
-        (and scipy matrices, for sparse inputs) converted."""
-        return [self._convert(var, value) for var, value in zip(self.inputs, args)]
+        (and scipy matrices, for sparse inputs, and lists, for typed-list
+        inputs) converted."""
+        return [self._convert(var.type, var, value) for var, value in zip(self.inputs, args)]
 
-    def _convert(self, var, value):
+    def _convert(self, ty, var, value):
         device = self.device
-        if isinstance(var.type, SparseTensorType):
-            return sparse_as_torch(var.type.filter(value), device)
+        if isinstance(ty, TypedListType):
+            if not isinstance(value, (list, tuple)):
+                raise TypeError(f"input {var} is a typed list, got {type(value)}")
+            return [self._convert(ty.ttype, var, v) for v in value]
+        if isinstance(ty, SparseTensorType):
+            return sparse_as_torch(ty.filter(value), device)
         if isinstance(value, torch.Tensor):
-            value = held(value, var.type.dtype)
+            value = held(value, ty.dtype)
             if value.device != device:
                 raise ValueError(f"input {var} is on {value.device}, the function on {device}")
-            if value.dtype != torch_dtype(var.type.dtype):
-                raise TypeError(f"input {var} has dtype {value.dtype}, expected {var.type.dtype}")
-            if value.ndim != var.type.ndim or any(
-                    s is not None and s != d for s, d in zip(var.type.shape, value.shape)):
+            if value.dtype != torch_dtype(ty.dtype):
+                raise TypeError(f"input {var} has dtype {value.dtype}, expected {ty.dtype}")
+            if value.ndim != ty.ndim or any(
+                    s is not None and s != d for s, d in zip(ty.shape, value.shape)):
                 raise TypeError(f"input {var} has shape {tuple(value.shape)}, "
-                                f"expected {var.type}")
+                                f"expected {ty}")
             return value
-        return as_torch(var.type.filter(value), device)
+        return as_torch(ty.filter(value), device)
 
     def execute(self, args):
         """Run the plan on inputs already converted."""
@@ -288,47 +416,112 @@ class Plan:
 
     def run(self, args):
         global NODES_RUN
-        NODES_RUN += len(self.steps)
+        if self.owns_checks:
+            self.checks.zero()
         storage = dict(zip(self.inputs, args))
-        timer = self.timer
+        if self.lazy is not None:
+            self._run_lazy(storage)
+            return tuple(v if kind == "const" else storage[v] for kind, v in self.outputs)
+        NODES_RUN += len(self.steps)
         for fn, node, spec, free in self.steps:
-            vals = [v if kind == "const" else storage[v] for kind, v in spec]
-            try:
-                if timer is None:
-                    res = fn(*vals)
-                else:
-                    mark = timer.start()
-                    res = fn(*vals)
-                    timer.stop(node, mark)
-            except Exception:
-                raise_with_op(self.fgraph, node)
-            if isinstance(res, (list, tuple)):
-                storage.update(zip(node.outputs, res))
-            else:
-                storage[node.outputs[0]] = res
+            outs = self._call(fn, node, [v if kind == "const" else storage[v] for kind, v in spec])
+            storage.update(zip(node.outputs, outs))
             for var in free:
                 del storage[var]
         return tuple(v if kind == "const" else storage[v] for kind, v in self.outputs)
 
+    def _call(self, fn, node, vals):
+        """One node's run: its lowering on ``vals`` between the hook's
+        calls, a failure annotated with the node; returns its outputs."""
+        hook = self.hook
+        if hook is not None:
+            mark = hook.before(node, vals)
+        try:
+            res = fn(*vals)
+        except Exception:
+            raise_with_op(self.fgraph, node)
+        outs = node_outputs(node, res)
+        if hook is not None:
+            hook.after(node, mark, vals, outs)
+        return outs
+
+    def _run_lazy(self, storage):
+        """The demand-driven run (``Lazy``): a stack of steps from the
+        outputs' producers; a step is expanded into the steps it needs,
+        an ``IfElse`` then into its taken branch's (the condition read on
+        the host here), and run once they are done.  An ``IfElse`` gets
+        the condition as a Python bool and None for each value of the
+        untaken branch."""
+        global NODES_RUN
+        lazy, steps = self.lazy, self.steps
+        state = [0] * len(steps)  # 0 new, 1 expanded, 2 branch chosen
+        done = [False] * len(steps)
+        taken: dict = {}
+        readers = dict(lazy.readers)
+        stack = list(reversed(lazy.targets))
+        while stack:
+            k = stack[-1]
+            if done[k]:
+                stack.pop()
+                continue
+            if state[k] == 0:
+                state[k] = 1
+                stack.extend(d for d in reversed(lazy.deps[k]) if not done[d])
+                continue
+            branch = lazy.branches[k]
+            if state[k] == 1 and branch is not None:
+                state[k] = 2
+                cond = branch[0]
+                cond = cond.data if isinstance(cond, Constant) else storage[cond]
+                taken[k] = bool(cond)
+                stack.extend(d for d in reversed(branch[1 if taken[k] else 2]) if not done[d])
+                continue
+            fn, node, spec, _ = steps[k]
+            if branch is None:
+                vals = [v if kind == "const" else storage[v] for kind, v in spec]
+            else:
+                n, chosen = node.op.n_outs, taken[k]
+                vals = [chosen] + [None if (j <= n) != chosen else v if kind == "const"
+                                   else storage[v] for j, (kind, v) in enumerate(spec[1:], 1)]
+            storage.update(zip(node.outputs, self._call(fn, node, vals)))
+            done[k] = True
+            NODES_RUN += 1
+            stack.pop()
+            for var in lazy.reads[k]:
+                readers[var] -= 1
+                if not readers[var]:
+                    storage.pop(var, None)
+
 
 def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False,
-                    host_inputs=()) -> Plan:
+                    host_inputs=(), checks=None) -> Plan:
     """The eager plan of ``fgraph`` on ``device``: each node's torch
-    lowering in topological order.
+    lowering in topological order, or demand-driven where the graph holds
+    an ``IfElse``.
 
     Inputs are checked for device, dtype and shape, and numpy values
     (and scipy matrices, for sparse inputs) converted, unless
     ``trust_input``: then they are taken as they are.  The inputs at the
     positions ``host_inputs`` are host values (a scan's step loop gives
-    its inner plan the host values of the outer one).
+    its inner plan the host values of the outer one).  ``checks`` is the
+    outer plan's ``Checks``, which an inner plan's ``CheckAndRaise`` nodes
+    write into; without it a plan on a CUDA device makes its own.  A
+    lowering that links an inner plan holding a ``CheckAndRaise`` must
+    pass its own ``checks`` on (raises otherwise): only the outermost
+    plan's callers read the flags.
     """
     device = resolve_device(device)
     order = fgraph.toposort()
     host = _host_variables(order, [fgraph.inputs[k] for k in host_inputs])
     cpu = torch.device("cpu")
     consts: dict = {}
+    owns_checks = checks is None and device.type == "cuda"
+    if owns_checks:
+        checks = Checks(device)
 
     def const_value(c, where):
+        if isinstance(c.type, TypedListType):
+            return [as_torch(np.asarray(v), where) for v in c.data]
         if not isinstance(c.type, (TensorType, SparseTensorType)):
             return c.data  # NoneConst of an unspecified SpecifyShape dim
         key = (c, where)
@@ -337,15 +530,26 @@ def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False,
                            else as_torch(c.data, where))
         return consts[key]
 
+    nested = getattr(_LOWERING, "depth", 0)
+    if owns_checks and nested and any(isinstance(n.op, CheckAndRaise) for n in order):
+        raise RuntimeError("an inner plan's CheckAndRaise nodes must write into the outer "
+                           "plan's flags: its lowering must pass fgraph_to_torch its checks")
     steps = []
-    for node, free in zip(order, _free_lists(order, fgraph)):
-        fn = torch_funcify(node.op, node=node, device=device, host=host)
-        ports = ports_of(node, "host")
-        on_host = any(o in host for o in node.outputs)
-        args = [("const", const_value(i, cpu if on_host or k in ports else device))
-                if isinstance(i, Constant) else ("var", i)
-                for k, i in enumerate(node.inputs)]
-        steps.append((fn, node, args, free))
+    _LOWERING.depth = nested + 1
+    try:
+        for node, free in zip(order, _free_lists(order, fgraph)):
+            kw = {}
+            if checks is not None and isinstance(node.op, CheckAndRaise):
+                kw["slot"] = checks.slot(fgraph, node)
+            fn = torch_funcify(node.op, node=node, device=device, host=host, checks=checks, **kw)
+            ports = ports_of(node, "host")
+            on_host = any(o in host for o in node.outputs)
+            args = [("const", const_value(i, cpu if on_host or k in ports else device))
+                    if isinstance(i, Constant) else ("var", i)
+                    for k, i in enumerate(node.inputs)]
+            steps.append((fn, node, args, free))
+    finally:
+        _LOWERING.depth = nested
     if device.type == "cuda":
         # a FusedElemwise's kernel, or a special function's one-node K1
         kernels = [k for k in (getattr(fn, "k1", fn) for fn, _, _, _ in steps)
@@ -354,30 +558,42 @@ def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False,
             fused_kernel.build(kernels)
     outputs = [("const", const_value(o, device)) if isinstance(o, Constant) else ("var", o)
                for o in fgraph.outputs]
-    return Plan(fgraph, device, steps, outputs, _host_reads(steps, host), trust_input)
+    if owns_checks:
+        checks.allocate()
+    lazy = Lazy(steps, fgraph) if any(isinstance(n.op, IfElse) for n in order) else None
+    return Plan(fgraph, device, steps, outputs, _host_reads(steps, host), trust_input, lazy,
+                checks, owns_checks and checks.buffer is not None)
 
 
 # --- the captured function ------------------------------------------------------
 
 def _signature(value):
-    """What a capture is keyed by: shape and dtype, and for a sparse value
-    its triple's."""
+    """What a capture is keyed by: shape and dtype, for a sparse value its
+    triple's, for a typed list its length and its elements'."""
     if isinstance(value, CSR):
         return (value.shape, *(_signature(t) for t in (value.indptr, value.indices, value.data)))
+    if isinstance(value, list):
+        return ("list", *(_signature(v) for v in value))
     if not isinstance(value, torch.Tensor):
         raise TypeError(f"a captured function takes tensors, got {type(value)}")
     return value.shape, value.dtype
 
 
 def _clone(value):
-    """A fresh copy of a tensor or of a sparse triple, contiguous."""
+    """A fresh copy of a tensor, of a sparse triple or of a typed list,
+    contiguous."""
     if isinstance(value, CSR):
         return CSR(_clone(value.indptr), _clone(value.indices), _clone(value.data), value.shape)
+    if isinstance(value, list):
+        return [_clone(v) for v in value]
     return value.clone(memory_format=torch.contiguous_format)
 
 
 def _copy_into(buffer, value):
-    if isinstance(buffer, CSR):
+    if isinstance(buffer, list):
+        for b, v in zip(buffer, value):
+            _copy_into(b, v)
+    elif isinstance(buffer, CSR):
         for field in ("indptr", "indices", "data"):
             getattr(buffer, field).copy_(getattr(value, field))
     else:
@@ -399,6 +615,7 @@ def _capture(plan, args):
     with torch.cuda.stream(side):
         warm = plan.execute(inputs)
     cur.wait_stream(side)
+    plan.raise_failed()
     # the warm-up's outputs may be views of the static inputs
     first = tuple(_clone(o) for o in warm)
     del warm
@@ -474,7 +691,9 @@ class CapturedFunction:
     and the call returns the warm-up's outputs.  Later calls of that
     signature copy their inputs into the capture's static buffers, replay
     the graph and return copies of its outputs, which no later call
-    changes.  A capture that fails raises; nothing falls back.
+    changes.  A capture that fails raises; nothing falls back.  A plan
+    with deferred checks (``Checks``) zeroes its flags inside the capture
+    and reads them after the warm-up and after each replay.
     """
 
     def __init__(self, plan: Plan):
@@ -492,7 +711,9 @@ class CapturedFunction:
         if graph is None:
             self.graphs[key], first = _capture(plan, args)
             return first
-        return graph.replay(args)
+        res = graph.replay(args)
+        plan.raise_failed()
+        return res
 
 
 class TorchLinker:
@@ -519,8 +740,8 @@ class PyLinker:
     thunk a node.  The port's ops have no numpy ``perform``, so its
     ``"py"`` returns the eager ``Plan`` on the device the caller names:
     each node's lowering called in turn, never captured into a CUDA graph,
-    whatever ``config.xla__jit`` says.  ``Plan.timer`` times each node
-    (``compile/debug/profiling.py``).
+    whatever ``config.xla__jit`` says.  ``Plan.hook`` is called around each
+    node (``compile/debug/profiling.py``, ``compile/debug/*mode.py``).
     """
 
     required_rewrites = ("torch",)

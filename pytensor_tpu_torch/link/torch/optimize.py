@@ -111,12 +111,15 @@ class Evaluations:
     ``evaluate(xk, pk, t)`` gives the four numbers (host floats) and ``g``
     (a tensor valid until the next evaluation).  On a card, with
     ``config.xla__jit`` and a capturable plan, each signature is captured
-    once and each evaluation is a replay; ``graphs`` holds the captures."""
+    once and each evaluation is a replay; ``graphs`` holds the captures.
+    ``checks`` are the outer plan's deferred checks, which the objective's
+    ``CheckAndRaise`` nodes write into (``linker.py Checks``)."""
 
-    def __init__(self, op, device):
+    def __init__(self, op, device, checks=None):
         from pytensor_tpu_torch.link.torch.linker import fgraph_to_torch
 
-        self.plan = fgraph_to_torch(_evaluation_graph(op), device, trust_input=True)
+        self.plan = fgraph_to_torch(_evaluation_graph(op), device, trust_input=True,
+                                    checks=checks)
         dev = self.plan.device
         self.dtype = op.fgraph.inputs[0].type.dtype
         self.captured = dev.type == "cuda" and config.xla__jit and self.plan.capturable
@@ -331,11 +334,11 @@ class BFGS:
 @torch_funcify.register(MinimizeOp)
 @ports(reads_back="BFGS reads each evaluation's value, slope and gradient norm back, "
                   "and its loop ends on them")
-def _minimize(op, node=None, device=None, **kw):
+def _minimize(op, node=None, device=None, checks=None, **kw):
     """BFGS (``BFGS``) for ``MinimizeOp`` and ``MinimizeScalarOp``: returns
     ``minimize(x0, *args) -> (x*, success)``; ``.bfgs`` is the loop, whose
     ``last`` records the latest fit."""
-    bfgs = BFGS(Evaluations(op, device))
+    bfgs = BFGS(Evaluations(op, device, checks))
 
     def minimize(x0, *args):
         if not x0.is_floating_point():
@@ -347,7 +350,7 @@ def _minimize(op, node=None, device=None, **kw):
 
 
 @torch_funcify.register(RootOp)
-def _root(op, node=None, device=None, **kw):
+def _root(op, node=None, device=None, checks=None, **kw):
     """25 Newton steps for ``RootOp`` and ``RootScalarOp``: returns
     ``newton(x0, *args) -> (x*, success)``; ``.inner`` is the plan of
     ``f`` and its Jacobian, whose host reads the capture rule reads."""
@@ -361,7 +364,8 @@ def _root(op, node=None, device=None, **kw):
     args = [i.type() for i in op.fgraph.inputs[1:]]
     f = _objective_at(op, x, args)
     J = G.jacobian(f, x) if x_var.type.ndim else G.grad(f, x)
-    plan = fgraph_to_torch(_rewritten([x, *args], [f, J]), device, trust_input=True)
+    plan = fgraph_to_torch(_rewritten([x, *args], [f, J]), device, trust_input=True,
+                           checks=checks)
 
     def newton(x0, *args):
         x = x0

@@ -12,7 +12,8 @@ The graphs map the flat free-parameter vector to (logp, dlogp), which is
 what a NUTS leapfrog step evaluates; ``leapfrog`` drives a linked
 function the way a sampler does.  ``make_radon_trajectory`` is a
 sampler's trajectory as a while-scan: leapfrog steps that stop where the
-energy diverges.
+energy diverges.  ``guarded_graphs`` is the model with a sampler's guards:
+an ``IfElse`` on a finite proposal and two asserts.
 """
 
 from __future__ import annotations
@@ -235,6 +236,67 @@ def make_radon_trajectory(stop=True, n_obs=919, n_counties=85, mode=None, *, dev
     theta0, m0, traces = trajectory_graphs(ptt, pt, graphs, n_steps, eps, stop)
     return ptt.function([theta0, m0, eps, n_steps], traces, name="radon_trajectory", mode=mode,
                         device=device)
+
+
+DATA_MESSAGE = "radon: the observations must be finite"
+SCALE_MESSAGE = "radon: sigma_y must be positive"
+
+
+def guarded_graphs(ptt, pt, n_obs=919, n_counties=85, dtype="float64", seed=0, asserts=True,
+                   conditional=True):
+    """``([theta, y], [logp, dlogp], n_params, y_value)`` of a package's
+    namespaces (``ptt`` the package, ``pt`` its tensor module): the radon
+    model with its observations ``y`` an input (``y_value`` the synthetic
+    data) and a sampler's guards.  With ``conditional``, ``logp`` and
+    ``dlogp`` are ``ifelse(all(isfinite(theta)), [logp, dlogp], [-inf,
+    zeros_like(theta)])`` (dlogp's shape and dtype), so that a proposal
+    holding a NaN or an infinity computes nothing of the model.  With ``asserts`` the graph carries two
+    asserts: one on ``sigma_y = exp(log_sigma_y)``, which the assumptions
+    prove (``local_remove_proven_assert`` drops it), and one that the
+    observations are finite, which they cannot prove."""
+    import importlib
+
+    Assert = importlib.import_module(ptt.__name__ + ".raise_op").Assert
+    county_v, floor_v, y_v = radon_synthetic_data(n_obs, n_counties, seed, dtype)
+    n_params = n_counties + 4
+    theta = pt.tensor("theta", dtype=dtype, shape=(n_params,))
+    y_in = pt.tensor("y", dtype=dtype, shape=(n_obs,))
+    y = Assert(DATA_MESSAGE)(y_in, pt.all(pt.isfinite(y_in))) if asserts else y_in
+    county = pt.as_tensor_variable(county_v)
+    floor = pt.as_tensor_variable(floor_v)
+
+    def normal_logp(x, mu, sigma):
+        return -0.5 * ((x - mu) / sigma) ** 2 - pt.log(sigma) - 0.5 * LOG_2PI
+
+    a_raw = theta[:n_counties]
+    mu_a = theta[n_counties]
+    log_sigma_a = theta[n_counties + 1]
+    b = theta[n_counties + 2]
+    log_sigma_y = theta[n_counties + 3]
+    sigma_a = pt.exp(log_sigma_a)
+    sigma_y = pt.exp(log_sigma_y)
+    if asserts:
+        sigma_y = Assert(SCALE_MESSAGE)(sigma_y, sigma_y)
+    a = mu_a + sigma_a * a_raw
+    mu_y = a[county] + b * floor
+    logp = (
+        pt.sum(normal_logp(y, mu_y, sigma_y))
+        + pt.sum(normal_logp(a_raw, 0.0, 1.0))
+        + pt.sum(normal_logp(mu_a, 0.0, 10.0))
+        + pt.sum(normal_logp(b, 0.0, 10.0))
+        + pt.sum(normal_logp(log_sigma_a, 0.0, 2.0))
+        + pt.sum(normal_logp(log_sigma_y, 0.0, 2.0))
+        + log_sigma_a + log_sigma_y
+    )
+    dlogp = ptt.grad(logp, theta)
+    if conditional:
+        ok = pt.all(pt.isfinite(theta))
+        # zeros_like(theta), not zeros_like(dlogp): that is second(dlogp, 0),
+        # which reads dlogp, so the other branch would compute the gradient
+        logp, dlogp = ptt.ifelse(ok, [logp, dlogp],
+                                 [pt.as_tensor_variable(np.asarray(-np.inf, dtype=dtype)),
+                                  pt.zeros_like(theta)])
+    return [theta, y_in], [logp, dlogp], n_params, y_v
 
 
 def radon_logp_dlogp_reference(theta, n_obs=919, n_counties=85, seed=0):

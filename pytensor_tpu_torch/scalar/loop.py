@@ -129,8 +129,8 @@ def _register_torch():
 
     @torch_funcify.register(ScalarLoop)
     @ports(host=(0,), reads_back=_until_read)
-    def _scalar_loop(op, node=None, device=None, **kw):
-        inner = fgraph_to_torch(op.fgraph, device, trust_input=True)
+    def _scalar_loop(op, node=None, device=None, checks=None, **kw):
+        inner = fgraph_to_torch(op.fgraph, device, trust_input=True, checks=checks)
         n_states = op.n_states
 
         def scalar_loop(n_steps, *rest):

@@ -9,10 +9,11 @@ test function, and as the same function with its module's names
 same, query for query; the asserts of the case hold in both runs.  The
 port's ``function`` is called with ``device="cpu"``.  The cases that
 import from the JAX package inside their body are written out below for
-the port (the Blockwise rule, the feature's cache).  Not ported, so not
-run on the port: ``Assert`` removal (``raise_op``, ROADMAP.md Queue 1
-item 11) and the symmetric-``eig`` dispatch (``Eig``, item 17), whose
-port raises ``NotImplementedError``.
+the port (the Blockwise rule, the feature's cache).  ``Assert`` removal
+(``local_remove_proven_assert``) runs in both packages in
+``tests/test_torch_raise_op.py``.  Not ported, so not run on the port:
+the symmetric-``eig`` dispatch (``Eig``, ROADMAP.md Queue 1 item 17),
+whose port raises ``NotImplementedError``.
 """
 
 import functools

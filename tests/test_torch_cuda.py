@@ -65,7 +65,15 @@ the twelve on its edge grid in both float dtypes through the gamma,
 Poisson or binomial kernel, bit for bit the same draw on the plain loops
 on the card; the RBM Gibbs chain at small widths, one captured CUDA graph
 launching the binomial kernel, with the CPU's draws where its products
-are exact on both devices.
+are exact on both devices.  The control and debug ops (the radon model
+at 50/6, float64): the asserts' deferred flags in a captured function
+(the unguarded function's bits, a failing data assert raising after a
+replay, the flags zeroed for the next call), the lazy ``IfElse``
+launching K1 as the unguarded function does at a finite theta (and the
+two conditions' own fused nodes) and only its condition's node at a NaN
+theta, ``DebugMode`` holding each K1 node against its plain
+version on the CPU (once a node), and ``HasInnerFunction.fn`` on the card
+by default.
 """
 
 import numpy as np
@@ -1769,3 +1777,142 @@ def test_check_blas_on_the_card(card):
 
     for dtype in ("float32", "bfloat16"):
         assert execute(N=512, iters=3, dtype=dtype, verbose=False, device=card) > 0
+
+
+# --- control and debug ops -------------------------------------------------------------
+
+def _guarded(card, asserts, conditional, n_obs=50, n_counties=6):
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.models.radon import guarded_graphs
+
+    ins, outs, n, y = guarded_graphs(ptt, pt, n_obs, n_counties, "float64", asserts=asserts,
+                                     conditional=conditional)
+    return ptt.function(ins, outs, device=card), n, y
+
+
+def test_deferred_assert_flag_captures_and_raises(card):
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.models.radon import DATA_MESSAGE
+
+    torch.use_deterministic_algorithms(True, warn_only=True)  # dlogp's index_add_
+    try:
+        fa, n, y = _guarded(card, asserts=True, conditional=False)
+        fu, _, _ = _guarded(card, asserts=False, conditional=False)
+        assert isinstance(fa.linked, CapturedFunction) and fa.linked.plan.owns_checks
+        th = as_torch(theta_start(n, "float64"), card)
+        y_d = as_torch(y, card)
+        first = fa(th, y_d)
+        for _ in range(2):  # a replay after the capture
+            got = fa(th, y_d)
+            assert all(torch.equal(a, b) for a, b in zip(got, fu(th, y_d)))
+            assert all(torch.equal(a, b) for a, b in zip(got, first))
+        bad = y.copy()
+        bad[3] = np.nan
+        with pytest.raises(AssertionError, match=DATA_MESSAGE):
+            fa(th, as_torch(bad, card))
+        assert all(torch.equal(a, b) for a, b in zip(fa(th, y_d), first))  # flags zeroed
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.parametrize("solver", ["minimize", "root"])
+def test_assert_in_an_optimizer_objective_raises_on_the_card(card, solver):
+    """A data assert inside BFGS's or Newton's objective raises on the card
+    as on the CPU: the inner plans write into the outer plan's flags."""
+    import pytensor_tpu_torch as ptt
+    import pytensor_tpu_torch.tensor as pt
+    from pytensor_tpu_torch.raise_op import Assert
+    from pytensor_tpu_torch.tensor.optimize import minimize, root
+
+    x, d = pt.dvector("x"), pt.dvector("d")
+    target = Assert("the data must be finite")(d, pt.all(pt.isfinite(d)))
+    if solver == "minimize":
+        (x_star, _), _ = minimize(pt.sum((x - target) ** 2), x)
+    else:
+        (x_star, _), _ = root(x - target, x)
+    data = np.array([1.0, -2.0, 3.0])
+    bad = data.copy()
+    bad[1] = np.nan
+    for device in ("cpu", card):
+        f = ptt.function([x, d], x_star, device=device)
+        np.testing.assert_allclose(np.asarray(f(np.zeros(3), data).cpu()), data, rtol=1e-6)
+        with pytest.raises(AssertionError, match="the data must be finite"):
+            f(np.zeros(3), bad)
+
+
+def _condition_k1(f):
+    """The fused nodes computing ``f``'s ``IfElse`` condition and its
+    asserts' conditions (``isfinite`` fuses into one K1 node each)."""
+    from pytensor_tpu_torch.graph.traversal import applys_between
+    from pytensor_tpu_torch.ifelse import IfElse
+    from pytensor_tpu_torch.raise_op import CheckAndRaise
+
+    conds = [c for nd in f.fgraph.apply_nodes for c in (
+        nd.inputs[:1] if isinstance(nd.op, IfElse)
+        else nd.inputs[1:] if isinstance(nd.op, CheckAndRaise) else [])]
+    fused = [nd for nd in applys_between(f.fgraph.inputs, conds)
+             if isinstance(nd.op, FusedElemwise)]
+    return len(fused)
+
+
+def test_lazy_ifelse_launches_nothing_of_the_untaken_branch(card):
+    fg, n, y = _guarded(card, asserts=True, conditional=True)
+    fu, _, _ = _guarded(card, asserts=False, conditional=False)
+    th = as_torch(theta_start(n, "float64"), card)
+    y_d = as_torch(y, card)
+    torch.use_deterministic_algorithms(True, warn_only=True)  # dlogp's index_add_
+    try:
+        fu(th, y_d)
+        fused_kernel.LAUNCHES = 0
+        want = fu(th, y_d)
+        k1 = fused_kernel.LAUNCHES
+        fused_kernel.LAUNCHES = 0
+        got = fg(th, y_d)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert _condition_k1(fg) == 2 and fused_kernel.LAUNCHES == k1 + 2 and k1 > 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    bad = th.clone()
+    bad[0] = float("nan")
+    fused_kernel.LAUNCHES = 0
+    lp, g = fg(bad, y_d)
+    torch.cuda.synchronize()
+    # the IfElse's condition alone runs: one fused isfinite node
+    assert fused_kernel.LAUNCHES == 1 and float(lp) == -np.inf and not bool(g.any())
+
+
+def test_debug_mode_holds_every_k1_node_on_the_card(card):
+    import pytensor_tpu_torch as ptt
+    from pytensor_tpu_torch.compile.debug import DebugMode
+
+    ins, outs, n = make_radon_graphs(50, 6, "float64")
+    f = ptt.function(ins, outs, mode=DebugMode(), device=card)
+    fused_kernel.LAUNCHES = 0
+    lp, g = f(as_torch(theta_start(n, "float64"), card))
+    torch.cuda.synchronize()
+    k1 = [(how, err) for nd, how, err in f.linked.holds if isinstance(nd.op, FusedElemwise)]
+    assert k1 and fused_kernel.LAUNCHES == len(k1)
+    assert all(how == "the CPU lowering" and err <= 1e-10 for how, err in k1)
+    ins, outs, n = make_radon_graphs(50, 6, "float64")
+    want = ptt.function(ins, outs, device="cpu")(theta_start(n, "float64"))
+    for got, w in zip((lp, g), want):
+        w = w.numpy()
+        assert np.max(np.abs(got.cpu().numpy() - w) / np.maximum(1.0, np.abs(w))) <= 1e-12
+
+
+def test_inner_function_defaults_to_the_card(card):
+    from pytensor_tpu_torch.compile.inner_function import HasInnerFunction
+    import pytensor_tpu_torch.tensor as pt
+
+    class Inner(HasInnerFunction):
+        def __init__(self, fgraph):
+            self.fgraph = fgraph
+
+    x = pt.dvector("x")
+    op = Inner(FunctionGraph([x], [pt.exp(x) * 1.0]))
+    fn = op.fn()
+    assert fn.device.type == "cuda" and fn is op.fn(card)
+    (out,) = fn(np.zeros(2))
+    np.testing.assert_array_equal(out.cpu().numpy(), np.ones(2))
