@@ -6,8 +6,9 @@ optimize and complex (the logistic-regression MAP, a periodogram),
 random (threefry, the HMC transitions), loop-sampler (jax's gamma,
 Poisson and binomial loops, the RBM Gibbs chain), while-scan, compile
 driver, graph-layer (the rewrite probe, printing, the destroy
-handler) and control and debug (IfElse, asserts, the debug modes, typed
-lists) paths on one NVIDIA GPU.
+handler), control and debug (IfElse, asserts, the debug modes, typed
+lists) and sparse (learned edge weights, a tf-idf SGD step, a row an op)
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -72,8 +73,8 @@ Phases, one line or more each, and any failure raises:
    peak memory of a call; the float32 ``entry`` function's outputs,
    replayed and eager, must have the same sha256.  The peak memory of the
    eager batched graph with its free lists emptied (the linker before free
-   lists) beside it; a 1,024-step float64 chain through the step loop
-   (~120,000 nodes) as the longest capture.  Then the kernels that take
+   lists) beside it; a ``LONG_CAPTURE_STEPS``-step float64 chain through
+   the step loop (128 steps, ~18,000 nodes) as the longest capture.  Then the kernels that take
    the card's time; for the 8,192-step chain the device and wall ms, µs a
    step and dlogp evals/s, and the kernels of one call (K2 once, nothing
    per step); the plain loop's time a step at 64 steps.
@@ -146,13 +147,15 @@ Phases, one line or more each, and any failure raises:
    ``benchsuite.py:978 ours_blockwise_chol`` (batch 128, 64 x 64, float32)
    and its 32-step ``train_loop``.  Each captured, with
    ``Plan.capturable`` printed; counts set to 0 before one replayed call of
-   each (K1 once a fused node, none in a loop; K2 never); the replay
-   against the eager plan by sha256; the values against float64 NumPy
+   each (K1 once a fused node, none in a loop; K2 never); the replay of a
+   ``function()`` path against its eager plan by sha256 (the loops' eager
+   twins were cut for phase 25's room); the values against float64 NumPy
    (``LINALG_TOL``); each loop against as many calls of its step; every
    K1 node of the paths against its plain version at the path's shapes;
    the Cholesky calls of path (c), one a step of 128 matrices; wall and
-   device ms a call, captured and eager, busy share, steps/s, kernels a
-   call with the top ones by name and cuSOLVER's factorisation kernels a step.
+   device ms a call, captured (and eager, for a ``function()`` path), busy
+   share, steps/s, kernels a call with the top ones by name and cuSOLVER's
+   factorisation kernels a step.
    K1's and K2's ``launches_by_path`` gain these eight paths.
 14. special: every special function of ``scalar/math.py`` that K1 emits
    (``link/cuda/special.py``), as a one-node K1 launch in float32 and
@@ -417,6 +420,35 @@ Phases, one line or more each, and any failure raises:
    (g) ``PdbBreakpoint`` with its debugger replaced by a counter, firing
    only where its condition holds, with the card's values.  K1's
    ``launches_by_path`` gains the ``control`` paths.
+25. the sparse slice (``phase_sparse``; its K1 kernels from
+   ``sparse_kernels``, built in phase 2's pool, its references, the same
+   functions on the CPU and float64 scipy/NumPy, from
+   ``sparse_cpu_reference`` at the phase's start): (a) learned edge
+   weights (``models/sparse_learning.py``) on ``benchsuite.py:160``'s
+   65,536² pattern, ten stored a row, float32, width 16: ``W =
+   CSM("csr")(w, ...)``, ``sum(sqr(structured_dot(W, X) - T))`` and its
+   gradient in ``w`` through ``function()``: its rewritten ops, whether
+   ``local_csm_grad_same_pattern`` fired, captured with one capture, K1
+   launches a replayed call, wall and device ms, busy share, the loss and
+   gradient against the CPU and scipy (``SPARSE_PATH_TOL``); (b) the tf-idf
+   softmax-regression SGD step on a matrix shaped like
+   ``fetch_20newsgroups_vectorized``'s training split (11,314 x 130,107,
+   ~158 a row, 20 classes, from ``SPARSE_SEED``): captured or not with the
+   reason, K1 launches a step, ms a step, ``W`` and ``b`` after
+   ``TFIDF_STEPS`` steps against the CPU and float64 NumPy, each over its
+   own largest magnitude, and a control (``W`` without its gradient's data
+   term) that the hold must refuse; each K1 node of
+   (a) and (b) against its plain version; (c) a function a row of
+   ``link/cuda/sparse_cases.py`` (``SamplingDot`` at MovieLens-1M's
+   pattern, ``Usmm`` through ``local_usmm``, ``AddSD``, ``AddSS``,
+   ``MulSV``, ``MulSS``, ``hstack``/``vstack`` of (b)'s halves,
+   ``csr_from_dense`` at 4,096² and 1 %, ``remove0``, ``GetItemList`` of
+   1,024 rows, ``GetItem2Lists``, ``GetItemScalar``, ``Diag``,
+   ``block_diag`` of 256 blocks of 64 x 64): ms a call, captured or eager
+   with the op that reads back, the host's reads of a call in
+   ``torch.profiler`` (``READ_SPANS``), the result against the CPU and
+   scipy (dense values, and the structure where scipy's is canonical).
+   K1's ``launches_by_path`` gains the two paths.
 
 Three clocks are kept apart.  ``wall_ms`` is CUDA events around
 back-to-back calls: with kernels of a few microseconds it measures the
@@ -489,8 +521,9 @@ K3_SHARED_WALK = ("-DK3_ROW_CAP=0",)
 SLICE_RTOL, SLICE_ATOL = 1e-4, 1e-4
 K2_STEPS, CHAIN_STEPS, BATCH_STEPS = 64, 8192, 16
 # the steps of phase 8's longest capture (a float64 chain through the step
-# loop; 1,024 before it was cut with the script's other repeats)
-LONG_CAPTURE_STEPS = 512
+# loop; 1,024 before it was cut with the script's other repeats, 512 before
+# it was cut to make room for phase 25)
+LONG_CAPTURE_STEPS = 128
 # K2 after 64 float32 steps, over max(1, max|ref|), against its plain step
 # loop and against the float64 loop: both sum in other orders than K2 (on
 # an H100 80GB HBM3 at 700 W K2 ended 0 / 1.1e-7 / 0 from the loop and
@@ -1473,10 +1506,18 @@ LINALG_TOL = {"gp_nmll": 6e-7, "gp_grad": 5e-7, "gp_update": 5e-7, "gp_update64"
               "chol_loop_vs_calls": 5e-7}
 
 
-def linalg_paths(dev):
+# the paths with an eager twin in phase 13: the ``function()`` paths, and of
+# the loops the Cholesky loop alone, whose Cholesky calls are counted (the
+# other loops' eager twins, some 10 s of eager calls, were cut to make room
+# for phase 25); the other loops hold no K1 node (nothing fuses inside a scan)
+LINALG_EAGER = ("gp step", "gp mll float64", "kalman loglike+grad", "kalman step", "chol step",
+                f"chol loop x{CHOL_LOOP}")
+
+
+def linalg_paths(dev, tags=None):
     """The functions of paths (a)-(c) on ``dev``: ``{tag: (f, state, args,
     steps)}`` with the shared variables a call updates and the arguments
-    it takes (numpy values)."""
+    it takes (numpy values); those of ``tags`` alone where given."""
     from pytensor_tpu_torch.models.batched_cholesky import make_batched_cholesky_step
     from pytensor_tpu_torch.models.gp import make_gp_marginal_likelihood, make_gp_sgd_step
     from pytensor_tpu_torch.models.kalman import (
@@ -1484,37 +1525,48 @@ def linalg_paths(dev):
         make_kalman_sgd_step,
     )
 
-    paths = {}
-    for tag, steps in (("gp step", 1), (f"gp loop x{GP_LOOP}", GP_LOOP)):
+    def gp(steps):
         f, params = make_gp_sgd_step(GP_N, dtype="float32", lr=GP_LR, n_steps_per_call=steps,
                                      device=dev)
-        paths[tag] = (f, params, [], steps)
-    f, theta0 = make_gp_marginal_likelihood(GP_N, dtype="float64", device=dev)
-    paths["gp mll float64"] = (f, [], list(theta0), 1)
-    f, theta0, _ = make_kalman_loglike_and_grad(KALMAN_T, KALMAN_K, KALMAN_P, "float32",
-                                                device=dev)
-    paths["kalman loglike+grad"] = (f, [], list(theta0), 1)
-    for tag, steps in (("kalman step", 1), (f"kalman loop x{KALMAN_LOOP}", KALMAN_LOOP)):
+        return f, params, [], steps
+
+    def gp_mll():
+        f, theta0 = make_gp_marginal_likelihood(GP_N, dtype="float64", device=dev)
+        return f, [], list(theta0), 1
+
+    def kalman_grad():
+        f, theta0, _ = make_kalman_loglike_and_grad(KALMAN_T, KALMAN_K, KALMAN_P, "float32",
+                                                    device=dev)
+        return f, [], list(theta0), 1
+
+    def kalman(steps):
         f, T, _ = make_kalman_sgd_step(KALMAN_T, KALMAN_K, KALMAN_P, KALMAN_LR,
                                        n_steps_per_call=steps, device=dev)
-        paths[tag] = (f, [T], [], steps)
-    for tag, steps in (("chol step", 1), (f"chol loop x{CHOL_LOOP}", CHOL_LOOP)):
-        f, A = make_batched_cholesky_step(CHOL_BATCH, CHOL_N, n_steps_per_call=steps,
-                                          device=dev)
-        paths[tag] = (f, [A], [], steps)
-    return paths
+        return f, [T], [], steps
+
+    def chol(steps):
+        f, A = make_batched_cholesky_step(CHOL_BATCH, CHOL_N, n_steps_per_call=steps, device=dev)
+        return f, [A], [], steps
+
+    makers = {"gp step": lambda: gp(1), f"gp loop x{GP_LOOP}": lambda: gp(GP_LOOP),
+              "gp mll float64": gp_mll, "kalman loglike+grad": kalman_grad,
+              "kalman step": lambda: kalman(1),
+              f"kalman loop x{KALMAN_LOOP}": lambda: kalman(KALMAN_LOOP),
+              "chol step": lambda: chol(1), f"chol loop x{CHOL_LOOP}": lambda: chol(CHOL_LOOP)}
+    return {tag: make() for tag, make in makers.items() if tags is None or tag in tags}
 
 
 def linalg_kernels(dev):
     """The K1 kernels of the linalg paths' functions, their graphs
     rewritten on the CPU (the same sources as linking them for the card),
-    for the build pool of phase 2 (phase 13 finds them built)."""
+    for the build pool of phase 2 (phase 13 finds them built): those of
+    ``LINALG_EAGER``, as the other loops hold no K1 node."""
     from pytensor_tpu_torch.tensor import fused_kernel
     from pytensor_tpu_torch.tensor.fused import FusedElemwise
 
     return [fused_kernel.FusedElemwiseKernel(nd.op.fgraph, dev)
-            for f, *_ in linalg_paths("cpu").values() for nd in f.fgraph.toposort()
-            if isinstance(nd.op, FusedElemwise)]
+            for f, *_ in linalg_paths("cpu", LINALG_EAGER).values()
+            for nd in f.fgraph.toposort() if isinstance(nd.op, FusedElemwise)]
 
 
 def op_calls(call, name):
@@ -1529,9 +1581,10 @@ def op_calls(call, name):
 
 def phase_linalg(dev, smi_line):
     """Phase 13: paths (a)-(c) of the linalg slice (``linalg_paths``), each
-    captured, with its eager twin: ``Plan.capturable``, K1's and K2's
-    launches in one replayed call (counts set to 0 just before it), the
-    replay's sha256 against the eager plan's from the same state; the
+    captured, those of ``LINALG_EAGER`` with an eager twin:
+    ``Plan.capturable``, K1's and K2's launches in one replayed call
+    (counts set to 0 just before it), the replay's sha256 against the eager
+    plan's from the same state; the
     values against float64 NumPy (``LINALG_TOL``): the GP's nmll, gradient
     and updates (``models/gp.py gp_reference``), the float64 mll, the
     Kalman log-likelihood and gradient (``numpy_kalman_loglike``, central
@@ -1539,8 +1592,9 @@ def phase_linalg(dev, smi_line):
     gradient, each loop against as many calls of its step; each K1 node of
     the ``function()`` paths against its plain version at the path's
     shapes; Cholesky calls and kernels a step of path (c) (one batched call,
-    not 128); then wall and device ms a call, captured and eager, busy
-    share, steps/s, kernels a call with the top ones by name.  Returns the
+    not 128); then wall and device ms a call, captured (and eager, for the
+    ``LINALG_EAGER`` paths), busy share, steps/s, kernels a call with the top
+    ones by name.  Returns the
     launches of each path and K1's largest absolute error.  On the CPU (a
     rehearsal at small sizes) it checks the values only."""
     import torch
@@ -1588,12 +1642,11 @@ def phase_linalg(dev, smi_line):
 
     paths = linalg_paths(dev)
     with config.change_flags(xla__jit=False):
-        eager = linalg_paths(dev)
+        eager = linalg_paths(dev, LINALG_EAGER)
     say(f"linalg paths linked for the card in {time.perf_counter() - t13:.2f} s: "
         + ", ".join(f"{tag} {type(p[0].linked).__name__}" for tag, p in paths.items()))
     launches, results = {}, {}
     for tag, (f, state, args, steps) in paths.items():
-        f_e, state_e = eager[tag][0], eager[tag][1]
         plan = f.linked.plan if isinstance(f.linked, CapturedFunction) else f.linked
         say(f"{tag}: Plan.capturable {plan.capturable}; {len(f.fgraph.apply_nodes)} outer nodes")
         if plan.host_reads or (on_card and not isinstance(f.linked, CapturedFunction)):
@@ -1606,11 +1659,14 @@ def phase_linalg(dev, smi_line):
         res = outs(f(*a))
         launches[tag] = counts()
         after = values(state)
-        reset(state_e, init)
-        res_e = outs(f_e(*a))
-        d_cap, d_eager = digest(*res, *after), digest(*res_e, *values(state_e))
-        if d_cap != d_eager:
-            raise AssertionError(f"{tag}: the replay differs from the eager plan")
+        d_cap, d_eager = digest(*res, *after), "(no eager twin)"
+        if tag in eager:
+            f_e, state_e = eager[tag][0], eager[tag][1]
+            reset(state_e, init)
+            res_e = outs(f_e(*a))
+            d_eager = digest(*res_e, *values(state_e))
+            if d_cap != d_eager:
+                raise AssertionError(f"{tag}: the replay differs from the eager plan")
         fused = sum(isinstance(nd.op, FusedElemwise) for nd in f.fgraph.apply_nodes)
         if launches[tag]["scan_whole_loop"] or (on_card
                                                 and launches[tag]["fused_elemwise"] != fused):
@@ -1759,17 +1815,20 @@ def phase_linalg(dev, smi_line):
     if not on_card:
         return launches, k1_abs
 
-    # the times: captured and eager in turn, per call
+    # the times: captured and eager in turn, per call; a loop captured only
     for tag, (f, state, args, steps) in paths.items():
-        f_e = eager[tag][0]
         a = results[tag][3]
-        n_iter = 6 if steps == 1 else 2
-        # an eager call of the Kalman loop runs ~250,000 nodes (~9.5 s): the
-        # loops' eager side is one untraced call
-        row = captured_vs_eager(tag, lambda f=f, a=a: f(*a), lambda f=f_e, a=a: f(*a),
-                                [f.linked], n_iter, n_dev=1 if steps > 1 else 2,
-                                eager_calls=1 if steps > 1 else None)
-        c = row["captured"]
+        if tag in eager:
+            f_e = eager[tag][0]
+            row = captured_vs_eager(tag, lambda f=f, a=a: f(*a), lambda f=f_e, a=a: f(*a),
+                                    [f.linked], 6, n_dev=2)
+            c = row["captured"]
+        else:
+            wall = wall_ms(lambda f=f, a=a: f(*a), 2)
+            dev_ms, by = device_ms(lambda f=f, a=a: f(*a), 1)
+            c = {"wall": wall, "dev": dev_ms, "by": by}
+            say(f"linked {tag}: captured wall {wall:.4f} ms/call, device {dev_ms:.4f} ms, busy "
+                f"{dev_ms / wall:.3f} (no eager twin)")
         n_kern = sum(n for _, n in c["by"].values())
         chol = [(kn, n) for kn, (ms, n) in c["by"].items() if "potrf" in kn or "getrf" in kn]
         say(f"{tag} ({smi_line}): wall {c['wall']:.4f} ms/call, device {c['dev']:.4f} ms, busy "
@@ -7139,6 +7198,309 @@ def _blamed_rewrite(dev):
         del optdb.positions["evil_test"]
 
 
+# --- 25. the sparse slice -------------------------------------------------------------
+
+# the seed of the sparse slice's data (models/sparse_learning.py,
+# link/cuda/sparse_cases.py make_data)
+SPARSE_SEED = 25
+# float32 against the same function on the CPU and against float64
+# scipy/NumPy (a loss relative): (a) over max(1, max|ref|), sums ten
+# products a row and 2**20 squares; (b) ``W`` and ``b`` over their own
+# largest magnitude (two steps from zero leave max|W| far under 1: a limit
+# over max(1, ...) would pass a W never updated), 158 a row and 11,314 rows
+# a class over two steps; the rows over max(1, max|ref|), at most ten a
+# row; the card adds duplicates and rows in other orders (index_add_ by
+# atomics)
+SPARSE_PATH_TOL = {"edge_loss": 1e-5, "edge_grad": 1e-5, "tfidf_loss": 1e-5,
+                   "tfidf_params": 2e-5, "rows": 1e-5}
+# (b)'s SGD steps before the hold; the calls a row's wall time is taken over
+TFIDF_STEPS, SPARSE_CALLS = 2, 5
+# the host's reads of the device in a call, by torch.profiler span: an
+# item read, a bool read, and the ops whose output size a read gives
+READ_SPANS = ("aten::_local_scalar_dense", "aten::is_nonzero", "aten::nonzero",
+              "aten::unique_consecutive")
+
+
+def sparse_data(seed=SPARSE_SEED, sizes=None):
+    """Phase 25's data from one seed: the rows' (``sparse_cases.make_data``,
+    which holds (a)'s pattern, ``w``, ``X`` and ``T``) and (b)'s tf-idf
+    matrix with its one-hot targets."""
+    from pytensor_tpu_torch.link.cuda import sparse_cases
+    from pytensor_tpu_torch.models.sparse_learning import tfidf_matrix
+
+    sizes = sizes or sparse_cases.FULL
+    d = sparse_cases.make_data(sizes, seed)
+    d["X"], d["targets"] = tfidf_matrix(sizes["docs"], sizes["terms"], sizes["per_doc"],
+                                        seed=seed + 1)
+    return d
+
+
+def sparse_functions(dev, d):
+    """(a)'s function and (b)'s step with its shared ``W`` and ``b``,
+    linked for ``dev`` on ``d``'s pattern and sizes."""
+    from pytensor_tpu_torch.models.sparse_learning import make_edge_weights, make_tfidf_step
+
+    f_a = make_edge_weights(d["A"], d["Y"].shape[1], device=dev)
+    f_b, W, b = make_tfidf_step(d["X"].shape[1], d["targets"].shape[1], device=dev)
+    return f_a, (f_b, W, b)
+
+
+def sparse_cpu_reference(seed=SPARSE_SEED, sizes=None):
+    """Phase 25's references, at the phase's start (in the references'
+    process beside phases 3-24 they ran with phase 12's eager calls and
+    slowed them 30-fold): the data, and for (a), (b) and each row the same
+    function on the CPU (the port's lowerings) and float64 scipy/NumPy,
+    with the control of (b): ``W`` after the steps with its gradient's
+    data term zeroed.  Returns a dict of numpy values."""
+    from pytensor_tpu_torch.link.cuda import sparse_cases
+    from pytensor_tpu_torch.models.sparse_learning import (
+        edge_weights_reference,
+        tfidf_reference,
+    )
+
+    t0 = time.perf_counter()
+    d = sparse_data(seed, sizes)
+    f_a, (f_b, W, b) = sparse_functions("cpu", d)
+    loss, grad = f_a(d["w"], d["Y"], d["Z"])
+    edge = {"cpu": (float(loss), grad.numpy()),
+            "scipy": edge_weights_reference(d["A"], d["w"], d["Y"], d["Z"])}
+    cpu_losses = [float(f_b(d["X"], d["targets"])) for _ in range(TFIDF_STEPS)]
+    Wr, br, ref_losses = np.zeros(W.get_value().shape), np.zeros(b.get_value().shape), []
+    Wc, bc = Wr, br
+    for _ in range(TFIDF_STEPS):
+        lo, Wr, br = tfidf_reference(d["X"], d["targets"], Wr, br)
+        ref_losses.append(lo)
+        _, Wc, bc = tfidf_reference(d["X"], d["targets"], Wc, bc, data_grad=False)
+    tfidf = {"cpu": (cpu_losses, W.get_value().numpy(), b.get_value().numpy()),
+             "numpy": (ref_losses, Wr, br), "control": Wc}
+    rows = {}
+    for row in sparse_cases.ROWS:
+        out = sparse_cases.row_function(row, d, "cpu")(*row.args(d))
+        rows[row.name] = ([sparse_cases.output(o) for o in (out if isinstance(out, list)
+                                                             else [out])],
+                          [sparse_cases.output(r) for r in row.reference(d)])
+    return {"data": d, "edge": edge, "tfidf": tfidf, "rows": rows,
+            "seconds": time.perf_counter() - t0}
+
+
+def sparse_kernels(dev):
+    """The K1 kernels of phase 25's functions, from (a)'s function and (b)'s
+    step linked for the CPU on small data of the same graphs (phase 2's
+    pool); the rows hold no fused node (``tests/test_torch_sparse_paths.py``)."""
+    from pytensor_tpu_torch.link.cuda import sparse_cases
+
+    d = sparse_data(SPARSE_SEED, sparse_cases.SMALL)
+    f_a, (f_b, _, _) = sparse_functions("cpu", d)
+    kerns: dict = {}
+    for f in (f_a, f_b):
+        plan_kernels(f.linked, dev, kerns)
+    return list(kerns.values())
+
+
+def _top_kernels(by, n=5):
+    """The ``n`` kernels that take the most device time a call, from
+    ``device_ms``'s split: ``(ms, launches, name)``."""
+    return [(ms, c, name[:90]) for name, (ms, c) in sorted(by.items(),
+                                                            key=lambda kv: -kv[1][0])[:n]]
+
+
+def read_spans(call):
+    """The spans of ``READ_SPANS`` in one call's trace of the host, by name
+    (those that occur)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+    found = {e.key: e.count for e in prof.key_averages() if e.key in READ_SPANS}
+    return {k: found[k] for k in READ_SPANS if k in found}
+
+
+def _sparse_on(dev, value):
+    """A row's input on ``dev``: a scipy matrix as a torch sparse csr
+    tensor, an array as a tensor."""
+    import scipy.sparse as sp
+    import torch
+
+    from pytensor_tpu_torch.link.torch.convert import as_torch, canonical_csr
+
+    if sp.issparse(value):
+        indptr, indices, data = canonical_csr(value)
+        return torch.sparse_csr_tensor(as_torch(indptr, dev), as_torch(indices, dev),
+                                       as_torch(data, dev), value.shape)
+    return as_torch(np.asarray(value), dev)
+
+
+def phase_sparse(dev, smi_line, reference):
+    """Phase 25: the sparse slice (ROADMAP Queue 1 item 13) through the
+    public sparse API at full size.  (a) Learned edge weights on
+    ``benchsuite.py:160``'s 65,536² pattern (ten a row, float32; width 16):
+    the rewritten ops, whether ``local_csm_grad_same_pattern`` fired, the
+    plan captured with one replay a call, K1 launches a call (counts set
+    to 0 just before, read just after), ms a call (wall and device) and
+    busy share, loss and gradient held against the CPU and float64 scipy.
+    (b) The tf-idf softmax-regression SGD step (11,314 x 130,107, ~158 a
+    row, 20 classes): captured or not with the reason, K1 launches, ms a
+    step, ``W`` and ``b`` after ``TFIDF_STEPS`` steps against the CPU and
+    float64 NumPy.  Each K1 node of (a) and (b) against its plain version.
+    (c) One function a row of ``link/cuda/sparse_cases.py``: ms a call,
+    captured or eager with the op that reads back, the host's reads of a
+    call in ``torch.profiler`` (``READ_SPANS``), the result against the CPU
+    and scipy (dense values; the structure where scipy's is canonical).
+    On the CPU (a rehearsal) the times and traces are left out.  Returns
+    ``(launches, k1_abs, row)``."""
+    import torch
+
+    from pytensor_tpu_torch.link.cuda import sparse_cases
+    from pytensor_tpu_torch.link.torch.convert import as_torch
+    from pytensor_tpu_torch.link.torch.linker import CapturedFunction
+    from pytensor_tpu_torch.tensor.fused import FusedElemwise
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    ref = reference
+    d = ref["data"]
+    launches, out_row, k1_abs = {}, {"rows": {}}, 0.0
+
+    def plan_of(f):
+        return f.linked.plan if isinstance(f.linked, CapturedFunction) else f.linked
+
+    def err(got, want, floor=1.0):
+        got, want = np.asarray(got, "float64"), np.asarray(want, "float64")
+        return float(np.abs(got - want).max(initial=0.0)
+                     / max(floor, float(np.abs(want).max(initial=0.0))))
+
+    # (a) learned edge weights ---------------------------------------------------------------
+    counts, undo = fired_rewrites()
+    try:
+        f_a, (f_b, W, b) = sparse_functions(dev, d)
+    finally:
+        undo()
+    fired = counts["local_csm_grad_same_pattern"]
+    ops_a = sorted(type(nd.op).__name__ for nd in f_a.fgraph.apply_nodes)
+    plan = plan_of(f_a)
+    if cuda and not (isinstance(f_a.linked, CapturedFunction) and plan.capturable):
+        raise AssertionError(f"edge weights: not captured: {plan.host_reads}")
+    args = [as_torch(d["w"], dev), as_torch(d["Y"], dev), as_torch(d["Z"], dev)]
+    f_a(*args)  # the capturing call
+    _control_reset()
+    loss, grad = f_a(*args)
+    c = _control_counts()
+    launches["sparse edge weights"] = c
+    graphs = len(getattr(f_a.linked, "graphs", {}))
+    if cuda and graphs != 1:
+        raise AssertionError(f"edge weights: {graphs} captures, one expected")
+    (cpu_loss, cpu_grad), (ref_loss, ref_grad) = ref["edge"]["cpu"], ref["edge"]["scipy"]
+    checks = {"loss_cpu": abs(float(loss) - cpu_loss) / abs(cpu_loss),
+              "loss_scipy": abs(float(loss) - ref_loss) / abs(ref_loss),
+              "grad_cpu": err(grad.cpu(), cpu_grad), "grad_scipy": err(grad.cpu(), ref_grad)}
+    if not (max(checks["loss_cpu"], checks["loss_scipy"]) <= SPARSE_PATH_TOL["edge_loss"]
+            and max(checks["grad_cpu"], checks["grad_scipy"]) <= SPARSE_PATH_TOL["edge_grad"]):
+        raise AssertionError(f"edge weights: {checks} over {SPARSE_PATH_TOL}")
+    k1_abs = max(k1_abs, k1_nodes_held(f_a, args, dev, "edge weights", quiet=True))
+    edge = {"ops": ops_a, "same_pattern_fired": fired, "captured": plan.capturable,
+            "k1_launches": c["fused_elemwise"], "errors": checks}
+    if cuda:
+        wall = wall_ms(lambda: f_a(*args), 10)
+        dev_ms, by = device_ms(lambda: f_a(*args), 3)
+        edge.update(wall_ms=wall, device_ms=dev_ms, busy=dev_ms / wall,
+                    kernels=sum(n for _, n in by.values()), top=_top_kernels(by))
+    out_row["edge_weights"] = edge
+    say(f"sparse (a) edge weights {d['A'].shape[0]:,}^2, {d['A'].nnz:,} stored, width "
+        f"{d['Y'].shape[1]} ({smi_line}): ops {ops_a}; local_csm_grad_same_pattern fired "
+        f"{fired} times; captured {plan.capturable} ({graphs} capture, replays after); K1 "
+        f"{c['fused_elemwise']} launches a call; "
+        + (f"wall {edge['wall_ms']:.4f} ms/call, device {edge['device_ms']:.4f} ms, busy "
+           f"{edge['busy']:.3f}, {edge['kernels']:.0f} kernels a call; " if cuda else "")
+        + f"loss {float(loss):.6e} vs CPU {cpu_loss:.6e}, scipy {ref_loss:.6e}; errors "
+        f"{_fmt(checks)} (tol {SPARSE_PATH_TOL['edge_loss']:g}, {SPARSE_PATH_TOL['edge_grad']:g})")
+    # (b) the tf-idf softmax-regression step -------------------------------------------------
+    X, Y = _sparse_on(dev, d["X"]), as_torch(d["targets"], dev)
+    plan = plan_of(f_b)
+    losses = [float(f_b(X, Y)) for _ in range(TFIDF_STEPS)]
+    (cpu_losses, cpu_W, cpu_b), (ref_losses, ref_W, ref_b) = (ref["tfidf"]["cpu"],
+                                                              ref["tfidf"]["numpy"])
+    Wv, bv = W.get_value().cpu(), b.get_value().cpu()
+    # W and b over their own largest magnitude
+    checks = {"loss_cpu": max(abs(a - e) / abs(e) for a, e in zip(losses, cpu_losses)),
+              "loss_numpy": max(abs(a - e) / abs(e) for a, e in zip(losses, ref_losses)),
+              "W_cpu": err(Wv, cpu_W, 0.0), "W_numpy": err(Wv, ref_W, 0.0),
+              "b_cpu": err(bv, cpu_b, 0.0), "b_numpy": err(bv, ref_b, 0.0)}
+    # the control: W after the same steps with its gradient's data term
+    # zeroed (the sparse products and Transpose), which the hold must refuse
+    control = err(ref["tfidf"]["control"], ref_W, 0.0)
+    if not (max(checks["loss_cpu"], checks["loss_numpy"]) <= SPARSE_PATH_TOL["tfidf_loss"]
+            and max(v for k, v in checks.items() if not k.startswith("loss"))
+            <= SPARSE_PATH_TOL["tfidf_params"] < control):
+        raise AssertionError(f"tf-idf step: {checks}, control {control} over "
+                             f"{SPARSE_PATH_TOL}")
+    k1_abs = max(k1_abs, k1_nodes_held(f_b, [X, Y] + [v.get_value() for v in f_b.shared_vars],
+                                       dev, "tf-idf step", quiet=True))
+    _control_reset()
+    f_b(X, Y)
+    c = _control_counts()
+    launches["sparse tf-idf step"] = c
+    fused = sum(isinstance(nd.op, FusedElemwise) for nd in f_b.fgraph.apply_nodes)
+    if cuda and c["fused_elemwise"] != fused:
+        raise AssertionError(f"tf-idf step: {c} launches, K1 once a fused node ({fused})")
+    tfidf = {"captured": isinstance(f_b.linked, CapturedFunction), "host_reads": plan.host_reads,
+             "k1_launches": c["fused_elemwise"], "losses": losses, "errors": checks,
+             "max_W": float(np.abs(ref_W).max()), "max_b": float(np.abs(ref_b).max()),
+             "control": control}
+    if cuda:
+        tfidf["wall_ms"] = wall_ms(lambda: f_b(X, Y), SPARSE_CALLS)
+        tfidf["device_ms"], by = device_ms(lambda: f_b(X, Y), 2)
+        tfidf["top"] = _top_kernels(by)
+    out_row["tfidf_step"] = tfidf
+    for tag, r in (("(a)", edge), ("(b)", tfidf)):
+        for ms, n, name in r.get("top", []):
+            say(f"  sparse {tag}: {ms:.4f} ms/call  {n:.0f} launches/call  {name}")
+    say(f"sparse (b) tf-idf step {d['X'].shape[0]:,} x {d['X'].shape[1]:,}, {d['X'].nnz:,} "
+        f"stored, {d['targets'].shape[1]} classes ({smi_line}): captured {tfidf['captured']}"
+        + (f" (reads: {plan.host_reads})" if plan.host_reads else " (no host read)")
+        + f"; K1 {c['fused_elemwise']} launches a step ({fused} fused nodes); "
+        + (f"{tfidf['wall_ms']:.4f} ms a step wall, {tfidf['device_ms']:.4f} device; "
+           if cuda else "")
+        + f"losses {[f'{v:.7f}' for v in losses]} vs NumPy {[f'{v:.7f}' for v in ref_losses]}; "
+        f"errors {_fmt(checks)}, W and b over max|W| {tfidf['max_W']:.4e} and max|b| "
+        f"{tfidf['max_b']:.4e} (tol {SPARSE_PATH_TOL['tfidf_params']:g}); the control (W "
+        f"without its gradient's data term) reads {control:.3e}")
+    # (c) one function a row ------------------------------------------------------------------
+    for row in sparse_cases.ROWS:
+        f = sparse_cases.row_function(row, d, dev)
+        plan = plan_of(f)
+        captured = isinstance(f.linked, CapturedFunction)
+        reads_by = sorted({r.split("(")[0] for r in plan.host_reads})
+        if reads_by != ([row.reads] if row.reads else []) or (cuda and captured
+                                                              != (row.reads is None)):
+            raise AssertionError(f"{row.name}: captured {captured}, reads {plan.host_reads}")
+        a = [_sparse_on(dev, v) for v in row.args(d)]
+        f(*a)  # a capturing call where the plan captures
+        out = f(*a)
+        out = out if isinstance(out, list) else [out]
+        cpu_out, ref_out = ref["rows"][row.name]
+        got = [sparse_cases.output(o) for o in out]
+        errs = [max(sparse_cases.held(g, c_), sparse_cases.held(g, r_))
+                for g, c_, r_ in zip(got, cpu_out, ref_out)]
+        if not max(errs) <= SPARSE_PATH_TOL["rows"]:
+            raise AssertionError(f"{row.name}: errors {errs} (inf: the structure differs)")
+        r = {"op": row.op, "captured": captured, "reads_back": row.reads, "max_err": max(errs)}
+        if cuda:
+            r["ms"] = wall_ms(lambda: f(*a), SPARSE_CALLS)
+            r["host_reads"] = read_spans(lambda: f(*a))
+        out_row["rows"][row.name] = r
+        say(f"sparse (c) {row.name}: "
+            + (f"{r['ms']:.4f} ms a call; " if cuda else "")
+            + ("captured" if captured else f"eager: {row.reads} reads back" if row.reads
+               else "eager")
+            + (f"; host reads a call {r['host_reads'] or 'none'}" if cuda else "")
+            + f"; against the CPU and scipy {max(errs):.2e} (tol {SPARSE_PATH_TOL['rows']:g}), "
+            f"the structure equal")
+    out_row["seconds"] = round(time.perf_counter() - t_phase, 2)
+    say(f"sparse phase done in {out_row['seconds']:.1f} s ({smi_line}), after its CPU "
+        f"references' {ref['seconds']:.1f} s")
+    return launches, k1_abs, out_row
+
+
 def _radon_io():
     from pytensor_tpu_torch.models.radon import make_radon_graphs
 
@@ -7184,7 +7546,8 @@ def main(opts):
         theta_start,
     )
     from pytensor_tpu_torch.scan.op import Scan
-    from pytensor_tpu_torch.sparse import RoutedSpMV, as_sparse_variable, structured_dot
+    from pytensor_tpu_torch.sparse import as_sparse_variable, structured_dot
+    from pytensor_tpu_torch.sparse.spmv import RoutedSpMV
     from pytensor_tpu_torch.tensor import fused_kernel
     from pytensor_tpu_torch.tensor.fused import FusedElemwise
 
@@ -7429,6 +7792,13 @@ def main(opts):
     build_k1(control_k1)
     say(f"the control and debug functions: {len(control_k1)} K1 kernels; graph, rewrite and link "
         f"for the CPU in {time.perf_counter() - t0:.2f} s")
+    # phase 25's: the K1 kernels of the sparse paths' functions, linked for
+    # the CPU on small data of the same graphs
+    t0 = time.perf_counter()
+    sparse_k1 = sparse_kernels(dev)
+    build_k1(sparse_k1)
+    say(f"the sparse slice's functions: {len(sparse_k1)} K1 kernels; graph, rewrite and link for "
+        f"the CPU in {time.perf_counter() - t0:.2f} s")
 
     build_s = {tag: job.result() for tag, job in jobs.items()}
     for job in k1_jobs:
@@ -8239,6 +8609,11 @@ def main(opts):
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_control_abs)
     model_launches.update(control_launches)
     lap(24)
+    # 25. the sparse slice: learned edge weights, a tf-idf SGD step, a row an op -------------
+    sparse_launches, k1_sparse_abs, sparse_row = phase_sparse(dev, smi, sparse_cpu_reference())
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_sparse_abs)
+    model_launches.update(sparse_launches)
+    lap(25)
     loop_entries = []
     for kname, timed_at in (("gamma", "gamma 2e20"), ("poisson", "poisson 2e20"),
                             ("binomial", "binomial gibbs visible")):
@@ -8342,6 +8717,7 @@ def main(opts):
     kernels[0]["censored"] = censored_row
     kernels[0]["graph_layer"] = graph_row
     kernels[0]["control"] = control_row
+    kernels[0]["sparse"] = sparse_row
     for entry in kernels:
         within_bound(entry["name"], entry)
     say("phase seconds: " + json.dumps({k: round(v, 1) for k, v in lap.seconds.items()}))

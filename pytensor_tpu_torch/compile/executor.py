@@ -17,7 +17,10 @@ changes under the caller, whichever function updates the shared
 variable later (``Out(borrow=True)`` changes nothing there).  An update
 value that shares memory with a shared tensor this call updates is
 copied before any update is written, so a swap of two shared variables
-reads both old values.  Other values are returned as they are.
+reads both old values.  Other values are returned as they are, but a
+sparse output: the JAX package returns a BCOO on its device, the port a
+torch sparse compressed tensor in the output's format (csr or csc) on
+the function's device.
 ``dprint`` prints the rewritten graph (``printing.py``).
 """
 
@@ -26,7 +29,13 @@ from __future__ import annotations
 import torch
 
 from pytensor_tpu_torch.config import config
-from pytensor_tpu_torch.link.torch.convert import UNSIGNED, torch_dtype, unheld
+from pytensor_tpu_torch.link.torch.convert import (
+    CSR,
+    UNSIGNED,
+    csr_as_torch_sparse,
+    torch_dtype,
+    unheld,
+)
 
 
 class Function:
@@ -102,7 +111,7 @@ class Function:
             results = list(self.linked(*args, *shared))
         else:
             results = list(stats.timed_call(self.linked, args, shared))
-        held = {t.untyped_storage().data_ptr() for t in shared}
+        held = set().union(*map(_storages, shared))
         outputs = [_copied(r, held) for r in results[: self.n_outputs]]
         if self.update_targets:
             updated = {sv.storage[0].untyped_storage().data_ptr()
@@ -115,9 +124,9 @@ class Function:
                                      f"the shared tensor {tuple(sv.storage[0].shape)}")
                 sv.storage[0].copy_(value)
         self.call_count += 1
-        # the unsigned dtypes above uint8 leave in torch's dtype of their width
-        outputs = [unheld(r, o.type.dtype) if getattr(o.type, "dtype", None) in UNSIGNED else r
-                   for r, o in zip(outputs, self.fgraph.outputs)]
+        # the unsigned dtypes above uint8 leave in torch's dtype of their
+        # width; a sparse value as a torch sparse tensor in its graph format
+        outputs = [_returned(r, o.type) for r, o in zip(outputs, self.fgraph.outputs)]
         if self.unpack_single:
             return outputs[0]
         return outputs
@@ -181,12 +190,38 @@ class Function:
         return f"Function({self.name or 'anonymous'}, device={self.device})"
 
 
+def _storages(value) -> set:
+    """The storages of a tensor, of a sparse triple's three or of a typed
+    list's elements."""
+    if isinstance(value, list):
+        return set().union(*map(_storages, value))
+    if isinstance(value, CSR):
+        return {t.untyped_storage().data_ptr() for t in (value.indptr, value.indices, value.data)}
+    return {value.untyped_storage().data_ptr()}
+
+
 def _copied(value, held):
     """``value``, or a copy of it where it shares storage with one of the
-    tensors ``held`` names (a typed list element by element)."""
+    tensors ``held`` names (a typed list element by element, a sparse
+    triple whole)."""
     if isinstance(value, list):
         return [_copied(v, held) for v in value]
-    return value.clone() if value.untyped_storage().data_ptr() in held else value
+    if not _storages(value) & held:
+        return value
+    if isinstance(value, CSR):
+        return CSR(value.indptr.clone(), value.indices.clone(), value.data.clone(), value.shape)
+    return value.clone()
+
+
+def _returned(value, ty):
+    """An output as the caller gets it: a sparse value as a torch sparse
+    compressed tensor in its graph format (``convert.py
+    csr_as_torch_sparse``), an unsigned dtype above uint8 as numpy's."""
+    if isinstance(value, CSR):
+        return csr_as_torch_sparse(value, ty.format)
+    if getattr(ty, "dtype", None) in UNSIGNED:
+        return unheld(value, ty.dtype)
+    return value
 
 
 def _rebuild_function(payload, mode=None, device=None):

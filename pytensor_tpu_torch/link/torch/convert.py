@@ -8,11 +8,16 @@ value on the host is an ``ml_dtypes.bfloat16`` array, which torch refuses,
 so it crosses as its 16 bits (``as_torch``, ``to_numpy``).  complex64 and
 complex128 cross as they are (a ``torch.conj`` view is resolved first).  A sparse matrix reaches both
 packages as a scipy matrix; ``sparse_as_torch`` turns it into the port's
-one sparse value, the canonical CSR triple of ``CSR`` on a device.
+one sparse value, the CSR triple of ``CSR`` on a device, whatever the
+graph's format.  A torch sparse compressed tensor is taken too
+(``torch_sparse_as_csr``), and a function returns a sparse output as one,
+in its graph's format (``csr_as_torch_sparse``), as the JAX package
+returns a BCOO on its device.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -126,10 +131,15 @@ def to_numpy(value: torch.Tensor) -> np.ndarray:
 
 @dataclass(frozen=True)
 class CSR:
-    """A sparse matrix on a device: row pointers (int32, rows + 1),
-    column indices (int32, nnz, sorted within each row, no duplicates)
-    and values (nnz), with the matrix's ``(rows, cols)``.  Not a tuple:
-    the linker unpacks a tuple that a lowering returns into outputs."""
+    """A sparse matrix on a device, compressed by rows whatever its graph
+    format: row pointers (int32, rows + 1), column indices (int32, nnz)
+    and values (nnz), with the matrix's ``(rows, cols)``.  A value made
+    from a scipy matrix is canonical (``canonical_csr``: the columns of
+    each row sorted, no duplicates); one that ``CSM`` builds from graph
+    values keeps its triple as given, as scipy does, so every lowering
+    takes the columns of a row in any order and sums duplicates.  Not a
+    tuple: the linker unpacks a tuple that a lowering returns into
+    outputs."""
 
     indptr: torch.Tensor
     indices: torch.Tensor
@@ -159,3 +169,62 @@ def sparse_as_torch(A, device, dtype=None) -> CSR:
     indptr, indices, data = canonical_csr(A, dtype)
     return CSR(as_torch(indptr, device), as_torch(indices, device), as_torch(data, device),
                tuple(int(d) for d in A.shape))
+
+
+def compressed_ids(indptr, nnz) -> torch.Tensor:
+    """The compressed index (the row of csr) of each of ``nnz`` stored
+    entries (int64); ``repeat_interleave`` is given its output size, so
+    that nothing is read back from the device."""
+    counts = (indptr[1:] - indptr[:-1]).long()
+    return torch.repeat_interleave(torch.arange(counts.shape[0], device=indptr.device), counts,
+                                   output_size=nnz)
+
+
+def csr_rows(a: CSR) -> torch.Tensor:
+    """The row of each stored entry of ``a`` (int64), read nothing back."""
+    return compressed_ids(a.indptr, a.indices.shape[0])
+
+
+def compress_rows(rows, cols, data, shape) -> CSR:
+    """The CSR of the entries ``(rows[k], cols[k], data[k])`` in any order:
+    a stable sort by row, so each row keeps its entries' order, and the
+    row pointers from counts (``scatter_add_``: ``bincount`` would read
+    the largest row back from the device).  Duplicates stay."""
+    rows = rows.long()
+    order = torch.sort(rows, stable=True).indices
+    counts = rows.new_zeros(shape[0]).scatter_add_(0, rows, torch.ones_like(rows))
+    indptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
+    return CSR(indptr, cols[order].to(torch.int32), data[order], tuple(shape))
+
+
+def transpose_csr(a: CSR) -> CSR:
+    """The CSR of ``a``'s transpose, which is ``a``'s csc triple: a stable
+    sort by column keeps each new row's entries in ``a``'s row order."""
+    return compress_rows(a.indices, csr_rows(a), a.data, (a.shape[1], a.shape[0]))
+
+
+def torch_sparse_as_csr(value: torch.Tensor) -> CSR:
+    """A torch sparse csr or csc tensor as the port's ``CSR`` on its own
+    device (a csc one through ``transpose_csr``)."""
+    shape = tuple(int(d) for d in value.shape)
+    if value.layout == torch.sparse_csr:
+        return CSR(value.crow_indices().to(torch.int32), value.col_indices().to(torch.int32),
+                   value.values(), shape)
+    if value.layout == torch.sparse_csc:
+        t = CSR(value.ccol_indices().to(torch.int32), value.row_indices().to(torch.int32),
+                value.values(), (shape[1], shape[0]))
+        return transpose_csr(t)
+    raise TypeError(f"expected a sparse csr or csc tensor, got layout {value.layout}")
+
+
+def csr_as_torch_sparse(value: CSR, format: str) -> torch.Tensor:
+    """The port's ``CSR`` as a torch sparse compressed tensor in the
+    graph's ``format`` on its device: ``torch.sparse_csr_tensor`` for csr
+    (and bsr, whose device value is the logical CSR), and for csc
+    ``torch.sparse_csc_tensor`` of the csc triple (``transpose_csr``)."""
+    t, make = ((transpose_csr(value), torch.sparse_csc_tensor) if format == "csc"
+               else (value, torch.sparse_csr_tensor))
+    with warnings.catch_warnings():
+        # torch warns once that its sparse compressed tensors are in beta
+        warnings.simplefilter("ignore", UserWarning)
+        return make(t.indptr, t.indices, t.data, value.shape)

@@ -10,8 +10,9 @@ lowerings of ``pytensor_tpu/raise_op.py:81``, ``ifelse.py:114``,
 lowerings of ``pytensor_tpu/tensor/einsum.py:229``,
 ``fft.py:142`` and ``signal/conv.py:180``, of those of
 ``pytensor_tpu/tensor/optimize.py:346`` (in ``link/torch/optimize.py``), of the Scan lowering at
-``pytensor_tpu/scan/op.py:790`` and of the sparse lowerings at
-``pytensor_tpu/sparse/basic.py:642-757`` and ``sparse/spmv.py:412``.
+``pytensor_tpu/scan/op.py:790`` and of the sparse lowerings of
+``pytensor_tpu/sparse/{basic,structured,linalg,compat,spmv}.py`` (in
+``link/torch/sparse.py``).
 ``torch_funcify(op, node=node, device=device)`` returns a function of
 torch tensors.  Shape values (``Shape``, ``Shape_i`` and the arithmetic
 on them) stay on the host, so a reshape never waits on the device.
@@ -41,11 +42,9 @@ from pytensor_tpu_torch.ifelse import IfElse
 from pytensor_tpu_torch.printing import Print
 from pytensor_tpu_torch.raise_op import CheckAndRaise
 from pytensor_tpu_torch.scalar.basic import upcast
-from pytensor_tpu_torch.link.torch.convert import CSR, UNSIGNED, torch_dtype
+from pytensor_tpu_torch.link.torch.convert import UNSIGNED, torch_dtype
 from pytensor_tpu_torch.scan.dynlen import PadTraceGrad, TruncateToDone
 from pytensor_tpu_torch.scan.op import Scan
-from pytensor_tpu_torch.sparse.basic import StructuredDot, StructuredDotGrad, Transpose
-from pytensor_tpu_torch.sparse.spmv import RoutedSpMV
 from pytensor_tpu_torch.tensor.basic import (
     ARange,
     Alloc,
@@ -126,7 +125,8 @@ def torch_funcify(op, node=None, device=None, **kwargs):
 ALL = "all"
 
 
-def ports(host=(), checked=(), scalar=(), reads_back=False, keeps_host=(), batched=False):
+def ports(host=(), checked=(), scalar=(), reads_back=False, keeps_host=(), batched=False,
+          host_outputs=(), bounded=()):
     """Declare, on a lowering, what its function does with the host.  Each
     of ``host``, ``checked``, ``scalar`` and ``keeps_host`` is a tuple of
     input positions, ``ALL`` or a function of the node giving them:
@@ -145,14 +145,22 @@ def ports(host=(), checked=(), scalar=(), reads_back=False, keeps_host=(), batch
       its step loop's inner plan reads as host values);
     - ``batched``: the function takes leading batch dimensions on its
       inputs and broadcasts them, so that a ``Blockwise`` of the op is one
-      call of it (a flag, or a function of the ``Blockwise`` node).
+      call of it (a flag, or a function of the ``Blockwise`` node);
+    - ``host_outputs``: output positions the function returns as host
+      values made from what the host knows (``CSMProperties``' shape);
+    - ``bounded``: output positions whose least and greatest entries the
+      function knows from its inputs' shapes and records in the plan's
+      ``bounds`` (a dict by variable, which the linker hands each
+      lowering), so that a bounds check of an index by one reads nothing
+      back (``_IndexCheck``; ``sparse/compat.py _MajorIds``' row ids).
 
     The linker places the constants of ``host`` ports on the host, and its
     capture rule (``linker.py _host_reads``) reads these declarations."""
     def declare(lowering):
         lowering.ports = {"host": host, "checked": checked, "scalar": scalar,
                           "reads_back": reads_back, "keeps_host": keeps_host,
-                          "batched": batched}
+                          "batched": batched, "host_outputs": host_outputs,
+                          "bounded": bounded}
         return lowering
 
     return declare
@@ -1062,6 +1070,13 @@ def arange_index(var):
     return None
 
 
+def bounded_by_producer(var) -> bool:
+    """Does ``var``'s producer record its bounds on the host: its lowering
+    declares the output ``bounded`` (``ports``)."""
+    return (var.owner is not None
+            and var.owner.outputs.index(var) in ports_of(var.owner, "bounded"))
+
+
 def _const_int(var):
     """The Python int of a 0-d integer constant, else None."""
     if isinstance(var, Constant) and np.ndim(var.data) == 0 and var.type.dtype.startswith("int"):
@@ -1071,12 +1086,16 @@ def _const_int(var):
 
 class _IndexCheck:
     """Bounds check and negative-index normalisation of one index input.
-    A constant is checked by its values, an ``arange_index`` by its size;
-    any other index reads its min and max on the host."""
+    A constant is checked by its values, an ``arange_index`` by its size,
+    one ``bounded_by_producer`` by what its producer recorded in the plan's
+    ``bounds`` (the lowering's ``bounds`` keyword); any other index reads
+    its min and max on the host."""
 
-    def __init__(self, var, static_dim=None):
+    def __init__(self, var, static_dim=None, bounds=None):
         self.const = isinstance(var, Constant)
         self.arange = arange_index(var)
+        self.var = var
+        self.known = bounds if bounds is not None and bounded_by_producer(var) else None
         if self.const:
             data = np.asarray(var.data)
             self.lo = int(data.min()) if data.size else 0
@@ -1101,6 +1120,8 @@ class _IndexCheck:
         if self.arange is not None:
             first, step = self.arange
             return tuple(sorted((first, first + step * (idx.numel() - 1))))
+        if self.known is not None:
+            return self.known[self.var]
         return int(idx.min()), int(idx.max())
 
     def __call__(self, idx, n):
@@ -1117,7 +1138,7 @@ class _IndexCheck:
 @torch_funcify.register(AdvancedSubtensor1)
 @ports(checked=(1,))
 def _adv_sub1(op, node=None, **kw):
-    check = _IndexCheck(node.inputs[1], node.inputs[0].type.shape[0])
+    check = _IndexCheck(node.inputs[1], node.inputs[0].type.shape[0], kw.get("bounds"))
 
     def adv_sub1(x, ilist):
         return x.index_select(0, check(ilist, x.shape[0]))
@@ -1128,7 +1149,7 @@ def _adv_sub1(op, node=None, **kw):
 @torch_funcify.register(AdvancedIncSubtensor1)
 @ports(checked=(2,))
 def _adv_incsub1(op, node=None, **kw):
-    check = _IndexCheck(node.inputs[2], node.inputs[0].type.shape[0])
+    check = _IndexCheck(node.inputs[2], node.inputs[0].type.shape[0], kw.get("bounds"))
     set_mode = op.set_instead_of_inc
     ignore_dups = op.ignore_duplicates
 
@@ -1240,7 +1261,7 @@ def _adv_index(idx_list, ind, checks, shape):
 def _adv_sub(op, node=None, **kw):
     idx_list = op.idx_list
     x_shape = node.inputs[0].type.shape
-    checks = [_IndexCheck(node.inputs[1 + pos], x_shape[axis])
+    checks = [_IndexCheck(node.inputs[1 + pos], x_shape[axis], kw.get("bounds"))
               for axis, pos in _adv_entries(idx_list, node.inputs[1:])]
 
     def adv_sub(x, *ind):
@@ -1283,7 +1304,8 @@ def _adv_incsub(op, node=None, **kw):
     x_shape = node.inputs[0].type.shape
     core_nd = node.inputs[0].type.ndim
     entries = _adv_entries(idx_list, node.inputs[2:])
-    checks = [_IndexCheck(node.inputs[2 + pos], x_shape[axis]) for axis, pos in entries]
+    checks = [_IndexCheck(node.inputs[2 + pos], x_shape[axis], kw.get("bounds"))
+              for axis, pos in entries]
     set_mode = op.set_instead_of_inc
     full = ("slice", None, None, None)
     dyn_axes = [d for d, e in enumerate(idx_list) if e == DYN]
@@ -1416,8 +1438,8 @@ def _searchsorted(op, node=None, **kw):
     right = op.side == "right"
     a_var, v_var = node.inputs[:2]
     dtype = torch_dtype(upcast(a_var.type.dtype, v_var.type.dtype))
-    check = (_IndexCheck(node.inputs[2], a_var.type.shape[0]) if len(node.inputs) == 3
-             else None)
+    check = (_IndexCheck(node.inputs[2], a_var.type.shape[0], kw.get("bounds"))
+             if len(node.inputs) == 3 else None)
 
     def searchsorted(a, v, *sorter):
         if check is not None:
@@ -1444,7 +1466,7 @@ def _unravel_index(op, node=None, **kw):
     """The coordinates of each flat index in ``dims`` (a host value, read
     when the graph is linked where it is a constant); an index out of
     range raises, as in the numpy oracle."""
-    check = _IndexCheck(node.inputs[0])
+    check = _IndexCheck(node.inputs[0], None, kw.get("bounds"))
     c_order = op.order == "C"
 
     def unravel_index(indices, dims):
@@ -1475,7 +1497,7 @@ def _ravel_multi_index(op, node=None, **kw):
     constants.  ``"wrap"`` and ``"clip"`` are numpy's."""
     n = len(node.inputs) - 1
     modes = list(op.mode) if isinstance(op.mode, (list, tuple)) else [op.mode] * n
-    checks = [_IndexCheck(v) for v in node.inputs[:n]]
+    checks = [_IndexCheck(v, None, kw.get("bounds")) for v in node.inputs[:n]]
     c_order = op.order == "C"
 
     def ravel_multi_index(*inp):
@@ -2138,89 +2160,12 @@ def _pad_trace_grad(op, node=None, **kw):
     return pad_trace_grad
 
 
-# --- sparse ---------------------------------------------------------------------
-# A sparse value is the canonical CSR triple (link/torch/convert.py CSR) of
-# the logical matrix, whatever its graph format.
-
-def _csr_rows(a):
-    """The row of each nonzero of CSR ``a``; the output size is given, so
-    that nothing is read back from the device."""
-    counts = (a.indptr[1:] - a.indptr[:-1]).long()
-    return torch.repeat_interleave(torch.arange(a.shape[0], device=a.data.device), counts,
-                                   output_size=a.indices.shape[0])
-
-
-@torch_funcify.register(StructuredDot)
-def _structured_dot(op, node=None, **kw):
-    """The matvec of a matrix the routed rewrite refused (under 4,096
-    nonzeros, float64, a sparse input, a 2-d operand).  As the JAX
-    package's ``_sdot``: a float32 CSR constant sums each row as a
-    difference of one prefix sum over the products; any other operand
-    adds the products into their rows (``index_add_``)."""
-    out = torch_dtype(node.outputs[0].type.dtype)
-    a_var = node.inputs[0]
-    prefix = (out == torch.float32 and isinstance(a_var, Constant)
-              and a_var.type.format == "csr")
-
-    def structured_dot(a, b):
-        b = b.to(out)
-        prod = a.data.to(out)[(slice(None),) + (None,) * (b.ndim - 1)] * b[a.indices.long()]
-        if prefix:
-            cs = torch.cumsum(prod, dim=0)
-            padded = torch.cat([torch.zeros_like(cs[:1]), cs])
-            starts = a.indptr.long()
-            return padded[starts[1:]] - padded[starts[:-1]]
-        y = torch.zeros((a.shape[0], *b.shape[1:]), dtype=out, device=b.device)
-        return y.index_add_(0, _csr_rows(a), prod)
-
-    return structured_dot
-
-
-@torch_funcify.register(Transpose)
-def _transpose(op, node=None, **kw):
-    def transpose(a):
-        rows = _csr_rows(a)
-        cols = a.indices.long()
-        # a stable sort by column keeps each new row's columns sorted
-        order = torch.sort(cols, stable=True).indices
-        # bincount would read the largest column back from the device
-        counts = cols.new_zeros(a.shape[1]).scatter_add_(0, cols, torch.ones_like(cols))
-        indptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
-        return CSR(indptr, rows[order].to(torch.int32), a.data[order],
-                   (a.shape[1], a.shape[0]))
-
-    return transpose
-
-
-@torch_funcify.register(StructuredDotGrad)
-def _structured_dot_grad(op, node=None, **kw):
-    dtype = torch_dtype(node.outputs[0].type.dtype)
-
-    def structured_dot_grad(a, b, gz):
-        b2 = b if b.ndim == 2 else b[:, None]
-        gz2 = gz if gz.ndim == 2 else gz[:, None]
-        vals = (gz2[_csr_rows(a)] * b2[a.indices.long()]).sum(1)
-        return CSR(a.indptr, a.indices, vals.to(dtype), a.shape)
-
-    return structured_dot_grad
-
-
-@torch_funcify.register(RoutedSpMV)
-def _routed_spmv(op, node=None, **kw):
-    """K4 on a CUDA device, its plain version on the CPU; a (N, 1)
-    operand is viewed flat."""
-    from pytensor_tpu_torch.link.cuda.spmv_kernel import spmv
-
-    def routed_spmv(b, indptr, indices, data):
-        x = b.reshape(-1) if b.ndim == 2 else b
-        return spmv(indptr, indices, data, x.contiguous())
-
-    return routed_spmv
-
-
 # the lowerings of tensor/optimize.py's ops (BFGS and Newton), in a module
 # of their own
 import pytensor_tpu_torch.link.torch.optimize  # noqa: E402,F401
 
 # the lowerings of tensor/random (RandomVariable and the key ops)
 import pytensor_tpu_torch.link.torch.random  # noqa: E402,F401
+
+# the lowerings of the sparse ops (sparse/{basic,structured,linalg,compat,spmv}.py)
+import pytensor_tpu_torch.link.torch.sparse  # noqa: E402,F401

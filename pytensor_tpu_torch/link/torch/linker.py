@@ -76,8 +76,14 @@ from pytensor_tpu_torch.link.torch.convert import (
     resolve_device,
     sparse_as_torch,
     torch_dtype,
+    torch_sparse_as_csr,
 )
-from pytensor_tpu_torch.link.torch.dispatch import arange_index, ports_of, torch_funcify
+from pytensor_tpu_torch.link.torch.dispatch import (
+    arange_index,
+    bounded_by_producer,
+    ports_of,
+    torch_funcify,
+)
 from pytensor_tpu_torch.ifelse import IfElse
 from pytensor_tpu_torch.raise_op import CheckAndRaise
 from pytensor_tpu_torch.sparse.type import SparseTensorType
@@ -111,7 +117,8 @@ def _takes_host_scalar(node, k, var) -> bool:
 
 def _host_variables(order, host_inputs=()) -> set:
     """The values computed on the host: shapes and typed lists' lengths,
-    and what the host-capable ops compute from them and constants.  A
+    the outputs a lowering declares ``host_outputs`` (a sparse value's
+    shape), and what the host-capable ops compute from them and constants.  A
     host-capable op of constants alone (a graph no rewrite folded, such as
     a nested scan's body) runs on the host where a host port reads what it
     computes, and on the device otherwise."""
@@ -122,6 +129,7 @@ def _host_variables(order, host_inputs=()) -> set:
             wanted.update(node.inputs)
     host: set = set(host_inputs)
     for node in order:
+        host.update(node.outputs[k] for k in ports_of(node, "host_outputs"))
         if isinstance(node.op, (Shape, Shape_i, Length)):
             host.update(node.outputs)
         elif (isinstance(node.op, _HOST_CAPABLE)
@@ -162,8 +170,10 @@ def _host_reads(steps, host) -> list:
       the JAX package would make the input a static argument
       (``pytensor_tpu/link/xla/linker.py:194-231``);
     - a bounds check (``_IndexCheck``, the ``checked`` ports) of an index
-      that is neither a constant nor an ``arange`` of constant start and
-      step (``dispatch.py arange_index``, bounded by its size):
+      that is neither a constant, nor an ``arange`` of constant start and
+      step (``dispatch.py arange_index``, bounded by its size), nor the
+      output of an op whose lowering records its bounds
+      (``bounded_by_producer``: a sparse matrix's row ids):
       ``idx.min()``/``idx.max()``.  The port raises on an index out of
       bounds where the XLA path clamps, and keeps that;
     - a host value at any other port of a node that runs on the device,
@@ -172,8 +182,9 @@ def _host_reads(steps, host) -> list:
       ops' alpha and beta) take a one-element host value as a scalar
       argument instead (``_takes_host_scalar``);
     - a lowering that reads the device on the host (``reads_back``:
-      ``Nonzero``'s output size; ``Eigh``, ``SVD`` and ``Expm``, whose
-      torch routines synchronise);
+      ``Nonzero``'s output size and the sparse ops whose count of stored
+      entries depends on the values (``link/torch/sparse.py``); ``Eigh``,
+      ``SVD`` and ``Expm``, whose torch routines synchronise);
     - the same in the inner plan of a scan that runs as the step loop,
       which takes the host values and constants among the scan's
       non-sequences as host values and constants (``keeps_host``).
@@ -182,15 +193,16 @@ def _host_reads(steps, host) -> list:
     wrappers (``.item()``, ``int()``, ``.tolist()``, ``.cpu()`` of a run-time
     value): ``_specify_shape``, ``_reshape``, ``_alloc``, ``_basic_index``
     and ``_adv_index``'s slice bounds, ``_IndexCheck``, ``scan_loop``'s and
-    K2's ``int(n_steps)``.  The sparse lowerings read nothing back
-    (``_csr_rows`` gives ``repeat_interleave`` its output size, and
-    ``Transpose`` counts columns by ``scatter_add_``, not ``bincount``).
+    K2's ``int(n_steps)``.  The other sparse lowerings read nothing back
+    (``convert.py csr_rows`` gives ``repeat_interleave`` its output size,
+    ``compress_rows`` counts rows by ``scatter_add_``, not ``bincount``,
+    and ``CSMProperties``' shape is a host value).
     Host values themselves (``_host_variables``) depend only on the
     shapes of the inputs, which the signature of a capture fixes.
     """
     reads = []
     for fn, node, _, _ in steps:
-        if any(o in host for o in node.outputs):
+        if node.outputs and all(o in host for o in node.outputs):
             continue  # computed on the host from host values and constants
         ports, checked = ports_of(node, "host"), ports_of(node, "checked")
         keeps = ports_of(node, "keeps_host")
@@ -202,7 +214,7 @@ def _host_reads(steps, host) -> list:
                 continue
             if k in ports and i not in host:
                 reads.append(f"{node}: input {k} is read on the host and lives on the device")
-            elif k in checked and arange_index(i) is None:
+            elif k in checked and arange_index(i) is None and not bounded_by_producer(i):
                 reads.append(f"{node}: the bounds check of index input {k} reads its min and "
                              "max on the host")
             elif (k not in ports and k not in keeps and i in host
@@ -359,8 +371,8 @@ class Plan:
 
     def convert(self, args):
         """The inputs checked for device, dtype and shape, numpy values
-        (and scipy matrices, for sparse inputs, and lists, for typed-list
-        inputs) converted."""
+        (and scipy matrices or torch sparse tensors, for sparse inputs, and
+        lists, for typed-list inputs) converted."""
         return [self._convert(var.type, var, value) for var, value in zip(self.inputs, args)]
 
     def _convert(self, ty, var, value):
@@ -370,7 +382,14 @@ class Plan:
                 raise TypeError(f"input {var} is a typed list, got {type(value)}")
             return [self._convert(ty.ttype, var, v) for v in value]
         if isinstance(ty, SparseTensorType):
-            return sparse_as_torch(ty.filter(value), device)
+            if isinstance(value, CSR):
+                return value
+            value = ty.filter(value)
+            if not isinstance(value, torch.Tensor):
+                return sparse_as_torch(value, device)
+            if value.device != device:
+                raise ValueError(f"input {var} is on {value.device}, the function on {device}")
+            return torch_sparse_as_csr(value)
         if isinstance(value, torch.Tensor):
             value = held(value, ty.dtype)
             if value.device != device:
@@ -535,15 +554,19 @@ def fgraph_to_torch(fgraph: FunctionGraph, device, trust_input: bool = False,
         raise RuntimeError("an inner plan's CheckAndRaise nodes must write into the outer "
                            "plan's flags: its lowering must pass fgraph_to_torch its checks")
     steps = []
+    # the bounds of the ``bounded`` outputs (dispatch.py ports), recorded
+    # by their producers as the plan runs and read by ``_IndexCheck``
+    bounds: dict = {}
     _LOWERING.depth = nested + 1
     try:
         for node, free in zip(order, _free_lists(order, fgraph)):
             kw = {}
             if checks is not None and isinstance(node.op, CheckAndRaise):
                 kw["slot"] = checks.slot(fgraph, node)
-            fn = torch_funcify(node.op, node=node, device=device, host=host, checks=checks, **kw)
+            fn = torch_funcify(node.op, node=node, device=device, host=host, checks=checks,
+                               bounds=bounds, **kw)
             ports = ports_of(node, "host")
-            on_host = any(o in host for o in node.outputs)
+            on_host = bool(node.outputs) and all(o in host for o in node.outputs)
             args = [("const", const_value(i, cpu if on_host or k in ports else device))
                     if isinstance(i, Constant) else ("var", i)
                     for k, i in enumerate(node.inputs)]

@@ -57,6 +57,16 @@ and the one of ROADMAP Queue 3 item 1:
     values are within the ulps stated for each graph: what torch's and
     XLA's own functions (``sinh``, ``log1mexp``, ...) differ by.
 
+and one found with the sparse module:
+
+14. a function whose output is sparse raised (``'CSR' object has no
+    attribute 'untyped_storage'``).  It now returns a torch sparse
+    compressed tensor in the output's format (csr or csc) on the
+    function's device, where the JAX package returns a scipy matrix
+    (``FAST_COMPILE``) or a BCOO (its XLA path), with the oracle's
+    structure; it takes such a tensor as an input; and an output whose
+    buffers are a shared variable's is copied, as a dense one is.
+
 Values are compared exactly (bools, signs of zero) or at ``rtol 1e-12``.
 """
 
@@ -417,3 +427,86 @@ def test_value_changing_math_rewrites(name, graph):
     assert counts["torch"][name] == counts["jax"][name] > 0
     assert port.dtype == jax.dtype and port.shape == jax.shape
     assert ulps(port, jax) <= MATH_ULPS[label]
+
+
+# --- 14. sparse outputs ------------------------------------------------------------------
+
+def _scipy_of(t):
+    """A torch sparse csr or csc tensor as the scipy matrix of its triple."""
+    import scipy.sparse as sp
+
+    if t.layout == torch.sparse_csr:
+        return sp.csr_matrix((t.values().numpy(), t.col_indices().numpy(),
+                              t.crow_indices().numpy()), shape=tuple(t.shape))
+    assert t.layout == torch.sparse_csc
+    return sp.csc_matrix((t.values().numpy(), t.row_indices().numpy(),
+                          t.ccol_indices().numpy()), shape=tuple(t.shape))
+
+
+def _sparse_outputs(sparse, pt, fmt):
+    x = sparse.matrix(fmt, "x", "float64")
+    y = sparse.matrix(fmt, "y", "float64")
+    d = pt.dmatrix("d")
+    return [x, y, d], [sparse.transpose(x), sparse.add(x, y), sparse.csr_from_dense(d),
+                       sparse.csc_from_dense(d), sparse.hstack([x, y], format=fmt)]
+
+
+@pytest.mark.parametrize("fmt", ["csr", "csc"])
+def test_sparse_outputs_are_torch_sparse_tensors(fmt):
+    """Each sparse output is a torch sparse tensor of its graph format on
+    the CPU, with the JAX oracle's triple (data, indices, pointers)."""
+    import scipy.sparse as sp
+
+    from pytensor_tpu import sparse as jsparse
+    from pytensor_tpu_torch import sparse as tsparse
+
+    A = sp.random(4, 5, density=0.4, format=fmt, random_state=1)
+    B = sp.random(4, 5, density=0.4, format=fmt, random_state=2)
+    D = sp.random(3, 4, density=0.5, random_state=3).toarray()
+    j_ins, j_outs = _sparse_outputs(jsparse, jpt, fmt)
+    want = jptt.function(j_ins, j_outs, mode="FAST_COMPILE")(A, B, D)
+    t_ins, t_outs = _sparse_outputs(tsparse, tpt, fmt)
+    got = tptt.function(t_ins, t_outs, device="cpu")(A, B, D)
+    for g, w, o in zip(got, want, t_outs):
+        assert isinstance(g, torch.Tensor) and g.device.type == "cpu"
+        assert g.layout == {"csr": torch.sparse_csr, "csc": torch.sparse_csc}[o.type.format]
+        g = _scipy_of(g)
+        assert g.format == w.format and g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_array_equal(g.indptr, w.indptr)
+        np.testing.assert_array_equal(g.indices, w.indices)
+        np.testing.assert_array_equal(g.data, w.data)
+
+
+@pytest.mark.parametrize("fmt", ["csr", "csc"])
+def test_sparse_inputs_take_torch_sparse_tensors(fmt):
+    """A torch sparse tensor of either layout is taken where a scipy
+    matrix is, with the same result."""
+    import scipy.sparse as sp
+
+    from pytensor_tpu_torch import sparse as tsparse
+
+    A = sp.random(6, 5, density=0.4, format=fmt, random_state=4)
+    x = tsparse.matrix(fmt, "x", "float64")
+    f = tptt.function([x], [tsparse.sp_sum(x, axis=0), tsparse.transpose(x)], device="cpu")
+    dense = torch.from_numpy(A.toarray())
+    outs = [f(A), f(dense.to_sparse_csr()), f(dense.to_sparse_csc())]
+    for s, t in outs[1:]:
+        np.testing.assert_array_equal(s.numpy(), outs[0][0].numpy())
+        np.testing.assert_array_equal(t.to_dense().numpy(), A.T.toarray())
+
+
+def test_sparse_output_does_not_alias_a_shared_variable():
+    """``CSM`` of a shared vector returns the shared tensor's storage as its
+    data: the output is copied, so a later update leaves it as it was."""
+    from pytensor_tpu_torch import sparse as tsparse
+
+    w = tptt.shared(np.arange(1.0, 4.0), name="w", device="cpu")
+    indices, indptr = np.array([0, 2, 1], "int32"), np.array([0, 2, 3], "int32")
+    read = tptt.function([], tsparse.CSM("csr")(w, indices, indptr, np.array([2, 3])),
+                         device="cpu")
+    bump = tptt.function([], [], updates={w: w + 1.0}, device="cpu")
+    before = read()
+    bump()
+    np.testing.assert_array_equal(before.values().numpy(), [1.0, 2.0, 3.0])
+    np.testing.assert_array_equal(read().values().numpy(), [2.0, 3.0, 4.0])
+
